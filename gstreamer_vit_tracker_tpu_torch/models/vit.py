@@ -1,0 +1,125 @@
+"""ViT encoder backbone (params as nested dicts of tensors).
+
+Port of ``gstreamer_vit_tracker_tpu/models/vit.py``: template and search
+crops are patch-embedded (separate learned position embeddings),
+concatenated into one token sequence, and encoded jointly by a pre-LN ViT.
+
+``encode`` runs all blocks through ``ops/vit_block.py::encoder``: the CUDA
+encoder kernel on a CUDA tensor, its plain twin (a chain of :func:`_block`)
+on a CPU tensor.  The final LN and the split back to search tokens stay
+outside the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..ops import vit_block
+from ..ops.attention import multihead_attention
+
+Params = Dict[str, Any]
+
+LN_EPS = 1e-6   # torch's default is 1e-5
+
+
+def cast_params(p: Any, dtype: torch.dtype) -> Any:
+    """Cast floating tensors of a param tree to the compute dtype at use
+    (masters stay float32).  A tensor already in ``dtype`` is returned as
+    is."""
+    if isinstance(p, dict):
+        return {k: cast_params(v, dtype) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return [cast_params(v, dtype) for v in p]
+    return p.to(dtype) if p.is_floating_point() else p
+
+
+def layer_norm(x: torch.Tensor, p: Params, eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm in float32 (scale and bias promoted to float32), cast back
+    to ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def patch_embed(img: torch.Tensor, p: Params, patch: int) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, N, D) via reshape + matmul (stride == kernel
+    conv).  Each patch flattens in (p, q, c) order, the kernel's row
+    order."""
+    b, h, w, c = img.shape
+    gh, gw = h // patch, w // patch
+    x = img.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, patch * patch * c)
+    return x @ p["kernel"] + p["bias"]
+
+
+def _linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """``x @ kernel + bias`` accumulated and biased in float32, rounded to
+    ``x.dtype`` once (the encoder kernel's rounding point)."""
+    return (torch.matmul(x.float(), p["kernel"].float())
+            + p["bias"].float()).to(x.dtype)
+
+
+def _block(x: torch.Tensor, p: Params, num_heads: int) -> torch.Tensor:
+    """One pre-LN transformer block, plain PyTorch.
+
+    This is the plain twin of one step of the CUDA encoder kernel and of
+    the TPU's ``ops/vit_block.py::_block_math``.  In float32 it computes
+    what JAX's ``vit._block`` computes.  In bf16 it rounds where the fused
+    kernels round: each product is accumulated and biased in float32 and
+    rounded once, attention runs in float32, and the tanh GELU is taken in
+    float32 of the rounded mlp1 output.  JAX's ``vit._block`` rounds the
+    product and the bias sum separately.
+    """
+    dt = x.dtype
+    h = layer_norm(x, p["ln1"])
+    qkv = _linear(h, p["qkv"])
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    attn = multihead_attention(q, k, v, num_heads)
+    x = x + _linear(attn, p["proj"])
+    h = layer_norm(x, p["ln2"])
+    g = F.gelu(_linear(h, p["mlp1"]).float(), approximate="tanh").to(dt)
+    return x + _linear(g, p["mlp2"])
+
+
+def _cdtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def embed_template(params: Params, z_img: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Normalised template crop (B, Hz, Wz, 3) -> (B, Nz, D) tokens, the
+    part of the forward pass cached across frames in ``TrackState``."""
+    dt = _cdtype(cfg)
+    pe = cast_params(params["patch_embed"], dt)
+    tok = patch_embed(z_img.to(dt), pe, cfg.patch_size)
+    return tok + params["pos_embed_z"].to(tok.dtype)
+
+
+def embed_search(params: Params, x_img: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    dt = _cdtype(cfg)
+    pe = cast_params(params["patch_embed"], dt)
+    tok = patch_embed(x_img.to(dt), pe, cfg.patch_size)
+    return tok + params["pos_embed_x"].to(tok.dtype)
+
+
+def encode(params: Params, z_tok: torch.Tensor, x_tok: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Joint encoding of [template; search] tokens.
+
+    Returns the encoded search tokens (B, Nx, D) after the final LN, the
+    input to the heads.
+    """
+    dt = _cdtype(cfg)
+    x = torch.cat([z_tok.to(dt), x_tok.to(dt)], dim=1)
+    if params["blocks"]:     # depth 0 has no blocks to run
+        blocks = [cast_params(bp, dt) for bp in params["blocks"]]
+        x = vit_block.encoder(x, blocks, cfg.num_heads)
+    x = layer_norm(x, params["norm"])
+    return x[:, z_tok.shape[1]:, :]

@@ -1,0 +1,63 @@
+"""VitTrack model: joint template/search ViT encoder + prediction heads.
+
+Port of ``gstreamer_vit_tracker_tpu/models/vittrack.py`` (conv head).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from ..config import ModelConfig
+from . import heads as heads_mod
+from . import vit
+
+Params = Dict[str, Any]
+
+
+class TrackMaps(NamedTuple):
+    score: torch.Tensor    # (B, fs, fs)
+    offset: torch.Tensor   # (B, fs, fs, 2)
+    size: torch.Tensor     # (B, fs, fs, 2)
+
+
+def embed_template(params: Params, z_img: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Normalised template crop (B, Hz, Wz, 3) -> cached template tokens,
+    computed at ``init`` and carried across every ``update``."""
+    return vit.embed_template(params["backbone"], z_img, cfg)
+
+
+def forward(params: Params, z_tok: torch.Tensor, x_img: torch.Tensor,
+            cfg: ModelConfig) -> TrackMaps:
+    """One tracking forward pass.  z_tok: (B, Nz, D) cached template
+    tokens; x_img: (B, Hx, Wx, 3) normalised search crop."""
+    x_tok = vit.embed_search(params["backbone"], x_img, cfg)
+    return forward_tokens(params, z_tok, x_tok, cfg)
+
+
+def forward_tokens(params: Params, z_tok: torch.Tensor, x_tok: torch.Tensor,
+                   cfg: ModelConfig) -> TrackMaps:
+    """Forward from already-embedded search tokens (B, Nx, D).  Serves the
+    grouped head when :func:`with_grouped_head` attached one."""
+    if cfg.head_mode != "conv":
+        raise NotImplementedError(
+            f"head_mode {cfg.head_mode!r}: only the conv head is ported")
+    x_feat = vit.encode(params["backbone"], z_tok.to(x_tok.dtype), x_tok, cfg)
+    g = params.get("head_grouped")
+    if g is not None:
+        score, offset, size = heads_mod.conv_head_grouped(g, x_feat, cfg)
+    else:
+        score, offset, size = heads_mod.conv_head(params["head"], x_feat, cfg)
+    return TrackMaps(score=score, offset=offset, size=size)
+
+
+def with_grouped_head(params: Params) -> Params:
+    """Serving-time param prep: attach the derived 4-conv grouped head
+    (models/heads.py::group_head_params).  Call once after loading."""
+    if "head" not in params or "head_grouped" in params:
+        return params
+    out = dict(params)
+    out["head_grouped"] = heads_mod.group_head_params(params["head"])
+    return out

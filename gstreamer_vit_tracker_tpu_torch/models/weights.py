@@ -1,0 +1,110 @@
+"""Weights in: the flat npz checkpoints the JAX package writes, as torch
+tensors.
+
+``gstreamer_vit_tracker_tpu/models/weights.py::_flatten`` stores the
+parameter tree as flat keys joined by ``/`` (``backbone/blocks/3/qkv/kernel``,
+``head/score/0/kernel``, ...).  :func:`params_from_flat` rebuilds the same
+nested tree (dicts, lists for blocks and tower layers) with every shape
+checked against the config, as the JAX ``load_npz`` checks against its
+``like`` tree.  Layouts stay as stored: linear kernels (in, out), conv
+kernels HWIO.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+
+Params = Dict[str, Any]
+
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "assets")
+
+# Shipped checkpoints of the presets in config.PRESETS.
+CHECKPOINTS = {
+    "small": "weights_small_synthetic.npz",
+    "vittrack-t": "weights_vittrack_t_synthetic.npz",
+}
+
+
+def checkpoint_path(preset: str) -> str:
+    return os.path.join(ASSETS, CHECKPOINTS[preset])
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree of ``cfg`` with a shape tuple at every leaf (the
+    structure of the JAX ``vittrack.init_params``)."""
+    d = cfg.embed_dim
+    p = cfg.patch_size
+    hidden = int(d * cfg.mlp_ratio)
+    ln = {"scale": (d,), "bias": (d,)}
+    backbone = {
+        "patch_embed": {"kernel": (p * p * 3, d), "bias": (d,)},
+        "pos_embed_z": (cfg.num_template_tokens, d),
+        "pos_embed_x": (cfg.num_search_tokens, d),
+        "norm": dict(ln),
+        "blocks": [{
+            "ln1": dict(ln), "ln2": dict(ln),
+            "qkv": {"kernel": (d, 3 * d), "bias": (3 * d,)},
+            "proj": {"kernel": (d, d), "bias": (d,)},
+            "mlp1": {"kernel": (d, hidden), "bias": (hidden,)},
+            "mlp2": {"kernel": (hidden, d), "bias": (d,)},
+        } for _ in range(cfg.depth)],
+    }
+    tree: Params = {"backbone": backbone}
+    if cfg.head_mode == "conv":
+        chans = [d, d // 2, d // 4, d // 8]
+
+        def tower(out_ch):
+            layers = [{"kernel": (3, 3, chans[i], chans[i + 1]),
+                       "bias": (chans[i + 1],)} for i in range(len(chans) - 1)]
+            layers.append({"kernel": (1, 1, chans[-1], out_ch),
+                           "bias": (out_ch,)})
+            return layers
+
+        tree["head"] = {"score": tower(1), "offset": tower(2),
+                        "size": tower(2)}
+    return tree
+
+
+def params_from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
+                     device="cuda", dtype=torch.float32) -> Params:
+    """Rebuild the nested parameter tree of ``cfg`` from flat npz arrays.
+
+    Raises ``KeyError`` on a missing key and ``ValueError`` on a shape
+    mismatch.  Floating arrays become ``dtype`` tensors on ``device``
+    (float32 masters by default; the model casts at use, as the JAX
+    package does)."""
+    dev = resolve_device(device)
+
+    def rebuild(tree: Any, prefix: str) -> Any:
+        if isinstance(tree, dict):
+            return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [rebuild(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+        key = prefix[:-1]
+        if key not in flat:
+            raise KeyError(f"checkpoint missing parameter {key!r}")
+        arr = np.asarray(flat[key])
+        if arr.shape != tuple(tree):
+            raise ValueError(f"shape mismatch for {key!r}: "
+                             f"checkpoint {arr.shape} vs model {tuple(tree)}")
+        return torch.as_tensor(arr, dtype=dtype, device=dev)
+
+    return rebuild(param_shapes(cfg), "")
+
+
+def load_npz(path: str, cfg: ModelConfig, device="cuda",
+             dtype=torch.float32) -> Params:
+    """Load a checkpoint written by the JAX package's ``save_npz``."""
+    resolve_device(device)
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    return params_from_flat(flat, cfg, device=device, dtype=dtype)
+

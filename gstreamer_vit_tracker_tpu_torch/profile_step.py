@@ -1,0 +1,121 @@
+"""Where the time of the flagship update step goes on the card.
+
+Run from the root of a checkout, on a machine with an NVIDIA GPU:
+
+    python -m gstreamer_vit_tracker_tpu_torch.profile_step [--steps 30]
+
+Traces ``--steps`` flagship ``core.update_packed`` calls on a 1080p NV12
+frame (after warm-up) with ``torch.profiler`` (CPU + CUDA activity) and
+prints, as one JSON object: the host wall time per step, the device time
+per step summed over kernels (one stream, so kernels do not overlap), the
+device's idle share of the window, and the device time per step of each
+kernel name, largest first; the same for one encoder kernel call alone.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+def _kernel_table(prof, per: int):
+    """({kernel name: device us per repetition}, largest first; total
+    device us per repetition; device activities per repetition) from the
+    profiler's CUDA events."""
+    rows, count = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows[ev.name] = rows.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            count += 1
+    rows = {k: v / per for k, v in sorted(rows.items(), key=lambda kv: -kv[1])}
+    return rows, sum(rows.values()), count / per
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs an NVIDIA GPU")
+
+    from .entry import entry
+    from .models import vit
+    from .ops import preprocess as pp
+    from .ops import vit_block
+    from .tracker import core
+
+    dev = torch.device("cuda", 0)
+    fn, (params, state, frame) = entry(device=dev)
+    cfg = fn.keywords["cfg"]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+    for _ in range(5):
+        state, packed = core.update_packed(params, state, frame, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        state, packed = core.update_packed(params, state, frame, cfg, device=dev)
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, packed = core.update_packed(params, state, frame, cfg,
+                                               device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    step_rows, step_us, step_launches = _kernel_table(prof, args.steps)
+
+    window = pp.crop_window(state.bbox, cfg.search_factor)
+    x_tok = vit.embed_search(params["backbone"], core._prep_nv12(
+        frame, window, cfg.search_size, cfg)[None], cfg)
+    x = torch.cat([state.z_tok[None], x_tok], dim=1).contiguous()
+    blocks = [vit.cast_params(bp, torch.bfloat16)
+              for bp in params["backbone"]["blocks"]]
+    for _ in range(5):
+        vit_block.encoder(x, blocks, cfg.num_heads)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            vit_block.encoder(x, blocks, cfg.num_heads)
+        torch.cuda.synchronize()
+        enc_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    enc_rows, enc_us, enc_launches = _kernel_table(prof, args.steps)
+
+    top = args.top
+    print(json.dumps({
+        "card": card,
+        "torch": torch.__version__,
+        "steps": args.steps,
+        "step": {
+            "wall_ms_unprofiled": bare_ms,
+            "wall_ms": wall_ms,
+            "device_ms": step_us / 1e3,
+            "device_idle_share": max(0.0, 1.0 - step_us / 1e3 / wall_ms),
+            "kernels": len(step_rows),
+            "device_activities": step_launches,
+            "top_us": {k: round(v, 3) for k, v in list(step_rows.items())[:top]},
+            "packed": np.asarray(packed.cpu()).tolist(),
+        },
+        "encoder_call": {
+            "wall_ms": enc_wall_ms,
+            "device_ms": enc_us / 1e3,
+            "device_idle_share": max(0.0, 1.0 - enc_us / 1e3 / enc_wall_ms),
+            "device_activities": enc_launches,
+            "top_us": {k: round(v, 3) for k, v in list(enc_rows.items())[:top]},
+        },
+    }, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,181 @@
+"""Tracker core: ``init(frame, bbox) -> TrackState`` and
+``update(TrackState, frame) -> (TrackState, bbox, score)``.
+
+Port of ``gstreamer_vit_tracker_tpu/tracker/core.py`` for NV12 frames:
+
+    banded crop/resize/BT.601/normalise (resample products)
+      -> patch embed -> joint ViT encode (CUDA encoder kernel)
+      -> conv heads -> hanning-penalty decode -> bbox with clamps and freezes
+
+Every value of the step stays a tensor on the device, so a CUDA update
+enqueues its work without reading anything back; :func:`update_packed`
+returns the five numbers a caller reads as one tensor.  RGB and YUY2
+frames come with a later slice.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+from ..models import heads as heads_mod
+from ..models import vittrack
+from ..ops import preprocess as pp
+from .state import TrackState
+
+Params = Dict[str, Any]
+
+
+def _prep_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Preprocess in the model's compute dtype, as the JAX package does
+    (pixel integers <= 255 are exact in bf16)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _frame_on(frame, frame_format: str, dev: torch.device):
+    if frame_format != "nv12":
+        raise NotImplementedError(
+            f"frame_format {frame_format!r}: only nv12 is ported")
+    y_plane, uv_plane = frame
+    return (torch.as_tensor(y_plane, device=dev),
+            torch.as_tensor(uv_plane, device=dev))
+
+
+def _prep_nv12(frame, window: pp.CropWindow, out_size: int,
+               cfg: ModelConfig) -> torch.Tensor:
+    y_plane, uv_plane = frame
+    return pp.preprocess_nv12(y_plane, uv_plane, window, out_size,
+                              cfg.norm_mean, cfg.norm_std,
+                              dtype=_prep_dtype(cfg),
+                              band=cfg.preprocess_band)
+
+
+@functools.lru_cache(maxsize=None)
+def _hann(fs: int, mode: str, device: torch.device) -> torch.Tensor:
+    return heads_mod.hanning_2d(fs, mode, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_limits(fw: int, fh: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor([fw, fh], dtype=torch.float32, device=device)
+
+
+def init(params: Params, frame, bbox, cfg: ModelConfig,
+         frame_format: str = "nv12", device="cuda") -> TrackState:
+    """Capture the template and start a track.  ``bbox`` = (x, y, w, h) in
+    frame pixels; ``frame`` = (Y (H, W), UV (H/2, W/2, 2)) uint8 planes."""
+    dev = resolve_device(device)
+    frame = _frame_on(frame, frame_format, dev)
+    bbox = torch.as_tensor(bbox, dtype=torch.float32, device=dev).clone()
+    window = pp.crop_window(bbox, cfg.template_factor)
+    z_img = _prep_nv12(frame, window, cfg.template_size, cfg)
+    z_tok = vittrack.embed_template(params, z_img[None], cfg)[0]
+    return TrackState(
+        z_tok=z_tok,
+        z_tok_init=z_tok.clone(),
+        bbox=bbox,
+        score=torch.ones((), dtype=torch.float32, device=dev),
+        frame_idx=torch.zeros((), dtype=torch.int32, device=dev),
+        lost_frames=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def update(params: Params, state: TrackState, frame, cfg: ModelConfig,
+           frame_format: str = "nv12", device="cuda"
+           ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
+    """Track one frame.  Returns (new_state, bbox_xywh, confidence)."""
+    dev = resolve_device(device)
+    frame = _frame_on(frame, frame_format, dev)
+    fh, fw = frame[0].shape
+
+    # Re-detection ramp: while confidence stays below the freeze threshold
+    # the search window grows geometrically (capped); lost_frames == 0
+    # leaves the factor exact.
+    factor = cfg.search_factor
+    if cfg.lost_window_growth > 1.0:
+        expand = torch.clamp_max(
+            torch.pow(cfg.lost_window_growth, state.lost_frames.float()),
+            cfg.lost_window_max_growth)
+        factor = cfg.search_factor * expand
+    window = pp.crop_window(state.bbox, factor)
+    if cfg.preprocess_band is not None and cfg.lost_window_growth > 1.0:
+        # A ramped window larger than the band would search zero padding.
+        window = window._replace(
+            size=torch.clamp_max(window.size, float(cfg.preprocess_band)))
+    x_img = _prep_nv12(frame, window, cfg.search_size, cfg)
+    maps = vittrack.forward(params, state.z_tok[None], x_img[None], cfg)
+
+    hann = _hann(cfg.feat_size, cfg.hann_mode, dev)
+    prev_wh = state.bbox[2:4]
+    bbox_norm, conf = heads_mod.decode_maps(
+        maps.score[0], maps.offset[0], maps.size[0], hann,
+        prev_wh / window.size)
+
+    # Crop-normalised (cx, cy, w, h) back to frame pixels.
+    lim = _frame_limits(fw, fh, dev)
+    origin = torch.stack([window.cx, window.cy]) - 0.5 * window.size
+    cxy = origin + bbox_norm[0:2] * window.size
+    wh = torch.minimum(torch.clamp_min(bbox_norm[2:4] * window.size, 1.0), lim)
+    if cfg.size_rate_limit > 0.0:
+        # Plausibility clamp on the per-frame size change.
+        r = 1.0 + cfg.size_rate_limit
+        wh = torch.minimum(torch.maximum(wh, prev_wh / r), prev_wh * r)
+    if cfg.size_conf_freeze > 0.0:
+        # Half-confident frames update position only.
+        wh = torch.where(conf > cfg.size_conf_freeze, wh, prev_wh)
+    xy = torch.minimum(torch.clamp_min(cxy - 0.5 * wh, 0.0), lim - wh)
+    new_bbox = torch.cat([xy, wh])
+    if cfg.window_freeze_threshold > 0.0:
+        # Low confidence: hold the previous bbox so the search window stays
+        # where the target vanished.
+        new_bbox = torch.where(conf > cfg.window_freeze_threshold,
+                               new_bbox, state.bbox)
+
+    confident = conf > cfg.window_freeze_threshold
+    new_state = TrackState(
+        z_tok=state.z_tok,
+        z_tok_init=state.z_tok_init,
+        bbox=new_bbox,
+        score=conf,
+        frame_idx=state.frame_idx + 1,
+        lost_frames=torch.where(confident, torch.zeros_like(state.lost_frames),
+                                state.lost_frames + 1),
+    )
+
+    if cfg.template_update_enabled:
+        new_state = _maybe_update_template(params, new_state, frame, cfg)
+
+    return new_state, new_bbox, conf
+
+
+def _maybe_update_template(params: Params, state: TrackState, frame,
+                           cfg: ModelConfig) -> TrackState:
+    """Online template update: on a confident frame at the configured
+    interval, re-embed the template at the current bbox and blend it with
+    the initial template.  A masked ``where``, as in JAX, so the step
+    reads no flag back to the host."""
+    do = torch.logical_and(
+        state.score > cfg.template_update_threshold,
+        (state.frame_idx % cfg.template_update_interval) == 0)
+    window = pp.crop_window(state.bbox, cfg.template_factor)
+    z_img = _prep_nv12(frame, window, cfg.template_size, cfg)
+    z_new = vittrack.embed_template(params, z_img[None], cfg)[0]
+    a = cfg.template_update_anchor
+    blended = (a * state.z_tok_init.float()
+               + (1.0 - a) * z_new.float()).to(state.z_tok.dtype)
+    return state._replace(z_tok=torch.where(do, blended, state.z_tok))
+
+
+def update_packed(params: Params, state: TrackState, frame, cfg: ModelConfig,
+                  frame_format: str = "nv12", device="cuda"
+                  ) -> Tuple[TrackState, torch.Tensor]:
+    """Like :func:`update` but returns (state, packed) with ``packed`` =
+    [x, y, w, h, score], one (5,) tensor, so a caller reads the result
+    with one device-to-host copy."""
+    new_state, bbox, conf = update(params, state, frame, cfg, frame_format,
+                                   device)
+    return new_state, torch.cat([bbox, conf[None]])
