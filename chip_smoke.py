@@ -9,20 +9,38 @@ Phases, in order; any failure raises and exits non-zero:
    and power limit of card 0;
 2. build: compiles every CUDA source of the port (one ``nvcc`` per source,
    all at once) and prints the build time;
-3. kernels against their plain twins: the encoder kernel at the flagship
-   shape (B=1, S=320, D=192, 12 blocks, shipped weights in bf16, real
-   template + search tokens) and at the f32 ``small`` shape, each held to
-   ``ops/vit_block.py::encoder_reference`` on the same inputs; then timed
-   with CUDA events beside the twin and a library yardstick (the same
-   encoder written with ``torch.matmul`` and
-   ``F.scaled_dot_product_attention``, used nowhere in the port);
-4. main path: ``entry()`` on the flagship, ``init`` on a 1080p NV12 frame,
-   then ``update_packed`` steps over a moving-target clip; every output
-   finite, the encoder launch count equal to the number of steps, the
-   median step time from CUDA events; the first steps checked against the
-   same steps run by the port on the CPU, and the f32 ``small`` preset
-   checked against the CPU over the whole clip;
-5. prints the card line, then one ``{"kernels": [...]}`` line, then the
+3. kernels against their plain versions, then timed with CUDA events beside
+   the plain version, a library yardstick used nowhere in the port, and
+   the card's bound for the same work:
+   * the encoder kernel at the flagship shape (B=1, S=320, D=192, 12
+     blocks, shipped weights in bf16, real template + search tokens) and at
+     the f32 ``small`` shape, held to ``ops/vit_block.py::encoder_reference``;
+   * the two attention kernels through ``ops/attention.py::flash_attention``
+     (its choice is printed): ``attention_single`` at the serving shape
+     (48, 320, 64) bf16 and at the ``small`` preset's f32 shape,
+     ``attention_flash`` at (3, 1088, 64) bf16 and f32 and at lengths that
+     are no multiple of its key block, held to ``attention_reference``;
+4. unbatched path: ``entry()`` on the flagship, ``init`` on a 1080p NV12
+   frame, then ``update_packed`` steps over a moving-target clip; every
+   output finite, the encoder launch count equal to the number of steps;
+   the first steps checked against the same steps run by the port on the
+   CPU, and the f32 ``small`` preset against the CPU over the whole clip;
+5. serving path, full width: the flagship behind a 16-slot ``SlotEngine``
+   and a ``TrackServer`` on loopback; 4 ``TrackClient`` threads ``init``
+   and ``update`` 10 frames each of seeded 1080p NV12 clips; an injected
+   device fault must surface at its client and be recovered from; then 30
+   engine ticks with all 16 slots live, timed.  Checks: results finite,
+   IoU to the drawn boxes, the attention kernel launched exactly depth x
+   ticks times, ``recover()`` restoring the snapshotted state, and against
+   the port's CPU engine: the first served frame of clients 0-2, then
+   slots 0-2 of the first 3 engine ticks with the CPU engine given the
+   card's state before each tick.
+   Timed only: the upload of one tick's frames, and the encoder at B=16 by
+   both routes;
+6. long-sequence serving path: the flagship width with a 512-pixel search
+   crop (S = 1088, seeded random weights) behind a 1-slot ``SlotEngine``,
+   whose attention goes through ``attention_flash``;
+7. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -31,10 +49,12 @@ convolutions run without TF32 on the card (both switches set below).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -42,10 +62,19 @@ import torch
 import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
+H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12    # HBM3 bandwidth, H100 SXM
-MAIN_STEPS = 60
+MAIN_STEPS = 30
 CPU_CHECK_STEPS = 3
 TIMING_ITERS = 100
+
+SERVE_SLOTS = 16
+SERVE_CLIENTS = 4
+CLIENT_FRAMES = 10
+ENGINE_TICKS = 30
+LONG_SEARCH = 512             # S = 64 + 1024 = 1088: past attention_single
+LONG_TICKS = 3
+FRAME_H, FRAME_W = 1080, 1920
 
 # Kernel against twin, flagship bf16.  The residual stream of the trained
 # flagship reaches |x| ~ 200, where one bf16 ulp is 1.0, so another
@@ -55,6 +84,14 @@ TIMING_ITERS = 100
 ENC_REL_TOL = 0.01            # max|kernel - twin| / max|twin|
 LN_ATOL = 0.05
 F32_ATOL = 1e-3
+# Attention kernels against attention_reference: float32 1e-5 absolute;
+# bf16 one output ulp at the largest plain value (both sides round an f32
+# result to bf16 once, so they differ by at most one step there).
+ATT_F32_ATOL = 1e-5
+ATT_BF16_REL = 2.0 ** -7      # max|kernel - plain| / max|plain|
+# The card against the port's CPU run, flagship bf16 (as in the unbatched
+# phase): bbox within 2 px, score within 0.02.
+CPU_BOX_TOL, CPU_SCORE_TOL = 2.0, 0.02
 
 
 def card_line() -> str:
@@ -80,7 +117,7 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def nv12_clip(n: int, seed: int = 0, h: int = 1080, w: int = 1920,
+def nv12_clip(n: int, seed: int = 0, h: int = FRAME_H, w: int = FRAME_W,
               box=(880, 480, 96, 72), step=(3, 2)):
     """A bright textured target moving ``step`` px per frame over a dim
     textured background: ``n`` NV12 frames (Y, UV) and their boxes."""
@@ -145,6 +182,448 @@ def encoder_cost(x, blocks, num_heads):
     return per_block * len(blocks), nbytes
 
 
+def _iou(a, b) -> float:
+    ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the attention kernels
+# ---------------------------------------------------------------------------
+
+def attention_case(bh, s, dh, dtype, dev, want_route, timed):
+    """One shape through ``flash_attention`` against ``attention_reference``
+    on the same seeded tensors.  Returns a dict of what was measured."""
+    from gstreamer_vit_tracker_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cpu").manual_seed(1000 * s + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=gen).to(dev, dtype)
+               for _ in range(3))
+    route = attention.kernel_route(q)
+    out = attention.flash_attention(q, k, v)
+    plain = attention.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    tol = ATT_F32_ATOL if dtype == torch.float32 else ATT_BF16_REL * scale
+    name = f"({bh}, {s}, {dh}) {str(dtype).split('.')[-1]}"
+    print(f"attention {name}: flash_attention chose {route}; max|d| {err:.3e} "
+          f"(max|plain| {scale:.3f}, tolerance {tol:.3e})", flush=True)
+    if route != want_route:
+        raise AssertionError(f"attention {name}: expected attention_"
+                             f"{want_route}, flash_attention chose {route}")
+    if out.dtype != dtype or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"attention {name}: wrong type or non-finite")
+    if not err <= tol:
+        raise AssertionError(f"attention_{route} {name} disagrees with "
+                             f"attention_reference: {err} > {tol}")
+    res = {"route": route, "max_abs_err": err}
+    if timed:
+        q4, k4, v4 = q[None], k[None], v[None]
+        res["ms"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
+        res["plain_ms"] = cuda_ms(
+            lambda: attention.attention_reference(q, k, v))
+        res["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        res["ms_again"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
+        flops = 4 * s * s * dh * bh
+        nbytes = 4 * q.numel() * q.element_size()
+        peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
+        res["bound_ms"] = max(t_ops, t_bytes)
+        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"attention_{route} {name} ms (CUDA events, mean of "
+              f"{TIMING_ITERS}): kernel {res['ms']:.4f} / "
+              f"{res['ms_again']:.4f} (before / after the others), plain "
+              f"{res['plain_ms']:.4f}, scaled_dot_product_attention "
+              f"{res['library_ms']:.4f}; bound {res['bound_ms'] * 1e3:.2f} us "
+              f"by {res['bound_by']} ({flops / 1e9:.3f} GFLOP -> "
+              f"{t_ops * 1e3:.2f} us, {nbytes / 1e6:.2f} MB -> "
+              f"{t_bytes * 1e3:.2f} us)", flush=True)
+    return res
+
+
+def attention_phase(dev, small):
+    bf16, f32 = torch.bfloat16, torch.float32
+    single = attention_case(48, 320, 64, bf16, dev, "single", timed=True)
+    attention_case(SERVE_SLOTS * small.num_heads, small.num_tokens,
+                   small.embed_dim // small.num_heads, f32, dev, "single",
+                   timed=False)
+    flash = attention_case(3, 1088, 64, bf16, dev, "flash", timed=True)
+    attention_case(3, 1088, 64, f32, dev, "flash", timed=False)
+    attention_case(2, 777, 32, f32, dev, "flash", timed=False)   # 6 blocks + 9
+    attention_case(2, 1001, 128, bf16, dev, "flash", timed=False)
+    return single, flash
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the serving path
+# ---------------------------------------------------------------------------
+
+def stream_clips(n_streams: int, n_frames: int):
+    """One seeded 1080p NV12 clip per stream: boxes spread over the frame,
+    each moving its own way."""
+    clips = []
+    for s in range(n_streams):
+        box = (200 + 380 * (s % 4), 150 + 200 * (s // 4), 96, 72)
+        step = ((3, 2), (-2, 2), (2, -1), (-3, -2))[s % 4]
+        clips.append(nv12_clip(n_frames, seed=100 + s, box=box, step=step))
+    return clips
+
+
+def compare_with_cpu(what: str, card_rows, cpu_rows) -> None:
+    d_box = np.abs(cpu_rows[:, :4] - card_rows[:, :4]).max()
+    d_score = np.abs(cpu_rows[:, 4] - card_rows[:, 4]).max()
+    print(f"{what}, card vs CPU engine: max|d bbox| {d_box:.4f} px, "
+          f"max|d score| {d_score:.5f}", flush=True)
+    if d_box > CPU_BOX_TOL or d_score > CPU_SCORE_TOL:
+        raise AssertionError(f"{what}: the card disagrees with the CPU")
+
+
+def serve_phase(dev, preset: str):
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import vit, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.serve import (SlotEngine, TrackClient,
+                                                       TrackServer,
+                                                       TrackServiceError)
+
+    cfg = PRESETS[preset]
+    ckpt = weights.checkpoint_path(preset)
+    params = weights.load_npz(ckpt, cfg, device=dev)
+    engine = SlotEngine(params, cfg, slots=SERVE_SLOTS, snapshot_every=0,
+                        device=dev)
+    server = TrackServer(engine, FRAME_H, FRAME_W, port=0, batch_window_ms=2.0,
+                         pipeline_depth=2, update_timeout_s=120.0)
+    server.start()
+    n_frames = 1 + CLIENT_FRAMES + 1 + ENGINE_TICKS + 2
+    t0 = time.perf_counter()
+    clips = stream_clips(SERVE_SLOTS, n_frames)
+    print(f"serving: {SERVE_SLOTS} seeded {FRAME_W}x{FRAME_H} NV12 clips of {n_frames} "
+          f"frames made in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Warm-up through the same entry points, before the counts are zeroed.
+    with TrackClient(server.host, server.port, timeout_s=120.0) as c:
+        assert c.info["slots"] == SERVE_SLOTS and c.info["format"] == "nv12"
+        c.init(clips[0][0][0], clips[0][1][0])
+        c.update(clips[0][0][1])
+        c.release()
+    torch.cuda.synchronize()
+    attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
+    vit_block.LAUNCHES = 0
+    ticks0 = server._ticks
+
+    # -- 4 clients, each its own thread: init, then 10 updates -------------
+    clients = [TrackClient(server.host, server.port, timeout_s=120.0)
+               for _ in range(SERVE_CLIENTS)]
+    served = [None] * SERVE_CLIENTS
+    errors = []
+
+    def run(k):
+        try:
+            frames, boxes = clips[k]
+            clients[k].init(frames[0], boxes[0])
+            rows = []
+            for t in range(1, CLIENT_FRAMES + 1):
+                bbox, score = clients[k].update(frames[t])
+                rows.append([*bbox, score])
+            served[k] = np.asarray(rows, np.float32)
+        except Exception as e:       # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    served_s = time.perf_counter() - t0
+    if errors or any(r is None for r in served):
+        raise AssertionError(f"served clients failed: {errors}")
+    served = np.stack(served)                       # (clients, frames, 5)
+    if not np.isfinite(served).all():
+        raise AssertionError("served results are not finite")
+    served_iou = [[_iou(served[k, t - 1, :4], clips[k][1][t])
+                   for t in range(1, CLIENT_FRAMES + 1)]
+                  for k in range(SERVE_CLIENTS)]
+    served_ticks = server._ticks - ticks0
+    print(f"serving: {SERVE_CLIENTS} clients x {CLIENT_FRAMES} updates in "
+          f"{served_s:.2f} s over {served_ticks} ticks "
+          f"({SERVE_CLIENTS * CLIENT_FRAMES / served_s:.1f} updates/s, "
+          f"round trips and 3.1 MB frames over loopback included); mean IoU "
+          f"vs drawn boxes {np.mean(served_iou):.3f}, scores "
+          f"{served[..., 4].min():.3f}-{served[..., 4].max():.3f}", flush=True)
+    if not CLIENT_FRAMES <= served_ticks <= SERVE_CLIENTS * CLIENT_FRAMES:
+        raise AssertionError(f"{served_ticks} ticks for {SERVE_CLIENTS} x "
+                             f"{CLIENT_FRAMES} updates")
+    if np.mean(served_iou) < 0.3:
+        raise AssertionError(f"served tracks left their targets: mean IoU "
+                             f"{np.mean(served_iou):.3f}")
+
+    # -- an injected device fault surfaces and is recovered from -----------
+    with engine.lock:
+        engine.snapshot()
+    real_step = engine.step_async
+    fired = []
+
+    def faulty_step(frames, active):
+        if not fired:
+            fired.append(1)
+            raise RuntimeError("injected device fault")
+        return real_step(frames, active)
+
+    engine.step_async = faulty_step
+    t_next = CLIENT_FRAMES + 1
+    try:
+        clients[0].update(clips[0][0][t_next])
+    except TrackServiceError as e:
+        if "device fault" not in str(e) or e.reinit:
+            raise AssertionError(f"fault surfaced wrongly: {e!r}") from e
+    else:
+        raise AssertionError("an injected device fault did not surface")
+    engine.step_async = real_step
+    bbox, score = clients[0].update(clips[0][0][t_next])
+    stats = clients[0].stats()
+    if stats["faults"] != 1 or not (np.isfinite(bbox).all()
+                                    and np.isfinite(score)):
+        raise AssertionError(f"no recovery after the fault: {stats}")
+    fault_iou = _iou(bbox, clips[0][1][t_next])
+    print(f"serving: injected fault surfaced at its client, recovered; next "
+          f"update IoU {fault_iou:.3f}, faults {stats['faults']}", flush=True)
+
+    # -- 30 engine ticks, all 16 slots live ---------------------------------
+    # Slots 0-2 of the first CPU_CHECK_STEPS ticks are held to the port's CPU
+    # engine given the card's state before the tick and the same frames.
+    # (Left to run free, two bf16 trajectories of the flagship drift apart
+    # within a few frames: a one-step difference in a bf16 head output moves
+    # the box by up to half a pixel, and the next crop follows it.)
+    cpu = torch.device("cpu")
+    cpu_engine = SlotEngine(weights.load_npz(ckpt, cfg, device=cpu), cfg,
+                            slots=3, snapshot_every=0, device=cpu)
+    cpu_engine.occupied[:] = True
+    with engine.lock:
+        slot_of = {k: clients[k].slot for k in range(SERVE_CLIENTS)}
+        frame_at = {slot_of[0]: t_next + 1}
+        for k in range(1, SERVE_CLIENTS):
+            frame_at[slot_of[k]] = CLIENT_FRAMES + 1
+        clip_of = dict((s, k) for k, s in slot_of.items())
+        for k in range(SERVE_CLIENTS, SERVE_SLOTS):
+            slot = engine.alloc()
+            engine.init_slot(slot, clips[k][0][0], clips[k][1][0])
+            clip_of[slot], frame_at[slot] = k, 1
+        if not engine.occupied.all():
+            raise AssertionError("not all slots live")
+        active = np.ones(SERVE_SLOTS, bool)
+        tick_ms, tick_dev_ms, tick_iou = [], [], []
+        packed = None
+        for i in range(ENGINE_TICKS):
+            for slot in range(SERVE_SLOTS):
+                server._write_frame(slot,
+                                    clips[clip_of[slot]][0][frame_at[slot] + i])
+            if i < CPU_CHECK_STEPS:
+                cpu_engine.state = type(engine.state)(
+                    *(t[:3].to(cpu, copy=True) for t in engine.state))
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            tick = engine.step_async(server._buf, active)
+            e1.record()
+            packed = np.asarray(tick)
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            e1.synchronize()
+            tick_dev_ms.append(e0.elapsed_time(e1))
+            if packed.shape != (SERVE_SLOTS, 5) or not np.isfinite(packed).all():
+                raise AssertionError("engine tick: non-finite or misshapen")
+            tick_iou.append([_iou(packed[s, :4],
+                                  clips[clip_of[s]][1][frame_at[s] + i])
+                             for s in range(SERVE_SLOTS)])
+            if i < CPU_CHECK_STEPS:
+                want = cpu_engine.step(tuple(t[:3] for t in server._buf),
+                                       np.ones(3, bool))
+                compare_with_cpu(f"engine tick {i + 1}, slots 0-2",
+                                 packed[:3], want)
+        print(f"engine: {ENGINE_TICKS} ticks x {SERVE_SLOTS} live slots, "
+              f"{preset} {FRAME_W}x{FRAME_H} NV12; tick ms (host clock, enqueue to result "
+              f"read) median {statistics.median(tick_ms):.3f} (min "
+              f"{min(tick_ms):.3f}, max {max(tick_ms):.3f}); device span "
+              f"(CUDA events) median {statistics.median(tick_dev_ms):.3f}; "
+              f"mean IoU vs drawn boxes {np.mean(tick_iou):.3f} (worst slot "
+              f"{np.mean(tick_iou, axis=0).min():.3f}), scores "
+              f"{packed[:, 4].min():.3f}-{packed[:, 4].max():.3f}", flush=True)
+        if np.mean(tick_iou) < 0.3:
+            raise AssertionError(f"engine tracks left their targets: mean "
+                                 f"IoU {np.mean(tick_iou):.3f}")
+
+        # -- recover() restores a snapshotted state ---------------------------
+        engine.snapshot()
+        snap = [t.clone() for t in engine.state]
+        for slot in range(SERVE_SLOTS):
+            server._write_frame(
+                slot, clips[clip_of[slot]][0][frame_at[slot] + ENGINE_TICKS])
+        first = engine.step(server._buf, active)
+        for leaf in engine.state:                    # the "fault"
+            leaf.zero_()
+        lost = engine.recover()
+        same = all(torch.equal(a, b) for a, b in zip(snap, engine.state))
+        again = engine.step(server._buf, active)
+        d_again = np.abs(again - first).max()
+        print(f"engine: recover() lost {lost}, state restored bit for bit: "
+              f"{same}; the tick after it repeats the tick before within "
+              f"{d_again:.2e}", flush=True)
+        if lost or not same or not d_again <= 1e-3:
+            raise AssertionError("recover() did not restore the snapshot")
+        total_ticks = (server._ticks - ticks0) + ENGINE_TICKS + 2
+
+    torch.cuda.synchronize()
+    launches = attention.SINGLE_LAUNCHES
+    if (launches != cfg.depth * total_ticks or attention.FLASH_LAUNCHES
+            or vit_block.LAUNCHES):
+        raise AssertionError(
+            f"serving path: attention_single launched {launches} times in "
+            f"{total_ticks} ticks of depth {cfg.depth} (attention_flash "
+            f"{attention.FLASH_LAUNCHES}, encoder {vit_block.LAUNCHES})")
+    print(f"serving path: attention_single launches {launches} = depth "
+          f"{cfg.depth} x {total_ticks} ticks", flush=True)
+
+    # -- timed only: one tick's upload, and the encoder at B=16 -------------
+    up_ms = cuda_ms(lambda: engine._place_frames(server._buf), iters=20,
+                    warmup=3)
+    up_mb = sum(t.numel() for t in server._buf) / 1e6
+    z = engine.state.z_tok[:, 0]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((SERVE_SLOTS, cfg.num_search_tokens, cfg.embed_dim),
+                    generator=gen).to(dev, z.dtype)
+    bb = params["backbone"]
+    enc_block_ms = cuda_ms(lambda: vit.encode(bb, z, x, cfg, fused=False),
+                           iters=20, warmup=3)
+    enc_fused_ms = cuda_ms(lambda: vit.encode(bb, z, x, cfg, fused=True),
+                           iters=20, warmup=3)
+    print(f"upload of one tick's frames ({up_mb:.1f} MB pinned, two copies): "
+          f"{up_ms:.3f} ms ({up_mb / up_ms:.1f} GB/s); encode at B="
+          f"{SERVE_SLOTS} (CUDA events, mean of 20): per-block route "
+          f"{enc_block_ms:.3f} ms, encoder kernel {enc_fused_ms:.3f} ms",
+          flush=True)
+
+    # -- the first served frame of clients 0-2 against the port's CPU engine -
+    for k in range(3):
+        cpu_engine.init_slot(k, clips[k][0][0], clips[k][1][0])
+    ys = np.stack([clips[k][0][1][0] for k in range(3)])
+    uvs = np.stack([clips[k][0][1][1] for k in range(3)])
+    compare_with_cpu("served frame 1, clients 0-2", served[:3, 0],
+                     cpu_engine.step((ys, uvs), np.ones(3, bool)))
+
+    for c in clients:
+        c.release()
+        c.close()
+    server.stop()
+    return {"launches": launches, "ticks": total_ticks,
+            "tick_ms_median": statistics.median(tick_ms),
+            "tick_ms_min": min(tick_ms), "tick_ms_max": max(tick_ms),
+            "tick_device_ms_median": statistics.median(tick_dev_ms),
+            "upload_ms": up_ms, "encode_b16_per_block_ms": enc_block_ms,
+            "encode_b16_encoder_kernel_ms": enc_fused_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the long-sequence serving path (attention_flash)
+# ---------------------------------------------------------------------------
+
+def random_flat(cfg, seed: int):
+    """Seeded random weights for ``cfg`` as flat npz-style arrays."""
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}{i}/")
+        else:
+            key = prefix[:-1]
+            if key.endswith("/scale"):
+                flat[key] = np.ones(tree, np.float32)
+            elif key.endswith("/bias"):
+                flat[key] = np.zeros(tree, np.float32)
+            else:
+                fan_in = int(np.prod(tree[:-1])) or 1
+                flat[key] = (rng.standard_normal(tree)
+                             * min(0.02, fan_in ** -0.5)).astype(np.float32)
+
+    walk(weights.param_shapes(cfg), "")
+    return flat
+
+
+def long_phase(dev, cfg):
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.serve import SlotEngine
+    from gstreamer_vit_tracker_tpu_torch.tracker import core, multi
+
+    long_cfg = dataclasses.replace(cfg, search_size=LONG_SEARCH)
+    assert long_cfg.num_tokens == 1088
+    params = weights.params_from_flat(random_flat(long_cfg, seed=7), long_cfg,
+                                      device=dev)
+    frames, boxes = nv12_clip(LONG_TICKS + 1, seed=3, box=(800, 400, 160, 120))
+    engine = SlotEngine(params, long_cfg, slots=1, snapshot_every=0, device=dev)
+    engine.init_slot(engine.alloc(), frames[0], boxes[0])
+
+    # The whole model at this length: the kernel route against the plain
+    # route on the card, same inputs (bf16 maps in [0, 1]: 0.05).
+    bcfg = multi._batched_cfg(long_cfg)
+    window = core.pp.crop_window(engine.state.bbox[0, 0], long_cfg.search_factor)
+    x_img = core._prep_nv12(core._frame_on(frames[1], "nv12", dev), window,
+                            long_cfg.search_size, bcfg)[None]
+    z = engine.state.z_tok[0]
+    maps_k = vittrack.forward(params, z, x_img, long_cfg, fused=False)
+    maps_p = vittrack.forward(params, z, x_img, long_cfg, use_kernel=False,
+                              fused=False)
+    d_maps = max((a - b).abs().max().item() for a, b in zip(maps_k, maps_p))
+    print(f"long path (S = {long_cfg.num_tokens}): head maps by the kernel "
+          f"route vs the plain route max|d| {d_maps:.4f}", flush=True)
+    if not d_maps <= 0.05:
+        raise AssertionError(f"long path: kernel route vs plain route {d_maps}")
+
+    torch.cuda.synchronize()
+    attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
+    vit_block.LAUNCHES = 0
+    rows, ms = [], []
+    for t in range(1, LONG_TICKS + 1):
+        fr = (frames[t][0][None], frames[t][1][None])
+        t0 = time.perf_counter()
+        rows.append(engine.step(fr, np.ones(1, bool)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = attention.FLASH_LAUNCHES
+    rows = np.stack(rows)
+    inside = ((rows[..., :2] >= 0).all()
+              and (rows[..., 0] + rows[..., 2] <= FRAME_W + 1e-3).all()
+              and (rows[..., 1] + rows[..., 3] <= FRAME_H + 1e-3).all()
+              and ((rows[..., 4] >= 0) & (rows[..., 4] <= 1)).all())
+    print(f"long path: {LONG_TICKS} engine ticks, 1 slot, search "
+          f"{LONG_SEARCH}; attention_flash launches {launches}; tick ms "
+          f"{[round(v, 2) for v in ms]}; boxes inside the frame and scores "
+          f"in [0, 1]: {bool(inside)}", flush=True)
+    if rows.shape != (LONG_TICKS, 1, 5) or not np.isfinite(rows).all() \
+            or not inside:
+        raise AssertionError("long path: bad output")
+    if (launches != long_cfg.depth * LONG_TICKS or attention.SINGLE_LAUNCHES
+            or vit_block.LAUNCHES):
+        raise AssertionError(
+            f"long path: attention_flash launched {launches} times in "
+            f"{LONG_TICKS} ticks of depth {long_cfg.depth} (attention_single "
+            f"{attention.SINGLE_LAUNCHES}, encoder {vit_block.LAUNCHES})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -154,7 +633,8 @@ def main() -> int:
     from gstreamer_vit_tracker_tpu_torch.config import PRESETS
     from gstreamer_vit_tracker_tpu_torch.entry import entry
     from gstreamer_vit_tracker_tpu_torch.models import vit, vittrack, weights
-    from gstreamer_vit_tracker_tpu_torch.ops import cuda_build, vit_block
+    from gstreamer_vit_tracker_tpu_torch.ops import (attention, cuda_build,
+                                                     vit_block)
     from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
     from gstreamer_vit_tracker_tpu_torch.tracker import core
 
@@ -162,6 +642,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
 
     # -- 1. device -------------------------------------------------------
     card = card_line()
@@ -179,7 +660,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
 
-    # -- 3. kernel against its plain twin ---------------------------------
+    # -- 3. kernels against their plain versions ---------------------------
     cfg = PRESETS["vittrack-t"]
     fn, (params, state, frame) = entry(device=dev)
     window = pp.crop_window(state.bbox, cfg.search_factor)
@@ -191,8 +672,12 @@ def main() -> int:
     assert x.shape == (1, 320, 192) and x.dtype == torch.bfloat16
 
     out_k = vit_block.encoder(x, blocks, cfg.num_heads)
+    before = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
     out_p = vit_block.encoder_reference(x, blocks, cfg.num_heads)
     torch.cuda.synchronize()
+    if (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES) != before:
+        raise AssertionError("encoder_reference launched an attention kernel: "
+                             "the encoder kernel's twin must stay plain")
     err = (out_k.float() - out_p.float()).abs()
     enc_err, enc_scale = err.max().item(), out_p.float().abs().max().item()
     ln_k = vit.layer_norm(out_k, params["backbone"]["norm"]).float()
@@ -242,7 +727,9 @@ def main() -> int:
           f"{t_ops * 1e3:.2f} us, {nbytes / 1e6:.2f} MB -> "
           f"{t_bytes * 1e3:.2f} us)", flush=True)
 
-    # -- 4. main path ------------------------------------------------------
+    att_single, att_flash = attention_phase(dev, small)
+
+    # -- 4. unbatched path -------------------------------------------------
     frames, boxes = nv12_clip(MAIN_STEPS + 1)
     clip = [core._frame_on(f, "nv12", dev) for f in frames]
     for _ in range(3):                                 # warm-up, uncounted
@@ -251,6 +738,7 @@ def main() -> int:
     state = core.init(params, clip[0], boxes[0], cfg, device=dev)
     torch.cuda.synchronize()
     vit_block.LAUNCHES = 0
+    attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(MAIN_STEPS)]
     packed = []
@@ -266,9 +754,12 @@ def main() -> int:
     launches = vit_block.LAUNCHES
     step_ms = [a.elapsed_time(b) for a, b in events]
     packed = torch.stack(packed).cpu().numpy()
-    if launches != MAIN_STEPS:
+    if launches != MAIN_STEPS or attention.SINGLE_LAUNCHES \
+            or attention.FLASH_LAUNCHES:
         raise AssertionError(f"encoder kernel launched {launches} times in "
-                             f"{MAIN_STEPS} steps")
+                             f"{MAIN_STEPS} unbatched steps (attention kernels "
+                             f"{attention.SINGLE_LAUNCHES}, "
+                             f"{attention.FLASH_LAUNCHES})")
     if packed.shape != (MAIN_STEPS, 5) or not np.isfinite(packed).all():
         raise AssertionError("main path produced non-finite or misshapen output")
     iou = [_iou(p[:4], boxes[i + 1]) for i, p in enumerate(packed)]
@@ -292,7 +783,7 @@ def main() -> int:
         d_score = abs(float(cout[4]) - packed[i, 4])
         print(f"flagship step {i + 1} card vs CPU: max|d bbox| {d_box:.4f} px, "
               f"|d score| {d_score:.5f}")
-        if d_box > 2.0 or d_score > 0.02:
+        if d_box > CPU_BOX_TOL or d_score > CPU_SCORE_TOL:
             raise AssertionError("flagship card step disagrees with the CPU")
 
     # The f32 small preset, every step, against the CPU.
@@ -314,12 +805,18 @@ def main() -> int:
           f"{worst_box:.2e} px, max|d score| {worst_score:.2e}")
     if worst_box > 1e-2 or worst_score > 1e-4:
         raise AssertionError("small f32 card trajectory disagrees with the CPU")
+    del clip, frames
 
-    # -- 5. result lines ---------------------------------------------------
+    # -- 5, 6. the serving paths --------------------------------------------
+    serve = serve_phase(dev, "vittrack-t")
+    flash_launches = long_phase(dev, cfg)
+
+    # -- 7. result lines ---------------------------------------------------
+    pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
         "route": "cuda",
-        "source": "gstreamer_vit_tracker_tpu_torch/csrc/vit_encoder.cu",
+        "source": pkg + "vit_encoder.cu",
         "replaces": "gstreamer_vit_tracker_tpu/ops/vit_block.py:110",
         "tpu_kernel": "ops/vit_block.py::_encoder_kernel",
         "launches": launches,
@@ -328,27 +825,51 @@ def main() -> int:
         "max_abs_err_after_ln": ln_err.max().item(),
         "max_abs_err_f32_small": f32_err,
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": bound_ms,
-        "bound_us": bound_ms * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "step_ms_median": statistics.median(step_ms),
+    }, {
+        "name": "attention_single",
+        "route": "cuda",
+        "source": pkg + "attention.cu",
+        "replaces": "gstreamer_vit_tracker_tpu/ops/attention.py:83",
+        "tpu_kernel": "ops/attention.py::_single_block_kernel",
+        "shape": [48, 320, 64],
+        "launches": serve["launches"],
+        "launches_per_tick": serve["launches"] / serve["ticks"],
+        "max_abs_err": att_single["max_abs_err"],
+        "ms": att_single["ms"],
+        "plain_ms": att_single["plain_ms"],
+        "library_ms": att_single["library_ms"],
+        "bound_ms": att_single["bound_ms"],
+        "bound_by": att_single["bound_by"],
+        "tick_ms_median": serve["tick_ms_median"],
+    }, {
+        "name": "attention_flash",
+        "route": "cuda",
+        "source": pkg + "attention.cu",
+        "replaces": "gstreamer_vit_tracker_tpu/ops/attention.py:53",
+        "tpu_kernel": "ops/attention.py::_flash_kernel",
+        "shape": [3, 1088, 64],
+        "launches": flash_launches,
+        "launches_per_tick": flash_launches / LONG_TICKS,
+        "max_abs_err": att_flash["max_abs_err"],
+        "ms": att_flash["ms"],
+        "plain_ms": att_flash["plain_ms"],
+        "library_ms": att_flash["library_ms"],
+        "bound_ms": att_flash["bound_ms"],
+        "bound_by": att_flash["bound_by"],
     }]
+    print(f"serving summary: {json.dumps(serve)}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _iou(a, b) -> float:
-    ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
-    iy = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
-    inter = ix * iy
-    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
 
 
 if __name__ == "__main__":

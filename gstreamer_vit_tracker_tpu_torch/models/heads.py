@@ -137,28 +137,32 @@ def hanning_2d(fs: int, mode: str = "interior", device=None) -> torch.Tensor:
 def decode_maps(score: torch.Tensor, offset: torch.Tensor, size: torch.Tensor,
                 hann: torch.Tensor, prev_size_norm: torch.Tensor,
                 hann_weight: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode unbatched head maps into (bbox_norm, confidence).
+    """Decode head maps into (bbox_norm, confidence).
 
-    score (fs, fs), offset/size (fs, fs, 2), ``prev_size_norm`` (2,), the
-    previous (w, h) in crop units, taken where the size head predicts 0.
-    Returns ``bbox_norm`` = (cx, cy, w, h) in [0, 1] crop coordinates and
-    the penalised max score.  The peak is the first maximum
-    (``torch.argmax``, like numpy's); its row of the (offset, size, cell)
-    table is read with one gather, no host read.
+    score (..., fs, fs), offset/size (..., fs, fs, 2), ``prev_size_norm``
+    (..., 2), the previous (w, h) in crop units, taken where the size head
+    predicts 0; the leading dimensions (none for one target, (S, M) for a
+    batch) pass through.  Returns ``bbox_norm`` = (..., 4) (cx, cy, w, h)
+    in [0, 1] crop coordinates and the penalised max score (...).  The peak
+    is the first maximum (``torch.argmax``, like numpy's); its row of the
+    (offset, size, cell) table is read with one gather, no host read.
     """
     fs = score.shape[-1]
+    lead = score.shape[:-2]
     penalised = score * (1.0 - hann_weight + hann_weight * hann)
-    flat = penalised.reshape(fs * fs)
-    idx = torch.argmax(flat)
-    table = torch.cat([offset.reshape(fs * fs, 2).float(),
-                       size.reshape(fs * fs, 2).float(),
-                       _decode_grid(fs, flat.device)], dim=1)
-    off_sz_pos = table[idx]                          # [ox, oy, sw, sh, ix, iy]
-    cxy = (off_sz_pos[4:6] + off_sz_pos[0:2]) / fs
-    sz = off_sz_pos[2:4]
+    flat = penalised.reshape(*lead, fs * fs)
+    idx = torch.argmax(flat, dim=-1, keepdim=True)             # (..., 1)
+    table = torch.cat([offset.reshape(*lead, fs * fs, 2).float(),
+                       size.reshape(*lead, fs * fs, 2).float(),
+                       _decode_grid(fs, flat.device).expand(*lead, fs * fs, 2)],
+                      dim=-1)
+    # [ox, oy, sw, sh, ix, iy] of the peak cell
+    off_sz_pos = torch.take_along_dim(table, idx[..., None], dim=-2).squeeze(-2)
+    cxy = (off_sz_pos[..., 4:6] + off_sz_pos[..., 0:2]) / fs
+    sz = off_sz_pos[..., 2:4]
     wh = torch.where(sz > 0, sz, prev_size_norm)
-    conf = flat[idx]
-    return torch.cat([cxy, wh]), conf
+    conf = torch.take_along_dim(flat, idx, dim=-1).squeeze(-1)
+    return torch.cat([cxy, wh], dim=-1), conf
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,15 +4,19 @@ Port of ``gstreamer_vit_tracker_tpu/models/vit.py``: template and search
 crops are patch-embedded (separate learned position embeddings),
 concatenated into one token sequence, and encoded jointly by a pre-LN ViT.
 
-``encode`` runs all blocks through ``ops/vit_block.py::encoder``: the CUDA
-encoder kernel on a CUDA tensor, its plain twin (a chain of :func:`_block`)
-on a CPU tensor.  The final LN and the split back to search tokens stay
-outside the kernel.
+``encode`` has two routes, as in JAX.  Fused (the default at batch 1): all
+blocks through ``ops/vit_block.py::encoder``, the CUDA encoder kernel on a
+CUDA tensor and its plain twin (a chain of :func:`_block`) on a CPU
+tensor.  Per block (``fused=False``, what the batched callers ask for): LN
+and the four products in PyTorch, attention through
+``ops/attention.py::multihead_attention`` (the CUDA attention kernels on a
+CUDA tensor).  The final LN and the split back to search tokens stay
+outside both.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,26 +69,45 @@ def _linear(x: torch.Tensor, p: Params) -> torch.Tensor:
             + p["bias"].float()).to(x.dtype)
 
 
-def _block(x: torch.Tensor, p: Params, num_heads: int) -> torch.Tensor:
-    """One pre-LN transformer block, plain PyTorch.
+def _linear_native(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """``x @ kernel + bias`` as one ``addmm`` in ``x.dtype``: the library's
+    product (float32 accumulation, one rounding), as the JAX package leaves
+    these products to XLA."""
+    k = p["kernel"]
+    return torch.addmm(p["bias"], x.reshape(-1, k.shape[0]), k).reshape(
+        *x.shape[:-1], k.shape[1])
 
-    This is the plain twin of one step of the CUDA encoder kernel and of
-    the TPU's ``ops/vit_block.py::_block_math``.  In float32 it computes
-    what JAX's ``vit._block`` computes.  In bf16 it rounds where the fused
+
+def _block(x: torch.Tensor, p: Params, num_heads: int,
+           use_kernel: Optional[bool] = False,
+           native: bool = False) -> torch.Tensor:
+    """One pre-LN transformer block.
+
+    With the defaults this is the plain twin of one step of the CUDA
+    encoder kernel and of the TPU's ``ops/vit_block.py::_block_math``, and
+    stays plain PyTorch on a CUDA tensor.  In float32 it computes what
+    JAX's ``vit._block`` computes.  In bf16 it rounds where the fused
     kernels round: each product is accumulated and biased in float32 and
     rounded once, attention runs in float32, and the tanh GELU is taken in
     float32 of the rounded mlp1 output.  JAX's ``vit._block`` rounds the
     product and the bias sum separately.
+
+    The per-block route of :func:`encode` is this same body with
+    ``use_kernel`` passed on to ``multihead_attention`` (``None``: the CUDA
+    attention kernels on a CUDA tensor) and ``native=True``: the four
+    products as ``addmm`` in the compute dtype instead of widened to
+    float32.
     """
     dt = x.dtype
+    linear = _linear_native if native else _linear
     h = layer_norm(x, p["ln1"])
-    qkv = _linear(h, p["qkv"])
+    qkv = linear(h, p["qkv"])
     q, k, v = torch.chunk(qkv, 3, dim=-1)
-    attn = multihead_attention(q, k, v, num_heads)
-    x = x + _linear(attn, p["proj"])
+    attn = multihead_attention(q, k, v, num_heads, use_kernel=use_kernel)
+    x = x + linear(attn, p["proj"])
     h = layer_norm(x, p["ln2"])
-    g = F.gelu(_linear(h, p["mlp1"]).float(), approximate="tanh").to(dt)
-    return x + _linear(g, p["mlp2"])
+    g = F.gelu(linear(h, p["mlp1"]).float(), approximate="tanh").to(dt)
+    return x + linear(g, p["mlp2"])
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -110,16 +133,30 @@ def embed_search(params: Params, x_img: torch.Tensor,
 
 
 def encode(params: Params, z_tok: torch.Tensor, x_tok: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+           cfg: ModelConfig, use_kernel: Optional[bool] = None,
+           fused: Optional[bool] = None) -> torch.Tensor:
     """Joint encoding of [template; search] tokens.
 
     Returns the encoded search tokens (B, Nx, D) after the final LN, the
     input to the heads.
+
+    ``fused=None`` takes the whole-encoder kernel for an unbatched (B = 1)
+    encode, as JAX does on its accelerator; ``fused=True`` takes it at any
+    batch.  ``fused=False`` is the per-block route, which the batched
+    callers (tracker/multi.py) pass: its attention goes through
+    ``multihead_attention(use_kernel)``, the counterpart of JAX's
+    ``use_pallas``.
     """
     dt = _cdtype(cfg)
+    if fused is None:
+        fused = x_tok.shape[0] == 1
     x = torch.cat([z_tok.to(dt), x_tok.to(dt)], dim=1)
-    if params["blocks"]:     # depth 0 has no blocks to run
-        blocks = [cast_params(bp, dt) for bp in params["blocks"]]
+    blocks = [cast_params(bp, dt) for bp in params["blocks"]]
+    if fused and blocks:     # depth 0 has no blocks to fuse
         x = vit_block.encoder(x, blocks, cfg.num_heads)
+    else:
+        for bp in blocks:
+            x = _block(x, bp, cfg.num_heads, use_kernel=use_kernel,
+                       native=True)
     x = layer_norm(x, params["norm"])
     return x[:, z_tok.shape[1]:, :]

@@ -5,7 +5,7 @@ Port of ``gstreamer_vit_tracker_tpu/models/vittrack.py`` (conv head).
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -30,23 +30,31 @@ def embed_template(params: Params, z_img: torch.Tensor,
 
 
 def forward(params: Params, z_tok: torch.Tensor, x_img: torch.Tensor,
-            cfg: ModelConfig) -> TrackMaps:
+            cfg: ModelConfig, use_kernel: Optional[bool] = None,
+            fused: Optional[bool] = None) -> TrackMaps:
     """One tracking forward pass.  z_tok: (B, Nz, D) cached template
-    tokens; x_img: (B, Hx, Wx, 3) normalised search crop."""
+    tokens; x_img: (B, Hx, Wx, 3) normalised search crop.  ``use_kernel``
+    and ``fused`` are those of ``vit.encode``."""
     x_tok = vit.embed_search(params["backbone"], x_img, cfg)
-    return forward_tokens(params, z_tok, x_tok, cfg)
+    return forward_tokens(params, z_tok, x_tok, cfg, use_kernel=use_kernel,
+                          fused=fused)
 
 
 def forward_tokens(params: Params, z_tok: torch.Tensor, x_tok: torch.Tensor,
-                   cfg: ModelConfig) -> TrackMaps:
+                   cfg: ModelConfig, use_kernel: Optional[bool] = None,
+                   fused: Optional[bool] = None) -> TrackMaps:
     """Forward from already-embedded search tokens (B, Nx, D).  Serves the
-    grouped head when :func:`with_grouped_head` attached one."""
+    grouped head when :func:`with_grouped_head` attached one, except for
+    the batched callers (``fused=False``), which run the three towers: at
+    real batch the grouped head's block-diagonal waste grows with the
+    batch, as in JAX."""
     if cfg.head_mode != "conv":
         raise NotImplementedError(
             f"head_mode {cfg.head_mode!r}: only the conv head is ported")
-    x_feat = vit.encode(params["backbone"], z_tok.to(x_tok.dtype), x_tok, cfg)
+    x_feat = vit.encode(params["backbone"], z_tok.to(x_tok.dtype), x_tok, cfg,
+                        use_kernel=use_kernel, fused=fused)
     g = params.get("head_grouped")
-    if g is not None:
+    if g is not None and fused is not False:
         score, offset, size = heads_mod.conv_head_grouped(g, x_feat, cfg)
     else:
         score, offset, size = heads_mod.conv_head(params["head"], x_feat, cfg)

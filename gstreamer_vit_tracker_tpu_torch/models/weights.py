@@ -8,6 +8,10 @@ nested tree (dicts, lists for blocks and tower layers) with every shape
 checked against the config, as the JAX ``load_npz`` checks against its
 ``like`` tree.  Layouts stay as stored: linear kernels (in, out), conv
 kernels HWIO.
+
+A ``TrackState`` crosses the same way: :func:`state_from_numpy` and
+:func:`state_to_numpy` carry its six leaves (with any leading batch
+dimensions) between numpy arrays and the port's tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
+from ..tracker.state import TrackState
 
 Params = Dict[str, Any]
 
@@ -108,3 +113,27 @@ def load_npz(path: str, cfg: ModelConfig, device="cuda",
         flat = {k: data[k] for k in data.files}
     return params_from_flat(flat, cfg, device=device, dtype=dtype)
 
+
+
+def state_from_numpy(leaves, cfg: ModelConfig, device="cuda") -> TrackState:
+    """A ``TrackState`` from six numpy leaves in field order (a JAX
+    ``TrackState`` fetched to the host, unbatched or with leading (N,) or
+    (S, M) dimensions).  Template tokens take the config's compute dtype
+    (bf16 leaves widen to float32 on the way, which is exact), the others
+    float32 and int32."""
+    dev = resolve_device(device)
+    tok = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    dtypes = TrackState(tok, tok, torch.float32, torch.float32, torch.int32,
+                        torch.int32)
+    return TrackState(*(
+        torch.tensor(np.asarray(a, np.float32 if dt.is_floating_point
+                                else np.int32), dtype=dt, device=dev)
+        for a, dt in zip(leaves, dtypes)))
+
+
+def state_to_numpy(state: TrackState) -> TrackState:
+    """The state's leaves as numpy arrays (floats as float32: bf16 tokens
+    widen exactly; ints as int32), for JAX's ``TrackState(*leaves)``."""
+    return TrackState(*(
+        (t.float() if t.is_floating_point() else t).cpu().numpy()
+        for t in state))

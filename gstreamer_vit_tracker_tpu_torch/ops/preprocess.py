@@ -27,7 +27,8 @@ __all__ = ["CropWindow", "crop_window", "normalize", "band_origin",
 
 
 class CropWindow(NamedTuple):
-    """Square sampling window in source-frame pixels (0-d float32)."""
+    """Square sampling window in source-frame pixels (float32; 0-d, or
+    with the leading batch dimensions of the boxes it was made from)."""
 
     cx: torch.Tensor      # window centre x
     cy: torch.Tensor      # window centre y
@@ -35,12 +36,13 @@ class CropWindow(NamedTuple):
 
 
 def crop_window(bbox: torch.Tensor, factor) -> CropWindow:
-    """Window around ``bbox`` = (x, y, w, h) with ``factor`` x context.
+    """Window around ``bbox`` = (..., 4) (x, y, w, h) with ``factor`` x
+    context.
 
     ``side = ceil(factor * sqrt(w * h))``, floored at 2; w and h are
     floored at 1 px so a degenerate box still yields a valid window.
     """
-    x, y, w, h = bbox[0], bbox[1], bbox[2], bbox[3]
+    x, y, w, h = bbox[..., 0], bbox[..., 1], bbox[..., 2], bbox[..., 3]
     w = torch.clamp_min(w, 1.0)
     h = torch.clamp_min(h, 1.0)
     cx = x + 0.5 * w
@@ -79,6 +81,20 @@ def band_origin(window: CropWindow, frame_h: int, frame_w: int,
     return origin(window.cy, frame_h), origin(window.cx, frame_w)
 
 
+def _resample(r: torch.Tensor, plane: torch.Tensor, c: torch.Tensor
+              ) -> torch.Tensor:
+    """``(R @ P) @ C^T``, rounded to the planes' dtype between the two.
+
+    ``r`` and ``c`` carry the windows' leading dimensions, ``plane`` the
+    first of them (the frame's).  Window dimensions beyond the frame's fold
+    into the rows of the first product, so the objects of one stream share
+    the stream's frame instead of each getting a copy of it."""
+    lead, (out, src) = r.shape[:-2], r.shape[-2:]
+    rows = r.reshape(*plane.shape[:-2], -1, src)
+    t = (rows @ plane).reshape(*lead, out, plane.shape[-1])
+    return t @ c.transpose(-1, -2)
+
+
 def preprocess_nv12(y_plane: torch.Tensor, uv_plane: torch.Tensor,
                     window: CropWindow, out_size: int,
                     mean: Sequence[float], std: Sequence[float],
@@ -87,7 +103,11 @@ def preprocess_nv12(y_plane: torch.Tensor, uv_plane: torch.Tensor,
     """NV12 planes -> normalised (out_size, out_size, 3) RGB model crop.
 
     ``y_plane``: (H, W) uint8; ``uv_plane``: (H//2, W//2, 2) uint8 with
-    channel 0 = U, 1 = V.  Luma is resampled at full resolution, chroma at
+    channel 0 = U, 1 = V.  Batched: the window's leaves carry leading
+    dimensions (streams, objects), the planes the first of them (one frame
+    per stream, shared by its objects), and the crop comes out as
+    (..., out_size, out_size, 3); the band is for the unbatched call only.
+    Luma is resampled at full resolution, chroma at
     half resolution through the pair-folded matrices.  The black-level
     offsets are subtracted before resampling so the zero-weight padding
     decodes to black.  With ``band``, a static window-centred region is
@@ -95,10 +115,17 @@ def preprocess_nv12(y_plane: torch.Tensor, uv_plane: torch.Tensor,
     products are left-associated, ``(R @ P) @ C^T``, rounded to ``dtype``
     between the two, as in JAX.
     """
-    h, w = y_plane.shape
+    h, w = y_plane.shape[-2:]
+    lead = window.size.shape
+    if y_plane.shape[:-2] != lead[:y_plane.dim() - 2]:
+        raise ValueError(f"frame batch {tuple(y_plane.shape[:-2])} is not the "
+                         f"head of the window batch {tuple(lead)}")
     start_y = window.cy - 0.5 * window.size
     start_x = window.cx - 0.5 * window.size
     if band is not None and (h > band or w > band):
+        if lead:
+            raise ValueError("the banded preprocess takes one window; "
+                             "batched callers run with preprocess_band=None")
         bh, bw = min(band, h), min(band, w)
         row0, col0 = band_origin(window, h, w, band)
         dev = y_plane.device
@@ -121,9 +148,9 @@ def preprocess_nv12(y_plane: torch.Tensor, uv_plane: torch.Tensor,
     ry_uv = fold_half_res(ry)
     cx_uv = fold_half_res(cxm)
 
-    yc = ry @ (y_plane.to(dtype) - 16.0) @ cxm.T
-    uc = ry_uv @ (uv_plane[..., 0].to(dtype) - 128.0) @ cx_uv.T
-    vc = ry_uv @ (uv_plane[..., 1].to(dtype) - 128.0) @ cx_uv.T
+    yc = _resample(ry, y_plane.to(dtype) - 16.0, cxm)
+    uc = _resample(ry_uv, uv_plane[..., 0].to(dtype) - 128.0, cx_uv)
+    vc = _resample(ry_uv, uv_plane[..., 1].to(dtype) - 128.0, cx_uv)
 
     rgb = rgb_from_shifted_yuv(yc, uc, vc)
     rgb = torch.clamp(rgb, 0.0, 255.0)

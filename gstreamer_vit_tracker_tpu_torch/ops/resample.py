@@ -23,8 +23,10 @@ def sampling_matrix(out_size: int, src_size: int, start, scale,
     """The (out_size, src_size) bilinear sampling matrix.
 
     ``start`` (source coordinate of the window origin, px) and ``scale``
-    (source px per output px) may be 0-d tensors, so no value leaves the
-    device.  Weights are built in float32 and then cast to ``dtype``.
+    (source px per output px) may be tensors, so no value leaves the
+    device; with leading batch dimensions (one window per stream and
+    object) the result is (..., out_size, src_size).  Weights are built in
+    float32 and then cast to ``dtype``.
     """
     if isinstance(start, torch.Tensor):
         device = start.device
@@ -33,7 +35,7 @@ def sampling_matrix(out_size: int, src_size: int, start, scale,
     j = torch.arange(src_size, dtype=f32, device=device).unsqueeze(0)
     start = torch.as_tensor(start, dtype=f32, device=device)
     scale = torch.as_tensor(scale, dtype=f32, device=device)
-    s = start + (i + 0.5) * scale - 0.5
+    s = start[..., None, None] + (i + 0.5) * scale[..., None, None] - 0.5
     w = torch.clamp_min(1.0 - torch.abs(s - j), 0.0)
     return w.to(dtype)
 
@@ -42,8 +44,9 @@ def fold_half_res(m: torch.Tensor) -> torch.Tensor:
     """Fold a full-resolution sampling matrix to act on a 2x-subsampled
     plane under block-replicate upsampling: ``M'[i, j] = M[i, 2j] +
     M[i, 2j+1]``, so NV12 chroma is resampled at half resolution with no
-    explicit upsample.  Requires an even source size."""
-    out, src = m.shape
+    explicit upsample.  Requires an even source size; leading batch
+    dimensions pass through."""
+    src = m.shape[-1]
     if src % 2:
         raise ValueError(f"fold_half_res requires an even source size, got {src}")
-    return m.reshape(out, src // 2, 2).sum(dim=-1)
+    return m.reshape(*m.shape[:-1], src // 2, 2).sum(dim=-1)

@@ -1,15 +1,19 @@
-"""Where the time of the flagship update step goes on the card.
+"""Where the time of the flagship update step and of the serving tick goes
+on the card.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python -m gstreamer_vit_tracker_tpu_torch.profile_step [--steps 30]
+                                                           [--slots 16]
 
 Traces ``--steps`` flagship ``core.update_packed`` calls on a 1080p NV12
 frame (after warm-up) with ``torch.profiler`` (CPU + CUDA activity) and
 prints, as one JSON object: the host wall time per step, the device time
 per step summed over kernels (one stream, so kernels do not overlap), the
 device's idle share of the window, and the device time per step of each
-kernel name, largest first; the same for one encoder kernel call alone.
+kernel name, largest first; the same for one encoder kernel call alone,
+and for ``--steps`` ticks of a ``SlotEngine`` with ``--slots`` live slots
+fed from pinned 1080p NV12 buffers (``--slots 0`` leaves the tick out).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--slots", type=int, default=16)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU")
@@ -93,6 +98,7 @@ def main() -> None:
     enc_rows, enc_us, enc_launches = _kernel_table(prof, args.steps)
 
     top = args.top
+    tick = _profile_tick(params, cfg, frame, args, dev) if args.slots else None
     print(json.dumps({
         "card": card,
         "torch": torch.__version__,
@@ -114,7 +120,47 @@ def main() -> None:
             "device_activities": enc_launches,
             "top_us": {k: round(v, 3) for k, v in list(enc_rows.items())[:top]},
         },
+        "tick": tick,
     }, indent=1))
+
+
+def _profile_tick(params, cfg, frame, args, dev):
+    """``args.steps`` ticks of an engine whose ``args.slots`` slots all
+    track the example frame's box, traced like the step."""
+    from .entry import INIT_BBOX
+    from .serve import SlotEngine
+
+    engine = SlotEngine(params, cfg, slots=args.slots, snapshot_every=0,
+                        device=dev)
+    for _ in range(args.slots):
+        engine.init_slot(engine.alloc(), frame, INIT_BBOX)
+    buf = tuple(p.cpu()[None].repeat(args.slots, *([1] * p.dim())).pin_memory()
+                for p in frame)
+    active = np.ones(args.slots, bool)
+    for _ in range(3):
+        engine.step(buf, active)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        packed = engine.step(buf, active)
+    bare_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            packed = engine.step(buf, active)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    rows, us, launches = _kernel_table(prof, args.steps)
+    return {
+        "slots": args.slots,
+        "wall_ms_unprofiled": bare_ms,
+        "wall_ms": wall_ms,
+        "device_ms": us / 1e3,
+        "device_idle_share": max(0.0, 1.0 - us / 1e3 / wall_ms),
+        "device_idle_share_unprofiled": max(0.0, 1.0 - us / 1e3 / bare_ms),
+        "kernels": len(rows),
+        "device_activities": launches,
+        "top_us": {k: round(v, 3) for k, v in list(rows.items())[:args.top]},
+        "packed_slot0": packed[0].tolist(),
+    }
 
 
 if __name__ == "__main__":

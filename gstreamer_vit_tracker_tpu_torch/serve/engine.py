@@ -1,0 +1,207 @@
+"""Slot engine: a fixed pool of tracking slots over ONE batched step.
+
+Port of ``gstreamer_vit_tracker_tpu/serve/engine.py``.  The serving tick is
+the batched multi-stream update (``tracker/multi.py::update_streams``) with
+a static slot count S: dynamic arrival and departure of clients is data
+(the per-tick ``active`` mask and a write into one row of the state), never
+a new shape.  An idle slot costs a masked row.
+
+Fault story: params keep a host-side master copy, live slot state snapshots
+to the host every ``snapshot_every`` ticks, and :meth:`SlotEngine.recover`
+rebuilds the device state after a device fault.  Slots initialised after
+the last snapshot come back dead: their clients must re-init (the server
+reports this).
+
+NV12 is the only frame format the port has so far.  Serving over several
+cards (the JAX engine's ``mesh``) comes with the port of ``parallel/``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+from ..tracker import core, multi
+from ..tracker.multi import _batched_cfg
+from ..tracker.state import TrackState, zeros_state
+from . import protocol
+
+Params = Dict[str, Any]
+
+
+def _tree_to(tree: Any, device: torch.device, dtype=None) -> Any:
+    """A copy of a param tree on ``device`` (always new storage, so the
+    copy survives whatever happens to the original), floating leaves cast
+    to ``dtype`` if one is given."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device, dtype) for v in tree]
+    return tree.detach().to(device, dtype if tree.is_floating_point() else None,
+                            copy=True)
+
+
+class PackedTick:
+    """The packed (S, 5) [x, y, w, h, score] result of one tick, not yet
+    read.  ``packed`` is the tensor on the engine's device; ``np.asarray``
+    of this object waits for that tick alone and gives the host copy.
+
+    On the card the copy into pinned host memory is enqueued right behind
+    the tick and an event recorded behind the copy, so a reader on another
+    thread neither reads early nor waits for ticks enqueued later."""
+
+    def __init__(self, packed: torch.Tensor):
+        self.packed = packed
+        self._event: Optional[torch.cuda.Event] = None
+        if packed.is_cuda:
+            self._host = torch.empty(packed.shape, dtype=packed.dtype,
+                                     pin_memory=True)
+            self._host.copy_(packed, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(packed.device))
+        else:
+            self._host = packed
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+        out = self._host.numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+class SlotEngine:
+    """S tracking slots, one batched step, host-snapshot recovery.
+
+    Not thread-safe by itself: the server serialises all calls (``lock``).
+    The engine's state is updated in place by :meth:`init_slot`; what it
+    keeps of a caller's frame or bbox is a copy."""
+
+    def __init__(self, params: Params, cfg: ModelConfig, slots: int,
+                 frame_format: str = "nv12", snapshot_every: int = 60,
+                 device="cuda"):
+        if frame_format not in protocol.FORMATS:
+            raise ValueError(f"unknown frame format {frame_format!r}")
+        if frame_format != "nv12":
+            raise NotImplementedError(
+                f"frame_format {frame_format!r}: only nv12 is ported")
+        self.cfg = cfg
+        self.slots = slots
+        self.frame_format = frame_format
+        self.snapshot_every = snapshot_every
+        self.device = resolve_device(device)
+        self._host_params = _tree_to(params, torch.device("cpu"))
+        self.params = self._place_params()
+        self.state: TrackState = self._zero_state()
+        # Host-side occupancy: which slots hold a live track.  Device-side
+        # liveness is the per-tick active mask built from this.
+        self.occupied = np.zeros(slots, bool)
+        self._ticks = 0
+        self._snapshot = None    # (host TrackState, occupancy at snapshot)
+        self.lock = threading.Lock()
+
+    def _place_params(self) -> Params:
+        """The host master params on the device.  The blocks, which the
+        model casts to its compute dtype at every use, are cast here once
+        (the same rounding, 144 fewer copies a tick for the flagship)."""
+        params = _tree_to(self._host_params, self.device)
+        backbone = dict(params["backbone"])
+        backbone["blocks"] = _tree_to(
+            self._host_params["backbone"]["blocks"], self.device,
+            torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32)
+        params["backbone"] = backbone
+        return params
+
+    def _zero_state(self) -> TrackState:
+        z = zeros_state(self.cfg, device=self.device)
+        return TrackState(*(torch.zeros((self.slots, 1) + t.shape,
+                                        dtype=t.dtype, device=self.device)
+                            for t in z))
+
+    # -- slot lifecycle ----------------------------------------------------
+
+    def alloc(self) -> int:
+        """Reserve a free slot index; raises RuntimeError when full."""
+        free = np.flatnonzero(~self.occupied)
+        if free.size == 0:
+            raise RuntimeError(f"all {self.slots} slots busy")
+        self.occupied[free[0]] = True
+        return int(free[0])
+
+    def init_slot(self, slot: int, frame, bbox) -> None:
+        """Start a track in ``slot``: ``core.init`` with the batched config
+        (band off), written into row ``slot`` of the (S, 1, ...) state."""
+        new = core.init(self.params, frame, bbox, _batched_cfg(self.cfg),
+                        self.frame_format, self.device)
+        for batched, leaf in zip(self.state, new):
+            batched[slot, 0] = leaf.to(batched.dtype)
+        self.occupied[slot] = True
+        if self._snapshot is None:
+            self.snapshot()
+
+    def release(self, slot: int) -> None:
+        self.occupied[slot] = False
+
+    # -- the tick ------------------------------------------------------------
+
+    def step_async(self, frames, tick_active: np.ndarray) -> PackedTick:
+        """Enqueue one batched tick WITHOUT reading the result: returns a
+        :class:`PackedTick` whose ``packed`` is the (S, 5) [x, y, w, h,
+        score] tensor on the device; the caller materialises it later with
+        ``np.asarray``.
+
+        The next tick may be enqueued at once (the state chain runs in
+        stream order), so a server overlaps the read of tick N with the
+        device work of tick N+1."""
+        self._ticks += 1
+        if self.snapshot_every and self._ticks % self.snapshot_every == 0:
+            self.snapshot()
+        active = torch.as_tensor((tick_active & self.occupied)[:, None],
+                                 device=self.device)
+        self.state, bboxes, scores = multi.update_streams(
+            self.params, self.state, self._place_frames(frames), active,
+            self.cfg, self.frame_format, device=self.device)
+        return PackedTick(torch.cat([bboxes[:, 0, :], scores], dim=1))
+
+    def step(self, frames, tick_active: np.ndarray) -> np.ndarray:
+        """One SYNCHRONOUS batched tick.  ``frames`` are full (S, ...) host
+        buffers; ``tick_active`` (S,) bool marks slots with a FRESH frame
+        this tick (stale slots' state is held bit for bit by the masked
+        update).  Returns packed (S, 5) [x, y, w, h, score] float32."""
+        return np.asarray(self.step_async(frames, tick_active))
+
+    def _place_frames(self, frames):
+        """Host (S, ...) planes onto the device; from pinned memory the
+        upload is asynchronous."""
+        return tuple(torch.as_tensor(p).to(self.device, non_blocking=True)
+                     for p in frames)
+
+    # -- fault recovery ------------------------------------------------------
+
+    def snapshot(self) -> None:
+        cpu = torch.device("cpu")
+        self._snapshot = (TrackState(*(t.detach().to(cpu, copy=True)
+                                       for t in self.state)),
+                          self.occupied.copy())
+
+    def recover(self) -> list:
+        """Rebuild device state after a device fault, from the host master
+        params and the last snapshot.  Returns the slot indices that could
+        NOT be restored (initialised after the last snapshot, or never
+        snapshotted): the server reports these to their clients as
+        re-init-required."""
+        self.params = self._place_params()
+        if self._snapshot is None:
+            lost = np.flatnonzero(self.occupied)
+            self.state = self._zero_state()
+            self.occupied[:] = False
+            return [int(i) for i in lost]
+        state, occ = self._snapshot
+        self.state = TrackState(*(t.to(self.device, copy=True) for t in state))
+        lost = np.flatnonzero(self.occupied & ~occ)
+        self.occupied = occ.copy()
+        return [int(i) for i in lost]

@@ -11,12 +11,18 @@ Every value of the step stays a tensor on the device, so a CUDA update
 enqueues its work without reading anything back; :func:`update_packed`
 returns the five numbers a caller reads as one tensor.  RGB and YUY2
 frames come with a later slice.
+
+Where JAX adds object and stream axes with ``vmap`` (tracker/multi.py), the
+step here takes them written out: a state whose fields carry leading
+dimensions ((N,) objects of one frame, or (S, M) streams and objects) with
+a frame that carries the first of them ((S,) frames, each shared by its M
+objects).  One body serves the unbatched step and the batch.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -54,6 +60,12 @@ def _prep_nv12(frame, window: pp.CropWindow, out_size: int,
                               band=cfg.preprocess_band)
 
 
+def _rows(t: torch.Tensor, keep: int) -> torch.Tensor:
+    """Every leading dimension before the last ``keep`` as one batch
+    dimension (a batch of 1 for an unbatched tensor)."""
+    return t.reshape(-1, *t.shape[-keep:])
+
+
 @functools.lru_cache(maxsize=None)
 def _hann(fs: int, mode: str, device: torch.device) -> torch.Tensor:
     return heads_mod.hanning_2d(fs, mode, device)
@@ -67,30 +79,48 @@ def _frame_limits(fw: int, fh: int, device: torch.device) -> torch.Tensor:
 def init(params: Params, frame, bbox, cfg: ModelConfig,
          frame_format: str = "nv12", device="cuda") -> TrackState:
     """Capture the template and start a track.  ``bbox`` = (x, y, w, h) in
-    frame pixels; ``frame`` = (Y (H, W), UV (H/2, W/2, 2)) uint8 planes."""
+    frame pixels; ``frame`` = (Y (H, W), UV (H/2, W/2, 2)) uint8 planes.
+    Batched: ``bbox`` (..., 4) with frames on its first dimensions (module
+    docstring).  The state keeps copies, never the caller's buffers."""
     dev = resolve_device(device)
     frame = _frame_on(frame, frame_format, dev)
     bbox = torch.as_tensor(bbox, dtype=torch.float32, device=dev).clone()
+    lead = bbox.shape[:-1]
     window = pp.crop_window(bbox, cfg.template_factor)
     z_img = _prep_nv12(frame, window, cfg.template_size, cfg)
-    z_tok = vittrack.embed_template(params, z_img[None], cfg)[0]
+    z_tok = vittrack.embed_template(params, _rows(z_img, 3), cfg)
+    z_tok = z_tok.reshape(*lead, *z_tok.shape[-2:])
     return TrackState(
         z_tok=z_tok,
         z_tok_init=z_tok.clone(),
         bbox=bbox,
-        score=torch.ones((), dtype=torch.float32, device=dev),
-        frame_idx=torch.zeros((), dtype=torch.int32, device=dev),
-        lost_frames=torch.zeros((), dtype=torch.int32, device=dev),
+        score=torch.ones(lead, dtype=torch.float32, device=dev),
+        frame_idx=torch.zeros(lead, dtype=torch.int32, device=dev),
+        lost_frames=torch.zeros(lead, dtype=torch.int32, device=dev),
     )
 
 
 def update(params: Params, state: TrackState, frame, cfg: ModelConfig,
-           frame_format: str = "nv12", device="cuda"
+           frame_format: str = "nv12", device="cuda",
+           use_kernel: Optional[bool] = None, fused: Optional[bool] = None,
+           fused_embed: bool = False, fused_prep=False
            ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
-    """Track one frame.  Returns (new_state, bbox_xywh, confidence)."""
+    """Track one frame.  Returns (new_state, bbox_xywh, confidence), each
+    with the state's leading dimensions.
+
+    ``fused`` and ``use_kernel`` are those of ``models/vit.py::encode``:
+    the batched callers (tracker/multi.py) pass ``fused=False``, the
+    per-block route.  ``fused_embed`` and ``fused_prep`` (the patch-major
+    embed and the one-kernel NV12 preprocess + embed) come with the slice
+    that ports ``ops/fused_prep_embed.py``."""
+    if fused_embed or fused_prep:
+        raise NotImplementedError(
+            "fused_embed / fused_prep come with the slice that ports "
+            "ops/fused_prep_embed.py (the NV12-to-tokens kernel)")
     dev = resolve_device(device)
     frame = _frame_on(frame, frame_format, dev)
-    fh, fw = frame[0].shape
+    fh, fw = frame[0].shape[-2:]
+    lead = state.bbox.shape[:-1]
 
     # Re-detection ramp: while confidence stays below the freeze threshold
     # the search window grows geometrically (capped); lost_frames == 0
@@ -107,32 +137,37 @@ def update(params: Params, state: TrackState, frame, cfg: ModelConfig,
         window = window._replace(
             size=torch.clamp_max(window.size, float(cfg.preprocess_band)))
     x_img = _prep_nv12(frame, window, cfg.search_size, cfg)
-    maps = vittrack.forward(params, state.z_tok[None], x_img[None], cfg)
+    maps = vittrack.forward(params, _rows(state.z_tok, 2),
+                            _rows(x_img, 3), cfg, use_kernel=use_kernel,
+                            fused=fused)
 
     hann = _hann(cfg.feat_size, cfg.hann_mode, dev)
-    prev_wh = state.bbox[2:4]
+    prev_wh = state.bbox[..., 2:4]
+    side = window.size[..., None]
     bbox_norm, conf = heads_mod.decode_maps(
-        maps.score[0], maps.offset[0], maps.size[0], hann,
-        prev_wh / window.size)
+        maps.score.reshape(*lead, *maps.score.shape[1:]),
+        maps.offset.reshape(*lead, *maps.offset.shape[1:]),
+        maps.size.reshape(*lead, *maps.size.shape[1:]), hann, prev_wh / side)
+    gate = conf[..., None]
 
     # Crop-normalised (cx, cy, w, h) back to frame pixels.
     lim = _frame_limits(fw, fh, dev)
-    origin = torch.stack([window.cx, window.cy]) - 0.5 * window.size
-    cxy = origin + bbox_norm[0:2] * window.size
-    wh = torch.minimum(torch.clamp_min(bbox_norm[2:4] * window.size, 1.0), lim)
+    origin = torch.stack([window.cx, window.cy], dim=-1) - 0.5 * side
+    cxy = origin + bbox_norm[..., 0:2] * side
+    wh = torch.minimum(torch.clamp_min(bbox_norm[..., 2:4] * side, 1.0), lim)
     if cfg.size_rate_limit > 0.0:
         # Plausibility clamp on the per-frame size change.
         r = 1.0 + cfg.size_rate_limit
         wh = torch.minimum(torch.maximum(wh, prev_wh / r), prev_wh * r)
     if cfg.size_conf_freeze > 0.0:
         # Half-confident frames update position only.
-        wh = torch.where(conf > cfg.size_conf_freeze, wh, prev_wh)
+        wh = torch.where(gate > cfg.size_conf_freeze, wh, prev_wh)
     xy = torch.minimum(torch.clamp_min(cxy - 0.5 * wh, 0.0), lim - wh)
-    new_bbox = torch.cat([xy, wh])
+    new_bbox = torch.cat([xy, wh], dim=-1)
     if cfg.window_freeze_threshold > 0.0:
         # Low confidence: hold the previous bbox so the search window stays
         # where the target vanished.
-        new_bbox = torch.where(conf > cfg.window_freeze_threshold,
+        new_bbox = torch.where(gate > cfg.window_freeze_threshold,
                                new_bbox, state.bbox)
 
     confident = conf > cfg.window_freeze_threshold
@@ -163,19 +198,21 @@ def _maybe_update_template(params: Params, state: TrackState, frame,
         (state.frame_idx % cfg.template_update_interval) == 0)
     window = pp.crop_window(state.bbox, cfg.template_factor)
     z_img = _prep_nv12(frame, window, cfg.template_size, cfg)
-    z_new = vittrack.embed_template(params, z_img[None], cfg)[0]
+    z_new = vittrack.embed_template(params, _rows(z_img, 3), cfg)
+    z_new = z_new.reshape(state.z_tok.shape)
     a = cfg.template_update_anchor
     blended = (a * state.z_tok_init.float()
                + (1.0 - a) * z_new.float()).to(state.z_tok.dtype)
-    return state._replace(z_tok=torch.where(do, blended, state.z_tok))
+    return state._replace(
+        z_tok=torch.where(do[..., None, None], blended, state.z_tok))
 
 
 def update_packed(params: Params, state: TrackState, frame, cfg: ModelConfig,
                   frame_format: str = "nv12", device="cuda"
                   ) -> Tuple[TrackState, torch.Tensor]:
     """Like :func:`update` but returns (state, packed) with ``packed`` =
-    [x, y, w, h, score], one (5,) tensor, so a caller reads the result
+    [x, y, w, h, score], one (..., 5) tensor, so a caller reads the result
     with one device-to-host copy."""
     new_state, bbox, conf = update(params, state, frame, cfg, frame_format,
                                    device)
-    return new_state, torch.cat([bbox, conf[None]])
+    return new_state, torch.cat([bbox, conf[..., None]], dim=-1)

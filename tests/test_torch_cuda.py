@@ -1,6 +1,9 @@
 """PyTorch port on an NVIDIA GPU: the CUDA encoder kernel against its
 plain twin, its input checks, its launch count, its backward, and the
-tracking step on the card against the same step on the CPU.
+tracking step on the card against the same step on the CPU; the two
+attention kernels against ``attention_reference``, their dispatch by
+length, input checks, launch counts and backward; the per-block encode
+route and a batched engine tick on the card against the CPU.
 
 Every test here needs a card and skips without one (marker ``cuda``).
 Run them on the GPU with
@@ -19,7 +22,7 @@ torch = pytest.importorskip("torch")
 
 from gstreamer_vit_tracker_tpu_torch.config import PRESETS  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights  # noqa: E402
-from gstreamer_vit_tracker_tpu_torch.ops import vit_block  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.tracker import core  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -138,3 +141,146 @@ def test_update_on_card_matches_cpu(dev, preset):
     else:
         assert (out["cuda"][:, 4] - out["cpu"][:, 4]).abs().max() <= 0.02
         assert (out["cuda"][:, :4] - out["cpu"][:, :4]).abs().max() <= 2.0
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels (csrc/attention.cu)
+# ---------------------------------------------------------------------------
+
+def _qkv(bh, s, dh, dtype, dev, seed=0, v_scale=1.0):
+    gen = torch.Generator().manual_seed(seed + 7 * s + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=gen) for _ in range(3))
+    return tuple(t.to(dev, dtype) for t in (q, k, v_scale * v))
+
+
+def _check_attention(got, ref, dtype):
+    """float32: 1e-5 absolute.  bf16: one output ulp at the largest
+    reference value (2^-7 of it: both sides round an f32 result once)."""
+    assert got.shape == ref.shape and got.dtype == dtype
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref.abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+# (batch*heads, S, dh, the kernel flash_attention takes in float32, in bf16):
+# K and V of float32 need twice the shared memory, so the serving shape is
+# whole-sequence in bf16 and blocked in float32.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,dh,route32,route16", [
+    (48, 320, 64, "flash", "single"), (2, 128, 64, "single", "single"),
+    (3, 200, 32, "single", "single"), (4, 80, 48, "single", "single"),
+    (2, 1, 8, "single", "single"), (5, 33, 128, "single", "single"),
+    (3, 1088, 64, "flash", "flash"), (1, 1200, 32, "flash", "flash"),
+    (2, 777, 128, "flash", "flash"), (1, 4099, 8, "flash", "flash")])
+def test_attention_kernels_match_reference(dev, dtype, bh, s, dh, route32,
+                                           route16):
+    route = route32 if dtype == torch.float32 else route16
+    q, k, v = _qkv(bh, s, dh, dtype, dev)
+    assert attention.kernel_route(q) == route
+    before = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
+    got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
+    assert after == ((before[0] + 1, before[1]) if route == "single"
+                     else (before[0], before[1] + 1))
+    _check_attention(got, attention.attention_reference(q, k, v), dtype)
+
+
+def test_attention_large_values_do_not_leak_across_blocks(dev):
+    # v scaled by 100 as tests/test_attention.py::test_flash_padding_does_not_leak
+    # does: a wrong tail or a wrong rescaling shows at once.
+    for s in (320, 1088):
+        q, k, v = _qkv(2, s, 64, torch.float32, dev, v_scale=100.0)
+        got = attention.flash_attention(q, k, v)
+        ref = attention.attention_reference(q, k, v)
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-3)
+
+
+def test_multihead_attention_on_card(dev):
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, 37, 96), generator=gen).to(dev) for _ in range(3))
+    before = attention.SINGLE_LAUNCHES
+    got = attention.multihead_attention(q, k, v, 2)          # None -> kernel
+    assert attention.SINGLE_LAUNCHES == before + 1
+    plain = attention.multihead_attention(q, k, v, 2, use_kernel=False)
+    assert attention.SINGLE_LAUNCHES == before + 1           # plain: no launch
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-5)
+
+
+def test_attention_kernels_reject_what_they_cannot_take(dev):
+    q, k, v = _qkv(2, 16, 64, torch.float32, dev)
+    with pytest.raises(TypeError):
+        attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_attention(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError, match="expected"):
+        attention.flash_attention(q, k[:, :8], v)
+    with pytest.raises(ValueError, match="use_kernel=True"):
+        attention.multihead_attention(q.cpu(), k.cpu(), v.cpu(), 2,
+                                      use_kernel=True)
+
+
+def test_attention_backward_is_the_references(dev):
+    q, k, v = (t.requires_grad_(True)
+               for t in _qkv(2, 45, 32, torch.float32, dev))
+    g_k = torch.autograd.grad((attention.flash_attention(q, k, v) ** 2).sum(),
+                              (q, k, v))
+    g_r = torch.autograd.grad(
+        (attention.attention_reference(q, k, v) ** 2).sum(), (q, k, v))
+    for a, b in zip(g_k, g_r):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_encoder_twin_stays_plain_on_card(dev):
+    gen = torch.Generator().manual_seed(2)
+    blocks = _blocks(gen, 64, 2, 256, torch.float32, dev)
+    x = torch.randn((2, 20, 64), generator=gen).to(dev)
+    before = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES,
+              vit_block.LAUNCHES)
+    vit_block.encoder_reference(x, blocks, 2)
+    assert before == (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES,
+                      vit_block.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# The batched path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def test_encode_per_block_route_on_card(dev):
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+
+    cfg = PRESETS["small"]
+    gen = torch.Generator().manual_seed(9)
+    z = torch.randn((4, cfg.num_template_tokens, cfg.embed_dim), generator=gen)
+    x = torch.randn((4, cfg.num_search_tokens, cfg.embed_dim), generator=gen)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        bb = weights.load_npz(weights.checkpoint_path("small"), cfg,
+                              device=d)["backbone"]
+        before = attention.SINGLE_LAUNCHES
+        out[d.type] = vit.encode(bb, z.to(d), x.to(d), cfg, fused=False).cpu()
+        launched = attention.SINGLE_LAUNCHES - before
+        assert launched == (cfg.depth if d.type == "cuda" else 0)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_engine_ticks_on_card_match_cpu(dev):
+    from gstreamer_vit_tracker_tpu_torch.serve import SlotEngine
+
+    cfg = PRESETS["small"]
+    frames, bbox = _clip(4)
+    rows = {}
+    for d in (dev, torch.device("cpu")):
+        params = weights.load_npz(weights.checkpoint_path("small"), cfg,
+                                  device=d)
+        eng = SlotEngine(params, cfg, slots=3, snapshot_every=0, device=d)
+        for _ in range(2):
+            eng.init_slot(eng.alloc(), frames[0], bbox)
+        ticks = [eng.step_async(
+            (np.stack([f[0]] * 3), np.stack([f[1]] * 3)),
+            np.array([True, i % 2 == 0, True])) for i, f in enumerate(frames[1:])]
+        rows[d.type] = np.stack([np.asarray(t) for t in ticks])
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=0, atol=1e-2)
+    assert not rows["cuda"][:, 2].any()              # the unoccupied slot

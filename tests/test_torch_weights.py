@@ -2,11 +2,16 @@
 
 The same npz arrays go to JAX's ``weights.load_npz`` and to the port's
 ``load_npz``; every leaf must come out with JAX's shape and the same
-values, and the derived grouped head must be identical.
+values, and the derived grouped head must be identical.  The port's own
+copies of pure-Python modules (``config.py``, ``serve/protocol.py``,
+``serve/client.py``) stay equal to the originals, and no module of the
+port imports JAX or the JAX package.
 """
 
 import dataclasses
 import os
+import re
+import socket
 
 import numpy as np
 import pytest
@@ -20,9 +25,13 @@ from gstreamer_vit_tracker_tpu.config import ModelConfig as JaxModelConfig  # no
 from gstreamer_vit_tracker_tpu.models import heads as jheads  # noqa: E402
 from gstreamer_vit_tracker_tpu.models import vittrack as jvittrack  # noqa: E402
 from gstreamer_vit_tracker_tpu.models import weights as jweights  # noqa: E402
+from gstreamer_vit_tracker_tpu.serve import client as jclient  # noqa: E402
+from gstreamer_vit_tracker_tpu.serve import protocol as jprotocol  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch import config as tconfig  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.models import heads as theads  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.models import weights as tweights  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.serve import client as tclient  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.serve import protocol as tprotocol  # noqa: E402
 
 PRESETS = ("small", "vittrack-t")
 
@@ -129,3 +138,86 @@ def test_group_head_params_matches_jax(preset):
 def test_checkpoints_ship():
     for preset in PRESETS:
         assert os.path.exists(tweights.checkpoint_path(preset))
+
+
+# ---------------------------------------------------------------------------
+# The port's own copies of the serving protocol and client
+# ---------------------------------------------------------------------------
+
+def test_protocol_constants_are_a_faithful_copy():
+    assert tprotocol.MAX_BODY == jprotocol.MAX_BODY
+    assert tprotocol.FORMATS == jprotocol.FORMATS
+    for fmt in jprotocol.FORMATS:
+        for h, w in ((1080, 1920), (32, 48), (2, 2)):
+            assert (tprotocol.frame_nbytes(fmt, h, w)
+                    == jprotocol.frame_nbytes(fmt, h, w))
+    with pytest.raises(ValueError, match="unknown frame format"):
+        tprotocol.frame_nbytes("bgr", 2, 2)
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("_"))
+    assert public(tprotocol) == public(jprotocol)
+    assert public(tclient) == public(jclient)
+
+
+def _frame(fmt, rng, h=32, w=48):
+    if fmt == "nv12":
+        return (rng.integers(0, 256, (h, w), dtype=np.uint8),
+                rng.integers(0, 256, (h // 2, w // 2, 2), dtype=np.uint8))
+    shape = (h, w * 2) if fmt == "yuy2" else (h, w, 3)
+    return rng.integers(0, 256, shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("fmt", ["nv12", "yuy2", "rgb"])
+@pytest.mark.parametrize("sender,receiver", [("jax", "port"), ("port", "jax")])
+def test_protocol_messages_cross_between_the_packages(fmt, sender, receiver):
+    mods = {"jax": jprotocol, "port": tprotocol}
+    tx, rx = mods[sender], mods[receiver]
+    frame = _frame(fmt, np.random.default_rng(5))
+    header = {"op": "init", "bbox": [1.5, 2.0, 30.0, 40.25], "slot": 3}
+    a, b = socket.socketpair()
+    try:
+        a.settimeout(10), b.settimeout(10)
+        payload = tx.frame_to_bytes(fmt, frame)
+        assert payload == rx.frame_to_bytes(fmt, frame)
+        tx.send_msg(a, header, payload)
+        got_header, got_payload = rx.recv_msg(b, max_body=len(payload) + 4096)
+        assert got_header == header and got_payload == payload
+        back = rx.frame_from_bytes(fmt, 32, 48, got_payload)
+        for p, q in zip(back if fmt == "nv12" else (back,),
+                        frame if fmt == "nv12" else (frame,)):
+            np.testing.assert_array_equal(p, q)
+        with pytest.raises(ValueError):
+            rx.frame_from_bytes(fmt, 32, 50, got_payload)
+    finally:
+        a.close(), b.close()
+
+
+@pytest.mark.parametrize("body,match", [
+    (None, "exceeds limit"), (b"no separator at all", "malformed"),
+    (b"not json\npayload", "malformed"), (b"[1,2,3]\npayload", "malformed")])
+def test_port_protocol_rejects_what_the_original_rejects(body, match):
+    for mod in (jprotocol, tprotocol):
+        a, b = socket.socketpair()
+        try:
+            b.settimeout(10)
+            if body is None:
+                a.sendall(b"\xff\xff\xff\xff")          # declares ~4.3 GB
+            else:
+                a.sendall(len(body).to_bytes(4, "little") + body)
+            with pytest.raises(ValueError, match=match):
+                mod.recv_msg(b)
+        finally:
+            a.close(), b.close()
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "gstreamer_vit_tracker_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")] + [os.path.join(root, "chip_smoke.py")]
+    assert len(files) > 25
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
+                     r"gstreamer_vit_tracker_tpu)(\.|\s|$)", re.M)
+    for path in files:
+        with open(path) as f:
+            hit = bad.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0)!r}"
