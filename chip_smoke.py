@@ -20,11 +20,28 @@ Phases, in order; any failure raises and exits non-zero:
      (48, 320, 64) bf16 and at the ``small`` preset's f32 shape,
      ``attention_flash`` at (3, 1088, 64) bf16 and f32 and at lengths that
      are no multiple of its key block, held to ``attention_reference``;
+   * the NV12-to-tokens kernel (``ops/fused_prep_embed.py``) in bf16 and
+     float32, for a window inside the frame, one hanging off its edge and a
+     banded 1080p frame, against both modes of its plain version (float32
+     1e-4 absolute; bf16 one ulp at the largest plain value), timed beside
+     the plain version and the unfused chain ``preprocess_nv12`` ->
+     ``embed_search`` (no single library call computes it);
+   * the one-block kernel (``ops/vit_block.py::block``) at (1, 320, 192) and
+     (16, 320, 192) bf16 and the ``small`` float32 shape against
+     ``block_reference`` (which must launch nothing), its gradients against
+     the twin's, and its path: the flagship's 12 blocks chained through
+     ``models/vit.py::_block(fused=True)`` at B=16, forward and under a
+     gradient;
 4. unbatched path: ``entry()`` on the flagship, ``init`` on a 1080p NV12
    frame, then ``update_packed`` steps over a moving-target clip; every
    output finite, the encoder launch count equal to the number of steps;
    the first steps checked against the same steps run by the port on the
    CPU, and the f32 ``small`` preset against the CPU over the whole clip;
+   then the same clip through ``update_packed(fused_prep=True)`` (every
+   step beside the plain-route step from the same state and the first
+   steps beside the port's CPU run; launches of the fused kernel = steps),
+   and a few steps on the clip converted to RGB and to YUY2 beside the
+   NV12 ones;
 5. serving path, full width: the flagship behind a 16-slot ``SlotEngine``
    and a ``TrackServer`` on loopback; 4 ``TrackClient`` threads ``init``
    and ``update`` 10 frames each of seeded 1080p NV12 clips; an injected
@@ -40,7 +57,11 @@ Phases, in order; any failure raises and exits non-zero:
 6. long-sequence serving path: the flagship width with a 512-pixel search
    crop (S = 1088, seeded random weights) behind a 1-slot ``SlotEngine``,
    whose attention goes through ``attention_flash``;
-7. prints the card line, then one ``{"kernels": [...]}`` line, then the
+7. training: the flagship's width and depth in float32, batch 16, 5
+   ``train_step`` s from the shipped weights on seeded crops (a bright
+   textured square on noise) beside the port's CPU run of the same steps;
+   the loss must fall; attention-kernel launches counted;
+8. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -92,6 +113,24 @@ ATT_BF16_REL = 2.0 ** -7      # max|kernel - plain| / max|plain|
 # The card against the port's CPU run, flagship bf16 (as in the unbatched
 # phase): bbox within 2 px, score within 0.02.
 CPU_BOX_TOL, CPU_SCORE_TOL = 2.0, 0.02
+# The NV12-to-tokens kernel against its plain version: float32 1e-4
+# absolute; bf16 one output ulp at the largest plain value (the pixels are
+# bit-equal, the embed sum runs in another order and is rounded once).
+PREP_F32_ATOL = 1e-4
+PREP_BF16_REL = 2.0 ** -7
+# An RGB frame is the NV12 frame converted and rounded to uint8, so its crop
+# differs in the last bits of every pixel (0.028 in score on the CPU): held
+# to 4 px and 0.06.  YUY2 carries the NV12 bytes (chroma rows repeated).
+RGB_BOX_TOL, RGB_SCORE_TOL = 4.0, 0.06
+# The fused route against the plain route, flagship bf16, step by step from
+# the same state: the fused kernel keeps the colour mix and the normalise in
+# float32 where the plain chain rounds every stage to bf16, so the tokens
+# differ by one or two bf16 ulps (0.19 at |token| 20) and the bf16 heads'
+# score by a few hundredths (0.028 in 30 steps, first run on the card).
+ROUTE_BOX_TOL, ROUTE_SCORE_TOL = 2.0, 0.05
+FORMAT_STEPS = 4
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 16, 5, 1e-4
+TRAIN_LOSS_RTOL = 1e-3        # card vs CPU loss, float32, TF32 off
 
 
 def card_line() -> str:
@@ -624,6 +663,497 @@ def long_phase(dev, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 3c: the NV12-to-tokens kernel
+# ---------------------------------------------------------------------------
+
+def prep_cost(window, frame_hw, cfg, elem: int):
+    """(FLOPs by rate, bytes) that this window needs: the two-tap work (not
+    the dense products of the plain version) and the bytes of the band that
+    the taps touch, each counted once, with the embed weight, pos + bias
+    and the tokens."""
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+
+    h, w = frame_hw
+    sy, sx, origin, bh, bw = fpe._band(
+        torch.empty((h, w), dtype=torch.uint8, device=window.size.device),
+        window, cfg.preprocess_band)
+    sy, sx, sc = float(sy), float(sx), float(window.size) / cfg.search_size
+    o = np.arange(cfg.search_size, dtype=np.float64)
+
+    def touched(start, limit):
+        j0 = np.floor(start + (o + 0.5) * sc - 0.5).astype(np.int64)
+        full = np.union1d(j0, j0 + 1)
+        half = np.union1d(j0 >> 1, (j0 >> 1) + 1)
+        return (int(((full >= 0) & (full < limit)).sum()),
+                int(((half >= 0) & (half < limit // 2)).sum()))
+
+    rows, rows2 = touched(sy, bh)
+    cols, cols2 = touched(sx, bw)
+    n, k, d = cfg.num_search_tokens, cfg.patch_size ** 2 * 3, cfg.embed_dim
+    nbytes = (rows * cols + rows2 * cols2 * 2          # Y taps, UV taps
+              + (k * d + 2 * n * d) * elem + 20)       # weight, pos+bias, out
+    # Per output pixel: three planes x (two row blends + two column
+    # multiply-adds) = 30, the BT.601 mix 9, clip and normalise 15.
+    f32_flops = 54 * cfg.search_size ** 2
+    embed_flops = 2 * n * k * d
+    return f32_flops, embed_flops, nbytes, (rows, cols, rows2, cols2)
+
+
+def prep_phase(dev, cfg, params):
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
+
+    rng = np.random.default_rng(11)
+
+    def planes(h, w):
+        return (torch.as_tensor(rng.integers(0, 256, (h, w), dtype=np.uint8),
+                                device=dev),
+                torch.as_tensor(rng.integers(0, 256, (h // 2, w // 2, 2),
+                                             dtype=np.uint8), device=dev))
+
+    cases = [("inside", planes(512, 640), (300.0, 200.0, 64.0, 64.0)),
+             ("off the edge", planes(512, 640), (-20.0, 470.0, 80.0, 80.0)),
+             ("1080p banded", planes(FRAME_H, FRAME_W),
+              (1500.0, 700.0, 64.0, 64.0))]
+    worst = {}
+    for name, (y, uv), box in cases:
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            win = pp.crop_window(torch.tensor(box, device=dev), c.search_factor)
+            before = fpe.LAUNCHES
+            got = fpe.nv12_search_tokens(params, y, uv, win, c)
+            torch.cuda.synchronize()
+            if fpe.LAUNCHES != before + 1:
+                raise AssertionError("nv12_search_tokens did not count a launch")
+            for mode in fpe.MODES:
+                plain = fpe.nv12_search_tokens_reference(params, y, uv, win, c,
+                                                         mode)
+                if fpe.LAUNCHES != before + 1:
+                    raise AssertionError("the plain version launched the kernel")
+                err = (got.float() - plain.float()).abs().max().item()
+                scale = plain.float().abs().max().item()
+                tol = (PREP_F32_ATOL if dtype == "float32"
+                       else PREP_BF16_REL * scale)
+                print(f"fused_prep_embed {name}, {dtype}, vs plain mode "
+                      f"{mode!r}: max|d| {err:.3e} (max|plain| {scale:.3f}, "
+                      f"tolerance {tol:.3e})", flush=True)
+                if got.shape != plain.shape or not torch.isfinite(
+                        got.float()).all() or not err <= tol:
+                    raise AssertionError(
+                        f"fused_prep_embed {name} {dtype} disagrees with its "
+                        f"plain version ({mode}): {err} > {tol}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+
+    # Timed at the flagship's shape: bf16, the banded 1080p frame.
+    _, (y, uv), box = cases[-1]
+    win = pp.crop_window(torch.tensor(box, device=dev), cfg.search_factor)
+    ops = fpe.kernel_operands(params, y, uv, win, cfg)
+
+    def chain():
+        x_img = pp.preprocess_nv12(y, uv, win, cfg.search_size, cfg.norm_mean,
+                                   cfg.norm_std, dtype=torch.bfloat16,
+                                   band=cfg.preprocess_band)
+        return vit.embed_search(params["backbone"], x_img[None], cfg)
+
+    res = {"max_abs_err": worst["bfloat16"], "max_abs_err_f32": worst["float32"]}
+    res["ms"] = cuda_ms(lambda: fpe.nv12_search_tokens(params, y, uv, win, cfg))
+    res["launch_ms"] = cuda_ms(lambda: fpe.launch(*ops, cfg))
+    res["plain_ms"] = cuda_ms(lambda: fpe.nv12_search_tokens_reference(
+        params, y, uv, win, cfg), iters=20, warmup=3)
+    res["chain_ms"] = cuda_ms(chain)
+    res["ms_again"] = cuda_ms(
+        lambda: fpe.nv12_search_tokens(params, y, uv, win, cfg))
+    f32_flops, embed_flops, nbytes, taps = prep_cost(win, y.shape, cfg, 2)
+    t_ops = (f32_flops / H100_F32_FLOPS + embed_flops / H100_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+    res["bound_ms"] = max(t_ops, t_bytes)
+    res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"fused_prep_embed 1080p banded bf16 ms (CUDA events, mean of "
+          f"{TIMING_ITERS}): wrapper {res['ms']:.4f} / {res['ms_again']:.4f} "
+          f"(before / after the others), one launch on ready operands "
+          f"{res['launch_ms']:.4f}, plain {res['plain_ms']:.4f}, unfused chain "
+          f"preprocess_nv12 -> embed_search {res['chain_ms']:.4f} (no library "
+          f"call computes this function); bound {res['bound_ms'] * 1e3:.2f} us "
+          f"by {res['bound_by']} (two-tap work {f32_flops / 1e6:.2f} MFLOP f32 "
+          f"+ embed {embed_flops / 1e6:.2f} MFLOP bf16 -> {t_ops * 1e3:.2f} us; "
+          f"{nbytes / 1e6:.3f} MB counting the {taps[0]} x {taps[1]} luma and "
+          f"{taps[2]} x {taps[3]} x 2 chroma bytes the taps touch -> "
+          f"{t_bytes * 1e3:.2f} us)", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: the one-block kernel and its path
+# ---------------------------------------------------------------------------
+
+def block_phase(dev, cfg, params, small, sparams, z_tok):
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+
+    def counts():
+        return (vit_block.LAUNCHES, attention.SINGLE_LAUNCHES,
+                attention.FLASH_LAUNCHES)
+
+    blocks = [vit.cast_params(bp, torch.bfloat16)
+              for bp in params["backbone"]["blocks"]]
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    res = {}
+    shapes = [(1, cfg.num_tokens, cfg.embed_dim, torch.bfloat16, blocks[5],
+               cfg.num_heads),
+              (SERVE_SLOTS, cfg.num_tokens, cfg.embed_dim, torch.bfloat16,
+               blocks[5], cfg.num_heads),
+              (SERVE_SLOTS, small.num_tokens, small.embed_dim, torch.float32,
+               sparams["backbone"]["blocks"][1], small.num_heads)]
+    for b, s, d, dtype, blk, heads in shapes:
+        x = (2.0 * torch.randn((b, s, d), generator=gen)).to(dev, dtype)
+        n0, other = vit_block.BLOCK_LAUNCHES, counts()
+        out = vit_block.block(x, blk, heads)
+        if vit_block.BLOCK_LAUNCHES != n0 + 1:
+            raise AssertionError("block did not count a launch")
+        ref = vit_block.block_reference(x, blk, heads)
+        torch.cuda.synchronize()
+        if vit_block.BLOCK_LAUNCHES != n0 + 1 or counts() != other:
+            raise AssertionError("block_reference launched a kernel of the "
+                                 "port: the block kernel's twin must stay plain")
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = F32_ATOL if dtype == torch.float32 else ENC_REL_TOL * scale
+        name = f"({b}, {s}, {d}) {str(dtype).split('.')[-1]}"
+        print(f"block kernel vs twin {name}: max|d| {err:.3e} (max|twin| "
+              f"{scale:.3f}, tolerance {tol:.3e})", flush=True)
+        if out.dtype != dtype or not torch.isfinite(out.float()).all() \
+                or not err <= tol:
+            raise AssertionError(f"block kernel {name} disagrees with "
+                                 f"block_reference: {err} > {tol}")
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(lambda: vit_block.block(x, blk, heads))
+            plain_ms = cuda_ms(lambda: vit_block.block_reference(x, blk, heads))
+            library_ms = cuda_ms(lambda: library_encoder(x, [blk], heads))
+            flops, nbytes = encoder_cost(x, [blk], heads)
+            t_ops = flops / H100_BF16_FLOPS * 1e3
+            t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+            res[b] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            print(f"block {name} ms (CUDA events, mean of {TIMING_ITERS}): "
+                  f"kernel {ms:.4f}, plain {plain_ms:.4f}, library (matmul + "
+                  f"scaled_dot_product_attention block) {library_ms:.4f}; "
+                  f"bound {max(t_ops, t_bytes) * 1e3:.2f} us "
+                  f"({flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.2f} us, "
+                  f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us)",
+                  flush=True)
+        else:
+            res["max_abs_err_f32_small"] = err
+
+    # Gradients through block = gradients through block_reference (float32
+    # masters, bf16 compute: the cast is outside the kernel).
+    blk = {m: {f: t.detach().clone().requires_grad_(True)
+               for f, t in leaves.items()}
+           for m, leaves in params["backbone"]["blocks"][5].items()}
+    leaves = [t for m in blk.values() for t in m.values()]
+    x = torch.randn((2, cfg.num_tokens, cfg.embed_dim), generator=gen).to(
+        dev).requires_grad_(True)
+    g_k = torch.autograd.grad((vit_block.block(x, blk, cfg.num_heads) ** 2
+                               ).sum(), [x, *leaves])
+    g_r = torch.autograd.grad((vit_block.block_reference(
+        x, blk, cfg.num_heads) ** 2).sum(), [x, *leaves])
+    g_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+                for a, b in zip(g_k, g_r))
+    print(f"block gradients (x and 12 leaves, float32) vs block_reference's: "
+          f"max relative difference {g_err:.3e}", flush=True)
+    if not g_err <= 1e-4:
+        raise AssertionError(f"block gradients differ from the twin's: {g_err}")
+
+    # The kernel's path: the flagship's blocks chained through
+    # vit._block(fused=True) at B=16 on the real template tokens, forward
+    # and under a gradient.
+    x_tok = torch.randn((SERVE_SLOTS, cfg.num_search_tokens, cfg.embed_dim),
+                        generator=gen).to(dev, torch.bfloat16)
+    x0 = torch.cat([z_tok[None].expand(SERVE_SLOTS, -1, -1), x_tok],
+                   dim=1).contiguous()
+    torch.cuda.synchronize()
+    vit_block.BLOCK_LAUNCHES = 0
+    x = x0
+    for bp in blocks:
+        x = vit._block(x, bp, cfg.num_heads, fused=True)
+    xg = x0.clone().requires_grad_(True)
+    y = xg
+    for bp in blocks:
+        y = vit._block(y, bp, cfg.num_heads, fused=True)
+    (gx,) = torch.autograd.grad(y.float().pow(2).sum(), [xg])
+    torch.cuda.synchronize()
+    launches = vit_block.BLOCK_LAUNCHES
+    same = torch.equal(x, vit_block.encoder(x0, blocks, cfg.num_heads))
+    print(f"block path: {len(blocks)} flagship blocks through "
+          f"_block(fused=True) at B={SERVE_SLOTS}, forward and under a "
+          f"gradient: block launches {launches}; output equals the encoder "
+          f"kernel's bit for bit: {same}; gradient finite: "
+          f"{bool(torch.isfinite(gx.float()).all())}", flush=True)
+    if launches != 2 * len(blocks) or not same \
+            or not torch.isfinite(gx.float()).all():
+        raise AssertionError("block path: wrong launch count or output")
+    res["launches"] = launches
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the fused route and the other frame formats
+# ---------------------------------------------------------------------------
+
+def nv12_to_yuy2(y, uv):
+    """Packed YUY2 (H, W*2) with the NV12 frame's bytes (chroma rows
+    repeated)."""
+    h, w = y.shape
+    out = np.empty((h, w // 2, 4), np.uint8)
+    out[..., 0], out[..., 2] = y[:, 0::2], y[:, 1::2]
+    out[..., 1] = np.repeat(uv[..., 0], 2, axis=0)
+    out[..., 3] = np.repeat(uv[..., 1], 2, axis=0)
+    return out.reshape(h, w * 2)
+
+
+def nv12_to_rgb(y, uv):
+    """BT.601 limited-range RGB (H, W, 3) uint8, chroma block-replicated."""
+    yf = y.astype(np.float32) - 16.0
+    u = np.repeat(np.repeat(uv[..., 0], 2, 0), 2, 1).astype(np.float32) - 128.0
+    v = np.repeat(np.repeat(uv[..., 1], 2, 0), 2, 1).astype(np.float32) - 128.0
+    rgb = np.stack([298 * yf + 409 * v, 298 * yf - 100 * u - 208 * v,
+                    298 * yf + 516 * u], -1) / 256.0
+    return np.rint(rgb.clip(0, 255)).astype(np.uint8)
+
+
+def fused_route_phase(dev, cfg, params, cparams, frames, boxes, clip):
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    cpu = torch.device("cpu")
+    for _ in range(3):                                 # warm-up, uncounted
+        core.update_packed(params, core.init(params, clip[0], boxes[0], cfg,
+                                             "nv12", dev),
+                           clip[1], cfg, "nv12", dev, fused_prep=True)
+    state = core.init(params, clip[0], boxes[0], cfg, "nv12", dev)
+    torch.cuda.synchronize()
+    fpe.LAUNCHES = vit_block.LAUNCHES = 0
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(MAIN_STEPS)]
+    states, packed = [state], []
+    for i in range(MAIN_STEPS):
+        events[i][0].record()
+        state, out = core.update_packed(params, state, clip[i + 1], cfg,
+                                        "nv12", dev, fused_prep=True)
+        events[i][1].record()
+        states.append(state)
+        packed.append(out)
+    torch.cuda.synchronize()
+    launches, enc = fpe.LAUNCHES, vit_block.LAUNCHES
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    packed = torch.stack(packed).cpu().numpy()
+    if launches != MAIN_STEPS or enc != MAIN_STEPS:
+        raise AssertionError(f"fused route: fused_prep_embed launched "
+                             f"{launches} times and the encoder {enc} times "
+                             f"in {MAIN_STEPS} steps")
+    if packed.shape != (MAIN_STEPS, 5) or not np.isfinite(packed).all():
+        raise AssertionError("fused route: non-finite or misshapen output")
+    iou = [_iou(p[:4], boxes[i + 1]) for i, p in enumerate(packed)]
+
+    # Every step beside the plain-route step from the same state (bf16: the
+    # routes round at different places, see ROUTE_SCORE_TOL).
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(MAIN_STEPS)]
+    want = []
+    for i in range(MAIN_STEPS):
+        events[i][0].record()
+        want.append(core.update_packed(params, states[i], clip[i + 1], cfg,
+                                       "nv12", dev)[1])
+        events[i][1].record()
+    torch.cuda.synchronize()
+    plain_ms = [a.elapsed_time(b) for a, b in events]
+    want = torch.stack(want).cpu().numpy()
+    d_box = np.abs(want[:, :4] - packed[:, :4]).max()
+    d_score = np.abs(want[:, 4] - packed[:, 4]).max()
+    print(f"fused route: {MAIN_STEPS} flagship NV12 1080p update_packed("
+          f"fused_prep=True) steps, fused_prep_embed launches {launches}, "
+          f"encoder launches {enc}; step ms median "
+          f"{statistics.median(step_ms):.4f} (CUDA events; min "
+          f"{min(step_ms):.4f}, max {max(step_ms):.4f}) beside the plain-route "
+          f"step from the same states {statistics.median(plain_ms):.4f} (min "
+          f"{min(plain_ms):.4f}, max {max(plain_ms):.4f}); vs those steps "
+          f"max|d bbox| {d_box:.4f} px, max|d score| {d_score:.5f} (tolerance "
+          f"{ROUTE_BOX_TOL} px, {ROUTE_SCORE_TOL}); mean IoU vs drawn box "
+          f"{np.mean(iou):.3f}", flush=True)
+    if d_box > ROUTE_BOX_TOL or d_score > ROUTE_SCORE_TOL \
+            or np.mean(iou) < 0.3:
+        raise AssertionError("fused route disagrees with the plain route")
+
+    # In float32 the two routes are one function: the same weights with
+    # dtype="float32", the first steps, held to 0.05 px and 1e-3.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    s32 = core.init(params, clip[0], boxes[0], cfg32, "nv12", dev)
+    for i in range(CPU_CHECK_STEPS):
+        _, a = core.update_packed(params, s32, clip[i + 1], cfg32, "nv12", dev)
+        s32, b = core.update_packed(params, s32, clip[i + 1], cfg32, "nv12",
+                                    dev, fused_prep=True)
+        d = (a - b).abs().cpu().numpy()
+        print(f"fused route step {i + 1}, float32, vs the plain route: "
+              f"max|d bbox| {d[:4].max():.5f} px, |d score| {d[4]:.6f}")
+        if d[:4].max() > 0.05 or d[4] > 1e-3:
+            raise AssertionError("float32 fused route disagrees with the "
+                                 "plain route")
+
+    # The first steps beside the port's CPU run from the card's state.
+    for i in range(CPU_CHECK_STEPS):
+        cstate = type(state)(*(t.to(cpu) for t in states[i]))
+        _, cout = core.update_packed(cparams, cstate, frames[i + 1], cfg,
+                                     "nv12", cpu, fused_prep=True)
+        db = np.abs(cout[:4].numpy() - packed[i, :4]).max()
+        ds = abs(float(cout[4]) - packed[i, 4])
+        print(f"fused route step {i + 1} card vs CPU: max|d bbox| {db:.4f} "
+              f"px, |d score| {ds:.5f}")
+        if db > CPU_BOX_TOL or ds > CPU_SCORE_TOL:
+            raise AssertionError("fused-route card step disagrees with the CPU")
+
+    # The same clip as RGB and as YUY2, step by step from the NV12 states.
+    res = {"launches": launches, "step_ms_median": statistics.median(step_ms),
+           "plain_route_step_ms_median": statistics.median(plain_ms)}
+    for fmt, convert, tol in (("yuy2", nv12_to_yuy2,
+                               (CPU_BOX_TOL, CPU_SCORE_TOL)),
+                              ("rgb", nv12_to_rgb,
+                               (RGB_BOX_TOL, RGB_SCORE_TOL))):
+        db = ds = 0.0
+        ms = []
+        for i in range(FORMAT_STEPS):
+            frame = core._frame_on(convert(*frames[i + 1]), fmt, dev)
+            for fused_embed in (False, True):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                _, out = core.update_packed(params, states[i], frame, cfg, fmt,
+                                            dev, fused_embed=fused_embed)
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+                out = out.cpu().numpy()
+                if not np.isfinite(out).all():
+                    raise AssertionError(f"{fmt} step: non-finite output")
+                db = max(db, np.abs(out[:4] - packed[i, :4]).max())
+                ds = max(ds, abs(out[4] - packed[i, 4]))
+        # One template from the format's own init, beside the NV12 one.
+        st = core.init(params, convert(*frames[0]), boxes[0], cfg, fmt, dev)
+        dz = (st.z_tok.float() - states[0].z_tok.float()).abs().max().item()
+        print(f"{fmt}: {FORMAT_STEPS} steps x (plain, fused_embed) of the "
+              f"converted clip from the NV12 states: max|d bbox| {db:.4f} px, "
+              f"max|d score| {ds:.5f} vs the NV12 steps (tolerance {tol[0]} "
+              f"px, {tol[1]}); step ms median {statistics.median(ms):.4f}; "
+              f"init template max|d| {dz:.4f}", flush=True)
+        if db > tol[0] or ds > tol[1]:
+            raise AssertionError(f"{fmt} steps disagree with the NV12 steps")
+        res[f"{fmt}_step_ms_median"] = statistics.median(ms)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, batch: int, seed: int):
+    """Seeded crops: a bright textured square on noise, centred in the
+    template and at a random place in the search crop; boxes (cx, cy, w, h)
+    normalised to the search crop.  Normalised float32, as ``loss_fn``
+    takes them."""
+    rng = np.random.default_rng(seed)
+    mean, std = np.asarray(cfg.norm_mean), np.asarray(cfg.norm_std)
+
+    def crop(side, cx, cy, w, h):
+        img = rng.uniform(0.15, 0.45, (side, side, 3))
+        x0, y0 = int((cx - w / 2) * side), int((cy - h / 2) * side)
+        x1, y1 = int((cx + w / 2) * side), int((cy + h / 2) * side)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        img[y0:y1, x0:x1] = (0.75 + 0.2 * (((xx // 6) + (yy // 6)) % 2)
+                             )[..., None] * (0.8, 1.0, 0.6)
+        return ((img - mean) / std).astype(np.float32)
+
+    zs, xs, gts = [], [], []
+    for _ in range(batch):
+        w, h = rng.uniform(0.18, 0.3, 2)
+        cx, cy = rng.uniform(0.3, 0.7, 2)
+        zs.append(crop(cfg.template_size, 0.5, 0.5, 2 * w, 2 * h))
+        xs.append(crop(cfg.search_size, cx, cy, w, h))
+        gts.append((cx, cy, w, h))
+    return np.stack(zs), np.stack(xs), np.asarray(gts, np.float32)
+
+
+def train_phase(dev, preset: str):
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.train import step as train
+
+    cfg = dataclasses.replace(PRESETS[preset], dtype="float32")
+    z, x, gt = train_batch(cfg, TRAIN_BATCH, seed=31)
+    opt = train.make_optimizer(TRAIN_LR)
+    ckpt = weights.checkpoint_path(preset)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        state = train.create_train_state(
+            weights.load_npz(ckpt, cfg, device=d), opt=opt)
+        if d.type == "cuda":                          # warm-up, uncounted
+            train.train_step(state, z, x, gt, cfg, opt=opt, device=d)
+            torch.cuda.synchronize()
+            attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
+            vit_block.LAUNCHES = vit_block.BLOCK_LAUNCHES = 0
+        losses, ms = [], []
+        t_all = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, loss, parts = train.train_step(state, z, x, gt, cfg,
+                                                  opt=opt, device=d)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        runs[d.type] = {"losses": [float(v) for v in losses], "ms": ms,
+                        "seconds": time.perf_counter() - t_all,
+                        "finite": all(bool(torch.isfinite(t).all())
+                                      for t in train.tree_leaves(state.params))}
+    card, cpu = runs["cuda"], runs["cpu"]
+    single, flash = attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    print(f"training: {preset} width and depth {cfg.depth}, float32, TF32 off, "
+          f"batch {TRAIN_BATCH}, {TRAIN_STEPS} train_steps at lr {TRAIN_LR} from "
+          f"the shipped weights; loss on the card "
+          f"{[round(v, 5) for v in card['losses']]}, on the CPU "
+          f"{[round(v, 5) for v in cpu['losses']]}, max relative difference "
+          f"{rel:.2e} (tolerance {TRAIN_LOSS_RTOL}); step ms (host clock, "
+          f"synchronised) median {statistics.median(card['ms']):.2f} (min "
+          f"{min(card['ms']):.2f}, max {max(card['ms']):.2f}) on the card, "
+          f"{statistics.median(cpu['ms']):.0f} on the CPU; attention launches "
+          f"in the {TRAIN_STEPS} steps: attention_single {single}, "
+          f"attention_flash {flash}", flush=True)
+    if not (card["finite"] and np.isfinite(card["losses"]).all()):
+        raise AssertionError("training on the card went non-finite")
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"training losses on the card and the CPU differ "
+                             f"by {rel}")
+    if not card["losses"][-1] < card["losses"][0]:
+        raise AssertionError(f"the training loss did not fall: "
+                             f"{card['losses']}")
+    if single + flash != cfg.depth * TRAIN_STEPS or vit_block.LAUNCHES \
+            or vit_block.BLOCK_LAUNCHES:
+        raise AssertionError(
+            f"training forward: {single} + {flash} attention launches in "
+            f"{TRAIN_STEPS} steps of depth {cfg.depth} (encoder "
+            f"{vit_block.LAUNCHES}, block {vit_block.BLOCK_LAUNCHES})")
+    return {"step_ms_median": statistics.median(card["ms"]),
+            "cpu_step_ms_median": statistics.median(cpu["ms"]),
+            "attention_single_launches": single,
+            "attention_flash_launches": flash,
+            "loss_first": card["losses"][0], "loss_last": card["losses"][-1],
+            "loss_rel_vs_cpu": rel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -728,14 +1258,18 @@ def main() -> int:
           f"{t_bytes * 1e3:.2f} us)", flush=True)
 
     att_single, att_flash = attention_phase(dev, small)
+    prep = prep_phase(dev, cfg, params)
+    blk = block_phase(dev, cfg, params, small, sparams, state.z_tok)
 
     # -- 4. unbatched path -------------------------------------------------
     frames, boxes = nv12_clip(MAIN_STEPS + 1)
     clip = [core._frame_on(f, "nv12", dev) for f in frames]
     for _ in range(3):                                 # warm-up, uncounted
-        fn(params, core.init(params, clip[0], boxes[0], cfg, device=dev),
+        fn(params, core.init(params, clip[0], boxes[0], cfg, device=dev,
+                             frame_format="nv12"),
            clip[1])
-    state = core.init(params, clip[0], boxes[0], cfg, device=dev)
+    state = core.init(params, clip[0], boxes[0], cfg, device=dev,
+                      frame_format="nv12")
     torch.cuda.synchronize()
     vit_block.LAUNCHES = 0
     attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
@@ -746,7 +1280,7 @@ def main() -> int:
     for i in range(MAIN_STEPS):
         events[i][0].record()
         state, out = core.update_packed(params, state, clip[i + 1], cfg,
-                                        device=dev)
+                                        device=dev, frame_format="nv12")
         events[i][1].record()
         packed.append(out)
     torch.cuda.synchronize()
@@ -775,10 +1309,11 @@ def main() -> int:
     cpu = torch.device("cpu")
     cparams = vittrack.with_grouped_head(weights.load_npz(
         weights.checkpoint_path("vittrack-t"), cfg, device=cpu))
-    cstate = core.init(cparams, frames[0], boxes[0], cfg, device=cpu)
+    cstate = core.init(cparams, frames[0], boxes[0], cfg, device=cpu,
+                       frame_format="nv12")
     for i in range(CPU_CHECK_STEPS):
         cstate, cout = core.update_packed(cparams, cstate, frames[i + 1], cfg,
-                                          device=cpu)
+                                          device=cpu, frame_format="nv12")
         d_box = np.abs(cout[:4].numpy() - packed[i, :4]).max()
         d_score = abs(float(cout[4]) - packed[i, 4])
         print(f"flagship step {i + 1} card vs CPU: max|d bbox| {d_box:.4f} px, "
@@ -790,14 +1325,16 @@ def main() -> int:
     sparams = vittrack.with_grouped_head(sparams)
     cs_params = vittrack.with_grouped_head(weights.load_npz(
         weights.checkpoint_path("small"), small, device=cpu))
-    gs = core.init(sparams, clip[0], boxes[0], small, device=dev)
-    cs = core.init(cs_params, frames[0], boxes[0], small, device=cpu)
+    gs = core.init(sparams, clip[0], boxes[0], small, device=dev,
+                   frame_format="nv12")
+    cs = core.init(cs_params, frames[0], boxes[0], small, device=cpu,
+                   frame_format="nv12")
     worst_box = worst_score = 0.0
     for i in range(MAIN_STEPS):
         gs, gout = core.update_packed(sparams, gs, clip[i + 1], small,
-                                      device=dev)
+                                      device=dev, frame_format="nv12")
         cs, cout = core.update_packed(cs_params, cs, frames[i + 1], small,
-                                      device=cpu)
+                                      device=cpu, frame_format="nv12")
         gout = gout.cpu().numpy()
         worst_box = max(worst_box, np.abs(gout[:4] - cout[:4].numpy()).max())
         worst_score = max(worst_score, abs(gout[4] - float(cout[4])))
@@ -805,13 +1342,19 @@ def main() -> int:
           f"{worst_box:.2e} px, max|d score| {worst_score:.2e}")
     if worst_box > 1e-2 or worst_score > 1e-4:
         raise AssertionError("small f32 card trajectory disagrees with the CPU")
+
+    # The fused route, and the clip as RGB and as YUY2.
+    fused = fused_route_phase(dev, cfg, params, cparams, frames, boxes, clip)
     del clip, frames
 
     # -- 5, 6. the serving paths --------------------------------------------
     serve = serve_phase(dev, "vittrack-t")
     flash_launches = long_phase(dev, cfg)
 
-    # -- 7. result lines ---------------------------------------------------
+    # -- 7. training ---------------------------------------------------------
+    training = train_phase(dev, "vittrack-t")
+
+    # -- 8. result lines ---------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -861,7 +1404,44 @@ def main() -> int:
         "library_ms": att_flash["library_ms"],
         "bound_ms": att_flash["bound_ms"],
         "bound_by": att_flash["bound_by"],
+    }, {
+        "name": "vit_block",
+        "route": "cuda",
+        "source": pkg + "vit_encoder.cu",
+        "replaces": "gstreamer_vit_tracker_tpu/ops/vit_block.py:100",
+        "tpu_kernel": "ops/vit_block.py::_block_kernel",
+        "shape": [SERVE_SLOTS, 320, 192],
+        "launches": blk["launches"],
+        "max_abs_err": blk[SERVE_SLOTS]["max_abs_err"],
+        "max_abs_err_f32_small": blk["max_abs_err_f32_small"],
+        "ms": blk[SERVE_SLOTS]["ms"],
+        "plain_ms": blk[SERVE_SLOTS]["plain_ms"],
+        "library_ms": blk[SERVE_SLOTS]["library_ms"],
+        "bound_ms": blk[SERVE_SLOTS]["bound_ms"],
+        "bound_by": blk[SERVE_SLOTS]["bound_by"],
+        "batch_1": blk[1],
+    }, {
+        "name": "fused_prep_embed",
+        "route": "cuda",
+        "source": pkg + "fused_prep_embed.cu",
+        "replaces": "gstreamer_vit_tracker_tpu/ops/fused_prep_embed.py:79",
+        "tpu_kernel": "ops/fused_prep_embed.py::_kernel",
+        "shape": [256, 192],
+        "launches": fused["launches"],
+        "launches_per_step": fused["launches"] / MAIN_STEPS,
+        "max_abs_err": prep["max_abs_err"],
+        "max_abs_err_f32": prep["max_abs_err_f32"],
+        "ms": prep["ms"],
+        "launch_ms": prep["launch_ms"],
+        "plain_ms": prep["plain_ms"],
+        "library_ms": None,
+        "unfused_chain_ms": prep["chain_ms"],
+        "bound_ms": prep["bound_ms"],
+        "bound_by": prep["bound_by"],
+        "step_ms_median": fused["step_ms_median"],
     }]
+    print(f"fused route summary: {json.dumps(fused)}")
+    print(f"training summary: {json.dumps(training)}")
     print(f"serving summary: {json.dumps(serve)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -40,6 +40,10 @@
 //     row sum (up to four head dims a lane).
 // Every launch goes to the caller's stream; the entry point returns the first
 // CUDA error (cudaGetLastError after each launch), 0 on success.
+//
+// A second entry, vit_block_forward, runs ONE block with its own unstacked
+// weights on any batch through the same device code: it replaces the TPU
+// kernel _block_kernel of the same file (see the note at the entry).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -396,7 +400,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int D,
 // Host loop over depth.
 // ---------------------------------------------------------------------------
 
-struct Weights {   // stacked over depth, row-major
+struct Weights {   // row-major; stacked over depth for the encoder entry
   const void *ln1_s, *ln1_b, *w_qkv, *b_qkv, *w_proj, *b_proj,
       *ln2_s, *ln2_b, *w_mlp1, *b_mlp1, *w_mlp2, *b_mlp2;
 };
@@ -428,6 +432,53 @@ cudaError_t layer_norm(const T* x, const T* s, const T* b, T* y, int rows, int d
     if (err_ != cudaSuccess) return err_;  \
   } while (0)
 
+// What one call needs beside its tensors: the attention kernel's shared memory
+// (checked against the card and opted in to) and launch shape.
+struct AttentionPlan {
+  int kstride;
+  size_t smem;
+  dim3 grid;
+  float scale;
+};
+
+template <typename T>
+cudaError_t plan_attention(int B, int S, int H, int dh, AttentionPlan* plan) {
+  plan->kstride = k_stride(S, sizeof(T));
+  plan->smem = attention_smem_bytes(S, dh, sizeof(T));
+  int device = 0, smem_optin = 0;
+  RETURN_IF_ERROR(cudaGetDevice(&device));
+  RETURN_IF_ERROR(cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                         device));
+  if (plan->smem > (size_t)smem_optin) return cudaErrorInvalidValue;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(attention_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)plan->smem));
+  plan->grid = dim3((S + kAttQt - 1) / kAttQt, H, B);
+  plan->scale = 1.0f / sqrtf((float)dh);
+  return cudaSuccess;
+}
+
+// One pre-LN block in place on x (M = B * S rows): the seven launches.  w
+// points at this block's weights.
+template <typename T>
+cudaError_t block_launches(T* x, const Weights& w, int M, int S, int D, int dh, int hidden,
+                           const AttentionPlan& plan, T* hb, T* qkv, T* attn, T* hid,
+                           cudaStream_t st) {
+  const auto p = [](const void* q) { return static_cast<const T*>(q); };
+  RETURN_IF_ERROR(layer_norm<T>(x, p(w.ln1_s), p(w.ln1_b), hb, M, D, st));
+  RETURN_IF_ERROR((gemm<T, kEpiRound>(hb, p(w.w_qkv), p(w.b_qkv), nullptr, qkv, M, 3 * D, D,
+                                      st)));
+  attention_kernel<T><<<plan.grid, kAttThreads, plan.smem, st>>>(qkv, attn, S, D, dh,
+                                                                 plan.kstride, plan.scale);
+  RETURN_IF_ERROR(cudaGetLastError());
+  RETURN_IF_ERROR((gemm<T, kEpiResidual>(attn, p(w.w_proj), p(w.b_proj), x, x, M, D, D, st)));
+  RETURN_IF_ERROR(layer_norm<T>(x, p(w.ln2_s), p(w.ln2_b), hb, M, D, st));
+  RETURN_IF_ERROR((gemm<T, kEpiGelu>(hb, p(w.w_mlp1), p(w.b_mlp1), nullptr, hid, M, hidden, D,
+                                     st)));
+  return gemm<T, kEpiResidual>(hid, p(w.w_mlp2), p(w.b_mlp2), x, x, M, D, hidden, st);
+}
+
+// Every block of weights stacked over depth: the host loop of kernel 1.
 template <typename T>
 cudaError_t encoder_forward(int B, int S, int D, int H, int hidden, int depth,
                             const void* x_in, void* x_out, const Weights& w,
@@ -435,47 +486,43 @@ cudaError_t encoder_forward(int B, int S, int D, int H, int hidden, int depth,
                             cudaStream_t st) {
   const int M = B * S;
   const int dh = D / H;
-  const int kstride = k_stride(S, sizeof(T));
-  const size_t smem = attention_smem_bytes(S, dh, sizeof(T));
-  int device = 0, smem_optin = 0;
-  RETURN_IF_ERROR(cudaGetDevice(&device));
-  RETURN_IF_ERROR(cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                         device));
-  if (smem > (size_t)smem_optin) return cudaErrorInvalidValue;
-  RETURN_IF_ERROR(cudaFuncSetAttribute(attention_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-
+  AttentionPlan plan;
+  RETURN_IF_ERROR(plan_attention<T>(B, S, H, dh, &plan));
   T* x = static_cast<T*>(x_out);
-  T* hb = static_cast<T*>(h_buf);
-  T* qkv = static_cast<T*>(qkv_buf);
-  T* attn = static_cast<T*>(attn_buf);
-  T* hid = static_cast<T*>(hid_buf);
   RETURN_IF_ERROR(cudaMemcpyAsync(x, x_in, (size_t)M * D * sizeof(T),
                                   cudaMemcpyDeviceToDevice, st));
-  const dim3 att_grid((S + kAttQt - 1) / kAttQt, H, B);
-  const float scale = 1.0f / sqrtf((float)dh);
-
   for (int l = 0; l < depth; ++l) {
-    RETURN_IF_ERROR(layer_norm<T>(x, layer<T>(w.ln1_s, l, D), layer<T>(w.ln1_b, l, D), hb,
-                                  M, D, st));
-    RETURN_IF_ERROR((gemm<T, kEpiRound>(hb, layer<T>(w.w_qkv, l, (size_t)D * 3 * D),
-                                        layer<T>(w.b_qkv, l, 3 * D), nullptr, qkv,
-                                        M, 3 * D, D, st)));
-    attention_kernel<T><<<att_grid, kAttThreads, smem, st>>>(qkv, attn, S, D, dh, kstride,
-                                                             scale);
-    RETURN_IF_ERROR(cudaGetLastError());
-    RETURN_IF_ERROR((gemm<T, kEpiResidual>(attn, layer<T>(w.w_proj, l, (size_t)D * D),
-                                           layer<T>(w.b_proj, l, D), x, x, M, D, D, st)));
-    RETURN_IF_ERROR(layer_norm<T>(x, layer<T>(w.ln2_s, l, D), layer<T>(w.ln2_b, l, D), hb,
-                                  M, D, st));
-    RETURN_IF_ERROR((gemm<T, kEpiGelu>(hb, layer<T>(w.w_mlp1, l, (size_t)D * hidden),
-                                       layer<T>(w.b_mlp1, l, hidden), nullptr, hid,
-                                       M, hidden, D, st)));
-    RETURN_IF_ERROR((gemm<T, kEpiResidual>(hid, layer<T>(w.w_mlp2, l, (size_t)hidden * D),
-                                           layer<T>(w.b_mlp2, l, D), x, x, M, D, hidden,
-                                           st)));
+    const Weights wl{layer<T>(w.ln1_s, l, D),   layer<T>(w.ln1_b, l, D),
+                     layer<T>(w.w_qkv, l, (size_t)D * 3 * D), layer<T>(w.b_qkv, l, 3 * D),
+                     layer<T>(w.w_proj, l, (size_t)D * D),    layer<T>(w.b_proj, l, D),
+                     layer<T>(w.ln2_s, l, D),   layer<T>(w.ln2_b, l, D),
+                     layer<T>(w.w_mlp1, l, (size_t)D * hidden), layer<T>(w.b_mlp1, l, hidden),
+                     layer<T>(w.w_mlp2, l, (size_t)hidden * D), layer<T>(w.b_mlp2, l, D)};
+    RETURN_IF_ERROR(block_launches<T>(x, wl, M, S, D, dh, hidden, plan,
+                                      static_cast<T*>(h_buf), static_cast<T*>(qkv_buf),
+                                      static_cast<T*>(attn_buf), static_cast<T*>(hid_buf), st));
   }
   return cudaGetLastError();
+}
+
+// One block with its own, unstacked weights, on any batch: kernel 2.  The
+// TPU kernel's grid runs one program per batch element; here the batch folds
+// into the rows of the four products and into the attention grid, so a call is
+// the same seven launches at any B.
+template <typename T>
+cudaError_t block_forward(int B, int S, int D, int H, int hidden,
+                          const void* x_in, void* x_out, const Weights& w,
+                          void* h_buf, void* qkv_buf, void* attn_buf, void* hid_buf,
+                          cudaStream_t st) {
+  const int M = B * S;
+  AttentionPlan plan;
+  RETURN_IF_ERROR(plan_attention<T>(B, S, H, D / H, &plan));
+  T* x = static_cast<T*>(x_out);
+  RETURN_IF_ERROR(cudaMemcpyAsync(x, x_in, (size_t)M * D * sizeof(T),
+                                  cudaMemcpyDeviceToDevice, st));
+  return block_launches<T>(x, w, M, S, D, D / H, hidden, plan, static_cast<T*>(h_buf),
+                           static_cast<T*>(qkv_buf), static_cast<T*>(attn_buf),
+                           static_cast<T*>(hid_buf), st);
 }
 
 }  // namespace
@@ -495,17 +542,42 @@ extern "C" int vit_encoder_forward(
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dim % heads != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (dtype == 1) {
-    err = encoder_forward<bf16>(batch, seq, dim, heads, hidden, depth, x_in, x_out, w, h, qkv,
-                                attn, mlp_hidden, st);
-  } else if (dtype == 0) {
-    err = encoder_forward<float>(batch, seq, dim, heads, hidden, depth, x_in, x_out, w, h, qkv,
-                                 attn, mlp_hidden, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (dtype == 1)
+    return (int)encoder_forward<bf16>(batch, seq, dim, heads, hidden, depth, x_in, x_out, w, h,
+                                      qkv, attn, mlp_hidden, st);
+  if (dtype == 0)
+    return (int)encoder_forward<float>(batch, seq, dim, heads, hidden, depth, x_in, x_out, w, h,
+                                       qkv, attn, mlp_hidden, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One pre-LN block: replaces the TPU kernel
+// gstreamer_vit_tracker_tpu/ops/vit_block.py::_block_kernel (the pallas_call in
+// _fused_forward, reached through vit_block.block).  The weights are one
+// block's own (not stacked): LN scales and biases (dim,), kernels (in, out),
+// biases (out,).  Tensors and scratch as for vit_encoder_forward, any batch.
+// It shares the device code of the encoder's seven launches a block, so what
+// bounds it is the same: launches and latency, not operations or bytes
+// (at (16, 320, 192) bf16: 5.79 GFLOP, 5.9 us at 989 TFLOP/s).  Returns a
+// cudaError_t.
+extern "C" int vit_block_forward(
+    int dtype, int batch, int seq, int dim, int heads, int hidden,
+    const void* x_in, void* x_out,
+    const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
+    const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
+    const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
+    void* h, void* qkv, void* attn, void* mlp_hidden, void* stream) {
+  const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
+                  ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim % heads != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return (int)block_forward<bf16>(batch, seq, dim, heads, hidden, x_in, x_out, w, h, qkv,
+                                    attn, mlp_hidden, st);
+  if (dtype == 0)
+    return (int)block_forward<float>(batch, seq, dim, heads, hidden, x_in, x_out, w, h, qkv,
+                                     attn, mlp_hidden, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory (bytes) the attention kernel needs for this shape.

@@ -80,8 +80,12 @@ def _linear_native(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 def _block(x: torch.Tensor, p: Params, num_heads: int,
            use_kernel: Optional[bool] = False,
-           native: bool = False) -> torch.Tensor:
+           native: bool = False, fused: bool = False) -> torch.Tensor:
     """One pre-LN transformer block.
+
+    ``fused=True`` hands the whole block to ``ops/vit_block.py::block``: the
+    CUDA block kernel on a CUDA tensor, this function's plain body on a CPU
+    tensor.
 
     With the defaults this is the plain twin of one step of the CUDA
     encoder kernel and of the TPU's ``ops/vit_block.py::_block_math``, and
@@ -98,6 +102,8 @@ def _block(x: torch.Tensor, p: Params, num_heads: int,
     products as ``addmm`` in the compute dtype instead of widened to
     float32.
     """
+    if fused:
+        return vit_block.block(x, p, num_heads)
     dt = x.dtype
     linear = _linear_native if native else _linear
     h = layer_norm(x, p["ln1"])
@@ -129,6 +135,22 @@ def embed_search(params: Params, x_img: torch.Tensor,
     dt = _cdtype(cfg)
     pe = cast_params(params["patch_embed"], dt)
     tok = patch_embed(x_img.to(dt), pe, cfg.patch_size)
+    return tok + params["pos_embed_x"].to(tok.dtype)
+
+
+def embed_search_patches(params: Params, patches: torch.Tensor,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """Patch-embed pre-patchified search pixels: (..., p, N, p*3) ->
+    (..., N, D).  Companion to ``ops/preprocess.py``'s ``patch_major=p``:
+    the patchify of :func:`patch_embed` collapses to one swap of the two
+    leading axes with the (q, c) minor dimension kept contiguous, and the
+    contraction is the same (N, p*p*3) @ (p*p*3, D) product, so the tokens
+    are :func:`embed_search`'s."""
+    dt = _cdtype(cfg)
+    p, n, k = patches.shape[-3:]
+    pe = params["patch_embed"]
+    x = patches.to(dt).transpose(-3, -2).reshape(*patches.shape[:-3], n, p * k)
+    tok = x @ pe["kernel"].to(dt) + pe["bias"].to(dt)
     return tok + params["pos_embed_x"].to(tok.dtype)
 
 

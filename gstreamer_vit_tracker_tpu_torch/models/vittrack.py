@@ -40,6 +40,13 @@ def forward(params: Params, z_tok: torch.Tensor, x_img: torch.Tensor,
                           fused=fused)
 
 
+def embed_search_patches(params: Params, patches: torch.Tensor,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """Patch-major search pixels (..., p, N, p*3) -> search tokens
+    (``vit.embed_search_patches``); feeds :func:`forward_tokens`."""
+    return vit.embed_search_patches(params["backbone"], patches, cfg)
+
+
 def forward_tokens(params: Params, z_tok: torch.Tensor, x_tok: torch.Tensor,
                    cfg: ModelConfig, use_kernel: Optional[bool] = None,
                    fused: Optional[bool] = None) -> TrackMaps:

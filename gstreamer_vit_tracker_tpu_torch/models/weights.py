@@ -9,6 +9,11 @@ checked against the config, as the JAX ``load_npz`` checks against its
 ``like`` tree.  Layouts stay as stored: linear kernels (in, out), conv
 kernels HWIO.
 
+The other direction, for comparing a training run leaf by leaf with the JAX
+package's: :func:`tree_to_numpy` turns the port's parameters (or Adam
+moments, which share their tree) into a nested tree of numpy arrays, and
+:func:`flatten` into the flat ``/``-joined keys of the checkpoints.
+
 A ``TrackState`` crosses the same way: :func:`state_from_numpy` and
 :func:`state_to_numpy` carry its six leaves (with any leading batch
 dimensions) between numpy arrays and the port's tensors.
@@ -113,6 +118,31 @@ def load_npz(path: str, cfg: ModelConfig, device="cuda",
         flat = {k: data[k] for k in data.files}
     return params_from_flat(flat, cfg, device=device, dtype=dtype)
 
+def tree_to_numpy(tree: Any) -> Any:
+    """Nested dicts and lists of tensors -> the same tree of numpy arrays
+    (floats as float32), comparable leaf by leaf with a JAX ``TrainState``'s
+    ``params`` and optax's ``mu`` / ``nu``."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    t = tree.detach()
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A nested tree as flat ``a/b/0/c`` keys, the checkpoints' layout
+    (the inverse of :func:`params_from_flat`'s rebuild)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix[:-1]: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}{k}/"))
+    return out
 
 
 def state_from_numpy(leaves, cfg: ModelConfig, device="cuda") -> TrackState:

@@ -23,7 +23,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 # Every kernel source of the port; chip_smoke.py builds them all at once.
-SOURCES = ("vit_encoder", "attention")
+SOURCES = ("vit_encoder", "attention", "fused_prep_embed")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

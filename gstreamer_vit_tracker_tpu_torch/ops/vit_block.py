@@ -1,4 +1,5 @@
-"""The whole ViT encoder as one CUDA kernel call, and its plain twin.
+"""The whole ViT encoder, and one block of it, as CUDA kernel calls with
+their plain twins.
 
 Port of ``gstreamer_vit_tracker_tpu/ops/vit_block.py::encoder``, whose TPU
 kernel ``_encoder_kernel`` runs every block in one ``pallas_call`` with the
@@ -14,8 +15,16 @@ rounds where the kernel rounds) for a CPU tensor; it has no fallback from
 one to the other.  On the card it is a ``torch.autograd.Function`` whose
 backward differentiates the plain twin, as the JAX ``custom_vjp`` does.
 
-``LAUNCHES`` counts kernel launches (one per encoder call on the card), so
-a run can show that the tracking step went through the kernel.
+:func:`block` is the port of the TPU's per-block kernel ``_block_kernel``
+(``vit_block.block``: one block, a grid over the batch): the entry
+``vit_block_forward`` of the same source, one block's own weights, any
+batch.  Its plain twin is :func:`block_reference`; its backward
+differentiates that twin and returns gradients for ``x`` and every leaf of
+the block's parameters, as ``_block_bwd`` does.
+
+``LAUNCHES`` counts encoder-kernel launches (one per encoder call on the
+card) and ``BLOCK_LAUNCHES`` block-kernel launches, so a run can show that
+its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,10 +38,12 @@ from . import cuda_build
 
 Params = Dict[str, Any]
 
-__all__ = ["encoder", "encoder_reference", "LAUNCHES"]
+__all__ = ["encoder", "encoder_reference", "block", "block_reference",
+           "LAUNCHES", "BLOCK_LAUNCHES"]
 
-# Encoder kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = 0
+BLOCK_LAUNCHES = 0
 
 # Per-block parameters in the kernel's argument order: (module, field).
 _FIELDS = (("ln1", "scale"), ("ln1", "bias"), ("qkv", "kernel"),
@@ -60,13 +71,19 @@ def _library():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 19
         fn.restype = ctypes.c_int
+        lib.vit_block_forward.argtypes = ([ctypes.c_int] * 6
+                                          + [ctypes.c_void_p] * 19)
+        lib.vit_block_forward.restype = ctypes.c_int
         lib.vit_encoder_attention_smem.argtypes = [ctypes.c_int] * 3
         lib.vit_encoder_attention_smem.restype = ctypes.c_longlong
     return lib
 
 
-def _check(x: torch.Tensor, stacked: List[torch.Tensor], num_heads: int):
-    """Raise on anything the kernel does not take."""
+def _check(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
+           stacked: bool):
+    """Raise on anything the kernels do not take.  ``weights`` in
+    ``_FIELDS`` order: stacked over depth for the encoder, one block's own
+    for the block kernel."""
     if not x.is_cuda:
         raise ValueError("the encoder kernel needs a CUDA tensor")
     if x.dtype not in _DTYPE_CODES:
@@ -81,15 +98,14 @@ def _check(x: torch.Tensor, stacked: List[torch.Tensor], num_heads: int):
     if dh % 16 or dh > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} must be a multiple of 16 up to "
                          f"{_MAX_HEAD_DIM}")
-    depth = stacked[0].shape[0]
-    hidden = stacked[8].shape[-1]
+    lead = (weights[0].shape[0],) if stacked else ()
+    hidden = weights[8].shape[-1]
     if hidden % 16:
         raise ValueError(f"MLP width {hidden} must be a multiple of 16")
-    want = [(depth, d), (depth, d), (depth, d, 3 * d), (depth, 3 * d),
-            (depth, d, d), (depth, d), (depth, d), (depth, d),
-            (depth, d, hidden), (depth, hidden), (depth, hidden, d),
-            (depth, d)]
-    for (mod, field), t, shape in zip(_FIELDS, stacked, want):
+    want = [(d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,), (d,), (d,),
+            (d, hidden), (hidden,), (hidden, d), (d,)]
+    for (mod, field), t, shape in zip(_FIELDS, weights, want):
+        shape = lead + shape
         if tuple(t.shape) != shape:
             raise ValueError(f"{mod}/{field}: shape {tuple(t.shape)}, "
                              f"kernel expects {shape}")
@@ -100,12 +116,14 @@ def _check(x: torch.Tensor, stacked: List[torch.Tensor], num_heads: int):
             raise ValueError(f"{mod}/{field} is not contiguous")
 
 
-def _launch(x: torch.Tensor, stacked: List[torch.Tensor],
-            num_heads: int) -> torch.Tensor:
-    global LAUNCHES
-    _check(x, stacked, num_heads)
+def _launch(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
+            stacked: bool) -> torch.Tensor:
+    """``vit_encoder_forward`` on weights stacked over depth, or
+    ``vit_block_forward`` on one block's own."""
+    global LAUNCHES, BLOCK_LAUNCHES
+    _check(x, weights, num_heads, stacked)
     b, s, d = x.shape
-    depth, hidden = stacked[0].shape[0], stacked[8].shape[-1]
+    hidden = weights[8].shape[-1]
     lib = _library()
     dh = d // num_heads
     elem = x.element_size()
@@ -123,14 +141,22 @@ def _launch(x: torch.Tensor, stacked: List[torch.Tensor],
         qkv = torch.empty((m, 3 * d), dtype=x.dtype, device=x.device)
         hid = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.vit_encoder_forward(
-            _DTYPE_CODES[x.dtype], b, s, d, num_heads, hidden, depth,
-            x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in stacked],
-            h.data_ptr(), qkv.data_ptr(), attn.data_ptr(), hid.data_ptr(),
-            stream)
+        tensors = (x.data_ptr(), out.data_ptr(),
+                   *[t.data_ptr() for t in weights], h.data_ptr(),
+                   qkv.data_ptr(), attn.data_ptr(), hid.data_ptr(), stream)
+        dims = (_DTYPE_CODES[x.dtype], b, s, d, num_heads, hidden)
+        if stacked:
+            name = "vit_encoder_forward"
+            err = lib.vit_encoder_forward(*dims, weights[0].shape[0], *tensors)
+        else:
+            name = "vit_block_forward"
+            err = lib.vit_block_forward(*dims, *tensors)
     if err != 0:
-        raise RuntimeError(f"vit_encoder_forward failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    if stacked:
+        LAUNCHES += 1
+    else:
+        BLOCK_LAUNCHES += 1
     return out
 
 
@@ -158,7 +184,7 @@ class _Encoder(torch.autograd.Function):
     def forward(ctx, x, num_heads, depth, *flat):
         ctx.num_heads, ctx.depth = num_heads, depth
         ctx.save_for_backward(x, *flat)
-        return _launch(x, _stack(flat, depth), num_heads)
+        return _launch(x, _stack(flat, depth), num_heads, stacked=True)
 
     @staticmethod
     def backward(ctx, grad):
@@ -184,3 +210,51 @@ def encoder(x: torch.Tensor, blocks: Sequence[Params],
         return encoder_reference(x, blocks, num_heads)
     flat = [blk[mod][field] for blk in blocks for mod, field in _FIELDS]
     return _Encoder.apply(x, num_heads, len(blocks), *flat)
+
+
+def block_reference(x: torch.Tensor, p: Params, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch twin of the block kernel (``models/vit.py::_block``
+    with the plain attention); what a CPU tensor takes and what the
+    backward differentiates.  Launches no kernel."""
+    from ..models import vit   # vit imports this module
+
+    return vit._block(x, p, num_heads)
+
+
+class _Block(torch.autograd.Function):
+    """Forward: the CUDA block kernel.  Backward: autograd of the plain
+    twin, gradients for ``x`` and each of the twelve weights."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads, *flat):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, *flat)
+        return _launch(x, [t.contiguous() for t in flat], num_heads,
+                       stacked=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *flat = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            flat = [t.detach().requires_grad_(need)
+                    for t, need in zip(flat, ctx.needs_input_grad[2:])]
+            out = block_reference(x, _blocks_from_flat(flat, 1)[0],
+                                  ctx.num_heads)
+            inputs = [t for t in [x, *flat] if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, inputs, grad))
+        return (next(grads) if x.requires_grad else None, None,
+                *[next(grads) if t.requires_grad else None for t in flat])
+
+
+def block(x: torch.Tensor, p: Params, num_heads: int) -> torch.Tensor:
+    """One fused ViT block on (B, S, D) tokens: the CUDA kernel for a CUDA
+    tensor (raises if it cannot launch), the plain twin for a CPU tensor.
+    ``p`` is one block's param dict; its leaves are cast to ``x.dtype`` at
+    use, so float32 masters get their gradients through the cast."""
+    p = {mod: {field: t.to(x.dtype) for field, t in leaves.items()}
+         for mod, leaves in p.items()}
+    if not x.is_cuda:
+        return block_reference(x, p, num_heads)
+    flat = [p[mod][field] for mod, field in _FIELDS]
+    return _Block.apply(x.contiguous(), num_heads, *flat)

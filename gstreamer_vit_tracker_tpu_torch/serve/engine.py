@@ -12,8 +12,9 @@ rebuilds the device state after a device fault.  Slots initialised after
 the last snapshot come back dead: their clients must re-init (the server
 reports this).
 
-NV12 is the only frame format the port has so far.  Serving over several
-cards (the JAX engine's ``mesh``) comes with the port of ``parallel/``.
+Frames come in any of the protocol's formats (``nv12``, ``yuy2``, ``rgb``),
+one per engine.  Serving over several cards (the JAX engine's ``mesh``)
+comes with the port of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -86,9 +87,6 @@ class SlotEngine:
                  device="cuda"):
         if frame_format not in protocol.FORMATS:
             raise ValueError(f"unknown frame format {frame_format!r}")
-        if frame_format != "nv12":
-            raise NotImplementedError(
-                f"frame_format {frame_format!r}: only nv12 is ported")
         self.cfg = cfg
         self.slots = slots
         self.frame_format = frame_format
@@ -169,14 +167,17 @@ class SlotEngine:
 
     def step(self, frames, tick_active: np.ndarray) -> np.ndarray:
         """One SYNCHRONOUS batched tick.  ``frames`` are full (S, ...) host
-        buffers; ``tick_active`` (S,) bool marks slots with a FRESH frame
-        this tick (stale slots' state is held bit for bit by the masked
-        update).  Returns packed (S, 5) [x, y, w, h, score] float32."""
+        buffers (a (Y, UV) pair for nv12, one array for yuy2 and rgb);
+        ``tick_active`` (S,) bool marks slots with a FRESH frame this tick
+        (stale slots' state is held bit for bit by the masked update).
+        Returns packed (S, 5) [x, y, w, h, score] float32."""
         return np.asarray(self.step_async(frames, tick_active))
 
     def _place_frames(self, frames):
         """Host (S, ...) planes onto the device; from pinned memory the
         upload is asynchronous."""
+        if self.frame_format != "nv12" and not isinstance(frames, tuple):
+            frames = (frames,)
         return tuple(torch.as_tensor(p).to(self.device, non_blocking=True)
                      for p in frames)
 

@@ -70,15 +70,18 @@ class TrackServer:
         self.max_body = protocol.frame_nbytes(
             engine.frame_format, height, width) + 4096
 
-        # One (S, ...) buffer per NV12 plane, pinned on the card path so
-        # the tick's upload is asynchronous.  Handlers write rows through
-        # the numpy views; the engine reads the tensors.
+        # One (S, ...) buffer per plane of the engine's format, pinned on
+        # the card path so the tick's upload is asynchronous.  Handlers
+        # write rows through the numpy views; the engine reads the tensors.
         s = engine.slots
         pin = engine.device.type == "cuda"
+        shapes = {"nv12": ((s, height, width),
+                           (s, height // 2, width // 2, 2)),
+                  "yuy2": ((s, height, width * 2),),
+                  "rgb": ((s, height, width, 3),)}[engine.frame_format]
         self._buf = tuple(
             torch.zeros(shape, dtype=torch.uint8, pin_memory=pin)
-            for shape in ((s, height, width),
-                          (s, height // 2, width // 2, 2)))
+            for shape in shapes)
         self._rows = tuple(t.numpy() for t in self._buf)
 
         self._lock = threading.Lock()
@@ -255,7 +258,8 @@ class TrackServer:
         return {"ok": True, "bbox": [x, y, w, h], "score": score}, b""
 
     def _write_frame(self, slot: int, frame) -> None:
-        for rows, plane in zip(self._rows, frame):
+        planes = frame if isinstance(frame, tuple) else (frame,)
+        for rows, plane in zip(self._rows, planes):
             rows[slot] = plane
 
     # -- the batching tick -------------------------------------------------------

@@ -1,16 +1,21 @@
 """Tracker core: ``init(frame, bbox) -> TrackState`` and
 ``update(TrackState, frame) -> (TrackState, bbox, score)``.
 
-Port of ``gstreamer_vit_tracker_tpu/tracker/core.py`` for NV12 frames:
+Port of ``gstreamer_vit_tracker_tpu/tracker/core.py``:
 
-    banded crop/resize/BT.601/normalise (resample products)
+    banded crop/resize/colorspace/normalise (resample products)
       -> patch embed -> joint ViT encode (CUDA encoder kernel)
       -> conv heads -> hanning-penalty decode -> bbox with clamps and freezes
 
+Frames are RGB (H, W, 3), NV12 planes ((H, W), (H/2, W/2, 2)) or packed
+YUY2 (H, W*2), uint8; the three adapters share one core.  On NV12 frames
+``update(fused_prep=...)`` takes preprocess and patch embed as one CUDA
+kernel (``ops/fused_prep_embed.py``), and ``update(fused_embed=True)``
+takes the patch-major crop and ``embed_search_patches`` for any format.
+
 Every value of the step stays a tensor on the device, so a CUDA update
 enqueues its work without reading anything back; :func:`update_packed`
-returns the five numbers a caller reads as one tensor.  RGB and YUY2
-frames come with a later slice.
+returns the five numbers a caller reads as one tensor.
 
 Where JAX adds object and stream axes with ``vmap`` (tracker/multi.py), the
 step here takes them written out: a state whose fields carry leading
@@ -22,7 +27,7 @@ objects).  One body serves the unbatched step and the batch.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -30,6 +35,7 @@ from ..config import ModelConfig
 from ..device import resolve_device
 from ..models import heads as heads_mod
 from ..models import vittrack
+from ..ops import fused_prep_embed as fpe
 from ..ops import preprocess as pp
 from .state import TrackState
 
@@ -42,22 +48,63 @@ def _prep_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _frame_on(frame, frame_format: str, dev: torch.device):
-    if frame_format != "nv12":
-        raise NotImplementedError(
-            f"frame_format {frame_format!r}: only nv12 is ported")
-    y_plane, uv_plane = frame
-    return (torch.as_tensor(y_plane, device=dev),
-            torch.as_tensor(uv_plane, device=dev))
+FORMATS = ("rgb", "nv12", "yuy2")
 
 
-def _prep_nv12(frame, window: pp.CropWindow, out_size: int,
-               cfg: ModelConfig) -> torch.Tensor:
+def _frame_on(frame, frame_format: str, dev: torch.device
+              ) -> Tuple[torch.Tensor, ...]:
+    """The frame's planes as a tuple of tensors on ``dev``: (Y, UV) for
+    NV12, one plane for RGB and YUY2.  A tuple this function made passes
+    through, so callers may place a frame once and step on it many times."""
+    if frame_format not in FORMATS:
+        raise ValueError(f"unknown frame format {frame_format!r}")
+    if frame_format == "nv12":
+        planes = tuple(frame)
+        if len(planes) != 2:
+            raise ValueError("an nv12 frame is a (Y, UV) pair of planes")
+    else:
+        planes = frame if isinstance(frame, tuple) else (frame,)
+        if len(planes) != 1:
+            raise ValueError(f"a {frame_format} frame is one array, got a "
+                             f"tuple of {len(planes)}")
+    return tuple(torch.as_tensor(p, device=dev) for p in planes)
+
+
+def frame_shape(frame, frame_format: str) -> Tuple[int, int]:
+    """(height, width) in pixels of a frame :func:`_frame_on` placed."""
+    h, w = frame[0].shape[-3:-1] if frame_format == "rgb" \
+        else frame[0].shape[-2:]
+    return (h, w // 2) if frame_format == "yuy2" else (h, w)
+
+
+def _prep_rgb(frame, window: pp.CropWindow, out_size: int, cfg: ModelConfig,
+              patch_major: Optional[int] = None) -> torch.Tensor:
+    return pp.preprocess_rgb(frame[0], window, out_size, cfg.norm_mean,
+                             cfg.norm_std, dtype=_prep_dtype(cfg),
+                             band=cfg.preprocess_band,
+                             patch_major=patch_major)
+
+
+def _prep_nv12(frame, window: pp.CropWindow, out_size: int, cfg: ModelConfig,
+               patch_major: Optional[int] = None) -> torch.Tensor:
     y_plane, uv_plane = frame
     return pp.preprocess_nv12(y_plane, uv_plane, window, out_size,
                               cfg.norm_mean, cfg.norm_std,
                               dtype=_prep_dtype(cfg),
-                              band=cfg.preprocess_band)
+                              band=cfg.preprocess_band,
+                              patch_major=patch_major)
+
+
+def _prep_yuy2(frame, window: pp.CropWindow, out_size: int, cfg: ModelConfig,
+               patch_major: Optional[int] = None) -> torch.Tensor:
+    return pp.preprocess_yuy2(frame[0], window, out_size, cfg.norm_mean,
+                              cfg.norm_std, dtype=_prep_dtype(cfg),
+                              band=cfg.preprocess_band,
+                              patch_major=patch_major)
+
+
+_PREPS: Dict[str, Callable] = {"rgb": _prep_rgb, "nv12": _prep_nv12,
+                               "yuy2": _prep_yuy2}
 
 
 def _rows(t: torch.Tensor, keep: int) -> torch.Tensor:
@@ -77,9 +124,9 @@ def _frame_limits(fw: int, fh: int, device: torch.device) -> torch.Tensor:
 
 
 def init(params: Params, frame, bbox, cfg: ModelConfig,
-         frame_format: str = "nv12", device="cuda") -> TrackState:
+         frame_format: str = "rgb", device="cuda") -> TrackState:
     """Capture the template and start a track.  ``bbox`` = (x, y, w, h) in
-    frame pixels; ``frame`` = (Y (H, W), UV (H/2, W/2, 2)) uint8 planes.
+    frame pixels; ``frame`` in ``frame_format`` (module docstring).
     Batched: ``bbox`` (..., 4) with frames on its first dimensions (module
     docstring).  The state keeps copies, never the caller's buffers."""
     dev = resolve_device(device)
@@ -87,7 +134,7 @@ def init(params: Params, frame, bbox, cfg: ModelConfig,
     bbox = torch.as_tensor(bbox, dtype=torch.float32, device=dev).clone()
     lead = bbox.shape[:-1]
     window = pp.crop_window(bbox, cfg.template_factor)
-    z_img = _prep_nv12(frame, window, cfg.template_size, cfg)
+    z_img = _PREPS[frame_format](frame, window, cfg.template_size, cfg)
     z_tok = vittrack.embed_template(params, _rows(z_img, 3), cfg)
     z_tok = z_tok.reshape(*lead, *z_tok.shape[-2:])
     return TrackState(
@@ -101,7 +148,7 @@ def init(params: Params, frame, bbox, cfg: ModelConfig,
 
 
 def update(params: Params, state: TrackState, frame, cfg: ModelConfig,
-           frame_format: str = "nv12", device="cuda",
+           frame_format: str = "rgb", device="cuda",
            use_kernel: Optional[bool] = None, fused: Optional[bool] = None,
            fused_embed: bool = False, fused_prep=False
            ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
@@ -110,16 +157,16 @@ def update(params: Params, state: TrackState, frame, cfg: ModelConfig,
 
     ``fused`` and ``use_kernel`` are those of ``models/vit.py::encode``:
     the batched callers (tracker/multi.py) pass ``fused=False``, the
-    per-block route.  ``fused_embed`` and ``fused_prep`` (the patch-major
-    embed and the one-kernel NV12 preprocess + embed) come with the slice
-    that ports ``ops/fused_prep_embed.py``."""
-    if fused_embed or fused_prep:
-        raise NotImplementedError(
-            "fused_embed / fused_prep come with the slice that ports "
-            "ops/fused_prep_embed.py (the NV12-to-tokens kernel)")
+    per-block route.  ``fused_embed`` routes the preprocess through the
+    patch-major crop and ``embed_search_patches``.  ``fused_prep`` (NV12
+    frames, the unbatched step) takes the whole preprocess + patch embed
+    as one CUDA kernel, ``ops/fused_prep_embed.py``: ``True`` selects the
+    default patchify formulation, a string (``"loop"`` / ``"transpose"``)
+    names one; on other formats it is ignored, as in JAX."""
     dev = resolve_device(device)
     frame = _frame_on(frame, frame_format, dev)
-    fh, fw = frame[0].shape[-2:]
+    prep = _PREPS[frame_format]
+    fh, fw = frame_shape(frame, frame_format)
     lead = state.bbox.shape[:-1]
 
     # Re-detection ramp: while confidence stays below the freeze threshold
@@ -136,10 +183,23 @@ def update(params: Params, state: TrackState, frame, cfg: ModelConfig,
         # A ramped window larger than the band would search zero padding.
         window = window._replace(
             size=torch.clamp_max(window.size, float(cfg.preprocess_band)))
-    x_img = _prep_nv12(frame, window, cfg.search_size, cfg)
-    maps = vittrack.forward(params, _rows(state.z_tok, 2),
-                            _rows(x_img, 3), cfg, use_kernel=use_kernel,
-                            fused=fused)
+    if fused_prep and frame_format == "nv12":
+        mode = fused_prep if isinstance(fused_prep, str) else "loop"
+        x_tok = fpe.nv12_search_tokens(params, frame[0], frame[1], window,
+                                       cfg, mode=mode)[None]
+        maps = vittrack.forward_tokens(params, _rows(state.z_tok, 2), x_tok,
+                                       cfg, use_kernel=use_kernel, fused=fused)
+    elif fused_embed:
+        patches = prep(frame, window, cfg.search_size, cfg,
+                       patch_major=cfg.patch_size)
+        x_tok = vittrack.embed_search_patches(params, _rows(patches, 3), cfg)
+        maps = vittrack.forward_tokens(params, _rows(state.z_tok, 2), x_tok,
+                                       cfg, use_kernel=use_kernel, fused=fused)
+    else:
+        x_img = prep(frame, window, cfg.search_size, cfg)
+        maps = vittrack.forward(params, _rows(state.z_tok, 2),
+                                _rows(x_img, 3), cfg, use_kernel=use_kernel,
+                                fused=fused)
 
     hann = _hann(cfg.feat_size, cfg.hann_mode, dev)
     prev_wh = state.bbox[..., 2:4]
@@ -182,13 +242,14 @@ def update(params: Params, state: TrackState, frame, cfg: ModelConfig,
     )
 
     if cfg.template_update_enabled:
-        new_state = _maybe_update_template(params, new_state, frame, cfg)
+        new_state = _maybe_update_template(params, new_state, frame, cfg,
+                                           prep)
 
     return new_state, new_bbox, conf
 
 
 def _maybe_update_template(params: Params, state: TrackState, frame,
-                           cfg: ModelConfig) -> TrackState:
+                           cfg: ModelConfig, prep: Callable) -> TrackState:
     """Online template update: on a confident frame at the configured
     interval, re-embed the template at the current bbox and blend it with
     the initial template.  A masked ``where``, as in JAX, so the step
@@ -197,7 +258,7 @@ def _maybe_update_template(params: Params, state: TrackState, frame,
         state.score > cfg.template_update_threshold,
         (state.frame_idx % cfg.template_update_interval) == 0)
     window = pp.crop_window(state.bbox, cfg.template_factor)
-    z_img = _prep_nv12(frame, window, cfg.template_size, cfg)
+    z_img = prep(frame, window, cfg.template_size, cfg)
     z_new = vittrack.embed_template(params, _rows(z_img, 3), cfg)
     z_new = z_new.reshape(state.z_tok.shape)
     a = cfg.template_update_anchor
@@ -208,11 +269,12 @@ def _maybe_update_template(params: Params, state: TrackState, frame,
 
 
 def update_packed(params: Params, state: TrackState, frame, cfg: ModelConfig,
-                  frame_format: str = "nv12", device="cuda"
+                  frame_format: str = "rgb", device="cuda", **route
                   ) -> Tuple[TrackState, torch.Tensor]:
     """Like :func:`update` but returns (state, packed) with ``packed`` =
     [x, y, w, h, score], one (..., 5) tensor, so a caller reads the result
-    with one device-to-host copy."""
+    with one device-to-host copy.  ``route`` passes ``update``'s options
+    (``fused_prep`` ...) through."""
     new_state, bbox, conf = update(params, state, frame, cfg, frame_format,
-                                   device)
+                                   device, **route)
     return new_state, torch.cat([bbox, conf[..., None]], dim=-1)

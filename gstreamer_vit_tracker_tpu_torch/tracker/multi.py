@@ -131,14 +131,14 @@ def _update_batch(params: Params, state: TrackState, frames, active,
 # ---------------------------------------------------------------------------
 
 def init_objects(params: Params, frame, bboxes, cfg: ModelConfig,
-                 frame_format: str = "nv12", device="cuda") -> TrackState:
+                 frame_format: str = "rgb", device="cuda") -> TrackState:
     """bboxes (N, 4) -> batched TrackState with leading axis N."""
     return core.init(params, frame, bboxes, _batched_cfg(cfg), frame_format,
                      device)
 
 
 def update_objects(params: Params, state: TrackState, frame, active,
-                   cfg: ModelConfig, frame_format: str = "nv12",
+                   cfg: ModelConfig, frame_format: str = "rgb",
                    exclusive: bool = False, device="cuda"
                    ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
     """One frame, N targets.  active: (N,) bool.  Returns
@@ -156,14 +156,14 @@ def update_objects(params: Params, state: TrackState, frame, active,
 # ---------------------------------------------------------------------------
 
 def init_streams(params: Params, frames, bboxes, cfg: ModelConfig,
-                 frame_format: str = "nv12", device="cuda") -> TrackState:
+                 frame_format: str = "rgb", device="cuda") -> TrackState:
     """frames batched on axis 0 (S, ...); bboxes (S, M, 4)."""
     return core.init(params, frames, bboxes, _batched_cfg(cfg), frame_format,
                      device)
 
 
 def update_streams(params: Params, state: TrackState, frames, active,
-                   cfg: ModelConfig, frame_format: str = "nv12",
+                   cfg: ModelConfig, frame_format: str = "rgb",
                    exclusive: bool = False, device="cuda"
                    ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
     """S streams x M targets in one step.  frames batched on axis 0;

@@ -4,7 +4,9 @@ one call that reads nothing back until the end.
 Port of ``gstreamer_vit_tracker_tpu/tracker/scan.py``.  JAX's ``lax.scan``
 becomes a Python loop: every step only enqueues device work (the state and
 the per-step results stay tensors on the device), and the per-step results
-come back stacked, one host read for the whole run.  The HUD variant
+come back stacked, one host read for the whole run.  Frames are stacked
+over the clip in any of the three formats: RGB (N, H, W, 3), NV12 planes
+((N, H, W), (N, H/2, W/2, 2)) or YUY2 (N, H, W*2).  The HUD variant
 (``update_scan_hud_pool``) comes with the overlay modules.
 """
 
@@ -23,24 +25,29 @@ Params = Dict[str, Any]
 
 
 def _pool(frames, frame_format: str, dev: torch.device):
-    """The frame pool on the device, and its length."""
-    frames = core._frame_on(frames, frame_format, dev)
-    return frames, frames[0].shape[0]
+    """The frame pool's planes on the device, and its length."""
+    planes = core._frame_on(frames, frame_format, dev)
+    return planes, planes[0].shape[0]
+
+
+def _pick(planes, i):
+    """Frame ``i`` (an index or a slice) of a pool's planes."""
+    return tuple(p[i] for p in planes)
 
 
 def update_scan(params: Params, state: TrackState, frames, cfg: ModelConfig,
-                frame_format: str = "nv12", device="cuda"
+                frame_format: str = "rgb", device="cuda"
                 ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
-    """Track a whole clip.  ``frames``: NV12 planes stacked over frames,
-    ((N, H, W), (N, H/2, W/2, 2)).
+    """Track a whole clip.  ``frames``: stacked over frames (module
+    docstring).
 
     Returns (final_state, bboxes (N, 4), scores (N,)).
     """
     dev = resolve_device(device)
-    (ys, uvs), n = _pool(frames, frame_format, dev)
+    planes, n = _pool(frames, frame_format, dev)
     bboxes, scores = [], []
     for i in range(n):
-        state, bbox, conf = core.update(params, state, (ys[i], uvs[i]), cfg,
+        state, bbox, conf = core.update(params, state, _pick(planes, i), cfg,
                                         frame_format, dev)
         bboxes.append(bbox)
         scores.append(conf)
@@ -53,13 +60,14 @@ def update_scan_pool(params: Params, state: TrackState, frames, reps: int,
                      ) -> Tuple[TrackState, torch.Tensor]:
     """Benchmark variant: ``reps`` tracked frames cycling through a small
     device-resident frame pool by index.  Returns (state, scores (reps,)).
-    ``fused_prep`` is ``core.update``'s (not ported yet: it raises)."""
+    ``fused_prep`` routes the NV12 step through the one-kernel preprocess +
+    embed (``core.update``)."""
     dev = resolve_device(device)
-    (ys, uvs), pool = _pool(frames, frame_format, dev)
+    planes, pool = _pool(frames, frame_format, dev)
     scores = []
     for i in range(reps):
         state, _bbox, conf = core.update(
-            params, state, (ys[i % pool], uvs[i % pool]), cfg, frame_format,
+            params, state, _pick(planes, i % pool), cfg, frame_format,
             dev, fused_prep=fused_prep)
         scores.append(conf)
     return state, torch.stack(scores)
@@ -81,7 +89,7 @@ def update_streams_scan_pool(params: Params, state: TrackState, frames,
     extended pool (built once per call), not a row gather.
     """
     dev = resolve_device(device)
-    (ys, uvs), pool = _pool(frames, frame_format, dev)
+    planes, pool = _pool(frames, frame_format, dev)
     active = torch.as_tensor(active, dtype=torch.bool, device=dev)
     n_streams = active.shape[0]
     need = pool + n_streams          # slice start < pool, length n_streams
@@ -90,11 +98,11 @@ def update_streams_scan_pool(params: Params, state: TrackState, frames,
     def extend(x):
         return torch.cat([x] * tiles, dim=0)[:need]
 
-    ys, uvs = extend(ys), extend(uvs)
+    planes = tuple(extend(p) for p in planes)
     scores = []
     for i in range(reps):
         start = i % pool
-        fr = (ys[start:start + n_streams], uvs[start:start + n_streams])
+        fr = _pick(planes, slice(start, start + n_streams))
         state, _bx, sc = multi.update_streams(params, state, fr, active, cfg,
                                               frame_format, device=dev)
         scores.append(sc)
@@ -109,12 +117,12 @@ def update_objects_scan_pool(params: Params, state: TrackState, frames,
     in one call, cycling the frame pool.  Returns (state, scores
     (reps, N))."""
     dev = resolve_device(device)
-    (ys, uvs), pool = _pool(frames, frame_format, dev)
+    planes, pool = _pool(frames, frame_format, dev)
     active = torch.as_tensor(active, dtype=torch.bool, device=dev)
     scores = []
     for i in range(reps):
         state, _bx, sc = multi.update_objects(
-            params, state, (ys[i % pool], uvs[i % pool]), active, cfg,
+            params, state, _pick(planes, i % pool), active, cfg,
             frame_format, device=dev)
         scores.append(sc)
     return state, torch.stack(scores)

@@ -1,0 +1,300 @@
+"""Training step for the VitTrack model (float32: train in float32, serve
+in bf16).
+
+Port of ``gstreamer_vit_tracker_tpu/train/step.py``.  Parameters stay plain
+nested dicts of tensors, so the state compares leaf by leaf with the JAX
+package's; the optimiser is written out here instead of taken from
+``torch.optim``, because three of its details differ from PyTorch's:
+
+* AdamW's weight decay defaults to ``1e-4`` on every leaf, no mask, and is
+  added to the Adam direction before the learning rate scales both;
+* gradient clipping scales by ``max_norm / norm`` exactly (no ``1e-6`` in
+  the denominator) and only when ``norm >= max_norm``;
+* the warmup + cosine schedule decays over ``total_steps - warmup_steps``
+  and reads the step count from the optimiser state, on the device.
+
+The forward pass encodes per block (``fused=False``), as the JAX step does:
+on the card its attention goes through ``ops/attention.py::flash_attention``
+(kernel forward, backward through the plain version).  Nothing of a step is
+read back to the host; :func:`train_scan` is a Python loop that returns the
+per-step losses stacked, like the port's tracking scans.  Random draws take
+an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+from ..models import vit
+from ..models.heads import conv_head
+from . import losses
+
+Params = Dict[str, Any]
+
+__all__ = ["TrainState", "OptState", "Optimizer", "make_optimizer",
+           "create_train_state", "loss_fn", "train_step", "train_scan",
+           "tree_map", "tree_leaves"]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts and lists of one shape."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+class OptState(NamedTuple):
+    count: torch.Tensor     # 0-d int32: steps taken
+    mu: Params              # first moments, the params' tree
+    nu: Params              # second moments
+
+
+class TrainState(NamedTuple):
+    params: Params
+    opt_state: OptState
+    step: torch.Tensor
+    # Exponential moving average of params (None disables; made by
+    # create_train_state(ema_decay > 0) as a distinct copy).
+    ema_params: Optional[Params] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """Global-norm clipping, then AdamW, as ``optax.chain(
+    clip_by_global_norm, adamw)``."""
+
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    total_steps: Optional[int] = None
+    warmup_steps: int = 0
+    end_lr_frac: float = 0.05
+    clip_norm: Optional[float] = 1.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def schedule(self, count: torch.Tensor) -> torch.Tensor:
+        """Learning rate at step ``count`` (a tensor, so nothing is read
+        back): constant without ``total_steps``; else a linear warmup from
+        0 over ``warmup_steps``, then a cosine decay to ``lr * end_lr_frac``
+        over ``total_steps - warmup_steps``."""
+        count = count.to(torch.float32)
+        if not self.total_steps:
+            return torch.full_like(count, self.lr)
+        decay_steps = float(self.total_steps - self.warmup_steps)
+        alpha = 0.0 if self.lr == 0.0 else (self.lr * self.end_lr_frac) / self.lr
+        t = torch.clamp_max(count - self.warmup_steps, decay_steps)
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / decay_steps))
+        decayed = self.lr * ((1 - alpha) * cosine + alpha)
+        if self.warmup_steps <= 0:
+            return decayed
+        frac = 1 - torch.clamp(count, 0, self.warmup_steps) / self.warmup_steps
+        warm = (0.0 - self.lr) * frac + self.lr
+        return torch.where(count < self.warmup_steps, warm, decayed)
+
+    def init(self, params: Params) -> OptState:
+        first = tree_leaves(params)[0]
+        return OptState(
+            count=torch.zeros((), dtype=torch.int32, device=first.device),
+            mu=tree_map(torch.zeros_like, params),
+            nu=tree_map(torch.zeros_like, params))
+
+    def clip(self, grads: Params) -> Params:
+        """Gradients scaled to a global norm of ``clip_norm`` when theirs
+        is not below it (a ``where``, no host read)."""
+        if not self.clip_norm:
+            return grads
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+        keep = g_norm < self.clip_norm
+        return tree_map(
+            lambda g: torch.where(keep, g, (g / g_norm) * self.clip_norm),
+            grads)
+
+    def update(self, grads: Params, state: OptState, params: Params
+               ) -> Tuple[Params, OptState]:
+        """(updates to add to the params, new state)."""
+        grads = self.clip(grads)
+        b1, b2 = self.b1, self.b2
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
+        count = state.count + 1
+        c1 = 1 - b1 ** count.to(torch.float32)
+        c2 = 1 - b2 ** count.to(torch.float32)
+        step_size = -self.schedule(state.count)
+
+        def leaf(m, v, p):
+            direction = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            return step_size * (direction + self.weight_decay * p)
+
+        return tree_map(leaf, mu, nu, params), OptState(count, mu, nu)
+
+
+def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4, *,
+                   total_steps: Optional[int] = None, warmup_steps: int = 0,
+                   end_lr_frac: float = 0.05,
+                   clip_norm: Optional[float] = 1.0) -> Optimizer:
+    """AdamW with optional warmup + cosine schedule and global-norm
+    clipping (the JAX package's ``make_optimizer``)."""
+    return Optimizer(lr=lr, weight_decay=weight_decay, total_steps=total_steps,
+                     warmup_steps=warmup_steps, end_lr_frac=end_lr_frac,
+                     clip_norm=clip_norm)
+
+
+def create_train_state(params: Params, lr: float = 1e-4,
+                       opt: Optional[Optimizer] = None,
+                       ema_decay: float = 0.0) -> TrainState:
+    opt = opt if opt is not None else make_optimizer(lr)
+    ema = tree_map(torch.clone, params) if ema_decay > 0 else None
+    first = tree_leaves(params)[0]
+    return TrainState(params=params, opt_state=opt.init(params),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=first.device),
+                      ema_params=ema)
+
+
+def loss_fn(params: Params, z_imgs: torch.Tensor, x_imgs: torch.Tensor,
+            gts: torch.Tensor, cfg: ModelConfig,
+            use_kernel: Optional[bool] = None):
+    """Mean loss over the batch.  Inputs are normalised crops (B, Hz, Wz,
+    3), (B, Hx, Wx, 3) and (B, 4) crop-normalised gt boxes, or (B, 5) with
+    a trailing per-sample visibility flag (0 = target fully occluded in the
+    search crop; trains the all-negative score map)."""
+    z_tok = vit.embed_template(params["backbone"], z_imgs, cfg)
+    x_tok = vit.embed_search(params["backbone"], x_imgs, cfg)
+    # fused=False: training encodes per block (the encoder kernel's forward
+    # with its twin's backward would mix implementations).
+    x_feat = vit.encode(params["backbone"], z_tok, x_tok, cfg,
+                        use_kernel=use_kernel, fused=False)
+    score, offset, size = conv_head(params["head"], x_feat, cfg)
+    vis = gts[:, 4] if gts.shape[1] == 5 else None
+    total, parts = losses.total_loss(score, offset, size, gts[:, :4],
+                                     visible=vis)
+    return total.mean(), {k: v.mean() for k, v in parts.items()}
+
+
+def _step_impl(state: TrainState, z_imgs, x_imgs, gts, cfg: ModelConfig,
+               opt: Optimizer, use_kernel: Optional[bool], ema_decay: float):
+    params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    loss, parts = loss_fn(params, z_imgs, x_imgs, gts, cfg, use_kernel)
+    leaves = tree_leaves(params)
+    flat = iter(torch.autograd.grad(loss, leaves))
+    grads = tree_map(lambda _p: next(flat), params)
+    with torch.no_grad():
+        updates, new_opt = opt.update(grads, state.opt_state, state.params)
+        new_params = tree_map(lambda p, u: p.detach() + u, state.params,
+                              updates)
+        ema = state.ema_params
+        if ema is not None and ema_decay > 0:
+            ema = tree_map(lambda e, p: e * ema_decay + p * (1 - ema_decay),
+                           ema, new_params)
+    return (TrainState(new_params, new_opt, state.step + 1, ema),
+            loss.detach(), {k: v.detach() for k, v in parts.items()})
+
+
+def train_step(state: TrainState, z_imgs, x_imgs, gts, cfg: ModelConfig,
+               lr: float = 1e-4, use_kernel: Optional[bool] = None,
+               opt: Optional[Optimizer] = None, ema_decay: float = 0.0,
+               device="cuda"
+               ) -> Tuple[TrainState, torch.Tensor, Dict[str, torch.Tensor]]:
+    """One optimisation step.  Returns (new state, loss, loss parts), all
+    tensors on the device; the old state is left as it was.  With
+    ``opt=None`` a constant-LR AdamW(lr) is built.  ``state`` must lie on
+    ``device`` (``create_train_state`` keeps the params' device); the batch
+    is moved there."""
+    dev = resolve_device(device)
+    opt = opt if opt is not None else make_optimizer(lr)
+    z_imgs, x_imgs, gts = (torch.as_tensor(t, device=dev)
+                           for t in (z_imgs, x_imgs, gts))
+    return _step_impl(state, z_imgs, x_imgs, gts, cfg, opt, use_kernel,
+                      ema_decay)
+
+
+# ---------------------------------------------------------------------------
+# Many steps from a device-resident dataset.
+# ---------------------------------------------------------------------------
+
+
+def _normalise(img01: torch.Tensor, mean, std) -> torch.Tensor:
+    dev = img01.device
+    return ((img01 - torch.tensor(mean, dtype=torch.float32, device=dev))
+            / torch.tensor(std, dtype=torch.float32, device=dev))
+
+
+def _augment(gen: torch.Generator, z: torch.Tensor, x: torch.Tensor,
+             gt: torch.Tensor, mean, std):
+    """Per-sample augmentation of uint8 crops -> normalised float32.
+
+    Horizontal flip (geometry-consistent: cx -> 1 - cx, for (B, 4) and
+    (B, 5) boxes alike), brightness / contrast jitter shared by template
+    and search (same lighting), and light gaussian noise on the search
+    crop.  Draws come from ``gen`` on its own device and move to the
+    crops'."""
+    b, dev = z.shape[0], z.device
+
+    def draw(fn, *shape):
+        return fn(*shape, generator=gen, device=gen.device).to(dev)
+
+    zf = z.to(torch.float32) / 255.0
+    xf = x.to(torch.float32) / 255.0
+
+    flip = draw(torch.rand, b) < 0.5
+    zf = torch.where(flip[:, None, None, None], zf.flip(2), zf)
+    xf = torch.where(flip[:, None, None, None], xf.flip(2), xf)
+    gt = torch.where(flip[:, None],
+                     torch.cat([1.0 - gt[:, :1], gt[:, 1:]], dim=-1), gt)
+
+    contrast = 0.8 + 0.4 * draw(torch.rand, b, 1, 1, 1)
+    bright = -0.08 + 0.16 * draw(torch.rand, b, 1, 1, 1)
+    zf = zf * contrast + bright
+    xf = xf * contrast + bright
+    xf = xf + 0.01 * draw(torch.randn, *xf.shape)
+    return _normalise(zf, mean, std), _normalise(xf, mean, std), gt
+
+
+def train_scan(state: TrainState, ds_z, ds_x, ds_gt, gen: torch.Generator,
+               cfg: ModelConfig, opt: Optimizer, n_steps: int, batch: int,
+               use_kernel: Optional[bool] = None, ema_decay: float = 0.0,
+               augment: bool = True, device="cuda"):
+    """Run ``n_steps`` optimisation steps with nothing read back.
+
+    ``ds_z`` / ``ds_x`` are uint8 crop stacks (N, H, W, 3) and ``ds_gt``
+    their boxes, moved to the device once; each step draws a
+    with-replacement minibatch from ``gen`` (first the indices, then the
+    augmentation's draws), augments, normalises and steps.  Returns (state,
+    gen, losses (n_steps,), parts {name: (n_steps,)})."""
+    dev = resolve_device(device)
+    ds_z, ds_x, ds_gt = (torch.as_tensor(t, device=dev)
+                         for t in (ds_z, ds_x, ds_gt))
+    mean, std = cfg.norm_mean, cfg.norm_std
+    ls, parts = [], []
+    for _ in range(n_steps):
+        idx = torch.randint(0, ds_z.shape[0], (batch,), generator=gen,
+                            device=gen.device).to(dev)
+        z, x, gt = ds_z[idx], ds_x[idx], ds_gt[idx]
+        if augment:
+            z, x, gt = _augment(gen, z, x, gt, mean, std)
+        else:
+            z = _normalise(z.to(torch.float32) / 255.0, mean, std)
+            x = _normalise(x.to(torch.float32) / 255.0, mean, std)
+        state, loss, part = _step_impl(state, z, x, gt, cfg, opt, use_kernel,
+                                       ema_decay)
+        ls.append(loss)
+        parts.append(part)
+    return (state, gen, torch.stack(ls),
+            {k: torch.stack([p[k] for p in parts]) for k in parts[0]})

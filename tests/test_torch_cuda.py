@@ -3,7 +3,12 @@ plain twin, its input checks, its launch count, its backward, and the
 tracking step on the card against the same step on the CPU; the two
 attention kernels against ``attention_reference``, their dispatch by
 length, input checks, launch counts and backward; the per-block encode
-route and a batched engine tick on the card against the CPU.
+route and a batched engine tick on the card against the CPU; the one-block
+kernel (``vit_block.block``) and the NV12-to-tokens kernel
+(``fused_prep_embed.nv12_search_tokens``) against their plain versions, with
+their input checks, launch counts and (for the block) gradients; the
+tracking step through ``fused_prep``, RGB and YUY2 steps, and a training step
+on the card against the CPU.
 
 Every test here needs a card and skips without one (marker ``cuda``).
 Run them on the GPU with
@@ -15,6 +20,8 @@ at the top of a binade is 0.8% of it, and the kernel sums in another order
 than the twin).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -23,6 +30,9 @@ torch = pytest.importorskip("torch")
 from gstreamer_vit_tracker_tpu_torch.config import PRESETS  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.train import step as train_step_mod  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.tracker import core  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -130,10 +140,12 @@ def test_update_on_card_matches_cpu(dev, preset):
     for d in (dev, torch.device("cpu")):
         params = vittrack.with_grouped_head(weights.load_npz(
             weights.checkpoint_path(preset), cfg, device=d))
-        st = core.init(params, frames[0], bbox, cfg, device=d)
+        st = core.init(params, frames[0], bbox, cfg, device=d,
+                       frame_format="nv12")
         rows = []
         for f in frames[1:]:
-            st, packed = core.update_packed(params, st, f, cfg, device=d)
+            st, packed = core.update_packed(params, st, f, cfg, device=d,
+                                            frame_format="nv12")
             rows.append(packed.cpu())
         out[d.type] = torch.stack(rows)
     if cfg.dtype == "float32":
@@ -284,3 +296,192 @@ def test_engine_ticks_on_card_match_cpu(dev):
         rows[d.type] = np.stack([np.asarray(t) for t in ticks])
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=0, atol=1e-2)
     assert not rows["cuda"][:, 2].any()              # the unoccupied slot
+
+
+# ---------------------------------------------------------------------------
+# The one-block kernel (vit_block.block)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,heads", [(1, 320, 192, 3), (16, 320, 192, 3),
+                                         (2, 80, 96, 2), (3, 37, 64, 4)])
+def test_block_kernel_matches_twin(dev, dtype, b, s, d, heads):
+    gen = torch.Generator().manual_seed(b * s + d)
+    blk = _blocks(gen, d, 1, 4 * d, dtype, dev)[0]
+    x = torch.randn((b, s, d), generator=gen).to(dev, dtype)
+    before = (vit_block.BLOCK_LAUNCHES, vit_block.LAUNCHES,
+              attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
+    got = vit_block.block(x, blk, heads)
+    assert vit_block.BLOCK_LAUNCHES == before[0] + 1
+    ref = vit_block.block_reference(x, blk, heads)
+    torch.cuda.synchronize()
+    # Neither the wrapper nor the twin went through another kernel.
+    assert (vit_block.BLOCK_LAUNCHES, vit_block.LAUNCHES,
+            attention.SINGLE_LAUNCHES,
+            attention.FLASH_LAUNCHES) == (before[0] + 1, *before[1:])
+    assert got.shape == x.shape and got.dtype == dtype
+    _check_close(got, ref, dtype)
+    # One block of the encoder kernel is the same device code.
+    assert torch.equal(got, vit_block.encoder(x, [blk], heads))
+
+
+def test_block_kernel_casts_masters_and_rejects_what_it_cannot_take(dev):
+    gen = torch.Generator().manual_seed(2)
+    blk = _blocks(gen, 64, 1, 256, torch.float32, dev)[0]
+    x = torch.randn((2, 20, 64), generator=gen).to(dev)
+    cast = {m: {f: t.bfloat16() for f, t in l.items()} for m, l in blk.items()}
+    assert torch.equal(vit_block.block(x.bfloat16(), blk, 2),
+                       vit_block.block(x.bfloat16(), cast, 2))
+    with pytest.raises(TypeError):
+        vit_block.block(x.half(), blk, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        vit_block.block(x, blk, 8)
+    bad = dict(blk, proj={"kernel": blk["proj"]["kernel"][:, :32],
+                          "bias": blk["proj"]["bias"]})
+    with pytest.raises(ValueError, match="kernel expects"):
+        vit_block.block(x, bad, 2)
+
+
+def test_block_kernel_backward_is_the_twins(dev):
+    gen = torch.Generator().manual_seed(6)
+    blk = _blocks(gen, 64, 1, 256, torch.float32, dev)[0]
+    leaves = [t.requires_grad_(True) for m in blk.values() for t in m.values()]
+    x = torch.randn((3, 37, 64), generator=gen).to(dev).requires_grad_(True)
+    g_k = torch.autograd.grad((vit_block.block(x, blk, 2) ** 2).sum(),
+                              [x, *leaves])
+    g_r = torch.autograd.grad((vit_block.block_reference(x, blk, 2) ** 2).sum(),
+                              [x, *leaves])
+    assert len(g_k) == 13
+    for a, b in zip(g_k, g_r):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The NV12-to-tokens kernel (fused_prep_embed.nv12_search_tokens)
+# ---------------------------------------------------------------------------
+
+def _nv12(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    return (torch.as_tensor(rng.integers(0, 256, (h, w), dtype=np.uint8),
+                            device=dev),
+            torch.as_tensor(rng.integers(0, 256, (h // 2, w // 2, 2),
+                                         dtype=np.uint8), device=dev))
+
+
+@pytest.mark.parametrize("preset,dtype", [("vittrack-t", "bfloat16"),
+                                          ("vittrack-t", "float32"),
+                                          ("small", "float32")])
+@pytest.mark.parametrize("shape,box", [
+    ((512, 640), (300.0, 200.0, 64.0, 64.0)),       # inside the frame
+    ((512, 640), (-20.0, 470.0, 80.0, 80.0)),       # over the frame edge
+    ((1080, 1920), (1500.0, 700.0, 64.0, 64.0)),    # banded
+    ((1080, 1920), (1770.0, 980.0, 90.0, 70.0)),    # band in the corner
+    ((1080, 1920), (3.0, 5.0, 400.0, 300.0)),       # window beyond the band
+])
+def test_fused_prep_kernel_matches_plain(dev, preset, dtype, shape, box):
+    cfg = dataclasses.replace(PRESETS[preset], dtype=dtype)
+    params = weights.load_npz(weights.checkpoint_path(preset), cfg, device=dev)
+    y, uv = _nv12(shape, 3, dev)
+    win = pp.crop_window(torch.tensor(box, device=dev), cfg.search_factor)
+    before = fpe.LAUNCHES
+    got = fpe.nv12_search_tokens(params, y, uv, win, cfg)
+    assert fpe.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (cfg.num_search_tokens, cfg.embed_dim)
+    for mode in fpe.MODES:
+        ref = fpe.nv12_search_tokens_reference(params, y, uv, win, cfg, mode)
+        assert fpe.LAUNCHES == before + 1            # the plain version is plain
+        err = (got.float() - ref.float()).abs().max().item()
+        if dtype == "float32":
+            assert err <= 1e-4, (mode, err)
+        else:                # one bf16 ulp at the largest plain value
+            assert err <= 2.0 ** -7 * ref.float().abs().max().item(), (mode, err)
+    # Either mode string launches the one kernel.
+    assert torch.equal(got, fpe.nv12_search_tokens(params, y, uv, win, cfg,
+                                                   mode="transpose"))
+
+
+def test_fused_prep_kernel_rejects_what_it_cannot_take(dev):
+    cfg = PRESETS["small"]
+    params = weights.load_npz(weights.checkpoint_path("small"), cfg, device=dev)
+    y, uv = _nv12((128, 160), 4, dev)
+    win = pp.crop_window(torch.tensor([60.0, 50.0, 20.0, 20.0], device=dev),
+                         cfg.search_factor)
+    with pytest.raises(ValueError, match="mode"):
+        fpe.nv12_search_tokens(params, y, uv, win, cfg, mode="fast")
+    with pytest.raises(ValueError, match="uv_plane"):
+        fpe.nv12_search_tokens(params, y, uv[:, :-1], win, cfg)
+    with pytest.raises(ValueError, match="different devices"):
+        fpe.nv12_search_tokens(params, y, uv.cpu(), win, cfg)
+    ops = list(fpe.kernel_operands(params, y, uv, win, cfg))
+    ops[4] = ops[4][:, :-1].contiguous()             # embed weight too narrow
+    with pytest.raises(ValueError, match="do not fit"):
+        fpe.launch(*ops, cfg)
+
+
+@pytest.mark.parametrize("preset", ["small", "vittrack-t"])
+def test_update_fused_prep_on_card_matches_the_plain_route(dev, preset):
+    cfg = PRESETS[preset]
+    params = vittrack.with_grouped_head(weights.load_npz(
+        weights.checkpoint_path(preset), cfg, device=dev))
+    frames, bbox = _clip(4)
+    state = core.init(params, frames[0], bbox, cfg, "nv12", dev)
+    before = fpe.LAUNCHES
+    for f in frames[1:]:
+        _, want = core.update_packed(params, state, f, cfg, "nv12", dev)
+        state, got = core.update_packed(params, state, f, cfg, "nv12", dev,
+                                        fused_prep=True)
+        d = (got - want).abs().cpu().numpy()
+        tol = (1e-2, 1e-4) if cfg.dtype == "float32" else (2.0, 0.02)
+        assert d[:4].max() <= tol[0] and d[4] <= tol[1], d
+    assert fpe.LAUNCHES == before + len(frames) - 1
+
+
+@pytest.mark.parametrize("fmt", ["rgb", "yuy2"])
+def test_other_formats_on_card_match_cpu(dev, fmt):
+    cfg = PRESETS["small"]
+    rng = np.random.default_rng(5)
+    shape = (240, 320, 3) if fmt == "rgb" else (240, 640)
+    frames = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(3)]
+    rows = {}
+    for d in (dev, torch.device("cpu")):
+        params = vittrack.with_grouped_head(weights.load_npz(
+            weights.checkpoint_path("small"), cfg, device=d))
+        st = core.init(params, frames[0], (100.0, 80.0, 40.0, 32.0), cfg, fmt, d)
+        out = []
+        for f in frames[1:]:
+            st, packed = core.update_packed(params, st, f, cfg, fmt, d,
+                                            fused_embed=True)
+            out.append(packed.cpu().numpy())
+        rows[d.type] = np.stack(out)
+    np.testing.assert_allclose(rows["cuda"][:, :4], rows["cpu"][:, :4], atol=1e-2)
+    np.testing.assert_allclose(rows["cuda"][:, 4], rows["cpu"][:, 4], atol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    cfg = PRESETS["small"]
+    rng = np.random.default_rng(6)
+    b = 4
+    z = rng.normal(0, 1, (b, cfg.template_size, cfg.template_size, 3)
+                   ).astype(np.float32)
+    x = rng.normal(0, 1, (b, cfg.search_size, cfg.search_size, 3)
+                   ).astype(np.float32)
+    gt = np.concatenate([rng.uniform(0.3, 0.7, (b, 2)),
+                         rng.uniform(0.1, 0.4, (b, 2))], 1).astype(np.float32)
+    opt = train_step_mod.make_optimizer(1e-3)
+    losses = {}
+    for d in (dev, torch.device("cpu")):
+        params = weights.load_npz(weights.checkpoint_path("small"), cfg, device=d)
+        st = train_step_mod.create_train_state(params, opt=opt)
+        before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
+        out = []
+        for _ in range(3):
+            st, loss, _ = train_step_mod.train_step(st, z, x, gt, cfg, opt=opt,
+                                                    device=d)
+            out.append(float(loss))
+        losses[d.type] = out
+        launched = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES - before
+        assert launched == (3 * cfg.depth if d.type == "cuda" else 0)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    assert losses["cuda"][-1] < losses["cuda"][0]

@@ -282,7 +282,8 @@ def test_update_objects_matches_jax(small):
     frames, boxes = nv12_clip(5, seed=1)
     bbs = np.concatenate([boxes[0], boxes[0][:1] + [2, 1, 0, 0]])   # N = 3
     active = np.asarray([True, True, False])
-    tst = tmulti.init_objects(tparams, frames[0], bbs, cfg_t, device=CPU)
+    tst = tmulti.init_objects(tparams, frames[0], bbs, cfg_t, device=CPU,
+                              frame_format="nv12")
     jst = jmulti.init_objects(jparams, tuple(map(jnp.asarray, frames[0])),
                               jnp.asarray(bbs), cfg_j, "nv12")
     _assert_states(tst, jst)
@@ -293,7 +294,7 @@ def test_update_objects_matches_jax(small):
         jst, jb, jsc = jupd(jparams, jst, tuple(map(jnp.asarray, f)),
                             jnp.asarray(active))
         tst, tb, tsc = tmulti.update_objects(tparams, tst, f, active, cfg_t,
-                                             device=CPU)
+                                             device=CPU, frame_format="nv12")
         assert tb.shape == (3, 4) and tsc.shape == (3,)
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-2, rtol=0)
         np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), atol=1e-4, rtol=0)
@@ -315,7 +316,8 @@ def test_update_streams_matches_jax_and_holds_inactive_slot(small):
     streams, boxes = _streams(5)
     active = np.asarray([[True, True], [False, True]])
     f0 = _stack_frames(streams, 0)
-    tst = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU)
+    tst = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU,
+                              frame_format="nv12")
     jst = jmulti.init_streams(jparams, tuple(map(jnp.asarray, f0)),
                               jnp.asarray(boxes[0]), cfg_j, "nv12")
     assert tst.z_tok.shape == (2, 2, cfg_t.num_template_tokens, cfg_t.embed_dim)
@@ -328,7 +330,7 @@ def test_update_streams_matches_jax_and_holds_inactive_slot(small):
         jst, jb, jsc = jupd(jparams, jst, tuple(map(jnp.asarray, f)),
                             jnp.asarray(active))
         tst, tb, tsc = tmulti.update_streams(tparams, tst, f, active, cfg_t,
-                                             device=CPU)
+                                             device=CPU, frame_format="nv12")
         assert tb.shape == (2, 2, 4) and tsc.shape == (2, 2)
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-2, rtol=0)
         np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), atol=1e-4, rtol=0)
@@ -351,7 +353,8 @@ def test_update_streams_exclusive_matches_jax(small):
     bbs[0, 1] = bbs[0, 0] + [2, 0, 0, 0]
     active = np.ones((2, 2), bool)
     f0 = _stack_frames(streams, 0)
-    tst = tmulti.init_streams(tparams, f0, bbs, cfg_t, device=CPU)
+    tst = tmulti.init_streams(tparams, f0, bbs, cfg_t, device=CPU,
+                              frame_format="nv12")
     jst = _jstate(tst)
     jupd = jax.jit(functools.partial(jmulti.update_streams, cfg=cfg_j,
                                      frame_format="nv12", exclusive=True))
@@ -362,7 +365,8 @@ def test_update_streams_exclusive_matches_jax(small):
         jst, jb, jsc = jupd(jparams, jst, tuple(map(jnp.asarray, f)),
                             jnp.asarray(active))
         tst, tb, tsc = tmulti.update_streams(tparams, tst, f, active, cfg_t,
-                                             exclusive=True, device=CPU)
+                                             exclusive=True, device=CPU,
+                                             frame_format="nv12")
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-2, rtol=0)
         np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), atol=1e-4, rtol=0)
         _assert_states(tst, jst)
@@ -385,7 +389,8 @@ def test_update_streams_template_update_matches_jax(small):
     streams, boxes = _streams(5)
     active = np.asarray([[True, True], [True, False]])
     f0 = _stack_frames(streams, 0)
-    tst = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU)
+    tst = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU,
+                              frame_format="nv12")
     jst = _jstate(tst)
     jupd = jax.jit(functools.partial(jmulti.update_streams, cfg=cfg_j,
                                      frame_format="nv12"))
@@ -395,7 +400,7 @@ def test_update_streams_template_update_matches_jax(small):
         jst, jb, jsc = jupd(jparams, jst, tuple(map(jnp.asarray, f)),
                             jnp.asarray(active))
         tst, tb, tsc = tmulti.update_streams(tparams, tst, f, active, cfg_t,
-                                             device=CPU)
+                                             device=CPU, frame_format="nv12")
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-2, rtol=0)
         # A re-embedded template at boxes that agree to ~1e-3 px: looser
         # tokens, as in tests/test_torch_tracker.py.
@@ -412,9 +417,10 @@ def test_batched_step_matches_the_ports_unbatched_step(small):
     _, _, cfg_t, tparams = small
     streams, boxes = _streams(4)
     f0 = _stack_frames(streams, 0)
-    tst = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU)
+    tst = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU,
+                              frame_format="nv12")
     singles = {(s, m): tcore.init(tparams, streams[s][0], boxes[0, s, m],
-                                  cfg_t, device=CPU)
+                                  cfg_t, device=CPU, frame_format="nv12")
                for s in range(2) for m in range(2)}
     for (s, m), st in singles.items():
         np.testing.assert_allclose(tst.z_tok[s, m].numpy(), st.z_tok.numpy(),
@@ -422,10 +428,12 @@ def test_batched_step_matches_the_ports_unbatched_step(small):
     active = np.ones((2, 2), bool)
     for t in range(1, 4):
         tst, tb, tsc = tmulti.update_streams(
-            tparams, tst, _stack_frames(streams, t), active, cfg_t, device=CPU)
+            tparams, tst, _stack_frames(streams, t), active, cfg_t, device=CPU,
+                                             frame_format="nv12")
         for (s, m), st in singles.items():
             st, b, c = tcore.update(tparams, st, streams[s][t], cfg_t,
-                                    device=CPU, fused=False)
+                                    device=CPU, fused=False,
+                                    frame_format="nv12")
             singles[(s, m)] = st
             np.testing.assert_allclose(tb[s, m].numpy(), b.numpy(), atol=1e-3,
                                        rtol=0)
@@ -438,12 +446,14 @@ def test_init_keeps_copies_not_the_callers_buffers(small):
     streams, boxes = _streams(2)
     bbs = torch.from_numpy(boxes[0].copy())
     f0 = tuple(torch.from_numpy(p) for p in _stack_frames(streams, 0))
-    st = tmulti.init_streams(tparams, f0, bbs, cfg_t, device=CPU)
+    st = tmulti.init_streams(tparams, f0, bbs, cfg_t, device=CPU,
+                             frame_format="nv12")
     assert st.bbox.data_ptr() != bbs.data_ptr()
     assert st.z_tok.data_ptr() != st.z_tok_init.data_ptr()
     st.bbox.add_(100.0)
     np.testing.assert_array_equal(bbs.numpy(), boxes[0])
-    again = tmulti.init_streams(tparams, f0, bbs, cfg_t, device=CPU)
+    again = tmulti.init_streams(tparams, f0, bbs, cfg_t, device=CPU,
+                                frame_format="nv12")
     np.testing.assert_array_equal(again.bbox.numpy(), boxes[0])
 
 
@@ -451,36 +461,47 @@ def test_batched_options_that_are_not_ported_raise(small):
     _, _, cfg_t, tparams = small
     streams, boxes = _streams(2)
     st = tmulti.init_streams(tparams, _stack_frames(streams, 0), boxes[0],
-                             cfg_t, device=CPU)
+                             cfg_t, device=CPU, frame_format="nv12")
     f1 = _stack_frames(streams, 1)
-    with pytest.raises(NotImplementedError, match="fused_prep"):
+    # The one-kernel preprocess + embed is for the unbatched step only.
+    with pytest.raises(ValueError, match="one window"):
         tcore.update(tparams, st, f1, tmulti._batched_cfg(cfg_t), device=CPU,
-                     fused_prep=True)
-    with pytest.raises(NotImplementedError, match="fused_prep"):
-        tcore.update(tparams, st, f1, tmulti._batched_cfg(cfg_t), device=CPU,
-                     fused_embed=True)
+                     fused_prep=True, frame_format="nv12")
+    # The patch-major embed takes the batch: the plain route's result.
+    _, pb, pc = tcore.update(tparams, st, f1, tmulti._batched_cfg(cfg_t),
+                             device=CPU, fused=False, frame_format="nv12")
+    _, fb, fc = tcore.update(tparams, st, f1, tmulti._batched_cfg(cfg_t),
+                             device=CPU, fused=False, fused_embed=True,
+                             frame_format="nv12")
+    np.testing.assert_allclose(fb.numpy(), pb.numpy(), atol=1e-2, rtol=0)
+    np.testing.assert_allclose(fc.numpy(), pc.numpy(), atol=1e-4, rtol=0)
     # A band smaller than the frame is for the unbatched step only.
     banded = dataclasses.replace(cfg_t, preprocess_band=128)
     with pytest.raises(ValueError, match="band"):
-        tcore.update(tparams, st, f1, banded, device=CPU, fused=False)
+        tcore.update(tparams, st, f1, banded, device=CPU, fused=False,
+                     frame_format="nv12")
     # Frames must lead the state's batch.
     with pytest.raises(ValueError, match="frame batch"):
         tcore.update(tparams, st, (f1[0][:1], f1[1][:1]),
-                     tmulti._batched_cfg(cfg_t), device=CPU, fused=False)
-    with pytest.raises(NotImplementedError):
-        tmulti.update_streams(tparams, st, f1[0], np.ones((2, 2), bool), cfg_t,
-                              frame_format="rgb", device=CPU)
+                     tmulti._batched_cfg(cfg_t), device=CPU, fused=False,
+                     frame_format="nv12")
+    with pytest.raises(ValueError, match="unknown frame format"):
+        tmulti.update_streams(tparams, st, f1, np.ones((2, 2), bool), cfg_t,
+                              frame_format="bgr", device=CPU)
 
 
 def test_batched_entry_points_need_cuda_without_a_device(small, monkeypatch):
     _, _, cfg_t, tparams = small
     streams, boxes = _streams(2)
     f0 = _stack_frames(streams, 0)
-    st = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU)
+    st = tmulti.init_streams(tparams, f0, boxes[0], cfg_t, device=CPU,
+                             frame_format="nv12")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tmulti.init_streams(tparams, f0, boxes[0], cfg_t)
+        tmulti.init_streams(tparams, f0, boxes[0], cfg_t, frame_format="nv12")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tmulti.update_streams(tparams, st, f0, np.ones((2, 2), bool), cfg_t)
+        tmulti.update_streams(tparams, st, f0, np.ones((2, 2), bool), cfg_t,
+                              frame_format="nv12")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tmulti.update_objects(tparams, st, f0, np.ones(2, bool), cfg_t)
+        tmulti.update_objects(tparams, st, f0, np.ones(2, bool), cfg_t,
+                              frame_format="nv12")

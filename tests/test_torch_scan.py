@@ -66,15 +66,17 @@ def _jstate(tstate):
 def test_update_scan_equals_a_loop_of_update(small):
     _, _, cfg, params = small
     ys, uvs = nv12_pool(7)
-    st0 = tcore.init(params, (ys[0], uvs[0]), BOX, cfg, device=CPU)
+    st0 = tcore.init(params, (ys[0], uvs[0]), BOX, cfg, device=CPU,
+                     frame_format="nv12")
     st, boxes, scores = [], [], []
     s = st0
     for i in range(1, 7):
-        s, b, c = tcore.update(params, s, (ys[i], uvs[i]), cfg, device=CPU)
+        s, b, c = tcore.update(params, s, (ys[i], uvs[i]), cfg, device=CPU,
+                               frame_format="nv12")
         boxes.append(b.numpy())
         scores.append(float(c))
     s2, b2, c2 = tscan.update_scan(params, st0, (ys[1:], uvs[1:]), cfg,
-                                   device=CPU)
+                                   device=CPU, frame_format="nv12")
     assert b2.shape == (6, 4) and c2.shape == (6,)
     np.testing.assert_array_equal(b2.numpy(), np.stack(boxes))
     np.testing.assert_array_equal(c2.numpy(), np.asarray(scores, np.float32))
@@ -87,12 +89,13 @@ def test_update_scan_equals_a_loop_of_update(small):
 def test_update_scan_matches_jax(small):
     cfg_j, jparams, cfg_t, tparams = small
     ys, uvs = nv12_pool(6)
-    st0 = tcore.init(tparams, (ys[0], uvs[0]), BOX, cfg_t, device=CPU)
+    st0 = tcore.init(tparams, (ys[0], uvs[0]), BOX, cfg_t, device=CPU,
+                     frame_format="nv12")
     jst, jb, jc = jscan.update_scan(
         jparams, _jstate(st0), (jnp.asarray(ys[1:]), jnp.asarray(uvs[1:])),
         cfg_j, "nv12")
     tst, tb, tc = tscan.update_scan(tparams, st0, (ys[1:], uvs[1:]), cfg_t,
-                                    device=CPU)
+                                    device=CPU, frame_format="nv12")
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-2, rtol=0)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-4, rtol=0)
     np.testing.assert_allclose(tst.bbox.numpy(), np.asarray(jst.bbox),
@@ -103,23 +106,30 @@ def test_update_scan_matches_jax(small):
 def test_update_scan_pool_cycles_the_pool(small):
     cfg_j, jparams, cfg_t, tparams = small
     ys, uvs = nv12_pool(3)
-    st0 = tcore.init(tparams, (ys[0], uvs[0]), BOX, cfg_t, device=CPU)
+    st0 = tcore.init(tparams, (ys[0], uvs[0]), BOX, cfg_t, device=CPU,
+                     frame_format="nv12")
     tst, tc = tscan.update_scan_pool(tparams, st0, (ys, uvs), 7, cfg_t,
                                      device=CPU)
     assert tc.shape == (7,) and int(tst.frame_idx) == 7
     s, want = st0, []
     for i in range(7):
         s, _, c = tcore.update(tparams, s, (ys[i % 3], uvs[i % 3]), cfg_t,
-                               device=CPU)
+                               device=CPU, frame_format="nv12")
         want.append(float(c))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(want, np.float32))
     jst, jc = jscan.update_scan_pool(
         jparams, _jstate(st0), (jnp.asarray(ys), jnp.asarray(uvs)), 7, cfg_j,
         "nv12")
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError, match="fused_prep"):
-        tscan.update_scan_pool(tparams, st0, (ys, uvs), 2, cfg_t,
-                               fused_prep=True, device=CPU)
+    # fused_prep routes every step through nv12_search_tokens (on the CPU
+    # its plain version): the same scores as the unfused chain, float32.
+    _, fc = tscan.update_scan_pool(tparams, st0, (ys, uvs), 7, cfg_t,
+                                   fused_prep=True, device=CPU)
+    np.testing.assert_allclose(fc.numpy(), tc.numpy(), atol=1e-4, rtol=0)
+    jst, jfc = jscan.update_scan_pool(
+        jparams, _jstate(st0), (jnp.asarray(ys), jnp.asarray(uvs)), 7, cfg_j,
+        "nv12", fused_prep=True)
+    np.testing.assert_allclose(fc.numpy(), np.asarray(jfc), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("pool,streams", [(3, 2), (2, 5)])
@@ -133,13 +143,14 @@ def test_streams_scan_pool_matches_loop_and_jax(small, pool, streams):
     active = np.ones((streams, 1), bool)
     active[-1, 0] = False
     st0 = tmulti.init_streams(tparams, (ys[idx0], uvs[idx0]), bbs, cfg_t,
-                              device=CPU)
+                              device=CPU, frame_format="nv12")
     reps = 4
     s, want = st0, []
     for i in range(reps):
         idx = np.asarray([(i + k) % pool for k in range(streams)])
         s, _, sc = tmulti.update_streams(tparams, s, (ys[idx], uvs[idx]),
-                                         active, cfg_t, device=CPU)
+                                         active, cfg_t, device=CPU,
+                                         frame_format="nv12")
         want.append(sc.numpy())
     tst, tsc = tscan.update_streams_scan_pool(tparams, st0, (ys, uvs), active,
                                               reps, cfg_t, device=CPU)
@@ -164,7 +175,8 @@ def test_objects_scan_pool_matches_jax(small):
     bb0 = np.asarray(BOX, np.float32)
     bbs = np.stack([bb0, bb0 + [4, 2, 0, 0]])
     active = np.ones(2, bool)
-    st0 = tmulti.init_objects(tparams, (ys[0], uvs[0]), bbs, cfg_t, device=CPU)
+    st0 = tmulti.init_objects(tparams, (ys[0], uvs[0]), bbs, cfg_t, device=CPU,
+                              frame_format="nv12")
     tst, tsc = tscan.update_objects_scan_pool(tparams, st0, (ys, uvs), active,
                                               5, cfg_t, device=CPU)
     assert tsc.shape == (5, 2) and np.isfinite(tsc.numpy()).all()
@@ -184,12 +196,14 @@ def test_reinit_after_a_scan_keeps_caller_buffers(small):
     keep = bbs.clone()
     pool = (torch.from_numpy(ys), torch.from_numpy(uvs))
     active = np.ones((2, 1), bool)
-    st = tmulti.init_streams(tparams, pool, bbs, cfg_t, device=CPU)
+    st = tmulti.init_streams(tparams, pool, bbs, cfg_t, device=CPU,
+                             frame_format="nv12")
     st, _ = tscan.update_streams_scan_pool(tparams, st, pool, active, 2, cfg_t,
                                            device=CPU)
     assert torch.equal(bbs, keep)
     np.testing.assert_array_equal(pool[0].numpy(), ys)
-    st2 = tmulti.init_streams(tparams, pool, bbs, cfg_t, device=CPU)
+    st2 = tmulti.init_streams(tparams, pool, bbs, cfg_t, device=CPU,
+                              frame_format="nv12")
     np.testing.assert_array_equal(st2.bbox.numpy(), keep.numpy())
 
 

@@ -163,7 +163,8 @@ def test_engine_init_slot_copies_and_matches_core_init(params):
     s = Stream(3)
     frame, bbox = s.frame(0), np.asarray(s.bbox_at(0), np.float32)
     eng.init_slot(1, frame, bbox)
-    want = tcore.init(params, frame, bbox, _batched_cfg(CFG), device=CPU)
+    want = tcore.init(params, frame, bbox, _batched_cfg(CFG), device=CPU,
+                      frame_format="nv12")
     for leaf, w in zip(eng.state, want):
         np.testing.assert_array_equal(leaf[1, 0].numpy(), w.numpy())
         assert not leaf[0].any()                     # row 0 untouched
@@ -258,9 +259,12 @@ def test_engine_casts_the_blocks_once_and_keeps_f32_masters(params):
 def test_engine_frame_formats(params):
     with pytest.raises(ValueError, match="unknown frame format"):
         SlotEngine(params, CFG, 2, frame_format="bgr", device=CPU)
-    for fmt in ("rgb", "yuy2"):
-        with pytest.raises(NotImplementedError, match="only nv12"):
-            SlotEngine(params, CFG, 2, frame_format=fmt, device=CPU)
+    # Every format of the protocol has an engine (the trajectories are
+    # held against JAX in tests/test_torch_formats.py).
+    for fmt in ("rgb", "yuy2", "nv12"):
+        eng = SlotEngine(params, CFG, 2, frame_format=fmt, device=CPU)
+        assert eng.frame_format == fmt and eng.state.bbox.shape == (2, 1, 4)
+    assert SlotEngine(params, CFG, 2, device=CPU).frame_format == "nv12"
 
 
 def test_engine_needs_cuda_without_a_device(params, monkeypatch):
@@ -284,13 +288,15 @@ def test_hello_reports_geometry(server):
 def test_served_stream_matches_direct_tracker(server, params):
     s = Stream(3)
     cfg = _batched_cfg(CFG)
-    st = tcore.init(params, s.frame(0), s.bbox_at(0), cfg, device=CPU)
+    st = tcore.init(params, s.frame(0), s.bbox_at(0), cfg, device=CPU,
+                    frame_format="nv12")
     with _client(server) as c:
         c.init(s.frame(0), s.bbox_at(0))
         for t in range(1, 8):
             got_bbox, got_score = c.update(s.frame(t))
             st, want_bbox, want_score = tcore.update(
-                params, st, s.frame(t), cfg, device=CPU, fused=False)
+                params, st, s.frame(t), cfg, device=CPU, fused=False,
+                                                     frame_format="nv12")
             # One slot of a batch of 3 against a batch of 1: float32 sums
             # in other GEMM shapes.
             np.testing.assert_allclose(got_bbox, want_bbox.numpy(), atol=1e-3)

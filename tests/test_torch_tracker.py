@@ -96,11 +96,13 @@ def _trajectories(preset, dtype, clip, steps, z_atol=1e-4, **overrides):
                                      frame_format="nv12"))
     jst = jcore.init(jparams, tuple(map(jnp.asarray, frames[0])),
                      jnp.asarray(bbox), cfg_j, frame_format="nv12")
-    tst = tcore.init(tparams, frames[0], bbox, cfg_t, device=CPU)
+    tst = tcore.init(tparams, frames[0], bbox, cfg_t, device=CPU,
+                     frame_format="nv12")
     rows = []
     for f in frames[1:steps + 1]:
         jst, jb, jc = jupd(jparams, jst, tuple(map(jnp.asarray, f)))
-        tst, tb, tc = tcore.update(tparams, tst, f, cfg_t, device=CPU)
+        tst, tb, tc = tcore.update(tparams, tst, f, cfg_t, device=CPU,
+                                   frame_format="nv12")
         rows.append((np.asarray(jb), float(jc), int(jst.lost_frames),
                      tb.numpy(), float(tc), int(tst.lost_frames)))
     np.testing.assert_allclose(tst.z_tok.float().numpy(),
@@ -156,7 +158,8 @@ def test_flagship_bf16_step_matches_jax(clip):
     frames, bbox = clip
     jst = jcore.init(jparams, tuple(map(jnp.asarray, frames[0])),
                      jnp.asarray(bbox), cfg_j, frame_format="nv12")
-    tst = tcore.init(tparams, frames[0], bbox, cfg_t, device=CPU)
+    tst = tcore.init(tparams, frames[0], bbox, cfg_t, device=CPU,
+                     frame_format="nv12")
     np.testing.assert_allclose(tst.z_tok.float().numpy(),
                                np.asarray(jst.z_tok, np.float32),
                                atol=0.05, rtol=0)
@@ -194,14 +197,15 @@ def test_no_device_without_cuda_raises(clip, monkeypatch):
     params = tvittrack.with_grouped_head(tweights.load_npz(
         tweights.checkpoint_path("small"), cfg, device=CPU))
     frames, bbox = clip
-    state = tcore.init(params, frames[0], bbox, cfg, device="cpu")
+    state = tcore.init(params, frames[0], bbox, cfg, device="cpu",
+                       frame_format="nv12")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tcore.init(params, frames[0], bbox, cfg)
+        tcore.init(params, frames[0], bbox, cfg, frame_format="nv12")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tcore.update(params, state, frames[1], cfg)
+        tcore.update(params, state, frames[1], cfg, frame_format="nv12")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tcore.update_packed(params, state, frames[1], cfg)
+        tcore.update_packed(params, state, frames[1], cfg, frame_format="nv12")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tentry.entry()
 
@@ -211,9 +215,12 @@ def test_update_packed_is_bbox_and_score(clip):
     params = tvittrack.with_grouped_head(tweights.load_npz(
         tweights.checkpoint_path("small"), cfg, device=CPU))
     frames, bbox = clip
-    state = tcore.init(params, frames[0], bbox, cfg, device=CPU)
-    s1, b1, c1 = tcore.update(params, state, frames[1], cfg, device=CPU)
-    s2, packed = tcore.update_packed(params, state, frames[1], cfg, device=CPU)
+    state = tcore.init(params, frames[0], bbox, cfg, device=CPU,
+                       frame_format="nv12")
+    s1, b1, c1 = tcore.update(params, state, frames[1], cfg, device=CPU,
+                              frame_format="nv12")
+    s2, packed = tcore.update_packed(params, state, frames[1], cfg, device=CPU,
+                                     frame_format="nv12")
     assert packed.shape == (5,) and packed.dtype == torch.float32
     np.testing.assert_array_equal(packed.numpy(),
                                   np.concatenate([b1.numpy(), [float(c1)]]))
@@ -224,10 +231,19 @@ def test_other_frame_formats_wait_for_a_later_slice(clip):
     cfg = PRESETS["small"]
     params = tvittrack.with_grouped_head(tweights.load_npz(
         tweights.checkpoint_path("small"), cfg, device=CPU))
+    # They no longer wait: RGB (the default, as in JAX) and YUY2 start a
+    # track (held against JAX in tests/test_torch_formats.py); an unknown
+    # format raises.
     rgb = np.zeros((64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError):
+    st = tcore.init(params, rgb, [8.0, 8.0, 16.0, 16.0], cfg, device=CPU)
+    assert st.z_tok.shape == (cfg.num_template_tokens, cfg.embed_dim)
+    st = tcore.init(params, np.zeros((64, 128), np.uint8),
+                    [8.0, 8.0, 16.0, 16.0], cfg, frame_format="yuy2",
+                    device=CPU)
+    assert torch.isfinite(st.z_tok).all()
+    with pytest.raises(ValueError, match="unknown frame format"):
         tcore.init(params, rgb, [8.0, 8.0, 16.0, 16.0], cfg,
-                   frame_format="rgb", device=CPU)
+                   frame_format="bgr", device=CPU)
 
 
 def test_entry_runs_one_flagship_update_on_cpu():

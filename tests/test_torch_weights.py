@@ -44,16 +44,6 @@ def _jax_flat(preset):
         tweights.checkpoint_path(preset), like))
 
 
-def _torch_flat(tree, prefix=""):
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _torch_flat(v, f"{prefix}{k}/").items()}
-    if isinstance(tree, list):
-        return {k2: v2 for i, v in enumerate(tree)
-                for k2, v2 in _torch_flat(v, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: tree}
-
-
 def test_model_config_is_a_faithful_copy():
     jf = {f.name: f.default for f in dataclasses.fields(JaxModelConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tconfig.ModelConfig)}
@@ -74,7 +64,7 @@ def test_presets_match_app_presets(preset):
 @pytest.mark.parametrize("preset", PRESETS)
 def test_checkpoint_loads_like_jax(preset):
     jflat = _jax_flat(preset)
-    tflat = _torch_flat(tweights.load_npz(tweights.checkpoint_path(preset),
+    tflat = tweights.flatten(tweights.load_npz(tweights.checkpoint_path(preset),
                                           tconfig.PRESETS[preset],
                                           device="cpu"))
     assert sorted(tflat) == sorted(jflat)
@@ -214,10 +204,41 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     pkg = os.path.join(root, "gstreamer_vit_tracker_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")] + [os.path.join(root, "chip_smoke.py")]
-    assert len(files) > 25
+    assert len(files) > 30
+    names = {os.path.relpath(p, root) for p in files}
+    for must in ("gstreamer_vit_tracker_tpu_torch/train/step.py",
+                 "gstreamer_vit_tracker_tpu_torch/train/losses.py",
+                 "gstreamer_vit_tracker_tpu_torch/ops/fused_prep_embed.py",
+                 "gstreamer_vit_tracker_tpu_torch/ops/vit_block.py",
+                 "chip_smoke.py"):
+        assert must in names, must
     bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
                      r"gstreamer_vit_tracker_tpu)(\.|\s|$)", re.M)
+    # ... nor by name at run time.
+    dynamic = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|flax|optax|"
+                         r"gstreamer_vit_tracker_tpu)[\"'.]")
     for path in files:
         with open(path) as f:
-            hit = bad.search(f.read())
+            text = f.read()
+        hit = bad.search(text) or dynamic.search(text)
         assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+@pytest.mark.parametrize("preset", sorted(tweights.CHECKPOINTS))
+def test_params_go_back_to_the_checkpoint_layout(preset):
+    """``flatten`` and ``tree_to_numpy`` are the other direction of
+    ``params_from_flat``: the flat keys and arrays of the npz, exactly."""
+    cfg = tconfig.PRESETS[preset]
+    flat = _flat_npz(preset)
+    params = tweights.params_from_flat(flat, cfg, device="cpu")
+    back = tweights.flatten(tweights.tree_to_numpy(params))
+    assert set(back) == set(flat)
+    for key, arr in flat.items():
+        assert back[key].dtype == np.float32
+        np.testing.assert_array_equal(back[key], arr.astype(np.float32))
+    # The same keys as the JAX package's own flattening of its tree.
+    assert set(back) == set(_jax_flat(preset))
+    # Tensors flatten too (what the training tests compare), lists by index.
+    tflat = tweights.flatten(params)
+    assert tflat["backbone/blocks/0/qkv/kernel"] is \
+        params["backbone"]["blocks"][0]["qkv"]["kernel"]
