@@ -16,10 +16,15 @@ Phases, in order; any failure raises and exits non-zero:
      blocks, shipped weights in bf16, real template + search tokens) and at
      the f32 ``small`` shape, held to ``ops/vit_block.py::encoder_reference``;
    * the two attention kernels through ``ops/attention.py::flash_attention``
-     (its choice is printed): ``attention_single`` at the serving shape
-     (48, 320, 64) bf16 and at the ``small`` preset's f32 shape,
-     ``attention_flash`` at (3, 1088, 64) bf16 and f32 and at lengths that
-     are no multiple of its key block, held to ``attention_reference``;
+     (its choice of kernel and variant is printed and asserted):
+     ``attention_single`` at the serving shape (48, 320, 64) bf16 (``mma``)
+     and at the ``small`` preset's f32 shape (``simt``), ``attention_flash``
+     at (3, 1088, 64) bf16 (``mma``) and f32 and at lengths that are no
+     multiple of its key block, held to ``attention_reference``; at the two
+     bf16 shapes also one launch on ready operands, the kernel's device
+     time from a CUDA-graph replay, and the ``simt`` variant the same way;
+     ``multihead_attention`` on the chunks of a (16, 320, 576) qkv buffer
+     beside the copy-then-launch path it replaced;
    * the NV12-to-tokens kernel (``ops/fused_prep_embed.py``) in bf16 and
      float32, for a window inside the frame, one hanging off its edge and a
      banded 1080p frame, against both modes of its plain version (float32
@@ -141,6 +146,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def print_ptxas(source: str, log_path: str) -> None:
+    """One line a kernel from ``nvcc -Xptxas -v``'s log: its (mangled) name,
+    registers, and stack frame and spills."""
+    kernel, spills = "?", ""
+    with open(log_path) as f:
+        for line in f:
+            line = line.strip()
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "spill" in line:
+                spills = line
+            elif "registers" in line:
+                print(f"ptxas {source}: {kernel}: "
+                      f"{line.split(':', 1)[1].strip()}; {spills}")
+
+
 def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 10) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     for _ in range(warmup):
@@ -232,7 +253,26 @@ def _iou(a, b) -> float:
 # Phase 3b: the attention kernels
 # ---------------------------------------------------------------------------
 
-def attention_case(bh, s, dh, dtype, dev, want_route, timed):
+GRAPH_LAUNCHES = 20
+
+
+def graph_us(launch, n: int = GRAPH_LAUNCHES) -> float:
+    """Device time of one ``launch()`` in microseconds: ``n`` of them
+    captured into a CUDA graph and replayed, so that no host time to enqueue
+    them is read as the kernel's (the gaps between graph nodes stay in)."""
+    launch()
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(n):
+                launch()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, iters=20, warmup=3) / n * 1e3
+
+
+def attention_case(bh, s, dh, dtype, dev, want_route, want_variant, timed):
     """One shape through ``flash_attention`` against ``attention_reference``
     on the same seeded tensors.  Returns a dict of what was measured."""
     from gstreamer_vit_tracker_tpu_torch.ops import attention
@@ -240,7 +280,7 @@ def attention_case(bh, s, dh, dtype, dev, want_route, timed):
     gen = torch.Generator(device="cpu").manual_seed(1000 * s + dh)
     q, k, v = (torch.randn((bh, s, dh), generator=gen).to(dev, dtype)
                for _ in range(3))
-    route = attention.kernel_route(q)
+    route, variant = attention.kernel_route(q), attention.kernel_variant(q)
     out = attention.flash_attention(q, k, v)
     plain = attention.attention_reference(q, k, v)
     torch.cuda.synchronize()
@@ -248,25 +288,54 @@ def attention_case(bh, s, dh, dtype, dev, want_route, timed):
     scale = plain.float().abs().max().item()
     tol = ATT_F32_ATOL if dtype == torch.float32 else ATT_BF16_REL * scale
     name = f"({bh}, {s}, {dh}) {str(dtype).split('.')[-1]}"
-    print(f"attention {name}: flash_attention chose {route}; max|d| {err:.3e} "
-          f"(max|plain| {scale:.3f}, tolerance {tol:.3e})", flush=True)
-    if route != want_route:
-        raise AssertionError(f"attention {name}: expected attention_"
-                             f"{want_route}, flash_attention chose {route}")
+    print(f"attention {name}: flash_attention chose {route} / {variant}; "
+          f"max|d| {err:.3e} (max|plain| {scale:.3f}, tolerance {tol:.3e})",
+          flush=True)
+    if (route, variant) != (want_route, want_variant):
+        raise AssertionError(
+            f"attention {name}: expected attention_{want_route} / "
+            f"{want_variant}, flash_attention chose {route} / {variant}")
     if out.dtype != dtype or not torch.isfinite(out.float()).all():
         raise AssertionError(f"attention {name}: wrong type or non-finite")
     if not err <= tol:
         raise AssertionError(f"attention_{route} {name} disagrees with "
                              f"attention_reference: {err} > {tol}")
-    res = {"route": route, "max_abs_err": err}
+    res = {"route": route, "variant": variant, "max_abs_err": err}
     if timed:
+        # The old design at this shape in this process: the SIMT variant of
+        # the kernel that the SIMT rule takes here.
+        eb = q.element_size()
+        optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+        simt = attention.Plan(
+            "single" if attention.smem_bytes("single", "simt", s, dh, eb)
+            <= optin else "flash", "simt")
+        out_m, launch = attention.prepared(q, k, v)
+        out_s, launch_simt = attention.prepared(q, k, v, chosen=simt)
+        launch()
+        launch_simt()
+        torch.cuda.synchronize()
+        if not torch.equal(out_m, out):
+            raise AssertionError(f"attention {name}: prepared() and "
+                                 f"flash_attention differ")
+        err_simt = (out_s.float() - plain.float()).abs().max().item()
+        if not err_simt <= tol:
+            raise AssertionError(f"attention_{simt.route} simt {name} "
+                                 f"disagrees: {err_simt} > {tol}")
         q4, k4, v4 = q[None], k[None], v[None]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4)
+
         res["ms"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
+        res["launch_ms"] = cuda_ms(launch)
+        res["simt_ms"] = cuda_ms(launch_simt)
         res["plain_ms"] = cuda_ms(
             lambda: attention.attention_reference(q, k, v))
-        res["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        res["library_ms"] = cuda_ms(library)
         res["ms_again"] = cuda_ms(lambda: attention.flash_attention(q, k, v))
+        res["device_us"] = graph_us(launch)
+        res["simt_device_us"] = graph_us(launch_simt)
+        res["library_device_us"] = graph_us(library)
         flops = 4 * s * s * dh * bh
         nbytes = 4 * q.numel() * q.element_size()
         peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
@@ -274,26 +343,93 @@ def attention_case(bh, s, dh, dtype, dev, want_route, timed):
         res["bound_ms"] = max(t_ops, t_bytes)
         res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         print(f"attention_{route} {name} ms (CUDA events, mean of "
-              f"{TIMING_ITERS}): kernel {res['ms']:.4f} / "
-              f"{res['ms_again']:.4f} (before / after the others), plain "
-              f"{res['plain_ms']:.4f}, scaled_dot_product_attention "
-              f"{res['library_ms']:.4f}; bound {res['bound_ms'] * 1e3:.2f} us "
-              f"by {res['bound_by']} ({flops / 1e9:.3f} GFLOP -> "
-              f"{t_ops * 1e3:.2f} us, {nbytes / 1e6:.2f} MB -> "
-              f"{t_bytes * 1e3:.2f} us)", flush=True)
+              f"{TIMING_ITERS}): through flash_attention {res['ms']:.4f} / "
+              f"{res['ms_again']:.4f} (before / after the others), one launch "
+              f"on ready operands {res['launch_ms']:.4f}, the simt variant "
+              f"(attention_{simt.route}) the same way {res['simt_ms']:.4f}, "
+              f"plain {res['plain_ms']:.4f}, scaled_dot_product_attention "
+              f"{res['library_ms']:.4f}; device us a launch (CUDA graph of "
+              f"{GRAPH_LAUNCHES}): {variant} {res['device_us']:.2f}, simt "
+              f"{res['simt_device_us']:.2f}, scaled_dot_product_attention "
+              f"{res['library_device_us']:.2f}; bound "
+              f"{res['bound_ms'] * 1e3:.2f} us by {res['bound_by']} "
+              f"({flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.2f} us, "
+              f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us)", flush=True)
     return res
 
 
-def attention_phase(dev, small):
+def multihead_case(dev, cfg):
+    """``multihead_attention`` on the three column blocks of one (16, 320,
+    576) bf16 qkv buffer, as a block of the serving tick calls it: one
+    launch that reads them in place, beside the path it replaced (a
+    contiguous per-head copy of q, k and v, the launch, a copy back)."""
+    from gstreamer_vit_tracker_tpu_torch.ops import attention
+
+    b, s, d, heads = SERVE_SLOTS, cfg.num_tokens, cfg.embed_dim, cfg.num_heads
+    dh = d // heads
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    qkv = torch.randn((b, s, 3 * d), generator=gen).to(dev, torch.bfloat16)
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+
+    def copied():
+        qh, kh, vh = (x.reshape(b, s, heads, dh).transpose(1, 2)
+                      .reshape(b * heads, s, dh) for x in (q, k, v))
+        out = attention.flash_attention(qh, kh, vh)
+        return out.reshape(b, heads, s, dh).transpose(1, 2).reshape(b, s, d)
+
+    before = attention.SINGLE_LAUNCHES
+    got = attention.multihead_attention(q, k, v, heads)
+    if attention.SINGLE_LAUNCHES != before + 1:
+        raise AssertionError("multihead_attention did not launch exactly once")
+    plain = attention.multihead_attention(q, k, v, heads, use_kernel=False)
+    torch.cuda.synchronize()
+    same = torch.equal(got, copied())
+    err = (got.float() - plain.float()).abs().max().item()
+    tol = ATT_BF16_REL * plain.float().abs().max().item()
+    ms = cuda_ms(lambda: attention.multihead_attention(q, k, v, heads))
+    copied_ms = cuda_ms(copied)
+    ms_again = cuda_ms(lambda: attention.multihead_attention(q, k, v, heads))
+    print(f"multihead_attention ({b}, {s}, {d}) bf16 on the chunks of a "
+          f"({b}, {s}, {3 * d}) qkv buffer: equals the copied per-head path "
+          f"bit for bit: {same}; vs plain max|d| {err:.3e} (tolerance "
+          f"{tol:.3e}); ms (CUDA events, mean of {TIMING_ITERS}) in place "
+          f"{ms:.4f} / {ms_again:.4f}, copy-then-launch {copied_ms:.4f}",
+          flush=True)
+    if not same or not err <= tol:
+        raise AssertionError("multihead_attention on strided views disagrees")
+    return {"ms": ms, "copied_ms": copied_ms}
+
+
+def attention_phase(dev, cfg, small):
+    from gstreamer_vit_tracker_tpu_torch.ops import attention
+
     bf16, f32 = torch.bfloat16, torch.float32
-    single = attention_case(48, 320, 64, bf16, dev, "single", timed=True)
+    single = attention_case(48, 320, 64, bf16, dev, "single", "mma", timed=True)
     attention_case(SERVE_SLOTS * small.num_heads, small.num_tokens,
                    small.embed_dim // small.num_heads, f32, dev, "single",
-                   timed=False)
-    flash = attention_case(3, 1088, 64, bf16, dev, "flash", timed=True)
-    attention_case(3, 1088, 64, f32, dev, "flash", timed=False)
-    attention_case(2, 777, 32, f32, dev, "flash", timed=False)   # 6 blocks + 9
-    attention_case(2, 1001, 128, bf16, dev, "flash", timed=False)
+                   "simt", timed=False)
+    flash = attention_case(3, 1088, 64, bf16, dev, "flash", "mma", timed=True)
+    attention_case(3, 1088, 64, f32, dev, "flash", "simt", timed=False)
+    attention_case(2, 777, 32, f32, dev, "flash", "simt", timed=False)
+    attention_case(2, 1001, 128, bf16, dev, "flash", "mma", timed=False)
+    attention_case(5, 33, 128, bf16, dev, "single", "mma", timed=False)
+    attention_case(40, 1088, 64, bf16, dev, "flash", "mma", timed=False)  # one warpgroup
+    attention_case(2, 1200, 32, bf16, dev, "flash", "mma", timed=False)
+    attention_case(4, 80, 48, bf16, dev, "single", "simt", timed=False)
+    single["multihead"] = multihead_case(dev, cfg)
+    # The shared-memory sizes the rule is decided on are the kernels' own.
+    lib = attention._library()
+    for route, variant, kb, st, wg, s, dh, eb in (
+            ("single", "mma", 64, 0, 1, 320, 64, 2),
+            ("flash", "mma", 128, 2, 2, 1088, 64, 2),
+            ("flash", "mma", 64, 3, 1, 1088, 32, 2),
+            ("single", "simt", 0, 0, 1, 320, 64, 2),
+            ("flash", "simt", 0, 0, 1, 1088, 64, 4)):
+        want = lib.attention_smem(route == "single", variant == "mma", kb, st,
+                                  wg, s, dh, eb)
+        if attention.smem_bytes(route, variant, s, dh, eb, kb, st, wg) != want:
+            raise AssertionError(f"smem_bytes{(route, variant, kb, st, wg, s, dh)}"
+                                 f" != the kernel's {want}")
     return single, flash
 
 
@@ -1185,10 +1321,7 @@ def main() -> int:
     print(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
     for name in cuda_build.SOURCES:
-        with open(cuda_build.library_path(name) + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {name}: {line.strip()}")
+        print_ptxas(name, cuda_build.library_path(name) + ".log")
 
     # -- 3. kernels against their plain versions ---------------------------
     cfg = PRESETS["vittrack-t"]
@@ -1257,7 +1390,7 @@ def main() -> int:
           f"{t_ops * 1e3:.2f} us, {nbytes / 1e6:.2f} MB -> "
           f"{t_bytes * 1e3:.2f} us)", flush=True)
 
-    att_single, att_flash = attention_phase(dev, small)
+    att_single, att_flash = attention_phase(dev, cfg, small)
     prep = prep_phase(dev, cfg, params)
     blk = block_phase(dev, cfg, params, small, sparams, state.z_tok)
 
@@ -1382,13 +1515,21 @@ def main() -> int:
         "shape": [48, 320, 64],
         "launches": serve["launches"],
         "launches_per_tick": serve["launches"] / serve["ticks"],
+        "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
+        "launch_ms": att_single["launch_ms"],
+        "device_us": att_single["device_us"],
+        "simt_ms": att_single["simt_ms"],
+        "simt_device_us": att_single["simt_device_us"],
+        "library_device_us": att_single["library_device_us"],
         "plain_ms": att_single["plain_ms"],
         "library_ms": att_single["library_ms"],
         "bound_ms": att_single["bound_ms"],
         "bound_by": att_single["bound_by"],
         "tick_ms_median": serve["tick_ms_median"],
+        "multihead_ms": att_single["multihead"]["ms"],
+        "multihead_copied_ms": att_single["multihead"]["copied_ms"],
     }, {
         "name": "attention_flash",
         "route": "cuda",
@@ -1398,8 +1539,14 @@ def main() -> int:
         "shape": [3, 1088, 64],
         "launches": flash_launches,
         "launches_per_tick": flash_launches / LONG_TICKS,
+        "variant": att_flash["variant"],
         "max_abs_err": att_flash["max_abs_err"],
         "ms": att_flash["ms"],
+        "launch_ms": att_flash["launch_ms"],
+        "device_us": att_flash["device_us"],
+        "simt_ms": att_flash["simt_ms"],
+        "simt_device_us": att_flash["simt_device_us"],
+        "library_device_us": att_flash["library_device_us"],
         "plain_ms": att_flash["plain_ms"],
         "library_ms": att_flash["library_ms"],
         "bound_ms": att_flash["bound_ms"],

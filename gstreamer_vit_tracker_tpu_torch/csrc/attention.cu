@@ -1,48 +1,67 @@
-// Softmax attention over (batch*heads, S, dh) for NVIDIA Hopper, sm_90a: two
-// kernels behind one entry (ops/attention.py::flash_attention).
+// Softmax attention softmax(q k^T dh^-1/2) v for NVIDIA Hopper, sm_90a: two
+// kernels, each in two variants, behind one entry
+// (ops/attention.py::multihead_attention and ::flash_attention).
 //
 // They replace the two TPU kernels of gstreamer_vit_tracker_tpu/ops/attention.py:
-//   * attention_single_kernel  <- _single_block_kernel: the whole sequence of one
-//     (batch*head) at once, plain softmax;
-//   * attention_flash_kernel   <- _flash_kernel: blocked online softmax, running
-//     row max m and normaliser l in f32 over key blocks, acc * exp(m - m_new)
-//     rescaling, acc / l at the end.
-// Both compute softmax(q k^T dh^-1/2) v as the TPU kernels do: q is widened to
-// f32 and scaled before the product, scores, softmax and P.V are f32 (FMA
-// units; no tensor cores, so f32 inputs run without TF32 and bf16 inputs are
-// widened exactly), P.V is taken before the division by the row sum, and the
-// result is rounded to the input type once.  The TPU kernels pad S to the
-// 128-lane grid and mask keys >= seq_len to -inf; here nothing is padded: the
-// kernels take any S >= 1 and a ragged last tile simply stops at its last key
-// (a key that is never scored contributes exp(-inf) = 0, the same value).
+//   * attention_single  <- _single_block_kernel: K and V of all S keys of one
+//     (batch, head) are loaded into shared memory once (one wait, no ring, no
+//     block-wide barrier after it);
+//   * attention_flash   <- _flash_kernel: key blocks walk through a ring of
+//     shared-memory stages, the next block's copy in flight while this one
+//     is computed.
+// Both keep scores, row maximum and row sum in f32, take P.V before the
+// division by the row sum and round to the input type once.  The TPU kernels
+// pad S to the 128-lane grid and mask keys >= seq_len to -inf; here nothing is
+// padded in device memory: the kernels take any S >= 1.
+//
+// q, k, v and out are read and written where they lie: every tensor comes
+// with element strides for batch, head and row (dh is contiguous), so the
+// three column blocks of a (B, S, 3D) qkv product go in as they are and out is
+// (B, S, D); contiguous (batch*heads, S, dh) is the case heads = 1.
 //
 // Bound on the H100 SXM at the serving shape (48, 320, 64) bf16: 4*S^2*dh per
-// (batch*head) is 1.26 GFLOP, 1.3 us at the 989 TFLOP/s tensor-core peak, and
-// q, k, v, out once are 7.9 MB, 2.3 us at 3.35 TB/s: bound by bytes.  This
-// design is bound by neither: it is SIMT f32 (19 us at the 67 TFLOP/s f32
-// peak), limited by shared-memory loads per FMA and by how many warps one SM
-// holds beside K and V.  What it does about that: every K pair a lane loads
-// (one 32-bit load in bf16) serves four query rows and every q value four
-// keys, every V pair four rows; and the whole-sequence kernel runs 16 warps a
-// CTA, because with K, V and the scores in shared memory only one CTA fits an
-// SM.  Tensor-core products (wgmma) with an f32 softmax are later work.
+// (batch, head) is 1.26 GFLOP, 1.3 us at the 989 TFLOP/s tensor-core peak, and
+// q, k, v, out once are 7.9 MB, 2.3 us at 3.35 TB/s: bound by bytes.
 //
-// Layout of one CTA (both kernels): W warps, each carrying R query rows
-// together.  K is held transposed in shared memory with a row stride of an
-// odd number of 32-bit words, so the transposing stores and the per-key reads
-// spread over the banks; V is held as is; q as scaled f32; the scores of the
-// CTA's rows in f32.  The single kernel (16 warps x 4 rows) holds K and V of
-// all S keys (the wrapper takes it only while that fits the card's opt-in
-// shared memory); the flash kernel (8 warps x 4 rows) stages 128 keys at a
-// time.  profile_attention.py times other shapes of the CTAs.
-// Launches go to the caller's stream; the entry points return the CUDA error
-// (cudaGetLastError after the launch), 0 on success.
+// Variant "mma" (bf16, head dim 32, 64 or 128; tile code in attention_mma.cuh):
+// one warpgroup a CTA owns 64 query rows.  Both products run on the tensor
+// cores with wgmma; K and V sit in shared memory as they lie in device memory
+// (16-byte cp.async into the swizzled layout the descriptors name, no
+// transpose, rows past S zero-filled); the softmax is online over key blocks
+// in both kernels and lives in the accumulator fragment, p goes to the second
+// product from registers as bf16, and the f32 scores never touch shared
+// memory.  dh^-1/2 is folded with log2(e) into one multiply of the f32
+// scores, where the TPU kernels scale q first: q is a bf16 operand here.
+// attention_flash splits a stage's keys over two warpgroups that share the
+// query tile when the grid is smaller than the card, and merges their (m, l,
+// o) at the end.  The copies are started by the computing threads, each
+// keeping its chunk column so that a copy costs one address add: computing
+// every chunk's address anew cost more than the arithmetic ((3, 1088, 64) on
+// an H100 at 700 W: 19.1 us that way, 11.9 us this way, one warpgroup,
+// profile_attention.py).  What is left of the distance to the bound: the
+// exponentials (one ex2 a score on the SFU, as many cycles as the products),
+// products and softmax running one after the other inside a warpgroup, and
+// the launch.
+//
+// Variant "simt" (float32, and bf16 head dims the tiles do not take): f32 FMA
+// products without TF32, q widened and scaled first as the TPU kernels do.  A
+// CTA has W warps of R query rows each; K is held transposed in shared memory
+// at an odd word stride, V as is, the f32 scores of the CTA's rows too (16
+// warps x 4 rows for single, 8 x 4 and 128-key blocks for flash).
+//
+// Which (dtype, dh) takes which variant, and which lengths take which kernel,
+// is decided by ops/attention.py::plan before the launch; the entries here
+// launch what they are told or return an error.  Launches go to the caller's
+// stream; the entries return the CUDA error (cudaGetLastError after the
+// launch), 0 on success.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -109,19 +128,27 @@ size_t smem_bytes(int rows, int keys, int head_dim, int elem_bytes) {
          + (size_t)rows * round_up4(keys) * sizeof(float);
 }
 
-// n keys of K and V (rows of dh) into shared memory as 16-byte vectors; V as
-// is, K scattered transposed.  dh is a multiple of 8, so every vector is
-// aligned.
+// Element strides of q, k, v and out: batch, head, row (dh is contiguous).
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
+// n keys of K and V (rows of dh, krs and vrs elements apart) into shared
+// memory as 16-byte vectors; V as is, K scattered transposed.  dh and the
+// strides are multiples of 16 bytes, so every vector is aligned.  (Row strides
+// are below 2^31 elements: the host checks it, and 32-bit strides keep these
+// kernels inside their registers.)
 template <typename T>
 __device__ __forceinline__ void stage_kv(const T* __restrict__ k, const T* __restrict__ v,
-                                         int n, int dh, int kstride, T* Kt, T* Vs) {
+                                         int krs, int vrs, int n, int dh, int kstride,
+                                         T* Kt, T* Vs) {
   constexpr int kVec = 16 / sizeof(T);
   const int vpr = dh / kVec;                  // vectors per row
   for (int i = threadIdx.x; i < n * vpr; i += blockDim.x) {
     const int j = i / vpr, c = (i - j * vpr) * kVec;
-    const uint4 kv = *reinterpret_cast<const uint4*>(k + (size_t)j * dh + c);
+    const uint4 kv = *reinterpret_cast<const uint4*>(k + (size_t)j * krs + c);
     *reinterpret_cast<uint4*>(Vs + (size_t)j * dh + c) =
-        *reinterpret_cast<const uint4*>(v + (size_t)j * dh + c);
+        *reinterpret_cast<const uint4*>(v + (size_t)j * vrs + c);
     const T* ke = reinterpret_cast<const T*>(&kv);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) Kt[(size_t)(c + e) * kstride + j] = ke[e];
@@ -131,12 +158,12 @@ __device__ __forceinline__ void stage_kv(const T* __restrict__ k, const T* __res
 // The CTA's `rows` query rows, widened to f32 and scaled (the TPU kernels
 // scale q, not the scores); rows past S are zeros.
 template <typename T>
-__device__ __forceinline__ void stage_q(const T* __restrict__ q, int q0, int rows, int S,
-                                        int dh, float scale, float* Qs) {
+__device__ __forceinline__ void stage_q(const T* __restrict__ q, int qrs, int q0,
+                                        int rows, int S, int dh, float scale, float* Qs) {
   for (int idx = threadIdx.x; idx < rows * dh; idx += blockDim.x) {
     const int i = idx / dh, d = idx - i * dh;
     const int qi = q0 + i;
-    Qs[idx] = qi < S ? to_f32(q[(size_t)qi * dh + d]) * scale : 0.f;
+    Qs[idx] = qi < S ? to_f32(q[(size_t)qi * qrs + d]) * scale : 0.f;
   }
 }
 
@@ -273,8 +300,9 @@ __device__ __forceinline__ void pv_rows(const float* Pw, int ldp, const T* Vs, i
 
 // out rows of the warp: o / l, rounded to T once.  Rows past S are dropped.
 template <typename T, int R>
-__device__ __forceinline__ void write_rows(T* __restrict__ out, int row0, int S, int dh,
-                                           float o[R][kPairs][2], const float l[R]) {
+__device__ __forceinline__ void write_rows(T* __restrict__ out, int ors, int row0,
+                                           int S, int dh, float o[R][kPairs][2],
+                                           const float l[R]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -283,21 +311,21 @@ __device__ __forceinline__ void write_rows(T* __restrict__ out, int row0, int S,
 #pragma unroll
     for (int u = 0; u < kPairs; ++u) {
       const int d = 2 * lane + 64 * u;
-      if (d < dh) store_pair(out + (size_t)qi * dh + d, o[r][u][0] / l[r], o[r][u][1] / l[r]);
+      if (d < dh) store_pair(out + (size_t)qi * ors + d, o[r][u][0] / l[r], o[r][u][1] / l[r]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Whole sequence at once: CTA = (W * R query rows, batch*head), K and V of
-// all S keys in shared memory, plain softmax.
+// Variant "simt".  Whole sequence at once: CTA = (W * R query rows, batch,
+// head), K and V of all S keys in shared memory, plain softmax.
 // ---------------------------------------------------------------------------
 
 template <typename T, int W, int R>
 __global__ void __launch_bounds__(W * 32)
 attention_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, int S, int dh,
-                        int tiles, int kstride, float scale) {
+                        const T* __restrict__ v, T* __restrict__ out, Strides st, int S,
+                        int dh, int heads, int tiles, int kstride, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kQt = W * R;
   const int ldp = round_up4(S);
@@ -307,9 +335,10 @@ attention_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ps = Qs + kQt * dh;                                   // [kQt][ldp]
 
   const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * kQt;
-  const size_t base = (size_t)bh * S * dh;
-  stage_kv(k + base, v + base, S, dh, kstride, Kt, Vs);
-  stage_q(q + base, q0, kQt, S, dh, scale, Qs);
+  const int b = bh / heads, h = bh - b * heads;
+  stage_kv(k + b * st.k[0] + h * st.k[1], v + b * st.v[0] + h * st.v[1], (int)st.k[2],
+           (int)st.v[2], S, dh, kstride, Kt, Vs);
+  stage_q(q + b * st.q[0] + h * st.q[1], (int)st.q[2], q0, kQt, S, dh, scale, Qs);
   __syncthreads();
 
   const int i0 = (threadIdx.x >> 5) * R;
@@ -321,19 +350,21 @@ attention_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncwarp();                               // every lane's p is visible
   float o[R][kPairs][2] = {};
   pv_rows<T, R>(Pw, ldp, Vs, S, dh, o);
-  write_rows<T, R>(out + base, q0 + i0, S, dh, o, l);
+  write_rows<T, R>(out + b * st.o[0] + h * st.o[1], (int)st.o[2], q0 + i0, S, dh, o, l);
 }
 
 // ---------------------------------------------------------------------------
-// Blocked online softmax: CTA = (W * R query rows, batch*head), a loop over
-// key blocks of kKb staged through shared memory.
+// Variant "simt".  Blocked online softmax: CTA = (W * R query rows, batch,
+// head), a loop over key blocks of kKb staged through shared memory.  The
+// launch bound names three CTAs an SM (85 registers a thread at 8 warps):
+// left to itself ptxas aims at four and spills the bf16 instantiation.
 // ---------------------------------------------------------------------------
 
 template <typename T, int W, int R>
-__global__ void __launch_bounds__(W * 32)
+__global__ void __launch_bounds__(W * 32, 3)
 attention_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S, int dh,
-                       int tiles, int kstride, float scale) {
+                       const T* __restrict__ v, T* __restrict__ out, Strides st, int S,
+                       int dh, int heads, int tiles, int kstride, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kQt = W * R;
   T* Kt = reinterpret_cast<T*>(smem);                          // [dh][kstride]
@@ -342,8 +373,12 @@ attention_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ps = Qs + kQt * dh;                                   // [kQt][kKb]
 
   const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * kQt;
-  const size_t base = (size_t)bh * S * dh;
-  stage_q(q + base, q0, kQt, S, dh, scale, Qs);
+  const int b = bh / heads, h = bh - b * heads;
+  k += b * st.k[0] + h * st.k[1];
+  v += b * st.v[0] + h * st.v[1];
+  out += b * st.o[0] + h * st.o[1];
+  const int krs = (int)st.k[2], vrs = (int)st.v[2];
+  stage_q(q + b * st.q[0] + h * st.q[1], (int)st.q[2], q0, kQt, S, dh, scale, Qs);
 
   const int i0 = (threadIdx.x >> 5) * R;
   float* Pw = Ps + (size_t)i0 * kKb;
@@ -358,7 +393,7 @@ attention_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < S; k0 += kKb) {
     const int n = min(kKb, S - k0);           // the last block stops at key S
     __syncthreads();                          // the previous block is read out
-    stage_kv(k + base + (size_t)k0 * dh, v + base + (size_t)k0 * dh, n, dh, kstride, Kt, Vs);
+    stage_kv(k + (size_t)k0 * krs, v + (size_t)k0 * vrs, krs, vrs, n, dh, kstride, Kt, Vs);
     __syncthreads();
     float mb[R], sum[R];
     score_rows<T, R>(Qs + i0 * dh, Kt, kstride, n, dh, Pw, kKb, mb);
@@ -380,7 +415,121 @@ attention_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
     pv_rows<T, R>(Pw, kKb, Vs, n, dh, o);
   }
-  write_rows<T, R>(out + base, q0 + i0, S, dh, o, l);
+  write_rows<T, R>(out, (int)st.o[2], q0 + i0, S, dh, o, l);
+}
+
+// ---------------------------------------------------------------------------
+// Variant "mma" (bf16): CTA = one warpgroup = (64 query rows, batch, head).
+// Shared memory, from a 1024-byte boundary: the Q tile, then K blocks, then
+// V blocks, each block a tile of KB keys (attention_mma.cuh).
+// ---------------------------------------------------------------------------
+
+constexpr int kAlign = 1024;                  // of the tiles; slack for the base
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((kAlign - mma::smem_addr(raw) % kAlign) % kAlign);
+}
+
+// All ceil(S / KB) key blocks at once: one group of copies, one wait, one
+// barrier, then the warpgroup runs alone.
+template <int DH, int KB>
+__global__ void __launch_bounds__(mma::kThreads)
+attention_single_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ out, Strides st,
+                            int S, int heads, int tiles, float c) {
+  using T = mma::Tile<DH>;
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* q_ptr = aligned_smem(raw);
+  const int blocks = (S + KB - 1) / KB;
+  const uint32_t q_tile = mma::smem_addr(q_ptr);
+  const uint32_t k_tiles = q_tile + T::bytes(mma::kTileRows);
+  const uint32_t v_tiles = k_tiles + blocks * T::bytes(KB);
+
+  const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * mma::kTileRows;
+  const int b = bh / heads, h = bh - b * heads;
+  k += b * st.k[0] + h * st.k[1];
+  v += b * st.v[0] + h * st.v[1];
+  T::template fill<mma::kTileRows, mma::kThreads>(q_tile, q + b * st.q[0] + h * st.q[1], st.q[2],
+                                                  q0, S);
+  for (int j = 0; j < blocks; ++j) {
+    T::template fill<KB, mma::kThreads>(k_tiles + j * T::bytes(KB), k, st.k[2], j * KB, S);
+    T::template fill<KB, mma::kThreads>(v_tiles + j * T::bytes(KB), v, st.v[2], j * KB, S);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  mma::fence_async_proxy();
+  __syncthreads();
+
+  mma::Softmax<DH, KB> sm;
+  sm.init();
+  for (int j = 0; j < blocks; ++j)
+    sm.step(q_tile, k_tiles + j * T::bytes(KB), v_tiles + j * T::bytes(KB), j * KB, S, c);
+  sm.store(q_ptr, out + b * st.o[0] + h * st.o[1], st.o[2], q0, S);
+}
+
+// A ring of STAGES stages; a stage holds one K block and one V block for
+// each of the CTA's NWG warpgroups, which share the 64 query rows and split
+// the keys: warpgroup w takes block w of every stage, and the first folds the
+// others' (m, l, o) in at the end.  The copies of stages j + 1 .. j + STAGES
+// - 1 are in flight while stage j is computed.  One barrier a stage: it
+// publishes stage j and frees the slot of stage j - 1.
+template <int DH, int KB, int STAGES, int NWG>
+__global__ void __launch_bounds__(NWG * mma::kThreads)
+attention_flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out, Strides st,
+                           int S, int heads, int tiles, float c) {
+  using T = mma::Tile<DH>;
+  constexpr int kNT = NWG * mma::kThreads;
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* q_ptr = aligned_smem(raw);
+  const int steps = (S + NWG * KB - 1) / (NWG * KB);
+  const uint32_t q_tile = mma::smem_addr(q_ptr);
+  const uint32_t k_tiles = q_tile + T::bytes(mma::kTileRows);
+  const uint32_t v_tiles = k_tiles + STAGES * NWG * T::bytes(KB);
+
+  const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * mma::kTileRows;
+  const int b = bh / heads, h = bh - b * heads;
+  k += b * st.k[0] + h * st.k[1];
+  v += b * st.v[0] + h * st.v[1];
+  const auto fill_stage = [&](int j) {        // stage j into its slot of the ring
+#pragma unroll
+    for (int w = 0; w < NWG; ++w) {
+      const int tile = (j % STAGES) * NWG + w, key0 = (j * NWG + w) * KB;
+      T::template fill<KB, kNT>(k_tiles + tile * T::bytes(KB), k, st.k[2], key0, S);
+      T::template fill<KB, kNT>(v_tiles + tile * T::bytes(KB), v, st.v[2], key0, S);
+    }
+  };
+  T::template fill<mma::kTileRows, kNT>(q_tile, q + b * st.q[0] + h * st.q[1], st.q[2], q0, S);
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {      // a group a stage, empty past the end
+    if (j < steps) fill_stage(j);
+    mma::cp_async_commit();
+  }
+
+  const int wg = threadIdx.x / mma::kThreads;
+  mma::Softmax<DH, KB> sm;
+  sm.init();
+  for (int j = 0; j < steps; ++j) {
+    mma::cp_async_wait<STAGES - 2>();         // stage j (and Q) has landed
+    mma::fence_async_proxy();
+    __syncthreads();
+    if (j + STAGES - 1 < steps) fill_stage(j + STAGES - 1);
+    mma::cp_async_commit();
+    const int tile = (j % STAGES) * NWG + wg, key0 = (j * NWG + wg) * KB;
+    if (key0 < S)                             // uniform over the warpgroup
+      sm.step(q_tile, k_tiles + tile * T::bytes(KB), v_tiles + tile * T::bytes(KB), key0, S, c);
+  }
+  if constexpr (NWG > 1) {
+    float* scratch = reinterpret_cast<float*>(q_ptr + T::bytes(mma::kTileRows));
+    constexpr int kState = mma::Softmax<DH, KB>::kStateFloats * mma::kThreads;
+    __syncthreads();                          // the ring is read out: reuse it
+    if (wg > 0) sm.spill(scratch + (wg - 1) * kState);
+    __syncthreads();
+    if (wg > 0) return;
+#pragma unroll
+    for (int w = 1; w < NWG; ++w) sm.merge(scratch + (w - 1) * kState, c);
+  }
+  sm.store(q_ptr, out + b * st.o[0] + h * st.o[1], st.o[2], q0, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -393,92 +542,180 @@ attention_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (err_ != cudaSuccess) return err_;  \
   } while (0)
 
-cudaError_t check_smem(size_t smem) {
-  int device = 0, optin = 0;
+// Shape of the "simt" CTAs (warps, rows a warp).
+constexpr int kSingleW = 16, kSingleR = 4;
+constexpr int kFlashW = 8, kFlashR = 4;
+
+// Dynamic shared memory of one "mma" CTA that holds `keys` keys.
+size_t mma_smem_bytes(int keys, int dh) {
+  return (size_t)kAlign + (size_t)(mma::kTileRows + 2 * keys) * dh * sizeof(bf16);
+}
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory.  `allowed` is
+// that kernel's own record by device: the attribute is set when a launch needs
+// more than any before it.
+constexpr int kMaxDevices = 64;
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int (&allowed)[kMaxDevices], size_t smem) {
+  int device = 0;
   RETURN_IF_ERROR(cudaGetDevice(&device));
+  if (device < kMaxDevices && (int)smem <= allowed[device]) return cudaSuccess;
+  int optin = 0;
   RETURN_IF_ERROR(cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-  return smem > (size_t)optin ? cudaErrorInvalidValue : cudaSuccess;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem));
+  if (device < kMaxDevices) allowed[device] = (int)smem;
+  return cudaSuccess;
 }
 
-bool shape_ok(int bh, int seq, int dh) {
-  return bh >= 1 && seq >= 1 && dh >= 8 && dh % 8 == 0 && dh <= kMaxHeadDim
-         && (long long)seq * bh <= 0x7fffffffLL;
+struct Args {
+  int batch, heads, S, dh;
+  const void *q, *k, *v;
+  void* out;
+  Strides st;
+  cudaStream_t stream;
+};
+
+template <typename T, int W, int R, bool kSingle>
+auto simt_kernel() {
+  if constexpr (kSingle) return attention_single_kernel<T, W, R>;
+  else return attention_flash_kernel<T, W, R>;
 }
 
-// Shape of the CTAs (warps, rows a warp): SINGLE_* for the whole-sequence
-// kernel, FLASH_* for the blocked one.  A build may override them with -D to
-// compare shapes.
-#ifndef SINGLE_W
-#define SINGLE_W 16
-#define SINGLE_R 4
-#endif
-#ifndef FLASH_W
-#define FLASH_W 8
-#define FLASH_R 4
-#endif
-constexpr int kSingleW = SINGLE_W, kSingleR = SINGLE_R;
-constexpr int kFlashW = FLASH_W, kFlashR = FLASH_R;
-
-template <typename T, int W, int R>
-cudaError_t launch_single(int bh, int S, int dh, const void* q, const void* k, const void* v,
-                          void* out, cudaStream_t st) {
-  const size_t smem = smem_bytes(W * R, S, dh, sizeof(T));
-  RETURN_IF_ERROR(check_smem(smem));
-  RETURN_IF_ERROR(cudaFuncSetAttribute(attention_single_kernel<T, W, R>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  const int tiles = (S + W * R - 1) / (W * R);
-  attention_single_kernel<T, W, R><<<tiles * bh, W * 32, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, dh, tiles, k_stride(S, sizeof(T)), 1.0f / sqrtf((float)dh));
+template <typename T, int W, int R, bool kSingle>
+cudaError_t launch_simt(const Args& a) {
+  const int keys = kSingle ? a.S : kKb;
+  const size_t smem = smem_bytes(W * R, keys, a.dh, sizeof(T));
+  const int tiles = (a.S + W * R - 1) / (W * R);
+  const auto kernel = simt_kernel<T, W, R, kSingle>();
+  static int allowed[kMaxDevices] = {};
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  kernel<<<tiles * a.batch * a.heads, W * 32, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.out), a.st, a.S, a.dh, a.heads, tiles, k_stride(keys, sizeof(T)),
+      1.0f / sqrtf((float)a.dh));
   return cudaGetLastError();
 }
 
-template <typename T, int W, int R>
-cudaError_t launch_flash(int bh, int S, int dh, const void* q, const void* k, const void* v,
-                         void* out, cudaStream_t st) {
-  const size_t smem = smem_bytes(W * R, kKb, dh, sizeof(T));
-  RETURN_IF_ERROR(check_smem(smem));
-  RETURN_IF_ERROR(cudaFuncSetAttribute(attention_flash_kernel<T, W, R>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  const int tiles = (S + W * R - 1) / (W * R);
-  attention_flash_kernel<T, W, R><<<tiles * bh, W * 32, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, dh, tiles, k_stride(kKb, sizeof(T)), 1.0f / sqrtf((float)dh));
+template <typename K>
+cudaError_t launch_mma(K kernel, int (&allowed)[kMaxDevices], const Args& a, int keys,
+                       int warpgroups) {
+  const size_t smem = mma_smem_bytes(keys, a.dh);
+  const int tiles = (a.S + mma::kTileRows - 1) / mma::kTileRows;
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  kernel<<<tiles * a.batch * a.heads, warpgroups * mma::kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.st, a.S, a.heads, tiles,
+      1.4426950408889634f / sqrtf((float)a.dh));
   return cudaGetLastError();
+}
+
+int round_up(int n, int to) { return (n + to - 1) / to * to; }
+
+template <int DH, int KB>
+cudaError_t launch_single_mma(const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  return launch_mma(attention_single_mma_kernel<DH, KB>, allowed, a, round_up(a.S, KB), 1);
+}
+
+template <int DH, int KB, int STAGES, int NWG>
+cudaError_t launch_flash_mma(const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  return launch_mma(attention_flash_mma_kernel<DH, KB, STAGES, NWG>, allowed, a,
+                    STAGES * NWG * KB, NWG);
+}
+
+// The configurations that are built: key blocks of 64 or 128; two stages
+// with one or two warpgroups, three stages with one.
+template <int DH, int KB>
+cudaError_t launch_mma_kb(bool single, int stages, int warpgroups, const Args& a) {
+  if (single) return warpgroups == 1 ? launch_single_mma<DH, KB>(a) : cudaErrorInvalidValue;
+  if (stages == 2 && warpgroups == 1) return launch_flash_mma<DH, KB, 2, 1>(a);
+  if (stages == 2 && warpgroups == 2) return launch_flash_mma<DH, KB, 2, 2>(a);
+  if (stages == 3 && warpgroups == 1) return launch_flash_mma<DH, KB, 3, 1>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <int DH>
+cudaError_t launch_mma_dh(bool single, int kb, int stages, int warpgroups, const Args& a) {
+  if (kb == 64) return launch_mma_kb<DH, 64>(single, stages, warpgroups, a);
+  if (kb == 128) return launch_mma_kb<DH, 128>(single, stages, warpgroups, a);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups, int dtype,
+                   const Args& a) {
+  if (a.batch < 1 || a.heads < 1 || a.S < 1 || a.dh < 8 || a.dh % 8 || a.dh > kMaxHeadDim
+      || (long long)a.S * a.batch * a.heads > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (variant == 1) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    if (a.dh == 32) return launch_mma_dh<32>(single, kb, stages, warpgroups, a);
+    if (a.dh == 64) return launch_mma_dh<64>(single, kb, stages, warpgroups, a);
+    if (a.dh == 128) return launch_mma_dh<128>(single, kb, stages, warpgroups, a);
+    return cudaErrorInvalidValue;
+  }
+  if (variant != 0) return cudaErrorInvalidValue;
+  for (const long long row : {a.st.q[2], a.st.k[2], a.st.v[2], a.st.o[2]})
+    if (row < 0 || row > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (dtype == 1)
+    return single ? launch_simt<bf16, kSingleW, kSingleR, true>(a)
+                  : launch_simt<bf16, kFlashW, kFlashR, false>(a);
+  if (dtype == 0)
+    return single ? launch_simt<float, kSingleW, kSingleR, true>(a)
+                  : launch_simt<float, kFlashW, kFlashR, false>(a);
+  return cudaErrorInvalidValue;
+}
+
+Args make_args(int batch, int heads, int seq, int dh, const void* q, const void* k,
+               const void* v, void* out, const long long* strides, void* stream) {
+  Args a{batch, heads, seq, dh, q, k, v, out, {}, static_cast<cudaStream_t>(stream)};
+  for (int i = 0; i < 3; ++i) {
+    a.st.q[i] = strides[i];
+    a.st.k[i] = strides[3 + i];
+    a.st.v[i] = strides[6 + i];
+    a.st.o[i] = strides[9 + i];
+  }
+  return a;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v, out: contiguous (bh, seq, dh) on
-// the current device, 16-byte aligned, out not aliasing an input; dh a multiple
-// of 8 up to 128.  Return a cudaError_t.
+// variant: 0 = "simt", 1 = "mma" (bf16, dh 32 / 64 / 128; kb = keys a block,
+// 64 or 128; (stages, warpgroups) = (2, 1), (2, 2) or (3, 1) of the flash
+// kernel's ring, (0, 1) for the single kernel).  dtype: 0 =
+// float32, 1 = bfloat16.  q, k, v, out: (batch, heads, seq, dh) on the current
+// device through `strides` = element strides (batch, head, row) of q, k, v,
+// out, twelve values in host memory; dh contiguous and a multiple of 8 up to
+// 128, every base and stride a multiple of 16 bytes, out not aliasing an
+// input.  Return a cudaError_t.
 
-extern "C" int attention_single_forward(int dtype, int bh, int seq, int dh, const void* q,
-                                        const void* k, const void* v, void* out,
-                                        void* stream) {
-  if (!shape_ok(bh, seq, dh)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)launch_single<bf16, kSingleW, kSingleR>(bh, seq, dh, q, k, v, out, st);
-  if (dtype == 0) return (int)launch_single<float, kSingleW, kSingleR>(bh, seq, dh, q, k, v, out, st);
-  return (int)cudaErrorInvalidValue;
+extern "C" int attention_single_forward(int variant, int kb, int stages, int warpgroups,
+                                        int dtype, int batch, int heads, int seq, int dh,
+                                        const void* q, const void* k, const void* v, void* out,
+                                        const long long* strides, void* stream) {
+  return (int)launch(true, variant, kb, stages, warpgroups, dtype,
+                     make_args(batch, heads, seq, dh, q, k, v, out, strides, stream));
 }
 
-extern "C" int attention_flash_forward(int dtype, int bh, int seq, int dh, const void* q,
-                                       const void* k, const void* v, void* out,
-                                       void* stream) {
-  if (!shape_ok(bh, seq, dh)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)launch_flash<bf16, kFlashW, kFlashR>(bh, seq, dh, q, k, v, out, st);
-  if (dtype == 0) return (int)launch_flash<float, kFlashW, kFlashR>(bh, seq, dh, q, k, v, out, st);
-  return (int)cudaErrorInvalidValue;
+extern "C" int attention_flash_forward(int variant, int kb, int stages, int warpgroups,
+                                       int dtype, int batch, int heads, int seq, int dh,
+                                       const void* q, const void* k, const void* v, void* out,
+                                       const long long* strides, void* stream) {
+  return (int)launch(false, variant, kb, stages, warpgroups, dtype,
+                     make_args(batch, heads, seq, dh, q, k, v, out, strides, stream));
 }
 
-// Dynamic shared memory (bytes) of one CTA: the single kernel at this sequence
-// length, and the flash kernel (independent of the length).
-extern "C" long long attention_single_smem(int seq, int head_dim, int elem_bytes) {
-  return (long long)smem_bytes(kSingleW * kSingleR, seq, head_dim, elem_bytes);
-}
-
-extern "C" long long attention_flash_smem(int head_dim, int elem_bytes) {
-  return (long long)smem_bytes(kFlashW * kFlashR, kKb, head_dim, elem_bytes);
+// Dynamic shared memory (bytes) of one CTA, as ops/attention.py::smem_bytes
+// computes it: single = 1 for the whole-sequence kernel at this length, 0 for
+// the blocked one.
+extern "C" long long attention_smem(int single, int variant, int kb, int stages, int warpgroups,
+                                    int seq, int head_dim, int elem_bytes) {
+  if (variant == 1)
+    return (long long)mma_smem_bytes(single ? round_up(seq, kb) : stages * warpgroups * kb,
+                                     head_dim);
+  return single ? (long long)smem_bytes(kSingleW * kSingleR, seq, head_dim, elem_bytes)
+                : (long long)smem_bytes(kFlashW * kFlashR, kKb, head_dim, elem_bytes);
 }

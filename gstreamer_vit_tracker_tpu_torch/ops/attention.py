@@ -3,24 +3,39 @@
 Port of ``gstreamer_vit_tracker_tpu/ops/attention.py``.  Its two TPU
 kernels become two kernels of ``csrc/attention.cu``:
 
-* ``_single_block_kernel`` -> ``attention_single``: the whole sequence of
-  one (batch x head) in shared memory, plain softmax;
-* ``_flash_kernel`` -> ``attention_flash``: blocked online softmax over
-  key blocks of 128.
+* ``_single_block_kernel`` -> ``attention_single``: K and V of all S keys of
+  one (batch, head) loaded into shared memory once;
+* ``_flash_kernel`` -> ``attention_flash``: key blocks walked through a ring
+  of shared-memory stages, the next block's copy in flight.
 
-:func:`flash_attention` is the one entry to both.  Its rule is the card's,
-not the TPU's ``SINGLE_BLOCK_MAX``: ``attention_single`` while K and V of
-all S keys (with the query tile and its scores) fit the shared memory one
-block may opt in to (``shared_memory_per_block_optin``; at head dim 64 in
-bf16 that is about 420 keys on the H100), ``attention_flash`` beyond.  Both
-compute one function, so no result depends on the rule.  The kernels take
-any S >= 1; nothing is padded.
+Both compute one function, ``softmax(q k^T dh^-1/2) v`` with f32 scores, f32
+row maximum and sum and one rounding to the input type, for any S >= 1;
+nothing is padded in device memory.  On the H100 the work is bound by the
+bytes of q, k, v and out (2.3 us at the serving shape (48, 320, 64) bf16;
+the products are 1.3 us on the tensor cores), so the kernels read q, k and v
+where the qkv product left them and write (B, S, D) directly:
+:func:`multihead_attention` hands them strided views, no per-head copy is
+made, and a block of the encoder is one launch here.
+
+Each kernel has two variants, chosen by :func:`plan` from (dtype, head dim)
+before the launch:
+
+* ``"mma"``: bfloat16 with head dim 32, 64 or 128.  Both products on the
+  tensor cores (``wgmma``), K and V in shared memory as they lie, the softmax
+  online over key blocks in the accumulator registers, p rounded to bf16 for
+  the second product.  Every serving path takes it.
+* ``"simt"``: float32 (f32 FMA, no TF32: the training step), and bf16 head
+  dims the tiles do not take.
+
+and by length: ``attention_single`` while K and V of all S keys fit the shared
+memory of an SM twice over (``"mma"``: 384 keys at head dim 64 on the H100)
+or once (``"simt"``, which holds the f32 scores there too),
+``attention_flash`` beyond.  No result depends on the rule.  It is a rule,
+not a fallback: a CUDA tensor launches the chosen kernel or raises.
 
 :func:`attention_reference` is the plain version: what the CPU tests run,
 what the backward differentiates, and what the encoder kernel's plain twin
-(``models/vit.py::_block`` with ``use_kernel=False``) uses.  On a CUDA
-tensor :func:`flash_attention` launches a kernel or raises; there is no
-way from the kernel to the plain version.
+(``models/vit.py::_block`` with ``use_kernel=False``) uses.
 
 ``SINGLE_LAUNCHES`` and ``FLASH_LAUNCHES`` count kernel launches, so a run
 can show that its path went through the kernels.
@@ -29,21 +44,37 @@ can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import cuda_build
 
 __all__ = ["attention_reference", "flash_attention", "kernel_route",
-           "multihead_attention", "SINGLE_LAUNCHES", "FLASH_LAUNCHES"]
+           "kernel_variant", "multihead_attention", "plan", "Plan",
+           "prepared", "smem_bytes", "SINGLE_LAUNCHES", "FLASH_LAUNCHES"]
 
 # Launches of each kernel since import (or since a caller reset them to 0).
 SINGLE_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODES = {"simt": 0, "mma": 1}
 _MAX_HEAD_DIM = 128
+_MMA_HEAD_DIMS = (32, 64, 128)
+# Geometry of the CTAs, as csrc/attention.cu has it.
+_MMA_ROWS, _MMA_ALIGN = 64, 1024
+_SIMT_ROWS = {"single": 64, "flash": 32}
+_SIMT_KEY_BLOCK = 128
+
+
+class Plan(NamedTuple):
+    """What :func:`flash_attention` launches for one (S, dh, dtype)."""
+    route: str            # "single" or "flash"
+    variant: str          # "mma" or "simt"
+    kb: int = 0           # keys a block ("mma")
+    stages: int = 0       # stages of the ring ("mma" flash)
+    warpgroups: int = 1   # warpgroups that split a stage's keys ("mma" flash)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,73 +93,223 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
+               kb: int = 0, stages: int = 0, warpgroups: int = 1) -> int:
+    """Dynamic shared memory of one CTA, as ``csrc/attention.cu`` lays it
+    out (``attention_smem`` there returns the same number)."""
+    if variant == "mma":
+        keys = (-(-s // kb) * kb if route == "single"
+                else stages * warpgroups * kb)
+        return _MMA_ALIGN + (_MMA_ROWS + 2 * keys) * dh * 2
+    rows = _SIMT_ROWS[route]
+    keys = s if route == "single" else _SIMT_KEY_BLOCK
+    words = ((keys + 2) * elem_bytes + 3) // 4       # transposed K: odd words
+    k_stride = (words + 1 - words % 2) * 4 // elem_bytes
+    return (dh * k_stride * elem_bytes + keys * dh * elem_bytes
+            + rows * dh * 4 + rows * (-(-keys // 4) * 4) * 4)
+
+
+def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
+         bh: int = 1, sms: int = 132) -> Plan:
+    """The kernel and variant for sequence length ``s``, head dim ``dh`` and
+    ``dtype`` on a card whose blocks may opt in to ``optin_bytes`` of shared
+    memory.
+
+    Variant: ``"mma"`` for bf16 at the head dims the tiles take, ``"simt"``
+    else.  Kernel: ``"mma"`` takes ``"single"`` while two CTAs that hold all
+    S keys fit one SM (one CTA's copies then fly while the other computes;
+    measured, a lone CTA that first waits for 600 keys loses to the ring),
+    ``"simt"`` while one fits; ``"flash"`` beyond.  ``bh`` (batch x heads)
+    and the card's ``sms`` only shape the ``"mma"`` ring: while the 64-row
+    tiles are fewer than the SMs, two warpgroups a CTA split the keys of
+    128-key blocks; a grid that fills the card takes 64-key blocks, one
+    warpgroup and more CTAs an SM."""
+    eb = 2 if dtype == torch.bfloat16 else 4
+    if dtype == torch.bfloat16 and dh in _MMA_HEAD_DIMS:
+        if smem_bytes("single", "mma", s, dh, eb, kb=64) <= optin_bytes // 2:
+            return Plan("single", "mma", kb=64)
+        if -(-s // _MMA_ROWS) * bh > sms:
+            return Plan("flash", "mma", kb=64, stages=2, warpgroups=1)
+        return Plan("flash", "mma", kb=128 if dh <= 64 else 64, stages=2,
+                    warpgroups=2)
+    if smem_bytes("single", "simt", s, dh, eb) <= optin_bytes:
+        return Plan("single", "simt")
+    return Plan("flash", "simt")
+
+
+_Strides = ctypes.c_longlong * 12
+_FORWARD: Dict[str, ctypes._CFuncPtr] = {}     # route -> the C entry
+
+
 def _library():
     lib = cuda_build.load("attention")
-    if lib.attention_single_forward.argtypes is None:
-        for fn in (lib.attention_single_forward, lib.attention_flash_forward):
-            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    if not _FORWARD:
+        for route, fn in (("single", lib.attention_single_forward),
+                          ("flash", lib.attention_flash_forward)):
+            fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6
             fn.restype = ctypes.c_int
-        lib.attention_single_smem.argtypes = [ctypes.c_int] * 3
-        lib.attention_single_smem.restype = ctypes.c_longlong
-        lib.attention_flash_smem.argtypes = [ctypes.c_int] * 2
-        lib.attention_flash_smem.restype = ctypes.c_longlong
+            _FORWARD[route] = fn
+        lib.attention_smem.argtypes = [ctypes.c_int] * 8
+        lib.attention_smem.restype = ctypes.c_longlong
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take."""
+_CARD: Dict[int, Tuple[int, int]] = {}   # device index -> (opt-in bytes, SMs)
+_PLANS: Dict[Tuple, Plan] = {}           # (device, S, dh, dtype, bh) -> Plan
+_STRIDES: Dict[Tuple, ctypes.Array] = {}  # element strides -> the C array
+_raw_stream = None                       # current stream handle of a device
+
+
+def _plan_for(device: torch.device, s: int, dh: int, dtype: torch.dtype,
+              bh: int) -> Plan:
+    """:func:`plan` on this device, decided once per argument tuple."""
+    key = (device.index, s, dh, dtype, bh)
+    chosen = _PLANS.get(key)
+    if chosen is None:
+        card = _CARD.get(device.index)
+        if card is None:
+            props = torch.cuda.get_device_properties(device)
+            card = _CARD[device.index] = (props.shared_memory_per_block_optin,
+                                          props.multi_processor_count)
+        chosen = _PLANS[key] = plan(s, dh, dtype, card[0], bh, card[1])
+    return chosen
+
+
+def _stream_handle(index: int) -> int:
+    """The current stream of device ``index`` as the integer a launch takes."""
+    global _raw_stream
+    if _raw_stream is None:
+        # PyTorch's own accessor (what its compiled kernels launch on); the
+        # public object costs several microseconds a call.
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
+
+
+def kernel_route(q: torch.Tensor, num_heads: int = 1) -> str:
+    """Which kernel launches for this CUDA tensor, (batch*heads, S, dh) or
+    (B, S, num_heads * dh): ``"single"`` or ``"flash"``."""
+    return _plan_for(q.device, q.shape[1], q.shape[2] // num_heads, q.dtype,
+                     q.shape[0] * num_heads).route
+
+
+def kernel_variant(q: torch.Tensor, num_heads: int = 1) -> str:
+    """Which variant of that kernel: ``"mma"`` or ``"simt"``."""
+    return _plan_for(q.device, q.shape[1], q.shape[2] // num_heads, q.dtype,
+                     q.shape[0] * num_heads).variant
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           heads: int) -> Tuple:
+    """Raise on anything the kernels do not take; return the strides of q,
+    k and v."""
     if not q.is_cuda:
         raise ValueError("the attention kernels need CUDA tensors")
-    if q.dtype not in _DTYPE_CODES:
+    dtype, shape = q.dtype, q.shape
+    if dtype not in _DTYPE_CODES:
         raise TypeError(f"attention kernels take float32 or bfloat16, got "
-                        f"{q.dtype}")
-    if q.dim() != 3 or q.shape[0] < 1 or q.shape[1] < 1:
-        raise ValueError(f"q must be (batch*heads, S, dh) with S >= 1, got "
-                         f"shape {tuple(q.shape)}")
-    dh = q.shape[2]
+                        f"{dtype}")
+    if len(shape) != 3 or 0 in shape or shape[2] % heads:
+        raise ValueError(f"q must be (B, S, heads * dh) with S >= 1, got "
+                         f"shape {tuple(shape)} for {heads} heads")
+    dh = shape[2] // heads
     if dh % 8 or dh > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} must be a multiple of 8 up to "
                          f"{_MAX_HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}, expected {tuple(q.shape)} "
-                             f"{q.dtype} on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not (k.shape == shape == v.shape and k.dtype == dtype == v.dtype
+            and k.device == q.device == v.device):
+        raise ValueError("k or v: " + ", ".join(
+            f"{tuple(t.shape)} {t.dtype} on {t.device}" for t in (k, v))
+            + f"; expected {tuple(shape)} {dtype} on {q.device}")
+    strides = (q.stride(), k.stride(), v.stride())
+    (qb, qr, qd), (kb, kr, kd), (vb, vr, vd) = strides
+    if (qd != 1 or kd != 1 or vd != 1
+            or ((qb | qr | kb | kr | vb | vr) * q.element_size()
+                | q.data_ptr() | k.data_ptr() | v.data_ptr()) & 15):
+        raise ValueError(f"q, k and v need a contiguous last dimension and "
+                         f"16-byte aligned bases and strides, got strides "
+                         f"{strides} of {q.element_size()}-byte elements")
+    return strides
 
 
-def kernel_route(q: torch.Tensor) -> str:
-    """Which kernel :func:`flash_attention` launches for this CUDA tensor:
-    ``"single"`` while the whole sequence fits one block's opt-in shared
-    memory, ``"flash"`` beyond."""
-    lib = _library()
-    _, s, dh = q.shape
-    optin = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
-    return ("single" if lib.attention_single_smem(s, dh, q.element_size())
-            <= optin else "flash")
+def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+              chosen: Optional[Plan]):
+    """Checks, the plan, the output and the C entry's arguments up to the
+    stream, for q, k, v of shape (B, S, heads * dh)."""
+    strides = _check(q, k, v, heads)
+    b, s, dm = q.shape
+    dh = dm // heads
+    if chosen is None:
+        chosen = _plan_for(q.device, s, dh, q.dtype, b * heads)
+    if not _FORWARD:
+        _library()
+    out = torch.empty((b, s, dm), dtype=q.dtype, device=q.device)
+    key = (strides, s, dm, heads)
+    c_strides = _STRIDES.get(key)
+    if c_strides is None:
+        if len(_STRIDES) >= 256:
+            _STRIDES.clear()
+        (qb, qr, _), (kb, kr, _), (vb, vr, _) = strides
+        c_strides = _STRIDES[key] = _Strides(          # batch, head, row
+            qb, dh, qr, kb, dh, kr, vb, dh, vr, s * dm, dh, dm)
+    return chosen, out, (
+        _VARIANT_CODES[chosen.variant], chosen.kb, chosen.stages,
+        chosen.warpgroups, _DTYPE_CODES[q.dtype], b, heads, s, dh,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _enqueue(chosen: Plan, args: Tuple, index: int) -> None:
+    """Launch on the current stream of device ``index`` (the current
+    device), check the launch, count it."""
     global SINGLE_LAUNCHES, FLASH_LAUNCHES
-    _check(q, k, v)
-    lib = _library()
-    bh, s, dh = q.shape
-    with torch.cuda.device(q.device):
-        route = kernel_route(q)
-        fn = (lib.attention_single_forward if route == "single"
-              else lib.attention_flash_forward)
-        out = torch.empty_like(q)
-        err = fn(_DTYPE_CODES[q.dtype], bh, s, dh, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    err = _FORWARD[chosen.route](*args, _stream_handle(index))
     if err != 0:
-        raise RuntimeError(f"attention_{route}_forward failed: CUDA error {err}")
-    if route == "single":
+        raise RuntimeError(f"attention_{chosen.route}_forward ({chosen.variant}"
+                           f") failed: CUDA error {err}")
+    if chosen.route == "single":
         SINGLE_LAUNCHES += 1
     else:
         FLASH_LAUNCHES += 1
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            heads: int = 1, chosen: Optional[Plan] = None) -> torch.Tensor:
+    """One kernel launch on q, k, v of shape (B, S, heads * dh), read where
+    they lie (any batch and row strides); returns a contiguous (B, S, heads
+    * dh).  ``chosen`` overrides the plan."""
+    index = q.device.index
+    if q.is_cuda and index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(q, k, v, heads, chosen)
+    chosen, out, args = _operands(q, k, v, heads, chosen)
+    _enqueue(chosen, args, index)
     return out
+
+
+def prepared(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             heads: int = 1, chosen: Optional[Plan] = None):
+    """``(out, launch)``: ``launch()`` enqueues the kernel on these operands
+    into ``out`` again and nothing else, on the current stream of the
+    current device.  For timing a launch apart from the wrapper, one variant
+    beside another (``chosen``), and for capture into a CUDA graph."""
+    chosen, out, args = _operands(q, k, v, heads, chosen)
+    index = q.device.index
+    return out, lambda: _enqueue(chosen, args, index)
+
+
+def _split(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, heads * dh) as the (B, heads, S, dh) view the plain version
+    takes."""
+    b, s, dm = t.shape
+    return t.reshape(b, s, heads, dm // heads).transpose(1, 2)
+
+
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           heads: int) -> torch.Tensor:
+    """The plain version on (B, S, heads * dh)."""
+    out = attention_reference(_split(q, heads), _split(k, heads),
+                              _split(v, heads))
+    return out.transpose(1, 2).reshape(q.shape)
 
 
 class _Flash(torch.autograd.Function):
@@ -136,9 +317,10 @@ class _Flash(torch.autograd.Function):
     the JAX ``custom_vjp`` (neither TPU kernel has a backward kernel)."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, heads):
         ctx.save_for_backward(q, k, v)
-        return _launch(q, k, v)
+        ctx.heads = heads
+        return _launch(q, k, v, heads)
 
     @staticmethod
     def backward(ctx, grad):
@@ -146,19 +328,31 @@ class _Flash(torch.autograd.Function):
             qkv = [t.detach().requires_grad_(need)
                    for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
             inputs = [t for t in qkv if t.requires_grad]
-            grads = iter(torch.autograd.grad(attention_reference(*qkv),
-                                             inputs, grad))
-        return tuple(next(grads) if t.requires_grad else None for t in qkv)
+            grads = iter(torch.autograd.grad(_plain(*qkv, ctx.heads), inputs,
+                                             grad))
+        return (*(next(grads) if t.requires_grad else None for t in qkv), None)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            heads: int) -> torch.Tensor:
+    """The kernels on (B, S, heads * dh); through the autograd Function only
+    when a gradient is wanted."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, heads)
+    return _launch(q, k, v, heads)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Attention over (batch*heads, S, dh) per-head inputs: a CUDA kernel
-    for CUDA tensors (chosen by length, see the module docstring; raises if
-    it cannot launch), the plain version for CPU tensors."""
+    for CUDA tensors (chosen by :func:`plan`; raises if it cannot launch),
+    the plain version for CPU tensors.  The kernels read the operands in
+    place and copy nothing: a CUDA operand whose last dimension is not
+    contiguous, or whose base or strides are not 16-byte aligned, raises."""
     if not q.is_cuda:
         return attention_reference(q, k, v)
-    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous())
+    return _attend(q, k, v, 1)
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,23 +364,16 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``None`` takes the CUDA kernels for a CUDA tensor and the plain version
     for a CPU tensor; ``False`` always takes the plain version; ``True`` on
     a CPU tensor raises (the kernels have no CPU mode).
+
+    The kernels read q, k and v in place (any views whose last dimension is
+    contiguous, such as the three ``chunk`` s of a qkv product) and write
+    (B, S, D_model): one launch, no copy.
     """
-    b, s, dm = q.shape
-    dh = dm // num_heads
     if use_kernel is None:
         use_kernel = q.is_cuda
     elif use_kernel and not q.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors: the attention "
                          "kernels have no CPU mode")
-
-    def split(x):
-        return x.reshape(b, s, num_heads, dh).transpose(1, 2)
-
-    qh, kh, vh = split(q), split(k), split(v)
     if use_kernel:
-        out = flash_attention(*(x.reshape(b * num_heads, s, dh)
-                                for x in (qh, kh, vh)))
-        out = out.reshape(b, num_heads, s, dh)
-    else:
-        out = attention_reference(qh, kh, vh)
-    return out.transpose(1, 2).reshape(b, s, dm)
+        return _attend(q, k, v, num_heads)
+    return _plain(q, k, v, num_heads)

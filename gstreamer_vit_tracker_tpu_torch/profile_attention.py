@@ -1,40 +1,45 @@
-"""Times of the attention kernels by shape of their CTAs.
+"""Times of the attention kernels by variant, key block, stages and
+warpgroups.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python -m gstreamer_vit_tracker_tpu_torch.profile_attention
 
-``csrc/attention.cu`` takes the CTA shapes (warps, query rows a warp) of its
-two kernels as ``-D`` macros.  This script builds it once per candidate
-shape (all ``nvcc`` processes at once, into ``build/torch_kernels/shapes``),
-checks every build against ``attention_reference`` and prints, for a few
-(batch*heads, S, dh) cases, the mean time of 200 launches on CUDA events
-beside ``F.scaled_dot_product_attention`` on the same tensors.  The shapes
-compiled into the port are the source's defaults.
+For a few (batch*heads, S, dh) cases this script launches every
+configuration of ``csrc/attention.cu`` that fits the card's shared memory
+through ``ops/attention.py::prepared`` (one launch on ready operands): the
+``mma`` variant of ``attention_single`` with 64- and 128-key blocks, of
+``attention_flash`` with 64- and 128-key blocks, 2 stages and 1 or 2
+warpgroups or 3 stages and 1, and the ``simt`` variant of both kernels.  It
+checks each against ``attention_reference`` and prints the device time of a
+launch in microseconds (20 launches captured into a CUDA graph and replayed,
+so the host's enqueue time is not read as the kernel's) beside
+``F.scaled_dot_product_attention`` on the same tensors, then the host-side
+times (CUDA events over back-to-back calls) of ``flash_attention``, of one
+prepared launch and of the library call.  The configuration that
+``ops/attention.py::plan`` takes is marked with ``*``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
 import subprocess
 
 import torch
 import torch.nn.functional as F
 
-from .ops import cuda_build
-from .ops.attention import attention_reference
+from .ops import attention
 
-# (warps, rows a warp) of the single kernel, then of the flash kernel.
-SHAPES = ((16, 4, 8, 4), (8, 4, 4, 4), (8, 8, 4, 8), (16, 2, 8, 8),
-          (12, 4, 16, 4), (4, 8, 8, 2), (10, 8, 4, 2))
-CASES = (("single", 48, 320, 64, torch.bfloat16),
-         ("single", 3, 320, 64, torch.bfloat16),
-         ("single", 32, 80, 48, torch.float32),
-         ("flash", 3, 1088, 64, torch.bfloat16),
-         ("flash", 48, 1088, 64, torch.bfloat16),
-         ("flash", 3, 1088, 64, torch.float32),
-         ("flash", 4, 777, 128, torch.bfloat16))
+CASES = ((48, 320, 64, torch.bfloat16), (3, 320, 64, torch.bfloat16),
+         (3, 1088, 64, torch.bfloat16), (48, 1088, 64, torch.bfloat16),
+         (3, 600, 64, torch.bfloat16), (48, 600, 64, torch.bfloat16),
+         (4, 777, 128, torch.bfloat16), (48, 320, 32, torch.bfloat16),
+         (48, 320, 64, torch.float32), (3, 1088, 64, torch.float32))
+P = attention.Plan
+CONFIGS = ([P("single", "mma", 64), P("single", "mma", 128)]
+           + [P("flash", "mma", kb, stages, wg) for kb in (64, 128)
+              for stages, wg in ((2, 1), (2, 2), (3, 1))]
+           + [P("single", "simt"), P("flash", "simt")])
+GRAPH_LAUNCHES = 20
 
 
 def _ms(fn, iters: int = 200) -> float:
@@ -51,6 +56,19 @@ def _ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_us(launch) -> float:
+    launch()
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(GRAPH_LAUNCHES):
+                launch()
+    torch.cuda.synchronize()
+    return _ms(graph.replay, iters=20) / GRAPH_LAUNCHES * 1e3
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_attention needs an NVIDIA GPU")
@@ -58,58 +76,41 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
-    out_dir = os.path.join(cuda_build.BUILD_DIR, "shapes")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(cuda_build.CSRC, "attention.cu")
-    procs = []
-    for sw, sr, fw, fr in SHAPES:
-        out = os.path.join(out_dir, f"libattention_{sw}_{sr}_{fw}_{fr}.so")
-        cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, f"-DSINGLE_W={sw}",
-               f"-DSINGLE_R={sr}", f"-DFLASH_W={fw}", f"-DFLASH_R={fr}",
-               "-o", out, src]
-        procs.append(((sw, sr, fw, fr), out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for shape, out, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for shape {shape}:\n{log}")
-        lib = ctypes.CDLL(out)
-        for fn in (lib.attention_single_forward, lib.attention_flash_forward):
-            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
-            fn.restype = ctypes.c_int
-        libs[shape] = lib
-
     dev = torch.device("cuda", 0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for which, bh, s, dh, dtype in CASES:
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for bh, s, dh, dtype in CASES:
         gen = torch.Generator().manual_seed(s + dh)
         q, k, v = (torch.randn((bh, s, dh), generator=gen).to(dev, dtype)
                    for _ in range(3))
-        ref = attention_reference(q, k, v).float()
-        out = torch.empty_like(q)
-        sdpa = _ms(lambda: F.scaled_dot_product_attention(q[None], k[None],
-                                                          v[None]))
+        ref = attention.attention_reference(q, k, v).float()
+        taken = attention._plan_for(dev, s, dh, dtype, bh)
         cells = []
-        for shape, lib in libs.items():
-            fn = (lib.attention_single_forward if which == "single"
-                  else lib.attention_flash_forward)
-
-            def call():
-                return fn(int(dtype == torch.bfloat16), bh, s, dh,
-                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), stream)
-
-            wr = shape[:2] if which == "single" else shape[2:]
-            if call() != 0:          # this shape's shared memory does not fit
-                cells.append(f"{wr}: does not launch")
+        for p in CONFIGS:
+            mma_ok = dtype == torch.bfloat16 and dh in (32, 64, 128)
+            if (p.variant == "mma" and not mma_ok) or attention.smem_bytes(
+                    p.route, p.variant, s, dh, q.element_size(), p.kb,
+                    p.stages, p.warpgroups) > optin:
                 continue
+            out, launch = attention.prepared(q, k, v, chosen=p)
+            launch()
             torch.cuda.synchronize()
             err = (out.float() - ref).abs().max().item()
-            cells.append(f"{wr}: {_ms(call):.4f} ms, max|d| {err:.1e}")
-        print(f"{which} ({bh}, {s}, {dh}) {str(dtype)[6:]} | "
-              f"scaled_dot_product_attention {sdpa:.4f} ms | "
+            mark = "*" if p == taken else ""
+            cells.append(f"{mark}{p.route} {p.variant} {p.kb}/{p.stages}/"
+                         f"{p.warpgroups}: {_graph_us(launch):.1f} us, "
+                         f"max|d| {err:.1e}")
+
+        def library():
+            return F.scaled_dot_product_attention(q[None], k[None], v[None])
+
+        _, launch = attention.prepared(q, k, v)
+        print(f"({bh}, {s}, {dh}) {str(dtype)[6:]} | "
+              f"scaled_dot_product_attention {_graph_us(library):.1f} us | "
               + " | ".join(cells), flush=True)
+        print(f"    host side, ms a call on CUDA events: flash_attention "
+              f"{_ms(lambda: attention.flash_attention(q, k, v)):.4f}, one "
+              f"prepared launch {_ms(launch):.4f}, "
+              f"scaled_dot_product_attention {_ms(library):.4f}", flush=True)
 
 
 if __name__ == "__main__":

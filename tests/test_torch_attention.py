@@ -8,9 +8,16 @@ JAX's Pallas ``flash_attention`` in interpret mode, at the shapes of
 (S > 1024), and lengths whose padding to the 128 grid needs the tail mask.
 Same inputs on both sides, made with numpy from a seed.
 
+Also what a CPU run can say of the CUDA kernels: the rule that picks kernel
+and variant (``plan``, a pure function) at the H100's shared-memory size,
+the shared-memory formula it is decided on, an emulation of the ``mma``
+variant's arithmetic (key blocks, scale after the product, p rounded to
+bf16) against JAX's kernels, and ``multihead_attention`` on strided views.
+
 Tolerances: float32 2e-5 (JAX's own kernel-vs-reference tolerance; the
 sums run in another order); bf16 inputs 2^-8 of the largest value (one
-output ulp).
+output ulp); the emulated bf16-p arithmetic 2^-7 of the largest value (the
+tolerance the kernels are held to on the card).
 """
 
 import numpy as np
@@ -146,3 +153,179 @@ def test_flash_attention_backward_on_cpu_is_the_references():
                                 (q, k, v))
     for a, b in zip(g, g_ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The rule that picks kernel and variant, at the H100's opt-in shared memory
+# ---------------------------------------------------------------------------
+
+H100_OPTIN = 232448
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("s,dh,dtype,route,variant", [
+    (320, 64, BF16, "single", "mma"),      # the serving shape
+    (1088, 64, BF16, "flash", "mma"),      # the long-sequence shape
+    (320, 64, F32, "flash", "simt"),       # the training step
+    (33, 8, BF16, "single", "simt"),       # a head dim the tiles do not take
+    (384, 64, BF16, "single", "mma"),      # the last length that fits twice
+    (448, 64, BF16, "flash", "mma"),
+    (33, 128, BF16, "single", "mma"),
+    (200, 32, BF16, "single", "mma"),
+    (1200, 32, BF16, "flash", "mma"),
+    (777, 128, BF16, "flash", "mma"),
+    (80, 48, BF16, "single", "simt"),
+    (80, 48, F32, "single", "simt"),
+    (128, 64, F32, "single", "simt"),
+    (4099, 8, F32, "flash", "simt"),
+    (4099, 8, BF16, "flash", "simt"),
+])
+def test_plan_route_and_variant(s, dh, dtype, route, variant):
+    got = tattn.plan(s, dh, dtype, H100_OPTIN)
+    assert (got.route, got.variant) == (route, variant)
+    eb = 2 if dtype == BF16 else 4
+    # What is launched fits the card.
+    assert tattn.smem_bytes(route, variant, s, dh, eb, got.kb, got.stages,
+                            got.warpgroups) <= H100_OPTIN
+    if variant == "simt":
+        assert (got.kb, got.stages, got.warpgroups) == (0, 0, 1)
+    elif route == "single":
+        assert (got.kb, got.stages, got.warpgroups) == (64, 0, 1)
+
+
+@pytest.mark.parametrize("s,dh,bh,kb,warpgroups", [
+    (1088, 64, 3, 128, 2),       # 51 tiles for 132 SMs: split the keys
+    (1088, 64, 48, 64, 1),       # 816 tiles: more CTAs an SM instead
+    (1088, 64, 7, 128, 2),       # 119 tiles
+    (1088, 64, 8, 64, 1),        # 136 tiles
+    (1001, 128, 2, 64, 2),       # two 128-key stages of dh 128 do not fit
+])
+def test_plan_shapes_the_ring_by_the_grid(s, dh, bh, kb, warpgroups):
+    got = tattn.plan(s, dh, BF16, H100_OPTIN, bh=bh, sms=132)
+    assert got == tattn.Plan("flash", "mma", kb, 2, warpgroups)
+    assert tattn.smem_bytes("flash", "mma", s, dh, 2, kb, 2,
+                            warpgroups) <= H100_OPTIN
+
+
+@pytest.mark.parametrize("args,want", [
+    # Q tile + K and V of 320 keys as 128-byte rows, + alignment slack.
+    (("single", "mma", 320, 64, 2, 64), 1024 + (64 + 2 * 320) * 128),
+    (("single", "mma", 321, 64, 2, 64), 1024 + (64 + 2 * 384) * 128),
+    (("single", "mma", 320, 64, 2, 128), 1024 + (64 + 2 * 384) * 128),
+    (("flash", "mma", 1088, 64, 2, 128, 2, 2), 1024 + (64 + 2 * 512) * 128),
+    (("flash", "mma", 99999, 32, 2, 64, 3, 1), 1024 + (64 + 2 * 192) * 64),
+    # K^T at an odd word stride (161 words), V, the f32 q tile, f32 scores.
+    (("single", "simt", 320, 64, 2), 64 * 322 * 2 + 320 * 64 * 2
+     + 64 * 64 * 4 + 64 * 320 * 4),
+    (("flash", "simt", 5000, 64, 4), 64 * 131 * 4 + 128 * 64 * 4
+     + 32 * 64 * 4 + 32 * 128 * 4),
+])
+def test_smem_bytes(args, want):
+    assert tattn.smem_bytes(*args) == want
+
+
+def test_plan_takes_single_only_while_two_ctas_fit_an_sm():
+    fits = [s for s in range(64, 1025, 64)
+            if tattn.plan(s, 64, BF16, H100_OPTIN).route == "single"]
+    assert fits == [64, 128, 192, 256, 320, 384]
+    # The simt variant holds the f32 scores too: about 420 keys in bf16.
+    simt = [s for s in range(64, 1025, 64)
+            if tattn.plan(s, 48, BF16, H100_OPTIN).route == "single"]
+    assert simt and max(simt) < 512
+
+
+# ---------------------------------------------------------------------------
+# The mma variant's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def _emulate_mma(q, k, v, kb):
+    """What the mma kernels compute for bf16 q, k, v of shape (B, S, dh):
+    f32 scores of exact bf16 products, online softmax over blocks of ``kb``
+    keys with dh^-1/2 . log2(e) applied to the scores, the row sum taken of
+    the f32 p, p rounded to bf16 for P.V, one rounding of o / l."""
+    b, s, dh = q.shape
+    c = torch.tensor(dh ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    m = torch.full((b, s, 1), float("-inf"))
+    l = torch.zeros((b, s, 1))
+    o = torch.zeros((b, s, dh))
+    for k0 in range(0, s, kb):
+        kj, vj = k[:, k0:k0 + kb].float(), v[:, k0:k0 + kb].float()
+        sc = q.float() @ kj.transpose(1, 2)
+        m_new = torch.maximum(m, sc.max(-1, keepdim=True).values)
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(sc * c - m_new * c)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vj
+        m = m_new
+    return (o / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kb", [64, 128])
+@pytest.mark.parametrize("b,s,d", [(3, 320, 64), (1, 1200, 32), (2, 33, 128)])
+def test_mma_arithmetic_matches_jax_kernels(b, s, d, kb):
+    q, k, v = _qkv(b, s, d, seed=6)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = np.asarray(jattn.flash_attention(jq, jk, jv, interpret=True),
+                     np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _emulate_mma(tq, tk, tv, kb).float().numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 2.0 ** -7 * np.abs(ref).max()
+    # And against the port's own plain version, which the card run uses.
+    plain = tattn.attention_reference(tq, tk, tv).float().numpy()
+    assert np.abs(got - plain).max() <= 2.0 ** -7 * np.abs(plain).max()
+
+
+def test_mma_arithmetic_large_values():
+    # v scaled by 100, as test_attention.py::test_flash_padding_does_not_leak:
+    # the tolerance scales with the values, the ragged last block (320 = 2 x
+    # 128 + 64) adds nothing.
+    q, k, v = _qkv(1, 320, 64, seed=7, v_scale=100.0)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    plain = tattn.attention_reference(tq, tk, tv).float()
+    got = _emulate_mma(tq, tk, tv, 128).float()
+    assert (got - plain).abs().max() <= 2.0 ** -7 * plain.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# multihead_attention on views of one qkv array
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("heads", [3, 4])
+def test_multihead_on_chunk_views_matches_jax_and_contiguous(heads):
+    rng = np.random.default_rng(14)
+    qkv = rng.standard_normal((2, 37, 144)).astype(np.float32)
+    q, k, v = np.split(qkv, 3, axis=-1)
+    ref = jattn.multihead_attention(*map(jnp.asarray, (q, k, v)), heads,
+                                    use_pallas=False)
+    tq, tk, tv = torch.chunk(torch.from_numpy(qkv), 3, dim=-1)
+    assert not tq.is_contiguous() and tq.stride() == (37 * 144, 144, 1)
+    got = tattn.multihead_attention(tq, tk, tv, heads)
+    assert got.shape == (2, 37, 48) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    again = tattn.multihead_attention(tq.contiguous(), tk.contiguous(),
+                                      tv.contiguous(), heads)
+    np.testing.assert_array_equal(got.numpy(), again.numpy())
+
+
+def test_multihead_backward_on_chunk_views():
+    rng = np.random.default_rng(15)
+    qkv = torch.from_numpy(rng.standard_normal((2, 11, 96)).astype(np.float32)
+                           ).requires_grad_(True)
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    (g,) = torch.autograd.grad((tattn.multihead_attention(q, k, v, 2) ** 2
+                                ).sum(), [qkv])
+    qc, kc, vc = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    gs = torch.autograd.grad((tattn.multihead_attention(
+        qc, kc, vc, 2, use_kernel=False) ** 2).sum(), [qc, kc, vc])
+    np.testing.assert_allclose(g.numpy(), torch.cat(gs, -1).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_prepared_refuses_cpu_tensors():
+    q = torch.zeros((2, 8, 16))
+    before = (tattn.SINGLE_LAUNCHES, tattn.FLASH_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.prepared(q, q, q)
+    assert (tattn.SINGLE_LAUNCHES, tattn.FLASH_LAUNCHES) == before

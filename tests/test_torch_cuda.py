@@ -1,8 +1,9 @@
 """PyTorch port on an NVIDIA GPU: the CUDA encoder kernel against its
 plain twin, its input checks, its launch count, its backward, and the
 tracking step on the card against the same step on the CPU; the two
-attention kernels against ``attention_reference``, their dispatch by
-length, input checks, launch counts and backward; the per-block encode
+attention kernels against ``attention_reference`` (both variants, every
+built configuration), their dispatch by length, dtype and head dim, the
+strided entry, input checks, launch counts and backward; the per-block encode
 route and a batched engine tick on the card against the CPU; the one-block
 kernel (``vit_block.block``) and the NV12-to-tokens kernel
 (``fused_prep_embed.nv12_search_tokens``) against their plain versions, with
@@ -177,20 +178,26 @@ def _check_attention(got, ref, dtype):
 
 
 # (batch*heads, S, dh, the kernel flash_attention takes in float32, in bf16):
-# K and V of float32 need twice the shared memory, so the serving shape is
-# whole-sequence in bf16 and blocked in float32.
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,s,dh,route32,route16", [
+# float32 (the simt variant) holds K, V and the f32 scores in shared memory,
+# bf16 at head dim 32, 64 or 128 (the mma variant) K and V alone, twice an
+# SM, so the serving shape is whole-sequence in bf16 and blocked in float32.
+ATTENTION_SHAPES = [
     (48, 320, 64, "flash", "single"), (2, 128, 64, "single", "single"),
     (3, 200, 32, "single", "single"), (4, 80, 48, "single", "single"),
     (2, 1, 8, "single", "single"), (5, 33, 128, "single", "single"),
     (3, 1088, 64, "flash", "flash"), (1, 1200, 32, "flash", "flash"),
-    (2, 777, 128, "flash", "flash"), (1, 4099, 8, "flash", "flash")])
+    (2, 777, 128, "flash", "flash"), (1, 4099, 8, "flash", "flash")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,dh,route32,route16", ATTENTION_SHAPES)
 def test_attention_kernels_match_reference(dev, dtype, bh, s, dh, route32,
                                            route16):
     route = route32 if dtype == torch.float32 else route16
     q, k, v = _qkv(bh, s, dh, dtype, dev)
     assert attention.kernel_route(q) == route
+    assert attention.kernel_variant(q) == (
+        "mma" if dtype == torch.bfloat16 and dh in (32, 64, 128) else "simt")
     before = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
     got = attention.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -198,6 +205,92 @@ def test_attention_kernels_match_reference(dev, dtype, bh, s, dh, route32,
     assert after == ((before[0] + 1, before[1]) if route == "single"
                      else (before[0], before[1] + 1))
     _check_attention(got, attention.attention_reference(q, k, v), dtype)
+
+
+def _configurations(s, dh, optin):
+    """Every built configuration of both variants that takes bf16 at this
+    shape on a card with ``optin`` bytes of opt-in shared memory."""
+    plans = [attention.Plan("single", "simt"), attention.Plan("flash", "simt")]
+    if dh in (32, 64, 128):
+        plans += [attention.Plan("single", "mma", kb) for kb in (64, 128)]
+        plans += [attention.Plan("flash", "mma", kb, st, wg)
+                  for kb in (64, 128) for st, wg in ((2, 1), (2, 2), (3, 1))]
+    return [p for p in plans if attention.smem_bytes(
+        p.route, p.variant, s, dh, 2, p.kb, p.stages, p.warpgroups) <= optin]
+
+
+@pytest.mark.parametrize("bh,s,dh", [c[:3] for c in ATTENTION_SHAPES])
+def test_attention_both_variants_match_reference(dev, bh, s, dh):
+    # The rule takes one configuration a shape; every one that is built and
+    # fits must compute the same function (profile_attention.py times them).
+    q, k, v = _qkv(bh, s, dh, torch.bfloat16, dev)
+    ref = attention.attention_reference(q, k, v)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    plans = _configurations(s, dh, optin)
+    assert any(p.variant == "simt" for p in plans)
+    assert any(p.variant == "mma" for p in plans) == (dh in (32, 64, 128))
+    for p in plans:
+        got = attention._launch(q, k, v, 1, p)
+        torch.cuda.synchronize()
+        _check_attention(got, ref, torch.bfloat16)
+
+
+def test_kernel_variant_follows_dtype_and_head_dim(dev):
+    for dh, dtype, want in ((64, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"),
+                            (128, torch.bfloat16, "mma"), (48, torch.bfloat16, "simt"),
+                            (8, torch.bfloat16, "simt"), (64, torch.float32, "simt")):
+        q = torch.zeros((2, 40, 3 * dh), device=dev, dtype=dtype)
+        assert attention.kernel_variant(q, num_heads=3) == want
+        assert attention.kernel_variant(q[..., :dh]) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,heads", [(16, 320, 192, 3), (2, 37, 128, 4),
+                                         (1, 1088, 192, 3), (3, 777, 64, 2)])
+def test_strided_entry_equals_the_contiguous_one(dev, dtype, b, s, d, heads):
+    # q, k, v as the three column blocks of one qkv buffer, read in place,
+    # against contiguous per-head copies through flash_attention: bit for bit.
+    gen = torch.Generator().manual_seed(s + d)
+    qkv = torch.randn((b, s, 3 * d), generator=gen).to(dev, dtype)
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
+    got = attention.multihead_attention(q, k, v, heads)
+    assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before + 1
+    assert got.shape == (b, s, d) and got.is_contiguous()
+    dh = d // heads
+    qh, kh, vh = (x.reshape(b, s, heads, dh).transpose(1, 2)
+                  .reshape(b * heads, s, dh).contiguous() for x in (q, k, v))
+    # Same plan on both sides: the copies have the same batch x heads.
+    want = attention.flash_attention(qh, kh, vh)
+    want = want.reshape(b, heads, s, dh).transpose(1, 2).reshape(b, s, d)
+    assert torch.equal(got, want)
+    _check_attention(got, attention.multihead_attention(
+        q, k, v, heads, use_kernel=False), dtype)
+
+
+def test_misaligned_operands_raise(dev):
+    base = torch.zeros((2, 40, 72), device=dev, dtype=torch.bfloat16)
+    good = base[..., :64]
+    for bad in (base[..., 4:68],                       # base off by 8 bytes
+                torch.zeros((2, 40, 68), device=dev,   # row stride 136 bytes
+                            dtype=torch.bfloat16)[..., :64],
+                good.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            attention.flash_attention(bad, good, good)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            attention.multihead_attention(good, good, bad, 1)
+
+
+def test_attention_large_values_bf16_zero_filled_tail(dev):
+    # v scaled by 100: keys past S are zeros in shared memory and -inf in the
+    # scores, so nothing of a ragged last block (320 = 5 x 64, 777 and 1088
+    # are no multiples of 128) leaks into the sums.
+    for s in (320, 777, 1088):
+        q, k, v = _qkv(3, s, 64, torch.bfloat16, dev, v_scale=100.0)
+        assert attention.kernel_variant(q) == "mma"
+        _check_attention(attention.flash_attention(q, k, v),
+                         attention.attention_reference(q, k, v),
+                         torch.bfloat16)
 
 
 def test_attention_large_values_do_not_leak_across_blocks(dev):
