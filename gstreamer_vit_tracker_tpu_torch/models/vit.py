@@ -173,12 +173,13 @@ def encode(params: Params, z_tok: torch.Tensor, x_tok: torch.Tensor,
     if fused is None:
         fused = x_tok.shape[0] == 1
     x = torch.cat([z_tok.to(dt), x_tok.to(dt)], dim=1)
-    blocks = [cast_params(bp, dt) for bp in params["blocks"]]
-    if fused and blocks:     # depth 0 has no blocks to fuse
-        x = vit_block.encoder(x, blocks, cfg.num_heads)
+    if fused and params["blocks"]:     # depth 0 has no blocks to fuse
+        # The masters go in as they are: the encoder casts and stacks them
+        # once per parameter set (on every call under a gradient).
+        x = vit_block.encoder(x, params["blocks"], cfg.num_heads)
     else:
-        for bp in blocks:
-            x = _block(x, bp, cfg.num_heads, use_kernel=use_kernel,
-                       native=True)
+        for bp in params["blocks"]:
+            x = _block(x, cast_params(bp, dt), cfg.num_heads,
+                       use_kernel=use_kernel, native=True)
     x = layer_norm(x, params["norm"])
     return x[:, z_tok.shape[1]:, :]

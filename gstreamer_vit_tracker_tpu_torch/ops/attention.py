@@ -31,7 +31,10 @@ and by length: ``attention_single`` while K and V of all S keys fit the shared
 memory of an SM twice over (``"mma"``: 384 keys at head dim 64 on the H100)
 or once (``"simt"``, which holds the f32 scores there too),
 ``attention_flash`` beyond.  No result depends on the rule.  It is a rule,
-not a fallback: a CUDA tensor launches the chosen kernel or raises.
+not a fallback: a CUDA tensor launches the chosen kernel or raises.  A head
+dim that is not a multiple of 8 or is above 128 raises; operands whose last
+dimension is not contiguous, or whose bases or strides are not multiples of
+16 bytes, are copied into contiguous ones first and then launched.
 
 :func:`attention_reference` is the plain version: what the CPU tests run,
 what the backward differentiates, and what the encoder kernel's plain twin
@@ -52,7 +55,8 @@ from . import cuda_build
 
 __all__ = ["attention_reference", "flash_attention", "kernel_route",
            "kernel_variant", "multihead_attention", "plan", "Plan",
-           "prepared", "smem_bytes", "SINGLE_LAUNCHES", "FLASH_LAUNCHES"]
+           "prepared", "smem_bytes", "card", "SINGLE_LAUNCHES",
+           "FLASH_LAUNCHES"]
 
 # Launches of each kernel since import (or since a caller reset them to 0).
 SINGLE_LAUNCHES = 0
@@ -113,7 +117,8 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
          bh: int = 1, sms: int = 132) -> Plan:
     """The kernel and variant for sequence length ``s``, head dim ``dh`` and
     ``dtype`` on a card whose blocks may opt in to ``optin_bytes`` of shared
-    memory.
+    memory.  A head dim that is not a multiple of 8 or is above 128 raises
+    ``ValueError``: no kernel takes it.
 
     Variant: ``"mma"`` for bf16 at the head dims the tiles take, ``"simt"``
     else.  Kernel: ``"mma"`` takes ``"single"`` while two CTAs that hold all
@@ -124,6 +129,9 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     tiles are fewer than the SMs, two warpgroups a CTA split the keys of
     128-key blocks; a grid that fills the card takes 64-key blocks, one
     warpgroup and more CTAs an SM."""
+    if dh < 1 or dh % 8 or dh > _MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} must be a multiple of 8 up to "
+                         f"{_MAX_HEAD_DIM}")
     eb = 2 if dtype == torch.bfloat16 else 4
     if dtype == torch.bfloat16 and dh in _MMA_HEAD_DIMS:
         if smem_bytes("single", "mma", s, dh, eb, kb=64) <= optin_bytes // 2:
@@ -160,19 +168,44 @@ _STRIDES: Dict[Tuple, ctypes.Array] = {}  # element strides -> the C array
 _raw_stream = None                       # current stream handle of a device
 
 
+def card(device: torch.device) -> Tuple[int, int]:
+    """(opt-in shared memory of a block in bytes, SMs) of a CUDA device,
+    read once per device."""
+    got = _CARD.get(device.index)
+    if got is None:
+        props = torch.cuda.get_device_properties(device)
+        got = _CARD[device.index] = (props.shared_memory_per_block_optin,
+                                     props.multi_processor_count)
+    return got
+
+
 def _plan_for(device: torch.device, s: int, dh: int, dtype: torch.dtype,
               bh: int) -> Plan:
     """:func:`plan` on this device, decided once per argument tuple."""
     key = (device.index, s, dh, dtype, bh)
     chosen = _PLANS.get(key)
     if chosen is None:
-        card = _CARD.get(device.index)
-        if card is None:
-            props = torch.cuda.get_device_properties(device)
-            card = _CARD[device.index] = (props.shared_memory_per_block_optin,
-                                          props.multi_processor_count)
-        chosen = _PLANS[key] = plan(s, dh, dtype, card[0], bh, card[1])
+        optin, sms = card(device)
+        chosen = _PLANS[key] = plan(s, dh, dtype, optin, bh, sms)
     return chosen
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Whether ``t`` has a contiguous last dimension and a 16-byte aligned
+    base and strides (what the kernels read in place)."""
+    *lead, last = t.stride()
+    bits = t.data_ptr()
+    for st in lead:
+        bits |= st * t.element_size()
+    return last == 1 and not bits & 15
+
+
+def _laid_out(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each tensor where the kernels can read it in place, else a
+    contiguous copy (whose base and strides are then 16-byte aligned: the
+    head dim is a multiple of 8)."""
+    return tuple(t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
 
 
 def _stream_handle(index: int) -> int:
@@ -202,7 +235,7 @@ def kernel_variant(q: torch.Tensor, num_heads: int = 1) -> str:
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            heads: int) -> Tuple:
     """Raise on anything the kernels do not take; return the strides of q,
-    k and v."""
+    k and v (laid out by :func:`_laid_out`)."""
     if not q.is_cuda:
         raise ValueError("the attention kernels need CUDA tensors")
     dtype, shape = q.dtype, q.shape
@@ -221,15 +254,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("k or v: " + ", ".join(
             f"{tuple(t.shape)} {t.dtype} on {t.device}" for t in (k, v))
             + f"; expected {tuple(shape)} {dtype} on {q.device}")
-    strides = (q.stride(), k.stride(), v.stride())
-    (qb, qr, qd), (kb, kr, kd), (vb, vr, vd) = strides
-    if (qd != 1 or kd != 1 or vd != 1
-            or ((qb | qr | kb | kr | vb | vr) * q.element_size()
-                | q.data_ptr() | k.data_ptr() | v.data_ptr()) & 15):
-        raise ValueError(f"q, k and v need a contiguous last dimension and "
-                         f"16-byte aligned bases and strides, got strides "
-                         f"{strides} of {q.element_size()}-byte elements")
-    return strides
+    return q.stride(), k.stride(), v.stride()
 
 
 def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
@@ -275,12 +300,14 @@ def _enqueue(chosen: Plan, args: Tuple, index: int) -> None:
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             heads: int = 1, chosen: Optional[Plan] = None) -> torch.Tensor:
     """One kernel launch on q, k, v of shape (B, S, heads * dh), read where
-    they lie (any batch and row strides); returns a contiguous (B, S, heads
-    * dh).  ``chosen`` overrides the plan."""
+    they lie (any batch and row strides whose layout the kernels take, else
+    copied first); returns a contiguous (B, S, heads * dh).  ``chosen``
+    overrides the plan."""
     index = q.device.index
     if q.is_cuda and index != torch.cuda.current_device():
         with torch.cuda.device(index):
             return _launch(q, k, v, heads, chosen)
+    q, k, v = _laid_out(q, k, v)
     chosen, out, args = _operands(q, k, v, heads, chosen)
     _enqueue(chosen, args, index)
     return out
@@ -292,9 +319,14 @@ def prepared(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     into ``out`` again and nothing else, on the current stream of the
     current device.  For timing a launch apart from the wrapper, one variant
     beside another (``chosen``), and for capture into a CUDA graph."""
+    q, k, v = _laid_out(q, k, v)
     chosen, out, args = _operands(q, k, v, heads, chosen)
     index = q.device.index
-    return out, lambda: _enqueue(chosen, args, index)
+
+    def launch(keep=(q, k, v)):   # the operands live as long as launch does
+        _enqueue(chosen, args, index)
+
+    return out, launch
 
 
 def _split(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -348,8 +380,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     """Attention over (batch*heads, S, dh) per-head inputs: a CUDA kernel
     for CUDA tensors (chosen by :func:`plan`; raises if it cannot launch),
     the plain version for CPU tensors.  The kernels read the operands in
-    place and copy nothing: a CUDA operand whose last dimension is not
-    contiguous, or whose base or strides are not 16-byte aligned, raises."""
+    place where their layout allows (else a copy is made first)."""
     if not q.is_cuda:
         return attention_reference(q, k, v)
     return _attend(q, k, v, 1)
@@ -363,10 +394,13 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``use_kernel`` is the counterpart of the JAX package's ``use_pallas``:
     ``None`` takes the CUDA kernels for a CUDA tensor and the plain version
     for a CPU tensor; ``False`` always takes the plain version; ``True`` on
-    a CPU tensor raises (the kernels have no CPU mode).
+    a CPU tensor raises (the kernels have no CPU mode).  On a CUDA tensor
+    the kernels launch or raise (a head dim they cannot take): the plain
+    version is reached there only by ``use_kernel=False``.
 
     The kernels read q, k and v in place (any views whose last dimension is
-    contiguous, such as the three ``chunk`` s of a qkv product) and write
+    contiguous and whose bases and strides are 16-byte aligned, such as the
+    three ``chunk`` s of a qkv product; others are copied first) and write
     (B, S, D_model): one launch, no copy.
     """
     if use_kernel is None:

@@ -12,7 +12,9 @@ Also what a CPU run can say of the CUDA kernels: the rule that picks kernel
 and variant (``plan``, a pure function) at the H100's shared-memory size,
 the shared-memory formula it is decided on, an emulation of the ``mma``
 variant's arithmetic (key blocks, scale after the product, p rounded to
-bf16) against JAX's kernels, and ``multihead_attention`` on strided views.
+bf16) against JAX's kernels and, in the flagship's served tick, against
+JAX's ``multi.update_streams`` (maps 0.05, the same peak cell, confidence
+0.02, boxes 2 px), and ``multihead_attention`` on strided views.
 
 Tolerances: float32 2e-5 (JAX's own kernel-vs-reference tolerance; the
 sums run in another order); bf16 inputs 2^-8 of the largest value (one
@@ -25,10 +27,26 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from gstreamer_vit_tracker_tpu.app.main import PRESETS as JAX_PRESETS  # noqa: E402
+from gstreamer_vit_tracker_tpu.models import heads as jheads  # noqa: E402
+from gstreamer_vit_tracker_tpu.models import vittrack as jvittrack  # noqa: E402
+from gstreamer_vit_tracker_tpu.models import weights as jweights  # noqa: E402
 from gstreamer_vit_tracker_tpu.ops import attention as jattn  # noqa: E402
+from gstreamer_vit_tracker_tpu.ops import preprocess as jpp  # noqa: E402
+from gstreamer_vit_tracker_tpu.tracker import core as jcore  # noqa: E402
+from gstreamer_vit_tracker_tpu.tracker import multi as jmulti  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.config import PRESETS  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.models import heads as theads  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.models import vit as tvit  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.models import vittrack as tvittrack  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.models import weights as tweights  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.ops import attention as tattn  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.ops import preprocess as tpp  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.tracker import core as tcore  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.tracker import multi as tmulti  # noqa: E402
 
 SHAPES = [(2, 128, 64), (1, 320, 64), (3, 200, 32), (1, 1200, 32)]
 
@@ -285,6 +303,112 @@ def test_mma_arithmetic_large_values():
     plain = tattn.attention_reference(tq, tk, tv).float()
     got = _emulate_mma(tq, tk, tv, 128).float()
     assert (got - plain).abs().max() <= 2.0 ** -7 * plain.abs().max()
+
+
+def _emulated_multihead(q, k, v, num_heads, use_kernel=None):
+    """``multihead_attention`` with the mma variant's arithmetic (64-key
+    blocks, the serving shape's configuration) on (B, S, heads * dh)."""
+    b, s, d = q.shape
+    dh = d // num_heads
+
+    def split(t):
+        return (t.reshape(b, s, num_heads, dh).transpose(1, 2)
+                .reshape(b * num_heads, s, dh))
+
+    out = _emulate_mma(split(q), split(k), split(v), 64)
+    return out.reshape(b, num_heads, s, dh).transpose(1, 2).reshape(b, s, d)
+
+
+def _tick_frames(n, h=360, w=640):
+    """Two streams of n NV12 frames, a bright textured target each (moving
+    3 px right, 2 px down a frame), and the boxes of frame 0 (2, 1, 4)."""
+    rng = np.random.default_rng(21)
+    yy, xx = np.mgrid[0:h, 0:w]
+    streams, boxes = [], []
+    for k, (x0, y0) in enumerate(((200, 120), (330, 160))):
+        bg = (70 + 25 * np.sin(xx / 37.0 + k) * np.cos(yy / 29.0)
+              + rng.normal(0, 6, (h, w))).clip(0, 255).astype(np.uint8)
+        tex = (185 + 60 * (((np.arange(72)[:, None] // 8)
+                            + (np.arange(96)[None] // 8)) % 2)).astype(np.uint8)
+        frames = []
+        for t in range(n):
+            x, y = x0 + 4 * t, y0 + 2 * t
+            yp, uv = bg.copy(), np.full((h // 2, w // 2, 2), 128, np.uint8)
+            yp[y:y + 72, x:x + 96] = tex
+            uv[y // 2:(y + 72) // 2, x // 2:(x + 96) // 2] = (90, 200)
+            frames.append((yp, uv))
+        streams.append(frames)
+        boxes.append([(float(x0), float(y0), 96.0, 72.0)])
+    return streams, np.asarray(boxes, np.float32)
+
+
+def test_flagship_tick_with_mma_attention_matches_jax(monkeypatch):
+    # The served tick (tracker/multi.py: per-block encode, the attention
+    # kernels) with the mma variant's arithmetic (p rounded to bf16 for P.V)
+    # in place of the plain attention, against JAX's update_streams on the
+    # same frames and shipped flagship weights, bf16.  Held as the flagship
+    # bf16 step is: head maps within 0.05, the same peak cell, the
+    # confidence within 0.02; the tick's boxes within 2 px.
+    cfg_j, cfg_t = JAX_PRESETS["vittrack-t"], PRESETS["vittrack-t"]
+    path = tweights.checkpoint_path("vittrack-t")
+    like = jax.eval_shape(lambda: jvittrack.init_params(jax.random.PRNGKey(0),
+                                                        cfg_j))
+    jparams = jweights.load_npz(path, like)
+    tparams = tweights.load_npz(path, cfg_t, device=torch.device("cpu"))
+    streams, boxes = _tick_frames(2)
+
+    def frames(t):
+        return (np.stack([s[t][0] for s in streams]),
+                np.stack([s[t][1] for s in streams]))
+
+    active = np.ones((2, 1), bool)
+    jst = jmulti.init_streams(jparams, tuple(map(jnp.asarray, frames(0))),
+                              jnp.asarray(boxes), cfg_j, "nv12")
+    tst = tmulti.init_streams(tparams, frames(0), boxes, cfg_t, "nv12",
+                              device="cpu")
+    calls = []
+    monkeypatch.setattr(tvit, "multihead_attention",
+                        lambda *a, **kw: calls.append(1) or _emulated_multihead(*a, **kw))
+    _, jb, jsc = jax.jit(lambda p, st, f: jmulti.update_streams(
+        p, st, f, jnp.asarray(active), cfg_j, "nv12"))(
+        jparams, jst, tuple(map(jnp.asarray, frames(1))))
+    _, tb, tsc = tmulti.update_streams(tparams, tst, frames(1), active, cfg_t,
+                                       "nv12", device="cpu")
+    assert len(calls) == cfg_t.depth              # every block of the tick
+    assert np.abs(tb.numpy() - np.asarray(jb)).max() <= 2.0
+    assert np.abs(tsc.numpy() - np.asarray(jsc)).max() <= 0.02
+
+    # The maps of each slot, as the tick computes them.
+    jcfg, tcfg = jmulti._batched_cfg(cfg_j), tmulti._batched_cfg(cfg_t)
+    fs = cfg_t.feat_size
+    for s in range(2):
+        frame = tuple(a[s] for a in frames(1))
+        jwin = jpp.crop_window(jst.bbox[s, 0], cfg_j.search_factor)
+        jmaps = jvittrack.forward(
+            jparams, jst.z_tok[s, 0][None],
+            jcore._prep_nv12(tuple(map(jnp.asarray, frame)), jwin,
+                             cfg_j.search_size, jcfg)[None], jcfg, fused=False)
+        twin = tpp.crop_window(tst.bbox[s, 0], cfg_t.search_factor)
+        tmaps = tvittrack.forward(
+            tparams, tst.z_tok[s, 0][None],
+            tcore._prep_nv12(tcore._frame_on(frame, "nv12", "cpu"), twin,
+                             cfg_t.search_size, tcfg)[None], tcfg, fused=False)
+        for name in ("score", "offset", "size"):
+            np.testing.assert_allclose(getattr(tmaps, name).float().numpy(),
+                                       np.asarray(getattr(jmaps, name), np.float32),
+                                       atol=0.05, rtol=0, err_msg=name)
+        jpen = np.asarray(jmaps.score[0] * jheads.hanning_2d(fs)).ravel()
+        tpen = (tmaps.score[0] * theads.hanning_2d(fs)).float().numpy().ravel()
+        top2 = np.sort(jpen)[-2:]
+        assert top2[1] - top2[0] > 0.05, top2          # a well-separated peak
+        assert int(np.argmax(tpen)) == int(np.argmax(jpen))
+        _, jconf = jheads.decode_maps(jmaps.score[0], jmaps.offset[0],
+                                      jmaps.size[0], jheads.hanning_2d(fs),
+                                      jst.bbox[s, 0, 2:4] / jwin.size)
+        _, tconf = theads.decode_maps(tmaps.score[0], tmaps.offset[0],
+                                      tmaps.size[0], theads.hanning_2d(fs),
+                                      tst.bbox[s, 0, 2:4] / twin.size)
+        assert abs(float(tconf) - float(jconf)) <= 0.02
 
 
 # ---------------------------------------------------------------------------

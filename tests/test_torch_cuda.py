@@ -81,6 +81,12 @@ def test_encoder_kernel_matches_twin(dev, dtype, b, s, d, heads):
     blocks = _blocks(gen, d, 3, 4 * d, dtype, dev)
     x = torch.randn((b, s, d), generator=gen).to(dev, dtype)
     before = vit_block.LAUNCHES
+    if dtype == torch.bfloat16 and d // heads not in (32, 64, 128):
+        # bf16 is the mma variant's alone: a head dim it does not take raises.
+        with pytest.raises(ValueError, match="head dim"):
+            vit_block.encoder(x, blocks, heads)
+        assert vit_block.LAUNCHES == before
+        return
     got = vit_block.encoder(x, blocks, heads)
     assert vit_block.LAUNCHES == before + 1
     ref = vit_block.encoder_reference(x, blocks, heads)
@@ -90,20 +96,52 @@ def test_encoder_kernel_matches_twin(dev, dtype, b, s, d, heads):
 
 
 def test_encoder_kernel_rejects_what_it_cannot_take(dev):
+    # A head dim no kernel takes raises, through the wrapper and an explicit
+    # launch alike; nothing on the card goes to the plain twin.  A strided x
+    # is copied and launched.  A dtype, or weights that do not fit x, raise;
+    # masters in another dtype are cast.
     gen = torch.Generator().manual_seed(0)
     blocks = _blocks(gen, 64, 1, 256, torch.float32, dev)
     x = torch.randn((1, 20, 64), generator=gen).to(dev)
+    stacked = vit_block._stack([blocks[0][m][f] for m, f in vit_block._FIELDS], 1)
     with pytest.raises(TypeError):
         vit_block.encoder(x.half(), blocks, 2)
+    before = vit_block.LAUNCHES
+    with pytest.raises(ValueError, match="head dim"):             # dh = 8
+        vit_block.encoder(x, blocks, 8)
     with pytest.raises(ValueError, match="head dim"):
-        vit_block.encoder(x, blocks, 8)                      # dh = 8
-    with pytest.raises(ValueError, match="contiguous"):
-        vit_block.encoder(x[:, ::2], blocks, 2)
+        vit_block._launch(x, stacked, 8, stacked=True)
+    assert vit_block.LAUNCHES == before
+    wide = torch.randn((1, 40, 64), generator=gen).to(dev)
+    got = vit_block.encoder(wide[:, ::2], blocks, 2)
+    assert vit_block.LAUNCHES == before + 1
+    assert torch.equal(got, vit_block.encoder(wide[:, ::2].contiguous(), blocks, 2))
+    _check_close(got, vit_block.encoder_reference(wide[:, ::2], blocks, 2),
+                 torch.float32)
+    cast = [{m: {f: t.bfloat16() for f, t in l.items()} for m, l in blocks[0].items()}]
+    assert torch.equal(vit_block.encoder(x.bfloat16(), blocks, 2),  # f32 masters
+                       vit_block.encoder(x.bfloat16(), cast, 2))
+    bad = [dict(blocks[0], proj={"kernel": blocks[0]["proj"]["kernel"][:, :32],
+                                 "bias": blocks[0]["proj"]["bias"]})]
     with pytest.raises(ValueError, match="kernel expects"):
-        vit_block.encoder(x.bfloat16(), blocks, 2)           # f32 weights
-    with pytest.raises(ValueError, match="shared memory"):
-        big = _blocks(gen, 128, 1, 512, torch.float32, dev)
-        vit_block.encoder(torch.zeros((1, 4096, 128), device=dev), big, 1)
+        vit_block.encoder(x, bad, 2)
+
+
+@pytest.mark.parametrize("s,d,heads,dtype", [(4096, 128, 1, torch.float32),
+                                             (1088, 192, 3, torch.bfloat16)])
+def test_encoder_kernel_takes_any_sequence_length(dev, s, d, heads, dtype):
+    # Both variants walk the keys through a ring of fixed size: no length
+    # needs more shared memory (these raised before).
+    gen = torch.Generator().manual_seed(s)
+    blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
+    x = torch.randn((1, s, d), generator=gen).to(dev, dtype)
+    before = dict(vit_block.VARIANT_LAUNCHES)
+    got = vit_block.encoder(x, blocks, heads)
+    variant = "mma" if dtype == torch.bfloat16 else "simt"
+    assert vit_block.VARIANT_LAUNCHES[variant] == before[variant] + 1
+    ref = vit_block.encoder_reference(x, blocks, heads)
+    torch.cuda.synchronize()
+    _check_close(got, ref, dtype)
 
 
 def test_encoder_kernel_backward_is_the_twins(dev):
@@ -131,6 +169,60 @@ def _clip(n):
         uv = np.full((540, 960, 2), 128, np.uint8)
         frames.append((y, uv))
     return frames, (800.0, 400.0, 96.0, 80.0)
+
+
+def _seeded_params(cfg, seed, d):
+    """Seeded random weights at ``cfg``'s width on device ``d``: scales 1,
+    biases 0, kernels N(0, min(0.02, fan_in^-1/2))."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}{i}/")
+        elif prefix.endswith("/scale/"):
+            flat[prefix[:-1]] = np.ones(tree, np.float32)
+        elif prefix.endswith("/bias/"):
+            flat[prefix[:-1]] = np.zeros(tree, np.float32)
+        else:
+            fan_in = int(np.prod(tree[:-1])) or 1
+            flat[prefix[:-1]] = (rng.standard_normal(tree)
+                                 * min(0.02, fan_in ** -0.5)).astype(np.float32)
+
+    walk(weights.param_shapes(cfg), "")
+    return vittrack.with_grouped_head(weights.params_from_flat(flat, cfg, device=d))
+
+
+@pytest.mark.parametrize("preset,search", [("vittrack-t", 512), ("small", 384)])
+def test_long_unbatched_update_on_card_matches_cpu(dev, preset, search):
+    # An unbatched step past the old shared-memory limit (S = 1088 at the
+    # flagship's width, 592 at small's f32 width) through the encoder
+    # kernel, against the same steps on the CPU, seeded weights.
+    cfg = dataclasses.replace(PRESETS[preset], search_size=search)
+    frames, bbox = _clip(3)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params = _seeded_params(cfg, 7, d)
+        st = core.init(params, frames[0], bbox, cfg, device=d,
+                       frame_format="nv12")
+        before = vit_block.LAUNCHES
+        rows = []
+        for f in frames[1:]:
+            st, packed = core.update_packed(params, st, f, cfg, device=d,
+                                            frame_format="nv12")
+            rows.append(packed.cpu())
+        assert vit_block.LAUNCHES - before == (2 if d.type == "cuda" else 0)
+        out[d.type] = torch.stack(rows)
+    assert torch.isfinite(out["cuda"]).all()
+    if cfg.dtype == "float32":
+        torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-2)
+    else:
+        assert (out["cuda"][:, 4] - out["cpu"][:, 4]).abs().max() <= 0.02
+        assert (out["cuda"][:, :4] - out["cpu"][:, :4]).abs().max() <= 2.0
 
 
 @pytest.mark.parametrize("preset", ["small", "vittrack-t"])
@@ -269,16 +361,29 @@ def test_strided_entry_equals_the_contiguous_one(dev, dtype, b, s, d, heads):
 
 
 def test_misaligned_operands_raise(dev):
-    base = torch.zeros((2, 40, 72), device=dev, dtype=torch.bfloat16)
-    good = base[..., :64]
+    # Operands the kernels cannot read in place do not raise and do not go
+    # to the plain version: they are copied into contiguous ones and the
+    # kernel launches, by default and with use_kernel=True alike, bit for bit
+    # what it gives on the contiguous copies.
+    gen = torch.Generator().manual_seed(4)
+    base = torch.randn((2, 40, 72), generator=gen).to(dev, torch.bfloat16)
+    good = base[..., :64].contiguous()
     for bad in (base[..., 4:68],                       # base off by 8 bytes
-                torch.zeros((2, 40, 68), device=dev,   # row stride 136 bytes
-                            dtype=torch.bfloat16)[..., :64],
+                torch.randn((2, 40, 68), generator=gen).to(  # row stride 136 bytes
+                    dev, torch.bfloat16)[..., :64],
                 good.transpose(1, 2).contiguous().transpose(1, 2)):
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            attention.flash_attention(bad, good, good)
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            attention.multihead_attention(good, good, bad, 1)
+        assert not attention._aligned(bad)
+        want = attention.flash_attention(bad.contiguous(), good, good)
+        want2 = attention.multihead_attention(good, good, bad.contiguous(), 1)
+        before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
+        got = attention.flash_attention(bad, good, good)
+        got2 = attention.multihead_attention(good, good, bad, 1)
+        got3 = attention.multihead_attention(good, good, bad, 1, use_kernel=True)
+        assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before + 3
+        assert torch.equal(got, want)
+        assert torch.equal(got2, want2) and torch.equal(got3, want2)
+        _check_attention(got, attention.attention_reference(bad, good, good),
+                         torch.bfloat16)
 
 
 def test_attention_large_values_bf16_zero_filled_tail(dev):
@@ -319,7 +424,13 @@ def test_attention_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(TypeError):
         attention.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head dim"):
-        attention.flash_attention(q[..., :12], k[..., :12], v[..., :12])
+        attention.multihead_attention(q[..., :12], k[..., :12], v[..., :12],
+                                      1, use_kernel=True)
+    q12, k12, v12 = (t[..., :12].contiguous() for t in (q, k, v))
+    before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
+    with pytest.raises(ValueError, match="head dim"):   # by default too
+        attention.flash_attention(q12, k12, v12)
+    assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before
     with pytest.raises(ValueError, match="expected"):
         attention.flash_attention(q, k[:, :8], v)
     with pytest.raises(ValueError, match="use_kernel=True"):
@@ -404,6 +515,12 @@ def test_block_kernel_matches_twin(dev, dtype, b, s, d, heads):
     x = torch.randn((b, s, d), generator=gen).to(dev, dtype)
     before = (vit_block.BLOCK_LAUNCHES, vit_block.LAUNCHES,
               attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
+    if dtype == torch.bfloat16 and d // heads not in (32, 64, 128):
+        # bf16 is the mma variant's alone: a head dim it does not take raises.
+        with pytest.raises(ValueError, match="head dim"):
+            vit_block.block(x, blk, heads)
+        assert vit_block.BLOCK_LAUNCHES == before[0]
+        return
     got = vit_block.block(x, blk, heads)
     assert vit_block.BLOCK_LAUNCHES == before[0] + 1
     ref = vit_block.block_reference(x, blk, heads)
@@ -416,6 +533,16 @@ def test_block_kernel_matches_twin(dev, dtype, b, s, d, heads):
     _check_close(got, ref, dtype)
     # One block of the encoder kernel is the same device code.
     assert torch.equal(got, vit_block.encoder(x, [blk], heads))
+    want = "mma" if dtype == torch.bfloat16 else "simt"
+    assert vit_block._plan_for(x, heads, 4 * d).variant == want
+
+
+def test_flagship_shapes_take_mma_and_no_plain_route(dev):
+    for b in (1, 16):
+        x = torch.zeros((b, 320, 192), device=dev, dtype=torch.bfloat16)
+        got = vit_block._plan_for(x, 3, 768)
+        assert got.variant == "mma"
+        assert got.tiles == ((32,) * 4 if b == 1 else (64,) * 4)
 
 
 def test_block_kernel_casts_masters_and_rejects_what_it_cannot_take(dev):
@@ -427,8 +554,13 @@ def test_block_kernel_casts_masters_and_rejects_what_it_cannot_take(dev):
                        vit_block.block(x.bfloat16(), cast, 2))
     with pytest.raises(TypeError):
         vit_block.block(x.half(), blk, 2)
-    with pytest.raises(ValueError, match="head dim"):
+    before = vit_block.BLOCK_LAUNCHES
+    with pytest.raises(ValueError, match="head dim"):    # dh = 8
         vit_block.block(x, blk, 8)
+    assert vit_block.BLOCK_LAUNCHES == before
+    with pytest.raises(ValueError, match="head dim"):
+        vit_block._launch(x, [blk[m][f] for m, f in vit_block._FIELDS], 8,
+                          stacked=False)
     bad = dict(blk, proj={"kernel": blk["proj"]["kernel"][:, :32],
                           "bias": blk["proj"]["bias"]})
     with pytest.raises(ValueError, match="kernel expects"):

@@ -1,0 +1,480 @@
+"""PyTorch port: the encoder kernels (``ops/vit_block.py``, kernels 1 and 2)
+on the CPU: the rule that decides what a call takes, an emulation of the
+``mma`` variant's arithmetic held to the port's twin, the operand cache,
+and the attention rule on odd shapes against the JAX package.
+
+What a CPU run can say of kernels that run only on the card:
+
+* ``plan`` (a pure function): the variant by dtype, the shapes it refuses
+  (it raises), the N tile of each product by batch; operands laid out
+  where the kernels cannot read them are copied.
+* The ``mma`` arithmetic, emulated in float64 where the tensor cores are
+  exact (bf16 products) and rounded to float32 where they round (toward
+  zero, each 16-deep step in a fresh accumulator; the steps and chunks
+  added in f32), the LayerNorm's two f32 passes, ``exp`` of the twin's own
+  argument, p carried exactly (hi + mid + lo) into P.V and one division
+  o / l.  It differs from the twin in the order of its sums alone, and is
+  held to the twin directly at the flagship's depth on 8 real crops.  The
+  bounds are set from readings: the encoder output's mean |d| was
+  0.023-0.031 per crop (bound 0.033), its max|d| 0.48-0.93 % of max|twin|
+  (bound 1 %, ``chip_smoke.py``'s ``ENC_REL_TOL``); after the final LN, no
+  farther from the float64 chain than the twin is plus 0.03125 per crop
+  and 1.10 x the twin's mean over the crops (0.98 read), the card's
+  yardstick.  A planted fault, p rounded to bf16 before P.V, reads
+  0.036-0.039 and 1.32 x: caught.  Free-running 3-step flagship
+  trajectories, emulation against twin, hold 2 px / 0.02 on 6 of 8 clips:
+  a free-running trajectory crosses near-ties, so one clip decides nothing
+  (PERF.md, Findings).
+* The operand cache: reused across calls, rebuilt after an in-place
+  update, bypassed under a gradient.
+* ``ops/attention.py::plan`` refuses a head dim that is not a multiple of
+  8 or is above 128 (on the card such a call raises); q, k, v whose last
+  dimension is not contiguous or whose base is not 16-byte aligned are
+  copied, unchanged, into operands the kernels read in place.  On the CPU
+  all three shapes take the plain version, which equals JAX's
+  ``multihead_attention(use_pallas=None)`` (1e-5, float32).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from gstreamer_vit_tracker_tpu.ops import attention as jattn  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.config import PRESETS  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.entry import entry  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.models import vit  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.ops import attention as tattn  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.ops import preprocess as tpp  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.ops import vit_block  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.profile_encoder import nv12_clip  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.tracker import core  # noqa: E402
+
+BF16, F32 = torch.bfloat16, torch.float32
+CPU = torch.device("cpu")
+H100_OPTIN, H100_SMS = 232448, 132
+
+ENC_REL_TOL = 0.01          # max|d| / max|twin|, as on the card
+EMU_MEAN_TOL = 0.033        # mean|d| of the encoder output a crop
+LN_MARGIN = 0.03125         # one bf16 ulp in [4, 8)
+LN_MEAN_RATIO = 1.10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The emulation is many small float64 ops: one intra-op thread, which
+    runs them as fast alone and does not crawl beside other test workers
+    that hold the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# The encoder's rule
+# ---------------------------------------------------------------------------
+
+def test_plan_n_tile_by_batch():
+    # Flagship shape: 5 row tiles at batch 1 fill no SM count with 64-wide
+    # tiles (45 CTAs for qkv), 80 at batch 16 do (720).
+    assert vit_block.plan(1, 320, 192, 3, 768, BF16, H100_SMS) == vit_block.Plan(
+        "mma", (32, 32, 32, 32))
+    assert vit_block.plan(16, 320, 192, 3, 768, BF16, H100_SMS) == vit_block.Plan(
+        "mma", (64, 64, 64, 64))
+    # Each product on its own: at batch 2 only the wide ones reach 132.
+    assert vit_block.plan(2, 320, 192, 3, 768, BF16, H100_SMS).tiles == (32, 32, 32, 32)
+    assert vit_block.plan(4, 320, 192, 3, 768, BF16, H100_SMS).tiles == (64, 32, 64, 32)
+
+
+@pytest.mark.parametrize("dtype,dim,heads,hidden,variant", [
+    (BF16, 192, 3, 768, "mma"),      # the flagship
+    (BF16, 256, 2, 1024, "mma"),     # head dim 128
+    (BF16, 128, 4, 512, "mma"),      # head dim 32
+    (BF16, 768, 12, 3072, "mma"),    # the widest D the LN product holds
+    (F32, 96, 2, 384, "simt"),       # the small preset
+    (F32, 192, 3, 768, "simt"),      # the flagship in float32
+    (BF16, 96, 2, 384, None),        # head dim 48
+    (BF16, 64, 4, 256, None),        # head dim 16
+    (BF16, 96, 3, 384, None),        # head dim 32, D no multiple of 64
+    (BF16, 832, 13, 3328, None),     # D beyond 768
+    (BF16, 96, 12, 384, None),       # head dim 8
+    (F32, 24, 2, 96, None),          # head dim 12
+    (BF16, 288, 2, 1152, None),      # head dim 144
+    (F32, 64, 2, 200, None),         # MLP width no multiple of 16
+    (torch.float16, 192, 3, 768, None),
+])
+def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
+    # The variant is the dtype's; a shape it cannot take raises before any
+    # launch (no call on the card goes to the plain twin).
+    if variant is None:
+        with pytest.raises(TypeError if dtype == torch.float16 else ValueError):
+            vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
+        return
+    got = vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
+    assert got.variant == variant
+    if variant == "mma":
+        assert set(got.tiles) <= {32, 64}
+    else:
+        assert got == vit_block.Plan("simt", (0, 0, 0, 0))
+
+
+@pytest.mark.parametrize("seq", [1, 320, 740, 1088, 4096])
+def test_plan_has_no_sequence_limit(seq):
+    # No sequence length is refused or changes the variant.
+    for dtype, dim, heads in ((BF16, 192, 3), (F32, 96, 2), (F32, 128, 1)):
+        got = vit_block.plan(1, seq, dim, heads, 4 * dim, dtype, H100_SMS)
+        assert got.variant == vit_block._VARIANTS[dtype]
+
+
+def test_unaligned_input_is_copied():
+    # What the kernels cannot read in place is copied, values unchanged.
+    x = torch.randn((1, 40, 192)).to(BF16)
+    assert vit_block._aligned(x) and vit_block._laid_out(x) is x
+    odd = [x[:, ::2], torch.cat([torch.zeros(1, dtype=BF16), x.ravel()])[1:]
+           .view(1, 40, 192)]
+    for t in odd:
+        assert not vit_block._aligned(t)
+        got = vit_block._laid_out(t)
+        assert vit_block._aligned(got) and torch.equal(got, t)
+
+
+def test_plan_config_is_the_tiles():
+    assert vit_block.Plan("mma", (32, 64, 32, 64)).config() == (32, 64, 32, 64)
+    assert vit_block.Plan("simt").config() == (0, 0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The mma arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def _toward_zero(x):
+    """float64 sums rounded to f32 toward zero, as the tensor cores round the
+    sum they accumulate."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _steps(a, w, chained=False):
+    """a @ w as the mma kernels take it: each 16-deep step's exact products
+    summed in a fresh accumulator (rounded toward zero), the steps added in
+    f32 in order.  ``chained``: the steps accumulate in one accumulator,
+    each addition rounded toward zero."""
+    out = acc = None
+    for k0 in range(0, a.shape[-1], 16):
+        part = a[..., k0:k0 + 16].double() @ w[..., k0:k0 + 16, :].double()
+        if chained:
+            acc = _toward_zero(part if acc is None else acc.double() + part)
+        else:
+            step = _toward_zero(part)
+            out = step if out is None else out + step
+    return acc if chained else out
+
+
+def _product(a, p, chained=False):
+    """x @ kernel + bias as the mma product computes it: 64-deep chunks of
+    ``_steps`` added in f32, the bias added in f32, one rounding to bf16."""
+    w, b = p["kernel"], p["bias"]
+    acc = torch.zeros(a.shape[:-1] + (w.shape[1],))
+    for c in range(0, w.shape[0], 64):
+        acc = acc + _steps(a[..., c:c + 64], w[c:c + 64], chained)
+    return (acc + b.float()).to(BF16)
+
+
+def _layer_norm(x, p):
+    """The LN prologue: the mean, then the mean of (x - mu)^2, each a sum
+    divided by K in f32; 1 / sqrt; each operation rounded on its own; one
+    rounding to bf16."""
+    xf = x.float()
+    k = torch.tensor(float(xf.shape[-1]), dtype=F32)
+    mu = xf.double().sum(-1, keepdim=True).float() / k
+    t = xf - mu
+    var = (t * t).double().sum(-1, keepdim=True).float() / k
+    y = t * (1.0 / torch.sqrt(var + torch.tensor(1e-6, dtype=F32)))
+    return (y * p["scale"].float() + p["bias"].float()).to(BF16)
+
+
+def _attention(q, k, v, heads, fault=None):
+    """The mma attention on (B, S, heads * dh): f32 scores (``_steps``)
+    times dh^-1/2, the row maximum over all keys, p = exp(s - m), l =
+    sum(p), P.V with p exact (the kernel's hi + mid + lo: 12 chained 16-key
+    steps a 64-key block, each block in a fresh accumulator), the blocks
+    added in f32, one division and one rounding.  ``fault="p_bf16"`` rounds
+    p to bf16 before P.V; ``fault="chained"`` chains the score steps."""
+    b, s, d = q.shape
+    dh = d // heads
+
+    def split(t):
+        return t.reshape(b, s, heads, dh).transpose(1, 2)
+
+    q, k, v = split(q), split(k), split(v)
+    sc = _steps(q, k.transpose(-1, -2), fault == "chained")
+    sc = sc * torch.tensor(dh ** -0.5, dtype=F32)
+    p = torch.exp(sc - sc.max(-1, keepdim=True).values)
+    l = p.double().sum(-1, keepdim=True).float()
+    if fault == "p_bf16":
+        terms = [p.to(BF16)]
+    else:
+        hi = p.to(BF16)
+        mid = (p - hi.float()).to(BF16)
+        terms = [hi, mid, (p - hi.float() - mid.float()).to(BF16)]
+    o = torch.zeros(q.shape)
+    for k0 in range(0, s, 64):
+        acc = None
+        for j in range(k0, min(k0 + 64, s), 16):
+            for t in terms:
+                part = t[..., j:j + 16].double() @ v[..., j:j + 16, :].double()
+                acc = _toward_zero(part if acc is None else acc.double() + part)
+        o = o + acc
+    return (o / l).to(BF16).transpose(1, 2).reshape(b, s, d)
+
+
+def emulate_encoder(x, blocks, heads, fault=None):
+    """The encoder kernel's mma variant on the CPU, block by block at the
+    twin's rounding points."""
+    chained = fault == "chained"
+    for p in blocks:
+        q, k, v = torch.chunk(_product(_layer_norm(x, p["ln1"]), p["qkv"],
+                                       chained), 3, -1)
+        a = _attention(q, k, v, heads, fault)
+        x = (x.float() + _product(a, p["proj"], chained).float()).to(BF16)
+        g = F.gelu(_product(_layer_norm(x, p["ln2"]), p["mlp1"], chained).float(),
+                   approximate="tanh").to(BF16)
+        x = (x.float() + _product(g, p["mlp2"], chained).float()).to(BF16)
+    return x
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship's shipped weights in bf16, the final LN and the encoder
+    input of 8 real search crops of the entry frame (the tracker's own and
+    7 shifted by up to 60 px)."""
+    cfg = PRESETS["vittrack-t"]
+    _, (params, state, frame) = entry(device=CPU)
+    blocks = [vit.cast_params(bp, BF16) for bp in params["backbone"]["blocks"]]
+    crops = []
+    for i in range(8):
+        shift = ([0.0] * 4 if i == 0
+                 else [40.0 * (i % 4) - 60, 30.0 * (i // 4) - 45, 0.0, 0.0])
+        win = tpp.crop_window(state.bbox + torch.tensor(shift), cfg.search_factor)
+        x_tok = vit.embed_search(params["backbone"], core._prep_nv12(
+            frame, win, cfg.search_size, cfg)[None], cfg)
+        crops.append(torch.cat([state.z_tok[None], x_tok], 1).contiguous())
+    return cfg, blocks, params["backbone"]["norm"], crops
+
+
+def _readings(flagship, fault=None):
+    """Per crop: (mean|d|, max|d| / max|twin|) of the encoder output against
+    the twin, and after the final LN the largest and mean distance from the
+    float64 chain of the emulation and of the twin."""
+    cfg, blocks, norm, crops = flagship
+    rows = []
+    for x in crops:
+        twin = vit_block.encoder_reference(x, blocks, cfg.num_heads)
+        emu = emulate_encoder(x, blocks, cfg.num_heads, fault)
+        exact = vit.layer_norm(vit_block.float64_chain(x, blocks, cfg.num_heads),
+                               norm).float()
+        d = (emu.float() - twin.float()).abs()
+        de = (vit.layer_norm(emu, norm).float() - exact).abs()
+        dt = (vit.layer_norm(twin, norm).float() - exact).abs()
+        rows.append((d.mean().item(), d.max().item() / twin.float().abs().max().item(),
+                     de.max().item(), dt.max().item(), de.mean().item(),
+                     dt.mean().item()))
+    return np.asarray(rows)
+
+
+def test_emulation_matches_twin_at_flagship_depth(flagship):
+    r = _readings(flagship)
+    assert (r[:, 0] <= EMU_MEAN_TOL).all(), r[:, 0]
+    assert (r[:, 1] <= ENC_REL_TOL).all(), r[:, 1]
+    assert (r[:, 2] <= r[:, 3] + LN_MARGIN).all(), r[:, 2:4]
+    assert r[:, 4].mean() <= LN_MEAN_RATIO * r[:, 5].mean(), r[:, 4:6]
+
+
+def test_planted_fault_is_caught(flagship):
+    # p rounded to bf16 before P.V (the attention kernels' arithmetic, not
+    # the twin's): the flagship-depth yardsticks above must fail it.
+    r = _readings(flagship, fault="p_bf16")
+    assert r[:, 0].mean() > EMU_MEAN_TOL, r[:, 0]
+    assert r[:, 4].mean() > LN_MEAN_RATIO * r[:, 5].mean(), r[:, 4:6]
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 320, 64), (1, 70, 32), (3, 129, 128)])
+def test_emulated_attention_matches_jax_kernel(b, s, d):
+    # One head of the mma attention against JAX's Pallas kernel in
+    # interpret mode: one output ulp, as the twin (2^-8 of the largest).
+    rng = np.random.default_rng(40 + s)
+    q, k, v = (rng.standard_normal((b, s, d)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(jattn.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), interpret=True),
+        np.float32)
+    got = _attention(*(torch.from_numpy(a).to(BF16) for a in (q, k, v)), 1)
+    assert np.abs(got.float().numpy() - ref).max() <= 2.0 ** -8 * np.abs(ref).max()
+
+
+def test_free_running_trajectories_emulation_vs_twin(flagship, monkeypatch):
+    # chip_smoke.py's unbatched check on the CPU, 3 steps run free from the
+    # same first frame, 2 px / 0.02, the emulation in the encoder's place
+    # against the twin, on 8 clips (the first is chip_smoke.py's).  A
+    # free-running bf16 trajectory crosses near-ties (one bf16 step of the
+    # size map at the peak moves the box 0.47 px and the next crop with it),
+    # so any other summation order misses the bound on some clips: here the
+    # emulation held 6 of 8 (the card's own count is profile_encoder.py's
+    # ``lottery``).  Held: at least 6 of the 8.
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
+
+    cfg = flagship[0]
+    params = vittrack.with_grouped_head(weights.load_npz(
+        weights.checkpoint_path("vittrack-t"), cfg, device=CPU))
+
+    def trajectory(frames, box):
+        st = core.init(params, frames[0], box, cfg, device=CPU,
+                       frame_format="nv12")
+        rows = []
+        for f in frames[1:]:
+            st, out = core.update_packed(params, st, f, cfg, device=CPU,
+                                         frame_format="nv12")
+            rows.append(out.numpy())
+        return np.stack(rows)
+
+    # (frames, the first box as drawn): chip_smoke.py's clip, then 7 more.
+    specs = [((880, 480, 96, 72), (3, 2))] + [
+        ((300 + 70 * c, 200 + 45 * c, 96 - 4 * (c % 3), 72 + 6 * (c % 4)),
+         ((3, 2), (-2, 2), (2, -1), (-3, -2))[c % 4]) for c in range(1, 8)]
+    clips = [(nv12_clip(4, box=box, step=step)[0], tuple(map(float, box)))
+             for box, step in specs]
+    twins = [trajectory(*c) for c in clips]
+    monkeypatch.setattr(vit_block, "encoder_reference", emulate_encoder)
+    held = []
+    for c, twin in zip(clips, twins):
+        emu = trajectory(*c)
+        assert np.isfinite(emu).all()
+        held.append(np.abs(emu[:, :4] - twin[:, :4]).max() <= 2.0
+                    and np.abs(emu[:, 4] - twin[:, 4]).max() <= 0.02)
+    assert sum(held) >= 6, held
+
+
+# ---------------------------------------------------------------------------
+# Operands made once per parameter set
+# ---------------------------------------------------------------------------
+
+def _flat(depth, d=32, hidden=64, grad=False):
+    gen = torch.Generator().manual_seed(depth)
+    shapes = [(d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,), (d,), (d,),
+              (d, hidden), (hidden,), (hidden, d), (d,)]
+    return [torch.randn(s, generator=gen).requires_grad_(grad)
+            for _ in range(depth) for s in shapes]
+
+
+def test_operand_cache_reused_across_calls():
+    flat = _flat(2)
+    a = vit_block._operands(flat, 2, BF16)
+    assert vit_block._operands(flat, 2, BF16) is a
+    assert torch.equal(a[2], torch.stack([flat[2], flat[14]]).to(BF16))
+    # Another dtype is another entry.
+    assert vit_block._operands(flat, 2, F32) is not a
+
+
+def test_operand_cache_rebuilt_after_in_place_update():
+    flat = _flat(2)
+    a = vit_block._operands(flat, 2, BF16)
+    with torch.no_grad():
+        flat[4].add_(1.0)            # an optimiser step: same tensor, new version
+    b = vit_block._operands(flat, 2, BF16)
+    assert b is not a
+    assert torch.equal(b[4][0], flat[4].to(BF16))
+    # A new leaf in the same place is a new parameter set too.
+    flat[0] = flat[0].clone()
+    assert vit_block._operands(flat, 2, BF16) is not b
+
+
+def test_operand_cache_bypassed_under_a_gradient():
+    x = torch.zeros((1, 5, 32), dtype=BF16)
+    flat = _flat(1, grad=True)
+    assert vit_block._launch_operands(x, flat, 1) is None
+    with torch.no_grad():
+        got = vit_block._launch_operands(x, flat, 1)
+    assert got is not None and not any(t.requires_grad for t in got)
+    assert vit_block._launch_operands(x, [t.detach() for t in flat],
+                                      1) is not None
+
+
+def test_encode_passes_masters_and_keeps_the_cpu_path():
+    # encode(fused) hands the float32 masters over; on the CPU the result is
+    # the twin on the cast weights, as before, and a gradient reaches them.
+    cfg = PRESETS["small"]
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+
+    bb = weights.load_npz(weights.checkpoint_path("small"), cfg,
+                          device=CPU)["backbone"]
+    gen = torch.Generator().manual_seed(3)
+    z = torch.randn((1, cfg.num_template_tokens, cfg.embed_dim), generator=gen)
+    x = torch.randn((1, cfg.num_search_tokens, cfg.embed_dim), generator=gen)
+    got = vit.encode(bb, z, x, cfg, fused=True)
+    blocks = [vit.cast_params(p, F32) for p in bb["blocks"]]
+    want = vit_block.encoder_reference(torch.cat([z, x], 1), blocks, cfg.num_heads)
+    want = vit.layer_norm(want, bb["norm"])[:, z.shape[1]:]
+    assert torch.equal(got, want)
+    leaf = bb["blocks"][0]["qkv"]["kernel"].requires_grad_(True)
+    (g,) = torch.autograd.grad(vit.encode(bb, z, x, cfg, fused=True).sum(), [leaf])
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The attention rule on odd shapes: a head dim no kernel takes raises on the
+# card; a layout the kernels cannot read in place is copied
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,dh,dtype", [
+    (320, 12, F32), (320, 136, F32), (33, 4, BF16)])
+def test_attention_plan_refuses_odd_head_dims(s, dh, dtype):
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.plan(s, dh, dtype, H100_OPTIN)
+
+
+def _odd_case(case, rng):
+    """(q, k, v) as CPU tensors laid out as the case says, their contiguous
+    numpy values, and the head count."""
+    if case == "head dim 12":
+        arrs = [rng.standard_normal((2, 37, 24)).astype(np.float32) for _ in range(3)]
+        return [torch.from_numpy(a) for a in arrs], arrs, 2
+    if case == "last dim not contiguous":
+        arrs = [rng.standard_normal((2, 37, 64)).astype(np.float32) for _ in range(3)]
+        ts = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))).transpose(1, 2)
+              for a in arrs]
+        return ts, arrs, 2
+    # base off by 8 bytes: a view two floats into a wider buffer
+    arrs = [rng.standard_normal((2, 37, 64)).astype(np.float32) for _ in range(3)]
+    ts = []
+    for a in arrs:
+        buf = torch.zeros((2, 37, 66))
+        buf[..., 2:] = torch.from_numpy(a)
+        ts.append(buf[..., 2:])
+    return ts, arrs, 2
+
+
+@pytest.mark.parametrize("case", ["head dim 12", "last dim not contiguous",
+                                  "base not 16-byte aligned"])
+def test_odd_attention_shapes_take_the_plain_version(case):
+    # On the CPU each odd shape takes the plain version, which equals JAX's
+    # use_pallas=None.  On the card: the head dim raises before any launch;
+    # the two layouts reach the kernel as contiguous copies of the same
+    # values, which it reads in place.
+    rng = np.random.default_rng(77)
+    (q, k, v), arrs, heads = _odd_case(case, rng)
+    got = tattn.multihead_attention(q, k, v, heads)
+    ref = jattn.multihead_attention(*map(jnp.asarray, arrs), heads,
+                                    use_pallas=None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    if case == "head dim 12":
+        with pytest.raises(ValueError, match="head dim"):
+            tattn.plan(q.shape[1], q.shape[2] // heads, q.dtype, H100_OPTIN)
+        return
+    assert not any(map(tattn._aligned, (q, k, v)))
+    laid = tattn._laid_out(q, k, v)
+    assert all(map(tattn._aligned, laid))
+    assert all(torch.equal(a, b) for a, b in zip(laid, (q, k, v)))
