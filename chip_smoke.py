@@ -30,11 +30,21 @@ Phases, in order; any failure raises and exits non-zero:
      ``multihead_attention`` on the chunks of a (16, 320, 576) qkv buffer
      beside the copy-then-launch path it replaced;
    * the NV12-to-tokens kernel (``ops/fused_prep_embed.py``) in bf16 and
-     float32, for a window inside the frame, one hanging off its edge and a
-     banded 1080p frame, against both modes of its plain version (float32
-     1e-4 absolute; bf16 one ulp at the largest plain value), timed beside
-     the plain version and the unfused chain ``preprocess_nv12`` ->
-     ``embed_search`` (no single library call computes it);
+     float32, for a window inside the frame, one hanging off its edge, a
+     banded 1080p frame, and the geometry the kernel works out itself (a
+     half-to-even tie of the band origin, a frame smaller than the band, a
+     window larger than it, the band's corner), against both modes of its
+     plain version (float32 1e-4 absolute; bf16 one ulp at the largest
+     plain value); one call on ready parameters must be one device activity
+     (``torch.profiler``); every bf16 tiling, with and without a cluster,
+     held to the plain version and timed by CUDA-graph replay; the call
+     timed beside the plain version and the unfused chain
+     ``preprocess_nv12`` -> ``embed_search`` (no single library call
+     computes it);
+   * head dims no kernel takes as they are, zero-padded: attention at 4,
+     12, 48 and 96 in bf16 and float32, the encoder and block kernels at D
+     192 with dh 48 and 96 (bf16) and 24 (float32), against the plain twins
+     at the tolerances of the phases above;
    * the one-block kernel (``ops/vit_block.py::block``) at (1, 320, 192) and
      (16, 320, 192) bf16 (``mma``, timed as the encoder is) and the
      ``small`` float32 shape against ``block_reference`` (which must launch
@@ -1073,6 +1083,11 @@ def prep_cost(window, frame_hw, cfg, elem: int):
     return f32_flops, embed_flops, nbytes, (rows, cols, rows2, cols2)
 
 
+def tiling_name(p) -> str:
+    """A kernel-5 plan as tokens x columns, cluster: "16x32c6"."""
+    return f"{p.tokens}x{p.cols}c{p.cluster}"
+
+
 def prep_phase(dev, cfg, params):
     from gstreamer_vit_tracker_tpu_torch.models import vit
     from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
@@ -1086,10 +1101,20 @@ def prep_phase(dev, cfg, params):
                 torch.as_tensor(rng.integers(0, 256, (h // 2, w // 2, 2),
                                              dtype=np.uint8), device=dev))
 
+    frame = planes(FRAME_H, FRAME_W)
+    # The last four try the window geometry the kernel works out itself.
     cases = [("inside", planes(512, 640), (300.0, 200.0, 64.0, 64.0)),
              ("off the edge", planes(512, 640), (-20.0, 470.0, 80.0, 80.0)),
-             ("1080p banded", planes(FRAME_H, FRAME_W),
-              (1500.0, 700.0, 64.0, 64.0))]
+             ("1080p banded", frame, (1500.0, 700.0, 64.0, 64.0)),
+             # The even snap hides which way a tie rounds (424 either way);
+             # tests/test_torch_fused_prep.py holds the rounding itself.
+             ("a half-to-even tie (cx - 576 = 424.5)", frame,
+              (990.0, 500.0, 21.0, 30.0)),
+             ("a frame smaller than the band", planes(1080, 1080),
+              (900.0, 100.0, 120.0, 90.0)),
+             ("a window larger than the band", frame,
+              (100.0, 600.0, 500.0, 380.0)),
+             ("the band's corner", frame, (1850.0, 1030.0, 60.0, 44.0))]
     worst = {}
     for name, (y, uv), box in cases:
         for dtype in ("bfloat16", "float32"):
@@ -1120,9 +1145,33 @@ def prep_phase(dev, cfg, params):
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
 
     # Timed at the flagship's shape: bf16, the banded 1080p frame.
-    _, (y, uv), box = cases[-1]
+    _, (y, uv), box = cases[2]
     win = pp.crop_window(torch.tensor(box, device=dev), cfg.search_factor)
     ops = fpe.kernel_operands(params, y, uv, win, cfg)
+
+    # One call on ready parameters is one device activity: the kernel.
+    from torch.profiler import ProfilerActivity, profile
+
+    fpe.nv12_search_tokens(params, y, uv, win, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fpe.nv12_search_tokens(params, y, uv, win, cfg)
+        torch.cuda.synchronize()
+    acts = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"fused_prep_embed: device activities of one call on ready "
+          f"parameters (torch.profiler): {len(acts)} {acts}", flush=True)
+    if len(acts) != 1 or "embed" not in acts[0] or any(
+            "memcpy" in a.lower() for a in acts):
+        raise AssertionError(f"one nv12_search_tokens call is not one kernel "
+                             f"launch: {acts}")
+
+    # The kernel's device time: one replayed CUDA graph of GRAPH_LAUNCHES
+    # (profile_prep.py times other tilings and builds).
+    chosen = fpe.plan(cfg.embed_dim, torch.bfloat16)
+    _, launch = fpe.prepared(params, y, uv, win, cfg)
+    _, launch32 = fpe.prepared(params, y, uv, win,
+                               dataclasses.replace(cfg, dtype="float32"))
 
     def chain():
         x_img = pp.preprocess_nv12(y, uv, win, cfg.search_size, cfg.norm_mean,
@@ -1130,14 +1179,19 @@ def prep_phase(dev, cfg, params):
                                    band=cfg.preprocess_band)
         return vit.embed_search(params["backbone"], x_img[None], cfg)
 
-    res = {"max_abs_err": worst["bfloat16"], "max_abs_err_f32": worst["float32"]}
+    res = {"max_abs_err": worst["bfloat16"], "max_abs_err_f32": worst["float32"],
+           "variant": chosen.variant, "plan": tiling_name(chosen),
+           "device_activities": len(acts)}
     res["ms"] = cuda_ms(lambda: fpe.nv12_search_tokens(params, y, uv, win, cfg))
     res["launch_ms"] = cuda_ms(lambda: fpe.launch(*ops, cfg))
+    res["device_us"] = graph_us(launch)
+    res["device_us_f32"] = graph_us(launch32)
     res["plain_ms"] = cuda_ms(lambda: fpe.nv12_search_tokens_reference(
         params, y, uv, win, cfg), iters=20, warmup=3)
     res["chain_ms"] = cuda_ms(chain)
     res["ms_again"] = cuda_ms(
         lambda: fpe.nv12_search_tokens(params, y, uv, win, cfg))
+    res["device_us_again"] = graph_us(launch)
     f32_flops, embed_flops, nbytes, taps = prep_cost(win, y.shape, cfg, 2)
     t_ops = (f32_flops / H100_F32_FLOPS + embed_flops / H100_BF16_FLOPS) * 1e3
     t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
@@ -1146,7 +1200,10 @@ def prep_phase(dev, cfg, params):
     print(f"fused_prep_embed 1080p banded bf16 ms (CUDA events, mean of "
           f"{TIMING_ITERS}): wrapper {res['ms']:.4f} / {res['ms_again']:.4f} "
           f"(before / after the others), one launch on ready operands "
-          f"{res['launch_ms']:.4f}, plain {res['plain_ms']:.4f}, unfused chain "
+          f"{res['launch_ms']:.4f}; device us a launch (CUDA graph of "
+          f"{GRAPH_LAUNCHES}) {res['device_us']:.2f} / "
+          f"{res['device_us_again']:.2f}, float32 {res['device_us_f32']:.2f}; "
+          f"plain {res['plain_ms']:.4f}, unfused chain "
           f"preprocess_nv12 -> embed_search {res['chain_ms']:.4f} (no library "
           f"call computes this function); bound {res['bound_ms'] * 1e3:.2f} us "
           f"by {res['bound_by']} (two-tap work {f32_flops / 1e6:.2f} MFLOP f32 "
@@ -1154,6 +1211,81 @@ def prep_phase(dev, cfg, params):
           f"{nbytes / 1e6:.3f} MB counting the {taps[0]} x {taps[1]} luma and "
           f"{taps[2]} x {taps[3]} x 2 chroma bytes the taps touch -> "
           f"{t_bytes * 1e3:.2f} us)", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: head dims that no variant takes as they are, zero-padded
+# ---------------------------------------------------------------------------
+
+def padded_heads_phase(dev) -> dict:
+    """Attention at head dims 4, 12, 48 and 96 (3 heads of a (2, 320, 3 dh)
+    qkv buffer's chunks) in bf16 and float32, and the encoder and block
+    kernels at D 192 in bf16 with 4 heads (dh 48) and 2 heads (dh 96) and in
+    float32 with 8 heads (dh 24), each against its plain twin at the
+    tolerances above.  A head dim no variant takes as it is runs
+    zero-padded (bf16 attention: to 32 / 64 / 128 and ``mma``; float32: the
+    next multiple of 8; the encoder: ``mma`` 32 / 64 / 128, ``simt`` a
+    multiple of 16) with the true one's scale.  Returns max|d| by case."""
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for dh in (4, 12, 48, 96):
+            gen = torch.Generator(device="cpu").manual_seed(31 * dh)
+            qkv = torch.randn((2, 320, 9 * dh), generator=gen).to(dev, dtype)
+            q, k, v = torch.chunk(qkv, 3, dim=-1)
+            chosen = attention._plan_for(dev, 320, dh, dtype, 6)
+            before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
+            got = attention.multihead_attention(q, k, v, 3)
+            if attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES != before + 1:
+                raise AssertionError("padded attention did not launch once")
+            plain = attention.multihead_attention(q, k, v, 3, use_kernel=False)
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs().max().item()
+            tol = (ATT_F32_ATOL if dtype == torch.float32
+                   else ATT_BF16_REL * plain.float().abs().max().item())
+            print(f"attention head dim {dh} {name} (2, 320, 3 heads): "
+                  f"{chosen.route} / {chosen.variant}, padded to "
+                  f"{chosen.pad or 'none'}; max|d| {err:.3e} (tolerance "
+                  f"{tol:.3e})", flush=True)
+            if got.shape != plain.shape or not err <= tol or (
+                    dh % 8 and chosen.pad != attention.padded_head_dim(dh, dtype)):
+                raise AssertionError(f"attention at head dim {dh} {name} "
+                                     f"disagrees with the plain version")
+            res[f"attention_dh{dh}_{name}"] = err
+    for dtype, heads in ((torch.bfloat16, 4), (torch.bfloat16, 2),
+                         (torch.float32, 8)):
+        name, d = str(dtype).split(".")[-1], 192
+        gen = torch.Generator(device="cpu").manual_seed(heads)
+
+        def w(*shape, std=0.1, base=0.0):
+            return (base + std * torch.randn(shape, generator=gen)).to(dev, dtype)
+
+        blocks = [{"ln1": {"scale": w(d, base=1.0), "bias": w(d)},
+                   "ln2": {"scale": w(d, base=1.0), "bias": w(d)},
+                   "qkv": {"kernel": w(d, 3 * d, std=d ** -0.5), "bias": w(3 * d)},
+                   "proj": {"kernel": w(d, d, std=d ** -0.5), "bias": w(d)},
+                   "mlp1": {"kernel": w(d, 4 * d, std=d ** -0.5), "bias": w(4 * d)},
+                   "mlp2": {"kernel": w(4 * d, d, std=(4 * d) ** -0.5),
+                            "bias": w(d)}} for _ in range(3)]
+        x = torch.randn((1, 320, d), generator=gen).to(dev, dtype)
+        chosen = vit_block._plan_for(x, heads, 4 * d)
+        before = dict(vit_block.VARIANT_LAUNCHES)
+        got = vit_block.encoder(x, blocks, heads)
+        one = vit_block.block(x, blocks[0], heads)
+        if vit_block.VARIANT_LAUNCHES[chosen.variant] != before[chosen.variant] + 2:
+            raise AssertionError("padded encoder / block did not launch once each")
+        what = f"head dim {d // heads} {name}, padded to {chosen.pad}"
+        res[f"encoder_dh{d // heads}_{name}"] = check_kernel(
+            f"encoder kernel, 3 blocks, {what}", got,
+            vit_block.encoder_reference(x, blocks, heads), dtype)
+        res[f"block_dh{d // heads}_{name}"] = check_kernel(
+            f"block kernel, {what}", one,
+            vit_block.block_reference(x, blocks[0], heads), dtype)
+        if not chosen.pad:
+            raise AssertionError(f"the encoder plan did not pad {what}")
     return res
 
 
@@ -1580,6 +1712,7 @@ def main() -> int:
 
     att_single, att_flash = attention_phase(dev, cfg, small)
     prep = prep_phase(dev, cfg, params)
+    padded = padded_heads_phase(dev)
     blk = block_phase(dev, cfg, params, small, sparams, state.z_tok)
 
     # -- 4. unbatched path -------------------------------------------------
@@ -1731,6 +1864,7 @@ def main() -> int:
         "bound_ms": att_single["bound_ms"],
         "bound_by": att_single["bound_by"],
         "tick_ms_median": serve["tick_ms_median"],
+        "padded_head_dims_max_abs_err": padded,
         "multihead_ms": att_single["multihead"]["ms"],
         "multihead_copied_ms": att_single["multihead"]["copied_ms"],
     }, {
@@ -1776,8 +1910,15 @@ def main() -> int:
         "launches_per_step": fused["launches"] / MAIN_STEPS,
         "max_abs_err": prep["max_abs_err"],
         "max_abs_err_f32": prep["max_abs_err_f32"],
+        "variant": prep["variant"],
+        "plan": prep["plan"],
         "ms": prep["ms"],
+        "ms_again": prep["ms_again"],
         "launch_ms": prep["launch_ms"],
+        "device_us": prep["device_us"],
+        "device_us_again": prep["device_us_again"],
+        "device_us_f32": prep["device_us_f32"],
+        "device_activities_a_call": prep["device_activities"],
         "plain_ms": prep["plain_ms"],
         "library_ms": None,
         "unfused_chain_ms": prep["chain_ms"],

@@ -572,6 +572,7 @@ cudaError_t allow_smem(K kernel, int (&allowed)[kMaxDevices], size_t smem) {
 
 struct Args {
   int batch, heads, S, dh;
+  int scale_dh;       // head dim of the softmax scale: dh, or a padded dh's true one
   const void *q, *k, *v;
   void* out;
   Strides st;
@@ -595,7 +596,7 @@ cudaError_t launch_simt(const Args& a) {
   kernel<<<tiles * a.batch * a.heads, W * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out), a.st, a.S, a.dh, a.heads, tiles, k_stride(keys, sizeof(T)),
-      1.0f / sqrtf((float)a.dh));
+      1.0f / sqrtf((float)a.scale_dh));
   return cudaGetLastError();
 }
 
@@ -608,7 +609,7 @@ cudaError_t launch_mma(K kernel, int (&allowed)[kMaxDevices], const Args& a, int
   kernel<<<tiles * a.batch * a.heads, warpgroups * mma::kThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.st, a.S, a.heads, tiles,
-      1.4426950408889634f / sqrtf((float)a.dh));
+      1.4426950408889634f / sqrtf((float)a.scale_dh));
   return cudaGetLastError();
 }
 
@@ -648,7 +649,7 @@ cudaError_t launch_mma_dh(bool single, int kb, int stages, int warpgroups, const
 cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups, int dtype,
                    const Args& a) {
   if (a.batch < 1 || a.heads < 1 || a.S < 1 || a.dh < 8 || a.dh % 8 || a.dh > kMaxHeadDim
-      || (long long)a.S * a.batch * a.heads > 0x7fffffffLL)
+      || a.scale_dh < 1 || a.scale_dh > a.dh || (long long)a.S * a.batch * a.heads > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (variant == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
@@ -669,9 +670,10 @@ cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups,
   return cudaErrorInvalidValue;
 }
 
-Args make_args(int batch, int heads, int seq, int dh, const void* q, const void* k,
-               const void* v, void* out, const long long* strides, void* stream) {
-  Args a{batch, heads, seq, dh, q, k, v, out, {}, static_cast<cudaStream_t>(stream)};
+Args make_args(int batch, int heads, int seq, int dh, int scale_dh, const void* q,
+               const void* k, const void* v, void* out, const long long* strides,
+               void* stream) {
+  Args a{batch, heads, seq, dh, scale_dh, q, k, v, out, {}, static_cast<cudaStream_t>(stream)};
   for (int i = 0; i < 3; ++i) {
     a.st.q[i] = strides[i];
     a.st.k[i] = strides[3 + i];
@@ -690,22 +692,26 @@ Args make_args(int batch, int heads, int seq, int dh, const void* q, const void*
 // device through `strides` = element strides (batch, head, row) of q, k, v,
 // out, twelve values in host memory; dh contiguous and a multiple of 8 up to
 // 128, every base and stride a multiple of 16 bytes, out not aliasing an
-// input.  Return a cudaError_t.
+// input.  The scores are scaled by scale_dh^-1/2 (1 <= scale_dh <= dh): dh
+// itself, or the true head dim of operands zero-padded to dh.  Return a
+// cudaError_t.
 
 extern "C" int attention_single_forward(int variant, int kb, int stages, int warpgroups,
                                         int dtype, int batch, int heads, int seq, int dh,
-                                        const void* q, const void* k, const void* v, void* out,
-                                        const long long* strides, void* stream) {
+                                        int scale_dh, const void* q, const void* k,
+                                        const void* v, void* out, const long long* strides,
+                                        void* stream) {
   return (int)launch(true, variant, kb, stages, warpgroups, dtype,
-                     make_args(batch, heads, seq, dh, q, k, v, out, strides, stream));
+                     make_args(batch, heads, seq, dh, scale_dh, q, k, v, out, strides, stream));
 }
 
 extern "C" int attention_flash_forward(int variant, int kb, int stages, int warpgroups,
                                        int dtype, int batch, int heads, int seq, int dh,
-                                       const void* q, const void* k, const void* v, void* out,
-                                       const long long* strides, void* stream) {
+                                       int scale_dh, const void* q, const void* k,
+                                       const void* v, void* out, const long long* strides,
+                                       void* stream) {
   return (int)launch(false, variant, kb, stages, warpgroups, dtype,
-                     make_args(batch, heads, seq, dh, q, k, v, out, strides, stream));
+                     make_args(batch, heads, seq, dh, scale_dh, q, k, v, out, strides, stream));
 }
 
 // Dynamic shared memory (bytes) of one CTA, as ops/attention.py::smem_bytes

@@ -3,10 +3,11 @@
 // Replaces the TPU kernel gstreamer_vit_tracker_tpu/ops/fused_prep_embed.py::_kernel
 // (the pallas_call in _run, reached through nv12_search_tokens from
 // tracker/core.py::update(fused_prep=...)).  It computes the chain
-//   (Y - 16, UV - 128) -> bilinear window resample (rows, then columns; chroma
-//   through the pair-folded weights, U at even and V at odd byte columns) ->
-//   BT.601 mix -> clip to [0, 255] -> /255, normalise -> patchify, k = (p, q, c)
-//   -> patch-embed product -> + (pos_embed_x + bias)
+//   window geometry (band origin, start, scale) -> (Y - 16, UV - 128) ->
+//   bilinear window resample (rows, then columns; chroma through the
+//   pair-folded weights, U at even and V at odd byte columns) -> BT.601 mix ->
+//   clip to [0, 255] -> /255, normalise -> patchify, k = (p, q, c) ->
+//   patch-embed product -> + (pos_embed_x + bias)
 // and rounds where the TPU kernel rounds, T being __nv_bfloat16 or float: the
 // hat weights to T, the row-resampled intermediate to T once, the column
 // product, the colour mix, the clip and the normalise in float32, the
@@ -18,40 +19,85 @@
 // weights (two half-resolution ones for the folded chroma) and adding an exact
 // zero changes no float32 sum, so this kernel reads two taps a row and two a
 // column: twelve bytes of the frame for one output pixel.  It takes the whole
-// frame with the band's origin (row0, col0) in device memory and treats a tap
-// outside the band as the zero the band slice would have left, so no band is
-// gathered first and nothing is read back to the host.
+// frame and the window's centre and size in device memory, works out the band
+// (window_geometry below, the float32 arithmetic of the Python version) and
+// treats a tap outside the band as the zero the band slice would have left:
+// no band is gathered, no operand is made on the host, nothing is read back.
 //
 // Bound on the H100 SXM at the flagship shape (search 256, patch 16, D 192,
 // bf16): the embed product is 75.5 MFLOP (0.08 us at 989 TFLOP/s), the taps and
 // the mix a few MFLOP in float32; the bytes are the embed weight (295 KB), pos +
 // bias and the tokens (98 KB each) and the part of the band under the window
 // (about 1.5 bytes a window pixel): well under a megabyte, 0.2-0.3 us at
-// 3.35 TB/s.  Bytes bound it; in practice it is one launch of latency.
+// 3.35 TB/s.  Bytes bound it on paper.  What bounds it in practice is the pixel
+// phase: some 300 instructions and twelve dependent tap loads an output pixel,
+// 65,536 pixels, issued by whatever few SMs make them.  The first design (128
+// CTAs of two tokens, a float32 FMA product that every CTA fed with the whole
+// weight from L2, 37.7 MB of L2 reads a call) took 36.8 us a launch, and its
+// wrapper made the band geometry and the operands with ~20 small PyTorch ops a
+// call (PERF.md, the kernel table).
 //
-// Design: one CTA of 256 threads makes kTok = 2 neighbouring tokens (128 CTAs
-// for the flagship's 256 tokens, one wave on 132 SMs).  Each thread first makes
-// pixels of the CTA's patches (all three channels, the row and column weights
-// regenerated from the three scalars, the twelve taps loaded without a branch
-// between them) into shared memory, already in k order.  Then the embed
-// product, split over k (see the note there): the weight comes from L2 as
-// 16-byte vectors, the same rows for every CTA, and both tokens accumulate in
-// float32.  It runs on the FMA units: at 2 x 768 x 192 products a CTA the
-// tensor cores would not change what bounds it.
+// Two variants, chosen by ops/fused_prep_embed.py::plan before the launch:
+//
+// "mma" (bf16): a CTA of 256 threads owns TM = 16 tokens (one mma tile of
+// rows) by TN = 32 embed columns.  First it starts the copies of the first
+// weight k-chunk (64 rows x TN, 16-byte cp.async into a ring of kStages
+// chunks).  The
+// pixels go straight into the A tile in shared memory, (TM, K) row-major, each
+// row skewed to an odd number of 16-byte units, the layout ldmatrix reads
+// without bank conflicts.  A thread owns one output column of the tile (one
+// division for its token's place in the grid, the column weights and byte
+// offsets made once) and walks the patch rows below it, the twelve tap loads
+// of a pixel issued with no branch between them.  The D / TN CTAs of one token
+// tile need the same pixels, so they run as one thread-block cluster (at most
+// 8): each makes every (D / TN)-th patch row, stores it into its peers' A
+// tiles as well (16-byte stores into their shared memory) and one cluster
+// barrier publishes them all.  Without the cluster each CTA makes all 4,096
+// pixels of its tile itself, and the pixel phase is 16.7-18.1 us of a
+// 22.4 us launch on the H100; with it 3.6-3.8 of 11.0 (profile_prep.py,
+// which also times 24, 48 and 64 columns a CTA: 32 is the fastest at D 192).
+// Then the product: each warp owns m16 x n8 tiles and walks K in 16-deep
+// steps of mma.sync.m16n8k16, A by ldmatrix, B (the weight as it lies, (K, D)
+// row-major) by ldmatrix.trans.  Every step goes to a fresh accumulator and
+// the steps are added in float32 in order: the tensor cores' own float32
+// accumulation is not an IEEE sum (csrc/encoder_mma.cuh).  The epilogue rounds the
+// sum to bf16, adds pos + bias in float32 and rounds again.  The weight is
+// read by the CTAs of one column tile only: each reads K x TN of it once.
+//
+// "simt" (float32): the tensor cores would take TF32, which breaks the float32
+// tolerance of 1e-4, so the product stays on the FMA units: a CTA makes two
+// tokens' pixels (the same pixel code as "mma") and the product split over k,
+// the weight as 16-byte vectors from L2, the partial sums meeting in shared
+// memory in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+
+#include <cooperative_groups.h>
+
+#include "attention_mma.cuh"   // cp.async and shared-address primitives
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
+using mma::cp_async16;
+using mma::cp_async_commit;
+using mma::cp_async_wait;
+using mma::smem_addr;
 
-constexpr int kTok = 2;          // tokens a CTA makes
 constexpr int kThreads = 256;
-constexpr int kAhead = 4;        // embed-weight vectors a thread loads ahead
+constexpr int kTileTokens = 16;  // tokens a CTA ("mma"): one m16 tile of rows
+constexpr int kTileCols = 32;    // embed columns a CTA ("mma"); D / kTileCols a cluster
+constexpr int kWarps = kThreads / 32;
+constexpr int kKChunk = 64;      // weight rows a stage ("mma")
+constexpr int kStages = 2;       // weight k-chunks in flight ("mma")
+constexpr int kSimtTok = 2;      // tokens a CTA ("simt")
+constexpr int kAhead = 4;        // embed-weight vectors a thread loads ahead ("simt")
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -65,6 +111,53 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
+
+// ---------------------------------------------------------------------------
+// The window's geometry.
+// ---------------------------------------------------------------------------
+
+struct Window {
+  float start_y, start_x;    // window start relative to the band
+  float scale;               // window size / out_size
+  int row0, col0;            // band origin, even
+  int bh, bw;                // band size
+};
+
+// ops/preprocess.py::band_origin on one axis: round(centre - band / 2) half to
+// even (torch.round; rintf, not roundf), clamped to [0, max(limit - band, 0)],
+// floored to an even number.  The clamp is taken on the float, which for every
+// value in int32's range is the clamp of torch's int32.
+__device__ __forceinline__ int band_origin(float centre, int limit, int band) {
+  const float r = rintf(__fsub_rn(centre, 0.5f * (float)band));
+  const float hi = (float)max(limit - band, 0);
+  return (int)fminf(fmaxf(r, 0.0f), hi) & ~1;
+}
+
+// ops/fused_prep_embed.py::_band and the scale of its plain version, in the
+// same float32 operations: start = (centre - 0.5 * size) - origin, the band
+// only where the frame is larger than it on some axis (band 0: none), scale =
+// size / out_size correctly rounded.
+__device__ __forceinline__ Window window_geometry(const float* cx, const float* cy,
+                                                  const float* size, int frame_h,
+                                                  int frame_w, int band, int out_size) {
+  const float c_x = *cx, c_y = *cy, s = *size;
+  const float half = __fmul_rn(0.5f, s);
+  Window w{__fsub_rn(c_y, half), __fsub_rn(c_x, half), __fdiv_rn(s, (float)out_size),
+           0, 0, frame_h, frame_w};
+  if (band > 0 && (frame_h > band || frame_w > band)) {
+    w.bh = min(band, frame_h);
+    w.bw = min(band, frame_w);
+    w.row0 = band_origin(c_y, frame_h, band);
+    w.col0 = band_origin(c_x, frame_w, band);
+    w.start_y = __fsub_rn(w.start_y, (float)w.row0);
+    w.start_x = __fsub_rn(w.start_x, (float)w.col0);
+  }
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// The pixels.
+// ---------------------------------------------------------------------------
 
 // Source coordinate of output index o: start + (o + 0.5) * scale - 0.5, each
 // operation rounded on its own (no fused multiply-add), as the plain version
@@ -87,221 +180,484 @@ template <typename T> __device__ __forceinline__ float weight_half(float t, int 
   return round_to<T>(__fadd_rn(hat(t, 2 * i), hat(t, 2 * i + 1)));
 }
 
-// Shared memory: the pixels [kTok][K] of T, then (16-byte aligned) the partial
-// embed sums [kgroups][kTok][dim] of float.
-template <typename T> __host__ __device__ inline size_t partial_offset(int patch) {
-  return ((size_t)kTok * patch * patch * 3 * sizeof(T) + 15) / 16 * 16;
-}
-
-struct Geometry {
+struct Frame {
   const unsigned char* y;    // (frame_h, frame_w)
   const unsigned char* uv;   // (frame_h / 2, frame_w) raw interleaved U, V
   int frame_w;
-  int row0, col0;            // band origin, even
-  int bh, bw;                // band size
 };
 
-// Shifted luma at band position (j, x); zero outside the band.  The load is
-// unconditional, from a position clamped into the band, and the result is
-// selected afterwards: no branch stands between the twelve loads of a pixel,
-// so they are all in flight together.
-__device__ __forceinline__ float luma(const Geometry& g, int j, int x) {
-  const bool inside = j >= 0 && j < g.bh && x >= 0 && x < g.bw;
-  const int jc = min(max(j, 0), g.bh - 1), xc = min(max(x, 0), g.bw - 1);
-  const float v = (float)g.y[(size_t)(g.row0 + jc) * g.frame_w + g.col0 + xc] - 16.0f;
-  return inside ? v : 0.0f;
+struct Norm {
+  float mean[3], stdv[3];
+};
+
+// Two taps of one axis at positions p and p + 1 of a band axis of length n:
+// the positions clamped into it (so every load is of a real byte) and whether
+// each lies inside (else the tap reads as zero).
+struct Taps {
+  int at0, at1;
+  bool in0, in1;
+};
+
+__device__ __forceinline__ Taps taps(int p, int n) {
+  return Taps{min(max(p, 0), n - 1), min(max(p + 1, 0), n - 1), p >= 0 && p < n,
+              p + 1 >= 0 && p + 1 < n};
 }
 
-// Shifted chroma at half-resolution band position (i, c); ch 0 = U, 1 = V.
-__device__ __forceinline__ float chroma(const Geometry& g, int i, int c, int ch) {
-  const bool inside = i >= 0 && i < g.bh / 2 && c >= 0 && c < g.bw / 2;
-  const int ic = min(max(i, 0), g.bh / 2 - 1), cc = min(max(c, 0), g.bw / 2 - 1);
-  const float v =
-      (float)g.uv[(size_t)(g.row0 / 2 + ic) * g.frame_w + g.col0 + 2 * cc + ch] - 128.0f;
-  return inside ? v : 0.0f;
-}
-
+// The pixels of tokens [n0, n0 + tokens) into A: row t is token n0 + t, column
+// k = (p * patch + q) * 3 + c, row stride lda, rounded to T; rows past the last
+// token are zeros.  Only the patch rows p = share (mod shares) are made (all of
+// them for shares = 1).  A thread owns one output column of the tile (or
+// several, or a part of one's rows when the tile has fewer columns than
+// threads): its token's grid place, column weights and byte offsets are made
+// once, then it walks the patch rows.  The twelve loads of a pixel are
+// unconditional, from positions clamped into the band, their results selected
+// afterwards, so no branch stands between them and they are all in flight
+// together.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_prep_embed_kernel(const unsigned char* __restrict__ y_plane,
-                        const unsigned char* __restrict__ uv_plane,
-                        const float* __restrict__ scal,      // start_y, start_x, scale
-                        const int* __restrict__ origin,      // row0, col0
-                        const T* __restrict__ w_embed,       // (K, D)
-                        const T* __restrict__ pos_bias,      // (N, D)
-                        T* __restrict__ out,                 // (N, D)
-                        int frame_w, int bh, int bw, int out_size, int patch, int dim,
-                        float mean_r, float mean_g, float mean_b,
-                        float std_r, float std_g, float std_b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);                  // [kTok][K]
-  const int grid_side = out_size / patch;
-  const int n_tok = grid_side * grid_side;
-  const int pp = patch * patch;
-  const int K = pp * 3;
-  const int n0 = blockIdx.x * kTok;
-  const float sy = scal[0], sx = scal[1], sc = scal[2];
-  const Geometry g{y_plane, uv_plane, frame_w, origin[0], origin[1], bh, bw};
-  const float mean[3] = {mean_r, mean_g, mean_b};
-  const float stdv[3] = {std_r, std_g, std_b};
-
-  // ---- pixels of this CTA's patches, in k = (p, q, c) order ----------------
-  for (int idx = threadIdx.x; idx < kTok * pp; idx += kThreads) {
-    const int tk = idx / pp, rem = idx - tk * pp;
-    const int n = n0 + tk;
-    if (n >= n_tok) break;
-    const int pr = rem / patch, q = rem - pr * patch;
-    const int o_row = (n / grid_side) * patch + pr;
-    const int o_col = (n % grid_side) * patch + q;
-    const float ty = source_coord(sy, o_row, sc);
-    const float tx = source_coord(sx, o_col, sc);
-    const int j0 = (int)floorf(ty), x0 = (int)floorf(tx);
-    const int i0 = j0 >> 1, c0 = x0 >> 1;              // floor division
-
-    // Luma: rows j0, j0 + 1 blended and rounded to T, then columns x0, x0 + 1.
-    const float wr0 = weight<T>(ty, j0), wr1 = weight<T>(ty, j0 + 1);
-    float yc = 0.0f;
+__device__ __forceinline__ void make_pixels(const Frame& f, const Window& w, const Norm& nm,
+                                            int n0, int tokens, int n_tok, int grid_side,
+                                            int patch, int share, int shares, T* A, int lda) {
+  const int ncols = tokens * patch;
+  const int rgroups = max(1, kThreads / ncols);
+  const int step = shares * rgroups;
+  const int half_w = w.bw / 2, half_h = w.bh / 2;
+  for (int item = threadIdx.x; item < ncols * rgroups; item += kThreads) {
+    const int col = item % ncols, first = share + shares * (item / ncols);
+    const int t = col / patch, q = col - t * patch;
+    const int n = n0 + t;
+    T* at = A + (size_t)t * lda + q * 3;
+    if (n >= n_tok) {
+      for (int pr = first; pr < patch; pr += step)
 #pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const float col = round_to<T>(
-          fmaf(wr1, luma(g, j0 + 1, x0 + dx), wr0 * luma(g, j0, x0 + dx)));
-      yc = fmaf(col, weight<T>(tx, x0 + dx), yc);
+        for (int c = 0; c < 3; ++c) at[pr * patch * 3 + c] = from_f32<T>(0.0f);
+      continue;
     }
-    // Chroma: half-resolution rows i0, i0 + 1 and columns c0, c0 + 1.
-    const float hr0 = weight_half<T>(ty, i0), hr1 = weight_half<T>(ty, i0 + 1);
-    float uc = 0.0f, vc = 0.0f;
+    const int gh = n / grid_side, gw = n - gh * grid_side;
+    const float tx = source_coord(w.start_x, gw * patch + q, w.scale);
+    const int x0 = (int)floorf(tx), c0 = x0 >> 1;     // floor division
+    const float wc[2] = {weight<T>(tx, x0), weight<T>(tx, x0 + 1)};
+    const float hc[2] = {weight_half<T>(tx, c0), weight_half<T>(tx, c0 + 1)};
+    const Taps lx = taps(x0, w.bw), cxt = taps(c0, half_w);
+    const int lcol[2] = {w.col0 + lx.at0, w.col0 + lx.at1};
+    const int ccol[2] = {w.col0 + 2 * cxt.at0, w.col0 + 2 * cxt.at1};
+    const bool lin[2] = {lx.in0, lx.in1}, cin[2] = {cxt.in0, cxt.in1};
+
+    for (int pr = first; pr < patch; pr += step) {
+      const float ty = source_coord(w.start_y, gh * patch + pr, w.scale);
+      const int j0 = (int)floorf(ty), i0 = j0 >> 1;
+      const float wr0 = weight<T>(ty, j0), wr1 = weight<T>(ty, j0 + 1);
+      const float hr0 = weight_half<T>(ty, i0), hr1 = weight_half<T>(ty, i0 + 1);
+      const Taps ly = taps(j0, w.bh), cy = taps(i0, half_h);
+      const unsigned char* yr0 = f.y + (size_t)(w.row0 + ly.at0) * f.frame_w;
+      const unsigned char* yr1 = f.y + (size_t)(w.row0 + ly.at1) * f.frame_w;
+      const unsigned char* ur0 = f.uv + (size_t)(w.row0 / 2 + cy.at0) * f.frame_w;
+      const unsigned char* ur1 = f.uv + (size_t)(w.row0 / 2 + cy.at1) * f.frame_w;
+      // The twelve taps: four luma bytes, four (U, V) byte pairs.
+      unsigned char l0[2], l1[2];
+      uchar2 u0[2], u1[2];
 #pragma unroll
-    for (int dc = 0; dc < 2; ++dc) {
-      const float wc = weight_half<T>(tx, c0 + dc);
-      const float u = round_to<T>(
-          fmaf(hr1, chroma(g, i0 + 1, c0 + dc, 0), hr0 * chroma(g, i0, c0 + dc, 0)));
-      const float v = round_to<T>(
-          fmaf(hr1, chroma(g, i0 + 1, c0 + dc, 1), hr0 * chroma(g, i0, c0 + dc, 1)));
-      uc = fmaf(u, wc, uc);
-      vc = fmaf(v, wc, vc);
-    }
-    // BT.601 (the integer coefficients over 256, exact in float32), every
-    // operation rounded on its own.
-    const float yv = __fmul_rn(298.0f / 256.0f, yc);
-    float rgb[3];
-    rgb[0] = __fadd_rn(yv, __fmul_rn(409.0f / 256.0f, vc));
-    rgb[1] = __fadd_rn(__fadd_rn(yv, __fmul_rn(-100.0f / 256.0f, uc)),
-                       __fmul_rn(-208.0f / 256.0f, vc));
-    rgb[2] = __fadd_rn(yv, __fmul_rn(516.0f / 256.0f, uc));
-    T* px = xs + (size_t)tk * K + (size_t)rem * 3;
+      for (int d = 0; d < 2; ++d) {
+        l0[d] = yr0[lcol[d]];
+        l1[d] = yr1[lcol[d]];
+        u0[d] = *reinterpret_cast<const uchar2*>(ur0 + ccol[d]);
+        u1[d] = *reinterpret_cast<const uchar2*>(ur1 + ccol[d]);
+      }
+      // Luma: rows j0, j0 + 1 blended and rounded to T, then columns x0, x0 + 1.
+      float yc = 0.0f, uc = 0.0f, vc = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float v01 = __fdiv_rn(fminf(fmaxf(rgb[c], 0.0f), 255.0f), 255.0f);
-      px[c] = from_f32<T>(__fdiv_rn(__fsub_rn(v01, mean[c]), stdv[c]));
+      for (int d = 0; d < 2; ++d) {
+        const float a = ly.in0 && lin[d] ? (float)l0[d] - 16.0f : 0.0f;
+        const float b = ly.in1 && lin[d] ? (float)l1[d] - 16.0f : 0.0f;
+        yc = fmaf(round_to<T>(fmaf(wr1, b, wr0 * a)), wc[d], yc);
+      }
+      // Chroma: half-resolution rows i0, i0 + 1 and columns c0, c0 + 1.
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const bool a_in = cy.in0 && cin[d], b_in = cy.in1 && cin[d];
+        const float ua = a_in ? (float)u0[d].x - 128.0f : 0.0f;
+        const float va = a_in ? (float)u0[d].y - 128.0f : 0.0f;
+        const float ub = b_in ? (float)u1[d].x - 128.0f : 0.0f;
+        const float vb = b_in ? (float)u1[d].y - 128.0f : 0.0f;
+        uc = fmaf(round_to<T>(fmaf(hr1, ub, hr0 * ua)), hc[d], uc);
+        vc = fmaf(round_to<T>(fmaf(hr1, vb, hr0 * va)), hc[d], vc);
+      }
+      // BT.601 (the integer coefficients over 256, exact in float32), every
+      // operation rounded on its own.
+      const float yv = __fmul_rn(298.0f / 256.0f, yc);
+      float rgb[3];
+      rgb[0] = __fadd_rn(yv, __fmul_rn(409.0f / 256.0f, vc));
+      rgb[1] = __fadd_rn(__fadd_rn(yv, __fmul_rn(-100.0f / 256.0f, uc)),
+                         __fmul_rn(-208.0f / 256.0f, vc));
+      rgb[2] = __fadd_rn(yv, __fmul_rn(516.0f / 256.0f, uc));
+      T* px = at + pr * patch * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v01 = __fdiv_rn(fminf(fmaxf(rgb[c], 0.0f), 255.0f), 255.0f);
+        px[c] = from_f32<T>(__fdiv_rn(__fsub_rn(v01, nm.mean[c]), nm.stdv[c]));
+      }
     }
   }
+}
+
+struct Args {
+  Frame frame;
+  const float *cx, *cy, *size;
+  int frame_h, band, out_size, patch, dim;
+  Norm norm;
+  const void* w_embed;       // (K, dim)
+  const void* pos_bias;      // (N, dim)
+  void* out;                 // (N, dim)
+};
+
+// ---------------------------------------------------------------------------
+// Variant "mma": bf16 on the tensor cores.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d = A[16 x 16] . B[16 x 8] into a fresh (zero) accumulator.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+}
+
+__host__ __device__ inline int round_up(int n, int to) { return (n + to - 1) / to * to; }
+
+// Row stride (bf16 elements) of a shared tile whose rows hold n: n rounded up
+// to an odd number of 16-byte units, so that the eight rows one ldmatrix
+// reads fall in eight different bank groups.
+__host__ __device__ constexpr int skewed(int n) {
+  return ((n + 7) / 8 % 2 ? (n + 7) / 8 : (n + 7) / 8 + 1) * 8;
+}
+
+// Shared memory of one "mma" CTA: the A tile (TM rows of round_up(K, 64),
+// skewed), then the weight ring (kStages x 64 rows of TN, skewed).
+inline size_t mma_smem_bytes(int tm, int tn, int k) {
+  return ((size_t)tm * skewed(round_up(k, kKChunk))
+          + (size_t)kStages * kKChunk * skewed(tn)) * sizeof(bf16);
+}
+
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
+  constexpr int kNt = TN / 8;                         // n8 tiles of a CTA
+  constexpr int kTiles = (TM / 16) * kNt;
+  constexpr int kPerWarp = (kTiles + kWarps - 1) / kWarps;
+  constexpr int kLdb = skewed(TN);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.patch * a.patch * 3;
+  const int kp = round_up(K, kKChunk);
+  const int lda = skewed(kp);
+  bf16* A = reinterpret_cast<bf16*>(smem);            // [TM][lda]
+  bf16* B = A + (size_t)TM * lda;                     // [kStages][kKChunk][kLdb]
+  const int grid_side = a.out_size / a.patch;
+  const int n_tok = grid_side * grid_side;
+  const int n0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
+  const int chunks = kp / kKChunk;
+  const bf16* w_embed = static_cast<const bf16*>(a.w_embed);
+
+  // Weight rows [64 c, 64 c + 64) x columns [col0, col0 + TN) into stage c %
+  // kStages; rows past K are zeros.
+  const auto load_chunk = [&](int c) {
+    bf16* dst = B + (size_t)(c % kStages) * kKChunk * kLdb;
+    for (int i = threadIdx.x; i < kKChunk * kNt; i += kThreads) {
+      const int r = i / kNt, v = i - r * kNt;
+      const int k = c * kKChunk + r;
+      cp_async16(smem_addr(dst + r * kLdb + v * 8),
+                 w_embed + (size_t)min(k, K - 1) * a.dim + col0 + v * 8, k < K);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) load_chunk(s);
+    cp_async_commit();
+  }
+
+  // The CTAs of one token tile (its column tiles) may run as one cluster:
+  // each then makes every shares-th patch row of the tile's pixels and
+  // stores them into the others' A tiles as well (16-byte stores into their
+  // shared memory); one cluster barrier then publishes every share.
+  cg::cluster_group cluster = cg::this_cluster();
+  const int shares = (int)cluster.num_blocks(), share = (int)cluster.block_rank();
+  // A CTA may write a peer's shared memory only once the peer runs: every
+  // thread arrives here and waits before its first store to a peer.
+  if (shares > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
+                                   a.out_size);
+  make_pixels<bf16>(a.frame, w, a.norm, n0, TM, n_tok, grid_side, a.patch, share, shares, A,
+                    lda);
+  if (shares > 1) {
+    __syncthreads();                 // this CTA's share is made
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // the peers run
+    const int seg = a.patch * 3;     // elements of one patch row of one token
+    const int vec = seg % 8 == 0 ? 8 : 1;
+    const int units = seg / vec;
+    const int rows = (a.patch - share + shares - 1) / shares;      // patch rows of the share
+    const int per_peer = TM * rows * units;
+    for (int i = threadIdx.x; i < (shares - 1) * per_peer; i += kThreads) {
+      const int peer = (share + 1 + i / per_peer) % shares, j = i % per_peer;
+      const int u = j % units, tr = j / units;
+      const size_t at = (size_t)(tr / rows) * lda + (share + shares * (tr % rows)) * seg
+                        + u * vec;
+      bf16* dst = cluster.map_shared_rank(A + at, peer);
+      if (vec == 8)
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(A + at);
+      else
+        *dst = A[at];
+    }
+    cluster.sync();                  // every share is in every tile
+  }
+  for (int i = threadIdx.x; i < TM * (kp - K); i += kThreads)     // K's padding
+    A[(size_t)(i / (kp - K)) * lda + K + i % (kp - K)] = __float2bfloat16_rn(0.0f);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[kPerWarp][4];
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+  for (int c = 0; c < chunks; ++c) {
+    if (c + kStages - 1 < chunks) load_chunk(c + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();     // this thread's copies of chunk c are in
+    __syncthreads();                 // everyone's are, and the pixels
+    const bf16* Bs = B + (size_t)(c % kStages) * kKChunk * kLdb;
+#pragma unroll
+    for (int ks = 0; ks < kKChunk / 16; ++ks) {
+#pragma unroll
+      for (int i = 0; i < kPerWarp; ++i) {
+        const int tile = warp + i * kWarps;
+        if (kTiles % kWarps != 0 && tile >= kTiles) break;   // uniform over the warp
+        const int mt = tile / kNt, nt = tile - mt * kNt;
+        uint32_t af[4], bfr[2];
+        ldmatrix_x4(af, smem_addr(A + (size_t)(mt * 16 + (lane & 15)) * lda
+                                  + c * kKChunk + ks * 16 + (lane >> 4) * 8));
+        ldmatrix_x2_trans(bfr, smem_addr(Bs + (ks * 16 + (lane & 15)) * kLdb + nt * 8));
+        float d[4];
+        mma_16816(d, af, bfr);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = __fadd_rn(acc[i][e], d[e]);
+      }
+    }
+    __syncthreads();                 // stage c % kStages is free again
+  }
+
+  // Epilogue on the accumulator registers: row lane / 4 (+ 8), columns
+  // 2 (lane % 4) and + 1 of each n8 tile.
+  const bf16* pos_bias = static_cast<const bf16*>(a.pos_bias);
+  bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int tile = warp + i * kWarps;
+    if (kTiles % kWarps != 0 && tile >= kTiles) break;
+    const int mt = tile / kNt, nt = tile - mt * kNt;
+    const int col = col0 + nt * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + mt * 16 + (lane >> 2) + 8 * h;
+      if (n >= n_tok) continue;
+      const size_t at = (size_t)n * a.dim + col;
+      const __nv_bfloat162 pb = *reinterpret_cast<const __nv_bfloat162*>(pos_bias + at);
+      __nv_bfloat162 o;
+      o.x = __float2bfloat16_rn(
+          __fadd_rn(round_to<bf16>(acc[i][2 * h]), __bfloat162float(pb.x)));
+      o.y = __float2bfloat16_rn(
+          __fadd_rn(round_to<bf16>(acc[i][2 * h + 1]), __bfloat162float(pb.y)));
+      *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Variant "simt": float32 on the FMA units.
+// ---------------------------------------------------------------------------
+
+// Shared memory: the pixels [kSimtTok][K] of float, then the partial embed sums
+// [kgroups][kSimtTok][dim] of float.
+inline size_t simt_smem_bytes(int k, int dim) {
+  const int kgroups = kThreads / (dim / 4);
+  return ((size_t)kSimtTok * k + (size_t)kgroups * kSimtTok * dim) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads) embed_simt_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);           // [kSimtTok][K]
+  const int grid_side = a.out_size / a.patch;
+  const int n_tok = grid_side * grid_side;
+  const int K = a.patch * a.patch * 3, dim = a.dim;
+  const int n0 = blockIdx.x * kSimtTok;
+  const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
+                                   a.out_size);
+  make_pixels<float>(a.frame, w, a.norm, n0, kSimtTok, n_tok, grid_side, a.patch, 0, 1, xs,
+                     K);
   __syncthreads();
 
-  // ---- patch embed, split over k ---------------------------------------------
   // A thread owns kVec neighbouring outputs (one 16-byte vector of a weight
   // row) and every kgroups-th row k; kAhead vectors are loaded before any is
-  // used.  A warp then reads 512 contiguous bytes of the weight at a time, an
-  // eighth of the requests of one 2-byte load a thread and row, which is what
-  // held the first version at 0.14 ms: every CTA reads the same rows, so the
-  // requests of all SMs queue at the same L2 lines.  The partial sums of the
-  // k groups meet in shared memory and are added in a fixed order.
-  constexpr int kVec = 16 / sizeof(T);
+  // used, so a warp reads 512 contiguous bytes of the weight at a time.  The
+  // partial sums of the k groups meet in shared memory and are added in a
+  // fixed order.
+  constexpr int kVec = 4;
   const int dgroups = dim / kVec;
   const int kgroups = kThreads / dgroups;
-  float* part = reinterpret_cast<float*>(smem + partial_offset<T>(patch));  // [kg][kTok][dim]
+  float* part = xs + (size_t)kSimtTok * K;               // [kg][kSimtTok][dim]
+  const float* w_embed = static_cast<const float*>(a.w_embed);
   const int dg = threadIdx.x % dgroups, kg = threadIdx.x / dgroups;
   if (kg < kgroups) {
-    float acc[kTok][kVec];
+    float acc[kSimtTok][kVec];
 #pragma unroll
-    for (int t = 0; t < kTok; ++t)
+    for (int t = 0; t < kSimtTok; ++t)
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[t][e] = 0.0f;
-    const T* wcol = w_embed + (size_t)dg * kVec;
+    const float* wcol = w_embed + (size_t)dg * kVec;
     for (int k = kg; k < K; k += kgroups * kAhead) {
-      uint4 w[kAhead];
+      float4 wv[kAhead];
 #pragma unroll
       for (int i = 0; i < kAhead; ++i) {
         const int kk = k + i * kgroups;
-        w[i] = kk < K ? *reinterpret_cast<const uint4*>(wcol + (size_t)kk * dim)
-                      : make_uint4(0u, 0u, 0u, 0u);
+        wv[i] = kk < K ? *reinterpret_cast<const float4*>(wcol + (size_t)kk * dim)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int i = 0; i < kAhead; ++i) {
         const int kk = min(k + i * kgroups, K - 1);   // past K the weights are zero
-        const T* we = reinterpret_cast<const T*>(&w[i]);
+        const float we[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
 #pragma unroll
-        for (int t = 0; t < kTok; ++t) {
-          const float x = to_f32(xs[t * K + kk]);
+        for (int t = 0; t < kSimtTok; ++t) {
+          const float x = xs[t * K + kk];
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) acc[t][e] = fmaf(x, to_f32(we[e]), acc[t][e]);
+          for (int e = 0; e < kVec; ++e) acc[t][e] = fmaf(x, we[e], acc[t][e]);
         }
       }
     }
 #pragma unroll
-    for (int t = 0; t < kTok; ++t)
+    for (int t = 0; t < kSimtTok; ++t)
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
-        part[((size_t)kg * kTok + t) * dim + dg * kVec + e] = acc[t][e];
+        part[((size_t)kg * kSimtTok + t) * dim + dg * kVec + e] = acc[t][e];
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < kTok * dim; idx += kThreads) {
+  const float* pos_bias = static_cast<const float*>(a.pos_bias);
+  float* out = static_cast<float*>(a.out);
+  for (int idx = threadIdx.x; idx < kSimtTok * dim; idx += kThreads) {
     const int t = idx / dim, d = idx - t * dim;
     const int n = n0 + t;
     if (n >= n_tok) break;
     float sum = 0.0f;
-    for (int g2 = 0; g2 < kgroups; ++g2) sum += part[((size_t)g2 * kTok + t) * dim + d];
+    for (int g2 = 0; g2 < kgroups; ++g2) sum += part[((size_t)g2 * kSimtTok + t) * dim + d];
     const size_t at = (size_t)n * dim + d;
-    out[at] = from_f32<T>(__fadd_rn(round_to<T>(sum), to_f32(pos_bias[at])));
+    out[at] = __fadd_rn(sum, pos_bias[at]);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* y_plane, const void* uv_plane, const void* scal,
-                   const void* origin, const void* w_embed, const void* pos_bias, void* out,
-                   int frame_w, int bh, int bw, int out_size, int patch, int dim,
-                   const float* mean, const float* stdv, cudaStream_t st) {
-  const int grid_side = out_size / patch;
-  const int n_tok = grid_side * grid_side;
-  constexpr int kVec = 16 / sizeof(T);
-  if (dim % kVec || dim / kVec > kThreads) return cudaErrorInvalidValue;
-  const int kgroups = kThreads / (dim / kVec);
-  const size_t smem = partial_offset<T>(patch) + (size_t)kgroups * kTok * dim * sizeof(float);
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+#define RETURN_IF_ERROR(expr)              \
+  do {                                     \
+    const cudaError_t err_ = (expr);       \
+    if (err_ != cudaSuccess) return err_;  \
+  } while (0)
+
+constexpr int kMaxDevices = 64;
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory.  `allowed` is
+// that kernel's own record by device: the attribute is set when a launch needs
+// more than any before it (never during a CUDA-graph capture of a shape seen
+// before).
+template <typename Kern>
+cudaError_t allow_smem(Kern kernel, int (&allowed)[kMaxDevices], size_t smem) {
+  int device = 0;
+  RETURN_IF_ERROR(cudaGetDevice(&device));
+  if (device < kMaxDevices && (int)smem <= allowed[device]) return cudaSuccess;
+  int optin = 0;
+  RETURN_IF_ERROR(cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem));
+  if (device < kMaxDevices) allowed[device] = (int)smem;
+  return cudaSuccess;
+}
+
+// The D / kTileCols CTAs of one token tile run as one cluster (at most 8)
+// and share its pixel phase.
+cudaError_t launch_mma(const Args& a, cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  const int cluster = a.dim / kTileCols;
+  if (a.dim % kTileCols || cluster > 8) return cudaErrorInvalidValue;
+  const auto kernel = embed_mma_kernel<kTileTokens, kTileCols>;
+  const size_t smem = mma_smem_bytes(kTileTokens, kTileCols, a.patch * a.patch * 3);
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  const int n_tok = (a.out_size / a.patch) * (a.out_size / a.patch);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((n_tok + kTileTokens - 1) / kTileTokens, cluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  RETURN_IF_ERROR(cudaLaunchKernelEx(&config, kernel, a));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_simt(const Args& a, cudaStream_t st) {
+  if (a.dim % 4 || a.dim / 4 > kThreads) return cudaErrorInvalidValue;
+  const size_t smem = simt_smem_bytes(a.patch * a.patch * 3, a.dim);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  fused_prep_embed_kernel<T><<<(n_tok + kTok - 1) / kTok, kThreads, smem, st>>>(
-      static_cast<const unsigned char*>(y_plane), static_cast<const unsigned char*>(uv_plane),
-      static_cast<const float*>(scal), static_cast<const int*>(origin),
-      static_cast<const T*>(w_embed), static_cast<const T*>(pos_bias), static_cast<T*>(out),
-      frame_w, bh, bw, out_size, patch, dim, mean[0], mean[1], mean[2], stdv[0], stdv[1],
-      stdv[2]);
+  const int n_tok = (a.out_size / a.patch) * (a.out_size / a.patch);
+  embed_simt_kernel<<<(n_tok + kSimtTok - 1) / kSimtTok, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of w_embed, pos_bias and out).  All tensors
-// contiguous on the current device: y (frame_h, frame_w) uint8; uv
-// (frame_h / 2, frame_w / 2, 2) uint8; scal 3 float32 [start_y, start_x, scale]
-// relative to the band; origin 2 int32 [row0, col0], both even; w_embed
-// (patch * patch * 3, dim), 16-byte aligned; pos_bias and out
-// ((out_size / patch)^2, dim).  frame_w, band_h and band_w even, out_size a
-// multiple of patch, dim a multiple of 16 bytes of the dtype.  Returns a
-// cudaError_t.
+// variant: 0 = "simt" (float32: w_embed, pos_bias and out float), 1 = "mma"
+// (bfloat16: 16 tokens x 32 columns a CTA, dim / 32 CTAs a cluster).  All tensors on the current device:
+// y (frame_h, frame_w) uint8; uv (frame_h / 2, frame_w / 2, 2) uint8; cx,
+// cy, size one float32 each, the crop window (ops/preprocess.py::CropWindow);
+// w_embed (patch * patch * 3, dim), 16-byte aligned; pos_bias and out
+// ((out_size / patch)^2, dim), contiguous.  frame_h and frame_w even; band 0
+// for none, even where the frame is larger than it; out_size a multiple of
+// patch; dim a multiple of 32 up to 256 ("mma") or of 4 up to 1024
+// ("simt").  Returns a cudaError_t.
 extern "C" int fused_prep_embed_forward(
-    int dtype, int frame_w, int band_h, int band_w, int out_size, int patch, int dim,
-    float mean_r, float mean_g, float mean_b, float std_r, float std_g, float std_b,
-    const void* y_plane, const void* uv_plane, const void* scal, const void* origin,
-    const void* w_embed, const void* pos_bias, void* out, void* stream) {
-  if (patch < 1 || out_size % patch || dim < 1 || (frame_w | band_h | band_w) & 1)
+    int variant, int frame_h, int frame_w, int band,
+    int out_size, int patch, int dim, float mean_r, float mean_g, float mean_b, float std_r,
+    float std_g, float std_b, const void* y_plane, const void* uv_plane, const void* cx,
+    const void* cy, const void* size, const void* w_embed, const void* pos_bias, void* out,
+    void* stream) {
+  const bool banded = band > 0 && (frame_h > band || frame_w > band);
+  if (patch < 1 || out_size < patch || out_size % patch || dim < 1 || frame_h < 2
+      || frame_w < 2 || band < 0 || (frame_h | frame_w) & 1 || (banded && band & 1))
     return (int)cudaErrorInvalidValue;
-  const float mean[3] = {mean_r, mean_g, mean_b};
-  const float stdv[3] = {std_r, std_g, std_b};
+  const Args a{Frame{static_cast<const unsigned char*>(y_plane),
+                     static_cast<const unsigned char*>(uv_plane), frame_w},
+               static_cast<const float*>(cx), static_cast<const float*>(cy),
+               static_cast<const float*>(size), frame_h, band, out_size, patch, dim,
+               Norm{{mean_r, mean_g, mean_b}, {std_r, std_g, std_b}}, w_embed, pos_bias, out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch<bf16>(y_plane, uv_plane, scal, origin, w_embed, pos_bias, out, frame_w,
-                             band_h, band_w, out_size, patch, dim, mean, stdv, st);
-  if (dtype == 0)
-    return (int)launch<float>(y_plane, uv_plane, scal, origin, w_embed, pos_bias, out, frame_w,
-                              band_h, band_w, out_size, patch, dim, mean, stdv, st);
+  if (variant == 1) return (int)launch_mma(a, st);
+  if (variant == 0) return (int)launch_simt(a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,7 +22,12 @@
 //
 // Two variants, one for each dtype (ops/vit_block.py::plan names them and passes in
 // the N tiles as ints; the entries launch what they are told or return an
-// error; nothing falls back):
+// error; nothing falls back).  The head dim the kernels run at (head_dim) may
+// exceed the true one, D / H: the plan zero-pads a head dim no variant takes
+// (the qkv weight and bias get zero columns a head, the proj weight zero rows
+// a head, so the inner width E = H . head_dim), and the scores are scaled by
+// the true head dim's (D / H)^-1/2.  Zeros add exactly to an f32 sum, so a
+// padded head computes what the unpadded one does.
 //
 // "mma" (bf16, head dim 32 / 64 / 128, D and the MLP width multiples of 64,
 // D up to 768): five launches a block, the tiles of encoder_mma.cuh:
@@ -231,14 +236,14 @@ gemm_bias_kernel(const T* __restrict__ A, const T* __restrict__ W,
 // ---------------------------------------------------------------------------
 // Variant "simt": softmax attention over one head, CTA = (16-query tile,
 // head, batch); qkv: (B*S, 3D) rows [q | k | v], heads contiguous inside
-// each; out: (B*S, D).  Keys arrive 32 at a time: K transposed (row stride 33
-// words, so the transposing stores and the reads are free of bank conflicts)
-// and V, both widened to f32.  Each warp owns two query rows, lane j scores
-// key j of a block.  As the twin computes it: pass 1 walks the key blocks for
-// each row's maximum m of the f32 scores (scaled by dh^-1/2), pass 2 walks
-// them again for p = expf(s - m), the row sum l and P.V (p from lane j by a
-// shuffle, each lane owning head dims lane, lane + 32, ...; dh <= 128); one
-// division o / l.
+// each; out: (B*S, D), D here the inner width H . dh.  Keys arrive 32 at a
+// time: K transposed (row stride 33 words, so the transposing stores and the
+// reads are free of bank conflicts) and V, both widened to f32.  Each warp
+// owns two query rows, lane j scores key j of a block.  As the twin computes
+// it: pass 1 walks the key blocks for each row's maximum m of the f32 scores
+// (scaled by the true head dim's ^-1/2), pass 2 walks them again for
+// p = expf(s - m), the row sum l and P.V (p from lane j by a shuffle, each
+// lane owning head dims lane, lane + 32, ...; dh <= 128); one division o / l.
 // ---------------------------------------------------------------------------
 
 constexpr int kAttQt = 16, kAttThreads = 256, kAttWarps = kAttThreads / 32, kAttKb = 32;
@@ -342,13 +347,14 @@ const T* layer(const void* p, int l, size_t per_layer) {
   return static_cast<const T*>(p) + (size_t)l * per_layer;
 }
 
-Weights layer_weights(const Weights& w, int l, int D, int hidden, int dtype) {
+// Block l's weights; E is the inner width H . head_dim.
+Weights layer_weights(const Weights& w, int l, int D, int E, int hidden, int dtype) {
   const size_t e = dtype == 1 ? sizeof(bf16) : sizeof(float);
   const auto at = [&](const void* p, size_t n) {
     return static_cast<const void*>(static_cast<const char*>(p) + (size_t)l * n * e);
   };
-  return Weights{at(w.ln1_s, D), at(w.ln1_b, D), at(w.w_qkv, (size_t)D * 3 * D),
-                 at(w.b_qkv, 3 * D), at(w.w_proj, (size_t)D * D), at(w.b_proj, D),
+  return Weights{at(w.ln1_s, D), at(w.ln1_b, D), at(w.w_qkv, (size_t)D * 3 * E),
+                 at(w.b_qkv, 3 * E), at(w.w_proj, (size_t)E * D), at(w.b_proj, D),
                  at(w.ln2_s, D), at(w.ln2_b, D), at(w.w_mlp1, (size_t)D * hidden),
                  at(w.b_mlp1, hidden), at(w.w_mlp2, (size_t)hidden * D), at(w.b_mlp2, D)};
 }
@@ -402,23 +408,23 @@ cudaError_t product(int bn, const bf16* A, const bf16* W, const bf16* bias, cons
 }
 
 template <int DH>
-cudaError_t attention_mma(const bf16* qkv, bf16* out, int B, int S, int H, cudaStream_t st) {
+cudaError_t attention_mma(const bf16* qkv, bf16* out, int B, int S, int H, float scale,
+                          cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
   const auto kernel = encoder_mma::attention_kernel<DH>;
   const size_t smem = encoder_mma::attention_smem_bytes(DH);
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   const int tiles = (S + mma::kTileRows - 1) / mma::kTileRows;
-  kernel<<<tiles * B * H, mma::kThreads, smem, st>>>(qkv, out, S, H, tiles,
-                                                     (float)(1.0 / sqrt((double)DH)));
+  kernel<<<tiles * B * H, mma::kThreads, smem, st>>>(qkv, out, S, H, tiles, scale);
   return cudaGetLastError();
 }
 
 cudaError_t attention_mma_dh(int dh, const bf16* qkv, bf16* out, int B, int S, int H,
-                             cudaStream_t st) {
+                             float scale, cudaStream_t st) {
   switch (dh) {
-    case 32: return attention_mma<32>(qkv, out, B, S, H, st);
-    case 64: return attention_mma<64>(qkv, out, B, S, H, st);
-    case 128: return attention_mma<128>(qkv, out, B, S, H, st);
+    case 32: return attention_mma<32>(qkv, out, B, S, H, scale, st);
+    case 64: return attention_mma<64>(qkv, out, B, S, H, scale, st);
+    case 128: return attention_mma<128>(qkv, out, B, S, H, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -440,11 +446,10 @@ cudaError_t layer_norm(const T* x, const T* s, const T* b, T* y, int rows, int d
 }
 
 // Everything a call checks before its first launch: the shape against the
-// dtype's variant.
-cudaError_t check(int dtype, int B, int S, int D, int H, int hidden) {
-  if (B < 1 || S < 1 || H < 1 || D % H || (long long)B * S > 0x7fffffffLL)
+// dtype's variant; dh is the head dim the kernels run at, D / H or more.
+cudaError_t check(int dtype, int B, int S, int D, int H, int dh, int hidden) {
+  if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int dh = D / H;
   if (dtype == 1) {   // mma
     const bool ok = (dh == 32 || dh == 64 || dh == 128) && D % 64 == 0 && D <= 768
                     && hidden % 64 == 0;
@@ -458,32 +463,34 @@ cudaError_t check(int dtype, int B, int S, int D, int H, int hidden) {
 }
 
 // One pre-LN block in place on x (B * S rows): five launches (bf16: mma) or
-// seven (float32: simt).  w points at this block's weights; h (B * S, D) is
-// read by simt alone.
+// seven (float32: simt).  w points at this block's weights; heads of dh
+// (D / H, or a zero-padded one above it) in an inner width E = H . dh; h
+// (B * S, D) is read by simt alone.
 template <typename T>
-cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, int hidden,
-                           const Config& c, T* hb, T* qkv, T* attn, T* hid, cudaStream_t st) {
-  const int M = B * S;
+cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, int dh,
+                           int hidden, const Config& c, T* hb, T* qkv, T* attn, T* hid,
+                           cudaStream_t st) {
+  const int M = B * S, E = H * dh;
+  const float scale = (float)(1.0 / sqrt((double)(D / H)));   // the true head dim's
   const auto p = [](const void* q) { return static_cast<const T*>(q); };
   if constexpr (std::is_same<T, bf16>::value) {
     RETURN_IF_ERROR((product<kEpiRound, true>(c.bn[0], x, p(w.w_qkv), p(w.b_qkv), p(w.ln1_s),
-                                              p(w.ln1_b), qkv, M, 3 * D, D, st)));
-    RETURN_IF_ERROR(attention_mma_dh(D / H, qkv, attn, B, S, H, st));
+                                              p(w.ln1_b), qkv, M, 3 * E, D, st)));
+    RETURN_IF_ERROR(attention_mma_dh(dh, qkv, attn, B, S, H, scale, st));
     RETURN_IF_ERROR((product<kEpiResidual, false>(c.bn[1], attn, p(w.w_proj), p(w.b_proj),
-                                                  nullptr, nullptr, x, M, D, D, st)));
+                                                  nullptr, nullptr, x, M, D, E, st)));
     RETURN_IF_ERROR((product<kEpiGelu, true>(c.bn[2], x, p(w.w_mlp1), p(w.b_mlp1), p(w.ln2_s),
                                              p(w.ln2_b), hid, M, hidden, D, st)));
     return product<kEpiResidual, false>(c.bn[3], hid, p(w.w_mlp2), p(w.b_mlp2), nullptr,
                                         nullptr, x, M, D, hidden, st);
   } else {
-    const int dh = D / H;
     RETURN_IF_ERROR(layer_norm<T>(x, p(w.ln1_s), p(w.ln1_b), hb, M, D, st));
-    RETURN_IF_ERROR((gemm<T, kEpiRound>(hb, p(w.w_qkv), p(w.b_qkv), nullptr, qkv, M, 3 * D, D,
+    RETURN_IF_ERROR((gemm<T, kEpiRound>(hb, p(w.w_qkv), p(w.b_qkv), nullptr, qkv, M, 3 * E, D,
                                         st)));
     attention_simt_kernel<T><<<dim3((S + kAttQt - 1) / kAttQt, H, B), kAttThreads, 0, st>>>(
-        qkv, attn, S, D, dh, (float)(1.0 / sqrt((double)dh)));
+        qkv, attn, S, E, dh, scale);
     RETURN_IF_ERROR(cudaGetLastError());
-    RETURN_IF_ERROR((gemm<T, kEpiResidual>(attn, p(w.w_proj), p(w.b_proj), x, x, M, D, D, st)));
+    RETURN_IF_ERROR((gemm<T, kEpiResidual>(attn, p(w.w_proj), p(w.b_proj), x, x, M, D, E, st)));
     RETURN_IF_ERROR(layer_norm<T>(x, p(w.ln2_s), p(w.ln2_b), hb, M, D, st));
     RETURN_IF_ERROR((gemm<T, kEpiGelu>(hb, p(w.w_mlp1), p(w.b_mlp1), nullptr, hid, M, hidden, D,
                                        st)));
@@ -494,7 +501,7 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, i
 // `depth` blocks in place on x_out, a copy of x_in; w stacked over depth
 // (depth 1: one block's own weights).
 template <typename T>
-cudaError_t forward(const Config& c, int B, int S, int D, int H, int hidden, int depth,
+cudaError_t forward(const Config& c, int B, int S, int D, int H, int dh, int hidden, int depth,
                     const void* x_in, void* x_out, const Weights& w, void* h_buf, void* qkv_buf,
                     void* attn_buf, void* hid_buf, cudaStream_t st) {
   T* x = static_cast<T*>(x_out);
@@ -502,34 +509,39 @@ cudaError_t forward(const Config& c, int B, int S, int D, int H, int hidden, int
                                   cudaMemcpyDeviceToDevice, st));
   const int dtype = std::is_same<T, bf16>::value ? 1 : 0;
   for (int l = 0; l < depth; ++l)
-    RETURN_IF_ERROR(block_launches<T>(x, layer_weights(w, l, D, hidden, dtype), B, S, D, H,
-                                      hidden, c, static_cast<T*>(h_buf),
+    RETURN_IF_ERROR(block_launches<T>(x, layer_weights(w, l, D, H * dh, hidden, dtype), B, S,
+                                      D, H, dh, hidden, c, static_cast<T*>(h_buf),
                                       static_cast<T*>(qkv_buf), static_cast<T*>(attn_buf),
                                       static_cast<T*>(hid_buf), st));
   return cudaGetLastError();
 }
 
-cudaError_t run(const Config& c, int dtype, int B, int S, int D, int H, int hidden, int depth,
-                const void* x_in, void* x_out, const Weights& w, void* h, void* qkv, void* attn,
-                void* hid, cudaStream_t st) {
-  RETURN_IF_ERROR(check(dtype, B, S, D, H, hidden));
+cudaError_t run(const Config& c, int dtype, int B, int S, int D, int H, int dh, int hidden,
+                int depth, const void* x_in, void* x_out, const Weights& w, void* h, void* qkv,
+                void* attn, void* hid, cudaStream_t st) {
+  RETURN_IF_ERROR(check(dtype, B, S, D, H, dh, hidden));
   if (depth < 1) return cudaErrorInvalidValue;
   if (dtype == 1)
-    return forward<bf16>(c, B, S, D, H, hidden, depth, x_in, x_out, w, h, qkv, attn, hid, st);
-  return forward<float>(c, B, S, D, H, hidden, depth, x_in, x_out, w, h, qkv, attn, hid, st);
+    return forward<bf16>(c, B, S, D, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn, hid,
+                         st);
+  return forward<float>(c, B, S, D, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn, hid,
+                        st);
 }
 
 }  // namespace
 
 // bn_*: the N tiles of the plan (see Config above).  dtype: 0 = float32
-// ("simt"), 1 = bfloat16 ("mma").  All tensors contiguous on the current device and 16-byte
-// aligned: x (B, S, D); weights stacked over depth as (depth, ...) with
-// kernels (in, out); scratch h and attn (B*S, D) (h is read by "simt" alone),
-// qkv (B*S, 3D), mlp_hidden (B*S, hidden).  x_out must not alias x_in.
-// Returns a cudaError_t.
+// ("simt"), 1 = bfloat16 ("mma").  head_dim: the head dim the kernels run at,
+// dim / heads or the zero-padded one of the weights (E = heads . head_dim
+// below; the scale stays (dim / heads)^-1/2).  All tensors contiguous on the
+// current device and 16-byte aligned: x (B, S, D); weights stacked over depth
+// as (depth, ...) with kernels (in, out), the qkv kernel (D, 3E) and bias (3E),
+// the proj kernel (E, D); scratch h (B*S, D) (read by "simt" alone), attn
+// (B*S, E), qkv (B*S, 3E), mlp_hidden (B*S, hidden).  x_out must not alias
+// x_in.  Returns a cudaError_t.
 extern "C" int vit_encoder_forward(
     int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2,
-    int dtype, int batch, int seq, int dim, int heads, int hidden, int depth,
+    int dtype, int batch, int seq, int dim, int heads, int head_dim, int hidden, int depth,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
@@ -538,8 +550,8 @@ extern "C" int vit_encoder_forward(
   const Config c{{bn_qkv, bn_proj, bn_mlp1, bn_mlp2}};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
-  return (int)run(c, dtype, batch, seq, dim, heads, hidden, depth, x_in, x_out, w, h, qkv, attn,
-                  mlp_hidden, static_cast<cudaStream_t>(stream));
+  return (int)run(c, dtype, batch, seq, dim, heads, head_dim, hidden, depth, x_in, x_out, w, h,
+                  qkv, attn, mlp_hidden, static_cast<cudaStream_t>(stream));
 }
 
 // One pre-LN block: replaces the TPU kernel
@@ -555,7 +567,7 @@ extern "C" int vit_encoder_forward(
 // 5.9 us at 989 TFLOP/s).  Returns a cudaError_t.
 extern "C" int vit_block_forward(
     int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2,
-    int dtype, int batch, int seq, int dim, int heads, int hidden,
+    int dtype, int batch, int seq, int dim, int heads, int head_dim, int hidden,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
@@ -564,6 +576,6 @@ extern "C" int vit_block_forward(
   const Config c{{bn_qkv, bn_proj, bn_mlp1, bn_mlp2}};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
-  return (int)run(c, dtype, batch, seq, dim, heads, hidden, 1, x_in, x_out, w, h, qkv, attn,
-                  mlp_hidden, static_cast<cudaStream_t>(stream));
+  return (int)run(c, dtype, batch, seq, dim, heads, head_dim, hidden, 1, x_in, x_out, w, h, qkv,
+                  attn, mlp_hidden, static_cast<cudaStream_t>(stream));
 }

@@ -27,14 +27,23 @@ before the launch:
 * ``"simt"``: float32 (f32 FMA, no TF32: the training step), and bf16 head
   dims the tiles do not take.
 
+A head dim from 1 to 128 that neither variant takes (not a multiple of 8) is
+zero-padded: q, k and v are copied into contiguous buffers whose head dim is
+the next of 32 / 64 / 128 for bf16 (so that ``"mma"`` runs) or the next
+multiple of 8 for float32, the kernel runs with the softmax scale of the
+true head dim (an argument of the C entries), and the output is sliced
+back.  Zeros add exactly to an f32 sum, so the arithmetic is the kernel's
+own.
+
 and by length: ``attention_single`` while K and V of all S keys fit the shared
 memory of an SM twice over (``"mma"``: 384 keys at head dim 64 on the H100)
 or once (``"simt"``, which holds the f32 scores there too),
 ``attention_flash`` beyond.  No result depends on the rule.  It is a rule,
 not a fallback: a CUDA tensor launches the chosen kernel or raises.  A head
-dim that is not a multiple of 8 or is above 128 raises; operands whose last
-dimension is not contiguous, or whose bases or strides are not multiples of
-16 bytes, are copied into contiguous ones first and then launched.
+dim above 128 raises (a tile's shared memory and registers hold 128);
+operands whose last dimension is not contiguous, or whose bases or strides
+are not multiples of 16 bytes, are copied into contiguous ones first and
+then launched.
 
 :func:`attention_reference` is the plain version: what the CPU tests run,
 what the backward differentiates, and what the encoder kernel's plain twin
@@ -50,6 +59,7 @@ import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
 
@@ -79,15 +89,19 @@ class Plan(NamedTuple):
     kb: int = 0           # keys a block ("mma")
     stages: int = 0       # stages of the ring ("mma" flash)
     warpgroups: int = 1   # warpgroups that split a stage's keys ("mma" flash)
+    pad: int = 0          # head dim q, k, v are zero-padded to (0: none)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        seq_len: Optional[int] = None) -> torch.Tensor:
+                        seq_len: Optional[int] = None,
+                        head_dim: Optional[int] = None) -> torch.Tensor:
     """Softmax attention in float32, cast back to ``q.dtype``.
 
     q, k, v: (..., S, D).  With ``seq_len``, keys beyond it are masked out.
+    The scores are scaled by ``head_dim ** -0.5`` (default: D's), the scale
+    of the true head dim when D is a zero-padded one.
     """
-    scale = q.shape[-1] ** -0.5
+    scale = (head_dim or q.shape[-1]) ** -0.5
     s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
     if seq_len is not None and seq_len < q.shape[-2]:
         mask = torch.arange(s.shape[-1], device=s.device) < seq_len
@@ -113,12 +127,33 @@ def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
             + rows * dh * 4 + rows * (-(-keys // 4) * 4) * 4)
 
 
+def padded_head_dim(dh: int, dtype: torch.dtype) -> int:
+    """The head dim q, k and v are zero-padded to, 0 if a variant takes
+    ``dh`` as it is (a multiple of 8); bf16 pads to the next of 32 / 64 /
+    128 (``"mma"``), float32 to the next multiple of 8 (``"simt"``).  Above
+    128 it raises ``ValueError``."""
+    if dh < 1 or dh > _MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} must be 1 to {_MAX_HEAD_DIM}")
+    if dh % 8 == 0:
+        return 0
+    if dtype == torch.bfloat16:
+        return next(d for d in _MMA_HEAD_DIMS if d > dh)
+    return -(-dh // 8) * 8
+
+
+def entry_head_dims(dh: int, chosen: Plan) -> Tuple[int, int]:
+    """(head dim the kernel runs at, head dim its softmax scale is taken
+    from): the padded one and the true one."""
+    return chosen.pad or dh, dh
+
+
 def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
          bh: int = 1, sms: int = 132) -> Plan:
     """The kernel and variant for sequence length ``s``, head dim ``dh`` and
     ``dtype`` on a card whose blocks may opt in to ``optin_bytes`` of shared
-    memory.  A head dim that is not a multiple of 8 or is above 128 raises
-    ``ValueError``: no kernel takes it.
+    memory.  A head dim no variant takes as it is gets ``pad``
+    (:func:`padded_head_dim`) and the plan of the padded one; above 128 it
+    raises ``ValueError``.
 
     Variant: ``"mma"`` for bf16 at the head dims the tiles take, ``"simt"``
     else.  Kernel: ``"mma"`` takes ``"single"`` while two CTAs that hold all
@@ -129,9 +164,9 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     tiles are fewer than the SMs, two warpgroups a CTA split the keys of
     128-key blocks; a grid that fills the card takes 64-key blocks, one
     warpgroup and more CTAs an SM."""
-    if dh < 1 or dh % 8 or dh > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} must be a multiple of 8 up to "
-                         f"{_MAX_HEAD_DIM}")
+    pad = padded_head_dim(dh, dtype)
+    if pad:
+        return plan(s, pad, dtype, optin_bytes, bh, sms)._replace(pad=pad)
     eb = 2 if dtype == torch.bfloat16 else 4
     if dtype == torch.bfloat16 and dh in _MMA_HEAD_DIMS:
         if smem_bytes("single", "mma", s, dh, eb, kb=64) <= optin_bytes // 2:
@@ -154,7 +189,7 @@ def _library():
     if not _FORWARD:
         for route, fn in (("single", lib.attention_single_forward),
                           ("flash", lib.attention_flash_forward)):
-            fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6
+            fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 6
             fn.restype = ctypes.c_int
             _FORWARD[route] = fn
         lib.attention_smem.argtypes = [ctypes.c_int] * 8
@@ -232,10 +267,19 @@ def kernel_variant(q: torch.Tensor, num_heads: int = 1) -> str:
                      q.shape[0] * num_heads).variant
 
 
+def _padded(t: torch.Tensor, heads: int, pad: int) -> torch.Tensor:
+    """(B, S, heads * dh) copied into a contiguous (B, S, heads * pad) whose
+    head dims past dh are zeros: one copy, which also lays the operand out
+    for the kernels."""
+    b, s, dm = t.shape
+    dh = dm // heads
+    return F.pad(t.reshape(b, s, heads, dh), (0, pad - dh)).reshape(
+        b, s, heads * pad)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           heads: int) -> Tuple:
-    """Raise on anything the kernels do not take; return the strides of q,
-    k and v (laid out by :func:`_laid_out`)."""
+           heads: int) -> None:
+    """Raise on anything the kernels do not take."""
     if not q.is_cuda:
         raise ValueError("the attention kernels need CUDA tensors")
     dtype, shape = q.dtype, q.shape
@@ -245,30 +289,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(shape) != 3 or 0 in shape or shape[2] % heads:
         raise ValueError(f"q must be (B, S, heads * dh) with S >= 1, got "
                          f"shape {tuple(shape)} for {heads} heads")
-    dh = shape[2] // heads
-    if dh % 8 or dh > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} must be a multiple of 8 up to "
+    if shape[2] // heads > _MAX_HEAD_DIM:
+        raise ValueError(f"head dim {shape[2] // heads} must be 1 to "
                          f"{_MAX_HEAD_DIM}")
     if not (k.shape == shape == v.shape and k.dtype == dtype == v.dtype
             and k.device == q.device == v.device):
         raise ValueError("k or v: " + ", ".join(
             f"{tuple(t.shape)} {t.dtype} on {t.device}" for t in (k, v))
             + f"; expected {tuple(shape)} {dtype} on {q.device}")
-    return q.stride(), k.stride(), v.stride()
 
 
 def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
               chosen: Optional[Plan]):
-    """Checks, the plan, the output and the C entry's arguments up to the
-    stream, for q, k, v of shape (B, S, heads * dh)."""
-    strides = _check(q, k, v, heads)
+    """Checks, the plan, q, k and v as the kernel reads them (read in
+    place, copied where their layout asks for it, or zero-padded), the
+    output (B, S, heads * the kernel's head dim) and the C entry's arguments
+    up to the stream, for q, k, v of shape (B, S, heads * dh)."""
+    _check(q, k, v, heads)
     b, s, dm = q.shape
-    dh = dm // heads
     if chosen is None:
-        chosen = _plan_for(q.device, s, dh, q.dtype, b * heads)
+        chosen = _plan_for(q.device, s, dm // heads, q.dtype, b * heads)
+    dh, scale_dh = entry_head_dims(dm // heads, chosen)
+    if chosen.pad:
+        q, k, v = (_padded(t, heads, chosen.pad) for t in (q, k, v))
+        dm = heads * dh
+    else:
+        q, k, v = _laid_out(q, k, v)
     if not _FORWARD:
         _library()
     out = torch.empty((b, s, dm), dtype=q.dtype, device=q.device)
+    strides = q.stride(), k.stride(), v.stride()
     key = (strides, s, dm, heads)
     c_strides = _STRIDES.get(key)
     if c_strides is None:
@@ -277,9 +327,9 @@ def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
         (qb, qr, _), (kb, kr, _), (vb, vr, _) = strides
         c_strides = _STRIDES[key] = _Strides(          # batch, head, row
             qb, dh, qr, kb, dh, kr, vb, dh, vr, s * dm, dh, dm)
-    return chosen, out, (
+    return chosen, out, (q, k, v), (
         _VARIANT_CODES[chosen.variant], chosen.kb, chosen.stages,
-        chosen.warpgroups, _DTYPE_CODES[q.dtype], b, heads, s, dh,
+        chosen.warpgroups, _DTYPE_CODES[q.dtype], b, heads, s, dh, scale_dh,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides)
 
 
@@ -301,15 +351,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             heads: int = 1, chosen: Optional[Plan] = None) -> torch.Tensor:
     """One kernel launch on q, k, v of shape (B, S, heads * dh), read where
     they lie (any batch and row strides whose layout the kernels take, else
-    copied first); returns a contiguous (B, S, heads * dh).  ``chosen``
-    overrides the plan."""
+    copied first; a padded head dim zero-padded copies); returns a
+    contiguous (B, S, heads * dh).  ``chosen`` overrides the plan."""
     index = q.device.index
     if q.is_cuda and index != torch.cuda.current_device():
         with torch.cuda.device(index):
             return _launch(q, k, v, heads, chosen)
-    q, k, v = _laid_out(q, k, v)
-    chosen, out, args = _operands(q, k, v, heads, chosen)
+    # keep: copies made for the launch, alive until it is enqueued.
+    chosen, out, keep, args = _operands(q, k, v, heads, chosen)
     _enqueue(chosen, args, index)
+    if chosen.pad:
+        b, s, dm = q.shape
+        out = out.view(b, s, heads, chosen.pad)[..., :dm // heads].reshape(
+            b, s, dm)
     return out
 
 
@@ -318,12 +372,13 @@ def prepared(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(out, launch)``: ``launch()`` enqueues the kernel on these operands
     into ``out`` again and nothing else, on the current stream of the
     current device.  For timing a launch apart from the wrapper, one variant
-    beside another (``chosen``), and for capture into a CUDA graph."""
-    q, k, v = _laid_out(q, k, v)
-    chosen, out, args = _operands(q, k, v, heads, chosen)
+    beside another (``chosen``), and for capture into a CUDA graph.  For a
+    padded head dim ``out`` is the padded (B, S, heads * pad) the kernel
+    writes."""
+    chosen, out, keep, args = _operands(q, k, v, heads, chosen)
     index = q.device.index
 
-    def launch(keep=(q, k, v)):   # the operands live as long as launch does
+    def launch(keep=keep):        # the operands live as long as launch does
         _enqueue(chosen, args, index)
 
     return out, launch
@@ -396,7 +451,8 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for a CPU tensor; ``False`` always takes the plain version; ``True`` on
     a CPU tensor raises (the kernels have no CPU mode).  On a CUDA tensor
     the kernels launch or raise (a head dim they cannot take): the plain
-    version is reached there only by ``use_kernel=False``.
+    version is reached there only by ``use_kernel=False``.  A head dim no
+    variant takes as it is runs zero-padded (:func:`plan`).
 
     The kernels read q, k and v in place (any views whose last dimension is
     contiguous and whose bases and strides are 16-byte aligned, such as the

@@ -20,32 +20,40 @@ patch-major rows and ``patch`` accumulating products; ``"transpose"``: a
 raster crop and one product).  They are one function; the plain version
 implements both, the CUDA kernel serves both.
 
+On the card a call on ready parameters is one ``torch.empty`` and one
+launch: the kernel reads the window's centre and size where
+``crop_window`` left them and works out the band itself, and the embed
+weight and ``pos_embed_x + bias`` in the compute dtype are made once per
+parameter set (:func:`embed_operands`).  :func:`plan` picks the variant
+from the dtype before the launch: ``"mma"`` (bf16, the embed on the tensor
+cores) or ``"simt"`` (float32 on the FMA units).
+
 ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
 from ..config import ModelConfig
-from . import cuda_build
+from . import attention, cuda_build, operand_cache
 from . import preprocess as pp
 from .colorspace import BT601_COEFFS
 
 Params = Dict[str, Any]
 
 __all__ = ["nv12_search_tokens", "nv12_search_tokens_reference",
-           "kernel_operands", "launch", "LAUNCHES"]
+           "embed_operands", "kernel_operands", "launch", "prepared", "plan",
+           "Plan", "LAUNCHES"]
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
 
 MODES = ("loop", "transpose")
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_PATCH = 32     # 2 tokens x patch^2 x 3 float32 pixels well inside 48 KB
+_MAX_PATCH = 32     # "simt": 2 tokens x patch^2 x 3 float32 pixels in 48 KB
 
 
 def _band(y_plane: torch.Tensor, window: pp.CropWindow, band
@@ -188,85 +196,207 @@ def nv12_search_tokens_reference(params: Params, y_plane: torch.Tensor,
     return (tok.to(dt) + pos_bias).to(dt)
 
 
-def _library():
-    lib = cuda_build.load("fused_prep_embed")
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+# ---------------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """What one launch of the kernel runs (``csrc/fused_prep_embed.cu``)."""
+    variant: str          # "mma" (bf16, tensor cores) or "simt" (float32)
+    tokens: int           # tokens a CTA
+    cols: int = 0         # embed columns a CTA ("mma"; "simt" makes them all)
+    cluster: int = 1      # CTAs of a token tile sharing its pixels ("mma")
+
+
+# kTileTokens, kTileCols and the largest cluster of the source.
+_MMA_TOKENS, _MMA_COLS, _MAX_CLUSTER = 16, 32, 8
+_VARIANT_CODES = {"simt": 0, "mma": 1}
+_SIMT_TOKENS = 2
+
+
+def plan(dim: int, dtype: torch.dtype) -> Plan:
+    """The variant and tiling for embed width ``dim`` in ``dtype``: a pure
+    function of the shape.
+
+    * bf16 takes ``"mma"`` (``mma.sync`` on the tensor cores): CTAs of 16
+      tokens by 32 columns, the ``dim / 32`` column tiles of a token tile
+      one cluster that shares the pixel phase, so ``dim`` is a multiple of
+      32 up to 256.  At the flagship's (256 tokens, D 192) that is 16 x 6 =
+      96 CTAs in clusters of 6, each making a sixth of its tile's pixels
+      and reading a 32-column sixth of the weight once (the fastest of the
+      tilings ``profile_prep.py`` times on the H100; PERF.md).
+    * float32 takes ``"simt"`` (FMA units, no TF32): two tokens a CTA,
+      ``dim`` a multiple of 4 up to 1024.
+
+    Another dtype raises ``TypeError``, a width the variant does not take
+    ``ValueError``."""
+    if dtype == torch.float32:
+        if dim < 4 or dim % 4 or dim > 1024:
+            raise ValueError(f"embed dim {dim} must be a multiple of 4 up to "
+                             f"1024 in float32")
+        return Plan("simt", _SIMT_TOKENS)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {dtype}")
+    if dim < _MMA_COLS or dim % _MMA_COLS or dim > _MMA_COLS * _MAX_CLUSTER:
+        raise ValueError(f"embed dim {dim} must be a multiple of {_MMA_COLS} "
+                         f"up to {_MMA_COLS * _MAX_CLUSTER} in bfloat16")
+    return Plan("mma", _MMA_TOKENS, _MMA_COLS, dim // _MMA_COLS)
+
+
+_FORWARD: list = []      # the C entry, once loaded
+
+
+def bind(lib: ctypes.CDLL):
+    """The C entry of a loaded ``fused_prep_embed`` library, its signature
+    declared: it takes :func:`_arguments`' tuple and the stream."""
     fn = lib.fused_prep_embed_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float] * 6
-                       + [ctypes.c_void_p] * 8)
-        fn.restype = ctypes.c_int
-    return lib
+    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float] * 6
+                   + [ctypes.c_void_p] * 9)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _entry():
+    if not _FORWARD:
+        _FORWARD.append(bind(cuda_build.load("fused_prep_embed")))
+    return _FORWARD[0]
+
+
+# The embed weight and pos + bias in the compute dtype, made once per
+# parameter set.
+_OPERANDS = operand_cache.OperandCache()
+
+
+def _leaves(params: Params) -> Tuple[torch.Tensor, ...]:
+    bb = params["backbone"] if "backbone" in params else params
+    return bb["patch_embed"]["kernel"], bb["pos_embed_x"], \
+        bb["patch_embed"]["bias"]
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base (what the kernel reads),
+    copied only if it is not."""
+    if t.is_contiguous() and not t.data_ptr() % 16:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def embed_operands(params: Params, dt: torch.dtype
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(embed weight (K, D), pos_embed_x + bias (N, D)) in ``dt``, as the
+    plain version makes them.  Reused while every leaf is the same tensor
+    at the same ``_version`` (an optimiser step moves it on), made anew
+    otherwise; made on every call, and not kept, when a gradient is wanted
+    (the kernel has no backward: inference only)."""
+    return _OPERANDS.get(dt, _leaves(params), lambda: tuple(
+        map(_ready, _embed_operands(params, dt))))
 
 
 def kernel_operands(params: Params, y_plane: torch.Tensor,
                     uv_plane: torch.Tensor, window: pp.CropWindow,
                     cfg: ModelConfig):
-    """What the kernel reads, made with a few small PyTorch ops: the
-    contiguous planes, the float32 scalars [start_y, start_x, scale] and the
-    int32 origin [row0, col0] of the band (all on the device: nothing is
-    read back), the embed weight and pos + bias in the compute dtype, and
-    the band's size."""
+    """What the kernel reads: the planes as they lie (a copy only of one it
+    cannot read in place), the window's float32 centre and size as they lie
+    (the kernel works out the band and the start from them), the embed
+    weight and pos + bias from :func:`embed_operands`.  No PyTorch op runs
+    for a call on ready parameters and planes."""
     dev = y_plane.device
     if uv_plane.device != dev:
         raise ValueError("y_plane and uv_plane lie on different devices")
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    sy, sx, origin, bh, bw = _band(y_plane, window, cfg.preprocess_band)
-    scal = torch.stack([sy, sx, window.size / cfg.search_size]).to(
-        device=dev, dtype=torch.float32)
-    origin = origin.to(device=dev, dtype=torch.int32)
-    w_embed, pos_bias = _embed_operands(params, dt)
-    return (y_plane.contiguous(), uv_plane.contiguous(), scal, origin,
-            w_embed.contiguous(), pos_bias.contiguous(), bh, bw)
+    w_embed, pos_bias = embed_operands(params, dt)
+    y = y_plane if y_plane.is_contiguous() else y_plane.contiguous()
+    uv = uv_plane if uv_plane.is_contiguous() and not uv_plane.data_ptr() % 2 \
+        else uv_plane.clone(memory_format=torch.contiguous_format)
+    scalars = tuple(t if t.dtype == torch.float32 and t.device == dev
+                    else t.to(dev, torch.float32) for t in window)
+    return (y, uv, *scalars, w_embed, pos_bias)
 
 
-def launch(y_plane: torch.Tensor, uv_plane: torch.Tensor, scal: torch.Tensor,
-           origin: torch.Tensor, w_embed: torch.Tensor,
-           pos_bias: torch.Tensor, bh: int, bw: int,
-           cfg: ModelConfig) -> torch.Tensor:
-    """One launch of the kernel on :func:`kernel_operands`; raises on what
-    the kernel does not take or if the launch fails."""
-    global LAUNCHES
-    dev = y_plane.device
+def _arguments(y_plane, uv_plane, cx, cy, size, w_embed, pos_bias,
+               cfg: ModelConfig):
+    """Checks, the plan, the output and the C entry's arguments up to the
+    stream."""
     if not y_plane.is_cuda:
         raise ValueError("the fused preprocess + embed kernel needs CUDA "
                          "tensors")
     if cfg.patch_size > _MAX_PATCH:
         raise ValueError(f"patch size {cfg.patch_size} above {_MAX_PATCH}")
-    dt = w_embed.dtype
-    if dt not in _DTYPE_CODES or pos_bias.dtype != dt:
-        raise TypeError(f"the kernel takes float32 or bfloat16 weights, got "
-                        f"{dt} and {pos_bias.dtype}")
-    n_tok, dim = (cfg.search_size // cfg.patch_size) ** 2, w_embed.shape[1]
+    dev, dt = y_plane.device, w_embed.dtype
+    if pos_bias.dtype != dt:
+        raise TypeError(f"embed weight {dt} and pos + bias {pos_bias.dtype}")
+    n_tok, dim = (cfg.search_size // cfg.patch_size) ** 2, w_embed.shape[-1]
     if tuple(w_embed.shape) != (cfg.patch_size ** 2 * 3, dim) \
             or tuple(pos_bias.shape) != (n_tok, dim):
         raise ValueError(
             f"patch embed {tuple(w_embed.shape)} / pos embed "
             f"{tuple(pos_bias.shape)} do not fit search {cfg.search_size}, "
             f"patch {cfg.patch_size}")
-    vec = 16 // w_embed.element_size()
-    if dim % vec or dim // vec > 256 or w_embed.data_ptr() % 16:
-        raise ValueError(f"embed dim {dim} must be a multiple of {vec} up to "
-                         f"{256 * vec}, the weight 16-byte aligned")
-    if scal.dtype != torch.float32 or scal.numel() != 3 \
-            or origin.dtype != torch.int32 or origin.numel() != 2:
-        raise ValueError("scal must be 3 float32, origin 2 int32")
-    for t in (uv_plane, scal, origin, w_embed, pos_bias):
+    chosen = plan(dim, dt)
+    for t in (y_plane, uv_plane, w_embed, pos_bias):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("every operand must be contiguous on the "
                              "planes' device")
-    lib = _library()
-    with torch.cuda.device(dev):
-        out = torch.empty((n_tok, dim), dtype=dt, device=dev)
-        err = lib.fused_prep_embed_forward(
-            _DTYPE_CODES[dt], y_plane.shape[1], bh, bw, cfg.search_size,
+    for t in (cx, cy, size):
+        if t.device != dev or t.dtype != torch.float32 or t.numel() != 1:
+            raise ValueError("the window's cx, cy and size must be one "
+                             "float32 each on the planes' device")
+    if w_embed.data_ptr() % 16 or uv_plane.data_ptr() % 2:
+        raise ValueError("the embed weight must be 16-byte aligned, the UV "
+                         "plane 2-byte aligned")
+    h, w = y_plane.shape
+    out = torch.empty((n_tok, dim), dtype=dt, device=dev)
+    args = (_VARIANT_CODES[chosen.variant], h, w, cfg.preprocess_band or 0,
+            cfg.search_size,
             cfg.patch_size, dim, *cfg.norm_mean, *cfg.norm_std,
-            y_plane.data_ptr(), uv_plane.data_ptr(), scal.data_ptr(),
-            origin.data_ptr(), w_embed.data_ptr(), pos_bias.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            y_plane.data_ptr(), uv_plane.data_ptr(), cx.data_ptr(),
+            cy.data_ptr(), size.data_ptr(), w_embed.data_ptr(),
+            pos_bias.data_ptr(), out.data_ptr())
+    return chosen, out, args
+
+
+def _enqueue(chosen: Plan, args: Tuple, index: int) -> None:
+    """Launch on the current stream of device ``index`` (the current
+    device), check the launch, count it."""
+    global LAUNCHES
+    err = _entry()(*args, attention._stream_handle(index))
     if err != 0:
-        raise RuntimeError(f"fused_prep_embed_forward failed: CUDA error {err}")
+        raise RuntimeError(f"fused_prep_embed_forward ({chosen.variant}) "
+                           f"failed: CUDA error {err}")
     LAUNCHES += 1
+
+
+def launch(y_plane: torch.Tensor, uv_plane: torch.Tensor, cx: torch.Tensor,
+           cy: torch.Tensor, size: torch.Tensor, w_embed: torch.Tensor,
+           pos_bias: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One launch of the kernel on :func:`kernel_operands` into a new
+    (N, D) tensor; raises on what the kernel does not take (:func:`plan`)
+    or if the launch fails."""
+    index = y_plane.device.index
+    if y_plane.is_cuda and index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(y_plane, uv_plane, cx, cy, size, w_embed, pos_bias,
+                          cfg)
+    chosen, out, args = _arguments(y_plane, uv_plane, cx, cy, size, w_embed,
+                                   pos_bias, cfg)
+    _enqueue(chosen, args, index)
     return out
+
+
+def prepared(params: Params, y_plane: torch.Tensor, uv_plane: torch.Tensor,
+             window: pp.CropWindow, cfg: ModelConfig):
+    """``(out, launch)``: ``launch()`` enqueues the kernel on these operands
+    into ``out`` again and nothing else, on the current stream of the
+    current device.  For timing a launch apart from the wrapper, and for
+    capture into a CUDA graph."""
+    ops = kernel_operands(params, y_plane, uv_plane, window, cfg)
+    chosen, out, args = _arguments(*ops, cfg)
+    index = y_plane.device.index
+
+    def launch(keep=(ops, out)):   # the operands live as long as launch does
+        _enqueue(chosen, args, index)
+
+    return out, launch
 
 
 def nv12_search_tokens(params: Params, y_plane: torch.Tensor,
@@ -276,8 +406,9 @@ def nv12_search_tokens(params: Params, y_plane: torch.Tensor,
     included.  ``y_plane`` (H, W) and ``uv_plane`` (H/2, W/2, 2) uint8;
     ``window`` one crop window (0-d tensors); a frame larger than
     ``cfg.preprocess_band`` is banded as ``preprocess_nv12`` bands it.  The
-    CUDA kernel for CUDA planes (raises if it cannot launch), the plain
-    version for CPU planes."""
+    CUDA kernel for CUDA planes (raises if it cannot launch): on ready
+    parameters one ``torch.empty`` and one launch, nothing read back; the
+    plain version for CPU planes."""
     if not y_plane.is_cuda:
         return nv12_search_tokens_reference(params, y_plane, uv_plane, window,
                                             cfg, mode)

@@ -24,11 +24,19 @@ ints).  The variant is the dtype's:
   units, an attention that walks blocks of 32 keys twice as the mma one
   does.
 
-A CUDA call on a shape its variant cannot take raises; none goes to the
-plain twin.  An x or a weight that is not contiguous with a 16-byte aligned
-base is copied into one that is before the launch.  Neither kernel needs
-more shared memory for a longer sequence: both walk the keys through a ring
-of fixed size.
+A head dim from 1 to 128 that the variant does not take as it is (bf16: not
+32, 64 or 128; float32: not a multiple of 16) is zero-padded to the next
+one it takes: the qkv weight and bias get zero columns a head and the proj
+weight zero rows a head (in the operand cache, so once per parameter set),
+the attention runs at the padded head dim with the true one's scale, and
+LayerNorm, the MLP and the residual width D stay as they are.  Zeros add
+exactly to an f32 sum: a padded head computes what the unpadded one does.
+A CUDA call on a shape its variant cannot take even so (a head dim above
+128; for ``"mma"`` D above 768, or D or the MLP width no multiple of 64)
+raises; none goes to the plain twin.  An x or a weight that is not
+contiguous with a 16-byte aligned base is copied into one that is before
+the launch.  Neither kernel needs more shared memory for a longer sequence:
+both walk the keys through a ring of fixed size.
 
 :func:`encoder` takes the kernel for a CUDA tensor and the plain twin
 :func:`encoder_reference` (a chain of ``models/vit.py::_block``, which
@@ -53,15 +61,13 @@ both by variant, so a run can show that its path went through the kernels.
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import weakref
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import attention, cuda_build
+from . import attention, cuda_build, operand_cache
 
 Params = Dict[str, Any]
 
@@ -99,6 +105,7 @@ class Plan(NamedTuple):
     """What :func:`encoder` and :func:`block` launch for one shape."""
     variant: str                               # "mma" or "simt"
     tiles: Tuple[int, ...] = (0, 0, 0, 0)      # N tile of qkv, proj, mlp1, mlp2
+    pad: int = 0                               # padded head dim (0: none)
 
     def config(self) -> Tuple[int, ...]:
         """The 4 ints the C entries take (``Config`` in the source)."""
@@ -107,22 +114,30 @@ class Plan(NamedTuple):
 
 def _refusal(variant: str, dim: int, heads: int,
              hidden: int) -> Optional[str]:
-    """Why ``variant`` cannot take this shape, or None if it can."""
+    """Why ``variant`` cannot take this shape, padded or not, or None if it
+    can."""
     if heads < 1 or dim % heads:
         return f"embed dim {dim} is not divisible by {heads} heads"
-    dh = dim // heads
+    if dim // heads > _MAX_HEAD_DIM:
+        return f"head dim {dim // heads} is above {_MAX_HEAD_DIM}"
     if variant == "mma":
-        if dh not in (32, 64, 128):
-            return f"head dim {dh} is not 32, 64 or 128"
         if dim % _CHUNK or dim > _MMA_MAX_DIM or hidden % _CHUNK:
             return (f"embed dim {dim} and MLP width {hidden} must be "
                     f"multiples of 64, the embed dim at most {_MMA_MAX_DIM}")
         return None
-    if dh % 16 or dh > _MAX_HEAD_DIM:                      # "simt"
-        return f"head dim {dh} must be a multiple of 16 up to {_MAX_HEAD_DIM}"
-    if hidden % 16:
+    if hidden % 16:                                        # "simt"
         return f"MLP width {hidden} must be a multiple of 16"
     return None
+
+
+def head_pad(variant: str, dh: int) -> int:
+    """The head dim ``variant`` runs a head dim ``dh`` (1 to 128) at when
+    it does not take it as it is, else 0: ``"mma"`` the next of 32, 64 and
+    128, ``"simt"`` the next multiple of 16."""
+    if variant == "mma":
+        return 0 if dh in (32, 64, 128) else next(
+            d for d in (32, 64, 128) if d > dh)
+    return 0 if dh % 16 == 0 else -(-dh // 16) * 16
 
 
 def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
@@ -132,9 +147,10 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
 
     * The variant is the dtype's: ``"mma"`` for bf16 (head dim 32, 64 or
       128, dim and hidden multiples of 64, dim up to 768), ``"simt"`` for
-      float32 (head dim a multiple of 16 up to 128, hidden a multiple of
-      16).  A shape the variant cannot take raises ``ValueError``; another
-      dtype raises ``TypeError``.
+      float32 (head dim a multiple of 16, hidden a multiple of 16).  Another
+      head dim up to 128 gets ``pad``, the one it is zero-padded to
+      (:func:`head_pad`).  A shape the variant cannot take even so raises
+      ``ValueError``; another dtype raises ``TypeError``.
     * ``"mma"`` N tile of each product: 64 once 64-wide tiles give a grid of
       at least ``sms`` CTAs, else 32 (at batch 1 the grid is the latency:
       more, smaller CTAs).  On the flagship's shape that is 32 for every
@@ -152,12 +168,14 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
     if why is not None:
         raise ValueError(f"the encoder kernels cannot take this shape "
                          f"({variant}, {dtype}): {why}")
+    pad = head_pad(variant, dim // heads)
     if variant == "simt":
-        return Plan("simt")
+        return Plan("simt", pad=pad)
     rows = -(-batch * seq // _ROWS)
+    inner = heads * (pad or dim // heads)
     tiles = tuple(64 if rows * (n // 64) >= sms else 32
-                  for n in (3 * dim, dim, hidden, dim))
-    return Plan("mma", tiles)
+                  for n in (3 * inner, dim, hidden, dim))
+    return Plan("mma", tiles, pad)
 
 
 def encoder_reference(x: torch.Tensor, blocks: Sequence[Params],
@@ -213,9 +231,9 @@ _LIB: List[ctypes.CDLL] = []
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' signatures on a loaded ``vit_encoder``
     library."""
-    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 11
+    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 12
                                         + [ctypes.c_void_p] * 19)
-    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 10
+    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 11
                                       + [ctypes.c_void_p] * 19)
     for fn in (lib.vit_encoder_forward, lib.vit_block_forward):
         fn.restype = ctypes.c_int
@@ -240,12 +258,9 @@ def _laid_out(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _check(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
-           stacked: bool):
-    """Raise on what no plan decides: a CPU tensor, a dtype, weights that
-    do not fit x.  ``weights`` in ``_FIELDS`` order:
-    stacked over depth for the encoder, one block's own for the block
-    kernel."""
+def _check_x(x: torch.Tensor, num_heads: int) -> None:
+    """Raise on what no plan decides about x: a CPU tensor, a dtype, a
+    shape."""
     if not x.is_cuda:
         raise ValueError("the encoder kernel needs a CUDA tensor")
     if x.dtype not in _DTYPE_CODES:
@@ -255,10 +270,19 @@ def _check(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
     d = x.shape[2]
     if num_heads < 1 or d % num_heads:
         raise ValueError(f"embed dim {d} is not divisible by {num_heads} heads")
+
+
+def _check(x: torch.Tensor, weights: List[torch.Tensor], inner: int,
+           stacked: bool):
+    """Raise on weights that do not fit x and the inner width ``inner``
+    (heads x the head dim the kernels run at).  ``weights`` in ``_FIELDS``
+    order: stacked over depth for the encoder, one block's own for the
+    block kernel."""
+    d = x.shape[2]
     lead = (weights[0].shape[0],) if stacked else ()
     hidden = weights[8].shape[-1]
-    want = [(d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,), (d,), (d,),
-            (d, hidden), (hidden,), (hidden, d), (d,)]
+    want = [(d,), (d,), (d, 3 * inner), (3 * inner,), (inner, d), (d,), (d,),
+            (d,), (d, hidden), (hidden,), (hidden, d), (d,)]
     for (mod, field), t, shape in zip(_FIELDS, weights, want):
         shape = lead + shape
         if tuple(t.shape) != shape:
@@ -284,15 +308,33 @@ def _plan_for(x: torch.Tensor, heads: int, hidden: int) -> Plan:
     return chosen
 
 
+def _pad_heads(weights: Sequence[torch.Tensor], heads: int,
+               pad: int) -> List[torch.Tensor]:
+    """Weights in ``_FIELDS`` order (any leading dims) with each head of
+    the qkv kernel's columns, the qkv bias and the proj kernel's rows
+    zero-padded from dh to ``pad``; the others as they are."""
+    w = list(weights)
+    d = w[4].shape[-1]
+    dh = d // heads
+    lead = w[2].shape[:-2]
+    w[2] = F.pad(w[2].reshape(*lead, d, 3, heads, dh), (0, pad - dh)).reshape(
+        *lead, d, 3 * heads * pad)
+    w[3] = F.pad(w[3].reshape(*lead, 3, heads, dh), (0, pad - dh)).reshape(
+        *lead, 3 * heads * pad)
+    w[4] = F.pad(w[4].reshape(*lead, heads, dh, d), (0, 0, 0, pad - dh)
+                 ).reshape(*lead, heads * pad, d)
+    return w
+
+
 def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
              stacked: bool, chosen: Optional[Plan]):
     """Checks, the plan, the output and the C entry's arguments up to the
     stream, and the tensors that must live as long as the launch (x and
-    weights copied where their layout asks for it, the scratch).  A shape
-    the plan refuses, or a ``chosen`` variant that is not the dtype's,
-    raises: a launch was asked for."""
-    _check(x, weights, num_heads, stacked)
-    x, weights = _laid_out(x), [_laid_out(t) for t in weights]
+    weights copied where their layout asks for it, the weights zero-padded
+    where the plan pads and the cache did not, the scratch).  A shape the
+    plan refuses, or a ``chosen`` variant that is not the dtype's, raises:
+    a launch was asked for."""
+    _check_x(x, num_heads)
     b, s, d = x.shape
     hidden = weights[8].shape[-1]
     if chosen is None:
@@ -300,16 +342,22 @@ def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
     elif chosen.variant != _VARIANTS[x.dtype]:
         raise ValueError(f"the encoder kernels run {x.dtype} as "
                          f"{_VARIANTS[x.dtype]}, not {chosen.variant}")
+    dh = chosen.pad or d // num_heads
+    inner = num_heads * dh
+    if chosen.pad and weights[2].shape[-1] == 3 * d:
+        weights = _pad_heads(weights, num_heads, chosen.pad)
+    _check(x, weights, inner, stacked)
+    x, weights = _laid_out(x), [_laid_out(t) for t in weights]
     m = b * s
     out = torch.empty_like(x)
-    # One scratch allocation: qkv (m, 3d), attn (m, d), mlp hidden (m,
-    # hidden) and, for "simt" alone, the LN output h (m, d).
+    # One scratch allocation: qkv (m, 3 inner), attn (m, inner), mlp hidden
+    # (m, hidden) and, for "simt" alone, the LN output h (m, d).
     h_rows = d if chosen.variant == "simt" else 0
-    work = torch.empty(m * (4 * d + hidden + h_rows), dtype=x.dtype,
+    work = torch.empty(m * (4 * inner + hidden + h_rows), dtype=x.dtype,
                        device=x.device)
     qkv, attn, hid, h = (work.data_ptr() + i * m * x.element_size()
-                         for i in (0, 3 * d, 4 * d, 4 * d + hidden))
-    args = (*chosen.config(), _DTYPE_CODES[x.dtype], b, s, d, num_heads,
+                         for i in (0, 3 * inner, 4 * inner, 4 * inner + hidden))
+    args = (*chosen.config(), _DTYPE_CODES[x.dtype], b, s, d, num_heads, dh,
             hidden)
     if stacked:
         args += (weights[0].shape[0],)
@@ -374,44 +422,39 @@ def _stack(flat: Sequence[torch.Tensor], depth: int) -> List[torch.Tensor]:
             for f in range(n)]
 
 
-# Weights stacked over depth, made once per parameter set: key (dtype, the
-# leaves' ids) -> (weak references to the leaves, their versions, the stacked
-# tensors).  The last few parameter sets are kept.
-_OPERANDS: "collections.OrderedDict[Tuple, Tuple]" = collections.OrderedDict()
-_OPERAND_SETS = 4
+# Weights stacked over depth, made once per parameter set.
+_OPERANDS = operand_cache.OperandCache()
 
 
 def _operands(flat: Sequence[torch.Tensor], depth: int,
-              dtype: torch.dtype) -> List[torch.Tensor]:
-    """``flat`` cast to ``dtype`` and stacked over depth.
-    Reused while every leaf is the same tensor at the same ``_version``
-    (which any in-place update, such as an optimiser step, moves on); made
-    anew otherwise.  Only for calls that need no gradient: the stack
-    carries none."""
-    key = (dtype, tuple(map(id, flat)))
-    versions = tuple(t._version for t in flat)
-    hit = _OPERANDS.get(key)
-    if hit is not None and hit[1] == versions and all(
-            r() is t for r, t in zip(hit[0], flat)):
-        _OPERANDS.move_to_end(key)
-        return hit[2]
-    with torch.no_grad():
+              dtype: torch.dtype, num_heads: int = 1) -> List[torch.Tensor]:
+    """``flat`` cast to ``dtype`` and stacked over depth, the heads of
+    ``num_heads`` zero-padded where the dtype's variant pads them
+    (:func:`head_pad`).  Reused while every leaf is the same tensor at the
+    same ``_version`` (which any in-place update, such as an optimiser
+    step, moves on); made anew otherwise
+    (:class:`~.operand_cache.OperandCache`)."""
+    def make():
         stacked = _stack([t.to(dtype) for t in flat], depth)
-    _OPERANDS[key] = ([weakref.ref(t) for t in flat], versions, stacked)
-    while len(_OPERANDS) > _OPERAND_SETS:
-        _OPERANDS.popitem(last=False)
-    return stacked
+        d = flat[0].shape[0]
+        pad = (head_pad(_VARIANTS[dtype], d // num_heads)
+               if dtype in _VARIANTS and d % num_heads == 0 else 0)
+        return _pad_heads(stacked, num_heads, pad) if pad else stacked
+
+    return _OPERANDS.get((dtype, num_heads), flat, make)
 
 
 def _launch_operands(x: torch.Tensor, flat: Sequence[torch.Tensor],
-                     depth: int) -> Optional[List[torch.Tensor]]:
+                     depth: int, num_heads: int = 1
+                     ) -> Optional[List[torch.Tensor]]:
     """The encoder kernel's weights for a call that needs no gradient:
-    ``flat`` cast to ``x.dtype`` and stacked over depth, made once per
-    parameter set.  None when a gradient is needed: then the cast and the
-    stack are made inside the autograd graph, on every call."""
+    ``flat`` cast to ``x.dtype``, stacked over depth and padded as the
+    heads need, made once per parameter set.  None when a gradient is
+    needed: then the cast and the stack are made inside the autograd graph,
+    on every call (and padded at the launch)."""
     if _wants_grad(x, flat):
         return None
-    return _operands(flat, depth, x.dtype)
+    return _operands(flat, depth, x.dtype, num_heads)
 
 
 def _blocks_from_flat(flat: Sequence[torch.Tensor], depth: int) -> List[Params]:
@@ -472,7 +515,7 @@ def encoder(x: torch.Tensor, blocks: Sequence[Params],
             [t.to(x.dtype) for t in flat], len(blocks)), num_heads)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"encoder kernel takes float32 or bfloat16, got {x.dtype}")
-    stacked = _launch_operands(x, flat, len(blocks))
+    stacked = _launch_operands(x, flat, len(blocks), num_heads)
     if stacked is not None:
         return _launch(x, stacked, num_heads, stacked=True)
     return _Encoder.apply(x, num_heads, len(blocks),

@@ -7,9 +7,11 @@ strided entry, input checks, launch counts and backward; the per-block encode
 route and a batched engine tick on the card against the CPU; the one-block
 kernel (``vit_block.block``) and the NV12-to-tokens kernel
 (``fused_prep_embed.nv12_search_tokens``) against their plain versions, with
-their input checks, launch counts and (for the block) gradients; the
-tracking step through ``fused_prep``, RGB and YUY2 steps, and a training step
-on the card against the CPU.
+their input checks, launch counts and (for the block) gradients; head dims
+that no variant takes as they are, zero-padded, in attention and both
+encoder entries against the plain twin; one ``nv12_search_tokens`` call as
+one device activity; the tracking step through ``fused_prep``, RGB and YUY2
+steps, and a training step on the card against the CPU.
 
 Every test here needs a card and skips without one (marker ``cuda``).
 Run them on the GPU with
@@ -81,9 +83,10 @@ def test_encoder_kernel_matches_twin(dev, dtype, b, s, d, heads):
     blocks = _blocks(gen, d, 3, 4 * d, dtype, dev)
     x = torch.randn((b, s, d), generator=gen).to(dev, dtype)
     before = vit_block.LAUNCHES
-    if dtype == torch.bfloat16 and d // heads not in (32, 64, 128):
-        # bf16 is the mma variant's alone: a head dim it does not take raises.
-        with pytest.raises(ValueError, match="head dim"):
+    if dtype == torch.bfloat16 and vit_block._refusal("mma", d, heads, 4 * d):
+        # bf16 is the mma variant's alone: a width it does not take raises
+        # (a head dim it does not take as it is runs padded).
+        with pytest.raises(ValueError, match="cannot take"):
             vit_block.encoder(x, blocks, heads)
         assert vit_block.LAUNCHES == before
         return
@@ -96,22 +99,29 @@ def test_encoder_kernel_matches_twin(dev, dtype, b, s, d, heads):
 
 
 def test_encoder_kernel_rejects_what_it_cannot_take(dev):
-    # A head dim no kernel takes raises, through the wrapper and an explicit
-    # launch alike; nothing on the card goes to the plain twin.  A strided x
-    # is copied and launched.  A dtype, or weights that do not fit x, raise;
-    # masters in another dtype are cast.
+    # A head dim above 128 raises, through the wrapper and an explicit
+    # launch alike; nothing on the card goes to the plain twin.  A head dim
+    # the variant does not take as it is (8 in float32) runs padded.  A
+    # strided x is copied and launched.  A dtype, or weights that do not fit
+    # x, raise; masters in another dtype are cast.
     gen = torch.Generator().manual_seed(0)
     blocks = _blocks(gen, 64, 1, 256, torch.float32, dev)
     x = torch.randn((1, 20, 64), generator=gen).to(dev)
-    stacked = vit_block._stack([blocks[0][m][f] for m, f in vit_block._FIELDS], 1)
+    wide_blocks = _blocks(gen, 136, 1, 256, torch.float32, dev)
+    x136 = torch.randn((1, 20, 136), generator=gen).to(dev)
+    stacked = vit_block._stack([wide_blocks[0][m][f] for m, f in vit_block._FIELDS], 1)
     with pytest.raises(TypeError):
         vit_block.encoder(x.half(), blocks, 2)
     before = vit_block.LAUNCHES
-    with pytest.raises(ValueError, match="head dim"):             # dh = 8
-        vit_block.encoder(x, blocks, 8)
+    with pytest.raises(ValueError, match="head dim"):             # dh = 136
+        vit_block.encoder(x136, wide_blocks, 1)
     with pytest.raises(ValueError, match="head dim"):
-        vit_block._launch(x, stacked, 8, stacked=True)
+        vit_block._launch(x136, stacked, 1, stacked=True)
     assert vit_block.LAUNCHES == before
+    _check_close(vit_block.encoder(x, blocks, 8),                 # dh = 8 -> 16
+                 vit_block.encoder_reference(x, blocks, 8), torch.float32)
+    assert vit_block.LAUNCHES == before + 1
+    before = vit_block.LAUNCHES
     wide = torch.randn((1, 40, 64), generator=gen).to(dev)
     got = vit_block.encoder(wide[:, ::2], blocks, 2)
     assert vit_block.LAUNCHES == before + 1
@@ -423,14 +433,18 @@ def test_attention_kernels_reject_what_they_cannot_take(dev):
     q, k, v = _qkv(2, 16, 64, torch.float32, dev)
     with pytest.raises(TypeError):
         attention.flash_attention(q.half(), k.half(), v.half())
+    q136, k136, v136 = _qkv(2, 16, 136, torch.float32, dev)
     with pytest.raises(ValueError, match="head dim"):
-        attention.multihead_attention(q[..., :12], k[..., :12], v[..., :12],
-                                      1, use_kernel=True)
-    q12, k12, v12 = (t[..., :12].contiguous() for t in (q, k, v))
+        attention.multihead_attention(q136, k136, v136, 1, use_kernel=True)
     before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
     with pytest.raises(ValueError, match="head dim"):   # by default too
-        attention.flash_attention(q12, k12, v12)
+        attention.flash_attention(q136, k136, v136)
     assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before
+    # Head dim 12 runs padded to 16.
+    q12, k12, v12 = (t[..., :12] for t in (q, k, v))
+    _check_attention(attention.multihead_attention(q12, k12, v12, 1),
+                     attention.attention_reference(q12, k12, v12), torch.float32)
+    assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before + 1
     with pytest.raises(ValueError, match="expected"):
         attention.flash_attention(q, k[:, :8], v)
     with pytest.raises(ValueError, match="use_kernel=True"):
@@ -515,9 +529,10 @@ def test_block_kernel_matches_twin(dev, dtype, b, s, d, heads):
     x = torch.randn((b, s, d), generator=gen).to(dev, dtype)
     before = (vit_block.BLOCK_LAUNCHES, vit_block.LAUNCHES,
               attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
-    if dtype == torch.bfloat16 and d // heads not in (32, 64, 128):
-        # bf16 is the mma variant's alone: a head dim it does not take raises.
-        with pytest.raises(ValueError, match="head dim"):
+    if dtype == torch.bfloat16 and vit_block._refusal("mma", d, heads, 4 * d):
+        # bf16 is the mma variant's alone: a width it does not take raises
+        # (a head dim it does not take as it is runs padded).
+        with pytest.raises(ValueError, match="cannot take"):
             vit_block.block(x, blk, heads)
         assert vit_block.BLOCK_LAUNCHES == before[0]
         return
@@ -554,12 +569,14 @@ def test_block_kernel_casts_masters_and_rejects_what_it_cannot_take(dev):
                        vit_block.block(x.bfloat16(), cast, 2))
     with pytest.raises(TypeError):
         vit_block.block(x.half(), blk, 2)
+    wide = _blocks(gen, 136, 1, 256, torch.float32, dev)[0]
+    x136 = torch.randn((2, 20, 136), generator=gen).to(dev)
     before = vit_block.BLOCK_LAUNCHES
-    with pytest.raises(ValueError, match="head dim"):    # dh = 8
-        vit_block.block(x, blk, 8)
+    with pytest.raises(ValueError, match="head dim"):    # dh = 136
+        vit_block.block(x136, wide, 1)
     assert vit_block.BLOCK_LAUNCHES == before
     with pytest.raises(ValueError, match="head dim"):
-        vit_block._launch(x, [blk[m][f] for m, f in vit_block._FIELDS], 8,
+        vit_block._launch(x136, [wide[m][f] for m, f in vit_block._FIELDS], 1,
                           stacked=False)
     bad = dict(blk, proj={"kernel": blk["proj"]["kernel"][:, :32],
                           "bias": blk["proj"]["bias"]})
@@ -603,6 +620,11 @@ def _nv12(shape, seed, dev):
     ((1080, 1920), (1500.0, 700.0, 64.0, 64.0)),    # banded
     ((1080, 1920), (1770.0, 980.0, 90.0, 70.0)),    # band in the corner
     ((1080, 1920), (3.0, 5.0, 400.0, 300.0)),       # window beyond the band
+    # The geometry the kernel works out itself (window_geometry):
+    ((1080, 1920), (990.0, 500.0, 21.0, 30.0)),     # cx - 576 = 424.5: a tie
+    ((1080, 1080), (900.0, 100.0, 120.0, 90.0)),    # frame smaller than the band
+    ((1080, 1920), (100.0, 600.0, 500.0, 380.0)),   # window larger than the band
+    ((1080, 1920), (4.0, 6.0, 50.0, 40.0)),         # the band's top-left corner
 ])
 def test_fused_prep_kernel_matches_plain(dev, preset, dtype, shape, box):
     cfg = dataclasses.replace(PRESETS[preset], dtype=dtype)
@@ -640,9 +662,80 @@ def test_fused_prep_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="different devices"):
         fpe.nv12_search_tokens(params, y, uv.cpu(), win, cfg)
     ops = list(fpe.kernel_operands(params, y, uv, win, cfg))
-    ops[4] = ops[4][:, :-1].contiguous()             # embed weight too narrow
+    ops[5] = ops[5][:, :-1].contiguous()             # embed weight too narrow
     with pytest.raises(ValueError, match="do not fit"):
         fpe.launch(*ops, cfg)
+    ops = list(fpe.kernel_operands(params, y, uv, win, cfg))
+    ops[5], ops[6] = (t[:, :40].to(torch.bfloat16).contiguous()
+                      for t in ops[5:7])         # a bf16 width no tiling takes
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fpe.launch(*ops, cfg)
+
+
+def test_fused_prep_call_is_one_device_activity(dev):
+    # On ready parameters one call is the kernel and nothing else: no cast,
+    # no copy, nothing read back to the host.
+    from torch.profiler import ProfilerActivity, profile
+
+    for preset, dtype in (("vittrack-t", "bfloat16"), ("vittrack-t", "float32")):
+        cfg = dataclasses.replace(PRESETS[preset], dtype=dtype)
+        params = weights.load_npz(weights.checkpoint_path(preset), cfg,
+                                  device=dev)
+        y, uv = _nv12((1080, 1920), 5, dev)
+        win = pp.crop_window(torch.tensor([1500.0, 700.0, 64.0, 64.0],
+                                          device=dev), cfg.search_factor)
+        fpe.nv12_search_tokens(params, y, uv, win, cfg)      # the operands
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fpe.nv12_search_tokens(params, y, uv, win, cfg)
+            torch.cuda.synchronize()
+        acts = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(acts) == 1 and "embed" in acts[0], acts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [4, 12, 48, 96, 1, 100])
+def test_attention_padded_head_dims_match_reference(dev, dtype, dh):
+    # A head dim no variant takes as it is runs zero-padded (bf16 to 32 /
+    # 64 / 128, the mma variant; float32 to the next multiple of 8) with the
+    # true head dim's scale; the heads of a qkv buffer as multihead does.
+    q, k, v = _qkv(6, 77, dh, dtype, dev, v_scale=3.0)
+    chosen = attention.kernel_variant(q)
+    if dh % 8:
+        assert chosen == ("mma" if dtype == torch.bfloat16 else "simt")
+    before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
+    got = attention.flash_attention(q, k, v)
+    assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before + 1
+    _check_attention(got, attention.attention_reference(q, k, v), dtype)
+    qkv = torch.cat([t.reshape(2, 3, 77, dh).transpose(1, 2).reshape(2, 77, 3 * dh)
+                     for t in (q, k, v)], dim=-1)
+    qm, km, vm = torch.chunk(qkv, 3, dim=-1)
+    _check_attention(attention.multihead_attention(qm, km, vm, 3),
+                     attention.multihead_attention(qm, km, vm, 3, use_kernel=False),
+                     dtype)
+
+
+@pytest.mark.parametrize("dtype,d,heads", [
+    (torch.bfloat16, 192, 4), (torch.bfloat16, 192, 2), (torch.bfloat16, 64, 4),
+    (torch.float32, 48, 2), (torch.float32, 96, 8)])
+def test_encoder_padded_head_dims_match_twin(dev, dtype, d, heads):
+    # Head dims 48, 96 and 16 in bf16 (padded to 64, 128 and 32), 24 and 12
+    # in float32 (to 32 and 16): the encoder kernel on the padded operand
+    # cache, and the block kernel padding at the launch, against the twin.
+    gen = torch.Generator().manual_seed(d * heads)
+    blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
+    x = torch.randn((2, 70, d), generator=gen).to(dev, dtype)
+    variant = "mma" if dtype == torch.bfloat16 else "simt"
+    assert vit_block._plan_for(x, heads, 4 * d).pad == vit_block.head_pad(
+        variant, d // heads) > d // heads
+    before = dict(vit_block.VARIANT_LAUNCHES)
+    got = vit_block.encoder(x, blocks, heads)
+    assert vit_block.VARIANT_LAUNCHES[variant] == before[variant] + 1
+    _check_close(got, vit_block.encoder_reference(x, blocks, heads), dtype)
+    one = vit_block.block(x, blocks[0], heads)
+    _check_close(one, vit_block.block_reference(x, blocks[0], heads), dtype)
+    assert torch.equal(one, vit_block.encoder(x, blocks[:1], heads))
 
 
 @pytest.mark.parametrize("preset", ["small", "vittrack-t"])

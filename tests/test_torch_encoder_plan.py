@@ -5,9 +5,13 @@ and the attention rule on odd shapes against the JAX package.
 
 What a CPU run can say of kernels that run only on the card:
 
-* ``plan`` (a pure function): the variant by dtype, the shapes it refuses
-  (it raises), the N tile of each product by batch; operands laid out
-  where the kernels cannot read them are copied.
+* ``plan`` (a pure function): the variant by dtype, the head dims it pads
+  and to what, the shapes it refuses (it raises), the N tile of each
+  product by batch; operands laid out where the kernels cannot read them
+  are copied.  Zero-padded heads (the qkv / proj weights of the operand
+  cache, the q / k / v copies of the attention wrapper) run through the
+  plain twin with the true head dim's scale equal the unpadded twin (1e-6,
+  float32).
 * The ``mma`` arithmetic, emulated in float64 where the tensor cores are
   exact (bf16 products) and rounded to float32 where they round (toward
   zero, each 16-deep step in a fresh accumulator; the steps and chunks
@@ -27,8 +31,9 @@ What a CPU run can say of kernels that run only on the card:
   (PERF.md, Findings).
 * The operand cache: reused across calls, rebuilt after an in-place
   update, bypassed under a gradient.
-* ``ops/attention.py::plan`` refuses a head dim that is not a multiple of
-  8 or is above 128 (on the card such a call raises); q, k, v whose last
+* ``ops/attention.py::plan`` pads a head dim that is not a multiple of 8
+  (bf16 to 32 / 64 / 128, float32 to the next multiple of 8) and refuses
+  one above 128 (on the card such a call raises); q, k, v whose last
   dimension is not contiguous or whose base is not 16-byte aligned are
   copied, unchanged, into operands the kernels read in place.  On the CPU
   all three shapes take the plain version, which equals JAX's
@@ -97,29 +102,33 @@ def test_plan_n_tile_by_batch():
     (BF16, 768, 12, 3072, "mma"),    # the widest D the LN product holds
     (F32, 96, 2, 384, "simt"),       # the small preset
     (F32, 192, 3, 768, "simt"),      # the flagship in float32
-    (BF16, 96, 2, 384, None),        # head dim 48
-    (BF16, 64, 4, 256, None),        # head dim 16
+    (BF16, 96, 2, 384, None),        # head dim 48, D no multiple of 64
+    (BF16, 64, 4, 256, "mma"),       # head dim 16: padded to 32
     (BF16, 96, 3, 384, None),        # head dim 32, D no multiple of 64
     (BF16, 832, 13, 3328, None),     # D beyond 768
-    (BF16, 96, 12, 384, None),       # head dim 8
-    (F32, 24, 2, 96, None),          # head dim 12
+    (BF16, 96, 12, 384, None),       # head dim 8, D no multiple of 64
+    (F32, 24, 2, 96, "simt"),        # head dim 12: padded to 16
     (BF16, 288, 2, 1152, None),      # head dim 144
     (F32, 64, 2, 200, None),         # MLP width no multiple of 16
     (torch.float16, 192, 3, 768, None),
 ])
 def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
-    # The variant is the dtype's; a shape it cannot take raises before any
-    # launch (no call on the card goes to the plain twin).
+    # The variant is the dtype's; a head dim it does not take as it is runs
+    # zero-padded (the padded dim in the plan, the true one's scale at the
+    # launch); a shape it cannot take even so raises before any launch (no
+    # call on the card goes to the plain twin).
     if variant is None:
         with pytest.raises(TypeError if dtype == torch.float16 else ValueError):
             vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
         return
     got = vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
     assert got.variant == variant
+    pad = {(64, 4): 32, (24, 2): 16}.get((dim, heads), 0)
+    assert got.pad == pad == vit_block.head_pad(variant, dim // heads)
     if variant == "mma":
         assert set(got.tiles) <= {32, 64}
     else:
-        assert got == vit_block.Plan("simt", (0, 0, 0, 0))
+        assert got == vit_block.Plan("simt", (0, 0, 0, 0), pad)
 
 
 @pytest.mark.parametrize("seq", [1, 320, 740, 1088, 4096])
@@ -403,6 +412,59 @@ def test_operand_cache_bypassed_under_a_gradient():
                                       1) is not None
 
 
+def _padded_twin(x, stacked, heads, pad):
+    """The twin's block math (``models/vit.py::_block``) on weights stacked
+    over depth whose heads are zero-padded to ``pad``: the attention at the
+    padded head dim with the true one's scale, the output's padded columns
+    multiplied by the proj weight's zero rows."""
+    b, s, d = x.shape
+    for layer in range(stacked[0].shape[0]):
+        p = {}
+        for (mod, field), t in zip(vit_block._FIELDS, stacked):
+            p.setdefault(mod, {})[field] = t[layer]
+        q, k, v = torch.chunk(vit._linear(vit.layer_norm(x, p["ln1"]), p["qkv"]),
+                              3, dim=-1)
+        a = tattn.attention_reference(*(tattn._split(t, heads) for t in (q, k, v)),
+                                      head_dim=d // heads)
+        x = x + vit._linear(a.transpose(1, 2).reshape(b, s, heads * pad), p["proj"])
+        g = F.gelu(vit._linear(vit.layer_norm(x, p["ln2"]), p["mlp1"]).float(),
+                   approximate="tanh").to(x.dtype)
+        x = x + vit._linear(g, p["mlp2"])
+    return x
+
+
+@pytest.mark.parametrize("variant,d,heads", [
+    ("simt", 48, 4), ("simt", 96, 4), ("mma", 192, 4), ("mma", 64, 8)])
+def test_padded_heads_through_the_twin_equal_the_unpadded(variant, d, heads):
+    # The operand cache pads float32 heads for "simt" (12 -> 16, 24 -> 32);
+    # the same function pads them as "mma" would (48 -> 64, 8 -> 32), here in
+    # float32 arithmetic.  Zero columns of qkv, zero rows of proj, the true
+    # head dim's scale: the twin on the padded weights equals the unpadded
+    # twin to 1e-6.
+    depth, dh = 2, d // heads
+    pad = vit_block.head_pad(variant, dh)
+    assert pad > dh
+    flat = _flat(depth, d=d, hidden=2 * d)
+    flat = [t * (d ** -0.5 if t.dim() == 2 else 0.1) for t in flat]
+    if variant == "simt":
+        stacked = vit_block._operands(flat, depth, F32, heads)
+        assert vit_block._operands(flat, depth, F32, heads) is stacked
+    else:
+        stacked = vit_block._pad_heads(vit_block._stack(flat, depth), heads, pad)
+    e = heads * pad
+    assert stacked[2].shape == (depth, d, 3 * e) and stacked[3].shape == (depth, 3 * e)
+    assert stacked[4].shape == (depth, e, d)
+    cols = torch.arange(3 * e) % pad < dh
+    assert not stacked[2][..., ~cols].any() and not stacked[3][..., ~cols].any()
+    assert not stacked[4][:, torch.arange(e) % pad >= dh].any()
+    gen = torch.Generator().manual_seed(d + heads)
+    x = torch.randn((2, 21, d), generator=gen)
+    want = vit_block.encoder_reference(x, vit_block._blocks_from_flat(flat, depth),
+                                       heads)
+    got = _padded_twin(x, stacked, heads, pad)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
 def test_encode_passes_masters_and_keeps_the_cpu_path():
     # encode(fused) hands the float32 masters over; on the CPU the result is
     # the twin on the cast weights, as before, and a gradient reaches them.
@@ -432,8 +494,19 @@ def test_encode_passes_masters_and_keeps_the_cpu_path():
 @pytest.mark.parametrize("s,dh,dtype", [
     (320, 12, F32), (320, 136, F32), (33, 4, BF16)])
 def test_attention_plan_refuses_odd_head_dims(s, dh, dtype):
-    with pytest.raises(ValueError, match="head dim"):
-        tattn.plan(s, dh, dtype, H100_OPTIN)
+    # Above 128 no kernel takes a head dim: it raises.  Below, one that is
+    # no multiple of 8 is padded: float32 to the next multiple of 8
+    # (simt), bf16 to 32 (mma); the kernel runs at the padded dim with the
+    # true one's scale.
+    if dh > 128:
+        with pytest.raises(ValueError, match="head dim"):
+            tattn.plan(s, dh, dtype, H100_OPTIN)
+        return
+    got = tattn.plan(s, dh, dtype, H100_OPTIN)
+    pad, variant = {F32: (16, "simt"), BF16: (32, "mma")}[dtype]
+    assert got.pad == pad and got.variant == variant
+    assert got._replace(pad=0) == tattn.plan(s, pad, dtype, H100_OPTIN)
+    assert tattn.entry_head_dims(dh, got) == (pad, dh)
 
 
 def _odd_case(case, rng):
@@ -471,8 +544,16 @@ def test_odd_attention_shapes_take_the_plain_version(case):
                                     use_pallas=None)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     if case == "head dim 12":
-        with pytest.raises(ValueError, match="head dim"):
-            tattn.plan(q.shape[1], q.shape[2] // heads, q.dtype, H100_OPTIN)
+        # On the card it runs zero-padded to 16: the padded copies through
+        # the plain version with the true head dim's scale give the same.
+        assert tattn.plan(q.shape[1], 12, q.dtype, H100_OPTIN).pad == 16
+        padded = [tattn._padded(t, heads, 16) for t in (q, k, v)]
+        assert padded[0].shape == (2, 37, 32) and padded[0].is_contiguous()
+        out = tattn.attention_reference(
+            *(tattn._split(t, heads) for t in padded), head_dim=12)
+        out = out[..., :12].transpose(1, 2).reshape(q.shape)
+        np.testing.assert_allclose(out.numpy(), got.numpy(), rtol=1e-6,
+                                   atol=1e-6)
         return
     assert not any(map(tattn._aligned, (q, k, v)))
     laid = tattn._laid_out(q, k, v)

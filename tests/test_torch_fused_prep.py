@@ -10,6 +10,15 @@ float32 (atol 1e-4, rtol 1e-4), a window hanging off the frame edge, a
 banded 1080p frame, bf16 (0.05), each also against the port's unfused
 chain ``preprocess_nv12`` -> ``embed_search``; and ``core.update(
 fused_prep=True)`` against JAX's over 5 frames (bbox 0.25 px, score 0.02).
+
+What the CUDA route adds and a CPU run can check: the window geometry the
+kernel works out on the device (``window_geometry`` in
+``csrc/fused_prep_embed.cu``), written here in numpy float32 operation by
+operation, equals ``_band`` bit for bit on a half-to-even tie, the band's
+corners, a frame smaller than the band and a window larger than it; the
+embed operands are made once per parameter set (reused, rebuilt after an
+in-place update, bypassed under a gradient); the planes and the window's
+scalars reach the launch as they lie.
 """
 
 import dataclasses
@@ -153,6 +162,148 @@ def test_modes_agree_and_bad_arguments_raise():
     # The raw launch has no CPU mode.
     with pytest.raises(ValueError, match="CUDA"):
         tfpe.launch(*tfpe.kernel_operands(tparams, y, uv, win, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# What the CUDA route computes before its pixels, and its operands
+# ---------------------------------------------------------------------------
+
+def _rounded_origin(centre, band):
+    """The band origin of ``band_origin`` in ``csrc/fused_prep_embed.cu``
+    before its clamp and even snap: ``rintf(centre - band / 2)`` in numpy
+    float32 (``np.rint`` rounds half to even, as ``rintf`` does)."""
+    f = np.float32
+    return np.rint(f(centre) - f(0.5) * f(band))
+
+
+def _kernel_geometry(cx, cy, size, h, w, band, out_size):
+    """``window_geometry`` of ``csrc/fused_prep_embed.cu`` in numpy float32:
+    start = (centre - 0.5 * size) - origin; on each axis the origin is
+    round(centre - band / 2) half to even (``rintf``), clamped to [0,
+    max(limit - band, 0)] and snapped down to even, and a band exists only
+    where the frame is larger than it on some axis; scale = size /
+    out_size.  Returns (start_y, start_x, scale, row0, col0, bh, bw)."""
+    f = np.float32
+    half = f(0.5) * f(size)
+    sy, sx = f(cy) - half, f(cx) - half
+    scale = f(size) / f(out_size)
+    if not band or not (h > band or w > band):
+        return sy, sx, scale, 0, 0, h, w
+
+    def origin(centre, limit):
+        r = _rounded_origin(centre, band)
+        return int(min(max(r, f(0.0)), f(max(limit - band, 0)))) & ~1
+
+    row0, col0 = origin(cy, h), origin(cx, w)
+    return (sy - f(row0), sx - f(col0), scale, row0, col0, min(band, h),
+            min(band, w))
+
+
+@pytest.mark.parametrize("frame,centre,size,band", [
+    ((1080, 1920), (1000.5, 700.0), 64.0, 1152),    # cx - 576 = 424.5: a tie
+    ((1080, 1920), (575.5, 700.0), 64.0, 1152),     # -0.5: a tie below 0
+    ((300, 400), (401.5, 290.5), 60.0, 192),        # 305.5 / 194.5, clamped
+    ((300, 400), (3.0, 1.5), 50.0, 192),            # the band's top-left corner
+    ((1080, 1080), (900.0, 100.0), 300.0, 1152),    # a frame smaller than the band
+    ((1080, 1920), (800.0, 500.0), 1544.0, 1152),   # a window larger than it
+    ((256, 320), (150.0, 100.0), 32.0, None),       # no band at all
+])
+def test_kernel_geometry_equals_band(frame, centre, size, band):
+    h, w = frame
+    win = tpp.CropWindow(cx=torch.tensor(centre[0]), cy=torch.tensor(centre[1]),
+                         size=torch.tensor(size))
+    sy, sx, origin, bh, bw = tfpe._band(torch.empty(frame, dtype=torch.uint8),
+                                        win, band)
+    got = _kernel_geometry(*centre, size, h, w, band, 256)
+    want = (sy.item(), sx.item(), (win.size / 256).item(), int(origin[0]),
+            int(origin[1]), bh, bw)
+    assert got == want
+    assert all(type(v) is np.float32 for v in got[:3])
+
+
+@pytest.mark.parametrize("centre,band", [
+    (1000.5, 1152),                 # 424.5: half to even 424, away 425
+    (575.5, 1152),                  # -0.5: half to even -0, away -1
+    (400.5, 192),                   # 304.5: 304 against 305
+])
+def test_band_origin_ties_round_half_to_even(centre, band):
+    # pp.band_origin rounds with torch.round, half to even; the kernel
+    # rounds with rintf for it, and the numpy twin of its geometry with
+    # np.rint.  On these ties half away from zero (roundf) gives another
+    # value before the snap, so the rule is held here, un-snapped.
+    v = np.float32(centre) - np.float32(0.5) * np.float32(band)
+    assert abs(v - np.trunc(v)) == 0.5
+    got = _rounded_origin(centre, band)
+    assert got == torch.round(torch.tensor(float(v))).item()
+    away = np.copysign(np.floor(abs(v) + np.float32(0.5)), v)
+    assert got != away
+    # It cannot be seen in the kernel's output: both clamp limits are even,
+    # so the clamp and the even snap take n + 0.5 to the same origin
+    # whichever way it rounds.  Every tie up to past the clamp, either way:
+    hi = 1920 - band
+    ties = np.arange(-4, hi + 4, dtype=np.float32) + np.float32(0.5)
+
+    def snapped(r):
+        return np.clip(r, 0, hi).astype(np.int64) & ~1
+
+    np.testing.assert_array_equal(
+        snapped(np.rint(ties)),
+        snapped(np.copysign(np.floor(np.abs(ties) + 0.5), ties)))
+
+
+def test_embed_operand_cache():
+    _, cfg = _cfgs("bfloat16")
+    _, tparams = _embed_params(cfg, 6)
+    pe = tparams["backbone"]["patch_embed"]
+    a = tfpe.embed_operands(tparams, torch.bfloat16)
+    assert tfpe.embed_operands(tparams, torch.bfloat16) is a      # reused
+    assert torch.equal(a[0], pe["kernel"].to(torch.bfloat16))
+    assert torch.equal(a[1], (tparams["backbone"]["pos_embed_x"]
+                              + pe["bias"]).to(torch.bfloat16))
+    assert tfpe.embed_operands(tparams, torch.float32) is not a   # another dtype
+    with torch.no_grad():
+        pe["bias"].add_(1.0)          # an optimiser step: same tensor, new version
+    b = tfpe.embed_operands(tparams, torch.bfloat16)
+    assert b is not a and torch.equal(b[1], (tparams["backbone"]["pos_embed_x"]
+                                             + pe["bias"]).to(torch.bfloat16))
+    tparams["backbone"]["pos_embed_x"] = tparams["backbone"]["pos_embed_x"].clone()
+    c = tfpe.embed_operands(tparams, torch.bfloat16)              # a new leaf
+    assert c is not b and torch.equal(c[1], b[1])
+    # Under a gradient nothing is kept: made on every call.
+    pe["kernel"].requires_grad_(True)
+    g1 = tfpe.embed_operands(tparams, torch.bfloat16)
+    assert tfpe.embed_operands(tparams, torch.bfloat16) is not g1
+    assert torch.equal(g1[0], c[0])
+    with torch.no_grad():
+        d = tfpe.embed_operands(tparams, torch.bfloat16)
+        assert tfpe.embed_operands(tparams, torch.bfloat16) is d
+
+
+def test_kernel_operands_are_taken_as_they_lie():
+    # Ready parameters, contiguous planes and crop_window's scalars reach
+    # the launch as the same tensors: no copy, no cast, no stacked scalars.
+    _, cfg = _cfgs("float32")
+    _, tparams = _embed_params(cfg, 7)
+    y, uv = map(torch.from_numpy, _nv12((128, 160), 7))
+    win = tpp.crop_window(torch.tensor([60.0, 50.0, 20.0, 20.0]),
+                          cfg.search_factor)
+    ops = tfpe.kernel_operands(tparams, y, uv, win, cfg)
+    assert ops[0] is y and ops[1] is uv
+    assert all(o is t for o, t in zip(ops[2:5], win))
+    assert ops[5:] == tfpe.embed_operands(tparams, torch.float32)
+    # A plane the kernel cannot read in place is copied, values unchanged.
+    wide = torch.from_numpy(_nv12((128, 164), 7)[0])[:, :160]
+    got = tfpe.kernel_operands(tparams, wide, uv, win, cfg)[0]
+    assert got.is_contiguous() and torch.equal(got, wide)
+    assert tfpe.plan(cfg.embed_dim, torch.float32) == tfpe.Plan("simt", 2)
+    assert tfpe.plan(192, torch.bfloat16) == tfpe.Plan("mma", 16, 32, 6)
+    # bf16 runs one tiling: 32 columns a CTA, D / 32 CTAs a cluster of at
+    # most 8.  Other widths raise before any launch.
+    for dim in (200, 288):
+        with pytest.raises(ValueError, match="multiple of 32 up to 256"):
+            tfpe.plan(dim, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tfpe.plan(192, torch.float16)
 
 
 # ---------------------------------------------------------------------------

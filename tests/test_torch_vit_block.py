@@ -6,6 +6,12 @@ interpret mode on the CPU; the port's ``encoder_reference`` is the plain
 twin its CUDA kernel is held to on the card.  Same seeded inputs and
 weights on both sides (rounded to bf16 on both sides for the bf16 cases);
 tolerances 1e-5 in float32 and 0.05 in bf16 (a bf16 ulp at |x| ~ 4).
+
+At the flagship's full depth (the shipped ``vittrack-t`` weights, 12
+blocks, 320 seeded tokens) the two ``encoder_reference`` s are held to 1e-4
+of max|x| in float32: the math is the same.  In bf16 their distance before
+and after the final LN is printed (the two place their roundings
+differently); run with ``-s`` to read it.
 """
 
 import numpy as np
@@ -22,6 +28,7 @@ from gstreamer_vit_tracker_tpu.ops import attention as jattn  # noqa: E402
 from gstreamer_vit_tracker_tpu.ops import vit_block as jvb  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.config import ModelConfig  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.models import vit as tvit  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.models import weights as tweights  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.ops import attention as tattn  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.ops import vit_block as tvb  # noqa: E402
 
@@ -85,6 +92,35 @@ def test_encoder_twin_batched_matches_chained_blocks():
     got = tvb.encoder_reference(torch.from_numpy(x), tblocks, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_encoder_twin_matches_jax_at_flagship_depth():
+    cfg = ModelConfig()
+    bb = tweights.load_npz(tweights.checkpoint_path("vittrack-t"), cfg,
+                           device="cpu")["backbone"]
+    host = _tree({"blocks": bb["blocks"], "norm": bb["norm"]},
+                 lambda t: t.numpy())
+    assert len(host["blocks"]) == 12
+    x = np.random.default_rng(12).standard_normal(
+        (1, 320, cfg.embed_dim)).astype(np.float32)
+    heads = cfg.num_heads
+    for dtype in ("float32", "bfloat16"):
+        (jblocks, jnorm), (tblocks, tnorm) = [
+            (b["blocks"], b["norm"]) for b in _both(host, dtype)]
+        jx, tx = _both(x, dtype)
+        ref = jvb.encoder_reference(jx, jblocks, heads)
+        got = tvb.encoder_reference(tx, tblocks, heads)
+        ref_ln = jvit.layer_norm(ref, jnorm)
+        got_ln = tvit.layer_norm(got, tnorm)
+        d = np.abs(got.float().numpy() - np.asarray(ref, np.float32))
+        d_ln = np.abs(got_ln.float().numpy() - np.asarray(ref_ln, np.float32))
+        top = float(np.abs(np.asarray(ref, np.float32)).max())
+        print(f"flagship depth 12, {dtype}: port twin vs JAX encoder_reference "
+              f"max|d| {d.max():.6g} (mean {d.mean():.3g}, max|x| {top:.4g}, "
+              f"{100 * d.max() / top:.3g} %); after the final LN max|d| "
+              f"{d_ln.max():.6g} (mean {d_ln.mean():.3g})")
+        if dtype == "float32":
+            assert d.max() <= 1e-4 * top, (d.max(), top)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
