@@ -83,7 +83,31 @@ Phases, in order; any failure raises and exits non-zero:
    ``train_step`` s from the shipped weights on seeded crops (a bright
    textured square on noise) beside the port's CPU run of the same steps;
    the loss must fall; attention-kernel launches counted;
-8. prints the card line, then one ``{"kernels": [...]}`` line, then the
+8. the tracker app, end to end, in this process through
+   ``app/main.py::run`` (each run's fps, track p50 and draw ms from the
+   app's own telemetry printed beside the card line):
+   a. the flagship, 60 headless frames of 1080p NV12 on the card, every row
+      TRACKING and kernel 1 launched once per update the app made (its
+      auto-init update and one a frame); the same argv with ``--cpu`` for 20
+      frames: the first 3 rows free-running within 2 px / 0.02, the card's
+      mean IoU with the drawn boxes at most 0.05 below the CPU's;
+   b. corr-tiny, the default argv (rgb 640x512, 60 frames), on the card and
+      with ``--cpu`` on the same seeded weights: every row's state equal,
+      the first rows within 1e-2 px / 1e-4; and every one of the 60 steps
+      again on the card from the CPU's state before it, within 1e-2 px /
+      1e-4 (run free, two float32 trajectories of this tracker part: its
+      sub-cell offsets double a difference about every frame, PERF.md §6);
+   c. ``--objects 3 --exclusive`` (corr-tiny) ends ``TRACKING 3 OF 3``; with
+      ``small`` the attention kernel launched depth x updates times;
+      ``--pipelined`` rows, shifted by one, equal (b)'s card rows;
+   d. the HUD on the card: ``render_hud``, ``yuy2_to_rgb`` +
+      ``render_hud`` and ``render_hud_luma`` on 1080p frames for three
+      HudParams, uint8-equal to the CPU's; ``resize_static`` within 1 level;
+   e. a fault soak (corr-tiny nv12, transport and device faults) ends
+      TRACKING, its multi-object twin re-creates the backend and ends
+      ``TRACKING 3 OF 3``; a 10-frame ``--record`` y4m with
+      ``--display-scale`` reads back at the display size (no cv2);
+9. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -92,11 +116,15 @@ convolutions run without TF32 on the card (both switches set below).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1647,6 +1675,318 @@ def train_phase(dev, preset: str):
             "loss_rel_vs_cpu": rel}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the tracker app, end to end
+# ---------------------------------------------------------------------------
+
+APP_FRAMES = 60
+APP_CPU_FRAMES = 20
+APP_FREE_ROWS = 3
+# corr-tiny (float32) card against the CPU: bbox 1e-2 px, score 1e-4 (the
+# small f32 bounds); the rows round scores to 4 places, so two scores
+# within 1e-4 may print one step of that rounding apart.
+CORR_BOX_TOL, CORR_SCORE_TOL = 1e-2, 1e-4
+ROW_ROUNDING = 1e-9
+APP_IOU_MARGIN = 0.05
+PIPE_TOL = 1e-5
+APP_BASE = ["--headless", "--no-pace"]
+FLAGSHIP_ARGV = APP_BASE + ["--model", "vittrack-t", "--format", "nv12",
+                            "--width", str(FRAME_W), "--height",
+                            str(FRAME_H)]
+SOAK_ARGV = APP_BASE + ["--model", "corr-tiny", "--width", "320", "--height",
+                        "256", "--format", "nv12", "--inject-source-fault",
+                        "40", "--inject-device-fault", "45"]
+
+
+def zero_counts() -> None:
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+
+    torch.cuda.synchronize()
+    vit_block.LAUNCHES = vit_block.BLOCK_LAUNCHES = 0
+    vit_block.VARIANT_LAUNCHES.update(mma=0, simt=0)
+    attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
+    fpe.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+
+    torch.cuda.synchronize()
+    return {"vit_encoder": vit_block.LAUNCHES,
+            "vit_block": vit_block.BLOCK_LAUNCHES,
+            "attention_single": attention.SINGLE_LAUNCHES,
+            "attention_flash": attention.FLASH_LAUNCHES,
+            "fused_prep_embed": fpe.LAUNCHES}
+
+
+def run_app(name: str, argv, tmp: str, card: str):
+    """The port's app on ``argv`` in this process, with ``--record-track``:
+    (RunReport, rows, stdout).  Prints the run's own telemetry."""
+    from gstreamer_vit_tracker_tpu_torch.app import main as app
+
+    track = os.path.join(tmp, f"{name}.jsonl")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report = app.run(list(argv) + ["--record-track", track])
+    text = out.getvalue()
+    if report.rc != 0:
+        raise AssertionError(f"app {name} exited {report.rc}: {text[-3000:]}")
+    with open(track) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"app {name}: {report.frames} frames in {report.wall_s:.2f} s, "
+          f"{report.fps:.2f} fps, track p50 {report.track_ms_p50:.3f} ms "
+          f"(mean {report.track_ms_avg:.3f}), map (frame fetch) "
+          f"{report.map_ms:.3f} ms, draw {report.draw_ms:.3f} ms (the app's "
+          f"telemetry, host clock); final state "
+          f"{report.final_state}; faults {report.faults} (reopens "
+          f"{report.source_reopens}, backend re-creates "
+          f"{report.backend_recreates}) | {card}", flush=True)
+    return report, rows, text
+
+
+def _boxes(rows):
+    return np.asarray([o["bbox"] for r in rows for o in r.get("objects",
+                                                              [r])])
+
+
+def _scores(rows):
+    return np.asarray([o["score"] for r in rows for o in r.get("objects",
+                                                               [r])])
+
+
+def corr_tiny_from_cpu_state(dev) -> dict:
+    """corr-tiny on the default argv's frames (rgb 640x512, seed 0): the
+    app's headless flow (init on the drawn box, the auto-init update on
+    frame 0, then frames 0-59) through ``core`` on the CPU, and each step
+    again on the card from the CPU's state before it."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.media.source import SyntheticSource
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    cfg, cpu = PRESETS["corr-tiny"], torch.device("cpu")
+    pcpu = vittrack.init_params(torch.Generator().manual_seed(0), cfg, cpu)
+    pcard = vittrack.init_params(torch.Generator().manual_seed(0), cfg, dev)
+    src = SyntheticSource(640, 512, seed=0, fmt="rgb")
+    bbox = tuple(int(v) for v in src.bbox_at(0))
+    cst = core.init(pcpu, src.frame(0), bbox, cfg, device=cpu)
+    gst = core.init(pcard, src.frame(0), bbox, cfg, device=dev)
+    d_tok = (gst.z_tok.cpu() - cst.z_tok).abs().max().item()
+    worst_box = worst_score = 0.0
+    for f in [src.frame(0)] + [src.frame(i) for i in range(APP_FRAMES)]:
+        held = type(cst)(*(t.to(dev) for t in cst))
+        _, gout = core.update_packed(pcard, held, f, cfg, device=dev)
+        cst, cout = core.update_packed(pcpu, cst, f, cfg, device=cpu)
+        gout, cout = gout.cpu().numpy(), cout.numpy()
+        worst_box = max(worst_box, float(np.abs(gout[:4] - cout[:4]).max()))
+        worst_score = max(worst_score, float(abs(gout[4] - cout[4])))
+    print(f"corr-tiny, {APP_FRAMES + 1} steps on the card each from the CPU's "
+          f"state: max|d bbox| {worst_box:.3e} px, max|d score| "
+          f"{worst_score:.3e} (tolerance {CORR_BOX_TOL} px, {CORR_SCORE_TOL}); "
+          f"template tokens max|d| {d_tok:.3e}", flush=True)
+    if worst_box > CORR_BOX_TOL or worst_score > CORR_SCORE_TOL:
+        raise AssertionError("corr-tiny card step disagrees with the CPU")
+    return {"from_cpu_state_max_box": worst_box,
+            "from_cpu_state_max_score": worst_score}
+
+
+def hud_phase(dev) -> dict:
+    """The HUD and the display resample on 1080p frames, card against CPU."""
+    from gstreamer_vit_tracker_tpu_torch.ops import (colorspace, overlay,
+                                                     overlay_nv12, resample)
+
+    rng = np.random.default_rng(11)
+    rgb = rng.integers(0, 256, (FRAME_H, FRAME_W, 3), np.uint8)
+    yuy2 = rng.integers(0, 256, (FRAME_H, FRAME_W * 2), np.uint8)
+    luma = rng.integers(0, 256, (FRAME_H, FRAME_W), np.uint8)
+    kw = dict(fps=58.7, track_ms=4.25, cursor=(960, 540), sel_start=(700, 400))
+    params = [
+        overlay.HudParams(state_name="SELECT END", score=0.0,
+                          is_tracking=False, is_selecting=True,
+                          sel_active=True, bbox=(0, 0, 0, 0), has_bbox=False,
+                          **kw),
+        overlay.HudParams(state_name="TRACKING", score=0.912,
+                          is_tracking=True, is_selecting=False,
+                          sel_active=False, bbox=(1850, 1020, 120, 90),
+                          has_bbox=True, **kw),
+        overlay.HudParams(state_name="LOST", score=0.0, is_tracking=False,
+                          is_selecting=False, sel_active=False,
+                          bbox=(-30, 500, 200, 150), has_bbox=False, **kw)]
+
+    def both(fn):
+        card = fn(dev).cpu().numpy()
+        plain = fn(torch.device("cpu")).numpy()
+        return card, plain
+
+    checks = {
+        "render_hud": lambda p: lambda d: overlay.render_hud(
+            torch.tensor(rgb, device=d), p),
+        "yuy2_to_rgb+render_hud": lambda p: lambda d: overlay.render_hud(
+            colorspace.yuy2_to_rgb(torch.tensor(yuy2, device=d).reshape(-1),
+                                   width=FRAME_W, height=FRAME_H), p),
+        "render_hud_luma": lambda p: lambda d: overlay_nv12.render_hud_luma(
+            torch.tensor(luma, device=d), p)}
+    for name, make in checks.items():
+        for p in params:
+            card, plain = both(make(p))
+            if not np.array_equal(card, plain):
+                raise AssertionError(f"{name} on the card differs from the "
+                                     f"CPU in {(card != plain).sum()} values")
+    print(f"HUD: render_hud, yuy2_to_rgb + render_hud and render_hud_luma on "
+          f"{FRAME_W}x{FRAME_H} frames, three HudParams each: uint8-equal to "
+          f"the CPU", flush=True)
+    card, plain = both(lambda d: resample.resize_static(
+        torch.tensor(rgb, device=d), 1024, 1280))
+    diff = np.abs(card.astype(int) - plain.astype(int))
+    print(f"resize_static {FRAME_W}x{FRAME_H} -> 1280x1024: max|d| "
+          f"{diff.max()} level(s), {(diff > 0).sum()} of {diff.size} values "
+          f"differ (tolerance 1 level)", flush=True)
+    if diff.max() > 1:
+        raise AssertionError("resize_static on the card is off by > 1 level")
+    img = torch.tensor(rgb, device=dev)
+    hud_ms = cuda_ms(lambda: overlay.render_hud(img, params[1]), iters=50)
+    return {"resize_static_values_off_by_one": int((diff > 0).sum()),
+            "render_hud_1080p_ms": hud_ms}
+
+
+def app_phase(dev, card: str) -> dict:
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.media.source import (FileSource,
+                                                              SyntheticSource)
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- a. the flagship, card against CPU ---------------------------
+        zero_counts()
+        rep, rows, _ = run_app("flagship-card", FLAGSHIP_ARGV + [
+            "--frames", str(APP_FRAMES)], tmp, card)
+        counts = read_counts()
+        # The headless auto-init makes one update on frame 0, then the
+        # session makes one update a frame; each is one kernel-1 launch.
+        updates = 1 + APP_FRAMES
+        print(f"app flagship: kernel launches {counts} for {updates} updates",
+              flush=True)
+        if (len(rows) != APP_FRAMES
+                or any(r["state"] != "TRACKING" for r in rows)):
+            raise AssertionError("app flagship: not 60 TRACKING rows")
+        if counts != dict(counts, vit_encoder=updates, attention_single=0,
+                          attention_flash=0, vit_block=0, fused_prep_embed=0):
+            raise AssertionError(f"app flagship: launches {counts}, expected "
+                                 f"kernel 1 x {updates} and nothing else")
+        res["flagship"] = {"launches": counts, "updates": updates,
+                           "fps": rep.fps, "track_ms_p50": rep.track_ms_p50,
+                           "map_ms": rep.map_ms, "draw_ms": rep.draw_ms}
+        crep, crows, _ = run_app("flagship-cpu", FLAGSHIP_ARGV + [
+            "--frames", str(APP_CPU_FRAMES), "--cpu"], tmp, card)
+        d_box = np.abs(_boxes(rows[:APP_FREE_ROWS])
+                       - _boxes(crows[:APP_FREE_ROWS])).max()
+        d_score = np.abs(_scores(rows[:APP_FREE_ROWS])
+                         - _scores(crows[:APP_FREE_ROWS])).max()
+        src = SyntheticSource(FRAME_W, FRAME_H, seed=0, fmt="nv12")
+        iou_card = np.mean([_iou(rows[i]["bbox"], src.bbox_at(i))
+                            for i in range(APP_CPU_FRAMES)])
+        iou_cpu = np.mean([_iou(crows[i]["bbox"], src.bbox_at(i))
+                           for i in range(APP_CPU_FRAMES)])
+        print(f"app flagship card vs CPU: first {APP_FREE_ROWS} rows "
+              f"free-running max|d bbox| {d_box:.4f} px, max|d score| "
+              f"{d_score:.4f} (tolerance {CPU_BOX_TOL} px, {CPU_SCORE_TOL}); "
+              f"mean IoU with the drawn boxes over {APP_CPU_FRAMES} frames: "
+              f"card {iou_card:.4f}, CPU {iou_cpu:.4f} (margin "
+              f"{APP_IOU_MARGIN})", flush=True)
+        if d_box > CPU_BOX_TOL or d_score > CPU_SCORE_TOL:
+            raise AssertionError("app flagship: the card's first rows disagree")
+        if iou_card < iou_cpu - APP_IOU_MARGIN:
+            raise AssertionError("app flagship: the card tracks worse")
+        res["flagship"].update(iou_card=iou_card, iou_cpu=iou_cpu,
+                               cpu_fps=crep.fps)
+
+        # -- b. corr-tiny, the default argv, card against CPU -------------
+        default = APP_BASE + ["--frames", str(APP_FRAMES)]
+        zero_counts()
+        brep, brows, _ = run_app("corr-tiny-card", default, tmp, card)
+        if any(read_counts().values()):
+            raise AssertionError("corr-tiny (depth 0) launched a kernel")
+        _, bcrows, _ = run_app("corr-tiny-cpu", default + ["--cpu"], tmp, card)
+        states = [r["state"] for r in brows]
+        if states != [r["state"] for r in bcrows] or len(states) != APP_FRAMES:
+            raise AssertionError("corr-tiny: card and CPU states differ")
+        dfree = np.abs(_boxes(brows) - _boxes(bcrows)).max(axis=1)
+        sfree = np.abs(_scores(brows) - _scores(bcrows))
+        print(f"corr-tiny app card vs CPU, free-running: every state equal "
+              f"({states[-1]}); max|d bbox| by row {np.round(dfree, 5).tolist()}"
+              f"; max|d score| first {APP_FREE_ROWS} rows "
+              f"{sfree[:APP_FREE_ROWS].max():.5f}", flush=True)
+        if (dfree[:APP_FREE_ROWS].max() > CORR_BOX_TOL
+                or sfree[:APP_FREE_ROWS].max() > CORR_SCORE_TOL + ROW_ROUNDING):
+            raise AssertionError("corr-tiny: the card's first rows disagree")
+        res["corr_tiny"] = dict(corr_tiny_from_cpu_state(dev), fps=brep.fps,
+                                track_ms_p50=brep.track_ms_p50,
+                                map_ms=brep.map_ms, draw_ms=brep.draw_ms,
+                                free_max_box_by_row=dfree.tolist())
+
+        # -- c. the other modes -------------------------------------------
+        orep, _, _ = run_app("corr-tiny-objects", APP_BASE + [
+            "--frames", "30", "--objects", "3", "--exclusive"], tmp, card)
+        if orep.final_state != "TRACKING 3 OF 3":
+            raise AssertionError(f"--objects 3: {orep.final_state}")
+        small = PRESETS["small"]
+        zero_counts()
+        srep, _, _ = run_app("small-objects", APP_BASE + [
+            "--frames", "30", "--objects", "3", "--exclusive", "--model",
+            "small"], tmp, card)
+        scounts = read_counts()
+        want = small.depth * 31
+        print(f"app small --objects 3: launches {scounts} (attention_single "
+              f"expected depth {small.depth} x 31 batched updates = {want})",
+              flush=True)
+        if scounts != dict(scounts, attention_single=want, vit_encoder=0):
+            raise AssertionError(f"app small --objects 3: launches {scounts}")
+        prep, prows, _ = run_app("corr-tiny-pipelined", default + [
+            "--pipelined"], tmp, card)
+        d_pipe = max(np.abs(_boxes(prows[1:]) - _boxes(brows[:-1])).max(),
+                     np.abs(_scores(prows[1:]) - _scores(brows[:-1])).max())
+        print(f"--pipelined rows 1-{APP_FRAMES - 1} vs rows 0-{APP_FRAMES - 2} "
+              f"without it: max|d| {d_pipe:.3e} (tolerance {PIPE_TOL})",
+              flush=True)
+        if d_pipe > PIPE_TOL:
+            raise AssertionError("--pipelined rows are not the previous rows")
+        res["modes"] = {"objects_fps": orep.fps,
+                        "small_objects_launches": scounts,
+                        "small_objects_fps": srep.fps,
+                        "pipelined_fps": prep.fps,
+                        "pipelined_track_ms_p50": prep.track_ms_p50}
+
+        # -- d. the HUD ------------------------------------------------------
+        res["hud"] = hud_phase(dev)
+
+        # -- e. faults and recording ---------------------------------------
+        frep, _, ftext = run_app("soak", SOAK_ARGV + ["--frames", "150"], tmp,
+                                 card)
+        if (frep.final_state != "TRACKING" or frep.source_reopens != 3
+                or ftext.count("Tracker error") != 3
+                or "Unrecoverable" in ftext):
+            raise AssertionError(f"soak: {frep}")
+        mrep, _, _ = run_app("soak-objects", SOAK_ARGV + [
+            "--frames", "100", "--objects", "3", "--exclusive"], tmp, card)
+        if mrep.backend_recreates < 1 or mrep.final_state != "TRACKING 3 OF 3":
+            raise AssertionError(f"soak --objects 3: {mrep}")
+        path = os.path.join(tmp, "out.y4m")
+        run_app("record", APP_BASE + ["--frames", "10", "--record", path,
+                                      "--display-scale"], tmp, card)
+        fs = FileSource(path)
+        y, uv = fs.frame(9)
+        print(f"recording: {fs.num_frames} frames of {fs.width}x{fs.height} "
+              f"read back (Y {y.shape}, UV {uv.shape})", flush=True)
+        if (fs.num_frames, fs.width, fs.height) != (10, 1280, 1024):
+            raise AssertionError("the recording reads back wrong")
+        res["faults"] = {"soak_backend_recreates": frep.backend_recreates,
+                         "soak_reopens": frep.source_reopens,
+                         "objects_backend_recreates": mrep.backend_recreates}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1825,7 +2165,10 @@ def main() -> int:
     # -- 7. training ---------------------------------------------------------
     training = train_phase(dev, "vittrack-t")
 
-    # -- 8. result lines ---------------------------------------------------
+    # -- 8. the tracker app -------------------------------------------------
+    app = app_phase(dev, card)
+
+    # -- 9. result lines ---------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -1837,6 +2180,8 @@ def main() -> int:
         "launches": launches,
         "launches_per_step": launches / MAIN_STEPS,
         "launches_by_variant": by_variant,
+        "app_launches": app["flagship"]["launches"]["vit_encoder"],
+        "app_updates": app["flagship"]["updates"],
         **{k: enc[k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": enc["max_abs_err_f32_small"],
         "final_ln": enc["final_ln"],
@@ -1851,6 +2196,8 @@ def main() -> int:
         "shape": [48, 320, 64],
         "launches": serve["launches"],
         "launches_per_tick": serve["launches"] / serve["ticks"],
+        "app_launches": app["modes"]["small_objects_launches"][
+            "attention_single"],
         "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
@@ -1929,6 +2276,7 @@ def main() -> int:
     print(f"fused route summary: {json.dumps(fused)}")
     print(f"training summary: {json.dumps(training)}")
     print(f"serving summary: {json.dumps(serve)}")
+    print(f"app summary: {json.dumps(app)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,11 +6,12 @@ imports nothing of it.  Plain tensor code is PyTorch; the TPU's Pallas
 kernels become CUDA kernels written by hand (``csrc/``), each with a plain
 PyTorch twin that the CPU runs and the tests compare against.
 
-This slice covers the single-object NV12 tracking step on the flagship
-``vittrack-t`` model: ``tracker.core.init`` / ``update`` / ``update_packed``
-and ``entry.entry``.
+Ported: the tracker core and its batched and scanned forms, the serving
+tier, float32 training, and the tracker app (``app/main.py``, sessions,
+media, HUD) with every preset of the JAX app (``corr-tiny``, ``small``,
+``vittrack-t``).  What is left is listed in ROADMAP.md.
 """
 
-from .config import PRESETS, ModelConfig
+from .config import PRESETS, AppConfig, ModelConfig
 
-__all__ = ["ModelConfig", "PRESETS"]
+__all__ = ["AppConfig", "ModelConfig", "PRESETS"]

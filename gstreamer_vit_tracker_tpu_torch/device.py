@@ -19,3 +19,13 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def true_float32(dev: torch.device) -> None:
+    """On a CUDA device, turn TF32 off for float32 products and cuDNN
+    convolutions (cuDNN's default is on), so that the float32 presets and
+    the float32 heads compute in float32 on the card as on the CPU.  A
+    process-wide switch: the port's entry points call it once at start."""
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -1,7 +1,7 @@
 """Score / offset / size prediction heads + hanning-penalty decode.
 
-Port of the conv-head half of ``gstreamer_vit_tracker_tpu/models/heads.py``.
-From the encoded search tokens the model emits
+Port of ``gstreamer_vit_tracker_tpu/models/heads.py``.  From the encoded
+search tokens the model emits
 
 * ``score``   (B, fs, fs)     per-cell target-centre confidence in [0, 1]
 * ``offset``  (B, fs, fs, 2)  sub-cell (dx, dy) of the centre, in [0, 1]
@@ -11,7 +11,13 @@ and the tracker decodes ``argmax(score * hann)`` into a bbox plus the
 confidence that the session thresholds.  Maps are NHWC and conv kernels
 HWIO at this module's boundary, as in JAX; the convolutions themselves
 run as ``F.conv2d`` (NCHW / OIHW), as the JAX package leaves them to XLA.
-The training-free ``corr`` head comes with a later slice.
+
+Two heads: ``conv``, the learned towers (OSTrack's centre head), and
+``corr``, a training-free correlation of the search map with the central
+template tokens (SiamFC-style), which runs the whole tracking loop without
+trained weights.  A float32 convolution on the card is true float32 only
+with ``torch.backends.cudnn.allow_tf32`` off, which the port's entry points
+set (``device.true_float32``).
 """
 
 from __future__ import annotations
@@ -25,8 +31,29 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from .vit import _trunc_normal
 
 Params = Dict[str, Any]
+
+
+def init_head_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Seeded conv-head towers on the CPU: score, offset and size, each
+    three 3x3 convs D -> D/2 -> D/4 -> D/8 and a 1x1 output conv, kernels
+    HWIO from :func:`_trunc_normal` at std 0.05, biases 0."""
+    d = cfg.embed_dim
+    chans = [d, d // 2, d // 4, d // 8]
+
+    def tower(out_ch):
+        layers = [{"kernel": _trunc_normal(gen, (3, 3, chans[i], chans[i + 1]),
+                                           std=0.05),
+                   "bias": torch.zeros(chans[i + 1])}
+                  for i in range(len(chans) - 1)]
+        layers.append({"kernel": _trunc_normal(gen, (1, 1, chans[-1], out_ch),
+                                               std=0.05),
+                       "bias": torch.zeros(out_ch)})
+        return layers
+
+    return {"score": tower(1), "offset": tower(2), "size": tower(2)}
 
 
 def _conv_stack(x: torch.Tensor, layers) -> torch.Tensor:
@@ -102,6 +129,75 @@ def conv_head_grouped(gparams: Params, feat: torch.Tensor, cfg: ModelConfig
     offset = torch.sigmoid(x[..., 1:3])
     size = torch.sigmoid(x[..., 3:5])
     return score, offset, size
+
+
+# ---------------------------------------------------------------------------
+# Correlation head (training-free)
+# ---------------------------------------------------------------------------
+
+def corr_head(z_tok: torch.Tensor, x_feat: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training-free SiamFC-style head: the central template token grid
+    (the object fills the centre half of the 2x-context template crop) is
+    cross-correlated, as a conv kernel, with the search token map; template
+    and search share one px-per-cell scale, so the peak sits on the object's
+    centre.
+
+    Both maps are centred by the mean search token and L2-normalised per
+    token, so a true match scores ~1.0.  Offsets are parabolic sub-cell
+    peaks (:func:`_parabolic_offsets`) plus the half-cell anchor of an even
+    kernel, sizes are zero (the decode then carries the previous size).
+
+    The per-sample correlation is one grouped ``F.conv2d`` with the batch
+    folded into the channels, padded as XLA's ``SAME``: (tc-1)//2 low and
+    tc//2 high, so an even kernel's peak lands half a cell early, as in JAX.
+    """
+    b = x_feat.shape[0]
+    tz = cfg.template_feat_size
+    fs = cfg.feat_size
+    d = x_feat.shape[-1]
+    q = tz // 4
+    tc = tz - 2 * q
+
+    zmap = z_tok.float().reshape(b, tz, tz, d)[:, q:tz - q, q:tz - q, :]
+    xmap = x_feat.float().reshape(b, fs, fs, d)
+    mu = xmap.mean(dim=(1, 2), keepdim=True)
+    xc = xmap - mu
+    zc = zmap - mu
+    xc = xc / (torch.linalg.vector_norm(xc, dim=-1, keepdim=True) + 1e-6)
+    zc = zc / (torch.linalg.vector_norm(zc, dim=-1, keepdim=True) + 1e-6)
+
+    lo, hi = (tc - 1) // 2, tc // 2
+    x = F.pad(xc.permute(0, 3, 1, 2).reshape(1, b * d, fs, fs),
+              (lo, hi, lo, hi))
+    w = zc.permute(0, 3, 1, 2)                       # (b, d, tc, tc) OIHW
+    corr = F.conv2d(x, w, groups=b).reshape(b, fs, fs)
+    score = torch.clamp(corr / (tc * tc), 0.0, 1.0)
+
+    anchor = 0.5 if tc % 2 == 0 else 0.0
+    offset = _parabolic_offsets(score) + anchor
+    size = torch.zeros((b, fs, fs, 2), dtype=torch.float32,
+                       device=score.device)
+    return score, offset, size
+
+
+def _parabolic_offsets(score: torch.Tensor) -> torch.Tensor:
+    """Sub-cell peak offsets from a (B, fs, fs) score map: the three-point
+    parabola ``d = 0.5 * (s+ - s-) / (2*s0 - s- - s+)`` along each axis
+    (edge-replicated at the border), clamped to +-0.5 cells; returns
+    (B, fs, fs, 2) in [0, 1], 0.5 being the cell centre."""
+    pad = F.pad(score[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    s0 = score
+    s_l = pad[:, 1:-1, :-2]
+    s_r = pad[:, 1:-1, 2:]
+    s_u = pad[:, :-2, 1:-1]
+    s_d = pad[:, 2:, 1:-1]
+    eps = 1e-6
+    dx = 0.5 * (s_r - s_l) / torch.clamp_min(2.0 * s0 - s_l - s_r, eps)
+    dy = 0.5 * (s_d - s_u) / torch.clamp_min(2.0 * s0 - s_u - s_d, eps)
+    dx = torch.clamp(dx, -0.5, 0.5)
+    dy = torch.clamp(dy, -0.5, 0.5)
+    return torch.stack([dx + 0.5, dy + 0.5], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,48 @@ Params = Dict[str, Any]
 LN_EPS = 1e-6   # torch's default is 1e-5
 
 
+def _trunc_normal(gen: torch.Generator, shape, std: float = 0.02
+                  ) -> torch.Tensor:
+    """float32 draws of ``std`` x a standard normal truncated to [-2, 2],
+    JAX's ``std * truncated_normal(-2, 2)``: ``trunc_normal_``'s bounds are
+    in the distribution's own units, so they are +-2 std, not +-2."""
+    return torch.nn.init.trunc_normal_(
+        torch.empty(shape, dtype=torch.float32), std=std, a=-2.0 * std,
+        b=2.0 * std, generator=gen)
+
+
+def init_vit_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """A seeded backbone tree of ``cfg`` on the CPU (the structure of
+    ``models/weights.py::param_shapes``): linear kernels and position
+    embeddings from :func:`_trunc_normal` at std 0.02, biases 0, LayerNorm
+    scales 1.  The draws cannot match JAX's PRNG bits, only its
+    distribution."""
+    d = cfg.embed_dim
+    p = cfg.patch_size
+    hidden = int(d * cfg.mlp_ratio)
+
+    def ln():
+        return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+
+    def linear(n_in, n_out):
+        return {"kernel": _trunc_normal(gen, (n_in, n_out)),
+                "bias": torch.zeros(n_out)}
+
+    params: Params = {
+        "patch_embed": linear(p * p * 3, d),
+        "pos_embed_z": _trunc_normal(gen, (cfg.num_template_tokens, d)),
+        "pos_embed_x": _trunc_normal(gen, (cfg.num_search_tokens, d)),
+        "norm": ln(),
+        "blocks": [],
+    }
+    for _ in range(cfg.depth):
+        params["blocks"].append({
+            "ln1": ln(), "ln2": ln(),
+            "qkv": linear(d, 3 * d), "proj": linear(d, d),
+            "mlp1": linear(d, hidden), "mlp2": linear(hidden, d)})
+    return params
+
+
 def cast_params(p: Any, dtype: torch.dtype) -> Any:
     """Cast floating tensors of a param tree to the compute dtype at use
     (masters stay float32).  A tensor already in ``dtype`` is returned as

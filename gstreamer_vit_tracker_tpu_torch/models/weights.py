@@ -47,6 +47,15 @@ def checkpoint_path(preset: str) -> str:
     return os.path.join(ASSETS, CHECKPOINTS[preset])
 
 
+def default_checkpoint(preset: str) -> str:
+    """The shipped checkpoint of ``preset`` if it has one and the file is
+    there, else "" (corr-tiny runs on its seeded weights)."""
+    if preset not in CHECKPOINTS:
+        return ""
+    path = checkpoint_path(preset)
+    return path if os.path.exists(path) else ""
+
+
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree of ``cfg`` with a shape tuple at every leaf (the
     structure of the JAX ``vittrack.init_params``)."""
@@ -128,6 +137,17 @@ def tree_to_numpy(tree: Any) -> Any:
         return [tree_to_numpy(v) for v in tree]
     t = tree.detach()
     return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+def tree_to(tree: Any, device, copy: bool = False) -> Any:
+    """Nested dicts and lists of tensors moved to ``device``; with
+    ``copy=True`` every leaf is a new tensor even where it already lies
+    there (a host copy to recover from, or a fresh upload of it)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, copy) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device, copy) for v in tree]
+    return tree.detach().to(device, copy=copy)
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:

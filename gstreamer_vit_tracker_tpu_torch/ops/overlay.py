@@ -1,0 +1,240 @@
+"""HUD drawing on a device tensor: RGB frames.
+
+Port of ``gstreamer_vit_tracker_tpu/ops/overlay.py`` (the reference's CPU
+renderers drawing_rgb.rs and drawing.rs): rectangle, crosshair, cursor,
+dashed selection and 5x7 text, with the reference's geometry (thickness
+bands inside the box, dash period 6, cursor size 25 / gap 5, 6-cell glyph
+advance).
+
+Every primitive is the JAX package's masked select, evaluated over the
+bounding box of the pixels its mask can reach (clipped to the frame)
+instead of the whole frame, and painted into that view of the image in
+place with ``masked_fill_``; the geometry is host integers, so nothing is
+read back from the device.  Painting in place is the counterpart of JAX's
+donated frame: pass a tensor that nothing else still reads (the app paints
+a copy it uploaded for the HUD).  Each function returns the image it
+painted.  The results are uint8-equal to JAX's (tests/test_torch_hud.py).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .font import ADVANCE, FONT_TABLE, encode_text
+
+__all__ = [
+    "draw_rect", "draw_crosshair", "draw_cursor", "draw_selection",
+    "draw_text", "encode_text", "HudParams", "render_hud",
+]
+
+
+def _region(img: torch.Tensor, r0: int, r1: int, c0: int, c1: int):
+    """Rows [r0, r1] and columns [c0, c1] (inclusive) clipped to the image:
+    (view, row indices (h, 1), column indices (1, w)), or None if empty."""
+    h, w = img.shape[0], img.shape[1]
+    r0, r1, c0, c1 = max(r0, 0), min(r1, h - 1), max(c0, 0), min(c1, w - 1)
+    if r0 > r1 or c0 > c1:
+        return None
+    dev = img.device
+    r = torch.arange(r0, r1 + 1, dtype=torch.int32, device=dev)[:, None]
+    c = torch.arange(c0, c1 + 1, dtype=torch.int32, device=dev)[None, :]
+    return img[r0:r1 + 1, c0:c1 + 1], r, c
+
+
+def _fill(view: torch.Tensor, mask: torch.Tensor, color) -> None:
+    """``where(mask, color, view)`` written into ``view``: one value on a
+    luma plane, one a channel on (h, w, C)."""
+    if view.dim() == 2:
+        view.masked_fill_(mask, int(color))
+    else:
+        for ch, v in enumerate(color):
+            view[..., ch].masked_fill_(mask, int(v))
+
+
+def _shape_at(img: torch.Tensor, r0, r1, c0, c1, mask_fn, color) -> torch.Tensor:
+    reg = _region(img, r0, r1, c0, c1)
+    if reg is not None:
+        view, r, c = reg
+        _fill(view, mask_fn(r, c), color)
+    return img
+
+
+def draw_rect(img: torch.Tensor, x, y, w, h, thickness: int, color,
+              enable: bool = True) -> torch.Tensor:
+    """Rectangle outline, drawing_rgb.rs:55-66: ``thickness`` bands inside
+    the box extent, pixels off the frame dropped."""
+    if not enable:
+        return img
+    x, y, w, h, t = int(x), int(y), int(w), int(h), int(thickness)
+    return _shape_at(
+        img, y, y + h - 1, x, x + w - 1,
+        lambda r, c: ((r < y + t) | (r >= y + h - t)
+                      | (c < x + t) | (c >= x + w - t)), color)
+
+
+def draw_crosshair(img: torch.Tensor, cx, cy, size: int, color,
+                   enable: bool = True) -> torch.Tensor:
+    """Cross of half-length ``size`` (drawing_rgb.rs:68-73)."""
+    if not enable:
+        return img
+    cx, cy = int(cx), int(cy)
+    return _shape_at(
+        img, cy - size, cy + size, cx - size, cx + size,
+        lambda r, c: (((r == cy) & ((c - cx).abs() <= size))
+                      | ((c == cx) & ((r - cy).abs() <= size))), color)
+
+
+def draw_cursor(img: torch.Tensor, cx, cy, enable: bool = True,
+                color=(0, 255, 0)) -> torch.Tensor:
+    """Open-centre cursor, size 25 / gap 5 (drawing_rgb.rs:75-84)."""
+    if not enable:
+        return img
+    cx, cy = int(cx), int(cy)
+
+    def mask(r, c):
+        dx, dy = (c - cx).abs(), (r - cy).abs()
+        return (((r == cy) & (dx >= 5) & (dx <= 25))
+                | ((c == cx) & (dy >= 5) & (dy <= 25)))
+
+    return _shape_at(img, cy - 25, cy + 25, cx - 25, cx + 25, mask, color)
+
+
+def selection_mask(img: torch.Tensor, start_x, start_y, cur_x, cur_y):
+    """The dashed selection box's corners and mask, shared with the luma
+    variant (drawing_rgb.rs:106-129, drawing.rs:25-50): corners clamped to
+    the frame, period-6 dashes."""
+    h, w = img.shape[0], img.shape[1]
+    sx, sy, ux, uy = int(start_x), int(start_y), int(cur_x), int(cur_y)
+    x1, y1 = max(min(sx, ux), 0), max(min(sy, uy), 0)
+    x2, y2 = min(max(sx, ux), w - 1), min(max(sy, uy), h - 1)
+
+    def mask(r, c):
+        horiz = (((r == y1) | (r == y2)) & (c >= x1) & (c <= x2)
+                 & ((c // 6) % 2 == 0))
+        vert = (((c == x1) | (c == x2)) & (r >= y1) & (r <= y2)
+                & ((r // 6) % 2 == 0))
+        return horiz | vert
+
+    return (min(y1, y2), max(y1, y2), min(x1, x2), max(x1, x2)), mask
+
+
+def draw_selection(img: torch.Tensor, start_x, start_y, cur_x, cur_y,
+                   enable: bool = True) -> torch.Tensor:
+    """Dashed yellow selection box with period-6 dashes
+    (drawing_rgb.rs:106-129)."""
+    if not enable:
+        return img
+    box, mask = selection_mask(img, start_x, start_y, cur_x, cur_y)
+    return _shape_at(img, *box, mask, (255, 255, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _font(device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(FONT_TABLE, device=device)
+
+
+def text_mask(img: torch.Tensor, chars: np.ndarray, n_chars: int, x: int,
+              y: int, scale: int):
+    """The lit pixels of up to ``len(chars)`` glyphs at (x, y): (view of
+    the text strip, bool mask), or None when the strip is off the frame.
+    Glyph indices come from ``font.encode_text``; 5x7 glyphs, integer
+    ``scale``, ``6*scale`` advance (draw_text_rgb, drawing_rgb.rs:86-104)."""
+    h, w = img.shape[0], img.shape[1]
+    max_len = len(chars)
+    strip_h = min(7 * scale, h - y)
+    strip_w = min(ADVANCE * scale * max_len, w - x)
+    if strip_h <= 0 or strip_w <= 0:
+        return None
+    dev = img.device
+    r = torch.arange(strip_h, device=dev)[:, None]
+    c = torch.arange(strip_w, device=dev)[None, :]
+    k = c // (ADVANCE * scale)
+    gx = (c % (ADVANCE * scale)) // scale
+    gy = r // scale
+    ch = torch.as_tensor(np.asarray(chars, np.int64), device=dev)[k]
+    lit = _font(dev)[ch, torch.clamp_max(gy, 6), torch.clamp_max(gx, 4)] == 1
+    lit = lit & (gx < 5) & (gy < 7) & (k < int(n_chars))
+    return img[y:y + strip_h, x:x + strip_w], lit
+
+
+def draw_text(img: torch.Tensor, chars: np.ndarray, n_chars: int, x: int,
+              y: int, scale: int, luma: int, enable: bool = True
+              ) -> torch.Tensor:
+    """Render the glyphs at (x, y) in ``luma`` on all three channels."""
+    if not enable:
+        return img
+    found = text_mask(img, chars, n_chars, x, y, scale)
+    if found is not None:
+        view, lit = found
+        _fill(view, lit, (luma,) * 3)
+    return img
+
+
+# ---------------------------------------------------------------------------
+# Full HUD (pipeline_ir.rs:162-204 composition)
+# ---------------------------------------------------------------------------
+
+# Field widths for the dynamic HUD strings.
+STATE_LEN = 12      # "SELECT START"
+FPS_LEN = 10        # "FPS: 12345"
+TRK_LEN = 12        # "trk:123.4ms"
+SCORE_LEN = 11      # "score: 100%"
+
+
+class HudParams:
+    """Host-side helper bundling the per-frame dynamic HUD inputs."""
+
+    def __init__(self, state_name: str, fps: float, track_ms: float,
+                 score: float, is_tracking: bool, is_selecting: bool,
+                 cursor: Tuple[int, int], sel_start: Tuple[int, int],
+                 sel_active: bool, bbox, has_bbox: bool):
+        # Dynamic strings are TRUNCATED to their field width, never raised
+        # on: a slow first tracked frame can push track_ms past 9999.9 and
+        # must not crash the frame loop (encode_text itself still raises
+        # on overflow — that contract is for static strings).
+        self.state_chars, self.state_n = encode_text(
+            state_name[:STATE_LEN], STATE_LEN)
+        self.fps_chars, self.fps_n = encode_text(
+            f"FPS: {fps:.0f}"[:FPS_LEN], FPS_LEN)
+        self.trk_chars, self.trk_n = encode_text(
+            f"trk:{track_ms:.1f}ms"[:TRK_LEN], TRK_LEN)
+        self.score_chars, self.score_n = encode_text(
+            f"score: {score * 100.0:.0f}%"[:SCORE_LEN], SCORE_LEN)
+        self.is_tracking = is_tracking
+        self.is_selecting = is_selecting
+        self.cursor = cursor
+        self.sel_start = sel_start
+        self.sel_active = sel_active
+        self.bbox = np.asarray(bbox if bbox is not None else (0, 0, 0, 0),
+                               np.int32)
+        self.has_bbox = has_bbox
+
+
+def hud_texts(p: HudParams) -> Sequence[tuple]:
+    """The four HUD strings: (chars, n, x, y, scale, luma, enabled)."""
+    return ((p.state_chars, p.state_n, 15, 15, 2, 255, True),
+            (p.fps_chars, p.fps_n, 15, 40, 2, 255, True),
+            (p.trk_chars, p.trk_n, 15, 65, 1, 200, True),
+            (p.score_chars, p.score_n, 200, 15, 2, 255, bool(p.is_tracking)))
+
+
+def render_hud(img: torch.Tensor, p: HudParams) -> torch.Tensor:
+    """Paint the full HUD (state, FPS, timings, score, cursor / selection,
+    bbox + crosshair) into ``img`` (H, W, 3) uint8, in place, in the order
+    JAX composites it; returns ``img``."""
+    for chars, n, x, y, scale, luma, on in hud_texts(p):
+        draw_text(img, chars, n, x, y, scale, luma, enable=on)
+    selecting = bool(p.is_selecting)
+    cx, cy = int(p.cursor[0]), int(p.cursor[1])
+    draw_cursor(img, cx, cy, enable=selecting)
+    draw_selection(img, p.sel_start[0], p.sel_start[1], cx, cy,
+                   enable=selecting and bool(p.sel_active))
+    bx, by, bw, bh = (int(v) for v in p.bbox)
+    draw_rect(img, bx, by, bw, bh, 3, (0, 255, 0), enable=bool(p.has_bbox))
+    draw_crosshair(img, bx + bw // 2, by + bh // 2, 15, (0, 255, 0),
+                   enable=bool(p.has_bbox))
+    return img

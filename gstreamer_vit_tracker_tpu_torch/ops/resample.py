@@ -7,15 +7,17 @@ grid.  Out-of-window samples get zero weight, which reproduces
 zero-border-constant padding.  Sampling uses half-pixel-centre alignment
 (``s_i = start + (i+0.5)*scale - 0.5``), as ``cv2.resize`` does.
 
-Port of ``gstreamer_vit_tracker_tpu/ops/resample.py`` (the two functions
-the NV12 tracking step uses).
+Port of ``gstreamer_vit_tracker_tpu/ops/resample.py``: the sampling
+matrices the tracking step uses, and the full-frame ``crop_resize`` /
+``resize_static`` of the app's display upscale.  ``crop_resize_chw`` is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sampling_matrix", "fold_half_res"]
+__all__ = ["sampling_matrix", "fold_half_res", "crop_resize", "resize_static"]
 
 
 def sampling_matrix(out_size: int, src_size: int, start, scale,
@@ -50,3 +52,31 @@ def fold_half_res(m: torch.Tensor) -> torch.Tensor:
     if src % 2:
         raise ValueError(f"fold_half_res requires an even source size, got {src}")
     return m.reshape(*m.shape[:-1], src // 2, 2).sum(dim=-1)
+
+
+def crop_resize(img: torch.Tensor, start_yx, size_yx, out_hw,
+                dtype=torch.float32) -> torch.Tensor:
+    """Crop the window ``[start, start+size)`` of ``img`` (H, W) or
+    (H, W, C), any numeric dtype, and resize it to ``out_hw`` with bilinear
+    filtering and zero padding: ``R @ img @ C^T`` in ``dtype``, the
+    channels riding along.  Returns (out_h, out_w[, C])."""
+    out_h, out_w = out_hw
+    h, w = img.shape[0], img.shape[1]
+    sy, sx = start_yx
+    zy, zx = size_yx
+    ry = sampling_matrix(out_h, h, sy, float(zy) / out_h, dtype, img.device)
+    cx = sampling_matrix(out_w, w, sx, float(zx) / out_w, dtype, img.device)
+    imgf = img.to(dtype)
+    if img.dim() == 2:
+        return ry @ imgf @ cx.T
+    tmp = torch.einsum("oh,hwc->owc", ry, imgf)
+    return torch.einsum("pw,owc->opc", cx, tmp)
+
+
+def resize_static(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Full-frame uint8 resize to (out_h, out_w): the reference's RGA
+    display upscale (640x512 -> 1280x1024, pipeline_ir.rs:62-73), a float32
+    bilinear resample rounded half to even and clamped."""
+    h, w = img.shape[0], img.shape[1]
+    out = crop_resize(img, (0.0, 0.0), (float(h), float(w)), (out_h, out_w))
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)

@@ -17,7 +17,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="gstreamer_vit_tracker_tpu_torch.serve")
     ap.add_argument("--model", default="vittrack-t")
     ap.add_argument("--checkpoint", default="",
-                    help="weights npz; default: the preset's shipped asset")
+                    help="weights npz; default: the preset's shipped asset, "
+                         "if it has one (corr-tiny runs on seeded weights)")
     ap.add_argument("--slots", type=int, default=16)
     ap.add_argument("--format", default="nv12",
                     choices=["nv12", "yuy2", "rgb"])
@@ -36,9 +37,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
 
+    import torch
+
     from ..config import PRESETS
-    from ..device import resolve_device
-    from ..models import weights
+    from ..device import resolve_device, true_float32
+    from ..models import vittrack, weights
     from . import SlotEngine, TrackServer
 
     if args.model not in PRESETS:
@@ -46,9 +49,13 @@ def main(argv=None) -> int:
         return 2
     cfg = PRESETS[args.model]
     dev = resolve_device("cpu" if args.cpu else "cuda")
-    ckpt = args.checkpoint or weights.checkpoint_path(args.model)
-    params = weights.load_npz(ckpt, cfg, device=dev)
-    print(f"loaded checkpoint {ckpt}")
+    true_float32(dev)
+    params = vittrack.init_params(torch.Generator().manual_seed(0), cfg,
+                                  device=dev)
+    ckpt = args.checkpoint or weights.default_checkpoint(args.model)
+    if ckpt:
+        params = weights.load_npz(ckpt, cfg, device=dev)
+        print(f"loaded checkpoint {ckpt}")
 
     engine = SlotEngine(params, cfg, args.slots, args.format,
                         snapshot_every=args.snapshot_every, device=dev)

@@ -1,0 +1,58 @@
+"""Profiling/tracing hooks.
+
+The reference instruments every phase of its hot loop with Instant::now()
+brackets and prints rolling aggregates.  The port's counterpart of the JAX
+package's ``utils/profiling.py``: host-side phase timers (utils.timing and
+:class:`PhaseTimer`) plus a ``torch.profiler`` trace of the host and the
+card for kernel-level views.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Dict, Iterator
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[None]:
+    """Trace the host and, when a card is present, CUDA activity with
+    ``torch.profiler``; writes a Chrome trace (``trace.json``, viewable in
+    Perfetto or chrome://tracing) into ``logdir``."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+class PhaseTimer:
+    """Accumulating host-side phase timer (the map/view/track/draw
+    micro-breakdown of pipeline_ir.rs:126-208 as a reusable utility)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def avg_ms(self, name: str) -> float:
+        n = self.counts.get(name, 0)
+        return 1000.0 * self.totals.get(name, 0.0) / n if n else 0.0
+
+    def summary(self) -> str:
+        return " | ".join(f"{k}:{self.avg_ms(k):.2f}ms"
+                          for k in sorted(self.totals))

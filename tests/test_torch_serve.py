@@ -498,3 +498,30 @@ def test_pipelined_fetch_fault_recovers(server):
 def test_serve_cli_rejects_an_unknown_model(capsys):
     assert serve_main.main(["--model", "nope", "--cpu"]) == 2
     assert "unknown model" in capsys.readouterr().err
+
+
+def test_serve_cli_runs_corr_tiny(monkeypatch):
+    """``--model corr-tiny`` has no shipped checkpoint: the server starts on
+    seeded weights (``init_params``), as JAX's does, and serves a stream."""
+    started = []
+
+    def start_only(self):           # serve_forever without the wait loop
+        self.start()
+        started.append(self)
+
+    monkeypatch.setattr(TrackServer, "serve_forever", start_only)
+    assert serve_main.main(["--model", "corr-tiny", "--cpu", "--slots", "2",
+                            "--width", str(W), "--height", str(H),
+                            "--port", "0", "--format", "nv12"]) == 0
+    (srv,) = started
+    try:
+        s = Stream(7)
+        with _client(srv) as c:
+            assert c.info["slots"] == 2
+            c.init(s.frame(0), s.bbox_at(0))
+            for t in range(1, 6):
+                bbox, score = c.update(s.frame(t))
+        assert np.isfinite(bbox).all() and np.isfinite(score)
+        assert iou(bbox, s.bbox_at(5)) > 0.5
+    finally:
+        srv.stop()

@@ -2,10 +2,11 @@
 
 The same npz arrays go to JAX's ``weights.load_npz`` and to the port's
 ``load_npz``; every leaf must come out with JAX's shape and the same
-values, and the derived grouped head must be identical.  The port's own
-copies of pure-Python modules (``config.py``, ``serve/protocol.py``,
-``serve/client.py``) stay equal to the originals, and no module of the
-port imports JAX or the JAX package.
+values, and the derived grouped head must be identical; corr-tiny's
+head-less tree crosses both ways.  The port's own copies of pure-Python
+modules (``config.py``, ``serve/protocol.py``, ``serve/client.py``) stay
+equal to the originals, and no module of the port imports JAX or the JAX
+package.
 """
 
 import dataclasses
@@ -33,7 +34,8 @@ from gstreamer_vit_tracker_tpu_torch.models import weights as tweights  # noqa: 
 from gstreamer_vit_tracker_tpu_torch.serve import client as tclient  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.serve import protocol as tprotocol  # noqa: E402
 
-PRESETS = ("small", "vittrack-t")
+PRESETS = ("small", "vittrack-t")        # the presets with shipped weights
+ALL_PRESETS = ("corr-tiny",) + PRESETS
 
 
 def _jax_flat(preset):
@@ -50,13 +52,14 @@ def test_model_config_is_a_faithful_copy():
     assert tf == jf
     for prop in ("feat_size", "template_feat_size", "num_template_tokens",
                  "num_search_tokens", "num_tokens"):
-        for preset in PRESETS:
+        for preset in ALL_PRESETS:
             assert (getattr(tconfig.PRESETS[preset], prop)
                     == getattr(JAX_PRESETS[preset], prop))
 
 
-@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("preset", ALL_PRESETS)
 def test_presets_match_app_presets(preset):
+    assert sorted(tconfig.PRESETS) == sorted(JAX_PRESETS)
     assert (dataclasses.asdict(tconfig.PRESETS[preset])
             == dataclasses.asdict(JAX_PRESETS[preset]))
 
@@ -206,7 +209,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
              if f.endswith(".py")] + [os.path.join(root, "chip_smoke.py")]
     assert len(files) > 30
     names = {os.path.relpath(p, root) for p in files}
-    for must in ("gstreamer_vit_tracker_tpu_torch/train/step.py",
+    for must in ("gstreamer_vit_tracker_tpu_torch/app/main.py",
+                 "gstreamer_vit_tracker_tpu_torch/session/machine.py",
+                 "gstreamer_vit_tracker_tpu_torch/media/source.py",
+                 "gstreamer_vit_tracker_tpu_torch/train/step.py",
                  "gstreamer_vit_tracker_tpu_torch/train/losses.py",
                  "gstreamer_vit_tracker_tpu_torch/ops/fused_prep_embed.py",
                  "gstreamer_vit_tracker_tpu_torch/ops/vit_block.py",
@@ -242,3 +248,33 @@ def test_params_go_back_to_the_checkpoint_layout(preset):
     tflat = tweights.flatten(params)
     assert tflat["backbone/blocks/0/qkv/kernel"] is \
         params["backbone"]["blocks"][0]["qkv"]["kernel"]
+
+
+def test_corr_tiny_headless_tree_round_trips(tmp_path):
+    """corr-tiny has no head: JAX's seeded tree crosses into the port
+    through ``save_npz`` / ``load_npz``, and the port's seeded tree crosses
+    back through ``flatten`` / ``tree_to_numpy`` into JAX's ``load_npz``."""
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack as tvittrack
+
+    cfg_j, cfg_t = JAX_PRESETS["corr-tiny"], tconfig.PRESETS["corr-tiny"]
+    jparams = jvittrack.init_params(jax.random.PRNGKey(0), cfg_j)
+    assert "head" not in jparams
+    path = str(tmp_path / "jax.npz")
+    jweights.save_npz(path, jparams)
+    tparams = tweights.load_npz(path, cfg_t, device="cpu")
+    assert sorted(tparams) == ["backbone"]
+    jflat = jweights._flatten(jparams)
+    tflat = tweights.flatten(tweights.tree_to_numpy(tparams))
+    assert sorted(tflat) == sorted(jflat)
+    for k, a in jflat.items():
+        np.testing.assert_array_equal(tflat[k], a, err_msg=k)
+
+    gen = torch.Generator().manual_seed(1)
+    ours = tweights.flatten(tweights.tree_to_numpy(
+        tvittrack.init_params(gen, cfg_t, device="cpu")))
+    back_path = str(tmp_path / "port.npz")
+    np.savez(back_path, **ours)
+    back = jweights._flatten(jweights.load_npz(back_path, jparams))
+    assert sorted(back) == sorted(ours)
+    for k, a in ours.items():
+        np.testing.assert_array_equal(back[k], a, err_msg=k)
