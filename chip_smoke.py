@@ -107,7 +107,27 @@ Phases, in order; any failure raises and exits non-zero:
       TRACKING, its multi-object twin re-creates the backend and ends
       ``TRACKING 3 OF 3``; a 10-frame ``--record`` y4m with
       ``--display-scale`` reads back at the display size (no cv2);
-9. prints the card line, then one ``{"kernels": [...]}`` line, then the
+9. train and score, through the two scripts' ``run(argv)`` (the body of
+   their ``main``, which returns its report beside the exit code):
+   a. ``scripts/train_synthetic``: the flagship at full width and depth in
+      float32 (TF32 off) from the shipped weights, batch 16, a 128-sample
+      dataset (seed 0, v1), 20 steps; every loss finite, attention kernel
+      4 launched 12 times a step and nothing else, the saved npz equal to
+      the final parameters through ``load_npz``; the first 5 steps again on
+      the CPU from the same dataset and CPU generator, the losses within
+      phase 7's relative bound; the host's data seconds and samples/s;
+   b. ``scripts/eval_tracking``: the shipped flagship (bf16) on the
+      independent world, ``basic`` and ``occlusion``, 2 sequences of 150
+      frames at 640x512; kernel 1 launched once an update and nothing else;
+      mean / min IoU, mean confidence, updates/s; the first 20 frames of
+      each sequence on the CPU: the first 3 free-running and all 20 from
+      the CPU's state within 2 px / 0.02; ``--objects 2`` (30 frames):
+      attention kernel 3 launched 12 times a batched update; a 20-frame
+      eval of the checkpoint just trained;
+   c. the GFLOP of one flagship 1080p NV12 update (``utils/flops.py``) and
+      its MFU at phase 4's median step time against the H100's dense bf16
+      peak;
+10. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -116,6 +136,7 @@ convolutions run without TF32 on the card (both switches set below).
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -132,9 +153,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
-H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
-H100_HBM_BYTES_S = 3.35e12    # HBM3 bandwidth, H100 SXM
+from gstreamer_vit_tracker_tpu_torch.utils.flops import (H100_BF16_FLOPS,
+                                                         H100_F32_FLOPS,
+                                                         H100_HBM_BYTES_S)
+
 MAIN_STEPS = 30
 CPU_CHECK_STEPS = 3
 TIMING_ITERS = 100
@@ -1987,6 +2009,221 @@ def app_phase(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: train and score
+# ---------------------------------------------------------------------------
+
+TRAIN9_STEPS, TRAIN9_BATCH, TRAIN9_DATASET, TRAIN9_CPU_STEPS = 20, 16, 128, 5
+EVAL_SEQS, EVAL_FRAMES, EVAL_CPU_FRAMES = 2, 150, 20
+EVAL_SCENARIOS = ("basic", "occlusion")
+EVAL_W, EVAL_H = 640, 512
+OBJECTS_FRAMES, TRAINED_FRAMES = 30, 20
+
+
+def eval_against_cpu(dev, scenario: str, cfg, params, cparams) -> dict:
+    """The eval's first EVAL_CPU_FRAMES frames of each sequence on the card
+    and on the CPU: the first CPU_CHECK_STEPS run free, and every step again
+    on the card from the CPU's state before it, each held to CPU_BOX_TOL /
+    CPU_SCORE_TOL (as the unbatched phase holds the NV12 step)."""
+    from gstreamer_vit_tracker_tpu_torch.scripts import eval_tracking
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    cpu = torch.device("cpu")
+    args = argparse.Namespace(world="independent", width=EVAL_W,
+                              height=EVAL_H, frames=EVAL_FRAMES, speed=3.0)
+    free_box = free_score = held_box = held_score = 0.0
+    for seq in range(EVAL_SEQS):
+        src = eval_tracking.make_source(scenario, seq, args)
+        frame0, box0 = src.frame_rgb(0), src.bbox_at(0)
+        st = core.init(params, frame0, box0, cfg, device=dev)
+        cst = core.init(cparams, frame0, box0, cfg, device=cpu)
+        for i in range(1, EVAL_CPU_FRAMES + 1):
+            frame = src.frame_rgb(i)
+            held = type(cst)(*(t.to(dev) for t in cst))
+            _, hbox, hconf = core.update(params, held, frame, cfg, device=dev)
+            st, box, conf = core.update(params, st, frame, cfg, device=dev)
+            cst, cbox, cconf = core.update(cparams, cst, frame, cfg,
+                                           device=cpu)
+            cbox, cconf = cbox.numpy(), float(cconf)
+            held_box = max(held_box,
+                           float(np.abs(hbox.cpu().numpy() - cbox).max()))
+            held_score = max(held_score, abs(float(hconf) - cconf))
+            if i <= CPU_CHECK_STEPS:
+                free_box = max(free_box,
+                               float(np.abs(box.cpu().numpy() - cbox).max()))
+                free_score = max(free_score, abs(float(conf) - cconf))
+    print(f"eval {scenario} card vs CPU, {EVAL_SEQS} sequences: first "
+          f"{CPU_CHECK_STEPS} frames free-running max|d bbox| {free_box:.4f} "
+          f"px, max|d score| {free_score:.5f}; all {EVAL_CPU_FRAMES} frames "
+          f"from the CPU's state max|d bbox| {held_box:.4f} px, max|d score| "
+          f"{held_score:.5f} (tolerance {CPU_BOX_TOL} px, {CPU_SCORE_TOL})",
+          flush=True)
+    if free_box > CPU_BOX_TOL or free_score > CPU_SCORE_TOL:
+        raise AssertionError(f"eval {scenario}: the card's free-running "
+                             "frames disagree with the CPU")
+    if held_box > CPU_BOX_TOL or held_score > CPU_SCORE_TOL:
+        raise AssertionError(f"eval {scenario}: a card step from the CPU's "
+                             "state disagrees with the CPU")
+    return {"free_max_box": free_box, "free_max_score": free_score,
+            "held_max_box": held_box, "held_max_score": held_score}
+
+
+def run_eval(what: str, argv, tmp: str) -> tuple:
+    """The port's eval script on ``argv`` (on the card) in this process,
+    with ``--json``: (EvalReport, kernel counts of the run)."""
+    from gstreamer_vit_tracker_tpu_torch.scripts import eval_tracking
+
+    zero_counts()
+    report = eval_tracking.run(list(argv) + [
+        "--json", os.path.join(tmp, f"{what}.json")])
+    counts = read_counts()
+    if report.rc != 0:
+        raise AssertionError(f"eval {what} exited {report.rc}")
+    print(f"eval {what}: {report.updates} updates in {report.loop_seconds:.2f} "
+          f"s of tracking loop, {report.updates_per_s:.2f} updates/s (host "
+          f"clock, making the frames on the host included); kernel launches "
+          f"{counts}", flush=True)
+    return report, counts
+
+
+def train_score_phase(dev, card: str, step_ms_median: float) -> dict:
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+    from gstreamer_vit_tracker_tpu_torch.scripts import train_synthetic
+    from gstreamer_vit_tracker_tpu_torch.train import step as train
+    from gstreamer_vit_tracker_tpu_torch.utils import flops
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = PRESETS["vittrack-t"]
+    ckpt = weights.checkpoint_path("vittrack-t")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- train: the flagship in float32 from the shipped weights ------
+        out = os.path.join(tmp, "trained.npz")
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = train_synthetic.run([
+            "--preset", "vittrack-t", "--init-from", ckpt, "--lr", "1e-4",
+            "--batch", str(TRAIN9_BATCH), "--dataset-size", str(TRAIN9_DATASET),
+            "--seed", "0", "--data-diversity", "v1", "--steps",
+            str(TRAIN9_STEPS), "--log-every", "10", "--out", out])
+        train_s = time.perf_counter() - t0
+        counts = read_counts()
+        if rep.rc != 0:
+            raise AssertionError(f"train_synthetic exited {rep.rc}")
+        print(f"train: {TRAIN9_STEPS} steps of vittrack-t (D {cfg.embed_dim}, "
+              f"depth {cfg.depth}, float32, TF32 off), batch {TRAIN9_BATCH}, "
+              f"{TRAIN9_DATASET} samples; data generation "
+              f"{rep.data_seconds:.2f} s (host), {rep.samples_per_s:.2f} "
+              f"samples/s over the steps, {train_s:.2f} s in all; losses "
+              f"{[round(v, 5) for v in rep.losses]}; kernel launches {counts} "
+              f"| {card}", flush=True)
+        if not np.isfinite(rep.losses).all() or len(rep.losses) != TRAIN9_STEPS:
+            raise AssertionError("training: a loss is not finite")
+        if counts != dict(counts, attention_flash=cfg.depth * TRAIN9_STEPS,
+                          attention_single=0, vit_encoder=0, vit_block=0,
+                          fused_prep_embed=0):
+            raise AssertionError(f"training: launches {counts}, expected "
+                                 f"attention_flash {cfg.depth} a step")
+        saved = weights.flatten(weights.load_npz(out, rep.cfg, device=dev))
+        final = weights.flatten(rep.state.params)
+        if set(saved) != set(final) or not all(
+                torch.equal(saved[k], final[k]) for k in final):
+            raise AssertionError("the saved checkpoint is not the final state")
+        # The same first steps on the CPU, from the same CPU generator.
+        state = train.create_train_state(
+            weights.load_npz(ckpt, rep.cfg, device=cpu), opt=rep.opt)
+        t0 = time.perf_counter()
+        _, _, cls, _ = train.train_scan(
+            state, *rep.dataset, torch.Generator().manual_seed(1), rep.cfg,
+            rep.opt, n_steps=TRAIN9_CPU_STEPS, batch=TRAIN9_BATCH, device=cpu)
+        cpu_s = time.perf_counter() - t0
+        cls = cls.tolist()
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(rep.losses[:TRAIN9_CPU_STEPS], cls))
+        print(f"train card vs CPU, first {TRAIN9_CPU_STEPS} steps: CPU losses "
+              f"{[round(v, 5) for v in cls]}, max relative difference "
+              f"{rel:.2e} (tolerance {TRAIN_LOSS_RTOL}); {cpu_s:.2f} s on the "
+              f"CPU", flush=True)
+        if rel > TRAIN_LOSS_RTOL:
+            raise AssertionError("training: the card's losses disagree with "
+                                 "the CPU's")
+        res["train"] = {"losses": rep.losses, "cpu_losses": cls,
+                        "loss_rel_vs_cpu": rel, "launches": counts,
+                        "data_seconds": rep.data_seconds,
+                        "samples_per_s": rep.samples_per_s,
+                        "seconds": train_s}
+
+        # -- score: the shipped flagship (bf16) on the independent world ---
+        params = weights.load_npz(ckpt, cfg, device=dev)
+        cparams = weights.load_npz(ckpt, cfg, device=cpu)
+        res["eval"] = {}
+        for scenario in EVAL_SCENARIOS:
+            erep, counts = run_eval(scenario, [
+                "--preset", "vittrack-t", "--world", "independent",
+                "--scenario", scenario, "--seqs", str(EVAL_SEQS), "--frames",
+                str(EVAL_FRAMES), "--width", str(EVAL_W), "--height",
+                str(EVAL_H)], tmp)
+            s = erep.summary["scenarios"][scenario]
+            print(f"eval {scenario}: mean IoU {s['mean_iou']:.4f}, min IoU "
+                  f"{s['min_iou']:.4f}, mean confidence {s['mean_conf']:.4f}, "
+                  f"lost {s['lost_frames']}"
+                  + "".join(f", {k} {s[k]:.4f}" for k in (
+                      "hidden_conf_max", "reacquire_iou") if k in s)
+                  + f" | {card}", flush=True)
+            if counts != dict(counts, vit_encoder=erep.updates,
+                              attention_single=0, attention_flash=0,
+                              vit_block=0, fused_prep_embed=0) \
+                    or vit_block.VARIANT_LAUNCHES["mma"] != erep.updates:
+                raise AssertionError(f"eval {scenario}: launches {counts}, "
+                                     f"expected kernel 1 once an update")
+            res["eval"][scenario] = dict(
+                s, updates=erep.updates, updates_per_s=erep.updates_per_s,
+                launches=counts,
+                cpu=eval_against_cpu(dev, scenario, cfg, params, cparams))
+
+        erep, counts = run_eval("objects-2", [
+            "--preset", "vittrack-t", "--objects", "2", "--seqs", "1",
+            "--frames", str(OBJECTS_FRAMES)], tmp)
+        if counts != dict(counts, attention_single=cfg.depth * OBJECTS_FRAMES,
+                          vit_encoder=0, attention_flash=0, vit_block=0,
+                          fused_prep_embed=0):
+            raise AssertionError(f"eval --objects 2: launches {counts}, "
+                                 f"expected attention_single {cfg.depth} a "
+                                 f"batched update")
+        res["objects"] = dict(erep.summary, updates=erep.updates,
+                              updates_per_s=erep.updates_per_s,
+                              launches=counts)
+
+        erep, counts = run_eval("trained", [
+            "--preset", "vittrack-t", "--checkpoint", out, "--world",
+            "independent", "--seqs", "1", "--frames", str(TRAINED_FRAMES)],
+            tmp)
+        s = erep.summary["scenarios"]["basic"]
+        print(f"eval of the checkpoint just trained ({TRAIN9_STEPS} steps; "
+              f"not a quality claim): mean IoU {s['mean_iou']:.4f}, mean "
+              f"confidence {s['mean_conf']:.4f}", flush=True)
+        if counts["vit_encoder"] != TRAINED_FRAMES:
+            raise AssertionError(f"eval of the trained checkpoint: {counts}")
+        res["trained_eval"] = dict(s, launches=counts)
+
+    # -- flops: one flagship update at 1080p NV12 against the card's peak --
+    gflop = flops.update_gflops(cfg, FRAME_H, FRAME_W, "nv12")
+    mfu = flops.mfu_fields(1e3 / step_ms_median, gflop)
+    print(f"flops: one flagship update at {FRAME_W}x{FRAME_H} NV12 (grouped "
+          f"head) is {gflop:.4f} GFLOP; at phase 4's median step "
+          f"{step_ms_median:.4f} ms (CUDA events) that is "
+          f"{mfu['achieved_tflops']} TFLOP/s, MFU {mfu['mfu_vs_h100_bf16']} "
+          f"of {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s (H100 SXM dense bf16) "
+          f"| {card}", flush=True)
+    res["flops"] = dict(mfu, step_ms=step_ms_median)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"train and score: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2168,7 +2405,10 @@ def main() -> int:
     # -- 8. the tracker app -------------------------------------------------
     app = app_phase(dev, card)
 
-    # -- 9. result lines ---------------------------------------------------
+    # -- 9. train and score -------------------------------------------------
+    scored = train_score_phase(dev, card, statistics.median(step_ms))
+
+    # -- 10. result lines --------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -2182,6 +2422,9 @@ def main() -> int:
         "launches_by_variant": by_variant,
         "app_launches": app["flagship"]["launches"]["vit_encoder"],
         "app_updates": app["flagship"]["updates"],
+        "eval_launches": {k: v["launches"]["vit_encoder"]
+                          for k, v in scored["eval"].items()},
+        "eval_updates": {k: v["updates"] for k, v in scored["eval"].items()},
         **{k: enc[k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": enc["max_abs_err_f32_small"],
         "final_ln": enc["final_ln"],
@@ -2198,6 +2441,9 @@ def main() -> int:
         "launches_per_tick": serve["launches"] / serve["ticks"],
         "app_launches": app["modes"]["small_objects_launches"][
             "attention_single"],
+        "eval_objects_launches": scored["objects"]["launches"][
+            "attention_single"],
+        "eval_objects_updates": scored["objects"]["updates"],
         "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
@@ -2223,6 +2469,8 @@ def main() -> int:
         "shape": [3, 1088, 64],
         "launches": flash_launches,
         "launches_per_tick": flash_launches / LONG_TICKS,
+        "train_launches": scored["train"]["launches"]["attention_flash"],
+        "train_steps": TRAIN9_STEPS,
         "variant": att_flash["variant"],
         "max_abs_err": att_flash["max_abs_err"],
         "ms": att_flash["ms"],
@@ -2277,6 +2525,7 @@ def main() -> int:
     print(f"training summary: {json.dumps(training)}")
     print(f"serving summary: {json.dumps(serve)}")
     print(f"app summary: {json.dumps(app)}")
+    print(f"train and score summary: {json.dumps(scored)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,9 +7,12 @@ kernels become CUDA kernels written by hand (``csrc/``), each with a plain
 PyTorch twin that the CPU runs and the tests compare against.
 
 Ported: the tracker core and its batched and scanned forms, the serving
-tier, float32 training, and the tracker app (``app/main.py``, sessions,
-media, HUD) with every preset of the JAX app (``corr-tiny``, ``small``,
-``vittrack-t``).  What is left is listed in ROADMAP.md.
+tier, float32 training, the tracker app (``app/main.py``, sessions, media,
+HUD) with every preset of the JAX app (``corr-tiny``, ``small``,
+``vittrack-t``), and the train-and-score loop: synthetic data, checkpoints,
+the independent eval world, ONNX import and export, the cv2 replica, FLOP
+accounting and the ``scripts.train_synthetic`` / ``scripts.eval_tracking``
+entry points.  What is left is listed in ROADMAP.md.
 """
 
 from .config import PRESETS, AppConfig, ModelConfig

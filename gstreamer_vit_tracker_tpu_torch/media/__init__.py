@@ -2,7 +2,8 @@
 
 The port's own copy of ``gstreamer_vit_tracker_tpu/media`` (numpy, ctypes
 and lazily imported cv2 / PIL; no JAX), held equal to the original by
-``tests/test_torch_media.py``.  ``indie.py`` is not ported yet.
+``tests/test_torch_media.py`` (``indie.py``, the independent eval world, by
+``tests/test_torch_indie.py``).
 """
 
 from . import gst, mjpeg, queue, sink, source  # noqa: F401

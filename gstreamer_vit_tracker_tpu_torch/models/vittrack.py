@@ -92,3 +92,8 @@ def with_grouped_head(params: Params) -> Params:
     out = dict(params)
     out["head_grouped"] = heads_mod.group_head_params(params["head"])
     return out
+
+
+def count_params(params: Params) -> int:
+    """Number of parameter values in the tree."""
+    return sum(t.numel() for t in weights.flatten(params).values())

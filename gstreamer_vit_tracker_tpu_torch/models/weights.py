@@ -9,10 +9,10 @@ checked against the config, as the JAX ``load_npz`` checks against its
 ``like`` tree.  Layouts stay as stored: linear kernels (in, out), conv
 kernels HWIO.
 
-The other direction, for comparing a training run leaf by leaf with the JAX
-package's: :func:`tree_to_numpy` turns the port's parameters (or Adam
-moments, which share their tree) into a nested tree of numpy arrays, and
-:func:`flatten` into the flat ``/``-joined keys of the checkpoints.
+The other direction: :func:`save_npz` writes the port's parameters as such
+a checkpoint; :func:`tree_to_numpy` turns them (or Adam moments, which
+share their tree) into a nested tree of numpy arrays, and :func:`flatten`
+into the flat ``/``-joined keys of the checkpoints.
 
 A ``TrackState`` crosses the same way: :func:`state_from_numpy` and
 :func:`state_to_numpy` carry its six leaves (with any leading batch
@@ -121,11 +121,25 @@ def params_from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
 
 def load_npz(path: str, cfg: ModelConfig, device="cuda",
              dtype=torch.float32) -> Params:
-    """Load a checkpoint written by the JAX package's ``save_npz``."""
+    """Load a checkpoint written by :func:`save_npz` or by the JAX
+    package's ``save_npz``."""
     resolve_device(device)
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return params_from_flat(flat, cfg, device=device, dtype=dtype)
+
+
+def save_npz(path: str, params: Params, dtype=None) -> None:
+    """Save the parameter tree as a flat npz of ``/``-joined keys, the
+    layout the JAX package's ``load_npz`` and :func:`load_npz` read.
+    ``dtype`` (e.g. ``np.float16``) downcasts the floating arrays for a
+    compact file (the loaders cast back to the model's dtype)."""
+    flat = flatten(tree_to_numpy(params))
+    if dtype is not None:
+        flat = {k: (v.astype(dtype) if np.issubdtype(v.dtype, np.floating)
+                    else v) for k, v in flat.items()}
+    np.savez(path, **flat)
+
 
 def tree_to_numpy(tree: Any) -> Any:
     """Nested dicts and lists of tensors -> the same tree of numpy arrays

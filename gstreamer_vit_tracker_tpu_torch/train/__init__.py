@@ -1,1 +1,1 @@
-"""Training: losses and the optimisation step (float32)."""
+"""Training: losses, the optimisation step (float32) and synthetic data."""

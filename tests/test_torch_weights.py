@@ -216,6 +216,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "gstreamer_vit_tracker_tpu_torch/train/losses.py",
                  "gstreamer_vit_tracker_tpu_torch/ops/fused_prep_embed.py",
                  "gstreamer_vit_tracker_tpu_torch/ops/vit_block.py",
+                 "gstreamer_vit_tracker_tpu_torch/train/data.py",
+                 "gstreamer_vit_tracker_tpu_torch/media/indie.py",
+                 "gstreamer_vit_tracker_tpu_torch/models/import_onnx.py",
+                 "gstreamer_vit_tracker_tpu_torch/models/export_onnx.py",
+                 "gstreamer_vit_tracker_tpu_torch/compat/cv2vit.py",
+                 "gstreamer_vit_tracker_tpu_torch/utils/flops.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/train_synthetic.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/eval_tracking.py",
                  "chip_smoke.py"):
         assert must in names, must
     bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
