@@ -127,7 +127,33 @@ Phases, in order; any failure raises and exits non-zero:
    c. the GFLOP of one flagship 1080p NV12 update (``utils/flops.py``) and
       its MFU at phase 4's median step time against the H100's dense bf16
       peak;
-10. prints the card line, then one ``{"kernels": [...]}`` line, then the
+10. BASELINE config 5 and the host runtime, scripts and checkpoints:
+   a. ``tracker/scan.py::update_scan_hud_pool``: the shipped flagship on a
+      pool of 4 synthetic 3840x2160 NV12 frames, 200 updates, the luma HUD
+      composited on the device after each; uhd fps; kernel 1 (``mma``)
+      launched exactly once a frame and nothing else; the whole call under
+      ``torch.cuda.set_sync_debug_mode("error")`` (nothing read back); the
+      pool byte-equal before and after; the display byte-equal to the CPU's
+      composite of the last frame with the card's final box and
+      confidence, and differing from that frame in a small share of its
+      pixels; 10 pool frames stepped from the CPU's state within 2 px /
+      0.02;
+   b. ``runtime/``: built from the checkout's own ``framering.cpp`` by
+      g++ (its build time); ``nv12_to_rgb`` / ``yuy2_to_rgb`` bit-equal to
+      the port's op at 1080p, 4K and an odd size, their ms with 8 threads;
+      the ring's drop-oldest semantics over 10,000 pushes; ``synth_nv12``
+      frames/s at 1080p;
+   c. the scripts through ``main(argv)``, each exiting 0 with its JSON
+      line: ``profile_scan --reps 5``, ``profile_streams --reps 5`` (each
+      with the device's ms from ``torch.profiler``), ``bench_serve`` (4
+      streams x 30 frames, corr-tiny), ``soak`` (1500 corr-tiny frames,
+      faults every 397 / 601 / 251 frames, every check holding),
+      ``export_vittrack_onnx`` (the graph holds every shipped tensor) and
+      ``import_vittrack_onnx`` (a PyTorch-layout file of the shipped
+      flagship gives the same tensors back);
+   d. ``save_tree`` / ``load_tree`` of the card's final TrackState and a
+      flagship AdamW state, bit-equal after loading onto the card;
+11. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -2224,6 +2250,361 @@ def train_score_phase(dev, card: str, step_ms_median: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: BASELINE config 5 (4K NV12, the HUD composited on the device
+# every frame), the native host runtime, the scripts, tree checkpoints
+# ---------------------------------------------------------------------------
+
+UHD_H, UHD_W = 2160, 3840
+UHD_POOL, UHD_REPS = 4, 200                   # bench.py's _config_uhd
+UHD_BBOX0 = (900.0, 500.0, 120.0, 90.0)       # bench.py's bbox0
+UHD_CPU_FRAMES = 10
+HUD_TEXT = (("TRACKING", 12), ("FPS: 60.0", 16), ("trk: 0.3ms", 16))
+RUNTIME_SIZES = ((1920, 1080), (3840, 2160), (1279, 719))
+RUNTIME_ITERS = 10
+RING_PUSHES = 10_000
+SYNTH_FRAMES = 50
+
+
+def uhd_phase(dev, card: str, params, cfg, cparams) -> dict:
+    """The flagship's HUD pool at 4K: kernel 1 once a frame, nothing read
+    back inside the call (sync debug mode "error"), the pool untouched, the
+    display byte-equal to the CPU's composite of the same frame, box and
+    confidence, and ten pool frames stepped from the CPU's state."""
+    from gstreamer_vit_tracker_tpu_torch.ops import font
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+    from gstreamer_vit_tracker_tpu_torch.tracker import core, scan
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    frames, _ = nv12_clip(UHD_POOL, seed=4, h=UHD_H, w=UHD_W)
+    make_s = time.perf_counter() - t0
+    ys = torch.as_tensor(np.stack([f[0] for f in frames]), device=dev)
+    uvs = torch.as_tensor(np.stack([f[1] for f in frames]), device=dev)
+    kept = ys.clone(), uvs.clone()
+    hud_text = tuple(font.encode_text(t, n) for t, n in HUD_TEXT)
+
+    def start():
+        return core.init(params, (ys[0], uvs[0]), UHD_BBOX0, cfg, device=dev,
+                         frame_format="nv12")
+
+    scan.update_scan_hud_pool(params, start(), (ys, uvs), hud_text, 2, cfg,
+                              dev)                     # warm-up, uncounted
+    st0 = start()
+    zero_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, disp, scores = scan.update_scan_hud_pool(
+            params, st0, (ys, uvs), hud_text, UHD_REPS, cfg, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    by_variant = dict(vit_block.VARIANT_LAUNCHES)
+    uhd_fps = UHD_REPS / wall
+    scores = scores.cpu().numpy()
+    last = ys[(UHD_REPS - 1) % UHD_POOL]
+    diff = float((disp != last).float().mean())
+    print(f"uhd: {UHD_REPS} flagship updates on a pool of {UHD_POOL} "
+          f"{UHD_W}x{UHD_H} NV12 frames, the luma HUD composited on the "
+          f"device every frame: {uhd_fps:.2f} fps ({wall * 1e3 / UHD_REPS:.3f} "
+          f"ms a frame, host wall to the last sync, nothing read back inside "
+          f"the call under sync debug mode 'error'); kernel launches {counts} "
+          f"({by_variant}); display pixels differing from the last pool "
+          f"frame {diff:.5f}; score first/last {scores[0]:.4f}/"
+          f"{scores[-1]:.4f}; frames made on the host in {make_s:.2f} s "
+          f"| {card}", flush=True)
+    if counts != dict(counts, vit_encoder=UHD_REPS, vit_block=0,
+                      attention_single=0, attention_flash=0,
+                      fused_prep_embed=0) \
+            or by_variant != {"mma": UHD_REPS, "simt": 0}:
+        raise AssertionError(f"uhd: launches {counts} {by_variant}, expected "
+                             f"kernel 1 (mma) once a frame")
+    if not np.isfinite(scores).all() or not 0.0 < diff < 0.05:
+        raise AssertionError(f"uhd: scores finite {np.isfinite(scores).all()}"
+                             f", display differs in {diff} of its pixels")
+    if not (torch.equal(ys, kept[0]) and torch.equal(uvs, kept[1])):
+        raise AssertionError("uhd: the HUD pool wrote a pool frame")
+    # The card's display against the CPU's composite of the same frame with
+    # the card's own final box and confidence.
+    want = scan.composite_hud(torch.empty_like(last, device=cpu), last.cpu(),
+                              st.bbox.cpu(), torch.tensor(scores[-1]),
+                              scan.hud_glyphs(hud_text, cpu))
+    if not torch.equal(disp.cpu(), want):
+        raise AssertionError("uhd: the card's display differs from the CPU "
+                             "composite")
+    # Pool frames stepped from the CPU's state, one at a time.
+    cstate = core.init(cparams, frames[0], UHD_BBOX0, cfg, device=cpu,
+                       frame_format="nv12")
+    worst_box = worst_score = 0.0
+    for i in range(UHD_CPU_FRAMES):
+        k = i % UHD_POOL
+        held = type(cstate)(*(t.to(dev) for t in cstate))
+        gst, _, gsc = scan.update_scan_hud_pool(
+            params, held, (ys[k:k + 1], uvs[k:k + 1]), hud_text, 1, cfg, dev)
+        cpool = tuple(torch.from_numpy(p[None]) for p in frames[k])
+        cstate, _, csc = scan.update_scan_hud_pool(
+            cparams, cstate, cpool, hud_text, 1, cfg, cpu)
+        worst_box = max(worst_box, float((gst.bbox.cpu()
+                                          - cstate.bbox).abs().max()))
+        worst_score = max(worst_score, abs(float(gsc[0]) - float(csc[0])))
+    print(f"uhd: {UHD_CPU_FRAMES} pool frames from the CPU's state, card vs "
+          f"CPU max|d bbox| {worst_box:.4f} px, max|d score| "
+          f"{worst_score:.5f} (tolerance {CPU_BOX_TOL} px, {CPU_SCORE_TOL})",
+          flush=True)
+    if worst_box > CPU_BOX_TOL or worst_score > CPU_SCORE_TOL:
+        raise AssertionError("uhd: card steps from the CPU's state disagree")
+    return {"fps": uhd_fps, "ms_a_frame": wall * 1e3 / UHD_REPS,
+            "reps": UHD_REPS, "launches": counts,
+            "launches_by_variant": by_variant, "display_diff_share": diff,
+            "cpu_state_max_box_px": worst_box,
+            "cpu_state_max_score": worst_score, "state": st}
+
+
+def runtime_phase(card: str) -> dict:
+    """The native runtime built from the checkout's source: the converters
+    bit-equal to the port's op, their ms with 8 threads, the ring's
+    drop-oldest semantics, the frame generator's rate."""
+    from gstreamer_vit_tracker_tpu_torch import runtime
+    from gstreamer_vit_tracker_tpu_torch.ops import colorspace
+
+    t0 = time.perf_counter()
+    ok = runtime.available()
+    build_s = time.perf_counter() - t0
+    path = runtime.library_path()
+    print(f"runtime: available {ok}, built from {runtime.SOURCE} in "
+          f"{build_s:.2f} s into {path}", flush=True)
+    if not ok or not path.startswith(runtime.BUILD_DIR):
+        raise AssertionError("runtime: the native library did not build")
+    rng = np.random.default_rng(10)
+    res = {"build_s": build_s, "nv12_ms": {}, "yuy2_ms": {}, "op_ms": {}}
+
+    def host_ms(fn, n):
+        fn()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    for w, h in RUNTIME_SIZES:
+        nv12 = rng.integers(0, 256, w * h * 3 // 2, dtype=np.uint8)
+        got = runtime.nv12_to_rgb(nv12, w, h, num_threads=8)
+        want = colorspace.nv12_to_rgb(torch.from_numpy(nv12), width=w,
+                                      height=h).numpy()
+        yw = w - w % 2
+        yuy2 = rng.integers(0, 256, yw * h * 2, dtype=np.uint8)
+        ygot = runtime.yuy2_to_rgb(yuy2, yw, h, num_threads=8)
+        ywant = colorspace.yuy2_to_rgb(torch.from_numpy(yuy2), width=yw,
+                                       height=h).numpy()
+        if not (np.array_equal(got, want) and np.array_equal(ygot, ywant)):
+            raise AssertionError(f"runtime: a converter differs from the "
+                                 f"op at {w}x{h}")
+        key = f"{w}x{h}"
+        res["nv12_ms"][key] = host_ms(
+            lambda: runtime.nv12_to_rgb(nv12, w, h, 8), RUNTIME_ITERS)
+        res["yuy2_ms"][key] = host_ms(
+            lambda: runtime.yuy2_to_rgb(yuy2, yw, h, 8), RUNTIME_ITERS)
+        res["op_ms"][key] = host_ms(lambda: colorspace.nv12_to_rgb(
+            torch.from_numpy(nv12), width=w, height=h), 2)
+        print(f"runtime {key}: nv12_to_rgb and yuy2_to_rgb ({yw}x{h}) "
+              f"bit-equal to the port's op; native with 8 threads "
+              f"{res['nv12_ms'][key]:.3f} / {res['yuy2_ms'][key]:.3f} ms, "
+              f"the op on the host's CPU {res['op_ms'][key]:.3f} ms (host "
+              f"clock) | {card}", flush=True)
+    ring = runtime.NativeFrameRing(capacity=3, slot_bytes=16)
+    for i in range(RING_PUSHES):
+        ring.push(np.full(16, i % 251, np.uint8))
+    stats, length = ring.stats, len(ring)
+    popped = [ring.pop() for _ in range(4)]
+    ring.close()
+    want_seq = [RING_PUSHES - 2, RING_PUSHES - 1, RING_PUSHES]
+    if stats != {"pushed": RING_PUSHES, "dropped": RING_PUSHES - 3,
+                 "popped": 0} or length != 3 or popped[3] is not None \
+            or [p[0] for p in popped[:3]] != want_seq \
+            or [int(p[1][0]) for p in popped[:3]] != [
+                (s - 1) % 251 for s in want_seq]:
+        raise AssertionError(f"runtime: ring {stats}, len {length}, popped "
+                             f"{[p and p[0] for p in popped]}")
+    t0 = time.perf_counter()
+    for i in range(SYNTH_FRAMES):
+        runtime.synth_nv12(1920, 1080, 100 + i, 200, 96)
+    res["synth_fps_1080p"] = SYNTH_FRAMES / (time.perf_counter() - t0)
+    res["ring"] = stats
+    print(f"runtime: ring of 3 kept the newest 3 of {RING_PUSHES} pushes "
+          f"({stats}); synth_nv12 {res['synth_fps_1080p']:.1f} frames/s at "
+          f"1920x1080 (host clock) | {card}", flush=True)
+    return res
+
+
+def script_json(mod, argv) -> tuple:
+    """``mod.main(argv)`` in this process: (rc, its last JSON line, its
+    stdout, the kernel launches it made)."""
+    out = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    counts = read_counts()
+    text = out.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if rc != 0 or not lines:
+        raise AssertionError(f"{mod.__name__} {argv} exited {rc}: "
+                             f"{text[-3000:]}")
+    return rc, json.loads(lines[-1]), text, counts
+
+
+def torch_layout(params, cfg) -> dict:
+    """The parameters as a PyTorch-export ONNX file names and lays them out
+    (the inverse of the importer's name map)."""
+    from gstreamer_vit_tracker_tpu_torch.models import import_onnx as io_
+
+    back = {io_._t: lambda a: a.T,
+            io_._conv: lambda a: a.transpose(3, 2, 0, 1),
+            io_._patch: lambda a: a.reshape(cfg.patch_size, cfg.patch_size,
+                                            3, -1).transpose(3, 2, 0, 1),
+            io_._pos: lambda a: a[None], io_._ident: lambda a: a}
+    out, seen = {}, set()
+    for name, (path, conv) in io_.default_name_map(params).items():
+        if path not in seen:
+            seen.add(path)
+            leaf = io_._get_path(params, path).detach().cpu().numpy()
+            out[name] = np.ascontiguousarray(back[conv](leaf))
+    return out
+
+
+def scripts_phase(dev, card: str, tmp: str) -> dict:
+    """The new scripts through ``main(argv)`` on the card, each exiting 0
+    with its JSON line; the ONNX pair round-trips the shipped flagship."""
+    from gstreamer_vit_tracker_tpu_torch.config import ModelConfig
+    from gstreamer_vit_tracker_tpu_torch.models import import_onnx, weights
+    from gstreamer_vit_tracker_tpu_torch.scripts import (
+        bench_serve, export_vittrack_onnx, import_vittrack_onnx, profile_scan,
+        profile_streams, soak)
+
+    res = {}
+    _, res["profile_scan"], text, counts = script_json(
+        profile_scan, ["--reps", "5"])
+    res["profile_scan"]["launches"] = counts
+    print(text.rstrip(), flush=True)
+    print(f"profile_scan kernel launches {counts} | {card}", flush=True)
+    _, res["profile_streams"], text, counts = script_json(
+        profile_streams, ["--reps", "5"])
+    res["profile_streams"]["launches"] = counts
+    print(text.rstrip(), flush=True)
+    print(f"profile_streams kernel launches {counts} | {card}", flush=True)
+    for key in ("profile_scan", "profile_streams"):
+        if not res[key]["device_ms"] or not all(
+                v > 0 for v in res[key]["device_ms"].values()):
+            raise AssertionError(f"{key}: no device time")
+    _, res["bench_serve"], _, counts = script_json(
+        bench_serve, ["--streams", "4", "--frames", "30"])
+    print(f"bench_serve: {json.dumps(res['bench_serve'])} | {card}",
+          flush=True)
+    t0 = time.perf_counter()
+    _, res["soak"], _, _ = script_json(soak, [
+        "--frames", "1500", "--model", "corr-tiny", "--width", "320",
+        "--height", "256", "--source-fault-every", "397",
+        "--device-fault-every", "601", "--corrupt-every", "251",
+        "--sample-s", "0.25"])
+    print(f"soak ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(res['soak'])} | {card}", flush=True)
+    if not res["soak"]["ok"]:
+        raise AssertionError("soak: a check failed")
+
+    # ONNX: the exported graph holds every shipped tensor; a PyTorch-layout
+    # file of the same tensors imports back to them, bit for bit.
+    ckpt = weights.checkpoint_path("vittrack-t")
+    graph = os.path.join(tmp, "vittrack.onnx")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = export_vittrack_onnx.main(["--checkpoint", ckpt, "--out", graph])
+    if rc != 0:
+        raise AssertionError(f"export_vittrack_onnx exited {rc}")
+    exported = {}
+    for arr in import_onnx.read_onnx_tensors(graph).values():
+        exported.setdefault(arr.size, []).append(np.sort(arr.ravel()))
+    cfg = ModelConfig()
+    params = weights.load_npz(ckpt, cfg, device=dev)
+    src = os.path.join(tmp, "torch_layout.onnx")
+    import_onnx.write_onnx_tensors(src, torch_layout(params, cfg))
+    back = os.path.join(tmp, "imported.npz")
+    with contextlib.redirect_stdout(out):
+        rc = import_vittrack_onnx.main(["--onnx", src, "--out", back])
+    if rc != 0:
+        raise AssertionError(f"import_vittrack_onnx exited {rc}")
+    with np.load(ckpt) as want, np.load(back) as got:
+        missing = [k for k in want.files if not any(
+            np.array_equal(np.sort(want[k].astype(np.float32).ravel()), g)
+            for g in exported.get(want[k].size, []))]
+        differ = [k for k in want.files if k not in got.files
+                  or not np.array_equal(got[k], want[k].astype(np.float32))]
+        n = len(want.files)
+    print(f"onnx: {out.getvalue().strip()}; the export holds {n - len(missing)}"
+          f" of {n} shipped tensors, the import gives back {n - len(differ)} "
+          f"of {n} bit for bit", flush=True)
+    if missing or differ:
+        raise AssertionError(f"onnx: missing {missing[:5]}, differ "
+                             f"{differ[:5]}")
+    res["onnx"] = {"tensors": n}
+    return res
+
+
+def checkpoint_phase(dev, state) -> dict:
+    """``save_tree`` / ``load_tree`` of a live card TrackState and of an
+    AdamW state, bit-equal after loading onto the card."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.train import step as train
+
+    params = weights.load_npz(weights.checkpoint_path("vittrack-t"),
+                              PRESETS["vittrack-t"], device=dev)
+    ts = train.create_train_state(params, opt=train.make_optimizer(1e-4))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ts = ts._replace(opt_state=ts.opt_state._replace(
+        mu=train.tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                                device=dev),
+                          ts.opt_state.mu)))
+    like_ts = train.create_train_state(
+        train.tree_map(torch.zeros_like, params),
+        opt=train.make_optimizer(1e-4))
+    like_st = type(state)(*(torch.zeros_like(t) for t in state))
+    n = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, tree, like in (("track_state", state, like_st),
+                                 ("adamw", ts, like_ts)):
+            path = os.path.join(tmp, f"{name}.pt")
+            weights.save_tree(path, tree)
+            back = weights.load_tree(path, like)
+            a, b = ([x for x in train.tree_leaves(t) if x is not None]
+                    for t in (tree, back))
+            if len(a) != len(b) or not all(
+                    y.device == x.device and x.dtype == y.dtype
+                    and torch.equal(x, y)
+                    for x, y in zip(a, b)):
+                raise AssertionError(f"checkpoint: {name} differs after the "
+                                     f"round trip")
+            n += len(a)
+    print(f"checkpoint: save_tree / load_tree of the card's final uhd "
+          f"TrackState ({state.z_tok.dtype} template) and a flagship AdamW "
+          f"state, {n} tensors bit-equal on the card", flush=True)
+    return {"tensors": n}
+
+
+def config5_phase(dev, card: str, params, cfg, cparams) -> dict:
+    t_phase = time.perf_counter()
+    res = {"uhd": uhd_phase(dev, card, params, cfg, cparams)}
+    state = res["uhd"].pop("state")
+    res["runtime"] = runtime_phase(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["scripts"] = scripts_phase(dev, card, tmp)
+    res["checkpoint"] = checkpoint_phase(dev, state)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"config 5, runtime, scripts, checkpoints: {res['seconds']:.1f} s",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2408,7 +2789,10 @@ def main() -> int:
     # -- 9. train and score -------------------------------------------------
     scored = train_score_phase(dev, card, statistics.median(step_ms))
 
-    # -- 10. result lines --------------------------------------------------
+    # -- 10. BASELINE config 5, the runtime, the scripts, checkpoints ------
+    config5 = config5_phase(dev, card, params, cfg, cparams)
+
+    # -- 11. result lines --------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -2425,6 +2809,10 @@ def main() -> int:
         "eval_launches": {k: v["launches"]["vit_encoder"]
                           for k, v in scored["eval"].items()},
         "eval_updates": {k: v["updates"] for k, v in scored["eval"].items()},
+        "uhd_launches": config5["uhd"]["launches"]["vit_encoder"],
+        "uhd_reps": UHD_REPS,
+        "profile_scan_launches": config5["scripts"]["profile_scan"][
+            "launches"]["vit_encoder"],
         **{k: enc[k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": enc["max_abs_err_f32_small"],
         "final_ln": enc["final_ln"],
@@ -2444,6 +2832,10 @@ def main() -> int:
         "eval_objects_launches": scored["objects"]["launches"][
             "attention_single"],
         "eval_objects_updates": scored["objects"]["updates"],
+        "profile_scan_launches": config5["scripts"]["profile_scan"][
+            "launches"]["attention_single"],
+        "profile_streams_launches": config5["scripts"]["profile_streams"][
+            "launches"]["attention_single"],
         "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
@@ -2526,6 +2918,7 @@ def main() -> int:
     print(f"serving summary: {json.dumps(serve)}")
     print(f"app summary: {json.dumps(app)}")
     print(f"train and score summary: {json.dumps(scored)}")
+    print(f"config 5 summary: {json.dumps(config5)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

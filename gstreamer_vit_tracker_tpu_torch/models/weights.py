@@ -17,6 +17,10 @@ into the flat ``/``-joined keys of the checkpoints.
 A ``TrackState`` crosses the same way: :func:`state_from_numpy` and
 :func:`state_to_numpy` carry its six leaves (with any leading batch
 dimensions) between numpy arrays and the port's tensors.
+
+:func:`save_tree` / :func:`load_tree` checkpoint an arbitrary tree (params,
+a ``TrackState``, ``train/step.py``'s AdamW state): the port's counterpart
+of the JAX package's Orbax pair.
 """
 
 from __future__ import annotations
@@ -201,3 +205,78 @@ def state_to_numpy(state: TrackState) -> TrackState:
     return TrackState(*(
         (t.float() if t.is_floating_point() else t).cpu().numpy()
         for t in state))
+
+
+def _plain(tree: Any) -> Any:
+    """A tree with every container made a dict or list and every array leaf
+    a CPU tensor: what ``torch.load(weights_only=True)`` reads back.  numpy
+    bfloat16 (``ml_dtypes``, JAX's) travels as its bits."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, np.ndarray):
+        if tree.dtype.name == "bfloat16":
+            return torch.from_numpy(tree.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(np.array(tree))
+    if tree is None or isinstance(tree, (bool, int, float, str)):
+        return tree
+    raise TypeError(f"save_tree cannot store a {type(tree).__name__} leaf")
+
+
+def save_tree(path: str, tree: Any) -> None:
+    """Checkpoint an arbitrary tree: nested dicts, lists, tuples and
+    NamedTuples (``TrackState``, ``TrainState``) of tensors on any device
+    and of any dtype (bf16, int, bool), numpy arrays, Python scalars and
+    ``None``.  The port's counterpart of the JAX package's ``save_orbax``
+    (``torch.save`` of plain containers; Orbax is not used)."""
+    torch.save(_plain(tree), path)
+
+
+def _restore(like: Any, got: Any, key: str) -> Any:
+    if isinstance(like, dict):
+        if not isinstance(got, dict) or set(got) != set(like):
+            raise KeyError(f"checkpoint keys at {key or '/'!r} differ from "
+                           f"the model's")
+        return {k: _restore(v, got[k], f"{key}/{k}") for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        if not isinstance(got, list) or len(got) != len(like):
+            raise ValueError(f"checkpoint length at {key or '/'!r} differs "
+                             f"from the model's")
+        leaves = [_restore(v, g, f"{key}/{i}")
+                  for i, (v, g) in enumerate(zip(like, got))]
+        if isinstance(like, list):
+            return leaves
+        return type(like)(*leaves) if hasattr(like, "_fields") \
+            else tuple(leaves)
+    if isinstance(like, (torch.Tensor, np.ndarray)):
+        if not isinstance(got, torch.Tensor):
+            raise ValueError(f"checkpoint has no array at {key!r}")
+        if tuple(got.shape) != tuple(like.shape):
+            raise ValueError(f"shape mismatch for {key!r}: checkpoint "
+                             f"{tuple(got.shape)} vs model "
+                             f"{tuple(like.shape)}")
+        if isinstance(like, torch.Tensor):
+            return got.to(device=like.device, dtype=like.dtype)
+        if like.dtype.name == "bfloat16":
+            return got.to(torch.bfloat16).view(torch.uint16).numpy().view(
+                like.dtype)
+        return got.numpy().astype(like.dtype, copy=False)
+    if like is None:
+        if got is not None:
+            raise ValueError(f"checkpoint has a value at {key!r}, the model "
+                             f"None")
+        return None
+    return type(like)(got)
+
+
+def load_tree(path: str, like: Any) -> Any:
+    """Read a :func:`save_tree` checkpoint into ``like``'s structure (the
+    same container types), each leaf on ``like``'s device and in its dtype;
+    a missing key or another shape raises, as :func:`load_npz` does.  The
+    counterpart of the JAX package's ``load_orbax``."""
+    return _restore(like, torch.load(path, map_location="cpu",
+                                     weights_only=True), "")

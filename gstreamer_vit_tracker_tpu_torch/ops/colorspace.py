@@ -1,17 +1,19 @@
 """BT.601 limited-range YUV -> RGB.
 
-Port of ``gstreamer_vit_tracker_tpu/ops/colorspace.py``: the float-space
-conversion the preprocess uses, and the exact integer conversion of a whole
-YUY2 frame that the app's HUD draws on.  ``nv12_to_rgb`` and
-``nv12_planes_to_rgb`` are not ported yet.
+Port of ``gstreamer_vit_tracker_tpu/ops/colorspace.py``: the exact
+integer conversion of whole NV12 and YUY2 frames (nv12_convert.rs:8-43,
+107-168; the app's HUD draws on YUY2 frames, ``runtime`` falls back to
+these without a toolchain) and the float-space conversion the preprocess
+uses.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["BT601_COEFFS", "rgb_from_shifted_yuv", "round_scalar",
-           "yuy2_to_rgb"]
+__all__ = ["BT601_COEFFS", "nv12_planes_to_rgb", "nv12_to_rgb",
+           "rgb_from_shifted_yuv", "rgb_from_shifted_yuv_f32",
+           "rgb_from_yuv_f32", "round_scalar", "yuy2_to_rgb"]
 
 # Float-space BT.601 coefficients: the integer math divided by 256.
 # R = 298/256*(Y-16) + 409/256*(V-128), etc.
@@ -48,6 +50,18 @@ def rgb_from_shifted_yuv(yp: torch.Tensor, up: torch.Tensor,
     return torch.stack([r, g, b], dim=-1)
 
 
+# JAX's name: on float32 planes the coefficients round to float32, which is
+# JAX's weak-typed product.
+rgb_from_shifted_yuv_f32 = rgb_from_shifted_yuv
+
+
+def rgb_from_yuv_f32(y: torch.Tensor, u: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Float-space BT.601 conversion of unshifted planes (no rounding or
+    clamp), stacked RGB on the last axis."""
+    return rgb_from_shifted_yuv(y - 16.0, u - 128.0, v - 128.0)
+
+
 def _convert_i32(y: torch.Tensor, u: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
     """Exact integer BT.601 conversion of int32 (H, W) planes to uint8
@@ -77,3 +91,47 @@ def yuy2_to_rgb(yuy2: torch.Tensor, *, width: int,
     u = torch.repeat_interleave(quad[..., 1], 2, dim=1)
     v = torch.repeat_interleave(quad[..., 3], 2, dim=1)
     return _convert_i32(y, u, v)
+
+
+def _upsample2(plane: torch.Tensor) -> torch.Tensor:
+    """Block-replicate a half-resolution chroma plane to full size, int32."""
+    return plane.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1).to(
+        torch.int32)
+
+
+def nv12_to_rgb(nv12, *, width: int, height: int) -> torch.Tensor:
+    """A flat NV12 buffer (Y plane of height*width bytes, then the
+    interleaved UV plane) to a uint8 (height, width, 3) RGB frame, on the
+    buffer's device.
+
+    As in the reference: a buffer shorter than ``width*height*3//2`` gives a
+    zero image (nv12_convert.rs:48-50); pixel (r, c) reads U at UV offset
+    ``(r//2)*width + (c//2)*2`` and V at the next byte (nv12_convert.rs:
+    111-113), which is defined for odd sizes too.  There the reads past the
+    buffer's end are clamped to its last byte, as JAX's gather clamps."""
+    buf = torch.as_tensor(nv12)
+    y_size = width * height
+    if buf.shape[0] < y_size * 3 // 2:
+        return torch.zeros((height, width, 3), dtype=torch.uint8,
+                           device=buf.device)
+    y = buf[:y_size].reshape(height, width).to(torch.int32)
+    if width % 2 == 0 and height % 2 == 0:
+        uv = buf[y_size:y_size + y_size // 2].reshape(height // 2,
+                                                      width // 2, 2)
+        return _convert_i32(y, _upsample2(uv[..., 0]), _upsample2(uv[..., 1]))
+    uv = buf[y_size:]
+    rows = torch.arange(height, device=buf.device)[:, None]
+    cols = torch.arange(width, device=buf.device)[None, :]
+    base = (rows // 2) * width + (cols // 2) * 2
+    last = uv.shape[0] - 1
+    u = uv[torch.clamp(base, max=last)].to(torch.int32)
+    v = uv[torch.clamp(base + 1, max=last)].to(torch.int32)
+    return _convert_i32(y, u, v)
+
+
+def nv12_planes_to_rgb(y_plane: torch.Tensor,
+                       uv_plane: torch.Tensor) -> torch.Tensor:
+    """Planar NV12: ``y_plane`` (H, W) uint8 and ``uv_plane`` (H//2, W//2,
+    2) uint8 (channel 0 = U, 1 = V), even sizes only, to uint8 (H, W, 3)."""
+    return _convert_i32(y_plane.to(torch.int32), _upsample2(uv_plane[..., 0]),
+                        _upsample2(uv_plane[..., 1]))

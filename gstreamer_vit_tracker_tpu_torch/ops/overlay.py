@@ -28,7 +28,7 @@ from .font import ADVANCE, FONT_TABLE, encode_text
 
 __all__ = [
     "draw_rect", "draw_crosshair", "draw_cursor", "draw_selection",
-    "draw_text", "encode_text", "HudParams", "render_hud",
+    "draw_background", "draw_text", "encode_text", "HudParams", "render_hud",
 ]
 
 
@@ -132,6 +132,19 @@ def draw_selection(img: torch.Tensor, start_x, start_y, cur_x, cur_y,
     return _shape_at(img, *box, mask, (255, 255, 0))
 
 
+def draw_background(img: torch.Tensor, x, y, w, h, value: int = 30,
+                    enable: bool = True) -> torch.Tensor:
+    """Filled dark-gray info box ``[x, x+w) x [y, y+h)``, the part on the
+    frame (drawing_rgb.rs:42-52 memset fill)."""
+    if not enable:
+        return img
+    x, y, w, h = int(x), int(y), int(w), int(h)
+    reg = _region(img, y, y + h - 1, x, x + w - 1)
+    if reg is not None:
+        reg[0].fill_(int(value))
+    return img
+
+
 @functools.lru_cache(maxsize=None)
 def _font(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(FONT_TABLE, device=device)
@@ -142,7 +155,9 @@ def text_mask(img: torch.Tensor, chars: np.ndarray, n_chars: int, x: int,
     """The lit pixels of up to ``len(chars)`` glyphs at (x, y): (view of
     the text strip, bool mask), or None when the strip is off the frame.
     Glyph indices come from ``font.encode_text``; 5x7 glyphs, integer
-    ``scale``, ``6*scale`` advance (draw_text_rgb, drawing_rgb.rs:86-104)."""
+    ``scale``, ``6*scale`` advance (draw_text_rgb, drawing_rgb.rs:86-104).
+    ``chars`` may be a tensor on the image's device (glyphs computed there),
+    which is read where it lies."""
     h, w = img.shape[0], img.shape[1]
     max_len = len(chars)
     strip_h = min(7 * scale, h - y)
@@ -155,7 +170,7 @@ def text_mask(img: torch.Tensor, chars: np.ndarray, n_chars: int, x: int,
     k = c // (ADVANCE * scale)
     gx = (c % (ADVANCE * scale)) // scale
     gy = r // scale
-    ch = torch.as_tensor(np.asarray(chars, np.int64), device=dev)[k]
+    ch = torch.as_tensor(chars, device=dev)[k]
     lit = _font(dev)[ch, torch.clamp_max(gy, 6), torch.clamp_max(gx, 4)] == 1
     lit = lit & (gx < 5) & (gy < 7) & (k < int(n_chars))
     return img[y:y + strip_h, x:x + strip_w], lit

@@ -10,19 +10,29 @@ place.
 The luma semantics differ from the RGB ones on purpose, as in the
 reference: rect edges are inclusive with clamped corners
 (nv12_convert.rs:183-212); the cursor draws arms to 25 outside a +-5 dead
-zone (drawing.rs:10-22).
+zone (drawing.rs:10-22); the background is a multiplicative darken, not a
+fill (nv12_convert.rs:324-343).
+
+The strip crosshair and ``draw_rect_luma_strips_dyn`` take their geometry
+as tensors on the plane's device (Python ints work too), and
+``draw_text_luma`` takes glyphs and ``enable`` as device tensors: a loop
+that draws a box it tracked on the device (``tracker/scan.py::
+update_scan_hud_pool``) reads nothing back.  They gather the block a mask
+can reach at a device-computed origin, as JAX's ``dynamic_slice`` does, and
+scatter it back painted.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .overlay import (HudParams, _fill, _shape_at, hud_texts, selection_mask,
-                      text_mask)
+from .overlay import (HudParams, _fill, _region, _shape_at, hud_texts,
+                      selection_mask, text_mask)
 
 __all__ = ["draw_rect_luma", "draw_crosshair_luma", "draw_text_luma",
-           "draw_cursor_luma", "draw_selection_luma", "draw_rect_luma_strips",
-           "render_hud_luma"]
+           "draw_background_luma", "draw_cursor_luma", "draw_selection_luma",
+           "draw_rect_luma_strips", "draw_rect_luma_strips_dyn",
+           "draw_crosshair_luma_strips", "render_hud_luma"]
 
 
 def _rect_corners(y_plane: torch.Tensor, x, y, w, h):
@@ -129,16 +139,110 @@ def draw_rect_luma_strips(y_plane: torch.Tensor, x, y, w, h, thickness: int,
 
 
 def draw_text_luma(y_plane: torch.Tensor, chars, n_chars: int, x: int, y: int,
-                   scale: int, brightness: int,
-                   enable: bool = True) -> torch.Tensor:
+                   scale: int, brightness: int, enable=True) -> torch.Tensor:
     """nv12_convert.rs:245-321: 5x7 glyphs on the Y plane (the strip of
-    ``ops/overlay.py::text_mask``)."""
-    if not enable:
+    ``ops/overlay.py::text_mask``).  ``chars`` may be a tensor on the
+    plane's device and ``enable`` a bool tensor there: it masks the
+    glyphs, and nothing is read back."""
+    if not isinstance(enable, torch.Tensor) and not enable:
         return y_plane
     found = text_mask(y_plane, chars, n_chars, x, y, scale)
     if found is not None:
         view, lit = found
+        if isinstance(enable, torch.Tensor):
+            lit = lit & enable
         _fill(view, lit, brightness)
+    return y_plane
+
+
+def draw_background_luma(y_plane: torch.Tensor, x: int, y: int, w: int,
+                         h: int, darkness: int,
+                         enable: bool = True) -> torch.Tensor:
+    """nv12_convert.rs:324-343: multiplicative darken of ``[x, x+w) x
+    [y, y+h)``, ``y' = y * (255 - darkness) // 255`` in int32."""
+    if not enable:
+        return y_plane
+    reg = _region(y_plane, int(y), int(y) + int(h) - 1, int(x),
+                  int(x) + int(w) - 1)
+    if reg is not None:
+        view = reg[0]
+        dark = torch.div(view.to(torch.int32) * (255 - int(darkness)), 255,
+                         rounding_mode="floor")
+        view.copy_(dark.to(view.dtype))
+    return y_plane
+
+
+def _i32(v, dev: torch.device) -> torch.Tensor:
+    """``v`` as a 0-d int32 tensor on ``dev``; a Python int is filled in
+    on the device (a fill, not a host-to-device copy)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.int32)
+    return torch.full((), int(v), dtype=torch.int32, device=dev)
+
+
+def _paint_block(y_plane: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
+                 mask: torch.Tensor, brightness: int) -> None:
+    """Gather the block of rows ``r`` (h, 1) x columns ``c`` (1, w) (device
+    indices inside the plane), paint ``mask`` in it and scatter it back:
+    JAX's ``dynamic_slice`` / ``dynamic_update_slice`` pair."""
+    flat = y_plane.view(-1)
+    idx = r.long() * y_plane.shape[1] + c.long()
+    flat[idx] = flat[idx].masked_fill_(mask, int(brightness))
+
+
+def draw_rect_luma_strips_dyn(y_plane: torch.Tensor, x, y, w, h,
+                              thickness: int,
+                              brightness: int) -> torch.Tensor:
+    """:func:`draw_rect_luma_strips` with the box as tensors on the plane's
+    device: the same four strips, their origins clamped into the plane on
+    the device, so the same pixels (JAX's strip semantics for boxes partly
+    off the frame too).  The host-int form stays for the app, whose boxes
+    are host numbers: it paints views in place, with no gather or scatter."""
+    hh, ww = y_plane.shape
+    t = max(1, min(int(thickness), hh, ww))
+    dev = y_plane.device
+    x, y, w, h = (_i32(v, dev) for v in (x, y, w, h))
+    x1, y1 = torch.clamp_min(x, 0), torch.clamp_min(y, 0)
+    x2, y2 = torch.clamp_max(x + w, ww - 1), torch.clamp_max(y + h, hh - 1)
+    strip = torch.arange(t, dtype=torch.int32, device=dev)
+    rows = torch.arange(hh, dtype=torch.int32, device=dev)[:, None]
+    cols = torch.arange(ww, dtype=torch.int32, device=dev)[None, :]
+
+    def hstrip(row_lo, cond_rows):
+        r = torch.clamp(row_lo, 0, hh - t) + strip[:, None]
+        _paint_block(y_plane, r, cols,
+                     cond_rows(r) & (cols >= x1) & (cols <= x2), brightness)
+
+    def vstrip(col_lo, cond_cols):
+        c = torch.clamp(col_lo, 0, ww - t) + strip[None, :]
+        _paint_block(y_plane, rows, c,
+                     cond_cols(c) & (rows >= y1) & (rows <= y2), brightness)
+
+    hstrip(y1, lambda r: (r >= y1) & (r < y1 + t))
+    hstrip(y2 - t + 1, lambda r: (r <= y2) & (r > y2 - t))
+    vstrip(x1, lambda c: (c >= x1) & (c < x1 + t))
+    vstrip(x2 - t + 1, lambda c: (c <= x2) & (c > x2 - t))
+    return y_plane
+
+
+def draw_crosshair_luma_strips(y_plane: torch.Tensor, cx, cy, size: int,
+                               brightness: int) -> torch.Tensor:
+    """Strip variant of :func:`draw_crosshair_luma`: one ``(2*size+1)``
+    square block whose origin is clamped into the plane (its side clamped
+    to the plane, so a plane smaller than the crosshair truncates the
+    arms), the centre clamped at 0 first.  ``cx``, ``cy``: ints or tensors
+    on the plane's device."""
+    hh, ww = y_plane.shape
+    side = min(2 * size + 1, hh, ww)
+    dev = y_plane.device
+    cx = torch.clamp_min(_i32(cx, dev), 0)
+    cy = torch.clamp_min(_i32(cy, dev), 0)
+    span = torch.arange(side, dtype=torch.int32, device=dev)
+    r = torch.clamp(cy - size, 0, max(hh - side, 0)) + span[:, None]
+    c = torch.clamp(cx - size, 0, max(ww - side, 0)) + span[None, :]
+    mask = (((r == cy) & ((c - cx).abs() <= size))
+            | ((c == cx) & ((r - cy).abs() <= size)))
+    _paint_block(y_plane, r, c, mask, brightness)
     return y_plane
 
 

@@ -8,16 +8,17 @@ zero-border-constant padding.  Sampling uses half-pixel-centre alignment
 (``s_i = start + (i+0.5)*scale - 0.5``), as ``cv2.resize`` does.
 
 Port of ``gstreamer_vit_tracker_tpu/ops/resample.py``: the sampling
-matrices the tracking step uses, and the full-frame ``crop_resize`` /
-``resize_static`` of the app's display upscale.  ``crop_resize_chw`` is not
-ported yet.
+matrices the tracking step uses, ``crop_resize`` and its channel-first
+form ``crop_resize_chw``, and the full-frame ``resize_static`` of the app's
+display upscale.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sampling_matrix", "fold_half_res", "crop_resize", "resize_static"]
+__all__ = ["sampling_matrix", "fold_half_res", "crop_resize",
+           "crop_resize_chw", "resize_static"]
 
 
 def sampling_matrix(out_size: int, src_size: int, start, scale,
@@ -71,6 +72,26 @@ def crop_resize(img: torch.Tensor, start_yx, size_yx, out_hw,
         return ry @ imgf @ cx.T
     tmp = torch.einsum("oh,hwc->owc", ry, imgf)
     return torch.einsum("pw,owc->opc", cx, tmp)
+
+
+def crop_resize_chw(img_chw: torch.Tensor, start_yx, size_yx, out_hw,
+                    dtype=torch.float32) -> torch.Tensor:
+    """:func:`crop_resize` for a channel-first (C, H, W) image: returns
+    (C, out_h, out_w).  The scales are float32 quotients, as in JAX."""
+    out_h, out_w = out_hw
+    _, h, w = img_chw.shape
+    sy, sx = start_yx
+    zy, zx = size_yx
+    dev = img_chw.device
+    f32 = torch.float32
+    ry = sampling_matrix(out_h, h, sy, torch.as_tensor(zy, dtype=f32,
+                                                       device=dev) / out_h,
+                         dtype, dev)
+    cx = sampling_matrix(out_w, w, sx, torch.as_tensor(zx, dtype=f32,
+                                                       device=dev) / out_w,
+                         dtype, dev)
+    tmp = torch.einsum("oh,chw->cow", ry, img_chw.to(dtype))
+    return torch.einsum("pw,cow->cop", cx, tmp)
 
 
 def resize_static(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator
 
 
 @contextlib.contextmanager
@@ -29,6 +29,53 @@ def device_trace(logdir: str) -> Iterator[None]:
     with torch.profiler.profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def call_ms(fn: Callable[[], object], device) -> float:
+    """Milliseconds of one call of ``fn``: CUDA events around it on a card
+    (the device's time from the first enqueue to the last kernel's end),
+    the host clock on the CPU."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def marginal_ms(run: Callable[[int], object], lo: int, hi: int,
+                device) -> float:
+    """Per-step ms of ``run(n)`` (n steps) as the slope between ``lo`` and
+    ``hi`` steps, each the best of two after a warm-up of both: what a
+    step adds, free of the run's set-up and its final read."""
+    run(lo)
+    run(hi)
+    a = min(call_ms(lambda: run(lo), device) for _ in range(2))
+    b = min(call_ms(lambda: run(hi), device) for _ in range(2))
+    return (b - a) / (hi - lo)
+
+
+def device_ms(fn: Callable[[], object], per: int) -> float:
+    """Device milliseconds of one call of ``fn`` divided by ``per``: the
+    CUDA kernels and copies ``torch.profiler`` records, summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / per
 
 
 class PhaseTimer:

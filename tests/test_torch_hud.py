@@ -2,11 +2,16 @@
 
 ``render_hud`` (RGB and YUY2 converted by ``yuy2_to_rgb``), ``render_hud_luma``,
 ``draw_rect`` and ``draw_rect_luma_strips`` against the JAX package's on the
-same seeded frames: uint8-equal.  One ``HudParams`` each for selecting,
+same seeded frames: uint8-equal.  So are ``draw_background``,
+``draw_background_luma``, ``draw_crosshair_luma_strips`` (centres off the
+plane, negative, planes smaller than the crosshair) and the device-tensor
+forms of the rect strips and the text that the HUD pool draws with.  One ``HudParams`` each for selecting,
 tracking and lost, at 320x256, with boxes inside the frame, crossing its
 edge and off it.  ``resize_static``: a float32 resample rounded, equal to
 JAX's or one level away where the two round a near half-tie differently;
-the count of such pixels is asserted.
+the count of such pixels is asserted.  ``crop_resize_chw`` against JAX's
+in float32 to 1e-5 relative (its uint8 inputs reach 255, where one float32
+ulp is 1.5e-5 and the two einsum orders differ by an ulp or two).
 """
 
 import numpy as np
@@ -190,3 +195,86 @@ def test_crop_resize_matches_jax():
         want = np.asarray(jrs.crop_resize(jnp.asarray(img), start, size, out))
         got = trs.crop_resize(torch.tensor(img), start, size, out).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("box", ((40, 30, 80, 60), (-20, -15, 60, 50),
+                                 (300, 240, 50, 40), (0, 0, 0, 0),
+                                 (400, 300, 30, 30)))
+def test_draw_background_matches_jax(box):
+    img = _frame(10, (H, W, 3))
+    want = np.asarray(jov.draw_background(jnp.asarray(img), *box, value=30))
+    got = tov.draw_background(torch.tensor(img), *box, value=30).numpy()
+    np.testing.assert_array_equal(got, want)
+    luma = _frame(11, (H, W))
+    for dark in (0, 128, 255):
+        want = np.asarray(jov12.draw_background_luma(jnp.asarray(luma), *box,
+                                                     dark))
+        got = tov12.draw_background_luma(torch.tensor(luma), *box,
+                                         dark).numpy()
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tov12.draw_background_luma(torch.tensor(luma), *box, 128,
+                                   enable=False).numpy(), luma)
+
+
+# Inside; on each edge; off the plane past the far corner; negative (the
+# centre clamps at 0); on planes smaller than the crosshair (31 px).
+CROSS = [((H, W), c) for c in ((160, 128), (0, 5), (W - 1, H - 1), (W + 40, 90),
+                               (-12, -30), (-5, 200), (100, H + 20))] + [
+    ((20, 24), (10, 9)), ((20, 24), (-3, 30)), ((9, 40), (20, 4)),
+    ((31, 31), (15, 15))]
+
+
+@pytest.mark.parametrize("shape,centre", CROSS)
+def test_crosshair_strips_match_jax(shape, centre):
+    luma = _frame(12, shape)
+    want = np.asarray(jov12.draw_crosshair_luma_strips(
+        jnp.asarray(luma), *centre, 15, 255))
+    got = tov12.draw_crosshair_luma_strips(torch.tensor(luma), *centre, 15,
+                                           255).numpy()
+    np.testing.assert_array_equal(got, want)
+    # Device-tensor centres give the same pixels.
+    got = tov12.draw_crosshair_luma_strips(
+        torch.tensor(luma), torch.tensor(centre[0], dtype=torch.int32),
+        torch.tensor(centre[1], dtype=torch.int32), 15, 255).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bbox", BOXES + ((-40, -30, 20, 10),))
+@pytest.mark.parametrize("thickness", (1, 3))
+def test_rect_strips_dyn_match_jax(bbox, thickness):
+    luma = _frame(13, (H, W))
+    want = np.asarray(jov12.draw_rect_luma_strips(jnp.asarray(luma), *bbox,
+                                                  thickness, 255))
+    box = torch.tensor(bbox, dtype=torch.int32)
+    got = tov12.draw_rect_luma_strips_dyn(torch.tensor(luma), *box,
+                                          thickness, 255).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("enable", (True, False))
+def test_text_luma_takes_device_glyphs_and_enable(enable):
+    luma = _frame(14, (H, W))
+    chars, n = tfont.encode_text("score: 87.3%", 12)
+    want = np.asarray(jov12.draw_text_luma(
+        jnp.asarray(luma), jnp.asarray(chars), n, 200, 15, 2, 255,
+        enable=jnp.asarray(enable)))
+    got = tov12.draw_text_luma(torch.tensor(luma), torch.tensor(chars), n,
+                               200, 15, 2, 255,
+                               enable=torch.tensor(enable)).numpy()
+    np.testing.assert_array_equal(got, want)
+    got = tov12.draw_text_luma(torch.tensor(luma), chars, n, 200, 15, 2, 255,
+                               enable=enable).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("start,size,out", [
+    ((10.5, 20.0), (100.0, 80.0), (64, 64)),
+    ((-30.0, 250.0), (90.0, 120.0), (48, 40)),
+    ((3.25, -7.5), (33.3, 47.1), (17, 23))])
+def test_crop_resize_chw_matches_jax(start, size, out):
+    img = _frame(15, (3, H, W))
+    want = np.asarray(jrs.crop_resize_chw(jnp.asarray(img), start, size, out))
+    got = trs.crop_resize_chw(torch.tensor(img), start, size, out).numpy()
+    assert got.shape == (3,) + out and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -205,7 +205,3 @@ def test_reinit_after_a_scan_keeps_caller_buffers(small):
     st2 = tmulti.init_streams(tparams, pool, bbs, cfg_t, device=CPU,
                               frame_format="nv12")
     np.testing.assert_array_equal(st2.bbox.numpy(), keep.numpy())
-
-
-def test_hud_scan_waits_for_the_overlay_modules():
-    assert not hasattr(tscan, "update_scan_hud_pool")

@@ -224,13 +224,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "gstreamer_vit_tracker_tpu_torch/utils/flops.py",
                  "gstreamer_vit_tracker_tpu_torch/scripts/train_synthetic.py",
                  "gstreamer_vit_tracker_tpu_torch/scripts/eval_tracking.py",
+                 "gstreamer_vit_tracker_tpu_torch/runtime/__init__.py",
+                 "gstreamer_vit_tracker_tpu_torch/tracker/scan.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/profile_scan.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/profile_streams.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/bench_serve.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/soak.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/export_vittrack_onnx.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/import_vittrack_onnx.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/agreement_cv2.py",
                  "chip_smoke.py"):
         assert must in names, must
-    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|"
                      r"gstreamer_vit_tracker_tpu)(\.|\s|$)", re.M)
     # ... nor by name at run time.
     dynamic = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|flax|optax|"
-                         r"gstreamer_vit_tracker_tpu)[\"'.]")
+                         r"orbax|gstreamer_vit_tracker_tpu)[\"'.]")
     for path in files:
         with open(path) as f:
             text = f.read()
