@@ -145,7 +145,9 @@ Phases, in order; any failure raises and exits non-zero:
       frames/s at 1080p;
    c. the scripts through ``main(argv)``, each exiting 0 with its JSON
       line: ``profile_scan --reps 5``, ``profile_streams --reps 5`` (each
-      with the device's ms from ``torch.profiler``), ``bench_serve`` (4
+      with the device's ms from ``torch.profiler``; every marginal ms a
+      step, a slope of device time, positive and within MARGINAL_SETUP /
+      MARGINAL_NOISE of its device ms a step), ``bench_serve`` (4
       streams x 30 frames, corr-tiny), ``soak`` (1500 corr-tiny frames,
       faults every 397 / 601 / 251 frames, every check holding),
       ``export_vittrack_onnx`` (the graph holds every shipped tensor) and
@@ -153,7 +155,27 @@ Phases, in order; any failure raises and exits non-zero:
       flagship gives the same tensors back);
    d. ``save_tree`` / ``load_tree`` of the card's final TrackState and a
       flagship AdamW state, bit-equal after loading onto the card;
-11. prints the card line, then one ``{"kernels": [...]}`` line, then the
+11. ``parallel/`` over ranks that share this card (one process a rank,
+   ``parallel/launch.py``; gloo for more than one rank, as NCCL refuses two
+   ranks on one device; the backend printed), and the last four scripts:
+   a. ``entry.dryrun_multichip(8)``: JAX's dry run at its 4x2 mesh, JAX's
+      bounds and the port's tp bound; attention launched 12 times a train
+      step and twice a serving tick on every rank;
+   b. the shipped flagship (bf16) behind a 16-slot ``SlotEngine`` on phase
+      5's 1080p NV12 clips, on a 1x1 NCCL mesh (bit-equal to one engine),
+      2x1 and 1x2 (tick by tick from one engine's state, phase 5's bounds,
+      MESH_TIE_FLIPS); kernel 3 launched depth x ticks times on every rank;
+      ``SlotEngine.recover()`` and ``ShardedStreamTracker.recover()``
+      restore their snapshots;
+   c. ``train_synthetic --mesh 2x2``: the flagship in float32, 5 steps,
+      batch 16, phase 9a's 128 samples; losses within phase 7's bound of
+      one process, kernel 4 launched 12 times a step on every rank, the
+      saved npz equal to the gathered params;
+   d. ``ab_fused_prep``, ``ab_grouped_head``, ``probe_int8`` and
+      ``probe_relay_fetch`` through ``main(argv)`` with short arguments,
+      each exiting 0 with its JSON line (kernel 5 launched by the first,
+      the int8 product exact in the third);
+12. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -1758,15 +1780,9 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
-    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.entry import launch_counts
 
-    torch.cuda.synchronize()
-    return {"vit_encoder": vit_block.LAUNCHES,
-            "vit_block": vit_block.BLOCK_LAUNCHES,
-            "attention_single": attention.SINGLE_LAUNCHES,
-            "attention_flash": attention.FLASH_LAUNCHES,
-            "fused_prep_embed": fpe.LAUNCHES}
+    return launch_counts()
 
 
 def run_app(name: str, argv, tmp: str, card: str):
@@ -2438,6 +2454,16 @@ def runtime_phase(card: str) -> dict:
     return res
 
 
+# profile_scan / profile_streams: the marginal ms a step (a slope of device
+# time) against the device ms a step over --reps steps, which also holds
+# the run's set-up (a template init, the final read) spread over the reps:
+# at most MARGINAL_NOISE x it, at least (1 - MARGINAL_SETUP) x it.  A first
+# card run with other processes on the card read 0.78-1.13 x (prep alone
+# below 0.85: its template init is large next to a 0.25 ms step;
+# profile_streams' slope spans 5 steps).
+MARGINAL_SETUP, MARGINAL_NOISE = 0.30, 1.15
+
+
 def script_json(mod, argv) -> tuple:
     """``mod.main(argv)`` in this process: (rc, its last JSON line, its
     stdout, the kernel launches it made)."""
@@ -2497,6 +2523,18 @@ def scripts_phase(dev, card: str, tmp: str) -> dict:
         if not res[key]["device_ms"] or not all(
                 v > 0 for v in res[key]["device_ms"].values()):
             raise AssertionError(f"{key}: no device time")
+        # The marginal ms a step is a slope of device time: positive, and at
+        # most its device ms a step over --reps steps (which holds the run's
+        # set-up too), less at most MARGINAL_SETUP of it.
+        for label, d in res[key]["device_ms"].items():
+            m = res[key][f"{label}_ms"]
+            print(f"{key} {label}: marginal {m:.4f} ms a step, device "
+                  f"{d:.4f} ms a step over --reps steps (bound "
+                  f"{1 - MARGINAL_SETUP:.2f}-{MARGINAL_NOISE:.2f} x)",
+                  flush=True)
+            if not (1 - MARGINAL_SETUP) * d <= m <= MARGINAL_NOISE * d:
+                raise AssertionError(f"{key} {label}: marginal {m} ms off "
+                                     f"its device ms {d}")
     _, res["bench_serve"], _, counts = script_json(
         bench_serve, ["--streams", "4", "--frames", "30"])
     print(f"bench_serve: {json.dumps(res['bench_serve'])} | {card}",
@@ -2602,6 +2640,312 @@ def config5_phase(dev, card: str, params, cfg, cparams) -> dict:
     res["seconds"] = time.perf_counter() - t_phase
     print(f"config 5, runtime, scripts, checkpoints: {res['seconds']:.1f} s",
           flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: parallel/ over ranks of the one card
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 16
+MESH_TICKS = 3
+MESH_TRAIN_STEPS = 5
+MESH_DRYRUN_RANKS = 8
+# A mesh of one rank computes what one engine computes: bit for bit.
+# 2x1 and 1x2 against one engine, tick by tick from its state: phase 5's
+# card-vs-CPU bounds (CPU_BOX_TOL, CPU_SCORE_TOL).  Every score is held to
+# its bound.  A box may also jump to a neighbouring cell of the score map
+# where two cells nearly tie: another summation order (the dp slice's
+# smaller batch, the tp all-reduce) moves the bf16 encoder by an ulp of its
+# residual stream, and one such flip moved one slot of 16 by 11.5 px (its
+# score by 0.0033) in a CPU rehearsal of the 1x2 tick.  So at most
+# MESH_TIE_FLIPS slots a tick may miss the box bound, and each is printed.
+MESH_TIE_FLIPS = 1
+
+
+def mesh_frames(n: int):
+    """n ticks of phase 5's MESH_SLOTS seeded 1080p NV12 clips (a moving
+    target each), stacked a tick, and each slot's first box."""
+    clips = stream_clips(MESH_SLOTS, n)
+    ticks = [(np.stack([c[0][t][0] for c in clips]),
+              np.stack([c[0][t][1] for c in clips])) for t in range(n)]
+    return ticks, [list(c[1][0]) for c in clips]
+
+
+def mesh_serve_rank(rank: int, n: int, shapes, device: str) -> dict:
+    """One rank of phase 11b: for each mesh shape of ``shapes`` (n ranks
+    each), the shipped flagship (bf16) behind a MESH_SLOTS-slot SlotEngine
+    on phase 5's clips beside one engine in this rank, each mesh tick from
+    the one engine's state before it; then the engine's and a
+    ShardedStreamTracker's recover()."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS["vittrack-t"]
+    params = weights.load_npz(weights.checkpoint_path("vittrack-t"), cfg,
+                              device="cpu")
+    ticks, boxes = mesh_frames(MESH_TICKS + 1)
+    return {f"{a}x{b}": mesh_serve(cfg, params, ticks, boxes, (a, b),
+                                   torch.device(device))
+            for a, b in shapes}
+
+
+def mesh_serve(cfg, params, ticks, boxes, shape, dev) -> dict:
+    """One mesh shape of :func:`mesh_serve_rank` on this rank."""
+    import torch.distributed as dist
+
+    from gstreamer_vit_tracker_tpu_torch.entry import launch_counts
+    from gstreamer_vit_tracker_tpu_torch.parallel import (
+        ShardedStreamTracker, make_mesh)
+    from gstreamer_vit_tracker_tpu_torch.serve import SlotEngine
+
+    mesh = make_mesh(shape, device=dev)
+    one = SlotEngine(params, cfg, MESH_SLOTS, "nv12", device=dev)
+    eng = SlotEngine(params, cfg, MESH_SLOTS, "nv12", device=dev, mesh=mesh)
+    for e in (one, eng):
+        for i in range(MESH_SLOTS):
+            e.init_slot(e.alloc(), (ticks[0][0][i], ticks[0][1][i]), boxes[i])
+    active = np.ones(MESH_SLOTS, bool)
+    rows = slice(eng.rows.start, eng.rows.stop)
+    d_box, d_score, launches = [], [], {}
+    for t in range(1, MESH_TICKS + 1):
+        # From the one engine's state: this rank's rows of it.
+        eng.state = type(eng.state)(*(x[rows].clone() for x in one.state))
+        before = launch_counts()
+        got = eng.step(ticks[t], active)
+        after = launch_counts()
+        for k in after:
+            launches[k] = launches.get(k, 0) + after[k] - before[k]
+        want = one.step(ticks[t], active)
+        if got.shape != (MESH_SLOTS, 5) or not np.isfinite(got).all():
+            raise AssertionError(f"mesh {shape}: misshapen or non-finite rows")
+        d_box.append(np.abs(got[:, :4] - want[:, :4]).max(axis=1).tolist())
+        d_score.append(float(np.abs(got[:, 4] - want[:, 4]).max()))
+    # The engine's recover(): the snapshot comes back, bit for bit.
+    eng.snapshot()
+    saved = [x.clone() for x in eng.state]
+    eng.step(ticks[1], active)
+    lost = eng.recover()
+    engine_recovered = not lost and all(
+        torch.equal(a, b) for a, b in zip(eng.state, saved))
+    # ShardedStreamTracker: init, a tick, a snapshot, a tick, recover().
+    tr = ShardedStreamTracker(mesh, params, cfg, frame_format="nv12",
+                              snapshot_every=2, device=dev)
+    tr.init(ticks[0], np.asarray(boxes, np.float32)[:, None, :])
+    tr.update(ticks[1])
+    tr.update(ticks[2])                   # snapshots before it steps
+    snap = [x.to(dev) for x in tr._snapshot[0]]
+    tr.recover()
+    tracker_recovered = all(torch.equal(a, b) for a, b in zip(tr.state,
+                                                              snap))
+    bx, sc = tr.update(ticks[3])
+    return {"backend": dist.get_backend(), "rows": [eng.rows.start,
+                                                    eng.rows.stop],
+            "d_box": d_box, "d_score": d_score, "launches": launches,
+            "engine_recovered": engine_recovered,
+            "tracker_recovered": tracker_recovered,
+            "tracker_finite": bool(torch.isfinite(bx).all()
+                                   and torch.isfinite(sc).all()),
+            "qkv_cols": eng.params["backbone"]["blocks"][0]["qkv"][
+                "kernel"].shape[1]}
+
+
+def mesh_train_argv(out: str, device: str):
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+
+    return ["--cpu"] * (device == "cpu") + ["--preset", "vittrack-t", "--init-from",
+            weights.checkpoint_path("vittrack-t"), "--lr", "1e-4", "--batch",
+            str(TRAIN9_BATCH), "--dataset-size", str(TRAIN9_DATASET),
+            "--seed", "0", "--data-diversity", "v1", "--steps",
+            str(MESH_TRAIN_STEPS), "--log-every", str(MESH_TRAIN_STEPS),
+            "--out", out]
+
+
+def mesh_train_rank(rank: int, n: int, out: str, device: str) -> dict:
+    """One rank of phase 11c: ``train_synthetic --mesh 2x2`` through
+    ``run(argv)``; rank 0 holds its checkpoint to the gathered params."""
+    from gstreamer_vit_tracker_tpu_torch.entry import launch_counts
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.parallel import sharding
+    from gstreamer_vit_tracker_tpu_torch.scripts import train_synthetic
+
+    text = io.StringIO()
+    before = launch_counts()
+    with contextlib.redirect_stdout(text):
+        rep = train_synthetic.run(mesh_train_argv(out, device)
+                                  + ["--mesh", "2x2"])
+    after = launch_counts()
+    full = sharding.gather_params(rep.state.params, rep.mesh)
+    res = {"rc": rep.rc, "losses": rep.losses, "stdout": text.getvalue(),
+           "launches": {k: after[k] - before[k] for k in after},
+           "samples_per_s": rep.samples_per_s}
+    if rank == 0:
+        saved = weights.flatten(weights.load_npz(out, rep.cfg,
+                                                 device=torch.device("cpu")))
+        final = weights.flatten(weights.tree_to(full, "cpu"))
+        res["saved_equal"] = set(saved) == set(final) and all(
+            torch.equal(saved[k], final[k]) for k in final)
+    return res
+
+
+def parallel_phase(dev, card: str) -> dict:
+    """Phase 11: the dry run on 8 ranks, the flagship SlotEngine on 1x1
+    (NCCL), 2x1 and 1x2 meshes, and train_synthetic --mesh 2x2, all ranks
+    on this card; then the four A/B and probe scripts."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.entry import dryrun_multichip
+    from gstreamer_vit_tracker_tpu_torch.parallel.launch import run_ranks
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import backend_for
+    from gstreamer_vit_tracker_tpu_torch.scripts import (
+        ab_fused_prep, ab_grouped_head, probe_int8, probe_relay_fetch,
+        train_synthetic)
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["vittrack-t"]
+    res = {"backend": {n: backend_for(dev, n) for n in (1, 2, 4, 8)}}
+    print(f"parallel: ranks share this card; group backend by world size "
+          f"{res['backend']} (NCCL refuses two ranks on one device) | {card}",
+          flush=True)
+
+    # -- a. JAX's dry run at its own 4x2 mesh.
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_DRYRUN_RANKS, device=dev, timeout=600)
+    per_rank = [r["train_launches"]["attention_single"]
+                + r["train_launches"]["attention_flash"]
+                for r in dry["launches"]]
+    serve_att = [r["serve_launches"]["attention_single"]
+                 + r["serve_launches"]["attention_flash"]
+                 for r in dry["launches"]]
+    tp_att = [r["tp_serve_launches"]["attention_single"]
+              + r["tp_serve_launches"]["attention_flash"]
+              for r in dry["launches"]]
+    print(f"dry run ({time.perf_counter() - t0:.1f} s, {MESH_DRYRUN_RANKS} "
+          f"ranks, {res['backend'][MESH_DRYRUN_RANKS]}): attention launches "
+          f"a rank: train step {per_rank}, serve tick {serve_att}, tp serve "
+          f"tick {tp_att} | {card}", flush=True)
+    if dry["mesh"] != [4, 2] or set(per_rank) != {12} or set(
+            serve_att) != {2} or set(tp_att) != {2}:
+        raise AssertionError(f"dry run: mesh {dry['mesh']}, launches "
+                             f"{dry['launches']}")
+    res["dryrun"] = {k: dry[k] for k in ("mesh", "loss", "loss_single",
+                                         "d_loss", "d_serve", "d_tp",
+                                         "launches")}
+
+    # -- b. the flagship SlotEngine on 1x1 (NCCL), then 2x1 and 1x2 on one
+    # pair of ranks.
+    res["serve"] = {}
+    served = {}
+    for n, shapes in ((1, [(1, 1)]), (2, [(2, 1), (1, 2)])):
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_serve_rank, n, shapes, dev.type, device=dev,
+                          timeout=300)
+        seconds = time.perf_counter() - t0
+        for name in ranks[0]:
+            served[name] = ([r[name] for r in ranks], seconds, n)
+    for name, (ranks, seconds, n) in served.items():
+        bound = (0.0, 0.0) if n == 1 else (CPU_BOX_TOL, CPU_SCORE_TOL)
+        flips = {(t, i): round(d, 4) for r in ranks
+                 for t, tick in enumerate(r["d_box"])
+                 for i, d in enumerate(tick) if d > bound[0]}
+        box = max((d for r in ranks for tick in r["d_box"] for d in tick
+                   if d <= bound[0]), default=0.0)
+        score = max(max(r["d_score"]) for r in ranks)
+        att = [r["launches"]["attention_single"] for r in ranks]
+        ticks_over = max((sum(1 for (t, _i) in flips if t == k)
+                          for k in range(MESH_TICKS)), default=0)
+        tie_flips = 0 if n == 1 else MESH_TIE_FLIPS
+        print(f"mesh {name} ({ranks[0]['backend']}, {seconds:.1f} s): "
+              f"{MESH_SLOTS} flagship slots of 1080p NV12, rows a rank "
+              f"{[r['rows'] for r in ranks]}, qkv columns a rank "
+              f"{[r['qkv_cols'] for r in ranks]}; {MESH_TICKS} ticks from the "
+              f"one engine's state: max|d bbox| {box:.4f} px over the slots "
+              f"within it, (tick, slot): |d bbox| beyond it {flips} (at most "
+              f"{tie_flips} a tick), max|d score| {score:.5f} (bound "
+              f"{bound[0]} px, {bound[1]}); kernel 3 "
+              f"launches a rank {att} (want {cfg.depth * MESH_TICKS}); "
+              f"SlotEngine.recover {[r['engine_recovered'] for r in ranks]}, "
+              f"ShardedStreamTracker.recover "
+              f"{[r['tracker_recovered'] for r in ranks]} | {card}",
+              flush=True)
+        if ticks_over > tie_flips or score > bound[1]:
+            raise AssertionError(f"mesh {name}: rows disagree with one engine")
+        if set(att) != {cfg.depth * MESH_TICKS} or not all(
+                r["engine_recovered"] and r["tracker_recovered"]
+                and r["tracker_finite"] for r in ranks):
+            raise AssertionError(f"mesh {name}: {ranks}")
+        if ranks[0]["backend"] != res["backend"][n]:
+            raise AssertionError(f"mesh {name}: backend {ranks[0]['backend']}")
+        res["serve"][name] = {"backend": ranks[0]["backend"], "d_box": box,
+                              "tie_flips": {f"{t}:{i}": d for (t, i), d in
+                                            flips.items()},
+                              "d_score": score, "kernel3_launches": att,
+                              "seconds": seconds}
+
+    # -- c. train_synthetic --mesh 2x2 against one process.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_train_rank, 4, os.path.join(tmp, "mesh.npz"),
+                          dev.type, device=dev, timeout=600)
+        seconds = time.perf_counter() - t0
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = train_synthetic.run(mesh_train_argv(os.path.join(
+                tmp, "one.npz"), dev.type))
+    mesh_losses = ranks[0]["losses"]
+    # Every rank's losses (the data mean each rank reads; the two model
+    # ranks of a data slice may differ in the last bits) against one
+    # process.
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["losses"], one.losses))
+    flash = [r["launches"]["attention_flash"] for r in ranks]
+    spread = max(max(step) - min(step)
+                 for step in zip(*(r["losses"] for r in ranks)))
+    print(ranks[0]["stdout"].rstrip())
+    print(f"train_synthetic --mesh 2x2 ({seconds:.1f} s, "
+          f"{res['backend'][4]}): rank 0's losses "
+          f"{[round(v, 6) for v in mesh_losses]}, ranks' largest spread "
+          f"{spread:.2e}"
+          f", one process {[round(v, 6) for v in one.losses]}, max relative "
+          f"difference {rel:.2e} (bound {TRAIN_LOSS_RTOL}); kernel 4 launches "
+          f"a rank {flash} (want {cfg.depth * MESH_TRAIN_STEPS}); saved npz "
+          f"equals the gathered params: {ranks[0]['saved_equal']} | {card}",
+          flush=True)
+    if any(r["rc"] != 0 or len(r["losses"]) != MESH_TRAIN_STEPS
+           for r in ranks):
+        raise AssertionError(f"train_synthetic --mesh 2x2: {ranks}")
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError("train_synthetic --mesh 2x2: the losses "
+                             "disagree with one process")
+    if not ranks[0]["saved_equal"]:
+        raise AssertionError("train_synthetic --mesh 2x2: the saved npz is "
+                             "not the gathered params")
+    if set(flash) != {cfg.depth * MESH_TRAIN_STEPS}:
+        raise AssertionError(f"train_synthetic --mesh 2x2: kernel 4 "
+                             f"launches {flash}")
+    res["train"] = {"losses": mesh_losses, "one_process": one.losses,
+                    "rel": rel, "kernel4_launches": flash,
+                    "seconds": seconds}
+
+    # -- d. the four scripts with short arguments.
+    res["scripts"] = {}
+    for mod, argv in ((ab_fused_prep, ["--reps", "3"]),
+                      (ab_grouped_head, ["--reps", "2"]),
+                      (probe_int8, ["--reps", "2", "--big-reps", "1"]),
+                      (probe_relay_fetch, [])):
+        t0 = time.perf_counter()
+        _, line, text, counts = script_json(mod, argv)
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(text.rstrip(), flush=True)
+        print(f"{name} ({time.perf_counter() - t0:.1f} s) kernel launches "
+              f"{counts} | {card}", flush=True)
+        line["launches"] = counts
+        res["scripts"][name] = line
+    if not res["scripts"]["ab_fused_prep"]["launches"]["fused_prep_embed"]:
+        raise AssertionError("ab_fused_prep: kernel 5 never launched")
+    if not res["scripts"]["probe_int8"]["int8_exact"]:
+        raise AssertionError("probe_int8: the int8 product is not exact")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"parallel and scripts: {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -2792,7 +3136,10 @@ def main() -> int:
     # -- 10. BASELINE config 5, the runtime, the scripts, checkpoints ------
     config5 = config5_phase(dev, card, params, cfg, cparams)
 
-    # -- 11. result lines --------------------------------------------------
+    # -- 11. parallel/ over ranks of this card, the A/B and probe scripts --
+    parallel = parallel_phase(dev, card)
+
+    # -- 12. result lines --------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -2813,6 +3160,8 @@ def main() -> int:
         "uhd_reps": UHD_REPS,
         "profile_scan_launches": config5["scripts"]["profile_scan"][
             "launches"]["vit_encoder"],
+        "ab_script_launches": {k: parallel["scripts"][k]["launches"][
+            "vit_encoder"] for k in ("ab_fused_prep", "ab_grouped_head")},
         **{k: enc[k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": enc["max_abs_err_f32_small"],
         "final_ln": enc["final_ln"],
@@ -2836,6 +3185,8 @@ def main() -> int:
             "launches"]["attention_single"],
         "profile_streams_launches": config5["scripts"]["profile_streams"][
             "launches"]["attention_single"],
+        "mesh_serve_launches_a_rank": {
+            k: v["kernel3_launches"] for k, v in parallel["serve"].items()},
         "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
@@ -2863,6 +3214,8 @@ def main() -> int:
         "launches_per_tick": flash_launches / LONG_TICKS,
         "train_launches": scored["train"]["launches"]["attention_flash"],
         "train_steps": TRAIN9_STEPS,
+        "mesh_train_launches_a_rank": parallel["train"]["kernel4_launches"],
+        "mesh_train_steps": MESH_TRAIN_STEPS,
         "variant": att_flash["variant"],
         "max_abs_err": att_flash["max_abs_err"],
         "ms": att_flash["ms"],
@@ -2895,6 +3248,8 @@ def main() -> int:
         "shape": [256, 192],
         "launches": fused["launches"],
         "launches_per_step": fused["launches"] / MAIN_STEPS,
+        "ab_fused_prep_launches": parallel["scripts"]["ab_fused_prep"][
+            "launches"]["fused_prep_embed"],
         "max_abs_err": prep["max_abs_err"],
         "max_abs_err_f32": prep["max_abs_err_f32"],
         "variant": prep["variant"],
@@ -2919,6 +3274,7 @@ def main() -> int:
     print(f"app summary: {json.dumps(app)}")
     print(f"train and score summary: {json.dumps(scored)}")
     print(f"config 5 summary: {json.dumps(config5)}")
+    print(f"parallel summary: {json.dumps(parallel)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,10 @@ HUD) with every preset of the JAX app (``corr-tiny``, ``small``,
 ``vittrack-t``), and the train-and-score loop: synthetic data, checkpoints,
 the independent eval world, ONNX import and export, the cv2 replica, FLOP
 accounting and the ``scripts.train_synthetic`` / ``scripts.eval_tracking``
-entry points.  What is left is listed in ROADMAP.md.
+entry points, ``parallel/`` (the data x model mesh on
+``torch.distributed``, tensor-parallel blocks, multi-rank serving and
+training, the multi-rank dry run) and every root script.  What is next is
+listed in ROADMAP.md.
 """
 
 from .config import PRESETS, AppConfig, ModelConfig

@@ -12,6 +12,11 @@ and the four products in PyTorch, attention through
 ``ops/attention.py::multihead_attention`` (the CUDA attention kernels on a
 CUDA tensor).  The final LN and the split back to search tokens stay
 outside both.
+
+Under a mesh whose model axis is wider than 1 (``parallel/mesh.py::
+use_mesh``) and on block shards (``parallel/sharding.py::shard_params``),
+every block takes :func:`_tp_block`, the per-block route with the
+Megatron collectives.
 """
 
 from __future__ import annotations
@@ -158,6 +163,55 @@ def _block(x: torch.Tensor, p: Params, num_heads: int,
     return x + linear(g, p["mlp2"])
 
 
+def _row_parallel(x: torch.Tensor, p: Params, group) -> torch.Tensor:
+    """A row-parallel product: this rank's partial ``x @ kernel`` in
+    float32, summed over the model group, the bias added once and rounded
+    to ``x.dtype`` once, as one device's ``addmm`` rounds."""
+    from ..parallel.tensor import reduce_from
+
+    part = torch.matmul(x.float(), p["kernel"].float())
+    return (reduce_from(part, group) + p["bias"].float()).to(x.dtype)
+
+
+def _tp_block(x: torch.Tensor, p: Params, num_heads: int, group,
+              use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """:func:`_block`'s per-block route on this rank's shards of ``p``:
+    qkv and mlp1 column-parallel, proj and mlp2 row-parallel with an
+    all-reduce after each.
+
+    qkv's column split is not head-aligned (the product lies ``[q | k |
+    v]``), so its shards are gathered and every model rank attends over
+    all heads, as the single-device route does (the attention kernel
+    launches on each); proj then reads this rank's rows of the result.
+    The row-parallel sums run in another order than one device's, in
+    float32 and rounded once (:func:`_row_parallel`)."""
+    from ..parallel import tensor as ptensor
+
+    dt = x.dtype
+    h = ptensor.copy_to(layer_norm(x, p["ln1"]), group)
+    qkv = ptensor.gather_from(_linear_native(h, p["qkv"]), group)
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    attn = multihead_attention(q, k, v, num_heads, use_kernel=use_kernel)
+    x = x + _row_parallel(ptensor.scatter_to(attn, group), p["proj"], group)
+    h = ptensor.copy_to(layer_norm(x, p["ln2"]), group)
+    g = F.gelu(_linear_native(h, p["mlp1"]).float(), approximate="tanh").to(dt)
+    return x + _row_parallel(g, p["mlp2"], group)
+
+
+def _tp_group(blocks, dim: int):
+    """The model group when a mesh with a model axis wider than 1 is in
+    context and ``blocks`` are its shards (qkv's columns split), else
+    None."""
+    from ..parallel.mesh import MODEL_AXIS, axis_size, current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or not blocks or axis_size(mesh, MODEL_AXIS) == 1:
+        return None
+    if blocks[0]["qkv"]["kernel"].shape[1] == 3 * dim:
+        return None             # whole params: every rank computes in full
+    return mesh.get_group(MODEL_AXIS)
+
+
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -209,13 +263,19 @@ def encode(params: Params, z_tok: torch.Tensor, x_tok: torch.Tensor,
     batch.  ``fused=False`` is the per-block route, which the batched
     callers (tracker/multi.py) pass: its attention goes through
     ``multihead_attention(use_kernel)``, the counterpart of JAX's
-    ``use_pallas``.
+    ``use_pallas``.  Under a tensor-parallel mesh on shards every block
+    takes :func:`_tp_block` (module docstring), whatever ``fused`` says.
     """
     dt = _cdtype(cfg)
     if fused is None:
         fused = x_tok.shape[0] == 1
     x = torch.cat([z_tok.to(dt), x_tok.to(dt)], dim=1)
-    if fused and params["blocks"]:     # depth 0 has no blocks to fuse
+    group = _tp_group(params["blocks"], cfg.embed_dim)
+    if group is not None:
+        for bp in params["blocks"]:
+            x = _tp_block(x, cast_params(bp, dt), cfg.num_heads, group,
+                          use_kernel=use_kernel)
+    elif fused and params["blocks"]:     # depth 0 has no blocks to fuse
         # The masters go in as they are: the encoder casts and stacks them
         # once per parameter set (on every call under a gradient).
         x = vit_block.encoder(x, params["blocks"], cfg.num_heads)

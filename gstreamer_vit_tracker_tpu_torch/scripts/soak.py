@@ -103,6 +103,30 @@ def _reserved(path: str) -> list:
     return [(float(t), int(b) / 2 ** 20) for t, b in rows if b]
 
 
+def quarter(samples, which: str):
+    """The median value of (t, value) ``samples`` over their second
+    quarter (``which="first"``: the first quarter is warm-up) or their last
+    quarter (``"last"``); None under 8 samples."""
+    vals = [v for t, v in samples]
+    n = len(vals)
+    if n < 8:
+        return None
+    q = max(2, n // 4)
+    chunk = sorted(vals[q:2 * q] if which == "first" else vals[-q:])
+    return chunk[len(chunk) // 2]
+
+
+def fps_steady(fps_prints, drift_frac: float):
+    """The fps-drift check on the app's (t, fps) prints: (first-quarter
+    fps, last-quarter fps, whether the last is at least ``1 - drift_frac``
+    of the first).  It bounds a collapse, not jitter: on a host shared
+    with other busy processes the prints measure the neighbours as well."""
+    first, last = quarter(fps_prints, "first"), quarter(fps_prints, "last")
+    ok = (first is not None and last is not None
+          and last >= (1.0 - drift_frac) * first)
+    return first, last, ok
+
+
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=12000)
@@ -205,21 +229,11 @@ def main(argv=None) -> int:
     reserved = _reserved(mem_log)
     tmp.cleanup()
 
-    def quarter(samples, which):
-        vals = [v for t, v in samples]
-        n = len(vals)
-        if n < 8:
-            return None
-        q = max(2, n // 4)
-        chunk = sorted(vals[q:2 * q] if which == "first" else vals[-q:])
-        return chunk[len(chunk) // 2]        # median; 'first' skips warmup
-
     steady = [(t, v) for t, v in rss_samples
               if warm_t is not None and t >= warm_t]
     rss_first = quarter(steady, "first")
     rss_last = quarter(steady, "last")
-    fps_first = quarter(fps_prints, "first")
-    fps_last = quarter(fps_prints, "last")
+    fps_first, fps_last, fps_ok = fps_steady(fps_prints, args.fps_drift_frac)
     # Build churn: kernel libraries appearing in the SECOND half.
     builds_mid = (build_samples[len(build_samples) // 2][1]
                   if build_samples else 0)
@@ -246,9 +260,7 @@ def main(argv=None) -> int:
                                     or reacquired >= 1),
         "rss_steady": (rss_first is not None and rss_last is not None
                        and rss_last - rss_first <= args.rss_growth_mb),
-        "fps_steady": (fps_first is not None and fps_last is not None
-                       and fps_last >= (1.0 - args.fps_drift_frac)
-                       * fps_first),
+        "fps_steady": fps_ok,
         "no_late_builds": builds_end - builds_mid == 0,
         # On the CPU the app reserves nothing on a card: nothing to grow.
         "reserved_steady": (args.cpu or (

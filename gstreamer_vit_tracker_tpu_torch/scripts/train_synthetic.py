@@ -1,14 +1,25 @@
 """Train the conv-head VitTrack model on synthetic data and save weights.
 
-Port of ``scripts/train_synthetic.py``, with the same flags (less
-``--mesh``: the port has no ``parallel/`` yet), defaults, prints and exit
-codes.  Usage:
+Port of ``scripts/train_synthetic.py``, with the same flags, defaults,
+prints and exit codes.  Usage:
 
     python -m gstreamer_vit_tracker_tpu_torch.scripts.train_synthetic \
         --steps 2000 --batch 32 --out weights_synthetic.npz [--preset small]
 
 It runs on the card; ``--cpu`` runs the port's plain versions on the CPU.
 Without ``--cpu`` and without a card it exits 1 with a message.
+
+``--mesh DPxTP`` (or ``auto``: ``factor_mesh`` of the ranks) trains over a
+(data x model) mesh of ranks, one process a rank as ``torchrun`` starts
+them (``parallel/mesh.py::init_group``; a process already in a group uses
+it):
+
+    torchrun --nproc-per-node 4 -m \
+        gstreamer_vit_tracker_tpu_torch.scripts.train_synthetic --mesh auto
+
+Params take the Megatron layout of ``parallel/sharding.py``, every rank
+draws the whole batch and steps its data slice (``train_scan``), and rank
+0 alone prints and saves the gathered checkpoint.
 
 The host pre-generates a uint8 crop dataset once (``train/data.py``),
 moves it to the device, and ``train.step.train_scan`` samples, augments and
@@ -38,6 +49,8 @@ import torch
 from ..config import PRESETS as _CONFIG_PRESETS
 from ..device import resolve_device, true_float32
 from ..models import vittrack, weights
+from ..parallel import sharding
+from ..parallel.mesh import use_mesh
 from ..train import data
 from ..train.step import (Optimizer, TrainState, create_train_state,
                           make_optimizer, train_scan)
@@ -90,6 +103,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU (the port's plain versions; "
                          "slow, short fine-tunes only)")
+    ap.add_argument("--mesh", default="",
+                    help="train over a DPxTP mesh of ranks, e.g. '2x4' "
+                         "(parallel/mesh.py): params laid out by "
+                         "param_pspec, batches split over the data axis. "
+                         "'auto' factors all ranks. One process when "
+                         "empty.")
     ap.add_argument("--log-every", type=int, default=100,
                     help="steps per chunk / log line")
     ap.add_argument("--save-every", type=int, default=1000,
@@ -113,7 +132,8 @@ class TrainReport:
     floats, read back once a chunk), the host seconds spent generating
     data, the samples/s of the last log line, the final state, and what
     the run was made of (the first dataset as uint8 numpy stacks, the
-    config and the optimizer) so a caller can repeat its steps."""
+    config, the optimizer, and under ``--mesh`` the mesh, whose ranks hold
+    shards of the state) so a caller can repeat its steps."""
 
     rc: int
     losses: List[float] = dataclasses.field(default_factory=list)
@@ -123,6 +143,7 @@ class TrainReport:
     dataset: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
     cfg: Any = None
     opt: Optional[Optimizer] = None
+    mesh: Any = None
 
 
 def main(argv=None) -> int:
@@ -145,13 +166,34 @@ def run(argv=None) -> TrainReport:
     # small models from scratch converges measurably worse, while bf16
     # *inference* of f32-trained weights is loss-free.
     cfg = dataclasses.replace(PRESETS[args.preset], dtype="float32")
+    mesh = None
+    if args.mesh:
+        from ..parallel import factor_mesh, make_mesh
+        from ..parallel.mesh import init_group
+
+        init_group(dev)
+        world = torch.distributed.get_world_size()
+        if args.mesh == "auto":
+            dp, tp = factor_mesh(world)
+        else:
+            dp, tp = (int(v) for v in args.mesh.lower().split("x"))
+        mesh = make_mesh((dp, tp), device=dev)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+
+    def say(*a, **k):
+        if lead:
+            print(*a, **k)
+
     params = vittrack.init_params(torch.Generator().manual_seed(args.seed),
                                   cfg, device=dev)
     if args.init_from:
         params = weights.load_npz(args.init_from, cfg, device=dev)
-        print(f"warm-start from {args.init_from}", flush=True)
-    print(f"preset {args.preset}: {vittrack.count_params(params):,} params, "
-          f"backend {dev.type}", flush=True)
+        say(f"warm-start from {args.init_from}", flush=True)
+    say(f"preset {args.preset}: {vittrack.count_params(params):,} params, "
+        f"backend {dev.type}", flush=True)
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh)
+        say(f"mesh: dp={dp} x tp={tp} over {dp * tp} devices", flush=True)
 
     opt = make_optimizer(args.lr, total_steps=args.steps,
                          warmup_steps=warmup, clip_norm=args.clip)
@@ -159,7 +201,7 @@ def run(argv=None) -> TrainReport:
     gen = torch.Generator().manual_seed(args.seed + 1)
 
     data.set_diversity(args.data_diversity)
-    report = TrainReport(rc=0, cfg=cfg, opt=opt)
+    report = TrainReport(rc=0, cfg=cfg, opt=opt, mesh=mesh)
 
     def gen_dataset(seed):
         t = time.perf_counter()
@@ -170,21 +212,26 @@ def run(argv=None) -> TrainReport:
                                fade_frac=args.fade_frac)
         seconds = time.perf_counter() - t
         report.data_seconds += seconds
-        print(f"dataset: {args.dataset_size} samples "
-              f"({seconds:.0f}s host gen)", flush=True)
+        say(f"dataset: {args.dataset_size} samples "
+            f"({seconds:.0f}s host gen)", flush=True)
         if report.dataset is None:
             report.dataset = ds
         return tuple(torch.as_tensor(a, device=dev) for a in ds)
 
     ds = gen_dataset(args.seed)
 
+    def whole(tree):
+        return tree if mesh is None else sharding.gather_params(tree, mesh)
+
     def save():
         dt = np.float16 if args.save_fp16 else None
+        trees = [(args.out, whole(state.params))]
         if state.ema_params is not None:
-            weights.save_npz(args.out, state.ema_params, dtype=dt)
-            weights.save_npz(args.out + ".raw.npz", state.params, dtype=dt)
-        else:
-            weights.save_npz(args.out, state.params, dtype=dt)
+            trees = [(args.out, whole(state.ema_params)),
+                     (args.out + ".raw.npz", trees[0][1])]
+        if lead:
+            for path, tree in trees:
+                weights.save_npz(path, tree, dtype=dt)
 
     t0 = time.perf_counter()
     done = 0
@@ -193,9 +240,10 @@ def run(argv=None) -> TrainReport:
                 and done % args.refresh_every == 0):
             ds = gen_dataset(args.seed + 1 + done)
         n = min(args.log_every, args.steps - done)
-        state, gen, ls, parts = train_scan(
-            state, *ds, gen, cfg, opt, n_steps=n, batch=args.batch,
-            ema_decay=args.ema, augment=not args.no_augment, device=dev)
+        with use_mesh(mesh):
+            state, gen, ls, parts = train_scan(
+                state, *ds, gen, cfg, opt, n_steps=n, batch=args.batch,
+                ema_decay=args.ema, augment=not args.no_augment, device=dev)
         done += n
         ls = ls.cpu().numpy()
         report.losses.extend(float(v) for v in ls)
@@ -203,16 +251,16 @@ def run(argv=None) -> TrainReport:
         p = {k: float(v[-10:].mean()) for k, v in parts.items()}
         rate = done * args.batch / (time.perf_counter() - t0)
         report.samples_per_s = rate
-        print(f"step {done:6d}  loss {loss:.4f}  "
-              f"focal {p['focal']:.3f} l1o {p['l1_offset']:.3f} "
-              f"l1s {p['l1_size']:.3f} giou {p['giou']:.3f}  "
-              f"({rate:.0f} samples/s)", flush=True)
+        say(f"step {done:6d}  loss {loss:.4f}  "
+            f"focal {p['focal']:.3f} l1o {p['l1_offset']:.3f} "
+            f"l1s {p['l1_size']:.3f} giou {p['giou']:.3f}  "
+            f"({rate:.0f} samples/s)", flush=True)
         if not np.isfinite(loss):
             raise FloatingPointError("training diverged")
         if args.save_every and done % args.save_every == 0:
             save()
     save()
-    print(f"saved {args.out}")
+    say(f"saved {args.out}")
     report.state = state
     return report
 

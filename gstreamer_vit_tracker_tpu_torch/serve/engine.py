@@ -13,8 +13,17 @@ the last snapshot come back dead: their clients must re-init (the server
 reports this).
 
 Frames come in any of the protocol's formats (``nv12``, ``yuy2``, ``rgb``),
-one per engine.  Serving over several cards (the JAX engine's ``mesh``)
-comes with the port of ``parallel/``.
+one per engine.
+
+Serving over several ranks (``mesh=``, as in JAX): every rank of the mesh
+runs an engine with the same arguments and makes the same calls.  The slot
+axis shards over the mesh ``data`` axis: a rank holds and steps the state
+of its slice of the slots, and :meth:`SlotEngine.step` gathers the packed
+rows, so every rank returns the full (S, 5) result.  On a pure-data mesh
+the params are replicated (no collective inside the tick); on a dp x tp
+mesh they take the Megatron layout (``parallel/sharding.py``) and the
+encoder's blocks run tensor-parallel over ``model``
+(``models/vit.py::_tp_block``).  The slot count must tile the data axis.
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
+from ..parallel import mesh as pmesh
+from ..parallel import sharding
+from ..parallel.tensor import all_gather_cat
 from ..tracker import core, multi
 from ..tracker.multi import _batched_cfg
 from ..tracker.state import TrackState, zeros_state
@@ -80,11 +92,12 @@ class SlotEngine:
 
     Not thread-safe by itself: the server serialises all calls (``lock``).
     The engine's state is updated in place by :meth:`init_slot`; what it
-    keeps of a caller's frame or bbox is a copy."""
+    keeps of a caller's frame or bbox is a copy.  Under a mesh ``state``
+    holds this rank's slots only (``rows`` of the S)."""
 
     def __init__(self, params: Params, cfg: ModelConfig, slots: int,
                  frame_format: str = "nv12", snapshot_every: int = 60,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if frame_format not in protocol.FORMATS:
             raise ValueError(f"unknown frame format {frame_format!r}")
         self.cfg = cfg
@@ -92,6 +105,16 @@ class SlotEngine:
         self.frame_format = frame_format
         self.snapshot_every = snapshot_every
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rows = range(slots)
+        if mesh is not None:
+            # Slots tile the DATA axis (the model axis does not split them).
+            dp = pmesh.axis_size(mesh, pmesh.DATA_AXIS)
+            if slots % dp != 0:
+                raise ValueError(f"slots={slots} must be a multiple of the "
+                                 f"mesh data-axis size {dp}")
+            r, n = mesh.get_local_rank(pmesh.DATA_AXIS), slots // dp
+            self.rows = range(r * n, (r + 1) * n)
         self._host_params = _tree_to(params, torch.device("cpu"))
         self.params = self._place_params()
         self.state: TrackState = self._zero_state()
@@ -103,20 +126,25 @@ class SlotEngine:
         self.lock = threading.Lock()
 
     def _place_params(self) -> Params:
-        """The host master params on the device.  The blocks, which the
-        model casts to its compute dtype at every use, are cast here once
-        (the same rounding, 144 fewer copies a tick for the flagship)."""
-        params = _tree_to(self._host_params, self.device)
+        """The host master params on the device (this rank's shards on a
+        mesh with a model axis wider than 1).  The blocks, which the model
+        casts to its compute dtype at every use, are cast here once (the
+        same rounding, 144 fewer copies a tick for the flagship)."""
+        host = self._host_params
+        if self.mesh is not None and pmesh.axis_size(
+                self.mesh, pmesh.MODEL_AXIS) > 1:
+            host = sharding.shard_params(host, self.mesh)
+        params = _tree_to(host, self.device)
         backbone = dict(params["backbone"])
         backbone["blocks"] = _tree_to(
-            self._host_params["backbone"]["blocks"], self.device,
+            host["backbone"]["blocks"], self.device,
             torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32)
         params["backbone"] = backbone
         return params
 
     def _zero_state(self) -> TrackState:
         z = zeros_state(self.cfg, device=self.device)
-        return TrackState(*(torch.zeros((self.slots, 1) + t.shape,
+        return TrackState(*(torch.zeros((len(self.rows), 1) + t.shape,
                                         dtype=t.dtype, device=self.device)
                             for t in z))
 
@@ -132,11 +160,13 @@ class SlotEngine:
 
     def init_slot(self, slot: int, frame, bbox) -> None:
         """Start a track in ``slot``: ``core.init`` with the batched config
-        (band off), written into row ``slot`` of the (S, 1, ...) state."""
-        new = core.init(self.params, frame, bbox, _batched_cfg(self.cfg),
-                        self.frame_format, self.device)
-        for batched, leaf in zip(self.state, new):
-            batched[slot, 0] = leaf.to(batched.dtype)
+        (band off), written into row ``slot`` of the (S, 1, ...) state (on
+        a mesh, by the ranks that hold that slot)."""
+        if slot in self.rows:
+            new = core.init(self.params, frame, bbox, _batched_cfg(self.cfg),
+                            self.frame_format, self.device)
+            for batched, leaf in zip(self.state, new):
+                batched[slot - self.rows.start, 0] = leaf.to(batched.dtype)
         self.occupied[slot] = True
         if self._snapshot is None:
             self.snapshot()
@@ -158,12 +188,18 @@ class SlotEngine:
         self._ticks += 1
         if self.snapshot_every and self._ticks % self.snapshot_every == 0:
             self.snapshot()
-        active = torch.as_tensor((tick_active & self.occupied)[:, None],
+        rows = slice(self.rows.start, self.rows.stop)
+        active = torch.as_tensor((tick_active & self.occupied)[rows, None],
                                  device=self.device)
-        self.state, bboxes, scores = multi.update_streams(
-            self.params, self.state, self._place_frames(frames), active,
-            self.cfg, self.frame_format, device=self.device)
-        return PackedTick(torch.cat([bboxes[:, 0, :], scores], dim=1))
+        with pmesh.use_mesh(self.mesh):
+            self.state, bboxes, scores = multi.update_streams(
+                self.params, self.state, self._place_frames(frames), active,
+                self.cfg, self.frame_format, device=self.device)
+        packed = torch.cat([bboxes[:, 0, :], scores], dim=1)
+        if self.mesh is not None:
+            packed = all_gather_cat(packed, 0,
+                                    self.mesh.get_group(pmesh.DATA_AXIS))
+        return PackedTick(packed)
 
     def step(self, frames, tick_active: np.ndarray) -> np.ndarray:
         """One SYNCHRONOUS batched tick.  ``frames`` are full (S, ...) host
@@ -174,11 +210,13 @@ class SlotEngine:
         return np.asarray(self.step_async(frames, tick_active))
 
     def _place_frames(self, frames):
-        """Host (S, ...) planes onto the device; from pinned memory the
-        upload is asynchronous."""
+        """Host (S, ...) planes onto the device (this rank's rows of them);
+        from pinned memory the upload is asynchronous."""
         if self.frame_format != "nv12" and not isinstance(frames, tuple):
             frames = (frames,)
-        return tuple(torch.as_tensor(p).to(self.device, non_blocking=True)
+        rows = slice(self.rows.start, self.rows.stop)
+        return tuple(torch.as_tensor(p)[rows].to(self.device,
+                                                 non_blocking=True)
                      for p in frames)
 
     # -- fault recovery ------------------------------------------------------

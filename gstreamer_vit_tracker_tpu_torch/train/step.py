@@ -19,6 +19,13 @@ on the card its attention goes through ``ops/attention.py::flash_attention``
 read back to the host; :func:`train_scan` is a Python loop that returns the
 per-step losses stacked, like the port's tracking scans.  Random draws take
 an explicit ``torch.Generator``.
+
+Under a mesh (``parallel/mesh.py::use_mesh``) a rank holds its shards of
+the params (``parallel/sharding.py::shard_params``) and steps its slice of
+the batch: the gradients, the loss and its parts are averaged over the
+``data`` group, and clipping reads the norm of the whole gradient
+(``parallel/sharding.py::sq_norm``), so a mesh step computes what one
+process computes on the whole batch.
 """
 
 from __future__ import annotations
@@ -120,7 +127,7 @@ class Optimizer:
         is not below it (a ``where``, no host read)."""
         if not self.clip_norm:
             return grads
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+        g_norm = torch.sqrt(_sq_norm(grads))
         keep = g_norm < self.clip_norm
         return tree_map(
             lambda g: torch.where(keep, g, (g / g_norm) * self.clip_norm),
@@ -143,6 +150,18 @@ class Optimizer:
             return step_size * (direction + self.weight_decay * p)
 
         return tree_map(leaf, mu, nu, params), OptState(count, mu, nu)
+
+
+def _sq_norm(grads: Params) -> torch.Tensor:
+    """The squared global norm of ``grads``; of the whole gradient when
+    they are shards under a tensor-parallel mesh."""
+    from ..parallel.mesh import current_mesh
+    from ..parallel.sharding import sq_norm
+
+    mesh = current_mesh()
+    if mesh is None:
+        return sum(torch.sum(g * g) for g in tree_leaves(grads))
+    return sq_norm(grads, mesh)
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4, *,
@@ -188,12 +207,31 @@ def loss_fn(params: Params, z_imgs: torch.Tensor, x_imgs: torch.Tensor,
     return total.mean(), {k: v.mean() for k, v in parts.items()}
 
 
+def _data_mean(grads: list, loss, parts):
+    """Under a mesh, average ``grads`` (in place in the list), the loss and
+    its parts over the ``data`` group: two all-reduces."""
+    from ..parallel.mesh import current_mesh
+    from ..parallel.sharding import data_mean
+
+    mesh = current_mesh()
+    if mesh is None:
+        return loss, parts
+    grads[:] = data_mean(list(grads), mesh)
+    names = sorted(parts)
+    vals = data_mean([torch.stack([loss] + [parts[k] for k in names])],
+                     mesh)[0]
+    return vals[0], dict(zip(names, vals[1:]))
+
+
 def _step_impl(state: TrainState, z_imgs, x_imgs, gts, cfg: ModelConfig,
                opt: Optimizer, use_kernel: Optional[bool], ema_decay: float):
     params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
     loss, parts = loss_fn(params, z_imgs, x_imgs, gts, cfg, use_kernel)
     leaves = tree_leaves(params)
-    flat = iter(torch.autograd.grad(loss, leaves))
+    flat = list(torch.autograd.grad(loss, leaves))
+    with torch.no_grad():
+        loss, parts = _data_mean(flat, loss, parts)
+    flat = iter(flat)
     grads = tree_map(lambda _p: next(flat), params)
     with torch.no_grad():
         updates, new_opt = opt.update(grads, state.opt_state, state.params)
@@ -277,7 +315,15 @@ def train_scan(state: TrainState, ds_z, ds_x, ds_gt, gen: torch.Generator,
     their boxes, moved to the device once; each step draws a
     with-replacement minibatch from ``gen`` (first the indices, then the
     augmentation's draws), augments, normalises and steps.  Returns (state,
-    gen, losses (n_steps,), parts {name: (n_steps,)})."""
+    gen, losses (n_steps,), parts {name: (n_steps,)}).
+
+    Under a mesh every rank draws the whole batch of ``batch`` from the
+    same generator and steps its ``data`` slice of it (module
+    docstring)."""
+    from ..parallel.mesh import current_mesh
+    from ..parallel.sharding import shard_batch
+
+    mesh = current_mesh()
     dev = resolve_device(device)
     ds_z, ds_x, ds_gt = (torch.as_tensor(t, device=dev)
                          for t in (ds_z, ds_x, ds_gt))
@@ -292,6 +338,8 @@ def train_scan(state: TrainState, ds_z, ds_x, ds_gt, gen: torch.Generator,
         else:
             z = _normalise(z.to(torch.float32) / 255.0, mean, std)
             x = _normalise(x.to(torch.float32) / 255.0, mean, std)
+        if mesh is not None:
+            z, x, gt = shard_batch((z, x, gt), mesh)
         state, loss, part = _step_impl(state, z, x, gt, cfg, opt, use_kernel,
                                        ema_decay)
         ls.append(loss)

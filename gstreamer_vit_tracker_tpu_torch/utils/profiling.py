@@ -53,13 +53,34 @@ def call_ms(fn: Callable[[], object], device) -> float:
 def marginal_ms(run: Callable[[int], object], lo: int, hi: int,
                 device) -> float:
     """Per-step ms of ``run(n)`` (n steps) as the slope between ``lo`` and
-    ``hi`` steps, each the best of two after a warm-up of both: what a
-    step adds, free of the run's set-up and its final read."""
+    ``hi`` steps after a warm-up of both: what a step adds, free of the
+    run's set-up and its final read.
+
+    On a card the slope is of device time (:func:`device_slope`), as JAX's
+    scripts difference two rep counts of one device program: the host's
+    launch time of an eager loop does not enter it.  On the CPU it is the
+    host clock, each count the best of two."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return device_slope(run, lo, hi)[0]
     run(lo)
     run(hi)
     a = min(call_ms(lambda: run(lo), device) for _ in range(2))
     b = min(call_ms(lambda: run(hi), device) for _ in range(2))
     return (b - a) / (hi - lo)
+
+
+def device_slope(run: Callable[[int], object], lo: int, hi: int):
+    """(marginal device ms a step between ``lo`` and ``hi`` steps, device
+    ms a step over ``lo`` steps, the set-up included) of ``run(n)`` on the
+    card, from one :func:`device_ms` run at each count after a warm-up of
+    both (device time does not need the host clock's best of two)."""
+    run(lo)
+    run(hi)
+    a = device_ms(lambda: run(lo), 1)
+    b = device_ms(lambda: run(hi), 1)
+    return (b - a) / (hi - lo), a / lo
 
 
 def device_ms(fn: Callable[[], object], per: int) -> float:

@@ -8,7 +8,7 @@
   JAX's ``train_step`` on the same normalised crops (the dataset rows its
   CPU generator drew): loss rtol 1e-4, parts rtol 1e-4 / atol 1e-6,
   parameters within 3 x lr (the tolerances of ``test_torch_train.py``);
-* its prints, flags and defaults are the JAX script's (less ``--mesh``);
+* its prints, flags and defaults are the JAX script's (``--mesh`` included);
   without ``--cpu`` and without a card it exits 1 with a message.
 """
 
@@ -152,16 +152,17 @@ def _jax_parser(monkeypatch):
 
 
 def test_flags_and_defaults_equal_jax_less_mesh(monkeypatch):
+    # Since the port of parallel/ the port has --mesh too: every flag and
+    # default equals JAX's, --mesh included.
     def table(ap):
         return sorted((a.dest, tuple(a.option_strings), a.default,
                        tuple(a.choices) if a.choices else None, a.type,
-                       a.nargs, a.const) for a in ap._actions
-                      if a.dest != "mesh")
+                       a.nargs, a.const) for a in ap._actions)
 
     jap = _jax_parser(monkeypatch)
     assert "mesh" in {a.dest for a in jap._actions}
     tap = ttrain.build_argparser()
-    assert "mesh" not in {a.dest for a in tap._actions}
+    assert "mesh" in {a.dest for a in tap._actions}
     assert table(tap) == table(jap)
     assert sorted(ttrain.PRESETS) == sorted(jtrain.PRESETS)
     for name, cfg in ttrain.PRESETS.items():

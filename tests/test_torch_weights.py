@@ -233,6 +233,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "gstreamer_vit_tracker_tpu_torch/scripts/export_vittrack_onnx.py",
                  "gstreamer_vit_tracker_tpu_torch/scripts/import_vittrack_onnx.py",
                  "gstreamer_vit_tracker_tpu_torch/scripts/agreement_cv2.py",
+                 "gstreamer_vit_tracker_tpu_torch/parallel/mesh.py",
+                 "gstreamer_vit_tracker_tpu_torch/parallel/sharding.py",
+                 "gstreamer_vit_tracker_tpu_torch/parallel/serving.py",
+                 "gstreamer_vit_tracker_tpu_torch/parallel/tensor.py",
+                 "gstreamer_vit_tracker_tpu_torch/parallel/launch.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/ab_fused_prep.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/ab_grouped_head.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/probe_int8.py",
+                 "gstreamer_vit_tracker_tpu_torch/scripts/probe_relay_fetch.py",
                  "chip_smoke.py"):
         assert must in names, must
     bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|"
