@@ -175,7 +175,16 @@ Phases, in order; any failure raises and exits non-zero:
       ``probe_relay_fetch`` through ``main(argv)`` with short arguments,
       each exiting 0 with its JSON line (kernel 5 launched by the first,
       the int8 product exact in the third);
-12. prints the card line, then one ``{"kernels": [...]}`` line, then the
+12. the port's bench, ``gstreamer_vit_tracker_tpu_torch/bench.py``, through
+   ``run(argv)`` in this process with every config on and the counts cut
+   (``BENCH_ARGV``): exit 0, no ``*_error`` key, every key of its line
+   present, every number finite and positive; each config's kernel
+   launches exactly ``bench_launches`` (kernel 1 once a tracked frame of
+   the headline, loop, uhd, rgb, yuy2 and ingest configs, kernel 3 depth
+   times a batched step of the stream, object and serve configs, warm-up
+   runs included, nothing else), and the process's counters equal to
+   their sum; its line and seconds;
+13. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -2949,6 +2958,95 @@ def parallel_phase(dev, card: str) -> dict:
     return res
 
 
+# Phase 12: the bench with every config on, the counts cut to keep it near
+# half a minute (bench.py's defaults otherwise: a pool of 16, 16 streams, 8
+# objects, 16 slots, best of 2 timed runs).
+BENCH_FRAMES, BENCH_LOOP = 120, 50
+BENCH_ARGV = ["--frames", str(BENCH_FRAMES), "--loop-frames", str(BENCH_LOOP)]
+# The keys of its line: the JAX bench's, with bench.py's substitutions.
+BENCH_TEXT_KEYS = ("metric", "unit", "backend", "model", "uhd_hud",
+                   "gpu_name", "gpu_power_limit")
+BENCH_NUMBER_KEYS = (
+    "value", "scan_step_ms_mean", "python_loop_fps", "sync_p50_ms",
+    "sync_p99_ms", "gflop_per_frame", "achieved_tflops", "mfu_vs_h100_bf16",
+    "stream_fps_total", "streams", "stream_gflop_per_frame",
+    "stream_achieved_tflops", "stream_mfu_vs_h100_bf16",
+    "object_tracks_per_s", "objects", "uhd_fps", "uhd_gflop_per_frame",
+    "uhd_achieved_tflops", "uhd_mfu_vs_h100_bf16", "rgb_1080p_fps",
+    "yuy2_640x512_fps", "serve_fps", "serve_ticks_per_s", "serve_slots",
+    "serve_fps_pipelined", "serve_ticks_per_s_pipelined",
+    "serve_pipeline_depth", "ingest_fps", "ingest_mb_s", "h2d_mb_s")
+
+
+def bench_launches(depth: int) -> dict:
+    """The kernel launches each config of ``BENCH_ARGV`` makes.  kernel 1
+    once a tracked frame: the headline's warm-up run and two timed runs of
+    BENCH_FRAMES steps; the loop's warm-up step, its chained and its synced
+    runs; uhd's, rgb's and yuy2's warm-up and two timed runs; ingest's
+    warm-up step and its run (at most 200 steps).  kernel 3 ``depth`` times
+    a batched step: stream's and object's three runs of at most 300 steps;
+    serve's warm-up tick, two timed runs of ticks, a warm-up and two timed
+    runs of pipelined ticks.  Nothing else launches: the inits embed the
+    template only."""
+    n = BENCH_FRAMES
+    batched = min(n, 300)
+    ticks = max(10, min(50, n // 10))
+    encoder = {"headline": 3 * n, "loop": 1 + 2 * min(n, BENCH_LOOP),
+               "uhd": 3 * min(n, 200), "rgb": 3 * n, "yuy2": 3 * n,
+               "ingest": 1 + min(n, 200)}
+    attention = {"stream": 3 * batched, "object": 3 * batched,
+                 "serve": 1 + 5 * ticks}
+    zero = {"vit_encoder": 0, "vit_block": 0, "attention_single": 0,
+            "attention_flash": 0, "fused_prep_embed": 0}
+    out = {k: dict(zero, vit_encoder=v) for k, v in encoder.items()}
+    out.update({k: dict(zero, attention_single=depth * v)
+                for k, v in attention.items()})
+    return out
+
+
+def bench_phase(card: str, depth: int) -> dict:
+    """The port's bench on the card, in this process (phase 12)."""
+    from gstreamer_vit_tracker_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    out = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(out):
+        rc, line = bench.run(BENCH_ARGV)
+    total = read_counts()
+    seconds = time.perf_counter() - t_phase
+    print(out.getvalue().rstrip(), flush=True)
+    errors = {k: v for k, v in line.items() if k.endswith("_error")}
+    if rc != 0 or errors:
+        raise AssertionError(f"bench {BENCH_ARGV} exited {rc}: {errors}")
+    missing = [k for k in BENCH_TEXT_KEYS + BENCH_NUMBER_KEYS + (
+        "runs_s", "launches") if k not in line]
+    if missing:
+        raise AssertionError(f"bench line lacks {missing}")
+    bad = [k for k in BENCH_NUMBER_KEYS
+           if not (isinstance(line[k], (int, float))
+                   and np.isfinite(line[k]) and line[k] > 0)]
+    bad += [k for k in BENCH_TEXT_KEYS
+            if not (isinstance(line[k], str) and line[k])]
+    bad += [k for k, walls in line["runs_s"].items()
+            if not walls or min(walls) <= 0]
+    if bad:
+        raise AssertionError(f"bench keys not finite and positive: {bad}")
+    if line["backend"] != "cuda":
+        raise AssertionError(f"bench ran on {line['backend']}")
+    want = bench_launches(depth)
+    if line["launches"] != want:
+        raise AssertionError(f"bench launches {line['launches']} != {want}")
+    summed = {k: sum(c[k] for c in want.values()) for k in total}
+    if total != summed:
+        raise AssertionError(f"bench launched {total} in all, its configs "
+                             f"{summed}")
+    print(f"bench ({' '.join(BENCH_ARGV)}): every config exited clean, "
+          f"launches as stated ({summed}); {seconds:.1f} s | {card}",
+          flush=True)
+    return {"line": line, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3139,7 +3237,10 @@ def main() -> int:
     # -- 11. parallel/ over ranks of this card, the A/B and probe scripts --
     parallel = parallel_phase(dev, card)
 
-    # -- 12. result lines --------------------------------------------------
+    # -- 12. the port's bench ------------------------------------------------
+    benched = bench_phase(card, cfg.depth)
+
+    # -- 13. result lines --------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -3162,6 +3263,8 @@ def main() -> int:
             "launches"]["vit_encoder"],
         "ab_script_launches": {k: parallel["scripts"][k]["launches"][
             "vit_encoder"] for k in ("ab_fused_prep", "ab_grouped_head")},
+        "bench_launches": {k: v["vit_encoder"] for k, v in benched[
+            "line"]["launches"].items() if v["vit_encoder"]},
         **{k: enc[k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": enc["max_abs_err_f32_small"],
         "final_ln": enc["final_ln"],
@@ -3187,6 +3290,8 @@ def main() -> int:
             "launches"]["attention_single"],
         "mesh_serve_launches_a_rank": {
             k: v["kernel3_launches"] for k, v in parallel["serve"].items()},
+        "bench_launches": {k: v["attention_single"] for k, v in benched[
+            "line"]["launches"].items() if v["attention_single"]},
         "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
@@ -3275,6 +3380,7 @@ def main() -> int:
     print(f"train and score summary: {json.dumps(scored)}")
     print(f"config 5 summary: {json.dumps(config5)}")
     print(f"parallel summary: {json.dumps(parallel)}")
+    print(f"bench: {benched['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,10 @@ What ``torchrun --nproc-per-node n`` does for a script, for a function:
 (``parallel/mesh.py::init_group``, rendezvous through a file in a fresh
 temporary directory, so concurrent callers never share a port), runs
 ``fn(rank, n, *args)`` on one intra-op thread, and sends back what ``fn``
-returns.  A rank that raises fails the call with its traceback; a call
-that outlives ``timeout`` (a collective that hangs) raises, and the ranks
-still running are killed.  ``fn`` and its arguments cross by pickle, so
+returns.  A rank that raises fails the call with its traceback, a rank
+whose process ends without a result fails it within a second; a call that
+outlives ``timeout`` (a collective that hangs) raises, and the ranks still
+running are killed.  ``fn`` and its arguments cross by pickle, so
 ``fn`` is a module-level function.
 """
 
@@ -43,6 +44,27 @@ def _rank_main(fn, rank, n, device, init_method, args, out) -> None:
             dist.destroy_process_group()
 
 
+def _check_alive(procs, results, out, fn) -> None:
+    """Raise if a rank's process ended without sending a result (it died
+    before ``fn`` could return or raise, e.g. in its start-up).  A rank
+    writes its result before it exits, so what is still in the pipe is read
+    first."""
+    ended = [r for r, p in enumerate(procs) if p.exitcode is not None]
+    while True:
+        try:
+            rank, ok, value = out.get_nowait()
+        except queue.Empty:
+            break
+        if not ok:
+            raise RuntimeError(f"rank {rank} of {fn.__name__} failed:\n"
+                               f"{value}")
+        results[rank] = value
+    dead = {r: procs[r].exitcode for r in ended if r not in results}
+    if dead:
+        raise RuntimeError(f"ranks of {fn.__name__} ended without a result "
+                           f"(rank: exit code) {dead}")
+
+
 def run_ranks(fn: Callable[..., Any], n: int, *args: Any, device="cuda",
               timeout: float = 600.0) -> List[Any]:
     """``[fn(0, n, *args), ..., fn(n - 1, n, *args)]``, each run in its
@@ -61,13 +83,16 @@ def run_ranks(fn: Callable[..., Any], n: int, *args: Any, device="cuda",
         try:
             while len(results) < n:
                 left = deadline - time.monotonic()
-                try:
-                    rank, ok, value = out.get(timeout=max(left, 0.0))
-                except queue.Empty:
+                if left <= 0:
                     raise TimeoutError(
                         f"{n} ranks of {fn.__name__}: "
                         f"{sorted(set(range(n)) - set(results))} did not "
-                        f"finish in {timeout:.0f} s") from None
+                        f"finish in {timeout:.0f} s")
+                try:
+                    rank, ok, value = out.get(timeout=min(left, 1.0))
+                except queue.Empty:
+                    _check_alive(procs, results, out, fn)
+                    continue
                 if not ok:
                     raise RuntimeError(f"rank {rank} of {fn.__name__} "
                                        f"failed:\n{value}")

@@ -12,6 +12,7 @@ within rtol / atol 1e-4 of one engine.  Without a card the default
 import json
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gstreamer_vit_tracker_tpu_torch import entry  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,3 +61,17 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys):
 def test_dryrun_multichip_needs_cuda_without_a_device():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry.dryrun_multichip(2)
+
+
+def _rank_one_dies(rank, n):
+    """Rank 1's process ends without a result; rank 0 returns."""
+    if rank == 1:
+        os._exit(3)
+    return rank
+
+
+def test_a_rank_that_dies_without_a_result_fails_the_call_at_once():
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"without a result .*\{1: 3\}"):
+        run_ranks(_rank_one_dies, 2, device="cpu", timeout=600)
+    assert time.monotonic() - t0 < 120
