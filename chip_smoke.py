@@ -184,7 +184,19 @@ Phases, in order; any failure raises and exits non-zero:
    times a batched step of the stream, object and serve configs, warm-up
    runs included, nothing else), and the process's counters equal to
    their sum; its line and seconds;
-13. prints the card line, then one ``{"kernels": [...]}`` line, then the
+13. the compiled entry points (``utils/graph.py``, CUDA graphs) against
+   the eager functions on the same inputs, each equal bit for bit, each
+   wrapper capturing once a key at most, the kernels launched exactly once a step, no
+   host sync inside the replays (sync debug mode "error"):
+   ``init_jit`` + ``update_packed_jit`` on the flagship, 1080p NV12, 30
+   steps (a result held from a call unchanged by the next); 16 engine slot
+   writes and 20 ticks at 16 slots; ``update_scan_pool`` on the 16-frame
+   pool (48 steps); ``update_scan_hud_pool`` at 4K (12 frames, state,
+   display and scores); ``init_objects_jit`` + 20 ``update_objects_jit``
+   steps (8 targets, exclusive, template update on); then for each, eager
+   against compiled: host wall ms a step, device busy ms a step
+   (``torch.profiler``) and the idle share, with the card line;
+14. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -3047,6 +3059,370 @@ def bench_phase(card: str, depth: int) -> dict:
     return {"line": line, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the compiled entry points (CUDA graphs, utils/graph.py)
+# ---------------------------------------------------------------------------
+
+JIT_STEPS = 30                # update_packed_jit steps on the flagship
+JIT_TICKS = 20                # engine ticks at SERVE_SLOTS slots
+JIT_POOL, JIT_POOL_REPS = 16, 48    # update_scan_pool: wraps the pool 3x
+JIT_HUD_POOL, JIT_HUD_REPS = 4, 12  # update_scan_hud_pool at 4K
+JIT_OBJECTS = 8               # update_objects_jit targets in one frame
+JIT_OBJECT_STEPS = 20
+JIT_TIMED = 20                # steps in each timed window
+
+
+def _same(a, b) -> bool:
+    """Every leaf of two trees of tensors equal, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and bool(
+            torch.equal(a, b))
+    return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+
+
+def _max_diff(a, b) -> float:
+    if isinstance(a, torch.Tensor):
+        return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    return max(_max_diff(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def no_sync():
+    """Raise on any host sync inside the block."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def traced_ms(fn, reps: int, per: int) -> dict:
+    """``reps`` calls of ``fn`` (``per`` steps each) after a warm-up: host
+    wall ms a step to the final synchronise, unprofiled; then under
+    ``torch.profiler``: device busy ms a step (the CUDA activities summed:
+    one stream, they do not overlap), device activities a step, and the
+    idle share of the profiled window's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / (reps * per)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (reps * per)
+    cuda = [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.time_range.elapsed_us() for ev in cuda) / 1e3 / (reps * per)
+    return {"host_ms": host_ms, "profiled_wall_ms": wall_ms,
+            "device_ms": busy, "activities": len(cuda) / (reps * per),
+            "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+
+
+def jit_check(name, eager, compiled, launches, want, traces) -> None:
+    """Fail unless the compiled path's results equal the eager function's
+    bit for bit, it launched ``want`` and nothing else, and each wrapper
+    of ``traces`` captured at most once (a key an earlier phase captured,
+    such as phase 10's HUD pool, is replayed)."""
+    if not _same(eager, compiled):
+        raise AssertionError(f"{name}: the compiled results differ from the "
+                             f"eager function's (max |d| "
+                             f"{_max_diff(eager, compiled):.3e})")
+    if launches != dict(launches, **want) or any(
+            n for k, n in launches.items() if k not in want):
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    bad = {w.name: n for w, n in traces.items() if n > 1}
+    if bad:
+        raise AssertionError(f"{name}: captures {bad}, expected at most "
+                             f"one a key")
+    return {w.name: n for w, n in traces.items()}
+
+
+def print_timing(name: str, t: dict, card: str) -> None:
+    e, c = t["eager"], t["compiled"]
+    print(f"compiled {name}: host wall ms a step eager {e['host_ms']:.4f} / "
+          f"compiled {c['host_ms']:.4f}; device busy ms a step (torch."
+          f"profiler) eager {e['device_ms']:.4f} / compiled "
+          f"{c['device_ms']:.4f}; device activities a step eager "
+          f"{e['activities']:.1f} / compiled {c['activities']:.1f}; idle "
+          f"share eager {e['idle_share']:.3f} / compiled "
+          f"{c['idle_share']:.3f} | {card}", flush=True)
+
+
+def jit_phase(dev, card: str, params, cfg) -> dict:
+    """Phase 13: each compiled path against its eager function on the card
+    (bit for bit), at most one capture a key, the kernels launched exactly
+    once a step, no host sync inside the replays; then eager against
+    compiled: host wall, device busy and idle share a step."""
+    from gstreamer_vit_tracker_tpu_torch.ops import font
+    from gstreamer_vit_tracker_tpu_torch.serve import SlotEngine
+    from gstreamer_vit_tracker_tpu_torch.serve import engine as engine_mod
+    from gstreamer_vit_tracker_tpu_torch.tracker import core, multi, scan
+
+    t_phase = time.perf_counter()
+    res = {}
+    frames, boxes = nv12_clip(JIT_STEPS + 1, seed=13)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    enc1 = {"vit_encoder": 1}
+
+    # -- a. init_jit + update_packed_jit, JIT_STEPS flagship steps ----------
+    def traces(*ws):
+        return {w: w.traces for w in ws}
+
+    t0s = traces(core.init_jit, core.update_packed_jit)
+    st_e = core.init(params, clip[0], boxes[0], cfg, "nv12", dev)
+    out_e = []
+    s = st_e
+    for f in clip[1:]:
+        s, p = core.update_packed(params, s, f, cfg, "nv12", dev)
+        out_e.append(p)
+    zero_counts()
+    st_c = core.init_jit(params, clip[0], boxes[0], cfg, "nv12", dev)
+    if not _same(st_e, st_c):
+        raise AssertionError("init_jit differs from init")
+    s, p = core.update_packed_jit(params, st_c, clip[1], cfg, "nv12", dev)
+    out_c = [p]
+    with no_sync():
+        for f in clip[2:]:
+            s, p = core.update_packed_jit(params, s, f, cfg, "nv12", dev)
+            out_c.append(p)
+    counts = read_counts()
+    caps = jit_check("update_packed_jit", out_e, out_c, counts,
+              {"vit_encoder": JIT_STEPS},
+              {w: w.traces - n for w, n in t0s.items()})
+    held = out_c[0].clone()
+    core.update_packed_jit(params, s, clip[1], cfg, "nv12", dev)
+    if not torch.equal(held, out_c[0]):
+        raise AssertionError("update_packed_jit: a held result changed")
+    frame = clip[1]
+    st_t = core.init(params, clip[0], boxes[0], cfg, "nv12", dev)
+    box = [core.init_jit(params, clip[0], boxes[0], cfg, "nv12", dev)]
+
+    def eager_step():
+        nonlocal st_t
+        st_t, _ = core.update_packed(params, st_t, frame, cfg, "nv12", dev)
+
+    def jit_step():
+        box[0], _ = core.update_packed_jit(params, box[0], frame, cfg, "nv12",
+                                           dev)
+
+    res["step"] = {"eager": traced_ms(eager_step, JIT_TIMED, 1),
+                   "compiled": traced_ms(jit_step, JIT_TIMED, 1),
+                   "launches": counts}
+    print(f"compiled step: {JIT_STEPS} update_packed_jit steps on the "
+          f"flagship, 1080p NV12, equal to update_packed's bit for bit, "
+          f"captures {caps}, launches {counts}, no host sync in the "
+          f"replays",
+          flush=True)
+    print_timing("step (update_packed_jit)", res["step"], card)
+
+    # -- b. the engine: slot writes, JIT_TICKS ticks at SERVE_SLOTS --------
+    n = SERVE_SLOTS
+    ys = torch.stack([c[0] for c in clip])
+    uvs = torch.stack([c[1] for c in clip])
+    ticks = []
+    for t in range(JIT_TICKS + 1):
+        idx = (torch.arange(n, device=dev) + t) % len(clip)
+        ticks.append((ys.index_select(0, idx), uvs.index_select(0, idx)))
+    eng = SlotEngine(params, cfg, slots=n, snapshot_every=0, device=dev)
+    st_e = type(eng.state)(*(t.clone() for t in eng.state))
+    for k in range(n):
+        st_e = engine_mod._write_slot(
+            st_e, eng.params, (ticks[0][0][k], ticks[0][1][k]), boxes[k % 4],
+            torch.tensor([k], device=dev), cfg, "nv12", dev)
+    active = np.ones(n, bool)
+    active_dev = torch.ones((n, 1), dtype=torch.bool, device=dev)
+    zero_counts()
+    for k in range(n):
+        eng.init_slot(eng.alloc(), (ticks[0][0][k], ticks[0][1][k]),
+                      boxes[k % 4])
+    if not _same(st_e, eng.state):
+        raise AssertionError("the compiled slot write differs from the "
+                             "eager one")
+    got = [eng.step_async(ticks[1], active)]
+    with no_sync():
+        for t in range(2, JIT_TICKS + 1):
+            got.append(eng.step_async(ticks[t], active))
+    counts = read_counts()
+    got = [g.packed for g in got]
+    want = []
+    for t in range(1, JIT_TICKS + 1):
+        st_e, p = engine_mod._step_packed(eng.params, st_e, ticks[t],
+                                          active_dev, cfg, "nv12", dev)
+        want.append(p)
+    caps = jit_check("engine tick", want, got, counts,
+              {"attention_single": cfg.depth * JIT_TICKS},
+              {eng._tick: eng._tick.traces, eng._write: eng._write.traces})
+    if not _same(st_e, eng.state):
+        raise AssertionError("engine tick: the state differs from the eager "
+                             "chain's")
+    st_t = st_e
+
+    def eager_tick():
+        nonlocal st_t
+        st_t, p = engine_mod._step_packed(eng.params, st_t, ticks[1],
+                                          active_dev, cfg, "nv12", dev)
+
+    res["tick"] = {"eager": traced_ms(eager_tick, JIT_TIMED, 1),
+                   "compiled": traced_ms(
+                       lambda: eng.step_async(ticks[1], active),
+                       JIT_TIMED, 1),
+                   "launches": counts}
+    print(f"compiled tick: {n} slot writes and {JIT_TICKS} engine ticks at "
+          f"{n} slots equal to the eager chain's bit for bit, captures "
+          f"{caps}, launches {counts}, no host sync in the replays",
+          flush=True)
+    print_timing(f"tick ({n} slots)", res["tick"], card)
+    del ticks, eng
+
+    # -- c. update_scan_pool on the JIT_POOL-frame pool -----------------------
+    pool = (ys[:JIT_POOL].contiguous(), uvs[:JIT_POOL].contiguous())
+    st0 = core.init(params, clip[0], boxes[0], cfg, "nv12", dev)
+    s, want = st0, []
+    for i in range(JIT_POOL_REPS):
+        s, _, c = core.update(params, s, (pool[0][i % JIT_POOL],
+                                          pool[1][i % JIT_POOL]), cfg,
+                              "nv12", dev)
+        want.append(c)
+    want = (s, torch.stack(want))
+    n0 = scan._pool_step.traces
+    scan.update_scan_pool(params, st0, pool, 2, cfg, "nv12", device=dev)
+    zero_counts()
+    with no_sync():
+        got = scan.update_scan_pool(params, st0, pool, JIT_POOL_REPS, cfg,
+                                    "nv12", device=dev)
+    counts = read_counts()
+    caps = jit_check("update_scan_pool", want, got, counts,
+              {"vit_encoder": JIT_POOL_REPS},
+              {scan._pool_step: scan._pool_step.traces - n0})
+
+    def eager_pool():
+        s = st0
+        for i in range(JIT_POOL_REPS):
+            s, _, c = core.update(params, s, (pool[0][i % JIT_POOL],
+                                              pool[1][i % JIT_POOL]), cfg,
+                                  "nv12", dev)
+
+    res["scan_pool"] = {
+        "eager": traced_ms(eager_pool, 1, JIT_POOL_REPS),
+        "compiled": traced_ms(lambda: scan.update_scan_pool(
+            params, st0, pool, JIT_POOL_REPS, cfg, "nv12", device=dev), 1,
+            JIT_POOL_REPS),
+        "launches": counts}
+    print(f"compiled scan pool: update_scan_pool, {JIT_POOL_REPS} steps on "
+          f"the {JIT_POOL}-frame 1080p pool, equal to the eager loop bit for "
+          f"bit, captures {caps}, launches {counts}, no host sync", flush=True)
+    print_timing("scan pool (update_scan_pool)", res["scan_pool"], card)
+
+    # -- d. update_scan_hud_pool at 4K ---------------------------------------
+    uhd, uboxes = nv12_clip(JIT_HUD_POOL, seed=14, h=UHD_H, w=UHD_W)
+    uys = torch.as_tensor(np.stack([f[0] for f in uhd]), device=dev)
+    uuvs = torch.as_tensor(np.stack([f[1] for f in uhd]), device=dev)
+    hud_text = tuple(font.encode_text(t, k) for t, k in HUD_TEXT)
+    st0 = core.init(params, (uys[0], uuvs[0]), uboxes[0], cfg, "nv12", dev)
+    glyphs = scan.hud_glyphs(hud_text, dev)
+    s, disp, want = st0, torch.zeros_like(uys[0]), []
+    for i in range(JIT_HUD_REPS):
+        f = (uys[i % JIT_HUD_POOL], uuvs[i % JIT_HUD_POOL])
+        s, bb, c = core.update(params, s, f, cfg, "nv12", dev)
+        scan.composite_hud(disp, f[0], bb, c, glyphs)
+        want.append(c)
+    want = (s, disp, torch.stack(want))
+    n0 = scan._hud_step.traces
+    scan.update_scan_hud_pool(params, st0, (uys, uuvs), hud_text, 2, cfg, dev)
+    zero_counts()
+    with no_sync():
+        got = scan.update_scan_hud_pool(params, st0, (uys, uuvs), hud_text,
+                                        JIT_HUD_REPS, cfg, dev)
+    counts = read_counts()
+    caps = jit_check("update_scan_hud_pool", want, got, counts,
+              {"vit_encoder": JIT_HUD_REPS},
+              {scan._hud_step: scan._hud_step.traces - n0})
+
+    def eager_hud():
+        s = st0
+        for i in range(JIT_HUD_REPS):
+            f = (uys[i % JIT_HUD_POOL], uuvs[i % JIT_HUD_POOL])
+            s, bb, c = core.update(params, s, f, cfg, "nv12", dev)
+            scan.composite_hud(disp, f[0], bb, c, glyphs)
+
+    res["hud_pool"] = {
+        "eager": traced_ms(eager_hud, 1, JIT_HUD_REPS),
+        "compiled": traced_ms(lambda: scan.update_scan_hud_pool(
+            params, st0, (uys, uuvs), hud_text, JIT_HUD_REPS, cfg, dev), 1,
+            JIT_HUD_REPS),
+        "launches": counts}
+    print(f"compiled HUD pool: update_scan_hud_pool, {JIT_HUD_REPS} frames on "
+          f"{JIT_HUD_POOL} {UHD_W}x{UHD_H} NV12 frames, state, display and "
+          f"scores equal to the eager loop bit for bit, captures {caps}, "
+          f"launches {counts}, no host sync", flush=True)
+    print_timing(f"HUD frame ({UHD_W}x{UHD_H})", res["hud_pool"], card)
+    del uys, uuvs
+
+    # -- e. init_objects_jit + update_objects_jit, template update on --------
+    mcfg = dataclasses.replace(cfg, template_update_enabled=True)
+    bbs = (np.tile(boxes[0], (JIT_OBJECTS, 1))
+           + np.arange(JIT_OBJECTS)[:, None] * np.asarray([40.0, 20.0, 0, 0]))
+    act = np.ones(JIT_OBJECTS, bool)
+    act[-1] = False
+    t0s = traces(multi.init_objects_jit, multi.update_objects_jit)
+    s = multi.init_objects(params, clip[0], bbs, mcfg, "nv12", dev)
+    want = []
+    for f in clip[1:JIT_OBJECT_STEPS + 1]:
+        s, b, c = multi.update_objects(params, s, f, act, mcfg, "nv12",
+                                       exclusive=True, device=dev)
+        want.append((b, c))
+    want.append(s)
+    zero_counts()
+    sc = multi.init_objects_jit(params, clip[0], bbs, mcfg, "nv12", dev)
+    got = []
+    for k, f in enumerate(clip[1:JIT_OBJECT_STEPS + 1]):
+        with (no_sync() if k else contextlib.nullcontext()):
+            sc, b, c = multi.update_objects_jit(params, sc, f, act, mcfg,
+                                                "nv12", exclusive=True,
+                                                device=dev)
+        got.append((b, c))
+    got.append(sc)
+    counts = read_counts()
+    caps = jit_check("update_objects_jit", want, got, counts,
+              {"attention_single": cfg.depth * JIT_OBJECT_STEPS},
+              {w: w.traces - n for w, n in t0s.items()})
+    st_t = multi.init_objects(params, clip[0], bbs, mcfg, "nv12", dev)
+    box = [sc]
+
+    def eager_objects():
+        nonlocal st_t
+        st_t, _, _ = multi.update_objects(params, st_t, frame, act, mcfg,
+                                          "nv12", exclusive=True, device=dev)
+
+    def jit_objects():
+        box[0], _, _ = multi.update_objects_jit(params, box[0], frame, act,
+                                                mcfg, "nv12", exclusive=True,
+                                                device=dev)
+
+    res["objects"] = {"eager": traced_ms(eager_objects, JIT_TIMED, 1),
+                      "compiled": traced_ms(jit_objects, JIT_TIMED, 1),
+                      "launches": counts}
+    print(f"compiled objects: init_objects_jit and {JIT_OBJECT_STEPS} "
+          f"update_objects_jit steps, {JIT_OBJECTS} targets (one inactive, "
+          f"exclusive, template update on), equal to the eager steps bit for "
+          f"bit, captures {caps}, launches {counts}, no host sync",
+          flush=True)
+    print_timing(f"objects ({JIT_OBJECTS} targets)", res["objects"], card)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13: {res['seconds']:.1f} s | {card}", flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3240,7 +3616,10 @@ def main() -> int:
     # -- 12. the port's bench ------------------------------------------------
     benched = bench_phase(card, cfg.depth)
 
-    # -- 13. result lines --------------------------------------------------
+    # -- 13. the compiled entry points against the eager functions -----------
+    compiled = jit_phase(dev, card, params, cfg)
+
+    # -- 14. result lines --------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -3265,6 +3644,8 @@ def main() -> int:
             "vit_encoder"] for k in ("ab_fused_prep", "ab_grouped_head")},
         "bench_launches": {k: v["vit_encoder"] for k, v in benched[
             "line"]["launches"].items() if v["vit_encoder"]},
+        "compiled_launches": {k: compiled[k]["launches"]["vit_encoder"]
+                              for k in ("step", "scan_pool", "hud_pool")},
         **{k: enc[k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": enc["max_abs_err_f32_small"],
         "final_ln": enc["final_ln"],
@@ -3292,6 +3673,8 @@ def main() -> int:
             k: v["kernel3_launches"] for k, v in parallel["serve"].items()},
         "bench_launches": {k: v["attention_single"] for k, v in benched[
             "line"]["launches"].items() if v["attention_single"]},
+        "compiled_launches": {k: compiled[k]["launches"]["attention_single"]
+                              for k in ("tick", "objects")},
         "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
@@ -3381,6 +3764,7 @@ def main() -> int:
     print(f"config 5 summary: {json.dumps(config5)}")
     print(f"parallel summary: {json.dumps(parallel)}")
     print(f"bench: {benched['seconds']:.1f} s")
+    print(f"compiled summary: {json.dumps(compiled)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,7 @@ invocation runs, in JAX's order:
 
 * the headline: ``scan.update_scan_pool`` over the 1080p NV12 pool for
   ``--frames`` steps (``value``, ``scan_step_ms_mean``); the per-frame
-  ``core.update_packed`` loop, chained with one read at the end
+  ``core.update_packed_jit`` loop, chained with one read at the end
   (``python_loop_fps``) and with a read every frame (``sync_p50_ms``,
   ``sync_p99_ms``);
 * ``stream``: ``--streams`` streams a batched step
@@ -25,13 +25,18 @@ invocation runs, in JAX's order:
 * ``serve``: the ``SlotEngine`` tick with every slot live, synchronous
   (``serve_fps``) and with a 2-thread fetch pool (``serve_fps_pipelined``);
 * ``ingest``: a double-buffered upload of each 1080p NV12 frame before its
-  ``update_packed`` (``ingest_fps``, ``ingest_mb_s``), then the raw upload
+  ``update_packed_jit`` (``ingest_fps``, ``ingest_mb_s``), then the raw upload
   rate (``h2d_mb_s``).
 
-Every timed region ends in a read of a result to the host (``.cpu()``), as
-JAX's ends in ``np.asarray``; each config is warmed once first (the first
-call on the card builds the kernels with ``nvcc``).  Timed runs are the
-best of two, as in JAX.
+The calls are the compiled entry points wherever JAX's bench calls a jitted
+function (``core.init_jit``, ``core.update_packed_jit``,
+``multi.init_*_jit``; the scan pools and the engine are compiled
+themselves): CUDA graphs, ``utils/graph.py``.  Every timed region ends in
+a read of a result to the host (``.cpu()``), as JAX's ends in
+``np.asarray``; each config is warmed once first, outside the timed
+region (the first call on the card builds the kernels with ``nvcc`` and
+captures the graphs, as JAX's compiles).  Timed runs are the best of two,
+as in JAX.
 
 Usage:
     python -m gstreamer_vit_tracker_tpu_torch.bench [--frames 600] [--cpu]
@@ -118,6 +123,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="skip the ingest config (per-frame host->device "
                          "1080p NV12 upload feeding the tracked step, "
                          "double-buffered, plus the raw upload rate)")
+    ap.add_argument("--ingest", dest="ingest", action="store_true",
+                    help=argparse.SUPPRESS)   # root bench.py's old spelling
     ap.add_argument("--serve-slots", type=int, default=16,
                     help="slots for the serve config (in-process SlotEngine "
                          "tick rate); 0 skips")
@@ -204,8 +211,9 @@ class Bench:
 
     def init(self, frame=None, bbox=BBOX0, frame_format: str = "nv12"):
         """A fresh track at ``bbox`` on ``frame`` (the pool's first)."""
-        return core.init(self.params, self.frame(0) if frame is None
-                         else frame, bbox, self.cfg, frame_format, self.dev)
+        return core.init_jit(self.params, self.frame(0) if frame is None
+                             else frame, bbox, self.cfg, frame_format,
+                             self.dev)
 
     def timed(self, name: str, fn: Callable[[], float]) -> float:
         """JAX's ``timed_runs``: the best of ``TIMED_RUNS`` walls; every
@@ -253,14 +261,14 @@ def _headline(b: Bench) -> None:
     # The per-frame loop (the interactive shape): chained with one read at
     # the end, then with the packed row read every frame (p50 / p99).
     with b.counting("loop"):
-        state, packed = core.update_packed(params, b.init(), b.frame(0), cfg,
-                                           "nv12", dev)
+        state, packed = core.update_packed_jit(params, b.init(), b.frame(0),
+                                               cfg, "nv12", dev)
         packed.cpu()
         n_loop = max(1, min(n, args.loop_frames))
         t0 = time.perf_counter()
         for i in range(n_loop):
-            state, packed = core.update_packed(params, state, b.frame(i), cfg,
-                                               "nv12", dev)
+            state, packed = core.update_packed_jit(params, state, b.frame(i),
+                                                   cfg, "nv12", dev)
         packed.cpu()
         loop_wall = time.perf_counter() - t0
         b.runs_s["loop"] = [loop_wall]
@@ -268,8 +276,8 @@ def _headline(b: Bench) -> None:
         lat_ms = []
         for i in range(n_loop):
             t1 = time.perf_counter()
-            state, packed = core.update_packed(params, state, b.frame(i), cfg,
-                                               "nv12", dev)
+            state, packed = core.update_packed_jit(params, state, b.frame(i),
+                                                   cfg, "nv12", dev)
             packed.cpu()
             lat_ms.append(1000.0 * (time.perf_counter() - t1))
     lat = np.asarray(lat_ms)
@@ -300,7 +308,8 @@ def _config_streams(b: Bench) -> None:
     reps = min(args.frames, 300)
 
     def streams():
-        st = multi.init_streams(params, first, bbs, cfg, "nv12", device=dev)
+        st = multi.init_streams_jit(params, first, bbs, cfg, "nv12",
+                                    device=dev)
         t0 = time.perf_counter()
         _, sc = scan.update_streams_scan_pool(params, st, b.frames, active,
                                               reps, cfg, "nv12", device=dev)
@@ -331,8 +340,8 @@ def _config_objects(b: Bench) -> None:
     reps = min(args.frames, 300)
 
     def objects():
-        st = multi.init_objects(params, b.frame(0), bbs, mcfg, "nv12",
-                                device=dev)
+        st = multi.init_objects_jit(params, b.frame(0), bbs, mcfg, "nv12",
+                                    device=dev)
         t0 = time.perf_counter()
         _, sc = scan.update_objects_scan_pool(params, st, b.frames, active,
                                               reps, mcfg, "nv12", device=dev)
@@ -446,17 +455,17 @@ def _config_ingest(b: Bench) -> None:
     host = [feed.host(f) for f in b.pools["ingest"]]
     mb = FRAME_H * FRAME_W * 1.5 / 1e6
 
-    state, packed = core.update_packed(params, b.init(),
-                                       feed.take(feed.put(host[0])), cfg,
-                                       "nv12", dev)
+    state, packed = core.update_packed_jit(params, b.init(),
+                                           feed.take(feed.put(host[0])), cfg,
+                                           "nv12", dev)
     packed.cpu()
     n_in = min(args.frames, 200)
     t0 = time.perf_counter()
     cur = feed.put(host[0])
     for i in range(n_in):
         nxt = feed.put(host[(i + 1) % args.pool])
-        state, packed = core.update_packed(params, state, feed.take(cur), cfg,
-                                           "nv12", dev)
+        state, packed = core.update_packed_jit(params, state, feed.take(cur),
+                                               cfg, "nv12", dev)
         cur = nxt
     packed.cpu()
     iwall = time.perf_counter() - t0

@@ -14,6 +14,8 @@ from typing import Any, Callable, Hashable, Sequence
 
 import torch
 
+from ..utils import graph
+
 
 class OperandCache:
     """The last ``sets`` results of ``make()``, each kept while the leaves
@@ -31,7 +33,9 @@ class OperandCache:
         shapes it, such as the dtype), made anew when a leaf is another
         tensor or has been updated in place.  When a gradient is wanted of
         a leaf it is made on every call and not kept: the kernels have no
-        backward."""
+        backward.  A CUDA graph captured with the result holds it
+        (``utils/graph.py``), so an eviction here never frees what a graph
+        reads."""
         if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
             return make()
         key = (key, tuple(map(id, leaves)))
@@ -40,10 +44,10 @@ class OperandCache:
         if hit is not None and hit[1] == versions and all(
                 r() is t for r, t in zip(hit[0], leaves)):
             self._made.move_to_end(key)
-            return hit[2]
+            return graph.keep(hit[2])
         with torch.no_grad():
             made = make()
         self._made[key] = ([weakref.ref(t) for t in leaves], versions, made)
         while len(self._made) > self.sets:
             self._made.popitem(last=False)
-        return made
+        return graph.keep(made)

@@ -85,8 +85,8 @@ def main(argv=None) -> int:
     lo, hi = args.reps, reps_hi
 
     def fresh():
-        return core.init(params, (ys[0], uvs[0]), bbox0, cfg,
-                         frame_format="nv12", device=dev)
+        return core.init_jit(params, (ys[0], uvs[0]), bbox0, cfg,
+                             frame_format="nv12", device=dev)
 
     # ---- 1. full step ---------------------------------------------------
     def run_full(fused_prep):

@@ -74,8 +74,8 @@ def main(argv=None) -> int:
 
     def runner(p):
         def run(reps):
-            st = core.init(p, (ys[0], uvs[0]), bbox0, cfg,
-                           frame_format="nv12", device=dev)
+            st = core.init_jit(p, (ys[0], uvs[0]), bbox0, cfg,
+                               frame_format="nv12", device=dev)
             _, sc = scan.update_scan_pool(p, st, (ys, uvs), reps, cfg,
                                           "nv12", device=dev)
             return float(sc.sum())

@@ -130,13 +130,14 @@ def run_sequence_multi(params, cfg, src, frames: int, n_obj: int,
     dev = resolve_device(device)
     bbs = torch.tensor([src.object_bbox_at(k, 0) for k in range(n_obj)],
                        dtype=torch.float32)
-    st = multi.init_objects(params, src.frame_rgb(0), bbs, cfg, device=dev)
+    st = multi.init_objects_jit(params, src.frame_rgb(0), bbs, cfg,
+                                device=dev)
     active = torch.ones((n_obj,), dtype=torch.bool)
     ious = np.zeros((frames, n_obj))
     confs = np.zeros((frames, n_obj))
     cover = np.zeros((frames, n_obj))
     for i in range(1, frames + 1):
-        st, bboxes, scores = multi.update_objects(
+        st, bboxes, scores = multi.update_objects_jit(
             params, st, src.frame_rgb(i), active, cfg, exclusive=exclusive,
             device=dev)
         b, s = bboxes.cpu().numpy(), scores.cpu().numpy()

@@ -14,7 +14,11 @@ slope of device time (the kernels and copies ``torch.profiler`` records,
 ``utils/profiling.py::marginal_ms``) between ``--reps`` and ``--reps-hi``
 steps, and ``device_ms`` is the device's ms a step over ``--reps`` steps,
 the run's set-up included (so a marginal lies at or a little below it).
-The per-call ``python_loop`` line stays on the host clock.
+The per-call ``python_loop`` line stays on the host clock; as in JAX it
+calls the compiled ``multi.update_streams_jit`` (a CUDA graph replayed a
+call), and the states come from ``core.init_jit`` /
+``multi.init_streams_jit``.  JAX's other variants are scanned programs of
+their own; here they stay eager loops, timed by device time.
 
 Usage:
     python -m gstreamer_vit_tracker_tpu_torch.scripts.profile_scan \
@@ -97,8 +101,8 @@ def main(argv=None) -> int:
         """run(reps): ``reps`` steps over the pool from a fresh state, the
         per-step values read once at the end."""
         def run(reps):
-            st = core.init(params, (ys[0], uvs[0]), bbox0, cfg, device=dev,
-                           frame_format="nv12")
+            st = core.init_jit(params, (ys[0], uvs[0]), bbox0, cfg,
+                               device=dev, frame_format="nv12")
             out = []
             for i in range(reps):
                 st, v = step(st, (ys[i % pool], uvs[i % pool]))
@@ -138,8 +142,8 @@ def main(argv=None) -> int:
     first = (ys[:s], uvs[:s])
 
     def streams0():
-        return multi.init_streams(params, first, bbs, cfg, device=dev,
-                                  frame_format="nv12")
+        return multi.init_streams_jit(params, first, bbs, cfg, device=dev,
+                                      frame_format="nv12")
 
     def run_scan_pool(reps):
         _, sc = scan.update_streams_scan_pool(params, streams0(), (ys, uvs),
@@ -159,13 +163,13 @@ def main(argv=None) -> int:
 
     def run_loop(reps):
         st = streams0()
-        st, _bx, sc = multi.update_streams(params, st, first, active, cfg,
-                                           "nv12", device=dev)
+        st, _bx, sc = multi.update_streams_jit(params, st, first, active,
+                                               cfg, "nv12", device=dev)
         float(sc.sum())
         t0 = time.perf_counter()
         for _ in range(reps):
-            st, _bx, sc = multi.update_streams(params, st, first, active,
-                                               cfg, "nv12", device=dev)
+            st, _bx, sc = multi.update_streams_jit(params, st, first, active,
+                                                   cfg, "nv12", device=dev)
         float(sc.sum())
         return time.perf_counter() - t0
 

@@ -15,6 +15,14 @@ reports this).
 Frames come in any of the protocol's formats (``nv12``, ``yuy2``, ``rgb``),
 one per engine.
 
+On one device the tick and the slot write are compiled entry points
+(``utils/graph.py``), JAX's ``_step_packed`` and ``_write_slot``: each a
+CUDA graph captured once and replayed, the state donated (the engine's
+state is the tick graph's static buffers, updated in place), the frames,
+the active mask and the slot index copied into static buffers, the slot
+a device scalar so one graph serves every slot.  Each engine holds its
+own graphs; :meth:`SlotEngine.recover` drops them.
+
 Serving over several ranks (``mesh=``, as in JAX): every rank of the mesh
 runs an engine with the same arguments and makes the same calls.  The slot
 axis shards over the mesh ``data`` axis: a rank holds and steps the state
@@ -24,6 +32,7 @@ the params are replicated (no collective inside the tick); on a dp x tp
 mesh they take the Megatron layout (``parallel/sharding.py``) and the
 encoder's blocks run tensor-parallel over ``model``
 (``models/vit.py::_tp_block``).  The slot count must tile the data axis.
+Under a mesh the tick and the slot write run eagerly.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from ..parallel.tensor import all_gather_cat
 from ..tracker import core, multi
 from ..tracker.multi import _batched_cfg
 from ..tracker.state import TrackState, zeros_state
+from ..utils import graph
 from . import protocol
 
 Params = Dict[str, Any]
@@ -57,6 +67,28 @@ def _tree_to(tree: Any, device: torch.device, dtype=None) -> Any:
         return [_tree_to(v, device, dtype) for v in tree]
     return tree.detach().to(device, dtype if tree.is_floating_point() else None,
                             copy=True)
+
+
+def _step_packed(params: Params, state: TrackState, frames, active,
+                 cfg: ModelConfig, frame_format: str, device) -> tuple:
+    """One serving tick: S streams -> (new_state, packed (S, 5)), the
+    packed [x, y, w, h, score] rows one tensor for one host read."""
+    state, bboxes, scores = multi.update_streams(params, state, frames,
+                                                 active, cfg, frame_format,
+                                                 device=device)
+    return state, torch.cat([bboxes[:, 0, :], scores], dim=1)
+
+
+def _write_slot(state: TrackState, params: Params, frame, bbox, slot,
+                cfg: ModelConfig, frame_format: str, device) -> TrackState:
+    """``core.init`` one target (the batched config: band off), written
+    into row ``slot`` ((1,) int64 on the device) of the (S, 1, ...)
+    state in place."""
+    new = core.init(params, frame, bbox, _batched_cfg(cfg), frame_format,
+                    device)
+    for batched, leaf in zip(state, new):
+        batched.index_copy_(0, slot, leaf[None, None].to(batched.dtype))
+    return state
 
 
 class PackedTick:
@@ -117,6 +149,13 @@ class SlotEngine:
             self.rows = range(r * n, (r + 1) * n)
         self._host_params = _tree_to(params, torch.device("cpu"))
         self.params = self._place_params()
+        # This engine's compiled tick and slot write (one device only).
+        self._tick = graph.Compiled(_step_packed, "engine.step_packed",
+                                    static=("cfg", "frame_format"),
+                                    donate={"state": (0,)})
+        self._write = graph.Compiled(_write_slot, "engine.write_slot",
+                                     static=("cfg", "frame_format"),
+                                     donate={"state": ()})
         self.state: TrackState = self._zero_state()
         # Host-side occupancy: which slots hold a live track.  Device-side
         # liveness is the per-tick active mask built from this.
@@ -161,8 +200,13 @@ class SlotEngine:
     def init_slot(self, slot: int, frame, bbox) -> None:
         """Start a track in ``slot``: ``core.init`` with the batched config
         (band off), written into row ``slot`` of the (S, 1, ...) state (on
-        a mesh, by the ranks that hold that slot)."""
-        if slot in self.rows:
+        a mesh, eagerly, by the ranks that hold that slot)."""
+        if self.mesh is None:
+            self.state = self._write(
+                self.state, self.params, frame, bbox,
+                np.asarray([slot], np.int64), self.cfg, self.frame_format,
+                self.device)
+        elif slot in self.rows:
             new = core.init(self.params, frame, bbox, _batched_cfg(self.cfg),
                             self.frame_format, self.device)
             for batched, leaf in zip(self.state, new):
@@ -188,6 +232,14 @@ class SlotEngine:
         self._ticks += 1
         if self.snapshot_every and self._ticks % self.snapshot_every == 0:
             self.snapshot()
+        if self.mesh is None:
+            # The frames and the mask go straight into the graph's static
+            # buffers (from pinned memory the upload is asynchronous).
+            self.state, packed = self._tick(
+                self.params, self.state, self._host_frames(frames),
+                (tick_active & self.occupied)[:, None], self.cfg,
+                self.frame_format, self.device)
+            return PackedTick(packed)
         rows = slice(self.rows.start, self.rows.stop)
         active = torch.as_tensor((tick_active & self.occupied)[rows, None],
                                  device=self.device)
@@ -195,10 +247,8 @@ class SlotEngine:
             self.state, bboxes, scores = multi.update_streams(
                 self.params, self.state, self._place_frames(frames), active,
                 self.cfg, self.frame_format, device=self.device)
-        packed = torch.cat([bboxes[:, 0, :], scores], dim=1)
-        if self.mesh is not None:
-            packed = all_gather_cat(packed, 0,
-                                    self.mesh.get_group(pmesh.DATA_AXIS))
+        packed = all_gather_cat(torch.cat([bboxes[:, 0, :], scores], dim=1),
+                                0, self.mesh.get_group(pmesh.DATA_AXIS))
         return PackedTick(packed)
 
     def step(self, frames, tick_active: np.ndarray) -> np.ndarray:
@@ -209,15 +259,18 @@ class SlotEngine:
         Returns packed (S, 5) [x, y, w, h, score] float32."""
         return np.asarray(self.step_async(frames, tick_active))
 
-    def _place_frames(self, frames):
-        """Host (S, ...) planes onto the device (this rank's rows of them);
-        from pinned memory the upload is asynchronous."""
+    def _host_frames(self, frames):
+        """(S, ...) planes, this rank's rows of them, where they lie."""
         if self.frame_format != "nv12" and not isinstance(frames, tuple):
             frames = (frames,)
         rows = slice(self.rows.start, self.rows.stop)
-        return tuple(torch.as_tensor(p)[rows].to(self.device,
-                                                 non_blocking=True)
-                     for p in frames)
+        return tuple(torch.as_tensor(p)[rows] for p in frames)
+
+    def _place_frames(self, frames):
+        """Host (S, ...) planes onto the device (this rank's rows of them);
+        from pinned memory the upload is asynchronous."""
+        return tuple(p.to(self.device, non_blocking=True)
+                     for p in self._host_frames(frames))
 
     # -- fault recovery ------------------------------------------------------
 
@@ -233,6 +286,8 @@ class SlotEngine:
         NOT be restored (initialised after the last snapshot, or never
         snapshotted): the server reports these to their clients as
         re-init-required."""
+        self._tick.drop(self.params)
+        self._write.drop(self.params)
         self.params = self._place_params()
         if self._snapshot is None:
             lost = np.flatnonzero(self.occupied)

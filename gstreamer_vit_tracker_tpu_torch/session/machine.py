@@ -250,9 +250,11 @@ class TorchTrackerBackend:
     """TrackerBackend over the port's tracker core (tracker/core.py), the
     counterpart of the JAX package's ``JaxTrackerBackend``.
 
-    Keeps the TrackState on the device between calls; each ``update``
-    enqueues one ``update_packed`` step and reads its five numbers (bbox
-    and score) back in one device-to-host copy.
+    Keeps the TrackState on the device between calls; ``init`` runs
+    ``core.init_jit`` and each ``update`` enqueues one
+    ``core.update_packed_jit`` step (compiled entry points, the state
+    donated: ``utils/graph.py``) and reads its five numbers (bbox and
+    score) back in one device-to-host copy.
 
     ``pipelined=True`` trades one frame of latency for throughput: the
     step's result is copied into a pinned host buffer without blocking and
@@ -286,21 +288,24 @@ class TorchTrackerBackend:
 
     def recover(self) -> None:
         """Rebuild device state after a device fault: re-upload the params
-        from the host copy and drop the (possibly dead) TrackState and the
-        pending result.  The session re-inits on the next confirm."""
+        from the host copy and drop the (possibly dead) TrackState, the
+        pending result and the graphs captured against the old params.  The
+        session re-inits on the next confirm."""
+        core.init_jit.drop(self.params)
+        core.update_packed_jit.drop(self.params)
         self.params = tree_to(self._host_params, self.device, copy=True)
         self.state = None
         self._pending = None
 
     def init(self, frame, bbox) -> None:
-        self.state = core.init(self.params, frame, bbox, self.cfg,
-                               self.frame_format, self.device)
+        self.state = core.init_jit(self.params, frame, bbox, self.cfg,
+                                   self.frame_format, self.device)
         self._pending = None
 
     def update(self, frame):
         if self.state is None:
             raise RuntimeError("tracker not initialised")
-        self.state, packed = core.update_packed(
+        self.state, packed = core.update_packed_jit(
             self.params, self.state, frame, self.cfg, self.frame_format,
             self.device)
         if self.pipelined:

@@ -36,11 +36,12 @@ class TorchMultiTrackerBackend:
     the JAX package's ``JaxMultiTrackerBackend``.
 
     Slots init independently (``init_slot`` writes a fresh single-object
-    state into row ``k`` of the batched TrackState); every ``update``
-    advances all active slots in one batched step and reads (N, 4) boxes
-    and (N,) scores back in one device-to-host copy.  Carries the same
-    host-param-copy ``recover()`` contract as the single-object backend
-    (session/machine.py).
+    state from ``multi.init_objects_jit`` into row ``k`` of the batched
+    TrackState); every ``update`` advances all active slots in one
+    ``multi.update_objects_jit`` step (compiled, the state donated) and
+    reads (N, 4) boxes and (N,) scores back in one device-to-host copy.
+    Carries the same host-param-copy ``recover()`` contract as the
+    single-object backend (session/machine.py).
     """
 
     def __init__(self, params: Dict[str, Any], cfg, n_objects: int,
@@ -64,12 +65,13 @@ class TorchMultiTrackerBackend:
         if self.state is None:
             # First target: build the full batched state from this box
             # (inactive slots are masked out of every update).
-            self.state = multi.init_objects(
+            self.state = multi.init_objects_jit(
                 self.params, frame, bb[None].repeat(self.n, 1), self.cfg,
                 self.frame_format, self.device)
         else:
-            one = multi.init_objects(self.params, frame, bb[None], self.cfg,
-                                     self.frame_format, self.device)
+            one = multi.init_objects_jit(self.params, frame, bb[None],
+                                         self.cfg, self.frame_format,
+                                         self.device)
             self.state = TrackState(*(torch.cat([s[:k], o, s[k + 1:]])
                                       for s, o in zip(self.state, one)))
         self.active[k] = True
@@ -80,7 +82,7 @@ class TorchMultiTrackerBackend:
     def _step(self, frame, active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         if self.state is None:
             raise RuntimeError("no slot initialised")
-        self.state, bboxes, scores = multi.update_objects(
+        self.state, bboxes, scores = multi.update_objects_jit(
             self.params, self.state, frame, active, self.cfg,
             self.frame_format, exclusive=self.exclusive, device=self.device)
         out = torch.cat([bboxes, scores[:, None]], dim=1).cpu().numpy()
@@ -100,6 +102,8 @@ class TorchMultiTrackerBackend:
         return self._step(frame, mask)
 
     def recover(self) -> None:
+        multi.init_objects_jit.drop(self.params)
+        multi.update_objects_jit.drop(self.params)
         self.params = tree_to(self._host_params, self.device, copy=True)
         self.state = None
         self.active[:] = False

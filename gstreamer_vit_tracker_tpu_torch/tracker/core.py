@@ -17,6 +17,10 @@ Every value of the step stays a tensor on the device, so a CUDA update
 enqueues its work without reading anything back; :func:`update_packed`
 returns the five numbers a caller reads as one tensor.
 
+``init_jit``, ``update_jit`` and ``update_packed_jit`` are the compiled
+entry points (``utils/graph.py``): one CUDA graph per key, replayed, the
+state donated by the two updates, as JAX's ``jax.jit`` programs are.
+
 Where JAX adds object and stream axes with ``vmap`` (tracker/multi.py), the
 step here takes them written out: a state whose fields carry leading
 dimensions ((N,) objects of one frame, or (S, M) streams and objects) with
@@ -37,6 +41,7 @@ from ..models import heads as heads_mod
 from ..models import vittrack
 from ..ops import fused_prep_embed as fpe
 from ..ops import preprocess as pp
+from ..utils import graph
 from .state import TrackState
 
 Params = Dict[str, Any]
@@ -278,3 +283,31 @@ def update_packed(params: Params, state: TrackState, frame, cfg: ModelConfig,
     new_state, bbox, conf = update(params, state, frame, cfg, frame_format,
                                    device, **route)
     return new_state, torch.cat([bbox, conf[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Compiled entry points (the donated state: static buffers the replay
+# updates in place)
+# ---------------------------------------------------------------------------
+
+init_jit = graph.Compiled(init, "core.init_jit",
+                          static=("cfg", "frame_format"))
+
+
+@graph.compiled("core.update_jit", static=("cfg", "frame_format"),
+                donate={"state": (0,)})
+def update_jit(params: Params, state: TrackState, frame, cfg: ModelConfig,
+               frame_format: str = "rgb", device="cuda"
+               ) -> Tuple[TrackState, torch.Tensor, torch.Tensor]:
+    """:func:`update` compiled, the state donated."""
+    return update(params, state, frame, cfg, frame_format, device)
+
+
+@graph.compiled("core.update_packed_jit", static=("cfg", "frame_format"),
+                donate={"state": (0,)})
+def update_packed_jit(params: Params, state: TrackState, frame,
+                      cfg: ModelConfig, frame_format: str = "rgb",
+                      device="cuda") -> Tuple[TrackState, torch.Tensor]:
+    """:func:`update_packed` compiled, the state donated: (state, packed
+    (..., 5)), the packed row a fresh tensor every call."""
+    return update_packed(params, state, frame, cfg, frame_format, device)

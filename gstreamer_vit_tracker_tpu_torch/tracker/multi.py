@@ -14,8 +14,10 @@ return bbox and score tensors on the device.  The batched callers pass
 ``fused=False``: the encoder runs per block, with its attention in the
 CUDA attention kernels on the card.
 
-The ``*_jit`` names of the JAX package are kept as aliases: PyTorch runs
-eagerly, and the state is not donated (each step returns new tensors).
+The ``*_jit`` names are the compiled entry points (``utils/graph.py``), as
+JAX's ``jax.jit`` programs: one CUDA graph per key, replayed; the two
+updates donate the state (the call returns the graph's static state
+buffers, updated in place), the inits return fresh tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
+from ..utils import graph
 from . import core
 from .state import TrackState
 
@@ -174,7 +177,17 @@ def update_streams(params: Params, state: TrackState, frames, active,
                          exclusive, device)
 
 
-init_objects_jit = init_objects
-init_streams_jit = init_streams
-update_objects_jit = update_objects
-update_streams_jit = update_streams
+# ---------------------------------------------------------------------------
+# Compiled entry points (donated state)
+# ---------------------------------------------------------------------------
+
+init_objects_jit = graph.Compiled(init_objects, "multi.init_objects_jit",
+                                  static=("cfg", "frame_format"))
+init_streams_jit = graph.Compiled(init_streams, "multi.init_streams_jit",
+                                  static=("cfg", "frame_format"))
+update_objects_jit = graph.Compiled(
+    update_objects, "multi.update_objects_jit",
+    static=("cfg", "frame_format", "exclusive"), donate={"state": (0,)})
+update_streams_jit = graph.Compiled(
+    update_streams, "multi.update_streams_jit",
+    static=("cfg", "frame_format", "exclusive"), donate={"state": (0,)})

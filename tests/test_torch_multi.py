@@ -267,10 +267,18 @@ def test_state_crosses_to_numpy_and_back():
 
 
 def test_jit_names_are_aliases():
-    assert tmulti.update_streams_jit is tmulti.update_streams
-    assert tmulti.update_objects_jit is tmulti.update_objects
-    assert tmulti.init_streams_jit is tmulti.init_streams
-    assert tmulti.init_objects_jit is tmulti.init_objects
+    # No longer aliases: each *_jit name is a compiled entry point
+    # (utils/graph.py) over the eager function of the same name.
+    from gstreamer_vit_tracker_tpu_torch.utils import graph
+
+    for name in ("update_streams", "update_objects", "init_streams",
+                 "init_objects"):
+        jit = getattr(tmulti, name + "_jit")
+        assert isinstance(jit, graph.Compiled)
+        assert jit is not getattr(tmulti, name)
+        assert jit.fn is getattr(tmulti, name)
+    assert tmulti.update_streams_jit.donate == {"state": (0,)}
+    assert tmulti.init_streams_jit.donate == {}
 
 
 # ---------------------------------------------------------------------------

@@ -243,6 +243,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "gstreamer_vit_tracker_tpu_torch/scripts/probe_int8.py",
                  "gstreamer_vit_tracker_tpu_torch/scripts/probe_relay_fetch.py",
                  "gstreamer_vit_tracker_tpu_torch/bench.py",
+                 "gstreamer_vit_tracker_tpu_torch/utils/graph.py",
                  "chip_smoke.py"):
         assert must in names, must
     bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|"
