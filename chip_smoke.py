@@ -80,7 +80,7 @@ Phases, in order; any failure raises and exits non-zero:
    attention goes through ``attention_flash``, and unbatched through the
    encoder kernel, each step against the CPU's from the card's state;
 7. training: the flagship's width and depth in float32, batch 16, 5
-   ``train_step`` s from the shipped weights on seeded crops (a bright
+   (compiled) ``train_step`` s from the shipped weights on seeded crops (a bright
    textured square on noise) beside the port's CPU run of the same steps;
    the loss must fall; attention-kernel launches counted;
 8. the tracker app, end to end, in this process through
@@ -109,14 +109,16 @@ Phases, in order; any failure raises and exits non-zero:
       ``--display-scale`` reads back at the display size (no cv2);
 9. train and score, through the two scripts' ``run(argv)`` (the body of
    their ``main``, which returns its report beside the exit code):
-   a. ``scripts/train_synthetic``: the flagship at full width and depth in
-      float32 (TF32 off) from the shipped weights, batch 16, a 128-sample
-      dataset (seed 0, v1), 20 steps; every loss finite, attention kernel
+   a. ``scripts/train_synthetic`` (the compiled ``train_scan``): the
+      flagship at full width and depth in float32 (TF32 off) from the
+      shipped weights, batch 16, a 128-sample dataset (seed 0, v1), 20
+      steps; every loss finite, attention kernel
       4 launched 12 times a step and nothing else, the saved npz equal to
       the final parameters through ``load_npz``; the first 5 steps again on
       the CPU from the same dataset and CPU generator, the losses within
       phase 7's relative bound; the host's data seconds and samples/s;
-   b. ``scripts/eval_tracking``: the shipped flagship (bf16) on the
+   b. ``scripts/eval_tracking`` (its compiled per-frame update): the
+      shipped flagship (bf16) on the
       independent world, ``basic`` and ``occlusion``, 2 sequences of 150
       frames at 640x512; kernel 1 launched once an update and nothing else;
       mean / min IoU, mean confidence, updates/s; the first 20 frames of
@@ -145,6 +147,7 @@ Phases, in order; any failure raises and exits non-zero:
       frames/s at 1080p;
    c. the scripts through ``main(argv)``, each exiting 0 with its JSON
       line: ``profile_scan --reps 5``, ``profile_streams --reps 5`` (each
+      variant one compiled program, ``scan.scanned``; each
       with the device's ms from ``torch.profiler``; every marginal ms a
       step, a slope of device time, positive and within MARGINAL_SETUP /
       MARGINAL_NOISE of its device ms a step), ``bench_serve`` (4
@@ -167,12 +170,14 @@ Phases, in order; any failure raises and exits non-zero:
       MESH_TIE_FLIPS); kernel 3 launched depth x ticks times on every rank;
       ``SlotEngine.recover()`` and ``ShardedStreamTracker.recover()``
       restore their snapshots;
-   c. ``train_synthetic --mesh 2x2``: the flagship in float32, 5 steps,
+   c. ``train_synthetic --mesh 2x2`` (the eager scan, by name): the
+      flagship in float32, 5 steps,
       batch 16, phase 9a's 128 samples; losses within phase 7's bound of
       one process, kernel 4 launched 12 times a step on every rank, the
       saved npz equal to the gathered params;
    d. ``ab_fused_prep``, ``ab_grouped_head``, ``probe_int8`` and
-      ``probe_relay_fetch`` through ``main(argv)`` with short arguments,
+      ``probe_relay_fetch`` through ``main(argv)`` with short arguments
+      (their timed loops compiled programs),
       each exiting 0 with its JSON line (kernel 5 launched by the first,
       the int8 product exact in the third);
 12. the port's bench, ``gstreamer_vit_tracker_tpu_torch/bench.py``, through
@@ -196,7 +201,21 @@ Phases, in order; any failure raises and exits non-zero:
    steps (8 targets, exclusive, template update on); then for each, eager
    against compiled: host wall ms a step, device busy ms a step
    (``torch.profiler``) and the idle share, with the card line;
-14. prints the card line, then one ``{"kernels": [...]}`` line, then the
+14. compiled training (``train/step.py`` on ``utils/graph.py``): the
+   flagship in float32 at phase 7's batch of 16 from the shipped weights,
+   20 compiled ``train_step`` s and one 20-step compiled ``train_scan``
+   (augmentation on, a seeded CPU generator, phase 9a's dataset), each
+   against two eager runs with cuDNN's deterministic algorithms: bit for
+   bit where the eager runs are (else within their spread,
+   ``TRAIN_JIT_SPREAD``), the generator left as the eager scan leaves it,
+   one capture a key, kernel 4 launched 12 times a step and nothing else,
+   no host sync inside the replays; then, with the default algorithms,
+   eager against compiled: host wall ms, device busy ms, the idle share
+   and samples/s a step, with the card line; kernel 4 at the training
+   shape (48, 320, 64) float32 against its plain version, timed beside
+   ``scaled_dot_product_attention``, and its device time inside the
+   replayed step;
+15. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -581,9 +600,12 @@ def encoder_phase(dev, cfg, params, x, blocks, crops, small, sparams) -> dict:
 # Phase 3b: the attention kernels
 # ---------------------------------------------------------------------------
 
-def attention_case(bh, s, dh, dtype, dev, want_route, want_variant, timed):
+def attention_case(bh, s, dh, dtype, dev, want_route, want_variant, timed,
+                   lib_shape=None):
     """One shape through ``flash_attention`` against ``attention_reference``
-    on the same seeded tensors.  Returns a dict of what was measured."""
+    on the same seeded tensors.  Returns a dict of what was measured.
+    ``lib_shape``: the (batch, heads, S, dh) view the library call takes
+    (default one batch of ``bh`` heads)."""
     from gstreamer_vit_tracker_tpu_torch.ops import attention
 
     gen = torch.Generator(device="cpu").manual_seed(1000 * s + dh)
@@ -630,7 +652,8 @@ def attention_case(bh, s, dh, dtype, dev, want_route, want_variant, timed):
         if not err_simt <= tol:
             raise AssertionError(f"attention_{simt.route} simt {name} "
                                  f"disagrees: {err_simt} > {tol}")
-        q4, k4, v4 = q[None], k[None], v[None]
+        q4, k4, v4 = (t.view(lib_shape) if lib_shape else t[None]
+                      for t in (q, k, v))
 
         def library():
             return F.scaled_dot_product_attention(q4, k4, v4)
@@ -3097,12 +3120,13 @@ def no_sync():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def traced_ms(fn, reps: int, per: int) -> dict:
+def traced_ms(fn, reps: int, per: int, kernel: str = "") -> dict:
     """``reps`` calls of ``fn`` (``per`` steps each) after a warm-up: host
     wall ms a step to the final synchronise, unprofiled; then under
     ``torch.profiler``: device busy ms a step (the CUDA activities summed:
     one stream, they do not overlap), device activities a step, and the
-    idle share of the profiled window's wall."""
+    idle share of the profiled window's wall; with ``kernel``, the mean
+    device us of the activities whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -3123,9 +3147,15 @@ def traced_ms(fn, reps: int, per: int) -> dict:
     cuda = [ev for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(ev.time_range.elapsed_us() for ev in cuda) / 1e3 / (reps * per)
-    return {"host_ms": host_ms, "profiled_wall_ms": wall_ms,
-            "device_ms": busy, "activities": len(cuda) / (reps * per),
-            "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+    res = {"host_ms": host_ms, "profiled_wall_ms": wall_ms,
+           "device_ms": busy, "activities": len(cuda) / (reps * per),
+           "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+    if kernel:
+        us = [ev.time_range.elapsed_us() for ev in cuda if kernel in ev.name]
+        if not us:
+            raise AssertionError(f"no {kernel} activity in the trace")
+        res["kernel_us"] = sum(us) / len(us)
+    return res
 
 
 def jit_check(name, eager, compiled, launches, want, traces) -> None:
@@ -3423,6 +3453,224 @@ def jit_phase(dev, card: str, params, cfg) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: compiled training (train/step.py through utils/graph.py)
+# ---------------------------------------------------------------------------
+
+JIT_TRAIN_STEPS = 20          # train_step calls, phase 7's batch
+JIT_SCAN_STEPS = 20           # one train_scan, phase 9a's dataset
+JIT_TRAIN_TIMED = 5           # train_step calls in each timed window
+# Compiled against eager training, checked with cuDNN's deterministic
+# algorithms (the patch embed's weight gradient otherwise sums in an
+# order the card does not fix: on a first H100 run 114 of the flagship's
+# 145 leaves differed between two eager steps from one state, none with
+# them): bit for bit where two eager runs are bit for bit.  Where they
+# are not, the compiled run is one more draw from the same spread: its
+# largest distance from eager run A, over the losses and the parameters
+# together, at most TRAIN_JIT_SPREAD x eager run B's (that run, without
+# deterministic algorithms: B 1.03e-05 from A after 20 steps, the
+# compiled run 1.40e-05), and its losses within phase 7's card-vs-CPU
+# bound of A's.  The timings run with the default algorithms (their own
+# captures: the switches are part of a compiled key).
+TRAIN_JIT_SPREAD = 4.0
+
+
+def train_agree(name: str, a, b, c) -> dict:
+    """Eager runs ``a`` and ``b`` and compiled run ``c`` (each (losses,
+    params)): bit for bit if ``a`` and ``b`` are, else within the eager
+    runs' spread (TRAIN_JIT_SPREAD) and TRAIN_LOSS_RTOL."""
+    eager_same = _same(a, b)
+    d_ab, d_ac = _max_diff(a, b), _max_diff(a, c)
+    same = _same(a, c)
+    rel = float(((c[0] - a[0]).abs() / a[0].abs()).max())
+    print(f"{name}: eager against eager bit for bit: {eager_same} (max |d| "
+          f"{d_ab:.3e}; losses {_max_diff(a[0], b[0]):.3e}); compiled "
+          f"against eager bit for bit: {same} (max |d| {d_ac:.3e}; losses "
+          f"{_max_diff(a[0], c[0]):.3e}, relative {rel:.2e}; params "
+          f"{_max_diff(a[1], c[1]):.3e})", flush=True)
+    if eager_same and not same:
+        raise AssertionError(f"{name}: the compiled run differs from the "
+                             f"eager one, which repeats bit for bit")
+    if not eager_same and (d_ac > TRAIN_JIT_SPREAD * d_ab
+                           or rel > TRAIN_LOSS_RTOL):
+        raise AssertionError(f"{name}: the compiled run is {d_ac:.3e} from "
+                             f"the eager one (losses {rel:.2e} relative), "
+                             f"past {TRAIN_JIT_SPREAD} x the eager runs' "
+                             f"spread {d_ab:.3e} or {TRAIN_LOSS_RTOL}")
+    return {"eager_bit_equal": eager_same, "bit_equal": same,
+            "eager_max_diff": d_ab, "max_diff": d_ac, "loss_rel": rel}
+
+
+def train_jit_phase(dev, card: str) -> dict:
+    """Phase 14: the flagship in float32 (TF32 off) from the shipped
+    weights, phase 7's batch of 16: JIT_TRAIN_STEPS compiled ``train_step``
+    s and one JIT_SCAN_STEPS-step compiled ``train_scan`` (augmentation on,
+    a seeded CPU generator, phase 9a's dataset) against the eager
+    functions, with cuDNN's deterministic algorithms (TRAIN_JIT_SPREAD);
+    one capture a key, kernel 4 launched 12 times a step and nothing
+    else, no host sync in the replays; then, with the default algorithms,
+    eager against compiled: host wall, device busy, idle share and
+    samples/s a step, and kernel 4's device time inside the replayed
+    step."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.train import step as train
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(PRESETS["vittrack-t"], dtype="float32")
+    z, x, gt = (torch.as_tensor(a, device=dev)
+                for a in train_batch(cfg, TRAIN_BATCH, seed=31))
+    opt = train.make_optimizer(TRAIN_LR)
+    host = weights.load_npz(weights.checkpoint_path("vittrack-t"), cfg,
+                            device=torch.device("cpu"))
+
+    def fresh():
+        return train.create_train_state(weights.tree_to(host, dev, copy=True),
+                                        opt=opt)
+
+    def params_of(state):
+        return [t.clone() for t in train.tree_leaves(state.params)]
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = train_jit_checks(dev, cfg, z, x, gt, opt, fresh, params_of)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # -- c. eager against compiled, the default algorithms -------------------
+    st_e, box = fresh(), [fresh()]
+
+    def eager_step():
+        nonlocal st_e
+        st_e = train.train_step_eager(st_e, z, x, gt, cfg, opt=opt,
+                                      device=dev)[0]
+
+    def jit_step():
+        box[0] = train.train_step(box[0], z, x, gt, cfg, opt=opt,
+                                  device=dev)[0]
+
+    res["step"].update(
+        eager=traced_ms(eager_step, JIT_TRAIN_TIMED, 1),
+        compiled=traced_ms(jit_step, JIT_TRAIN_TIMED, 1,
+                           kernel="attention_flash"))
+    ds = res.pop("dataset")
+
+    def scan(fn):
+        fn(fresh(), *ds, torch.Generator().manual_seed(1), cfg, opt,
+           n_steps=JIT_SCAN_STEPS, batch=TRAIN_BATCH, device=dev)
+
+    res["scan"].update(
+        eager=traced_ms(lambda: scan(train.train_scan_eager), 1,
+                        JIT_SCAN_STEPS),
+        compiled=traced_ms(lambda: scan(train.train_scan), 1,
+                           JIT_SCAN_STEPS),
+        window_steps=train.window_steps(JIT_SCAN_STEPS, TRAIN_BATCH,
+                                        ds[1].shape[1:], True))
+    for name, key in (("train_step", "step"), ("train_scan", "scan")):
+        t = res[key]
+        for mode in ("eager", "compiled"):
+            t[mode]["samples_per_s"] = TRAIN_BATCH / t[mode]["host_ms"] * 1e3
+        print_timing(f"{name} (flagship f32, batch {TRAIN_BATCH})", t, card)
+        print(f"compiled {name}: samples/s eager "
+              f"{t['eager']['samples_per_s']:.1f} / compiled "
+              f"{t['compiled']['samples_per_s']:.1f} | {card}", flush=True)
+
+    # -- d. kernel 4 at the training shape -----------------------------------
+    shape = (TRAIN_BATCH * cfg.num_heads, cfg.num_tokens,
+             cfg.embed_dim // cfg.num_heads)
+    res["kernel4"] = attention_case(
+        *shape, torch.float32, dev, "flash", "simt", timed=True,
+        lib_shape=(TRAIN_BATCH, cfg.num_heads) + shape[1:])
+    res["kernel4"]["replay_device_us"] = res["step"]["compiled"]["kernel_us"]
+    res["kernel4"]["launches_per_step"] = cfg.depth
+    print(f"kernel 4 at the training shape {shape} float32: "
+          f"{res['kernel4']['replay_device_us']:.2f} us a launch inside the "
+          f"replayed step (torch.profiler), {cfg.depth} launches a step | "
+          f"{card}", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14: {res['seconds']:.1f} s | {card}", flush=True)
+    return res
+
+
+def train_jit_checks(dev, cfg, z, x, gt, opt, fresh, params_of) -> dict:
+    """Phase 14's checks (a: ``train_step``, b: ``train_scan``), each
+    compiled run against two eager runs (``train_agree``)."""
+    from gstreamer_vit_tracker_tpu_torch.train import data
+    from gstreamer_vit_tracker_tpu_torch.train import step as train
+
+    k4 = {"attention_flash": cfg.depth}
+
+    # -- a. train_step ------------------------------------------------------
+    def eager_steps():
+        s, ls = fresh(), []
+        for _ in range(JIT_TRAIN_STEPS):
+            s, loss, _ = train.train_step_eager(s, z, x, gt, cfg, opt=opt,
+                                                device=dev)
+            ls.append(loss)
+        return torch.stack(ls), params_of(s)
+
+    run_a, run_b = eager_steps(), eager_steps()
+    n0 = train.train_step.traces
+    s = fresh()
+    zero_counts()
+    s, loss, _ = train.train_step(s, z, x, gt, cfg, opt=opt, device=dev)
+    ls = [loss]
+    with no_sync():
+        for _ in range(JIT_TRAIN_STEPS - 1):
+            s, loss, _ = train.train_step(s, z, x, gt, cfg, opt=opt,
+                                          device=dev)
+            ls.append(loss)
+    counts = read_counts()
+    caps = jit_check("train_step", [], [], counts,
+                     {k: n * JIT_TRAIN_STEPS for k, n in k4.items()},
+                     {train.train_step: train.train_step.traces - n0})
+    res = {"step": train_agree("compiled train_step", run_a, run_b,
+                               (torch.stack(ls), params_of(s)))}
+    res["step"].update(launches=counts, captures=caps)
+    print(f"compiled train_step: {JIT_TRAIN_STEPS} flagship float32 steps at "
+          f"batch {TRAIN_BATCH}, captures {caps}, launches {counts}, no host "
+          f"sync in the replays", flush=True)
+
+    # -- b. train_scan --------------------------------------------------------
+    data.set_diversity("v1")
+    ds = tuple(torch.as_tensor(a, device=dev)
+               for a in data.make_dataset(0, TRAIN9_DATASET, cfg))
+
+    def scan(fn, st=None):
+        gen = torch.Generator().manual_seed(1)
+        st, gen, ls, parts = fn(st or fresh(), *ds, gen, cfg, opt,
+                                n_steps=JIT_SCAN_STEPS, batch=TRAIN_BATCH,
+                                device=dev)
+        return (ls, params_of(st)), gen.get_state()
+
+    (run_a, g_a), (run_b, _) = (scan(train.train_scan_eager),
+                                scan(train.train_scan_eager))
+    n0 = train._scan_step.traces
+    zero_counts()
+    run_c, g_c = scan(train.train_scan)
+    counts = read_counts()
+    st = fresh()
+    with no_sync():
+        run_d, _ = scan(train.train_scan, st)
+    if not torch.equal(g_a, g_c):
+        raise AssertionError("train_scan: the generator ends elsewhere than "
+                             "the eager scan leaves it")
+    caps = jit_check("train_scan", [], [], counts,
+                     {k: n * JIT_SCAN_STEPS for k, n in k4.items()},
+                     {train._scan_step: train._scan_step.traces - n0})
+    res["scan"] = train_agree("compiled train_scan", run_a, run_b, run_c)
+    res["scan_again"] = train_agree("compiled train_scan again", run_a,
+                                    run_b, run_d)
+    res["scan"].update(launches=counts, captures=caps)
+    print(f"compiled train_scan: {JIT_SCAN_STEPS} steps with augmentation "
+          f"from a seeded CPU generator, twice (the second under sync debug "
+          f"mode error), the generator left as the eager scan leaves it, "
+          f"captures {caps}, launches {counts}, no host sync in the replays",
+          flush=True)
+    res["dataset"] = ds
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3619,7 +3867,10 @@ def main() -> int:
     # -- 13. the compiled entry points against the eager functions -----------
     compiled = jit_phase(dev, card, params, cfg)
 
-    # -- 14. result lines --------------------------------------------------
+    # -- 14. compiled training against the eager functions ------------------
+    trained = train_jit_phase(dev, card)
+
+    # -- 15. result lines --------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -3704,6 +3955,16 @@ def main() -> int:
         "train_steps": TRAIN9_STEPS,
         "mesh_train_launches_a_rank": parallel["train"]["kernel4_launches"],
         "mesh_train_steps": MESH_TRAIN_STEPS,
+        "compiled_train_launches": {
+            k: trained[k]["launches"]["attention_flash"]
+            for k in ("step", "scan")},
+        "compiled_train_steps": {"step": JIT_TRAIN_STEPS,
+                                 "scan": JIT_SCAN_STEPS},
+        "train_shape": {k: trained["kernel4"][k] for k in (
+            "route", "variant", "max_abs_err", "ms", "launch_ms",
+            "device_us", "replay_device_us", "plain_ms", "library_ms",
+            "library_device_us", "bound_ms", "bound_by",
+            "launches_per_step")},
         "variant": att_flash["variant"],
         "max_abs_err": att_flash["max_abs_err"],
         "ms": att_flash["ms"],
@@ -3765,6 +4026,7 @@ def main() -> int:
     print(f"parallel summary: {json.dumps(parallel)}")
     print(f"bench: {benched['seconds']:.1f} s")
     print(f"compiled summary: {json.dumps(compiled)}")
+    print(f"compiled training summary: {json.dumps(trained)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,12 @@ Counterparts of ``__graft_entry__.py::entry`` and ``dryrun_multichip`` at
 the root of the repo.  ``entry()`` returns ``(fn, args)``: ``fn(*args)``
 runs one ``tracker.core.update`` of the flagship ``vittrack-t`` model
 (D=192, depth 12, bf16, grouped conv head) with its shipped weights, on
-the card unless ``device="cpu"``.
+the card unless ``device="cpu"``.  Run as a program it takes that step
+through the compiled update with the state donated (``core.update_jit``,
+as ``__graft_entry__.py`` jits ``fn`` with ``donate_argnums=(1,)``) and
+prints ``entry OK:`` with the shapes of the box and the score:
+
+    python -m gstreamer_vit_tracker_tpu_torch.entry [--cpu]
 
 ``dryrun_multichip(n)`` runs JAX's dry run over ``n`` ranks of one host
 (``parallel/launch.py``): a (data x model) mesh of ``factor_mesh(n)``, the
@@ -16,7 +21,9 @@ unless there are n cards (``parallel/mesh.py::backend_for``).
 
 from __future__ import annotations
 
+import argparse
 import functools
+import sys
 from typing import Any, Dict
 
 import numpy as np
@@ -91,14 +98,14 @@ def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
 
 def train_steps(params, batch, cfg: ModelConfig, steps: int = 1,
                 mesh=None, device="cuda") -> Dict[str, Any]:
-    """``steps`` ``train_step`` s from ``params`` (a host tree) on
+    """``steps`` eager ``train_step`` s from ``params`` (a host tree) on
     ``batch`` (numpy z, x, gt): in one process, or under ``mesh`` on this
-    rank's shards and data slice.  Returns the losses, the full params
+    rank's shards and data slice (the mesh runs the eager step).  Returns the losses, the full params
     and first moments after the first step (flat numpy, gathered on a
     mesh) and the kernel launches of the steps."""
     from .parallel import sharding
     from .parallel.mesh import use_mesh
-    from .train.step import create_train_state, train_step
+    from .train.step import create_train_state, train_step_eager
 
     dev = resolve_device(device)
     true_float32(dev)
@@ -112,7 +119,8 @@ def train_steps(params, batch, cfg: ModelConfig, steps: int = 1,
     before = launch_counts()
     with use_mesh(mesh):
         for _ in range(steps):
-            state, loss, _ = train_step(state, z, x, gt, cfg, device=dev)
+            state, loss, _ = train_step_eager(state, z, x, gt, cfg,
+                                              device=dev)
             losses.append(float(loss))
             first = first or (state.params, state.opt_state.mu)
     launches = _launches_since(before)
@@ -256,3 +264,21 @@ def dryrun_multichip(n_ranks: int, device="cuda",
     out["launches"] = [{k: r[k] for k in r if k.endswith("_launches")}
                        for r in reports]
     return out
+
+
+def main(argv=None) -> int:
+    """``entry()``'s step through the compiled update, the state donated;
+    prints ``entry OK:`` and the output shapes (``__graft_entry__.py``'s
+    ``__main__``).  On the card unless ``--cpu``."""
+    ap = argparse.ArgumentParser(description="One compiled flagship update.")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run the plain versions on the CPU")
+    args = ap.parse_args(argv)
+    fn, example = entry(device="cpu" if args.cpu else "cuda")
+    out = core.update_jit(*example, **fn.keywords)
+    print("entry OK:", tuple(tuple(t.shape) for t in out[1:]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,8 +16,9 @@ for ``--steps`` ticks of a ``SlotEngine`` with ``--slots`` live slots fed
 from pinned 1080p NV12 buffers (``--slots 0`` leaves the tick out), for the
 NV12-to-tokens call ``nv12_search_tokens`` beside the unfused chain
 ``preprocess_nv12`` -> ``embed_search`` on the same frame and window, and
-for 3 float32 training steps of the flagship's width and depth at
-``--train-batch`` (0 leaves them out).
+for 3 eager float32 training steps of the flagship's width and depth at
+``--train-batch`` (0 leaves them out; ``chip_smoke.py`` phase 14 times
+the compiled step beside the eager one).
 """
 
 from __future__ import annotations
@@ -113,8 +114,8 @@ def _profile_train(args, dev) -> dict:
         weights.checkpoint_path("vittrack-t"), cfg, device=dev), opt=opt)]
 
     def step():
-        box[0] = train.train_step(box[0], z, x, gt, cfg, opt=opt,
-                                  device=dev)[0]
+        box[0] = train.train_step_eager(box[0], z, x, gt, cfg, opt=opt,
+                                        device=dev)[0]
 
     return dict(_traced(step, 3, args.top), batch=b)
 

@@ -11,10 +11,12 @@ measures:
 
 JAX's ``loop`` and ``transpose`` modes are two Pallas formulations of one
 computation; the port has one kernel-5 design, so the A/B has two arms.
-Each ms a step is a slope between ``--reps`` and ``--reps-hi`` steps
-(``utils/profiling.py::marginal_ms``): of device time on the card, as
-JAX's slope inside one scanned program is; of the host clock with
-``--cpu``.
+Each arm is one compiled program of its rep loop (the full step through
+``scan.update_scan_pool``, the stage through ``tracker/scan.py::
+scanned``), as JAX's are scanned programs, and each ms a step is a slope
+between ``--reps`` and ``--reps-hi`` steps (``utils/profiling.py::
+marginal_ms``): of device time on the card, as JAX's slope inside one
+scanned program is; of the host clock with ``--cpu``.
 
 Usage:
     python -m gstreamer_vit_tracker_tpu_torch.scripts.ab_fused_prep \
@@ -103,26 +105,29 @@ def main(argv=None) -> int:
         print(f"full step ms ({arm}): {t:.4f}")
 
     # ---- 2. isolated prep+embed stage -----------------------------------
-    def plain_tokens(st, i):
+    def plain_tokens(st, frame):
         win = pp.crop_window(st.bbox, cfg.search_factor)
-        x_img = core._prep_nv12((ys[i % pool], uvs[i % pool]), win,
-                                cfg.search_size, cfg)
+        x_img = core._prep_nv12(frame, win, cfg.search_size, cfg)
         return vit.embed_search(params["backbone"], x_img[None], cfg)
 
-    def fused_tokens(st, i):
+    def fused_tokens(st, frame):
         win = pp.crop_window(st.bbox, cfg.search_factor)
-        return fpe.nv12_search_tokens(params, ys[i % pool], uvs[i % pool],
-                                      win, cfg)
+        return fpe.nv12_search_tokens(params, *frame, win, cfg)
 
-    def stage(tokens):
+    def stage(tokens, arm):
+        def step(st, i):
+            frame = scan._pick((ys, uvs), torch.remainder(i, pool))
+            return st, tokens(st, frame).float().mean()
+
+        program = scan.scanned(step, f"ab_fused_prep.stage_{arm}")
+
         def run(reps):
-            st = fresh()
-            out = [tokens(st, i).float().mean() for i in range(reps)]
-            return float(torch.stack(out).sum())
+            return float(program(fresh(), reps, dev)[1].sum())
         return run
 
     for arm, tokens in (("plain", plain_tokens), ("fused", fused_tokens)):
-        res[f"stage_{arm}_ms"] = t = marginal_ms(stage(tokens), lo, hi, dev)
+        res[f"stage_{arm}_ms"] = t = marginal_ms(stage(tokens, arm), lo, hi,
+                                                 dev)
         print(f"prep+embed stage ms ({arm}): {t:.4f}")
     print(json.dumps({
         "device": name, "preset": PRESET, "frame": f"nv12 {w}x{h}",

@@ -13,7 +13,8 @@ attributes one stage of the residual:
                  feedback (the residual is float32 arithmetic)
   float-window   + the production float crop and resample
   float-feedback + the float rect carried between frames
-  production     the port's tracker/core.py step
+  production     the port's tracker/core.py step (plain route, compiled:
+                 JAX's jitted ``use_pallas=False, fused=False`` update)
 
     python -m gstreamer_vit_tracker_tpu_torch.scripts.agreement_cv2 \
         --frames 400 --seeds 5 9 13
@@ -40,6 +41,7 @@ from ..device import resolve_device, true_float32
 from ..media.source import SyntheticSource
 from ..models import export_onnx, weights
 from ..tracker import core
+from ..utils import graph
 
 
 def iou(a, b):
@@ -48,6 +50,15 @@ def iou(a, b):
     inter = ix * iy
     union = a[2] * a[3] + b[2] * b[3] - inter
     return inter / union if union > 0 else 0.0
+
+
+@graph.compiled("agreement_cv2.update", static=("cfg",))
+def update(params, state, frame, cfg, device):
+    """The production rung's step compiled, the state not donated: JAX's
+    ``jax.jit(lambda p, s, f: core.update(p, s, f, cfg, use_pallas=False,
+    fused=False))``, the plain per-block route."""
+    return core.update(params, state, frame, cfg, device=device,
+                       use_kernel=False, fused=False)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -132,8 +143,7 @@ def main(argv=None) -> int:
                                cfg, device=dev)
                 ious = []
                 for i in range(1, n + 1):
-                    st, bb, _c = core.update(params, st, frames[i], cfg,
-                                             device=dev)
+                    st, bb, _c = update(params, st, frames[i], cfg, dev)
                     ious.append(iou(bb.cpu().numpy(), ref[i - 1]))
             else:
                 rung = make_rung(name)

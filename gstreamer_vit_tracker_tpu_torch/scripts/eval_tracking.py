@@ -9,7 +9,10 @@ scenarios, prints and exit codes:
         --preset vittrack-t --world independent --scenario all
 
 It runs on the card; ``--cpu`` runs the port's plain versions on the CPU.
-Without ``--cpu`` and without a card it exits 1 with a message.
+Without ``--cpu`` and without a card it exits 1 with a message.  The
+per-frame update is compiled (:func:`update`, JAX's ``jax.jit`` of
+``core.update``; the state not donated), as is ``--objects``' batched
+step.
 ``--tracker cv2`` and ``--tracker matched`` need OpenCV (``cv2``).
 
 Scenarios:
@@ -42,10 +45,11 @@ from ..device import resolve_device, true_float32
 from ..media.source import HeldoutSource, SyntheticSource
 from ..models import vittrack, weights
 from ..tracker import core
+from ..utils import graph
 
 __all__ = ["PRESETS", "SCENARIOS", "EvalReport", "build_argparser",
            "center_errors", "iou", "main", "make_source", "run",
-           "run_sequence", "run_sequence_multi", "summarize"]
+           "run_sequence", "run_sequence_multi", "summarize", "update"]
 
 SCENARIOS = ("basic", "scale", "occlusion", "distractor", "shake",
              "drift", "morph", "rotation", "noise", "exit", "heldout")
@@ -150,6 +154,14 @@ def run_sequence_multi(params, cfg, src, frames: int, n_obj: int,
             cover[i - 1, k] = max(iou(b[j], gt) for j in range(n_obj))
         confs[i - 1] = s
     return ious.mean(axis=0), confs.mean(axis=0), cover.mean()
+
+
+@graph.compiled("eval_tracking.update", static=("cfg",))
+def update(params, state, frame, cfg, device):
+    """``core.update(params, state, frame, cfg)`` compiled, the state not
+    donated (JAX's ``jax.jit(lambda p, s, f: core.update(p, s, f,
+    cfg))``): the loop's per-frame update."""
+    return core.update(params, state, frame, cfg, device=device)
 
 
 def center_errors(pred, gt):
@@ -456,7 +468,7 @@ def run(argv=None) -> EvalReport:
         print(f"cv2.TrackerVit baseline on exported {onnx_path}")
 
     def upd(p, s, f):
-        return core.update(p, s, f, cfg, device=dev)
+        return update(p, s, f, cfg, dev)
 
     scenarios = SCENARIOS if args.scenario == "all" else (args.scenario,)
     summary = {}

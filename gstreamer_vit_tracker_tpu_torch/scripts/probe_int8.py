@@ -13,6 +13,10 @@ a kernel of the port: nothing in the port calls it.
    rep count (``utils/profiling.py::marginal_ms``: device time on the card,
    the host clock with ``--cpu``).
 
+The correctness product and each chain's rep loop are compiled programs
+(``utils/graph.py::Compiled``, ``tracker/scan.py::scanned``), as JAX's
+are jitted.
+
 Usage:
     python -m gstreamer_vit_tracker_tpu_torch.scripts.probe_int8 \
         [--reps 50] [--big-reps 20] [--sizes 320,5120] [--cpu]
@@ -32,6 +36,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tracker import scan
+from ..utils import graph
 from ..utils.profiling import marginal_ms
 
 D, HID, DEPTH = 192, 768, 12
@@ -72,6 +78,12 @@ def qdq_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
     return torch._int_mm(xq, wq).float() * xs * ws
 
 
+@graph.compiled("probe_int8.i8mm")
+def i8mm(a, b, device) -> torch.Tensor:
+    """int8 x int8 -> int32 (``torch._int_mm``), compiled."""
+    return torch._int_mm(a, b)
+
+
 def bench(n: int, reps_lo: int, dev) -> dict:
     gen = torch.Generator().manual_seed(0)
     ws = make_weights(gen, dev)
@@ -79,26 +91,28 @@ def bench(n: int, reps_lo: int, dev) -> dict:
     ws_q = [(quant_w(w1), quant_w(w2)) for w1, w2 in ws]
     x0 = torch.randn((n, D), generator=gen).to(dev)
 
-    def run_bf16(reps):
-        c = x0
-        for _ in range(reps):
-            y = c.bfloat16()
-            for w1, w2 in ws_bf:
-                y = torch.tanh(y @ w1) @ w2
-            c = y.float() * 0.5 + c * 0.5
-        return float(c.sum())
+    def step_bf16(c, i):
+        y = c.bfloat16()
+        for w1, w2 in ws_bf:
+            y = torch.tanh(y @ w1) @ w2
+        return y.float() * 0.5 + c * 0.5, None
 
-    def run_i8(reps):
-        c = x0
-        for _ in range(reps):
-            y = c
-            for (w1q, w1s), (w2q, w2s) in ws_q:
-                y = qdq_matmul(torch.tanh(qdq_matmul(y, w1q, w1s)), w2q, w2s)
-            c = y * 0.5 + c * 0.5
-        return float(c.sum())
+    def step_i8(c, i):
+        y = c
+        for (w1q, w1s), (w2q, w2s) in ws_q:
+            y = qdq_matmul(torch.tanh(qdq_matmul(y, w1q, w1s)), w2q, w2s)
+        return y * 0.5 + c * 0.5, None
+
+    def chain(step, name):
+        program = scan.scanned(step, f"probe_int8.run_{name}")
+
+        def run(reps):
+            return float(program(x0, reps, dev)[0].sum())
+        return run
 
     out = {}
-    for name, fn in (("bf16", run_bf16), ("int8", run_i8)):
+    for name, fn in (("bf16", chain(step_bf16, "bf16")),
+                     ("int8", chain(step_i8, "int8"))):
         ms = marginal_ms(fn, reps_lo, 5 * reps_lo, dev)
         out[name] = ms
         print(f"N={n} {name}: {ms:.4f} ms per 12x(mlp) chain "
@@ -121,8 +135,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     a8 = rng.integers(-127, 128, (64, 192), dtype=np.int8)
     b8 = rng.integers(-127, 128, (192, 128), dtype=np.int8)
-    got = torch._int_mm(torch.as_tensor(a8, device=dev),
-                        torch.as_tensor(b8, device=dev)).cpu().numpy()
+    got = i8mm(a8, b8, dev).cpu().numpy()
     want = a8.astype(np.int32) @ b8.astype(np.int32)
     exact = bool((got == want).all())
     print("int8 matmul exact:", exact)

@@ -17,8 +17,10 @@ Usage:
     python -m gstreamer_vit_tracker_tpu_torch.scripts.probe_relay_fetch \
         [--samples 15] [--cpu]
 
-It runs on the card; ``--cpu`` runs on the CPU (where a fetch is a host
-copy).  Without ``--cpu`` and without a card it exits 1 with a message.
+The fetched results come from a compiled function (``utils/graph.py::
+Compiled``), as JAX's ``f`` is jitted; each call's result is a fresh
+tensor.  It runs on the card; ``--cpu`` runs on the CPU (where a fetch is
+a host copy).  Without ``--cpu`` and without a card it exits 1 with a message.
 Prints one JSON line.
 """
 
@@ -34,6 +36,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import graph
+
+
+@graph.compiled("probe_relay_fetch.f")
+def f(x, n, device) -> torch.Tensor:
+    """``(x * n).sum(axis=0, keepdims=True)`` compiled (JAX's ``f``)."""
+    return (x * n).sum(dim=0, keepdim=True)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -56,15 +65,12 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def f(x, n):
-        return (x * n).sum(dim=0, keepdim=True)
-
     # Independent sources -> independent result buffers (a shared input
     # would order them on the device side).
     xs = [torch.as_tensor(np.random.default_rng(i).normal(size=(16, 5))
                           .astype(np.float32), device=dev) for i in range(4)]
     for x in xs:
-        f(x, 1.0).cpu()                # warm
+        f(x, 1.0, dev).cpu()                # warm
 
     def fetch(t):
         return t.cpu().numpy()
@@ -74,7 +80,7 @@ def main(argv=None) -> int:
 
     sync_ms = []
     for k in range(args.samples):
-        d = f(xs[k % 4], float(k + 2))
+        d = f(xs[k % 4], float(k + 2), dev)
         sync()
         t0 = time.perf_counter()
         fetch(d)
@@ -82,7 +88,8 @@ def main(argv=None) -> int:
 
     serial2 = []
     for k in range(args.samples):
-        d1, d2 = f(xs[0], float(k + 2)), f(xs[1], float(k + 3))
+        d1, d2 = (f(xs[0], float(k + 2), dev),
+                  f(xs[1], float(k + 3), dev))
         sync()
         t0 = time.perf_counter()
         fetch(d1)
@@ -92,9 +99,10 @@ def main(argv=None) -> int:
     conc2 = []
     with ThreadPoolExecutor(2) as ex:
         # Warm the pool threads' first-fetch path.
-        list(ex.map(fetch, [f(xs[2], 9.0), f(xs[3], 9.0)]))
+        list(ex.map(fetch, [f(xs[2], 9.0, dev), f(xs[3], 9.0, dev)]))
         for k in range(args.samples):
-            d1, d2 = f(xs[0], float(k + 20)), f(xs[1], float(k + 21))
+            d1, d2 = (f(xs[0], float(k + 20), dev),
+                      f(xs[1], float(k + 21), dev))
             sync()
             t0 = time.perf_counter()
             list(ex.map(fetch, [d1, d2]))

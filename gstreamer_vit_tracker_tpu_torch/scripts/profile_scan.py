@@ -9,16 +9,18 @@ It isolates:
      vs fixed frames vs a per-call loop timed on the host clock.
 
 The JAX script differences two rep counts inside scanned programs, so its
-slope is device time.  Here the marginal ms a step of each variant is the
-slope of device time (the kernels and copies ``torch.profiler`` records,
-``utils/profiling.py::marginal_ms``) between ``--reps`` and ``--reps-hi``
-steps, and ``device_ms`` is the device's ms a step over ``--reps`` steps,
-the run's set-up included (so a marginal lies at or a little below it).
-The per-call ``python_loop`` line stays on the host clock; as in JAX it
-calls the compiled ``multi.update_streams_jit`` (a CUDA graph replayed a
-call), and the states come from ``core.init_jit`` /
-``multi.init_streams_jit``.  JAX's other variants are scanned programs of
-their own; here they stay eager loops, timed by device time.
+slope is device time.  Here each variant's rep loop is one compiled
+program too (``tracker/scan.py::scanned``: one captured step replayed a
+step, the state donated; the pool variant is ``scan.
+update_streams_scan_pool``), and the marginal ms a step of each variant is
+the slope of device time (the kernels and copies ``torch.profiler``
+records, ``utils/profiling.py::marginal_ms``) between ``--reps`` and
+``--reps-hi`` steps, and ``device_ms`` is the device's ms a step over
+``--reps`` steps, the run's set-up included (so a marginal lies at or a
+little below it).  The per-call ``python_loop`` line stays on the host
+clock; as in JAX it calls the compiled ``multi.update_streams_jit`` (a
+CUDA graph replayed a call), and the states come from ``core.init_jit`` /
+``multi.init_streams_jit``.
 
 Usage:
     python -m gstreamer_vit_tracker_tpu_torch.scripts.profile_scan \
@@ -97,17 +99,18 @@ def main(argv=None) -> int:
         return ms
 
     # ---- 1. headline step decomposition --------------------------------
-    def pooled(step):
-        """run(reps): ``reps`` steps over the pool from a fresh state, the
-        per-step values read once at the end."""
+    def pooled(step, label):
+        """run(reps): one program of ``reps`` steps over the pool from a
+        fresh state, the per-step values read once at the end."""
+        program = scan.scanned(
+            lambda st, i: step(st, scan._pick(
+                (ys, uvs), torch.remainder(i, pool))),
+            f"profile_scan.{label}")
+
         def run(reps):
             st = core.init_jit(params, (ys[0], uvs[0]), bbox0, cfg,
                                device=dev, frame_format="nv12")
-            out = []
-            for i in range(reps):
-                st, v = step(st, (ys[i % pool], uvs[i % pool]))
-                out.append(v)
-            return float(torch.stack(out).sum())
+            return float(program(st, reps, dev)[1].sum())
         return run
 
     def full_step(st, frame):
@@ -128,9 +131,9 @@ def main(argv=None) -> int:
                                 prep(st, frame)[None], cfg)
         return st, maps.score.float().mean()
 
-    t_full = profiled("full", pooled(full_step))
-    t_enc = profiled("prep_vit_heads", pooled(encode_step))
-    t_prep = profiled("prep", pooled(prep_step))
+    t_full = profiled("full", pooled(full_step, "full"))
+    t_enc = profiled("prep_vit_heads", pooled(encode_step, "prep_vit_heads"))
+    t_prep = profiled("prep", pooled(prep_step, "prep"))
     print(f"headline marginal ms/step: full={t_full:.4f} "
           f"prep+vit+heads={t_enc:.4f} prep={t_prep:.4f} "
           f"-> vit+heads={t_enc - t_prep:.4f} "
@@ -150,13 +153,15 @@ def main(argv=None) -> int:
                                               active, reps, cfg, "nv12", dev)
         return float(sc.sum())
 
+    def fixed_step(st, i):
+        st, _bx, sc = multi.update_streams(params, st, first, active, cfg,
+                                           "nv12", device=dev)
+        return st, sc.sum()
+
+    scan_fixed = scan.scanned(fixed_step, "profile_scan.scan_fixed")
+
     def run_scan_fixed(reps):
-        st, out = streams0(), []
-        for _ in range(reps):
-            st, _bx, sc = multi.update_streams(params, st, first, active,
-                                               cfg, "nv12", device=dev)
-            out.append(sc)
-        return float(torch.stack(out).sum())
+        return float(scan_fixed(streams0(), reps, dev)[1].sum())
 
     m_pool = profiled("scan_pool_gather", run_scan_pool)
     m_fixed = profiled("scan_fixed", run_scan_fixed)

@@ -4,9 +4,11 @@ Port of ``scripts/profile_streams.py``, with its flags, defaults and prints:
 where the per-stream cost goes (batched NV12 preprocess, ViT encode +
 heads, the rest: decode and the state).  The JAX script differences two
 rep counts inside scanned programs, so its slope is device time; here each
-stage's ms a step is the slope of device time (``torch.profiler``,
-``utils/profiling.py::marginal_ms``) between ``--reps`` and twice as many
-steps, and ``device_ms`` is the device's ms a step over ``--reps`` steps.
+stage's rep loop is one compiled program too (``tracker/scan.py::
+scanned``, one captured step replayed a step), and its ms a step is the
+slope of device time (``torch.profiler``, ``utils/profiling.py::
+marginal_ms``) between ``--reps`` and twice as many steps, and
+``device_ms`` is the device's ms a step over ``--reps`` steps.
 The XLA cost analysis becomes the step's FLOP count from
 ``utils/flops.py``.
 
@@ -33,7 +35,7 @@ from ..config import PRESETS
 from ..device import resolve_device, true_float32
 from ..models import vittrack
 from ..ops import preprocess as pp
-from ..tracker import core, multi
+from ..tracker import core, multi, scan
 from ..utils import flops
 from ..utils.profiling import device_slope, marginal_ms
 
@@ -80,12 +82,17 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     device_of = {}
 
-    def timed(label, step, key):
-        """ms a step of ``step()`` (it returns a tensor to read), as the
-        slope between --reps and 2 x --reps steps (device time on a
-        card)."""
+    def timed(label, step, key, carry=None):
+        """ms a step of ``step(carry, i) -> (carry, value)``, as the slope
+        between --reps and 2 x --reps steps (device time on a card) of one
+        compiled program of that many steps (``scan.scanned``, JAX's
+        ``timed_scan``), the carry chained from run to run."""
+        program = scan.scanned(step, f"profile_streams.{key}")
+        box = [carry]
+
         def run(n):
-            return float(torch.stack([step() for _ in range(n)]).sum())
+            box[0], values = program(box[0], n, dev)
+            return float(values.sum())
 
         if dev.type == "cuda":
             ms, device_of[key] = device_slope(run, args.reps, 2 * args.reps)
@@ -99,25 +106,23 @@ def main(argv=None) -> int:
     st = multi.init_streams(params, (ys, uvs), bbs, cfg, device=dev,
                             frame_format="nv12")
     active = torch.ones((s, 1), dtype=torch.bool, device=dev)
-    carry = [st]
 
-    def full_step():
-        carry[0], _bx, sc = multi.update_streams(params, carry[0], (ys, uvs),
-                                                 active, cfg, "nv12",
-                                                 device=dev)
-        return sc.sum()
+    def full_step(carry, i):
+        carry, _bx, sc = multi.update_streams(params, carry, (ys, uvs),
+                                              active, cfg, "nv12", device=dev)
+        return carry, sc.sum()
 
-    total = timed("full 16-stream step", full_step, "full")
+    total = timed("full 16-stream step", full_step, "full", carry=st)
 
     # Preprocess only: the batched search-window crop of each stream's
     # frame, in the batched config (band off, tracker/multi.py::
     # _batched_cfg), the stage the full step above runs.
     bcfg = multi._batched_cfg(cfg)
 
-    def prep_step():
+    def prep_step(carry, i):
         win = pp.crop_window(bbs[:, 0], bcfg.search_factor)
         x = core._prep_nv12((ys, uvs), win, bcfg.search_size, bcfg)
-        return x.float().mean()
+        return carry, x.float().mean()
 
     prep = timed("preprocess (batched NV12 crop)", prep_step, "prep")
 
@@ -127,9 +132,9 @@ def main(argv=None) -> int:
                         device=dev)
     z_tok = st.z_tok.reshape((s,) + tuple(st.z_tok.shape[2:]))
 
-    def vit_step():
+    def vit_step(carry, i):
         maps = vittrack.forward(params, z_tok, x_img, cfg)
-        return maps.score.float().mean()
+        return carry, maps.score.float().mean()
 
     vit = timed("ViT encode+heads (batch 16)", vit_step, "vit")
 

@@ -12,6 +12,9 @@ one graph a step, replayed.  Frames are stacked over the clip in any of
 the three formats: RGB (N, H, W, 3), NV12 planes ((N, H, W), (N, H/2,
 W/2, 2)) or YUY2 (N, H, W*2).
 
+:func:`scanned` makes such a program of any step (the profiling scripts'
+variants, JAX's jitted ``lax.scan`` s of their own).
+
 ``update_scan_hud_pool`` composites the luma HUD into a display buffer after
 every tracked frame, with the score digits, the box and the enable computed
 on the device (``ops/overlay_nv12.py``'s device-tensor draws), so it too
@@ -20,7 +23,7 @@ reads nothing back inside its loop.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +62,34 @@ def _results(reps: int, *shape: int) -> torch.Tensor:
 def _pick(planes, i: torch.Tensor):
     """Frame ``i`` ((1,) int64 on the device) of a pool's planes."""
     return tuple(p.index_select(0, i)[0] for p in planes)
+
+
+def scanned(step: Callable, name: str) -> Callable:
+    """``step(carry, i) -> (carry, value)`` as one program of ``reps``
+    steps, the carry donated: the counterpart of a ``jax.jit`` of
+    ``lax.scan(step, carry, jnp.arange(reps))``.  ``i`` is the step's
+    device index ((1,) int64); ``value`` a 0-d tensor (or None) written at
+    row ``i``.  Returns ``run(carry, reps, device) -> (carry, values
+    (reps,) float32)``: one captured step replayed ``reps`` times on the
+    card.  Tensors that ``step`` reads from its closure (params, a frame
+    pool) are constants of the program, read in place; a carry passed
+    back from the last call is not copied, another one is copied in and
+    left as it was."""
+    def body(carry, values, reps, device, i):
+        carry, value = step(carry, i)
+        if value is not None:
+            values.index_copy_(0, i, value.reshape(1).to(values.dtype))
+        return carry, values
+
+    program = graph.Compiled(body, name, donate={"carry": (0,)},
+                             scratch=("values",), steps="reps")
+
+    def run(carry, reps: int, device):
+        carry, values = program(carry, _results(reps), reps, device)
+        return carry, values[:reps]
+
+    run.program = program
+    return run
 
 
 @graph.compiled("scan.update_scan", static=("cfg", "frame_format"),

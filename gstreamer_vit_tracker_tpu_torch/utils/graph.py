@@ -7,19 +7,31 @@ compiled XLA program with static shapes; donation becomes static state
 buffers that the replay updates in place.
 
 * **The key.** One capture per key: the static arguments (the config, the
-  frame format, ``exclusive`` ... and the device), the shape,
-  dtype and device of every tensor argument, and the identity and
-  ``_version`` of every parameter leaf.  An in-place parameter update (an
-  optimiser step) moves a leaf's ``_version`` and a re-uploaded tree has
-  new leaves: both miss the key, as ``ops/operand_cache.py``'s operands do.
-* **Parameters** are read in place, never copied.  The graph holds the
-  kernel operands it was captured against (``OperandCache`` results) so
-  that their cache may evict them; a graph whose parameter leaves died is
-  dropped (weak references).
+  frame format, ``exclusive`` ... and the device), the shape, strides,
+  dtype and device of every tensor argument, the identity and
+  ``_version`` of every parameter leaf, and the numerics switches in
+  force (TF32, cuDNN's ``deterministic`` and ``benchmark``: a captured op
+  keeps the algorithm chosen under the switches of its capture).  An
+  in-place parameter update (an optimiser step) moves a leaf's
+  ``_version`` and a re-uploaded tree has new leaves: both miss the key,
+  as ``ops/operand_cache.py``'s operands do.
+* **Parameters** (a ``params`` argument, where the function has one) are
+  read in place, never copied.  The graph holds the kernel operands it
+  was captured against (``OperandCache`` results) so that their cache may
+  evict them; a graph whose parameter leaves died is dropped (weak
+  references).  A training step has no ``params`` argument: its
+  parameters, moments, step count and EMA are the donated state, keyed by
+  shape and dtype like any array argument.
 * **Inputs.** Every other tensor argument (the state, the frame planes,
   ``active``, ``bbox``, the slot index) is copied into the graph's static
   input buffers before each call's replays, numbers and numpy arrays
-  first made tensors.  The copies are ``non_blocking``: nothing reads back.
+  first made tensors.  A buffer has its source's layout (a transposed
+  weight stays transposed: a product of another layout may round
+  otherwise).  The copies are ``non_blocking``: nothing reads back.
+  A ``cached`` argument (a dataset, a frame pool) is copied only when
+  another tensor, or a new version of the same one, comes in.  Array
+  arguments may be trees of tuples, lists, named tuples and dicts, with
+  ``None`` leaves.
 * **Donation.** A donated argument is the graph's static buffer: the step
   writes the new value into it and the call returns that same object, as
   JAX's donation invalidates the old buffer.  Passing it back in costs no
@@ -41,9 +53,16 @@ buffers that the replay updates in place.
   (the scan pools, JAX's ``lax.scan``): the wrapper passes the body a device
   step index ``i`` ((1,) int64, 0 at each call's first step) that the graph
   increments.  The count is not part of the key.
+* **Gradients.** The call runs under ``torch.no_grad()``; a body that
+  differentiates (the training step) enables them itself.  Its backward
+  ops run on autograd's device thread, on the stream of their forward op,
+  which is the capture stream: they land in the graph with the forward.
 * **On the CPU** the same static-buffer plumbing runs, with the body called
   eagerly for each step in place of a replay.  On the card a failed capture
   raises, naming the entry point and the op; there is no eager fallback.
+* **Under a mesh** (``parallel/mesh.py::use_mesh``) a call raises: the
+  programs under a mesh are not compiled yet (``ROADMAP.md``), and their
+  callers run the eager functions by name.
 """
 
 from __future__ import annotations
@@ -76,6 +95,14 @@ SETS = 4                            # keys a wrapper keeps captured
 
 _local = threading.local()          # .keep: the capture's list, or None
 _side_streams: Dict[int, Any] = {}  # device index -> capture stream
+
+
+def _numerics() -> Tuple[bool, ...]:
+    """The switches that choose an op's algorithm when it is captured."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
 
 
 def keep(obj: Any) -> Any:
@@ -124,13 +151,25 @@ def _numbers(x) -> bool:
     return _is_number(x)
 
 
+_NONE = "none"                     # the spec of a None leaf
+
+
 def flatten(x) -> Tuple[List[torch.Tensor], Hashable]:
-    """An array argument as (tensor leaves, spec): tuples, lists and named
-    tuples are walked; a tensor is a leaf; a numpy array, a number or a
-    sequence of numbers becomes one tensor leaf (on the host, where it
-    lies)."""
+    """An array argument as (tensor leaves, spec): tuples, lists, named
+    tuples and dicts are walked; a tensor is a leaf; ``None`` has no leaf;
+    a numpy array, a number or a sequence of numbers becomes one tensor
+    leaf (on the host, where it lies)."""
     if isinstance(x, torch.Tensor):
         return [x], None
+    if x is None:
+        return [], _NONE
+    if isinstance(x, dict):
+        leaves, specs = [], []
+        for c in x.values():
+            got, spec = flatten(c)
+            leaves += got
+            specs.append(spec)
+        return leaves, (dict, tuple(x), tuple(specs))
     if isinstance(x, (tuple, list)) and x and not _numbers(x):
         leaves, specs = [], []
         for c in x:
@@ -149,6 +188,10 @@ def unflatten(spec: Hashable, leaves: Sequence[torch.Tensor]):
     def build(s):
         if s is None:
             return next(it)
+        if s == _NONE:
+            return None
+        if s[0] is dict:
+            return dict(zip(s[1], (build(c) for c in s[2])))
         kind, children = s
         built = [build(c) for c in children]
         if hasattr(kind, "_fields"):          # a named tuple
@@ -170,6 +213,8 @@ def param_leaves(tree) -> List[Any]:
 def _map_tensors(x, fn):
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if isinstance(x, dict):
+        return {k: _map_tensors(v, fn) for k, v in x.items()}
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_map_tensors(v, fn) for v in x))
     if isinstance(x, (tuple, list)):
@@ -202,6 +247,18 @@ def _where(err: BaseException) -> str:
     return "an op outside the package"
 
 
+def no_mesh(name: str) -> None:
+    """Raise if a mesh is in context: ``name`` has no compiled program
+    under a mesh yet."""
+    from ..parallel.mesh import current_mesh
+
+    if current_mesh() is not None:
+        raise RuntimeError(
+            f"{name}: compiled programs under a mesh are not ported yet "
+            f"(ROADMAP.md, 'Programs under a mesh'); under a mesh call the "
+            f"eager function (train_step_eager, train_scan_eager ...)")
+
+
 def _side_stream(dev: torch.device):
     stream = _side_streams.get(dev.index)
     if stream is None:
@@ -222,6 +279,8 @@ class _Graph:
         self.inputs: Dict[str, Tuple[Hashable, List[torch.Tensor]]] = inputs
         # donated name -> weak references to the aliases handed out last
         self.handed: Dict[str, List[weakref.ref]] = {}
+        # cached name -> (weak reference, _version) of each leaf copied last
+        self.sources: Dict[str, List[Tuple[weakref.ref, int]]] = {}
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.graph = None
         self.out = None          # the captured step's outputs (graph memory)
@@ -244,14 +303,17 @@ class Compiled:
     result (``()`` for the whole result, ``(0,)`` for its first element).
     ``scratch``: array arguments whose values are not copied in (the body
     overwrites them; their shape and dtype size the static buffer, so a
-    ``meta`` tensor will do).  ``steps``: the argument that gives the
-    number of steps a call (not part of the key), the body then taking
-    ``i`` as well.  ``params`` is read in place, ``device`` is always
-    static, and every other argument of ``fn`` is an array argument."""
+    ``meta`` tensor will do).  ``cached``: array arguments copied in only
+    when another tensor or a new version of it comes in.  ``steps``: the
+    argument that gives the number of steps a call (not part of the key),
+    the body then taking ``i`` as well.  ``params``, where ``fn`` has it,
+    is read in place, ``device`` is always static, and every other
+    argument of ``fn`` is an array argument."""
 
     def __init__(self, fn: Callable, name: str, static: Sequence[str] = (),
                  donate: Optional[Dict[str, Tuple[int, ...]]] = None,
-                 scratch: Sequence[str] = (), steps: Optional[str] = None):
+                 scratch: Sequence[str] = (), cached: Sequence[str] = (),
+                 steps: Optional[str] = None):
         self.fn = fn
         self.name = name
         sig = inspect.signature(fn)
@@ -262,13 +324,15 @@ class Compiled:
         self.static = tuple(static) + ("device",)
         self.donate = dict(donate or {})
         self.scratch = frozenset(scratch)
+        self.cached = frozenset(cached)
         self.steps = steps
         self.arrays = tuple(n for n in names
                             if n not in self.static and n != "params")
-        unknown = (set(self.donate) | self.scratch) - set(self.arrays)
-        if unknown or "device" not in names or "params" not in names:
+        unknown = (set(self.donate) | self.scratch | self.cached) - set(
+            self.arrays)
+        if unknown or "device" not in names:
             raise ValueError(f"{name}: {sorted(unknown)} are not array "
-                             f"arguments, or device / params is missing")
+                             f"arguments, or device is missing")
         self.traces = 0          # captures (keys made, on the CPU)
         self.copies = 0          # leaves copied into static buffers
         self._graphs: "collections.OrderedDict[Hashable, _Graph]" = \
@@ -306,15 +370,17 @@ class Compiled:
         a = bound.arguments
         dev = resolve_device(a["device"])
         a["device"] = dev
-        pleaves = param_leaves(a["params"])
+        no_mesh(self.name)
+        pleaves = param_leaves(a.get("params", ()))
         tensors = [t for t in pleaves if isinstance(t, torch.Tensor)]
         arrays = {n: flatten(a[n]) for n in self.arrays}
         key = (tuple(a[n] for n in self.static),
                tuple((id(t), t._version) if isinstance(t, torch.Tensor)
                      else t for t in pleaves),
-               tuple((n, spec, tuple((tuple(t.shape), t.dtype, t.device)
-                                     for t in leaves))
-                     for n, (leaves, spec) in arrays.items()))
+               tuple((n, spec, tuple((tuple(t.shape), t.stride(), t.dtype,
+                                      t.device) for t in leaves))
+                     for n, (leaves, spec) in arrays.items()),
+               _numerics())
         steps = int(a[self.steps]) if self.steps else 1
         if steps < 1:
             raise ValueError(f"{self.name}: {self.steps}={steps}, at least "
@@ -333,7 +399,8 @@ class Compiled:
                 self._graphs.move_to_end(key)
             self._copy_in(g, arrays)
             call = {n: a[n] for n in self.static}
-            call["params"] = a["params"]
+            if "params" in a:
+                call["params"] = a["params"]
             call.update({n: g.tree(n) for n in self.arrays})
             if self.steps:
                 call[self.steps], call["i"] = steps, g.index
@@ -344,8 +411,8 @@ class Compiled:
     def _new(self, dev, tensors, arrays) -> _Graph:
         inputs = {}
         for n, (leaves, spec) in arrays.items():
-            inputs[n] = (spec, [torch.empty(t.shape, dtype=t.dtype,
-                                            device=dev) for t in leaves])
+            inputs[n] = (spec, [torch.empty_like(t, device=dev)
+                                for t in leaves])
         return _Graph(dev, [weakref.ref(t) for t in tensors], inputs)
 
     def _copy_in(self, g: _Graph, arrays) -> None:
@@ -353,6 +420,12 @@ class Compiled:
             bufs = g.inputs[n][1]
             if n in self.scratch:
                 continue
+            if n in self.cached:
+                src = g.sources.get(n)
+                if src and all(r() is t and v == t._version
+                               for (r, v), t in zip(src, leaves)):
+                    continue                  # these values are in place
+                g.sources[n] = [(weakref.ref(t), t._version) for t in leaves]
             if n in self.donate:
                 handed = [r() for r in g.handed.get(n, ())]
                 if handed and all(x is h for x, h in zip(leaves, handed)):

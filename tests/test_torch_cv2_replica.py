@@ -131,3 +131,40 @@ def test_verify_aborts_on_changed_convention(monkeypatch):
                         lambda workdir=None: fixed)
     with pytest.raises(RuntimeError, match="convention differs"):
         compat.cv2vit.verify_cv2_convention()
+
+
+def test_matched_crop_tracker_runs_two_compiled_programs(small_trees,
+                                                         monkeypatch):
+    # JAX jits the template embed and the f32 forward (use_pallas=False,
+    # fused=False): the port's two compiled programs, one capture each,
+    # give what their eager bodies give.  window="float" needs no cv2.
+    _, _, cfg, tparams = small_trees
+    # A tree of its own: the params' identity is part of the key, and the
+    # module's other cases capture theirs.
+    tparams = weights.tree_to(tparams, CPU, copy=True)
+    frames, bb0 = _frames(6, seed=31)
+
+    def track():
+        t = MatchedCropTracker(tparams, cfg, window="float", device=CPU)
+        t.init(frames[0], bb0)
+        return [(t.update(f), t.score) for f in frames[1:]]
+
+    n = (compat.cv2vit._embed.traces, compat.cv2vit._forward.traces)
+    routes, real = [], compat.cv2vit.vittrack.forward
+
+    def record(*a, **kw):
+        routes.append((kw.get("use_kernel"), kw.get("fused")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(compat.cv2vit.vittrack, "forward", record)
+    got = track()
+    assert (compat.cv2vit._embed.traces, compat.cv2vit._forward.traces) == (
+        n[0] + 1, n[1] + 1)
+    assert routes == [(False, False)] * 5
+    embed = compat.cv2vit._embed.__wrapped__
+    forward = compat.cv2vit._forward.__wrapped__
+    monkeypatch.setattr(compat.cv2vit, "_embed", lambda p, c, cfg, d: embed(
+        p, torch.as_tensor(c), cfg, d))
+    monkeypatch.setattr(compat.cv2vit, "_forward", lambda p, z, c, cfg, d:
+                        forward(p, z, torch.as_tensor(c), cfg, d))
+    assert track() == got

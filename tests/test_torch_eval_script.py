@@ -191,3 +191,19 @@ def test_flags_defaults_scenarios_equal_jax(monkeypatch):
     assert table(teval.build_argparser()) == table(seen["ap"])
     assert teval.SCENARIOS == jeval.SCENARIOS
     assert sorted(teval.PRESETS) == sorted(jeval.PRESETS)
+
+
+def test_the_loop_runs_the_compiled_update(tmp_path, capsys, monkeypatch):
+    # The per-frame update is compiled (JAX jits core.update): one capture
+    # for the run, and the summary and the printed lines bit-equal to the
+    # loop on the eager body.
+    traces = teval.update.traces
+    paths = [str(tmp_path / f"{k}.json") for k in ("c", "e")]
+    assert teval.run(BASE + ["--json", paths[0]]).rc == 0
+    assert teval.update.traces == traces + 1
+    compiled = capsys.readouterr().out
+    monkeypatch.setattr(teval, "update", teval.update.__wrapped__)
+    assert teval.run(BASE + ["--json", paths[1]]).rc == 0
+    assert capsys.readouterr().out.replace(paths[1], paths[0]) == compiled
+    with open(paths[0]) as c, open(paths[1]) as e:
+        assert json.load(c) == json.load(e)

@@ -494,3 +494,24 @@ def test_a_capture_failure_raises_naming_the_entry_point_and_the_op(
     assert "tracker/core.py" in msg and "_frame_on" in msg
     assert "unknown frame format" in msg
     assert g.graph is None and graph._read_counts() == before
+
+
+def test_a_static_buffer_keeps_its_source_layout():
+    """A transposed leaf (the shipped weights hold some) is copied into a
+    buffer of the same strides, so the body computes on the layout the
+    eager function sees; another layout of the same shape is another
+    key."""
+    seen = []
+
+    def body(x, device):
+        seen.append(x.stride())
+        return x @ x.t()
+
+    fn = graph.Compiled(body, "test.layout")
+    a = torch.arange(12.0).reshape(3, 4).t()          # (4, 3), strides (1, 4)
+    assert torch.equal(fn(a, CPU), a @ a.t())
+    assert seen == [(1, 4)] and fn.traces == 1
+    fn(a.contiguous(), CPU)
+    assert seen[-1] == (3, 1) and fn.traces == 2
+    fn(a.clone(), CPU)                                # the first layout again
+    assert seen[-1] == (1, 4) and fn.traces == 2

@@ -218,3 +218,61 @@ def test_agreement_without_cv2_runs_no_rung(monkeypatch, capsys):
     assert agreement_cv2.main(["--cpu", "--frames", "4"]) == 1
     captured = capsys.readouterr()
     assert "needs cv2" in captured.err and "seed" not in captured.out
+
+
+@pytest.fixture
+def programs(monkeypatch):
+    """The compiled programs the scripts make (``scan.scanned``), by
+    name."""
+    from gstreamer_vit_tracker_tpu_torch.tracker import scan
+
+    made, real = {}, scan.scanned
+
+    def record(step, name):
+        run = real(step, name)
+        made[name] = run.program
+        return run
+
+    monkeypatch.setattr(scan, "scanned", record)
+    return made
+
+
+def test_profile_variants_are_compiled_programs(tiny_profiles, programs,
+                                                capsys):
+    # Each variant's rep loop is one compiled program (JAX's scanned
+    # programs), captured once for both rep counts.
+    assert profile_scan.main(["--cpu", "--streams", "2", "--reps", "2",
+                              "--reps-hi", "3"]) == 0
+    assert profile_streams.main(["--cpu", "--streams", "2", "--reps",
+                                 "2"]) == 0
+    capsys.readouterr()
+    assert sorted(programs) == sorted(
+        [f"profile_scan.{k}" for k in ("full", "prep_vit_heads", "prep",
+                                       "scan_fixed")]
+        + [f"profile_streams.{k}" for k in ("full", "prep", "vit")])
+    assert {k: p.traces for k, p in programs.items()} == {
+        k: 1 for k in programs}
+
+
+def test_agreement_production_rung_is_the_compiled_plain_route(
+        monkeypatch, capsys):
+    # JAX's production rung jits core.update(..., use_pallas=False,
+    # fused=False): the port's compiles the same plain per-block route.
+    pytest.importorskip("cv2")
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    routes, real = [], core.update
+
+    def record(*a, **kw):
+        routes.append((kw.get("use_kernel"), kw.get("fused")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(core, "update", record)
+    traces = agreement_cv2.update.traces
+    rc = agreement_cv2.main(["--cpu", "--frames", "3", "--seeds", "5",
+                             "--rungs", "production"])
+    res = _json_line(capsys.readouterr().out)
+    assert rc == 0 and res["frames"] == 3
+    assert set(res["per_rung"]) == {"production"}
+    assert routes == [(False, False)] * 3
+    assert agreement_cv2.update.traces == traces + 1

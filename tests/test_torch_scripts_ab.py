@@ -110,3 +110,30 @@ def test_without_a_card_the_scripts_exit_1(mod, capsys):
     assert not torch.cuda.is_available()
     assert mod.main([]) == 1
     assert "pass --cpu" in capsys.readouterr().err
+
+
+def test_the_timed_loops_are_compiled_programs(tiny, monkeypatch, capsys):
+    # ab_fused_prep's stage arms, probe_int8's chains and its exactness
+    # product, and probe_relay_fetch's f are compiled (JAX jits each).
+    from gstreamer_vit_tracker_tpu_torch.tracker import scan
+
+    made, real = {}, scan.scanned
+
+    def record(step, name):
+        run = real(step, name)
+        made[name] = run.program
+        return run
+
+    monkeypatch.setattr(scan, "scanned", record)
+    i8, f = probe_int8.i8mm.copies, probe_relay_fetch.f.copies
+    assert ab_fused_prep.main(["--cpu", "--reps", "2", "--reps-hi", "3"]) == 0
+    assert probe_int8.main(["--cpu", "--reps", "1", "--sizes", "16"]) == 0
+    assert probe_relay_fetch.main(["--cpu", "--samples", "2"]) == 0
+    capsys.readouterr()
+    assert sorted(made) == ["ab_fused_prep.stage_fused",
+                            "ab_fused_prep.stage_plain",
+                            "probe_int8.run_bf16", "probe_int8.run_int8"]
+    assert all(p.traces == 1 for p in made.values())
+    # Each call copies its two arguments in; one shape is one key.
+    assert probe_int8.i8mm.copies == i8 + 2 and len(probe_int8.i8mm) == 1
+    assert probe_relay_fetch.f.copies > f and len(probe_relay_fetch.f) == 1

@@ -254,3 +254,12 @@ def test_entry_runs_one_flagship_update_on_cpu():
     assert bbox.shape == (4,) and np.isfinite(bbox.numpy()).all()
     assert 0.0 <= float(conf) <= 1.0
     assert int(new_state.frame_idx) == 1
+
+
+def test_entry_main_runs_the_compiled_update(capsys):
+    # __graft_entry__.py's __main__: entry()'s step jitted, the state
+    # donated, "entry OK:" and the shapes of the box and the score.
+    traces = tcore.update_jit.traces
+    assert tentry.main(["--cpu"]) == 0
+    assert capsys.readouterr().out == "entry OK: ((4,), ())\n"
+    assert tcore.update_jit.traces == traces + 1

@@ -168,3 +168,27 @@ def test_flags_and_defaults_equal_jax_less_mesh(monkeypatch):
     for name, cfg in ttrain.PRESETS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jtrain.PRESETS[name])
+
+
+def test_training_runs_the_compiled_scan_and_equals_the_eager_one(
+        tmp_path, monkeypatch):
+    # One process trains through the compiled train_scan: one capture for
+    # the run, the refreshed dataset (--refresh-every) copied into it, the
+    # losses and the checkpoint bit-equal to the eager scan's.
+    from gstreamer_vit_tracker_tpu_torch.train import step as tstep
+
+    # Its own --lr: a static value no other test's capture holds (the
+    # wrapper's captures live as long as the process).
+    argv = BASE + ["--lr", "2e-3", "--refresh-every", "2",
+                   "--out", str(tmp_path / "c.npz")]
+    traces = tstep._scan_step.traces
+    compiled = ttrain.run(argv)
+    assert tstep._scan_step.traces == traces + 1
+    monkeypatch.setattr(ttrain, "train_scan", tstep.train_scan_eager)
+    eager = ttrain.run(argv[:-1] + [str(tmp_path / "e.npz")])
+    assert compiled.rc == eager.rc == 0
+    assert compiled.losses == eager.losses and len(compiled.losses) == 4
+    with np.load(tmp_path / "c.npz") as c, np.load(tmp_path / "e.npz") as e:
+        assert sorted(c.files) == sorted(e.files)
+        for k in c.files:
+            np.testing.assert_array_equal(c[k], e[k], err_msg=k)
