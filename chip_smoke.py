@@ -215,7 +215,24 @@ Phases, in order; any failure raises and exits non-zero:
    shape (48, 320, 64) float32 against its plain version, timed beside
    ``scaled_dot_product_attention``, and its device time inside the
    replayed step;
-15. prints the card line, then one ``{"kernels": [...]}`` line, then the
+15. the programs under a mesh compiled (``utils/graph.py``: CUDA graphs
+   with the NCCL collectives inside the replay): on a 1x1 NCCL mesh in this
+   process, the shipped flagship behind a ShardedStreamTracker and a mesh
+   SlotEngine at 16 slots (16 slot writes, 20 ticks each) and 5 flagship
+   float32 ``train_step`` s at phase 7's batch, each compiled against its
+   eager mesh body called by name: bit for bit, one capture a key, kernel
+   3 launched 12 times a tick and kernel 4 12 times a step and nothing
+   else, no host sync inside the replays; eager against compiled host
+   wall, device busy ms and idle share a tick and a step; a body holding
+   one ``dist.all_reduce`` on the one-rank NCCL group captured and
+   replayed 20 times, equal to eager; a mesh of gloo groups with CUDA
+   tensors raising before any launch; the app's compiled HUD draws
+   byte-equal to the eager ones; the two capture modes tried on one NCCL
+   rank.  With two or more cards visible (not on one card): the same on
+   NCCL ranks with a card each (four cards: the tracker at 4x1, the
+   engine and the train step at 2x2) and ``entry.dryrun_multichip``
+   compiled within JAX's bounds.  It prints which part it ran;
+16. prints the card line, then one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Float32 products and
@@ -3155,6 +3172,7 @@ def traced_ms(fn, reps: int, per: int, kernel: str = "") -> dict:
         if not us:
             raise AssertionError(f"no {kernel} activity in the trace")
         res["kernel_us"] = sum(us) / len(us)
+        res["kernel_count"] = len(us) / (reps * per)
     return res
 
 
@@ -3671,6 +3689,508 @@ def train_jit_checks(dev, cfg, z, x, gt, opt, fresh, params_of) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the programs under a mesh compiled (CUDA graphs, NCCL inside)
+# ---------------------------------------------------------------------------
+
+MESH_JIT_TICKS = 20           # tracker and engine ticks at SERVE_SLOTS slots
+MESH_JIT_STEPS = 5            # flagship f32 train steps at TRAIN_BATCH
+MESH_JIT_TIMED = 10           # ticks in each timed window (train: 5 steps)
+PROBE_REPLAYS = 20            # replays of the captured one-rank all-reduce
+PROBE_CHAIN = 3000            # ops after the all-reduce in the mode probe
+MESH_JIT_PARTS = ("tracker", "engine", "train")
+
+
+def mesh_jit_run(dev, mesh, parts=MESH_JIT_PARTS, timed: bool = True) -> dict:
+    """On this rank under ``mesh`` (NCCL groups): the shipped flagship
+    (bf16) behind a ShardedStreamTracker and a mesh SlotEngine at
+    SERVE_SLOTS slots over MESH_JIT_TICKS ticks of a 1080p NV12 clip on
+    the device (each slot its own offset into it), and MESH_JIT_STEPS
+    flagship float32 ``train_step`` s at phase 7's batch (this rank's
+    shards and data slice, cuDNN's deterministic algorithms), each
+    compiled against its eager mesh body called by name: bit for bit, one
+    capture a key, kernel 3 launched depth times a tick and kernel 4 depth
+    times a step and nothing else, no host sync inside the replays; with
+    ``timed``, eager against compiled host wall, device busy ms and idle
+    share a tick or step (the default algorithms)."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.parallel import (
+        ShardedStreamTracker, sharding)
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import use_mesh
+    from gstreamer_vit_tracker_tpu_torch.serve import SlotEngine
+    from gstreamer_vit_tracker_tpu_torch.tracker import core, multi
+    from gstreamer_vit_tracker_tpu_torch.train import step as train
+
+    cfg = PRESETS["vittrack-t"]
+    cpu = torch.device("cpu")
+    n, ticks_n = SERVE_SLOTS, MESH_JIT_TICKS
+    # Across ranks the replays' NCCL kernels are read from the trace (the
+    # tracker's only collective is its gather over data, dimension 0).
+    nccl = "nccl" if mesh.size() > 1 else ""
+    res = {}
+    if "tracker" in parts or "engine" in parts:
+        host = weights.load_npz(weights.checkpoint_path("vittrack-t"), cfg,
+                                device=cpu)
+        frames, boxes = nv12_clip(ticks_n + 1, seed=15)
+        clip = [core._frame_on(f, "nv12", dev) for f in frames]
+        ys = torch.stack([c[0] for c in clip])
+        uvs = torch.stack([c[1] for c in clip])
+        ticks = []
+        for t in range(ticks_n + 1):
+            idx = (torch.arange(n, device=dev) + t) % len(clip)
+            ticks.append((ys.index_select(0, idx), uvs.index_select(0, idx)))
+        bbs = np.asarray([boxes[k % len(clip)] for k in range(n)],
+                         np.float32)[:, None, :]
+        active = np.ones(n, bool)
+    k3 = {"attention_single": cfg.depth * ticks_n}
+
+    if "tracker" in parts:
+        tr_e, tr_c = (ShardedStreamTracker(mesh, host, cfg, "nv12",
+                                           snapshot_every=0, device=dev)
+                      for _ in range(2))
+        tr_e.compiled = False                 # the eager body, by name
+        if not tr_c.compiled:
+            raise AssertionError("tracker: the mesh's groups do not compile")
+        tr_e.init(ticks[0], bbs)
+        want = [tr_e.update(ticks[t]) for t in range(1, ticks_n + 1)]
+        n0 = multi.init_streams_jit.traces
+        zero_counts()
+        tr_c.init(ticks[0], bbs)
+        got = [tr_c.update(ticks[1])]
+        with no_sync():
+            got += [tr_c.update(ticks[t]) for t in range(2, ticks_n + 1)]
+        counts = read_counts()
+        caps = jit_check("mesh tracker", want + [tr_e.state],
+                         got + [tr_c.state], counts, k3,
+                         {tr_c._step: tr_c._step.traces,
+                          multi.init_streams_jit:
+                          multi.init_streams_jit.traces - n0})
+        res["tracker"] = {"launches": counts, "captures": caps,
+                          "rows": int(tr_c.state.bbox.shape[0])}
+        if timed:
+            res["tracker"].update(
+                eager=traced_ms(lambda: tr_e.update(ticks[1]),
+                                MESH_JIT_TIMED, 1),
+                compiled=traced_ms(lambda: tr_c.update(ticks[1]),
+                                   MESH_JIT_TIMED, 1,
+                                   kernel=nccl if mesh.size(0) > 1 else ""))
+        del tr_e, tr_c
+
+    if "engine" in parts:
+        eng_e, eng_c = (SlotEngine(host, cfg, n, "nv12", snapshot_every=0,
+                                   device=dev, mesh=mesh) for _ in range(2))
+        eng_e.compiled = False
+        for e in (eng_e, eng_c):
+            for k in range(n):
+                e.init_slot(e.alloc(), (ticks[0][0][k], ticks[0][1][k]),
+                            bbs[k, 0])
+        if not _same(eng_e.state, eng_c.state):
+            raise AssertionError("mesh engine: the compiled slot write "
+                                 "differs from the eager one")
+        want = [eng_e.step_async(ticks[t], active).packed
+                for t in range(1, ticks_n + 1)]
+        zero_counts()
+        got = [eng_c.step_async(ticks[1], active).packed]
+        with no_sync():
+            got += [eng_c.step_async(ticks[t], active).packed
+                    for t in range(2, ticks_n + 1)]
+        counts = read_counts()
+        caps = jit_check("mesh engine", want + [eng_e.state],
+                         got + [eng_c.state], counts, k3,
+                         {eng_c._tick: eng_c._tick.traces,
+                          eng_c._write: eng_c._write.traces})
+        res["engine"] = {"launches": counts, "captures": caps,
+                         "rows": [eng_c.rows.start, eng_c.rows.stop]}
+        if timed:
+            res["engine"].update(
+                eager=traced_ms(lambda: eng_e.step_async(ticks[1], active),
+                                MESH_JIT_TIMED, 1),
+                compiled=traced_ms(lambda: eng_c.step_async(ticks[1], active),
+                                   MESH_JIT_TIMED, 1, kernel=nccl))
+        del eng_e, eng_c
+
+    if "train" in parts:
+        tcfg = dataclasses.replace(cfg, dtype="float32")
+        thost = weights.load_npz(weights.checkpoint_path("vittrack-t"), tcfg,
+                                 device=cpu)
+        opt = train.make_optimizer(TRAIN_LR)
+        z, x, gt = (torch.as_tensor(a, device=dev) for a in
+                    sharding.shard_batch(train_batch(tcfg, TRAIN_BATCH, 31),
+                                         mesh))
+
+        def fresh():
+            return train.create_train_state(sharding.shard_params(
+                weights.tree_to(thost, dev, copy=True), mesh), opt=opt)
+
+        def run(step, check):
+            s, ls = fresh(), []
+            for i in range(MESH_JIT_STEPS):
+                with (no_sync() if check and i else contextlib.nullcontext()):
+                    s, loss, _ = step(s, z, x, gt, tcfg, opt=opt, device=dev)
+                ls.append(loss)
+            return torch.stack(ls), [t.clone() for t in
+                                     train.tree_leaves(s.params)]
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            with use_mesh(mesh):
+                want = run(train.train_step_eager, False)
+                n0 = train.train_step.traces
+                zero_counts()
+                got = run(train.train_step, True)
+                counts = read_counts()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        caps = jit_check("mesh train_step", want, got, counts,
+                         {"attention_flash": cfg.depth * MESH_JIT_STEPS},
+                         {train.train_step: train.train_step.traces - n0})
+        res["train"] = {"launches": counts, "captures": caps,
+                        "batch_rows": int(z.shape[0]),
+                        "losses": [float(v) for v in got[0]]}
+        if timed:
+            box = {"eager": fresh(), "compiled": fresh()}
+
+            def timed_step(name, step):
+                def go():
+                    box[name] = step(box[name], z, x, gt, tcfg, opt=opt,
+                                     device=dev)[0]
+                return go
+
+            with use_mesh(mesh):
+                res["train"].update(
+                    eager=traced_ms(
+                        timed_step("eager", train.train_step_eager),
+                        MESH_JIT_TIMED // 2, 1),
+                    compiled=traced_ms(
+                        timed_step("compiled", train.train_step),
+                        MESH_JIT_TIMED // 2, 1, kernel=nccl))
+            del box
+    return res
+
+
+def mesh_jit_rank(rank: int, n: int, runs, device: str) -> dict:
+    """One rank of phase 15's runs on several cards: ``runs`` is a list of
+    (parts, mesh shape)."""
+    from gstreamer_vit_tracker_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, torch.cuda.current_device())
+    out = {}
+    for parts, shape in runs:
+        mesh = make_mesh(tuple(shape), device=dev)
+        got = mesh_jit_run(dev, mesh, parts)
+        for part, v in got.items():
+            out[f"{part} {shape[0]}x{shape[1]}"] = v
+    return out
+
+
+def _probe_body(x, device):
+    """The one-rank NCCL probe: one all-reduce on the default group between
+    elementwise ops."""
+    import torch.distributed as dist
+
+    y = x * 2.0 + 1.0
+    dist.all_reduce(y)
+    return y.square()
+
+
+def nccl_probe(dev, card: str) -> dict:
+    """A body holding one ``dist.all_reduce`` on the one-rank NCCL group,
+    compiled: captured once, replayed PROBE_REPLAYS times under sync debug
+    mode "error", each equal to the eager body on its own input; the
+    device activities of one replay (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gstreamer_vit_tracker_tpu_torch.utils import graph
+
+    probe = graph.Compiled(_probe_body, "probe.all_reduce")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    xs = [torch.randn(1 << 16, device=dev, generator=gen)
+          for _ in range(PROBE_REPLAYS + 1)]
+    want = [_probe_body(x, dev) for x in xs]
+    got = [probe(xs[0], dev)]
+    with no_sync():
+        got += [probe(x, dev) for x in xs[1:]]
+    if not _same(want, got) or probe.traces != 1:
+        raise AssertionError(f"NCCL probe: compiled differs from eager "
+                             f"({_max_diff(want, got):.3e}) or "
+                             f"{probe.traces} captures")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        probe(xs[1], dev)
+        torch.cuda.synchronize()
+    names = sorted({ev.name for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA})
+    print(f"NCCL probe: a body with one dist.all_reduce on the one-rank "
+          f"NCCL group captured once, replayed {PROBE_REPLAYS} times under "
+          f"sync debug mode error, equal to the eager body bit for bit; one "
+          f"replay's device activities {names} | {card}", flush=True)
+    return {"replays": PROBE_REPLAYS, "captures": probe.traces,
+            "replay_activities": names}
+
+
+def gloo_raises(dev, card: str) -> dict:
+    """A mesh of gloo groups with CUDA tensors: a compiled call raises,
+    naming the entry point and the backend, before any launch (no device
+    activity under torch.profiler, the kernel counters unmoved)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import use_mesh
+    from gstreamer_vit_tracker_tpu_torch.utils import graph
+
+    group = dist.new_group([0], backend="gloo")
+    mesh = DeviceMesh.from_group([group, group], "cuda", mesh=[[0]],
+                                 mesh_dim_names=("data", "model"))
+    probe = graph.Compiled(_probe_body, "probe.all_reduce")
+    x = torch.ones(8, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        try:
+            with use_mesh(mesh):
+                probe(x, dev)
+            message = None
+        except RuntimeError as err:
+            message = str(err)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    activities = [ev.name for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"gloo mesh on the card: {message!r}; device activities "
+          f"{activities}, launches {counts} | {card}", flush=True)
+    if (message is None or "gloo" not in message
+            or "probe.all_reduce" not in message or activities
+            or any(counts.values()) or probe.traces):
+        raise AssertionError("a gloo mesh with CUDA tensors did not raise "
+                             "before any launch")
+    return {"message": message}
+
+
+def capture_mode_rank(rank: int, n: int, device: str) -> dict:
+    """Phase 15's capture-mode probe on one NCCL rank: a backward (on
+    autograd's device thread) and an all-reduce followed by PROBE_CHAIN
+    ops, each run eagerly on the capture stream, then captured right after
+    an eager all-reduce (whose work the NCCL watchdog then polls) under
+    ``thread_local`` and under ``global``, replayed and compared."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(1 << 16, device=dev, generator=gen)
+    w = torch.randn(256, 256, device=dev, generator=gen, requires_grad=True)
+    inp = torch.randn(64, 256, device=dev, generator=gen)
+
+    def backward():
+        with torch.enable_grad():
+            loss = (inp @ w).tanh().square().sum()
+            return torch.autograd.grad(loss, w)[0]
+
+    def reduce():
+        y = x * 2.0
+        dist.all_reduce(y)
+        for _ in range(PROBE_CHAIN):
+            y = y * 0.999 + 0.001
+        return y
+
+    out = {}
+    for mode in ("thread_local", "global"):
+        for name, body in (("backward", backward), ("all_reduce", reduce)):
+            key = f"{mode} {name}"
+            try:
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    want = body()
+                dist.all_reduce(torch.ones(1, device=dev))
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, stream=side,
+                                      capture_error_mode=mode):
+                    got = body()
+                g.replay()
+                torch.cuda.synchronize()
+                out[key] = ("captured, equal" if torch.equal(got, want)
+                            else "captured, differs")
+            except Exception as err:              # what the mode does
+                out[key] = (f"{type(err).__name__}: "
+                            f"{str(err).strip().splitlines()[0][:200]}")
+    return out
+
+
+def hud_jit_check(dev, card: str) -> dict:
+    """The app's compiled HUD draws (``render_hud_jit``, ``yuy2_to_rgb_jit``
+    then ``render_hud_jit``, ``render_hud_luma_jit``, ``resize_static_jit``)
+    against the eager functions on 1080p frames, phase 8's three HudParams:
+    byte-equal; the returned frame passed back is drawn in place."""
+    from gstreamer_vit_tracker_tpu_torch.ops import (colorspace, overlay,
+                                                     overlay_nv12, resample)
+
+    rng = np.random.default_rng(11)
+    rgb = rng.integers(0, 256, (FRAME_H, FRAME_W, 3), np.uint8)
+    yuy2 = rng.integers(0, 256, (FRAME_H, FRAME_W * 2), np.uint8)
+    luma = rng.integers(0, 256, (FRAME_H, FRAME_W), np.uint8)
+    kw = dict(fps=58.7, track_ms=4.25, cursor=(960, 540), sel_start=(700, 400))
+    params = [
+        overlay.HudParams(state_name="SELECT END", score=0.0,
+                          is_tracking=False, is_selecting=True,
+                          sel_active=True, bbox=(0, 0, 0, 0), has_bbox=False,
+                          **kw),
+        overlay.HudParams(state_name="TRACKING", score=0.912,
+                          is_tracking=True, is_selecting=False,
+                          sel_active=False, bbox=(1850, 1020, 120, 90),
+                          has_bbox=True, **kw),
+        overlay.HudParams(state_name="LOST", score=0.0, is_tracking=False,
+                          is_selecting=False, sel_active=False,
+                          bbox=(-30, 500, 200, 150), has_bbox=False, **kw)]
+    checks = {
+        "render_hud": (
+            lambda p: overlay.render_hud(torch.tensor(rgb, device=dev), p),
+            lambda p: overlay.render_hud_jit(rgb, p, dev)),
+        "yuy2_to_rgb+render_hud": (
+            lambda p: overlay.render_hud(colorspace.yuy2_to_rgb(
+                torch.tensor(yuy2, device=dev).reshape(-1), width=FRAME_W,
+                height=FRAME_H), p),
+            lambda p: overlay.render_hud_jit(colorspace.yuy2_to_rgb_jit(
+                yuy2.reshape(-1), FRAME_W, FRAME_H, dev), p, dev)),
+        "render_hud_luma": (
+            lambda p: overlay_nv12.render_hud_luma(
+                torch.tensor(luma, device=dev), p),
+            lambda p: overlay_nv12.render_hud_luma_jit(luma, p, dev))}
+    for name, (eager, jit) in checks.items():
+        for p in params:
+            if not torch.equal(eager(p), jit(p)):
+                raise AssertionError(f"{name}: compiled differs from eager")
+    # A frame on the card (a host frame is another key), drawn, then passed
+    # back: the donated chain paints in place.
+    out = overlay.render_hud_jit(torch.tensor(rgb, device=dev), params[0],
+                                 dev)
+    again = overlay.render_hud_jit(out, params[1], dev)
+    want = overlay.render_hud(overlay.render_hud(
+        torch.tensor(rgb, device=dev), params[0]), params[1])
+    if again is not out or not torch.equal(again, want):
+        raise AssertionError(f"the donated HUD chain differs from eager in "
+                             f"{int((again != want).sum())} values")
+    img = torch.tensor(rgb, device=dev)
+    a = resample.resize_static(img, 1024, 1280)
+    b = resample.resize_static_jit(img, 1024, 1280, dev)
+    if not torch.equal(a, b):
+        raise AssertionError(f"resize_static_jit differs from eager in "
+                             f"{int((a != b).sum())} values")
+    print(f"HUD compiled: render_hud_jit, yuy2_to_rgb_jit + render_hud_jit "
+          f"and render_hud_luma_jit on {FRAME_W}x{FRAME_H} frames, three "
+          f"HudParams each, and resize_static_jit: byte-equal to the eager "
+          f"draws; a returned frame passed back is painted in place | "
+          f"{card}", flush=True)
+    return {"captures": {"render_hud": overlay._render_hud.traces,
+                         "render_hud_luma":
+                         overlay_nv12._render_hud_luma.traces}}
+
+
+def print_mesh_jit(where: str, got: dict, card: str) -> None:
+    for name, v in got.items():
+        print(f"mesh {name} ({where}): compiled equal to the eager mesh body "
+              f"bit for bit, no host sync in the replays, captures "
+              f"{v['captures']}, launches {v['launches']}", flush=True)
+        if "eager" in v:
+            print_timing(f"mesh {name} ({where})", v, card)
+        if "kernel_us" in v.get("compiled", {}):
+            c = v["compiled"]
+            print(f"mesh {name} ({where}): NCCL kernels in the replay "
+                  f"{c['kernel_count']:.1f} a step, {c['kernel_us']:.2f} us "
+                  f"each on average (waiting for the peers included) | "
+                  f"{card}", flush=True)
+
+
+def mesh_jit_phase(dev, card: str) -> dict:
+    """Phase 15: on a 1x1 NCCL mesh in this process, ``mesh_jit_run``,
+    the one-rank NCCL all-reduce probe, a gloo mesh raising and the HUD
+    draws; the capture-mode probe on one NCCL rank; with two or more
+    cards, ``mesh_jit_run`` on meshes of NCCL ranks with a card each and
+    the dry run compiled over them."""
+    import torch.distributed as dist
+
+    from gstreamer_vit_tracker_tpu_torch.parallel import make_mesh
+    from gstreamer_vit_tracker_tpu_torch.parallel.launch import run_ranks
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import init_group
+    from gstreamer_vit_tracker_tpu_torch.utils import graph
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    res = {"cards": cards}
+    backend = init_group(dev)
+    try:
+        mesh = make_mesh((1, 1), device=dev)
+        backends = graph.mesh_backends(mesh)
+        if backend != "nccl" or set(backends) != {"nccl"}:
+            raise AssertionError(f"the 1x1 mesh's groups are {backends}")
+        t0 = time.perf_counter()
+        res["one_card"] = mesh_jit_run(dev, mesh)
+        res["one_card_seconds"] = time.perf_counter() - t0
+        print_mesh_jit("1x1, NCCL, one card", res["one_card"], card)
+        res["probe"] = nccl_probe(dev, card)
+        res["gloo"] = gloo_raises(dev, card)
+        res["hud"] = hud_jit_check(dev, card)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    try:
+        modes = run_ranks(capture_mode_rank, 1, "cuda", device=dev,
+                          timeout=180)[0]
+    except RuntimeError as err:          # the rank's process ended
+        modes = {"process": str(err).strip().splitlines()[0][:200]}
+    res["capture_modes"] = modes
+    print(f"capture modes ({time.perf_counter() - t0:.1f} s, one NCCL rank, "
+          f"an eager all-reduce just before each capture): {modes} | {card}",
+          flush=True)
+    if modes.get("thread_local backward") != "captured, equal" or modes.get(
+            "thread_local all_reduce") != "captured, equal":
+        raise AssertionError(f"thread_local capture failed: {modes}")
+    res["part"] = "one card"
+    if cards >= 2:
+        res["cards_part"] = mesh_jit_cards(dev, card)
+        res["part"] = "one card and several cards"
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15 ({res['part']}): {res['seconds']:.1f} s | {card}",
+          flush=True)
+    return res
+
+
+def mesh_jit_cards(dev, card: str) -> dict:
+    """Phase 15 with two or more cards: ``mesh_jit_run`` on NCCL ranks, a
+    card each (four cards: the tracker at 4x1, the engine and the train
+    step at 2x2; two: all three at 2x1 and 1x2), then
+    ``entry.dryrun_multichip`` over them, compiled, within JAX's bounds."""
+    from gstreamer_vit_tracker_tpu_torch.entry import dryrun_multichip
+    from gstreamer_vit_tracker_tpu_torch.parallel.launch import run_ranks
+
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    runs = ([(("tracker",), (4, 1)), (("engine", "train"), (2, 2))]
+            if n == 4 else [(MESH_JIT_PARTS, (2, 1)),
+                            (MESH_JIT_PARTS, (1, 2))])
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_jit_rank, n, runs, "cuda", device=dev,
+                      timeout=900)
+    res = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+    print_mesh_jit(f"{n} NCCL ranks, a card each, rank 0", ranks[0], card)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(n, device=dev, timeout=900)
+    if dry["route"] != "compiled" or dry["backend"] != "nccl":
+        raise AssertionError(f"dry run route {dry['route']} on "
+                             f"{dry['backend']}")
+    res["dryrun"] = {k: dry[k] for k in ("mesh", "route", "loss",
+                                         "loss_single", "d_loss", "d_serve",
+                                         "launches")}
+    res["dryrun"]["d_tp"] = dry.get("d_tp")
+    seconds = res["dryrun"]["seconds"] = time.perf_counter() - t0
+    print(f"dry run compiled on {n} NCCL ranks ({seconds:.1f} s): within "
+          f"JAX's bounds, launches a rank {dry['launches']} | {card}",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3870,7 +4390,10 @@ def main() -> int:
     # -- 14. compiled training against the eager functions ------------------
     trained = train_jit_phase(dev, card)
 
-    # -- 15. result lines --------------------------------------------------
+    # -- 15. the programs under a mesh compiled (NCCL inside the replay) ----
+    meshed = mesh_jit_phase(dev, card)
+
+    # -- 16. result lines --------------------------------------------------
     pkg = "gstreamer_vit_tracker_tpu_torch/csrc/"
     kernels = [{
         "name": "vit_encoder",
@@ -3926,6 +4449,10 @@ def main() -> int:
             "line"]["launches"].items() if v["attention_single"]},
         "compiled_launches": {k: compiled[k]["launches"]["attention_single"]
                               for k in ("tick", "objects")},
+        "compiled_mesh_launches": {
+            k: meshed["one_card"][k]["launches"]["attention_single"]
+            for k in ("tracker", "engine")},
+        "compiled_mesh_ticks": MESH_JIT_TICKS,
         "variant": att_single["variant"],
         "max_abs_err": att_single["max_abs_err"],
         "ms": att_single["ms"],
@@ -3960,6 +4487,9 @@ def main() -> int:
             for k in ("step", "scan")},
         "compiled_train_steps": {"step": JIT_TRAIN_STEPS,
                                  "scan": JIT_SCAN_STEPS},
+        "compiled_mesh_train_launches": meshed["one_card"]["train"][
+            "launches"]["attention_flash"],
+        "compiled_mesh_train_steps": MESH_JIT_STEPS,
         "train_shape": {k: trained["kernel4"][k] for k in (
             "route", "variant", "max_abs_err", "ms", "launch_ms",
             "device_us", "replay_device_us", "plain_ms", "library_ms",
@@ -4027,6 +4557,7 @@ def main() -> int:
     print(f"bench: {benched['seconds']:.1f} s")
     print(f"compiled summary: {json.dumps(compiled)}")
     print(f"compiled training summary: {json.dumps(trained)}")
+    print(f"compiled mesh summary: {json.dumps(meshed)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

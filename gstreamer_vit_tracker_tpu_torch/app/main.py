@@ -597,21 +597,21 @@ def _run_frame(args, src, session, stats, phases, sink, app_cfg,
     # HUD target per format (mirrors the reference: the active
     # pipeline draws on RGB after videoconvert, the legacy one on
     # the NV12 luma plane).
+    # Each draw is a compiled program with the frame donated, as JAX jits
+    # them: the host frame is copied into the program's buffer.
     if args.fmt == "rgb":
-        out = overlay.render_hud(torch.tensor(frame, device=dev), hud)
+        out = overlay.render_hud_jit(frame, hud, dev)
     elif args.fmt == "yuy2":
         from ..ops import colorspace
 
-        rgb = colorspace.yuy2_to_rgb(
-            torch.as_tensor(frame).to(dev).reshape(-1), width=src.width,
-            height=src.height)
-        out = overlay.render_hud(rgb, hud)
+        rgb = colorspace.yuy2_to_rgb_jit(frame.reshape(-1), src.width,
+                                         src.height, dev)
+        out = overlay.render_hud_jit(rgb, hud, dev)
     else:  # nv12 — draw into the luma plane
         from ..ops import overlay_nv12
 
         y_pl, _uv = frame
-        out = overlay_nv12.render_hud_luma(torch.tensor(y_pl, device=dev),
-                                           hud)
+        out = overlay_nv12.render_hud_luma_jit(y_pl, hud, dev)
     # Per-target boxes beyond the primary (multi-object mode): distinct
     # colors on RGB, brightness steps on luma.
     extra = (session.tracked_boxes()[1:]
@@ -635,8 +635,8 @@ def _run_frame(args, src, session, stats, phases, sink, app_cfg,
         # frame at full screen via kmssink, pipeline.rs:37-50).
         from ..ops import resample
 
-        out = resample.resize_static(out, app_cfg.display.height,
-                                     app_cfg.display.width)
+        out = resample.resize_static_jit(out, app_cfg.display.height,
+                                         app_cfg.display.width, dev)
     phases.totals["draw"] = phases.totals.get("draw", 0.0) + (
         time.perf_counter() - t_draw)
     phases.counts["draw"] = phases.counts.get("draw", 0) + 1

@@ -15,8 +15,13 @@ prints ``entry OK:`` with the shapes of the box and the score:
 (``parallel/launch.py``): a (data x model) mesh of ``factor_mesh(n)``, the
 flagship-width float32 train step sharded dp x tp, a mesh-backed
 ``SlotEngine`` tick on a pure-data mesh, and (tp > 1) the Megatron serving
-forward, each held to one process.  On the card every rank shares card 0
-unless there are n cards (``parallel/mesh.py::backend_for``).
+forward, each held to one process.  As JAX jits its three parts, they
+run the compiled programs (``utils/graph.py``): on NCCL ranks, a card
+each, every collective inside the replayed graph; on the CPU the same
+plumbing, eagerly.  When there are fewer cards than ranks, the ranks
+share card 0 over gloo (``parallel/mesh.py::backend_for``), which no graph
+can capture, and call the eager bodies by name.  It prints which route
+it took.
 """
 
 from __future__ import annotations
@@ -98,16 +103,20 @@ def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
 
 def train_steps(params, batch, cfg: ModelConfig, steps: int = 1,
                 mesh=None, device="cuda") -> Dict[str, Any]:
-    """``steps`` eager ``train_step`` s from ``params`` (a host tree) on
+    """``steps`` ``train_step`` s from ``params`` (a host tree) on
     ``batch`` (numpy z, x, gt): in one process, or under ``mesh`` on this
-    rank's shards and data slice (the mesh runs the eager step).  Returns the losses, the full params
-    and first moments after the first step (flat numpy, gathered on a
-    mesh) and the kernel launches of the steps."""
+    rank's shards and data slice; compiled, or eagerly by name where the
+    mesh's groups cannot be captured (:func:`route`).  Returns the losses,
+    the full params and first moments after the first step (flat numpy,
+    gathered on a mesh), the kernel launches of the steps and the
+    route."""
     from .parallel import sharding
     from .parallel.mesh import use_mesh
-    from .train.step import create_train_state, train_step_eager
+    from .train.step import (create_train_state, train_step,
+                             train_step_eager, tree_map)
 
     dev = resolve_device(device)
+    step = train_step if route(mesh, dev) == "compiled" else train_step_eager
     true_float32(dev)
     p = weights.tree_to(params, dev, copy=True)
     if mesh is not None:
@@ -119,10 +128,11 @@ def train_steps(params, batch, cfg: ModelConfig, steps: int = 1,
     before = launch_counts()
     with use_mesh(mesh):
         for _ in range(steps):
-            state, loss, _ = train_step_eager(state, z, x, gt, cfg,
-                                              device=dev)
+            state, loss, _ = step(state, z, x, gt, cfg, device=dev)
             losses.append(float(loss))
-            first = first or (state.params, state.opt_state.mu)
+            # A copy: the compiled step's state is donated, updated in place.
+            first = first or tree_map(torch.clone, (state.params,
+                                                    state.opt_state.mu))
     launches = _launches_since(before)
 
     def whole(tree):
@@ -131,7 +141,16 @@ def train_steps(params, batch, cfg: ModelConfig, steps: int = 1,
         return weights.flatten(weights.tree_to_numpy(tree))
 
     return {"losses": losses, "launches": launches,
-            "params": whole(first[0]), "mu": whole(first[1])}
+            "params": whole(first[0]), "mu": whole(first[1]),
+            "route": route(mesh, dev)}
+
+
+def route(mesh, device) -> str:
+    """How the mesh paths run under ``mesh`` on ``device``: ``compiled``
+    (NCCL ranks, or the CPU), or ``eager`` (gloo ranks sharing a card)."""
+    from .utils import graph
+
+    return "compiled" if graph.compiles_under(mesh, device) else "eager"
 
 
 def serve_tick(params, cfg: ModelConfig, frames0, frames1, bboxes,
@@ -182,6 +201,8 @@ def dryrun_rank(rank: int, n: int, device="cuda") -> Dict[str, Any]:
     one-process references and checks each part against them."""
     from .parallel import factor_mesh, make_mesh
 
+    import torch.distributed as dist
+
     dp, tp = factor_mesh(n)
     params, batch, sparams, frames0, frames1, bboxes = _dryrun_inputs(n, dp)
     lines = []
@@ -189,6 +210,8 @@ def dryrun_rank(rank: int, n: int, device="cuda") -> Dict[str, Any]:
 
     # -- (a) flagship-width train step, dp over the batch, tp over blocks.
     mesh = make_mesh((dp, tp), device=device)
+    out["route"] = route(mesh, device)
+    out["backend"] = dist.get_backend()
     got = train_steps(params, batch, DRYRUN_CFG, mesh=mesh, device=device)
     out["train_launches"] = got["launches"]
     lossm = got["losses"][0]
@@ -256,9 +279,14 @@ def dryrun_multichip(n_ranks: int, device="cuda",
     from .parallel.launch import run_ranks
 
     dev = resolve_device(device)
-    reports = run_ranks(dryrun_rank, n_ranks, str(dev), device=dev,
+    # Each rank takes its own card (parallel/mesh.py::init_group): pass the
+    # device type, not an index every rank would share.
+    reports = run_ranks(dryrun_rank, n_ranks, dev.type, device=dev,
                         timeout=timeout)
-    for line in reports[0]["lines"]:
+    first = reports[0]
+    print(f"dryrun route: {first['route']} programs on {n_ranks} "
+          f"{first['backend']} ranks ({dev.type})", flush=True)
+    for line in first["lines"]:
         print(line, flush=True)
     out = dict(reports[0])
     out["launches"] = [{k: r[k] for k in r if k.endswith("_launches")}

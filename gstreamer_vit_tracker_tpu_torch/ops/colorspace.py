@@ -4,16 +4,20 @@ Port of ``gstreamer_vit_tracker_tpu/ops/colorspace.py``: the exact
 integer conversion of whole NV12 and YUY2 frames (nv12_convert.rs:8-43,
 107-168; the app's HUD draws on YUY2 frames, ``runtime`` falls back to
 these without a toolchain) and the float-space conversion the preprocess
-uses.
+uses.  ``yuy2_to_rgb_jit`` is JAX's jitted ``yuy2_to_rgb`` as the app
+calls it: one compiled program (``utils/graph.py``) a frame size.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import graph
+
 __all__ = ["BT601_COEFFS", "nv12_planes_to_rgb", "nv12_to_rgb",
            "rgb_from_shifted_yuv", "rgb_from_shifted_yuv_f32",
-           "rgb_from_yuv_f32", "round_scalar", "yuy2_to_rgb"]
+           "rgb_from_yuv_f32", "round_scalar", "yuy2_to_rgb",
+           "yuy2_to_rgb_jit"]
 
 # Float-space BT.601 coefficients: the integer math divided by 256.
 # R = 298/256*(Y-16) + 409/256*(V-128), etc.
@@ -91,6 +95,16 @@ def yuy2_to_rgb(yuy2: torch.Tensor, *, width: int,
     u = torch.repeat_interleave(quad[..., 1], 2, dim=1)
     v = torch.repeat_interleave(quad[..., 3], 2, dim=1)
     return _convert_i32(y, u, v)
+
+
+def _yuy2_to_rgb(yuy2: torch.Tensor, width: int, height: int,
+                 device) -> torch.Tensor:
+    return yuy2_to_rgb(yuy2, width=width, height=height)
+
+
+# (yuy2 buffer, width, height, device): a host buffer is copied in.
+yuy2_to_rgb_jit = graph.Compiled(_yuy2_to_rgb, "colorspace.yuy2_to_rgb_jit",
+                                 static=("width", "height"))
 
 
 def _upsample2(plane: torch.Tensor) -> torch.Tensor:

@@ -11,24 +11,34 @@ bounding box of the pixels its mask can reach (clipped to the frame)
 instead of the whole frame, and painted into that view of the image in
 place with ``masked_fill_``; the geometry is host integers, so nothing is
 read back from the device.  Painting in place is the counterpart of JAX's
-donated frame: pass a tensor that nothing else still reads (the app paints
-a copy it uploaded for the HUD).  Each function returns the image it
-painted.  The results are uint8-equal to JAX's (tests/test_torch_hud.py).
+donated frame: pass a tensor that nothing else still reads.  Each function
+returns the image it painted.  The results are uint8-equal to JAX's
+(tests/test_torch_hud.py).
+
+The full HUD (:func:`render_hud`) takes its dynamic inputs as one int32
+vector on the device (:func:`hud_vector`), so that JAX's jitted
+``_render_hud``, :func:`render_hud_jit` (what the app calls), is one
+compiled program (``utils/graph.py``) for every frame, the frame donated.
+Its draws gather the block or strip a mask can reach at a
+device-computed origin, paint the mask evaluated at the pixels' own
+coordinates, and scatter it back.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..utils import graph
 from .font import ADVANCE, FONT_TABLE, encode_text
 
 __all__ = [
     "draw_rect", "draw_crosshair", "draw_cursor", "draw_selection",
     "draw_background", "draw_text", "encode_text", "HudParams", "render_hud",
+    "hud_vector", "render_hud_jit",
 ]
 
 
@@ -156,8 +166,8 @@ def text_mask(img: torch.Tensor, chars: np.ndarray, n_chars: int, x: int,
     the text strip, bool mask), or None when the strip is off the frame.
     Glyph indices come from ``font.encode_text``; 5x7 glyphs, integer
     ``scale``, ``6*scale`` advance (draw_text_rgb, drawing_rgb.rs:86-104).
-    ``chars`` may be a tensor on the image's device (glyphs computed there),
-    which is read where it lies."""
+    ``chars`` and ``n_chars`` may be tensors on the image's device (glyphs
+    computed there), which are read where they lie."""
     h, w = img.shape[0], img.shape[1]
     max_len = len(chars)
     strip_h = min(7 * scale, h - y)
@@ -172,7 +182,7 @@ def text_mask(img: torch.Tensor, chars: np.ndarray, n_chars: int, x: int,
     gy = r // scale
     ch = torch.as_tensor(chars, device=dev)[k]
     lit = _font(dev)[ch, torch.clamp_max(gy, 6), torch.clamp_max(gx, 4)] == 1
-    lit = lit & (gx < 5) & (gy < 7) & (k < int(n_chars))
+    lit = lit & (gx < 5) & (gy < 7) & (k < n_chars)
     return img[y:y + strip_h, x:x + strip_w], lit
 
 
@@ -229,27 +239,190 @@ class HudParams:
         self.has_bbox = has_bbox
 
 
-def hud_texts(p: HudParams) -> Sequence[tuple]:
-    """The four HUD strings: (chars, n, x, y, scale, luma, enabled)."""
-    return ((p.state_chars, p.state_n, 15, 15, 2, 255, True),
-            (p.fps_chars, p.fps_n, 15, 40, 2, 255, True),
-            (p.trk_chars, p.trk_n, 15, 65, 1, 200, True),
-            (p.score_chars, p.score_n, 200, 15, 2, 255, bool(p.is_tracking)))
+# Where each of the four HUD strings goes: (x, y, scale, luma); the last,
+# the score, only while tracking.
+HUD_TEXT_AT = ((15, 15, 2, 255), (15, 40, 2, 255), (15, 65, 1, 200),
+               (200, 15, 2, 255))
 
 
 def render_hud(img: torch.Tensor, p: HudParams) -> torch.Tensor:
     """Paint the full HUD (state, FPS, timings, score, cursor / selection,
     bbox + crosshair) into ``img`` (H, W, 3) uint8, in place, in the order
-    JAX composites it; returns ``img``."""
-    for chars, n, x, y, scale, luma, on in hud_texts(p):
-        draw_text(img, chars, n, x, y, scale, luma, enable=on)
-    selecting = bool(p.is_selecting)
-    cx, cy = int(p.cursor[0]), int(p.cursor[1])
-    draw_cursor(img, cx, cy, enable=selecting)
-    draw_selection(img, p.sel_start[0], p.sel_start[1], cx, cy,
-                   enable=selecting and bool(p.sel_active))
-    bx, by, bw, bh = (int(v) for v in p.bbox)
-    draw_rect(img, bx, by, bw, bh, 3, (0, 255, 0), enable=bool(p.has_bbox))
-    draw_crosshair(img, bx + bw // 2, by + bh // 2, 15, (0, 255, 0),
-                   enable=bool(p.has_bbox))
+    JAX composites it; returns ``img``.  The body of
+    :func:`render_hud_jit`, its inputs uploaded as :func:`hud_vector`."""
+    return _render_hud_dev(img, torch.as_tensor(hud_vector(p),
+                                                 device=img.device),
+                           img.device)
+
+
+# ---------------------------------------------------------------------------
+# The compiled HUD (JAX's jitted _render_hud): the geometry on the device
+# ---------------------------------------------------------------------------
+
+_HUD_WIDTHS = (STATE_LEN, FPS_LEN, TRK_LEN, SCORE_LEN)
+
+
+def hud_vector(p: HudParams) -> np.ndarray:
+    """Every dynamic input of the HUD in one int32 vector, one upload a
+    frame: the four strings' glyphs, their lengths, the flags (tracking,
+    selecting, selection active, box shown), the cursor, the selection's
+    start and the box (x, y, w, h)."""
+    rest = [p.state_n, p.fps_n, p.trk_n, p.score_n,
+            bool(p.is_tracking), bool(p.is_selecting), bool(p.sel_active),
+            bool(p.has_bbox), *p.cursor, *p.sel_start, *p.bbox]
+    return np.concatenate([np.asarray(c, np.int32) for c in (
+        p.state_chars, p.fps_chars, p.trk_chars, p.score_chars)]
+        + [np.asarray([int(v) for v in rest], np.int32)])
+
+
+def hud_fields(v: torch.Tensor):
+    """:func:`hud_vector` on the device, unpacked: (the four glyph
+    vectors, the four lengths, the four flags as bools, the eight
+    coordinates), each a view or a 0-d tensor."""
+    chars, at = [], 0
+    for w in _HUD_WIDTHS:
+        chars.append(v[at:at + w])
+        at += w
+    return (chars, v[at:at + 4].unbind(), (v[at + 4:at + 8] != 0).unbind(),
+            v[at + 8:at + 16].unbind())
+
+
+def _paint_block(img: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
+                 mask: torch.Tensor, color) -> None:
+    """Gather the pixels of rows ``r`` (h, 1) x columns ``c`` (1, w)
+    (device indices inside the image), paint ``mask`` in them and scatter
+    them back: JAX's ``dynamic_slice`` / ``dynamic_update_slice`` pair, on
+    a luma plane (one ``color``) or an (H, W, C) image (one a channel)."""
+    flat = img.view(img.shape[0] * img.shape[1], -1)
+    idx = r.long() * img.shape[1] + c.long()
+    block = flat[idx]
+    _fill(block if img.dim() == 3 else block[..., 0], mask, color)
+    flat[idx] = block
+
+
+def _axis(lo: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """The ``n`` indices from ``lo`` (a 0-d device tensor) clamped so that
+    all lie in ``[0, size)`` (``n`` no more than ``size``)."""
+    return torch.clamp(lo, 0, size - n) + torch.arange(
+        n, dtype=torch.int32, device=lo.device)
+
+
+def paint_box(img: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
+              bh: int, bw: int, mask_fn, color) -> None:
+    """Paint ``mask_fn(r, c)`` (at the pixels' own coordinates) in the
+    ``bh`` x ``bw`` block whose origin ``(r0, c0)`` (0-d device tensors)
+    is clamped into the image, its sides first cut to the image's."""
+    hh, ww = img.shape[0], img.shape[1]
+    bh, bw = min(bh, hh), min(bw, ww)
+    r = _axis(r0, bh, hh)[:, None]
+    c = _axis(c0, bw, ww)[None, :]
+    _paint_block(img, r, c, mask_fn(r, c), color)
+
+
+def paint_lines(img: torch.Tensor, rows, cols, t: int, mask_fn,
+                color) -> None:
+    """Paint ``mask_fn(r, c)`` in the full-width strips of ``t`` rows
+    from each of ``rows`` and the full-height strips of ``t`` columns from
+    each of ``cols`` (0-d device tensors, each strip clamped into the
+    image): a mask that lies in those bands is painted whole."""
+    hh, ww = img.shape[0], img.shape[1]
+    for r0 in rows:
+        paint_box(img, r0, r0 * 0, t, ww, mask_fn, color)
+    for c0 in cols:
+        paint_box(img, c0 * 0, c0, hh, t, mask_fn, color)
+
+
+def paint_text(img: torch.Tensor, chars, n, at, enable, color) -> None:
+    """One HUD string at its place ``at`` = (x, y, scale, luma), glyphs,
+    length and ``enable`` (or True) as device tensors."""
+    x, y, scale, _ = at
+    found = text_mask(img, chars, n, x, y, scale)
+    if found is not None:
+        view, lit = found
+        _fill(view, lit if enable is True else lit & enable, color)
+
+
+def paint_selection(img: torch.Tensor, sx, sy, ux, uy, enable,
+                    color) -> None:
+    """:func:`draw_selection`'s dashed box, its corners device tensors:
+    the strips through its two rows and its two columns."""
+    hh, ww = img.shape[0], img.shape[1]
+    x1 = torch.clamp_min(torch.minimum(sx, ux), 0)
+    y1 = torch.clamp_min(torch.minimum(sy, uy), 0)
+    x2 = torch.clamp_max(torch.maximum(sx, ux), ww - 1)
+    y2 = torch.clamp_max(torch.maximum(sy, uy), hh - 1)
+
+    def mask(r, c):
+        horiz = (((r == y1) | (r == y2)) & (c >= x1) & (c <= x2)
+                 & ((c // 6) % 2 == 0))
+        vert = (((c == x1) | (c == x2)) & (r >= y1) & (r <= y2)
+                & ((r // 6) % 2 == 0))
+        return (horiz | vert) & enable
+
+    paint_lines(img, (y1, y2), (x1, x2), 1, mask, color)
+
+
+def paint_cross(img: torch.Tensor, cx, cy, size: int, enable,
+                color) -> None:
+    """:func:`draw_crosshair`'s cross, its centre device tensors."""
+    paint_box(img, cy - size, cx - size, 2 * size + 1, 2 * size + 1,
+              lambda r, c: ((((r == cy) & ((c - cx).abs() <= size))
+                             | ((c == cx) & ((r - cy).abs() <= size)))
+                            & enable), color)
+
+
+def _render_hud_dev(img: torch.Tensor, hud: torch.Tensor,
+                    device) -> torch.Tensor:
+    """:func:`render_hud` on its inputs ``hud`` (:func:`hud_vector`) on
+    the image's device."""
+    chars, n, flags, g = hud_fields(hud)
+    tracking, selecting, sel_active, has_bbox = flags
+    cx, cy, sx, sy, bx, by, bw, bh = g
+    for i, at in enumerate(HUD_TEXT_AT):
+        paint_text(img, chars[i], n[i], at, tracking if i == 3 else True,
+                   (at[3],) * 3)
+
+    def cursor(r, c):
+        dx, dy = (c - cx).abs(), (r - cy).abs()
+        return ((((r == cy) & (dx >= 5) & (dx <= 25))
+                 | ((c == cx) & (dy >= 5) & (dy <= 25))) & selecting)
+
+    paint_box(img, cy - 25, cx - 25, 51, 51, cursor, (0, 255, 0))
+    paint_selection(img, sx, sy, cx, cy, selecting & sel_active,
+                    (255, 255, 0))
+    t = min(3, img.shape[0], img.shape[1])
+
+    def rect(r, c):
+        inside = (r >= by) & (r < by + bh) & (c >= bx) & (c < bx + bw)
+        border = ((r < by + 3) | (r >= by + bh - 3) | (c < bx + 3)
+                  | (c >= bx + bw - 3))
+        return inside & border & has_bbox
+
+    paint_lines(img, (by, by + bh - 3), (bx, bx + bw - 3), t, rect,
+                (0, 255, 0))
+    paint_cross(img, torch.div(bw, 2, rounding_mode="floor") + bx,
+                torch.div(bh, 2, rounding_mode="floor") + by, 15, has_bbox,
+                (0, 255, 0))
     return img
+
+
+def dense(x):
+    """``x`` (a host array or a tensor) laid out row-major, as the compiled
+    HUD's gathers view it: the same object when it is."""
+    if isinstance(x, np.ndarray):
+        return np.ascontiguousarray(x)
+    return torch.as_tensor(x).contiguous()
+
+
+_render_hud = graph.Compiled(_render_hud_dev, "overlay.render_hud_jit",
+                             donate={"img": ()})
+
+
+def render_hud_jit(img, p: HudParams, device="cuda") -> torch.Tensor:
+    """:func:`render_hud` compiled, the frame donated (JAX's jitted
+    ``_render_hud``): ``img`` (H, W, 3) uint8, a host array or a tensor,
+    is copied into the program's frame buffer unless it is the tensor the
+    last call returned, and the result is that buffer, painted.  Where the
+    input lies is part of the key: a host array and a tensor on the card
+    are two programs."""
+    return _render_hud(dense(img), hud_vector(p), device)

@@ -19,20 +19,26 @@ as tensors on the plane's device (Python ints work too), and
 that draws a box it tracked on the device (``tracker/scan.py::
 update_scan_hud_pool``) reads nothing back.  They gather the block a mask
 can reach at a device-computed origin, as JAX's ``dynamic_slice`` does, and
-scatter it back painted.
+scatter it back painted.  :func:`render_hud_luma_jit` is JAX's jitted
+``_render_hud_luma``, built the same way as ``ops/overlay.py``'s
+``render_hud_jit``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .overlay import (HudParams, _fill, _region, _shape_at, hud_texts,
+from ..utils import graph
+from .overlay import (HUD_TEXT_AT, HudParams, _fill, _paint_block, _region,
+                      _shape_at, dense, hud_fields, hud_vector, paint_box,
+                      paint_cross, paint_lines, paint_selection, paint_text,
                       selection_mask, text_mask)
 
 __all__ = ["draw_rect_luma", "draw_crosshair_luma", "draw_text_luma",
            "draw_background_luma", "draw_cursor_luma", "draw_selection_luma",
            "draw_rect_luma_strips", "draw_rect_luma_strips_dyn",
-           "draw_crosshair_luma_strips", "render_hud_luma"]
+           "draw_crosshair_luma_strips", "render_hud_luma",
+           "render_hud_luma_jit"]
 
 
 def _rect_corners(y_plane: torch.Tensor, x, y, w, h):
@@ -180,16 +186,6 @@ def _i32(v, dev: torch.device) -> torch.Tensor:
     return torch.full((), int(v), dtype=torch.int32, device=dev)
 
 
-def _paint_block(y_plane: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
-                 mask: torch.Tensor, brightness: int) -> None:
-    """Gather the block of rows ``r`` (h, 1) x columns ``c`` (1, w) (device
-    indices inside the plane), paint ``mask`` in it and scatter it back:
-    JAX's ``dynamic_slice`` / ``dynamic_update_slice`` pair."""
-    flat = y_plane.view(-1)
-    idx = r.long() * y_plane.shape[1] + c.long()
-    flat[idx] = flat[idx].masked_fill_(mask, int(brightness))
-
-
 def draw_rect_luma_strips_dyn(y_plane: torch.Tensor, x, y, w, h,
                               thickness: int,
                               brightness: int) -> torch.Tensor:
@@ -249,16 +245,66 @@ def draw_crosshair_luma_strips(y_plane: torch.Tensor, cx, cy, size: int,
 def render_hud_luma(y_plane: torch.Tensor, p: HudParams) -> torch.Tensor:
     """Paint the full HUD into an NV12 Y plane (H, W) uint8, in place, in
     the order JAX composites it (the legacy pipeline's composition,
-    pipeline.rs:125-174); returns ``y_plane``."""
-    for chars, n, x, y, scale, luma, on in hud_texts(p):
-        draw_text_luma(y_plane, chars, n, x, y, scale, luma, enable=on)
-    selecting = bool(p.is_selecting)
-    cx, cy = int(p.cursor[0]), int(p.cursor[1])
-    draw_cursor_luma(y_plane, cx, cy, enable=selecting)
-    draw_selection_luma(y_plane, p.sel_start[0], p.sel_start[1], cx, cy,
-                        enable=selecting and bool(p.sel_active))
-    bx, by, bw, bh = (int(v) for v in p.bbox)
-    draw_rect_luma(y_plane, bx, by, bw, bh, 3, 255, enable=bool(p.has_bbox))
-    draw_crosshair_luma(y_plane, bx + bw // 2, by + bh // 2, 15, 255,
-                        enable=bool(p.has_bbox))
+    pipeline.rs:125-174); returns ``y_plane``.  The body of
+    :func:`render_hud_luma_jit`, its inputs uploaded as
+    ``overlay.hud_vector``."""
+    return _render_hud_luma_dev(y_plane, torch.as_tensor(
+        hud_vector(p), device=y_plane.device), y_plane.device)
+
+
+def _render_hud_luma_dev(y_plane: torch.Tensor, hud: torch.Tensor,
+                         device) -> torch.Tensor:
+    """:func:`render_hud_luma` on its inputs ``hud``
+    (``overlay.hud_vector``) on the plane's device."""
+    hh, ww = y_plane.shape
+    chars, n, flags, g = hud_fields(hud)
+    tracking, selecting, sel_active, has_bbox = flags
+    cx, cy, sx, sy, bx, by, bw, bh = g
+    for i, at in enumerate(HUD_TEXT_AT):
+        paint_text(y_plane, chars[i], n[i], at, tracking if i == 3 else True,
+                   at[3])
+    ux = torch.clamp(cx, 0, ww - 1)
+    uy = torch.clamp(cy, 0, hh - 1)
+
+    def cursor(r, c):
+        dx, dy = (c - ux).abs(), (r - uy).abs()
+        return ((((r == uy) & (dx <= 25) & (dx > 5))
+                 | ((c == ux) & (dy <= 25) & (dy > 5))) & selecting)
+
+    paint_box(y_plane, uy - 25, ux - 25, 51, 51, cursor, 255)
+    paint_selection(y_plane, sx, sy, cx, cy, selecting & sel_active, 255)
+    t = min(3, hh, ww)
+    x1, y1 = torch.clamp_min(bx, 0), torch.clamp_min(by, 0)
+    x2, y2 = torch.clamp_max(bx + bw, ww - 1), torch.clamp_max(by + bh,
+                                                                hh - 1)
+
+    def rect(r, c):
+        in_x = (c >= x1) & (c <= x2)
+        in_y = (r >= y1) & (r <= y2)
+        horiz = in_x & (((r >= y1) & (r < y1 + 3)) | ((r <= y2) & (r > y2 - 3)))
+        vert = in_y & (((c >= x1) & (c < x1 + 3)) | ((c <= x2) & (c > x2 - 3)))
+        return (horiz | vert) & has_bbox
+
+    paint_lines(y_plane, (y1, y2 - 2), (x1, x2 - 2), t, rect, 255)
+    paint_cross(y_plane,
+                torch.clamp_min(torch.div(bw, 2, rounding_mode="floor") + bx,
+                                0),
+                torch.clamp_min(torch.div(bh, 2, rounding_mode="floor") + by,
+                                0), 15, has_bbox, 255)
     return y_plane
+
+
+_render_hud_luma = graph.Compiled(_render_hud_luma_dev,
+                                  "overlay_nv12.render_hud_luma_jit",
+                                  donate={"y_plane": ()})
+
+
+def render_hud_luma_jit(y_plane, p: HudParams,
+                        device="cuda") -> torch.Tensor:
+    """:func:`render_hud_luma` compiled, the plane donated (JAX's jitted
+    ``_render_hud_luma``): ``y_plane`` (H, W) uint8, a host array or a
+    tensor, is copied into the program's plane buffer unless it is the tensor the
+    last call returned, and the result is that buffer, painted.  Where the
+    input lies is part of the key: a host array and a tensor on the card
+    are two programs."""
+    return _render_hud_luma(dense(y_plane), hud_vector(p), device)

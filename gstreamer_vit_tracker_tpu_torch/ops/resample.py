@@ -10,15 +10,18 @@ zero-border-constant padding.  Sampling uses half-pixel-centre alignment
 Port of ``gstreamer_vit_tracker_tpu/ops/resample.py``: the sampling
 matrices the tracking step uses, ``crop_resize`` and its channel-first
 form ``crop_resize_chw``, and the full-frame ``resize_static`` of the app's
-display upscale.
+display upscale, compiled as JAX jits it (``resize_static_jit``,
+``utils/graph.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import graph
+
 __all__ = ["sampling_matrix", "fold_half_res", "crop_resize",
-           "crop_resize_chw", "resize_static"]
+           "crop_resize_chw", "resize_static", "resize_static_jit"]
 
 
 def sampling_matrix(out_size: int, src_size: int, start, scale,
@@ -55,6 +58,15 @@ def fold_half_res(m: torch.Tensor) -> torch.Tensor:
     return m.reshape(*m.shape[:-1], src // 2, 2).sum(dim=-1)
 
 
+def _scalar(v, dev: torch.device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``dev``: a number is filled in on the
+    device (a fill, not a host-to-device copy, which no CUDA graph can
+    capture), the value ``torch.as_tensor`` would give."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), float(v), dtype=torch.float32, device=dev)
+
+
 def crop_resize(img: torch.Tensor, start_yx, size_yx, out_hw,
                 dtype=torch.float32) -> torch.Tensor:
     """Crop the window ``[start, start+size)`` of ``img`` (H, W) or
@@ -65,8 +77,11 @@ def crop_resize(img: torch.Tensor, start_yx, size_yx, out_hw,
     h, w = img.shape[0], img.shape[1]
     sy, sx = start_yx
     zy, zx = size_yx
-    ry = sampling_matrix(out_h, h, sy, float(zy) / out_h, dtype, img.device)
-    cx = sampling_matrix(out_w, w, sx, float(zx) / out_w, dtype, img.device)
+    dev = img.device
+    ry = sampling_matrix(out_h, h, _scalar(sy, dev),
+                         _scalar(float(zy) / out_h, dev), dtype, dev)
+    cx = sampling_matrix(out_w, w, _scalar(sx, dev),
+                         _scalar(float(zx) / out_w, dev), dtype, dev)
     imgf = img.to(dtype)
     if img.dim() == 2:
         return ry @ imgf @ cx.T
@@ -101,3 +116,13 @@ def resize_static(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = img.shape[0], img.shape[1]
     out = crop_resize(img, (0.0, 0.0), (float(h), float(w)), (out_h, out_w))
     return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+
+
+def _resize_static(img: torch.Tensor, out_h: int, out_w: int,
+                   device) -> torch.Tensor:
+    return resize_static(img, out_h, out_w)
+
+
+# (img, out_h, out_w, device): JAX's jitted resize_static.
+resize_static_jit = graph.Compiled(_resize_static, "resample.resize_static_jit",
+                                   static=("out_h", "out_w"))

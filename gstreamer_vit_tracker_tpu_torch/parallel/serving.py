@@ -8,6 +8,14 @@ leading axis over the mesh ``data`` axis, params replicate, and each rank
 steps its slice of the streams with NO cross-stream communication.  The
 one collective a tick is the gather of the results, so every rank returns
 them whole.
+
+As in JAX, ``init`` runs ``multi.init_streams_jit`` and a tick is one
+compiled program (``utils/graph.py``): the step, then the gather of the
+boxes and scores, the state donated (the tracker's state is the graph's
+static buffers, updated in place).  On NCCL ranks the gather is captured
+into the graph; on gloo ranks that share a card the eager bodies run by
+name (``graph.compiles_under``).  ``recover`` re-uploads the params, so
+the next tick misses its key on every rank together.
 """
 
 from __future__ import annotations
@@ -21,11 +29,24 @@ from ..device import resolve_device
 from ..models.weights import tree_to
 from ..tracker import multi
 from ..tracker.state import TrackState
-from .mesh import DATA_AXIS, use_mesh
+from ..utils import graph
+from .mesh import DATA_AXIS, current_mesh, use_mesh
 from .sharding import replicate, shard_batch
 from .tensor import all_gather_cat
 
 Params = Dict[str, Any]
+
+
+def _sharded_step(params: Params, state: TrackState, frames, active,
+                  cfg: ModelConfig, frame_format: str, device):
+    """One tick of this rank's streams, then every rank's boxes and scores
+    gathered over the mesh's ``data`` axis (JAX's ``_step`` under the
+    mesh): (state, bboxes (S, M, 4), scores (S, M))."""
+    state, bboxes, scores = multi.update_streams(
+        params, state, frames, active, cfg, frame_format, device=device)
+    group = current_mesh().get_group(DATA_AXIS)
+    return (state, all_gather_cat(bboxes, 0, group),
+            all_gather_cat(scores, 0, group))
 
 
 class ShardedStreamTracker:
@@ -53,6 +74,11 @@ class ShardedStreamTracker:
         self.snapshot_every = snapshot_every
         self._snapshot = None          # (host TrackState, host active)
         self._ticks = 0
+        self.compiled = graph.compiles_under(mesh, self.device)
+        self._step = graph.Compiled(_sharded_step,
+                                    "parallel.ShardedStreamTracker.update",
+                                    static=("cfg", "frame_format"),
+                                    donate={"state": (0,)})
 
     def _shard_frames(self, frames):
         if self.frame_format != "nv12":
@@ -71,8 +97,10 @@ class ShardedStreamTracker:
         frames = self._shard_frames(frames)
         bboxes = torch.as_tensor(shard_batch(torch.as_tensor(
             bboxes, dtype=torch.float32), self.mesh), device=self.device)
-        self.state = multi.init_streams(self.params, frames, bboxes, self.cfg,
-                                        self.frame_format, self.device)
+        init = multi.init_streams_jit if self.compiled else multi.init_streams
+        with use_mesh(self.mesh):
+            self.state = init(self.params, frames, bboxes, self.cfg,
+                              self.frame_format, self.device)
         self.active = torch.ones(bboxes.shape[:2], dtype=torch.bool,
                                  device=self.device)
         self._ticks = 0
@@ -88,13 +116,12 @@ class ShardedStreamTracker:
         if self.snapshot_every and self._ticks % self.snapshot_every == 0:
             self._take_snapshot()
         frames = self._shard_frames(frames)
+        step = self._step if self.compiled else _sharded_step
         with use_mesh(self.mesh):
-            self.state, bboxes, scores = multi.update_streams(
+            self.state, bboxes, scores = step(
                 self.params, self.state, frames, self.active, self.cfg,
-                self.frame_format, device=self.device)
-        group = self.mesh.get_group(DATA_AXIS)
-        return all_gather_cat(bboxes, 0, group), all_gather_cat(scores, 0,
-                                                                group)
+                self.frame_format, self.device)
+        return bboxes, scores
 
     def recover(self) -> None:
         """Rebuild device state after a device fault: params re-replicate
@@ -102,6 +129,8 @@ class ShardedStreamTracker:
         snapshot (or drops to None, requiring re-init, when none was taken
         yet).  One call, then the next ``update`` tick proceeds
         normally."""
+        self._step.drop(self.params)
+        multi.init_streams_jit.drop(self.params)
         self.params = tree_to(replicate(self._host_params, self.mesh),
                               self.device)
         if self._snapshot is not None:

@@ -17,31 +17,72 @@ The backward of :func:`gather_from` is a slice because what flows back into
 it is whole on every rank: it comes from a computation every rank runs in
 full, whose own input gradient :func:`scatter_to` has made whole.  Sums run
 in float32 (:func:`reduce_from` casts), gathers move bytes.
+
+These are the collectives the compiled programs under a mesh issue
+(``utils/graph.py``): on NCCL they are captured into the CUDA graph like
+any kernel, so each allocates its output with the op (the graph's pool)
+and issues no host sync.  :func:`no_collectives` marks a body that runs
+on a subset of the ranks (the engine's slot write): a collective there
+would wait for ranks that never come, so it raises instead.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Iterator
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather_cat", "all_reduce_sum", "copy_to", "reduce_from",
-           "gather_from", "scatter_to"]
+           "gather_from", "scatter_to", "no_collectives"]
+
+_FORBIDDEN: contextvars.ContextVar = contextvars.ContextVar(
+    "no_collectives", default=None)
+
+
+@contextlib.contextmanager
+def no_collectives(name: str) -> Iterator[None]:
+    """Inside, :func:`all_gather_cat` and :func:`all_reduce_sum` raise,
+    naming ``name``: the body runs on some ranks only."""
+    token = _FORBIDDEN.set(name)
+    try:
+        yield
+    finally:
+        _FORBIDDEN.reset(token)
+
+
+def _issue(what: str) -> None:
+    name = _FORBIDDEN.get()
+    if name is not None:
+        raise RuntimeError(f"{name}: {what} inside a body that runs on a "
+                           f"subset of the ranks (it would wait for the "
+                           f"others)")
 
 
 def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order.  The
-    bytes are gathered (a uint8 view), so any dtype crosses any backend."""
+    bytes are gathered (a uint8 view), so any dtype crosses any backend;
+    on NCCL into one buffer (``all_gather_into_tensor``)."""
+    _issue("an all-gather")
     n = dist.get_world_size(group)
     if n == 1:
         return t
     raw = t.contiguous().view(torch.uint8)
-    parts = [torch.empty_like(raw) for _ in range(n)]
-    dist.all_gather(parts, raw, group=group)
+    if dist.get_backend(group) == "nccl":
+        out = raw.new_empty((n,) + tuple(raw.shape))
+        dist.all_gather_into_tensor(out, raw, group=group)
+        parts = list(out.unbind(0))
+    else:
+        parts = [torch.empty_like(raw) for _ in range(n)]
+        dist.all_gather(parts, raw, group=group)
     return torch.cat(parts, dim=dim).view(t.dtype)
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: the sum of every rank's ``t``."""
+    _issue("an all-reduce")
     out = t.contiguous().clone()
     if dist.get_world_size(group) > 1:
         dist.all_reduce(out, group=group)

@@ -24,8 +24,10 @@ draws the whole batch and steps its data slice (``train_scan``), and rank
 The host pre-generates a uint8 crop dataset once (``train/data.py``),
 moves it to the device, and ``train.step.train_scan`` samples, augments and
 steps there, ``--log-every`` steps a chunk, with nothing read back inside a
-chunk: compiled (one captured step replayed a step, JAX's jitted scan) in
-one process, ``train_scan_eager`` under ``--mesh``.  A refreshed dataset
+chunk: compiled (one captured step replayed a step, JAX's jitted scan),
+under ``--mesh`` too (the collectives inside the replay on NCCL ranks;
+``train_scan_eager`` by name where ranks share a card over gloo,
+``utils/graph.py::compiles_under``).  A refreshed dataset
 (``--refresh-every``) has the same shapes and replays the same capture.
 Its draws come from a CPU ``torch.Generator`` seeded with ``--seed + 1``,
 so the card and the CPU draw the same indices and augmentations.  Training is in float32 whatever the preset.  The optimizer
@@ -56,6 +58,7 @@ from ..parallel.mesh import use_mesh
 from ..train import data
 from ..train.step import (Optimizer, TrainState, create_train_state,
                           make_optimizer, train_scan, train_scan_eager)
+from ..utils import graph
 
 __all__ = ["PRESETS", "TrainReport", "build_argparser", "main", "run"]
 
@@ -242,7 +245,8 @@ def run(argv=None) -> TrainReport:
                 and done % args.refresh_every == 0):
             ds = gen_dataset(args.seed + 1 + done)
         n = min(args.log_every, args.steps - done)
-        scan = train_scan if mesh is None else train_scan_eager
+        scan = (train_scan if graph.compiles_under(mesh, dev)
+                else train_scan_eager)
         with use_mesh(mesh):
             state, gen, ls, parts = scan(
                 state, *ds, gen, cfg, opt, n_steps=n, batch=args.batch,

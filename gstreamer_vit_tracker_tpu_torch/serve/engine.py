@@ -15,7 +15,7 @@ reports this).
 Frames come in any of the protocol's formats (``nv12``, ``yuy2``, ``rgb``),
 one per engine.
 
-On one device the tick and the slot write are compiled entry points
+The tick and the slot write are compiled entry points
 (``utils/graph.py``), JAX's ``_step_packed`` and ``_write_slot``: each a
 CUDA graph captured once and replayed, the state donated (the engine's
 state is the tick graph's static buffers, updated in place), the frames,
@@ -32,7 +32,12 @@ the params are replicated (no collective inside the tick); on a dp x tp
 mesh they take the Megatron layout (``parallel/sharding.py``) and the
 encoder's blocks run tensor-parallel over ``model``
 (``models/vit.py::_tp_block``).  The slot count must tile the data axis.
-Under a mesh the tick and the slot write run eagerly.
+Under a mesh the tick's program holds the gather of the packed rows (on
+NCCL captured with the rest), and the slot write runs on the ranks that
+hold the slot only, so its body holds no collective
+(``parallel/tensor.py::no_collectives`` raises if one comes in).  On gloo
+ranks that share a card both run their eager bodies by name
+(``graph.compiles_under``).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from ..config import ModelConfig
 from ..device import resolve_device
 from ..parallel import mesh as pmesh
 from ..parallel import sharding
-from ..parallel.tensor import all_gather_cat
+from ..parallel.tensor import all_gather_cat, no_collectives
 from ..tracker import core, multi
 from ..tracker.multi import _batched_cfg
 from ..tracker.state import TrackState, zeros_state
@@ -72,11 +77,17 @@ def _tree_to(tree: Any, device: torch.device, dtype=None) -> Any:
 def _step_packed(params: Params, state: TrackState, frames, active,
                  cfg: ModelConfig, frame_format: str, device) -> tuple:
     """One serving tick: S streams -> (new_state, packed (S, 5)), the
-    packed [x, y, w, h, score] rows one tensor for one host read."""
+    packed [x, y, w, h, score] rows one tensor for one host read.  Under
+    a mesh this rank steps its rows and the packed rows of every rank are
+    gathered over ``data``."""
     state, bboxes, scores = multi.update_streams(params, state, frames,
                                                  active, cfg, frame_format,
                                                  device=device)
-    return state, torch.cat([bboxes[:, 0, :], scores], dim=1)
+    packed = torch.cat([bboxes[:, 0, :], scores], dim=1)
+    mesh = pmesh.current_mesh()
+    if mesh is not None:
+        packed = all_gather_cat(packed, 0, mesh.get_group(pmesh.DATA_AXIS))
+    return state, packed
 
 
 def _write_slot(state: TrackState, params: Params, frame, bbox, slot,
@@ -149,7 +160,8 @@ class SlotEngine:
             self.rows = range(r * n, (r + 1) * n)
         self._host_params = _tree_to(params, torch.device("cpu"))
         self.params = self._place_params()
-        # This engine's compiled tick and slot write (one device only).
+        # This engine's compiled tick and slot write.
+        self.compiled = graph.compiles_under(mesh, self.device)
         self._tick = graph.Compiled(_step_packed, "engine.step_packed",
                                     static=("cfg", "frame_format"),
                                     donate={"state": (0,)})
@@ -200,17 +212,16 @@ class SlotEngine:
     def init_slot(self, slot: int, frame, bbox) -> None:
         """Start a track in ``slot``: ``core.init`` with the batched config
         (band off), written into row ``slot`` of the (S, 1, ...) state (on
-        a mesh, eagerly, by the ranks that hold that slot)."""
-        if self.mesh is None:
-            self.state = self._write(
-                self.state, self.params, frame, bbox,
-                np.asarray([slot], np.int64), self.cfg, self.frame_format,
-                self.device)
-        elif slot in self.rows:
-            new = core.init(self.params, frame, bbox, _batched_cfg(self.cfg),
-                            self.frame_format, self.device)
-            for batched, leaf in zip(self.state, new):
-                batched[slot - self.rows.start, 0] = leaf.to(batched.dtype)
+        a mesh, by the ranks that hold that slot)."""
+        if slot in self.rows:
+            row = np.asarray([slot - self.rows.start], np.int64)
+            write = self._write
+            if not self.compiled:
+                write, row = _write_slot, torch.as_tensor(row,
+                                                          device=self.device)
+            with pmesh.use_mesh(self.mesh), no_collectives(self._write.name):
+                self.state = write(self.state, self.params, frame, bbox, row,
+                                   self.cfg, self.frame_format, self.device)
         self.occupied[slot] = True
         if self._snapshot is None:
             self.snapshot()
@@ -232,23 +243,19 @@ class SlotEngine:
         self._ticks += 1
         if self.snapshot_every and self._ticks % self.snapshot_every == 0:
             self.snapshot()
-        if self.mesh is None:
+        rows = slice(self.rows.start, self.rows.stop)
+        active = (tick_active & self.occupied)[rows, None]
+        if self.compiled:
             # The frames and the mask go straight into the graph's static
             # buffers (from pinned memory the upload is asynchronous).
-            self.state, packed = self._tick(
-                self.params, self.state, self._host_frames(frames),
-                (tick_active & self.occupied)[:, None], self.cfg,
-                self.frame_format, self.device)
-            return PackedTick(packed)
-        rows = slice(self.rows.start, self.rows.stop)
-        active = torch.as_tensor((tick_active & self.occupied)[rows, None],
-                                 device=self.device)
+            tick, frames = self._tick, self._host_frames(frames)
+        else:
+            tick, frames = _step_packed, self._place_frames(frames)
+            active = torch.as_tensor(active, device=self.device)
         with pmesh.use_mesh(self.mesh):
-            self.state, bboxes, scores = multi.update_streams(
-                self.params, self.state, self._place_frames(frames), active,
-                self.cfg, self.frame_format, device=self.device)
-        packed = all_gather_cat(torch.cat([bboxes[:, 0, :], scores], dim=1),
-                                0, self.mesh.get_group(pmesh.DATA_AXIS))
+            self.state, packed = tick(self.params, self.state, frames,
+                                      active, self.cfg, self.frame_format,
+                                      self.device)
         return PackedTick(packed)
 
     def step(self, frames, tick_active: np.ndarray) -> np.ndarray:

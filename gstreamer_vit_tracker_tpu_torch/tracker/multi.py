@@ -17,7 +17,10 @@ CUDA attention kernels on the card.
 The ``*_jit`` names are the compiled entry points (``utils/graph.py``), as
 JAX's ``jax.jit`` programs: one CUDA graph per key, replayed; the two
 updates donate the state (the call returns the graph's static state
-buffers, updated in place), the inits return fresh tensors.
+buffers, updated in place), the inits return fresh tensors.  Under a mesh
+in context they are compiled for it (the mesh is part of the key), as
+``parallel/serving.py::ShardedStreamTracker`` calls ``init_streams_jit``;
+on the tensor-parallel route the encoder's collectives go into the graph.
 """
 
 from __future__ import annotations

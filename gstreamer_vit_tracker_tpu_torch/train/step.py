@@ -34,8 +34,14 @@ the params (``parallel/sharding.py::shard_params``) and steps its slice of
 the batch: the gradients, the loss and its parts are averaged over the
 ``data`` group, and clipping reads the norm of the whole gradient
 (``parallel/sharding.py::sq_norm``), so a mesh step computes what one
-process computes on the whole batch.  The mesh runs the eager functions;
-the compiled ones raise under a mesh.
+process computes on the whole batch.  The compiled step and scan run
+under a mesh as JAX's jitted ones run under ``with mesh:``: on NCCL ranks
+the data mean of the gradients, the norm's sum over ``model`` and the
+tensor-parallel collectives of the forward and the backward are captured
+into the replayed graph; every rank draws the scan's whole batch in the
+eager scan's order and steps its ``data`` slice of it.  Ranks that share
+a card (gloo) call the eager bodies by name
+(``utils/graph.py::compiles_under``).
 """
 
 from __future__ import annotations
@@ -274,7 +280,7 @@ def train_step_eager(state: TrainState, z_imgs, x_imgs, gts,
                      ) -> Tuple[TrainState, torch.Tensor,
                                 Dict[str, torch.Tensor]]:
     """One optimisation step, eagerly (what :func:`train_step` compiles;
-    the mesh's step).  Returns (new state, loss, loss parts), all tensors
+    the step of ranks that share a card).  Returns (new state, loss, loss parts), all tensors
     on the device; the old state is left as it was.  With ``opt=None`` a
     constant-LR AdamW(lr) is built.  ``state`` must lie on ``device``
     (``create_train_state`` keeps the params' device); the batch is moved
@@ -301,7 +307,8 @@ def train_step(state: TrainState, z_imgs, x_imgs, gts, cfg: ModelConfig,
     passed back in; a state from elsewhere is copied in and left as it
     was), loss and parts fresh tensors.  Pass the same ``opt`` every call (it is static); with
     ``opt=None`` a constant-LR AdamW(lr) is built.  The batch is copied
-    into the graph's buffers on ``device``.  Raises under a mesh."""
+    into the graph's buffers on ``device``; under a mesh it is this
+    rank's ``data`` slice, as for :func:`train_step_eager`."""
     opt = opt if opt is not None else make_optimizer(lr)
     return _step_impl(state, z_imgs, x_imgs, gts, cfg, opt, use_kernel,
                       ema_decay)
@@ -380,7 +387,8 @@ def train_scan_eager(state: TrainState, ds_z, ds_x, ds_gt,
                      use_kernel: Optional[bool] = None, ema_decay: float = 0.0,
                      augment: bool = True, device="cuda"):
     """Run ``n_steps`` optimisation steps eagerly with nothing read back
-    (what :func:`train_scan` compiles; the mesh's scan).
+    (what :func:`train_scan` compiles; the scan of ranks that share a
+    card).
 
     ``ds_z`` / ``ds_x`` are uint8 crop stacks (N, H, W, 3) and ``ds_gt``
     their boxes, moved to the device once; each step draws a
@@ -460,11 +468,17 @@ def _scan_step(state: TrainState, ds_z, ds_x, ds_gt, draws, values, n_steps,
                cfg: ModelConfig, opt: Optimizer, batch: int,
                use_kernel: Optional[bool], ema_decay: float, augment: bool,
                device, i):
-    """Step ``i`` of a window: its minibatch from row ``i`` of the draws,
-    one optimisation step, the loss and its parts into row ``i`` of
-    ``values``."""
+    """Step ``i`` of a window: its minibatch from row ``i`` of the draws
+    (under a mesh, this rank's ``data`` slice of it), one optimisation
+    step, the loss and its parts into row ``i`` of ``values``."""
+    from ..parallel.mesh import current_mesh
+    from ..parallel.sharding import shard_batch
+
     row = [t.index_select(0, i)[0] for t in draws]
     z, x, gt = _minibatch(ds_z, ds_x, ds_gt, row[0], row[1:], cfg, augment)
+    mesh = current_mesh()
+    if mesh is not None:
+        z, x, gt = shard_batch((z, x, gt), mesh)
     state, loss, parts = _step_impl(state, z, x, gt, cfg, opt, use_kernel,
                                     ema_decay)
     values.index_copy_(0, i, torch.stack([loss] + [parts[k] for k in PARTS]
@@ -486,8 +500,8 @@ def train_scan(state: TrainState, ds_z, ds_x, ds_gt, gen: torch.Generator,
     host first, uploaded once, and one captured step is replayed a step
     (module docstring).  The dataset is copied into the graph's buffers
     once, and again only when another one (``--refresh-every``) comes in.
-    Raises under a mesh."""
-    graph.no_mesh("train.train_scan")
+    Under a mesh every rank draws the whole batch and steps its slice
+    (:func:`train_scan_eager`)."""
     dev = resolve_device(device)
     if gen.device.type != "cpu":
         raise ValueError("the compiled train_scan draws from a CPU "

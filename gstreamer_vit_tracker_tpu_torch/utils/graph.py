@@ -11,7 +11,8 @@ buffers that the replay updates in place.
   dtype and device of every tensor argument, the identity and
   ``_version`` of every parameter leaf, and the numerics switches in
   force (TF32, cuDNN's ``deterministic`` and ``benchmark``: a captured op
-  keeps the algorithm chosen under the switches of its capture).  An
+  keeps the algorithm chosen under the switches of its capture), and the
+  mesh in context (below).  An
   in-place parameter update (an optimiser step) moves a leaf's
   ``_version`` and a re-uploaded tree has new leaves: both miss the key,
   as ``ops/operand_cache.py``'s operands do.
@@ -60,9 +61,34 @@ buffers that the replay updates in place.
 * **On the CPU** the same static-buffer plumbing runs, with the body called
   eagerly for each step in place of a replay.  On the card a failed capture
   raises, naming the entry point and the op; there is no eager fallback.
-* **Under a mesh** (``parallel/mesh.py::use_mesh``) a call raises: the
-  programs under a mesh are not compiled yet (``ROADMAP.md``), and their
-  callers run the eager functions by name.
+* **Under a mesh** (``parallel/mesh.py::use_mesh``), JAX's ``jax.jit``
+  under ``with mesh:``: the mesh is part of the key (its shape and axis
+  names, this rank's coordinates, and each axis group's backend and name,
+  since a graph holds the communicators it was captured against), and
+  the body's collectives (``parallel/tensor.py``) run inside it.  On the
+  card a mesh whose groups are NCCL is captured: the eager first step
+  issues every collective of the body once, so each communicator exists
+  before the capture, and the collectives then go into the graph like any
+  kernel.  A gloo group cannot be captured (its collectives run on the
+  host): with CUDA tensors a call raises before any launch, naming the
+  entry point and the backend (:func:`capturable`), and the callers of
+  ranks that share a card call the eager bodies by name
+  (:func:`compiles_under`).  On the CPU the plumbing runs with the body
+  called eagerly, as without a mesh.  Every rank must make the same hit,
+  miss and capture decisions in the same order (a rank that captures
+  while another replays waits on the first collective): the keys hold
+  per-rank leaf identities, so a miss must come from what every rank does
+  alike (the first call, a new parameter tree, ``recover``, the ``SETS``
+  eviction), and a body that runs on some ranks only must hold no
+  collective (``parallel/tensor.py::no_collectives``).
+* **The capture mode** is ``thread_local``: a capture then forbids the
+  unsafe calls of the capturing thread only, not those of the process's
+  other threads (the NCCL watchdog queries the events of earlier
+  collectives).  The backward's ops, which autograd's device thread
+  launches onto the capture stream, land in the graph.  On an H100 with
+  torch 2.11 and NCCL 2.28.9 both modes captured a backward and an
+  all-reduce taken just after an eager one (``chip_smoke.py`` phase 15
+  tries both).
 """
 
 from __future__ import annotations
@@ -247,16 +273,66 @@ def _where(err: BaseException) -> str:
     return "an op outside the package"
 
 
-def no_mesh(name: str) -> None:
-    """Raise if a mesh is in context: ``name`` has no compiled program
-    under a mesh yet."""
-    from ..parallel.mesh import current_mesh
+# -- meshes -----------------------------------------------------------------
 
-    if current_mesh() is not None:
-        raise RuntimeError(
-            f"{name}: compiled programs under a mesh are not ported yet "
-            f"(ROADMAP.md, 'Programs under a mesh'); under a mesh call the "
-            f"eager function (train_step_eager, train_scan_eager ...)")
+def capturable(backend: str, device) -> bool:
+    """Whether a body whose collectives run on a ``backend`` group can be
+    compiled with its tensors on ``device``: on the card only NCCL's
+    collectives go into a CUDA graph (gloo's run on the host); on the CPU
+    nothing is captured, so any backend will do."""
+    return torch.device(device).type != "cuda" or backend == "nccl"
+
+
+def mesh_backends(mesh) -> Tuple[str, ...]:
+    """The backend of each axis group of ``mesh``."""
+    import torch.distributed as dist
+
+    return tuple(dist.get_backend(mesh.get_group(i))
+                 for i in range(mesh.ndim))
+
+
+def compiles_under(mesh, device) -> bool:
+    """Whether the compiled entry points run under ``mesh`` (None: no
+    mesh) with tensors on ``device``; where not, the callers call the eager
+    bodies by name (ranks that share a card talk over gloo)."""
+    return mesh is None or all(capturable(b, device)
+                               for b in mesh_backends(mesh))
+
+
+_mesh_keys: Dict[int, Tuple[Any, Hashable]] = {}
+
+
+def _mesh_key(mesh) -> Hashable:
+    """The mesh in context as part of a key (module docstring); None
+    without one.  Worked out once a mesh."""
+    if mesh is None:
+        return None
+    got = _mesh_keys.get(id(mesh))
+    if got is not None and got[0]() is mesh:
+        return got[1]
+    import torch.distributed as dist
+
+    groups = [mesh.get_group(i) for i in range(mesh.ndim)]
+    key = (tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names or ()),
+           tuple(mesh.get_coordinate() or ()),
+           tuple((dist.get_backend(g), g.group_name) for g in groups))
+    _mesh_keys[id(mesh)] = (weakref.ref(mesh), key)
+    return key
+
+
+def _check_mesh(name: str, mesh, dev: torch.device) -> None:
+    """Raise, before any launch, where ``mesh``'s collectives cannot be
+    captured with tensors on ``dev``."""
+    if mesh is None:
+        return
+    for axis, backend in zip(mesh.mesh_dim_names or range(mesh.ndim),
+                             mesh_backends(mesh)):
+        if not capturable(backend, dev):
+            raise RuntimeError(
+                f"{name}: the mesh's {axis!r} group is {backend}, whose "
+                f"collectives cannot be captured into a CUDA graph (NCCL's "
+                f"can); with tensors on {dev} under this mesh call the "
+                f"eager function")
 
 
 def _side_stream(dev: torch.device):
@@ -370,7 +446,10 @@ class Compiled:
         a = bound.arguments
         dev = resolve_device(a["device"])
         a["device"] = dev
-        no_mesh(self.name)
+        from ..parallel.mesh import current_mesh
+
+        mesh = current_mesh()
+        _check_mesh(self.name, mesh, dev)
         pleaves = param_leaves(a.get("params", ()))
         tensors = [t for t in pleaves if isinstance(t, torch.Tensor)]
         arrays = {n: flatten(a[n]) for n in self.arrays}
@@ -380,7 +459,7 @@ class Compiled:
                tuple((n, spec, tuple((tuple(t.shape), t.stride(), t.dtype,
                                       t.device) for t in leaves))
                      for n, (leaves, spec) in arrays.items()),
-               _numerics())
+               _numerics(), _mesh_key(mesh))
         steps = int(a[self.steps]) if self.steps else 1
         if steps < 1:
             raise ValueError(f"{self.name}: {self.steps}={steps}, at least "

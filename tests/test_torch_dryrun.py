@@ -2,11 +2,14 @@
 ``__graft_entry__.py::dryrun_multichip``, on four gloo ranks on the CPU
 (a 2x2 mesh: tp=2 over the flagship width's 3 heads).
 
-It prints JAX's lines (``MULTICHIP_r05.json`` holds JAX's own), each
-reading within its bound: the mesh train loss within 1e-4 relative of one
-process, the pure-data serving tick and the Megatron serving forward
-within rtol / atol 1e-4 of one engine.  Without a card the default
-``device="cuda"`` raises before any rank starts.
+It runs JAX's three parts through the compiled programs
+(``utils/graph.py``: on the CPU their plumbing, the bodies called
+eagerly), says so on a first line, then prints JAX's lines
+(``MULTICHIP_r05.json`` holds JAX's own), each reading within its bound:
+the mesh train loss within 1e-4 relative of one process, the pure-data
+serving tick and the Megatron serving forward within rtol / atol 1e-4 of
+one engine.  Without a card the default ``device="cuda"`` raises before
+any rank starts.
 """
 
 import json
@@ -40,10 +43,13 @@ def _shape(line: str) -> str:
 
 def test_dryrun_multichip_on_four_cpu_ranks(capsys):
     res = entry.dryrun_multichip(4, device="cpu", timeout=600)
-    lines = capsys.readouterr().out.strip().splitlines()
+    route, *lines = capsys.readouterr().out.strip().splitlines()
     with open(os.path.join(ROOT, "MULTICHIP_r05.json")) as f:
         jax_lines = json.load(f)["tail"].strip().splitlines()
-    # JAX's five lines, in its order (the port adds each reading's bound).
+    # The route, then JAX's five lines in its order (the port adds each
+    # reading's bound).
+    assert route == "dryrun route: compiled programs on 4 gloo ranks (cpu)"
+    assert res["route"] == "compiled" and res["backend"] == "gloo"
     assert [_shape(ln) for ln in lines] == [_shape(ln) for ln in jax_lines]
     assert lines[0].startswith("dryrun flagship train OK: mesh 2x2, D=192 "
                                "depth=12")
@@ -56,6 +62,24 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys):
     assert len(res["launches"]) == 4
     assert all(v == 0 for r in res["launches"] for c in r.values()
                for v in c.values())
+
+
+def test_dryrun_ranks_get_the_device_type_not_an_index(monkeypatch):
+    """Each rank takes its own card (``init_group``): handing every rank
+    ``cuda:0`` put them all on card 0, which NCCL refuses."""
+    seen = {}
+
+    def ranks(fn, n, *args, device, timeout):
+        seen.update(n=n, args=args)
+        return [{"route": "compiled", "backend": "nccl", "lines": [],
+                 "mesh": [2, 2]}] * n
+
+    monkeypatch.setattr(entry, "resolve_device",
+                        lambda d: torch.device("cuda", 0))
+    monkeypatch.setattr("gstreamer_vit_tracker_tpu_torch.parallel.launch."
+                        "run_ranks", ranks)
+    entry.dryrun_multichip(4, device="cuda:0")
+    assert seen == {"n": 4, "args": ("cuda",)}
 
 
 def test_dryrun_multichip_needs_cuda_without_a_device():

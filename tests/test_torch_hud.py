@@ -12,6 +12,12 @@ JAX's or one level away where the two round a near half-tie differently;
 the count of such pixels is asserted.  ``crop_resize_chw`` against JAX's
 in float32 to 1e-5 relative (its uint8 inputs reach 255, where one float32
 ulp is 1.5e-5 and the two einsum orders differ by an ulp or two).
+
+The compiled draws the app calls (``render_hud_jit``, ``render_hud_luma_jit``,
+``yuy2_to_rgb_jit``, ``resize_static_jit``: one program a frame shape, the
+geometry on the device) against JAX's jitted ones and the eager draws:
+uint8-equal, for every state and box above and for cursors and selection
+corners off the frame; the frame is donated.
 """
 
 import numpy as np
@@ -35,10 +41,11 @@ from gstreamer_vit_tracker_tpu_torch.ops import resample as trs  # noqa: E402
 H, W = 256, 320
 
 
-def _hud(module, state, bbox=(40, 30, 80, 60)):
+def _hud(module, state, bbox=(40, 30, 80, 60), cursor=(160, 128),
+         sel_start=(100, 90)):
     """HudParams of ``module`` for the three session states."""
-    kw = dict(fps=59.7, track_ms=3.25, cursor=(160, 128),
-              sel_start=(100, 90), bbox=bbox)
+    kw = dict(fps=59.7, track_ms=3.25, cursor=cursor, sel_start=sel_start,
+              bbox=bbox)
     if state == "selecting":
         return module.HudParams(state_name="SELECT END", score=0.0,
                                 is_tracking=False, is_selecting=True,
@@ -278,3 +285,63 @@ def test_crop_resize_chw_matches_jax(start, size, out):
     got = trs.crop_resize_chw(torch.tensor(img), start, size, out).numpy()
     assert got.shape == (3,) + out and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# The cursor and the selection's start: inside the frame, off its left and
+# past its bottom-right, and both past the frame.
+POINTS = (((160, 128), (100, 90)), ((-10, 5), (330, 260)),
+          ((W + 4, H + 9), (10, 10)), ((-30, -40), (W + 50, -5)))
+
+
+@pytest.mark.parametrize("points", POINTS)
+@pytest.mark.parametrize("bbox", BOXES)
+@pytest.mark.parametrize("state", STATES)
+def test_compiled_hud_matches_jax_and_the_eager_draw(state, bbox, points):
+    img, y = _frame(1, (H, W, 3)), _frame(3, (H, W))
+    jp, tp = (_hud(m, state, bbox, *points) for m in (jov, tov))
+    want = np.asarray(jov.render_hud(jnp.asarray(img), jp))
+    got = tov.render_hud_jit(img, tp, "cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), tov.render_hud(torch.tensor(img), tp).numpy())
+    want = np.asarray(jov12.render_hud_luma(jnp.asarray(y), jp))
+    got = tov12.render_hud_luma_jit(y, tp, "cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), tov12.render_hud_luma(torch.tensor(y), tp).numpy())
+
+
+@pytest.mark.parametrize("state", STATES)
+def test_compiled_yuy2_hud_and_resize_match_jax(state):
+    packed = _frame(2, (H, W * 2))
+    jrgb = jcs.yuy2_to_rgb(jnp.asarray(packed).reshape(-1), width=W, height=H)
+    rgb = tcs.yuy2_to_rgb_jit(packed.reshape(-1), W, H, "cpu")
+    np.testing.assert_array_equal(rgb.numpy(), np.asarray(jrgb))
+    # JAX's render_hud donates its frame.
+    want = np.asarray(jov.render_hud(jrgb, _hud(jov, state, BOXES[1])))
+    got = tov.render_hud_jit(rgb, _hud(tov, state, BOXES[1]), "cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    big = trs.resize_static_jit(got, 512, 640, "cpu")
+    assert torch.equal(big, trs.resize_static(torch.tensor(want), 512, 640))
+    d = np.abs(big.numpy().astype(int) - np.asarray(jrs.resize_static(
+        jnp.asarray(want), 512, 640)).astype(int))
+    assert d.max() <= 1 and (d > 0).sum() <= 1e-3 * d.size
+
+
+def test_the_compiled_hud_donates_the_frame():
+    """A host frame is copied in and left as it was; the returned tensor
+    passed back is painted in place, with no copy; a result still held
+    when another frame comes in keeps its pixels."""
+    img = _frame(1, (H, W, 3))
+    before = img.copy()
+    sel, trk = _hud(tov, "selecting"), _hud(tov, "tracking")
+    out = tov.render_hud_jit(img, sel, "cpu")
+    np.testing.assert_array_equal(img, before)
+    copies = tov._render_hud.copies
+    again = tov.render_hud_jit(out, trk, "cpu")
+    assert again is out and tov._render_hud.copies == copies + 1  # the HUD
+    want = tov.render_hud(tov.render_hud(torch.tensor(img), sel), trk)
+    assert torch.equal(again, want)
+    held = again.clone()
+    tov.render_hud_jit(_frame(5, (H, W, 3)), sel, "cpu")
+    assert torch.equal(again, held)

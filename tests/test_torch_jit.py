@@ -19,7 +19,9 @@ in-place parameter update does; a state passed in from elsewhere is left
 untouched, and a result handed out earlier keeps its values when another
 state comes in; ``packed`` and a ``PackedTick`` held from call N keep
 their values after call N+1; three slot writes trace once; the cache
-stays bounded over repeated ``recover`` and new parameter sets.
+stays bounded over repeated ``recover`` and new parameter sets; two meshes
+in context (a one-rank gloo group in this process) give two keys, and the
+same mesh the same key.
 """
 
 import dataclasses
@@ -515,3 +517,33 @@ def test_a_static_buffer_keeps_its_source_layout():
     assert seen[-1] == (3, 1) and fn.traces == 2
     fn(a.clone(), CPU)                                # the first layout again
     assert seen[-1] == (1, 4) and fn.traces == 2
+
+
+def test_two_meshes_give_two_keys():
+    """The mesh in context is part of the key: its shape and axis names,
+    this rank's coordinates and each axis group's backend and name."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from gstreamer_vit_tracker_tpu_torch.parallel import make_mesh
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import (init_group,
+                                                               use_mesh)
+
+    assert init_group("cpu") == "gloo"
+    try:
+        square = make_mesh((1, 1), device="cpu")
+        line = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        fn = graph.Compiled(lambda x, device: x * 2, "test.mesh")
+        x = torch.ones(3)
+        fn(x, CPU)
+        for mesh, traces in ((square, 2), (line, 3), (square, 3), (None, 3)):
+            with use_mesh(mesh):
+                assert torch.equal(fn(x, CPU), x * 2)
+            assert fn.traces == traces
+        key = graph._mesh_key(square)
+        assert key[:3] == ((1, 1), ("data", "model"), (0, 0))
+        assert [b for b, _name in key[3]] == ["gloo", "gloo"]
+        assert graph._mesh_key(line) != key
+        assert graph.compiles_under(square, CPU)
+    finally:
+        dist.destroy_process_group()

@@ -19,10 +19,17 @@ part of what the ranks sent back:
   the second step's loss, against the port's one-process run (bounds at
   the tests);
 * the ``slots % dp`` rule of ``tests/test_sharding.py``;
-* ``ShardedStreamTracker`` over a 4x1 mesh: its first tick against JAX's,
-  and recovery from a poisoned state as ``tests/test_sharding.py`` holds
-  JAX's;
+* ``ShardedStreamTracker`` over a 4x1 mesh: its three ticks against
+  JAX's, and recovery from a poisoned state as ``tests/test_sharding.py``
+  holds JAX's;
 * ``train_synthetic --mesh 2x2 --cpu`` saves the gathered checkpoint.
+
+Every mesh path above runs its compiled program (``utils/graph.py``: on
+the CPU the plumbing, the body called eagerly), as the mesh paths of NCCL
+ranks do on the card; each is also held bit for bit to its eager mesh
+body called by name (the route of ranks that share a card): the tracker's
+ticks and recovery, the 2x2 engine's slot writes and ticks, the 2x2 train
+step, and the 2x2 ``train_scan`` (the script's route).
 
 The ranks import this module to find ``_rank_jobs``, so it imports JAX and
 the JAX package inside the tests only (each rank would otherwise load them
@@ -112,6 +119,79 @@ def _engine_rule(mesh, params, cfg, slots):
         return "raises"
 
 
+def _engine_routes(params, cfg, frames0, frames1, bbs, mesh):
+    """The mesh engine's slot writes and two ticks, eager (the bodies by
+    name) then compiled: (packed rows, final state, tick and write
+    captures) of each."""
+    out = []
+    for compiled in (False, True):
+        eng = SlotEngine(params, cfg, slots=len(bbs), frame_format="nv12",
+                         device="cpu", mesh=mesh)
+        eng.compiled = compiled
+        for i in range(len(bbs)):
+            eng.init_slot(eng.alloc(), (frames0[0][i], frames0[1][i]),
+                          bbs[i])
+        rows = [eng.step(f, np.ones(len(bbs), bool))
+                for f in (frames1, frames0)]
+        out.append({"rows": rows, "state": [t.numpy() for t in eng.state],
+                    "captures": (eng._tick.traces, eng._write.traces)})
+    return out
+
+
+def _eager_train_steps(params, batch, cfg, mesh, steps=2):
+    """``entry.train_steps`` with the eager step called by name: the losses
+    and the gathered params and first moments after the first step."""
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import use_mesh
+    from gstreamer_vit_tracker_tpu_torch.train import step as tstep
+
+    state = tstep.create_train_state(sharding.shard_params(
+        weights.tree_to(params, "cpu", copy=True), mesh))
+    z, x, gt = (torch.as_tensor(np.asarray(t)) for t in
+                sharding.shard_batch(tuple(batch), mesh))
+    losses, first = [], None
+    with use_mesh(mesh):
+        for _ in range(steps):
+            state, loss, _ = tstep.train_step_eager(state, z, x, gt, cfg,
+                                                    device="cpu")
+            losses.append(float(loss))
+            first = first or (state.params, state.opt_state.mu)
+
+    def whole(tree):
+        return weights.flatten(weights.tree_to_numpy(
+            sharding.gather_params(tree, mesh)))
+
+    return {"losses": losses, "params": whole(first[0]),
+            "mu": whole(first[1])}
+
+
+def _scan_routes(cfg, mesh):
+    """``train_scan`` and ``train_scan_eager`` under ``mesh``, two steps
+    of a batch of 4 from one seeded generator: (losses, params, the
+    generator's state) of each."""
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import use_mesh
+    from gstreamer_vit_tracker_tpu_torch.train import step as tstep
+
+    rng = np.random.default_rng(4)
+    ds = (rng.integers(0, 256, (6, cfg.template_size, cfg.template_size, 3),
+                       dtype=np.uint8),
+          rng.integers(0, 256, (6, cfg.search_size, cfg.search_size, 3),
+                       dtype=np.uint8),
+          rng.uniform(0.2, 0.6, (6, 4)).astype(np.float32))
+    out = []
+    for scan in (tstep.train_scan_eager, tstep.train_scan):
+        opt = tstep.make_optimizer(1e-3)
+        state = tstep.create_train_state(sharding.shard_params(
+            _params(SERVE, 9), mesh), opt=opt)
+        gen = torch.Generator().manual_seed(5)
+        with use_mesh(mesh):
+            state, gen, losses, _ = scan(state, *ds, gen, cfg, opt, 2, 4,
+                                         device="cpu")
+        out.append((losses.numpy(), [t.numpy() for t in
+                                     tstep.tree_leaves(state.params)],
+                    gen.get_state().numpy()))
+    return out
+
+
 def _rank_jobs(rank, n, inp):
     """Everything the tests read, on one rank of four."""
     out = {}
@@ -138,21 +218,30 @@ def _rank_jobs(rank, n, inp):
                                     mesh=mesh, device="cpu")
     out["wide"] = entry.serve_tick(wide, wide_cfg, *inp["wide_frames"],
                                    mesh=mesh, device="cpu")
+    out["engine_routes"] = _engine_routes(inp["serve"], serve_cfg,
+                                          *inp["frames"], mesh)
     out["train"] = entry.train_steps(inp["train"], inp["batch"],
                                      entry.DRYRUN_CFG, steps=2, mesh=mesh,
                                      device="cpu")
+    out["train_eager"] = _eager_train_steps(inp["train"], inp["batch"],
+                                            entry.DRYRUN_CFG, mesh)
+    out["scan_routes"] = _scan_routes(serve_cfg, mesh)
     out["rule_22"] = {s: _engine_rule(mesh, inp["serve"], serve_cfg, s)
                       for s in (2, 3, 4)}
 
     # train_synthetic over the same ranks (the group is already joined).
     from gstreamer_vit_tracker_tpu_torch.scripts import train_synthetic
 
+    from gstreamer_vit_tracker_tpu_torch.train import step as tstep
+
     buf = io.StringIO()
+    scans = tstep._scan_step.traces
     with contextlib.redirect_stdout(buf):
         rep = train_synthetic.run(TRAIN_ARGV + ["--mesh", "2x2", "--out",
                                                 inp["out"]])
     out["script"] = {"rc": rep.rc, "losses": rep.losses,
-                     "stdout": buf.getvalue()}
+                     "stdout": buf.getvalue(),
+                     "scan_captures": tstep._scan_step.traces - scans}
     full = weights.flatten(weights.tree_to_numpy(
         sharding.gather_params(rep.state.params, mesh)))
     if rank == 0:
@@ -162,14 +251,22 @@ def _rank_jobs(rank, n, inp):
     pure = make_mesh((4, 1), device="cpu")
     out["rule_41"] = {s: _engine_rule(pure, inp["serve"], serve_cfg, s)
                       for s in (4, 6)}
+    out["tracker"] = _tracker_run(pure, inp["corr"], compiled=True)
+    out["tracker_eager"] = _tracker_run(pure, inp["corr"], compiled=False)
+    return out
+
+
+def _tracker_run(mesh, params, compiled):
+    """The 4x1 tracker: three ticks, a poisoned state, ``recover`` and a
+    fourth tick, through the compiled program or the eager body."""
     cfg = ModelConfig(**CORR)
-    t = ShardedStreamTracker(pure, inp["corr"], cfg, frame_format="rgb",
+    t = ShardedStreamTracker(mesh, params, cfg, frame_format="rgb",
                              snapshot_every=2, device="cpu")
+    t.compiled = compiled
     frames0, bboxes = _corr_frames(0)
     t.init(frames0, bboxes)
-    first = [v.numpy() for v in t.update(_corr_frames(1)[0])]
-    for i in range(2, 4):
-        boxes_ok, _ = t.update(_corr_frames(i)[0])
+    ticks = [[v.numpy() for v in t.update(_corr_frames(i)[0])]
+             for i in range(1, 4)]
     # Poison the live state (what a dead device leaves behind: tensors
     # whose data cannot be read, here meta tensors).
     t.state = type(t.state)(*(torch.empty_like(x, device="meta")
@@ -182,10 +279,11 @@ def _rank_jobs(rank, n, inp):
         poisoned = "raises"
     t.recover()
     boxes, scores = t.update(frames4)
-    out["tracker"] = {"first": first, "local_rows": t.state.bbox.shape[0],
-                      "poisoned": poisoned, "boxes_ok": boxes_ok.numpy(),
-                      "boxes": boxes.numpy(), "scores": scores.numpy()}
-    return out
+    return {"ticks": ticks, "first": ticks[0],
+            "local_rows": t.state.bbox.shape[0], "poisoned": poisoned,
+            "boxes_ok": ticks[-1][0], "boxes": boxes.numpy(),
+            "scores": scores.numpy(), "state": [x.numpy() for x in t.state],
+            "captures": t._step.traces}
 
 
 @pytest.fixture(autouse=True)
@@ -241,6 +339,20 @@ def test_param_pspec_equals_jax_on_every_flagship_leaf():
     assert len(got) == len(want) > 150
     assert got == want
     assert sum(bool(s) for s in got.values()) == 6 * 12
+
+
+def test_a_collective_inside_a_subset_body_raises():
+    """The engine's slot write runs on the ranks that hold the slot only:
+    a collective there raises, naming the body, before it is issued."""
+    from gstreamer_vit_tracker_tpu_torch.parallel import tensor as ptensor
+
+    with ptensor.no_collectives("engine.write_slot"):
+        with pytest.raises(RuntimeError,
+                           match="engine.write_slot: an all-reduce"):
+            ptensor.all_reduce_sum(torch.ones(2), None)
+        with pytest.raises(RuntimeError,
+                           match="engine.write_slot: an all-gather"):
+            ptensor.all_gather_cat(torch.ones(2), 0, None)
 
 
 def test_make_mesh_needs_cuda_without_a_device():
@@ -322,6 +434,60 @@ def test_dp_tp_train_step_matches_jax_and_one_process(ranks):
                                    atol=STEP_MU_ATOL, err_msg=key)
 
 
+def test_dp_tp_slot_engine_compiled_equals_the_eager_body(ranks):
+    _, res = ranks
+    for r in res:
+        eager, compiled = r["engine_routes"]
+        for a, b in zip(eager["rows"] + eager["state"],
+                        compiled["rows"] + compiled["state"]):
+            np.testing.assert_array_equal(a, b)
+        # One capture of the tick; the slot write once on every rank (each
+        # holds slots: 8 slots over 2 data ranks), none eagerly.
+        assert compiled["captures"] == (1, 1)
+        assert eager["captures"] == (0, 0)
+
+
+def test_dp_tp_train_step_compiled_equals_the_eager_body(ranks):
+    _, res = ranks
+    for r in res:
+        got, want = r["train"], r["train_eager"]
+        assert got["route"] == "compiled"
+        assert got["losses"] == want["losses"]
+        for key in want["params"]:
+            np.testing.assert_array_equal(got["params"][key],
+                                          want["params"][key], err_msg=key)
+            np.testing.assert_array_equal(got["mu"][key], want["mu"][key],
+                                          err_msg=key)
+
+
+def test_dp_tp_train_scan_compiled_equals_the_eager_scan(ranks):
+    _, res = ranks
+    for r in res:
+        (l_e, p_e, g_e), (l_c, p_c, g_c) = r["scan_routes"]
+        np.testing.assert_array_equal(l_e, l_c)
+        np.testing.assert_array_equal(g_e, g_c)
+        for a, b in zip(p_e, p_c):
+            np.testing.assert_array_equal(a, b)
+        assert r["script"]["scan_captures"] >= 1    # the script's route
+
+
+def test_sharded_stream_tracker_compiled_equals_the_eager_body(ranks):
+    _, res = ranks
+    for r in res:
+        got, want = r["tracker"], r["tracker_eager"]
+        for a, b in zip(got["ticks"], want["ticks"]):
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+        for key in ("boxes", "scores"):
+            np.testing.assert_array_equal(got[key], want[key])
+        for a, b in zip(got["state"], want["state"]):
+            np.testing.assert_array_equal(a, b)
+        assert got["poisoned"] == want["poisoned"] == "raises"
+        # A capture before recover() and one after it (new params), on
+        # every rank together.
+        assert got["captures"] == 2 and want["captures"] == 0
+
+
 def test_slots_must_tile_the_data_axis(ranks):
     _, res = ranks
     for r in res:
@@ -338,13 +504,14 @@ def test_sharded_stream_tracker_matches_jax_and_recovers(ranks):
     jt = J(jmesh.make_mesh((8, 1)), _jax_tree(inp["corr"]), _jax_cfg(CORR),
            frame_format="rgb")
     jt.init(*_corr_frames(0))
-    jboxes, jscores = (np.asarray(v) for v in jt.update(_corr_frames(1)[0]))
+    jticks = [[np.asarray(v) for v in jt.update(_corr_frames(i)[0])]
+              for i in range(1, 4)]
     for r in res:
         tr = r["tracker"]
         assert tr["local_rows"] == 2          # 8 streams over 4 data ranks
-        np.testing.assert_allclose(tr["first"][0], jboxes, rtol=0, atol=1e-3)
-        np.testing.assert_allclose(tr["first"][1], jscores, rtol=0,
-                                   atol=1e-4)
+        for (boxes, scores), (jboxes, jscores) in zip(tr["ticks"], jticks):
+            np.testing.assert_allclose(boxes, jboxes, rtol=0, atol=1e-3)
+            np.testing.assert_allclose(scores, jscores, rtol=0, atol=1e-4)
         assert tr["poisoned"] == "raises"
         assert tr["boxes"].shape == (8, 1, 4)
         assert np.isfinite(tr["boxes"]).all()

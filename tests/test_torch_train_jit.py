@@ -15,8 +15,11 @@ wrapper's plumbing runs with the body called eagerly for each step: the
   anew nor copied; a state from elsewhere is left as it was; a new batch
   of the same shape replays; another ``opt`` or ``ema_decay`` traces; a
   draw window smaller than ``n_steps`` gives what one window gives; a
-  refreshed dataset of the same shape replays and is copied in; a
-  compiled wrapper under a mesh raises and names the roadmap's item.
+  refreshed dataset of the same shape replays and is copied in;
+* under a mesh (a one-rank gloo group in this process, the mesh's data
+  mean and norm sum in the body) the compiled step and scan equal the
+  eager bodies bit for bit; the rule that a gloo group with tensors on
+  the card cannot be compiled, as a function of backend and device.
 """
 
 import dataclasses
@@ -281,21 +284,68 @@ def test_a_refreshed_dataset_replays_and_is_copied_in(start):
     assert torch.equal(ls, got) and _equal(_leaves(want), _leaves(st))
 
 
-def test_compiled_training_under_a_mesh_raises(start):
+def test_compiled_training_under_a_one_rank_mesh_equals_eager(start):
+    import torch.distributed as dist
+
+    from gstreamer_vit_tracker_tpu_torch.parallel import make_mesh
+    from gstreamer_vit_tracker_tpu_torch.parallel.mesh import init_group
+
     _, _, cfg_t, flat = start
-    opt = tstep.make_optimizer(LR)
+    opt = tstep.make_optimizer(LR, total_steps=6, warmup_steps=1)
     z, x, gt = _batch(cfg_t, 2, seed=53)
     ds = _dataset(cfg_t, 4, seed=8)
-    gen = torch.Generator().manual_seed(0)
-    state = gen.get_state()
-    with use_mesh(object()):
-        with pytest.raises(RuntimeError, match="ROADMAP.md"):
-            tstep.train_step(_state(flat, cfg_t, opt), z, x, gt, cfg_t,
-                             opt=opt, device=CPU)
-        with pytest.raises(RuntimeError, match="train_scan_eager"):
-            tstep.train_scan(_state(flat, cfg_t, opt), *ds, gen, cfg_t, opt,
-                             1, 2, device=CPU)
-    assert torch.equal(gen.get_state(), state)        # nothing drawn
+    assert init_group("cpu") == "gloo"
+    try:
+        mesh = make_mesh((1, 1), device="cpu")
+        with use_mesh(mesh):
+            want = _state(flat, cfg_t, opt)
+            got = _state(flat, cfg_t, opt)
+            steps = tstep.train_step.traces
+            for _ in range(2):
+                want, l_e, p_e = tstep.train_step_eager(
+                    want, z, x, gt, cfg_t, opt=opt, device=CPU)
+                got, l_c, p_c = tstep.train_step(got, z, x, gt, cfg_t,
+                                                 opt=opt, device=CPU)
+                assert torch.equal(l_e, l_c)
+                assert all(torch.equal(p_e[k], p_c[k]) for k in p_e)
+            assert tstep.train_step.traces == steps + 1
+            assert _equal(_leaves(want), _leaves(got))
+            runs = []
+            for scan in (tstep.train_scan_eager, tstep.train_scan):
+                gen = torch.Generator().manual_seed(3)
+                st, gen, ls, parts = scan(_state(flat, cfg_t, opt), *ds, gen,
+                                          cfg_t, opt, 2, 2, device=CPU)
+                runs.append((ls, parts, _leaves(st), gen.get_state()))
+        (l_e, parts_e, s_e, g_e), (l_c, parts_c, s_c, g_c) = runs
+        assert torch.equal(l_e, l_c) and torch.equal(g_e, g_c)
+        assert all(torch.equal(parts_e[k], parts_c[k]) for k in parts_e)
+        assert _equal(s_e, s_c)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend, device, ok", [
+    ("nccl", "cuda", True), ("gloo", "cuda", False), ("gloo", "cpu", True),
+    ("nccl", "cpu", True), ("gloo", "cuda:1", False)])
+def test_gloo_with_cuda_tensors_cannot_be_compiled(backend, device, ok,
+                                                   monkeypatch):
+    """Only NCCL's collectives go into a CUDA graph; on the CPU nothing is
+    captured.  Where not, a compiled call under the mesh raises before any
+    launch, naming the entry point and the backend."""
+    from types import SimpleNamespace
+
+    from gstreamer_vit_tracker_tpu_torch.utils import graph
+
+    assert graph.capturable(backend, device) is ok
+    mesh = SimpleNamespace(mesh_dim_names=("data",), ndim=1)
+    monkeypatch.setattr(graph, "mesh_backends", lambda m: (backend,))
+    assert graph.compiles_under(mesh, device) is ok
+    if ok:
+        graph._check_mesh("train.train_step", mesh, torch.device(device))
+    else:
+        with pytest.raises(RuntimeError, match=(
+                f"train.train_step: the mesh's 'data' group is {backend}")):
+            graph._check_mesh("train.train_step", mesh, torch.device(device))
 
 
 def test_the_compiled_scan_needs_a_cpu_generator(start):
