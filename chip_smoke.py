@@ -22,11 +22,13 @@ Phases, in order; any failure raises and exits non-zero:
    * the two attention kernels through ``ops/attention.py::flash_attention``
      (its choice of kernel and variant is printed and asserted):
      ``attention_single`` at the serving shape (48, 320, 64) bf16 (``mma``)
-     and at the ``small`` preset's f32 shape (``simt``), ``attention_flash``
-     at (3, 1088, 64) bf16 (``mma``) and f32 and at lengths that are no
-     multiple of its key block, held to ``attention_reference``; at the two
-     bf16 shapes also one launch on ready operands, the kernel's device
-     time from a CUDA-graph replay, and the ``simt`` variant the same way;
+     and at the ``small`` preset's f32 shape (``tf32x3``), ``attention_flash``
+     at (3, 1088, 64) bf16 (``mma``) and f32 (``tf32x3``) and at lengths
+     that are no multiple of its key block, the dry run's 20 f32 tokens,
+     held to ``attention_reference``; at the two bf16 shapes and the
+     ``small`` f32 one also one launch on ready operands, the kernel's
+     device time from a CUDA-graph replay, and the ``simt`` variant the same
+     way, beside the bound (f32: both the FMA one and the split-TF32 one);
      ``multihead_attention`` on the chunks of a (16, 320, 576) qkv buffer
      beside the copy-then-launch path it replaced;
    * the NV12-to-tokens kernel (``ops/fused_prep_embed.py``) in bf16 and
@@ -212,7 +214,8 @@ Phases, in order; any failure raises and exits non-zero:
    no host sync inside the replays; then, with the default algorithms,
    eager against compiled: host wall ms, device busy ms, the idle share
    and samples/s a step, with the card line; kernel 4 at the training
-   shape (48, 320, 64) float32 against its plain version, timed beside
+   shape (48, 320, 64) float32 (``tf32x3``) against its plain version,
+   timed beside the ``simt`` design it replaced and
    ``scaled_dot_product_attention``, and its device time inside the
    replayed step;
 15. the programs under a mesh compiled (``utils/graph.py``: CUDA graphs
@@ -260,7 +263,8 @@ import torch.nn.functional as F
 
 from gstreamer_vit_tracker_tpu_torch.utils.flops import (H100_BF16_FLOPS,
                                                          H100_F32_FLOPS,
-                                                         H100_HBM_BYTES_S)
+                                                         H100_HBM_BYTES_S,
+                                                         H100_TF32_FLOPS)
 
 MAIN_STEPS = 30
 CPU_CHECK_STEPS = 3
@@ -648,7 +652,8 @@ def attention_case(bh, s, dh, dtype, dev, want_route, want_variant, timed,
     if not err <= tol:
         raise AssertionError(f"attention_{route} {name} disagrees with "
                              f"attention_reference: {err} > {tol}")
-    res = {"route": route, "variant": variant, "max_abs_err": err}
+    res = {"shape": [bh, s, dh], "route": route, "variant": variant,
+           "max_abs_err": err}
     if timed:
         # The old design at this shape in this process: the SIMT variant of
         # the kernel that the SIMT rule takes here.
@@ -687,8 +692,23 @@ def attention_case(bh, s, dh, dtype, dev, want_route, want_variant, timed,
         res["library_device_us"] = graph_us(library)
         flops = 4 * s * s * dh * bh
         nbytes = 4 * q.numel() * q.element_size()
-        peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_HBM_BYTES_S * 1e3
+        t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+        if dtype == torch.float32:
+            # Two bounds: the products as f32 FMA, and as the three TF32
+            # products a product that tf32x3 runs on the tensor cores (the
+            # row's bound for tf32x3, whose operations these are).
+            t_fma = flops / H100_F32_FLOPS * 1e3
+            t_split = 3 * flops / H100_TF32_FLOPS * 1e3
+            res["bound_fma_ms"] = max(t_fma, t_bytes)
+            res["bound_split_tf32_ms"] = max(t_split, t_bytes)
+            t_ops = t_split if variant == "tf32x3" else t_fma
+            bound_note = (
+                f"; f32 FMA {t_fma * 1e3:.2f} us, split TF32 (3 x "
+                f"{flops / 1e9:.3f} GFLOP at {H100_TF32_FLOPS / 1e12:.0f} "
+                f"TFLOP/s) {t_split * 1e3:.2f} us, the bound is the "
+                + ("split TF32 one" if variant == "tf32x3" else "f32 FMA one"))
+        else:
+            t_ops, bound_note = flops / H100_BF16_FLOPS * 1e3, ""
         res["bound_ms"] = max(t_ops, t_bytes)
         res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         print(f"attention_{route} {name} ms (CUDA events, mean of "
@@ -703,8 +723,15 @@ def attention_case(bh, s, dh, dtype, dev, want_route, want_variant, timed,
               f"{res['library_device_us']:.2f}; bound "
               f"{res['bound_ms'] * 1e3:.2f} us by {res['bound_by']} "
               f"({flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.2f} us, "
-              f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us)", flush=True)
+              f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us{bound_note}) "
+              f"| {card_line()}", flush=True)
     return res
+
+
+# What the kernels line keeps of a timed float32 attention case.
+F32_KEYS = ("shape", "variant", "max_abs_err", "device_us", "simt_device_us",
+            "library_device_us", "bound_ms", "bound_by", "bound_fma_ms",
+            "bound_split_tf32_ms")
 
 
 def multihead_case(dev, cfg):
@@ -754,12 +781,19 @@ def attention_phase(dev, cfg, small):
 
     bf16, f32 = torch.bfloat16, torch.float32
     single = attention_case(48, 320, 64, bf16, dev, "single", "mma", timed=True)
-    attention_case(SERVE_SLOTS * small.num_heads, small.num_tokens,
-                   small.embed_dim // small.num_heads, f32, dev, "single",
-                   "simt", timed=False)
+    # The f32 small preset's serving tick (16 slots x 2 heads, S = 80, dh
+    # 48): tf32x3, timed beside the simt design it replaced.
+    single["f32"] = attention_case(
+        SERVE_SLOTS * small.num_heads, small.num_tokens,
+        small.embed_dim // small.num_heads, f32, dev, "single", "tf32x3",
+        timed=True)
     flash = attention_case(3, 1088, 64, bf16, dev, "flash", "mma", timed=True)
-    attention_case(3, 1088, 64, f32, dev, "flash", "simt", timed=False)
-    attention_case(2, 777, 32, f32, dev, "flash", "simt", timed=False)
+    attention_case(3, 1088, 64, f32, dev, "flash", "tf32x3", timed=False)
+    attention_case(2, 777, 32, f32, dev, "flash", "tf32x3", timed=False)
+    # The dry run's 20 tokens (entry.py): its f32 train step (batch 4 x 3
+    # heads, dh 64) and its serving tick (dh 16).
+    attention_case(12, 20, 64, f32, dev, "single", "tf32x3", timed=False)
+    attention_case(8, 20, 16, f32, dev, "single", "tf32x3", timed=False)
     attention_case(2, 1001, 128, bf16, dev, "flash", "mma", timed=False)
     attention_case(5, 33, 128, bf16, dev, "single", "mma", timed=False)
     attention_case(40, 1088, 64, bf16, dev, "flash", "mma", timed=False)  # one warpgroup
@@ -773,8 +807,13 @@ def attention_phase(dev, cfg, small):
             ("flash", "mma", 128, 2, 2, 1088, 64, 2),
             ("flash", "mma", 64, 3, 1, 1088, 32, 2),
             ("single", "simt", 0, 0, 1, 320, 64, 2),
-            ("flash", "simt", 0, 0, 1, 1088, 64, 4)):
-        want = lib.attention_smem(route == "single", variant == "mma", kb, st,
+            ("flash", "simt", 0, 0, 1, 1088, 64, 4),
+            ("single", "tf32x3", 64, 0, 1, 80, 48, 4),
+            ("single", "tf32x3", 64, 0, 1, 128, 64, 4),
+            ("flash", "tf32x3", 64, 2, 1, 320, 64, 4),
+            ("flash", "tf32x3", 64, 2, 1, 1088, 128, 4)):
+        want = lib.attention_smem(route == "single",
+                                  attention._VARIANT_CODES[variant], kb, st,
                                   wg, s, dh, eb)
         if attention.smem_bytes(route, variant, s, dh, eb, kb, st, wg) != want:
             raise AssertionError(f"smem_bytes{(route, variant, kb, st, wg, s, dh)}"
@@ -3597,7 +3636,7 @@ def train_jit_phase(dev, card: str) -> dict:
     shape = (TRAIN_BATCH * cfg.num_heads, cfg.num_tokens,
              cfg.embed_dim // cfg.num_heads)
     res["kernel4"] = attention_case(
-        *shape, torch.float32, dev, "flash", "simt", timed=True,
+        *shape, torch.float32, dev, "flash", "tf32x3", timed=True,
         lib_shape=(TRAIN_BATCH, cfg.num_heads) + shape[1:])
     res["kernel4"]["replay_device_us"] = res["step"]["compiled"]["kernel_us"]
     res["kernel4"]["launches_per_step"] = cfg.depth
@@ -4469,6 +4508,7 @@ def main() -> int:
         "padded_head_dims_max_abs_err": padded,
         "multihead_ms": att_single["multihead"]["ms"],
         "multihead_copied_ms": att_single["multihead"]["copied_ms"],
+        "f32": {k: att_single["f32"][k] for k in F32_KEYS},
     }, {
         "name": "attention_flash",
         "route": "cuda",
@@ -4494,7 +4534,8 @@ def main() -> int:
             "route", "variant", "max_abs_err", "ms", "launch_ms",
             "device_us", "replay_device_us", "plain_ms", "library_ms",
             "library_device_us", "bound_ms", "bound_by",
-            "launches_per_step")},
+            "launches_per_step", "simt_ms", "simt_device_us")},
+        "f32": {k: trained["kernel4"][k] for k in F32_KEYS},
         "variant": att_flash["variant"],
         "max_abs_err": att_flash["max_abs_err"],
         "ms": att_flash["ms"],

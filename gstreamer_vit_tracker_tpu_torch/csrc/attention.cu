@@ -1,5 +1,5 @@
 // Softmax attention softmax(q k^T dh^-1/2) v for NVIDIA Hopper, sm_90a: two
-// kernels, each in two variants, behind one entry
+// kernels, each in three variants, behind one entry
 // (ops/attention.py::multihead_attention and ::flash_attention).
 //
 // They replace the two TPU kernels of gstreamer_vit_tracker_tpu/ops/attention.py:
@@ -43,11 +43,33 @@
 // products and softmax running one after the other inside a warpgroup, and
 // the launch.
 //
-// Variant "simt" (float32, and bf16 head dims the tiles do not take): f32 FMA
-// products without TF32, q widened and scaled first as the TPU kernels do.  A
-// CTA has W warps of R query rows each; K is held transposed in shared memory
-// at an odd word stride, V as is, the f32 scores of the CTA's rows too (16
-// warps x 4 rows for single, 8 x 4 and 128-key blocks for flash).
+// Variant "tf32x3" (float32, every head dim; tile code in
+// attention_tf32.cuh): the TPU kernels' function to float32's accuracy on the
+// tensor cores.  Bound at the training shape (48, 320, 64) f32: the 1.258
+// GFLOP take 18.8 us at the 67 TFLOP/s of f32 FMA, and 7.6 us as three TF32
+// products a product (3.77 GFLOP at 495 TFLOP/s); q, k, v, out once are 15.7
+// MB, 4.7 us at 3.35 TB/s: bound by the split products.  One TF32 product
+// keeps 11 bits and misses the 1e-5 the kernels are held to, so every operand
+// is split into hi + lo TF32 parts as its fragment is loaded and each product
+// is lo.hi + hi.lo + hi.hi on mma.sync m16n8k8 into an f32 accumulator.  A
+// CTA is one warpgroup of 64 query rows (the "mma" geometry); K and V come in
+// as float32 by 16-byte cp.async into rows padded by 4 floats (no bank
+// conflicts in the fragment loads), a ring of two 64-key blocks for flash,
+// every block at once for single; the softmax is online over key blocks in
+// the score accumulator (dh^-1/2 . log2(e) folded into one multiply of the
+// f32 scores), and p goes into P.V from registers, split there: no score
+// touches shared memory.  It replaced the SIMT design below for float32: at
+// the training shape on an H100 at 700 W, 30.5 us against 102.4 for the SIMT
+// design and 49.5 for scaled_dot_product_attention (chip_smoke.py, PERF.md).
+// By instruction count about half of a warp's work is splitting the K and V
+// blocks, which each of the four warps does again for its own rows.
+//
+// Variant "simt" (bf16 head dims the tiles do not take; the float32 design
+// before "tf32x3", kept as the yardstick of the timings): f32 FMA products
+// without TF32, q widened and scaled first as the TPU kernels do.  A CTA has
+// W warps of R query rows each; K is held transposed in shared memory at an
+// odd word stride, V as is, the f32 scores of the CTA's rows too (16 warps x 4
+// rows for single, 8 x 4 and 128-key blocks for flash).
 //
 // Which (dtype, dh) takes which variant, and which lengths take which kernel,
 // is decided by ops/attention.py::plan before the launch; the entries here
@@ -62,6 +84,7 @@
 #include <cstddef>
 
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -533,6 +556,97 @@ attention_flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// Variant "tf32x3" (float32): CTA = one warpgroup = (64 query rows, batch,
+// head).  Shared memory: the Q tile, then K blocks, then V blocks, each a
+// tile of 64 keys in rows of DH + 4 floats (attention_tf32.cuh).
+// ---------------------------------------------------------------------------
+
+// All ceil(S / 64) key blocks at once: one group of copies, one wait, one
+// barrier, then each warp runs alone.
+template <int DH>
+__global__ void __launch_bounds__(tf32x3::kThreads)
+attention_single_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ out, Strides st,
+                             int S, int heads, int tiles, float c) {
+  namespace tf = tf32x3;
+  constexpr int kLd = tf::row_floats(DH);
+  extern __shared__ __align__(16) float tile_mem[];
+  const int blocks = (S + tf::kKeys - 1) / tf::kKeys;
+  float* q_tile = tile_mem;                              // [64][kLd]
+  float* k_tiles = q_tile + tf::kRows * kLd;             // [blocks * 64][kLd]
+  float* v_tiles = k_tiles + blocks * tf::kKeys * kLd;   // [blocks * 64][kLd]
+
+  const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * tf::kRows;
+  const int b = bh / heads, h = bh - b * heads;
+  tf::fill<DH>(mma::smem_addr(q_tile), q + b * st.q[0] + h * st.q[1], st.q[2], q0, tf::kRows, S);
+  tf::fill<DH>(mma::smem_addr(k_tiles), k + b * st.k[0] + h * st.k[1], st.k[2], 0,
+               blocks * tf::kKeys, S);
+  tf::fill<DH>(mma::smem_addr(v_tiles), v + b * st.v[0] + h * st.v[1], st.v[2], 0,
+               blocks * tf::kKeys, S);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  const int row0 = q0 + 16 * (threadIdx.x >> 5);
+  if (row0 >= S) return;                       // a warp with no row (last tile)
+  const float* qw = q_tile + (row0 - q0) * kLd;
+  tf::Softmax<DH> sm;
+  sm.init();
+  sm.load_q(qw);
+  for (int j = 0; j < blocks; ++j)
+    sm.step(qw, k_tiles + j * tf::kKeys * kLd, v_tiles + j * tf::kKeys * kLd, j * tf::kKeys, S,
+            c);
+  sm.store(out + b * st.o[0] + h * st.o[1], st.o[2], row0, S);
+}
+
+// A ring of two stages of one K block and one V block: the copy of block
+// j + 1 is in flight while block j is computed.  One barrier a block: it
+// publishes block j and frees the slot of block j - 1.
+template <int DH>
+__global__ void __launch_bounds__(tf32x3::kThreads)
+attention_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ out, Strides st,
+                            int S, int heads, int tiles, float c) {
+  namespace tf = tf32x3;
+  constexpr int kLd = tf::row_floats(DH), kSlot = tf::kKeys * kLd;
+  extern __shared__ __align__(16) float tile_mem[];
+  const int blocks = (S + tf::kKeys - 1) / tf::kKeys;
+  float* q_tile = tile_mem;                              // [64][kLd]
+  float* k_tiles = q_tile + tf::kRows * kLd;             // [2 * 64][kLd]
+  float* v_tiles = k_tiles + 2 * kSlot;                  // [2 * 64][kLd]
+
+  const int bh = blockIdx.x / tiles, q0 = (blockIdx.x - bh * tiles) * tf::kRows;
+  const int b = bh / heads, h = bh - b * heads;
+  k += b * st.k[0] + h * st.k[1];
+  v += b * st.v[0] + h * st.v[1];
+  const auto fill_block = [&](int j) {         // block j into slot j % 2
+    const int slot = (j & 1) * kSlot;
+    tf::fill<DH>(mma::smem_addr(k_tiles + slot), k, st.k[2], j * tf::kKeys, tf::kKeys, S);
+    tf::fill<DH>(mma::smem_addr(v_tiles + slot), v, st.v[2], j * tf::kKeys, tf::kKeys, S);
+  };
+  tf::fill<DH>(mma::smem_addr(q_tile), q + b * st.q[0] + h * st.q[1], st.q[2], q0, tf::kRows, S);
+  fill_block(0);
+  mma::cp_async_commit();
+
+  const int row0 = q0 + 16 * (threadIdx.x >> 5);
+  const bool has_rows = row0 < S;              // uniform over the warp
+  const float* qw = q_tile + (row0 - q0) * kLd;
+  tf::Softmax<DH> sm;
+  sm.init();
+  for (int j = 0; j < blocks; ++j) {
+    mma::cp_async_wait<0>();                   // block j (and Q) has landed
+    __syncthreads();
+    if (j + 1 < blocks) fill_block(j + 1);
+    mma::cp_async_commit();
+    if (!has_rows) continue;
+    if (j == 0) sm.load_q(qw);
+    const int slot = (j & 1) * kSlot;
+    sm.step(qw, k_tiles + slot, v_tiles + slot, j * tf::kKeys, S, c);
+  }
+  if (has_rows) sm.store(out + b * st.o[0] + h * st.o[1], st.o[2], row0, S);
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
@@ -646,6 +760,46 @@ cudaError_t launch_mma_dh(bool single, int kb, int stages, int warpgroups, const
   return cudaErrorInvalidValue;
 }
 
+// Dynamic shared memory of one "tf32x3" CTA that holds `keys` keys.
+size_t tf32_smem_bytes(int keys, int dh) {
+  return tf32x3::tile_bytes(tf32x3::kRows + 2 * keys, dh);
+}
+
+template <typename K>
+cudaError_t launch_tf32(K kernel, int (&allowed)[kMaxDevices], const Args& a, int keys) {
+  const size_t smem = tf32_smem_bytes(keys, a.dh);
+  const int tiles = (a.S + tf32x3::kRows - 1) / tf32x3::kRows;
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  kernel<<<tiles * a.batch * a.heads, tf32x3::kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.st, a.S, a.heads, tiles,
+      1.4426950408889634f / sqrtf((float)a.scale_dh));
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_single_tf32(const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  return launch_tf32(attention_single_tf32_kernel<DH>, allowed, a, round_up(a.S, tf32x3::kKeys));
+}
+
+template <int DH>
+cudaError_t launch_flash_tf32(const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  return launch_tf32(attention_flash_tf32_kernel<DH>, allowed, a, 2 * tf32x3::kKeys);
+}
+
+// Every head dim that is a multiple of 8 up to 128 is built.
+template <int DH = 8>
+cudaError_t launch_tf32_dh(bool single, const Args& a) {
+  if constexpr (DH > kMaxHeadDim) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (a.dh != DH) return launch_tf32_dh<DH + 8>(single, a);
+    return single ? launch_single_tf32<DH>(a) : launch_flash_tf32<DH>(a);
+  }
+}
+
 cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups, int dtype,
                    const Args& a) {
   if (a.batch < 1 || a.heads < 1 || a.S < 1 || a.dh < 8 || a.dh % 8 || a.dh > kMaxHeadDim
@@ -657,6 +811,11 @@ cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups,
     if (a.dh == 64) return launch_mma_dh<64>(single, kb, stages, warpgroups, a);
     if (a.dh == 128) return launch_mma_dh<128>(single, kb, stages, warpgroups, a);
     return cudaErrorInvalidValue;
+  }
+  if (variant == 2) {
+    if (dtype != 0 || kb != tf32x3::kKeys || stages != (single ? 0 : 2) || warpgroups != 1)
+      return cudaErrorInvalidValue;
+    return launch_tf32_dh(single, a);
   }
   if (variant != 0) return cudaErrorInvalidValue;
   for (const long long row : {a.st.q[2], a.st.k[2], a.st.v[2], a.st.o[2]})
@@ -687,7 +846,8 @@ Args make_args(int batch, int heads, int seq, int dh, int scale_dh, const void* 
 
 // variant: 0 = "simt", 1 = "mma" (bf16, dh 32 / 64 / 128; kb = keys a block,
 // 64 or 128; (stages, warpgroups) = (2, 1), (2, 2) or (3, 1) of the flash
-// kernel's ring, (0, 1) for the single kernel).  dtype: 0 =
+// kernel's ring, (0, 1) for the single kernel), 2 = "tf32x3" (float32; kb 64,
+// (stages, warpgroups) = (2, 1) for flash, (0, 1) for single).  dtype: 0 =
 // float32, 1 = bfloat16.  q, k, v, out: (batch, heads, seq, dh) on the current
 // device through `strides` = element strides (batch, head, row) of q, k, v,
 // out, twelve values in host memory; dh contiguous and a multiple of 8 up to
@@ -719,9 +879,11 @@ extern "C" int attention_flash_forward(int variant, int kb, int stages, int warp
 // the blocked one.
 extern "C" long long attention_smem(int single, int variant, int kb, int stages, int warpgroups,
                                     int seq, int head_dim, int elem_bytes) {
-  if (variant == 1)
-    return (long long)mma_smem_bytes(single ? round_up(seq, kb) : stages * warpgroups * kb,
-                                     head_dim);
+  if (variant == 1 || variant == 2) {
+    const int keys = single ? round_up(seq, kb) : stages * warpgroups * kb;
+    return (long long)(variant == 1 ? mma_smem_bytes(keys, head_dim)
+                                    : tf32_smem_bytes(keys, head_dim));
+  }
   return single ? (long long)smem_bytes(kSingleW * kSingleR, seq, head_dim, elem_bytes)
                 : (long long)smem_bytes(kFlashW * kFlashR, kKb, head_dim, elem_bytes);
 }

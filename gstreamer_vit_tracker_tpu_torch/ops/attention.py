@@ -17,17 +17,23 @@ where the qkv product left them and write (B, S, D) directly:
 :func:`multihead_attention` hands them strided views, no per-head copy is
 made, and a block of the encoder is one launch here.
 
-Each kernel has two variants, chosen by :func:`plan` from (dtype, head dim)
-before the launch:
+Each kernel has three variants, chosen by :func:`plan` from (dtype, head
+dim) before the launch:
 
 * ``"mma"``: bfloat16 with head dim 32, 64 or 128.  Both products on the
   tensor cores (``wgmma``), K and V in shared memory as they lie, the softmax
   online over key blocks in the accumulator registers, p rounded to bf16 for
   the second product.  Every serving path takes it.
-* ``"simt"``: float32 (f32 FMA, no TF32: the training step), and bf16 head
-  dims the tiles do not take.
+* ``"tf32x3"``: float32, every head dim (the training step, the ``small``
+  preset).  Both products on the tensor cores (``mma.sync``) to float32's
+  accuracy: each operand split into two TF32 parts, three products a
+  product; the softmax online in the accumulator registers as in ``"mma"``.
+* ``"simt"``: bf16 head dims the tiles do not take (f32 FMA products, no
+  tensor cores).  It was the float32 variant before ``"tf32x3"`` and stays
+  reachable through ``prepared(..., chosen=Plan(route, "simt"))`` as the
+  yardstick of the timings.
 
-A head dim from 1 to 128 that neither variant takes (not a multiple of 8) is
+A head dim from 1 to 128 that no variant takes (not a multiple of 8) is
 zero-padded: q, k and v are copied into contiguous buffers whose head dim is
 the next of 32 / 64 / 128 for bf16 (so that ``"mma"`` runs) or the next
 multiple of 8 for float32, the kernel runs with the softmax scale of the
@@ -36,11 +42,11 @@ back.  Zeros add exactly to an f32 sum, so the arithmetic is the kernel's
 own.
 
 and by length: ``attention_single`` while K and V of all S keys fit the shared
-memory of an SM twice over (``"mma"``: 384 keys at head dim 64 on the H100)
-or once (``"simt"``, which holds the f32 scores there too),
-``attention_flash`` beyond.  No result depends on the rule.  It is a rule,
-not a fallback: a CUDA tensor launches the chosen kernel or raises.  A head
-dim above 128 raises (a tile's shared memory and registers hold 128);
+memory of an SM twice over (``"mma"``: 384 keys at head dim 64 on the H100;
+``"tf32x3"``: 128) or once (``"simt"``, which holds the f32 scores there
+too), ``attention_flash`` beyond.  No result depends on the rule.  It is a
+rule, not a fallback: a CUDA tensor launches the chosen kernel or raises.
+A head dim above 128 raises (a tile's shared memory and registers hold 128);
 operands whose last dimension is not contiguous, or whose bases or strides
 are not multiples of 16 bytes, are copied into contiguous ones first and
 then launched.
@@ -73,11 +79,12 @@ SINGLE_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANT_CODES = {"simt": 0, "mma": 1}
+_VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
 _MAX_HEAD_DIM = 128
 _MMA_HEAD_DIMS = (32, 64, 128)
 # Geometry of the CTAs, as csrc/attention.cu has it.
 _MMA_ROWS, _MMA_ALIGN = 64, 1024
+_TF32_ROWS, _TF32_KEYS, _TF32_ROW_PAD = 64, 64, 4
 _SIMT_ROWS = {"single": 64, "flash": 32}
 _SIMT_KEY_BLOCK = 128
 
@@ -85,9 +92,9 @@ _SIMT_KEY_BLOCK = 128
 class Plan(NamedTuple):
     """What :func:`flash_attention` launches for one (S, dh, dtype)."""
     route: str            # "single" or "flash"
-    variant: str          # "mma" or "simt"
-    kb: int = 0           # keys a block ("mma")
-    stages: int = 0       # stages of the ring ("mma" flash)
+    variant: str          # "mma", "tf32x3" or "simt"
+    kb: int = 0           # keys a block ("mma", "tf32x3")
+    stages: int = 0       # stages of the ring ("mma", "tf32x3" flash)
     warpgroups: int = 1   # warpgroups that split a stage's keys ("mma" flash)
     pad: int = 0          # head dim q, k, v are zero-padded to (0: none)
 
@@ -115,10 +122,12 @@ def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
                kb: int = 0, stages: int = 0, warpgroups: int = 1) -> int:
     """Dynamic shared memory of one CTA, as ``csrc/attention.cu`` lays it
     out (``attention_smem`` there returns the same number)."""
-    if variant == "mma":
+    if variant in ("mma", "tf32x3"):
         keys = (-(-s // kb) * kb if route == "single"
                 else stages * warpgroups * kb)
-        return _MMA_ALIGN + (_MMA_ROWS + 2 * keys) * dh * 2
+        if variant == "mma":
+            return _MMA_ALIGN + (_MMA_ROWS + 2 * keys) * dh * 2
+        return (_TF32_ROWS + 2 * keys) * (dh + _TF32_ROW_PAD) * 4
     rows = _SIMT_ROWS[route]
     keys = s if route == "single" else _SIMT_KEY_BLOCK
     words = ((keys + 2) * elem_bytes + 3) // 4       # transposed K: odd words
@@ -130,8 +139,8 @@ def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
 def padded_head_dim(dh: int, dtype: torch.dtype) -> int:
     """The head dim q, k and v are zero-padded to, 0 if a variant takes
     ``dh`` as it is (a multiple of 8); bf16 pads to the next of 32 / 64 /
-    128 (``"mma"``), float32 to the next multiple of 8 (``"simt"``).  Above
-    128 it raises ``ValueError``."""
+    128 (``"mma"``), float32 to the next multiple of 8 (``"tf32x3"``).
+    Above 128 it raises ``ValueError``."""
     if dh < 1 or dh > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} must be 1 to {_MAX_HEAD_DIM}")
     if dh % 8 == 0:
@@ -155,11 +164,13 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     (:func:`padded_head_dim`) and the plan of the padded one; above 128 it
     raises ``ValueError``.
 
-    Variant: ``"mma"`` for bf16 at the head dims the tiles take, ``"simt"``
-    else.  Kernel: ``"mma"`` takes ``"single"`` while two CTAs that hold all
-    S keys fit one SM (one CTA's copies then fly while the other computes;
-    measured, a lone CTA that first waits for 600 keys loses to the ring),
-    ``"simt"`` while one fits; ``"flash"`` beyond.  ``bh`` (batch x heads)
+    Variant: ``"tf32x3"`` for float32, ``"mma"`` for bf16 at the head dims
+    the tiles take, ``"simt"`` for other bf16 head dims.  Kernel:
+    ``"mma"`` and ``"tf32x3"`` take ``"single"`` while two CTAs that hold
+    all S keys fit one SM (one CTA's copies then fly while the other
+    computes; measured, a lone CTA that first waits for 600 keys loses to
+    the ring), ``"simt"`` while one fits; ``"flash"`` beyond, ``"tf32x3"``
+    with a ring of two 64-key blocks.  ``bh`` (batch x heads)
     and the card's ``sms`` only shape the ``"mma"`` ring: while the 64-row
     tiles are fewer than the SMs, two warpgroups a CTA split the keys of
     128-key blocks; a grid that fills the card takes 64-key blocks, one
@@ -167,15 +178,19 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     pad = padded_head_dim(dh, dtype)
     if pad:
         return plan(s, pad, dtype, optin_bytes, bh, sms)._replace(pad=pad)
-    eb = 2 if dtype == torch.bfloat16 else 4
-    if dtype == torch.bfloat16 and dh in _MMA_HEAD_DIMS:
-        if smem_bytes("single", "mma", s, dh, eb, kb=64) <= optin_bytes // 2:
+    if dtype == torch.float32:
+        if smem_bytes("single", "tf32x3", s, dh, 4,
+                      kb=_TF32_KEYS) <= optin_bytes // 2:
+            return Plan("single", "tf32x3", kb=_TF32_KEYS)
+        return Plan("flash", "tf32x3", kb=_TF32_KEYS, stages=2)
+    if dh in _MMA_HEAD_DIMS:
+        if smem_bytes("single", "mma", s, dh, 2, kb=64) <= optin_bytes // 2:
             return Plan("single", "mma", kb=64)
         if -(-s // _MMA_ROWS) * bh > sms:
             return Plan("flash", "mma", kb=64, stages=2, warpgroups=1)
         return Plan("flash", "mma", kb=128 if dh <= 64 else 64, stages=2,
                     warpgroups=2)
-    if smem_bytes("single", "simt", s, dh, eb) <= optin_bytes:
+    if smem_bytes("single", "simt", s, dh, 2) <= optin_bytes:
         return Plan("single", "simt")
     return Plan("flash", "simt")
 
@@ -262,7 +277,8 @@ def kernel_route(q: torch.Tensor, num_heads: int = 1) -> str:
 
 
 def kernel_variant(q: torch.Tensor, num_heads: int = 1) -> str:
-    """Which variant of that kernel: ``"mma"`` or ``"simt"``."""
+    """Which variant of that kernel: ``"mma"``, ``"tf32x3"`` or
+    ``"simt"``."""
     return _plan_for(q.device, q.shape[1], q.shape[2] // num_heads, q.dtype,
                      q.shape[0] * num_heads).variant
 

@@ -10,7 +10,8 @@ configuration of ``csrc/attention.cu`` that fits the card's shared memory
 through ``ops/attention.py::prepared`` (one launch on ready operands): the
 ``mma`` variant of ``attention_single`` with 64- and 128-key blocks, of
 ``attention_flash`` with 64- and 128-key blocks, 2 stages and 1 or 2
-warpgroups or 3 stages and 1, and the ``simt`` variant of both kernels.  It
+warpgroups or 3 stages and 1, the ``tf32x3`` variant of both kernels
+(float32 cases), and the ``simt`` variant of both kernels.  It
 checks each against ``attention_reference`` and prints the device time of a
 launch in microseconds (20 launches captured into a CUDA graph and replayed,
 so the host's enqueue time is not read as the kernel's) beside
@@ -33,11 +34,13 @@ CASES = ((48, 320, 64, torch.bfloat16), (3, 320, 64, torch.bfloat16),
          (3, 1088, 64, torch.bfloat16), (48, 1088, 64, torch.bfloat16),
          (3, 600, 64, torch.bfloat16), (48, 600, 64, torch.bfloat16),
          (4, 777, 128, torch.bfloat16), (48, 320, 32, torch.bfloat16),
-         (48, 320, 64, torch.float32), (3, 1088, 64, torch.float32))
+         (48, 320, 64, torch.float32), (3, 1088, 64, torch.float32),
+         (32, 80, 48, torch.float32))
 P = attention.Plan
 CONFIGS = ([P("single", "mma", 64), P("single", "mma", 128)]
            + [P("flash", "mma", kb, stages, wg) for kb in (64, 128)
               for stages, wg in ((2, 1), (2, 2), (3, 1))]
+           + [P("single", "tf32x3", 64), P("flash", "tf32x3", 64, 2)]
            + [P("single", "simt"), P("flash", "simt")])
 GRAPH_LAUNCHES = 20
 
@@ -86,8 +89,9 @@ def main() -> None:
         taken = attention._plan_for(dev, s, dh, dtype, bh)
         cells = []
         for p in CONFIGS:
-            mma_ok = dtype == torch.bfloat16 and dh in (32, 64, 128)
-            if (p.variant == "mma" and not mma_ok) or attention.smem_bytes(
+            takes = {"mma": dtype == torch.bfloat16 and dh in (32, 64, 128),
+                     "tf32x3": dtype == torch.float32}.get(p.variant, True)
+            if not takes or attention.smem_bytes(
                     p.route, p.variant, s, dh, q.element_size(), p.kb,
                     p.stages, p.warpgroups) > optin:
                 continue

@@ -32,6 +32,7 @@ from typing import Dict
 # NVIDIA H100 SXM, dense rates without sparsity, at a 700 W power limit.
 H100_BF16_FLOPS = 989e12      # bf16 / fp16 on the tensor cores
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12      # TF32 on the tensor cores
 H100_HBM_BYTES_S = 3.35e12    # HBM3 bandwidth
 
 

@@ -10,9 +10,12 @@ Same inputs on both sides, made with numpy from a seed.
 
 Also what a CPU run can say of the CUDA kernels: the rule that picks kernel
 and variant (``plan``, a pure function) at the H100's shared-memory size,
-the shared-memory formula it is decided on, an emulation of the ``mma``
-variant's arithmetic (key blocks, scale after the product, p rounded to
-bf16) against JAX's kernels and, in the flagship's served tick, against
+the shared-memory formula it is decided on, an emulation of the ``tf32x3``
+variant's arithmetic (float32 operands split into two TF32 parts, three
+products a product, key blocks, the scale after the product) against JAX's
+kernels and reference, an emulation of the ``mma`` variant's arithmetic
+(key blocks, scale after the product, p rounded to bf16) against JAX's
+kernels and, in the flagship's served tick, against
 JAX's ``multi.update_streams`` (maps 0.05, the same peak cell, confidence
 0.02, boxes 2 px), and ``multihead_attention`` on strided views.
 
@@ -184,7 +187,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("s,dh,dtype,route,variant", [
     (320, 64, BF16, "single", "mma"),      # the serving shape
     (1088, 64, BF16, "flash", "mma"),      # the long-sequence shape
-    (320, 64, F32, "flash", "simt"),       # the training step
+    (320, 64, F32, "flash", "tf32x3"),     # the training step
     (33, 8, BF16, "single", "simt"),       # a head dim the tiles do not take
     (384, 64, BF16, "single", "mma"),      # the last length that fits twice
     (448, 64, BF16, "flash", "mma"),
@@ -193,9 +196,9 @@ BF16, F32 = torch.bfloat16, torch.float32
     (1200, 32, BF16, "flash", "mma"),
     (777, 128, BF16, "flash", "mma"),
     (80, 48, BF16, "single", "simt"),
-    (80, 48, F32, "single", "simt"),
-    (128, 64, F32, "single", "simt"),
-    (4099, 8, F32, "flash", "simt"),
+    (80, 48, F32, "single", "tf32x3"),     # the small preset's serving tick
+    (128, 64, F32, "single", "tf32x3"),    # the last length that fits twice
+    (4099, 8, F32, "flash", "tf32x3"),
     (4099, 8, BF16, "flash", "simt"),
 ])
 def test_plan_route_and_variant(s, dh, dtype, route, variant):
@@ -207,6 +210,9 @@ def test_plan_route_and_variant(s, dh, dtype, route, variant):
                             got.warpgroups) <= H100_OPTIN
     if variant == "simt":
         assert (got.kb, got.stages, got.warpgroups) == (0, 0, 1)
+    elif variant == "tf32x3":
+        assert (got.kb, got.stages, got.warpgroups) == (
+            64, 2 if route == "flash" else 0, 1)
     elif route == "single":
         assert (got.kb, got.stages, got.warpgroups) == (64, 0, 1)
 
@@ -237,9 +243,29 @@ def test_plan_shapes_the_ring_by_the_grid(s, dh, bh, kb, warpgroups):
      + 64 * 64 * 4 + 64 * 320 * 4),
     (("flash", "simt", 5000, 64, 4), 64 * 131 * 4 + 128 * 64 * 4
      + 32 * 64 * 4 + 32 * 128 * 4),
+    # The f32 Q tile and K and V of every 64-key block, rows of dh + 4 floats.
+    (("single", "tf32x3", 80, 48, 4, 64), (64 + 2 * 128) * 52 * 4),
+    (("single", "tf32x3", 128, 64, 4, 64), (64 + 2 * 128) * 68 * 4),
+    (("single", "tf32x3", 1, 8, 4, 64), (64 + 2 * 64) * 12 * 4),
+    # ... and a ring of two 64-key blocks, whatever the length.
+    (("flash", "tf32x3", 320, 64, 4, 64, 2, 1), (64 + 2 * 128) * 68 * 4),
+    (("flash", "tf32x3", 99999, 128, 4, 64, 2, 1), (64 + 2 * 128) * 132 * 4),
 ])
 def test_smem_bytes(args, want):
     assert tattn.smem_bytes(*args) == want
+
+
+def test_plan_gives_float32_tf32x3_at_every_head_dim():
+    # Every float32 head dim from 1 to 128 and length takes tf32x3 (padded
+    # to a multiple of 8 where it is not one), and what it launches fits.
+    for dh in range(1, 129):
+        pad = -(-dh // 8) * 8
+        for s in (1, 20, 80, 320, 1088):
+            got = tattn.plan(s, dh, F32, H100_OPTIN, bh=48)
+            assert got.variant == "tf32x3"
+            assert got.pad == (0 if pad == dh else pad)
+            assert tattn.smem_bytes(got.route, got.variant, s, pad, 4, got.kb,
+                                    got.stages, got.warpgroups) <= H100_OPTIN
 
 
 def test_plan_takes_single_only_while_two_ctas_fit_an_sm():
@@ -250,6 +276,10 @@ def test_plan_takes_single_only_while_two_ctas_fit_an_sm():
     simt = [s for s in range(64, 1025, 64)
             if tattn.plan(s, 48, BF16, H100_OPTIN).route == "single"]
     assert simt and max(simt) < 512
+    # tf32x3 holds float32 rows: two CTAs an SM hold 128 keys at head dim 64.
+    f32 = [s for s in range(64, 1025, 64)
+           if tattn.plan(s, 64, F32, H100_OPTIN).route == "single"]
+    assert f32 == [64, 128]
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +333,118 @@ def test_mma_arithmetic_large_values():
     plain = tattn.attention_reference(tq, tk, tv).float()
     got = _emulate_mma(tq, tk, tv, 128).float()
     assert (got - plain).abs().max() <= 2.0 ** -7 * plain.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The tf32x3 variant's arithmetic (float32), emulated
+# ---------------------------------------------------------------------------
+
+ATT_F32_ATOL = 1e-5      # what chip_smoke.py holds the float32 kernels to
+
+
+@pytest.fixture
+def one_thread():
+    """The emulations are many small products: one intra-op thread, which
+    runs them as fast alone and does not crawl beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the int32 view: what cvt.rna.tf32.f32 gives."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """x as hi + lo, both TF32: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_products(a, b, acc, three=True):
+    """acc + a @ b as the kernel takes it: 8 columns of a (rows of b) at a
+    time, each as lo.hi, hi.lo, then hi.hi into the f32 accumulator; with
+    ``three=False`` hi.hi alone (one TF32 product)."""
+    for c in range(0, a.shape[-1], 8):
+        ah, al = _split(a[..., c:c + 8])
+        bh, bl = _split(b[..., c:c + 8, :])
+        if three:
+            acc = acc + al @ bh
+            acc = acc + ah @ bl
+        acc = acc + ah @ bh
+    return acc
+
+
+def _emulate_tf32x3(q, k, v, kb=64, three=True):
+    """What the tf32x3 kernels compute for float32 q, k, v of shape (B, S,
+    dh): split-TF32 scores, online softmax over blocks of ``kb`` keys with
+    dh^-1/2 . log2(e) applied to the f32 scores, p split for P.V, one
+    division of o by l."""
+    b, s, dh = q.shape
+    c = torch.tensor(dh ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    m = torch.full((b, s, 1), float("-inf"))
+    l = torch.zeros((b, s, 1))
+    o = torch.zeros((b, s, dh))
+    for k0 in range(0, s, kb):
+        kj, vj = k[:, k0:k0 + kb], v[:, k0:k0 + kb]
+        sc = _tf32_products(q, kj.transpose(1, 2),
+                            torch.zeros((b, s, kj.shape[1])), three)
+        m_new = torch.maximum(m, sc.max(-1, keepdim=True).values)
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(sc * c - m_new * c)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = _tf32_products(p, vj, o * alpha, three)
+        m = m_new
+    return o / l
+
+
+@pytest.mark.parametrize("b,s,d,v_scale", [
+    (3, 320, 64, 1.0),     # the training step's shape, three heads of it
+    (2, 80, 48, 1.0),      # the small preset's serving tick
+    (1, 777, 32, 1.0),     # a ragged last block
+    (1, 33, 128, 1.0),     # one block, the head-dim class Q is reloaded in
+    (1, 320, 64, 100.0)])  # v x 100: a leaking tail would show at once
+def test_tf32x3_arithmetic_matches_jax(one_thread, b, s, d, v_scale):
+    q, k, v = _qkv(b, s, d, seed=8, v_scale=v_scale)
+    got = _emulate_tf32x3(*map(torch.from_numpy, (q, k, v))).numpy()
+    assert np.isfinite(got).all()
+    tol = 2e-5 * v_scale   # the file's float32 tolerance, at v's scale
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for ref in (jattn.flash_attention(jq, jk, jv, interpret=True),
+                jattn.attention_reference(jq, jk, jv),
+                tattn.attention_reference(*map(torch.from_numpy, (q, k, v)))):
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=tol)
+
+
+def test_tf32x3_needs_the_split(one_thread):
+    # One TF32 product (hi alone) misses the 1e-5 the float32 kernels are
+    # held to on the card; the three products keep it: the tolerance tells
+    # the two designs apart.
+    q, k, v = map(torch.from_numpy, _qkv(3, 320, 64, seed=9))
+    plain = tattn.attention_reference(q, k, v)
+    three = (_emulate_tf32x3(q, k, v) - plain).abs().max().item()
+    one = (_emulate_tf32x3(q, k, v, three=False) - plain).abs().max().item()
+    assert three <= ATT_F32_ATOL < one, (three, one)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    # The int32-view rounding: 11 significant bits, half an ulp rounds away
+    # from zero, and hi + lo holds x to 2^-22 of it.
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, -(1 + ulp / 2),
+                      1 + ulp / 2 - 2.0 ** -23, 3.0 + 2.0 ** -20])
+    want = torch.tensor([1.0, 1 + ulp, -(1 + ulp), 1.0, 3.0])
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(10).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = _split(r)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    assert ((hi.double() + lo.double() - r.double()).abs()
+            <= 2.0 ** -22 * r.double().abs()).all()
 
 
 def _emulated_multihead(q, k, v, num_heads, use_kernel=None):

@@ -280,9 +280,9 @@ def _check_attention(got, ref, dtype):
 
 
 # (batch*heads, S, dh, the kernel flash_attention takes in float32, in bf16):
-# float32 (the simt variant) holds K, V and the f32 scores in shared memory,
-# bf16 at head dim 32, 64 or 128 (the mma variant) K and V alone, twice an
-# SM, so the serving shape is whole-sequence in bf16 and blocked in float32.
+# float32 (the tf32x3 variant) holds K and V of all keys as float32 rows
+# twice an SM, bf16 at head dim 32, 64 or 128 (the mma variant) as bf16, so
+# the serving shape is whole-sequence in bf16 and blocked in float32.
 ATTENTION_SHAPES = [
     (48, 320, 64, "flash", "single"), (2, 128, 64, "single", "single"),
     (3, 200, 32, "single", "single"), (4, 80, 48, "single", "single"),
@@ -299,7 +299,8 @@ def test_attention_kernels_match_reference(dev, dtype, bh, s, dh, route32,
     q, k, v = _qkv(bh, s, dh, dtype, dev)
     assert attention.kernel_route(q) == route
     assert attention.kernel_variant(q) == (
-        "mma" if dtype == torch.bfloat16 and dh in (32, 64, 128) else "simt")
+        "tf32x3" if dtype == torch.float32
+        else "mma" if dh in (32, 64, 128) else "simt")
     before = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
     got = attention.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -337,10 +338,31 @@ def test_attention_both_variants_match_reference(dev, bh, s, dh):
         _check_attention(got, ref, torch.bfloat16)
 
 
+@pytest.mark.parametrize("bh,s,dh", [c[:3] for c in ATTENTION_SHAPES])
+def test_attention_f32_variants_match_reference(dev, bh, s, dh):
+    # float32 takes tf32x3; the simt design it replaced stays reachable by
+    # name.  Every configuration of both that fits computes the function to
+    # 1e-5.
+    q, k, v = _qkv(bh, s, dh, torch.float32, dev)
+    ref = attention.attention_reference(q, k, v)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    plans = [attention.Plan("single", "tf32x3", 64),
+             attention.Plan("flash", "tf32x3", 64, 2),
+             attention.Plan("single", "simt"), attention.Plan("flash", "simt")]
+    plans = [p for p in plans if attention.smem_bytes(
+        p.route, p.variant, s, dh, 4, p.kb, p.stages, p.warpgroups) <= optin]
+    assert attention.Plan("flash", "tf32x3", 64, 2) in plans
+    for p in plans:
+        got = attention._launch(q, k, v, 1, p)
+        torch.cuda.synchronize()
+        _check_attention(got, ref, torch.float32)
+
+
 def test_kernel_variant_follows_dtype_and_head_dim(dev):
     for dh, dtype, want in ((64, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"),
                             (128, torch.bfloat16, "mma"), (48, torch.bfloat16, "simt"),
-                            (8, torch.bfloat16, "simt"), (64, torch.float32, "simt")):
+                            (8, torch.bfloat16, "simt"), (64, torch.float32, "tf32x3"),
+                            (48, torch.float32, "tf32x3")):
         q = torch.zeros((2, 40, 3 * dh), device=dev, dtype=dtype)
         assert attention.kernel_variant(q, num_heads=3) == want
         assert attention.kernel_variant(q[..., :dh]) == want
@@ -703,7 +725,7 @@ def test_attention_padded_head_dims_match_reference(dev, dtype, dh):
     q, k, v = _qkv(6, 77, dh, dtype, dev, v_scale=3.0)
     chosen = attention.kernel_variant(q)
     if dh % 8:
-        assert chosen == ("mma" if dtype == torch.bfloat16 else "simt")
+        assert chosen == ("mma" if dtype == torch.bfloat16 else "tf32x3")
     before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
     got = attention.flash_attention(q, k, v)
     assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before + 1

@@ -496,14 +496,14 @@ def test_encode_passes_masters_and_keeps_the_cpu_path():
 def test_attention_plan_refuses_odd_head_dims(s, dh, dtype):
     # Above 128 no kernel takes a head dim: it raises.  Below, one that is
     # no multiple of 8 is padded: float32 to the next multiple of 8
-    # (simt), bf16 to 32 (mma); the kernel runs at the padded dim with the
+    # (tf32x3), bf16 to 32 (mma); the kernel runs at the padded dim with the
     # true one's scale.
     if dh > 128:
         with pytest.raises(ValueError, match="head dim"):
             tattn.plan(s, dh, dtype, H100_OPTIN)
         return
     got = tattn.plan(s, dh, dtype, H100_OPTIN)
-    pad, variant = {F32: (16, "simt"), BF16: (32, "mma")}[dtype]
+    pad, variant = {F32: (16, "tf32x3"), BF16: (32, "mma")}[dtype]
     assert got.pad == pad and got.variant == variant
     assert got._replace(pad=0) == tattn.plan(s, pad, dtype, H100_OPTIN)
     assert tattn.entry_head_dims(dh, got) == (pad, dh)
