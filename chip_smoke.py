@@ -18,7 +18,11 @@ Phases, in order; any failure raises and exits non-zero:
      ``ops/vit_block.py::encoder_reference``, timed through the wrapper, on
      ready operands and by CUDA-graph replay; after the model's final LN,
      against ``float64_chain`` on 16 search crops of the main-path clip; at
-     the f32 ``small`` shape (``simt``);
+     the f32 ``small`` shape (``tf32x3``); in float32 (``tf32x3``) at the
+     flagship (the shipped weights cast, 12 blocks, the real tokens) and at
+     ``small`` (4 blocks), each held to the twin at ``F32_ATOL`` and timed
+     the same ways beside ``simt`` by name (its max|d| too), the library
+     with TF32 off, and three bounds (f32 FMA, split TF32, bytes);
    * the two attention kernels through ``ops/attention.py::flash_attention``
      (its choice of kernel and variant is printed and asserted):
      ``attention_single`` at the serving shape (48, 320, 64) bf16 (``mma``)
@@ -45,12 +49,15 @@ Phases, in order; any failure raises and exits non-zero:
      computes it);
    * head dims no kernel takes as they are, zero-padded: attention at 4,
      12, 48 and 96 in bf16 and float32, the encoder and block kernels at D
-     192 with dh 48 and 96 (bf16) and 24 (float32), against the plain twins
-     at the tolerances of the phases above;
+     192 with dh 48 and 96 (bf16) and 24 and 12 (float32, ``tf32x3``: 24
+     as it is, 12 padded to 16), against the plain twins at the tolerances
+     of the phases above;
    * the one-block kernel (``ops/vit_block.py::block``) at (1, 320, 192) and
      (16, 320, 192) bf16 (``mma``, timed as the encoder is) and the
      ``small`` float32 shape against ``block_reference`` (which must launch
-     nothing), its gradients against the twin's, and its path: the
+     nothing), in float32 (``tf32x3``) at (16, 320, 192) and (16, 80, 96)
+     timed as kernel 1's float32 cases are, its gradients against the
+     twin's, and its path: the
      flagship's 12 blocks chained through ``models/vit.py::_block(fused=True)``
      at B=16 (``mma``), forward and under a gradient;
 4. unbatched path: ``entry()`` on the flagship, ``init`` on a 1080p NV12
@@ -59,7 +66,10 @@ Phases, in order; any failure raises and exits non-zero:
    every one of them ``mma``; the first steps run free against the same
    steps run by the port on the CPU, and beside that each of them again on
    the card from the CPU's state before it; the f32 ``small`` preset
-   against the CPU over the whole clip;
+   against the CPU over the whole clip, then compiled (``small_jit``:
+   ``update_packed_jit``, what the app's ``--model small`` runs, 30 steps
+   each from the CPU's state, kernel 1 ``tf32x3`` once a step inside the
+   replays, the device ms a step);
    then the same clip through ``update_packed(fused_prep=True)`` (every
    step beside the plain-route step from the same state and the first
    steps beside the port's CPU run; launches of the fused kernel = steps),
@@ -92,7 +102,9 @@ Phases, in order; any failure raises and exits non-zero:
       TRACKING and kernel 1 launched once per update the app made (its
       auto-init update and one a frame); the same argv with ``--cpu`` for 20
       frames: the first 3 rows free-running within 2 px / 0.02, the card's
-      mean IoU with the drawn boxes at most 0.05 below the CPU's;
+      mean IoU with the drawn boxes at most 0.05 below the CPU's; then
+      ``--model small`` for 30 frames: kernel 1 launched once an update, all
+      ``tf32x3``;
    b. corr-tiny, the default argv (rgb 640x512, 60 frames), on the card and
       with ``--cpu`` on the same seeded weights: every row's state equal,
       the first rows within 1e-2 px / 1e-4; and every one of the 60 steps
@@ -126,8 +138,9 @@ Phases, in order; any failure raises and exits non-zero:
       mean / min IoU, mean confidence, updates/s; the first 20 frames of
       each sequence on the CPU: the first 3 free-running and all 20 from
       the CPU's state within 2 px / 0.02; ``--objects 2`` (30 frames):
-      attention kernel 3 launched 12 times a batched update; a 20-frame
-      eval of the checkpoint just trained;
+      attention kernel 3 launched 12 times a batched update; ``--preset
+      small`` for 20 frames: kernel 1 once an update, all ``tf32x3``; a
+      20-frame eval of the checkpoint just trained;
    c. the GFLOP of one flagship 1080p NV12 update (``utils/flops.py``) and
       its MFU at phase 4's median step time against the H100's dense bf16
       peak;
@@ -441,6 +454,27 @@ GRAPH_LAUNCHES = 20
 TIMED_KEYS = ("variant", "max_abs_err", "ms", "ms_again", "launch_ms",
               "device_us", "device_us_again", "plain_ms", "library_ms",
               "library_device_us", "bound_ms", "bound_by")
+# ... and of a float32 case, with simt beside it and the three bounds.
+TIMED_F32_KEYS = TIMED_KEYS + ("simt_max_abs_err", "simt_launch_ms",
+                               "simt_device_us", "bound_fma_ms",
+                               "bound_split_tf32_ms")
+
+
+def only(variant: str, n: int) -> dict:
+    """``vit_block.VARIANT_LAUNCHES`` as it reads when ``variant`` was
+    launched ``n`` times and no other variant was (every key of the dict,
+    whichever variants the checkout has)."""
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    return {v: n if v == variant else 0 for v in vit_block.VARIANT_LAUNCHES}
+
+
+def zero_variants() -> None:
+    """Every variant's launch count set to 0."""
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    vit_block.VARIANT_LAUNCHES.update(
+        dict.fromkeys(vit_block.VARIANT_LAUNCHES, 0))
 
 
 def graph_us(launch, n: int = GRAPH_LAUNCHES) -> float:
@@ -481,60 +515,262 @@ def check_kernel(what: str, got, twin, dtype) -> float:
 
 
 def timed_kernel(what, x, blocks, heads, stacked, wrapper) -> dict:
-    """Kernel 1 (``stacked``) or kernel 2 on bf16 (x, blocks): the wrapper,
-    which must launch ``mma`` once, held to the plain twin; then, in turns,
-    the time through the wrapper, of one launch on ready operands, of the
-    plain twin and of the library yardstick (CUDA events), the kernel's and
-    the library's device time a launch (CUDA-graph replay), and the
-    bound."""
+    """Kernel 1 (``stacked``) or kernel 2 on (x, blocks): the wrapper,
+    which must launch the plan's variant once (bf16 ``mma``, float32
+    ``tf32x3``), held to the plain twin; then, in turns, the time through
+    the wrapper, of one launch on ready operands, of the plain twin and of
+    the library yardstick (CUDA events), the kernel's and the library's
+    device time a launch (CUDA-graph replay), and the bound.  In float32
+    also ``simt``, the design ``tf32x3`` replaced, by name (its max|d| and
+    its times the same way), the library with TF32 off, and three bounds:
+    the products as f32 FMA, as three TF32 products a product (the bound
+    of ``tf32x3``, whose operations these are), and the bytes."""
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
+    f32 = x.dtype == torch.float32
+    hidden = blocks[0]["mlp1"]["kernel"].shape[1]
+    variant = vit_block._plan_for(x, heads, hidden).variant
     flat = [blk[m][f] for blk in blocks for m, f in vit_block._FIELDS]
     weights = (vit_block._stack(flat, len(blocks)) if stacked
                else [t.contiguous() for t in flat])
     twin = vit_block.encoder_reference(x, blocks, heads)
     before = dict(vit_block.VARIANT_LAUNCHES)
     got = wrapper()
-    if vit_block.VARIANT_LAUNCHES != dict(before, mma=before["mma"] + 1):
-        raise AssertionError(f"{what}: the wrapper did not launch mma once")
-    res = {"variant": "mma",
-           "max_abs_err": check_kernel(f"{what} mma", got, twin, x.dtype)}
+    if vit_block.VARIANT_LAUNCHES != dict(before,
+                                          **{variant: before[variant] + 1}):
+        raise AssertionError(f"{what}: the wrapper did not launch {variant} "
+                             f"once")
+    res = {"variant": variant, "max_abs_err": check_kernel(
+        f"{what} {variant}", got, twin, x.dtype)}
     out_m, launch = vit_block.prepared(x, weights, heads, stacked)
     launch()
     torch.cuda.synchronize()
     if not torch.equal(out_m, got):
         raise AssertionError(f"{what}: prepared() and the wrapper differ")
+    simt = f32 and variant != "simt"
+    if simt:
+        out_s, launch_simt = vit_block.prepared(
+            x, weights, heads, stacked, chosen=vit_block.Plan("simt"))
+        launch_simt()
+        res["simt_max_abs_err"] = check_kernel(f"{what} simt (by name)",
+                                               out_s, twin, x.dtype)
 
     def library():
         return library_encoder(x, blocks, heads)
 
+    if f32 and (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("float32 timings need TF32 off")
     res["ms"] = cuda_ms(wrapper)
     res["launch_ms"] = cuda_ms(launch)
+    if simt:
+        res["simt_launch_ms"] = cuda_ms(launch_simt)
     res["plain_ms"] = cuda_ms(lambda: vit_block.encoder_reference(
         x, blocks, heads), iters=20, warmup=3)
     res["library_ms"] = cuda_ms(library)
     res["ms_again"] = cuda_ms(wrapper)
     res["device_us"] = graph_us(launch)
+    if simt:
+        res["simt_device_us"] = graph_us(launch_simt)
     res["device_us_again"] = graph_us(launch)
     res["library_device_us"] = graph_us(library)
     flops, nbytes = encoder_cost(x, blocks, heads)
-    t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+    bound_note = ""
+    if f32:
+        t_fma = flops / H100_F32_FLOPS * 1e3
+        t_split = 3 * flops / H100_TF32_FLOPS * 1e3
+        res["bound_fma_ms"] = max(t_fma, t_bytes)
+        res["bound_split_tf32_ms"] = max(t_split, t_bytes)
+        t_ops = t_fma if variant == "simt" else t_split
+        bound_note = (f"; f32 FMA {t_fma * 1e3:.2f} us, split TF32 (3 x "
+                      f"{flops / 1e9:.4f} GFLOP at "
+                      f"{H100_TF32_FLOPS / 1e12:.0f} TFLOP/s) "
+                      f"{t_split * 1e3:.2f} us")
+    else:
+        t_ops = flops / H100_BF16_FLOPS * 1e3
     res["bound_ms"] = max(t_ops, t_bytes)
     res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    simt_note = (f", simt {res['simt_launch_ms']:.4f}" if simt else "")
+    simt_dev = (f", simt {res['simt_device_us']:.2f}" if simt else "")
+    lib_name = ("matmul + scaled_dot_product_attention, TF32 off" if f32
+                else "matmul + scaled_dot_product_attention")
     print(f"{what} ms (CUDA events, mean of {TIMING_ITERS}): through the "
           f"wrapper {res['ms']:.4f} / {res['ms_again']:.4f} (before / after "
-          f"the others), one launch on ready operands mma "
-          f"{res['launch_ms']:.4f}, plain "
-          f"{res['plain_ms']:.4f}, library (matmul + "
-          f"scaled_dot_product_attention) {res['library_ms']:.4f}; device us "
-          f"a launch (CUDA graph of {GRAPH_LAUNCHES}): mma "
-          f"{res['device_us']:.2f} / {res['device_us_again']:.2f}, library "
+          f"the others), one launch on ready operands {variant} "
+          f"{res['launch_ms']:.4f}{simt_note}, plain "
+          f"{res['plain_ms']:.4f}, library ({lib_name}) "
+          f"{res['library_ms']:.4f}; device us a launch (CUDA graph of "
+          f"{GRAPH_LAUNCHES}): {variant} {res['device_us']:.2f} / "
+          f"{res['device_us_again']:.2f}{simt_dev}, library "
           f"{res['library_device_us']:.2f}; bound "
           f"{res['bound_ms'] * 1e3:.2f} us by {res['bound_by']} "
-          f"({flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.2f} us, "
-          f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us)", flush=True)
+          f"({flops / 1e9:.4f} GFLOP -> {t_ops * 1e3:.2f} us, "
+          f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us{bound_note}) "
+          f"| {card_line()}", flush=True)
     return res
+
+
+def f32_cases(dev, cfg, params, x, small, sparams):
+    """The float32 cases of kernels 1 and 2 that ``timed_kernel`` times:
+    (what, x, blocks, heads, stacked) for kernel 1 at the flagship (the
+    shipped weights cast to float32, 12 blocks, the real tokens ``x``) and
+    at the ``small`` preset (its shipped float32 weights, 4 blocks, seeded
+    tokens), and for kernel 2 at batch 16 on block 5 of the flagship and
+    block 1 of ``small`` (seeded tokens)."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    fblocks = [vit.cast_params(bp, f32) for bp in params["backbone"]["blocks"]]
+    sblocks = [vit.cast_params(bp, f32) for bp in sparams["backbone"]["blocks"]]
+    xs = torch.randn((1, small.num_tokens, small.embed_dim),
+                     generator=gen).to(dev)
+    heads, sheads = cfg.num_heads, small.num_heads
+    xb = (2.0 * torch.randn((SERVE_SLOTS,) + tuple(x.shape[1:]),
+                            generator=gen)).to(dev)
+    xsb = (2.0 * torch.randn((SERVE_SLOTS, small.num_tokens, small.embed_dim),
+                             generator=gen)).to(dev)
+    return {
+        "encoder_flagship": (f"encoder {tuple(x.shape)} f32", x.float(),
+                             fblocks, heads, True),
+        "encoder_small": (f"encoder small {tuple(xs.shape)} f32", xs, sblocks,
+                          sheads, True),
+        "block_flagship": (f"block {tuple(xb.shape)} f32", xb, [fblocks[5]],
+                           heads, False),
+        "block_small": (f"block small {tuple(xsb.shape)} f32", xsb,
+                        [sblocks[1]], sheads, False)}
+
+
+def timed_f32(case) -> dict:
+    """``timed_kernel`` on one of :func:`f32_cases` through its wrapper
+    (``encoder`` or ``block``)."""
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    what, x, blocks, heads, stacked = case
+    if stacked:
+        def wrapper():
+            return vit_block.encoder(x, blocks, heads)
+    else:
+        def wrapper():
+            return vit_block.block(x, blocks[0], heads)
+    return timed_kernel(what, x, blocks, heads, stacked, wrapper)
+
+
+def entry_tokens(dev):
+    """``entry()`` on the flagship and its encoder input: (the entry's
+    step function, params, (state, frame), x (1, 320, 192) bf16, the
+    template and search tokens of the entry frame)."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.entry import entry
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    cfg = PRESETS["vittrack-t"]
+    fn, (params, state, frame) = entry(device=dev)
+    window = pp.crop_window(state.bbox, cfg.search_factor)
+    x_img = core._prep_nv12(frame, window, cfg.search_size, cfg)
+    x_tok = vit.embed_search(params["backbone"], x_img[None], cfg)
+    x = torch.cat([state.z_tok[None], x_tok], dim=1).contiguous()
+    return fn, params, (state, frame), x
+
+
+SMALL_JIT_STEPS = 30
+SMALL_BOX_TOL, SMALL_SCORE_TOL = 1e-2, 1e-4   # as phase 4's eager small run
+
+
+def small_jit(dev, card: str) -> dict:
+    """The ``small`` preset's single-object path compiled, what the app's
+    ``--model small`` runs: ``core.update_packed_jit`` on its shipped
+    (float32) weights over the main path's 1080p NV12 clip, SMALL_JIT_STEPS
+    steps, each on the card from the state the port's CPU run had before
+    it (as phase 8's corr-tiny check) and held to the CPU's step; kernel 1
+    launched once a step (the replays' launches counted), every launch the
+    plan's variant, nothing else; then the device busy ms a step of the
+    compiled step run free (``torch.profiler``)."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    cfg, cpu = PRESETS["small"], torch.device("cpu")
+    path = weights.checkpoint_path("small")
+    params = vittrack.with_grouped_head(weights.load_npz(path, cfg, device=dev))
+    cparams = vittrack.with_grouped_head(weights.load_npz(path, cfg,
+                                                          device=cpu))
+    variant = vit_block.plan(1, cfg.num_tokens, cfg.embed_dim, cfg.num_heads,
+                             int(cfg.embed_dim * cfg.mlp_ratio), torch.float32,
+                             attention.card(dev)[1]).variant
+    frames, boxes = nv12_clip(SMALL_JIT_STEPS + 1)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    cst = core.init(cparams, frames[0], boxes[0], cfg, "nv12", cpu)
+    zero_counts()
+    worst_box = worst_score = 0.0
+    for i in range(SMALL_JIT_STEPS):
+        held = type(cst)(*(t.to(dev) for t in cst))
+        _, gout = core.update_packed_jit(params, held, clip[i + 1], cfg,
+                                         "nv12", dev)
+        cst, cout = core.update_packed(cparams, cst, frames[i + 1], cfg,
+                                       "nv12", cpu)
+        gout, cout = gout.cpu().numpy(), cout.numpy()
+        if not np.isfinite(gout).all():
+            raise AssertionError("small compiled step: non-finite output")
+        worst_box = max(worst_box, float(np.abs(gout[:4] - cout[:4]).max()))
+        worst_score = max(worst_score, float(abs(gout[4] - cout[4])))
+    counts = read_counts()
+    by_variant = dict(vit_block.VARIANT_LAUNCHES)
+    st = [core.init_jit(params, clip[0], boxes[0], cfg, "nv12", dev)]
+
+    def step():
+        st[0], _ = core.update_packed_jit(params, st[0], clip[1], cfg, "nv12",
+                                          dev)
+
+    t = traced_ms(step, JIT_TIMED, 1)
+    print(f"small compiled (update_packed_jit, float32, 1080p NV12): "
+          f"{SMALL_JIT_STEPS} steps each from the CPU's state: max|d bbox| "
+          f"{worst_box:.3e} px, max|d score| {worst_score:.3e} (tolerance "
+          f"{SMALL_BOX_TOL} px, {SMALL_SCORE_TOL}); launches {counts} "
+          f"({by_variant}); run free: device busy ms a step (torch.profiler) "
+          f"{t['device_ms']:.4f}, host wall {t['host_ms']:.4f}, activities "
+          f"{t['activities']:.1f}, idle share {t['idle_share']:.3f} | {card}",
+          flush=True)
+    if counts != dict(counts, vit_encoder=SMALL_JIT_STEPS, vit_block=0,
+                      attention_single=0, attention_flash=0,
+                      fused_prep_embed=0) \
+            or by_variant != only(variant, SMALL_JIT_STEPS):
+        raise AssertionError(f"small compiled: launches {counts} "
+                             f"{by_variant}, expected kernel 1 ({variant}) "
+                             f"once a step")
+    if worst_box > SMALL_BOX_TOL or worst_score > SMALL_SCORE_TOL:
+        raise AssertionError("small compiled step disagrees with the CPU")
+    return {"steps": SMALL_JIT_STEPS, "variant": variant, "launches": counts,
+            "launches_by_variant": by_variant, "max_d_bbox_px": worst_box,
+            "max_d_score": worst_score, **t}
+
+
+def f32_alone() -> dict:
+    """The four float32 cases of :func:`f32_cases`, timed, and
+    :func:`small_jit`, on card 0 and nothing else: what the design in a
+    checkout reads at these shapes.  Run from the root of a checkout:
+    ``python -c "import chip_smoke as c; c.f32_alone()"``."""
+    from gstreamer_vit_tracker_tpu_torch import device
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+
+    dev = torch.device("cuda", 0)
+    device.true_float32(dev)
+    cfg, small = PRESETS["vittrack-t"], PRESETS["small"]
+    sparams = weights.load_npz(weights.checkpoint_path("small"), small,
+                               device=dev)
+    _, params, _, x = entry_tokens(dev)
+    card = card_line()
+    print(f"f32 cases alone | {card}", flush=True)
+    got = {k: timed_f32(c) for k, c in
+           f32_cases(dev, cfg, params, x, small, sparams).items()}
+    got["small_jit"] = small_jit(dev, card)
+    print(json.dumps(got), flush=True)
+    return got
 
 
 def final_ln_check(cfg, params, blocks, crops, x_entry) -> dict:
@@ -587,9 +823,11 @@ def final_ln_check(cfg, params, blocks, crops, x_entry) -> dict:
     return res
 
 
-def encoder_phase(dev, cfg, params, x, blocks, crops, small, sparams) -> dict:
+def encoder_phase(dev, cfg, params, x, blocks, crops, small, sparams,
+                  cases) -> dict:
     """Kernel 1 at the flagship shape on real tokens, timed; the final-LN
-    yardstick; the f32 small preset (simt)."""
+    yardstick; the f32 small preset (tf32x3); the two float32 cases of
+    kernel 1 in ``cases`` (:func:`f32_cases`), timed beside simt."""
     from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
 
     before = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
@@ -606,14 +844,16 @@ def encoder_phase(dev, cfg, params, x, blocks, crops, small, sparams) -> dict:
     gen = torch.Generator(device="cpu").manual_seed(0)
     xs = torch.randn((1, small.num_tokens, small.embed_dim),
                      generator=gen).to(dev)
-    n0 = vit_block.VARIANT_LAUNCHES["simt"]
+    n0 = vit_block.VARIANT_LAUNCHES["tf32x3"]
     res["max_abs_err_f32_small"] = check_kernel(
         f"encoder small f32 (S={small.num_tokens}, D={small.embed_dim})",
         vit_block.encoder(xs, sblocks, small.num_heads),
         vit_block.encoder_reference(xs, sblocks, small.num_heads),
         torch.float32)
-    if vit_block.VARIANT_LAUNCHES["simt"] != n0 + 1:
-        raise AssertionError("the f32 small preset must take simt")
+    if vit_block.VARIANT_LAUNCHES["tf32x3"] != n0 + 1:
+        raise AssertionError("the f32 small preset must take tf32x3")
+    res["f32"] = {"flagship": timed_f32(cases["encoder_flagship"]),
+                  "small": timed_f32(cases["encoder_small"])}
     return res
 
 
@@ -1209,7 +1449,7 @@ def long_unbatched_phase(dev, cfg) -> dict:
                       frame_format="nv12")
     torch.cuda.synchronize()
     vit_block.LAUNCHES = 0
-    vit_block.VARIANT_LAUNCHES.update(mma=0, simt=0)
+    zero_variants()
     rows, before = [], []
     for i in range(CPU_CHECK_STEPS):
         before.append(state)
@@ -1219,7 +1459,7 @@ def long_unbatched_phase(dev, cfg) -> dict:
     torch.cuda.synchronize()
     by_variant = dict(vit_block.VARIANT_LAUNCHES)
     if vit_block.LAUNCHES != CPU_CHECK_STEPS \
-            or by_variant != {"mma": CPU_CHECK_STEPS, "simt": 0}:
+            or by_variant != only("mma", CPU_CHECK_STEPS):
         raise AssertionError(f"long unbatched path: encoder launches "
                              f"{vit_block.LAUNCHES} ({by_variant}) in "
                              f"{CPU_CHECK_STEPS} steps")
@@ -1420,11 +1660,13 @@ def padded_heads_phase(dev) -> dict:
     """Attention at head dims 4, 12, 48 and 96 (3 heads of a (2, 320, 3 dh)
     qkv buffer's chunks) in bf16 and float32, and the encoder and block
     kernels at D 192 in bf16 with 4 heads (dh 48) and 2 heads (dh 96) and in
-    float32 with 8 heads (dh 24), each against its plain twin at the
-    tolerances above.  A head dim no variant takes as it is runs
+    float32 with 8 heads (dh 24, which ``tf32x3`` takes as it is; ``simt``
+    padded it to 32 before) and 16 heads (dh 12), each against its plain twin
+    at the tolerances above.  A head dim no variant takes as it is runs
     zero-padded (bf16 attention: to 32 / 64 / 128 and ``mma``; float32: the
-    next multiple of 8; the encoder: ``mma`` 32 / 64 / 128, ``simt`` a
-    multiple of 16) with the true one's scale.  Returns max|d| by case."""
+    next multiple of 8; the encoder: ``mma`` 32 / 64 / 128, ``tf32x3`` the
+    next multiple of 8) with the true one's scale.  Returns max|d| by
+    case."""
     from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
 
     res = {}
@@ -1454,7 +1696,7 @@ def padded_heads_phase(dev) -> dict:
                                      f"disagrees with the plain version")
             res[f"attention_dh{dh}_{name}"] = err
     for dtype, heads in ((torch.bfloat16, 4), (torch.bfloat16, 2),
-                         (torch.float32, 8)):
+                         (torch.float32, 8), (torch.float32, 16)):
         name, d = str(dtype).split(".")[-1], 192
         gen = torch.Generator(device="cpu").manual_seed(heads)
 
@@ -1475,15 +1717,19 @@ def padded_heads_phase(dev) -> dict:
         one = vit_block.block(x, blocks[0], heads)
         if vit_block.VARIANT_LAUNCHES[chosen.variant] != before[chosen.variant] + 2:
             raise AssertionError("padded encoder / block did not launch once each")
-        what = f"head dim {d // heads} {name}, padded to {chosen.pad}"
+        what = (f"head dim {d // heads} {name}, {chosen.variant}, padded to "
+                f"{chosen.pad or 'none'}")
         res[f"encoder_dh{d // heads}_{name}"] = check_kernel(
             f"encoder kernel, 3 blocks, {what}", got,
             vit_block.encoder_reference(x, blocks, heads), dtype)
         res[f"block_dh{d // heads}_{name}"] = check_kernel(
             f"block kernel, {what}", one,
             vit_block.block_reference(x, blocks[0], heads), dtype)
-        if not chosen.pad:
-            raise AssertionError(f"the encoder plan did not pad {what}")
+        want = "mma" if dtype == torch.bfloat16 else "tf32x3"
+        if chosen.variant != want or chosen.pad != vit_block.head_pad(
+                want, d // heads) or (d // heads) % 8 and not chosen.pad:
+            raise AssertionError(f"the encoder plan for {what}: expected "
+                                 f"{want}, padded where it pads")
     return res
 
 
@@ -1491,7 +1737,7 @@ def padded_heads_phase(dev) -> dict:
 # Phase 3d: the one-block kernel and its path
 # ---------------------------------------------------------------------------
 
-def block_phase(dev, cfg, params, small, sparams, z_tok):
+def block_phase(dev, cfg, params, small, sparams, z_tok, cases):
     from gstreamer_vit_tracker_tpu_torch.models import vit
     from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
 
@@ -1535,6 +1781,8 @@ def block_phase(dev, cfg, params, small, sparams, z_tok):
                                   lambda: vit_block.block(x, blk, heads))
         else:
             res["max_abs_err_f32_small"] = err
+    res["f32"] = {"flagship": timed_f32(cases["block_flagship"]),
+                  "small": timed_f32(cases["block_small"])}
 
     # Gradients through block = gradients through block_reference (float32
     # masters, bf16 compute: the cast is outside the kernel).
@@ -1564,7 +1812,7 @@ def block_phase(dev, cfg, params, small, sparams, z_tok):
                    dim=1).contiguous()
     torch.cuda.synchronize()
     vit_block.BLOCK_LAUNCHES = 0
-    vit_block.VARIANT_LAUNCHES.update(mma=0, simt=0)
+    zero_variants()
     x = x0
     for bp in blocks:
         x = vit._block(x, bp, cfg.num_heads, fused=True)
@@ -1583,7 +1831,7 @@ def block_phase(dev, cfg, params, small, sparams, z_tok):
           f"the encoder kernel's bit for bit: {same}; gradient finite: "
           f"{bool(torch.isfinite(gx.float()).all())}", flush=True)
     if launches != 2 * len(blocks) or not same \
-            or by_variant != {"mma": 2 * len(blocks), "simt": 0} \
+            or by_variant != only("mma", 2 * len(blocks)) \
             or not torch.isfinite(gx.float()).all():
         raise AssertionError("block path: wrong launch count or output")
     res["launches"] = launches
@@ -1863,6 +2111,9 @@ APP_BASE = ["--headless", "--no-pace"]
 FLAGSHIP_ARGV = APP_BASE + ["--model", "vittrack-t", "--format", "nv12",
                             "--width", str(FRAME_W), "--height",
                             str(FRAME_H)]
+SMALL_APP_FRAMES = 30
+SMALL_ARGV = APP_BASE + ["--model", "small", "--format", "nv12", "--width",
+                         str(FRAME_W), "--height", str(FRAME_H)]
 SOAK_ARGV = APP_BASE + ["--model", "corr-tiny", "--width", "320", "--height",
                         "256", "--format", "nv12", "--inject-source-fault",
                         "40", "--inject-device-fault", "45"]
@@ -1874,7 +2125,7 @@ def zero_counts() -> None:
 
     torch.cuda.synchronize()
     vit_block.LAUNCHES = vit_block.BLOCK_LAUNCHES = 0
-    vit_block.VARIANT_LAUNCHES.update(mma=0, simt=0)
+    zero_variants()
     attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
     fpe.LAUNCHES = 0
 
@@ -2019,6 +2270,7 @@ def app_phase(dev, card: str) -> dict:
     from gstreamer_vit_tracker_tpu_torch.config import PRESETS
     from gstreamer_vit_tracker_tpu_torch.media.source import (FileSource,
                                                               SyntheticSource)
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2065,6 +2317,26 @@ def app_phase(dev, card: str) -> dict:
             raise AssertionError("app flagship: the card tracks worse")
         res["flagship"].update(iou_card=iou_card, iou_cpu=iou_cpu,
                                cpu_fps=crep.fps)
+
+        # -- a2. --model small: kernel 1 in float32 (tf32x3) an update ----
+        zero_counts()
+        srep, srows, _ = run_app("small-card", SMALL_ARGV + [
+            "--frames", str(SMALL_APP_FRAMES)], tmp, card)
+        counts, by_variant = read_counts(), dict(vit_block.VARIANT_LAUNCHES)
+        updates = 1 + SMALL_APP_FRAMES
+        print(f"app small: kernel launches {counts} ({by_variant}) for "
+              f"{updates} updates", flush=True)
+        if len(srows) != SMALL_APP_FRAMES \
+                or counts != dict(counts, vit_encoder=updates,
+                                  attention_single=0, attention_flash=0,
+                                  vit_block=0, fused_prep_embed=0) \
+                or by_variant != only("tf32x3", updates):
+            raise AssertionError(f"app small: launches {counts} "
+                                 f"{by_variant}, expected kernel 1 (tf32x3) "
+                                 f"x {updates} and nothing else")
+        res["small"] = {"launches": counts, "updates": updates,
+                        "launches_by_variant": by_variant, "fps": srep.fps,
+                        "track_ms_p50": srep.track_ms_p50}
 
         # -- b. corr-tiny, the default argv, card against CPU -------------
         default = APP_BASE + ["--frames", str(APP_FRAMES)]
@@ -2326,6 +2598,22 @@ def train_score_phase(dev, card: str, step_ms_median: float) -> dict:
                 launches=counts,
                 cpu=eval_against_cpu(dev, scenario, cfg, params, cparams))
 
+        # The small preset's eval (float32: kernel 1 as tf32x3 an update).
+        erep, counts = run_eval("small", [
+            "--preset", "small", "--world", "independent", "--seqs", "1",
+            "--frames", str(TRAINED_FRAMES)], tmp)
+        by_variant = dict(vit_block.VARIANT_LAUNCHES)
+        if counts != dict(counts, vit_encoder=erep.updates,
+                          attention_single=0, attention_flash=0,
+                          vit_block=0, fused_prep_embed=0) \
+                or by_variant != only("tf32x3", erep.updates):
+            raise AssertionError(f"eval --preset small: launches {counts} "
+                                 f"{by_variant}, expected kernel 1 (tf32x3) "
+                                 f"once an update")
+        res["small_eval"] = dict(erep.summary["scenarios"]["basic"],
+                                 updates=erep.updates, launches=counts,
+                                 launches_by_variant=by_variant)
+
         erep, counts = run_eval("objects-2", [
             "--preset", "vittrack-t", "--objects", "2", "--seqs", "1",
             "--frames", str(OBJECTS_FRAMES)], tmp)
@@ -2435,7 +2723,7 @@ def uhd_phase(dev, card: str, params, cfg, cparams) -> dict:
     if counts != dict(counts, vit_encoder=UHD_REPS, vit_block=0,
                       attention_single=0, attention_flash=0,
                       fused_prep_embed=0) \
-            or by_variant != {"mma": UHD_REPS, "simt": 0}:
+            or by_variant != only("mma", UHD_REPS):
         raise AssertionError(f"uhd: launches {counts} {by_variant}, expected "
                              f"kernel 1 (mma) once a frame")
     if not np.isfinite(scores).all() or not 0.0 < diff < 0.05:
@@ -4237,7 +4525,6 @@ def main() -> int:
         return 2
 
     from gstreamer_vit_tracker_tpu_torch.config import PRESETS
-    from gstreamer_vit_tracker_tpu_torch.entry import entry
     from gstreamer_vit_tracker_tpu_torch.models import vit, vittrack, weights
     from gstreamer_vit_tracker_tpu_torch.ops import (attention, cuda_build,
                                                      vit_block)
@@ -4265,11 +4552,7 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ---------------------------
     cfg = PRESETS["vittrack-t"]
-    fn, (params, state, frame) = entry(device=dev)
-    window = pp.crop_window(state.bbox, cfg.search_factor)
-    x_img = core._prep_nv12(frame, window, cfg.search_size, cfg)
-    x_tok = vit.embed_search(params["backbone"], x_img[None], cfg)
-    x = torch.cat([state.z_tok[None], x_tok], dim=1).contiguous()
+    fn, params, (state, frame), x = entry_tokens(dev)
     blocks = [vit.cast_params(bp, torch.bfloat16)
               for bp in params["backbone"]["blocks"]]
     assert x.shape == (1, 320, 192) and x.dtype == torch.bfloat16
@@ -4291,12 +4574,14 @@ def main() -> int:
         tok = vit.embed_search(params["backbone"], core._prep_nv12(
             clip[i], win, cfg.search_size, cfg)[None], cfg)
         crops.append(torch.cat([z0[None], tok], dim=1).contiguous())
-    enc = encoder_phase(dev, cfg, params, x, blocks, crops, small, sparams)
+    cases = f32_cases(dev, cfg, params, x, small, sparams)
+    enc = encoder_phase(dev, cfg, params, x, blocks, crops, small, sparams,
+                        cases)
 
     att_single, att_flash = attention_phase(dev, cfg, small)
     prep = prep_phase(dev, cfg, params)
     padded = padded_heads_phase(dev)
-    blk = block_phase(dev, cfg, params, small, sparams, state.z_tok)
+    blk = block_phase(dev, cfg, params, small, sparams, state.z_tok, cases)
 
     # -- 4. unbatched path -------------------------------------------------
     for _ in range(3):                                 # warm-up, uncounted
@@ -4307,7 +4592,7 @@ def main() -> int:
                       frame_format="nv12")
     torch.cuda.synchronize()
     vit_block.LAUNCHES = 0
-    vit_block.VARIANT_LAUNCHES.update(mma=0, simt=0)
+    zero_variants()
     attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(MAIN_STEPS)]
@@ -4327,7 +4612,7 @@ def main() -> int:
     packed = torch.stack(packed).cpu().numpy()
     if launches != MAIN_STEPS or attention.SINGLE_LAUNCHES \
             or attention.FLASH_LAUNCHES \
-            or by_variant != {"mma": MAIN_STEPS, "simt": 0}:
+            or by_variant != only("mma", MAIN_STEPS):
         raise AssertionError(f"encoder kernel launched {launches} times in "
                              f"{MAIN_STEPS} unbatched steps ({by_variant}; "
                              f"attention kernels {attention.SINGLE_LAUNCHES}, "
@@ -4393,8 +4678,9 @@ def main() -> int:
         worst_score = max(worst_score, abs(gout[4] - float(cout[4])))
     print(f"small f32, {MAIN_STEPS} steps card vs CPU: max|d bbox| "
           f"{worst_box:.2e} px, max|d score| {worst_score:.2e}")
-    if worst_box > 1e-2 or worst_score > 1e-4:
+    if worst_box > SMALL_BOX_TOL or worst_score > SMALL_SCORE_TOL:
         raise AssertionError("small f32 card trajectory disagrees with the CPU")
+    small_step = small_jit(dev, card)
 
     # The fused route, and the clip as RGB and as YUY2.
     fused = fused_route_phase(dev, cfg, params, cparams, frames, boxes, clip)
@@ -4461,6 +4747,16 @@ def main() -> int:
                               for k in ("step", "scan_pool", "hud_pool")},
         **{k: enc[k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": enc["max_abs_err_f32_small"],
+        "variants": list(vit_block.VARIANT_LAUNCHES),
+        "f32": {k: {kk: v[kk] for kk in TIMED_F32_KEYS}
+                for k, v in enc["f32"].items()},
+        "small_jit": {k: small_step[k] for k in (
+            "variant", "launches_by_variant", "steps", "max_d_bbox_px",
+            "max_d_score", "device_ms", "host_ms", "idle_share")},
+        "small_app": {k: app["small"][k] for k in (
+            "launches_by_variant", "updates")},
+        "small_eval": {k: scored["small_eval"][k] for k in (
+            "launches_by_variant", "updates")},
         "final_ln": enc["final_ln"],
         "long_unbatched": long_step,
         "step_ms_median": statistics.median(step_ms),
@@ -4559,6 +4855,8 @@ def main() -> int:
         **{k: blk[SERVE_SLOTS][k] for k in TIMED_KEYS},
         "max_abs_err_f32_small": blk["max_abs_err_f32_small"],
         "batch_1": {k: blk[1][k] for k in TIMED_KEYS},
+        "f32": {k: {kk: v[kk] for kk in TIMED_F32_KEYS}
+                for k, v in blk["f32"].items()},
     }, {
         "name": "fused_prep_embed",
         "route": "cuda",

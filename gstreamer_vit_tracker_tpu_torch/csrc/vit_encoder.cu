@@ -20,9 +20,11 @@
 // blocks in no order; the activation goes through device memory (and L2)
 // between launches instead.  One persistent launch with TMA is later work.
 //
-// Two variants, one for each dtype (ops/vit_block.py::plan names them and passes in
-// the N tiles as ints; the entries launch what they are told or return an
-// error; nothing falls back).  The head dim the kernels run at (head_dim) may
+// Three variants (ops/vit_block.py::plan names one and passes it in with the
+// N tiles as ints; the entries launch what they are told or return an
+// error; nothing falls back): "mma" for bf16, "tf32x3" for float32, and
+// "simt" for a float32 width "tf32x3" does not take (and by name, as the
+// yardstick of the timings).  The head dim the kernels run at (head_dim) may
 // exceed the true one, D / H: the plan zero-pads a head dim no variant takes
 // (the qkv weight and bias get zero columns a head, the proj weight zero rows
 // a head, so the inner width E = H . head_dim), and the scores are scaled by
@@ -34,9 +36,30 @@
 //   1. LN1 + qkv  2. attention  3. proj + residual  4. LN2 + mlp1 + GELU
 //   5. mlp2 + residual; each product's N tile (32 or 64) as the plan says.
 //
-// "simt" (float32, head dims that are multiples of 16 up to 128): seven
-// launches a block on the FMA units, f32 arithmetic (no TF32, so the f32
-// presets stay f32):
+// "tf32x3" (float32, head dims that are multiples of 8 up to 128, D up to
+// 512 and the MLP width multiples of 32): the same five launches a block, the
+// tiles of encoder_tf32.cuh: products on the tensor cores in split TF32
+// (mma.sync m16n8k8, each operand as hi + lo TF32 parts, lo.hi + hi.lo +
+// hi.hi into one f32 accumulator: float32's accuracy, not TF32's), the
+// weights split once per parameter set by the caller (two planes a kernel),
+// the activations split as their fragments are loaded; the LayerNorm in the
+// qkv and mlp1 prologue and bias / GELU / residual in the epilogue, in f32
+// with the twin's roundings; the attention of attention_tf32.cuh on the qkv
+// buffer's head slices (64-key blocks, online softmax); at batch 1 two
+// warpgroups a CTA, sharing a product's K or an attention tile's keys
+// (Config::warpgroups).  Bound at the
+// flagship (1, 320, 192) x 12 in float32: the 4.341 GFLOP as three TF32
+// products are 26.3 us at 495 TFLOP/s (64.8 us as f32 FMA); the f32
+// weights, x in and out, 21.8 MB, 6.5 us at 3.35 TB/s (the two planes
+// double the weights' share: 13 us): bound by operations.  mma.sync and not
+// wgmma: wgmma in TF32 takes both operands K-major from shared memory,
+// which the (K, N) weights and V are not as they lie (attention_tf32.cuh's
+// header); caching the weights transposed would allow it for the products,
+// and is left for later.
+//
+// "simt" (float32, head dims that are multiples of 16 up to 128; this
+// file's first design): seven launches a block on the FMA units, f32
+// arithmetic (no TF32, so the f32 presets stay f32):
 //   * layer_norm_kernel: one warp per row, the twin's roundings;
 //   * gemm_bias_kernel: 64x64x32 tiles, 4 warps; tiles move as 16-byte
 //     vectors, loaded into registers one k step ahead of the compute; the
@@ -62,6 +85,7 @@
 #include <type_traits>
 
 #include "encoder_mma.cuh"
+#include "encoder_tf32.cuh"
 
 namespace {
 
@@ -347,22 +371,33 @@ const T* layer(const void* p, int l, size_t per_layer) {
   return static_cast<const T*>(p) + (size_t)l * per_layer;
 }
 
-// Block l's weights; E is the inner width H . head_dim.
-Weights layer_weights(const Weights& w, int l, int D, int E, int hidden, int dtype) {
+enum Variant { kSimt = 0, kMma = 1, kTf32x3 = 2 };
+
+// Block l's weights; E is the inner width H . head_dim.  "tf32x3" takes each
+// kernel as two planes (hi, lo), so a block's kernel is twice as long.
+Weights layer_weights(const Weights& w, int l, int D, int E, int hidden, int dtype,
+                      int variant) {
   const size_t e = dtype == 1 ? sizeof(bf16) : sizeof(float);
+  const size_t planes = variant == kTf32x3 ? 2 : 1;
   const auto at = [&](const void* p, size_t n) {
     return static_cast<const void*>(static_cast<const char*>(p) + (size_t)l * n * e);
   };
-  return Weights{at(w.ln1_s, D), at(w.ln1_b, D), at(w.w_qkv, (size_t)D * 3 * E),
-                 at(w.b_qkv, 3 * E), at(w.w_proj, (size_t)E * D), at(w.b_proj, D),
-                 at(w.ln2_s, D), at(w.ln2_b, D), at(w.w_mlp1, (size_t)D * hidden),
-                 at(w.b_mlp1, hidden), at(w.w_mlp2, (size_t)hidden * D), at(w.b_mlp2, D)};
+  return Weights{at(w.ln1_s, D), at(w.ln1_b, D), at(w.w_qkv, planes * D * 3 * E),
+                 at(w.b_qkv, 3 * E), at(w.w_proj, planes * E * D), at(w.b_proj, D),
+                 at(w.ln2_s, D), at(w.ln2_b, D), at(w.w_mlp1, planes * D * hidden),
+                 at(w.b_mlp1, hidden), at(w.w_mlp2, planes * hidden * D), at(w.b_mlp2, D)};
 }
 
-// What ops/vit_block.py::plan decided for "mma": the N tile of the qkv, proj,
-// mlp1 and mlp2 products (32 or 64).  "simt" reads none of it.
+// What ops/vit_block.py::plan decided: the variant; for "mma" and "tf32x3"
+// the N tile of the qkv, proj, mlp1 and mlp2 products ("mma" 32 or 64,
+// "tf32x3" 16, 32 or 64); for "tf32x3" the warpgroups a CTA, 1 or 2 (2 at
+// batch 1): the attention's share a query tile's key blocks (head dims up
+// to 64), a product's of N tile 16 or 32 its K.  "simt" reads neither,
+// "mma" not the warpgroups.
 struct Config {
+  int variant;
   int bn[4];
+  int warpgroups;
 };
 
 constexpr int kMaxDevices = 64;
@@ -429,6 +464,68 @@ cudaError_t attention_mma_dh(int dh, const bf16* qkv, bf16* out, int B, int S, i
   }
 }
 
+template <int BN, int EPI, bool LN, int NWG>
+cudaError_t product_tf32_bn(const float* A, const float* W, const float* bias,
+                            const float* ln_s, const float* ln_b, float* C, int M, int N, int K,
+                            cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = encoder_tf32::product_kernel<BN, EPI, LN, NWG>;
+  const size_t smem = encoder_tf32::product_smem_bytes(BN, LN, K, NWG);
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  const dim3 grid((N + BN - 1) / BN, (M + encoder_tf32::kRows - 1) / encoder_tf32::kRows);
+  kernel<<<grid, encoder_tf32::kThreads * NWG, smem, st>>>(A, W, bias, ln_s, ln_b, C, M, N, K);
+  return cudaGetLastError();
+}
+
+// The N tiles built: 16 and 32, with K dealt to one or two warpgroups
+// (wgs), and 64 with one.
+template <int EPI, bool LN>
+cudaError_t product_tf32(int bn, int wgs, const float* A, const float* W, const float* bias,
+                         const float* ln_s, const float* ln_b, float* C, int M, int N, int K,
+                         cudaStream_t st) {
+  if (N % 8 || K % 8 || (LN && (K % encoder_tf32::kChunk || K > encoder_tf32::kMaxDim))
+      || (wgs != 1 && wgs != 2))
+    return cudaErrorInvalidValue;
+  if (bn == 16)
+    return wgs == 1 ? product_tf32_bn<16, EPI, LN, 1>(A, W, bias, ln_s, ln_b, C, M, N, K, st)
+                    : product_tf32_bn<16, EPI, LN, 2>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
+  if (bn == 32)
+    return wgs == 1 ? product_tf32_bn<32, EPI, LN, 1>(A, W, bias, ln_s, ln_b, C, M, N, K, st)
+                    : product_tf32_bn<32, EPI, LN, 2>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
+  if (bn == 64) return product_tf32_bn<64, EPI, LN, 1>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
+  return cudaErrorInvalidValue;
+}
+
+template <int DH, int NWG>
+cudaError_t attention_tf32(const float* qkv, float* out, int B, int S, int H, float c,
+                           cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = encoder_tf32::attention_kernel<DH, NWG>;
+  const size_t smem = encoder_tf32::attention_smem_bytes(DH, NWG);
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  const int tiles = (S + tf32x3::kRows - 1) / tf32x3::kRows;
+  kernel<<<tiles * B * H, tf32x3::kThreads * NWG, smem, st>>>(qkv, out, S, H, tiles, c);
+  return cudaGetLastError();
+}
+
+// Every head dim that is a multiple of 8 up to 128 is built with one
+// warpgroup, and up to encoder_tf32::kSplitMaxDh with two (the padded rule
+// of ops/vit_block.py::head_pad: another head dim runs at the next one).
+template <int DH = 8>
+cudaError_t attention_tf32_dh(int dh, int wgs, const float* qkv, float* out, int B, int S,
+                              int H, float c, cudaStream_t st) {
+  if constexpr (DH > kAttMaxDh) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (dh != DH) return attention_tf32_dh<DH + 8>(dh, wgs, qkv, out, B, S, H, c, st);
+    if (wgs == 1) return attention_tf32<DH, 1>(qkv, out, B, S, H, c, st);
+    if constexpr (DH <= encoder_tf32::kSplitMaxDh) {
+      if (wgs == 2) return attention_tf32<DH, 2>(qkv, out, B, S, H, c, st);
+    }
+    return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int EPI>
 cudaError_t gemm(const T* A, const T* W, const T* bias, const T* resid, T* C,
                  int M, int N, int K, cudaStream_t st) {
@@ -446,26 +543,27 @@ cudaError_t layer_norm(const T* x, const T* s, const T* b, T* y, int rows, int d
 }
 
 // Everything a call checks before its first launch: the shape against the
-// dtype's variant; dh is the head dim the kernels run at, D / H or more.
-cudaError_t check(int dtype, int B, int S, int D, int H, int dh, int hidden) {
+// variant, and the variant against the dtype; dh is the head dim the kernels
+// run at, D / H or more.
+cudaError_t check(int variant, int dtype, int B, int S, int D, int H, int dh, int hidden) {
   if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  if (dtype == 1) {   // mma
-    const bool ok = (dh == 32 || dh == 64 || dh == 128) && D % 64 == 0 && D <= 768
-                    && hidden % 64 == 0;
-    return ok ? cudaSuccess : cudaErrorInvalidValue;
-  }
-  if (dtype == 0) {   // simt
-    const bool ok = dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0;
-    return ok ? cudaSuccess : cudaErrorInvalidValue;
-  }
-  return cudaErrorInvalidValue;
+  bool ok = false;
+  if (variant == kMma)
+    ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128) && D % 64 == 0 && D <= 768
+         && hidden % 64 == 0;
+  else if (variant == kTf32x3)
+    ok = dtype == 0 && dh % 8 == 0 && dh <= kAttMaxDh && D % 32 == 0
+         && D <= encoder_tf32::kMaxDim && hidden % 32 == 0;
+  else if (variant == kSimt)
+    ok = dtype == 0 && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One pre-LN block in place on x (B * S rows): five launches (bf16: mma) or
-// seven (float32: simt).  w points at this block's weights; heads of dh
-// (D / H, or a zero-padded one above it) in an inner width E = H . dh; h
-// (B * S, D) is read by simt alone.
+// One pre-LN block in place on x (B * S rows): five launches (bf16: mma;
+// float32: tf32x3) or seven (float32: simt).  w points at this block's
+// weights; heads of dh (D / H, or a zero-padded one above it) in an inner
+// width E = H . dh; h (B * S, D) is read by simt alone.
 template <typename T>
 cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, int dh,
                            int hidden, const Config& c, T* hb, T* qkv, T* attn, T* hid,
@@ -473,6 +571,28 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, i
   const int M = B * S, E = H * dh;
   const float scale = (float)(1.0 / sqrt((double)(D / H)));   // the true head dim's
   const auto p = [](const void* q) { return static_cast<const T*>(q); };
+  if constexpr (std::is_same<T, float>::value) {
+    if (c.variant == kTf32x3) {
+      const float log2e_scale = (float)(1.4426950408889634 / sqrt((double)(D / H)));
+      // Two warpgroups, where the plan says so, in the attention and in the
+      // products of N tile 16 and 32 (N 64 is built with one).
+      const auto ks = [&](int bn) { return bn == 64 ? 1 : c.warpgroups; };
+      RETURN_IF_ERROR((product_tf32<kEpiRound, true>(c.bn[0], ks(c.bn[0]), x, p(w.w_qkv),
+                                                     p(w.b_qkv), p(w.ln1_s), p(w.ln1_b), qkv,
+                                                     M, 3 * E, D, st)));
+      RETURN_IF_ERROR(attention_tf32_dh(dh, c.warpgroups, qkv, attn, B, S, H, log2e_scale,
+                                        st));
+      RETURN_IF_ERROR((product_tf32<kEpiResidual, false>(c.bn[1], ks(c.bn[1]), attn,
+                                                         p(w.w_proj), p(w.b_proj), nullptr,
+                                                         nullptr, x, M, D, E, st)));
+      RETURN_IF_ERROR((product_tf32<kEpiGelu, true>(c.bn[2], ks(c.bn[2]), x, p(w.w_mlp1),
+                                                    p(w.b_mlp1), p(w.ln2_s), p(w.ln2_b), hid,
+                                                    M, hidden, D, st)));
+      return product_tf32<kEpiResidual, false>(c.bn[3], ks(c.bn[3]), hid, p(w.w_mlp2),
+                                               p(w.b_mlp2), nullptr, nullptr, x, M, D, hidden,
+                                               st);
+    }
+  }
   if constexpr (std::is_same<T, bf16>::value) {
     RETURN_IF_ERROR((product<kEpiRound, true>(c.bn[0], x, p(w.w_qkv), p(w.b_qkv), p(w.ln1_s),
                                               p(w.ln1_b), qkv, M, 3 * E, D, st)));
@@ -509,7 +629,8 @@ cudaError_t forward(const Config& c, int B, int S, int D, int H, int dh, int hid
                                   cudaMemcpyDeviceToDevice, st));
   const int dtype = std::is_same<T, bf16>::value ? 1 : 0;
   for (int l = 0; l < depth; ++l)
-    RETURN_IF_ERROR(block_launches<T>(x, layer_weights(w, l, D, H * dh, hidden, dtype), B, S,
+    RETURN_IF_ERROR(block_launches<T>(x, layer_weights(w, l, D, H * dh, hidden, dtype,
+                                                       c.variant), B, S,
                                       D, H, dh, hidden, c, static_cast<T*>(h_buf),
                                       static_cast<T*>(qkv_buf), static_cast<T*>(attn_buf),
                                       static_cast<T*>(hid_buf), st));
@@ -519,7 +640,7 @@ cudaError_t forward(const Config& c, int B, int S, int D, int H, int dh, int hid
 cudaError_t run(const Config& c, int dtype, int B, int S, int D, int H, int dh, int hidden,
                 int depth, const void* x_in, void* x_out, const Weights& w, void* h, void* qkv,
                 void* attn, void* hid, cudaStream_t st) {
-  RETURN_IF_ERROR(check(dtype, B, S, D, H, dh, hidden));
+  RETURN_IF_ERROR(check(c.variant, dtype, B, S, D, H, dh, hidden));
   if (depth < 1) return cudaErrorInvalidValue;
   if (dtype == 1)
     return forward<bf16>(c, B, S, D, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn, hid,
@@ -530,24 +651,28 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int H, int dh, 
 
 }  // namespace
 
-// bn_*: the N tiles of the plan (see Config above).  dtype: 0 = float32
-// ("simt"), 1 = bfloat16 ("mma").  head_dim: the head dim the kernels run at,
+// variant: 0 = "simt" (float32), 1 = "mma" (bfloat16), 2 = "tf32x3"
+// (float32); bn_*, warpgroups: the N tiles and the warpgroups a CTA of the
+// plan (see Config above).  dtype: 0 =
+// float32, 1 = bfloat16.  head_dim: the head dim the kernels run at,
 // dim / heads or the zero-padded one of the weights (E = heads . head_dim
 // below; the scale stays (dim / heads)^-1/2).  All tensors contiguous on the
 // current device and 16-byte aligned: x (B, S, D); weights stacked over depth
 // as (depth, ...) with kernels (in, out), the qkv kernel (D, 3E) and bias (3E),
-// the proj kernel (E, D); scratch h (B*S, D) (read by "simt" alone), attn
+// the proj kernel (E, D) ("tf32x3": each of the four kernels as two planes,
+// (depth, 2, in, out), hi = tf32(w) then lo = tf32(w - hi), rounded to nearest
+// with ties away from zero); scratch h (B*S, D) (read by "simt" alone), attn
 // (B*S, E), qkv (B*S, 3E), mlp_hidden (B*S, hidden).  x_out must not alias
 // x_in.  Returns a cudaError_t.
 extern "C" int vit_encoder_forward(
-    int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2,
+    int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups,
     int dtype, int batch, int seq, int dim, int heads, int head_dim, int hidden, int depth,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
     void* h, void* qkv, void* attn, void* mlp_hidden, void* stream) {
-  const Config c{{bn_qkv, bn_proj, bn_mlp1, bn_mlp2}};
+  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, heads, head_dim, hidden, depth, x_in, x_out, w, h,
@@ -566,14 +691,14 @@ extern "C" int vit_encoder_forward(
 // latency more than operations or bytes (at (16, 320, 192) bf16: 5.79 GFLOP,
 // 5.9 us at 989 TFLOP/s).  Returns a cudaError_t.
 extern "C" int vit_block_forward(
-    int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2,
+    int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups,
     int dtype, int batch, int seq, int dim, int heads, int head_dim, int hidden,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
     void* h, void* qkv, void* attn, void* mlp_hidden, void* stream) {
-  const Config c{{bn_qkv, bn_proj, bn_mlp1, bn_mlp2}};
+  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, heads, head_dim, hidden, 1, x_in, x_out, w, h, qkv,

@@ -9,8 +9,8 @@ launches a block's products and attention on the caller's stream.  The
 source's header states what bounds it on the H100.
 
 :func:`plan` decides before any launch, from the shape alone, what a call
-takes (a rule, not a fallback; the C entries take the plan's N tiles as
-ints).  The variant is the dtype's:
+takes (a rule, not a fallback; the C entries take the plan's variant and
+N tiles as ints):
 
 * ``"mma"``: bf16 with head dim 32, 64 or 128, D (up to 768) and the MLP
   width multiples of 64 (every bf16 preset).  Five launches a block:
@@ -19,21 +19,38 @@ ints).  The variant is the dtype's:
   registers, and an attention that reads q, k and v from the qkv buffer
   where they lie and walks blocks of 64 keys twice (the row maximum, then
   ``expf`` of the twin's own argument and P.V with p in f32 precision).
-* ``"simt"``: float32 (the ``small`` preset, the training step) with a head
-  dim that is a multiple of 16 up to 128: seven launches a block on the FMA
-  units, an attention that walks blocks of 32 keys twice as the mma one
-  does.
+* ``"tf32x3"``: float32 (the ``small`` preset, the float32 flagship of the
+  dry run and of training) with a head dim that is a multiple of 8 up to
+  128, D (up to 512) and the MLP width multiples of 32.  The same five
+  launches a block (``csrc/encoder_tf32.cuh``), the products on the tensor
+  cores in split TF32 (``mma.sync``, three TF32 products a product into one
+  f32 accumulator: float32's accuracy), the LayerNorm in the prologue with
+  the twin's roundings, bias / GELU / residual in the epilogue, and the
+  attention of ``csrc/attention_tf32.cuh`` on the qkv buffer's head slices
+  (64-key blocks, online softmax).  At batch 1 (``Plan.warpgroups``) each CTA
+  is two warpgroups that share a query tile's key blocks or a product's
+  K.  Its weights arrive split, hi =
+  tf32(w) and lo = tf32(w - hi) (:func:`split_tf32`), made once per
+  parameter set by the operand cache; the kernels split only the
+  activations.
+* ``"simt"``: float32 on a shape ``"tf32x3"`` does not take (D above 512
+  or no multiple of 32, an MLP width that is a multiple of 16 but not of
+  32), with a head dim that is a multiple of 16 up to 128: the first
+  design's seven launches a block on the FMA units, an attention that
+  walks blocks of 32 keys twice.  Callable by name on any float32 shape it takes
+  (``prepared(..., chosen=Plan("simt"))``): the yardstick of the timings.
 
 A head dim from 1 to 128 that the variant does not take as it is (bf16: not
-32, 64 or 128; float32: not a multiple of 16) is zero-padded to the next
-one it takes: the qkv weight and bias get zero columns a head and the proj
-weight zero rows a head (in the operand cache, so once per parameter set),
-the attention runs at the padded head dim with the true one's scale, and
-LayerNorm, the MLP and the residual width D stay as they are.  Zeros add
-exactly to an f32 sum: a padded head computes what the unpadded one does.
-A CUDA call on a shape its variant cannot take even so (a head dim above
-128; for ``"mma"`` D above 768, or D or the MLP width no multiple of 64)
-raises; none goes to the plain twin.  An x or a weight that is not
+32, 64 or 128; ``"tf32x3"``: not a multiple of 8; ``"simt"``: not a
+multiple of 16) is zero-padded to the next one it takes: the qkv weight and
+bias get zero columns a head and the proj weight zero rows a head (in the
+operand cache, so once per parameter set), the attention runs at the padded
+head dim with the true one's scale, and LayerNorm, the MLP and the residual
+width D stay as they are.  Zeros add exactly to an f32 sum: a padded head
+computes what the unpadded one does.  A CUDA call on a shape no variant of
+its dtype can take even so (a head dim above 128; for ``"mma"`` D above
+768, or D or the MLP width no multiple of 64; in float32 an MLP width no
+multiple of 16) raises; none goes to the plain twin.  An x or a weight that is not
 contiguous with a 16-byte aligned base is copied into one that is before
 the launch.  Neither kernel needs more shared memory for a longer sequence:
 both walk the keys through a ring of fixed size.
@@ -78,7 +95,7 @@ __all__ = ["encoder", "encoder_reference", "float64_chain", "block",
 # Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = 0
 BLOCK_LAUNCHES = 0
-VARIANT_LAUNCHES = {"mma": 0, "simt": 0}
+VARIANT_LAUNCHES = {"mma": 0, "simt": 0, "tf32x3": 0}
 
 # Per-block parameters in the kernel's argument order: (module, field).
 _FIELDS = (("ln1", "scale"), ("ln1", "bias"), ("qkv", "kernel"),
@@ -87,7 +104,11 @@ _FIELDS = (("ln1", "scale"), ("ln1", "bias"), ("qkv", "kernel"),
            ("mlp1", "bias"), ("mlp2", "kernel"), ("mlp2", "bias"))
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma"}
+_VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
+# A dtype's variants, the first its own; float32 takes "simt" where
+# "tf32x3" refuses a shape.
+_DTYPE_VARIANTS = {torch.float32: ("tf32x3", "simt"), torch.bfloat16: ("mma",)}
+_VARIANTS = {dtype: v[0] for dtype, v in _DTYPE_VARIANTS.items()}
 _MAX_HEAD_DIM = 128
 # Geometry of the kernels, as csrc/vit_encoder.cu and encoder_mma.cuh have
 # it.  "mma": a product CTA owns 64 rows by an N tile of 32 or 64 columns and
@@ -95,21 +116,28 @@ _MAX_HEAD_DIM = 128
 # chunks of their rows for the LayerNorm, which at D = 768 and N 64 is
 # 1024 + 12 x 64 x (64 + 64) x 2 = 197,632 bytes of the H100's 232,448.  The
 # attention takes 64 query rows and walks 64-key blocks through a ring of 2
-# (82,944 bytes at head dim 128, for any S).  "simt": 16 query rows, 32-key
-# blocks.
-_ROWS, _CHUNK = 64, 64
-_MMA_MAX_DIM = 768
+# (82,944 bytes at head dim 128, for any S).  "tf32x3": the same 64 rows,
+# N tiles of 16, 32 or 64, K in 32-deep chunks through a ring of 4 slots
+# (3 at N 64) a warpgroup of A and the weight's two planes; the LN products
+# hold their 64 rows of D and its scale and bias, which at D = 512, N 32 and
+# two warpgroups is 64 x 516 x 4 + 2 x 512 x 4 + 8 x 2 x 32 x 40 x 4 =
+# 218,112 bytes.  "simt": 16 query rows, 32-key blocks.
+_ROWS, _CHUNK, _TF32_CHUNK = 64, 64, 32
+_MMA_MAX_DIM, _TF32_MAX_DIM = 768, 512
+_SPLIT_MAX_DH = 64         # "tf32x3": two-warpgroup attention built up to it
 
 
 class Plan(NamedTuple):
     """What :func:`encoder` and :func:`block` launch for one shape."""
-    variant: str                               # "mma" or "simt"
+    variant: str                               # "mma", "tf32x3" or "simt"
     tiles: Tuple[int, ...] = (0, 0, 0, 0)      # N tile of qkv, proj, mlp1, mlp2
     pad: int = 0                               # padded head dim (0: none)
+    warpgroups: int = 1                        # "tf32x3": warpgroups a CTA
 
     def config(self) -> Tuple[int, ...]:
-        """The 4 ints the C entries take (``Config`` in the source)."""
-        return self.tiles
+        """The 6 ints the C entries take first (``Config`` in the source):
+        the variant's code, the N tiles and the warpgroups."""
+        return (_VARIANT_CODES[self.variant],) + self.tiles + (self.warpgroups,)
 
 
 def _refusal(variant: str, dim: int, heads: int,
@@ -125,6 +153,11 @@ def _refusal(variant: str, dim: int, heads: int,
             return (f"embed dim {dim} and MLP width {hidden} must be "
                     f"multiples of 64, the embed dim at most {_MMA_MAX_DIM}")
         return None
+    if variant == "tf32x3":
+        if dim % _TF32_CHUNK or dim > _TF32_MAX_DIM or hidden % _TF32_CHUNK:
+            return (f"embed dim {dim} and MLP width {hidden} must be "
+                    f"multiples of 32, the embed dim at most {_TF32_MAX_DIM}")
+        return None
     if hidden % 16:                                        # "simt"
         return f"MLP width {hidden} must be a multiple of 16"
     return None
@@ -133,11 +166,35 @@ def _refusal(variant: str, dim: int, heads: int,
 def head_pad(variant: str, dh: int) -> int:
     """The head dim ``variant`` runs a head dim ``dh`` (1 to 128) at when
     it does not take it as it is, else 0: ``"mma"`` the next of 32, 64 and
-    128, ``"simt"`` the next multiple of 16."""
+    128, ``"tf32x3"`` the next multiple of 8, ``"simt"`` the next multiple
+    of 16."""
     if variant == "mma":
         return 0 if dh in (32, 64, 128) else next(
             d for d in (32, 64, 128) if d > dh)
-    return 0 if dh % 16 == 0 else -(-dh // 16) * 16
+    step = 8 if variant == "tf32x3" else 16
+    return 0 if dh % step == 0 else -(-dh // step) * step
+
+
+def _variant(dtype: torch.dtype, dim: int, heads: int,
+             hidden: int) -> Optional[str]:
+    """The variant :func:`plan` gives this dtype and width (the first of
+    the dtype's that takes it), or None if none does."""
+    return next((v for v in _DTYPE_VARIANTS.get(dtype, ())
+                 if _refusal(v, dim, heads, hidden) is None), None)
+
+
+def _tiles(rows: int, inner: int, dim: int, hidden: int, sms: int,
+           narrow: bool) -> Tuple[int, ...]:
+    """The N tile of each product for ``rows`` 64-row tiles: 64 once
+    64-wide tiles give a grid of at least ``sms`` CTAs, else 32; with
+    ``narrow`` (``"tf32x3"``) 16 where 32-wide tiles would leave more than
+    half the card idle."""
+    def tile(n):
+        if rows * -(-n // 64) >= sms:
+            return 64
+        return 16 if narrow and 2 * rows * -(-n // 32) < sms else 32
+
+    return tuple(tile(n) for n in (3 * inner, dim, hidden, dim))
 
 
 def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
@@ -145,24 +202,34 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
     """The variant and the product tiles for a ``(batch, seq, dim)`` input
     with ``heads`` heads and MLP width ``hidden`` on a card of ``sms`` SMs.
 
-    * The variant is the dtype's: ``"mma"`` for bf16 (head dim 32, 64 or
-      128, dim and hidden multiples of 64, dim up to 768), ``"simt"`` for
-      float32 (head dim a multiple of 16, hidden a multiple of 16).  Another
-      head dim up to 128 gets ``pad``, the one it is zero-padded to
-      (:func:`head_pad`).  A shape the variant cannot take even so raises
-      ``ValueError``; another dtype raises ``TypeError``.
-    * ``"mma"`` N tile of each product: 64 once 64-wide tiles give a grid of
-      at least ``sms`` CTAs, else 32 (at batch 1 the grid is the latency:
-      more, smaller CTAs).  On the flagship's shape that is 32 for every
-      product at batch 1 and 64 at batch 16.
+    * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128, dim and
+      hidden multiples of 64, dim up to 768); for float32 ``"tf32x3"``
+      (head dim a multiple of 8, dim and hidden multiples of 32, dim up to
+      512), else ``"simt"`` (head dim a multiple of 16, hidden a multiple
+      of 16).  Another head dim up to 128 gets ``pad``, the one it is
+      zero-padded to (:func:`head_pad`).  A shape no variant of the dtype
+      can take even so raises ``ValueError``; another dtype raises
+      ``TypeError``.
+    * ``"mma"`` and ``"tf32x3"`` N tile of each product: 64 once 64-wide
+      tiles give a grid of at least ``sms`` CTAs, else 32 (at batch 1 the
+      grid is the latency: more, smaller CTAs), and for ``"tf32x3"`` 16
+      where 32-wide ones would leave more than half the SMs idle.  On the
+      flagship's shape that is 32 for every bf16 product at batch 1 and 64
+      at batch 16.
+    * ``"tf32x3"`` ``warpgroups``: 2 when the attention's grid (64-query tiles x
+      batch x heads) is smaller than the card and the head dim it runs at is
+      at most 64, else 1: two warpgroups a CTA, which in the attention share
+      a query tile and take its key blocks in turn, and in a product of N
+      tile 16 or 32 take its 32-deep chunks of K in turn (batch 1, where
+      one warpgroup an SM leaves every latency exposed).
 
     Depends on the shape alone, so a chain of :func:`block` calls equals one
     :func:`encoder` call bit for bit.
     """
-    variant = _VARIANTS.get(dtype)
-    if variant is None:
+    if dtype not in _VARIANTS:
         raise TypeError(f"the encoder kernels take float32 or bfloat16, got "
                         f"{dtype}")
+    variant = _variant(dtype, dim, heads, hidden) or _VARIANTS[dtype]
     why = (_refusal(variant, dim, heads, hidden) if batch >= 1 and seq >= 1
            else f"batch {batch} and sequence {seq} must be at least 1")
     if why is not None:
@@ -172,10 +239,11 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
     if variant == "simt":
         return Plan("simt", pad=pad)
     rows = -(-batch * seq // _ROWS)
-    inner = heads * (pad or dim // heads)
-    tiles = tuple(64 if rows * (n // 64) >= sms else 32
-                  for n in (3 * inner, dim, hidden, dim))
-    return Plan("mma", tiles, pad)
+    dh = pad or dim // heads
+    tiles = _tiles(rows, heads * dh, dim, hidden, sms, variant == "tf32x3")
+    wgs = (2 if variant == "tf32x3" and dh <= _SPLIT_MAX_DH
+           and -(-seq // _ROWS) * batch * heads < sms else 1)
+    return Plan(variant, tiles, pad, wgs)
 
 
 def encoder_reference(x: torch.Tensor, blocks: Sequence[Params],
@@ -231,9 +299,9 @@ _LIB: List[ctypes.CDLL] = []
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' signatures on a loaded ``vit_encoder``
     library."""
-    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 12
+    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 14
                                         + [ctypes.c_void_p] * 19)
-    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 11
+    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 13
                                       + [ctypes.c_void_p] * 19)
     for fn in (lib.vit_encoder_forward, lib.vit_block_forward):
         fn.restype = ctypes.c_int
@@ -273,16 +341,19 @@ def _check_x(x: torch.Tensor, num_heads: int) -> None:
 
 
 def _check(x: torch.Tensor, weights: List[torch.Tensor], inner: int,
-           stacked: bool):
+           stacked: bool, split: bool = False):
     """Raise on weights that do not fit x and the inner width ``inner``
     (heads x the head dim the kernels run at).  ``weights`` in ``_FIELDS``
     order: stacked over depth for the encoder, one block's own for the
-    block kernel."""
+    block kernel; ``split``: the four kernels as two planes each
+    (:func:`split_planes`)."""
     d = x.shape[2]
     lead = (weights[0].shape[0],) if stacked else ()
     hidden = weights[8].shape[-1]
-    want = [(d,), (d,), (d, 3 * inner), (3 * inner,), (inner, d), (d,), (d,),
-            (d,), (d, hidden), (hidden,), (hidden, d), (d,)]
+    k = (2,) if split else ()
+    want = [(d,), (d,), k + (d, 3 * inner), (3 * inner,), k + (inner, d),
+            (d,), (d,), (d,), k + (d, hidden), (hidden,), k + (hidden, d),
+            (d,)]
     for (mod, field), t, shape in zip(_FIELDS, weights, want):
         shape = lead + shape
         if tuple(t.shape) != shape:
@@ -308,6 +379,37 @@ def _plan_for(x: torch.Tensor, heads: int, hidden: int) -> Plan:
     return chosen
 
 
+def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``w`` as (hi, lo): hi = tf32(w), lo = tf32(w - hi), each
+    rounded to TF32 (10 mantissa bits) to nearest with ties away from zero
+    by an integer add and mask of the bits (``csrc/attention_tf32.cuh::
+    to_tf32``), so hi + lo is w to about 2^-22 of it."""
+    def tf32(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+            torch.float32)
+
+    hi = tf32(w)
+    return hi, tf32(w - hi)
+
+
+# Where the four kernels lie in ``_FIELDS`` order.
+_KERNELS = (2, 4, 8, 10)
+
+
+def split_planes(weights: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Weights in ``_FIELDS`` order (any leading dims) with each of the
+    four kernels (..., in, out) as its two planes (..., 2, in, out), hi
+    then lo (:func:`split_tf32`): what ``"tf32x3"`` reads."""
+    w = list(weights)
+    for i in _KERNELS:
+        w[i] = torch.stack(split_tf32(w[i]), dim=-3)
+    return w
+
+
+def _is_split(weights: Sequence[torch.Tensor], stacked: bool) -> bool:
+    return weights[2].dim() == (4 if stacked else 3)
+
+
 def _pad_heads(weights: Sequence[torch.Tensor], heads: int,
                pad: int) -> List[torch.Tensor]:
     """Weights in ``_FIELDS`` order (any leading dims) with each head of
@@ -326,27 +428,51 @@ def _pad_heads(weights: Sequence[torch.Tensor], heads: int,
     return w
 
 
+def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
+    """A plan a caller named (``prepared(..., chosen=...)``) made whole:
+    the variant must be one of the dtype's and take the shape; the pad is
+    the variant's own, and ``"tf32x3"`` named without tiles gets the rule's
+    tiles and warpgroups."""
+    b, s, d = x.shape
+    if chosen.variant not in _DTYPE_VARIANTS[x.dtype]:
+        raise ValueError(f"the encoder kernels run {x.dtype} as one of "
+                         f"{_DTYPE_VARIANTS[x.dtype]}, not {chosen.variant}")
+    why = _refusal(chosen.variant, d, heads, hidden)
+    if why is not None:
+        raise ValueError(f"the encoder kernels cannot take this shape "
+                         f"({chosen.variant}, {x.dtype}): {why}")
+    pad = head_pad(chosen.variant, d // heads)
+    if chosen.variant == "tf32x3" and not any(chosen.tiles):
+        rule = _plan_for(x, heads, hidden)
+        chosen = chosen._replace(tiles=rule.tiles, warpgroups=rule.warpgroups)
+    return chosen._replace(pad=pad)
+
+
 def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
              stacked: bool, chosen: Optional[Plan]):
     """Checks, the plan, the output and the C entry's arguments up to the
     stream, and the tensors that must live as long as the launch (x and
     weights copied where their layout asks for it, the weights zero-padded
-    where the plan pads and the cache did not, the scratch).  A shape the
-    plan refuses, or a ``chosen`` variant that is not the dtype's, raises:
-    a launch was asked for."""
+    and, for ``"tf32x3"``, split where the plan asks and the cache did not,
+    the scratch).  A shape the plan refuses, a ``chosen`` variant that is
+    not one of the dtype's, or split weights for another variant, raise: a
+    launch was asked for."""
     _check_x(x, num_heads)
     b, s, d = x.shape
     hidden = weights[8].shape[-1]
-    if chosen is None:
-        chosen = _plan_for(x, num_heads, hidden)
-    elif chosen.variant != _VARIANTS[x.dtype]:
-        raise ValueError(f"the encoder kernels run {x.dtype} as "
-                         f"{_VARIANTS[x.dtype]}, not {chosen.variant}")
+    chosen = (_plan_for(x, num_heads, hidden) if chosen is None
+              else _named(chosen, x, num_heads, hidden))
     dh = chosen.pad or d // num_heads
     inner = num_heads * dh
-    if chosen.pad and weights[2].shape[-1] == 3 * d:
-        weights = _pad_heads(weights, num_heads, chosen.pad)
-    _check(x, weights, inner, stacked)
+    split = _is_split(weights, stacked)
+    if split and chosen.variant != "tf32x3":
+        raise ValueError(f"split weights are tf32x3's, not {chosen.variant}'s")
+    if not split:
+        if chosen.pad and weights[2].shape[-1] == 3 * d:
+            weights = _pad_heads(weights, num_heads, chosen.pad)
+        if chosen.variant == "tf32x3":
+            weights, split = split_planes(weights), True
+    _check(x, weights, inner, stacked, split)
     x, weights = _laid_out(x), [_laid_out(t) for t in weights]
     m = b * s
     out = torch.empty_like(x)
@@ -427,21 +553,28 @@ _OPERANDS = operand_cache.OperandCache()
 
 
 def _operands(flat: Sequence[torch.Tensor], depth: int,
-              dtype: torch.dtype, num_heads: int = 1) -> List[torch.Tensor]:
+              dtype: torch.dtype, num_heads: int = 1,
+              variant: Optional[str] = None) -> List[torch.Tensor]:
     """``flat`` cast to ``dtype`` and stacked over depth, the heads of
-    ``num_heads`` zero-padded where the dtype's variant pads them
-    (:func:`head_pad`).  Reused while every leaf is the same tensor at the
-    same ``_version`` (which any in-place update, such as an optimiser
+    ``num_heads`` zero-padded where ``variant`` (by default the one
+    :func:`plan` gives this dtype and width) pads them (:func:`head_pad`),
+    and for ``"tf32x3"`` the four kernels split into their two planes
+    (:func:`split_planes`).  Reused while every leaf is the same tensor at
+    the same ``_version`` (which any in-place update, such as an optimiser
     step, moves on); made anew otherwise
     (:class:`~.operand_cache.OperandCache`)."""
+    d, hidden = flat[0].shape[0], flat[8].shape[-1]
+    if variant is None and d % num_heads == 0:
+        variant = _variant(dtype, d, num_heads, hidden)
+
     def make():
         stacked = _stack([t.to(dtype) for t in flat], depth)
-        d = flat[0].shape[0]
-        pad = (head_pad(_VARIANTS[dtype], d // num_heads)
-               if dtype in _VARIANTS and d % num_heads == 0 else 0)
-        return _pad_heads(stacked, num_heads, pad) if pad else stacked
+        pad = head_pad(variant, d // num_heads) if variant else 0
+        if pad:
+            stacked = _pad_heads(stacked, num_heads, pad)
+        return split_planes(stacked) if variant == "tf32x3" else stacked
 
-    return _OPERANDS.get((dtype, num_heads), flat, make)
+    return _OPERANDS.get((dtype, num_heads, variant), flat, make)
 
 
 def _launch_operands(x: torch.Tensor, flat: Sequence[torch.Tensor],

@@ -24,6 +24,10 @@ from typing import Any, Callable, List
 
 __all__ = ["run_ranks"]
 
+# Seconds a rank's failure waits for another rank to be seen dead (the
+# likelier cause) before the call raises it.
+FAILURE_GRACE = 2.0
+
 
 def _rank_main(fn, rank, n, device, init_method, args, out) -> None:
     import torch
@@ -36,33 +40,46 @@ def _rank_main(fn, rank, n, device, init_method, args, out) -> None:
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         torch.set_num_threads(1)
         init_group(device, rank=rank, world_size=n, init_method=init_method)
-        out.put((rank, True, fn(rank, n, *args)))
+        message = (rank, True, fn(rank, n, *args))
     except BaseException:                          # reported to the parent
-        out.put((rank, False, traceback.format_exc()))
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        message = (rank, False, traceback.format_exc())
+    # In the pipe before the group is torn down: a teardown that kills the
+    # process (a peer gone) cannot lose what the rank sent.
+    out.put(message)
+    out.close()
+    out.join_thread()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
-def _check_alive(procs, results, out, fn) -> None:
-    """Raise if a rank's process ended without sending a result (it died
-    before ``fn`` could return or raise, e.g. in its start-up).  A rank
-    writes its result before it exits, so what is still in the pipe is read
-    first."""
-    ended = [r for r, p in enumerate(procs) if p.exitcode is not None]
+def _collect(procs, results, failed, out, fn, grace: float) -> None:
+    """Read what the ranks sent, then raise if a rank's process ended
+    without sending anything (it died before ``fn`` could return or raise,
+    e.g. in its start-up), else if a rank failed.  A message still in flight
+    is waited for, and each live rank gets up to ``grace`` seconds to be seen
+    ending: a rank that fails because a peer died (a connection closed in
+    its set-up) reports at about the moment the peer's process ends, and the
+    death, the cause, is what the call raises, with the failures after
+    it."""
+    deadline = time.monotonic() + grace
     while True:
         try:
-            rank, ok, value = out.get_nowait()
+            rank, ok, value = out.get(timeout=0.1)
         except queue.Empty:
-            break
-        if not ok:
-            raise RuntimeError(f"rank {rank} of {fn.__name__} failed:\n"
-                               f"{value}")
-        results[rank] = value
-    dead = {r: procs[r].exitcode for r in ended if r not in results}
+            if time.monotonic() >= deadline or all(
+                    p.exitcode is not None for p in procs):
+                break
+            continue
+        (results if ok else failed)[rank] = value
+    dead = {r: p.exitcode for r, p in enumerate(procs)
+            if p.exitcode is not None and r not in results and r not in failed}
+    notes = "".join(f"\nrank {r} of {fn.__name__} failed:\n{tb}"
+                    for r, tb in sorted(failed.items()))
     if dead:
         raise RuntimeError(f"ranks of {fn.__name__} ended without a result "
-                           f"(rank: exit code) {dead}")
+                           f"(rank: exit code) {dead}{notes}")
+    if failed:
+        raise RuntimeError(notes.lstrip("\n"))
 
 
 def run_ranks(fn: Callable[..., Any], n: int, *args: Any, device="cuda",
@@ -78,7 +95,7 @@ def run_ranks(fn: Callable[..., Any], n: int, *args: Any, device="cuda",
                  for r in range(n)]
         for p in procs:
             p.start()
-        results = {}
+        results, failed = {}, {}
         deadline = time.monotonic() + timeout
         try:
             while len(results) < n:
@@ -91,12 +108,15 @@ def run_ranks(fn: Callable[..., Any], n: int, *args: Any, device="cuda",
                 try:
                     rank, ok, value = out.get(timeout=min(left, 1.0))
                 except queue.Empty:
-                    _check_alive(procs, results, out, fn)
+                    if any(p.exitcode is not None and r not in results
+                           for r, p in enumerate(procs)):
+                        _collect(procs, results, failed, out, fn, 0.0)
                     continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} of {fn.__name__} "
-                                       f"failed:\n{value}")
-                results[rank] = value
+                if ok:
+                    results[rank] = value
+                else:
+                    failed[rank] = value
+                    _collect(procs, results, failed, out, fn, FAILURE_GRACE)
         finally:
             for p in procs:
                 p.join(timeout=10)

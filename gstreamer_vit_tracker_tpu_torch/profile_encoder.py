@@ -3,14 +3,17 @@ flagship trajectories against the CPU's.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
-    python -m gstreamer_vit_tracker_tpu_torch.profile_encoder [tiles] [lottery N] [arith N]
+    python -m gstreamer_vit_tracker_tpu_torch.profile_encoder [tiles] [lottery N] [arith N] [f32]
 
 ``tiles``: one launch on ready operands (``ops/vit_block.py::prepared``) of
 kernel 1 at (1, 320, 192) and of kernel 2 at (1, 320, 192) and
 (16, 320, 192), bf16, the flagship's shipped weights: the planned tiles,
 every product at N 32, every product at N 64, and the plan again, in turns,
 as device microseconds of a launch (20 launches captured into a CUDA graph
-and replayed, mean of 20 replays).
+and replayed, mean of 20 replays); then ``tf32x3`` the same way in float32
+at those shapes and at the ``small`` preset's (1, 80, 96) x 4 and (16, 80,
+96), with every product at N 16 too and with 1 and 2 warpgroups a
+CTA.
 
 ``lottery``: N seeded 1080p NV12 clips of 4 frames (the first is
 ``chip_smoke.py``'s clip), 3 unbatched flagship steps each, run free on the
@@ -27,6 +30,14 @@ sources under ``build/``): the mean and the variance as sums divided by K
 rounded (``rn``, as shipped) or ``rsqrtf`` (``approx``); compiled with
 ``nvcc``'s default ``-fmad=true`` (``c``, as shipped) or ``-fmad=false``
 (``nc``).  ``div-rn-c`` is the shipped kernel.
+
+``f32``: where a float32 launch's device time goes, by stage: kernel 1 at
+the flagship (1, 320, 192) x 12 and the ``small`` preset (1, 80, 96) x 4,
+kernel 2 at (16, 320, 192) and (16, 80, 96), the shipped weights in
+float32, ``tf32x3`` and ``simt`` by name on the same operands; one launch
+on ready operands repeated under ``torch.profiler``, each device kernel
+named by its place in the block (five launches a block for ``tf32x3``,
+seven for ``simt``), mean device us a launch by stage.
 
 Prints the card's name and power limit, then one JSON object a section.
 """
@@ -101,6 +112,103 @@ def tiles(dev) -> dict:
                       "all_n32_us": time(base._replace(tiles=(32,) * 4)),
                       "all_n64_us": time(base._replace(tiles=(64,) * 4)),
                       "plan_again_us": time(base)}
+    for preset in ("vittrack-t", "small"):
+        pcfg = PRESETS[preset]
+        pparams = weights.load_npz(weights.checkpoint_path(preset), pcfg,
+                                   device=dev)
+        fblocks = [vit.cast_params(bp, torch.float32)
+                   for bp in pparams["backbone"]["blocks"]]
+        fflat = [p[m][f] for p in fblocks for m, f in vit_block._FIELDS]
+        fstacked = vit_block._stack(fflat, len(fblocks))
+        fone = fflat[:len(vit_block._FIELDS)]
+        hidden = fblocks[0]["mlp1"]["kernel"].shape[1]
+        for batch, weights_, is_stacked in ((1, fstacked, True),
+                                            (16, fone, False)):
+            x = torch.randn((batch, pcfg.num_tokens, pcfg.embed_dim),
+                            generator=gen).to(dev)
+            base = vit_block._plan_for(x, pcfg.num_heads, hidden)
+
+            def time(chosen):
+                _, launch = vit_block.prepared(x, weights_, pcfg.num_heads,
+                                               is_stacked, chosen=chosen)
+                return _graph_us(launch)
+
+            label = (f"{'encoder' if is_stacked else 'block'} f32 "
+                     f"{tuple(x.shape)}")
+            row = {"plan_tiles": list(base.tiles),
+                   "plan_warpgroups": base.warpgroups, "plan_us": time(base)}
+            for n in (16, 32, 64):
+                row[f"all_n{n}_us"] = time(base._replace(tiles=(n,) * 4))
+            other = 3 - base.warpgroups
+            row[f"warpgroups_{other}_us"] = time(
+                base._replace(warpgroups=other))
+            row["plan_again_us"] = time(base)
+            out[label] = row
+    return out
+
+
+F32_REPS = 20
+# The launches of one block, in order, by variant.
+F32_STAGES = {"tf32x3": ("ln1+qkv", "attention", "proj+residual",
+                         "ln2+mlp1+gelu", "mlp2+residual"),
+              "simt": ("ln1", "qkv", "attention", "proj+residual", "ln2",
+                       "mlp1+gelu", "mlp2+residual")}
+
+
+def f32_stages(dev) -> dict:
+    """Device us a launch by stage of the float32 cases (module
+    docstring), ``tf32x3`` and ``simt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .config import PRESETS
+    from .models import vit, weights
+
+    out = {}
+    gen = torch.Generator().manual_seed(0)
+    for preset in ("vittrack-t", "small"):
+        cfg = PRESETS[preset]
+        params = weights.load_npz(weights.checkpoint_path(preset), cfg,
+                                  device=dev)
+        blocks = [vit.cast_params(bp, torch.float32)
+                  for bp in params["backbone"]["blocks"]]
+        flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
+        one = flat[:len(vit_block._FIELDS)]
+        for batch, stacked in ((1, True), (16, False)):
+            x = torch.randn((batch, cfg.num_tokens, cfg.embed_dim),
+                            generator=gen).to(dev)
+            w = vit_block._stack(flat, len(blocks)) if stacked else one
+            depth = len(blocks) if stacked else 1
+            label = (f"{'encoder' if stacked else 'block'} "
+                     f"{tuple(x.shape)} x {depth}")
+            out[label] = {}
+            for variant, stages in F32_STAGES.items():
+                _, launch = vit_block.prepared(
+                    x, w, cfg.num_heads, stacked,
+                    chosen=vit_block.Plan(variant))
+                launch()
+                torch.cuda.synchronize()
+                want = F32_REPS * depth * len(stages)
+                for _ in range(3):     # a trace that lost activities is taken again
+                    with profile(activities=[ProfilerActivity.CUDA],
+                                 acc_events=True) as prof:
+                        for _ in range(F32_REPS):
+                            launch()
+                        torch.cuda.synchronize()
+                    kernels = sorted(
+                        (ev for ev in prof.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA
+                         and "memcpy" not in ev.name.lower()),
+                        key=lambda ev: ev.time_range.start)
+                    if len(kernels) == want:
+                        break
+                else:
+                    raise RuntimeError(f"{label} {variant}: {len(kernels)} "
+                                       f"device kernels in {F32_REPS} launches")
+                us = dict.fromkeys(stages, 0.0)
+                for i, ev in enumerate(kernels):
+                    us[stages[i % len(stages)]] += (ev.time_range.elapsed_us()
+                                                    / F32_REPS)
+                out[label][variant] = {"total_us": sum(us.values()), **us}
     return out
 
 
@@ -265,6 +373,8 @@ def main() -> None:
     args = sys.argv[1:] or ["tiles"]
     if "tiles" in args:
         print(json.dumps({"tiles": tiles(dev)}), flush=True)
+    if "f32" in args:
+        print(json.dumps({"f32": f32_stages(dev)}), flush=True)
     for section in ("lottery", "arith"):
         if section not in args:
             continue

@@ -101,7 +101,8 @@ def test_encoder_kernel_matches_twin(dev, dtype, b, s, d, heads):
 def test_encoder_kernel_rejects_what_it_cannot_take(dev):
     # A head dim above 128 raises, through the wrapper and an explicit
     # launch alike; nothing on the card goes to the plain twin.  A head dim
-    # the variant does not take as it is (8 in float32) runs padded.  A
+    # the variant does not take as it is (4 in float32: tf32x3) runs
+    # padded (to 8).  A
     # strided x is copied and launched.  A dtype, or weights that do not fit
     # x, raise; masters in another dtype are cast.
     gen = torch.Generator().manual_seed(0)
@@ -118,8 +119,8 @@ def test_encoder_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         vit_block._launch(x136, stacked, 1, stacked=True)
     assert vit_block.LAUNCHES == before
-    _check_close(vit_block.encoder(x, blocks, 8),                 # dh = 8 -> 16
-                 vit_block.encoder_reference(x, blocks, 8), torch.float32)
+    _check_close(vit_block.encoder(x, blocks, 16),                # dh = 4 -> 8
+                 vit_block.encoder_reference(x, blocks, 16), torch.float32)
     assert vit_block.LAUNCHES == before + 1
     before = vit_block.LAUNCHES
     wide = torch.randn((1, 40, 64), generator=gen).to(dev)
@@ -140,14 +141,14 @@ def test_encoder_kernel_rejects_what_it_cannot_take(dev):
 @pytest.mark.parametrize("s,d,heads,dtype", [(4096, 128, 1, torch.float32),
                                              (1088, 192, 3, torch.bfloat16)])
 def test_encoder_kernel_takes_any_sequence_length(dev, s, d, heads, dtype):
-    # Both variants walk the keys through a ring of fixed size: no length
+    # Every variant walks the keys through a ring of fixed size: no length
     # needs more shared memory (these raised before).
     gen = torch.Generator().manual_seed(s)
     blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
     x = torch.randn((1, s, d), generator=gen).to(dev, dtype)
     before = dict(vit_block.VARIANT_LAUNCHES)
     got = vit_block.encoder(x, blocks, heads)
-    variant = "mma" if dtype == torch.bfloat16 else "simt"
+    variant = "mma" if dtype == torch.bfloat16 else "tf32x3"
     assert vit_block.VARIANT_LAUNCHES[variant] == before[variant] + 1
     ref = vit_block.encoder_reference(x, blocks, heads)
     torch.cuda.synchronize()
@@ -570,7 +571,7 @@ def test_block_kernel_matches_twin(dev, dtype, b, s, d, heads):
     _check_close(got, ref, dtype)
     # One block of the encoder kernel is the same device code.
     assert torch.equal(got, vit_block.encoder(x, [blk], heads))
-    want = "mma" if dtype == torch.bfloat16 else "simt"
+    want = "mma" if dtype == torch.bfloat16 else "tf32x3"
     assert vit_block._plan_for(x, heads, 4 * d).variant == want
 
 
@@ -580,6 +581,69 @@ def test_flagship_shapes_take_mma_and_no_plain_route(dev):
         got = vit_block._plan_for(x, 3, 768)
         assert got.variant == "mma"
         assert got.tiles == ((32,) * 4 if b == 1 else (64,) * 4)
+
+
+@pytest.mark.parametrize("b,s,d,heads,depth", [
+    (1, 80, 96, 2, 4),      # the small preset's unbatched encode
+    (1, 320, 192, 3, 12),   # the flagship in float32 (DRYRUN_CFG's width)
+    (4, 20, 32, 2, 2),      # the dry run's serving model: dh 16
+    (16, 80, 96, 2, 1),     # kernel 2 at the small preset's batch
+    (2, 100, 64, 1, 2)])    # head dim 64 with a ragged last key block
+def test_tf32x3_matches_twin_and_counts(dev, b, s, d, heads, depth):
+    # Every float32 shape tf32x3 takes launches it, once a call through
+    # either entry, and holds the twin to 1e-4, at the plan's tiles and
+    # warpgroups and at the other count; simt, by name on the same operands,
+    # holds it too; a chain of block calls equals the encoder call bit for
+    # bit (the plan depends on the shape alone).
+    gen = torch.Generator().manual_seed(b * s + d)
+    blocks = _blocks(gen, d, depth, 4 * d, torch.float32, dev)
+    x = torch.randn((b, s, d), generator=gen).to(dev)
+    chosen = vit_block._plan_for(x, heads, 4 * d)
+    assert chosen.variant == "tf32x3" and set(chosen.tiles) <= {16, 32, 64}
+    before = dict(vit_block.VARIANT_LAUNCHES)
+    n_enc, n_blk = vit_block.LAUNCHES, vit_block.BLOCK_LAUNCHES
+    got = vit_block.encoder(x, blocks, heads)
+    chain = x
+    for p in blocks:
+        chain = vit_block.block(chain, p, heads)
+    torch.cuda.synchronize()
+    assert (vit_block.LAUNCHES, vit_block.BLOCK_LAUNCHES) == (n_enc + 1,
+                                                              n_blk + depth)
+    assert vit_block.VARIANT_LAUNCHES == dict(
+        before, tf32x3=before["tf32x3"] + 1 + depth)
+    _check_close(got, vit_block.encoder_reference(x, blocks, heads),
+                 torch.float32)
+    assert torch.equal(got, chain)
+    flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
+    other, launch = vit_block.prepared(
+        x, vit_block._stack(flat, depth), heads, True,
+        chosen=chosen._replace(warpgroups=3 - chosen.warpgroups))
+    launch()
+    _check_close(other, vit_block.encoder_reference(x, blocks, heads),
+                 torch.float32)
+    out, launch = vit_block.prepared(x, vit_block._stack(flat, depth), heads,
+                                     True, chosen=vit_block.Plan("simt"))
+    launch()
+    torch.cuda.synchronize()
+    assert vit_block.VARIANT_LAUNCHES["simt"] == before["simt"] + 1
+    _check_close(out, vit_block.encoder_reference(x, blocks, heads),
+                 torch.float32)
+
+
+def test_tf32x3_operands_are_split_once(dev):
+    # The operand cache holds the weights split (hi, lo planes), reused
+    # across calls; split weights handed to another variant raise.
+    gen = torch.Generator().manual_seed(9)
+    blocks = _blocks(gen, 96, 2, 384, torch.float32, dev)
+    flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
+    ops = vit_block._operands(flat, 2, torch.float32, 2)
+    assert ops[2].shape == (2, 2, 96, 288)
+    assert vit_block._operands(flat, 2, torch.float32, 2) is ops
+    x = torch.randn((1, 80, 96), generator=gen).to(dev)
+    assert torch.equal(vit_block._launch(x, ops, 2, stacked=True),
+                       vit_block.encoder(x, blocks, 2))
+    with pytest.raises(ValueError, match="split weights"):
+        vit_block.prepared(x, ops, 2, True, chosen=vit_block.Plan("simt"))
 
 
 def test_block_kernel_casts_masters_and_rejects_what_it_cannot_take(dev):
@@ -738,17 +802,19 @@ def test_attention_padded_head_dims_match_reference(dev, dtype, dh):
                      dtype)
 
 
-@pytest.mark.parametrize("dtype,d,heads", [
-    (torch.bfloat16, 192, 4), (torch.bfloat16, 192, 2), (torch.bfloat16, 64, 4),
-    (torch.float32, 48, 2), (torch.float32, 96, 8)])
-def test_encoder_padded_head_dims_match_twin(dev, dtype, d, heads):
-    # Head dims 48, 96 and 16 in bf16 (padded to 64, 128 and 32), 24 and 12
-    # in float32 (to 32 and 16): the encoder kernel on the padded operand
-    # cache, and the block kernel padding at the launch, against the twin.
+@pytest.mark.parametrize("dtype,d,heads,variant", [
+    (torch.bfloat16, 192, 4, "mma"), (torch.bfloat16, 192, 2, "mma"),
+    (torch.bfloat16, 64, 4, "mma"), (torch.float32, 48, 2, "simt"),
+    (torch.float32, 96, 8, "tf32x3"), (torch.float32, 64, 16, "tf32x3")])
+def test_encoder_padded_head_dims_match_twin(dev, dtype, d, heads, variant):
+    # Head dims 48, 96 and 16 in bf16 (padded to 64, 128 and 32); in float32
+    # 24 at D 48, a width tf32x3 does not take (simt, to 32), and 12 and 4
+    # (tf32x3, to 16 and 8): the encoder kernel on the padded operand cache,
+    # and the block kernel padding at the launch, against the twin.
     gen = torch.Generator().manual_seed(d * heads)
     blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
     x = torch.randn((2, 70, d), generator=gen).to(dev, dtype)
-    variant = "mma" if dtype == torch.bfloat16 else "simt"
+    assert vit_block._plan_for(x, heads, 4 * d).variant == variant
     assert vit_block._plan_for(x, heads, 4 * d).pad == vit_block.head_pad(
         variant, d // heads) > d // heads
     before = dict(vit_block.VARIANT_LAUNCHES)

@@ -88,7 +88,12 @@ def test_dryrun_multichip_needs_cuda_without_a_device():
 
 
 def _rank_one_dies(rank, n):
-    """Rank 1's process ends without a result; rank 0 returns."""
+    """Rank 1's process ends without a result; rank 0 returns.  Rank 1
+    leaves after a barrier, so that what fails is the call and not rank 0's
+    set-up (a peer gone while its connections were still being made)."""
+    import torch.distributed as dist
+
+    dist.barrier()
     if rank == 1:
         os._exit(3)
     return rank
@@ -98,4 +103,27 @@ def test_a_rank_that_dies_without_a_result_fails_the_call_at_once():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match=r"without a result .*\{1: 3\}"):
         run_ranks(_rank_one_dies, 2, device="cpu", timeout=600)
+    assert time.monotonic() - t0 < 120
+
+
+def _rank_zero_fails_after_one_dies(rank, n):
+    """Rank 1's process ends without a result; rank 0 then raises, as a
+    rank whose peer left in the middle of a collective does."""
+    if rank == 1:
+        os._exit(5)
+    time.sleep(0.2)
+    raise ConnectionError("peer gone")
+
+
+def test_a_death_is_reported_before_the_failure_it_caused():
+    # Rank 0's failure reaches the parent while rank 1's exit may not be
+    # seen yet; the call waits its grace for the dead rank and raises the
+    # death first, rank 0's traceback after it.
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError) as err:
+        run_ranks(_rank_zero_fails_after_one_dies, 2, device="cpu", timeout=600)
+    first, rest = str(err.value).split("\n", 1)
+    assert re.search(r"without a result .*\{1: 5\}$", first), first
+    assert "rank 0 of _rank_zero_fails_after_one_dies failed" in rest
+    assert "ConnectionError: peer gone" in rest
     assert time.monotonic() - t0 < 120

@@ -100,8 +100,13 @@ def test_plan_n_tile_by_batch():
     (BF16, 256, 2, 1024, "mma"),     # head dim 128
     (BF16, 128, 4, 512, "mma"),      # head dim 32
     (BF16, 768, 12, 3072, "mma"),    # the widest D the LN product holds
-    (F32, 96, 2, 384, "simt"),       # the small preset
-    (F32, 192, 3, 768, "simt"),      # the flagship in float32
+    (F32, 96, 2, 384, "tf32x3"),     # the small preset
+    (F32, 192, 3, 768, "tf32x3"),    # the flagship in float32
+    (F32, 32, 2, 128, "tf32x3"),     # the dry run's serving model: dh 16
+    (F32, 192, 8, 768, "tf32x3"),    # head dim 24: tf32x3 takes it as it is
+    (F32, 192, 16, 768, "tf32x3"),   # head dim 12: padded to 16
+    (F32, 640, 5, 2560, "simt"),     # D beyond 512: simt, by rule
+    (F32, 96, 2, 400, "simt"),       # MLP width no multiple of 32
     (BF16, 96, 2, 384, None),        # head dim 48, D no multiple of 64
     (BF16, 64, 4, 256, "mma"),       # head dim 16: padded to 32
     (BF16, 96, 3, 384, None),        # head dim 32, D no multiple of 64
@@ -113,20 +118,23 @@ def test_plan_n_tile_by_batch():
     (torch.float16, 192, 3, 768, None),
 ])
 def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
-    # The variant is the dtype's; a head dim it does not take as it is runs
+    # The variant: bf16's mma; float32's tf32x3, else simt where tf32x3
+    # refuses the width.  A head dim it does not take as it is runs
     # zero-padded (the padded dim in the plan, the true one's scale at the
-    # launch); a shape it cannot take even so raises before any launch (no
-    # call on the card goes to the plain twin).
+    # launch); a shape no variant of the dtype can take even so raises before
+    # any launch (no call on the card goes to the plain twin).
     if variant is None:
         with pytest.raises(TypeError if dtype == torch.float16 else ValueError):
             vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
         return
     got = vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
     assert got.variant == variant
-    pad = {(64, 4): 32, (24, 2): 16}.get((dim, heads), 0)
+    pad = {(64, 4): 32, (24, 2): 16, (192, 16): 16}.get((dim, heads), 0)
     assert got.pad == pad == vit_block.head_pad(variant, dim // heads)
     if variant == "mma":
-        assert set(got.tiles) <= {32, 64}
+        assert set(got.tiles) <= {32, 64} and got.warpgroups == 1
+    elif variant == "tf32x3":
+        assert set(got.tiles) <= {16, 32, 64} and got.warpgroups in (1, 2)
     else:
         assert got == vit_block.Plan("simt", (0, 0, 0, 0), pad)
 
@@ -152,8 +160,27 @@ def test_unaligned_input_is_copied():
 
 
 def test_plan_config_is_the_tiles():
-    assert vit_block.Plan("mma", (32, 64, 32, 64)).config() == (32, 64, 32, 64)
-    assert vit_block.Plan("simt").config() == (0, 0, 0, 0)
+    # The variant's code (the C entries' Variant), the N tiles, the
+    # warpgroups.
+    assert vit_block.Plan("mma", (32, 64, 32, 64)).config() == (1, 32, 64, 32, 64, 1)
+    assert vit_block.Plan("tf32x3", (64,) * 4, 0, 2).config() == (2, 64, 64, 64, 64, 2)
+    assert vit_block.Plan("simt").config() == (0, 0, 0, 0, 0, 1)
+
+
+@pytest.mark.parametrize("b,s,d,heads,tiles,wgs", [
+    (1, 80, 96, 2, (16, 16, 16, 16), 2),       # small: the app's update
+    (1, 320, 192, 3, (32, 16, 32, 16), 2),     # the flagship in float32
+    (16, 80, 96, 2, (32, 16, 32, 16), 2),      # small's 16-slot block
+    (16, 320, 192, 3, (64, 64, 64, 64), 1),    # the flagship's 16 slots
+    (1, 320, 256, 2, (32, 16, 32, 16), 1),     # head dim 128: one warpgroup
+    (1, 20, 32, 2, (16, 16, 16, 16), 2)])      # the dry run's serving model
+def test_plan_tf32x3_tiles_and_warpgroups(b, s, d, heads, tiles, wgs):
+    # tf32x3's N tile: 64 once 64-wide tiles fill the card, 16 where 32-wide
+    # ones would leave more than half of it idle, else 32; two warpgroups a
+    # CTA (a query tile's key blocks, a product's K) while the attention's
+    # grid is smaller than the card (head dims up to 64).
+    got = vit_block.plan(b, s, d, heads, 4 * d, F32, H100_SMS)
+    assert got == vit_block.Plan("tf32x3", tiles, 0, wgs)
 
 
 # ---------------------------------------------------------------------------
@@ -434,21 +461,24 @@ def _padded_twin(x, stacked, heads, pad):
 
 
 @pytest.mark.parametrize("variant,d,heads", [
-    ("simt", 48, 4), ("simt", 96, 4), ("mma", 192, 4), ("mma", 64, 8)])
+    ("simt", 48, 4), ("simt", 96, 4), ("mma", 192, 4), ("mma", 64, 8),
+    ("tf32x3", 96, 8), ("tf32x3", 64, 16)])
 def test_padded_heads_through_the_twin_equal_the_unpadded(variant, d, heads):
-    # The operand cache pads float32 heads for "simt" (12 -> 16, 24 -> 32);
-    # the same function pads them as "mma" would (48 -> 64, 8 -> 32), here in
-    # float32 arithmetic.  Zero columns of qkv, zero rows of proj, the true
-    # head dim's scale: the twin on the padded weights equals the unpadded
-    # twin to 1e-6.
+    # The operand cache pads float32 heads for "simt" (12 -> 16, 24 -> 32,
+    # asked for by name: tf32x3 takes D 96 with dh 24 as it is); the same
+    # function pads them as "mma" (48 -> 64, 8 -> 32) and "tf32x3" (12 -> 16,
+    # 4 -> 8) would, here in float32 arithmetic (tf32x3's cache also splits
+    # them: tests/test_torch_encoder_tf32.py).  Zero columns of qkv, zero
+    # rows of proj, the true head dim's scale: the twin on the padded
+    # weights equals the unpadded twin to 1e-6.
     depth, dh = 2, d // heads
     pad = vit_block.head_pad(variant, dh)
     assert pad > dh
     flat = _flat(depth, d=d, hidden=2 * d)
     flat = [t * (d ** -0.5 if t.dim() == 2 else 0.1) for t in flat]
     if variant == "simt":
-        stacked = vit_block._operands(flat, depth, F32, heads)
-        assert vit_block._operands(flat, depth, F32, heads) is stacked
+        stacked = vit_block._operands(flat, depth, F32, heads, "simt")
+        assert vit_block._operands(flat, depth, F32, heads, "simt") is stacked
     else:
         stacked = vit_block._pad_heads(vit_block._stack(flat, depth), heads, pad)
     e = heads * pad
