@@ -64,8 +64,9 @@
 // By instruction count about half of a warp's work is splitting the K and V
 // blocks, which each of the four warps does again for its own rows.
 //
-// Variant "simt" (bf16 head dims the tiles do not take; the float32 design
-// before "tf32x3", kept as the yardstick of the timings): f32 FMA products
+// Variant "simt" (the design of bf16 head dims the tiles do not take, which
+// ops/attention.py now pads to 32 / 64 / 128 for "mma", and of float32
+// before "tf32x3"; taken only by name, the yardstick of the timings): f32 FMA products
 // without TF32, q widened and scaled first as the TPU kernels do.  A CTA has
 // W warps of R query rows each; K is held transposed in shared memory at an
 // odd word stride, V as is, the f32 scores of the CTA's rows too (16 warps x 4

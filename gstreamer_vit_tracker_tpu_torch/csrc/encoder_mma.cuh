@@ -8,11 +8,13 @@
 //   columns.  A (the activations, (M, K) row-major: K-major as they lie) and
 //   W (the weight, (K, N) row-major: N-major as it lies, the transpose bit of
 //   the descriptor) arrive by 16-byte cp.async in 64-deep chunks.
-//   * LN (qkv, mlp1; K = D): every chunk of the 64 rows is resident before
-//     the first product; each row's mean, then the mean of (x - mu)^2, are
-//     taken in f32 from the bf16 x, the row is normalised, scaled and shifted
-//     in f32 with no contraction (the twin's separate roundings), rounded to
-//     bf16 once, and written back into the A tile.
+//   * LN (qkv, mlp1; K = the residual width W, D rounded up to a multiple
+//     of 64): every chunk of the 64 rows is resident before the first
+//     product; each row's mean, then the mean of (x - mu)^2, are taken in
+//     f32 from the bf16 x over its D true columns (ln_dim; the W - D padded
+//     ones are zeros and enter neither sum), the row is normalised, scaled
+//     and shifted in f32 with no contraction (the twin's separate roundings),
+//     rounded to bf16 once, and written back into the A tile.
 //   * no LN (proj, mlp2; K = D or the MLP width): K walks a ring of kRing
 //     chunks, the next chunks' copies in flight while one is multiplied.
 //   Every 16-deep step of a product goes to a fresh accumulator, and the
@@ -131,20 +133,24 @@ inline size_t product_smem_bytes(int bn, int chunks) {
 }
 
 // The resident A tile (64 rows x K, K / 64 panels) LayerNormed in place, as
-// models/vit.py::layer_norm computes it: mean = sum(x) / K, var =
-// sum((x - mean)^2) / K (a sum divided, as torch's mean is on the CPU),
-// y = (x - mean) . (1 / sqrt(var + eps)), then
-// y . scale + bias, every operation rounded on its own (no contraction), and
-// one rounding to bf16.  Eight lanes a row, four rows a warp at a time; lane
+// models/vit.py::layer_norm computes it over the d true columns (d <= K; the
+// K - d past them are the zero padding of the residual stream): mean =
+// sum(x) / d, var = sum((x - mean)^2) / d (a sum divided, as torch's mean is
+// on the CPU), y = (x - mean) . (1 / sqrt(var + eps)), then y . scale +
+// bias, every operation rounded on its own (no contraction), and one
+// rounding to bf16.  A padded column adds nothing to either sum (its
+// (0 - mean)^2 would: it is masked), and its scale and bias are zeros, so
+// it comes out 0.  With d = K the mask is always true and the arithmetic is
+// the unpadded one's.  Eight lanes a row, four rows a warp at a time; lane
 // c holds 16-byte chunk c of every panel.  Rows past M are zeros and come
 // out as the LN bias: the epilogue drops them.
 __device__ __forceinline__ void layer_norm_tile(unsigned char* tile, const bf16* __restrict__ s,
-                                                const bf16* __restrict__ b, int K) {
+                                                const bf16* __restrict__ b, int K, int d) {
   using TA = mma::Tile<64>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = lane & 7, panels = K / kChunk;
   constexpr int kPanelBytes = TA::bytes(kTileRows);
-  const float k = (float)K;
+  const float k = (float)d;
   for (int r = warp * 16 + (lane >> 3); r < warp * 16 + 16; r += 4) {
     unsigned char* row = tile + TA::offset(r, c);
     float sum = 0.f;
@@ -152,7 +158,8 @@ __device__ __forceinline__ void layer_norm_tile(unsigned char* tile, const bf16*
       const uint4 v = *reinterpret_cast<const uint4*>(row + p * kPanelBytes);
       const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sum = __fadd_rn(sum, __bfloat162float(e[i]));
+      for (int i = 0; i < 8; ++i)
+        if (p * kChunk + c * 8 + i < d) sum = __fadd_rn(sum, __bfloat162float(e[i]));
     }
     const float mu = __fdiv_rn(group8_sum(sum), k);
     float var = 0.f;
@@ -161,6 +168,7 @@ __device__ __forceinline__ void layer_norm_tile(unsigned char* tile, const bf16*
       const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
+        if (p * kChunk + c * 8 + i >= d) continue;
         const float t = __fsub_rn(__bfloat162float(e[i]), mu);
         var = __fadd_rn(var, __fmul_rn(t, t));
       }
@@ -189,12 +197,13 @@ __device__ __forceinline__ void layer_norm_tile(unsigned char* tile, const bf16*
 // A: (M, K) row-major; W: (K, N) row-major; C: (M, N), which may alias the
 // residual (EPI == kEpiResidual reads C before writing it, element by element
 // in the same thread).  K is a multiple of 64, N of BN.  LN: K / 64 slots,
-// every chunk resident; else kRing slots.
+// every chunk resident, the LayerNorm over the first ln_dim columns of A
+// (layer_norm_tile); else kRing slots, ln_dim unread.
 template <int BN, int EPI, bool LN>
 __global__ void __launch_bounds__(kThreads)
 product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                const bf16* __restrict__ bias, const bf16* __restrict__ ln_s,
-               const bf16* __restrict__ ln_b, bf16* C, int M, int N, int K) {
+               const bf16* __restrict__ ln_b, bf16* C, int M, int N, int K, int ln_dim) {
   using TA = mma::Tile<64>;
   using TB = mma::Tile<BN>;
   constexpr int kRegs = TB::kPanelCols / 2;   // accumulators a thread holds a panel
@@ -259,7 +268,7 @@ product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     mma::cp_async_commit();
     mma::cp_async_wait<0>();
     __syncthreads();
-    layer_norm_tile(a_ptr, ln_s, ln_b, K);
+    layer_norm_tile(a_ptr, ln_s, ln_b, K, ln_dim);
     mma::fence_async_proxy();                 // generic writes -> the tensor cores' reads
     __syncthreads();
     for (int c = 0; c < chunks; ++c) product(c);

@@ -31,10 +31,26 @@
 // the true head dim's (D / H)^-1/2.  Zeros add exactly to an f32 sum, so a
 // padded head computes what the unpadded one does.
 //
-// "mma" (bf16, head dim 32 / 64 / 128, D and the MLP width multiples of 64,
-// D up to 768): five launches a block, the tiles of encoder_mma.cuh:
+// "mma" (bf16, head dim 32 / 64 / 128, D up to 768): five launches a block,
+// the tiles of encoder_mma.cuh:
 //   1. LN1 + qkv  2. attention  3. proj + residual  4. LN2 + mlp1 + GELU
 //   5. mlp2 + residual; each product's N tile (32 or 64) as the plan says.
+// Its products take K in 64-deep chunks, so a D or an MLP width that is no
+// multiple of 64 runs zero-padded to the next one (the `small` architecture
+// in bf16: D 96 -> W 128).  The plan pads the weights once per parameter
+// set: zero rows of the qkv and mlp1 kernels past D and past the MLP width
+// of mlp2, zero columns of proj, mlp1 and mlp2 and of their biases, zero LN
+// scale and bias past D.  The residual stream is carried at the padded width
+// W in the scratch h: x is copied in with zero columns past D, and the first
+// D columns are copied out after the last block.  The LN prologue takes its
+// mean and variance over the D true columns alone (the padded columns' (0 -
+// mean)^2 is masked), and its output is 0 past D (0 scale, 0 bias).  Every
+// padded column then stays exactly 0 through a block: the qkv product reads
+// it against zero rows; proj and mlp2 write acc 0 + bias 0 = 0 there and the
+// residual adds 0 to 0; mlp1's padded columns are 0 + 0 and GELU(0) =
+// 0.5 . 0 . (1 + tanh 0) = 0, read by mlp2 against zero rows.  Zeros add
+// exactly to an f32 sum, so a padded block computes what an unpadded one
+// would, and D already a multiple of 64 (the flagship) pads nothing.
 //
 // "tf32x3" (float32, head dims that are multiples of 8 up to 128, D up to
 // 512 and the MLP width multiples of 32): the same five launches a block, the
@@ -373,8 +389,9 @@ const T* layer(const void* p, int l, size_t per_layer) {
 
 enum Variant { kSimt = 0, kMma = 1, kTf32x3 = 2 };
 
-// Block l's weights; E is the inner width H . head_dim.  "tf32x3" takes each
-// kernel as two planes (hi, lo), so a block's kernel is twice as long.
+// Block l's weights; W is the residual width (D, or "mma"'s padded one), E
+// the inner width H . head_dim.  "tf32x3" takes each kernel as two planes
+// (hi, lo), so a block's kernel is twice as long.
 Weights layer_weights(const Weights& w, int l, int D, int E, int hidden, int dtype,
                       int variant) {
   const size_t e = dtype == 1 ? sizeof(bf16) : sizeof(float);
@@ -422,23 +439,28 @@ cudaError_t allow_smem(K kernel, int (&allowed)[kMaxDevices], size_t smem) {
 
 template <int BN, int EPI, bool LN>
 cudaError_t product_bn(const bf16* A, const bf16* W, const bf16* bias, const bf16* ln_s,
-                       const bf16* ln_b, bf16* C, int M, int N, int K, cudaStream_t st) {
+                       const bf16* ln_b, bf16* C, int M, int N, int K, int ln_dim,
+                       cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
   const auto kernel = encoder_mma::product_kernel<BN, EPI, LN>;
   const size_t smem =
       encoder_mma::product_smem_bytes(BN, LN ? K / encoder_mma::kChunk : encoder_mma::kRing);
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   const dim3 grid(N / BN, (M + mma::kTileRows - 1) / mma::kTileRows);
-  kernel<<<grid, mma::kThreads, smem, st>>>(A, W, bias, ln_s, ln_b, C, M, N, K);
+  kernel<<<grid, mma::kThreads, smem, st>>>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim);
   return cudaGetLastError();
 }
 
+// ln_dim: the true columns of A the LayerNorm runs over (LN products; K or
+// fewer, the rest zero padding).
 template <int EPI, bool LN>
 cudaError_t product(int bn, const bf16* A, const bf16* W, const bf16* bias, const bf16* ln_s,
-                    const bf16* ln_b, bf16* C, int M, int N, int K, cudaStream_t st) {
-  if (N % bn || K % encoder_mma::kChunk) return cudaErrorInvalidValue;
-  if (bn == 32) return product_bn<32, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
-  if (bn == 64) return product_bn<64, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
+                    const bf16* ln_b, bf16* C, int M, int N, int K, int ln_dim,
+                    cudaStream_t st) {
+  if (N % bn || K % encoder_mma::kChunk || (LN && (ln_dim < 1 || ln_dim > K)))
+    return cudaErrorInvalidValue;
+  if (bn == 32) return product_bn<32, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim, st);
+  if (bn == 64) return product_bn<64, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim, st);
   return cudaErrorInvalidValue;
 }
 
@@ -544,28 +566,33 @@ cudaError_t layer_norm(const T* x, const T* s, const T* b, T* y, int rows, int d
 
 // Everything a call checks before its first launch: the shape against the
 // variant, and the variant against the dtype; dh is the head dim the kernels
-// run at, D / H or more.
-cudaError_t check(int variant, int dtype, int B, int S, int D, int H, int dh, int hidden) {
-  if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || (long long)B * S > 0x7fffffffLL)
+// run at, D / H or more; W the residual width, D or ("mma") D zero-padded to
+// the next multiple of 64; hidden the MLP width of the weights (padded).
+cudaError_t check(int variant, int dtype, int B, int S, int D, int W, int H, int dh,
+                  int hidden) {
+  if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || W < D
+      || (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   bool ok = false;
   if (variant == kMma)
-    ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128) && D % 64 == 0 && D <= 768
-         && hidden % 64 == 0;
+    ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128) && W % 64 == 0 && W - D < 64
+         && W <= 768 && hidden % 64 == 0;
   else if (variant == kTf32x3)
-    ok = dtype == 0 && dh % 8 == 0 && dh <= kAttMaxDh && D % 32 == 0
+    ok = dtype == 0 && W == D && dh % 8 == 0 && dh <= kAttMaxDh && D % 32 == 0
          && D <= encoder_tf32::kMaxDim && hidden % 32 == 0;
   else if (variant == kSimt)
-    ok = dtype == 0 && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0;
+    ok = dtype == 0 && W == D && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One pre-LN block in place on x (B * S rows): five launches (bf16: mma;
-// float32: tf32x3) or seven (float32: simt).  w points at this block's
-// weights; heads of dh (D / H, or a zero-padded one above it) in an inner
-// width E = H . dh; h (B * S, D) is read by simt alone.
+// One pre-LN block in place on x (B * S rows of W, the residual width):
+// five launches (bf16: mma; float32: tf32x3) or seven (float32: simt).  w
+// points at this block's weights; heads of dh (D / H, or a zero-padded one
+// above it) in an inner width E = H . dh; h (B * S, D) is read by simt
+// alone.  W = D but for "mma", whose LN products normalise the first D of
+// W columns.
 template <typename T>
-cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, int dh,
+cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, int H, int dh,
                            int hidden, const Config& c, T* hb, T* qkv, T* attn, T* hid,
                            cudaStream_t st) {
   const int M = B * S, E = H * dh;
@@ -595,14 +622,14 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, i
   }
   if constexpr (std::is_same<T, bf16>::value) {
     RETURN_IF_ERROR((product<kEpiRound, true>(c.bn[0], x, p(w.w_qkv), p(w.b_qkv), p(w.ln1_s),
-                                              p(w.ln1_b), qkv, M, 3 * E, D, st)));
+                                              p(w.ln1_b), qkv, M, 3 * E, W, D, st)));
     RETURN_IF_ERROR(attention_mma_dh(dh, qkv, attn, B, S, H, scale, st));
     RETURN_IF_ERROR((product<kEpiResidual, false>(c.bn[1], attn, p(w.w_proj), p(w.b_proj),
-                                                  nullptr, nullptr, x, M, D, E, st)));
+                                                  nullptr, nullptr, x, M, W, E, 0, st)));
     RETURN_IF_ERROR((product<kEpiGelu, true>(c.bn[2], x, p(w.w_mlp1), p(w.b_mlp1), p(w.ln2_s),
-                                             p(w.ln2_b), hid, M, hidden, D, st)));
+                                             p(w.ln2_b), hid, M, hidden, W, D, st)));
     return product<kEpiResidual, false>(c.bn[3], hid, p(w.w_mlp2), p(w.b_mlp2), nullptr,
-                                        nullptr, x, M, D, hidden, st);
+                                        nullptr, x, M, W, hidden, 0, st);
   } else {
     RETURN_IF_ERROR(layer_norm<T>(x, p(w.ln1_s), p(w.ln1_b), hb, M, D, st));
     RETURN_IF_ERROR((gemm<T, kEpiRound>(hb, p(w.w_qkv), p(w.b_qkv), nullptr, qkv, M, 3 * E, D,
@@ -619,34 +646,45 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int H, i
 }
 
 // `depth` blocks in place on x_out, a copy of x_in; w stacked over depth
-// (depth 1: one block's own weights).
+// (depth 1: one block's own weights).  With W > D ("mma" padded) the blocks
+// run on h_buf (B . S, W) instead: x_in copied into its first D columns,
+// the rest set to 0, and the first D columns copied to x_out at the end.
 template <typename T>
-cudaError_t forward(const Config& c, int B, int S, int D, int H, int dh, int hidden, int depth,
-                    const void* x_in, void* x_out, const Weights& w, void* h_buf, void* qkv_buf,
-                    void* attn_buf, void* hid_buf, cudaStream_t st) {
-  T* x = static_cast<T*>(x_out);
-  RETURN_IF_ERROR(cudaMemcpyAsync(x, x_in, (size_t)B * S * D * sizeof(T),
-                                  cudaMemcpyDeviceToDevice, st));
+cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, int hidden,
+                    int depth, const void* x_in, void* x_out, const Weights& w, void* h_buf,
+                    void* qkv_buf, void* attn_buf, void* hid_buf, cudaStream_t st) {
+  const size_t rows = (size_t)B * S, e = sizeof(T);
+  T* x = static_cast<T*>(W == D ? x_out : h_buf);
+  if (W == D) {
+    RETURN_IF_ERROR(cudaMemcpyAsync(x, x_in, rows * D * e, cudaMemcpyDeviceToDevice, st));
+  } else {
+    RETURN_IF_ERROR(cudaMemset2DAsync(x + D, W * e, 0, (W - D) * e, rows, st));
+    RETURN_IF_ERROR(cudaMemcpy2DAsync(x, W * e, x_in, D * e, D * e, rows,
+                                      cudaMemcpyDeviceToDevice, st));
+  }
   const int dtype = std::is_same<T, bf16>::value ? 1 : 0;
   for (int l = 0; l < depth; ++l)
-    RETURN_IF_ERROR(block_launches<T>(x, layer_weights(w, l, D, H * dh, hidden, dtype,
+    RETURN_IF_ERROR(block_launches<T>(x, layer_weights(w, l, W, H * dh, hidden, dtype,
                                                        c.variant), B, S,
-                                      D, H, dh, hidden, c, static_cast<T*>(h_buf),
+                                      D, W, H, dh, hidden, c, static_cast<T*>(h_buf),
                                       static_cast<T*>(qkv_buf), static_cast<T*>(attn_buf),
                                       static_cast<T*>(hid_buf), st));
+  if (W != D)
+    RETURN_IF_ERROR(cudaMemcpy2DAsync(x_out, D * e, x, W * e, D * e, rows,
+                                      cudaMemcpyDeviceToDevice, st));
   return cudaGetLastError();
 }
 
-cudaError_t run(const Config& c, int dtype, int B, int S, int D, int H, int dh, int hidden,
-                int depth, const void* x_in, void* x_out, const Weights& w, void* h, void* qkv,
-                void* attn, void* hid, cudaStream_t st) {
-  RETURN_IF_ERROR(check(c.variant, dtype, B, S, D, H, dh, hidden));
+cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, int dh,
+                int hidden, int depth, const void* x_in, void* x_out, const Weights& w, void* h,
+                void* qkv, void* attn, void* hid, cudaStream_t st) {
+  RETURN_IF_ERROR(check(c.variant, dtype, B, S, D, W, H, dh, hidden));
   if (depth < 1) return cudaErrorInvalidValue;
   if (dtype == 1)
-    return forward<bf16>(c, B, S, D, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn, hid,
-                         st);
-  return forward<float>(c, B, S, D, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn, hid,
-                        st);
+    return forward<bf16>(c, B, S, D, W, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn,
+                         hid, st);
+  return forward<float>(c, B, S, D, W, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn,
+                        hid, st);
 }
 
 }  // namespace
@@ -654,19 +692,25 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int H, int dh, 
 // variant: 0 = "simt" (float32), 1 = "mma" (bfloat16), 2 = "tf32x3"
 // (float32); bn_*, warpgroups: the N tiles and the warpgroups a CTA of the
 // plan (see Config above).  dtype: 0 =
-// float32, 1 = bfloat16.  head_dim: the head dim the kernels run at,
-// dim / heads or the zero-padded one of the weights (E = heads . head_dim
-// below; the scale stays (dim / heads)^-1/2).  All tensors contiguous on the
-// current device and 16-byte aligned: x (B, S, D); weights stacked over depth
-// as (depth, ...) with kernels (in, out), the qkv kernel (D, 3E) and bias (3E),
-// the proj kernel (E, D) ("tf32x3": each of the four kernels as two planes,
-// (depth, 2, in, out), hi = tf32(w) then lo = tf32(w - hi), rounded to nearest
-// with ties away from zero); scratch h (B*S, D) (read by "simt" alone), attn
-// (B*S, E), qkv (B*S, 3E), mlp_hidden (B*S, hidden).  x_out must not alias
-// x_in.  Returns a cudaError_t.
+// float32, 1 = bfloat16.  dim: D, the width of x and of the output; width:
+// the residual width W the weights have, D or ("mma") D zero-padded to the
+// next multiple of 64 (see the header).  head_dim: the head dim the kernels
+// run at, dim / heads or the zero-padded one of the weights (E = heads .
+// head_dim below; the scale stays (dim / heads)^-1/2).  hidden: the MLP
+// width of the weights.  All tensors contiguous on the current device and
+// 16-byte aligned: x (B, S, D); weights stacked over depth as (depth, ...)
+// with kernels (in, out), LN scales and biases and the proj and mlp2 biases
+// (W), the qkv kernel (W, 3E) and bias (3E), the proj kernel (E, W), mlp1
+// (W, hidden), mlp2 (hidden, W) ("tf32x3": each of the four kernels as two
+// planes, (depth, 2, in, out), hi = tf32(w) then lo = tf32(w - hi), rounded
+// to nearest with ties away from zero); scratch h (B*S, D) read by "simt"
+// alone, (B*S, W) the residual stream of a padded "mma" call, attn (B*S,
+// E), qkv (B*S, 3E), mlp_hidden (B*S, hidden).  x_out must not alias x_in.
+// Returns a cudaError_t.
 extern "C" int vit_encoder_forward(
     int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups,
-    int dtype, int batch, int seq, int dim, int heads, int head_dim, int hidden, int depth,
+    int dtype, int batch, int seq, int dim, int width, int heads, int head_dim, int hidden,
+    int depth,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
@@ -675,8 +719,8 @@ extern "C" int vit_encoder_forward(
   const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
-  return (int)run(c, dtype, batch, seq, dim, heads, head_dim, hidden, depth, x_in, x_out, w, h,
-                  qkv, attn, mlp_hidden, static_cast<cudaStream_t>(stream));
+  return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, depth, x_in, x_out,
+                  w, h, qkv, attn, mlp_hidden, static_cast<cudaStream_t>(stream));
 }
 
 // One pre-LN block: replaces the TPU kernel
@@ -692,7 +736,7 @@ extern "C" int vit_encoder_forward(
 // 5.9 us at 989 TFLOP/s).  Returns a cudaError_t.
 extern "C" int vit_block_forward(
     int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups,
-    int dtype, int batch, int seq, int dim, int heads, int head_dim, int hidden,
+    int dtype, int batch, int seq, int dim, int width, int heads, int head_dim, int hidden,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
@@ -701,6 +745,6 @@ extern "C" int vit_block_forward(
   const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
-  return (int)run(c, dtype, batch, seq, dim, heads, head_dim, hidden, 1, x_in, x_out, w, h, qkv,
-                  attn, mlp_hidden, static_cast<cudaStream_t>(stream));
+  return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, 1, x_in, x_out, w,
+                  h, qkv, attn, mlp_hidden, static_cast<cudaStream_t>(stream));
 }

@@ -20,32 +20,36 @@ made, and a block of the encoder is one launch here.
 Each kernel has three variants, chosen by :func:`plan` from (dtype, head
 dim) before the launch:
 
-* ``"mma"``: bfloat16 with head dim 32, 64 or 128.  Both products on the
-  tensor cores (``wgmma``), K and V in shared memory as they lie, the softmax
-  online over key blocks in the accumulator registers, p rounded to bf16 for
-  the second product.  Every serving path takes it.
+* ``"mma"``: bfloat16, every head dim up to 128 (the tiles take 32, 64
+  and 128; another runs zero-padded to the next of them, below).  Both
+  products on the tensor cores (``wgmma``), K and V in shared memory as they
+  lie, the softmax online over key blocks in the accumulator registers, p
+  rounded to bf16 for the second product.  Every serving path takes it.
 * ``"tf32x3"``: float32, every head dim (the training step, the ``small``
   preset).  Both products on the tensor cores (``mma.sync``) to float32's
   accuracy: each operand split into two TF32 parts, three products a
   product; the softmax online in the accumulator registers as in ``"mma"``.
-* ``"simt"``: bf16 head dims the tiles do not take (f32 FMA products, no
-  tensor cores).  It was the float32 variant before ``"tf32x3"`` and stays
-  reachable through ``prepared(..., chosen=Plan(route, "simt"))`` as the
-  yardstick of the timings.
+* ``"simt"``: f32 FMA products, no tensor cores, any head dim that is a
+  multiple of 8.  It was the float32 variant before ``"tf32x3"`` and the
+  bf16 one of head dims the ``"mma"`` tiles do not take before those ran
+  padded, and stays reachable through ``prepared(..., chosen=Plan(route,
+  "simt"))`` as the yardstick of the timings; no rule gives it.
 
-A head dim from 1 to 128 that no variant takes (not a multiple of 8) is
-zero-padded: q, k and v are copied into contiguous buffers whose head dim is
-the next of 32 / 64 / 128 for bf16 (so that ``"mma"`` runs) or the next
-multiple of 8 for float32, the kernel runs with the softmax scale of the
-true head dim (an argument of the C entries), and the output is sliced
-back.  Zeros add exactly to an f32 sum, so the arithmetic is the kernel's
-own.
+A head dim from 1 to 128 that the dtype's variant does not take as it is
+(bf16: not 32, 64 or 128; float32: not a multiple of 8) is zero-padded:
+q, k and v are copied into contiguous buffers whose head dim is the next of
+32 / 64 / 128 for bf16 or the next multiple of 8 for float32, the kernel
+runs with the softmax scale of the true head dim (an argument of the C
+entries), and the output is sliced back.  Zeros add exactly to an f32 sum,
+so the arithmetic is the kernel's own; the padding costs work (a third more
+at dh 48 -> 64 and 96 -> 128) and the copies.
 
 and by length: ``attention_single`` while K and V of all S keys fit the shared
 memory of an SM twice over (``"mma"``: 384 keys at head dim 64 on the H100;
-``"tf32x3"``: 128) or once (``"simt"``, which holds the f32 scores there
-too), ``attention_flash`` beyond.  No result depends on the rule.  It is a
-rule, not a fallback: a CUDA tensor launches the chosen kernel or raises.
+``"tf32x3"``: 128) or once (``"simt"`` by name, which holds the f32 scores
+there too), ``attention_flash`` beyond.  No result depends on the rule.  It
+is a rule, not a fallback: a CUDA tensor launches the chosen kernel or
+raises.
 A head dim above 128 raises (a tile's shared memory and registers hold 128);
 operands whose last dimension is not contiguous, or whose bases or strides
 are not multiples of 16 bytes, are copied into contiguous ones first and
@@ -136,18 +140,25 @@ def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
             + rows * dh * 4 + rows * (-(-keys // 4) * 4) * 4)
 
 
+def variant_pad(variant: str, dh: int) -> int:
+    """The head dim ``variant`` runs a head dim ``dh`` (1 to 128) at when
+    it does not take it as it is, else 0: ``"mma"`` the next of 32, 64 and
+    128, ``"tf32x3"`` and ``"simt"`` the next multiple of 8."""
+    if variant == "mma":
+        return 0 if dh in _MMA_HEAD_DIMS else next(
+            d for d in _MMA_HEAD_DIMS if d > dh)
+    return 0 if dh % 8 == 0 else -(-dh // 8) * 8
+
+
 def padded_head_dim(dh: int, dtype: torch.dtype) -> int:
-    """The head dim q, k and v are zero-padded to, 0 if a variant takes
-    ``dh`` as it is (a multiple of 8); bf16 pads to the next of 32 / 64 /
-    128 (``"mma"``), float32 to the next multiple of 8 (``"tf32x3"``).
-    Above 128 it raises ``ValueError``."""
+    """The head dim q, k and v are zero-padded to, 0 if the dtype's
+    variant takes ``dh`` as it is: bf16 pads every head dim but 32, 64 and
+    128 to the next of them (``"mma"``), float32 one that is no multiple of
+    8 to the next multiple of 8 (``"tf32x3"``).  Above 128 it raises
+    ``ValueError``."""
     if dh < 1 or dh > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} must be 1 to {_MAX_HEAD_DIM}")
-    if dh % 8 == 0:
-        return 0
-    if dtype == torch.bfloat16:
-        return next(d for d in _MMA_HEAD_DIMS if d > dh)
-    return -(-dh // 8) * 8
+    return variant_pad("mma" if dtype == torch.bfloat16 else "tf32x3", dh)
 
 
 def entry_head_dims(dh: int, chosen: Plan) -> Tuple[int, int]:
@@ -164,17 +175,15 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     (:func:`padded_head_dim`) and the plan of the padded one; above 128 it
     raises ``ValueError``.
 
-    Variant: ``"tf32x3"`` for float32, ``"mma"`` for bf16 at the head dims
-    the tiles take, ``"simt"`` for other bf16 head dims.  Kernel:
-    ``"mma"`` and ``"tf32x3"`` take ``"single"`` while two CTAs that hold
-    all S keys fit one SM (one CTA's copies then fly while the other
-    computes; measured, a lone CTA that first waits for 600 keys loses to
-    the ring), ``"simt"`` while one fits; ``"flash"`` beyond, ``"tf32x3"``
-    with a ring of two 64-key blocks.  ``bh`` (batch x heads)
-    and the card's ``sms`` only shape the ``"mma"`` ring: while the 64-row
-    tiles are fewer than the SMs, two warpgroups a CTA split the keys of
-    128-key blocks; a grid that fills the card takes 64-key blocks, one
-    warpgroup and more CTAs an SM."""
+    Variant: ``"tf32x3"`` for float32, ``"mma"`` for bf16 (``"simt"``
+    only by name).  Kernel: ``"single"`` while two CTAs that hold all S
+    keys fit one SM (one CTA's copies then fly while the other computes;
+    measured, a lone CTA that first waits for 600 keys loses to the ring);
+    ``"flash"`` beyond, ``"tf32x3"`` with a ring of two 64-key blocks.
+    ``bh`` (batch x heads) and the card's ``sms`` only shape the ``"mma"``
+    ring: while the 64-row tiles are fewer than the SMs, two warpgroups a
+    CTA split the keys of 128-key blocks; a grid that fills the card takes
+    64-key blocks, one warpgroup and more CTAs an SM."""
     pad = padded_head_dim(dh, dtype)
     if pad:
         return plan(s, pad, dtype, optin_bytes, bh, sms)._replace(pad=pad)
@@ -183,16 +192,12 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
                       kb=_TF32_KEYS) <= optin_bytes // 2:
             return Plan("single", "tf32x3", kb=_TF32_KEYS)
         return Plan("flash", "tf32x3", kb=_TF32_KEYS, stages=2)
-    if dh in _MMA_HEAD_DIMS:
-        if smem_bytes("single", "mma", s, dh, 2, kb=64) <= optin_bytes // 2:
-            return Plan("single", "mma", kb=64)
-        if -(-s // _MMA_ROWS) * bh > sms:
-            return Plan("flash", "mma", kb=64, stages=2, warpgroups=1)
-        return Plan("flash", "mma", kb=128 if dh <= 64 else 64, stages=2,
-                    warpgroups=2)
-    if smem_bytes("single", "simt", s, dh, 2) <= optin_bytes:
-        return Plan("single", "simt")
-    return Plan("flash", "simt")
+    if smem_bytes("single", "mma", s, dh, 2, kb=64) <= optin_bytes // 2:
+        return Plan("single", "mma", kb=64)
+    if -(-s // _MMA_ROWS) * bh > sms:
+        return Plan("flash", "mma", kb=64, stages=2, warpgroups=1)
+    return Plan("flash", "mma", kb=128 if dh <= 64 else 64, stages=2,
+                warpgroups=2)
 
 
 _Strides = ctypes.c_longlong * 12
@@ -320,11 +325,14 @@ def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     """Checks, the plan, q, k and v as the kernel reads them (read in
     place, copied where their layout asks for it, or zero-padded), the
     output (B, S, heads * the kernel's head dim) and the C entry's arguments
-    up to the stream, for q, k, v of shape (B, S, heads * dh)."""
+    up to the stream, for q, k, v of shape (B, S, heads * dh).  A plan a
+    caller named gets its variant's pad (:func:`variant_pad`)."""
     _check(q, k, v, heads)
     b, s, dm = q.shape
     if chosen is None:
         chosen = _plan_for(q.device, s, dm // heads, q.dtype, b * heads)
+    else:
+        chosen = chosen._replace(pad=variant_pad(chosen.variant, dm // heads))
     dh, scale_dh = entry_head_dims(dm // heads, chosen)
     if chosen.pad:
         q, k, v = (_padded(t, heads, chosen.pad) for t in (q, k, v))

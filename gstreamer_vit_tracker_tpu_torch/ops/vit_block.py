@@ -12,8 +12,8 @@ source's header states what bounds it on the H100.
 takes (a rule, not a fallback; the C entries take the plan's variant and
 N tiles as ints):
 
-* ``"mma"``: bf16 with head dim 32, 64 or 128, D (up to 768) and the MLP
-  width multiples of 64 (every bf16 preset).  Five launches a block:
+* ``"mma"``: bf16 with D up to 768 and any MLP width (every bf16 preset,
+  and the ``small`` architecture in bf16, D 96).  Five launches a block:
   ``wgmma`` products with the LayerNorm in the prologue of the qkv and mlp1
   products and the bias / GELU / residual epilogue on the accumulator
   registers, and an attention that reads q, k and v from the qkv buffer
@@ -45,15 +45,21 @@ A head dim from 1 to 128 that the variant does not take as it is (bf16: not
 multiple of 16) is zero-padded to the next one it takes: the qkv weight and
 bias get zero columns a head and the proj weight zero rows a head (in the
 operand cache, so once per parameter set), the attention runs at the padded
-head dim with the true one's scale, and LayerNorm, the MLP and the residual
-width D stay as they are.  Zeros add exactly to an f32 sum: a padded head
-computes what the unpadded one does.  A CUDA call on a shape no variant of
-its dtype can take even so (a head dim above 128; for ``"mma"`` D above
-768, or D or the MLP width no multiple of 64; in float32 an MLP width no
-multiple of 16) raises; none goes to the plain twin.  An x or a weight that is not
-contiguous with a 16-byte aligned base is copied into one that is before
-the launch.  Neither kernel needs more shared memory for a longer sequence:
-both walk the keys through a ring of fixed size.
+head dim with the true one's scale.  ``"mma"`` also pads a D or an MLP width
+that is no multiple of 64 (its products' K chunk) to the next one,
+``Plan.width`` and ``Plan.mlp`` (:func:`_pad_width`: zero LN scale and bias,
+zero rows of the qkv and mlp1 kernels and of mlp2's past the MLP width, zero
+columns of proj, mlp1 and mlp2 and their biases): the kernel carries the
+residual stream at the padded width with zero columns, takes the LayerNorm's
+statistics over the true D, and copies x in and the result out at D
+(``csrc/vit_encoder.cu``'s header says why every padded column stays 0).
+Zeros add exactly to an f32 sum: a padded head or width computes what the
+unpadded one does.  A CUDA call on a shape no variant of its dtype can take
+even so (a head dim above 128; for ``"mma"`` D above 768; in float32 an MLP
+width no multiple of 16) raises; none goes to the plain twin.  An x or a
+weight that is not contiguous with a 16-byte aligned base is copied into
+one that is before the launch.  Neither kernel needs more shared memory for
+a longer sequence: both walk the keys through a ring of fixed size.
 
 :func:`encoder` takes the kernel for a CUDA tensor and the plain twin
 :func:`encoder_reference` (a chain of ``models/vit.py::_block``, which
@@ -112,8 +118,9 @@ _VARIANTS = {dtype: v[0] for dtype, v in _DTYPE_VARIANTS.items()}
 _MAX_HEAD_DIM = 128
 # Geometry of the kernels, as csrc/vit_encoder.cu and encoder_mma.cuh have
 # it.  "mma": a product CTA owns 64 rows by an N tile of 32 or 64 columns and
-# K arrives in 64-deep chunks; the qkv and mlp1 products hold all D / 64
-# chunks of their rows for the LayerNorm, which at D = 768 and N 64 is
+# K arrives in 64-deep chunks (so D and the MLP width run padded to whole
+# chunks); the qkv and mlp1 products hold all D / 64 chunks of their rows
+# for the LayerNorm, which at D = 768 and N 64 is
 # 1024 + 12 x 64 x (64 + 64) x 2 = 197,632 bytes of the H100's 232,448.  The
 # attention takes 64 query rows and walks 64-key blocks through a ring of 2
 # (82,944 bytes at head dim 128, for any S).  "tf32x3": the same 64 rows,
@@ -133,6 +140,8 @@ class Plan(NamedTuple):
     tiles: Tuple[int, ...] = (0, 0, 0, 0)      # N tile of qkv, proj, mlp1, mlp2
     pad: int = 0                               # padded head dim (0: none)
     warpgroups: int = 1                        # "tf32x3": warpgroups a CTA
+    width: int = 0                             # "mma": padded D (0: none)
+    mlp: int = 0                               # "mma": padded MLP width
 
     def config(self) -> Tuple[int, ...]:
         """The 6 ints the C entries take first (``Config`` in the source):
@@ -149,9 +158,9 @@ def _refusal(variant: str, dim: int, heads: int,
     if dim // heads > _MAX_HEAD_DIM:
         return f"head dim {dim // heads} is above {_MAX_HEAD_DIM}"
     if variant == "mma":
-        if dim % _CHUNK or dim > _MMA_MAX_DIM or hidden % _CHUNK:
-            return (f"embed dim {dim} and MLP width {hidden} must be "
-                    f"multiples of 64, the embed dim at most {_MMA_MAX_DIM}")
+        if dim > _MMA_MAX_DIM or hidden < 1:
+            return (f"embed dim {dim} must be at most {_MMA_MAX_DIM} and MLP "
+                    f"width {hidden} at least 1")
         return None
     if variant == "tf32x3":
         if dim % _TF32_CHUNK or dim > _TF32_MAX_DIM or hidden % _TF32_CHUNK:
@@ -173,6 +182,17 @@ def head_pad(variant: str, dh: int) -> int:
             d for d in (32, 64, 128) if d > dh)
     step = 8 if variant == "tf32x3" else 16
     return 0 if dh % step == 0 else -(-dh // step) * step
+
+
+def width_pads(variant: str, dim: int, hidden: int) -> Tuple[int, int]:
+    """(D, MLP width) that ``variant`` runs a ``dim`` and ``hidden`` at
+    when it does not take them as they are, else 0 each: ``"mma"`` the next
+    multiple of 64 (its products' K chunk); the float32 variants pad
+    neither."""
+    if variant != "mma":
+        return 0, 0
+    return tuple(0 if n % _CHUNK == 0 else -(-n // _CHUNK) * _CHUNK
+                 for n in (dim, hidden))
 
 
 def _variant(dtype: torch.dtype, dim: int, heads: int,
@@ -202,18 +222,20 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
     """The variant and the product tiles for a ``(batch, seq, dim)`` input
     with ``heads`` heads and MLP width ``hidden`` on a card of ``sms`` SMs.
 
-    * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128, dim and
-      hidden multiples of 64, dim up to 768); for float32 ``"tf32x3"``
-      (head dim a multiple of 8, dim and hidden multiples of 32, dim up to
-      512), else ``"simt"`` (head dim a multiple of 16, hidden a multiple
-      of 16).  Another head dim up to 128 gets ``pad``, the one it is
-      zero-padded to (:func:`head_pad`).  A shape no variant of the dtype
-      can take even so raises ``ValueError``; another dtype raises
-      ``TypeError``.
-    * ``"mma"`` and ``"tf32x3"`` N tile of each product: 64 once 64-wide
-      tiles give a grid of at least ``sms`` CTAs, else 32 (at batch 1 the
-      grid is the latency: more, smaller CTAs), and for ``"tf32x3"`` 16
-      where 32-wide ones would leave more than half the SMs idle.  On the
+    * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128, dim up to
+      768); for float32 ``"tf32x3"`` (head dim a multiple of 8, dim and
+      hidden multiples of 32, dim up to 512), else ``"simt"`` (head dim a
+      multiple of 16, hidden a multiple of 16).  Another head dim up to 128
+      gets ``pad``, the one it is zero-padded to (:func:`head_pad`);
+      ``"mma"``'s dim and hidden that are no multiple of 64 get ``width``
+      and ``mlp``, the ones they are zero-padded to (:func:`width_pads`).
+      A shape no variant of the dtype can take even so raises
+      ``ValueError``; another dtype raises ``TypeError``.
+    * ``"mma"`` and ``"tf32x3"`` N tile of each product (of its padded
+      width): 64 once 64-wide tiles give a grid of at least ``sms`` CTAs,
+      else 32 (at batch 1 the grid is the latency: more, smaller CTAs), and
+      for ``"tf32x3"`` 16 where 32-wide ones would leave more than half the
+      SMs idle.  On the
       flagship's shape that is 32 for every bf16 product at batch 1 and 64
       at batch 16.
     * ``"tf32x3"`` ``warpgroups``: 2 when the attention's grid (64-query tiles x
@@ -240,10 +262,12 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
         return Plan("simt", pad=pad)
     rows = -(-batch * seq // _ROWS)
     dh = pad or dim // heads
-    tiles = _tiles(rows, heads * dh, dim, hidden, sms, variant == "tf32x3")
+    width, mlp = width_pads(variant, dim, hidden)
+    tiles = _tiles(rows, heads * dh, width or dim, mlp or hidden, sms,
+                   variant == "tf32x3")
     wgs = (2 if variant == "tf32x3" and dh <= _SPLIT_MAX_DH
            and -(-seq // _ROWS) * batch * heads < sms else 1)
-    return Plan(variant, tiles, pad, wgs)
+    return Plan(variant, tiles, pad, wgs, width, mlp)
 
 
 def encoder_reference(x: torch.Tensor, blocks: Sequence[Params],
@@ -299,9 +323,9 @@ _LIB: List[ctypes.CDLL] = []
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' signatures on a loaded ``vit_encoder``
     library."""
-    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 14
+    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 15
                                         + [ctypes.c_void_p] * 19)
-    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 13
+    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 14
                                       + [ctypes.c_void_p] * 19)
     for fn in (lib.vit_encoder_forward, lib.vit_block_forward):
         fn.restype = ctypes.c_int
@@ -341,13 +365,14 @@ def _check_x(x: torch.Tensor, num_heads: int) -> None:
 
 
 def _check(x: torch.Tensor, weights: List[torch.Tensor], inner: int,
-           stacked: bool, split: bool = False):
-    """Raise on weights that do not fit x and the inner width ``inner``
-    (heads x the head dim the kernels run at).  ``weights`` in ``_FIELDS``
-    order: stacked over depth for the encoder, one block's own for the
-    block kernel; ``split``: the four kernels as two planes each
+           stacked: bool, split: bool = False, width: int = 0):
+    """Raise on weights that do not fit x, the inner width ``inner``
+    (heads x the head dim the kernels run at) and the residual width
+    ``width`` (x's D, or the one it is zero-padded to).  ``weights`` in
+    ``_FIELDS`` order: stacked over depth for the encoder, one block's own
+    for the block kernel; ``split``: the four kernels as two planes each
     (:func:`split_planes`)."""
-    d = x.shape[2]
+    d = width or x.shape[2]
     lead = (weights[0].shape[0],) if stacked else ()
     hidden = weights[8].shape[-1]
     k = (2,) if split else ()
@@ -428,9 +453,33 @@ def _pad_heads(weights: Sequence[torch.Tensor], heads: int,
     return w
 
 
+def _pad_width(weights: Sequence[torch.Tensor], width: int,
+               mlp: int) -> List[torch.Tensor]:
+    """Weights in ``_FIELDS`` order (any leading dims, heads padded or
+    not) with D zero-padded to ``width`` and the MLP width to ``mlp``: the
+    LN scales and biases, the proj and mlp2 biases and the proj kernel's
+    columns to ``width``; the qkv kernel's rows; mlp1's rows to ``width``
+    and columns to ``mlp``, its bias to ``mlp``; mlp2's rows to ``mlp`` and
+    columns to ``width``.  A leaf already at its width is as it is."""
+    w = list(weights)
+    dd, dm = width - w[0].shape[-1], mlp - w[8].shape[-1]
+
+    def pad(i, *p):
+        if any(p):
+            w[i] = F.pad(w[i], p)
+
+    for i in (0, 1, 4, 5, 6, 7, 11):
+        pad(i, 0, dd)
+    pad(2, 0, 0, 0, dd)
+    pad(8, 0, dm, 0, dd)
+    pad(9, 0, dm)
+    pad(10, 0, dd, 0, dm)
+    return w
+
+
 def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
     """A plan a caller named (``prepared(..., chosen=...)``) made whole:
-    the variant must be one of the dtype's and take the shape; the pad is
+    the variant must be one of the dtype's and take the shape; the pads are
     the variant's own, and ``"tf32x3"`` named without tiles gets the rule's
     tiles and warpgroups."""
     b, s, d = x.shape
@@ -442,21 +491,22 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
         raise ValueError(f"the encoder kernels cannot take this shape "
                          f"({chosen.variant}, {x.dtype}): {why}")
     pad = head_pad(chosen.variant, d // heads)
+    width, mlp = width_pads(chosen.variant, d, hidden)
     if chosen.variant == "tf32x3" and not any(chosen.tiles):
         rule = _plan_for(x, heads, hidden)
         chosen = chosen._replace(tiles=rule.tiles, warpgroups=rule.warpgroups)
-    return chosen._replace(pad=pad)
+    return chosen._replace(pad=pad, width=width, mlp=mlp)
 
 
 def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
              stacked: bool, chosen: Optional[Plan]):
     """Checks, the plan, the output and the C entry's arguments up to the
     stream, and the tensors that must live as long as the launch (x and
-    weights copied where their layout asks for it, the weights zero-padded
-    and, for ``"tf32x3"``, split where the plan asks and the cache did not,
-    the scratch).  A shape the plan refuses, a ``chosen`` variant that is
-    not one of the dtype's, or split weights for another variant, raise: a
-    launch was asked for."""
+    weights copied where their layout asks for it, the weights' heads and
+    widths zero-padded and, for ``"tf32x3"``, split where the plan asks and
+    the cache did not, the scratch).  A shape the plan refuses, a
+    ``chosen`` variant that is not one of the dtype's, or split weights for
+    another variant, raise: a launch was asked for."""
     _check_x(x, num_heads)
     b, s, d = x.shape
     hidden = weights[8].shape[-1]
@@ -464,27 +514,32 @@ def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
               else _named(chosen, x, num_heads, hidden))
     dh = chosen.pad or d // num_heads
     inner = num_heads * dh
+    width = chosen.width or d
     split = _is_split(weights, stacked)
     if split and chosen.variant != "tf32x3":
         raise ValueError(f"split weights are tf32x3's, not {chosen.variant}'s")
     if not split:
         if chosen.pad and weights[2].shape[-1] == 3 * d:
             weights = _pad_heads(weights, num_heads, chosen.pad)
+        if chosen.width or chosen.mlp:
+            weights = _pad_width(weights, width, chosen.mlp or hidden)
         if chosen.variant == "tf32x3":
             weights, split = split_planes(weights), True
-    _check(x, weights, inner, stacked, split)
+    hidden = weights[8].shape[-1]
+    _check(x, weights, inner, stacked, split, width)
     x, weights = _laid_out(x), [_laid_out(t) for t in weights]
     m = b * s
     out = torch.empty_like(x)
     # One scratch allocation: qkv (m, 3 inner), attn (m, inner), mlp hidden
-    # (m, hidden) and, for "simt" alone, the LN output h (m, d).
-    h_rows = d if chosen.variant == "simt" else 0
+    # (m, hidden) and h: for "simt" the LN output (m, d), for a padded "mma"
+    # width the residual stream (m, width).
+    h_rows = d if chosen.variant == "simt" else (width if width != d else 0)
     work = torch.empty(m * (4 * inner + hidden + h_rows), dtype=x.dtype,
                        device=x.device)
     qkv, attn, hid, h = (work.data_ptr() + i * m * x.element_size()
                          for i in (0, 3 * inner, 4 * inner, 4 * inner + hidden))
-    args = (*chosen.config(), _DTYPE_CODES[x.dtype], b, s, d, num_heads, dh,
-            hidden)
+    args = (*chosen.config(), _DTYPE_CODES[x.dtype], b, s, d, width,
+            num_heads, dh, hidden)
     if stacked:
         args += (weights[0].shape[0],)
     args += (x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in weights],
@@ -558,7 +613,8 @@ def _operands(flat: Sequence[torch.Tensor], depth: int,
     """``flat`` cast to ``dtype`` and stacked over depth, the heads of
     ``num_heads`` zero-padded where ``variant`` (by default the one
     :func:`plan` gives this dtype and width) pads them (:func:`head_pad`),
-    and for ``"tf32x3"`` the four kernels split into their two planes
+    D and the MLP width where it pads those (:func:`width_pads`), and for
+    ``"tf32x3"`` the four kernels split into their two planes
     (:func:`split_planes`).  Reused while every leaf is the same tensor at
     the same ``_version`` (which any in-place update, such as an optimiser
     step, moves on); made anew otherwise
@@ -572,6 +628,9 @@ def _operands(flat: Sequence[torch.Tensor], depth: int,
         pad = head_pad(variant, d // num_heads) if variant else 0
         if pad:
             stacked = _pad_heads(stacked, num_heads, pad)
+        width, mlp = width_pads(variant, d, hidden) if variant else (0, 0)
+        if width or mlp:
+            stacked = _pad_width(stacked, width or d, mlp or hidden)
         return split_planes(stacked) if variant == "tf32x3" else stacked
 
     return _OPERANDS.get((dtype, num_heads, variant), flat, make)
@@ -582,7 +641,7 @@ def _launch_operands(x: torch.Tensor, flat: Sequence[torch.Tensor],
                      ) -> Optional[List[torch.Tensor]]:
     """The encoder kernel's weights for a call that needs no gradient:
     ``flat`` cast to ``x.dtype``, stacked over depth and padded as the
-    heads need, made once per parameter set.  None when a gradient is
+    heads and widths need, made once per parameter set.  None when a gradient is
     needed: then the cast and the stack are made inside the autograd graph,
     on every call (and padded at the launch)."""
     if _wants_grad(x, flat):

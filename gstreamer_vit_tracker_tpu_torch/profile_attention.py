@@ -11,7 +11,9 @@ through ``ops/attention.py::prepared`` (one launch on ready operands): the
 ``mma`` variant of ``attention_single`` with 64- and 128-key blocks, of
 ``attention_flash`` with 64- and 128-key blocks, 2 stages and 1 or 2
 warpgroups or 3 stages and 1, the ``tf32x3`` variant of both kernels
-(float32 cases), and the ``simt`` variant of both kernels.  It
+(float32 cases), and the ``simt`` variant of both kernels.  A bf16 head
+dim the ``mma`` tiles do not take (48: the ``small`` architecture in bf16)
+runs them zero-padded to the next of 32 / 64 / 128, as the plan has it.  It
 checks each against ``attention_reference`` and prints the device time of a
 launch in microseconds (20 launches captured into a CUDA graph and replayed,
 so the host's enqueue time is not read as the kernel's) beside
@@ -35,7 +37,8 @@ CASES = ((48, 320, 64, torch.bfloat16), (3, 320, 64, torch.bfloat16),
          (3, 600, 64, torch.bfloat16), (48, 600, 64, torch.bfloat16),
          (4, 777, 128, torch.bfloat16), (48, 320, 32, torch.bfloat16),
          (48, 320, 64, torch.float32), (3, 1088, 64, torch.float32),
-         (32, 80, 48, torch.float32))
+         (32, 80, 48, torch.float32), (32, 80, 48, torch.bfloat16),
+         (2, 1088, 48, torch.bfloat16))
 P = attention.Plan
 CONFIGS = ([P("single", "mma", 64), P("single", "mma", 128)]
            + [P("flash", "mma", kb, stages, wg) for kb in (64, 128)
@@ -89,17 +92,18 @@ def main() -> None:
         taken = attention._plan_for(dev, s, dh, dtype, bh)
         cells = []
         for p in CONFIGS:
-            takes = {"mma": dtype == torch.bfloat16 and dh in (32, 64, 128),
+            takes = {"mma": dtype == torch.bfloat16,
                      "tf32x3": dtype == torch.float32}.get(p.variant, True)
+            runs_at = attention.variant_pad(p.variant, dh) or dh
             if not takes or attention.smem_bytes(
-                    p.route, p.variant, s, dh, q.element_size(), p.kb,
+                    p.route, p.variant, s, runs_at, q.element_size(), p.kb,
                     p.stages, p.warpgroups) > optin:
                 continue
             out, launch = attention.prepared(q, k, v, chosen=p)
             launch()
             torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            mark = "*" if p == taken else ""
+            err = (out.float()[..., :dh] - ref).abs().max().item()
+            mark = "*" if p == taken._replace(pad=0) else ""
             cells.append(f"{mark}{p.route} {p.variant} {p.kb}/{p.stages}/"
                          f"{p.warpgroups}: {_graph_us(launch):.1f} us, "
                          f"max|d| {err:.1e}")

@@ -188,26 +188,33 @@ BF16, F32 = torch.bfloat16, torch.float32
     (320, 64, BF16, "single", "mma"),      # the serving shape
     (1088, 64, BF16, "flash", "mma"),      # the long-sequence shape
     (320, 64, F32, "flash", "tf32x3"),     # the training step
-    (33, 8, BF16, "single", "simt"),       # a head dim the tiles do not take
+    (33, 8, BF16, "single", "mma"),        # a head dim the tiles do not take: 32
     (384, 64, BF16, "single", "mma"),      # the last length that fits twice
     (448, 64, BF16, "flash", "mma"),
     (33, 128, BF16, "single", "mma"),
     (200, 32, BF16, "single", "mma"),
     (1200, 32, BF16, "flash", "mma"),
     (777, 128, BF16, "flash", "mma"),
-    (80, 48, BF16, "single", "simt"),
+    (80, 48, BF16, "single", "mma"),       # small in bf16: dh 48 padded to 64
     (80, 48, F32, "single", "tf32x3"),     # the small preset's serving tick
     (128, 64, F32, "single", "tf32x3"),    # the last length that fits twice
     (4099, 8, F32, "flash", "tf32x3"),
-    (4099, 8, BF16, "flash", "simt"),
+    (4099, 8, BF16, "flash", "mma"),
+    (80, 96, BF16, "single", "mma"),       # padded to 128
 ])
 def test_plan_route_and_variant(s, dh, dtype, route, variant):
+    # Every bf16 head dim takes mma, one the tiles do not take (32, 64,
+    # 128) zero-padded to the next of them; simt is taken only by name.
     got = tattn.plan(s, dh, dtype, H100_OPTIN)
     assert (got.route, got.variant) == (route, variant)
+    assert got.pad == tattn.padded_head_dim(dh, dtype)
+    if dtype == BF16:
+        assert got.pad == (0 if dh in (32, 64, 128) else next(
+            d for d in (32, 64, 128) if d > dh))
     eb = 2 if dtype == BF16 else 4
     # What is launched fits the card.
-    assert tattn.smem_bytes(route, variant, s, dh, eb, got.kb, got.stages,
-                            got.warpgroups) <= H100_OPTIN
+    assert tattn.smem_bytes(route, variant, s, got.pad or dh, eb, got.kb,
+                            got.stages, got.warpgroups) <= H100_OPTIN
     if variant == "simt":
         assert (got.kb, got.stages, got.warpgroups) == (0, 0, 1)
     elif variant == "tf32x3":

@@ -300,8 +300,7 @@ def test_attention_kernels_match_reference(dev, dtype, bh, s, dh, route32,
     q, k, v = _qkv(bh, s, dh, dtype, dev)
     assert attention.kernel_route(q) == route
     assert attention.kernel_variant(q) == (
-        "tf32x3" if dtype == torch.float32
-        else "mma" if dh in (32, 64, 128) else "simt")
+        "tf32x3" if dtype == torch.float32 else "mma")
     before = (attention.SINGLE_LAUNCHES, attention.FLASH_LAUNCHES)
     got = attention.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -313,14 +312,15 @@ def test_attention_kernels_match_reference(dev, dtype, bh, s, dh, route32,
 
 def _configurations(s, dh, optin):
     """Every built configuration of both variants that takes bf16 at this
-    shape on a card with ``optin`` bytes of opt-in shared memory."""
+    shape on a card with ``optin`` bytes of opt-in shared memory (``mma``
+    at a head dim its tiles do not take: zero-padded, as named plans are)."""
     plans = [attention.Plan("single", "simt"), attention.Plan("flash", "simt")]
-    if dh in (32, 64, 128):
-        plans += [attention.Plan("single", "mma", kb) for kb in (64, 128)]
-        plans += [attention.Plan("flash", "mma", kb, st, wg)
-                  for kb in (64, 128) for st, wg in ((2, 1), (2, 2), (3, 1))]
+    plans += [attention.Plan("single", "mma", kb) for kb in (64, 128)]
+    plans += [attention.Plan("flash", "mma", kb, st, wg)
+              for kb in (64, 128) for st, wg in ((2, 1), (2, 2), (3, 1))]
     return [p for p in plans if attention.smem_bytes(
-        p.route, p.variant, s, dh, 2, p.kb, p.stages, p.warpgroups) <= optin]
+        p.route, p.variant, s, attention.variant_pad(p.variant, dh) or dh, 2,
+        p.kb, p.stages, p.warpgroups) <= optin]
 
 
 @pytest.mark.parametrize("bh,s,dh", [c[:3] for c in ATTENTION_SHAPES])
@@ -332,7 +332,7 @@ def test_attention_both_variants_match_reference(dev, bh, s, dh):
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     plans = _configurations(s, dh, optin)
     assert any(p.variant == "simt" for p in plans)
-    assert any(p.variant == "mma" for p in plans) == (dh in (32, 64, 128))
+    assert any(p.variant == "mma" for p in plans)
     for p in plans:
         got = attention._launch(q, k, v, 1, p)
         torch.cuda.synchronize()
@@ -361,8 +361,8 @@ def test_attention_f32_variants_match_reference(dev, bh, s, dh):
 
 def test_kernel_variant_follows_dtype_and_head_dim(dev):
     for dh, dtype, want in ((64, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"),
-                            (128, torch.bfloat16, "mma"), (48, torch.bfloat16, "simt"),
-                            (8, torch.bfloat16, "simt"), (64, torch.float32, "tf32x3"),
+                            (128, torch.bfloat16, "mma"), (48, torch.bfloat16, "mma"),
+                            (8, torch.bfloat16, "mma"), (64, torch.float32, "tf32x3"),
                             (48, torch.float32, "tf32x3")):
         q = torch.zeros((2, 40, 3 * dh), device=dev, dtype=dtype)
         assert attention.kernel_variant(q, num_heads=3) == want
@@ -804,7 +804,8 @@ def test_attention_padded_head_dims_match_reference(dev, dtype, dh):
 
 @pytest.mark.parametrize("dtype,d,heads,variant", [
     (torch.bfloat16, 192, 4, "mma"), (torch.bfloat16, 192, 2, "mma"),
-    (torch.bfloat16, 64, 4, "mma"), (torch.float32, 48, 2, "simt"),
+    (torch.bfloat16, 64, 4, "mma"), (torch.bfloat16, 96, 2, "mma"),
+    (torch.float32, 48, 2, "simt"),
     (torch.float32, 96, 8, "tf32x3"), (torch.float32, 64, 16, "tf32x3")])
 def test_encoder_padded_head_dims_match_twin(dev, dtype, d, heads, variant):
     # Head dims 48, 96 and 16 in bf16 (padded to 64, 128 and 32); in float32

@@ -5,13 +5,16 @@ and the attention rule on odd shapes against the JAX package.
 
 What a CPU run can say of kernels that run only on the card:
 
-* ``plan`` (a pure function): the variant by dtype, the head dims it pads
-  and to what, the shapes it refuses (it raises), the N tile of each
-  product by batch; operands laid out where the kernels cannot read them
-  are copied.  Zero-padded heads (the qkv / proj weights of the operand
-  cache, the q / k / v copies of the attention wrapper) run through the
-  plain twin with the true head dim's scale equal the unpadded twin (1e-6,
-  float32).
+* ``plan`` (a pure function): the variant by dtype, the head dims and
+  (``mma``) the widths it pads and to what, the shapes it refuses (it
+  raises), the N tile of each product by batch; operands laid out where
+  the kernels cannot read them are copied.  Zero-padded heads (the qkv /
+  proj weights of the operand cache, the q / k / v copies of the attention
+  wrapper) run through the plain twin with the true head dim's scale equal
+  the unpadded twin (1e-6, float32); so do zero-padded widths with x
+  carried at the padded width and the LayerNorm over the true D, every
+  padded column staying 0, and the ``mma`` emulation on width-padded
+  operands equals it on the unpadded ones bit for bit.
 * The ``mma`` arithmetic, emulated in float64 where the tensor cores are
   exact (bf16 products) and rounded to float32 where they round (toward
   zero, each 16-deep step in a fresh accumulator; the steps and chunks
@@ -107,11 +110,11 @@ def test_plan_n_tile_by_batch():
     (F32, 192, 16, 768, "tf32x3"),   # head dim 12: padded to 16
     (F32, 640, 5, 2560, "simt"),     # D beyond 512: simt, by rule
     (F32, 96, 2, 400, "simt"),       # MLP width no multiple of 32
-    (BF16, 96, 2, 384, None),        # head dim 48, D no multiple of 64
+    (BF16, 96, 2, 384, "mma"),       # small in bf16: dh 48 -> 64, D -> 128
     (BF16, 64, 4, 256, "mma"),       # head dim 16: padded to 32
-    (BF16, 96, 3, 384, None),        # head dim 32, D no multiple of 64
+    (BF16, 96, 3, 384, "mma"),       # head dim 32, D 96 -> 128
     (BF16, 832, 13, 3328, None),     # D beyond 768
-    (BF16, 96, 12, 384, None),       # head dim 8, D no multiple of 64
+    (BF16, 96, 12, 384, "mma"),      # head dim 8 -> 32, D 96 -> 128
     (F32, 24, 2, 96, "simt"),        # head dim 12: padded to 16
     (BF16, 288, 2, 1152, None),      # head dim 144
     (F32, 64, 2, 200, None),         # MLP width no multiple of 16
@@ -121,8 +124,9 @@ def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
     # The variant: bf16's mma; float32's tf32x3, else simt where tf32x3
     # refuses the width.  A head dim it does not take as it is runs
     # zero-padded (the padded dim in the plan, the true one's scale at the
-    # launch); a shape no variant of the dtype can take even so raises before
-    # any launch (no call on the card goes to the plain twin).
+    # launch), and so does mma's D no multiple of 64; a shape no variant of
+    # the dtype can take even so raises before any launch (no call on the
+    # card goes to the plain twin).
     if variant is None:
         with pytest.raises(TypeError if dtype == torch.float16 else ValueError):
             vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
@@ -130,13 +134,41 @@ def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
     got = vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
     assert got.variant == variant
     pad = {(64, 4): 32, (24, 2): 16, (192, 16): 16}.get((dim, heads), 0)
+    if dtype == BF16 and dim == 96:
+        pad = {2: 64, 3: 0, 12: 32}[heads]
     assert got.pad == pad == vit_block.head_pad(variant, dim // heads)
+    width = 128 if variant == "mma" and dim == 96 else 0
+    assert (got.width, got.mlp) == (width, 0) == vit_block.width_pads(
+        variant, dim, hidden)
     if variant == "mma":
         assert set(got.tiles) <= {32, 64} and got.warpgroups == 1
     elif variant == "tf32x3":
         assert set(got.tiles) <= {16, 32, 64} and got.warpgroups in (1, 2)
     else:
         assert got == vit_block.Plan("simt", (0, 0, 0, 0), pad)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("dim,heads,hidden,pad,width,mlp", [
+    (96, 2, 384, 64, 128, 0),        # the small architecture in bf16
+    (160, 5, 640, 0, 192, 0),        # head dim 32 as it is
+    (96, 2, 400, 64, 128, 448),      # an MLP width no multiple of 64 too
+    (768, 12, 3072, 0, 0, 0),        # the widest D: nothing padded
+    (192, 3, 768, 0, 0, 0)])         # the flagship: nothing padded
+def test_plan_pads_bf16_widths_to_whole_chunks(batch, dim, heads, hidden,
+                                               pad, width, mlp):
+    # mma takes K in 64-deep chunks: a D or an MLP width that is no multiple
+    # of 64 runs zero-padded to the next one, with the head pad beside it;
+    # the N tiles are those of the padded widths, and a width that needs no
+    # pad gets the plan it had.
+    got = vit_block.plan(batch, 320, dim, heads, hidden, BF16, H100_SMS)
+    assert (got.variant, got.pad, got.width, got.mlp) == ("mma", pad, width, mlp)
+    rows = -(-batch * 320 // 64)
+    assert got.tiles == vit_block._tiles(rows, heads * (pad or dim // heads),
+                                         width or dim, mlp or hidden,
+                                         H100_SMS, False)
+    if dim == 192:
+        assert got == vit_block.Plan("mma", (32,) * 4 if batch == 1 else (64,) * 4)
 
 
 @pytest.mark.parametrize("seq", [1, 320, 740, 1088, 4096])
@@ -221,15 +253,17 @@ def _product(a, p, chained=False):
     return (acc + b.float()).to(BF16)
 
 
-def _layer_norm(x, p):
+def _layer_norm(x, p, dim=None):
     """The LN prologue: the mean, then the mean of (x - mu)^2, each a sum
     divided by K in f32; 1 / sqrt; each operation rounded on its own; one
-    rounding to bf16."""
+    rounding to bf16.  ``dim``: the true columns of a zero-padded x, which
+    the two sums run over (K = dim)."""
     xf = x.float()
-    k = torch.tensor(float(xf.shape[-1]), dtype=F32)
-    mu = xf.double().sum(-1, keepdim=True).float() / k
+    dim = dim or xf.shape[-1]
+    k = torch.tensor(float(dim), dtype=F32)
+    mu = xf[..., :dim].double().sum(-1, keepdim=True).float() / k
     t = xf - mu
-    var = (t * t).double().sum(-1, keepdim=True).float() / k
+    var = (t * t)[..., :dim].double().sum(-1, keepdim=True).float() / k
     y = t * (1.0 / torch.sqrt(var + torch.tensor(1e-6, dtype=F32)))
     return (y * p["scale"].float() + p["bias"].float()).to(BF16)
 
@@ -269,17 +303,19 @@ def _attention(q, k, v, heads, fault=None):
     return (o / l).to(BF16).transpose(1, 2).reshape(b, s, d)
 
 
-def emulate_encoder(x, blocks, heads, fault=None):
+def emulate_encoder(x, blocks, heads, fault=None, dim=None):
     """The encoder kernel's mma variant on the CPU, block by block at the
-    twin's rounding points."""
+    twin's rounding points.  ``dim``: x and the blocks zero-padded in width
+    (``vit_block._pad_width``), the LayerNorm over the first ``dim``
+    columns."""
     chained = fault == "chained"
     for p in blocks:
-        q, k, v = torch.chunk(_product(_layer_norm(x, p["ln1"]), p["qkv"],
+        q, k, v = torch.chunk(_product(_layer_norm(x, p["ln1"], dim), p["qkv"],
                                        chained), 3, -1)
         a = _attention(q, k, v, heads, fault)
         x = (x.float() + _product(a, p["proj"], chained).float()).to(BF16)
-        g = F.gelu(_product(_layer_norm(x, p["ln2"]), p["mlp1"], chained).float(),
-                   approximate="tanh").to(BF16)
+        g = F.gelu(_product(_layer_norm(x, p["ln2"], dim), p["mlp1"],
+                            chained).float(), approximate="tanh").to(BF16)
         x = (x.float() + _product(g, p["mlp2"], chained).float()).to(BF16)
     return x
 
@@ -410,7 +446,9 @@ def test_operand_cache_reused_across_calls():
     flat = _flat(2)
     a = vit_block._operands(flat, 2, BF16)
     assert vit_block._operands(flat, 2, BF16) is a
-    assert torch.equal(a[2], torch.stack([flat[2], flat[14]]).to(BF16))
+    # D 32 runs padded to 64 in bf16: the qkv kernel's rows past 32 are 0.
+    assert torch.equal(a[2][:, :32], torch.stack([flat[2], flat[14]]).to(BF16))
+    assert a[2].shape == (2, 64, 96) and not a[2][:, 32:].any()
     # Another dtype is another entry.
     assert vit_block._operands(flat, 2, F32) is not a
 
@@ -422,7 +460,7 @@ def test_operand_cache_rebuilt_after_in_place_update():
         flat[4].add_(1.0)            # an optimiser step: same tensor, new version
     b = vit_block._operands(flat, 2, BF16)
     assert b is not a
-    assert torch.equal(b[4][0], flat[4].to(BF16))
+    assert torch.equal(b[4][0][:, :32], flat[4].to(BF16))
     # A new leaf in the same place is a new parameter set too.
     flat[0] = flat[0].clone()
     assert vit_block._operands(flat, 2, BF16) is not b
@@ -493,6 +531,99 @@ def test_padded_heads_through_the_twin_equal_the_unpadded(variant, d, heads):
                                        heads)
     got = _padded_twin(x, stacked, heads, pad)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _width_padded_twin(x, stacked, heads, pad):
+    """The twin's block math on weights stacked over depth whose D and MLP
+    width are zero-padded (``vit_block._pad_width``) and whose heads are
+    padded to ``pad``: x carried at the padded width with zero columns, the
+    LayerNorm's mean and variance over x's true D alone (as the mma
+    prologue takes them), the attention at the padded head dim with the
+    true one's scale.  Every padded column must stay exactly 0."""
+    b, s, d = x.shape
+    width = stacked[0].shape[-1]
+    x = F.pad(x, (0, width - d))
+
+    def ln(t, p):
+        mu = t[..., :d].mean(-1, keepdim=True)
+        var = ((t[..., :d] - mu) ** 2).mean(-1, keepdim=True)
+        return (t - mu) / torch.sqrt(var + 1e-6) * p["scale"] + p["bias"]
+
+    for layer in range(stacked[0].shape[0]):
+        p = {}
+        for (mod, field), t in zip(vit_block._FIELDS, stacked):
+            p.setdefault(mod, {})[field] = t[layer]
+        q, k, v = torch.chunk(vit._linear(ln(x, p["ln1"]), p["qkv"]), 3, dim=-1)
+        a = tattn.attention_reference(*(tattn._split(t, heads) for t in (q, k, v)),
+                                      head_dim=d // heads)
+        x = x + vit._linear(a.transpose(1, 2).reshape(b, s, heads * pad), p["proj"])
+        assert not x[..., d:].any()
+        g = F.gelu(vit._linear(ln(x, p["ln2"]), p["mlp1"]), approximate="tanh")
+        x = x + vit._linear(g, p["mlp2"])
+        assert not x[..., d:].any()
+    return x[..., :d]
+
+
+@pytest.mark.parametrize("d,heads,hidden,width,mlp", [
+    (96, 2, 384, 128, 384),     # the small architecture in bf16: dh 48 -> 64
+    (96, 3, 400, 128, 448),     # dh 32 as it is; both widths padded
+    (160, 5, 640, 192, 640),
+    (40, 8, 100, 64, 128)])     # dh 5 -> 32
+def test_padded_width_through_the_twin_equals_the_unpadded(d, heads, hidden,
+                                                           width, mlp):
+    # The operand cache pads mma's D and MLP width to multiples of 64 (here
+    # in float32 arithmetic, the same function): zero LN scale and bias past
+    # D, zero rows of qkv / mlp1 / mlp2 past their K, zero columns of proj /
+    # mlp1 / mlp2 and their biases.  With x carried at the padded width and
+    # the LayerNorm's statistics over the true D, the twin on the padded
+    # weights equals the unpadded twin to 1e-6, and the padded columns stay
+    # 0 through every block (GELU(0) = 0).
+    depth, dh = 2, d // heads
+    pad = vit_block.head_pad("mma", dh) or dh
+    assert vit_block.width_pads("mma", d, hidden) == (
+        width, 0 if mlp == hidden else mlp)
+    flat = _flat(depth, d=d, hidden=hidden)
+    flat = [t * (d ** -0.5 if t.dim() == 2 else 0.1) for t in flat]
+    stacked = vit_block._operands(flat, depth, F32, heads, "mma")
+    assert vit_block._operands(flat, depth, F32, heads, "mma") is stacked
+    e = heads * pad
+    assert [tuple(t.shape[1:]) for t in stacked] == [
+        (width,), (width,), (width, 3 * e), (3 * e,), (e, width), (width,),
+        (width,), (width,), (width, mlp), (mlp,), (mlp, width), (width,)]
+    for i in (0, 1, 4, 5, 6, 7, 11):
+        assert not stacked[i][..., d:].any()
+    assert not stacked[2][:, d:].any() and not stacked[8][:, d:].any()
+    assert not stacked[8][..., hidden:].any() and not stacked[9][:, hidden:].any()
+    assert not stacked[10][:, hidden:].any()
+    gen = torch.Generator().manual_seed(d + heads)
+    x = torch.randn((2, 21, d), generator=gen)
+    want = vit_block.encoder_reference(x, vit_block._blocks_from_flat(flat, depth),
+                                       heads)
+    got = _width_padded_twin(x, stacked, heads, pad)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,heads,hidden", [(96, 3, 384), (160, 5, 400)])
+def test_padded_width_leaves_the_mma_arithmetic_bit_for_bit(d, heads, hidden):
+    # The mma emulation on width-padded bf16 operands (x with zero columns,
+    # the LayerNorm over the true D) equals it on the unpadded ones bit for
+    # bit: a padded K adds 16-deep steps of exact zeros, and a padded column
+    # comes out 0 in every block (head dims 32 here, so no head padding
+    # reorders the proj product's chunks).
+    depth = 2
+    flat = [(t * (d ** -0.5 if t.dim() == 2 else 0.1)).to(BF16)
+            for t in _flat(depth, d=d, hidden=hidden)]
+    blocks = vit_block._blocks_from_flat(flat, depth)
+    width, mlp = vit_block.width_pads("mma", d, hidden)
+    stacked = vit_block._pad_width(vit_block._stack(flat, depth), width,
+                                   mlp or hidden)
+    padded = vit_block._blocks_from_flat(
+        [t[i] for i in range(depth) for t in stacked], depth)
+    gen = torch.Generator().manual_seed(d)
+    x = torch.randn((1, 70, d), generator=gen).to(BF16)
+    want = emulate_encoder(x, blocks, heads)
+    got = emulate_encoder(F.pad(x, (0, width - d)), padded, heads, dim=d)
+    assert torch.equal(got[..., :d], want) and not got[..., d:].any()
 
 
 def test_encode_passes_masters_and_keeps_the_cpu_path():
