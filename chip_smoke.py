@@ -35,18 +35,22 @@ Phases, in order; any failure raises and exits non-zero:
      way, beside the bound (f32: both the FMA one and the split-TF32 one);
      ``multihead_attention`` on the chunks of a (16, 320, 576) qkv buffer
      beside the copy-then-launch path it replaced;
-   * the NV12-to-tokens kernel (``ops/fused_prep_embed.py``) in bf16 and
-     float32, for a window inside the frame, one hanging off its edge, a
-     banded 1080p frame, and the geometry the kernel works out itself (a
+   * the NV12-to-tokens kernel (``ops/fused_prep_embed.py``, phase 3c)
+     for a window inside the frame, one hanging off its edge, a banded
+     1080p frame, and the geometry the kernel works out itself (a
      half-to-even tie of the band origin, a frame smaller than the band, a
      window larger than it, the band's corner), against both modes of its
      plain version (float32 1e-4 absolute; bf16 one ulp at the largest
-     plain value); one call on ready parameters must be one device activity
-     (``torch.profiler``); every bf16 tiling, with and without a cluster,
-     held to the plain version and timed by CUDA-graph replay; the call
-     timed beside the plain version and the unfused chain
+     plain value) at every shape: the flagship in bf16 (``mma``, its tokens
+     bit-equal by sha256 to the build before the float32 redesign) and in
+     float32, the ``small`` and corr-tiny presets in float32 (``tf32x3``,
+     and ``simt`` by name), the bf16 widths 48, 96, 160, 384 and 768
+     (zero-padded, several clusters a token tile above 256); one call on
+     ready parameters must be one device activity in both dtypes
+     (``torch.profiler``); each shape timed by CUDA-graph replay (``tf32x3``
+     and ``simt`` in turns) beside the plain version, the unfused chain
      ``preprocess_nv12`` -> ``embed_search`` (no single library call
-     computes it);
+     computes it) and the bound (float32 at split TF32's rate);
    * head dims no kernel takes as they are, zero-padded: attention at 4,
      12, 48 and 96 in bf16 and float32, the encoder and block kernels at D
      192 with dh 48 and 96 (bf16) and 24 and 12 (float32, ``tf32x3``: 24
@@ -88,7 +92,13 @@ Phases, in order; any failure raises and exits non-zero:
    step beside the plain-route step from the same state and the first
    steps beside the port's CPU run; launches of the fused kernel = steps),
    and a few steps on the clip converted to RGB and to YUY2 beside the
-   NV12 ones;
+   NV12 ones; then kernel 5's paths (``prep_paths_phase``): the ``small``
+   preset as shipped through ``scan.update_scan_pool(fused_prep=True)``
+   (compiled) and ``update_packed(fused_prep=True)``, corr-tiny eagerly, a
+   D-768 bf16 model (12 heads, depth 2, seeded weights) compiled, every
+   step from the CPU's state, held to the CPU and to the plain route,
+   kernels 1 and 5 counted by variant; ``python -c "import chip_smoke as
+   c; c.prep_alone()"`` runs phase 3c and these paths alone;
 5. serving path, full width: the flagship behind a 16-slot ``SlotEngine``
    and a ``TrackServer`` on loopback; 4 ``TrackClient`` threads ``init``
    and ``update`` 10 frames each of seeded 1080p NV12 clips; an injected
@@ -337,6 +347,18 @@ CPU_BOX_TOL, CPU_SCORE_TOL = 2.0, 0.02
 # bit-equal, the embed sum runs in another order and is rounded once).
 PREP_F32_ATOL = 1e-4
 PREP_BF16_REL = 2.0 ** -7
+# Kernel 5's float32 shapes (tf32x3, and simt by name) and its bf16 widths
+# (seeded weights at the small preset's crop geometry: search 128, patch
+# 16), each held on the seven window cases of phase 3c and timed.
+PREP_F32_PRESETS = ("vittrack-t", "small", "corr-tiny")
+PREP_BF16_WIDTHS = (48, 96, 160, 384, 768)
+# The flagship's bf16 tokens on the banded 1080p case of phase 3c (the
+# frame of default_rng(11), the window (1500, 700, 64, 64), the shipped
+# weights) as the build of commit a85bea4 (before the float32 route's
+# redesign) made them on an H100: sha256 of their bf16 bits.  The bf16
+# route's tiling at D 192 did not change, so they stay bit-equal.
+PREP_BF16_FLAGSHIP_SHA256 = (
+    "6b7a4bce31b550a6fb789288ea9839528ad0bf2b989d42aae8a3bbed45f0c34b")
 # An RGB frame is the NV12 frame converted and rounded to uint8, so its crop
 # differs in the last bits of every pixel (0.028 in score on the CPU): held
 # to 4 px and 0.06.  YUY2 carries the NV12 bytes (chroma rows repeated).
@@ -1862,7 +1884,66 @@ def tiling_name(p) -> str:
     return f"{p.tokens}x{p.cols}c{p.cluster}"
 
 
+def prep_bound(win, frame_hw, cfg) -> dict:
+    """The least time of kernel 5's function on this window: the bytes it
+    must move (``prep_cost``) over HBM's rate, and its operations over the
+    card's rate for their type: the two-tap work at float32's, the embed
+    at bf16's or, in float32, as split TF32's three products at TF32's
+    (the float32 FMA rate printed beside)."""
+    f32 = cfg.dtype == "float32"
+    f32_flops, embed_flops, nbytes, taps = prep_cost(win, frame_hw, cfg,
+                                                     4 if f32 else 2)
+    t_pix = f32_flops / H100_F32_FLOPS * 1e3
+    t_embed = (3 * embed_flops / H100_TF32_FLOPS if f32
+               else embed_flops / H100_BF16_FLOPS) * 1e3
+    t_ops, t_bytes = t_pix + t_embed, nbytes / H100_HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "mbytes": nbytes / 1e6,
+            "embed_mflop": embed_flops / 1e6, "taps": taps,
+            "bound_fma_ms": (f32_flops + embed_flops) / H100_F32_FLOPS * 1e3}
+
+
+def prep_shapes(dev, cfg, params) -> list:
+    """(label, config, params, plans) of every shape phase 3c holds: the
+    flagship in bf16 (the plan) and float32 (tf32x3 and simt by name), the
+    small and corr-tiny presets in float32, the bf16 widths."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS, ModelConfig
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.profile_prep import seeded_params
+
+    out = [("flagship bf16", cfg, params, [fpe.plan(cfg.embed_dim,
+                                                    torch.bfloat16)])]
+    for preset in PREP_F32_PRESETS:
+        c = dataclasses.replace(PRESETS[preset], dtype="float32")
+        p = (params if preset == "vittrack-t" else
+             vittrack.init_params(torch.Generator().manual_seed(0), c, dev)
+             if preset == "corr-tiny" else
+             weights.load_npz(weights.checkpoint_path(preset), c, device=dev))
+        label = "flagship" if preset == "vittrack-t" else preset
+        out.append((f"{label} f32", c, p,
+                    [fpe.plan(c.embed_dim, torch.float32),
+                     fpe.plan(c.embed_dim, torch.float32, "simt")]))
+    for d in PREP_BF16_WIDTHS:
+        c = ModelConfig(template_size=64, search_size=128, patch_size=16,
+                        embed_dim=d, depth=1, num_heads=1)
+        out.append((f"bf16 D {d}", c, seeded_params(c, dev, d),
+                    [fpe.plan(d, torch.bfloat16)]))
+    return out
+
+
 def prep_phase(dev, cfg, params):
+    """Kernel 5 against both modes of its plain version on seven window
+    geometries at every shape of ``prep_shapes`` (each plan launched once a
+    case, the wrapper counting it by variant), the flagship's bf16 tokens
+    bit-equal to the build before the float32 redesign, one call on ready
+    parameters as one device activity, then each shape timed: device us a
+    launch in a replayed CUDA graph of GRAPH_LAUNCHES (tf32x3 and simt in
+    turns), the plain version, the unfused chain ``preprocess_nv12`` ->
+    ``embed_search``, and the bound."""
+    import hashlib
+
     from gstreamer_vit_tracker_tpu_torch.models import vit
     from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
     from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
@@ -1889,103 +1970,345 @@ def prep_phase(dev, cfg, params):
              ("a window larger than the band", frame,
               (100.0, 600.0, 500.0, 380.0)),
              ("the band's corner", frame, (1850.0, 1030.0, 60.0, 44.0))]
+    shapes = prep_shapes(dev, cfg, params)
     worst = {}
     for name, (y, uv), box in cases:
-        for dtype in ("bfloat16", "float32"):
-            c = dataclasses.replace(cfg, dtype=dtype)
-            win = pp.crop_window(torch.tensor(box, device=dev), c.search_factor)
-            before = fpe.LAUNCHES
-            got = fpe.nv12_search_tokens(params, y, uv, win, c)
-            torch.cuda.synchronize()
-            if fpe.LAUNCHES != before + 1:
-                raise AssertionError("nv12_search_tokens did not count a launch")
-            for mode in fpe.MODES:
-                plain = fpe.nv12_search_tokens_reference(params, y, uv, win, c,
-                                                         mode)
-                if fpe.LAUNCHES != before + 1:
-                    raise AssertionError("the plain version launched the kernel")
-                err = (got.float() - plain.float()).abs().max().item()
-                scale = plain.float().abs().max().item()
-                tol = (PREP_F32_ATOL if dtype == "float32"
-                       else PREP_BF16_REL * scale)
-                print(f"fused_prep_embed {name}, {dtype}, vs plain mode "
-                      f"{mode!r}: max|d| {err:.3e} (max|plain| {scale:.3f}, "
-                      f"tolerance {tol:.3e})", flush=True)
-                if got.shape != plain.shape or not torch.isfinite(
-                        got.float()).all() or not err <= tol:
+        for label, c, p, plans in shapes:
+            win = pp.crop_window(torch.tensor(box, device=dev),
+                                 c.search_factor)
+            plain = [fpe.nv12_search_tokens_reference(p, y, uv, win, c, mode)
+                     for mode in fpe.MODES]
+            scale = plain[0].float().abs().max().item()
+            tol = (PREP_F32_ATOL if c.dtype == "float32"
+                   else PREP_BF16_REL * scale)
+            for chosen in plans:
+                before = dict(fpe.VARIANT_LAUNCHES)
+                if chosen == plans[0]:        # the plan, through the wrapper
+                    got = fpe.nv12_search_tokens(p, y, uv, win, c)
+                else:
+                    got = fpe.launch(*fpe.kernel_operands(
+                        p, y, uv, win, c, chosen), c, chosen)
+                torch.cuda.synchronize()
+                if fpe.VARIANT_LAUNCHES != dict(before, **{
+                        chosen.variant: before[chosen.variant] + 1}):
+                    raise AssertionError(f"kernel 5 {label} {chosen}: the "
+                                         f"launch was not counted once")
+                errs = [(got.float() - q.float()).abs().max().item()
+                        for q in plain]
+                print(f"fused_prep_embed {name}, {label} {chosen.variant} "
+                      f"{tiling_name(chosen)} W {chosen.width}, vs plain "
+                      f"modes {fpe.MODES}: max|d| {errs[0]:.3e} / "
+                      f"{errs[1]:.3e} (max|plain| {scale:.3f}, tolerance "
+                      f"{tol:.3e})", flush=True)
+                if got.shape != plain[0].shape or not torch.isfinite(
+                        got.float()).all() or not max(errs) <= tol:
                     raise AssertionError(
-                        f"fused_prep_embed {name} {dtype} disagrees with its "
-                        f"plain version ({mode}): {err} > {tol}")
-                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                        f"fused_prep_embed {name} {label} {chosen} disagrees "
+                        f"with its plain version: {errs} > {tol}")
+                key = (label, chosen.variant)
+                worst[key] = max(worst.get(key, 0.0), *errs)
 
     # Timed at the flagship's shape: bf16, the banded 1080p frame.
     _, (y, uv), box = cases[2]
     win = pp.crop_window(torch.tensor(box, device=dev), cfg.search_factor)
     ops = fpe.kernel_operands(params, y, uv, win, cfg)
+    got = fpe.launch(*ops, cfg)
+    digest = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()
+                            ).hexdigest()
+    print(f"fused_prep_embed flagship bf16 on the banded case: sha256 of the "
+          f"tokens {digest}, the build before the float32 redesign "
+          f"{PREP_BF16_FLAGSHIP_SHA256}: bit-equal "
+          f"{digest == PREP_BF16_FLAGSHIP_SHA256}", flush=True)
+    if digest != PREP_BF16_FLAGSHIP_SHA256:
+        raise AssertionError("the flagship's bf16 tokens are no longer "
+                             "bit-equal to the build before the redesign")
 
     # One call on ready parameters is one device activity: the kernel.
     from torch.profiler import ProfilerActivity, profile
 
-    fpe.nv12_search_tokens(params, y, uv, win, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fpe.nv12_search_tokens(params, y, uv, win, cfg)
+    f32_flagship = dataclasses.replace(cfg, dtype="float32")
+    for c in (cfg, f32_flagship):
+        fpe.nv12_search_tokens(params, y, uv, win, c)
         torch.cuda.synchronize()
-    acts = [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"fused_prep_embed: device activities of one call on ready "
-          f"parameters (torch.profiler): {len(acts)} {acts}", flush=True)
-    if len(acts) != 1 or "embed" not in acts[0] or any(
-            "memcpy" in a.lower() for a in acts):
-        raise AssertionError(f"one nv12_search_tokens call is not one kernel "
-                             f"launch: {acts}")
+        # A trace with no device activity at all is the profiler's miss
+        # (one run of this phase on the card recorded none), not the
+        # call's: the call is traced again, at most three times.
+        for attempt in range(1, 4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fpe.nv12_search_tokens(params, y, uv, win, c)
+                torch.cuda.synchronize()
+            acts = [e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            if acts:
+                break
+        print(f"fused_prep_embed {c.dtype}: device activities of one call on "
+              f"ready parameters (torch.profiler, trace {attempt}): "
+              f"{len(acts)} {acts}", flush=True)
+        if len(acts) != 1 or "embed" not in acts[0] or any(
+                "memcpy" in a.lower() for a in acts):
+            raise AssertionError(f"one nv12_search_tokens call is not one "
+                                 f"kernel launch: {acts}")
 
     # The kernel's device time: one replayed CUDA graph of GRAPH_LAUNCHES
     # (profile_prep.py times other tilings and builds).
     chosen = fpe.plan(cfg.embed_dim, torch.bfloat16)
     _, launch = fpe.prepared(params, y, uv, win, cfg)
-    _, launch32 = fpe.prepared(params, y, uv, win,
-                               dataclasses.replace(cfg, dtype="float32"))
 
-    def chain():
-        x_img = pp.preprocess_nv12(y, uv, win, cfg.search_size, cfg.norm_mean,
-                                   cfg.norm_std, dtype=torch.bfloat16,
-                                   band=cfg.preprocess_band)
-        return vit.embed_search(params["backbone"], x_img[None], cfg)
+    def chain(p, c):
+        def run():
+            x_img = pp.preprocess_nv12(y, uv, win, c.search_size, c.norm_mean,
+                                       c.norm_std, dtype=getattr(torch, c.dtype),
+                                       band=c.preprocess_band)
+            return vit.embed_search(p["backbone"], x_img[None], c)
+        return run
 
-    res = {"max_abs_err": worst["bfloat16"], "max_abs_err_f32": worst["float32"],
+    res = {"max_abs_err": worst[("flagship bf16", "mma")],
+           "max_abs_err_f32": worst[("flagship f32", "tf32x3")],
            "variant": chosen.variant, "plan": tiling_name(chosen),
-           "device_activities": len(acts)}
+           "device_activities": len(acts), "sha256": digest}
     res["ms"] = cuda_ms(lambda: fpe.nv12_search_tokens(params, y, uv, win, cfg))
     res["launch_ms"] = cuda_ms(lambda: fpe.launch(*ops, cfg))
     res["device_us"] = graph_us(launch)
-    res["device_us_f32"] = graph_us(launch32)
     res["plain_ms"] = cuda_ms(lambda: fpe.nv12_search_tokens_reference(
         params, y, uv, win, cfg), iters=20, warmup=3)
-    res["chain_ms"] = cuda_ms(chain)
+    res["chain_ms"] = cuda_ms(chain(params, cfg))
     res["ms_again"] = cuda_ms(
         lambda: fpe.nv12_search_tokens(params, y, uv, win, cfg))
     res["device_us_again"] = graph_us(launch)
-    f32_flops, embed_flops, nbytes, taps = prep_cost(win, y.shape, cfg, 2)
-    t_ops = (f32_flops / H100_F32_FLOPS + embed_flops / H100_BF16_FLOPS) * 1e3
-    t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
-    res["bound_ms"] = max(t_ops, t_bytes)
-    res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    b = prep_bound(win, y.shape, cfg)
+    res.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
     print(f"fused_prep_embed 1080p banded bf16 ms (CUDA events, mean of "
           f"{TIMING_ITERS}): wrapper {res['ms']:.4f} / {res['ms_again']:.4f} "
           f"(before / after the others), one launch on ready operands "
           f"{res['launch_ms']:.4f}; device us a launch (CUDA graph of "
           f"{GRAPH_LAUNCHES}) {res['device_us']:.2f} / "
-          f"{res['device_us_again']:.2f}, float32 {res['device_us_f32']:.2f}; "
-          f"plain {res['plain_ms']:.4f}, unfused chain "
-          f"preprocess_nv12 -> embed_search {res['chain_ms']:.4f} (no library "
-          f"call computes this function); bound {res['bound_ms'] * 1e3:.2f} us "
-          f"by {res['bound_by']} (two-tap work {f32_flops / 1e6:.2f} MFLOP f32 "
-          f"+ embed {embed_flops / 1e6:.2f} MFLOP bf16 -> {t_ops * 1e3:.2f} us; "
-          f"{nbytes / 1e6:.3f} MB counting the {taps[0]} x {taps[1]} luma and "
-          f"{taps[2]} x {taps[3]} x 2 chroma bytes the taps touch -> "
-          f"{t_bytes * 1e3:.2f} us)", flush=True)
+          f"{res['device_us_again']:.2f}; plain {res['plain_ms']:.4f}, "
+          f"unfused chain preprocess_nv12 -> embed_search "
+          f"{res['chain_ms']:.4f} (no library call computes this function); "
+          f"bound {b['bound_ms'] * 1e3:.2f} us by {b['bound_by']} (two-tap "
+          f"work + embed {b['embed_mflop']:.2f} MFLOP bf16 -> "
+          f"{b['ops_ms'] * 1e3:.2f} us; {b['mbytes']:.3f} MB counting the "
+          f"{b['taps'][0]} x {b['taps'][1]} luma and {b['taps'][2]} x "
+          f"{b['taps'][3]} x 2 chroma bytes the taps touch -> "
+          f"{b['bytes_ms'] * 1e3:.2f} us)", flush=True)
+
+    # Every other shape on the same window: the plan's device time (tf32x3
+    # and simt in turns in float32), the plain version, the unfused chain.
+    res["shapes"] = {}
+    for label, c, p, plans in shapes[1:]:
+        w = pp.crop_window(torch.tensor(box, device=dev), c.search_factor)
+        launches = {ch.variant: fpe.prepared(p, y, uv, w, c, ch)[1]
+                    for ch in plans}
+        us = {v: [] for v in launches}
+        for _ in range(2):
+            for v, fn in launches.items():
+                us[v].append(graph_us(fn))
+        b = prep_bound(w, y.shape, c)
+        row = {"plan": list(plans[0]), "device_us": us, **b,
+               "max_abs_err": {v: worst[(label, v)] for v in launches},
+               "plain_ms": cuda_ms(lambda: fpe.nv12_search_tokens_reference(
+                   p, y, uv, w, c), iters=10, warmup=2),
+               "chain_ms": cuda_ms(chain(p, c), iters=20, warmup=3),
+               "launch_ms": cuda_ms(lambda: fpe.launch(
+                   *fpe.kernel_operands(p, y, uv, w, c), c), iters=20)}
+        res["shapes"][label] = row
+        print(f"fused_prep_embed {label} (N {c.num_search_tokens}, K "
+              f"{c.patch_size ** 2 * 3}, D {c.embed_dim}), 1080p banded: "
+              f"device us a launch {json.dumps(us)}; plain "
+              f"{row['plain_ms']:.4f} ms, unfused chain {row['chain_ms']:.4f}, "
+              f"one launch {row['launch_ms']:.4f}; bound "
+              f"{b['bound_ms'] * 1e3:.3f} us by {b['bound_by']} (operations "
+              f"{b['ops_ms'] * 1e3:.3f} us"
+              + (f" as split TF32, {b['bound_fma_ms'] * 1e3:.3f} on the FMA "
+                 f"units" if c.dtype == "float32" else "")
+              + f"; {b['mbytes']:.3f} MB -> {b['bytes_ms'] * 1e3:.3f} us)",
+              flush=True)
+    res["device_us_f32"] = res["shapes"]["flagship f32"]["device_us"][
+        "tf32x3"][0]
     return res
+
+
+# The kernel-5 paths (phase 4c): steps of each, and the D-768 bf16 model
+# they drive at full width (seeded weights; no preset names it, both
+# packages take it).
+PREP_PATH_STEPS = 8
+PREP_WIDE_STEPS = 5
+PREP_WIDE = dict(embed_dim=768, depth=2, num_heads=12)
+
+
+def prep_paths_phase(dev, card: str) -> dict:
+    """Kernel 5 on the paths that run it, on the main path's 1080p NV12
+    clip: the ``small`` preset as shipped (float32) through
+    ``scan.update_scan_pool(..., fused_prep=True)`` (compiled, one step a
+    call) and ``core.update_packed(..., fused_prep=True)`` (eager);
+    corr-tiny (patch 8, K 192) eagerly; the D-768 bf16 model (PREP_WIDE,
+    12 heads of 64) compiled.  Each step runs on the card from the state
+    the port's CPU run of the same route had before it and is held to the
+    CPU's step (float32: SMALL_BOX_TOL / SMALL_SCORE_TOL, corr-tiny's
+    CORR_*; bf16 CPU_BOX_TOL / CPU_SCORE_TOL) and to the plain-route step
+    on the card from the same state (ROUTE_BOX_TOL, ROUTE_SCORE_TOL).  The
+    counts are set to 0 just before each route's steps and read just after:
+    kernel 5 once a step, kernel 1 once a step where the model has blocks,
+    each in the plan's variant, nothing else.  Then the compiled ``small``
+    step run free: its launches over JIT_TIMED steps and its device busy ms
+    a step (``torch.profiler``)."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS, ModelConfig
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.tracker import core, scan
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    frames, boxes = nv12_clip(PREP_PATH_STEPS + 1)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    ys, uvs = (torch.stack([c[i] for c in clip]) for i in (0, 1))
+    small, corr = PRESETS["small"], PRESETS["corr-tiny"]
+    wide = ModelConfig(**PREP_WIDE)
+    flat = random_flat(wide, seed=19)
+    models = [
+        ("small f32", small, lambda d: weights.load_npz(
+            weights.checkpoint_path("small"), small, device=d),
+         PREP_PATH_STEPS, ("compiled", "eager"), (SMALL_BOX_TOL,
+                                                  SMALL_SCORE_TOL)),
+        ("corr-tiny", corr, lambda d: vittrack.init_params(
+            torch.Generator().manual_seed(0), corr, d), PREP_PATH_STEPS,
+         ("eager",),
+         (CORR_BOX_TOL, CORR_SCORE_TOL)),
+        ("D 768 bf16", wide, lambda d: weights.params_from_flat(
+            flat, wide, device=d), PREP_WIDE_STEPS, ("compiled",),
+         (CPU_BOX_TOL, CPU_SCORE_TOL))]
+    res = {}
+    for label, cfg, load, steps, routes, (box_tol, score_tol) in models:
+        params = vittrack.with_grouped_head(load(dev))
+        cparams = vittrack.with_grouped_head(load(cpu))
+        dt = getattr(torch, cfg.dtype)
+        k5 = fpe.plan(cfg.embed_dim, dt).variant
+        k1 = vit_block.plan(1, cfg.num_tokens, cfg.embed_dim, cfg.num_heads,
+                            int(cfg.embed_dim * cfg.mlp_ratio), dt,
+                            attention.card(dev)[1]).variant
+        n1 = steps if cfg.depth else 0
+        cst = [core.init(cparams, frames[0], boxes[0], cfg, "nv12", cpu)]
+        want = []
+        for i in range(steps):
+            st, b, c = core.update(cparams, cst[-1], frames[i + 1], cfg,
+                                   "nv12", cpu, fused_prep=True)
+            cst.append(st)
+            want.append(torch.cat([b, c[None]]).numpy())
+
+        def held(i):
+            return type(cst[i])(*(t.to(dev) for t in cst[i]))
+
+        def step(route, i):
+            if route == "eager":
+                return core.update_packed(params, held(i), clip[i + 1], cfg,
+                                          "nv12", dev, fused_prep=True)[1]
+            st, sc = scan.update_scan_pool(
+                params, held(i), (ys[i + 1:i + 2], uvs[i + 1:i + 2]), 1, cfg,
+                "nv12", fused_prep=True, device=dev)
+            return torch.cat([st.bbox, sc])
+
+        plain = []                             # the plain route, uncounted
+        for i in range(steps):
+            _, b, c = core.update(params, held(i), clip[i + 1], cfg, "nv12",
+                                  dev)
+            plain.append(torch.cat([b, c[None]]))
+        plain, want = torch.stack(plain).cpu().numpy(), np.stack(want)
+        res[label] = {"kernel1": k1 if cfg.depth else None, "kernel5": k5}
+        for route in routes:
+            if route == "compiled":
+                step(route, 0)                  # the first call captures
+            zero_counts()
+            got = [step(route, i) for i in range(steps)]
+            counts, v1, v5 = (read_counts(), dict(vit_block.VARIANT_LAUNCHES),
+                              dict(fpe.VARIANT_LAUNCHES))
+            got = torch.stack(got).cpu().numpy()
+            d_box = float(np.abs(got[:, :4] - want[:, :4]).max())
+            d_score = float(np.abs(got[:, 4] - want[:, 4]).max())
+            r_box = float(np.abs(got[:, :4] - plain[:, :4]).max())
+            r_score = float(np.abs(got[:, 4] - plain[:, 4]).max())
+            print(f"kernel-5 path {label} ({route}, {steps} fused_prep steps "
+                  f"of 1080p NV12, each from the CPU's state): vs the CPU max|d "
+                  f"bbox| {d_box:.3e} px, max|d score| {d_score:.3e} "
+                  f"(tolerance {box_tol}, {score_tol}); vs the plain route "
+                  f"{r_box:.3e} px, {r_score:.3e} ({ROUTE_BOX_TOL}, "
+                  f"{ROUTE_SCORE_TOL}); launches {counts}, kernel 1 {v1}, "
+                  f"kernel 5 {v5}", flush=True)
+            if counts != dict(counts, vit_encoder=n1, vit_block=0,
+                              attention_single=0, attention_flash=0,
+                              fused_prep_embed=steps) \
+                    or v1 != only(k1, n1) \
+                    or v5 != {v: steps if v == k5 else 0 for v in v5}:
+                raise AssertionError(f"kernel-5 path {label} {route}: "
+                                     f"launches {counts} {v1} {v5}")
+            if not np.isfinite(got).all() or d_box > box_tol \
+                    or d_score > score_tol or r_box > ROUTE_BOX_TOL \
+                    or r_score > ROUTE_SCORE_TOL:
+                raise AssertionError(f"kernel-5 path {label} {route} "
+                                     f"disagrees with the CPU or the plain "
+                                     f"route")
+            res[label][route] = {
+                "steps": steps, "launches": counts, "kernel1_variants": v1,
+                "kernel5_variants": v5, "max_d_bbox_px": d_box,
+                "max_d_score": d_score, "route_max_d_bbox_px": r_box,
+                "route_max_d_score": r_score}
+
+        if label == "small f32":               # the compiled step run free
+            st0 = core.init(params, clip[0], boxes[0], cfg, "nv12", dev)
+            pool = (ys[1:].contiguous(), uvs[1:].contiguous())
+
+            def free():
+                return scan.update_scan_pool(params, st0, pool, JIT_TIMED,
+                                             cfg, "nv12", fused_prep=True,
+                                             device=dev)
+
+            free()
+            zero_counts()
+            _, scores = free()
+            counts, v5 = read_counts(), dict(fpe.VARIANT_LAUNCHES)
+            t = traced_ms(free, 1, JIT_TIMED)
+            print(f"kernel-5 path small f32 compiled, run free: "
+                  f"{JIT_TIMED} steps a call, launches {counts}, kernel 5 "
+                  f"{v5}; device busy ms a step (torch.profiler) "
+                  f"{t['device_ms']:.4f}, host wall {t['host_ms']:.4f}, "
+                  f"activities {t['activities']:.1f}, idle share "
+                  f"{t['idle_share']:.3f} | {card}", flush=True)
+            if counts["fused_prep_embed"] != JIT_TIMED \
+                    or counts["vit_encoder"] != JIT_TIMED \
+                    or v5[k5] != JIT_TIMED \
+                    or not torch.isfinite(scores).all():
+                raise AssertionError(f"kernel-5 path small f32 run free: "
+                                     f"launches {counts} {v5}")
+            res[label]["free"] = {"steps": JIT_TIMED, "launches": counts, **t}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"kernel-5 paths: {res['seconds']:.1f} s | {card}", flush=True)
+    return res
+
+
+def prep_alone() -> dict:
+    """Phase 3c (:func:`prep_phase`, on the flagship's shipped weights) and
+    :func:`prep_paths_phase` on card 0 and nothing else, after the build.
+    Run from the root of a checkout: ``python -c "import chip_smoke as c;
+    c.prep_alone()"``."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cuda_build.build()
+    card = card_line()
+    print(f"kernel 5 alone | {card}", flush=True)
+    cfg = PRESETS["vittrack-t"]
+    params = vittrack.with_grouped_head(weights.load_npz(
+        weights.checkpoint_path("vittrack-t"), cfg, device=dev))
+    got = {"prep": prep_phase(dev, cfg, params),
+           "paths": prep_paths_phase(dev, card)}
+    print(json.dumps(got), flush=True)
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -2464,6 +2787,7 @@ def zero_counts() -> None:
     zero_variants()
     attention.SINGLE_LAUNCHES = attention.FLASH_LAUNCHES = 0
     fpe.LAUNCHES = 0
+    fpe.VARIANT_LAUNCHES.update(dict.fromkeys(fpe.VARIANT_LAUNCHES, 0))
 
 
 def read_counts() -> dict:
@@ -5022,6 +5346,7 @@ def main() -> int:
     # The fused route, and the clip as RGB and as YUY2.
     fused = fused_route_phase(dev, cfg, params, cparams, frames, boxes, clip)
     del clip, frames
+    prep_paths = prep_paths_phase(dev, card)
 
     # -- 5, 6. the serving paths --------------------------------------------
     serve = serve_phase(dev, "vittrack-t")
@@ -5245,8 +5570,21 @@ def main() -> int:
                        "launches": small_bf16["fused_prep"]["launches"][
                            "fused_prep_embed"],
                        "steps": SMALL_BF16_PREP_STEPS},
+        "flagship_bf16_sha256": prep["sha256"],
+        "variants": {label: {
+            "plan": row["plan"], "device_us": row["device_us"],
+            "max_abs_err": row["max_abs_err"], "ms": row["launch_ms"],
+            "plain_ms": row["plain_ms"], "library_ms": None,
+            "unfused_chain_ms": row["chain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "bound_fma_ms": row["bound_fma_ms"]}
+            for label, row in prep["shapes"].items()},
+        "paths": {label: {k: v for k, v in r.items()
+                          if k in ("kernel1", "kernel5", "compiled", "eager",
+                                   "free")}
+                  for label, r in prep_paths.items() if label != "seconds"},
     }]
     print(f"fused route summary: {json.dumps(fused)}")
+    print(f"kernel-5 paths summary: {json.dumps(prep_paths)}")
     print(f"training summary: {json.dumps(training)}")
     print(f"serving summary: {json.dumps(serve)}")
     print(f"app summary: {json.dumps(app)}")

@@ -37,38 +37,74 @@
 // wrapper made the band geometry and the operands with ~20 small PyTorch ops a
 // call (PERF.md, the kernel table).
 //
-// Two variants, chosen by ops/fused_prep_embed.py::plan before the launch:
+// Three variants, chosen by ops/fused_prep_embed.py::plan before the launch.
+// Every one reads its operands padded to a width W (a multiple of its column
+// tile and of its clusters, W >= D): the weight and pos + bias zero in
+// columns [D, W), made once per parameter set; it writes only the D true
+// columns of the (N, D) output.
 //
 // "mma" (bf16): a CTA of 256 threads owns TM = 16 tokens (one mma tile of
-// rows) by TN = 32 embed columns.  First it starts the copies of the first
-// weight k-chunk (64 rows x TN, 16-byte cp.async into a ring of kStages
+// rows) by TN = 32 (or 64) embed columns.  First it starts the copies of the
+// first weight k-chunk (64 rows x TN, 16-byte cp.async into a ring of kStages
 // chunks).  The
 // pixels go straight into the A tile in shared memory, (TM, K) row-major, each
 // row skewed to an odd number of 16-byte units, the layout ldmatrix reads
 // without bank conflicts.  A thread owns one output column of the tile (one
 // division for its token's place in the grid, the column weights and byte
 // offsets made once) and walks the patch rows below it, the twelve tap loads
-// of a pixel issued with no branch between them.  The D / TN CTAs of one token
-// tile need the same pixels, so they run as one thread-block cluster (at most
-// 8): each makes every (D / TN)-th patch row, stores it into its peers' A
-// tiles as well (16-byte stores into their shared memory) and one cluster
-// barrier publishes them all.  Without the cluster each CTA makes all 4,096
+// of a pixel issued with no branch between them.  The W / TN CTAs of one token
+// tile need the same pixels, so they run as thread-block clusters (at most
+// 8; above W = 256 a token tile has equal clusters of 64-column CTAs, each
+// cluster making the tile's pixels again): each CTA makes every cluster-th
+// patch row, stores it into its peers' A tiles as well (16-byte stores into
+// their shared memory) and one cluster barrier publishes them all.  Without
+// the cluster each CTA makes all 4,096
 // pixels of its tile itself, and the pixel phase is 16.7-18.1 us of a
 // 22.4 us launch on the H100; with it 3.6-3.8 of 11.0 (profile_prep.py,
-// which also times 24, 48 and 64 columns a CTA: 32 is the fastest at D 192).
+// which also times 64 columns a CTA: 32 is the fastest at D 192).
 // Then the product: each warp owns m16 x n8 tiles and walks K in 16-deep
-// steps of mma.sync.m16n8k16, A by ldmatrix, B (the weight as it lies, (K, D)
+// steps of mma.sync.m16n8k16, A by ldmatrix, B (the weight as it lies, (K, W)
 // row-major) by ldmatrix.trans.  Every step goes to a fresh accumulator and
 // the steps are added in float32 in order: the tensor cores' own float32
 // accumulation is not an IEEE sum (csrc/encoder_mma.cuh).  The epilogue rounds the
 // sum to bf16, adds pos + bias in float32 and rounds again.  The weight is
 // read by the CTAs of one column tile only: each reads K x TN of it once.
 //
-// "simt" (float32): the tensor cores would take TF32, which breaks the float32
-// tolerance of 1e-4, so the product stays on the FMA units: a CTA makes two
-// tokens' pixels (the same pixel code as "mma") and the product split over k,
-// the weight as 16-byte vectors from L2, the partial sums meeting in shared
-// memory in a fixed order.
+// "tf32x3" (float32): the same token tiles, clusters (of at most 6) and pixel
+// phase, TN = 8, 16, 24 or 32 columns a CTA (the narrowest whose tiles make
+// one cluster: 32 at D 192, 16 at D 96 and 64), the A tile in float32 ((TM,
+// K) row-major, rows round_up(K, 32) + 4 floats apart, so that the eight rows
+// of a fragment load fall into eight groups of four banks), and the product
+// on mma.sync.m16n8k8 in split TF32 (csrc/attention_tf32.cuh: x = hi + lo, hi
+// = tf32(x), lo = tf32(x - hi); lo.hi, hi.lo, then hi.hi, the three products
+// float32's accuracy).  The weight arrives split, two planes (hi, then lo),
+// each (K, W) row-major, made once per parameter set; the kernel splits only
+// A, each element once, as its fragment is loaded.  A CTA has at most four
+// n8 tiles and eight warps, so the warps split K: warp w takes the 32-deep
+// chunks w, w + 8, ..., its B fragments read straight from the planes into
+// registers (each load of a warp four rows' 32-byte sectors; L2 holds the
+// planes) through two buffers: the first two chunks, and the epilogue's pos
+// + bias, in flight while the pixels are made (volatile loads, which the
+// compiler does not sink past the pixel phase: 15.3 -> 13.9 us at the
+// flagship), each buffer refilled with the chunk two ahead as soon as it is
+// multiplied.  A chunk's even and odd 8-deep steps go to two fresh
+// accumulators, added to each other and then to the warp's sum in float32
+// (one accumulator over K = 768 drifted 1.7e-3 from the twin in
+// csrc/encoder_tf32.cuh); the eight warps' sums meet in shared memory and are
+// added in warp order, then pos + bias in float32.  At the flagship's shape
+// the split-TF32 product is 3 x 75.5 MFLOP (0.46 us at 495 TFLOP/s) and the
+// weight's two planes 1.18 MB, read from L2 by each of the 16 token tiles'
+// CTAs: 18.9 MB of L2 reads a call.  On the H100 the product alone (pixels
+// cut out) takes ~5 us of a ~13.7 us launch, the pixel phase ~4, the rest
+// (launch, cluster barriers, the copy of the shares, the epilogue) ~5
+// (profile_prep.py).  Reading the peers' pixels in place over distributed
+// shared memory, instead of copying them, measured slower (17.4 against
+// 13.7 us), as did clusters of 8 and a build for two CTAs an SM.
+//
+// "simt" (float32, by name only: the yardstick of "tf32x3"): a CTA makes two
+// tokens' pixels (the same pixel code) and the product split over k on the
+// FMA units, the weight as 16-byte vectors from L2, the partial sums meeting
+// in shared memory in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +116,7 @@
 #include <cooperative_groups.h>
 
 #include "attention_mma.cuh"   // cp.async and shared-address primitives
+#include "encoder_tf32.cuh"   // split TF32: to_tf32, split, FragA / FragB, mma3, load_a
 
 namespace {
 
@@ -91,10 +128,11 @@ using mma::cp_async_wait;
 using mma::smem_addr;
 
 constexpr int kThreads = 256;
-constexpr int kTileTokens = 16;  // tokens a CTA ("mma"): one m16 tile of rows
-constexpr int kTileCols = 32;    // embed columns a CTA ("mma"); D / kTileCols a cluster
+constexpr int kTileTokens = 16;  // tokens a CTA ("mma", "tf32x3"): one m16 tile of rows
+constexpr int kMaxCluster = 8;   // CTAs of a cluster: the portable limit
 constexpr int kWarps = kThreads / 32;
 constexpr int kKChunk = 64;      // weight rows a stage ("mma")
+constexpr int kTf32Chunk = 32;   // K a warp's chunk ("tf32x3"): four 8-deep steps
 constexpr int kStages = 2;       // weight k-chunks in flight ("mma")
 constexpr int kSimtTok = 2;      // tokens a CTA ("simt")
 constexpr int kAhead = 4;        // embed-weight vectors a thread loads ahead ("simt")
@@ -302,12 +340,45 @@ __device__ __forceinline__ void make_pixels(const Frame& f, const Window& w, con
 struct Args {
   Frame frame;
   const float *cx, *cy, *size;
-  int frame_h, band, out_size, patch, dim;
+  int frame_h, band, out_size, patch;
+  int dim;                   // D: the output's columns
+  int width;                 // W: the operands' columns, D padded
   Norm norm;
-  const void* w_embed;       // (K, dim)
-  const void* pos_bias;      // (N, dim)
-  void* out;                 // (N, dim)
+  const void* w_embed;       // (K, W); "tf32x3": (2, K, W), hi then lo
+  const void* pos_bias;      // (N, W)
+  void* out;                 // (N, D)
 };
+
+// The pixels of every patch row made by the CTAs of this cluster (each CTA
+// made the rows share, share + shares, ... of its tile into its own A, rows
+// lda elements apart) copied into its peers' A tiles, 16 bytes at a time
+// where a patch row of a token is whole 16-byte units, and published by one
+// cluster barrier.  Every thread arrived at the cluster barrier before its
+// pixels (a CTA may write a peer's shared memory only once the peer runs).
+template <typename T>
+__device__ __forceinline__ void share_pixels(cg::cluster_group& cluster, T* A, int lda,
+                                             int tm, int patch, int share, int shares) {
+  constexpr int kVec = 16 / sizeof(T);
+  __syncthreads();                 // this CTA's share is made
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // the peers run
+  const int seg = patch * 3;       // elements of one patch row of one token
+  const int vec = seg % kVec == 0 ? kVec : 1;
+  const int units = seg / vec;
+  const int rows = (patch - share + shares - 1) / shares;      // patch rows of the share
+  const int per_peer = tm * rows * units;
+  for (int i = threadIdx.x; i < (shares - 1) * per_peer; i += kThreads) {
+    const int peer = (share + 1 + i / per_peer) % shares, j = i % per_peer;
+    const int u = j % units, tr = j / units;
+    const size_t at = (size_t)(tr / rows) * lda + (share + shares * (tr % rows)) * seg
+                      + u * vec;
+    T* dst = cluster.map_shared_rank(A + at, peer);
+    if (vec == kVec)
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(A + at);
+    else
+      *dst = A[at];
+  }
+  cluster.sync();                  // every share is in every tile
+}
 
 // ---------------------------------------------------------------------------
 // Variant "mma": bf16 on the tensor cores.
@@ -377,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
       const int r = i / kNt, v = i - r * kNt;
       const int k = c * kKChunk + r;
       cp_async16(smem_addr(dst + r * kLdb + v * 8),
-                 w_embed + (size_t)min(k, K - 1) * a.dim + col0 + v * 8, k < K);
+                 w_embed + (size_t)min(k, K - 1) * a.width + col0 + v * 8, k < K);
     }
   };
 #pragma unroll
@@ -399,27 +470,7 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
                                    a.out_size);
   make_pixels<bf16>(a.frame, w, a.norm, n0, TM, n_tok, grid_side, a.patch, share, shares, A,
                     lda);
-  if (shares > 1) {
-    __syncthreads();                 // this CTA's share is made
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // the peers run
-    const int seg = a.patch * 3;     // elements of one patch row of one token
-    const int vec = seg % 8 == 0 ? 8 : 1;
-    const int units = seg / vec;
-    const int rows = (a.patch - share + shares - 1) / shares;      // patch rows of the share
-    const int per_peer = TM * rows * units;
-    for (int i = threadIdx.x; i < (shares - 1) * per_peer; i += kThreads) {
-      const int peer = (share + 1 + i / per_peer) % shares, j = i % per_peer;
-      const int u = j % units, tr = j / units;
-      const size_t at = (size_t)(tr / rows) * lda + (share + shares * (tr % rows)) * seg
-                        + u * vec;
-      bf16* dst = cluster.map_shared_rank(A + at, peer);
-      if (vec == 8)
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(A + at);
-      else
-        *dst = A[at];
-    }
-    cluster.sync();                  // every share is in every tile
-  }
+  if (shares > 1) share_pixels(cluster, A, lda, TM, a.patch, share, shares);
   for (int i = threadIdx.x; i < TM * (kp - K); i += kThreads)     // K's padding
     A[(size_t)(i / (kp - K)) * lda + K + i % (kp - K)] = __float2bfloat16_rn(0.0f);
 
@@ -470,15 +521,183 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + mt * 16 + (lane >> 2) + 8 * h;
       if (n >= n_tok) continue;
-      const size_t at = (size_t)n * a.dim + col;
-      const __nv_bfloat162 pb = *reinterpret_cast<const __nv_bfloat162*>(pos_bias + at);
+      const __nv_bfloat162 pb =
+          *reinterpret_cast<const __nv_bfloat162*>(pos_bias + (size_t)n * a.width + col);
       __nv_bfloat162 o;
       o.x = __float2bfloat16_rn(
           __fadd_rn(round_to<bf16>(acc[i][2 * h]), __bfloat162float(pb.x)));
       o.y = __float2bfloat16_rn(
           __fadd_rn(round_to<bf16>(acc[i][2 * h + 1]), __bfloat162float(pb.y)));
-      *reinterpret_cast<__nv_bfloat162*>(out + at) = o;
+      bf16* dst = out + (size_t)n * a.dim + col;
+      if (a.width == a.dim) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = o;
+      } else {                       // the padded columns are dropped
+        if (col < a.dim) dst[0] = o.x;
+        if (col + 1 < a.dim) dst[1] = o.y;
+      }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Variant "tf32x3": float32 on the tensor cores, split TF32.
+// ---------------------------------------------------------------------------
+
+// Floats of a row of the A tile: K rounded up to whole chunks, + 4 (4 modulo
+// 32: the rows g of a fragment load fall into banks 4g + t).
+__host__ __device__ inline int tf32_lda(int k) { return round_up(k, kTf32Chunk) + 4; }
+
+// Shared memory of one "tf32x3" CTA: the A tile, then the eight warps' sums
+// of the (TM, TN) output tile (rows TN + 1 floats apart).
+inline size_t tf32_smem_bytes(int tn, int k) {
+  return ((size_t)kTileTokens * tf32_lda(k) + (size_t)kWarps * kTileTokens * (tn + 1))
+         * sizeof(float);
+}
+
+// A read-only load issued where it stands: volatile, so that the compiler
+// keeps a chunk's loads ahead of the pixel phase (the cluster barrier's
+// arrive is volatile too) instead of sinking them to their first use.
+__device__ __forceinline__ uint32_t load_early(const float* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// A warp's B fragments of one 32-deep chunk at k0: for each 8-deep step s
+// and n8 tile j, b0 (k = k0 + 8s + t) and b1 (k + 4) of column 8j + g of both
+// planes.  Rows past K read row K - 1: A's columns past K are zeros, so
+// those products add exact zeros.  wh: the hi plane at column col0 + g.
+template <int NT>
+__device__ __forceinline__ void load_b_chunk(tf32x3::FragB (&b)[4][NT], const float* wh,
+                                             size_t plane, int width, int K, int k0, int t) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float* row = wh + (size_t)min(k0 + 8 * s + t + 4 * e, K - 1) * width;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        b[s][j].hi[e] = load_early(row + 8 * j);
+        b[s][j].lo[e] = load_early(row + 8 * j + plane);
+      }
+    }
+  }
+}
+
+// One 32-deep chunk of a warp's product into acc, A's 16 rows at `a` (row g,
+// column t of the chunk; rows lda floats apart), each fragment split as it
+// is loaded, all four before the first product: the chunk's even and odd
+// 8-deep steps in two fresh accumulators, added to each other and then to
+// acc in float32.
+template <int NT>
+__device__ __forceinline__ void chunk_product(float (&acc)[NT][4], const float* a, int lda,
+                                              const tf32x3::FragB (&b)[4][NT]) {
+  tf32x3::FragA fa[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) fa[s] = encoder_tf32::load_a(a + 8 * s, lda);
+  float part[2][NT][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[e][j][q] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) tf32x3::mma3<0>(part[s & 1], fa[s], b[s]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] += part[0][j][q] + part[1][j][q];
+}
+
+template <int TN>
+__global__ void __launch_bounds__(kThreads) embed_tf32_kernel(const Args a) {
+  namespace tf = tf32x3;
+  constexpr int TM = kTileTokens;
+  constexpr int kNt = TN / 8;                         // n8 tiles of a CTA
+  static_assert(TM == 16, "one m16 tile of rows");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.patch * a.patch * 3;
+  const int kp = round_up(K, kTf32Chunk);
+  const int lda = tf32_lda(K);
+  float* A = reinterpret_cast<float*>(smem);          // [TM][lda]
+  float* sums = A + (size_t)TM * lda;                 // [kWarps][TM][TN + 1]
+  const int grid_side = a.out_size / a.patch;
+  const int n_tok = grid_side * grid_side;
+  const int n0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
+  const int chunks = kp / kTf32Chunk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const float* wh = static_cast<const float*>(a.w_embed) + col0 + g;
+  const size_t plane = (size_t)K * a.width;
+
+  // The warp's chunks c = warp, warp + 8, ... go through two register
+  // buffers: its first two are in flight through the pixel phase, and each
+  // buffer is refilled with the chunk two ahead as soon as it is multiplied.
+  tf::FragB b0[4][kNt], b1[4][kNt];
+  if (warp < chunks) load_b_chunk<kNt>(b0, wh, plane, a.width, K, warp * kTf32Chunk, t);
+  if (warp + kWarps < chunks)
+    load_b_chunk<kNt>(b1, wh, plane, a.width, K, (warp + kWarps) * kTf32Chunk, t);
+
+  // This thread's elements of pos + bias for the epilogue, in flight too.
+  constexpr int kOut = (TM * TN + kThreads - 1) / kThreads;
+  const float* pos_bias = static_cast<const float*>(a.pos_bias);
+  float pb[kOut];
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) {
+    const int i = min((int)threadIdx.x + u * kThreads, TM * TN - 1);
+    pb[u] = __uint_as_float(load_early(
+        pos_bias + (size_t)min(n0 + i / TN, n_tok - 1) * a.width + col0 + i % TN));
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int shares = (int)cluster.num_blocks(), share = (int)cluster.block_rank();
+  if (shares > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
+                                   a.out_size);
+  make_pixels<float>(a.frame, w, a.norm, n0, kTileTokens, n_tok, grid_side, a.patch, share,
+                     shares, A, lda);
+  if (shares > 1) share_pixels(cluster, A, lda, TM, a.patch, share, shares);
+  for (int i = threadIdx.x; i < TM * (kp - K); i += kThreads)     // K's padding
+    A[(size_t)(i / (kp - K)) * lda + K + i % (kp - K)] = 0.0f;
+  __syncthreads();
+
+  float acc[kNt][4];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
+  const float* a_row = A + (size_t)g * lda + t;
+  for (int c = warp; c < chunks; c += 2 * kWarps) {
+    chunk_product<kNt>(acc, a_row + c * kTf32Chunk, lda, b0);
+    if (c + 2 * kWarps < chunks)
+      load_b_chunk<kNt>(b0, wh, plane, a.width, K, (c + 2 * kWarps) * kTf32Chunk, t);
+    if (c + kWarps >= chunks) break;
+    chunk_product<kNt>(acc, a_row + (c + kWarps) * kTf32Chunk, lda, b1);
+    if (c + 3 * kWarps < chunks)
+      load_b_chunk<kNt>(b1, wh, plane, a.width, K, (c + 3 * kWarps) * kTf32Chunk, t);
+  }
+
+  // The warps' sums into shared memory (a lane holds rows g and g + 8,
+  // columns 8j + 2t and + 1), then added in warp order with pos + bias.
+  float* mine = sums + (size_t)warp * TM * (TN + 1);
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mine[(g + 8 * (q >> 1)) * (TN + 1) + 8 * j + 2 * t + (q & 1)] = acc[j][q];
+  __syncthreads();
+  float* out = static_cast<float*>(a.out);
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / TN, cc = i - r * TN;
+    const int n = n0 + r, col = col0 + cc;
+    if (i >= TM * TN || n >= n_tok || col >= a.dim) continue;
+    float sum = sums[r * (TN + 1) + cc];
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v) sum += sums[((size_t)v * TM + r) * (TN + 1) + cc];
+    out[(size_t)n * a.dim + col] = __fadd_rn(sum, pb[u]);
   }
 }
 
@@ -487,10 +706,10 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
 // ---------------------------------------------------------------------------
 
 // Shared memory: the pixels [kSimtTok][K] of float, then the partial embed sums
-// [kgroups][kSimtTok][dim] of float.
-inline size_t simt_smem_bytes(int k, int dim) {
-  const int kgroups = kThreads / (dim / 4);
-  return ((size_t)kSimtTok * k + (size_t)kgroups * kSimtTok * dim) * sizeof(float);
+// [kgroups][kSimtTok][width] of float.
+inline size_t simt_smem_bytes(int k, int width) {
+  const int kgroups = kThreads / (width / 4);
+  return ((size_t)kSimtTok * k + (size_t)kgroups * kSimtTok * width) * sizeof(float);
 }
 
 __global__ void __launch_bounds__(kThreads) embed_simt_kernel(const Args a) {
@@ -498,7 +717,7 @@ __global__ void __launch_bounds__(kThreads) embed_simt_kernel(const Args a) {
   float* xs = reinterpret_cast<float*>(smem);           // [kSimtTok][K]
   const int grid_side = a.out_size / a.patch;
   const int n_tok = grid_side * grid_side;
-  const int K = a.patch * a.patch * 3, dim = a.dim;
+  const int K = a.patch * a.patch * 3, width = a.width;
   const int n0 = blockIdx.x * kSimtTok;
   const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
                                    a.out_size);
@@ -512,9 +731,9 @@ __global__ void __launch_bounds__(kThreads) embed_simt_kernel(const Args a) {
   // partial sums of the k groups meet in shared memory and are added in a
   // fixed order.
   constexpr int kVec = 4;
-  const int dgroups = dim / kVec;
+  const int dgroups = width / kVec;
   const int kgroups = kThreads / dgroups;
-  float* part = xs + (size_t)kSimtTok * K;               // [kg][kSimtTok][dim]
+  float* part = xs + (size_t)kSimtTok * K;               // [kg][kSimtTok][width]
   const float* w_embed = static_cast<const float*>(a.w_embed);
   const int dg = threadIdx.x % dgroups, kg = threadIdx.x / dgroups;
   if (kg < kgroups) {
@@ -529,7 +748,7 @@ __global__ void __launch_bounds__(kThreads) embed_simt_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < kAhead; ++i) {
         const int kk = k + i * kgroups;
-        wv[i] = kk < K ? *reinterpret_cast<const float4*>(wcol + (size_t)kk * dim)
+        wv[i] = kk < K ? *reinterpret_cast<const float4*>(wcol + (size_t)kk * width)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -548,20 +767,19 @@ __global__ void __launch_bounds__(kThreads) embed_simt_kernel(const Args a) {
     for (int t = 0; t < kSimtTok; ++t)
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
-        part[((size_t)kg * kSimtTok + t) * dim + dg * kVec + e] = acc[t][e];
+        part[((size_t)kg * kSimtTok + t) * width + dg * kVec + e] = acc[t][e];
   }
   __syncthreads();
 
   const float* pos_bias = static_cast<const float*>(a.pos_bias);
   float* out = static_cast<float*>(a.out);
-  for (int idx = threadIdx.x; idx < kSimtTok * dim; idx += kThreads) {
-    const int t = idx / dim, d = idx - t * dim;
+  for (int idx = threadIdx.x; idx < kSimtTok * a.dim; idx += kThreads) {
+    const int t = idx / a.dim, d = idx - t * a.dim;
     const int n = n0 + t;
     if (n >= n_tok) break;
     float sum = 0.0f;
-    for (int g2 = 0; g2 < kgroups; ++g2) sum += part[((size_t)g2 * kSimtTok + t) * dim + d];
-    const size_t at = (size_t)n * dim + d;
-    out[at] = __fadd_rn(sum, pos_bias[at]);
+    for (int g2 = 0; g2 < kgroups; ++g2) sum += part[((size_t)g2 * kSimtTok + t) * width + d];
+    out[(size_t)n * a.dim + d] = __fadd_rn(sum, pos_bias[(size_t)n * width + d]);
   }
 }
 
@@ -595,18 +813,15 @@ cudaError_t allow_smem(Kern kernel, int (&allowed)[kMaxDevices], size_t smem) {
   return cudaSuccess;
 }
 
-// The D / kTileCols CTAs of one token tile run as one cluster (at most 8)
-// and share its pixel phase.
-cudaError_t launch_mma(const Args& a, cudaStream_t st) {
-  static int allowed[kMaxDevices] = {};
-  const int cluster = a.dim / kTileCols;
-  if (a.dim % kTileCols || cluster > 8) return cudaErrorInvalidValue;
-  const auto kernel = embed_mma_kernel<kTileTokens, kTileCols>;
-  const size_t smem = mma_smem_bytes(kTileTokens, kTileCols, a.patch * a.patch * 3);
+// The W / TN column tiles of a token tile run as W / (TN . cluster) clusters
+// of `cluster` CTAs, each cluster sharing the tile's pixel phase.
+template <typename Kern>
+cudaError_t launch_tiled(Kern kernel, int (&allowed)[kMaxDevices], size_t smem, const Args& a,
+                         int tn, int cluster, cudaStream_t st) {
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   const int n_tok = (a.out_size / a.patch) * (a.out_size / a.patch);
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((n_tok + kTileTokens - 1) / kTileTokens, cluster);
+  config.gridDim = dim3((n_tok + kTileTokens - 1) / kTileTokens, a.width / tn);
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = smem;
   config.stream = st;
@@ -621,9 +836,41 @@ cudaError_t launch_mma(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_mma(const Args& a, int tn, int cluster, cudaStream_t st) {
+  const int k = a.patch * a.patch * 3;
+  if (tn == 32) {
+    static int allowed[kMaxDevices] = {};
+    return launch_tiled(embed_mma_kernel<kTileTokens, 32>, allowed,
+                        mma_smem_bytes(kTileTokens, 32, k), a, tn, cluster, st);
+  }
+  if (tn == 64) {
+    static int allowed[kMaxDevices] = {};
+    return launch_tiled(embed_mma_kernel<kTileTokens, 64>, allowed,
+                        mma_smem_bytes(kTileTokens, 64, k), a, tn, cluster, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int TN>
+cudaError_t launch_tf32_tiles(const Args& a, int cluster, cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  return launch_tiled(embed_tf32_kernel<TN>, allowed,
+                      tf32_smem_bytes(TN, a.patch * a.patch * 3), a, TN, cluster, st);
+}
+
+cudaError_t launch_tf32(const Args& a, int tn, int cluster, cudaStream_t st) {
+  switch (tn) {
+    case 8: return launch_tf32_tiles<8>(a, cluster, st);
+    case 16: return launch_tf32_tiles<16>(a, cluster, st);
+    case 24: return launch_tf32_tiles<24>(a, cluster, st);
+    case 32: return launch_tf32_tiles<32>(a, cluster, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t launch_simt(const Args& a, cudaStream_t st) {
-  if (a.dim % 4 || a.dim / 4 > kThreads) return cudaErrorInvalidValue;
-  const size_t smem = simt_smem_bytes(a.patch * a.patch * 3, a.dim);
+  if (a.width % 4 || a.width / 4 > kThreads) return cudaErrorInvalidValue;
+  const size_t smem = simt_smem_bytes(a.patch * a.patch * 3, a.width);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const int n_tok = (a.out_size / a.patch) * (a.out_size / a.patch);
   embed_simt_kernel<<<(n_tok + kSimtTok - 1) / kSimtTok, kThreads, smem, st>>>(a);
@@ -633,31 +880,39 @@ cudaError_t launch_simt(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // variant: 0 = "simt" (float32: w_embed, pos_bias and out float), 1 = "mma"
-// (bfloat16: 16 tokens x 32 columns a CTA, dim / 32 CTAs a cluster).  All tensors on the current device:
-// y (frame_h, frame_w) uint8; uv (frame_h / 2, frame_w / 2, 2) uint8; cx,
-// cy, size one float32 each, the crop window (ops/preprocess.py::CropWindow);
-// w_embed (patch * patch * 3, dim), 16-byte aligned; pos_bias and out
+// (bfloat16), 2 = "tf32x3" (float32; w_embed the two planes hi, lo).  cols:
+// embed columns a CTA ("mma" 32 or 64, "tf32x3" 8, 16, 24 or 32; "simt" ignores it and
+// the cluster); cluster: CTAs of a cluster, dividing width / cols, at most 8.
+// All tensors on the current device: y (frame_h, frame_w) uint8; uv
+// (frame_h / 2, frame_w / 2, 2) uint8; cx, cy, size one float32 each, the crop
+// window (ops/preprocess.py::CropWindow); w_embed (patch * patch * 3, width),
+// 16-byte aligned; pos_bias ((out_size / patch)^2, width) and out
 // ((out_size / patch)^2, dim), contiguous.  frame_h and frame_w even; band 0
 // for none, even where the frame is larger than it; out_size a multiple of
-// patch; dim a multiple of 32 up to 256 ("mma") or of 4 up to 1024
-// ("simt").  Returns a cudaError_t.
+// patch; 1 <= dim <= width, width a multiple of cols (of 4 for "simt", at
+// most 1024).  Returns a cudaError_t.
 extern "C" int fused_prep_embed_forward(
-    int variant, int frame_h, int frame_w, int band,
-    int out_size, int patch, int dim, float mean_r, float mean_g, float mean_b, float std_r,
-    float std_g, float std_b, const void* y_plane, const void* uv_plane, const void* cx,
-    const void* cy, const void* size, const void* w_embed, const void* pos_bias, void* out,
-    void* stream) {
+    int variant, int cols, int cluster, int frame_h, int frame_w, int band,
+    int out_size, int patch, int dim, int width, float mean_r, float mean_g, float mean_b,
+    float std_r, float std_g, float std_b, const void* y_plane, const void* uv_plane,
+    const void* cx, const void* cy, const void* size, const void* w_embed,
+    const void* pos_bias, void* out, void* stream) {
   const bool banded = band > 0 && (frame_h > band || frame_w > band);
-  if (patch < 1 || out_size < patch || out_size % patch || dim < 1 || frame_h < 2
-      || frame_w < 2 || band < 0 || (frame_h | frame_w) & 1 || (banded && band & 1))
+  if (patch < 1 || out_size < patch || out_size % patch || dim < 1 || width < dim
+      || frame_h < 2 || frame_w < 2 || band < 0 || (frame_h | frame_w) & 1
+      || (banded && band & 1))
+    return (int)cudaErrorInvalidValue;
+  if (variant != 0 && (cols < 1 || width % cols || cluster < 1 || cluster > kMaxCluster
+                       || (width / cols) % cluster))
     return (int)cudaErrorInvalidValue;
   const Args a{Frame{static_cast<const unsigned char*>(y_plane),
                      static_cast<const unsigned char*>(uv_plane), frame_w},
                static_cast<const float*>(cx), static_cast<const float*>(cy),
-               static_cast<const float*>(size), frame_h, band, out_size, patch, dim,
+               static_cast<const float*>(size), frame_h, band, out_size, patch, dim, width,
                Norm{{mean_r, mean_g, mean_b}, {std_r, std_g, std_b}}, w_embed, pos_bias, out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 1) return (int)launch_mma(a, st);
+  if (variant == 1) return (int)launch_mma(a, cols, cluster, st);
+  if (variant == 2) return (int)launch_tf32(a, cols, cluster, st);
   if (variant == 0) return (int)launch_simt(a, st);
   return (int)cudaErrorInvalidValue;
 }

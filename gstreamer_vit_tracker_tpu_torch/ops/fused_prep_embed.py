@@ -23,37 +23,49 @@ implements both, the CUDA kernel serves both.
 On the card a call on ready parameters is one ``torch.empty`` and one
 launch: the kernel reads the window's centre and size where
 ``crop_window`` left them and works out the band itself, and the embed
-weight and ``pos_embed_x + bias`` in the compute dtype are made once per
-parameter set (:func:`embed_operands`).  :func:`plan` picks the variant
-from the dtype before the launch: ``"mma"`` (bf16, the embed on the tensor
-cores) or ``"simt"`` (float32 on the FMA units).
+weight and ``pos_embed_x + bias`` in the compute dtype, zero-padded to the
+plan's width (and the weight split into its two TF32 planes for
+``"tf32x3"``), are made once per parameter set (:func:`embed_operands`).
+:func:`plan` picks the variant and tiling from the width and dtype before
+the launch: ``"mma"`` (bf16, the embed on the tensor cores), ``"tf32x3"``
+(float32, the embed on the tensor cores in split TF32); ``"simt"`` (float32
+on the FMA units) runs by name only, the yardstick of ``"tf32x3"``.  Every
+embed width from 1 to 1024 runs in both dtypes; a patch above 32 raises.
 
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches, ``VARIANT_LAUNCHES`` them by variant.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import ModelConfig
+import torch.nn.functional as F
+
 from . import attention, cuda_build, operand_cache
 from . import preprocess as pp
 from .colorspace import BT601_COEFFS
+from .vit_block import split_tf32
 
 Params = Dict[str, Any]
 
 __all__ = ["nv12_search_tokens", "nv12_search_tokens_reference",
-           "embed_operands", "kernel_operands", "launch", "prepared", "plan",
-           "Plan", "LAUNCHES"]
+           "search_pixels_reference", "embed_operands", "kernel_operands",
+           "launch", "prepared", "plan", "tiling", "Plan", "LAUNCHES",
+           "VARIANT_LAUNCHES"]
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0), all
+# and by variant.
 LAUNCHES = 0
+VARIANT_LAUNCHES = {"mma": 0, "tf32x3": 0, "simt": 0}
 
 MODES = ("loop", "transpose")
-_MAX_PATCH = 32     # "simt": 2 tokens x patch^2 x 3 float32 pixels in 48 KB
+# "tf32x3": 16 tokens x round_up(patch^2 x 3, 32) float32 pixels and the
+# warps' sums in a block's 227 KB; "simt": 2 tokens' pixels in 48 KB.
+_MAX_PATCH = 32
 
 
 def _band(y_plane: torch.Tensor, window: pp.CropWindow, band
@@ -83,6 +95,10 @@ def _embed_operands(params: Params, dt: torch.dtype):
     return pe["kernel"].to(dt), pos_bias.to(dt)
 
 
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
 def _check_planes(y_plane: torch.Tensor, uv_plane: torch.Tensor,
                   window: pp.CropWindow, cfg: ModelConfig, mode: str):
     if mode not in MODES:
@@ -108,21 +124,19 @@ def _hat(t: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(1.0 - torch.abs(t - j), 0.0)
 
 
-def nv12_search_tokens_reference(params: Params, y_plane: torch.Tensor,
-                                 uv_plane: torch.Tensor,
-                                 window: pp.CropWindow, cfg: ModelConfig,
-                                 mode: str = "loop") -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the JAX kernel body operation
-    by operation (dense sampling matrices generated from index grids,
-    chroma matrices generated pair-folded on the interleaved byte columns),
-    rounding where it rounds.  (N, D) tokens in the compute dtype."""
-    _check_planes(y_plane, uv_plane, window, cfg, mode)
-    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+def _crop(y_plane: torch.Tensor, uv_plane: torch.Tensor,
+          window: pp.CropWindow, cfg: ModelConfig, mode: str) -> torch.Tensor:
+    """The normalised crop (S, S, 3) in float32 as the JAX kernel body makes
+    it before the patch embed: dense sampling matrices generated from index
+    grids, chroma matrices generated pair-folded on the interleaved byte
+    columns, rounding to the compute dtype where it rounds.  In ``"loop"``
+    mode its rows are patch-major (row p * g + gh is pixel row gh * patch +
+    p)."""
+    dt = _compute_dtype(cfg)
     f32 = torch.float32
     dev = y_plane.device
     out_size, patch = cfg.search_size, cfg.patch_size
     g = out_size // patch
-    n_tok = g * g
     sy, sx, origin, bh, bw = _band(y_plane, window, cfg.preprocess_band)
     sc = (window.size / out_size).to(f32)
     sy, sx = sy.to(f32), sx.to(f32)
@@ -180,16 +194,54 @@ def nv12_search_tokens_reference(params: Params, y_plane: torch.Tensor,
               yv + c["bu"] * uc)
     planes = [(torch.clamp(p, 0.0, 255.0) / 255.0 - cfg.norm_mean[i])
               / cfg.norm_std[i] for i, p in enumerate(planes)]
+    return torch.stack(planes, dim=-1)
+
+
+def _patches(crop: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A ``"transpose"``-mode crop patchified: (N, patch^2 x 3), k = (p, q,
+    c)."""
+    g, patch = cfg.search_size // cfg.patch_size, cfg.patch_size
+    x = crop.reshape(g, patch, g, patch, 3).permute(0, 2, 1, 3, 4)
+    return x.reshape(g * g, patch * patch * 3)
+
+
+def search_pixels_reference(y_plane: torch.Tensor, uv_plane: torch.Tensor,
+                            window: pp.CropWindow, cfg: ModelConfig
+                            ) -> torch.Tensor:
+    """The patch pixels the embed multiplies, (N, patch^2 x 3) in the
+    compute dtype: what the kernel's A tile holds."""
+    dt = _compute_dtype(cfg)
+    _check_planes(y_plane, uv_plane, window, cfg, "transpose")
+    return _patches(_crop(y_plane, uv_plane, window, cfg, "transpose"),
+                    cfg).to(dt)
+
+
+def nv12_search_tokens_reference(params: Params, y_plane: torch.Tensor,
+                                 uv_plane: torch.Tensor,
+                                 window: pp.CropWindow, cfg: ModelConfig,
+                                 mode: str = "loop") -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the JAX kernel body operation
+    by operation (:func:`_crop`, then the patch embed as its ``mode``
+    takes it), rounding where it rounds.  (N, D) tokens in the compute
+    dtype."""
+    _check_planes(y_plane, uv_plane, window, cfg, mode)
+    dt = _compute_dtype(cfg)
+    f32 = torch.float32
+    g = cfg.search_size // cfg.patch_size
+    n_tok, patch = g * g, cfg.patch_size
+    crop = _crop(y_plane, uv_plane, window, cfg, mode)
+
+    def mm(a, b):            # a @ b with float32 accumulation and result
+        return a.to(f32) @ b.to(f32)
 
     w_embed, pos_bias = _embed_operands(params, dt)
-    crop = torch.stack(planes, dim=-1)                   # (S, S, 3) float32
     if mode == "transpose":
-        x = crop.reshape(g, patch, g, patch, 3).permute(0, 2, 1, 3, 4)
-        tok = mm(x.reshape(n_tok, patch * patch * 3).to(dt), w_embed)
+        tok = mm(_patches(crop, cfg).to(dt), w_embed)
     else:
-        inter = crop.reshape(out_size, out_size * 3)
+        inter = crop.reshape(cfg.search_size, cfg.search_size * 3)
         kp = patch * 3
-        tok = torch.zeros((n_tok, w_embed.shape[1]), dtype=f32, device=dev)
+        tok = torch.zeros((n_tok, w_embed.shape[1]), dtype=f32,
+                          device=y_plane.device)
         for p in range(patch):
             a = inter[p * g:(p + 1) * g].reshape(n_tok, kp)
             tok = tok + mm(a.to(dt), w_embed[p * kp:(p + 1) * kp])
@@ -202,45 +254,93 @@ def nv12_search_tokens_reference(params: Params, y_plane: torch.Tensor,
 
 class Plan(NamedTuple):
     """What one launch of the kernel runs (``csrc/fused_prep_embed.cu``)."""
-    variant: str          # "mma" (bf16, tensor cores) or "simt" (float32)
+    variant: str          # "mma" (bf16), "tf32x3" or "simt" (float32)
     tokens: int           # tokens a CTA
-    cols: int = 0         # embed columns a CTA ("mma"; "simt" makes them all)
-    cluster: int = 1      # CTAs of a token tile sharing its pixels ("mma")
+    cols: int = 0         # embed columns a CTA ("simt" makes them all)
+    cluster: int = 1      # CTAs of a cluster sharing a token tile's pixels
+    width: int = 0        # the operands' columns: the embed dim padded
 
 
-# kTileTokens, kTileCols and the largest cluster of the source.
-_MMA_TOKENS, _MMA_COLS, _MAX_CLUSTER = 16, 32, 8
-_VARIANT_CODES = {"simt": 0, "mma": 1}
+# kTileTokens, kTileCols and kMaxCluster of the source; the widest embed.
+_TILE_TOKENS, _TILE_COLS, _MAX_CLUSTER = 16, 32, 8
+_MAX_DIM = 1024
+_VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
 _SIMT_TOKENS = 2
+# "mma"'s column tile where a token tile needs more than one cluster of 32
+# columns (D above 256): 64 columns in clusters of up to 8 (at D 384 and 768
+# 64 columns read faster than 32 in clusters of 6 and 8 at the default
+# search of 256, slower at a search of 128; profile_prep.py, PERF.md).
+_WIDE_COLS = 64
+# "tf32x3"'s column tiles (the source builds 8, 16, 24 and 32), and its
+# largest cluster: clusters of 8 of its one-CTA-an-SM blocks read 1.6-2.0x
+# slower than clusters of 6 at the flagship's grid (profile_prep.py).
+_TF32_COLS = (8, 16, 24, 32)
+_TF32_MAX_CLUSTER = 6
 
 
-def plan(dim: int, dtype: torch.dtype) -> Plan:
+def tiling(dim: int, cols: int, max_cluster: int = _MAX_CLUSTER
+           ) -> Tuple[int, int]:
+    """(cluster, width) of ``cols``-column tiles for embed width ``dim``:
+    the fewest clusters of at most ``max_cluster`` that cover it, of equal
+    size, and the width they cover (``dim`` padded; its columns past
+    ``dim`` are zero in the operands)."""
+    tiles = -(-dim // cols)
+    clusters = -(-tiles // max_cluster)
+    cluster = -(-tiles // clusters)
+    return cluster, clusters * cluster * cols
+
+
+def plan(dim: int, dtype: torch.dtype, variant: Optional[str] = None,
+         cols: Optional[int] = None) -> Plan:
     """The variant and tiling for embed width ``dim`` in ``dtype``: a pure
-    function of the shape.
+    function of the shape.  Every ``dim`` from 1 to 1024 runs.
 
-    * bf16 takes ``"mma"`` (``mma.sync`` on the tensor cores): CTAs of 16
-      tokens by 32 columns, the ``dim / 32`` column tiles of a token tile
-      one cluster that shares the pixel phase, so ``dim`` is a multiple of
-      32 up to 256.  At the flagship's (256 tokens, D 192) that is 16 x 6 =
-      96 CTAs in clusters of 6, each making a sixth of its tile's pixels
-      and reading a 32-column sixth of the weight once (the fastest of the
-      tilings ``profile_prep.py`` times on the H100; PERF.md).
-    * float32 takes ``"simt"`` (FMA units, no TF32): two tokens a CTA,
-      ``dim`` a multiple of 4 up to 1024.
+    * bf16 takes ``"mma"`` (``mma.sync`` m16n8k16): CTAs of 16 tokens by 32
+      columns, the column tiles of a token tile one cluster that shares the
+      pixel phase; above D 256 (more than 8 tiles) CTAs of 64 columns in
+      equal clusters of up to 8, each cluster making the pixels again
+      (``cols`` 32 or 64 by name).  At the flagship's (256 tokens, D 192)
+      that is 16 x 6 = 96 CTAs in clusters of 6, each making a sixth of its
+      tile's pixels and reading a 32-column sixth of the weight once (the
+      fastest of the tilings ``profile_prep.py`` times on the H100;
+      PERF.md).
+    * float32 takes ``"tf32x3"`` (split-TF32 ``mma.sync`` m16n8k8, float32's
+      accuracy) on the narrowest column tile (8, 16, 24 or 32; ``cols`` by
+      name) whose tiles make one cluster of at most 6, else 32 columns in
+      equal clusters of at most 6: 32 at the flagship's D 192 (clusters of
+      6), 16 at ``small``'s D 96 (6) and corr-tiny's D 64 (4).
+      ``variant="simt"`` (FMA units, two tokens a CTA, the width padded to a
+      multiple of 4) by name: the yardstick.
 
-    Another dtype raises ``TypeError``, a width the variant does not take
-    ``ValueError``."""
+    ``dim`` is padded to the plan's ``width`` (a multiple of the column
+    tile and of the clusters).  Another dtype or a variant the dtype does
+    not take raises ``TypeError``, a width outside 1-1024 or a column tile
+    not built ``ValueError``."""
+    if not 1 <= dim <= _MAX_DIM:
+        raise ValueError(f"embed dim {dim} outside 1-{_MAX_DIM}")
     if dtype == torch.float32:
-        if dim < 4 or dim % 4 or dim > 1024:
-            raise ValueError(f"embed dim {dim} must be a multiple of 4 up to "
-                             f"1024 in float32")
-        return Plan("simt", _SIMT_TOKENS)
+        variant = variant or "tf32x3"
+        if variant == "simt":
+            return Plan("simt", _SIMT_TOKENS, 0, 1, -(-dim // 4) * 4)
+        if variant != "tf32x3":
+            raise TypeError(f"float32 runs tf32x3 or simt, not {variant}")
+        cols = cols or next((c for c in _TF32_COLS
+                             if -(-dim // c) <= _TF32_MAX_CLUSTER),
+                            _TF32_COLS[-1])
+        if cols not in _TF32_COLS:
+            raise ValueError(f"tf32x3 takes {_TF32_COLS} columns a CTA, not "
+                             f"{cols}")
+        return Plan("tf32x3", _TILE_TOKENS, cols,
+                    *tiling(dim, cols, _TF32_MAX_CLUSTER))
     if dtype != torch.bfloat16:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {dtype}")
-    if dim < _MMA_COLS or dim % _MMA_COLS or dim > _MMA_COLS * _MAX_CLUSTER:
-        raise ValueError(f"embed dim {dim} must be a multiple of {_MMA_COLS} "
-                         f"up to {_MMA_COLS * _MAX_CLUSTER} in bfloat16")
-    return Plan("mma", _MMA_TOKENS, _MMA_COLS, dim // _MMA_COLS)
+    if (variant or "mma") != "mma":
+        raise TypeError(f"bfloat16 runs mma, not {variant}")
+    cols = cols or (_TILE_COLS if dim <= _TILE_COLS * _MAX_CLUSTER
+                    else _WIDE_COLS)
+    if cols not in (32, 64):
+        raise ValueError(f"mma takes 32 or 64 columns a CTA, not {cols}")
+    return Plan("mma", _TILE_TOKENS, cols, *tiling(dim, cols))
 
 
 _FORWARD: list = []      # the C entry, once loaded
@@ -250,7 +350,7 @@ def bind(lib: ctypes.CDLL):
     """The C entry of a loaded ``fused_prep_embed`` library, its signature
     declared: it takes :func:`_arguments`' tuple and the stream."""
     fn = lib.fused_prep_embed_forward
-    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float] * 6
+    fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float] * 6
                    + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     return fn
@@ -262,7 +362,7 @@ def _entry():
     return _FORWARD[0]
 
 
-# The embed weight and pos + bias in the compute dtype, made once per
+# The embed weight and pos + bias as a plan reads them, made once per
 # parameter set.
 _OPERANDS = operand_cache.OperandCache()
 
@@ -281,30 +381,43 @@ def _ready(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def embed_operands(params: Params, dt: torch.dtype
+def embed_operands(params: Params, dt: torch.dtype,
+                   chosen: Optional[Plan] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(embed weight (K, D), pos_embed_x + bias (N, D)) in ``dt``, as the
-    plain version makes them.  Reused while every leaf is the same tensor
-    at the same ``_version`` (an optimiser step moves it on), made anew
-    otherwise; made on every call, and not kept, when a gradient is wanted
-    (the kernel has no backward: inference only)."""
-    return _OPERANDS.get(dt, _leaves(params), lambda: tuple(
-        map(_ready, _embed_operands(params, dt))))
+    """(embed weight, pos_embed_x + bias (N, W)) in ``dt`` as ``chosen``
+    (default: :func:`plan` of the embed width) reads them: the plain
+    version's, zero-padded to the plan's width W; the weight (K, W), or for
+    ``"tf32x3"`` its two planes (2, K, W), hi = tf32(w) then lo = tf32(w -
+    hi) (``vit_block.split_tf32``).  Reused while every leaf is the same
+    tensor at the same ``_version`` (an optimiser step moves it on), made
+    anew otherwise; made on every call, and not kept, when a gradient is
+    wanted (the kernel has no backward: inference only)."""
+    leaves = _leaves(params)
+    chosen = chosen or plan(leaves[0].shape[-1], dt)
+
+    def make():
+        w, pos_bias = (F.pad(t, (0, chosen.width - t.shape[-1]))
+                       for t in _embed_operands(params, dt))
+        if chosen.variant == "tf32x3":
+            w = torch.stack(split_tf32(w))
+        return _ready(w), _ready(pos_bias)
+
+    return _OPERANDS.get((dt, chosen.variant, chosen.width), leaves, make)
 
 
 def kernel_operands(params: Params, y_plane: torch.Tensor,
                     uv_plane: torch.Tensor, window: pp.CropWindow,
-                    cfg: ModelConfig):
+                    cfg: ModelConfig, chosen: Optional[Plan] = None):
     """What the kernel reads: the planes as they lie (a copy only of one it
     cannot read in place), the window's float32 centre and size as they lie
     (the kernel works out the band and the start from them), the embed
-    weight and pos + bias from :func:`embed_operands`.  No PyTorch op runs
-    for a call on ready parameters and planes."""
+    weight and pos + bias from :func:`embed_operands` for ``chosen``
+    (default: the plan).  No PyTorch op runs for a call on ready parameters
+    and planes."""
     dev = y_plane.device
     if uv_plane.device != dev:
         raise ValueError("y_plane and uv_plane lie on different devices")
-    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    w_embed, pos_bias = embed_operands(params, dt)
+    w_embed, pos_bias = embed_operands(params, _compute_dtype(cfg), chosen)
     y = y_plane if y_plane.is_contiguous() else y_plane.contiguous()
     uv = uv_plane if uv_plane.is_contiguous() and not uv_plane.data_ptr() % 2 \
         else uv_plane.clone(memory_format=torch.contiguous_format)
@@ -314,25 +427,30 @@ def kernel_operands(params: Params, y_plane: torch.Tensor,
 
 
 def _arguments(y_plane, uv_plane, cx, cy, size, w_embed, pos_bias,
-               cfg: ModelConfig):
-    """Checks, the plan, the output and the C entry's arguments up to the
-    stream."""
+               cfg: ModelConfig, chosen: Optional[Plan] = None):
+    """Checks, the plan (``chosen``, default :func:`plan` of the config's
+    embed width in the operands' dtype), the output and the C entry's
+    arguments up to the stream."""
     if not y_plane.is_cuda:
         raise ValueError("the fused preprocess + embed kernel needs CUDA "
                          "tensors")
     if cfg.patch_size > _MAX_PATCH:
         raise ValueError(f"patch size {cfg.patch_size} above {_MAX_PATCH}")
-    dev, dt = y_plane.device, w_embed.dtype
-    if pos_bias.dtype != dt:
-        raise TypeError(f"embed weight {dt} and pos + bias {pos_bias.dtype}")
-    n_tok, dim = (cfg.search_size // cfg.patch_size) ** 2, w_embed.shape[-1]
-    if tuple(w_embed.shape) != (cfg.patch_size ** 2 * 3, dim) \
-            or tuple(pos_bias.shape) != (n_tok, dim):
+    dev, dt, dim = y_plane.device, pos_bias.dtype, cfg.embed_dim
+    chosen = chosen or plan(dim, dt)
+    if (chosen.variant == "mma") != (dt == torch.bfloat16) \
+            or w_embed.dtype != dt:
+        raise TypeError(f"variant {chosen.variant} on embed weight "
+                        f"{w_embed.dtype} and pos + bias {dt}")
+    n_tok, k = (cfg.search_size // cfg.patch_size) ** 2, cfg.patch_size ** 2 * 3
+    planes = (2,) if chosen.variant == "tf32x3" else ()
+    if tuple(w_embed.shape) != (*planes, k, chosen.width) \
+            or tuple(pos_bias.shape) != (n_tok, chosen.width) \
+            or not dim <= chosen.width:
         raise ValueError(
             f"patch embed {tuple(w_embed.shape)} / pos embed "
             f"{tuple(pos_bias.shape)} do not fit search {cfg.search_size}, "
-            f"patch {cfg.patch_size}")
-    chosen = plan(dim, dt)
+            f"patch {cfg.patch_size}, embed dim {dim} as {chosen}")
     for t in (y_plane, uv_plane, w_embed, pos_bias):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("every operand must be contiguous on the "
@@ -346,9 +464,9 @@ def _arguments(y_plane, uv_plane, cx, cy, size, w_embed, pos_bias,
                          "plane 2-byte aligned")
     h, w = y_plane.shape
     out = torch.empty((n_tok, dim), dtype=dt, device=dev)
-    args = (_VARIANT_CODES[chosen.variant], h, w, cfg.preprocess_band or 0,
-            cfg.search_size,
-            cfg.patch_size, dim, *cfg.norm_mean, *cfg.norm_std,
+    args = (_VARIANT_CODES[chosen.variant], chosen.cols, chosen.cluster, h, w,
+            cfg.preprocess_band or 0, cfg.search_size, cfg.patch_size, dim,
+            chosen.width, *cfg.norm_mean, *cfg.norm_std,
             y_plane.data_ptr(), uv_plane.data_ptr(), cx.data_ptr(),
             cy.data_ptr(), size.data_ptr(), w_embed.data_ptr(),
             pos_bias.data_ptr(), out.data_ptr())
@@ -361,36 +479,40 @@ def _enqueue(chosen: Plan, args: Tuple, index: int) -> None:
     global LAUNCHES
     err = _entry()(*args, attention._stream_handle(index))
     if err != 0:
-        raise RuntimeError(f"fused_prep_embed_forward ({chosen.variant}) "
-                           f"failed: CUDA error {err}")
+        raise RuntimeError(f"fused_prep_embed_forward ({chosen}) failed: "
+                           f"CUDA error {err}")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[chosen.variant] += 1
 
 
 def launch(y_plane: torch.Tensor, uv_plane: torch.Tensor, cx: torch.Tensor,
            cy: torch.Tensor, size: torch.Tensor, w_embed: torch.Tensor,
-           pos_bias: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One launch of the kernel on :func:`kernel_operands` into a new
-    (N, D) tensor; raises on what the kernel does not take (:func:`plan`)
-    or if the launch fails."""
+           pos_bias: torch.Tensor, cfg: ModelConfig,
+           chosen: Optional[Plan] = None) -> torch.Tensor:
+    """One launch of the kernel on :func:`kernel_operands` (made for the
+    same ``chosen``) into a new (N, D) tensor; raises on what the kernel
+    does not take (:func:`plan`) or if the launch fails."""
     index = y_plane.device.index
     if y_plane.is_cuda and index != torch.cuda.current_device():
         with torch.cuda.device(index):
             return launch(y_plane, uv_plane, cx, cy, size, w_embed, pos_bias,
-                          cfg)
+                          cfg, chosen)
     chosen, out, args = _arguments(y_plane, uv_plane, cx, cy, size, w_embed,
-                                   pos_bias, cfg)
+                                   pos_bias, cfg, chosen)
     _enqueue(chosen, args, index)
     return out
 
 
 def prepared(params: Params, y_plane: torch.Tensor, uv_plane: torch.Tensor,
-             window: pp.CropWindow, cfg: ModelConfig):
+             window: pp.CropWindow, cfg: ModelConfig,
+             chosen: Optional[Plan] = None):
     """``(out, launch)``: ``launch()`` enqueues the kernel on these operands
     into ``out`` again and nothing else, on the current stream of the
-    current device.  For timing a launch apart from the wrapper, and for
-    capture into a CUDA graph."""
-    ops = kernel_operands(params, y_plane, uv_plane, window, cfg)
-    chosen, out, args = _arguments(*ops, cfg)
+    current device; ``chosen`` another variant or tiling than the plan's
+    (``simt`` by name, the wide tilings).  For timing a launch apart from
+    the wrapper, and for capture into a CUDA graph."""
+    ops = kernel_operands(params, y_plane, uv_plane, window, cfg, chosen)
+    chosen, out, args = _arguments(*ops, cfg, chosen)
     index = y_plane.device.index
 
     def launch(keep=(ops, out)):   # the operands live as long as launch does

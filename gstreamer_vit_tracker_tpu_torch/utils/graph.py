@@ -115,7 +115,8 @@ _COUNTERS = (("ops.vit_block", "LAUNCHES"),
              ("ops.vit_block", "VARIANT_LAUNCHES"),
              ("ops.attention", "SINGLE_LAUNCHES"),
              ("ops.attention", "FLASH_LAUNCHES"),
-             ("ops.fused_prep_embed", "LAUNCHES"))
+             ("ops.fused_prep_embed", "LAUNCHES"),
+             ("ops.fused_prep_embed", "VARIANT_LAUNCHES"))
 _PKG = __name__.rsplit(".", 2)[0]
 SETS = 4                            # keys a wrapper keeps captured
 

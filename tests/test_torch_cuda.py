@@ -9,9 +9,12 @@ kernel (``vit_block.block``) and the NV12-to-tokens kernel
 (``fused_prep_embed.nv12_search_tokens``) against their plain versions, with
 their input checks, launch counts and (for the block) gradients; head dims
 that no variant takes as they are, zero-padded, in attention and both
-encoder entries against the plain twin; one ``nv12_search_tokens`` call as
-one device activity; the tracking step through ``fused_prep``, RGB and YUY2
-steps, and a training step on the card against the CPU.
+encoder entries against the plain twin; the NV12-to-tokens kernel's
+float32 variants (``tf32x3`` by plan, ``simt`` by name) at the three
+presets' shapes and its padded embed widths in both dtypes; one
+``nv12_search_tokens`` call as one device activity; the tracking step
+through ``fused_prep``, RGB and YUY2 steps, and a training step on the card
+against the CPU.
 
 Every test here needs a card and skips without one (marker ``cuda``).
 Run them on the GPU with
@@ -30,7 +33,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from gstreamer_vit_tracker_tpu_torch.config import PRESETS  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch import profile_prep  # noqa: E402
+from gstreamer_vit_tracker_tpu_torch.config import PRESETS, ModelConfig  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block  # noqa: E402
 from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe  # noqa: E402
@@ -752,10 +756,71 @@ def test_fused_prep_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="do not fit"):
         fpe.launch(*ops, cfg)
     ops = list(fpe.kernel_operands(params, y, uv, win, cfg))
-    ops[5], ops[6] = (t[:, :40].to(torch.bfloat16).contiguous()
-                      for t in ops[5:7])         # a bf16 width no tiling takes
-    with pytest.raises(ValueError, match="multiple of 32"):
-        fpe.launch(*ops, cfg)
+    with pytest.raises(TypeError, match="variant mma"):   # bf16's on float32
+        fpe.launch(*ops, cfg, fpe.plan(cfg.embed_dim, torch.bfloat16))
+    big = dataclasses.replace(cfg, patch_size=64, search_size=128)
+    with pytest.raises(ValueError, match="patch size 64"):
+        fpe.launch(*ops, big)
+
+
+@pytest.mark.parametrize("preset", ["vittrack-t", "small", "corr-tiny"])
+@pytest.mark.parametrize("variant", ["tf32x3", "simt"])
+@pytest.mark.parametrize("shape,box", [
+    ((512, 640), (-20.0, 470.0, 80.0, 80.0)),       # over the frame edge
+    ((1080, 1920), (1500.0, 700.0, 64.0, 64.0)),    # banded
+    ((1080, 1920), (100.0, 600.0, 500.0, 380.0)),   # window larger than the band
+])
+def test_fused_prep_f32_variants_match_plain(dev, preset, variant, shape, box):
+    # float32 at the three presets' shapes: tf32x3 (the plan) and simt (by
+    # name) against the plain version, 1e-4; the launch counted by variant.
+    cfg = dataclasses.replace(PRESETS[preset], dtype="float32")
+    params = (vittrack.init_params(torch.Generator().manual_seed(0), cfg, dev)
+              if preset == "corr-tiny" else weights.load_npz(
+                  weights.checkpoint_path(preset), cfg, device=dev))
+    y, uv = _nv12(shape, 6, dev)
+    win = pp.crop_window(torch.tensor(box, device=dev), cfg.search_factor)
+    assert fpe.plan(cfg.embed_dim, torch.float32).variant == "tf32x3"
+    chosen = fpe.plan(cfg.embed_dim, torch.float32, variant)
+    before = dict(fpe.VARIANT_LAUNCHES)
+    got = fpe.launch(*fpe.kernel_operands(params, y, uv, win, cfg, chosen),
+                     cfg, chosen)
+    torch.cuda.synchronize()
+    assert fpe.VARIANT_LAUNCHES == dict(before, **{variant: before[variant] + 1})
+    for mode in fpe.MODES:
+        ref = fpe.nv12_search_tokens_reference(params, y, uv, win, cfg, mode)
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-4, (mode, err)
+
+
+@pytest.mark.parametrize("dim", [48, 96, 160, 200, 384, 768, 1000])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_prep_embed_widths_match_plain(dev, dim, dtype):
+    # Every width runs: padded to the plan's (D not a multiple of 32; above
+    # 256 several clusters of a token tile), the true D columns written;
+    # bf16 in both wide tilings (32 and 64 columns a CTA).
+    cfg = ModelConfig(
+        template_size=64, search_size=128, patch_size=16, embed_dim=dim,
+        depth=1, num_heads=1, dtype=dtype)
+    params = profile_prep.seeded_params(cfg, dev, dim)
+    y, uv = _nv12((1080, 1920), 7, dev)
+    win = pp.crop_window(torch.tensor([1500.0, 700.0, 64.0, 64.0], device=dev),
+                         cfg.search_factor)
+    ref = fpe.nv12_search_tokens_reference(params, y, uv, win, cfg)
+    tol = (1e-4 if dtype == "float32"
+           else 2.0 ** -7 * ref.float().abs().max().item())
+    dt = getattr(torch, dtype)
+    plans = ([fpe.plan(dim, dt)] if dtype == "float32"
+             else [fpe.plan(dim, dt, cols=c) for c in (32, 64)])
+    for chosen in plans:
+        got = fpe.launch(*fpe.kernel_operands(params, y, uv, win, cfg, chosen),
+                         cfg, chosen)
+        torch.cuda.synchronize()
+        assert got.shape == (cfg.num_search_tokens, dim)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol, (chosen, err, tol)
+    assert torch.equal(fpe.nv12_search_tokens(params, y, uv, win, cfg),
+                       fpe.launch(*fpe.kernel_operands(params, y, uv, win,
+                                                       cfg), cfg))
 
 
 def test_fused_prep_call_is_one_device_activity(dev):

@@ -7,9 +7,11 @@ version ``nv12_search_tokens_reference``, which the CUDA kernel is held to
 on the card.  The cases are those of ``tests/test_fused_prep_embed.py``,
 on seeded numpy frames and weights fed to both sides: both modes in
 float32 (atol 1e-4, rtol 1e-4), a window hanging off the frame edge, a
-banded 1080p frame, bf16 (0.05), each also against the port's unfused
-chain ``preprocess_nv12`` -> ``embed_search``; and ``core.update(
+banded 1080p frame, bf16 (0.05), the embed widths 48, 80, 160, 384 and 768
+in both dtypes, each also against the port's unfused chain
+``preprocess_nv12`` -> ``embed_search``; and ``core.update(
 fused_prep=True)`` against JAX's over 5 frames (bbox 0.25 px, score 0.02).
+:func:`plan` is held over every embed width from 1 to 1024.
 
 What the CUDA route adds and a CPU run can check: the window geometry the
 kernel works out on the device (``window_geometry`` in
@@ -140,6 +142,44 @@ def test_bf16_close_to_pallas_bf16():
     _case("bfloat16", (256, 320), [130.0, 90.0, 36.0, 36.0], 4, "loop", 0.05)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.05)])
+@pytest.mark.parametrize("dim", [48, 80, 160, 384, 768])
+def test_embed_widths_match_pallas(dim, dtype, tol):
+    """The embed widths the kernel runs padded (no multiple of 32, or more
+    than one cluster of 32-column tiles), through the plain version."""
+    _case(dtype, (256, 320), [140.0, 110.0, 40.0, 36.0], 10 + dim % 7,
+          "transpose" if dim % 3 else "loop", tol, embed_dim=dim,
+          num_heads=dim // 16)
+
+
+def test_plan_takes_every_width():
+    """Every embed width from 1 to 1024 plans in both dtypes, to a padded
+    width its tiles and clusters cover exactly; ``simt`` only by name."""
+    for dim in range(1, 1025):
+        for dt in (torch.float32, torch.bfloat16):
+            p = tfpe.plan(dim, dt)
+            if dt == torch.float32:
+                # The narrowest tile that makes one cluster of at most 6,
+                # else 32 columns in clusters of at most 6.
+                one = [c for c in (8, 16, 24, 32) if -(-dim // c) <= 6]
+                cols, most = (one[0] if one else 32), 6
+                assert p.variant == "tf32x3", p
+            else:
+                # 32 columns in one cluster up to D 256, then 64 columns.
+                cols, most = (32 if dim <= 256 else 64), 8
+                assert p.variant == "mma", p
+            assert (p.tokens, p.cols) == (16, cols), (dim, p)
+            tiles, clusters = -(-dim // cols), p.width // (cols * p.cluster)
+            # The fewest equal clusters, padding less than a tile a cluster.
+            assert p.width % (cols * p.cluster) == 0 and p.cluster <= most, p
+            assert clusters == -(-tiles // most), (dim, p)
+            assert dim <= p.width < dim + cols * clusters, (dim, p)
+            if tiles <= most:
+                assert (p.cluster, p.width) == (tiles, cols * tiles), p
+        s = tfpe.plan(dim, torch.float32, "simt")
+        assert s == tfpe.Plan("simt", 2, 0, 1, -(-dim // 4) * 4)
+
+
 def test_modes_agree_and_bad_arguments_raise():
     _, cfg = _cfgs("float32")
     _, tparams = _embed_params(cfg, 5)
@@ -251,21 +291,30 @@ def test_band_origin_ties_round_half_to_even(centre, band):
         snapped(np.copysign(np.floor(np.abs(ties) + 0.5), ties)))
 
 
+def _unpadded(t, dim):
+    """The first ``dim`` columns of a padded operand, its pad checked zero."""
+    assert not t[..., dim:].any()
+    return t[..., :dim]
+
+
 def test_embed_operand_cache():
     _, cfg = _cfgs("bfloat16")
     _, tparams = _embed_params(cfg, 6)
     pe = tparams["backbone"]["patch_embed"]
     a = tfpe.embed_operands(tparams, torch.bfloat16)
     assert tfpe.embed_operands(tparams, torch.bfloat16) is a      # reused
-    assert torch.equal(a[0], pe["kernel"].to(torch.bfloat16))
-    assert torch.equal(a[1], (tparams["backbone"]["pos_embed_x"]
-                              + pe["bias"]).to(torch.bfloat16))
+    # D 48 runs padded to the plan's width, 64: zeros past column 48.
+    assert a[0].shape[-1] == a[1].shape[-1] == 64
+    assert torch.equal(_unpadded(a[0], 48), pe["kernel"].to(torch.bfloat16))
+    assert torch.equal(_unpadded(a[1], 48), (tparams["backbone"]["pos_embed_x"]
+                                             + pe["bias"]).to(torch.bfloat16))
     assert tfpe.embed_operands(tparams, torch.float32) is not a   # another dtype
     with torch.no_grad():
         pe["bias"].add_(1.0)          # an optimiser step: same tensor, new version
     b = tfpe.embed_operands(tparams, torch.bfloat16)
-    assert b is not a and torch.equal(b[1], (tparams["backbone"]["pos_embed_x"]
-                                             + pe["bias"]).to(torch.bfloat16))
+    assert b is not a and torch.equal(
+        _unpadded(b[1], 48), (tparams["backbone"]["pos_embed_x"]
+                              + pe["bias"]).to(torch.bfloat16))
     tparams["backbone"]["pos_embed_x"] = tparams["backbone"]["pos_embed_x"].clone()
     c = tfpe.embed_operands(tparams, torch.bfloat16)              # a new leaf
     assert c is not b and torch.equal(c[1], b[1])
@@ -295,15 +344,23 @@ def test_kernel_operands_are_taken_as_they_lie():
     wide = torch.from_numpy(_nv12((128, 164), 7)[0])[:, :160]
     got = tfpe.kernel_operands(tparams, wide, uv, win, cfg)[0]
     assert got.is_contiguous() and torch.equal(got, wide)
-    assert tfpe.plan(cfg.embed_dim, torch.float32) == tfpe.Plan("simt", 2)
-    assert tfpe.plan(192, torch.bfloat16) == tfpe.Plan("mma", 16, 32, 6)
-    # bf16 runs one tiling: 32 columns a CTA, D / 32 CTAs a cluster of at
-    # most 8.  Other widths raise before any launch.
-    for dim in (200, 288):
-        with pytest.raises(ValueError, match="multiple of 32 up to 256"):
+    assert tfpe.plan(cfg.embed_dim, torch.float32) == tfpe.Plan(
+        "tf32x3", 16, 8, 6, 48)
+    assert tfpe.plan(cfg.embed_dim, torch.float32, "simt") == tfpe.Plan(
+        "simt", 2, 0, 1, 48)
+    assert tfpe.plan(192, torch.bfloat16) == tfpe.Plan("mma", 16, 32, 6, 192)
+    # bf16 widths no multiple of 32, or above 256 (more than one cluster of
+    # 32-column tiles), run padded: 200 on 7 tiles, 288 on 64-column tiles in
+    # one cluster of 5.
+    assert tfpe.plan(200, torch.bfloat16) == tfpe.Plan("mma", 16, 32, 7, 224)
+    assert tfpe.plan(288, torch.bfloat16) == tfpe.Plan("mma", 16, 64, 5, 320)
+    for dim in (0, 1025):
+        with pytest.raises(ValueError, match="outside 1-1024"):
             tfpe.plan(dim, torch.bfloat16)
     with pytest.raises(TypeError):
         tfpe.plan(192, torch.float16)
+    with pytest.raises(TypeError):
+        tfpe.plan(192, torch.bfloat16, "simt")
 
 
 # ---------------------------------------------------------------------------
