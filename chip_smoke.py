@@ -98,7 +98,26 @@ Phases, in order; any failure raises and exits non-zero:
    D-768 bf16 model (12 heads, depth 2, seeded weights) compiled, every
    step from the CPU's state, held to the CPU and to the plain route,
    kernels 1 and 5 counted by variant; ``python -c "import chip_smoke as
-   c; c.prep_alone()"`` runs phase 3c and these paths alone;
+   c; c.prep_alone()"`` runs phase 3c and these paths alone; then the
+   widths past the resident LN products (``wide_phase``, alone: ``python
+   -c "import chip_smoke as c; c.wide_alone()"``): the streamed form named
+   where the rule keeps the resident one (bf16 D 768, float32 D 512 and
+   192, batch 1 and 16) bit-equal to it; the flagship's and ``small``'s
+   kernel 1 / 2 / 5 outputs bit-equal by sha256 to the build before the
+   streamed form (``FLAGSHIP_SHA256``); a ViT-L-width model (D 1024, 24
+   blocks, 16 heads, seeded weights) with kernel 1 at (1, 320, 1024) x 24
+   in bf16 (``mma``, streamed, after the final LN against the float64
+   chain) and float32 (``tf32x3``, streamed, beside ``simt`` by name over a
+   few launches) and kernel 2 at (16, 320, 1024) in both, each timed beside
+   the plain twin, the library and the bound; a ViT-H-width model (D 1280,
+   16 heads of 80, depth 4) with kernel 1 against its twin and kernel 5 at
+   D 1280 in both dtypes timed; then their paths, the counts set to 0
+   before each part: ViT-L ``init`` and 3 compiled ``update_packed_jit``
+   steps in bf16 and float32 from the CPU's state (kernel 1 once a step, no
+   ``simt``), a 16-stream ``multi.update_streams`` tick (kernel 3, streams
+   0-1 against the CPU), the 24 blocks through ``_block(fused=True)`` at
+   B=16 (kernel 2, equal to kernel 1), ViT-H through
+   ``update_packed(fused_prep=True)`` in both dtypes (kernels 5 and 1);
 5. serving path, full width: the flagship behind a 16-slot ``SlotEngine``
    and a ``TrackServer`` on loopback; 4 ``TrackClient`` threads ``init``
    and ``update`` 10 frames each of seeded 1080p NV12 clips; an injected
@@ -533,24 +552,30 @@ def graph_us(launch, n: int = GRAPH_LAUNCHES) -> float:
 # Phase 3a: the encoder kernel (kernel 1) and its yardsticks
 # ---------------------------------------------------------------------------
 
-def check_kernel(what: str, got, twin, dtype) -> float:
+def check_kernel(what: str, got, twin, dtype, held: bool = True) -> float:
     """``got`` against its plain twin: float32 ``F32_ATOL``; bf16
-    ``ENC_REL_TOL`` of max|twin|.  Returns max|d|."""
+    ``ENC_REL_TOL`` of max|twin|.  Returns max|d|.  ``held=False``: bf16
+    printed only, where the caller holds the kernel to exact arithmetic
+    instead (``final_ln_check``)."""
     torch.cuda.synchronize()
     if got.dtype != dtype or not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what}: wrong type or non-finite values")
     err = (got.float() - twin.float()).abs()
     scale = twin.float().abs().max().item()
     tol = F32_ATOL if dtype == torch.float32 else ENC_REL_TOL * scale
+    held = held or dtype == torch.float32
     print(f"{what} vs twin: max|d| {err.max().item()} (max|twin| {scale}, "
-          f"mean|d| {err.mean().item():.3e}, tolerance {tol:.4g})", flush=True)
-    if not err.max().item() <= tol:
+          f"mean|d| {err.mean().item():.3e}, tolerance {tol:.4g}"
+          f"{'' if held else ', not asserted: final_ln_check holds it'})",
+          flush=True)
+    if held and not err.max().item() <= tol:
         raise AssertionError(f"{what} disagrees with its twin: "
                              f"{err.max().item()} > {tol}")
     return err.max().item()
 
 
-def timed_kernel(what, x, blocks, heads, stacked, wrapper) -> dict:
+def timed_kernel(what, x, blocks, heads, stacked, wrapper,
+                 simt_iters: int = TIMING_ITERS, held: bool = True) -> dict:
     """Kernel 1 (``stacked``) or kernel 2 on (x, blocks): the wrapper,
     which must launch the plan's variant once (bf16 ``mma``, float32
     ``tf32x3``), held to the plain twin; then, in turns, the time through
@@ -560,7 +585,9 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper) -> dict:
     also ``simt``, the design ``tf32x3`` replaced, by name (its max|d| and
     its times the same way), the library with TF32 off, and three bounds:
     the products as f32 FMA, as three TF32 products a product (the bound
-    of ``tf32x3``, whose operations these are), and the bytes."""
+    of ``tf32x3``, whose operations these are), and the bytes.
+    ``simt_iters``: the launches ``simt`` is timed over (a few where it
+    takes a tenth of a second a launch); ``held``: ``check_kernel``'s."""
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
     f32 = x.dtype == torch.float32
@@ -577,7 +604,7 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper) -> dict:
         raise AssertionError(f"{what}: the wrapper did not launch {variant} "
                              f"once")
     res = {"variant": variant, "max_abs_err": check_kernel(
-        f"{what} {variant}", got, twin, x.dtype)}
+        f"{what} {variant}", got, twin, x.dtype, held)}
     out_m, launch = vit_block.prepared(x, weights, heads, stacked)
     launch()
     torch.cuda.synchronize()
@@ -600,14 +627,16 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper) -> dict:
     res["ms"] = cuda_ms(wrapper)
     res["launch_ms"] = cuda_ms(launch)
     if simt:
-        res["simt_launch_ms"] = cuda_ms(launch_simt)
+        res["simt_launch_ms"] = cuda_ms(launch_simt, iters=simt_iters,
+                                        warmup=min(10, simt_iters))
     res["plain_ms"] = cuda_ms(lambda: vit_block.encoder_reference(
         x, blocks, heads), iters=20, warmup=3)
     res["library_ms"] = cuda_ms(library)
     res["ms_again"] = cuda_ms(wrapper)
     res["device_us"] = graph_us(launch)
     if simt:
-        res["simt_device_us"] = graph_us(launch_simt)
+        res["simt_device_us"] = graph_us(launch_simt,
+                                         min(GRAPH_LAUNCHES, simt_iters))
     res["device_us_again"] = graph_us(launch)
     res["library_device_us"] = graph_us(library)
     flops, nbytes = encoder_cost(x, blocks, heads)
@@ -2137,6 +2166,103 @@ PREP_WIDE_STEPS = 5
 PREP_WIDE = dict(embed_dim=768, depth=2, num_heads=12)
 
 
+def prep_path(dev, label, cfg, load, steps, routes, tols, frames, boxes,
+              clip, pool) -> tuple:
+    """One model of the kernel-5 paths: ``load(device)`` its params,
+    ``steps`` fused_prep steps of the NV12 ``clip`` (``frames`` on the host,
+    ``pool`` its (Y, UV) stacked on the card) by each of ``routes``
+    ("eager": ``core.update_packed(fused_prep=True)``; "compiled":
+    ``scan.update_scan_pool(fused_prep=True)``), each step from the state
+    the port's CPU run of the same route had before it, held to the CPU's
+    step (``tols``: px, score) and to the plain-route step on the card from
+    the same state (ROUTE_BOX_TOL, ROUTE_SCORE_TOL); the counts set to 0
+    just before each route's steps and read just after: kernel 5 once a
+    step, kernel 1 once a step where the model has blocks, each in the
+    plan's variant, nothing else.  Returns (the card's params, the
+    readings)."""
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack
+    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.tracker import core, scan
+
+    cpu = torch.device("cpu")
+    ys, uvs = pool
+    box_tol, score_tol = tols
+    params = vittrack.with_grouped_head(load(dev))
+    cparams = vittrack.with_grouped_head(load(cpu))
+    dt = getattr(torch, cfg.dtype)
+    k5 = fpe.plan(cfg.embed_dim, dt).variant
+    k1 = vit_block.plan(1, cfg.num_tokens, cfg.embed_dim, cfg.num_heads,
+                        int(cfg.embed_dim * cfg.mlp_ratio), dt,
+                        attention.card(dev)[1]).variant
+    n1 = steps if cfg.depth else 0
+    cst = [core.init(cparams, frames[0], boxes[0], cfg, "nv12", cpu)]
+    want = []
+    for i in range(steps):
+        st, b, c = core.update(cparams, cst[-1], frames[i + 1], cfg,
+                               "nv12", cpu, fused_prep=True)
+        cst.append(st)
+        want.append(torch.cat([b, c[None]]).numpy())
+
+    def held(i):
+        return type(cst[i])(*(t.to(dev) for t in cst[i]))
+
+    def step(route, i):
+        if route == "eager":
+            return core.update_packed(params, held(i), clip[i + 1], cfg,
+                                      "nv12", dev, fused_prep=True)[1]
+        st, sc = scan.update_scan_pool(
+            params, held(i), (ys[i + 1:i + 2], uvs[i + 1:i + 2]), 1, cfg,
+            "nv12", fused_prep=True, device=dev)
+        return torch.cat([st.bbox, sc])
+
+    plain = []                             # the plain route, uncounted
+    for i in range(steps):
+        _, b, c = core.update(params, held(i), clip[i + 1], cfg, "nv12",
+                              dev)
+        plain.append(torch.cat([b, c[None]]))
+    plain, want = torch.stack(plain).cpu().numpy(), np.stack(want)
+    out = {"kernel1": k1 if cfg.depth else None, "kernel5": k5}
+    for route in routes:
+        if route == "compiled":
+            step(route, 0)                  # the first call captures
+        zero_counts()
+        got = [step(route, i) for i in range(steps)]
+        counts, v1, v5 = (read_counts(), dict(vit_block.VARIANT_LAUNCHES),
+                          dict(fpe.VARIANT_LAUNCHES))
+        got = torch.stack(got).cpu().numpy()
+        d_box = float(np.abs(got[:, :4] - want[:, :4]).max())
+        d_score = float(np.abs(got[:, 4] - want[:, 4]).max())
+        r_box = float(np.abs(got[:, :4] - plain[:, :4]).max())
+        r_score = float(np.abs(got[:, 4] - plain[:, 4]).max())
+        print(f"kernel-5 path {label} ({route}, {steps} fused_prep steps "
+              f"of 1080p NV12, each from the CPU's state): vs the CPU max|d "
+              f"bbox| {d_box:.3e} px, max|d score| {d_score:.3e} "
+              f"(tolerance {box_tol}, {score_tol}); vs the plain route "
+              f"{r_box:.3e} px, {r_score:.3e} ({ROUTE_BOX_TOL}, "
+              f"{ROUTE_SCORE_TOL}); launches {counts}, kernel 1 {v1}, "
+              f"kernel 5 {v5}", flush=True)
+        if counts != dict(counts, vit_encoder=n1, vit_block=0,
+                          attention_single=0, attention_flash=0,
+                          fused_prep_embed=steps) \
+                or v1 != only(k1, n1) \
+                or v5 != {v: steps if v == k5 else 0 for v in v5}:
+            raise AssertionError(f"kernel-5 path {label} {route}: "
+                                 f"launches {counts} {v1} {v5}")
+        if not np.isfinite(got).all() or d_box > box_tol \
+                or d_score > score_tol or r_box > ROUTE_BOX_TOL \
+                or r_score > ROUTE_SCORE_TOL:
+            raise AssertionError(f"kernel-5 path {label} {route} "
+                                 f"disagrees with the CPU or the plain "
+                                 f"route")
+        out[route] = {
+            "steps": steps, "launches": counts, "kernel1_variants": v1,
+            "kernel5_variants": v5, "max_d_bbox_px": d_box,
+            "max_d_score": d_score, "route_max_d_bbox_px": r_box,
+            "route_max_d_score": r_score}
+    return params, out
+
+
 def prep_paths_phase(dev, card: str) -> dict:
     """Kernel 5 on the paths that run it, on the main path's 1080p NV12
     clip: the ``small`` preset as shipped (float32) through
@@ -2155,12 +2281,10 @@ def prep_paths_phase(dev, card: str) -> dict:
     a step (``torch.profiler``)."""
     from gstreamer_vit_tracker_tpu_torch.config import PRESETS, ModelConfig
     from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
-    from gstreamer_vit_tracker_tpu_torch.ops import attention, vit_block
     from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
     from gstreamer_vit_tracker_tpu_torch.tracker import core, scan
 
     t_phase = time.perf_counter()
-    cpu = torch.device("cpu")
     frames, boxes = nv12_clip(PREP_PATH_STEPS + 1)
     clip = [core._frame_on(f, "nv12", dev) for f in frames]
     ys, uvs = (torch.stack([c[i] for c in clip]) for i in (0, 1))
@@ -2180,80 +2304,9 @@ def prep_paths_phase(dev, card: str) -> dict:
             flat, wide, device=d), PREP_WIDE_STEPS, ("compiled",),
          (CPU_BOX_TOL, CPU_SCORE_TOL))]
     res = {}
-    for label, cfg, load, steps, routes, (box_tol, score_tol) in models:
-        params = vittrack.with_grouped_head(load(dev))
-        cparams = vittrack.with_grouped_head(load(cpu))
-        dt = getattr(torch, cfg.dtype)
-        k5 = fpe.plan(cfg.embed_dim, dt).variant
-        k1 = vit_block.plan(1, cfg.num_tokens, cfg.embed_dim, cfg.num_heads,
-                            int(cfg.embed_dim * cfg.mlp_ratio), dt,
-                            attention.card(dev)[1]).variant
-        n1 = steps if cfg.depth else 0
-        cst = [core.init(cparams, frames[0], boxes[0], cfg, "nv12", cpu)]
-        want = []
-        for i in range(steps):
-            st, b, c = core.update(cparams, cst[-1], frames[i + 1], cfg,
-                                   "nv12", cpu, fused_prep=True)
-            cst.append(st)
-            want.append(torch.cat([b, c[None]]).numpy())
-
-        def held(i):
-            return type(cst[i])(*(t.to(dev) for t in cst[i]))
-
-        def step(route, i):
-            if route == "eager":
-                return core.update_packed(params, held(i), clip[i + 1], cfg,
-                                          "nv12", dev, fused_prep=True)[1]
-            st, sc = scan.update_scan_pool(
-                params, held(i), (ys[i + 1:i + 2], uvs[i + 1:i + 2]), 1, cfg,
-                "nv12", fused_prep=True, device=dev)
-            return torch.cat([st.bbox, sc])
-
-        plain = []                             # the plain route, uncounted
-        for i in range(steps):
-            _, b, c = core.update(params, held(i), clip[i + 1], cfg, "nv12",
-                                  dev)
-            plain.append(torch.cat([b, c[None]]))
-        plain, want = torch.stack(plain).cpu().numpy(), np.stack(want)
-        res[label] = {"kernel1": k1 if cfg.depth else None, "kernel5": k5}
-        for route in routes:
-            if route == "compiled":
-                step(route, 0)                  # the first call captures
-            zero_counts()
-            got = [step(route, i) for i in range(steps)]
-            counts, v1, v5 = (read_counts(), dict(vit_block.VARIANT_LAUNCHES),
-                              dict(fpe.VARIANT_LAUNCHES))
-            got = torch.stack(got).cpu().numpy()
-            d_box = float(np.abs(got[:, :4] - want[:, :4]).max())
-            d_score = float(np.abs(got[:, 4] - want[:, 4]).max())
-            r_box = float(np.abs(got[:, :4] - plain[:, :4]).max())
-            r_score = float(np.abs(got[:, 4] - plain[:, 4]).max())
-            print(f"kernel-5 path {label} ({route}, {steps} fused_prep steps "
-                  f"of 1080p NV12, each from the CPU's state): vs the CPU max|d "
-                  f"bbox| {d_box:.3e} px, max|d score| {d_score:.3e} "
-                  f"(tolerance {box_tol}, {score_tol}); vs the plain route "
-                  f"{r_box:.3e} px, {r_score:.3e} ({ROUTE_BOX_TOL}, "
-                  f"{ROUTE_SCORE_TOL}); launches {counts}, kernel 1 {v1}, "
-                  f"kernel 5 {v5}", flush=True)
-            if counts != dict(counts, vit_encoder=n1, vit_block=0,
-                              attention_single=0, attention_flash=0,
-                              fused_prep_embed=steps) \
-                    or v1 != only(k1, n1) \
-                    or v5 != {v: steps if v == k5 else 0 for v in v5}:
-                raise AssertionError(f"kernel-5 path {label} {route}: "
-                                     f"launches {counts} {v1} {v5}")
-            if not np.isfinite(got).all() or d_box > box_tol \
-                    or d_score > score_tol or r_box > ROUTE_BOX_TOL \
-                    or r_score > ROUTE_SCORE_TOL:
-                raise AssertionError(f"kernel-5 path {label} {route} "
-                                     f"disagrees with the CPU or the plain "
-                                     f"route")
-            res[label][route] = {
-                "steps": steps, "launches": counts, "kernel1_variants": v1,
-                "kernel5_variants": v5, "max_d_bbox_px": d_box,
-                "max_d_score": d_score, "route_max_d_bbox_px": r_box,
-                "route_max_d_score": r_score}
-
+    for label, cfg, load, steps, routes, tols in models:
+        params, res[label] = prep_path(dev, label, cfg, load, steps, routes,
+                                       tols, frames, boxes, clip, (ys, uvs))
         if label == "small f32":               # the compiled step run free
             st0 = core.init(params, clip[0], boxes[0], cfg, "nv12", dev)
             pool = (ys[1:].contiguous(), uvs[1:].contiguous())
@@ -2276,7 +2329,7 @@ def prep_paths_phase(dev, card: str) -> dict:
                   f"{t['idle_share']:.3f} | {card}", flush=True)
             if counts["fused_prep_embed"] != JIT_TIMED \
                     or counts["vit_encoder"] != JIT_TIMED \
-                    or v5[k5] != JIT_TIMED \
+                    or v5[res[label]["kernel5"]] != JIT_TIMED \
                     or not torch.isfinite(scores).all():
                 raise AssertionError(f"kernel-5 path small f32 run free: "
                                      f"launches {counts} {v5}")
@@ -2307,6 +2360,519 @@ def prep_alone() -> dict:
         weights.checkpoint_path("vittrack-t"), cfg, device=dev))
     got = {"prep": prep_phase(dev, cfg, params),
            "paths": prep_paths_phase(dev, card)}
+    print(json.dumps(got), flush=True)
+    return got
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: ViT-L's and ViT-H's widths, past the resident LN products
+# ---------------------------------------------------------------------------
+
+# ViT-L/16's width, depth and heads (Dosovitskiy et al., "An Image is Worth
+# 16x16 Words", Table 1: 24 layers, width 1024, MLP 4096, 16 heads) and
+# ViT-H's width and heads (1280 and 16: head dim 80, MLP 5120) at a depth
+# cut to 4, each on the flagship's crops, patch, conv head and grouped head,
+# with seeded weights (random_flat).
+WIDE_L = dict(embed_dim=1024, depth=24, num_heads=16)
+WIDE_H = dict(embed_dim=1280, depth=4, num_heads=16)
+WIDE_STEPS = 3            # compiled ViT-L steps a dtype, each from the CPU's state
+WIDE_CPU_STREAMS = 2      # streams of the 16-stream tick held to the CPU
+WIDE_PREP_STEPS = 2       # ViT-H update(fused_prep=True) steps a dtype
+WIDE_SIMT_ITERS = 3       # simt by name at the float32 ViT-L shapes: a few launches
+# The forced-streamed comparisons: (dtype, D, heads) where the rule keeps
+# the LN products resident (bf16 D 768, float32 D 512 and the flagship's
+# 192), at batch 1 and 16.
+WIDE_FORCED = ((torch.bfloat16, 768, 12), (torch.float32, 512, 8),
+               (torch.float32, 192, 3))
+# flagship_outputs as the build of commit 374a250 (before the streamed LN
+# products) made them on an H100: sha256 of their bits.  The flagship and
+# small launch what that build launched, so they stay bit-equal.
+FLAGSHIP_SHA256 = {
+    "kernel1_bf16":
+        "7bce52b243684d9b8b7c29c8de28834cbe7000561c50c1ac26d831c5f8c73b5f",
+    "kernel1_small_bf16":
+        "92c5b63b200a87ed72890f46382c3945d7baeb296571b68a3ce4788d8a796774",
+    "kernel2_bf16":
+        "2941cbb1a226cd197e4c658397fb11864474ba958472c5a203fcc3243bec58a1",
+    "kernel5_bf16": PREP_BF16_FLAGSHIP_SHA256,        # phase 3c's, unchanged
+    "kernel1_f32":
+        "6e32c9de95e06db07184f4cf668c08824a14ea3f67a8a0a2b2d197d084b7900d",
+    "kernel1_small_f32":
+        "022d053934597158ac036588ecc84bd3014079b672a8b671271c83c891e283a1",
+    "kernel2_f32":
+        "d95ae984c758819062dbe253391242eec0801a471ba8553fa7c841a2f1b85145",
+    "kernel5_f32":
+        "4fe9d41b4f1257df882d439aa877f1aa83928f405e5abb9c18f26633999bf167"}
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bits."""
+    import hashlib
+
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256(t.view(torch.int16 if t.element_size() == 2
+                                 else torch.int32).numpy().tobytes()
+                          ).hexdigest()
+
+
+def flagship_outputs(dev) -> dict:
+    """Kernels 1, 2 and 5 on the shipped weights in both dtypes, on fixed
+    inputs: kernel 1 on seeded (1, 320, 192) tokens (the flagship, 12
+    blocks) and (1, 80, 96) ones (``small``, 4 blocks), kernel 2 on seeded
+    (16, 320, 192) tokens through the flagship's block 5, kernel 5 on
+    phase 3c's banded 1080p case.  What FLAGSHIP_SHA256 fixes."""
+    from gstreamer_vit_tracker_tpu_torch.config import PRESETS
+    from gstreamer_vit_tracker_tpu_torch.models import vit, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    cfg, small = PRESETS["vittrack-t"], PRESETS["small"]
+    params = weights.load_npz(weights.checkpoint_path("vittrack-t"), cfg,
+                              device=dev)
+    sparams = weights.load_npz(weights.checkpoint_path("small"), small,
+                               device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    x1 = (2.0 * torch.randn((1, cfg.num_tokens, cfg.embed_dim),
+                            generator=gen)).to(dev)
+    x16 = (2.0 * torch.randn((SERVE_SLOTS, cfg.num_tokens, cfg.embed_dim),
+                             generator=gen)).to(dev)
+    xs = (2.0 * torch.randn((1, small.num_tokens, small.embed_dim),
+                            generator=gen)).to(dev)
+    rng = np.random.default_rng(11)
+    y = torch.as_tensor(rng.integers(0, 256, (FRAME_H, FRAME_W),
+                                     dtype=np.uint8), device=dev)
+    uv = torch.as_tensor(rng.integers(0, 256, (FRAME_H // 2, FRAME_W // 2, 2),
+                                      dtype=np.uint8), device=dev)
+    win = pp.crop_window(torch.tensor((1500.0, 700.0, 64.0, 64.0),
+                                      device=dev), cfg.search_factor)
+    out = {}
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        blocks = [vit.cast_params(p, dt) for p in params["backbone"]["blocks"]]
+        sblocks = [vit.cast_params(p, dt)
+                   for p in sparams["backbone"]["blocks"]]
+        out[f"kernel1_{name}"] = vit_block.encoder(x1.to(dt), blocks,
+                                                   cfg.num_heads)
+        out[f"kernel1_small_{name}"] = vit_block.encoder(
+            xs.to(dt), sblocks, small.num_heads)
+        out[f"kernel2_{name}"] = vit_block.block(x16.to(dt), blocks[5],
+                                                 cfg.num_heads)
+        out[f"kernel5_{name}"] = fpe.nv12_search_tokens(
+            params, y, uv, win, dataclasses.replace(cfg, dtype=str(dt)[6:]))
+    torch.cuda.synchronize()
+    return out
+
+
+def wide_model(dev, spec: dict, seed: int):
+    """(config, params on the card, params on the CPU) of a wide model:
+    ``spec`` on the flagship's ModelConfig, the grouped head, seeded
+    float32 masters (random_flat) that both dtypes cast at use."""
+    from gstreamer_vit_tracker_tpu_torch.config import ModelConfig
+    from gstreamer_vit_tracker_tpu_torch.models import vittrack, weights
+
+    cfg = dataclasses.replace(ModelConfig(), **spec)
+    flat = random_flat(cfg, seed)
+    return cfg, *(vittrack.with_grouped_head(weights.params_from_flat(
+        flat, cfg, device=d)) for d in (dev, torch.device("cpu")))
+
+
+def seeded_blocks(dev, d: int, depth: int, dtype, seed: int):
+    """``depth`` blocks of width ``d`` (MLP 4 d) with seeded weights, and a
+    seeded (1, 320, d) and (16, 320, d) input, in ``dtype``."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def w(*shape, std=0.1, base=0.0):
+        return (base + std * torch.randn(shape, generator=gen)).to(dev, dtype)
+
+    hid = 4 * d
+    blocks = [{"ln1": {"scale": w(d, base=1.0), "bias": w(d)},
+               "ln2": {"scale": w(d, base=1.0), "bias": w(d)},
+               "qkv": {"kernel": w(d, 3 * d, std=d ** -0.5), "bias": w(3 * d)},
+               "proj": {"kernel": w(d, d, std=d ** -0.5), "bias": w(d)},
+               "mlp1": {"kernel": w(d, hid, std=d ** -0.5), "bias": w(hid)},
+               "mlp2": {"kernel": w(hid, d, std=hid ** -0.5), "bias": w(d)}}
+              for _ in range(depth)]
+    return blocks, w(1, 320, d, std=1.0), w(SERVE_SLOTS, 320, d, std=1.0)
+
+
+def forced_streamed(dev) -> dict:
+    """Kernels 1 and 2 at the WIDE_FORCED shapes, where the rule keeps the
+    LN products resident, launched as the rule plans them and again with
+    the streamed form named: bit for bit the same output."""
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    res = {}
+    for dt, d, heads in WIDE_FORCED:
+        blocks, x1, x16 = seeded_blocks(dev, d, 2, dt, d)
+        flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
+        for x, stacked in ((x1, True), (x16, False)):
+            weights = (vit_block._stack(flat, 2) if stacked
+                       else flat[:len(vit_block._FIELDS)])
+            rule = vit_block._plan_for(x, heads, 4 * d)
+            outs = []
+            for chosen in (rule, rule._replace(ln="streamed")):
+                out, launch = vit_block.prepared(x, weights, heads, stacked,
+                                                 chosen)
+                launch()
+                outs.append(out)
+            torch.cuda.synchronize()
+            same = torch.equal(*outs)
+            label = (f"{'encoder' if stacked else 'block'} {tuple(x.shape)} "
+                     f"{str(dt)[6:]}")
+            print(f"streamed LN form named at {label} (the rule: {rule.ln}, "
+                  f"tiles {rule.tiles}): bit-equal to the rule's {same}",
+                  flush=True)
+            if rule.ln != "resident" or not same:
+                raise AssertionError(f"{label}: the streamed LN form differs "
+                                     f"from the resident one")
+            res[label] = same
+    return res
+
+
+def check_tokens(what, got, plain, dtype) -> float:
+    """Kernel 5's tokens against its plain version: float32 PREP_F32_ATOL,
+    bf16 one output ulp at the largest plain value (PREP_BF16_REL)."""
+    err = (got.float() - plain.float()).abs().max().item()
+    tol = (PREP_F32_ATOL if dtype == torch.float32
+           else PREP_BF16_REL * plain.float().abs().max().item())
+    print(f"{what} vs plain: max|d| {err:.3e} (tolerance {tol:.3e})",
+          flush=True)
+    if got.shape != plain.shape or not torch.isfinite(got.float()).all() \
+            or not err <= tol:
+        raise AssertionError(f"{what} disagrees with its plain version")
+    return err
+
+
+def wide_prep(dev, card, cfg, params) -> dict:
+    """Kernel 5 at ViT-H's D 1280 in both dtypes on phase 3c's banded 1080p
+    case and a window inside a small frame: the wrapper (one launch, the
+    plan's variant) against both modes of its plain version, then on the
+    banded case its device us a launch (CUDA-graph replay) beside the plain
+    version, the unfused chain and the bound."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
+    from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
+
+    rng = np.random.default_rng(11)
+    cases = []
+    for (h, w), box in (((FRAME_H, FRAME_W), (1500.0, 700.0, 64.0, 64.0)),
+                        ((512, 640), (300.0, 200.0, 64.0, 64.0))):
+        cases.append((torch.as_tensor(rng.integers(0, 256, (h, w),
+                                                   dtype=np.uint8), device=dev),
+                      torch.as_tensor(rng.integers(0, 256, (h // 2, w // 2, 2),
+                                                   dtype=np.uint8), device=dev),
+                      box))
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=str(dt)[6:])
+        chosen = fpe.plan(c.embed_dim, dt)
+        errs = []
+        for y, uv, box in cases:
+            win = pp.crop_window(torch.tensor(box, device=dev), c.search_factor)
+            before = dict(fpe.VARIANT_LAUNCHES)
+            got = fpe.nv12_search_tokens(params, y, uv, win, c)
+            torch.cuda.synchronize()
+            if fpe.VARIANT_LAUNCHES != dict(before, **{
+                    chosen.variant: before[chosen.variant] + 1}):
+                raise AssertionError(f"kernel 5 D {c.embed_dim}: not one "
+                                     f"{chosen.variant} launch")
+            errs += [check_tokens(
+                f"fused_prep_embed D {c.embed_dim} {c.dtype} {chosen.variant} "
+                f"{tiling_name(chosen)} W {chosen.width}, window {box}, mode "
+                f"{mode!r}", got, fpe.nv12_search_tokens_reference(
+                    params, y, uv, win, c, mode), dt) for mode in fpe.MODES]
+        y, uv, box = cases[0]
+        win = pp.crop_window(torch.tensor(box, device=dev), c.search_factor)
+        _, launch = fpe.prepared(params, y, uv, win, c)
+
+        def chain():
+            x_img = pp.preprocess_nv12(y, uv, win, c.search_size, c.norm_mean,
+                                       c.norm_std, dtype=dt,
+                                       band=c.preprocess_band)
+            return vit.embed_search(params["backbone"], x_img[None], c)
+
+        row = {"variant": chosen.variant, "plan": list(chosen),
+               "max_abs_err": max(errs), "device_us": graph_us(launch),
+               "plain_ms": cuda_ms(lambda: fpe.nv12_search_tokens_reference(
+                   params, y, uv, win, c), iters=10, warmup=2),
+               "chain_ms": cuda_ms(chain, iters=20, warmup=3),
+               "launch_ms": cuda_ms(lambda: fpe.launch(*fpe.kernel_operands(
+                   params, y, uv, win, c), c), iters=20),
+               "library_ms": None}
+        row["device_us_again"] = graph_us(launch)
+        row.update(prep_bound(win, y.shape, c))
+        res[c.dtype] = row
+        print(f"fused_prep_embed D {c.embed_dim} {c.dtype} ({chosen}), 1080p "
+              f"banded: device us a launch (CUDA graph of {GRAPH_LAUNCHES}) "
+              f"{row['device_us']:.2f} / {row['device_us_again']:.2f}; one "
+              f"launch {row['launch_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, unfused chain {row['chain_ms']:.4f} "
+              f"(no library call computes it); bound "
+              f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} "
+              f"(operations {row['ops_ms'] * 1e3:.3f} us, "
+              f"{row['mbytes']:.3f} MB -> {row['bytes_ms'] * 1e3:.3f} us) "
+              f"| {card}", flush=True)
+    return res
+
+
+def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
+    """Kernels 1, 2 and 5 at the wide shapes against their plain versions,
+    timed (``timed_kernel``, ``wide_prep``): kernel 1 at ViT-L's (1, 320,
+    1024) x 24 on the real tokens of a search crop of the main-path clip
+    (the model's own embed), bf16 (``mma``, streamed) with
+    ``final_ln_check``'s yardstick on LN_CROPS crops (over 24 blocks the
+    kernel and the twin part by 2.4 % of max|twin| on an NVIDIA H100 80GB
+    HBM3 at 700 W, each as close to exact arithmetic as the other:
+    ENC_REL_TOL, read at the flagship's 12 blocks, is printed and not
+    asserted), float32 (``tf32x3``, streamed, ``simt`` by
+    name over WIDE_SIMT_ITERS launches) at F32_ATOL;
+    kernel 2 at (16, 320, 1024) on 16 crops through block 0 in both dtypes;
+    kernel 1 at ViT-H's (1, 320, 1280) x 4 in both dtypes against the twin;
+    kernel 5 at D 1280; the streamed form named where the rule keeps the
+    resident one (``forced_streamed``); the flagship's and small's outputs
+    against FLAGSHIP_SHA256."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    res = {"forced_streamed": forced_streamed(dev)}
+    got = {k: digest(t) for k, t in flagship_outputs(dev).items()}
+    print(f"flagship and small kernel 1 / 2 / 5 outputs, sha256 "
+          f"{json.dumps(got)}; bit-equal to the build before the streamed LN "
+          f"products: {got == FLAGSHIP_SHA256}", flush=True)
+    if got != FLAGSHIP_SHA256:
+        raise AssertionError("the flagship's or small's kernel outputs are no "
+                             "longer bit-equal to the build before")
+    res["flagship_sha256"] = got
+
+    heads, hidden = lcfg.num_heads, int(lcfg.embed_dim * lcfg.mlp_ratio)
+    frames, boxes = nv12_clip(LN_CROPS + 1)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    z0 = core.init(lparams, clip[0], boxes[0], lcfg, "nv12", dev).z_tok
+    crops = []
+    for i in range(1, LN_CROPS + 1):
+        win = pp.crop_window(torch.tensor(boxes[i], device=dev),
+                             lcfg.search_factor)
+        tok = vit.embed_search(lparams["backbone"], core._prep_nv12(
+            clip[i], win, lcfg.search_size, lcfg)[None], lcfg)
+        crops.append(torch.cat([z0[None], tok], dim=1).contiguous())
+    x1, x16 = crops[0], torch.cat(crops, 0)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        blocks = [vit.cast_params(p, dt) for p in lparams["backbone"]["blocks"]]
+        for x, stacked in ((x1.to(dt), True), (x16.to(dt), False)):
+            chosen = vit_block._plan_for(x, heads, hidden)
+            print(f"ViT-L {name} plan at batch {x.shape[0]}: {chosen}",
+                  flush=True)
+            if chosen.variant != vit_block._VARIANTS[dt] \
+                    or chosen.ln != "streamed":
+                raise AssertionError(f"ViT-L {name}: expected the streamed "
+                                     f"{vit_block._VARIANTS[dt]}, the plan is "
+                                     f"{chosen}")
+            if stacked:
+                key, row = f"kernel1_{name}", timed_kernel(
+                    f"encoder ViT-L {tuple(x.shape)} x {lcfg.depth} {name}",
+                    x, blocks, heads, True,
+                    lambda x=x, b=blocks: vit_block.encoder(x, b, heads),
+                    simt_iters=WIDE_SIMT_ITERS, held=dt == torch.float32)
+            else:
+                key, row = f"kernel2_{name}", timed_kernel(
+                    f"block ViT-L {tuple(x.shape)} {name}", x, [blocks[0]],
+                    heads, False,
+                    lambda x=x, b=blocks[0]: vit_block.block(x, b, heads),
+                    simt_iters=WIDE_SIMT_ITERS)
+            res[key] = dict(row, plan=list(chosen))
+        if dt == torch.bfloat16:
+            res["kernel1_bfloat16"]["final_ln"] = final_ln_check(
+                lcfg, lparams, blocks, [c.to(dt) for c in crops], x1.to(dt))
+    del crops, x16
+
+    # ViT-H's kernel 1 against its twin, and kernel 5 at its D.
+    hblocks = hparams["backbone"]["blocks"]
+    gen = torch.Generator(device="cpu").manual_seed(1280)
+    xh = torch.randn((1, hcfg.num_tokens, hcfg.embed_dim), generator=gen)
+    for dt in (torch.bfloat16, torch.float32):
+        x = xh.to(dev, dt)
+        blocks = [vit.cast_params(p, dt) for p in hblocks]
+        chosen = vit_block._plan_for(x, hcfg.num_heads, 4 * hcfg.embed_dim)
+        res[f"kernel1_vit_h_{str(dt)[6:]}"] = {"plan": list(chosen),
+                                               "max_abs_err": check_kernel(
+            f"encoder ViT-H {tuple(x.shape)} x {hcfg.depth} {str(dt)[6:]} "
+            f"({chosen})", vit_block.encoder(x, blocks, hcfg.num_heads),
+            vit_block.encoder_reference(x, blocks, hcfg.num_heads), dt)}
+    res["kernel5"] = wide_prep(dev, card, hcfg, hparams)
+    return res
+
+
+def wide_paths(dev, card, lcfg, lparams, lcparams, hcfg, hparams_load) -> dict:
+    """The wide models on the paths a user calls, the counts set to 0 just
+    before each part and read just after: ViT-L ``core.init`` then
+    WIDE_STEPS compiled ``update_packed_jit`` steps in bf16 and in float32,
+    each on the card from the CPU's state before it and held to the CPU's
+    step (bf16 CPU_BOX_TOL / CPU_SCORE_TOL, float32 SMALL_BOX_TOL /
+    SMALL_SCORE_TOL), kernel 1 once a step in the plan's variant and no
+    ``simt``; one 16-stream ``multi.update_streams`` tick on 1080p NV12
+    (kernel 3 depth times), streams 0 to WIDE_CPU_STREAMS - 1 held to the
+    CPU's tick from the card's state; the 24 blocks chained through
+    ``models/vit.py::_block(fused=True)`` at B=16 (kernel 2 24 times, equal
+    to kernel 1 bit for bit); ViT-H (depth 4) through
+    ``core.update_packed(fused_prep=True)`` in both dtypes (``prep_path``:
+    kernel 5 at D 1280 and kernel 1 once a step)."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit, weights
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+    from gstreamer_vit_tracker_tpu_torch.tracker import core, multi
+
+    cpu = torch.device("cpu")
+    res = {}
+    frames, boxes = nv12_clip(WIDE_STEPS + 1)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    for dtype, tols in (("bfloat16", (CPU_BOX_TOL, CPU_SCORE_TOL)),
+                        ("float32", (SMALL_BOX_TOL, SMALL_SCORE_TOL))):
+        cfg = dataclasses.replace(lcfg, dtype=dtype)
+        variant = vit_block._VARIANTS[getattr(torch, dtype)]
+        cst = core.init(lcparams, frames[0], boxes[0], cfg, "nv12", cpu)
+        gst = core.init(lparams, clip[0], boxes[0], cfg, "nv12", dev)
+        d_z = (gst.z_tok.float().cpu() - cst.z_tok.float()).abs().max().item()
+        zero_counts()
+        worst_box = worst_score = 0.0
+        for i in range(WIDE_STEPS):
+            held = type(cst)(*(t.to(dev) for t in cst))
+            _, gout = core.update_packed_jit(lparams, held, clip[i + 1], cfg,
+                                             "nv12", dev)
+            cst, cout = core.update_packed(lcparams, cst, frames[i + 1], cfg,
+                                           "nv12", cpu)
+            gout, cout = gout.cpu().numpy(), cout.numpy()
+            if not np.isfinite(gout).all():
+                raise AssertionError(f"ViT-L {dtype} step: non-finite")
+            worst_box = max(worst_box, float(np.abs(gout[:4] - cout[:4]).max()))
+            worst_score = max(worst_score, float(abs(gout[4] - cout[4])))
+        counts, by_variant = read_counts(), dict(vit_block.VARIANT_LAUNCHES)
+        print(f"ViT-L {dtype} compiled (init, then update_packed_jit, 1080p "
+              f"NV12): template tokens vs the CPU's max|d| {d_z:.3e}; "
+              f"{WIDE_STEPS} steps each from the CPU's state: max|d bbox| "
+              f"{worst_box:.3e} px, max|d score| {worst_score:.3e} (tolerance "
+              f"{tols[0]} px, {tols[1]}); launches {counts} ({by_variant}) "
+              f"| {card}", flush=True)
+        if counts != dict(counts, vit_encoder=WIDE_STEPS, vit_block=0,
+                          attention_single=0, attention_flash=0,
+                          fused_prep_embed=0) \
+                or by_variant != only(variant, WIDE_STEPS):
+            raise AssertionError(f"ViT-L {dtype} compiled: launches {counts} "
+                                 f"{by_variant}, expected kernel 1 "
+                                 f"({variant}) once a step")
+        if worst_box > tols[0] or worst_score > tols[1]:
+            raise AssertionError(f"ViT-L {dtype} compiled step disagrees with "
+                                 f"the CPU")
+        res[f"step_{dtype}"] = {
+            "steps": WIDE_STEPS, "variant": variant, "launches": counts,
+            "launches_by_variant": by_variant, "max_d_bbox_px": worst_box,
+            "max_d_score": worst_score, "template_max_abs_err": d_z}
+    core.update_packed_jit.drop(lparams)     # the ViT-L graphs' buffers go
+
+    # One 16-stream tick (kernel 3), streams 0-1 against the CPU's tick.
+    clips = stream_clips(SERVE_SLOTS, 2)
+    f0 = tuple(np.stack([c[0][0][i] for c in clips]) for i in (0, 1))
+    f1 = tuple(np.stack([c[0][1][i] for c in clips]) for i in (0, 1))
+    boxes16 = np.asarray([[c[1][0]] for c in clips], np.float32)
+    active = np.ones((SERVE_SLOTS, 1), bool)
+    st = multi.init_streams(lparams, f0, boxes16, lcfg, device=dev,
+                            frame_format="nv12")
+    n = WIDE_CPU_STREAMS
+    cst = type(st)(*(t[:n].to(cpu, copy=True) for t in st))
+    zero_counts()
+    _, gb, gc = multi.update_streams(lparams, st, f1, active, lcfg,
+                                     device=dev, frame_format="nv12")
+    torch.cuda.synchronize()
+    tick_counts = read_counts()
+    _, cb, cc = multi.update_streams(lcparams, cst, tuple(f[:n] for f in f1),
+                                     active[:n], lcfg, device=cpu,
+                                     frame_format="nv12")
+    d_box = float((gb[:n].cpu() - cb).abs().max())
+    d_score = float((gc[:n].cpu() - cc).abs().max())
+    print(f"ViT-L bf16 tick: multi.update_streams at {SERVE_SLOTS} streams of "
+          f"1080p NV12, launches {tick_counts}; streams 0-{n - 1} against the "
+          f"CPU's tick from the card's state: max|d bbox| {d_box:.4f} px, "
+          f"max|d score| {d_score:.5f} (tolerance {CPU_BOX_TOL} px, "
+          f"{CPU_SCORE_TOL})", flush=True)
+    if tick_counts != dict(tick_counts, vit_encoder=0, vit_block=0,
+                           attention_single=lcfg.depth, attention_flash=0,
+                           fused_prep_embed=0) \
+            or not torch.isfinite(gb).all() or d_box > CPU_BOX_TOL \
+            or d_score > CPU_SCORE_TOL:
+        raise AssertionError("ViT-L tick: wrong launches or disagrees with "
+                             "the CPU")
+    res["tick"] = {"streams": SERVE_SLOTS, "launches": tick_counts,
+                   "max_d_bbox_px": d_box, "max_d_score": d_score}
+
+    # The 24 blocks through _block(fused=True) at B=16 (kernel 2).
+    gen = torch.Generator(device="cpu").manual_seed(1024)
+    x16 = torch.randn((SERVE_SLOTS, lcfg.num_tokens, lcfg.embed_dim),
+                      generator=gen).to(dev, torch.bfloat16)
+    blocks = [vit.cast_params(p, torch.bfloat16)
+              for p in lparams["backbone"]["blocks"]]
+    zero_counts()
+    x = x16
+    for bp in blocks:
+        x = vit._block(x, bp, lcfg.num_heads, fused=True)
+    block_counts, by_variant = read_counts(), dict(vit_block.VARIANT_LAUNCHES)
+    same = torch.equal(x, vit_block.encoder(x16, blocks, lcfg.num_heads))
+    print(f"ViT-L bf16 block path: {lcfg.depth} blocks through "
+          f"_block(fused=True) at B={SERVE_SLOTS}: launches {block_counts} "
+          f"({by_variant}); equal to the encoder kernel bit for bit: {same}",
+          flush=True)
+    if block_counts != dict(block_counts, vit_encoder=0, vit_block=lcfg.depth,
+                            attention_single=0, attention_flash=0,
+                            fused_prep_embed=0) \
+            or by_variant != only("mma", lcfg.depth) or not same:
+        raise AssertionError("ViT-L block path: wrong launches or output")
+    res["block_path"] = {"launches": block_counts,
+                         "launches_by_variant": by_variant}
+
+    # ViT-H through update_packed(fused_prep=True) in both dtypes.
+    pframes, pboxes = nv12_clip(WIDE_PREP_STEPS + 1)
+    pclip = [core._frame_on(f, "nv12", dev) for f in pframes]
+    pool = tuple(torch.stack([c[i] for c in pclip]) for i in (0, 1))
+    for dtype, tols in (("bfloat16", (CPU_BOX_TOL, CPU_SCORE_TOL)),
+                        ("float32", (SMALL_BOX_TOL, SMALL_SCORE_TOL))):
+        cfg = dataclasses.replace(hcfg, dtype=dtype)
+        _, res[f"vit_h_{dtype}"] = prep_path(
+            dev, f"ViT-H {dtype}", cfg, hparams_load, WIDE_PREP_STEPS,
+            ("eager",), tols, pframes, pboxes, pclip, pool)
+    return res
+
+
+def wide_phase(dev, card: str) -> dict:
+    """ViT-L's and ViT-H's widths (WIDE_L, WIDE_H), where kernels 1 and 2
+    stream their LN products and kernel 5 runs above D 1024:
+    ``wide_kernels`` then ``wide_paths``; nothing falls back to a plain
+    version or the CPU, and no float32 path launches ``simt``."""
+    t_phase = time.perf_counter()
+    lcfg, lparams, lcparams = wide_model(dev, WIDE_L, seed=24)
+    hcfg, hparams, hcparams = wide_model(dev, WIDE_H, seed=80)
+    res = {"kernels": wide_kernels(dev, card, lcfg, lparams, hcfg, hparams)}
+    res["paths"] = wide_paths(
+        dev, card, lcfg, lparams, lcparams, hcfg,
+        lambda d: hparams if d.type == "cuda" else hcparams)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"wide phase: {res['seconds']:.1f} s | {card}", flush=True)
+    return res
+
+
+def wide_alone() -> dict:
+    """:func:`wide_phase` on card 0 and nothing else, after the build.  Run
+    from the root of a checkout: ``python -c "import chip_smoke as c;
+    c.wide_alone()"``."""
+    from gstreamer_vit_tracker_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cuda_build.build()
+    card = card_line()
+    print(f"wide widths alone | {card}", flush=True)
+    got = wide_phase(dev, card)
     print(json.dumps(got), flush=True)
     return got
 
@@ -2357,19 +2923,7 @@ def padded_heads_phase(dev) -> dict:
     for dtype, heads in ((torch.bfloat16, 4), (torch.bfloat16, 2),
                          (torch.float32, 8), (torch.float32, 16)):
         name, d = str(dtype).split(".")[-1], 192
-        gen = torch.Generator(device="cpu").manual_seed(heads)
-
-        def w(*shape, std=0.1, base=0.0):
-            return (base + std * torch.randn(shape, generator=gen)).to(dev, dtype)
-
-        blocks = [{"ln1": {"scale": w(d, base=1.0), "bias": w(d)},
-                   "ln2": {"scale": w(d, base=1.0), "bias": w(d)},
-                   "qkv": {"kernel": w(d, 3 * d, std=d ** -0.5), "bias": w(3 * d)},
-                   "proj": {"kernel": w(d, d, std=d ** -0.5), "bias": w(d)},
-                   "mlp1": {"kernel": w(d, 4 * d, std=d ** -0.5), "bias": w(4 * d)},
-                   "mlp2": {"kernel": w(4 * d, d, std=(4 * d) ** -0.5),
-                            "bias": w(d)}} for _ in range(3)]
-        x = torch.randn((1, 320, d), generator=gen).to(dev, dtype)
+        blocks, x, _ = seeded_blocks(dev, d, 3, dtype, heads)
         chosen = vit_block._plan_for(x, heads, 4 * d)
         before = dict(vit_block.VARIANT_LAUNCHES)
         got = vit_block.encoder(x, blocks, heads)
@@ -5347,6 +5901,8 @@ def main() -> int:
     fused = fused_route_phase(dev, cfg, params, cparams, frames, boxes, clip)
     del clip, frames
     prep_paths = prep_paths_phase(dev, card)
+    wide = wide_phase(dev, card)
+    wk, wp = wide["kernels"], wide["paths"]
 
     # -- 5, 6. the serving paths --------------------------------------------
     serve = serve_phase(dev, "vittrack-t")
@@ -5430,6 +5986,20 @@ def main() -> int:
                            "launches"]["vit_encoder"]},
         "long_unbatched": long_step,
         "step_ms_median": statistics.median(step_ms),
+        "wide": {
+            "vit_l_bf16": {**{k: wk["kernel1_bfloat16"][k]
+                              for k in TIMED_KEYS + ("plan", "final_ln")},
+                           "step": wp["step_bfloat16"]},
+            "vit_l_f32": {**{k: wk["kernel1_float32"][k]
+                             for k in TIMED_F32_KEYS + ("plan",)},
+                          "step": wp["step_float32"]},
+            "vit_h": {t: wk[f"kernel1_vit_h_{t}"]
+                      for t in ("bfloat16", "float32")},
+            "vit_h_prep_launches": {
+                t: wp[f"vit_h_{t}"]["eager"]["kernel1_variants"]
+                for t in ("bfloat16", "float32")},
+            "forced_streamed_bit_equal": wk["forced_streamed"],
+            "flagship_sha256": wk["flagship_sha256"]},
     }, {
         "name": "attention_single",
         "route": "cuda",
@@ -5479,6 +6049,7 @@ def main() -> int:
                        "tick_launches": small_bf16["tick"]["launches"][
                            "attention_single"],
                        "ticks": SMALL_BF16_TICKS},
+        "wide_tick": wp["tick"],
     }, {
         "name": "attention_flash",
         "route": "cuda",
@@ -5538,6 +6109,11 @@ def main() -> int:
         "small_bf16": {**{k: small_bf16["kernel2"][k] for k in TIMED_KEYS},
                        "path_launches": small_bf16["block_path"]["launches"][
                            "vit_block"]},
+        "wide": {"bf16": {k: wk["kernel2_bfloat16"][k]
+                          for k in TIMED_KEYS + ("plan",)},
+                 "f32": {k: wk["kernel2_float32"][k]
+                         for k in TIMED_F32_KEYS + ("plan",)},
+                 "path": wp["block_path"]},
     }, {
         "name": "fused_prep_embed",
         "route": "cuda",
@@ -5582,9 +6158,13 @@ def main() -> int:
                           if k in ("kernel1", "kernel5", "compiled", "eager",
                                    "free")}
                   for label, r in prep_paths.items() if label != "seconds"},
+        "wide": {t: {**wk["kernel5"][t],
+                     "path": wp[f"vit_h_{t}"]["eager"]["kernel5_variants"]}
+                 for t in ("bfloat16", "float32")},
     }]
     print(f"fused route summary: {json.dumps(fused)}")
     print(f"kernel-5 paths summary: {json.dumps(prep_paths)}")
+    print(f"wide widths summary: {json.dumps(wide)}")
     print(f"training summary: {json.dumps(training)}")
     print(f"serving summary: {json.dumps(serve)}")
     print(f"app summary: {json.dumps(app)}")

@@ -8,13 +8,25 @@
 //   columns.  A (the activations, (M, K) row-major: K-major as they lie) and
 //   W (the weight, (K, N) row-major: N-major as it lies, the transpose bit of
 //   the descriptor) arrive by 16-byte cp.async in 64-deep chunks.
-//   * LN (qkv, mlp1; K = the residual width W, D rounded up to a multiple
-//     of 64): every chunk of the 64 rows is resident before the first
-//     product; each row's mean, then the mean of (x - mu)^2, are taken in
-//     f32 from the bf16 x over its D true columns (ln_dim; the W - D padded
-//     ones are zeros and enter neither sum), the row is normalised, scaled
-//     and shifted in f32 with no contraction (the twin's separate roundings),
-//     rounded to bf16 once, and written back into the A tile.
+//   * LN resident (qkv, mlp1; K = the residual width W, D rounded up to a
+//     multiple of 64): every chunk of the 64 rows is resident before the
+//     first product; each row's mean, then the mean of (x - mu)^2, are taken
+//     in f32 from the bf16 x over its D true columns (ln_dim; the W - D
+//     padded ones are zeros and enter neither sum), the row is normalised,
+//     scaled and shifted in f32 with no contraction (the twin's separate
+//     roundings), rounded to bf16 once, and written back into the A tile.
+//     Its shared memory grows with K: 1024 + K / 64 . 64 . (64 + BN) . 2
+//     bytes, which the H100's 232,448 a block hold up to K = 1152 at BN 32
+//     and K = 896 at BN 64.
+//   * LN streamed (the same products where the resident form does not fit):
+//     a launch of row_stats_kernel before the product takes each row's mean
+//     and rstd with the resident form's arithmetic in its order (row_stats,
+//     which layer_norm_tile calls too), and K walks the ring of kRing chunks
+//     as without LN; each chunk, once it has landed, is normalised in place
+//     with those statistics and the resident form's roundings
+//     (layer_norm_chunk) before the tensor cores read it.  Its shared
+//     memory is the ring's, for any K, and its LN output equals the
+//     resident form's bit for bit.
 //   * no LN (proj, mlp2; K = D or the MLP width): K walks a ring of kRing
 //     chunks, the next chunks' copies in flight while one is multiplied.
 //   Every 16-deep step of a product goes to a fresh accumulator, and the
@@ -60,6 +72,9 @@ constexpr int kAttStages = 2;     // key blocks in flight in the attention
 constexpr float kLnEps = 1e-6f;
 
 enum Epilogue { kEpiRound = 0, kEpiGelu = 1, kEpiResidual = 2 };
+// The LayerNorm of a product's A: none, over the resident rows, or
+// chunk by chunk on statistics taken by row_stats_kernel.
+enum LnForm { kLnNone = 0, kLnResident = 1, kLnStreamed = 2 };
 
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((kAlign - mma::smem_addr(raw) % kAlign) % kAlign);
@@ -122,6 +137,83 @@ __device__ __forceinline__ float group8_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
+__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float as_float(float v) { return v; }
+
+// The LayerNorm statistics (mean, rstd) of one row of T over its first d
+// columns, as models/vit.py::layer_norm computes them: mean = sum(x) / d,
+// var = sum((x - mean)^2) / d (a sum divided, as torch's mean is on the
+// CPU), rstd = 1 / sqrt(var + eps), every operation rounded on its own (no
+// contraction).  Eight lanes a row: lane c holds 16-byte chunk c of each of
+// the row's `segs` 128-byte segments (chunk(p) returns segment p's) and sums
+// its elements in order, segment by segment; the eight lanes' sums are then
+// added by group8_sum.  A column at or past d adds nothing to either sum (a
+// zero pad's (0 - mean)^2 would: it is masked).  The one order of the
+// resident forms (layer_norm_tile, encoder_tf32.cuh's layer_norm_rows) and
+// of the streamed form's row_stats_kernel, so their statistics are the same
+// bits.  Every lane of the warp calls it (the shuffles).
+template <typename T, typename Chunk>
+__device__ __forceinline__ float2 row_stats(Chunk chunk, int segs, int c, int d) {
+  constexpr int kE = 16 / sizeof(T);        // elements a chunk
+  const float k = (float)d;
+  float sum = 0.f;
+  for (int p = 0; p < segs; ++p) {
+    const uint4 v = chunk(p);
+    const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int i = 0; i < kE; ++i)
+      if ((p * 8 + c) * kE + i < d) sum = __fadd_rn(sum, as_float(e[i]));
+  }
+  const float mu = __fdiv_rn(group8_sum(sum), k);
+  float var = 0.f;
+  for (int p = 0; p < segs; ++p) {
+    const uint4 v = chunk(p);
+    const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      if ((p * 8 + c) * kE + i >= d) continue;
+      const float t = __fsub_rn(as_float(e[i]), mu);
+      var = __fadd_rn(var, __fmul_rn(t, t));
+    }
+  }
+  return make_float2(mu, rsqrt_rn(__fadd_rn(__fdiv_rn(group8_sum(var), k), kLnEps)));
+}
+
+// The streamed form's statistics: row_stats of each of the M rows of x ((M,
+// W) row-major, W . sizeof(T) a multiple of 128) over its first d columns
+// into stats[row] = (mean, rstd).  Eight lanes a row, 16 rows a CTA of 128
+// threads; a lane past M reads row 0 (the shuffles need every lane) and
+// stores nothing.  x is read once, from L2 where the previous launch left
+// it: at (320, 1024) bf16 640 KB.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int M, int W, int d) {
+  constexpr int kE = 16 / sizeof(T);
+  const int c = threadIdx.x & 7, row = blockIdx.x * (kThreads / 8) + (threadIdx.x >> 3);
+  const T* xr = x + (size_t)(row < M ? row : 0) * W + c * kE;
+  const float2 st = row_stats<T>(
+      [&](int p) { return *reinterpret_cast<const uint4*>(xr + p * 8 * kE); },
+      W / (8 * kE), c, d);
+  if (row < M && c == 0) stats[row] = st;
+}
+
+// Eight bf16 of x (a 16-byte chunk) LayerNormed with the row's (mu, rstd)
+// and the columns' scale s and bias b: y = (x - mu) . rstd, then y . s + b,
+// every operation rounded on its own, one rounding to bf16.
+__device__ __forceinline__ uint4 layer_norm8(uint4 v, float mu, float rstd, uint4 sv, uint4 bv) {
+  const bf16 *e = reinterpret_cast<const bf16*>(&v), *se = reinterpret_cast<const bf16*>(&sv),
+             *be = reinterpret_cast<const bf16*>(&bv);
+  uint4 y;
+  bf16* ye = reinterpret_cast<bf16*>(&y);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float t = __fmul_rn(__fsub_rn(__bfloat162float(e[i]), mu), rstd);
+    ye[i] = __float2bfloat16_rn(
+        __fadd_rn(__fmul_rn(t, __bfloat162float(se[i])), __bfloat162float(be[i])));
+  }
+  return y;
+}
+
 // ---------------------------------------------------------------------------
 // The products.
 // ---------------------------------------------------------------------------
@@ -132,85 +224,71 @@ inline size_t product_smem_bytes(int bn, int chunks) {
   return (size_t)kAlign + (size_t)chunks * kChunk * (kTileRows + bn) * sizeof(bf16);
 }
 
-// The resident A tile (64 rows x K, K / 64 panels) LayerNormed in place, as
-// models/vit.py::layer_norm computes it over the d true columns (d <= K; the
-// K - d past them are the zero padding of the residual stream): mean =
-// sum(x) / d, var = sum((x - mean)^2) / d (a sum divided, as torch's mean is
-// on the CPU), y = (x - mean) . (1 / sqrt(var + eps)), then y . scale +
-// bias, every operation rounded on its own (no contraction), and one
-// rounding to bf16.  A padded column adds nothing to either sum (its
-// (0 - mean)^2 would: it is masked), and its scale and bias are zeros, so
-// it comes out 0.  With d = K the mask is always true and the arithmetic is
-// the unpadded one's.  Eight lanes a row, four rows a warp at a time; lane
-// c holds 16-byte chunk c of every panel.  Rows past M are zeros and come
-// out as the LN bias: the epilogue drops them.
+// The resident A tile (64 rows x K, K / 64 panels) LayerNormed in place over
+// the d true columns (d <= K; the K - d past them are the zero padding of
+// the residual stream): row_stats, then layer_norm8 on each chunk.  A padded
+// column's scale and bias are zeros, so it comes out 0; with d = K the
+// arithmetic is the unpadded one's.  Eight lanes a row, four rows a warp at
+// a time; lane c holds 16-byte chunk c of every panel.  Rows past M are
+// zeros and come out as the LN bias: the epilogue drops them.
 __device__ __forceinline__ void layer_norm_tile(unsigned char* tile, const bf16* __restrict__ s,
                                                 const bf16* __restrict__ b, int K, int d) {
   using TA = mma::Tile<64>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = lane & 7, panels = K / kChunk;
   constexpr int kPanelBytes = TA::bytes(kTileRows);
-  const float k = (float)d;
   for (int r = warp * 16 + (lane >> 3); r < warp * 16 + 16; r += 4) {
     unsigned char* row = tile + TA::offset(r, c);
-    float sum = 0.f;
-    for (int p = 0; p < panels; ++p) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + p * kPanelBytes);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (p * kChunk + c * 8 + i < d) sum = __fadd_rn(sum, __bfloat162float(e[i]));
-    }
-    const float mu = __fdiv_rn(group8_sum(sum), k);
-    float var = 0.f;
-    for (int p = 0; p < panels; ++p) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + p * kPanelBytes);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (p * kChunk + c * 8 + i >= d) continue;
-        const float t = __fsub_rn(__bfloat162float(e[i]), mu);
-        var = __fadd_rn(var, __fmul_rn(t, t));
-      }
-    }
-    const float rstd = rsqrt_rn(__fadd_rn(__fdiv_rn(group8_sum(var), k), kLnEps));
+    const float2 st = row_stats<bf16>(
+        [&](int p) { return *reinterpret_cast<const uint4*>(row + p * kPanelBytes); }, panels, c,
+        d);
     for (int p = 0; p < panels; ++p) {
       uint4* at = reinterpret_cast<uint4*>(row + p * kPanelBytes);
-      const uint4 v = *at;
-      const uint4 sv = *reinterpret_cast<const uint4*>(s + p * kChunk + c * 8);
-      const uint4 bv = *reinterpret_cast<const uint4*>(b + p * kChunk + c * 8);
-      const bf16 *e = reinterpret_cast<const bf16*>(&v), *se = reinterpret_cast<const bf16*>(&sv),
-                 *be = reinterpret_cast<const bf16*>(&bv);
-      uint4 y;
-      bf16* ye = reinterpret_cast<bf16*>(&y);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float t = __fmul_rn(__fsub_rn(__bfloat162float(e[i]), mu), rstd);
-        ye[i] = __float2bfloat16_rn(
-            __fadd_rn(__fmul_rn(t, __bfloat162float(se[i])), __bfloat162float(be[i])));
-      }
-      *at = y;
+      *at = layer_norm8(*at, st.x, st.y, *reinterpret_cast<const uint4*>(s + p * kChunk + c * 8),
+                        *reinterpret_cast<const uint4*>(b + p * kChunk + c * 8));
     }
+  }
+}
+
+// One landed chunk of the streamed form (a 64 x 64 panel at `slot`, K
+// columns [k0, k0 + 64) of A) LayerNormed in place: thread i holds chunk
+// column i % 8 of rows i / 8 + 16 j, j < 4, whose statistics are st[j];
+// s and b point at the chunk's 64 columns of the scale and bias.
+__device__ __forceinline__ void layer_norm_chunk(unsigned char* slot, const bf16* __restrict__ s,
+                                                 const bf16* __restrict__ b,
+                                                 const float2 (&st)[4]) {
+  using TA = mma::Tile<64>;
+  const int c = threadIdx.x & 7;
+  const uint4 sv = *reinterpret_cast<const uint4*>(s + c * 8);
+  const uint4 bv = *reinterpret_cast<const uint4*>(b + c * 8);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint4* at = reinterpret_cast<uint4*>(slot + TA::offset((threadIdx.x >> 3) + 16 * j, c));
+    *at = layer_norm8(*at, st[j].x, st[j].y, sv, bv);
   }
 }
 
 // A: (M, K) row-major; W: (K, N) row-major; C: (M, N), which may alias the
 // residual (EPI == kEpiResidual reads C before writing it, element by element
-// in the same thread).  K is a multiple of 64, N of BN.  LN: K / 64 slots,
-// every chunk resident, the LayerNorm over the first ln_dim columns of A
-// (layer_norm_tile); else kRing slots, ln_dim unread.
-template <int BN, int EPI, bool LN>
+// in the same thread).  K is a multiple of 64, N of BN.  LN == kLnResident:
+// K / 64 slots, every chunk resident, the LayerNorm over the first ln_dim
+// columns of A (layer_norm_tile); kLnStreamed: kRing slots, each chunk
+// LayerNormed as it lands (layer_norm_chunk) with the rows' (mean, rstd)
+// from stats (row_stats_kernel over the same ln_dim columns); kLnNone:
+// kRing slots, ln_dim, ln_s, ln_b and stats unread.
+template <int BN, int EPI, int LN>
 __global__ void __launch_bounds__(kThreads)
 product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                const bf16* __restrict__ bias, const bf16* __restrict__ ln_s,
-               const bf16* __restrict__ ln_b, bf16* C, int M, int N, int K, int ln_dim) {
+               const bf16* __restrict__ ln_b, const float2* __restrict__ stats, bf16* C, int M,
+               int N, int K, int ln_dim) {
   using TA = mma::Tile<64>;
   using TB = mma::Tile<BN>;
   constexpr int kRegs = TB::kPanelCols / 2;   // accumulators a thread holds a panel
   extern __shared__ __align__(16) unsigned char raw[];
   unsigned char* a_ptr = aligned_smem(raw);
   const int chunks = K / kChunk;
-  const int slots = LN ? chunks : kRing;
+  const int slots = LN == kLnResident ? chunks : kRing;
   const uint32_t a_ring = mma::smem_addr(a_ptr);
   const uint32_t b_ring = a_ring + slots * TA::bytes(kTileRows);
   const int m0 = blockIdx.y * kTileRows, n0 = blockIdx.x * BN;
@@ -263,7 +341,7 @@ product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     }
   };
 
-  if constexpr (LN) {
+  if constexpr (LN == kLnResident) {
     for (int c = 0; c < chunks; ++c) load(c);
     mma::cp_async_commit();
     mma::cp_async_wait<0>();
@@ -273,13 +351,26 @@ product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     __syncthreads();
     for (int c = 0; c < chunks; ++c) product(c);
   } else {
+    float2 st[4];                             // kLnStreamed: my rows' (mean, rstd)
+    if constexpr (LN == kLnStreamed) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = m0 + (threadIdx.x >> 3) + 16 * j;
+        st[j] = row < M ? stats[row] : make_float2(0.f, 0.f);
+      }
+    }
     for (int c = 0; c < kRing - 1; ++c) {     // a group a chunk, empty past the end
       if (c < chunks) load(c);
       mma::cp_async_commit();
     }
     for (int c = 0; c < chunks; ++c) {
       mma::cp_async_wait<kRing - 2>();        // chunk c has landed
-      mma::fence_async_proxy();
+      if constexpr (LN == kLnStreamed) {
+        __syncthreads();                      // ... for all
+        layer_norm_chunk(a_ptr + (c % slots) * TA::bytes(kTileRows), ln_s + c * kChunk,
+                         ln_b + c * kChunk, st);
+      }
+      mma::fence_async_proxy();               // generic writes -> the tensor cores' reads
       __syncthreads();                        // ... for all; slot of chunk c - 1 is free
       if (c + kRing - 1 < chunks) load(c + kRing - 1);
       mma::cp_async_commit();

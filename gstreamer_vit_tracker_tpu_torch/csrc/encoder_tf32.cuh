@@ -28,13 +28,25 @@
 //     and the second's sums are added to the first's before the epilogue
 //     (the flagship's float32 encode on an H100 at 700 W: 602 us against
 //     763 with one warpgroup, attention included; profile_encoder.py).
-//   * LN (qkv, mlp1; K = D): the CTA's 64 rows of A are resident, copied with
-//     the LN scale and bias and the first W chunk, and LayerNormed in place
+//   * LN resident (qkv, mlp1; K = the residual width W, D rounded up to a
+//     multiple of 32): the CTA's 64 rows of A are resident, copied with the
+//     LN scale and bias and the first W chunk, and LayerNormed in place
 //     before the first product: eight lanes a row, the mean as the f32 sum
-//     divided by K, then the mean of (x - mu)^2 the same way, 1 / sqrt
-//     correctly rounded, (x - mu) . rstd . scale + bias with every operation
-//     rounded on its own (the twin's roundings: models/vit.py::layer_norm,
-//     eps 1e-6).
+//     over the D true columns divided by D, then the mean of (x - mu)^2 the
+//     same way (encoder_mma.cuh's row_stats), 1 / sqrt correctly rounded,
+//     (x - mu) . rstd . scale + bias with every operation rounded on its own
+//     (the twin's roundings: models/vit.py::layer_norm, eps 1e-6).  Its
+//     shared memory grows with K, 64 . (K + 4) . 4 bytes of rows alone: the
+//     H100's 232,448 a block hold it up to K = 544 at N 32 and two
+//     warpgroups.
+//   * LN streamed (the same products where the resident form does not fit):
+//     a launch of row_stats_kernel<float> before the product takes each
+//     row's mean and rstd with the resident form's arithmetic in its order;
+//     the A chunk walks the ring as without LN, with the chunk's 32 columns
+//     of the scale and bias beside it, and each A element is LayerNormed as
+//     its fragment is loaded (load_a_ln), with the resident form's
+//     roundings, before the split.  Its shared memory is the ring's, for
+//     any K, and its LN output equals the resident form's bit for bit.
 //   * no LN (proj, mlp2; K = the inner width E or the MLP width): the A chunk
 //     walks the ring with the W chunk.  E is a multiple of 8 and may not be
 //     one of 32: a chunk past K reads zeros, which add exactly.
@@ -81,7 +93,11 @@ constexpr int kThreads = 128;   // one warpgroup
 constexpr int kRows = 64;       // rows a product CTA: 4 warps of 16
 constexpr int kChunk = 32;      // K a chunk
 constexpr int kALd = kChunk + 4;   // floats of an A row of a ring slot
-constexpr int kMaxDim = 512;    // D at most: the LN products hold 64 rows of it
+constexpr int kSbSlot = 2 * kChunk;   // floats of a streamed slot's scale and bias
+
+using encoder_mma::kLnNone;
+using encoder_mma::kLnResident;
+using encoder_mma::kLnStreamed;
 
 // Floats of a W tile row (BN + 8: row t, column g of a fragment falls in
 // bank 8t + g), of one plane of a W chunk, and of an LN product's resident
@@ -95,12 +111,15 @@ __host__ __device__ constexpr int ln_ld(int k) { return k + 4; }
 __host__ __device__ constexpr int ring(int bn) { return bn == 64 ? 3 : 4; }
 
 // Dynamic shared memory of one product CTA of `nwg` warpgroups: the A tile
-// (LN: 64 resident rows of K, and the LN scale and bias; else a chunk a
-// slot of each warpgroup's ring) and a W chunk of two planes a slot.
-inline size_t product_smem_bytes(int bn, bool ln, int k, int nwg) {
+// (LN resident: 64 rows of K, and the LN scale and bias; else a chunk a slot
+// of each warpgroup's ring), a W chunk of two planes a slot, and for LN
+// streamed the chunk's scale and bias a slot.
+inline size_t product_smem_bytes(int bn, int ln, int k, int nwg) {
   const size_t slots = (size_t)nwg * ring(bn);
-  const size_t a = ln ? (size_t)kRows * ln_ld(k) + 2 * k : slots * kRows * kALd;
-  return (a + slots * 2 * w_plane(bn)) * sizeof(float);
+  const size_t a = ln == kLnResident ? (size_t)kRows * ln_ld(k) + 2 * k
+                                     : slots * kRows * kALd;
+  const size_t sb = ln == kLnStreamed ? slots * kSbSlot : 0;
+  return (a + slots * 2 * w_plane(bn) + sb) * sizeof(float);
 }
 
 // Barrier of warpgroup `wg` alone (ids 1 and 2; 0 is __syncthreads).
@@ -115,6 +134,26 @@ __device__ __forceinline__ tf::FragA load_a(const float* p, int ld) {
   tf::split(p[8 * ld], a.hi[1], a.lo[1]);
   tf::split(p[4], a.hi[2], a.lo[2]);
   tf::split(p[8 * ld + 4], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// x LayerNormed with its row's (mu, rstd) and its column's scale s and bias
+// b: (x - mu) . rstd . s + b, every operation rounded on its own.
+__device__ __forceinline__ float layer_norm1(float x, float mu, float rstd, float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rstd), s), b);
+}
+
+// load_a of the streamed form: each element LayerNormed (layer_norm1) before
+// the split, rows g and g + 8 with st[0] and st[1], columns t and t + 4
+// with the scale at sb[0] and sb[4] and the bias kChunk floats after it.
+__device__ __forceinline__ tf::FragA load_a_ln(const float* p, int ld, const float2 (&st)[2],
+                                               const float* sb) {
+  tf::FragA a;
+  tf::split(layer_norm1(p[0], st[0].x, st[0].y, sb[0], sb[kChunk]), a.hi[0], a.lo[0]);
+  tf::split(layer_norm1(p[8 * ld], st[1].x, st[1].y, sb[0], sb[kChunk]), a.hi[1], a.lo[1]);
+  tf::split(layer_norm1(p[4], st[0].x, st[0].y, sb[4], sb[kChunk + 4]), a.hi[2], a.lo[2]);
+  tf::split(layer_norm1(p[8 * ld + 4], st[1].x, st[1].y, sb[4], sb[kChunk + 4]), a.hi[3],
+            a.lo[3]);
   return a;
 }
 
@@ -152,47 +191,32 @@ __device__ __forceinline__ void fill_w(int tid, uint32_t dst, const float* W, in
 }
 
 // The resident tile's 64 rows (ld floats apart, K wide, K a multiple of 32)
-// LayerNormed in place with the scale s and bias b (shared memory, K each),
-// as models/vit.py::layer_norm rounds it: the mean as
-// the f32 sum divided by K, then the mean of (x - mu)^2 the same way, 1 /
-// sqrt correctly rounded, (x - mu) . rstd . scale + bias with every
-// operation rounded on its own.  Eight lanes a row, four rows a warp at a
-// time, the CTA's `warps` warps taking 64 / warps rows each; lane c holds
-// the 16-byte chunks c, c + 8, ... of its row.  Rows past M are zeros and
-// come out as the LN bias: the epilogue drops them.
+// LayerNormed in place over their d true columns (d <= K; the K - d past
+// them are the zero padding of the residual stream) with the scale s and
+// bias b (shared memory, K each, zero past d), as models/vit.py::layer_norm
+// rounds it: encoder_mma.cuh's row_stats (the f32 sums over the d columns
+// divided by d, 1 / sqrt correctly rounded), then layer_norm1.  With d = K
+// the arithmetic is the unpadded one's.  Eight lanes a row, four rows a
+// warp at a time, the CTA's `warps` warps taking 64 / warps rows each; lane
+// c holds the 16-byte chunks c, c + 8, ... of its row.  Rows past M are
+// zeros and come out as the LN bias: the epilogue drops them.
 __device__ __forceinline__ void layer_norm_rows(float* tile, int ld, const float* s,
-                                                const float* b, int K, int warps) {
+                                                const float* b, int K, int d, int warps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = 4 * (lane & 7), rows = kRows / warps;
-  const float k = (float)K;
   for (int r = warp * rows + (lane >> 3); r < warp * rows + rows; r += 4) {
     float* row = tile + r * ld;
-    float sum = 0.f;
-    for (int i = c; i < K; i += 32) {
-      const float4 v = *reinterpret_cast<const float4*>(row + i);
-      sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sum, v.x), v.y), v.z), v.w);
-    }
-    const float mu = __fdiv_rn(encoder_mma::group8_sum(sum), k);
-    float var = 0.f;
-    for (int i = c; i < K; i += 32) {
-      const float4 v = *reinterpret_cast<const float4*>(row + i);
-      const float t0 = __fsub_rn(v.x, mu), t1 = __fsub_rn(v.y, mu);
-      const float t2 = __fsub_rn(v.z, mu), t3 = __fsub_rn(v.w, mu);
-      var = __fadd_rn(var, __fmul_rn(t0, t0));
-      var = __fadd_rn(var, __fmul_rn(t1, t1));
-      var = __fadd_rn(var, __fmul_rn(t2, t2));
-      var = __fadd_rn(var, __fmul_rn(t3, t3));
-    }
-    const float rstd = encoder_mma::rsqrt_rn(
-        __fadd_rn(__fdiv_rn(encoder_mma::group8_sum(var), k), encoder_mma::kLnEps));
+    const float2 st = encoder_mma::row_stats<float>(
+        [&](int p) { return *reinterpret_cast<const uint4*>(row + 32 * p + c); }, K / 32,
+        lane & 7, d);
     for (int i = c; i < K; i += 32) {
       float4 v = *reinterpret_cast<const float4*>(row + i);
       const float4 sv = *reinterpret_cast<const float4*>(s + i);
       const float4 bv = *reinterpret_cast<const float4*>(b + i);
-      v.x = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.x, mu), rstd), sv.x), bv.x);
-      v.y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.y, mu), rstd), sv.y), bv.y);
-      v.z = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.z, mu), rstd), sv.z), bv.z);
-      v.w = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.w, mu), rstd), sv.w), bv.w);
+      v.x = layer_norm1(v.x, st.x, st.y, sv.x, bv.x);
+      v.y = layer_norm1(v.y, st.x, st.y, sv.y, bv.y);
+      v.z = layer_norm1(v.z, st.x, st.y, sv.z, bv.z);
+      v.w = layer_norm1(v.w, st.x, st.y, sv.w, bv.w);
       *reinterpret_cast<float4*>(row + i) = v;
     }
   }
@@ -200,37 +224,50 @@ __device__ __forceinline__ void layer_norm_rows(float* tile, int ld, const float
 
 // A: (M, K) row-major; W: two planes (hi, lo) of (K, N) row-major; C: (M,
 // N), which may alias the residual (EPI == kEpiResidual reads C before
-// writing it, element by element in the same thread).  LN: K = D, a multiple
-// of 32 up to kMaxDim; else K a multiple of 8.  N a multiple of 8.  NWG
-// warpgroups: warpgroup w takes chunks w, w + NWG, ... through a ring of its
-// own (synchronised by its own barrier) and the sums are added at the end.
-template <int BN, int EPI, bool LN, int NWG>
+// writing it, element by element in the same thread).  LN (kLnResident,
+// kLnStreamed): K = W, a multiple of 32, the LayerNorm over the first ln_dim
+// columns of A (streamed: the rows' (mean, rstd) read from stats,
+// row_stats_kernel's over the same columns); kLnNone: K a multiple of 8,
+// ln_dim, ln_s, ln_b and stats unread.  N a multiple of 8.  NWG warpgroups:
+// warpgroup w takes chunks w, w + NWG, ... through a ring of its own
+// (synchronised by its own barrier) and the sums are added at the end.
+template <int BN, int EPI, int LN, int NWG>
 __global__ void __launch_bounds__(kThreads * NWG)
 product_kernel(const float* __restrict__ A, const float* __restrict__ W,
                const float* __restrict__ bias, const float* __restrict__ ln_s,
-               const float* __restrict__ ln_b, float* C, int M, int N, int K) {
+               const float* __restrict__ ln_b, const float2* __restrict__ stats, float* C,
+               int M, int N, int K, int ln_dim) {
   constexpr int kTiles = BN / 8;               // n tiles a warp
   constexpr int kRing = ring(BN);
+  constexpr bool kResident = LN == kLnResident, kStreamed = LN == kLnStreamed;
   extern __shared__ __align__(16) float smem[];
-  const int a_ld = LN ? ln_ld(K) : kALd;
+  const int a_ld = kResident ? ln_ld(K) : kALd;
   const int wg = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
-  float* a_tile = smem;                        // LN: resident; else [NWG][kRing] chunks
-  float* ln_sb = smem + kRows * a_ld;          // LN: scale, then bias
-  float* w_ring = smem + (LN ? kRows * a_ld + 2 * K : NWG * kRing * kRows * kALd);
+  float* a_tile = smem;                        // resident; else [NWG][kRing] chunks
+  float* ln_sb = smem + kRows * a_ld;          // resident: scale, then bias
+  float* w_ring = smem + (kResident ? kRows * a_ld + 2 * K : NWG * kRing * kRows * kALd);
+  float* sb_ring = w_ring + NWG * kRing * 2 * w_plane(BN);   // streamed: [NWG][kRing] s, b
   float* a_mine = a_tile + wg * kRing * kRows * kALd;
   float* w_mine = w_ring + wg * kRing * 2 * w_plane(BN);
+  float* sb_mine = sb_ring + wg * kRing * kSbSlot;
   const int m0 = blockIdx.y * kRows, n0 = blockIdx.x * BN;
   const int chunks = (K + kChunk - 1) / kChunk;
   const int mine = (chunks - wg + NWG - 1) / NWG;   // chunks wg, wg + NWG, ...
 
   const auto load = [&](int i) {               // my i-th chunk into slot i % kRing
     const int slot = i % kRing, k0 = (i * NWG + wg) * kChunk;
-    if constexpr (!LN)
+    if constexpr (!kResident)
       fill_a(tid, kThreads, mma::smem_addr(a_mine + slot * kRows * kALd), A, M, K, m0, k0,
              kChunk, kALd);
+    if constexpr (kStreamed) {                 // the chunk's scale, then its bias
+      if (tid < kSbSlot / 4) {
+        const float* src = tid < kChunk / 4 ? ln_s + k0 + 4 * tid : ln_b + k0 + 4 * tid - kChunk;
+        mma::cp_async16(mma::smem_addr(sb_mine + slot * kSbSlot + 4 * tid), src);
+      }
+    }
     fill_w<BN>(tid, mma::smem_addr(w_mine + slot * 2 * w_plane(BN)), W, K, N, k0, n0);
   };
-  if constexpr (LN) {
+  if constexpr (kResident) {
     fill_a(threadIdx.x, kThreads * NWG, mma::smem_addr(a_tile), A, M, K, m0, 0, K, a_ld);
     for (int i = threadIdx.x; i < K / 2; i += kThreads * NWG) {   // 16-byte pieces of s, b
       const float* src = i < K / 4 ? ln_s + 4 * i : ln_b + 4 * i - K;
@@ -241,15 +278,23 @@ product_kernel(const float* __restrict__ A, const float* __restrict__ W,
     if (i < mine) load(i);
     mma::cp_async_commit();
   }
-  if constexpr (LN) {
+  if constexpr (kResident) {
     mma::cp_async_wait<kRing - 2>();           // A, s, b and my first chunk have landed
     __syncthreads();
-    layer_norm_rows(a_tile, a_ld, ln_sb, ln_sb + K, K, 4 * NWG);
+    layer_norm_rows(a_tile, a_ld, ln_sb, ln_sb + K, K, ln_dim, 4 * NWG);
     __syncthreads();
   }
 
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  float2 st[2];                                // streamed: rows g and g + 8's (mean, rstd)
+  if constexpr (kStreamed) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + warp * 16 + g + 8 * h;
+      st[h] = row < M ? stats[row] : make_float2(0.f, 0.f);
+    }
+  }
   float acc[kTiles][4];
 #pragma unroll
   for (int j = 0; j < kTiles; ++j)
@@ -262,8 +307,9 @@ product_kernel(const float* __restrict__ A, const float* __restrict__ W,
     if (i + kRing - 1 < mine) load(i + kRing - 1);
     mma::cp_async_commit();
     const int slot = i % kRing, c = i * NWG + wg;
-    const float* a = LN ? a_tile + (warp * 16 + g) * a_ld + c * kChunk + t
-                        : a_mine + slot * kRows * kALd + (warp * 16 + g) * kALd + t;
+    const float* a = kResident ? a_tile + (warp * 16 + g) * a_ld + c * kChunk + t
+                               : a_mine + slot * kRows * kALd + (warp * 16 + g) * kALd + t;
+    const float* sb = sb_mine + slot * kSbSlot + t;
     const float* w_hi = w_mine + slot * 2 * w_plane(BN) + t * w_ld(BN) + g;
     const float* w_lo = w_hi + w_plane(BN);
     float part[2][kTiles][4];                  // this chunk's even and odd steps
@@ -275,7 +321,9 @@ product_kernel(const float* __restrict__ A, const float* __restrict__ W,
         for (int q = 0; q < 4; ++q) part[e][j][q] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kChunk; kk += 8) {
-      const tf::FragA fa = load_a(a + kk, a_ld);
+      tf::FragA fa;
+      if constexpr (kStreamed) fa = load_a_ln(a + kk, a_ld, st, sb + kk);
+      else fa = load_a(a + kk, a_ld);
       tf::FragB fb[kTiles];
 #pragma unroll
       for (int j = 0; j < kTiles; ++j) {       // b0 (k = t, n = g), b1 (k = t + 4)

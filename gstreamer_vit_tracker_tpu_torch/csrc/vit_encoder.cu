@@ -23,18 +23,29 @@
 // Three variants (ops/vit_block.py::plan names one and passes it in with the
 // N tiles as ints; the entries launch what they are told or return an
 // error; nothing falls back): "mma" for bf16, "tf32x3" for float32, and
-// "simt" for a float32 width "tf32x3" does not take (and by name, as the
-// yardstick of the timings).  The head dim the kernels run at (head_dim) may
-// exceed the true one, D / H: the plan zero-pads a head dim no variant takes
+// "simt" for float32 by name only, as the yardstick of the timings.  The
+// head dim the kernels run at (head_dim) may exceed the true one, D / H: the
+// plan zero-pads a head dim no variant takes
 // (the qkv weight and bias get zero columns a head, the proj weight zero rows
 // a head, so the inner width E = H . head_dim), and the scores are scaled by
 // the true head dim's (D / H)^-1/2.  Zeros add exactly to an f32 sum, so a
 // padded head computes what the unpadded one does.
 //
-// "mma" (bf16, head dim 32 / 64 / 128, D up to 768): five launches a block,
-// the tiles of encoder_mma.cuh:
+// "mma" (bf16, head dim 32 / 64 / 128, any D): five launches a block, the
+// tiles of encoder_mma.cuh:
 //   1. LN1 + qkv  2. attention  3. proj + residual  4. LN2 + mlp1 + GELU
 //   5. mlp2 + residual; each product's N tile (32 or 64) as the plan says.
+// The LN products come in two forms (Config::ln, the plan's choice from the
+// shape alone).  Resident: the CTA's 64 rows of the residual stream sit in
+// shared memory whole, 1024 + W / 64 . 64 . (64 + N tile) . 2 bytes, which
+// the H100's 232,448 a block bound: W up to 1152 at N tile 32, 896 at 64
+// (the flagship, D 192, and every width up to 768 at the plan's tiles).
+// Streamed, past that: a row_stats_kernel launch before each LN product
+// takes the rows' mean and rstd (the resident form's arithmetic and order,
+// into the scratch `stats`), and the product walks K through its ring of
+// three 64-deep chunks, each LayerNormed in place as it lands: 50 KB at N
+// tile 64 for any W, seven launches a block, and the same LN output bit for
+// bit.  What bounds either is the weights and the operations, as below.
 // Its products take K in 64-deep chunks, so a D or an MLP width that is no
 // multiple of 64 runs zero-padded to the next one (the `small` architecture
 // in bf16: D 96 -> W 128).  The plan pads the weights once per parameter
@@ -52,8 +63,13 @@
 // exactly to an f32 sum, so a padded block computes what an unpadded one
 // would, and D already a multiple of 64 (the flagship) pads nothing.
 //
-// "tf32x3" (float32, head dims that are multiples of 8 up to 128, D up to
-// 512 and the MLP width multiples of 32): the same five launches a block, the
+// "tf32x3" (float32, head dims that are multiples of 8 up to 128, any D and
+// MLP width, each zero-padded to a multiple of 32 as "mma" pads to 64: the
+// residual stream carried at the padded width W, the LN statistics over the
+// true D, the hi / lo planes split after the pad): the same five launches
+// a block (seven where the LN products stream: resident while 64 rows of W
+// fit, W up to 544 at N tile 32 and two warpgroups; streamed past it, a
+// ring slot holding the chunk's LN scale and bias beside A), the
 // tiles of encoder_tf32.cuh: products on the tensor cores in split TF32
 // (mma.sync m16n8k8, each operand as hi + lo TF32 parts, lo.hi + hi.lo +
 // hi.hi into one f32 accumulator: float32's accuracy, not TF32's), the
@@ -74,7 +90,8 @@
 // and is left for later.
 //
 // "simt" (float32, head dims that are multiples of 16 up to 128; this
-// file's first design): seven launches a block on the FMA units, f32
+// file's first design, run by name only, the yardstick of "tf32x3"): seven
+// launches a block on the FMA units, f32
 // arithmetic (no TF32, so the f32 presets stay f32):
 //   * layer_norm_kernel: one warp per row, the twin's roundings;
 //   * gemm_bias_kernel: 64x64x32 tiles, 4 warps; tiles move as 16-byte
@@ -409,12 +426,14 @@ Weights layer_weights(const Weights& w, int l, int D, int E, int hidden, int dty
 // the N tile of the qkv, proj, mlp1 and mlp2 products ("mma" 32 or 64,
 // "tf32x3" 16, 32 or 64); for "tf32x3" the warpgroups a CTA, 1 or 2 (2 at
 // batch 1): the attention's share a query tile's key blocks (head dims up
-// to 64), a product's of N tile 16 or 32 its K.  "simt" reads neither,
-// "mma" not the warpgroups.
+// to 64), a product's of N tile 16 or 32 its K; for both the form of the LN
+// products, 0 resident or 1 streamed.  "simt" reads none of them, "mma"
+// not the warpgroups.
 struct Config {
   int variant;
   int bn[4];
   int warpgroups;
+  int ln;
 };
 
 constexpr int kMaxDevices = 64;
@@ -437,31 +456,60 @@ cudaError_t allow_smem(K kernel, int (&allowed)[kMaxDevices], size_t smem) {
   return cudaSuccess;
 }
 
-template <int BN, int EPI, bool LN>
+using encoder_mma::kLnNone;
+using encoder_mma::kLnResident;
+using encoder_mma::kLnStreamed;
+
+// The streamed form's statistics of the M rows of A ((M, K), T) over their
+// first ln_dim columns into stats: one launch, 16 rows a CTA.
+template <typename T>
+cudaError_t launch_row_stats(const T* A, float2* stats, int M, int K, int ln_dim,
+                             cudaStream_t st) {
+  constexpr int kRowsACta = mma::kThreads / 8;
+  encoder_mma::row_stats_kernel<T>
+      <<<(M + kRowsACta - 1) / kRowsACta, mma::kThreads, 0, st>>>(A, stats, M, K, ln_dim);
+  return cudaGetLastError();
+}
+
+template <int BN, int EPI, int LN>
 cudaError_t product_bn(const bf16* A, const bf16* W, const bf16* bias, const bf16* ln_s,
-                       const bf16* ln_b, bf16* C, int M, int N, int K, int ln_dim,
-                       cudaStream_t st) {
+                       const bf16* ln_b, const float2* stats, bf16* C, int M, int N, int K,
+                       int ln_dim, cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
   const auto kernel = encoder_mma::product_kernel<BN, EPI, LN>;
-  const size_t smem =
-      encoder_mma::product_smem_bytes(BN, LN ? K / encoder_mma::kChunk : encoder_mma::kRing);
+  const size_t smem = encoder_mma::product_smem_bytes(
+      BN, LN == kLnResident ? K / encoder_mma::kChunk : encoder_mma::kRing);
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   const dim3 grid(N / BN, (M + mma::kTileRows - 1) / mma::kTileRows);
-  kernel<<<grid, mma::kThreads, smem, st>>>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim);
+  kernel<<<grid, mma::kThreads, smem, st>>>(A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim);
   return cudaGetLastError();
 }
 
 // ln_dim: the true columns of A the LayerNorm runs over (LN products; K or
-// fewer, the rest zero padding).
-template <int EPI, bool LN>
+// fewer, the rest zero padding).  LN kLnStreamed launches row_stats_kernel into
+// stats first.
+template <int EPI, int LN>
 cudaError_t product(int bn, const bf16* A, const bf16* W, const bf16* bias, const bf16* ln_s,
-                    const bf16* ln_b, bf16* C, int M, int N, int K, int ln_dim,
+                    const bf16* ln_b, float2* stats, bf16* C, int M, int N, int K, int ln_dim,
                     cudaStream_t st) {
-  if (N % bn || K % encoder_mma::kChunk || (LN && (ln_dim < 1 || ln_dim > K)))
+  if (N % bn || K % encoder_mma::kChunk || (LN != kLnNone && (ln_dim < 1 || ln_dim > K)))
     return cudaErrorInvalidValue;
-  if (bn == 32) return product_bn<32, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim, st);
-  if (bn == 64) return product_bn<64, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim, st);
+  if (LN == kLnStreamed) RETURN_IF_ERROR(launch_row_stats(A, stats, M, K, ln_dim, st));
+  if (bn == 32)
+    return product_bn<32, EPI, LN>(A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
+  if (bn == 64)
+    return product_bn<64, EPI, LN>(A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
   return cudaErrorInvalidValue;
+}
+
+// An LN product in the form the plan named (Config::ln).
+template <int EPI>
+cudaError_t ln_product(int ln, int bn, const bf16* A, const bf16* W, const bf16* bias,
+                       const bf16* ln_s, const bf16* ln_b, float2* stats, bf16* C, int M, int N,
+                       int K, int ln_dim, cudaStream_t st) {
+  if (ln == 1)
+    return product<EPI, kLnStreamed>(bn, A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
+  return product<EPI, kLnResident>(bn, A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
 }
 
 template <int DH>
@@ -486,36 +534,51 @@ cudaError_t attention_mma_dh(int dh, const bf16* qkv, bf16* out, int B, int S, i
   }
 }
 
-template <int BN, int EPI, bool LN, int NWG>
+template <int BN, int EPI, int LN, int NWG>
 cudaError_t product_tf32_bn(const float* A, const float* W, const float* bias,
-                            const float* ln_s, const float* ln_b, float* C, int M, int N, int K,
-                            cudaStream_t st) {
+                            const float* ln_s, const float* ln_b, const float2* stats, float* C,
+                            int M, int N, int K, int ln_dim, cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
   const auto kernel = encoder_tf32::product_kernel<BN, EPI, LN, NWG>;
   const size_t smem = encoder_tf32::product_smem_bytes(BN, LN, K, NWG);
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   const dim3 grid((N + BN - 1) / BN, (M + encoder_tf32::kRows - 1) / encoder_tf32::kRows);
-  kernel<<<grid, encoder_tf32::kThreads * NWG, smem, st>>>(A, W, bias, ln_s, ln_b, C, M, N, K);
+  kernel<<<grid, encoder_tf32::kThreads * NWG, smem, st>>>(A, W, bias, ln_s, ln_b, stats, C, M,
+                                                           N, K, ln_dim);
   return cudaGetLastError();
 }
 
 // The N tiles built: 16 and 32, with K dealt to one or two warpgroups
-// (wgs), and 64 with one.
-template <int EPI, bool LN>
+// (wgs), and 64 with one.  LN kLnStreamed launches row_stats_kernel into stats
+// first.
+template <int EPI, int LN>
 cudaError_t product_tf32(int bn, int wgs, const float* A, const float* W, const float* bias,
-                         const float* ln_s, const float* ln_b, float* C, int M, int N, int K,
-                         cudaStream_t st) {
-  if (N % 8 || K % 8 || (LN && (K % encoder_tf32::kChunk || K > encoder_tf32::kMaxDim))
-      || (wgs != 1 && wgs != 2))
+                         const float* ln_s, const float* ln_b, float2* stats, float* C, int M,
+                         int N, int K, int ln_dim, cudaStream_t st) {
+  if (N % 8 || K % 8 || (wgs != 1 && wgs != 2)
+      || (LN != kLnNone && (K % encoder_tf32::kChunk || ln_dim < 1 || ln_dim > K)))
     return cudaErrorInvalidValue;
-  if (bn == 16)
-    return wgs == 1 ? product_tf32_bn<16, EPI, LN, 1>(A, W, bias, ln_s, ln_b, C, M, N, K, st)
-                    : product_tf32_bn<16, EPI, LN, 2>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
-  if (bn == 32)
-    return wgs == 1 ? product_tf32_bn<32, EPI, LN, 1>(A, W, bias, ln_s, ln_b, C, M, N, K, st)
-                    : product_tf32_bn<32, EPI, LN, 2>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
-  if (bn == 64) return product_tf32_bn<64, EPI, LN, 1>(A, W, bias, ln_s, ln_b, C, M, N, K, st);
+  if (LN == kLnStreamed) RETURN_IF_ERROR(launch_row_stats(A, stats, M, K, ln_dim, st));
+#define PRODUCT_TF32(BN, NWG)                                                              \
+  product_tf32_bn<BN, EPI, LN, NWG>(A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st)
+  if (bn == 16) return wgs == 1 ? PRODUCT_TF32(16, 1) : PRODUCT_TF32(16, 2);
+  if (bn == 32) return wgs == 1 ? PRODUCT_TF32(32, 1) : PRODUCT_TF32(32, 2);
+  if (bn == 64) return PRODUCT_TF32(64, 1);
+#undef PRODUCT_TF32
   return cudaErrorInvalidValue;
+}
+
+// An LN product of "tf32x3" in the form the plan named (Config::ln).
+template <int EPI>
+cudaError_t ln_product_tf32(int ln, int bn, int wgs, const float* A, const float* W,
+                            const float* bias, const float* ln_s, const float* ln_b,
+                            float2* stats, float* C, int M, int N, int K, int ln_dim,
+                            cudaStream_t st) {
+  if (ln == 1)
+    return product_tf32<EPI, kLnStreamed>(bn, wgs, A, W, bias, ln_s, ln_b, stats, C, M, N, K,
+                                          ln_dim, st);
+  return product_tf32<EPI, kLnResident>(bn, wgs, A, W, bias, ln_s, ln_b, stats, C, M, N, K,
+                                        ln_dim, st);
 }
 
 template <int DH, int NWG>
@@ -566,35 +629,39 @@ cudaError_t layer_norm(const T* x, const T* s, const T* b, T* y, int rows, int d
 
 // Everything a call checks before its first launch: the shape against the
 // variant, and the variant against the dtype; dh is the head dim the kernels
-// run at, D / H or more; W the residual width, D or ("mma") D zero-padded to
-// the next multiple of 64; hidden the MLP width of the weights (padded).
+// run at, D / H or more; W the residual width, D or D zero-padded to the
+// next multiple of 64 ("mma") or 32 ("tf32x3"); hidden the MLP width of the
+// weights (padded); ln the LN products' form.  A resident form whose rows do
+// not fit the card's shared memory fails at its launch (allow_smem).
 cudaError_t check(int variant, int dtype, int B, int S, int D, int W, int H, int dh,
-                  int hidden) {
-  if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || W < D
+                  int hidden, int ln) {
+  if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || W < D || (ln != 0 && ln != 1)
       || (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   bool ok = false;
   if (variant == kMma)
     ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128) && W % 64 == 0 && W - D < 64
-         && W <= 768 && hidden % 64 == 0;
+         && hidden % 64 == 0;
   else if (variant == kTf32x3)
-    ok = dtype == 0 && W == D && dh % 8 == 0 && dh <= kAttMaxDh && D % 32 == 0
-         && D <= encoder_tf32::kMaxDim && hidden % 32 == 0;
+    ok = dtype == 0 && dh % 8 == 0 && dh <= kAttMaxDh && W % 32 == 0 && W - D < 32
+         && hidden % 32 == 0;
   else if (variant == kSimt)
     ok = dtype == 0 && W == D && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // One pre-LN block in place on x (B * S rows of W, the residual width):
-// five launches (bf16: mma; float32: tf32x3) or seven (float32: simt).  w
+// five launches (bf16: mma; float32: tf32x3), seven where their LN products
+// stream (a statistics launch before each), or seven (float32: simt).  w
 // points at this block's weights; heads of dh (D / H, or a zero-padded one
 // above it) in an inner width E = H . dh; h (B * S, D) is read by simt
-// alone.  W = D but for "mma", whose LN products normalise the first D of
-// W columns.
+// alone, stats (B * S) by the streamed LN products.  W = D but for a padded
+// "mma" or "tf32x3" width, whose LN products normalise the first D of W
+// columns.
 template <typename T>
 cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, int H, int dh,
                            int hidden, const Config& c, T* hb, T* qkv, T* attn, T* hid,
-                           cudaStream_t st) {
+                           float2* stats, cudaStream_t st) {
   const int M = B * S, E = H * dh;
   const float scale = (float)(1.0 / sqrt((double)(D / H)));   // the true head dim's
   const auto p = [](const void* q) { return static_cast<const T*>(q); };
@@ -604,32 +671,36 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
       // Two warpgroups, where the plan says so, in the attention and in the
       // products of N tile 16 and 32 (N 64 is built with one).
       const auto ks = [&](int bn) { return bn == 64 ? 1 : c.warpgroups; };
-      RETURN_IF_ERROR((product_tf32<kEpiRound, true>(c.bn[0], ks(c.bn[0]), x, p(w.w_qkv),
-                                                     p(w.b_qkv), p(w.ln1_s), p(w.ln1_b), qkv,
-                                                     M, 3 * E, D, st)));
+      RETURN_IF_ERROR(ln_product_tf32<kEpiRound>(c.ln, c.bn[0], ks(c.bn[0]), x, p(w.w_qkv),
+                                                 p(w.b_qkv), p(w.ln1_s), p(w.ln1_b), stats,
+                                                 qkv, M, 3 * E, W, D, st));
       RETURN_IF_ERROR(attention_tf32_dh(dh, c.warpgroups, qkv, attn, B, S, H, log2e_scale,
                                         st));
-      RETURN_IF_ERROR((product_tf32<kEpiResidual, false>(c.bn[1], ks(c.bn[1]), attn,
-                                                         p(w.w_proj), p(w.b_proj), nullptr,
-                                                         nullptr, x, M, D, E, st)));
-      RETURN_IF_ERROR((product_tf32<kEpiGelu, true>(c.bn[2], ks(c.bn[2]), x, p(w.w_mlp1),
-                                                    p(w.b_mlp1), p(w.ln2_s), p(w.ln2_b), hid,
-                                                    M, hidden, D, st)));
-      return product_tf32<kEpiResidual, false>(c.bn[3], ks(c.bn[3]), hid, p(w.w_mlp2),
-                                               p(w.b_mlp2), nullptr, nullptr, x, M, D, hidden,
-                                               st);
+      RETURN_IF_ERROR((product_tf32<kEpiResidual, kLnNone>(c.bn[1], ks(c.bn[1]), attn,
+                                                           p(w.w_proj), p(w.b_proj), nullptr,
+                                                           nullptr, nullptr, x, M, W, E, 0,
+                                                           st)));
+      RETURN_IF_ERROR(ln_product_tf32<kEpiGelu>(c.ln, c.bn[2], ks(c.bn[2]), x, p(w.w_mlp1),
+                                                p(w.b_mlp1), p(w.ln2_s), p(w.ln2_b), stats,
+                                                hid, M, hidden, W, D, st));
+      return product_tf32<kEpiResidual, kLnNone>(c.bn[3], ks(c.bn[3]), hid, p(w.w_mlp2),
+                                                 p(w.b_mlp2), nullptr, nullptr, nullptr, x, M,
+                                                 W, hidden, 0, st);
     }
   }
   if constexpr (std::is_same<T, bf16>::value) {
-    RETURN_IF_ERROR((product<kEpiRound, true>(c.bn[0], x, p(w.w_qkv), p(w.b_qkv), p(w.ln1_s),
-                                              p(w.ln1_b), qkv, M, 3 * E, W, D, st)));
+    RETURN_IF_ERROR(ln_product<kEpiRound>(c.ln, c.bn[0], x, p(w.w_qkv), p(w.b_qkv),
+                                          p(w.ln1_s), p(w.ln1_b), stats, qkv, M, 3 * E, W, D,
+                                          st));
     RETURN_IF_ERROR(attention_mma_dh(dh, qkv, attn, B, S, H, scale, st));
-    RETURN_IF_ERROR((product<kEpiResidual, false>(c.bn[1], attn, p(w.w_proj), p(w.b_proj),
-                                                  nullptr, nullptr, x, M, W, E, 0, st)));
-    RETURN_IF_ERROR((product<kEpiGelu, true>(c.bn[2], x, p(w.w_mlp1), p(w.b_mlp1), p(w.ln2_s),
-                                             p(w.ln2_b), hid, M, hidden, W, D, st)));
-    return product<kEpiResidual, false>(c.bn[3], hid, p(w.w_mlp2), p(w.b_mlp2), nullptr,
-                                        nullptr, x, M, W, hidden, 0, st);
+    RETURN_IF_ERROR((product<kEpiResidual, kLnNone>(c.bn[1], attn, p(w.w_proj), p(w.b_proj),
+                                                    nullptr, nullptr, nullptr, x, M, W, E, 0,
+                                                    st)));
+    RETURN_IF_ERROR(ln_product<kEpiGelu>(c.ln, c.bn[2], x, p(w.w_mlp1), p(w.b_mlp1),
+                                         p(w.ln2_s), p(w.ln2_b), stats, hid, M, hidden, W, D,
+                                         st));
+    return product<kEpiResidual, kLnNone>(c.bn[3], hid, p(w.w_mlp2), p(w.b_mlp2), nullptr,
+                                          nullptr, nullptr, x, M, W, hidden, 0, st);
   } else {
     RETURN_IF_ERROR(layer_norm<T>(x, p(w.ln1_s), p(w.ln1_b), hb, M, D, st));
     RETURN_IF_ERROR((gemm<T, kEpiRound>(hb, p(w.w_qkv), p(w.b_qkv), nullptr, qkv, M, 3 * E, D,
@@ -646,13 +717,15 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
 }
 
 // `depth` blocks in place on x_out, a copy of x_in; w stacked over depth
-// (depth 1: one block's own weights).  With W > D ("mma" padded) the blocks
-// run on h_buf (B . S, W) instead: x_in copied into its first D columns,
-// the rest set to 0, and the first D columns copied to x_out at the end.
+// (depth 1: one block's own weights).  With W > D (a padded width) the
+// blocks run on h_buf (B . S, W) instead: x_in copied into its first D
+// columns, the rest set to 0, and the first D columns copied to x_out at
+// the end.
 template <typename T>
 cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, int hidden,
                     int depth, const void* x_in, void* x_out, const Weights& w, void* h_buf,
-                    void* qkv_buf, void* attn_buf, void* hid_buf, cudaStream_t st) {
+                    void* qkv_buf, void* attn_buf, void* hid_buf, void* stats,
+                    cudaStream_t st) {
   const size_t rows = (size_t)B * S, e = sizeof(T);
   T* x = static_cast<T*>(W == D ? x_out : h_buf);
   if (W == D) {
@@ -668,7 +741,8 @@ cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, 
                                                        c.variant), B, S,
                                       D, W, H, dh, hidden, c, static_cast<T*>(h_buf),
                                       static_cast<T*>(qkv_buf), static_cast<T*>(attn_buf),
-                                      static_cast<T*>(hid_buf), st));
+                                      static_cast<T*>(hid_buf), static_cast<float2*>(stats),
+                                      st));
   if (W != D)
     RETURN_IF_ERROR(cudaMemcpy2DAsync(x_out, D * e, x, W * e, D * e, rows,
                                       cudaMemcpyDeviceToDevice, st));
@@ -677,24 +751,26 @@ cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, 
 
 cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, int dh,
                 int hidden, int depth, const void* x_in, void* x_out, const Weights& w, void* h,
-                void* qkv, void* attn, void* hid, cudaStream_t st) {
-  RETURN_IF_ERROR(check(c.variant, dtype, B, S, D, W, H, dh, hidden));
-  if (depth < 1) return cudaErrorInvalidValue;
+                void* qkv, void* attn, void* hid, void* stats, cudaStream_t st) {
+  RETURN_IF_ERROR(check(c.variant, dtype, B, S, D, W, H, dh, hidden, c.ln));
+  if (depth < 1 || (c.variant != kSimt && c.ln == 1 && stats == nullptr))
+    return cudaErrorInvalidValue;
   if (dtype == 1)
     return forward<bf16>(c, B, S, D, W, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn,
-                         hid, st);
+                         hid, stats, st);
   return forward<float>(c, B, S, D, W, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn,
-                        hid, st);
+                        hid, stats, st);
 }
 
 }  // namespace
 
 // variant: 0 = "simt" (float32), 1 = "mma" (bfloat16), 2 = "tf32x3"
-// (float32); bn_*, warpgroups: the N tiles and the warpgroups a CTA of the
-// plan (see Config above).  dtype: 0 =
-// float32, 1 = bfloat16.  dim: D, the width of x and of the output; width:
-// the residual width W the weights have, D or ("mma") D zero-padded to the
-// next multiple of 64 (see the header).  head_dim: the head dim the kernels
+// (float32); bn_*, warpgroups, ln: the N tiles, the warpgroups a CTA and the
+// LN products' form (0 resident, 1 streamed) of the plan (see Config
+// above).  dtype: 0 = float32, 1 = bfloat16.  dim: D, the width of x and of
+// the output; width: the residual width W the weights have, D or D
+// zero-padded to the next multiple of 64 ("mma") or 32 ("tf32x3"; see the
+// header).  head_dim: the head dim the kernels
 // run at, dim / heads or the zero-padded one of the weights (E = heads .
 // head_dim below; the scale stays (dim / heads)^-1/2).  hidden: the MLP
 // width of the weights.  All tensors contiguous on the current device and
@@ -704,23 +780,24 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, i
 // (W, hidden), mlp2 (hidden, W) ("tf32x3": each of the four kernels as two
 // planes, (depth, 2, in, out), hi = tf32(w) then lo = tf32(w - hi), rounded
 // to nearest with ties away from zero); scratch h (B*S, D) read by "simt"
-// alone, (B*S, W) the residual stream of a padded "mma" call, attn (B*S,
-// E), qkv (B*S, 3E), mlp_hidden (B*S, hidden).  x_out must not alias x_in.
-// Returns a cudaError_t.
+// alone, (B*S, W) the residual stream of a padded call, attn (B*S, E), qkv
+// (B*S, 3E), mlp_hidden (B*S, hidden), stats (B*S, 2) float32 the streamed
+// LN products' rows' (mean, rstd) (null where ln is 0).  x_out must not
+// alias x_in.  Returns a cudaError_t.
 extern "C" int vit_encoder_forward(
-    int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups,
+    int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups, int ln,
     int dtype, int batch, int seq, int dim, int width, int heads, int head_dim, int hidden,
     int depth,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
-    void* h, void* qkv, void* attn, void* mlp_hidden, void* stream) {
-  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups};
+    void* h, void* qkv, void* attn, void* mlp_hidden, void* stats, void* stream) {
+  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, depth, x_in, x_out,
-                  w, h, qkv, attn, mlp_hidden, static_cast<cudaStream_t>(stream));
+                  w, h, qkv, attn, mlp_hidden, stats, static_cast<cudaStream_t>(stream));
 }
 
 // One pre-LN block: replaces the TPU kernel
@@ -735,16 +812,16 @@ extern "C" int vit_encoder_forward(
 // latency more than operations or bytes (at (16, 320, 192) bf16: 5.79 GFLOP,
 // 5.9 us at 989 TFLOP/s).  Returns a cudaError_t.
 extern "C" int vit_block_forward(
-    int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups,
+    int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups, int ln,
     int dtype, int batch, int seq, int dim, int width, int heads, int head_dim, int hidden,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
-    void* h, void* qkv, void* attn, void* mlp_hidden, void* stream) {
-  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups};
+    void* h, void* qkv, void* attn, void* mlp_hidden, void* stats, void* stream) {
+  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, 1, x_in, x_out, w,
-                  h, qkv, attn, mlp_hidden, static_cast<cudaStream_t>(stream));
+                  h, qkv, attn, mlp_hidden, stats, static_cast<cudaStream_t>(stream));
 }

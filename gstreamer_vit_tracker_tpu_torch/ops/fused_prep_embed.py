@@ -29,8 +29,10 @@ plan's width (and the weight split into its two TF32 planes for
 :func:`plan` picks the variant and tiling from the width and dtype before
 the launch: ``"mma"`` (bf16, the embed on the tensor cores), ``"tf32x3"``
 (float32, the embed on the tensor cores in split TF32); ``"simt"`` (float32
-on the FMA units) runs by name only, the yardstick of ``"tf32x3"``.  Every
-embed width from 1 to 1024 runs in both dtypes; a patch above 32 raises.
+on the FMA units) runs by name only, the yardstick of ``"tf32x3"``, on
+widths up to 1024.  Every embed width runs in both dtypes (ViT-H's 1280 in
+clusters of 7 x 64 columns in bf16, 6 x 32 in float32); a patch above 32
+raises.
 
 ``LAUNCHES`` counts kernel launches, ``VARIANT_LAUNCHES`` them by variant.
 """
@@ -261,9 +263,10 @@ class Plan(NamedTuple):
     width: int = 0        # the operands' columns: the embed dim padded
 
 
-# kTileTokens, kTileCols and kMaxCluster of the source; the widest embed.
+# kTileTokens, kTileCols and kMaxCluster of the source; the widest embed
+# "simt" takes (a thread of its 256 a 4-column group).
 _TILE_TOKENS, _TILE_COLS, _MAX_CLUSTER = 16, 32, 8
-_MAX_DIM = 1024
+_SIMT_MAX_DIM = 1024
 _VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
 _SIMT_TOKENS = 2
 # "mma"'s column tile where a token tile needs more than one cluster of 32
@@ -293,7 +296,8 @@ def tiling(dim: int, cols: int, max_cluster: int = _MAX_CLUSTER
 def plan(dim: int, dtype: torch.dtype, variant: Optional[str] = None,
          cols: Optional[int] = None) -> Plan:
     """The variant and tiling for embed width ``dim`` in ``dtype``: a pure
-    function of the shape.  Every ``dim`` from 1 to 1024 runs.
+    function of the shape.  Every ``dim`` from 1 runs (``"simt"`` by name
+    up to 1024).
 
     * bf16 takes ``"mma"`` (``mma.sync`` m16n8k16): CTAs of 16 tokens by 32
       columns, the column tiles of a token tile one cluster that shares the
@@ -308,19 +312,23 @@ def plan(dim: int, dtype: torch.dtype, variant: Optional[str] = None,
       accuracy) on the narrowest column tile (8, 16, 24 or 32; ``cols`` by
       name) whose tiles make one cluster of at most 6, else 32 columns in
       equal clusters of at most 6: 32 at the flagship's D 192 (clusters of
-      6), 16 at ``small``'s D 96 (6) and corr-tiny's D 64 (4).
+      6), 16 at ``small``'s D 96 (6) and corr-tiny's D 64 (4), 32 in 7
+      clusters of 6 at ViT-H's D 1280.
       ``variant="simt"`` (FMA units, two tokens a CTA, the width padded to a
-      multiple of 4) by name: the yardstick.
+      multiple of 4, at most 1024) by name: the yardstick.
 
     ``dim`` is padded to the plan's ``width`` (a multiple of the column
     tile and of the clusters).  Another dtype or a variant the dtype does
-    not take raises ``TypeError``, a width outside 1-1024 or a column tile
-    not built ``ValueError``."""
-    if not 1 <= dim <= _MAX_DIM:
-        raise ValueError(f"embed dim {dim} outside 1-{_MAX_DIM}")
+    not take raises ``TypeError``, a width below 1 (or for ``"simt"``
+    above 1024) or a column tile not built ``ValueError``."""
+    if dim < 1:
+        raise ValueError(f"embed dim {dim} below 1")
     if dtype == torch.float32:
         variant = variant or "tf32x3"
         if variant == "simt":
+            if dim > _SIMT_MAX_DIM:
+                raise ValueError(f"simt takes embed dims up to "
+                                 f"{_SIMT_MAX_DIM}, not {dim}")
             return Plan("simt", _SIMT_TOKENS, 0, 1, -(-dim // 4) * 4)
         if variant != "tf32x3":
             raise TypeError(f"float32 runs tf32x3 or simt, not {variant}")

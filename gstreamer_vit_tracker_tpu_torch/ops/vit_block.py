@@ -12,16 +12,17 @@ source's header states what bounds it on the H100.
 takes (a rule, not a fallback; the C entries take the plan's variant and
 N tiles as ints):
 
-* ``"mma"``: bf16 with D up to 768 and any MLP width (every bf16 preset,
-  and the ``small`` architecture in bf16, D 96).  Five launches a block:
-  ``wgmma`` products with the LayerNorm in the prologue of the qkv and mlp1
-  products and the bias / GELU / residual epilogue on the accumulator
-  registers, and an attention that reads q, k and v from the qkv buffer
-  where they lie and walks blocks of 64 keys twice (the row maximum, then
-  ``expf`` of the twin's own argument and P.V with p in f32 precision).
+* ``"mma"``: bf16 at any D and MLP width (every bf16 preset, the ``small``
+  architecture in bf16, D 96, and ViT-L's and ViT-H's widths, D 1024 and
+  1280).  Five launches a block: ``wgmma`` products with the LayerNorm in
+  the prologue of the qkv and mlp1 products and the bias / GELU / residual
+  epilogue on the accumulator registers, and an attention that reads q, k
+  and v from the qkv buffer where they lie and walks blocks of 64 keys
+  twice (the row maximum, then ``expf`` of the twin's own argument and P.V
+  with p in f32 precision).
 * ``"tf32x3"``: float32 (the ``small`` preset, the float32 flagship of the
-  dry run and of training) with a head dim that is a multiple of 8 up to
-  128, D (up to 512) and the MLP width multiples of 32.  The same five
+  dry run and of training, and every other float32 width) with a head dim
+  that is a multiple of 8 up to 128.  The same five
   launches a block (``csrc/encoder_tf32.cuh``), the products on the tensor
   cores in split TF32 (``mma.sync``, three TF32 products a product into one
   f32 accumulator: float32's accuracy), the LayerNorm in the prologue with
@@ -33,12 +34,20 @@ N tiles as ints):
   tf32(w) and lo = tf32(w - hi) (:func:`split_tf32`), made once per
   parameter set by the operand cache; the kernels split only the
   activations.
-* ``"simt"``: float32 on a shape ``"tf32x3"`` does not take (D above 512
-  or no multiple of 32, an MLP width that is a multiple of 16 but not of
-  32), with a head dim that is a multiple of 16 up to 128: the first
-  design's seven launches a block on the FMA units, an attention that
-  walks blocks of 32 keys twice.  Callable by name on any float32 shape it takes
-  (``prepared(..., chosen=Plan("simt"))``): the yardstick of the timings.
+* ``"simt"``: float32 by name only (``prepared(..., chosen=Plan("simt"))``),
+  the yardstick of the timings, on a shape with an MLP width that is a
+  multiple of 16 and a head dim up to 128 (padded to a multiple of 16): the
+  first design's seven launches a block on the FMA units, an attention that
+  walks blocks of 32 keys twice.
+
+The LayerNorm products of ``"mma"`` and ``"tf32x3"`` come in two forms,
+``Plan.ln``, picked from the shape alone by each form's shared memory
+against the card's opt-in: ``"resident"`` (the CTA's 64 rows of the
+residual stream held whole and normalised in place, where they fit: the
+flagship, ``small`` and every bf16 width up to 768) and ``"streamed"`` (a
+statistics launch before the product, then each K chunk normalised as it
+lands, for any width; seven launches a block).  The two give the same LN
+output bit for bit; ``csrc/vit_encoder.cu``'s header says what bounds each.
 
 A head dim from 1 to 128 that the variant does not take as it is (bf16: not
 32, 64 or 128; ``"tf32x3"``: not a multiple of 8; ``"simt"``: not a
@@ -46,7 +55,8 @@ multiple of 16) is zero-padded to the next one it takes: the qkv weight and
 bias get zero columns a head and the proj weight zero rows a head (in the
 operand cache, so once per parameter set), the attention runs at the padded
 head dim with the true one's scale.  ``"mma"`` also pads a D or an MLP width
-that is no multiple of 64 (its products' K chunk) to the next one,
+that is no multiple of 64 (its products' K chunk) to the next one, and
+``"tf32x3"`` one that is no multiple of 32 to the next,
 ``Plan.width`` and ``Plan.mlp`` (:func:`_pad_width`: zero LN scale and bias,
 zero rows of the qkv and mlp1 kernels and of mlp2's past the MLP width, zero
 columns of proj, mlp1 and mlp2 and their biases): the kernel carries the
@@ -54,9 +64,9 @@ residual stream at the padded width with zero columns, takes the LayerNorm's
 statistics over the true D, and copies x in and the result out at D
 (``csrc/vit_encoder.cu``'s header says why every padded column stays 0).
 Zeros add exactly to an f32 sum: a padded head or width computes what the
-unpadded one does.  A CUDA call on a shape no variant of its dtype can take
-even so (a head dim above 128; for ``"mma"`` D above 768; in float32 an MLP
-width no multiple of 16) raises; none goes to the plain twin.  An x or a
+unpadded one does (``"tf32x3"`` splits the weights into their planes after
+the pad).  A CUDA call on a shape no variant of its dtype can take even so
+(a head dim above 128) raises; none goes to the plain twin.  An x or a
 weight that is not contiguous with a 16-byte aligned base is copied into
 one that is before the launch.  Neither kernel needs more shared memory for
 a longer sequence: both walk the keys through a ring of fixed size.
@@ -111,26 +121,31 @@ _FIELDS = (("ln1", "scale"), ("ln1", "bias"), ("qkv", "kernel"),
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
-# A dtype's variants, the first its own; float32 takes "simt" where
-# "tf32x3" refuses a shape.
+_LN_CODES = {"resident": 0, "streamed": 1}
+# A dtype's variants, the first its own and the one the rule gives;
+# float32's "simt" runs by name only.
 _DTYPE_VARIANTS = {torch.float32: ("tf32x3", "simt"), torch.bfloat16: ("mma",)}
 _VARIANTS = {dtype: v[0] for dtype, v in _DTYPE_VARIANTS.items()}
 _MAX_HEAD_DIM = 128
-# Geometry of the kernels, as csrc/vit_encoder.cu and encoder_mma.cuh have
-# it.  "mma": a product CTA owns 64 rows by an N tile of 32 or 64 columns and
-# K arrives in 64-deep chunks (so D and the MLP width run padded to whole
-# chunks); the qkv and mlp1 products hold all D / 64 chunks of their rows
-# for the LayerNorm, which at D = 768 and N 64 is
-# 1024 + 12 x 64 x (64 + 64) x 2 = 197,632 bytes of the H100's 232,448.  The
-# attention takes 64 query rows and walks 64-key blocks through a ring of 2
-# (82,944 bytes at head dim 128, for any S).  "tf32x3": the same 64 rows,
-# N tiles of 16, 32 or 64, K in 32-deep chunks through a ring of 4 slots
-# (3 at N 64) a warpgroup of A and the weight's two planes; the LN products
-# hold their 64 rows of D and its scale and bias, which at D = 512, N 32 and
-# two warpgroups is 64 x 516 x 4 + 2 x 512 x 4 + 8 x 2 x 32 x 40 x 4 =
-# 218,112 bytes.  "simt": 16 query rows, 32-key blocks.
+# The opt-in shared memory of a block on the H100 (plan's default).
+H100_OPTIN = 232448
+# Geometry of the kernels, as csrc/vit_encoder.cu, encoder_mma.cuh and
+# encoder_tf32.cuh have it.  "mma": a product CTA owns 64 rows by an N tile
+# of 32 or 64 columns and K arrives in 64-deep chunks (so D and the MLP
+# width run padded to whole chunks) through a ring of 3; a resident LN
+# product holds all W / 64 chunks of its rows instead, which at W = 768 and
+# N 64 is 1024 + 12 x 64 x (64 + 64) x 2 = 197,632 bytes of the H100's
+# 232,448 and at W = 1024 263,168.  The attention takes 64 query rows and
+# walks 64-key blocks through a ring of 2 (82,944 bytes at head dim 128, for
+# any S).  "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
+# chunks through a ring of 4 slots (3 at N 64) a warpgroup of A and the
+# weight's two planes (and, streamed, the chunk's LN scale and bias); a
+# resident LN product holds its 64 rows of W and its scale and bias instead
+# of the A ring, which at W = 512, N 32 and two warpgroups is
+# 64 x 516 x 4 + 2 x 512 x 4 + 8 x 2 x 32 x 40 x 4 = 218,112 bytes.
+# "simt": 16 query rows, 32-key blocks.
 _ROWS, _CHUNK, _TF32_CHUNK = 64, 64, 32
-_MMA_MAX_DIM, _TF32_MAX_DIM = 768, 512
+_MMA_RING = 3
 _SPLIT_MAX_DH = 64         # "tf32x3": two-warpgroup attention built up to it
 
 
@@ -140,13 +155,16 @@ class Plan(NamedTuple):
     tiles: Tuple[int, ...] = (0, 0, 0, 0)      # N tile of qkv, proj, mlp1, mlp2
     pad: int = 0                               # padded head dim (0: none)
     warpgroups: int = 1                        # "tf32x3": warpgroups a CTA
-    width: int = 0                             # "mma": padded D (0: none)
-    mlp: int = 0                               # "mma": padded MLP width
+    width: int = 0                             # padded D (0: none)
+    mlp: int = 0                               # padded MLP width (0: none)
+    ln: str = "resident"                       # the LN products' form
 
     def config(self) -> Tuple[int, ...]:
-        """The 6 ints the C entries take first (``Config`` in the source):
-        the variant's code, the N tiles and the warpgroups."""
-        return (_VARIANT_CODES[self.variant],) + self.tiles + (self.warpgroups,)
+        """The 7 ints the C entries take first (``Config`` in the source):
+        the variant's code, the N tiles, the warpgroups and the LN form's
+        code."""
+        return ((_VARIANT_CODES[self.variant],) + self.tiles
+                + (self.warpgroups, _LN_CODES[self.ln]))
 
 
 def _refusal(variant: str, dim: int, heads: int,
@@ -157,19 +175,39 @@ def _refusal(variant: str, dim: int, heads: int,
         return f"embed dim {dim} is not divisible by {heads} heads"
     if dim // heads > _MAX_HEAD_DIM:
         return f"head dim {dim // heads} is above {_MAX_HEAD_DIM}"
-    if variant == "mma":
-        if dim > _MMA_MAX_DIM or hidden < 1:
-            return (f"embed dim {dim} must be at most {_MMA_MAX_DIM} and MLP "
-                    f"width {hidden} at least 1")
-        return None
-    if variant == "tf32x3":
-        if dim % _TF32_CHUNK or dim > _TF32_MAX_DIM or hidden % _TF32_CHUNK:
-            return (f"embed dim {dim} and MLP width {hidden} must be "
-                    f"multiples of 32, the embed dim at most {_TF32_MAX_DIM}")
-        return None
-    if hidden % 16:                                        # "simt"
+    if hidden < 1:
+        return f"MLP width {hidden} must be at least 1"
+    if variant == "simt" and hidden % 16:
         return f"MLP width {hidden} must be a multiple of 16"
     return None
+
+
+def ln_smem_bytes(variant: str, ln: str, width: int, tile: int,
+                  warpgroups: int = 1) -> int:
+    """Dynamic shared memory of one LN product CTA of ``variant`` in form
+    ``ln`` at residual width ``width`` and N tile ``tile`` (the sources'
+    ``product_smem_bytes``): ``"resident"`` grows with the width, a
+    ``"streamed"`` ring does not."""
+    if variant == "mma":
+        chunks = width // _CHUNK if ln == "resident" else _MMA_RING
+        return 1024 + chunks * _CHUNK * (_ROWS + tile) * 2
+    nwg = 1 if tile == 64 else warpgroups
+    slots = nwg * (3 if tile == 64 else 4)
+    w_ring = slots * 2 * _TF32_CHUNK * (tile + 8)
+    if ln == "resident":
+        return (_ROWS * (width + 4) + 2 * width + w_ring) * 4
+    return (slots * _ROWS * (_TF32_CHUNK + 4) + w_ring
+            + slots * 2 * _TF32_CHUNK) * 4
+
+
+def _ln_form(variant: str, width: int, tiles: Tuple[int, ...],
+             warpgroups: int, optin: int) -> Optional[str]:
+    """The LN products' form: ``"resident"`` where both the qkv and mlp1
+    products' rows fit ``optin`` bytes at their N tiles, else
+    ``"streamed"`` where its ring does; None if neither does."""
+    return next((ln for ln in ("resident", "streamed")
+                 if all(ln_smem_bytes(variant, ln, width, t, warpgroups)
+                        <= optin for t in (tiles[0], tiles[2]))), None)
 
 
 def head_pad(variant: str, dh: int) -> int:
@@ -186,21 +224,24 @@ def head_pad(variant: str, dh: int) -> int:
 
 def width_pads(variant: str, dim: int, hidden: int) -> Tuple[int, int]:
     """(D, MLP width) that ``variant`` runs a ``dim`` and ``hidden`` at
-    when it does not take them as they are, else 0 each: ``"mma"`` the next
-    multiple of 64 (its products' K chunk); the float32 variants pad
-    neither."""
-    if variant != "mma":
+    when it does not take them as they are, else 0 each: the next multiple
+    of its products' K chunk, 64 for ``"mma"`` and 32 for ``"tf32x3"``;
+    ``"simt"`` pads neither."""
+    step = {"mma": _CHUNK, "tf32x3": _TF32_CHUNK}.get(variant)
+    if step is None:
         return 0, 0
-    return tuple(0 if n % _CHUNK == 0 else -(-n // _CHUNK) * _CHUNK
+    return tuple(0 if n % step == 0 else -(-n // step) * step
                  for n in (dim, hidden))
 
 
 def _variant(dtype: torch.dtype, dim: int, heads: int,
              hidden: int) -> Optional[str]:
-    """The variant :func:`plan` gives this dtype and width (the first of
-    the dtype's that takes it), or None if none does."""
-    return next((v for v in _DTYPE_VARIANTS.get(dtype, ())
-                 if _refusal(v, dim, heads, hidden) is None), None)
+    """The variant :func:`plan` gives this dtype and width, or None if it
+    cannot take the shape."""
+    variant = _VARIANTS.get(dtype)
+    if variant is None or _refusal(variant, dim, heads, hidden) is not None:
+        return None
+    return variant
 
 
 def _tiles(rows: int, inner: int, dim: int, hidden: int, sms: int,
@@ -218,18 +259,17 @@ def _tiles(rows: int, inner: int, dim: int, hidden: int, sms: int,
 
 
 def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
-         dtype: torch.dtype, sms: int) -> Plan:
+         dtype: torch.dtype, sms: int, optin: int = H100_OPTIN) -> Plan:
     """The variant and the product tiles for a ``(batch, seq, dim)`` input
-    with ``heads`` heads and MLP width ``hidden`` on a card of ``sms`` SMs.
+    with ``heads`` heads and MLP width ``hidden`` on a card of ``sms`` SMs
+    and ``optin`` bytes of shared memory a block.
 
-    * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128, dim up to
-      768); for float32 ``"tf32x3"`` (head dim a multiple of 8, dim and
-      hidden multiples of 32, dim up to 512), else ``"simt"`` (head dim a
-      multiple of 16, hidden a multiple of 16).  Another head dim up to 128
-      gets ``pad``, the one it is zero-padded to (:func:`head_pad`);
-      ``"mma"``'s dim and hidden that are no multiple of 64 get ``width``
-      and ``mlp``, the ones they are zero-padded to (:func:`width_pads`).
-      A shape no variant of the dtype can take even so raises
+    * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128), ``"tf32x3"``
+      for float32 (head dim a multiple of 8), at any dim and hidden.
+      Another head dim up to 128 gets ``pad``, the one it is zero-padded to
+      (:func:`head_pad`); a dim or hidden that is no multiple of the
+      variant's K chunk (64, 32) gets ``width`` and ``mlp``, the ones they
+      are zero-padded to (:func:`width_pads`).  A head dim above 128 raises
       ``ValueError``; another dtype raises ``TypeError``.
     * ``"mma"`` and ``"tf32x3"`` N tile of each product (of its padded
       width): 64 once 64-wide tiles give a grid of at least ``sms`` CTAs,
@@ -244,6 +284,9 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
       a query tile and take its key blocks in turn, and in a product of N
       tile 16 or 32 take its 32-deep chunks of K in turn (batch 1, where
       one warpgroup an SM leaves every latency exposed).
+    * ``ln``, the LN products' form at those tiles (:func:`_ln_form`):
+      ``"resident"`` where the qkv and mlp1 CTAs' rows fit ``optin``, else
+      ``"streamed"`` (ViT-L's D 1024 at both batches, in both dtypes).
 
     Depends on the shape alone, so a chain of :func:`block` calls equals one
     :func:`encoder` call bit for bit.
@@ -251,15 +294,13 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
     if dtype not in _VARIANTS:
         raise TypeError(f"the encoder kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    variant = _variant(dtype, dim, heads, hidden) or _VARIANTS[dtype]
+    variant = _VARIANTS[dtype]
     why = (_refusal(variant, dim, heads, hidden) if batch >= 1 and seq >= 1
            else f"batch {batch} and sequence {seq} must be at least 1")
     if why is not None:
         raise ValueError(f"the encoder kernels cannot take this shape "
                          f"({variant}, {dtype}): {why}")
     pad = head_pad(variant, dim // heads)
-    if variant == "simt":
-        return Plan("simt", pad=pad)
     rows = -(-batch * seq // _ROWS)
     dh = pad or dim // heads
     width, mlp = width_pads(variant, dim, hidden)
@@ -267,7 +308,12 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
                    variant == "tf32x3")
     wgs = (2 if variant == "tf32x3" and dh <= _SPLIT_MAX_DH
            and -(-seq // _ROWS) * batch * heads < sms else 1)
-    return Plan(variant, tiles, pad, wgs, width, mlp)
+    ln = _ln_form(variant, width or dim, tiles, wgs, optin)
+    if ln is None:
+        raise ValueError(f"the encoder kernels cannot take this shape "
+                         f"({variant}, {dtype}): no LN product form fits "
+                         f"{optin} bytes of shared memory")
+    return Plan(variant, tiles, pad, wgs, width, mlp, ln)
 
 
 def encoder_reference(x: torch.Tensor, blocks: Sequence[Params],
@@ -323,10 +369,10 @@ _LIB: List[ctypes.CDLL] = []
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' signatures on a loaded ``vit_encoder``
     library."""
-    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 15
-                                        + [ctypes.c_void_p] * 19)
-    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 14
-                                      + [ctypes.c_void_p] * 19)
+    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 16
+                                        + [ctypes.c_void_p] * 20)
+    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 15
+                                      + [ctypes.c_void_p] * 20)
     for fn in (lib.vit_encoder_forward, lib.vit_block_forward):
         fn.restype = ctypes.c_int
     return lib
@@ -399,8 +445,9 @@ def _plan_for(x: torch.Tensor, heads: int, hidden: int) -> Plan:
     key = (x.device.index, b, s, d, heads, hidden, x.dtype)
     chosen = _PLANS.get(key)
     if chosen is None:
-        chosen = _PLANS[key] = plan(b, s, d, heads, hidden, x.dtype,
-                                    attention.card(x.device)[1])
+        optin, sms = attention.card(x.device)
+        chosen = _PLANS[key] = plan(b, s, d, heads, hidden, x.dtype, sms,
+                                    optin)
     return chosen
 
 
@@ -480,8 +527,9 @@ def _pad_width(weights: Sequence[torch.Tensor], width: int,
 def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
     """A plan a caller named (``prepared(..., chosen=...)``) made whole:
     the variant must be one of the dtype's and take the shape; the pads are
-    the variant's own, and ``"tf32x3"`` named without tiles gets the rule's
-    tiles and warpgroups."""
+    the variant's own; ``"mma"`` or ``"tf32x3"`` named without tiles gets
+    the rule's tiles, warpgroups and LN form, and a named ``"resident"``
+    form must fit the card at the named tiles."""
     b, s, d = x.shape
     if chosen.variant not in _DTYPE_VARIANTS[x.dtype]:
         raise ValueError(f"the encoder kernels run {x.dtype} as one of "
@@ -492,9 +540,16 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
                          f"({chosen.variant}, {x.dtype}): {why}")
     pad = head_pad(chosen.variant, d // heads)
     width, mlp = width_pads(chosen.variant, d, hidden)
-    if chosen.variant == "tf32x3" and not any(chosen.tiles):
+    if chosen.variant != "simt" and not any(chosen.tiles):
         rule = _plan_for(x, heads, hidden)
-        chosen = chosen._replace(tiles=rule.tiles, warpgroups=rule.warpgroups)
+        chosen = chosen._replace(tiles=rule.tiles, warpgroups=rule.warpgroups,
+                                 ln=rule.ln)
+    if chosen.variant != "simt" and chosen.ln == "resident" and _ln_form(
+            chosen.variant, width or d, chosen.tiles, chosen.warpgroups,
+            attention.card(x.device)[0]) != "resident":
+        raise ValueError(f"the resident LN form does not fit the card's "
+                         f"shared memory at width {width or d} and N tiles "
+                         f"{chosen.tiles}")
     return chosen._replace(pad=pad, width=width, mlp=mlp)
 
 
@@ -531,20 +586,25 @@ def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
     m = b * s
     out = torch.empty_like(x)
     # One scratch allocation: qkv (m, 3 inner), attn (m, inner), mlp hidden
-    # (m, hidden) and h: for "simt" the LN output (m, d), for a padded "mma"
-    # width the residual stream (m, width).
+    # (m, hidden) and h: for "simt" the LN output (m, d), for a padded width
+    # the residual stream (m, width).  A streamed plan's LN statistics,
+    # (m, 2) float32, beside it.
     h_rows = d if chosen.variant == "simt" else (width if width != d else 0)
     work = torch.empty(m * (4 * inner + hidden + h_rows), dtype=x.dtype,
                        device=x.device)
     qkv, attn, hid, h = (work.data_ptr() + i * m * x.element_size()
                          for i in (0, 3 * inner, 4 * inner, 4 * inner + hidden))
+    streamed = chosen.variant != "simt" and chosen.ln == "streamed"
+    stats = (torch.empty((m, 2), dtype=torch.float32, device=x.device)
+             if streamed else None)
     args = (*chosen.config(), _DTYPE_CODES[x.dtype], b, s, d, width,
             num_heads, dh, hidden)
     if stacked:
         args += (weights[0].shape[0],)
     args += (x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in weights],
-             h if h_rows else qkv, qkv, attn, hid)
-    return chosen, out, (x, weights, work), args
+             h if h_rows else qkv, qkv, attn, hid,
+             stats.data_ptr() if streamed else None)
+    return chosen, out, (x, weights, work, stats), args
 
 
 def _enqueue(chosen: Plan, stacked: bool, args: Tuple, index: int) -> None:

@@ -870,13 +870,13 @@ def test_attention_padded_head_dims_match_reference(dev, dtype, dh):
 @pytest.mark.parametrize("dtype,d,heads,variant", [
     (torch.bfloat16, 192, 4, "mma"), (torch.bfloat16, 192, 2, "mma"),
     (torch.bfloat16, 64, 4, "mma"), (torch.bfloat16, 96, 2, "mma"),
-    (torch.float32, 48, 2, "simt"),
+    (torch.float32, 40, 4, "tf32x3"),
     (torch.float32, 96, 8, "tf32x3"), (torch.float32, 64, 16, "tf32x3")])
 def test_encoder_padded_head_dims_match_twin(dev, dtype, d, heads, variant):
     # Head dims 48, 96 and 16 in bf16 (padded to 64, 128 and 32); in float32
-    # 24 at D 48, a width tf32x3 does not take (simt, to 32), and 12 and 4
-    # (tf32x3, to 16 and 8): the encoder kernel on the padded operand cache,
-    # and the block kernel padding at the launch, against the twin.
+    # 10 at D 40 (to 16, and D to 64), 12 and 4 (tf32x3, to 16 and 8): the
+    # encoder kernel on the padded operand cache, and the block kernel
+    # padding at the launch, against the twin.
     gen = torch.Generator().manual_seed(d * heads)
     blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
     x = torch.randn((2, 70, d), generator=gen).to(dev, dtype)
@@ -890,6 +890,45 @@ def test_encoder_padded_head_dims_match_twin(dev, dtype, d, heads, variant):
     one = vit_block.block(x, blocks[0], heads)
     _check_close(one, vit_block.block_reference(x, blocks[0], heads), dtype)
     assert torch.equal(one, vit_block.encoder(x, blocks[:1], heads))
+
+
+@pytest.mark.parametrize("dtype,d,heads", [
+    (torch.bfloat16, 1024, 16), (torch.bfloat16, 776, 8),
+    (torch.float32, 1024, 16), (torch.float32, 776, 8),
+    (torch.float32, 1000, 8)])
+def test_wide_widths_stream_and_match_twin(dev, dtype, d, heads):
+    # Widths past the resident LN products (D 1024), and padded ones (D 776:
+    # bf16 to 832, float32 to 800, head dim 97 to 128 / 104; D 1000 float32
+    # to 1024, head dim 125 to 128): the encoder and block kernels as the
+    # plan takes them, and with the streamed form named, against the twin;
+    # where the plan keeps the rows resident the streamed form equals it
+    # bit for bit.  Float32 never launches simt.
+    gen = torch.Generator().manual_seed(d + heads)
+    blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
+    flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
+    x = torch.randn((2, 100, d), generator=gen).to(dev, dtype)
+    rule = vit_block._plan_for(x, heads, 4 * d)
+    assert rule.variant == ("mma" if dtype == torch.bfloat16 else "tf32x3")
+    before = dict(vit_block.VARIANT_LAUNCHES)
+    got = vit_block.encoder(x, blocks, heads)
+    one = vit_block.block(x, blocks[0], heads)
+    ref = vit_block.encoder_reference(x, blocks, heads)
+    _check_close(got, ref, dtype)
+    _check_close(one, vit_block.block_reference(x, blocks[0], heads), dtype)
+    assert vit_block.VARIANT_LAUNCHES == dict(
+        before, **{rule.variant: before[rule.variant] + 2})
+    streamed, launch = vit_block.prepared(
+        x, vit_block._stack(flat, 2), heads, True,
+        chosen=rule._replace(ln="streamed"))
+    launch()
+    torch.cuda.synchronize()
+    _check_close(streamed, ref, dtype)
+    if rule.ln == "resident":
+        assert torch.equal(streamed, got)
+    else:
+        with pytest.raises(ValueError, match="resident LN form"):
+            vit_block.prepared(x, vit_block._stack(flat, 2), heads, True,
+                               chosen=rule._replace(ln="resident"))
 
 
 @pytest.mark.parametrize("preset", ["small", "vittrack-t"])

@@ -32,6 +32,14 @@ What a CPU run can say of kernels that run only on the card:
   trajectories, emulation against twin, hold 2 px / 0.02 on 6 of 8 clips:
   a free-running trajectory crosses near-ties, so one clip decides nothing
   (PERF.md, Findings).
+* The streamed LayerNorm products (``Plan.ln == "streamed"``, the widths
+  whose rows do not fit the card's shared memory): their statistics,
+  emulated in the kernels' own order of f32 sums as row_stats_kernel reads
+  x chunk by chunk, equal the resident form's (the same order over the
+  resident tile) bit for bit at every width the resident form takes, in
+  both dtypes' lane groupings; the mma emulation with them is held to the
+  twin at D 1024 and at a padded D 992, and a planted fault (the
+  statistics over the padded width) is caught.
 * The operand cache: reused across calls, rebuilt after an in-place
   update, bypassed under a gradient.
 * ``ops/attention.py::plan`` pads a head dim that is not a multiple of 8
@@ -102,31 +110,32 @@ def test_plan_n_tile_by_batch():
     (BF16, 192, 3, 768, "mma"),      # the flagship
     (BF16, 256, 2, 1024, "mma"),     # head dim 128
     (BF16, 128, 4, 512, "mma"),      # head dim 32
-    (BF16, 768, 12, 3072, "mma"),    # the widest D the LN product holds
+    (BF16, 768, 12, 3072, "mma"),    # the widest D of the resident LN form
     (F32, 96, 2, 384, "tf32x3"),     # the small preset
     (F32, 192, 3, 768, "tf32x3"),    # the flagship in float32
     (F32, 32, 2, 128, "tf32x3"),     # the dry run's serving model: dh 16
     (F32, 192, 8, 768, "tf32x3"),    # head dim 24: tf32x3 takes it as it is
     (F32, 192, 16, 768, "tf32x3"),   # head dim 12: padded to 16
-    (F32, 640, 5, 2560, "simt"),     # D beyond 512: simt, by rule
-    (F32, 96, 2, 400, "simt"),       # MLP width no multiple of 32
+    (F32, 640, 5, 2560, "tf32x3"),   # D beyond 512: rows resident at N 64
+    (F32, 96, 2, 400, "tf32x3"),     # MLP width no multiple of 32: padded
     (BF16, 96, 2, 384, "mma"),       # small in bf16: dh 48 -> 64, D -> 128
     (BF16, 64, 4, 256, "mma"),       # head dim 16: padded to 32
     (BF16, 96, 3, 384, "mma"),       # head dim 32, D 96 -> 128
-    (BF16, 832, 13, 3328, None),     # D beyond 768
+    (BF16, 832, 13, 3328, "mma"),    # D beyond 768: rows resident at N 64
     (BF16, 96, 12, 384, "mma"),      # head dim 8 -> 32, D 96 -> 128
-    (F32, 24, 2, 96, "simt"),        # head dim 12: padded to 16
+    (F32, 24, 2, 96, "tf32x3"),      # head dim 12 -> 16, D 24 -> 32
     (BF16, 288, 2, 1152, None),      # head dim 144
-    (F32, 64, 2, 200, None),         # MLP width no multiple of 16
+    (F32, 64, 2, 200, "tf32x3"),     # MLP width 200 -> 224
     (torch.float16, 192, 3, 768, None),
 ])
 def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
-    # The variant: bf16's mma; float32's tf32x3, else simt where tf32x3
-    # refuses the width.  A head dim it does not take as it is runs
-    # zero-padded (the padded dim in the plan, the true one's scale at the
-    # launch), and so does mma's D no multiple of 64; a shape no variant of
-    # the dtype can take even so raises before any launch (no call on the
-    # card goes to the plain twin).
+    # The variant: bf16's mma, float32's tf32x3, at every width (simt runs
+    # by name only).  A head dim it does not take as it is runs zero-padded
+    # (the padded dim in the plan, the true one's scale at the launch), and
+    # so does a D or MLP width no multiple of the variant's K chunk (mma 64,
+    # tf32x3 32); a shape the dtype's variant cannot take even so (a head
+    # dim above 128) raises before any launch (no call on the card goes to
+    # the plain twin).
     if variant is None:
         with pytest.raises(TypeError if dtype == torch.float16 else ValueError):
             vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
@@ -137,15 +146,18 @@ def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
     if dtype == BF16 and dim == 96:
         pad = {2: 64, 3: 0, 12: 32}[heads]
     assert got.pad == pad == vit_block.head_pad(variant, dim // heads)
-    width = 128 if variant == "mma" and dim == 96 else 0
-    assert (got.width, got.mlp) == (width, 0) == vit_block.width_pads(
+    widths = {(BF16, 96): (128, 0), (F32, 96): (0, 416 if hidden == 400 else 0),
+              (F32, 24): (32, 0), (F32, 64): (0, 224)}
+    width = widths.get((dtype, dim), (0, 0))
+    assert (got.width, got.mlp) == width == vit_block.width_pads(
         variant, dim, hidden)
     if variant == "mma":
         assert set(got.tiles) <= {32, 64} and got.warpgroups == 1
-    elif variant == "tf32x3":
-        assert set(got.tiles) <= {16, 32, 64} and got.warpgroups in (1, 2)
     else:
-        assert got == vit_block.Plan("simt", (0, 0, 0, 0), pad)
+        assert set(got.tiles) <= {16, 32, 64} and got.warpgroups in (1, 2)
+    # Every width here keeps the LN products' rows resident
+    # (tests/test_torch_wide_encoder.py holds the widths that stream).
+    assert got.ln == "resident"
 
 
 @pytest.mark.parametrize("batch", [1, 16])
@@ -193,10 +205,12 @@ def test_unaligned_input_is_copied():
 
 def test_plan_config_is_the_tiles():
     # The variant's code (the C entries' Variant), the N tiles, the
-    # warpgroups.
-    assert vit_block.Plan("mma", (32, 64, 32, 64)).config() == (1, 32, 64, 32, 64, 1)
-    assert vit_block.Plan("tf32x3", (64,) * 4, 0, 2).config() == (2, 64, 64, 64, 64, 2)
-    assert vit_block.Plan("simt").config() == (0, 0, 0, 0, 0, 1)
+    # warpgroups, the LN products' form (0 resident, 1 streamed).
+    assert vit_block.Plan("mma", (32, 64, 32, 64)).config() == (1, 32, 64, 32, 64, 1, 0)
+    assert vit_block.Plan("tf32x3", (64,) * 4, 0, 2).config() == (2, 64, 64, 64, 64, 2, 0)
+    assert vit_block.Plan("mma", (64,) * 4, ln="streamed").config() == (
+        1, 64, 64, 64, 64, 1, 1)
+    assert vit_block.Plan("simt").config() == (0, 0, 0, 0, 0, 1, 0)
 
 
 @pytest.mark.parametrize("b,s,d,heads,tiles,wgs", [
@@ -253,19 +267,87 @@ def _product(a, p, chained=False):
     return (acc + b.float()).to(BF16)
 
 
-def _layer_norm(x, p, dim=None):
+def _layer_norm(x, p, dim=None, stats=None):
     """The LN prologue: the mean, then the mean of (x - mu)^2, each a sum
     divided by K in f32; 1 / sqrt; each operation rounded on its own; one
     rounding to bf16.  ``dim``: the true columns of a zero-padded x, which
-    the two sums run over (K = dim)."""
+    the two sums run over (K = dim).  ``stats(xf, dim)``: (mean, rstd) in
+    the kernels' order of the f32 sums (``_stats_resident``,
+    ``_stats_streamed``) in place of float64 sums rounded once."""
     xf = x.float()
     dim = dim or xf.shape[-1]
+    if stats is not None:
+        mu, rstd = stats(xf, dim)
+        y = (xf - mu) * rstd
+        return (y * p["scale"].float() + p["bias"].float()).to(BF16)
     k = torch.tensor(float(dim), dtype=F32)
     mu = xf[..., :dim].double().sum(-1, keepdim=True).float() / k
     t = xf - mu
     var = (t * t)[..., :dim].double().sum(-1, keepdim=True).float() / k
     y = t * (1.0 / torch.sqrt(var + torch.tensor(1e-6, dtype=F32)))
     return (y * p["scale"].float() + p["bias"].float()).to(BF16)
+
+
+def _group8(s):
+    """The eight lanes' f32 sums (last dim) added as group8_sum's three
+    xor-shuffles add them; every lane ends with the same value."""
+    for o in (1, 2, 4):
+        s = s + s[..., torch.arange(8) ^ o]
+    return s[..., :1]
+
+
+def _finish(sums, xf, dim, mask_of):
+    """mean = the lanes' sum / dim, then rstd from the lanes' sums of
+    (x - mean)^2 (``sums(t)``), as row_stats ends: 1 / sqrt(var + eps)."""
+    k = torch.tensor(float(dim), dtype=F32)
+    mu = _group8(sums(xf)) / k
+    var = _group8(sums((xf - mu) ** 2)) / k
+    return mu, 1.0 / torch.sqrt(var + torch.tensor(1e-6, dtype=F32))
+
+
+def _stats_resident(xf, dim, elems=8):
+    """(mean, rstd) of layer_norm_tile over the resident tile (elems = 8,
+    bf16; encoder_tf32.cuh's layer_norm_rows: elems = 4, float32): lane c
+    of eight holds the 16-byte chunk c of each 8 x elems-column segment (a
+    panel of the tile) and adds its elements into an f32 sum one at a
+    time, segment after segment; a column at or past ``dim`` adds nothing."""
+    w = xf.shape[-1]
+    seg = 8 * elems
+    tile = xf.reshape(*xf.shape[:-1], w // seg, 8, elems)
+    live = (torch.arange(w) < dim).reshape(w // seg, 8, elems)
+
+    def sums(t):
+        t = t.reshape(tile.shape)
+        acc = torch.zeros(t.shape[:-3] + (8,), dtype=F32)
+        for panel in range(t.shape[-3]):
+            for i in range(elems):
+                acc = torch.where(live[panel, :, i], acc + t[..., panel, :, i],
+                                  acc)
+        return acc
+
+    return _finish(sums, xf, dim, live)
+
+
+def _stats_streamed(xf, dim, elems=8, fault=None):
+    """(mean, rstd) of the streamed form's row_stats_kernel: each lane reads
+    its 16-byte chunks of the row of x from device memory, in the order the
+    chunks come, and sums them as the resident tile's lanes do.
+    ``fault="width"``: the statistics over the padded width (zero columns
+    in the sums, divided by it), as a launch handed ln_dim = W would take
+    them."""
+    w = xf.shape[-1]
+    if fault == "width":
+        dim = w
+
+    def sums(t):
+        acc = [torch.zeros(t.shape[:-1], dtype=F32) for _ in range(8)]
+        for col0 in range(0, w, elems):
+            lane = (col0 // elems) % 8
+            for col in range(col0, min(col0 + elems, dim)):
+                acc[lane] = acc[lane] + t[..., col]
+        return torch.stack(acc, -1)
+
+    return _finish(sums, xf, dim, None)
 
 
 def _attention(q, k, v, heads, fault=None):
@@ -303,18 +385,19 @@ def _attention(q, k, v, heads, fault=None):
     return (o / l).to(BF16).transpose(1, 2).reshape(b, s, d)
 
 
-def emulate_encoder(x, blocks, heads, fault=None, dim=None):
+def emulate_encoder(x, blocks, heads, fault=None, dim=None, stats=None):
     """The encoder kernel's mma variant on the CPU, block by block at the
     twin's rounding points.  ``dim``: x and the blocks zero-padded in width
     (``vit_block._pad_width``), the LayerNorm over the first ``dim``
-    columns."""
+    columns; ``stats``: the LN statistics in the kernels' order
+    (``_layer_norm``)."""
     chained = fault == "chained"
     for p in blocks:
-        q, k, v = torch.chunk(_product(_layer_norm(x, p["ln1"], dim), p["qkv"],
-                                       chained), 3, -1)
+        q, k, v = torch.chunk(_product(_layer_norm(x, p["ln1"], dim, stats),
+                                       p["qkv"], chained), 3, -1)
         a = _attention(q, k, v, heads, fault)
         x = (x.float() + _product(a, p["proj"], chained).float()).to(BF16)
-        g = F.gelu(_product(_layer_norm(x, p["ln2"], dim), p["mlp1"],
+        g = F.gelu(_product(_layer_norm(x, p["ln2"], dim, stats), p["mlp1"],
                             chained).float(), approximate="tanh").to(BF16)
         x = (x.float() + _product(g, p["mlp2"], chained).float()).to(BF16)
     return x
@@ -373,6 +456,84 @@ def test_planted_fault_is_caught(flagship):
     r = _readings(flagship, fault="p_bf16")
     assert r[:, 0].mean() > EMU_MEAN_TOL, r[:, 0]
     assert r[:, 4].mean() > LN_MEAN_RATIO * r[:, 5].mean(), r[:, 4:6]
+
+
+@pytest.mark.parametrize("elems", [8, 4])        # bf16 (mma), float32 (tf32x3)
+@pytest.mark.parametrize("dim,width", [(96, 128), (192, 192), (384, 384),
+                                       (600, 640), (768, 768)])
+def test_streamed_ln_statistics_equal_the_resident_ones(dim, width, elems):
+    # The streamed form's statistics (row_stats_kernel, reading x chunk by
+    # chunk) in the resident form's order bit for bit at every width the
+    # resident form takes (the padded ones too), and so the LN output of
+    # the streamed products equals the resident one's; both are the LN the
+    # float64-sum emulation computes, to a few f32 ulps of the mean.
+    gen = torch.Generator().manual_seed(dim)
+    x = 3.0 * torch.randn((2, 9, width), generator=gen) + 0.5
+    x[..., dim:] = 0.0                         # the residual stream's pad
+    x = x.to(BF16).float()
+    p = {"scale": F.pad(1.0 + 0.1 * torch.randn(dim, generator=gen),
+                        (0, width - dim)),
+         "bias": F.pad(0.1 * torch.randn(dim, generator=gen), (0, width - dim))}
+    res = _stats_resident(x, dim, elems)
+    streamed = _stats_streamed(x, dim, elems)
+    assert all(torch.equal(a, b) for a, b in zip(res, streamed))
+    assert torch.equal(_layer_norm(x, p, dim, lambda t, n: res),
+                       _layer_norm(x, p, dim, lambda t, n: streamed))
+    mu64 = x[..., :dim].double().mean(-1, keepdim=True)
+    assert (res[0].double() - mu64).abs().max() <= 1e-6 * mu64.abs().max()
+    assert (_layer_norm(x, p, dim, lambda t, n: res).float()
+            - _layer_norm(x, p, dim).float()).abs().max() <= 2.0 ** -6
+
+
+def _wide_blocks(d, depth, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*shape, std=0.1, base=0.0):
+        return (base + std * torch.randn(shape, generator=gen)).to(BF16)
+
+    h = 4 * d
+    return [{"ln1": {"scale": w(d, base=1.0), "bias": w(d)},
+             "ln2": {"scale": w(d, base=1.0), "bias": w(d)},
+             "qkv": {"kernel": w(d, 3 * d, std=d ** -0.5), "bias": w(3 * d)},
+             "proj": {"kernel": w(d, d, std=d ** -0.5), "bias": w(d)},
+             "mlp1": {"kernel": w(d, h, std=d ** -0.5), "bias": w(h)},
+             "mlp2": {"kernel": w(h, d, std=h ** -0.5), "bias": w(d)}}
+            for _ in range(depth)]
+
+
+# The streamed emulation against the twin at ViT-L's width (D 1024, 16
+# heads) and at D 992 (31 heads of 32, run as D 1024), 20 tokens, depth 2,
+# seeded weights: read max|d| / max|twin| 0.0063 and 0.0070, mean|d|
+# 0.0025 and 0.0027 (bounds: ENC_REL_TOL and WIDE_MEAN_TOL); the planted
+# fault, the statistics over the padded width (ln_dim = W), reads 0.014 and
+# 0.024 at D 992: caught by both.
+WIDE_MEAN_TOL = 0.005
+
+
+@pytest.mark.parametrize("dim,heads,fault", [(1024, 16, None), (992, 31, None),
+                                             (992, 31, "width")])
+def test_streamed_ln_emulation_against_twin(dim, heads, fault):
+    blocks = _wide_blocks(dim, 2, seed=dim)
+    gen = torch.Generator().manual_seed(dim + 1)
+    x = (2.0 * torch.randn((1, 20, dim), generator=gen)).to(BF16)
+    twin = vit_block.encoder_reference(x, blocks, heads)
+    flat = [b[m][f] for b in blocks for m, f in vit_block._FIELDS]
+    # At the tracker's 320 tokens the card streams these widths.
+    chosen = vit_block.plan(1, 320, dim, heads, 4 * dim, BF16, H100_SMS)
+    assert chosen.ln == "streamed" and (chosen.width or dim) == 1024
+    ops = vit_block._operands(flat, 2, BF16, heads)
+    padded = vit_block._blocks_from_flat(
+        [ops[f][i] for i in range(2) for f in range(len(vit_block._FIELDS))], 2)
+    xp = F.pad(x, (0, 1024 - dim))
+    emu = emulate_encoder(
+        xp, padded, heads, dim=dim,
+        stats=lambda t, n: _stats_streamed(t, n, fault=fault))[..., :dim]
+    d = (emu.float() - twin.float()).abs()
+    rel, mean = d.max().item() / twin.float().abs().max().item(), d.mean().item()
+    if fault is None:
+        assert rel <= ENC_REL_TOL and mean <= WIDE_MEAN_TOL, (rel, mean)
+    else:
+        assert rel > ENC_REL_TOL and mean > WIDE_MEAN_TOL, (rel, mean)
 
 
 @pytest.mark.parametrize("b,s,d", [(2, 320, 64), (1, 70, 32), (3, 129, 128)])

@@ -354,9 +354,13 @@ def test_kernel_operands_are_taken_as_they_lie():
     # one cluster of 5.
     assert tfpe.plan(200, torch.bfloat16) == tfpe.Plan("mma", 16, 32, 7, 224)
     assert tfpe.plan(288, torch.bfloat16) == tfpe.Plan("mma", 16, 64, 5, 320)
-    for dim in (0, 1025):
-        with pytest.raises(ValueError, match="outside 1-1024"):
-            tfpe.plan(dim, torch.bfloat16)
+    with pytest.raises(ValueError, match="below 1"):
+        tfpe.plan(0, torch.bfloat16)
+    # Above 1024 both dtypes plan (64 columns in 3 clusters of 6 at 1025);
+    # simt, by name, stops at 1024.
+    assert tfpe.plan(1025, torch.bfloat16) == tfpe.Plan("mma", 16, 64, 6, 1152)
+    with pytest.raises(ValueError, match="simt takes"):
+        tfpe.plan(1025, torch.float32, "simt")
     with pytest.raises(TypeError):
         tfpe.plan(192, torch.float16)
     with pytest.raises(TypeError):
