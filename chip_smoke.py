@@ -118,6 +118,21 @@ Phases, in order; any failure raises and exits non-zero:
    0-1 against the CPU), the 24 blocks through ``_block(fused=True)`` at
    B=16 (kernel 2, equal to kernel 1), ViT-H through
    ``update_packed(fused_prep=True)`` in both dtypes (kernels 5 and 1);
+   then head dims above 128 and patches above 32 (``heads_patch_phase``,
+   alone: ``python -c "import chip_smoke as c; c.heads_patch_alone()"``):
+   kernels 3 and 4 at head dims 136, 192 and 256 in both dtypes (the
+   panel kernels; the plan's route and the other by name, timed beside
+   ``scaled_dot_product_attention`` and the bound), kernels 1 and 2 at
+   head dim 192 (D 768, 4 heads) and on Model A (ViT-L's width and depth
+   in 4 heads of 256, seeded: kernel 1 at (1, 320, 1024) x 24, bf16 after
+   the final LN against the float64 chain, kernel 2 at (16, 320, 1024),
+   timed), kernel 5 at patch 48 and 64 (K in pieces of patch rows; both
+   modes, timed); then their paths, the counts set to 0 before each part:
+   Model A's compiled steps in both dtypes, its blocks through
+   ``_block(fused=True)``, 3 ticks of a 16-slot engine (kernel 4) and 3
+   float32 train steps at depth 2 (kernel 4), each against the CPU, and
+   Model B (the flagship at patch 64) through compiled and eager
+   fused-prep steps in both dtypes (kernels 5 and 1);
 5. serving path, full width: the flagship behind a 16-slot ``SlotEngine``
    and a ``TrackServer`` on loopback; 4 ``TrackClient`` threads ``init``
    and ``update`` 10 frames each of seeded 1080p NV12 clips; an injected
@@ -587,7 +602,8 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper,
     the products as f32 FMA, as three TF32 products a product (the bound
     of ``tf32x3``, whose operations these are), and the bytes.
     ``simt_iters``: the launches ``simt`` is timed over (a few where it
-    takes a tenth of a second a launch); ``held``: ``check_kernel``'s."""
+    takes a tenth of a second a launch; 0: none, where ``simt`` does not
+    take the shape, a head dim above 128); ``held``: ``check_kernel``'s."""
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
     f32 = x.dtype == torch.float32
@@ -610,7 +626,7 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper,
     torch.cuda.synchronize()
     if not torch.equal(out_m, got):
         raise AssertionError(f"{what}: prepared() and the wrapper differ")
-    simt = f32 and variant != "simt"
+    simt = f32 and variant != "simt" and simt_iters > 0
     if simt:
         out_s, launch_simt = vit_block.prepared(
             x, weights, heads, stacked, chosen=vit_block.Plan("simt"))
@@ -2544,11 +2560,12 @@ def check_tokens(what, got, plain, dtype) -> float:
 
 
 def wide_prep(dev, card, cfg, params) -> dict:
-    """Kernel 5 at ViT-H's D 1280 in both dtypes on phase 3c's banded 1080p
-    case and a window inside a small frame: the wrapper (one launch, the
-    plan's variant) against both modes of its plain version, then on the
-    banded case its device us a launch (CUDA-graph replay) beside the plain
-    version, the unfused chain and the bound."""
+    """Kernel 5 of ``cfg`` (ViT-H's D 1280; a patch above 32) in both
+    dtypes on phase 3c's banded 1080p case and a window inside a small
+    frame: the wrapper (one launch, the plan's variant) against both modes
+    of its plain version, then on the banded case its device us a launch
+    (CUDA-graph replay) beside the plain version, the unfused chain and the
+    bound."""
     from gstreamer_vit_tracker_tpu_torch.models import vit
     from gstreamer_vit_tracker_tpu_torch.ops import fused_prep_embed as fpe
     from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
@@ -2566,6 +2583,9 @@ def wide_prep(dev, card, cfg, params) -> dict:
     for dt in (torch.bfloat16, torch.float32):
         c = dataclasses.replace(cfg, dtype=str(dt)[6:])
         chosen = fpe.plan(c.embed_dim, dt)
+        rows = fpe.piece_rows(c.patch_size, chosen.variant)
+        what = (f"fused_prep_embed D {c.embed_dim} patch {c.patch_size} "
+                f"({rows} patch rows a piece)")
         errs = []
         for y, uv, box in cases:
             win = pp.crop_window(torch.tensor(box, device=dev), c.search_factor)
@@ -2574,12 +2594,12 @@ def wide_prep(dev, card, cfg, params) -> dict:
             torch.cuda.synchronize()
             if fpe.VARIANT_LAUNCHES != dict(before, **{
                     chosen.variant: before[chosen.variant] + 1}):
-                raise AssertionError(f"kernel 5 D {c.embed_dim}: not one "
-                                     f"{chosen.variant} launch")
+                raise AssertionError(f"{what}: not one {chosen.variant} "
+                                     f"launch")
             errs += [check_tokens(
-                f"fused_prep_embed D {c.embed_dim} {c.dtype} {chosen.variant} "
-                f"{tiling_name(chosen)} W {chosen.width}, window {box}, mode "
-                f"{mode!r}", got, fpe.nv12_search_tokens_reference(
+                f"{what} {c.dtype} {chosen.variant} {tiling_name(chosen)} W "
+                f"{chosen.width}, window {box}, mode {mode!r}", got,
+                fpe.nv12_search_tokens_reference(
                     params, y, uv, win, c, mode), dt) for mode in fpe.MODES]
         y, uv, box = cases[0]
         win = pp.crop_window(torch.tensor(box, device=dev), c.search_factor)
@@ -2592,6 +2612,7 @@ def wide_prep(dev, card, cfg, params) -> dict:
             return vit.embed_search(params["backbone"], x_img[None], c)
 
         row = {"variant": chosen.variant, "plan": list(chosen),
+               "piece_rows": rows,
                "max_abs_err": max(errs), "device_us": graph_us(launch),
                "plain_ms": cuda_ms(lambda: fpe.nv12_search_tokens_reference(
                    params, y, uv, win, c), iters=10, warmup=2),
@@ -2602,7 +2623,7 @@ def wide_prep(dev, card, cfg, params) -> dict:
         row["device_us_again"] = graph_us(launch)
         row.update(prep_bound(win, y.shape, c))
         res[c.dtype] = row
-        print(f"fused_prep_embed D {c.embed_dim} {c.dtype} ({chosen}), 1080p "
+        print(f"{what} {c.dtype} ({chosen}), 1080p "
               f"banded: device us a launch (CUDA graph of {GRAPH_LAUNCHES}) "
               f"{row['device_us']:.2f} / {row['device_us_again']:.2f}; one "
               f"launch {row['launch_ms']:.4f} ms, plain "
@@ -2613,6 +2634,28 @@ def wide_prep(dev, card, cfg, params) -> dict:
               f"{row['mbytes']:.3f} MB -> {row['bytes_ms'] * 1e3:.3f} us) "
               f"| {card}", flush=True)
     return res
+
+
+def model_crops(dev, cfg, params) -> list:
+    """LN_CROPS encoder inputs of a model on the main-path clip: its
+    template tokens of frame 0 and the search tokens of frames 1 to
+    LN_CROPS around their drawn boxes, the model's own embed (the final-LN
+    yardstick's crops)."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    frames, boxes = nv12_clip(LN_CROPS + 1)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    z0 = core.init(params, clip[0], boxes[0], cfg, "nv12", dev).z_tok
+    crops = []
+    for i in range(1, LN_CROPS + 1):
+        win = pp.crop_window(torch.tensor(boxes[i], device=dev),
+                             cfg.search_factor)
+        tok = vit.embed_search(params["backbone"], core._prep_nv12(
+            clip[i], win, cfg.search_size, cfg)[None], cfg)
+        crops.append(torch.cat([z0[None], tok], dim=1).contiguous())
+    return crops
 
 
 def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
@@ -2632,9 +2675,7 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
     resident one (``forced_streamed``); the flagship's and small's outputs
     against FLAGSHIP_SHA256."""
     from gstreamer_vit_tracker_tpu_torch.models import vit
-    from gstreamer_vit_tracker_tpu_torch.ops import preprocess as pp
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
-    from gstreamer_vit_tracker_tpu_torch.tracker import core
 
     res = {"forced_streamed": forced_streamed(dev)}
     got = {k: digest(t) for k, t in flagship_outputs(dev).items()}
@@ -2647,16 +2688,7 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
     res["flagship_sha256"] = got
 
     heads, hidden = lcfg.num_heads, int(lcfg.embed_dim * lcfg.mlp_ratio)
-    frames, boxes = nv12_clip(LN_CROPS + 1)
-    clip = [core._frame_on(f, "nv12", dev) for f in frames]
-    z0 = core.init(lparams, clip[0], boxes[0], lcfg, "nv12", dev).z_tok
-    crops = []
-    for i in range(1, LN_CROPS + 1):
-        win = pp.crop_window(torch.tensor(boxes[i], device=dev),
-                             lcfg.search_factor)
-        tok = vit.embed_search(lparams["backbone"], core._prep_nv12(
-            clip[i], win, lcfg.search_size, lcfg)[None], lcfg)
-        crops.append(torch.cat([z0[None], tok], dim=1).contiguous())
+    crops = model_crops(dev, lcfg, lparams)
     x1, x16 = crops[0], torch.cat(crops, 0)
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt)[6:]
@@ -2705,6 +2737,98 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
     return res
 
 
+def compiled_steps(dev, card, label, lcfg, lparams, lcparams, steps) -> dict:
+    """``core.init`` then ``steps`` compiled ``update_packed_jit`` steps of
+    a model in bf16 and in float32, each on the card from the CPU's state
+    before it and held to the CPU's step (bf16 CPU_BOX_TOL /
+    CPU_SCORE_TOL, float32 SMALL_BOX_TOL / SMALL_SCORE_TOL), the counts set
+    to 0 just before the steps and read just after: kernel 1 once a step in
+    the plan's variant, nothing else (no ``simt``).  The model's graphs are
+    dropped at the end."""
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    cpu = torch.device("cpu")
+    res = {}
+    frames, boxes = nv12_clip(steps + 1)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    for dtype, tols in (("bfloat16", (CPU_BOX_TOL, CPU_SCORE_TOL)),
+                        ("float32", (SMALL_BOX_TOL, SMALL_SCORE_TOL))):
+        cfg = dataclasses.replace(lcfg, dtype=dtype)
+        variant = vit_block._VARIANTS[getattr(torch, dtype)]
+        cst = core.init(lcparams, frames[0], boxes[0], cfg, "nv12", cpu)
+        gst = core.init(lparams, clip[0], boxes[0], cfg, "nv12", dev)
+        d_z = (gst.z_tok.float().cpu() - cst.z_tok.float()).abs().max().item()
+        zero_counts()
+        worst_box = worst_score = 0.0
+        for i in range(steps):
+            held = type(cst)(*(t.to(dev) for t in cst))
+            _, gout = core.update_packed_jit(lparams, held, clip[i + 1], cfg,
+                                             "nv12", dev)
+            cst, cout = core.update_packed(lcparams, cst, frames[i + 1], cfg,
+                                           "nv12", cpu)
+            gout, cout = gout.cpu().numpy(), cout.numpy()
+            if not np.isfinite(gout).all():
+                raise AssertionError(f"{label} {dtype} step: non-finite")
+            worst_box = max(worst_box, float(np.abs(gout[:4] - cout[:4]).max()))
+            worst_score = max(worst_score, float(abs(gout[4] - cout[4])))
+        counts, by_variant = read_counts(), dict(vit_block.VARIANT_LAUNCHES)
+        print(f"{label} {dtype} compiled (init, then update_packed_jit, 1080p "
+              f"NV12): template tokens vs the CPU's max|d| {d_z:.3e}; "
+              f"{steps} steps each from the CPU's state: max|d bbox| "
+              f"{worst_box:.3e} px, max|d score| {worst_score:.3e} (tolerance "
+              f"{tols[0]} px, {tols[1]}); launches {counts} ({by_variant}) "
+              f"| {card}", flush=True)
+        if counts != dict(counts, vit_encoder=steps, vit_block=0,
+                          attention_single=0, attention_flash=0,
+                          fused_prep_embed=0) \
+                or by_variant != only(variant, steps):
+            raise AssertionError(f"{label} {dtype} compiled: launches {counts} "
+                                 f"{by_variant}, expected kernel 1 "
+                                 f"({variant}) once a step")
+        if worst_box > tols[0] or worst_score > tols[1]:
+            raise AssertionError(f"{label} {dtype} compiled step disagrees with "
+                                 f"the CPU")
+        res[f"step_{dtype}"] = {
+            "steps": steps, "variant": variant, "launches": counts,
+            "launches_by_variant": by_variant, "max_d_bbox_px": worst_box,
+            "max_d_score": worst_score, "template_max_abs_err": d_z}
+    core.update_packed_jit.drop(lparams)     # the model's graphs' buffers go
+    return res
+
+
+def block_path(dev, label, lcfg, lparams, seed) -> dict:
+    """A model's blocks in bf16 chained through
+    ``models/vit.py::_block(fused=True)`` at B=16 on seeded tokens, the
+    counts set to 0 just before and read just after: kernel 2 once a
+    block (``mma``), nothing else, the output equal to kernel 1's bit for
+    bit."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x16 = torch.randn((SERVE_SLOTS, lcfg.num_tokens, lcfg.embed_dim),
+                      generator=gen).to(dev, torch.bfloat16)
+    blocks = [vit.cast_params(p, torch.bfloat16)
+              for p in lparams["backbone"]["blocks"]]
+    zero_counts()
+    x = x16
+    for bp in blocks:
+        x = vit._block(x, bp, lcfg.num_heads, fused=True)
+    block_counts, by_variant = read_counts(), dict(vit_block.VARIANT_LAUNCHES)
+    same = torch.equal(x, vit_block.encoder(x16, blocks, lcfg.num_heads))
+    print(f"{label} bf16 block path: {lcfg.depth} blocks through "
+          f"_block(fused=True) at B={SERVE_SLOTS}: launches {block_counts} "
+          f"({by_variant}); equal to the encoder kernel bit for bit: {same}",
+          flush=True)
+    if block_counts != dict(block_counts, vit_encoder=0, vit_block=lcfg.depth,
+                            attention_single=0, attention_flash=0,
+                            fused_prep_embed=0) \
+            or by_variant != only("mma", lcfg.depth) or not same:
+        raise AssertionError(f"{label} block path: wrong launches or output")
+    return {"launches": block_counts, "launches_by_variant": by_variant}
+
+
 def wide_paths(dev, card, lcfg, lparams, lcparams, hcfg, hparams_load) -> dict:
     """The wide models on the paths a user calls, the counts set to 0 just
     before each part and read just after: ViT-L ``core.init`` then
@@ -2719,56 +2843,11 @@ def wide_paths(dev, card, lcfg, lparams, lcparams, hcfg, hparams_load) -> dict:
     to kernel 1 bit for bit); ViT-H (depth 4) through
     ``core.update_packed(fused_prep=True)`` in both dtypes (``prep_path``:
     kernel 5 at D 1280 and kernel 1 once a step)."""
-    from gstreamer_vit_tracker_tpu_torch.models import vit, weights
-    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
     from gstreamer_vit_tracker_tpu_torch.tracker import core, multi
 
     cpu = torch.device("cpu")
-    res = {}
-    frames, boxes = nv12_clip(WIDE_STEPS + 1)
-    clip = [core._frame_on(f, "nv12", dev) for f in frames]
-    for dtype, tols in (("bfloat16", (CPU_BOX_TOL, CPU_SCORE_TOL)),
-                        ("float32", (SMALL_BOX_TOL, SMALL_SCORE_TOL))):
-        cfg = dataclasses.replace(lcfg, dtype=dtype)
-        variant = vit_block._VARIANTS[getattr(torch, dtype)]
-        cst = core.init(lcparams, frames[0], boxes[0], cfg, "nv12", cpu)
-        gst = core.init(lparams, clip[0], boxes[0], cfg, "nv12", dev)
-        d_z = (gst.z_tok.float().cpu() - cst.z_tok.float()).abs().max().item()
-        zero_counts()
-        worst_box = worst_score = 0.0
-        for i in range(WIDE_STEPS):
-            held = type(cst)(*(t.to(dev) for t in cst))
-            _, gout = core.update_packed_jit(lparams, held, clip[i + 1], cfg,
-                                             "nv12", dev)
-            cst, cout = core.update_packed(lcparams, cst, frames[i + 1], cfg,
-                                           "nv12", cpu)
-            gout, cout = gout.cpu().numpy(), cout.numpy()
-            if not np.isfinite(gout).all():
-                raise AssertionError(f"ViT-L {dtype} step: non-finite")
-            worst_box = max(worst_box, float(np.abs(gout[:4] - cout[:4]).max()))
-            worst_score = max(worst_score, float(abs(gout[4] - cout[4])))
-        counts, by_variant = read_counts(), dict(vit_block.VARIANT_LAUNCHES)
-        print(f"ViT-L {dtype} compiled (init, then update_packed_jit, 1080p "
-              f"NV12): template tokens vs the CPU's max|d| {d_z:.3e}; "
-              f"{WIDE_STEPS} steps each from the CPU's state: max|d bbox| "
-              f"{worst_box:.3e} px, max|d score| {worst_score:.3e} (tolerance "
-              f"{tols[0]} px, {tols[1]}); launches {counts} ({by_variant}) "
-              f"| {card}", flush=True)
-        if counts != dict(counts, vit_encoder=WIDE_STEPS, vit_block=0,
-                          attention_single=0, attention_flash=0,
-                          fused_prep_embed=0) \
-                or by_variant != only(variant, WIDE_STEPS):
-            raise AssertionError(f"ViT-L {dtype} compiled: launches {counts} "
-                                 f"{by_variant}, expected kernel 1 "
-                                 f"({variant}) once a step")
-        if worst_box > tols[0] or worst_score > tols[1]:
-            raise AssertionError(f"ViT-L {dtype} compiled step disagrees with "
-                                 f"the CPU")
-        res[f"step_{dtype}"] = {
-            "steps": WIDE_STEPS, "variant": variant, "launches": counts,
-            "launches_by_variant": by_variant, "max_d_bbox_px": worst_box,
-            "max_d_score": worst_score, "template_max_abs_err": d_z}
-    core.update_packed_jit.drop(lparams)     # the ViT-L graphs' buffers go
+    res = compiled_steps(dev, card, "ViT-L", lcfg, lparams, lcparams,
+                         WIDE_STEPS)
 
     # One 16-stream tick (kernel 3), streams 0-1 against the CPU's tick.
     clips = stream_clips(SERVE_SLOTS, 2)
@@ -2806,28 +2885,7 @@ def wide_paths(dev, card, lcfg, lparams, lcparams, hcfg, hparams_load) -> dict:
                    "max_d_bbox_px": d_box, "max_d_score": d_score}
 
     # The 24 blocks through _block(fused=True) at B=16 (kernel 2).
-    gen = torch.Generator(device="cpu").manual_seed(1024)
-    x16 = torch.randn((SERVE_SLOTS, lcfg.num_tokens, lcfg.embed_dim),
-                      generator=gen).to(dev, torch.bfloat16)
-    blocks = [vit.cast_params(p, torch.bfloat16)
-              for p in lparams["backbone"]["blocks"]]
-    zero_counts()
-    x = x16
-    for bp in blocks:
-        x = vit._block(x, bp, lcfg.num_heads, fused=True)
-    block_counts, by_variant = read_counts(), dict(vit_block.VARIANT_LAUNCHES)
-    same = torch.equal(x, vit_block.encoder(x16, blocks, lcfg.num_heads))
-    print(f"ViT-L bf16 block path: {lcfg.depth} blocks through "
-          f"_block(fused=True) at B={SERVE_SLOTS}: launches {block_counts} "
-          f"({by_variant}); equal to the encoder kernel bit for bit: {same}",
-          flush=True)
-    if block_counts != dict(block_counts, vit_encoder=0, vit_block=lcfg.depth,
-                            attention_single=0, attention_flash=0,
-                            fused_prep_embed=0) \
-            or by_variant != only("mma", lcfg.depth) or not same:
-        raise AssertionError("ViT-L block path: wrong launches or output")
-    res["block_path"] = {"launches": block_counts,
-                         "launches_by_variant": by_variant}
+    res["block_path"] = block_path(dev, "ViT-L", lcfg, lparams, seed=1024)
 
     # ViT-H through update_packed(fused_prep=True) in both dtypes.
     pframes, pboxes = nv12_clip(WIDE_PREP_STEPS + 1)
@@ -2875,6 +2933,403 @@ def wide_alone() -> dict:
     got = wide_phase(dev, card)
     print(json.dumps(got), flush=True)
     return got
+
+
+# ---------------------------------------------------------------------------
+# Phase 4e: head dims above 128 and patches above 32
+# ---------------------------------------------------------------------------
+
+# Model A: ViT-L/16's width, depth and MLP (WIDE_L) in 4 heads of 256, the
+# head dim of Gemma 7B's attention (Gemma Team 2024, Table 1), where the
+# attention of kernels 1-4 runs in 64-column panels; Model B: the flagship
+# (ModelConfig()) at patch 64, its crops of 4 template and 16 search tokens,
+# where kernel 5 walks its K in pieces of patch rows.  Both on seeded
+# weights (random_flat); Model B's drawn at HEADS_B_STD, since at
+# random_flat's 0.02 its 4 x 4 score map is flat to a few 1e-4 and the
+# step's argmax a near-tie that another summation order of the same
+# function can move by a 64-pixel cell.
+HEADS_A = dict(embed_dim=1024, depth=24, num_heads=4)
+HEADS_B = dict(patch_size=64)
+HEADS_B_STD = 0.05
+HEADS_STEPS = 3           # compiled Model A steps a dtype, each from the CPU's state
+HEADS_TICKS = 3           # ticks of a 16-slot engine, Model A bf16
+HEADS_CPU_SLOTS = 2       # slots of each tick held to the CPU engine
+HEADS_TRAIN = dict(steps=3, depth=2, batch=4)   # Model A float32 train_step s
+HEADS_PREP_STEPS = 5      # Model B steps a route and a dtype
+HEADS_ATT_DH = (136, 192, 256)
+# Kernel 5 at a patch above 32: (patch, search), template search / 2.
+HEADS_PATCHES = ((48, 192), (64, 256))
+
+
+def panel_attention_case(bh, s, dh, dtype, dev, route=None,
+                         timed=False) -> dict:
+    """Kernels 3 and 4 at a head dim above 128 on seeded (bh, s, dh)
+    tensors against ``attention_reference``: ``flash_attention`` (the
+    plan's route, one launch) or, with ``route``, that route by name on
+    ready operands (``prepared``).  ``timed``: device us a launch in a
+    replayed CUDA graph beside ``scaled_dot_product_attention``'s, the
+    plain version's ms and the bound (bf16 at bf16's rate, float32 as split
+    TF32's three products at TF32's; every input read and the output
+    written once)."""
+    from gstreamer_vit_tracker_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cpu").manual_seed(1000 * s + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=gen).to(dev, dtype)
+               for _ in range(3))
+    plain = attention.attention_reference(q, k, v)
+    chosen = attention._plan_for(dev, s, dh, dtype, bh)
+    if route is not None and route != chosen.route:
+        chosen = chosen._replace(route=route,
+                                 stages=0 if route == "single" else 2)
+    before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
+    if route is None:
+        out = attention.flash_attention(q, k, v)
+    else:
+        out, launch = attention.prepared(q, k, v, chosen=chosen)
+        launch()
+        out = out[..., :dh]
+    torch.cuda.synchronize()
+    if attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES != before + 1:
+        raise AssertionError("panel attention did not launch once")
+    err = (out.float() - plain.float()).abs().max().item()
+    tol = (ATT_F32_ATOL if dtype == torch.float32
+           else ATT_BF16_REL * plain.float().abs().max().item())
+    name = (f"attention_{chosen.route} ({bh}, {s}, {dh}) {str(dtype)[6:]} "
+            f"{chosen.variant}{' by name' if route else ''}, pad "
+            f"{chosen.pad or 'none'}")
+    print(f"{name}: max|d| {err:.3e} (tolerance {tol:.3e})", flush=True)
+    if out.dtype != dtype or not torch.isfinite(out.float()).all() \
+            or not err <= tol:
+        raise AssertionError(f"{name} disagrees with attention_reference")
+    res = {"shape": [bh, s, dh], "route": chosen.route,
+           "variant": chosen.variant, "pad": chosen.pad, "max_abs_err": err}
+    if not timed:
+        return res
+    _, launch = attention.prepared(q, k, v, chosen=chosen)
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4)
+
+    res["device_us"] = graph_us(launch)
+    res["library_device_us"] = graph_us(library)
+    res["device_us_again"] = graph_us(launch)
+    res["ms"] = cuda_ms(launch)
+    res["plain_ms"] = cuda_ms(lambda: attention.attention_reference(q, k, v),
+                              iters=20, warmup=3)
+    res["library_ms"] = cuda_ms(library)
+    flops = 4 * s * s * dh * bh
+    nbytes = 4 * q.numel() * q.element_size()
+    t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+    t_ops = (3 * flops / H100_TF32_FLOPS if dtype == torch.float32
+             else flops / H100_BF16_FLOPS) * 1e3
+    res["bound_ms"] = max(t_ops, t_bytes)
+    res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"{name} ms (CUDA events): one launch on ready operands "
+          f"{res['ms']:.4f}, plain {res['plain_ms']:.4f}, "
+          f"scaled_dot_product_attention {res['library_ms']:.4f}; device us a "
+          f"launch (CUDA graph of {GRAPH_LAUNCHES}): {res['device_us']:.2f} / "
+          f"{res['device_us_again']:.2f}, scaled_dot_product_attention "
+          f"{res['library_device_us']:.2f}; bound {res['bound_ms'] * 1e3:.2f} "
+          f"us by {res['bound_by']} ({flops / 1e9:.3f} GFLOP -> "
+          f"{t_ops * 1e3:.2f} us, {nbytes / 1e6:.2f} MB -> "
+          f"{t_bytes * 1e3:.2f} us) | {card_line()}", flush=True)
+    return res
+
+
+def panel_attention(dev) -> dict:
+    """Kernels 3 and 4 at head dims 136, 192 and 256 in both dtypes: at
+    each dh the plan's route at S 320 (Model A's shapes: bf16 its 16-slot
+    tick's (64, 320, dh), float32 its training batch's (16, 320, dh); flash
+    at every one) timed; at a short S both routes, the plan's and the other
+    by name where its CTA fits the card, single timed: bf16 at S 100 (the
+    plan's single, flash by name), float32 at S 64 (the plan's flash,
+    single by name)."""
+    from gstreamer_vit_tracker_tpu_torch.ops import attention
+
+    optin = attention.card(dev)[0]
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        bh = SERVE_SLOTS * HEADS_A["num_heads"] if dtype == torch.bfloat16 \
+            else HEADS_TRAIN["batch"] * HEADS_A["num_heads"]
+        for dh in HEADS_ATT_DH:
+            cases = [panel_attention_case(bh, 320, dh, dtype, dev,
+                                          timed=True)]
+            short = 100 if dtype == torch.bfloat16 else 64
+            plan = attention._plan_for(dev, short, dh, dtype, bh)
+            for route in ("single", "flash"):
+                pad = plan.pad or dh
+                if route == plan.route or attention.smem_bytes(
+                        route, plan.variant, short, pad, 0, 64,
+                        0 if route == "single" else 2) <= optin:
+                    cases.append(panel_attention_case(
+                        bh, short, dh, dtype, dev,
+                        None if route == plan.route else route,
+                        timed=route == "single"))
+            res[f"dh{dh}_{name}"] = cases
+    return res
+
+
+def panel_encoders(dev, card, acfg, aparams) -> dict:
+    """Kernels 1 and 2 at head dims above 128: Model A's kernel 1 at (1,
+    320, 1024) x 24 on the real tokens of LN_CROPS search crops of the
+    main-path clip in bf16 (after the final LN against the float64 chain,
+    as ``wide_kernels`` holds ViT-L's) and float32 (F32_ATOL), kernel 2 at
+    (16, 320, 1024) in both, each timed (``timed_kernel``: the library, the
+    bound; no ``simt``, which stops at a head dim of 128); and at dh 192 (D
+    768, 4 heads, 2 seeded blocks) kernel 1 at (1, 320, 768) and kernel 2
+    at (16, 320, 768) in both dtypes against the twin."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    heads, hidden = acfg.num_heads, int(acfg.embed_dim * acfg.mlp_ratio)
+    crops = model_crops(dev, acfg, aparams)
+    x1, x16 = crops[0], torch.cat(crops, 0)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        blocks = [vit.cast_params(p, dt) for p in aparams["backbone"]["blocks"]]
+        for x, stacked in ((x1.to(dt), True), (x16.to(dt), False)):
+            chosen = vit_block._plan_for(x, heads, hidden)
+            print(f"Model A {name} plan at batch {x.shape[0]}: {chosen}",
+                  flush=True)
+            if chosen.variant != vit_block._VARIANTS[dt] \
+                    or (chosen.pad or 256) != 256:
+                raise AssertionError(f"Model A {name}: the plan is {chosen}")
+            if stacked:
+                key, row = f"kernel1_{name}", timed_kernel(
+                    f"encoder Model A {tuple(x.shape)} x {acfg.depth} dh 256 "
+                    f"{name}", x, blocks, heads, True,
+                    lambda x=x, b=blocks: vit_block.encoder(x, b, heads),
+                    simt_iters=0, held=dt == torch.float32)
+            else:
+                key, row = f"kernel2_{name}", timed_kernel(
+                    f"block Model A {tuple(x.shape)} dh 256 {name}", x,
+                    [blocks[0]], heads, False,
+                    lambda x=x, b=blocks[0]: vit_block.block(x, b, heads),
+                    simt_iters=0)
+            res[key] = dict(row, plan=list(chosen))
+        if dt == torch.bfloat16:
+            res["kernel1_bfloat16"]["final_ln"] = final_ln_check(
+                acfg, aparams, blocks, [c.to(dt) for c in crops], x1.to(dt))
+    del crops, x16
+    for dt in (torch.bfloat16, torch.float32):
+        blocks, xa, xb = seeded_blocks(dev, 768, 2, dt, 192)
+        before = dict(vit_block.VARIANT_LAUNCHES)
+        got = vit_block.encoder(xa, blocks, 4)
+        one = vit_block.block(xb, blocks[0], 4)
+        variant = vit_block._VARIANTS[dt]
+        if vit_block.VARIANT_LAUNCHES != dict(before, **{
+                variant: before[variant] + 2}):
+            raise AssertionError("dh 192: not one launch each of the plan's "
+                                 "variant")
+        res[f"dh192_{str(dt)[6:]}"] = {
+            "encoder": check_kernel(
+                f"encoder (1, 320, 768) x 2, 4 heads of 192, {str(dt)[6:]}",
+                got, vit_block.encoder_reference(xa, blocks, 4), dt),
+            "block": check_kernel(
+                f"block (16, 320, 768), 4 heads of 192, {str(dt)[6:]}", one,
+                vit_block.block_reference(xb, blocks[0], 4), dt)}
+    return res
+
+
+def panel_tick(dev, card, acfg, aparams, acparams) -> dict:
+    """Model A in bf16 behind a 16-slot ``SlotEngine`` (its compiled tick:
+    the per-block route, whose attention is kernel 3 or 4 as the plan gives
+    it at (64, 320, 256): flash) over HEADS_TICKS ticks of 1080p NV12, slots
+    0 to HEADS_CPU_SLOTS - 1 of each held to the port's CPU engine given
+    the card's state before the tick; the counts set to 0 just before the
+    ticks and read just after: the plan's attention kernel depth times a
+    tick, nothing else."""
+    from gstreamer_vit_tracker_tpu_torch.ops import attention
+    from gstreamer_vit_tracker_tpu_torch.serve import SlotEngine
+
+    cpu, n = torch.device("cpu"), HEADS_CPU_SLOTS
+    dh = acfg.embed_dim // acfg.num_heads
+    route = attention._plan_for(dev, acfg.num_tokens, dh, torch.bfloat16,
+                                SERVE_SLOTS * acfg.num_heads).route
+    engine = SlotEngine(aparams, acfg, slots=SERVE_SLOTS, snapshot_every=0,
+                        device=dev)
+    cpu_engine = SlotEngine(acparams, acfg, slots=n, snapshot_every=0,
+                            device=cpu)
+    cpu_engine.occupied[:] = True
+    clips = stream_clips(SERVE_SLOTS, HEADS_TICKS + 1)
+    for k in range(SERVE_SLOTS):
+        engine.init_slot(engine.alloc(), clips[k][0][0], clips[k][1][0])
+    active = np.ones(SERVE_SLOTS, bool)
+    worst_box = worst_score = 0.0
+    zero_counts()
+    for t in range(1, HEADS_TICKS + 1):
+        ys = np.stack([clips[k][0][t][0] for k in range(SERVE_SLOTS)])
+        uvs = np.stack([clips[k][0][t][1] for k in range(SERVE_SLOTS)])
+        cpu_engine.state = type(engine.state)(
+            *(leaf[:n].to(cpu, copy=True) for leaf in engine.state))
+        packed = engine.step((ys, uvs), active)
+        want = cpu_engine.step((ys[:n], uvs[:n]), np.ones(n, bool))
+        if packed.shape != (SERVE_SLOTS, 5) or not np.isfinite(packed).all():
+            raise AssertionError("Model A tick: non-finite or misshapen")
+        worst_box = max(worst_box, float(np.abs(packed[:n, :4]
+                                                - want[:, :4]).max()))
+        worst_score = max(worst_score, float(np.abs(packed[:n, 4]
+                                                    - want[:, 4]).max()))
+    counts = read_counts()
+    want_counts = dict(counts, vit_encoder=0, vit_block=0, attention_single=0,
+                       attention_flash=0, fused_prep_embed=0)
+    want_counts[f"attention_{route}"] = acfg.depth * HEADS_TICKS
+    print(f"Model A bf16 engine: {HEADS_TICKS} compiled ticks x {SERVE_SLOTS} "
+          f"slots of 1080p NV12 (the plan's attention route {route}); slots "
+          f"0-{n - 1} against the CPU engine from the card's state: max|d "
+          f"bbox| {worst_box:.4f} px, max|d score| {worst_score:.5f} "
+          f"(tolerance {CPU_BOX_TOL} px, {CPU_SCORE_TOL}); launches {counts} "
+          f"| {card}", flush=True)
+    if counts != want_counts:
+        raise AssertionError(f"Model A tick: launches {counts}, expected "
+                             f"attention_{route} depth times a tick")
+    if worst_box > CPU_BOX_TOL or worst_score > CPU_SCORE_TOL:
+        raise AssertionError("Model A tick disagrees with the CPU")
+    return {"ticks": HEADS_TICKS, "route": route, "launches": counts,
+            "max_d_bbox_px": worst_box, "max_d_score": worst_score}
+
+
+def panel_train(dev, card) -> dict:
+    """Model A's width and heads in float32 at depth HEADS_TRAIN["depth"]:
+    HEADS_TRAIN["steps"] compiled ``train_step`` s at batch
+    HEADS_TRAIN["batch"] from seeded weights on seeded crops, beside the
+    port's CPU run of the same steps (losses within TRAIN_LOSS_RTOL); the
+    counts set to 0 just before the steps: kernel 4 (the plan's route at
+    (batch x 4, 320, 256)) depth times a step, nothing else."""
+    from gstreamer_vit_tracker_tpu_torch.config import ModelConfig
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.ops import attention
+    from gstreamer_vit_tracker_tpu_torch.train import step as train
+
+    cfg = dataclasses.replace(ModelConfig(), dtype="float32",
+                              **dict(HEADS_A, depth=HEADS_TRAIN["depth"]))
+    steps, batch = HEADS_TRAIN["steps"], HEADS_TRAIN["batch"]
+    flat = random_flat(cfg, seed=256)
+    z, x, gt = train_batch(cfg, batch, seed=32)
+    opt = train.make_optimizer(TRAIN_LR)
+    route = attention._plan_for(dev, cfg.num_tokens, 256, torch.float32,
+                                batch * cfg.num_heads).route
+    losses = {}
+    for d in (dev, torch.device("cpu")):
+        state = train.create_train_state(
+            weights.params_from_flat(flat, cfg, device=d), opt=opt)
+        zero_counts()
+        losses[d.type] = []
+        for _ in range(steps):
+            state, loss, _ = train.train_step(state, z, x, gt, cfg, opt=opt,
+                                              device=d)
+            losses[d.type].append(float(loss))
+        if d.type == "cuda":
+            counts = read_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    want = dict(counts, vit_encoder=0, vit_block=0, attention_single=0,
+                attention_flash=0, fused_prep_embed=0)
+    want[f"attention_{route}"] = cfg.depth * steps
+    print(f"Model A float32 training at depth {cfg.depth}, batch {batch}: "
+          f"{steps} compiled train_steps, loss on the card "
+          f"{losses['cuda']}, on the CPU {losses['cpu']}, max relative "
+          f"difference {rel:.2e} (tolerance {TRAIN_LOSS_RTOL}); launches "
+          f"{counts} (the plan's route {route}) | {card}", flush=True)
+    if counts != want or not np.isfinite(losses["cuda"]).all() \
+            or rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"Model A training: launches {counts} or losses "
+                             f"{losses}")
+    return {"steps": steps, "depth": cfg.depth, "batch": batch,
+            "route": route, "launches": counts, "losses": losses,
+            "loss_rel_vs_cpu": rel}
+
+
+def heads_patch_phase(dev, card: str) -> dict:
+    """Head dims above 128 (kernels 1-4, Model A) and patches above 32
+    (kernel 5, Model B): the kernels against their plain versions in both
+    dtypes and timed (``panel_attention``, ``panel_encoders``, kernel 5 at
+    patch 48 and 64 through ``wide_prep``), then the paths a user calls,
+    the counts set to 0 just before each part and read just after: Model A
+    ``core.init`` and HEADS_STEPS compiled ``update_packed_jit`` steps in
+    bf16 and float32 from the CPU's state (``compiled_steps``: kernel 1
+    once a step), its 24 blocks through ``_block(fused=True)`` at B=16
+    (``block_path``: kernel 2), HEADS_TICKS ticks of a 16-slot engine
+    (``panel_tick``: kernel 4), HEADS_TRAIN float32 train steps
+    (``panel_train``: kernel 4); Model B through HEADS_PREP_STEPS compiled
+    ``update_scan_pool(fused_prep=True)`` and eager
+    ``update_packed(fused_prep=True)`` steps in both dtypes (``prep_path``:
+    kernels 5 and 1 once a step).  No float32 path launches ``simt``."""
+    from gstreamer_vit_tracker_tpu_torch.config import ModelConfig
+    from gstreamer_vit_tracker_tpu_torch.models import weights
+    from gstreamer_vit_tracker_tpu_torch.profile_prep import seeded_params
+    from gstreamer_vit_tracker_tpu_torch.tracker import core
+
+    t_phase = time.perf_counter()
+    acfg, aparams, acparams = wide_model(dev, HEADS_A, seed=256)
+    res = {"attention": panel_attention(dev),
+           "encoders": panel_encoders(dev, card, acfg, aparams),
+           "kernel5": {}}
+    for patch, search in HEADS_PATCHES:
+        c = dataclasses.replace(ModelConfig(), patch_size=patch,
+                                search_size=search, template_size=search // 2)
+        res["kernel5"][f"patch{patch}"] = wide_prep(
+            dev, card, c, seeded_params(c, dev, patch))
+    paths = compiled_steps(dev, card, "Model A", acfg, aparams, acparams,
+                           HEADS_STEPS)
+    paths["block_path"] = block_path(dev, "Model A", acfg, aparams, seed=256)
+    paths["tick"] = panel_tick(dev, card, acfg, aparams, acparams)
+    del aparams, acparams
+    paths["train"] = panel_train(dev, card)
+
+    bcfg = dataclasses.replace(ModelConfig(), **HEADS_B)
+    rng = np.random.default_rng(64)
+    bflat = {k: v if k.endswith(("/scale", "/bias")) else
+             (HEADS_B_STD * rng.standard_normal(v.shape)).astype(np.float32)
+             for k, v in random_flat(bcfg, seed=64).items()}
+    frames, boxes = nv12_clip(HEADS_PREP_STEPS + 1)
+    clip = [core._frame_on(f, "nv12", dev) for f in frames]
+    pool = tuple(torch.stack([c[i] for c in clip]) for i in (0, 1))
+    for dtype, tols in (("bfloat16", (CPU_BOX_TOL, CPU_SCORE_TOL)),
+                        ("float32", (SMALL_BOX_TOL, SMALL_SCORE_TOL))):
+        cfg = dataclasses.replace(bcfg, dtype=dtype)
+        _, paths[f"model_b_{dtype}"] = prep_path(
+            dev, f"Model B (patch 64) {dtype}", cfg,
+            lambda d, cfg=cfg: weights.params_from_flat(bflat, cfg, device=d),
+            HEADS_PREP_STEPS, ("compiled", "eager"), tols, frames, boxes,
+            clip, pool)
+    res["paths"] = paths
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"head dims and patches phase: {res['seconds']:.1f} s | {card}",
+          flush=True)
+    return res
+
+
+def heads_patch_alone() -> dict:
+    """:func:`heads_patch_phase` on card 0 and nothing else, after the
+    build, with the flagship's and ``small``'s kernel outputs against
+    FLAGSHIP_SHA256.  Run from the root of a checkout: ``python -c "import
+    chip_smoke as c; c.heads_patch_alone()"``."""
+    from gstreamer_vit_tracker_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    card = card_line()
+    print(f"head dims and patches alone | build "
+          f"{json.dumps({k: round(v, 2) for k, v in built.items()})} total "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+    got = {k: digest(t) for k, t in flagship_outputs(dev).items()}
+    print(f"flagship and small kernel 1 / 2 / 5 outputs bit-equal to the "
+          f"build before: {got == FLAGSHIP_SHA256} {json.dumps(got)}",
+          flush=True)
+    if got != FLAGSHIP_SHA256:
+        raise AssertionError("the flagship's or small's kernel outputs are no "
+                             "longer bit-equal to the build before")
+    res = heads_patch_phase(dev, card)
+    print(json.dumps(res), flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -5903,6 +6358,8 @@ def main() -> int:
     prep_paths = prep_paths_phase(dev, card)
     wide = wide_phase(dev, card)
     wk, wp = wide["kernels"], wide["paths"]
+    heads = heads_patch_phase(dev, card)
+    ha, he, hp = heads["attention"], heads["encoders"], heads["paths"]
 
     # -- 5, 6. the serving paths --------------------------------------------
     serve = serve_phase(dev, "vittrack-t")
@@ -6000,6 +6457,16 @@ def main() -> int:
                 for t in ("bfloat16", "float32")},
             "forced_streamed_bit_equal": wk["forced_streamed"],
             "flagship_sha256": wk["flagship_sha256"]},
+        "heads_above_128": {
+            **{f"model_a_{t}": {**{k: he[f"kernel1_{t}"][k]
+                                   for k in TIMED_KEYS + ("plan",)},
+                                "step": hp[f"step_{t}"]}
+               for t in ("bfloat16", "float32")},
+            "final_ln": he["kernel1_bfloat16"]["final_ln"],
+            "dh192_max_abs_err": {t: he[f"dh192_{t}"]["encoder"]
+                                  for t in ("bfloat16", "float32")},
+            "model_b_launches": {t: hp[f"model_b_{t}"]["compiled"][
+                "kernel1_variants"] for t in ("bfloat16", "float32")}},
     }, {
         "name": "attention_single",
         "route": "cuda",
@@ -6050,6 +6517,8 @@ def main() -> int:
                            "attention_single"],
                        "ticks": SMALL_BF16_TICKS},
         "wide_tick": wp["tick"],
+        "heads_above_128": {k: [c for c in v if c["route"] == "single"]
+                            for k, v in ha.items()},
     }, {
         "name": "attention_flash",
         "route": "cuda",
@@ -6093,6 +6562,10 @@ def main() -> int:
                        "long_launches": small_bf16["long"]["launches"][
                            "attention_flash"],
                        "long_ticks": SMALL_BF16_LONG_TICKS},
+        "heads_above_128": {
+            **{k: [c for c in v if c["route"] == "flash"]
+               for k, v in ha.items()},
+            "model_a_tick": hp["tick"], "model_a_train": hp["train"]},
     }, {
         "name": "vit_block",
         "route": "cuda",
@@ -6114,6 +6587,13 @@ def main() -> int:
                  "f32": {k: wk["kernel2_float32"][k]
                          for k in TIMED_F32_KEYS + ("plan",)},
                  "path": wp["block_path"]},
+        "heads_above_128": {
+            **{f"model_a_{t}": {k: he[f"kernel2_{t}"][k]
+                                for k in TIMED_KEYS + ("plan",)}
+               for t in ("bfloat16", "float32")},
+            "dh192_max_abs_err": {t: he[f"dh192_{t}"]["block"]
+                                  for t in ("bfloat16", "float32")},
+            "path": hp["block_path"]},
     }, {
         "name": "fused_prep_embed",
         "route": "cuda",
@@ -6161,10 +6641,16 @@ def main() -> int:
         "wide": {t: {**wk["kernel5"][t],
                      "path": wp[f"vit_h_{t}"]["eager"]["kernel5_variants"]}
                  for t in ("bfloat16", "float32")},
+        "patch_above_32": {
+            **heads["kernel5"],
+            "model_b_paths": {t: {r: hp[f"model_b_{t}"][r]["kernel5_variants"]
+                                  for r in ("compiled", "eager")}
+                              for t in ("bfloat16", "float32")}},
     }]
     print(f"fused route summary: {json.dumps(fused)}")
     print(f"kernel-5 paths summary: {json.dumps(prep_paths)}")
     print(f"wide widths summary: {json.dumps(wide)}")
+    print(f"head dims and patches summary: {json.dumps(heads)}")
     print(f"training summary: {json.dumps(training)}")
     print(f"serving summary: {json.dumps(serve)}")
     print(f"app summary: {json.dumps(app)}")

@@ -23,7 +23,8 @@
 // (batch, head) is 1.26 GFLOP, 1.3 us at the 989 TFLOP/s tensor-core peak, and
 // q, k, v, out once are 7.9 MB, 2.3 us at 3.35 TB/s: bound by bytes.
 //
-// Variant "mma" (bf16, head dim 32, 64 or 128; tile code in attention_mma.cuh):
+// Variant "mma" (bf16, head dim 32, 64 or 128, and above 128 a multiple of
+// 64 in panels, below; tile code in attention_mma.cuh):
 // one warpgroup a CTA owns 64 query rows.  Both products run on the tensor
 // cores with wgmma; K and V sit in shared memory as they lie in device memory
 // (16-byte cp.async into the swizzled layout the descriptors name, no
@@ -43,9 +44,10 @@
 // products and softmax running one after the other inside a warpgroup, and
 // the launch.
 //
-// Variant "tf32x3" (float32, every head dim; tile code in
-// attention_tf32.cuh): the TPU kernels' function to float32's accuracy on the
-// tensor cores.  Bound at the training shape (48, 320, 64) f32: the 1.258
+// Variant "tf32x3" (float32, every head dim that is a multiple of 8, above
+// 128 in panels; tile code in attention_tf32.cuh): the TPU kernels'
+// function to float32's accuracy on the tensor cores.  Bound at the
+// training shape (48, 320, 64) f32: the 1.258
 // GFLOP take 18.8 us at the 67 TFLOP/s of f32 FMA, and 7.6 us as three TF32
 // products a product (3.77 GFLOP at 495 TFLOP/s); q, k, v, out once are 15.7
 // MB, 4.7 us at 3.35 TB/s: bound by the split products.  One TF32 product
@@ -72,6 +74,11 @@
 // odd word stride, V as is, the f32 scores of the CTA's rows too (16 warps x 4
 // rows for single, 8 x 4 and 128-key blocks for flash).
 //
+// Above a head dim of 128 both tensor-core variants run the panel kernels
+// (their section below): a CTA owns one 64-column panel of o and sums its
+// scores over the panels of q and k, so its registers and shared memory are
+// one panel's whatever the head dim.
+//
 // Which (dtype, dh) takes which variant, and which lengths take which kernel,
 // is decided by ops/attention.py::plan before the launch; the entries here
 // launch what they are told or return an error.  Launches go to the caller's
@@ -94,8 +101,10 @@ using bf16 = __nv_bfloat16;
 // A CTA has W warps, each carrying R query rows together: W * R rows a CTA.
 constexpr int kKeys = 4;         // keys a lane scores together: two pairs
 constexpr int kKb = 128;         // keys per staged block of the flash kernel
-constexpr int kMaxHeadDim = 128;
-constexpr int kPairs = kMaxHeadDim / 64;   // head-dim pairs a lane owns
+// Head dims up to it run in one tile (every variant; "simt" stops there),
+// above it in panels of 64 columns ("mma", "tf32x3": the panel kernels).
+constexpr int kMaxTileDh = 128;
+constexpr int kPairs = kMaxTileDh / 64;   // head-dim pairs a lane owns
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -648,6 +657,119 @@ attention_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict
 }
 
 // ---------------------------------------------------------------------------
+// Head dims above 128, both variants: the head dim in panels of 64 columns.
+// CTA = one warpgroup = (64 query rows, batch, head, one 64-column panel of
+// o); blockIdx.x runs over tiles x batch x heads x panels, the panels fastest
+// (the CTAs that read the same q and k rows run side by side).  A key
+// block's scores are summed over the panels of q and k, one panel pair at a
+// time, into the score accumulator; once the last pair is in, the block
+// takes the online softmax of a head dim of 64 (Softmax::update) and P.V
+// adds the CTA's own V panel.  Every CTA takes every score its panel needs,
+// so a head dim of P panels computes its scores P times over: the price of
+// holding a CTA's registers and shared memory to one panel whatever the
+// head dim (o of 64 rows x dh in f32 is dh / 2 registers a thread, 128 at
+// dh 256, and ModelConfig(num_heads=1) at D 1024 has dh 1024).  Keeping o
+// in shared memory instead grows with dh just the same.
+//   SINGLE: every q panel, every key block's k panels and its V panel of
+//   the CTA resident at once, one wait (the single kernels' design; the plan
+//   takes it while two such CTAs fit an SM); else a ring of two stages, a
+//   stage one q panel, one k panel and, on a key block's last panel, the V
+//   panel, the next step's copies in flight while one is computed.
+// "mma" takes dh a multiple of 64 (ops/attention.py zero-pads to one);
+// "tf32x3" a multiple of 8, a ragged last panel zero-filled in shared memory
+// and its columns past dh not stored.
+// ---------------------------------------------------------------------------
+
+constexpr int kPanelKeys = 64;   // keys a block of the panel kernels
+
+template <bool SINGLE>
+__global__ void __launch_bounds__(mma::kThreads)
+attention_panels_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ out, Strides st,
+                            int S, int heads, int tiles, int panels, float c) {
+  using T = mma::Tile<64>;
+  constexpr int KB = kPanelKeys;
+  constexpr uint32_t kQBytes = T::bytes(mma::kTileRows), kKBytes = T::bytes(KB);
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* base = aligned_smem(raw);
+  const uint32_t smem0 = mma::smem_addr(base);
+  const int blocks = (S + KB - 1) / KB, steps = blocks * panels;
+  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
+  const int bh = rest / tiles, q0 = (rest - bh * tiles) * mma::kTileRows;
+  const int b = bh / heads, h = bh - b * heads;
+  q += b * st.q[0] + h * st.q[1];
+  k += b * st.k[0] + h * st.k[1];
+  v += b * st.v[0] + h * st.v[1];
+  // The q, k and V tiles of step t = j . panels + p (key block j, panel p).
+  const auto tiles_of = [&](int t, uint32_t& qa, uint32_t& ka, uint32_t& va) {
+    const int j = t / panels, p = t - j * panels;
+    if constexpr (SINGLE) {
+      qa = smem0 + p * kQBytes;
+      ka = smem0 + panels * kQBytes + t * kKBytes;
+      va = smem0 + panels * kQBytes + (steps + j) * kKBytes;
+    } else {
+      qa = smem0 + (t & 1) * (kQBytes + 2 * kKBytes);
+      ka = qa + kQBytes;
+      va = ka + kKBytes;
+    }
+  };
+  const auto fill = [&](int t) {
+    const int j = t / panels, p = t - j * panels;
+    uint32_t qa, ka, va;
+    tiles_of(t, qa, ka, va);
+    if (!SINGLE || j == 0)
+      T::template fill<mma::kTileRows, mma::kThreads>(qa, q + p * 64, st.q[2], q0, S);
+    T::template fill<KB, mma::kThreads>(ka, k + p * 64, st.k[2], j * KB, S);
+    if (p == panels - 1) T::template fill<KB, mma::kThreads>(va, v + op * 64, st.v[2], j * KB, S);
+  };
+  if constexpr (SINGLE) {
+    for (int t = 0; t < steps; ++t) fill(t);
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();
+    mma::fence_async_proxy();
+    __syncthreads();
+  } else {
+    fill(0);
+    mma::cp_async_commit();
+  }
+
+  mma::Softmax<64, KB> sm;
+  sm.init();
+  float s[KB / 2];
+  for (int t = 0; t < steps; ++t) {
+    if constexpr (!SINGLE) {
+      mma::cp_async_wait<0>();                 // step t has landed
+      mma::fence_async_proxy();
+      __syncthreads();                         // ... for all; the other stage is free
+      if (t + 1 < steps) fill(t + 1);
+      mma::cp_async_commit();
+    }
+    const int j = t / panels, p = t - j * panels;
+    uint32_t qa, ka, va;
+    tiles_of(t, qa, ka, va);
+    sm.scores(s, qa, ka, p != 0);
+    if (p == panels - 1) sm.update(s, va, j * KB, S, c);
+  }
+  sm.store(base, out + b * st.o[0] + h * st.o[1] + op * 64, st.o[2], q0, S);
+}
+
+template <bool SINGLE>
+__global__ void __launch_bounds__(tf32x3::kThreads)
+attention_panels_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ out, Strides st,
+                             int S, int heads, int tiles, int dh, float c) {
+  extern __shared__ __align__(16) float tile_mem[];
+  const int panels = (dh + tf32x3::kPanel - 1) / tf32x3::kPanel;
+  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
+  const int bh = rest / tiles, q0 = (rest - bh * tiles) * tf32x3::kRows;
+  const int b = bh / heads, h = bh - b * heads;
+  tf32x3::panel_cta<tf32x3::Softmax<tf32x3::kPanel>, SINGLE>(
+      tile_mem, q + b * st.q[0] + h * st.q[1], st.q[2], k + b * st.k[0] + h * st.k[1],
+      st.k[2], v + b * st.v[0] + h * st.v[1], st.v[2], out + b * st.o[0] + h * st.o[1],
+      st.o[2], S, q0, dh, op, c);
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
@@ -793,7 +915,7 @@ cudaError_t launch_flash_tf32(const Args& a) {
 // Every head dim that is a multiple of 8 up to 128 is built.
 template <int DH = 8>
 cudaError_t launch_tf32_dh(bool single, const Args& a) {
-  if constexpr (DH > kMaxHeadDim) {
+  if constexpr (DH > kMaxTileDh) {
     return cudaErrorInvalidValue;
   } else {
     if (a.dh != DH) return launch_tf32_dh<DH + 8>(single, a);
@@ -801,24 +923,84 @@ cudaError_t launch_tf32_dh(bool single, const Args& a) {
   }
 }
 
+// Dynamic shared memory of one panel CTA at head dim dh ("mma": a multiple
+// of 64) and length S: SINGLE every q panel, every key block's k panels and
+// one V panel of each; else two stages of a q, a k and a V panel.
+size_t mma_panels_smem_bytes(bool single, int S, int dh) {
+  const size_t panels = dh / 64, keys = round_up(S, kPanelKeys);
+  const size_t rows = single ? mma::kTileRows * panels + keys * panels + keys
+                             : 2 * (mma::kTileRows + 2 * kPanelKeys);
+  return (size_t)kAlign + rows * 64 * sizeof(bf16);
+}
+
+size_t tf32_panels_smem_bytes(bool single, int S, int dh) {
+  const size_t panels = (dh + tf32x3::kPanel - 1) / tf32x3::kPanel;
+  const size_t keys = round_up(S, tf32x3::kKeys);
+  const size_t rows = single ? tf32x3::kRows * panels + keys * panels + keys
+                             : 2 * (tf32x3::kRows + 2 * tf32x3::kKeys);
+  return tf32x3::tile_bytes(rows, tf32x3::kPanel);
+}
+
+// One panel kernel: tiles x batch x heads x panels CTAs of one warpgroup.
+template <typename E, typename K>
+cudaError_t launch_panel_kernel(K kernel, int (&allowed)[kMaxDevices], const Args& a,
+                                size_t smem, int last) {
+  const int tiles = (a.S + mma::kTileRows - 1) / mma::kTileRows;
+  const long long grid = (long long)tiles * a.batch * a.heads * ((a.dh + 63) / 64);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  kernel<<<(int)grid, mma::kThreads, smem, a.stream>>>(
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
+      static_cast<E*>(a.out), a.st, a.S, a.heads, tiles, last,
+      1.4426950408889634f / sqrtf((float)a.scale_dh));
+  return cudaGetLastError();
+}
+
+template <bool SINGLE>
+cudaError_t launch_panels_mma(const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  return launch_panel_kernel<bf16>(attention_panels_mma_kernel<SINGLE>, allowed, a,
+                                   mma_panels_smem_bytes(SINGLE, a.S, a.dh), a.dh / 64);
+}
+
+template <bool SINGLE>
+cudaError_t launch_panels_tf32(const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  return launch_panel_kernel<float>(attention_panels_tf32_kernel<SINGLE>, allowed, a,
+                                    tf32_panels_smem_bytes(SINGLE, a.S, a.dh), a.dh);
+}
+
+// A head dim above kMaxTileDh: 64-key blocks, one warpgroup, the single
+// kernel (stages 0) or a ring of two (stages 2).
+cudaError_t launch_panels(bool single, int variant, int kb, int stages, int warpgroups,
+                          const Args& a) {
+  if (kb != kPanelKeys || warpgroups != 1 || stages != (single ? 0 : 2))
+    return cudaErrorInvalidValue;
+  if (variant == 1) return single ? launch_panels_mma<true>(a) : launch_panels_mma<false>(a);
+  return single ? launch_panels_tf32<true>(a) : launch_panels_tf32<false>(a);
+}
+
 cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups, int dtype,
                    const Args& a) {
-  if (a.batch < 1 || a.heads < 1 || a.S < 1 || a.dh < 8 || a.dh % 8 || a.dh > kMaxHeadDim
-      || a.scale_dh < 1 || a.scale_dh > a.dh || (long long)a.S * a.batch * a.heads > 0x7fffffffLL)
+  if (a.batch < 1 || a.heads < 1 || a.S < 1 || a.dh < 8 || a.dh % 8 || a.scale_dh < 1
+      || a.scale_dh > a.dh || (long long)a.S * a.batch * a.heads > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (variant == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
     if (a.dh == 32) return launch_mma_dh<32>(single, kb, stages, warpgroups, a);
     if (a.dh == 64) return launch_mma_dh<64>(single, kb, stages, warpgroups, a);
     if (a.dh == 128) return launch_mma_dh<128>(single, kb, stages, warpgroups, a);
+    if (a.dh > kMaxTileDh && a.dh % 64 == 0)
+      return launch_panels(single, variant, kb, stages, warpgroups, a);
     return cudaErrorInvalidValue;
   }
   if (variant == 2) {
     if (dtype != 0 || kb != tf32x3::kKeys || stages != (single ? 0 : 2) || warpgroups != 1)
       return cudaErrorInvalidValue;
+    if (a.dh > kMaxTileDh) return launch_panels(single, variant, kb, stages, warpgroups, a);
     return launch_tf32_dh(single, a);
   }
-  if (variant != 0) return cudaErrorInvalidValue;
+  if (variant != 0 || a.dh > kMaxTileDh) return cudaErrorInvalidValue;
   for (const long long row : {a.st.q[2], a.st.k[2], a.st.v[2], a.st.o[2]})
     if (row < 0 || row > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (dtype == 1)
@@ -845,17 +1027,18 @@ Args make_args(int batch, int heads, int seq, int dh, int scale_dh, const void* 
 
 }  // namespace
 
-// variant: 0 = "simt", 1 = "mma" (bf16, dh 32 / 64 / 128; kb = keys a block,
-// 64 or 128; (stages, warpgroups) = (2, 1), (2, 2) or (3, 1) of the flash
-// kernel's ring, (0, 1) for the single kernel), 2 = "tf32x3" (float32; kb 64,
-// (stages, warpgroups) = (2, 1) for flash, (0, 1) for single).  dtype: 0 =
-// float32, 1 = bfloat16.  q, k, v, out: (batch, heads, seq, dh) on the current
-// device through `strides` = element strides (batch, head, row) of q, k, v,
-// out, twelve values in host memory; dh contiguous and a multiple of 8 up to
-// 128, every base and stride a multiple of 16 bytes, out not aliasing an
-// input.  The scores are scaled by scale_dh^-1/2 (1 <= scale_dh <= dh): dh
-// itself, or the true head dim of operands zero-padded to dh.  Return a
-// cudaError_t.
+// variant: 0 = "simt" (dh up to 128), 1 = "mma" (bf16, dh 32 / 64 / 128 or
+// a multiple of 64 above 128, in panels; kb = keys a block, 64 or 128 (64 in
+// panels); (stages, warpgroups) = (2, 1), (2, 2) or (3, 1) of the flash
+// kernel's ring ((2, 1) in panels), (0, 1) for the single kernel), 2 =
+// "tf32x3" (float32; kb 64, (stages, warpgroups) = (2, 1) for flash, (0, 1)
+// for single; above 128 in panels).  dtype: 0 = float32, 1 = bfloat16.  q,
+// k, v, out: (batch, heads, seq, dh) on the current device through `strides`
+// = element strides (batch, head, row) of q, k, v, out, twelve values in
+// host memory; dh contiguous and a multiple of 8, every base and stride a
+// multiple of 16 bytes, out not aliasing an input.  The scores are scaled
+// by scale_dh^-1/2 (1 <= scale_dh <= dh): dh itself, or the true head dim
+// of operands zero-padded to dh.  Return a cudaError_t.
 
 extern "C" int attention_single_forward(int variant, int kb, int stages, int warpgroups,
                                         int dtype, int batch, int heads, int seq, int dh,
@@ -880,6 +1063,9 @@ extern "C" int attention_flash_forward(int variant, int kb, int stages, int warp
 // the blocked one.
 extern "C" long long attention_smem(int single, int variant, int kb, int stages, int warpgroups,
                                     int seq, int head_dim, int elem_bytes) {
+  if ((variant == 1 || variant == 2) && head_dim > kMaxTileDh)
+    return (long long)(variant == 1 ? mma_panels_smem_bytes(single, seq, head_dim)
+                                    : tf32_panels_smem_bytes(single, seq, head_dim));
   if (variant == 1 || variant == 2) {
     const int keys = single ? round_up(seq, kb) : stages * warpgroups * kb;
     return (long long)(variant == 1 ? mma_smem_bytes(keys, head_dim)

@@ -261,19 +261,32 @@ struct Softmax {
   __device__ __forceinline__ void step(uint32_t q_tile, uint32_t k_tile, uint32_t v_tile,
                                        int k0, int S, float c) {
     float s[kScoreRegs];
+    scores(s, q_tile, k_tile, 0);
+    update(s, v_tile, k0, S, c);
+  }
+
+  // s = (acc ? s : 0) + Q.K^T over the DH columns of q_tile and k_tile, in
+  // one chain of wgmma (a head dim in panels adds its panels' scores so).
+  __device__ __forceinline__ void scores(float (&s)[kScoreRegs], uint32_t q_tile,
+                                         uint32_t k_tile, int acc) {
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < DH / 16; ++ks) {
       const int p = ks / (T::kPanelCols / 16), kk = ks % (T::kPanelCols / 16);
       const uint64_t a = T::descriptor(q_tile + p * kTileRows * T::kRowBytes + kk * 32, 16);
       const uint64_t b = T::descriptor(k_tile + p * KB * T::kRowBytes + kk * 32, 16);
-      if constexpr (KB == 128) wgmma_ss_n128(s, a, b, ks != 0);
-      else wgmma_ss_n64(s, a, b, ks != 0);
+      if constexpr (KB == 128) wgmma_ss_n128(s, a, b, acc | (ks != 0));
+      else wgmma_ss_n64(s, a, b, acc | (ks != 0));
     }
     wgmma_commit();
     wgmma_wait();
     fence_registers(s);
+  }
 
+  // The rest of a block on its scores s: the mask, m, l, p, o rescaled and
+  // o += P.V with the V block at v_tile.
+  __device__ __forceinline__ void update(float (&s)[kScoreRegs], uint32_t v_tile, int k0, int S,
+                                         float c) {
     const int t = threadIdx.x & 3;
     if (k0 + KB > S) {                         // the ragged last block
 #pragma unroll

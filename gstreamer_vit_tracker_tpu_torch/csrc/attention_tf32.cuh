@@ -158,6 +158,31 @@ __device__ __forceinline__ void fill(uint32_t tile, const float* g, long long ro
   }
 }
 
+// A head dim above 128 runs in panels of kPanel columns (the kernels'
+// register and shared-memory footprint is one panel's, whatever the head
+// dim): fill<kPanel> of panel columns [0, cols) of the matrix at g, the
+// columns from cols on (cols a multiple of 4; below kPanel only in a ragged
+// last panel) zeros.  `tid` is this thread's index in the 128 that copy.
+constexpr int kPanel = 64;
+
+__device__ __forceinline__ void fill_panel(int tid, uint32_t tile, const float* g,
+                                           long long row_stride, int row0, int rows, int limit,
+                                           int cols) {
+  constexpr int kChunks = kPanel / 4, kPass = kThreads / kChunks, kLd = row_floats(kPanel);
+  const int row = tid / kChunks, col = tid % kChunks;
+  const float* src = g + (long long)(row0 + row) * row_stride + 4 * col;
+  uint32_t dst = tile + (uint32_t)(row * kLd + 4 * col) * 4u;
+  for (int r = row; r < rows; r += kPass, src += kPass * row_stride, dst += kPass * kLd * 4) {
+    const bool valid = row0 + r < limit && 4 * col < cols;
+    mma::cp_async16(dst, valid ? src : g, valid);
+  }
+}
+
+// The columns of panel p of a head dim dh (a multiple of 8) that are real.
+__host__ __device__ inline int panel_cols(int dh, int p) {
+  return dh - p * kPanel < kPanel ? dh - p * kPanel : kPanel;
+}
+
 // The state of one warp's 16 query rows of head dim DH over the key blocks:
 // a lane holds, for rows g = lane / 4 and g + 8 of the warp, the running
 // maximum m, its share of the running sum l, and columns 8j + 2t + e of the
@@ -200,19 +225,41 @@ struct Softmax {
   // finite after it.
   __device__ __forceinline__ void step(const float* qw, const float* kb, const float* vb,
                                        int k0, int S, float c) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     float s[kKeyTiles][4];
 #pragma unroll
     for (int n = 0; n < kKeyTiles; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    add_scores<kQInRegisters>(s, qw, kb);
+    update(s, vb, k0, S, c);
+  }
 
-    // S = Q.K^T: B[k = d][n = key] = K[key][d], b0 (d = t), b1 (d = t + 4).
+  // The rest of a block on its scores s (add_scores'): the online softmax,
+  // o scaled by alpha, then o += P.V with the V block at vb.
+  __device__ __forceinline__ void update(float (&s)[kKeyTiles][4], const float* vb, int k0,
+                                         int S, float c) {
+    float alpha[2];
+    softmax(s, k0, S, c, alpha);
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[j][i] *= alpha[i >> 1];
+    pv(o, s, vb);
+  }
+
+  // s += Q.K^T of the warp's 16 rows over the DH columns of qw and kb, Q's
+  // fragments from the registers load_q filled (kFromRegisters) or loaded
+  // and split from qw.  B[k = d][n = key] = K[key][d], b0 (d = t), b1 (d =
+  // t + 4).
+  template <bool kFromRegisters>
+  __device__ __forceinline__ void add_scores(float (&s)[kKeyTiles][4], const float* qw,
+                                             const float* kb) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const float* kp = kb + g * kLd + t;
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
       FragA a;
-      if constexpr (kQInRegisters) a = q[j];
+      if constexpr (kFromRegisters) a = q[j];
       else a = load_a<kLd>(qw + g * kLd + t + 8 * j);
       FragB b[kKeyTiles];
 #pragma unroll
@@ -222,7 +269,14 @@ struct Softmax {
       }
       mma3<0>(s, a, b);
     }
+  }
 
+  // The block's scores s into p = exp2(s.c - m.c) in place: keys >= S
+  // masked, the running maximum m and sum l updated; alpha = exp2((m_old -
+  // m).c) for each row half, what o is to be scaled by.
+  __device__ __forceinline__ void softmax(float (&s)[kKeyTiles][4], int k0, int S, float c,
+                                          float (&alpha)[2]) {
+    const int t = threadIdx.x & 3;
     if (k0 + kKeys > S) {                      // the ragged last block
 #pragma unroll
       for (int n = 0; n < kKeyTiles; ++n)
@@ -235,7 +289,7 @@ struct Softmax {
     for (int n = 0; n < kKeyTiles; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
-    float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+    float mc[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float m_new = fmaxf(m[h], mma::quad_max(mx[h]));
@@ -252,13 +306,14 @@ struct Softmax {
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[j][i] *= alpha[i >> 1];
+  }
 
-    // O += P.V: A's k = t is key 2t (s[n][0], row g; s[n][2], row g + 8),
-    // k = t + 4 key 2t + 1 (s[n][1], s[n][3]); B[k][n = d] = V[key][d].
+  // d += P.V, p from softmax's s: A's k = t is key 2t (s[n][0], row g;
+  // s[n][2], row g + 8), k = t + 4 key 2t + 1 (s[n][1], s[n][3]); B[k][n =
+  // d] = V[key][d].
+  __device__ __forceinline__ void pv(float (&d)[kChunks][4], const float (&s)[kKeyTiles][4],
+                                     const float* vb) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const float* vp = vb + 2 * t * kLd + g;
 #pragma unroll
     for (int n = 0; n < kKeyTiles; ++n) {
@@ -268,25 +323,28 @@ struct Softmax {
       split(s[n][1], a.hi[2], a.lo[2]);
       split(s[n][3], a.hi[3], a.lo[3]);
       const float* p = vp + 8 * n * kLd;
-      pv_group<0>(a, p);
-      if constexpr (kChunks > 8) pv_group<8>(a, p);
+      pv_group<0>(d, a, p);
+      if constexpr (kChunks > 8) pv_group<8>(d, a, p);
     }
   }
 
-  // The output tiles j = J0 ... J0 + 7 (below kChunks) of one 8-key block.
+  // The output tiles j = J0 ... J0 + 7 (below kChunks) of one 8-key block
+  // into d.
   template <int J0>
-  __device__ __forceinline__ void pv_group(const FragA& a, const float* p) {
+  __device__ __forceinline__ void pv_group(float (&d)[kChunks][4], const FragA& a,
+                                           const float* p) const {
     FragB b[kGroup];
 #pragma unroll
     for (int i = 0; i < kGroup && J0 + i < kChunks; ++i)
       b[i] = load_b(p[8 * (J0 + i)], p[kLd + 8 * (J0 + i)]);
-    mma3<J0>(o, a, b);
+    mma3<J0>(d, a, b);
   }
 
   // o / l (one division, one rounding) into rows row0 + g, row0 + g + 8 of
-  // `out` (row_stride floats apart) as float pairs; rows >= S are dropped.
-  __device__ __forceinline__ void store(float* out, long long row_stride, int row0,
-                                        int S) const {
+  // `out` (row_stride floats apart) as float pairs; rows >= S are dropped,
+  // and the columns from `cols` on (a multiple of 8: a ragged last panel).
+  __device__ __forceinline__ void store(float* out, long long row_stride, int row0, int S,
+                                        int cols = DH) const {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const float sum[2] = {mma::quad_sum(l[0]), mma::quad_sum(l[1])};
 #pragma unroll
@@ -296,10 +354,92 @@ struct Softmax {
       float* p = out + (long long)r * row_stride + 2 * t;
 #pragma unroll
       for (int j = 0; j < kChunks; ++j)
-        *reinterpret_cast<float2*>(p + 8 * j) =
-            make_float2(o[j][2 * h] / sum[h], o[j][2 * h + 1] / sum[h]);
+        if (8 * j < cols)
+          *reinterpret_cast<float2*>(p + 8 * j) =
+              make_float2(o[j][2 * h] / sum[h], o[j][2 * h + 1] / sum[h]);
     }
   }
 };
+
+// The panel kernels' CTA (a head dim above 128: csrc/attention.cu's panel
+// kernels say why), for csrc/attention.cu (SM = Softmax<kPanel>) and the
+// encoder (encoder_tf32.cuh's Softmax, a block's P.V into a fresh
+// accumulator): 64 query rows from q0 of one (batch, head) and the 64
+// columns of o panel `op`.  q, k, v and out point at row 0 of the (batch,
+// head), rows qrs, krs, vrs and ors floats apart; dh a multiple of 8, the
+// ragged last panel zero-filled.  Step t = j . panels + p (key block j,
+// panel p) sums the scores of panel p of q and k into the block's; on the
+// block's last panel SM::update takes the softmax and the V panel's P.V.
+// SINGLE: every q panel, every key block's k panels and the V panel of
+// each resident at once, one wait; else a ring of two stages of a q, a k
+// and a V panel.
+template <typename SM, bool SINGLE>
+__device__ __forceinline__ void panel_cta(float* tile_mem, const float* q, long long qrs,
+                                          const float* k, long long krs, const float* v,
+                                          long long vrs, float* out, long long ors, int S,
+                                          int q0, int dh, int op, float c) {
+  constexpr int kLd = row_floats(kPanel), kTile = kKeys * kLd;
+  const int panels = (dh + kPanel - 1) / kPanel;
+  const int blocks = (S + kKeys - 1) / kKeys, steps = blocks * panels;
+  const auto tiles_of = [&](int t, float*& qt, float*& kt, float*& vt) {
+    const int j = t / panels, p = t - j * panels;
+    if constexpr (SINGLE) {
+      qt = tile_mem + p * kTile;
+      kt = tile_mem + (panels + t) * kTile;
+      vt = tile_mem + (panels + steps + j) * kTile;
+    } else {
+      qt = tile_mem + (t & 1) * 3 * kTile;
+      kt = qt + kTile;
+      vt = kt + kTile;
+    }
+  };
+  const auto fill = [&](int t) {
+    const int j = t / panels, p = t - j * panels;
+    float *qt, *kt, *vt;
+    tiles_of(t, qt, kt, vt);
+    const int cols = panel_cols(dh, p);
+    if (!SINGLE || j == 0)
+      fill_panel(threadIdx.x, mma::smem_addr(qt), q + p * kPanel, qrs, q0, kRows, S, cols);
+    fill_panel(threadIdx.x, mma::smem_addr(kt), k + p * kPanel, krs, j * kKeys, kKeys, S, cols);
+    if (p == panels - 1)
+      fill_panel(threadIdx.x, mma::smem_addr(vt), v + op * kPanel, vrs, j * kKeys, kKeys, S,
+                 panel_cols(dh, op));
+  };
+  if constexpr (SINGLE) {
+    for (int t = 0; t < steps; ++t) fill(t);
+  } else {
+    fill(0);
+  }
+  mma::cp_async_commit();
+
+  const int row0 = q0 + 16 * (threadIdx.x >> 5);
+  const bool has_rows = row0 < S;              // uniform over the warp
+  SM sm;
+  sm.init();
+  float s[kKeys / 8][4];
+  for (int t = 0; t < steps; ++t) {
+    if (!SINGLE || t == 0) {
+      mma::cp_async_wait<0>();                 // step t (SINGLE: every step) has landed
+      __syncthreads();                         // ... for all; the other stage is free
+    }
+    if constexpr (!SINGLE) {
+      if (t + 1 < steps) fill(t + 1);
+      mma::cp_async_commit();
+    }
+    if (!has_rows) continue;
+    const int j = t / panels, p = t - j * panels;
+    float *qt, *kt, *vt;
+    tiles_of(t, qt, kt, vt);
+    if (p == 0) {
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    }
+    sm.template add_scores<false>(s, qt + (row0 - q0) * kLd, kt);
+    if (p == panels - 1) sm.update(s, vt, j * kKeys, S, c);
+  }
+  if (has_rows) sm.store(out + op * kPanel, ors, row0, S, panel_cols(dh, op));
+}
 
 }  // namespace tf32x3

@@ -1,7 +1,9 @@
 // Tensor-core tiles of the encoder kernels (csrc/vit_encoder.cu, variant
-// "mma": bf16, head dim 32 / 64 / 128) for NVIDIA Hopper, sm_90a, built from
-// the swizzled shared-memory tiles, copies and wgmma primitives of
-// attention_mma.cuh.  Two kernels:
+// "mma": bf16, head dim 32 / 64 / 128, and above 128 a multiple of 64 in
+// panels) for NVIDIA Hopper, sm_90a, built from the swizzled shared-memory
+// tiles, copies and wgmma primitives of attention_mma.cuh.  Three kernels
+// (attention_panels_kernel, the attention at a head dim above 128, is
+// described where it stands):
 //
 // product_kernel<BN, EPI, LN>: C[M, N] = epilogue(LN?(A)[M, K] . W[K, N] + b).
 //   A CTA is one warpgroup and owns 64 rows (wgmma's M) by BN = 32 or 64
@@ -415,6 +417,65 @@ product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 // The attention.
 // ---------------------------------------------------------------------------
 
+// Pass 2 of a key block: p = expf(s - m) of its scores (pair r holds scores
+// 2r and 2r + 1 of row half r & 1), the row sums l += p, and p as three
+// bf16 terms hi + mid + lo that add up to the f32 p exactly, pairwise: the
+// A fragments of P.V.
+template <int N>
+__device__ __forceinline__ void p_terms(const float (&s)[2 * N], const float (&m)[2],
+                                        float (&l)[2], uint32_t (&hi)[N], uint32_t (&mid)[N],
+                                        uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const float e0 = expf(s[2 * r] - m[r & 1]);
+    const float e1 = expf(s[2 * r + 1] - m[r & 1]);
+    l[r & 1] += e0 + e1;
+    const __nv_bfloat162 ph = __floats2bfloat162_rn(e0, e1);
+    const float r0 = e0 - __low2float(ph), r1 = e1 - __high2float(ph);
+    const __nv_bfloat162 pm = __floats2bfloat162_rn(r0, r1);
+    const __nv_bfloat162 pl = __floats2bfloat162_rn(r0 - __low2float(pm),
+                                                    r1 - __high2float(pm));
+    hi[r] = *reinterpret_cast<const uint32_t*>(&ph);
+    mid[r] = *reinterpret_cast<const uint32_t*>(&pm);
+    lo[r] = *reinterpret_cast<const uint32_t*>(&pl);
+  }
+}
+
+// o / l rounded to bf16 once, through the warp's own 16 rows of the tile
+// at tile_ptr (Tile T's panels of 64 rows; no product reads it any more)
+// and out (row 0 of this (batch, head, panel), rows row_stride apart, the
+// tile's DH columns) as 16-byte vectors; rows >= S are dropped.
+template <typename T, int DH, int REGS>
+__device__ __forceinline__ void store_rows(unsigned char* tile_ptr,
+                                           const float (&o)[T::kPanels][REGS],
+                                           const float (&l)[2], bf16* out, long long row_stride,
+                                           int q0, int S) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float sum = mma::quad_sum(l[hh]);
+    const int r = warp * 16 + g + 8 * hh;
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < REGS / 4; ++j)
+        *reinterpret_cast<uint32_t*>(tile_ptr + p * kTileRows * T::kRowBytes + T::offset(r, j)
+                                     + 4 * tq) =
+            mma::pack_bf16(o[p][4 * j + 2 * hh] / sum, o[p][4 * j + 2 * hh + 1] / sum);
+  }
+  __syncwarp();
+  constexpr int kRowChunks = DH / 8;
+  for (int i = lane; i < 16 * kRowChunks; i += 32) {
+    const int r = warp * 16 + i / kRowChunks, c = i % kRowChunks;
+    const int p = c / T::kChunks, cc = c - p * T::kChunks;
+    if (q0 + r < S)
+      *reinterpret_cast<uint4*>(out + (long long)(q0 + r) * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(tile_ptr + p * kTileRows * T::kRowBytes
+                                          + T::offset(r, cc));
+  }
+}
+
 // Dynamic shared memory of one attention CTA: the Q tile and kAttStages
 // slots of a K and a V block, from a 1024-byte boundary.
 inline size_t attention_smem_bytes(int dh) {
@@ -520,20 +581,7 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, in
 
     // Pass 2: p = expf(s - m), its row sum, and P.V with p = hi + mid + lo.
     uint32_t hi[kScoreRegs / 2], mid[kScoreRegs / 2], lo[kScoreRegs / 2];
-#pragma unroll
-    for (int r = 0; r < kScoreRegs / 2; ++r) {   // pair r holds scores 2r, 2r + 1
-      const float e0 = expf(s[2 * r] - m[r & 1]);
-      const float e1 = expf(s[2 * r + 1] - m[r & 1]);
-      l[r & 1] += e0 + e1;
-      const __nv_bfloat162 ph = __floats2bfloat162_rn(e0, e1);
-      const float r0 = e0 - __low2float(ph), r1 = e1 - __high2float(ph);
-      const __nv_bfloat162 pm = __floats2bfloat162_rn(r0, r1);
-      const __nv_bfloat162 pl = __floats2bfloat162_rn(r0 - __low2float(pm),
-                                                      r1 - __high2float(pm));
-      hi[r] = *reinterpret_cast<const uint32_t*>(&ph);
-      mid[r] = *reinterpret_cast<const uint32_t*>(&pm);
-      lo[r] = *reinterpret_cast<const uint32_t*>(&pl);
-    }
+    p_terms(s, m, l, hi, mid, lo);
     // This block's P.V goes to a fresh accumulator, added to o in f32: the
     // tensor cores' own sums (which truncate) then run over one block's
     // keys, not over all of S.
@@ -574,34 +622,151 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, in
     }
   }
 
-  // o / l rounded to bf16 once, through the warp's own 16 rows of the Q tile
-  // (no product reads it any more) and out as 16-byte vectors; rows >= S are
-  // dropped.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
+  // o / l rounded to bf16 once, through the warp's own 16 rows of the Q
+  // tile (no product reads it any more).
+  store_rows<T, DH>(q_ptr, o, l, out + (long long)b * S * D + h * DH, D, q0, S);
+}
+
+// Dynamic shared memory of one panel attention CTA: kAttStages stages of a
+// q, a k and a V panel (64 columns each), from a 1024-byte boundary, for any
+// head dim and length.
+inline size_t attention_panels_smem_bytes() {
+  return (size_t)kAlign + (size_t)kAttStages * (kTileRows + 2 * kKeyBlock) * 64 * sizeof(bf16);
+}
+
+// Head dims above 128 (a multiple of 64: the plan zero-pads each head's qkv
+// columns to one): attention_kernel's arithmetic with the head dim in panels
+// of 64 columns.  CTA = (64 query rows, batch, head, one 64-column panel of
+// o); blockIdx.x runs over tiles x B x H x panels, the panels fastest.  Both
+// passes walk the key blocks as attention_kernel's do; a block's scores are
+// its dh / 16 16-deep steps, each into a fresh accumulator, kGroup at a
+// time, added in f32 in attention_kernel's order, a panel pair of q and k at
+// a time: s, m, p and l are what attention_kernel's would be at this dh.
+// Pass 2 adds P.V of the CTA's own V panel.  Each CTA takes every score of
+// its rows, so the scores are computed dh / 64 times over, and its registers
+// and shared memory are one panel's whatever dh (csrc/attention.cu's panel
+// kernels say why).  Step t of the 2 . blocks . panels steps is (pass, key
+// block j, panel p) in ring slot t % kAttStages: q and k panel p, and in
+// pass 2 on the block's last panel the V panel.  (A template, KB =
+// kKeyBlock, so that only a source that launches it compiles it.)
+template <int KB>
+__global__ void __launch_bounds__(kThreads)
+attention_panels_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int heads,
+                        int tiles, int dh, float scale) {
+  using T = mma::Tile<64>;
+  constexpr int kScoreRegs = KB / 2, kOutRegs = 32, kGroup = 2;
+  constexpr uint32_t kQBytes = T::bytes(kTileRows), kKBytes = T::bytes(KB);
+  constexpr uint32_t kStage = kQBytes + 2 * kKBytes;
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* base = aligned_smem(raw);
+  const uint32_t smem0 = mma::smem_addr(base);
+  const int panels = dh / 64;
+  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
+  const int bh = rest / tiles, q0 = (rest - bh * tiles) * kTileRows;
+  const int b = bh / heads, h = bh - b * heads;
+  const int D = heads * dh;
+  const long long ld = 3LL * D;
+  const bf16* q = qkv + (long long)b * S * ld + h * dh;
+  const bf16* k = q + D;
+  const bf16* v = q + 2 * D;
+  const int blocks = (S + KB - 1) / KB, per_pass = blocks * panels, steps = 2 * per_pass;
+  const auto fill = [&](int t) {
+    const uint32_t stage = smem0 + (t % kAttStages) * kStage;
+    const int r = t < per_pass ? t : t - per_pass, j = r / panels, p = r - j * panels;
+    T::template fill<kTileRows, kThreads>(stage, q + p * 64, ld, q0, S);
+    T::template fill<KB, kThreads>(stage + kQBytes, k + p * 64, ld, j * KB, S);
+    if (t >= per_pass && p == panels - 1)
+      T::template fill<KB, kThreads>(stage + kQBytes + kKBytes, v + op * 64, ld, j * KB, S);
+  };
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float sum = mma::quad_sum(l[hh]);
-    const int r = warp * 16 + g + 8 * hh;
-#pragma unroll
-    for (int p = 0; p < T::kPanels; ++p)
-#pragma unroll
-      for (int j = 0; j < kOutRegs / 4; ++j)
-        *reinterpret_cast<uint32_t*>(q_ptr + p * kTileRows * T::kRowBytes + T::offset(r, j)
-                                     + 4 * tq) =
-            mma::pack_bf16(o[p][4 * j + 2 * hh] / sum, o[p][4 * j + 2 * hh + 1] / sum);
+  for (int t = 0; t < kAttStages - 1; ++t) {  // a group a step, empty past the end
+    if (t < steps) fill(t);
+    mma::cp_async_commit();
   }
-  __syncwarp();
-  constexpr int kRowChunks = DH / 8;
-  bf16* o_base = out + (long long)b * S * D + h * DH;
-  for (int i = lane; i < 16 * kRowChunks; i += 32) {
-    const int r = warp * 16 + i / kRowChunks, c = i % kRowChunks;
-    const int p = c / T::kChunks, cc = c - p * T::kChunks;
-    if (q0 + r < S)
-      *reinterpret_cast<uint4*>(o_base + (long long)(q0 + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(q_ptr + p * kTileRows * T::kRowBytes
-                                          + T::offset(r, cc));
+
+  const int tq = threadIdx.x & 3;
+  float o[1][kOutRegs];                       // the CTA's one panel of o
+#pragma unroll
+  for (int i = 0; i < kOutRegs; ++i) o[0][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[kScoreRegs];
+
+  for (int t = 0; t < steps; ++t) {
+    mma::cp_async_wait<kAttStages - 2>();    // step t has landed
+    mma::fence_async_proxy();
+    __syncthreads();                          // ... for all; slot of step t - 1 is free
+    if (t + kAttStages - 1 < steps) fill(t + kAttStages - 1);
+    mma::cp_async_commit();
+    const uint32_t stage = smem0 + (t % kAttStages) * kStage;
+    const bool pass1 = t < per_pass;
+    const int r = pass1 ? t : t - per_pass, j = r / panels, p = r - j * panels;
+
+    // This panel's four 16-deep steps of q.k, kGroup at a time, each into a
+    // fresh accumulator, added to s in f32 in order.
+#pragma unroll
+    for (int g0 = 0; g0 < 64 / 16; g0 += kGroup) {
+      float part[kGroup][kScoreRegs];
+      mma::wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        const int kk = g0 + jj;
+        mma::wgmma_ss_n64(part[jj], T::descriptor(stage + kk * 32, 16),
+                          T::descriptor(stage + kQBytes + kk * 32, 16), 0);
+      }
+      mma::wgmma_commit();
+      mma::wgmma_wait();
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        mma::fence_registers(part[jj]);
+#pragma unroll
+        for (int i = 0; i < kScoreRegs; ++i)
+          s[i] = p == 0 && g0 + jj == 0 ? part[0][i] : s[i] + part[jj][i];
+      }
+    }
+    if (p != panels - 1) continue;            // the block's scores are not whole yet
+    const int k0 = j * KB;
+#pragma unroll
+    for (int i = 0; i < kScoreRegs; ++i)
+      s[i] = k0 + 8 * (i / 4) + 2 * tq + (i & 1) < S ? s[i] * scale : -INFINITY;
+
+    if (pass1) {                              // pass 1: the row maximum
+#pragma unroll
+      for (int i = 0; i < kScoreRegs; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+      if (j == blocks - 1) {
+        m[0] = mma::quad_max(m[0]);
+        m[1] = mma::quad_max(m[1]);
+      }
+      continue;
+    }
+
+    // Pass 2: p = expf(s - m), its row sum, and P.V with p = hi + mid + lo,
+    // the block's P.V in a fresh accumulator added to o in f32.
+    uint32_t hi[kScoreRegs / 2], mid[kScoreRegs / 2], lo[kScoreRegs / 2];
+    p_terms(s, m, l, hi, mid, lo);
+    float pv[kOutRegs];
+#pragma unroll
+    for (int i = 0; i < kOutRegs; ++i) pv[i] = 0.f;
+    mma::fence_registers(pv);
+    mma::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KB / 16; ++ks) {
+      const int jj = 4 * ks;
+      const uint64_t db = T::descriptor(stage + kQBytes + kKBytes + ks * 16 * T::kRowBytes,
+                                        KB * T::kRowBytes);
+      mma::wgmma_rs_n64(pv, hi[jj], hi[jj + 1], hi[jj + 2], hi[jj + 3], db);
+      mma::wgmma_rs_n64(pv, mid[jj], mid[jj + 1], mid[jj + 2], mid[jj + 3], db);
+      mma::wgmma_rs_n64(pv, lo[jj], lo[jj + 1], lo[jj + 2], lo[jj + 3], db);
+    }
+    mma::wgmma_commit();
+    mma::wgmma_wait();
+    mma::fence_registers(pv);
+#pragma unroll
+    for (int i = 0; i < kOutRegs; ++i) o[0][i] += pv[i];
   }
+
+  // o / l rounded to bf16 once, through the warp's own 16 rows of slot 0's
+  // q panel (no product reads it any more, no copy is in flight).
+  store_rows<T, 64>(base, o, l, out + (long long)b * S * D + h * dh + op * 64, D, q0, S);
 }
 
 }  // namespace encoder_mma

@@ -1,8 +1,10 @@
 // Tensor-core tiles of the encoder kernels (csrc/vit_encoder.cu, variant
-// "tf32x3": float32, head dims that are multiples of 8 up to 128) for NVIDIA
-// Hopper, sm_90a, built on the split-TF32 primitives of attention_tf32.cuh
-// (to_tf32, split, FragA / FragB, mma3, load_a / load_b, Softmax).  Two
-// kernels, the five launches a block of the "mma" variant:
+// "tf32x3": float32, head dims that are multiples of 8, above 128 in panels)
+// for NVIDIA Hopper, sm_90a, built on the split-TF32 primitives of
+// attention_tf32.cuh (to_tf32, split, FragA / FragB, mma3, load_a / load_b,
+// Softmax).  Two kernels, the five launches a block of the "mma" variant,
+// and attention_panels_kernel for head dims above 128 (described where it
+// stands):
 //
 // product_kernel<BN, EPI, LN, NWG>: C[M, N] = epilogue(LN?(A)[M, K] . W[K,
 //   N] + b) on mma.sync m16n8k8 in split TF32: every operand as hi = tf32(x)
@@ -392,105 +394,39 @@ template <int DH>
 struct Softmax : tf::Softmax<DH> {
   using Base = tf::Softmax<DH>;
   using Base::kChunks;
-  using Base::kGroup;
   using Base::kKeyTiles;
-  using Base::kLd;
   using Base::kQInRegisters;
   using Base::l;
   using Base::m;
   using Base::o;
-  using Base::q;
 
   __device__ __forceinline__ void step(const float* qw, const float* kb, const float* vb,
                                        int k0, int S, float c) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     float s[kKeyTiles][4];
 #pragma unroll
     for (int n = 0; n < kKeyTiles; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-
-    // S = Q.K^T: B[k = d][n = key] = K[key][d], b0 (d = t), b1 (d = t + 4).
-    const float* kp = kb + g * kLd + t;
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      tf::FragA a;
-      if constexpr (kQInRegisters) a = q[j];
-      else a = tf::load_a<kLd>(qw + g * kLd + t + 8 * j);
-      tf::FragB b[kKeyTiles];
-#pragma unroll
-      for (int n = 0; n < kKeyTiles; ++n) {
-        const float* p = kp + 8 * n * kLd + 8 * j;
-        b[n] = tf::load_b(p[0], p[4]);
-      }
-      tf::mma3<0>(s, a, b);
-    }
-
-    if (k0 + tf::kKeys > S) {                  // the ragged last block
-#pragma unroll
-      for (int n = 0; n < kKeyTiles; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (k0 + 8 * n + 2 * t + (i & 1) >= S) s[n][i] = -INFINITY;
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kKeyTiles; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
-    float alpha[2], mc[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], mma::quad_max(mx[h]));
-      alpha[h] = mma::exp2_approx((m[h] - m_new) * c);   // 0 on the first block
-      m[h] = m_new;
-      mc[h] = m_new * c;
-    }
-#pragma unroll
-    for (int n = 0; n < kKeyTiles; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[n][i] = mma::exp2_approx(fmaf(s[n][i], c, -mc[i >> 1]));
-        sum[i >> 1] += s[n][i];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
-
-    // PV = P.V in a fresh accumulator (A's k = t is key 2t, k = t + 4 key
-    // 2t + 1, as in the base), then o = o . alpha + PV.
-    float pv[kChunks][4];
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[j][i] = 0.f;
-    const float* vp = vb + 2 * t * kLd + g;
-#pragma unroll
-    for (int n = 0; n < kKeyTiles; ++n) {
-      tf::FragA a;
-      tf::split(s[n][0], a.hi[0], a.lo[0]);
-      tf::split(s[n][2], a.hi[1], a.lo[1]);
-      tf::split(s[n][1], a.hi[2], a.lo[2]);
-      tf::split(s[n][3], a.hi[3], a.lo[3]);
-      const float* p = vp + 8 * n * kLd;
-      pv_group<0>(pv, a, p);
-      if constexpr (kChunks > 8) pv_group<8>(pv, a, p);
-    }
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[j][i] = fmaf(o[j][i], alpha[i >> 1], pv[j][i]);
+    this->template add_scores<kQInRegisters>(s, qw, kb);
+    update(s, vb, k0, S, c);
   }
 
-  // The output tiles j = J0 ... J0 + 7 (below kChunks) of one 8-key block
-  // into d.
-  template <int J0>
-  __device__ __forceinline__ void pv_group(float (&d)[kChunks][4], const tf::FragA& a,
-                                           const float* p) {
-    tf::FragB b[kGroup];
+  // The rest of a block on its scores s: the base's softmax, then PV = P.V
+  // in a fresh accumulator and o = o . alpha + PV.
+  __device__ __forceinline__ void update(float (&s)[kKeyTiles][4], const float* vb, int k0,
+                                         int S, float c) {
+    float alpha[2];
+    this->softmax(s, k0, S, c, alpha);
+    float fresh[kChunks][4];
 #pragma unroll
-    for (int i = 0; i < kGroup && J0 + i < kChunks; ++i)
-      b[i] = tf::load_b(p[8 * (J0 + i)], p[kLd + 8 * (J0 + i)]);
-    tf::mma3<J0>(d, a, b);
+    for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fresh[j][i] = 0.f;
+    this->pv(fresh, s, vb);
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[j][i] = fmaf(o[j][i], alpha[i >> 1], fresh[j][i]);
   }
 
   // What a warpgroup that walked other key blocks of the same rows hands
@@ -627,6 +563,39 @@ attention_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S, 
     sm.merge(scratch, c);
   }
   if (has_rows) sm.store(out + (long long)b * S * E + h * DH, E, row0, S);
+}
+
+
+// Dynamic shared memory of one panel attention CTA: two stages of a q, a k
+// and a V panel (64 rows of 64 + 4 floats each), for any head dim.
+inline size_t attention_panels_smem_bytes() {
+  return tf::tile_bytes(2 * (tf::kRows + 2 * tf::kKeys), tf::kPanel);
+}
+
+// Head dims above 128 (a multiple of 8): attention_kernel's arithmetic at
+// one warpgroup (64-key blocks, the online softmax, a block's P.V into a
+// fresh accumulator) with the head dim in panels of 64 columns
+// (attention_tf32.cuh's panel_cta, the ring of two stages).  CTA = (64
+// query rows, batch, head, one 64-column panel of o); blockIdx.x runs over
+// tiles x B x H x panels, the panels fastest; q, k and v read from the qkv
+// buffer where they lie.  (A template, KEYS = tf::kKeys, so that only a
+// source that launches it compiles it.)
+template <int KEYS>
+__global__ void __launch_bounds__(tf::kThreads)
+attention_panels_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S, int heads,
+                        int tiles, int dh, float c) {
+  static_assert(KEYS == tf::kKeys, "the key block of the tiles");
+  extern __shared__ __align__(16) float tile_mem[];
+  const int panels = (dh + tf::kPanel - 1) / tf::kPanel;
+  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
+  const int bh = rest / tiles, q0 = (rest - bh * tiles) * tf::kRows;
+  const int b = bh / heads, h = bh - b * heads;
+  const int E = heads * dh;
+  const long long ld = 3LL * E;
+  const float* q = qkv + (long long)b * S * ld + h * dh;
+  tf::panel_cta<Softmax<tf::kPanel>, false>(tile_mem, q, ld, q + E, ld, q + 2 * E, ld,
+                                            out + (long long)b * S * E + h * dh, E, S, q0, dh,
+                                            op, c);
 }
 
 }  // namespace encoder_tf32

@@ -101,10 +101,23 @@
 // shared memory, instead of copying them, measured slower (17.4 against
 // 13.7 us), as did clusters of 8 and a build for two CTAs an SM.
 //
+// A patch above 32 ("mma" and "tf32x3"): the 16-token A tile of the whole
+// K, patch^2 x 3 pixels a token (393,216 bytes in bf16 at patch 64), no
+// longer fits a block, so K is walked in pieces of Args::rows patch rows
+// (k = (p . patch + q) . 3 + c: a piece is one contiguous K range of the
+// weight), at most 1,536 bf16 or 768 float32 pixels a token (48 KB a tile;
+// ops/fused_prep_embed.py::piece_rows).  For each piece the CTA makes its
+// pixels (its cluster share, stored into its peers' tiles as for the whole
+// patch) into one of two A tiles, then adds the piece's product to the same
+// accumulator registers; the next piece's pixels go into the other tile, so
+// a peer still multiplying the last piece is never written over.  A patch
+// up to 32 is one piece: the design above, launch for launch.
+//
 // "simt" (float32, by name only: the yardstick of "tf32x3"): a CTA makes two
 // tokens' pixels (the same pixel code) and the product split over k on the
 // FMA units, the weight as 16-byte vectors from L2, the partial sums meeting
-// in shared memory in a fixed order.
+// in shared memory in a fixed order.  It keeps its limit: two tokens'
+// pixels and the sums in 48 KB of shared memory (a patch up to about 40).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -241,10 +254,11 @@ __device__ __forceinline__ Taps taps(int p, int n) {
               p + 1 >= 0 && p + 1 < n};
 }
 
-// The pixels of tokens [n0, n0 + tokens) into A: row t is token n0 + t, column
-// k = (p * patch + q) * 3 + c, row stride lda, rounded to T; rows past the last
-// token are zeros.  Only the patch rows p = share (mod shares) are made (all of
-// them for shares = 1).  A thread owns one output column of the tile (or
+// The pixels of tokens [n0, n0 + tokens) and patch rows [row0, row0 + nrows)
+// into A: row t is token n0 + t, column k = ((p - row0) * patch + q) * 3 + c
+// (the patch's K from row0 on), row stride lda, rounded to T; rows past the
+// last token are zeros.  Only the patch rows p - row0 = share (mod shares)
+// are made (all of them for shares = 1).  A thread owns one output column of the tile (or
 // several, or a part of one's rows when the tile has fewer columns than
 // threads): its token's grid place, column weights and byte offsets are made
 // once, then it walks the patch rows.  The twelve loads of a pixel are
@@ -254,7 +268,8 @@ __device__ __forceinline__ Taps taps(int p, int n) {
 template <typename T>
 __device__ __forceinline__ void make_pixels(const Frame& f, const Window& w, const Norm& nm,
                                             int n0, int tokens, int n_tok, int grid_side,
-                                            int patch, int share, int shares, T* A, int lda) {
+                                            int patch, int row0, int nrows, int share,
+                                            int shares, T* A, int lda) {
   const int ncols = tokens * patch;
   const int rgroups = max(1, kThreads / ncols);
   const int step = shares * rgroups;
@@ -265,9 +280,9 @@ __device__ __forceinline__ void make_pixels(const Frame& f, const Window& w, con
     const int n = n0 + t;
     T* at = A + (size_t)t * lda + q * 3;
     if (n >= n_tok) {
-      for (int pr = first; pr < patch; pr += step)
+      for (int lp = first; lp < nrows; lp += step)
 #pragma unroll
-        for (int c = 0; c < 3; ++c) at[pr * patch * 3 + c] = from_f32<T>(0.0f);
+        for (int c = 0; c < 3; ++c) at[lp * patch * 3 + c] = from_f32<T>(0.0f);
       continue;
     }
     const int gh = n / grid_side, gw = n - gh * grid_side;
@@ -280,8 +295,8 @@ __device__ __forceinline__ void make_pixels(const Frame& f, const Window& w, con
     const int ccol[2] = {w.col0 + 2 * cxt.at0, w.col0 + 2 * cxt.at1};
     const bool lin[2] = {lx.in0, lx.in1}, cin[2] = {cxt.in0, cxt.in1};
 
-    for (int pr = first; pr < patch; pr += step) {
-      const float ty = source_coord(w.start_y, gh * patch + pr, w.scale);
+    for (int lp = first; lp < nrows; lp += step) {
+      const float ty = source_coord(w.start_y, gh * patch + row0 + lp, w.scale);
       const int j0 = (int)floorf(ty), i0 = j0 >> 1;
       const float wr0 = weight<T>(ty, j0), wr1 = weight<T>(ty, j0 + 1);
       const float hr0 = weight_half<T>(ty, i0), hr1 = weight_half<T>(ty, i0 + 1);
@@ -327,7 +342,7 @@ __device__ __forceinline__ void make_pixels(const Frame& f, const Window& w, con
       rgb[1] = __fadd_rn(__fadd_rn(yv, __fmul_rn(-100.0f / 256.0f, uc)),
                          __fmul_rn(-208.0f / 256.0f, vc));
       rgb[2] = __fadd_rn(yv, __fmul_rn(516.0f / 256.0f, uc));
-      T* px = at + pr * patch * 3;
+      T* px = at + lp * patch * 3;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const float v01 = __fdiv_rn(fminf(fmaxf(rgb[c], 0.0f), 255.0f), 255.0f);
@@ -341,6 +356,7 @@ struct Args {
   Frame frame;
   const float *cx, *cy, *size;
   int frame_h, band, out_size, patch;
+  int rows;                  // patch rows a piece ("mma", "tf32x3"; patch: one piece)
   int dim;                   // D: the output's columns
   int width;                 // W: the operands' columns, D padded
   Norm norm;
@@ -349,22 +365,27 @@ struct Args {
   void* out;                 // (N, D)
 };
 
-// The pixels of every patch row made by the CTAs of this cluster (each CTA
-// made the rows share, share + shares, ... of its tile into its own A, rows
-// lda elements apart) copied into its peers' A tiles, 16 bytes at a time
-// where a patch row of a token is whole 16-byte units, and published by one
-// cluster barrier.  Every thread arrived at the cluster barrier before its
-// pixels (a CTA may write a peer's shared memory only once the peer runs).
+// The pixels of every patch row of a piece (nrows rows) made by the CTAs of
+// this cluster (each CTA made the piece's rows share, share + shares, ... of
+// its tile into its own A, rows lda elements apart) copied into its peers'
+// A tiles, 16 bytes at a time where a patch row of a token is whole 16-byte
+// units, and published by one cluster barrier.  Before the first piece every
+// thread arrived at the cluster barrier ahead of its pixels and waits here
+// (`first`): a CTA may write a peer's shared memory only once the peer runs.
+// A later piece's A is the other of two: the last reader of the one it
+// writes was a peer's product of the piece before the last, which that peer
+// finished before the cluster barrier that closed the last piece.
 template <typename T>
 __device__ __forceinline__ void share_pixels(cg::cluster_group& cluster, T* A, int lda,
-                                             int tm, int patch, int share, int shares) {
+                                             int tm, int patch, int nrows, int share,
+                                             int shares, bool first) {
   constexpr int kVec = 16 / sizeof(T);
   __syncthreads();                 // this CTA's share is made
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // the peers run
+  if (first) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // the peers run
   const int seg = patch * 3;       // elements of one patch row of one token
   const int vec = seg % kVec == 0 ? kVec : 1;
   const int units = seg / vec;
-  const int rows = (patch - share + shares - 1) / shares;      // patch rows of the share
+  const int rows = (nrows - share + shares - 1) / shares;      // patch rows of the share
   const int per_peer = tm * rows * units;
   for (int i = threadIdx.x; i < (shares - 1) * per_peer; i += kThreads) {
     const int peer = (share + 1 + i / per_peer) % shares, j = i % per_peer;
@@ -415,33 +436,39 @@ __host__ __device__ constexpr int skewed(int n) {
   return ((n + 7) / 8 % 2 ? (n + 7) / 8 : (n + 7) / 8 + 1) * 8;
 }
 
-// Shared memory of one "mma" CTA: the A tile (TM rows of round_up(K, 64),
-// skewed), then the weight ring (kStages x 64 rows of TN, skewed).
-inline size_t mma_smem_bytes(int tm, int tn, int k) {
-  return ((size_t)tm * skewed(round_up(k, kKChunk))
+// Shared memory of one "mma" CTA: the A tile of a piece (TM rows of the
+// piece's K = rows . patch . 3 rounded up to 64, skewed), two of them where
+// the patch takes more than one piece, then the weight ring (kStages x 64
+// rows of TN, skewed).
+inline size_t mma_smem_bytes(int tm, int tn, int patch, int rows) {
+  const size_t slots = rows < patch ? 2 : 1;
+  return (slots * tm * skewed(round_up(rows * patch * 3, kKChunk))
           + (size_t)kStages * kKChunk * skewed(tn)) * sizeof(bf16);
 }
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
+// One piece of a token tile, its patch rows [row0, row0 + nrows) (the whole
+// patch up to 32): the weight's first chunk of the piece's K range in
+// flight, the pixels made into the piece's A tile (rows lda apart; each CTA
+// of a cluster a share, stored into its peers' tiles too), then acc +=
+// A . W[k0 : k0 + K] with the weight's 64-row chunks through the ring B.
+template <int TM, int TN, int NACC>
+__device__ __forceinline__ void embed_mma_piece(const Args& a, const Window& w,
+                                                cg::cluster_group& cluster, int share,
+                                                int shares, int n0, int n_tok, int grid_side,
+                                                int col0, int row0, int nrows, bool first,
+                                                bf16* A, int lda, bf16* B,
+                                                float (&acc)[NACC][4]) {
   constexpr int kNt = TN / 8;                         // n8 tiles of a CTA
   constexpr int kTiles = (TM / 16) * kNt;
-  constexpr int kPerWarp = (kTiles + kWarps - 1) / kWarps;
   constexpr int kLdb = skewed(TN);
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.patch * a.patch * 3;
+  const int K = nrows * a.patch * 3;                  // the piece's K
   const int kp = round_up(K, kKChunk);
-  const int lda = skewed(kp);
-  bf16* A = reinterpret_cast<bf16*>(smem);            // [TM][lda]
-  bf16* B = A + (size_t)TM * lda;                     // [kStages][kKChunk][kLdb]
-  const int grid_side = a.out_size / a.patch;
-  const int n_tok = grid_side * grid_side;
-  const int n0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
   const int chunks = kp / kKChunk;
-  const bf16* w_embed = static_cast<const bf16*>(a.w_embed);
+  const bf16* w_embed =
+      static_cast<const bf16*>(a.w_embed) + (size_t)row0 * a.patch * 3 * a.width;
 
-  // Weight rows [64 c, 64 c + 64) x columns [col0, col0 + TN) into stage c %
-  // kStages; rows past K are zeros.
+  // Weight rows [64 c, 64 c + 64) of the piece x columns [col0, col0 + TN)
+  // into stage c % kStages; rows past the piece's K are zeros.
   const auto load_chunk = [&](int c) {
     bf16* dst = B + (size_t)(c % kStages) * kKChunk * kLdb;
     for (int i = threadIdx.x; i < kKChunk * kNt; i += kThreads) {
@@ -457,30 +484,13 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
     cp_async_commit();
   }
 
-  // The CTAs of one token tile (its column tiles) may run as one cluster:
-  // each then makes every shares-th patch row of the tile's pixels and
-  // stores them into the others' A tiles as well (16-byte stores into their
-  // shared memory); one cluster barrier then publishes every share.
-  cg::cluster_group cluster = cg::this_cluster();
-  const int shares = (int)cluster.num_blocks(), share = (int)cluster.block_rank();
-  // A CTA may write a peer's shared memory only once the peer runs: every
-  // thread arrives here and waits before its first store to a peer.
-  if (shares > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
-                                   a.out_size);
-  make_pixels<bf16>(a.frame, w, a.norm, n0, TM, n_tok, grid_side, a.patch, share, shares, A,
-                    lda);
-  if (shares > 1) share_pixels(cluster, A, lda, TM, a.patch, share, shares);
+  make_pixels<bf16>(a.frame, w, a.norm, n0, TM, n_tok, grid_side, a.patch, row0, nrows, share,
+                    shares, A, lda);
+  if (shares > 1) share_pixels(cluster, A, lda, TM, a.patch, nrows, share, shares, first);
   for (int i = threadIdx.x; i < TM * (kp - K); i += kThreads)     // K's padding
     A[(size_t)(i / (kp - K)) * lda + K + i % (kp - K)] = __float2bfloat16_rn(0.0f);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float acc[kPerWarp][4];
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-
   for (int c = 0; c < chunks; ++c) {
     if (c + kStages - 1 < chunks) load_chunk(c + kStages - 1);
     cp_async_commit();
@@ -490,7 +500,7 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
 #pragma unroll
     for (int ks = 0; ks < kKChunk / 16; ++ks) {
 #pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) {
+      for (int i = 0; i < NACC; ++i) {
         const int tile = warp + i * kWarps;
         if (kTiles % kWarps != 0 && tile >= kTiles) break;   // uniform over the warp
         const int mt = tile / kNt, nt = tile - mt * kNt;
@@ -506,7 +516,47 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
     }
     __syncthreads();                 // stage c % kStages is free again
   }
+}
 
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
+  constexpr int kNt = TN / 8;                         // n8 tiles of a CTA
+  constexpr int kTiles = (TM / 16) * kNt;
+  constexpr int kPerWarp = (kTiles + kWarps - 1) / kWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pieces = (a.patch + a.rows - 1) / a.rows;
+  const int lda = skewed(round_up(a.rows * a.patch * 3, kKChunk));
+  bf16* A = reinterpret_cast<bf16*>(smem);            // [pieces > 1 ? 2 : 1][TM][lda]
+  bf16* B = A + (size_t)(pieces > 1 ? 2 : 1) * TM * lda;   // [kStages][kKChunk][kLdb]
+  const int grid_side = a.out_size / a.patch;
+  const int n_tok = grid_side * grid_side;
+  const int n0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
+
+  // The CTAs of one token tile (its column tiles) may run as one cluster:
+  // each then makes every shares-th patch row of a piece of the tile's
+  // pixels and stores them into the others' A tiles as well (16-byte stores
+  // into their shared memory); one cluster barrier then publishes every
+  // share.
+  cg::cluster_group cluster = cg::this_cluster();
+  const int shares = (int)cluster.num_blocks(), share = (int)cluster.block_rank();
+  // A CTA may write a peer's shared memory only once the peer runs: every
+  // thread arrives here and waits before its first store to a peer.
+  if (shares > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
+                                   a.out_size);
+  float acc[kPerWarp][4];
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  // A patch above 32 walks its K by pieces of a.rows patch rows, the pixels
+  // of a piece made while the other A tile may still be read by a peer.
+  for (int piece = 0; piece < pieces; ++piece)
+    embed_mma_piece<TM, TN>(a, w, cluster, share, shares, n0, n_tok, grid_side, col0,
+                            piece * a.rows, min(a.rows, a.patch - piece * a.rows), piece == 0,
+                            A + (size_t)(piece & 1) * TM * lda, lda, B, acc);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // Epilogue on the accumulator registers: row lane / 4 (+ 8), columns
   // 2 (lane % 4) and + 1 of each n8 tile.
   const bf16* pos_bias = static_cast<const bf16*>(a.pos_bias);
@@ -547,11 +597,13 @@ __global__ void __launch_bounds__(kThreads) embed_mma_kernel(const Args a) {
 // 32: the rows g of a fragment load fall into banks 4g + t).
 __host__ __device__ inline int tf32_lda(int k) { return round_up(k, kTf32Chunk) + 4; }
 
-// Shared memory of one "tf32x3" CTA: the A tile, then the eight warps' sums
-// of the (TM, TN) output tile (rows TN + 1 floats apart).
-inline size_t tf32_smem_bytes(int tn, int k) {
-  return ((size_t)kTileTokens * tf32_lda(k) + (size_t)kWarps * kTileTokens * (tn + 1))
-         * sizeof(float);
+// Shared memory of one "tf32x3" CTA: the A tile of a piece (two where the
+// patch takes more than one piece), then the eight warps' sums of the (TM,
+// TN) output tile (rows TN + 1 floats apart).
+inline size_t tf32_smem_bytes(int tn, int patch, int rows) {
+  const size_t slots = rows < patch ? 2 : 1;
+  return (slots * kTileTokens * tf32_lda(rows * patch * 3)
+          + (size_t)kWarps * kTileTokens * (tn + 1)) * sizeof(float);
 }
 
 // A read-only load issued where it stands: volatile, so that the compiler
@@ -610,36 +662,77 @@ __device__ __forceinline__ void chunk_product(float (&acc)[NT][4], const float* 
     for (int q = 0; q < 4; ++q) acc[j][q] += part[0][j][q] + part[1][j][q];
 }
 
+// One piece of a token tile, its patch rows [row0, row0 + nrows) (the whole
+// patch up to 32): the warp's first two chunks of the piece's K range in
+// flight through the pixel phase, the pixels made into the piece's A tile
+// (each CTA of a cluster a share, stored into its peers' tiles too), then
+// acc += A . W[k0 : k0 + K], warp w taking the piece's 32-deep chunks w, w +
+// 8, ...  Rows of W past the piece's K but inside the weight meet A's zero
+// padding: exact zeros.
 template <int TN>
-__global__ void __launch_bounds__(kThreads) embed_tf32_kernel(const Args a) {
+__device__ __forceinline__ void embed_tf32_piece(const Args& a, const Window& w,
+                                                 cg::cluster_group& cluster, int share,
+                                                 int shares, int n0, int n_tok, int grid_side,
+                                                 int col0, int row0, int nrows, bool first,
+                                                 float* A, int lda, float (&acc)[TN / 8][4]) {
   namespace tf = tf32x3;
   constexpr int TM = kTileTokens;
   constexpr int kNt = TN / 8;                         // n8 tiles of a CTA
-  static_assert(TM == 16, "one m16 tile of rows");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.patch * a.patch * 3;
+  const int K = nrows * a.patch * 3;                  // the piece's K
+  const int k0 = row0 * a.patch * 3;
+  const int left = a.patch * a.patch * 3 - k0;        // weight rows from k0 on
   const int kp = round_up(K, kTf32Chunk);
-  const int lda = tf32_lda(K);
-  float* A = reinterpret_cast<float*>(smem);          // [TM][lda]
-  float* sums = A + (size_t)TM * lda;                 // [kWarps][TM][TN + 1]
-  const int grid_side = a.out_size / a.patch;
-  const int n_tok = grid_side * grid_side;
-  const int n0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
   const int chunks = kp / kTf32Chunk;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const float* wh = static_cast<const float*>(a.w_embed) + col0 + g;
-  const size_t plane = (size_t)K * a.width;
+  const float* wh = static_cast<const float*>(a.w_embed) + (size_t)k0 * a.width + col0 + g;
+  const size_t plane = (size_t)a.patch * a.patch * 3 * a.width;
 
   // The warp's chunks c = warp, warp + 8, ... go through two register
   // buffers: its first two are in flight through the pixel phase, and each
   // buffer is refilled with the chunk two ahead as soon as it is multiplied.
   tf::FragB b0[4][kNt], b1[4][kNt];
-  if (warp < chunks) load_b_chunk<kNt>(b0, wh, plane, a.width, K, warp * kTf32Chunk, t);
+  if (warp < chunks) load_b_chunk<kNt>(b0, wh, plane, a.width, left, warp * kTf32Chunk, t);
   if (warp + kWarps < chunks)
-    load_b_chunk<kNt>(b1, wh, plane, a.width, K, (warp + kWarps) * kTf32Chunk, t);
+    load_b_chunk<kNt>(b1, wh, plane, a.width, left, (warp + kWarps) * kTf32Chunk, t);
 
-  // This thread's elements of pos + bias for the epilogue, in flight too.
+  make_pixels<float>(a.frame, w, a.norm, n0, kTileTokens, n_tok, grid_side, a.patch, row0,
+                     nrows, share, shares, A, lda);
+  if (shares > 1) share_pixels(cluster, A, lda, TM, a.patch, nrows, share, shares, first);
+  for (int i = threadIdx.x; i < TM * (kp - K); i += kThreads)     // K's padding
+    A[(size_t)(i / (kp - K)) * lda + K + i % (kp - K)] = 0.0f;
+  __syncthreads();
+
+  const float* a_row = A + (size_t)g * lda + t;
+  for (int c = warp; c < chunks; c += 2 * kWarps) {
+    chunk_product<kNt>(acc, a_row + c * kTf32Chunk, lda, b0);
+    if (c + 2 * kWarps < chunks)
+      load_b_chunk<kNt>(b0, wh, plane, a.width, left, (c + 2 * kWarps) * kTf32Chunk, t);
+    if (c + kWarps >= chunks) break;
+    chunk_product<kNt>(acc, a_row + (c + kWarps) * kTf32Chunk, lda, b1);
+    if (c + 3 * kWarps < chunks)
+      load_b_chunk<kNt>(b1, wh, plane, a.width, left, (c + 3 * kWarps) * kTf32Chunk, t);
+  }
+}
+
+template <int TN>
+__global__ void __launch_bounds__(kThreads) embed_tf32_kernel(const Args a) {
+  constexpr int TM = kTileTokens;
+  constexpr int kNt = TN / 8;                         // n8 tiles of a CTA
+  static_assert(TM == 16, "one m16 tile of rows");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pieces = (a.patch + a.rows - 1) / a.rows;
+  const int lda = tf32_lda(a.rows * a.patch * 3);
+  float* A = reinterpret_cast<float*>(smem);          // [pieces > 1 ? 2 : 1][TM][lda]
+  float* sums = A + (size_t)(pieces > 1 ? 2 : 1) * TM * lda;   // [kWarps][TM][TN + 1]
+  const int grid_side = a.out_size / a.patch;
+  const int n_tok = grid_side * grid_side;
+  const int n0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  // This thread's elements of pos + bias for the epilogue, in flight through
+  // the pixel phase.
   constexpr int kOut = (TM * TN + kThreads - 1) / kThreads;
   const float* pos_bias = static_cast<const float*>(a.pos_bias);
   float pb[kOut];
@@ -655,28 +748,15 @@ __global__ void __launch_bounds__(kThreads) embed_tf32_kernel(const Args a) {
   if (shares > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
                                    a.out_size);
-  make_pixels<float>(a.frame, w, a.norm, n0, kTileTokens, n_tok, grid_side, a.patch, share,
-                     shares, A, lda);
-  if (shares > 1) share_pixels(cluster, A, lda, TM, a.patch, share, shares);
-  for (int i = threadIdx.x; i < TM * (kp - K); i += kThreads)     // K's padding
-    A[(size_t)(i / (kp - K)) * lda + K + i % (kp - K)] = 0.0f;
-  __syncthreads();
-
   float acc[kNt][4];
 #pragma unroll
   for (int j = 0; j < kNt; ++j)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
-  const float* a_row = A + (size_t)g * lda + t;
-  for (int c = warp; c < chunks; c += 2 * kWarps) {
-    chunk_product<kNt>(acc, a_row + c * kTf32Chunk, lda, b0);
-    if (c + 2 * kWarps < chunks)
-      load_b_chunk<kNt>(b0, wh, plane, a.width, K, (c + 2 * kWarps) * kTf32Chunk, t);
-    if (c + kWarps >= chunks) break;
-    chunk_product<kNt>(acc, a_row + (c + kWarps) * kTf32Chunk, lda, b1);
-    if (c + 3 * kWarps < chunks)
-      load_b_chunk<kNt>(b1, wh, plane, a.width, K, (c + 3 * kWarps) * kTf32Chunk, t);
-  }
+  for (int piece = 0; piece < pieces; ++piece)
+    embed_tf32_piece<TN>(a, w, cluster, share, shares, n0, n_tok, grid_side, col0,
+                         piece * a.rows, min(a.rows, a.patch - piece * a.rows), piece == 0,
+                         A + (size_t)(piece & 1) * TM * lda, lda, acc);
 
   // The warps' sums into shared memory (a lane holds rows g and g + 8,
   // columns 8j + 2t and + 1), then added in warp order with pos + bias.
@@ -721,8 +801,8 @@ __global__ void __launch_bounds__(kThreads) embed_simt_kernel(const Args a) {
   const int n0 = blockIdx.x * kSimtTok;
   const Window w = window_geometry(a.cx, a.cy, a.size, a.frame_h, a.frame.frame_w, a.band,
                                    a.out_size);
-  make_pixels<float>(a.frame, w, a.norm, n0, kSimtTok, n_tok, grid_side, a.patch, 0, 1, xs,
-                     K);
+  make_pixels<float>(a.frame, w, a.norm, n0, kSimtTok, n_tok, grid_side, a.patch, 0, a.patch, 0,
+                     1, xs, K);
   __syncthreads();
 
   // A thread owns kVec neighbouring outputs (one 16-byte vector of a weight
@@ -837,16 +917,15 @@ cudaError_t launch_tiled(Kern kernel, int (&allowed)[kMaxDevices], size_t smem, 
 }
 
 cudaError_t launch_mma(const Args& a, int tn, int cluster, cudaStream_t st) {
-  const int k = a.patch * a.patch * 3;
   if (tn == 32) {
     static int allowed[kMaxDevices] = {};
     return launch_tiled(embed_mma_kernel<kTileTokens, 32>, allowed,
-                        mma_smem_bytes(kTileTokens, 32, k), a, tn, cluster, st);
+                        mma_smem_bytes(kTileTokens, 32, a.patch, a.rows), a, tn, cluster, st);
   }
   if (tn == 64) {
     static int allowed[kMaxDevices] = {};
     return launch_tiled(embed_mma_kernel<kTileTokens, 64>, allowed,
-                        mma_smem_bytes(kTileTokens, 64, k), a, tn, cluster, st);
+                        mma_smem_bytes(kTileTokens, 64, a.patch, a.rows), a, tn, cluster, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -855,7 +934,7 @@ template <int TN>
 cudaError_t launch_tf32_tiles(const Args& a, int cluster, cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
   return launch_tiled(embed_tf32_kernel<TN>, allowed,
-                      tf32_smem_bytes(TN, a.patch * a.patch * 3), a, TN, cluster, st);
+                      tf32_smem_bytes(TN, a.patch, a.rows), a, TN, cluster, st);
 }
 
 cudaError_t launch_tf32(const Args& a, int tn, int cluster, cudaStream_t st) {
@@ -882,7 +961,8 @@ cudaError_t launch_simt(const Args& a, cudaStream_t st) {
 // variant: 0 = "simt" (float32: w_embed, pos_bias and out float), 1 = "mma"
 // (bfloat16), 2 = "tf32x3" (float32; w_embed the two planes hi, lo).  cols:
 // embed columns a CTA ("mma" 32 or 64, "tf32x3" 8, 16, 24 or 32; "simt" ignores it and
-// the cluster); cluster: CTAs of a cluster, dividing width / cols, at most 8.
+// the cluster); cluster: CTAs of a cluster, dividing width / cols, at most 8;
+// rows: the patch rows of a piece of K, 1 to patch ("simt" ignores it).
 // All tensors on the current device: y (frame_h, frame_w) uint8; uv
 // (frame_h / 2, frame_w / 2, 2) uint8; cx, cy, size one float32 each, the crop
 // window (ops/preprocess.py::CropWindow); w_embed (patch * patch * 3, width),
@@ -893,8 +973,9 @@ cudaError_t launch_simt(const Args& a, cudaStream_t st) {
 // most 1024).  Returns a cudaError_t.
 extern "C" int fused_prep_embed_forward(
     int variant, int cols, int cluster, int frame_h, int frame_w, int band,
-    int out_size, int patch, int dim, int width, float mean_r, float mean_g, float mean_b,
-    float std_r, float std_g, float std_b, const void* y_plane, const void* uv_plane,
+    int out_size, int patch, int rows, int dim, int width, float mean_r, float mean_g,
+    float mean_b, float std_r, float std_g, float std_b, const void* y_plane,
+    const void* uv_plane,
     const void* cx, const void* cy, const void* size, const void* w_embed,
     const void* pos_bias, void* out, void* stream) {
   const bool banded = band > 0 && (frame_h > band || frame_w > band);
@@ -903,12 +984,12 @@ extern "C" int fused_prep_embed_forward(
       || (banded && band & 1))
     return (int)cudaErrorInvalidValue;
   if (variant != 0 && (cols < 1 || width % cols || cluster < 1 || cluster > kMaxCluster
-                       || (width / cols) % cluster))
+                       || (width / cols) % cluster || rows < 1 || rows > patch))
     return (int)cudaErrorInvalidValue;
   const Args a{Frame{static_cast<const unsigned char*>(y_plane),
                      static_cast<const unsigned char*>(uv_plane), frame_w},
                static_cast<const float*>(cx), static_cast<const float*>(cy),
-               static_cast<const float*>(size), frame_h, band, out_size, patch, dim, width,
+               static_cast<const float*>(size), frame_h, band, out_size, patch, rows, dim, width,
                Norm{{mean_r, mean_g, mean_b}, {std_r, std_g, std_b}}, w_embed, pos_bias, out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == 1) return (int)launch_mma(a, cols, cluster, st);

@@ -31,8 +31,8 @@
 // the true head dim's (D / H)^-1/2.  Zeros add exactly to an f32 sum, so a
 // padded head computes what the unpadded one does.
 //
-// "mma" (bf16, head dim 32 / 64 / 128, any D): five launches a block, the
-// tiles of encoder_mma.cuh:
+// "mma" (bf16, head dim 32 / 64 / 128 or above 128 a multiple of 64, any D):
+// five launches a block, the tiles of encoder_mma.cuh:
 //   1. LN1 + qkv  2. attention  3. proj + residual  4. LN2 + mlp1 + GELU
 //   5. mlp2 + residual; each product's N tile (32 or 64) as the plan says.
 // The LN products come in two forms (Config::ln, the plan's choice from the
@@ -63,7 +63,7 @@
 // exactly to an f32 sum, so a padded block computes what an unpadded one
 // would, and D already a multiple of 64 (the flagship) pads nothing.
 //
-// "tf32x3" (float32, head dims that are multiples of 8 up to 128, any D and
+// "tf32x3" (float32, head dims that are multiples of 8, any D and
 // MLP width, each zero-padded to a multiple of 32 as "mma" pads to 64: the
 // residual stream carried at the padded width W, the LN statistics over the
 // true D, the hi / lo planes split after the pad): the same five launches
@@ -103,6 +103,13 @@
 //     through shared memory twice, the twin's arithmetic in f32 (the row
 //     maximum, then expf, the sum and P.V), so any sequence length fits the
 //     same 41 KB.
+//
+// Above a head dim of 128, "mma" and "tf32x3" run the attention stage in
+// panels of 64 columns (attention_panels_kernel of encoder_mma.cuh and
+// encoder_tf32.cuh): a CTA owns one panel of o and sums its scores over the
+// panels of q and k, so its registers and shared memory are one panel's
+// whatever the head dim; the products do not see the head dim.
+//
 // Every launch goes to the caller's stream; the entry point returns the first
 // CUDA error (cudaGetLastError after each launch), 0 on success.
 //
@@ -303,6 +310,8 @@ gemm_bias_kernel(const T* __restrict__ A, const T* __restrict__ W,
 // lane owning head dims lane, lane + 32, ...; dh <= 128); one division o / l.
 // ---------------------------------------------------------------------------
 
+// kAttMaxDh: the largest head dim "simt" takes, and of one tile in "mma"
+// and "tf32x3" (above it they run the panel kernels).
 constexpr int kAttQt = 16, kAttThreads = 256, kAttWarps = kAttThreads / 32, kAttKb = 32;
 constexpr int kAttMaxDh = 128, kKtLd = kAttKb + 1;
 
@@ -524,13 +533,31 @@ cudaError_t attention_mma(const bf16* qkv, bf16* out, int B, int S, int H, float
   return cudaGetLastError();
 }
 
+// A head dim above kAttMaxDh (both tensor-core variants): the panel
+// kernel, tiles x B x H x panels CTAs of one warpgroup.
+template <typename T, typename K>
+cudaError_t attention_panels(K kernel, size_t smem, const T* qkv, T* out, int B, int S, int H,
+                             int dh, float scale, cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  const int tiles = (S + mma::kTileRows - 1) / mma::kTileRows;
+  const long long grid = (long long)tiles * B * H * ((dh + 63) / 64);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(int)grid, mma::kThreads, smem, st>>>(qkv, out, S, H, tiles, dh, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t attention_mma_dh(int dh, const bf16* qkv, bf16* out, int B, int S, int H,
                              float scale, cudaStream_t st) {
   switch (dh) {
     case 32: return attention_mma<32>(qkv, out, B, S, H, scale, st);
     case 64: return attention_mma<64>(qkv, out, B, S, H, scale, st);
     case 128: return attention_mma<128>(qkv, out, B, S, H, scale, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (dh <= kAttMaxDh || dh % 64) return cudaErrorInvalidValue;
+      return attention_panels(encoder_mma::attention_panels_kernel<encoder_mma::kKeyBlock>,
+                              encoder_mma::attention_panels_smem_bytes(), qkv, out, B, S, H, dh,
+                              scale, st);
   }
 }
 
@@ -595,12 +622,16 @@ cudaError_t attention_tf32(const float* qkv, float* out, int B, int S, int H, fl
 
 // Every head dim that is a multiple of 8 up to 128 is built with one
 // warpgroup, and up to encoder_tf32::kSplitMaxDh with two (the padded rule
-// of ops/vit_block.py::head_pad: another head dim runs at the next one).
+// of ops/vit_block.py::head_pad: another head dim runs at the next one);
+// above 128, the panel kernel with one.
 template <int DH = 8>
 cudaError_t attention_tf32_dh(int dh, int wgs, const float* qkv, float* out, int B, int S,
                               int H, float c, cudaStream_t st) {
   if constexpr (DH > kAttMaxDh) {
-    return cudaErrorInvalidValue;
+    if (dh <= kAttMaxDh || wgs != 1) return cudaErrorInvalidValue;
+    return attention_panels(encoder_tf32::attention_panels_kernel<tf32x3::kKeys>,
+                            encoder_tf32::attention_panels_smem_bytes(), qkv, out, B, S, H, dh,
+                            c, st);
   } else {
     if (dh != DH) return attention_tf32_dh<DH + 8>(dh, wgs, qkv, out, B, S, H, c, st);
     if (wgs == 1) return attention_tf32<DH, 1>(qkv, out, B, S, H, c, st);
@@ -640,11 +671,10 @@ cudaError_t check(int variant, int dtype, int B, int S, int D, int W, int H, int
     return cudaErrorInvalidValue;
   bool ok = false;
   if (variant == kMma)
-    ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128) && W % 64 == 0 && W - D < 64
-         && hidden % 64 == 0;
+    ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128 || (dh > kAttMaxDh && dh % 64 == 0))
+         && W % 64 == 0 && W - D < 64 && hidden % 64 == 0;
   else if (variant == kTf32x3)
-    ok = dtype == 0 && dh % 8 == 0 && dh <= kAttMaxDh && W % 32 == 0 && W - D < 32
-         && hidden % 32 == 0;
+    ok = dtype == 0 && dh % 8 == 0 && W % 32 == 0 && W - D < 32 && hidden % 32 == 0;
   else if (variant == kSimt)
     ok = dtype == 0 && W == D && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0;
   return ok ? cudaSuccess : cudaErrorInvalidValue;

@@ -20,27 +20,37 @@ made, and a block of the encoder is one launch here.
 Each kernel has three variants, chosen by :func:`plan` from (dtype, head
 dim) before the launch:
 
-* ``"mma"``: bfloat16, every head dim up to 128 (the tiles take 32, 64
-  and 128; another runs zero-padded to the next of them, below).  Both
-  products on the tensor cores (``wgmma``), K and V in shared memory as they
-  lie, the softmax online over key blocks in the accumulator registers, p
-  rounded to bf16 for the second product.  Every serving path takes it.
+* ``"mma"``: bfloat16, every head dim (the tiles take 32, 64 and 128, and
+  above 128 every multiple of 64; another runs zero-padded to the next of
+  them, below).  Both products on the tensor cores (``wgmma``), K and V in
+  shared memory as they lie, the softmax online over key blocks in the
+  accumulator registers, p rounded to bf16 for the second product.  Every
+  serving path takes it.
 * ``"tf32x3"``: float32, every head dim (the training step, the ``small``
   preset).  Both products on the tensor cores (``mma.sync``) to float32's
   accuracy: each operand split into two TF32 parts, three products a
   product; the softmax online in the accumulator registers as in ``"mma"``.
-* ``"simt"``: f32 FMA products, no tensor cores, any head dim that is a
-  multiple of 8.  It was the float32 variant before ``"tf32x3"`` and the
-  bf16 one of head dims the ``"mma"`` tiles do not take before those ran
-  padded, and stays reachable through ``prepared(..., chosen=Plan(route,
-  "simt"))`` as the yardstick of the timings; no rule gives it.
+* ``"simt"``: f32 FMA products, no tensor cores, any head dim up to 128
+  that is a multiple of 8 (it keeps that limit).  It was the float32
+  variant before ``"tf32x3"`` and the bf16 one of head dims the ``"mma"``
+  tiles do not take before those ran padded, and stays reachable through
+  ``prepared(..., chosen=Plan(route, "simt"))`` as the yardstick of the
+  timings; no rule gives it.
 
-A head dim from 1 to 128 that the dtype's variant does not take as it is
-(bf16: not 32, 64 or 128; float32: not a multiple of 8) is zero-padded:
-q, k and v are copied into contiguous buffers whose head dim is the next of
-32 / 64 / 128 for bf16 or the next multiple of 8 for float32, the kernel
-runs with the softmax scale of the true head dim (an argument of the C
-entries), and the output is sliced back.  Zeros add exactly to an f32 sum,
+Above a head dim of 128 both tensor-core variants run in panels of 64
+columns (``csrc/attention.cu``'s panel kernels): a CTA owns one 64-column
+panel of the output and sums its scores over the panels of q and k, so its
+registers and shared memory are one panel's whatever the head dim (the
+scores are computed once for each panel).
+
+A head dim that the dtype's variant does not take as it is (bf16: up to
+128 not 32, 64 or 128, above 128 not a multiple of 64; float32: not a
+multiple of 8) is zero-padded: q, k and v are copied into contiguous
+buffers whose head dim is the next of 32 / 64 / 128, above 128 the next
+multiple of 64 (a whole panel), for bf16 and the next multiple of 8 for
+float32 (the panel kernels zero-fill a ragged last panel in shared memory),
+the kernel runs with the softmax scale of the true head dim (an argument of
+the C entries), and the output is sliced back.  Zeros add exactly to an f32 sum,
 so the arithmetic is the kernel's own; the padding costs work (a third more
 at dh 48 -> 64 and 96 -> 128) and the copies.
 
@@ -49,11 +59,9 @@ memory of an SM twice over (``"mma"``: 384 keys at head dim 64 on the H100;
 ``"tf32x3"``: 128) or once (``"simt"`` by name, which holds the f32 scores
 there too), ``attention_flash`` beyond.  No result depends on the rule.  It
 is a rule, not a fallback: a CUDA tensor launches the chosen kernel or
-raises.
-A head dim above 128 raises (a tile's shared memory and registers hold 128);
-operands whose last dimension is not contiguous, or whose bases or strides
-are not multiples of 16 bytes, are copied into contiguous ones first and
-then launched.
+raises.  Operands whose last dimension is not contiguous, or whose bases or
+strides are not multiples of 16 bytes, are copied into contiguous ones
+first and then launched.
 
 :func:`attention_reference` is the plain version: what the CPU tests run,
 what the backward differentiates, and what the encoder kernel's plain twin
@@ -84,13 +92,15 @@ FLASH_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
-_MAX_HEAD_DIM = 128
 _MMA_HEAD_DIMS = (32, 64, 128)
-# Geometry of the CTAs, as csrc/attention.cu has it.
+# Geometry of the CTAs, as csrc/attention.cu has it.  Above _TILE_MAX_DH
+# the head dim runs in panels of _PANEL columns, 64-key blocks, one
+# warpgroup; "simt" stops there.
 _MMA_ROWS, _MMA_ALIGN = 64, 1024
 _TF32_ROWS, _TF32_KEYS, _TF32_ROW_PAD = 64, 64, 4
 _SIMT_ROWS = {"single": 64, "flash": 32}
 _SIMT_KEY_BLOCK = 128
+_TILE_MAX_DH, _PANEL = 128, 64
 
 
 class Plan(NamedTuple):
@@ -125,7 +135,18 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
                kb: int = 0, stages: int = 0, warpgroups: int = 1) -> int:
     """Dynamic shared memory of one CTA, as ``csrc/attention.cu`` lays it
-    out (``attention_smem`` there returns the same number)."""
+    out (``attention_smem`` there returns the same number).  Above a head
+    dim of 128 (the panel kernels): ``"single"`` every q panel, every key
+    block's k panels and one V panel of each; ``"flash"`` two stages of a q,
+    a k and a V panel, whatever the head dim."""
+    if variant in ("mma", "tf32x3") and dh > _TILE_MAX_DH:
+        panels = -(-dh // _PANEL)
+        keys = -(-s // _TF32_KEYS) * _TF32_KEYS
+        rows = (_MMA_ROWS * panels + keys * panels + keys if route == "single"
+                else 2 * (_MMA_ROWS + 2 * _TF32_KEYS))
+        if variant == "mma":
+            return _MMA_ALIGN + rows * _PANEL * 2
+        return rows * (_PANEL + _TF32_ROW_PAD) * 4
     if variant in ("mma", "tf32x3"):
         keys = (-(-s // kb) * kb if route == "single"
                 else stages * warpgroups * kb)
@@ -141,10 +162,13 @@ def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
 
 
 def variant_pad(variant: str, dh: int) -> int:
-    """The head dim ``variant`` runs a head dim ``dh`` (1 to 128) at when
-    it does not take it as it is, else 0: ``"mma"`` the next of 32, 64 and
-    128, ``"tf32x3"`` and ``"simt"`` the next multiple of 8."""
+    """The head dim ``variant`` runs a head dim ``dh`` at when it does not
+    take it as it is, else 0: ``"mma"`` the next of 32, 64 and 128, above
+    128 the next multiple of 64 (a whole panel); ``"tf32x3"`` and
+    ``"simt"`` the next multiple of 8."""
     if variant == "mma":
+        if dh > _TILE_MAX_DH:
+            return 0 if dh % _PANEL == 0 else -(-dh // _PANEL) * _PANEL
         return 0 if dh in _MMA_HEAD_DIMS else next(
             d for d in _MMA_HEAD_DIMS if d > dh)
     return 0 if dh % 8 == 0 else -(-dh // 8) * 8
@@ -152,12 +176,12 @@ def variant_pad(variant: str, dh: int) -> int:
 
 def padded_head_dim(dh: int, dtype: torch.dtype) -> int:
     """The head dim q, k and v are zero-padded to, 0 if the dtype's
-    variant takes ``dh`` as it is: bf16 pads every head dim but 32, 64 and
-    128 to the next of them (``"mma"``), float32 one that is no multiple of
-    8 to the next multiple of 8 (``"tf32x3"``).  Above 128 it raises
-    ``ValueError``."""
-    if dh < 1 or dh > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} must be 1 to {_MAX_HEAD_DIM}")
+    variant takes ``dh`` as it is: bf16 (``"mma"``) pads every head dim up
+    to 128 but 32, 64 and 128 to the next of them and one above 128 to the
+    next multiple of 64; float32 (``"tf32x3"``) one that is no multiple of
+    8 to the next multiple of 8.  Below 1 it raises ``ValueError``."""
+    if dh < 1:
+        raise ValueError(f"head dim {dh} must be at least 1")
     return variant_pad("mma" if dtype == torch.bfloat16 else "tf32x3", dh)
 
 
@@ -172,8 +196,7 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     """The kernel and variant for sequence length ``s``, head dim ``dh`` and
     ``dtype`` on a card whose blocks may opt in to ``optin_bytes`` of shared
     memory.  A head dim no variant takes as it is gets ``pad``
-    (:func:`padded_head_dim`) and the plan of the padded one; above 128 it
-    raises ``ValueError``.
+    (:func:`padded_head_dim`) and the plan of the padded one.
 
     Variant: ``"tf32x3"`` for float32, ``"mma"`` for bf16 (``"simt"``
     only by name).  Kernel: ``"single"`` while two CTAs that hold all S
@@ -183,7 +206,10 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     ``bh`` (batch x heads) and the card's ``sms`` only shape the ``"mma"``
     ring: while the 64-row tiles are fewer than the SMs, two warpgroups a
     CTA split the keys of 128-key blocks; a grid that fills the card takes
-    64-key blocks, one warpgroup and more CTAs an SM."""
+    64-key blocks, one warpgroup and more CTAs an SM.  Above a head dim of
+    128 (the panel kernels) both variants take ``"single"`` by the same
+    rule, else ``"flash"`` with a ring of two stages; 64-key blocks and one
+    warpgroup either way."""
     pad = padded_head_dim(dh, dtype)
     if pad:
         return plan(s, pad, dtype, optin_bytes, bh, sms)._replace(pad=pad)
@@ -194,7 +220,7 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
         return Plan("flash", "tf32x3", kb=_TF32_KEYS, stages=2)
     if smem_bytes("single", "mma", s, dh, 2, kb=64) <= optin_bytes // 2:
         return Plan("single", "mma", kb=64)
-    if -(-s // _MMA_ROWS) * bh > sms:
+    if dh > _TILE_MAX_DH or -(-s // _MMA_ROWS) * bh > sms:
         return Plan("flash", "mma", kb=64, stages=2, warpgroups=1)
     return Plan("flash", "mma", kb=128 if dh <= 64 else 64, stages=2,
                 warpgroups=2)
@@ -310,9 +336,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(shape) != 3 or 0 in shape or shape[2] % heads:
         raise ValueError(f"q must be (B, S, heads * dh) with S >= 1, got "
                          f"shape {tuple(shape)} for {heads} heads")
-    if shape[2] // heads > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {shape[2] // heads} must be 1 to "
-                         f"{_MAX_HEAD_DIM}")
     if not (k.shape == shape == v.shape and k.dtype == dtype == v.dtype
             and k.device == q.device == v.device):
         raise ValueError("k or v: " + ", ".join(
@@ -332,6 +355,9 @@ def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     if chosen is None:
         chosen = _plan_for(q.device, s, dm // heads, q.dtype, b * heads)
     else:
+        if chosen.variant == "simt" and dm // heads > _TILE_MAX_DH:
+            raise ValueError(f"simt takes head dims up to {_TILE_MAX_DH}, "
+                             f"not {dm // heads}")
         chosen = chosen._replace(pad=variant_pad(chosen.variant, dm // heads))
     dh, scale_dh = entry_head_dims(dm // heads, chosen)
     if chosen.pad:
@@ -474,9 +500,9 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``None`` takes the CUDA kernels for a CUDA tensor and the plain version
     for a CPU tensor; ``False`` always takes the plain version; ``True`` on
     a CPU tensor raises (the kernels have no CPU mode).  On a CUDA tensor
-    the kernels launch or raise (a head dim they cannot take): the plain
-    version is reached there only by ``use_kernel=False``.  A head dim no
-    variant takes as it is runs zero-padded (:func:`plan`).
+    the kernels launch or raise (a launch that fails): the plain version is
+    reached there only by ``use_kernel=False``.  A head dim no variant
+    takes as it is runs zero-padded (:func:`plan`).
 
     The kernels read q, k and v in place (any views whose last dimension is
     contiguous and whose bases and strides are 16-byte aligned, such as the

@@ -31,8 +31,11 @@ the launch: ``"mma"`` (bf16, the embed on the tensor cores), ``"tf32x3"``
 (float32, the embed on the tensor cores in split TF32); ``"simt"`` (float32
 on the FMA units) runs by name only, the yardstick of ``"tf32x3"``, on
 widths up to 1024.  Every embed width runs in both dtypes (ViT-H's 1280 in
-clusters of 7 x 64 columns in bf16, 6 x 32 in float32); a patch above 32
-raises.
+clusters of 7 x 64 columns in bf16, 6 x 32 in float32), and so does every
+patch: above 32 the kernel walks K in pieces of patch rows
+(:func:`piece_rows`), since a 16-token tile of the whole
+patch^2 x 3 pixels no longer fits a block (``"simt"`` keeps its 48 KB, a
+patch up to about 40).
 
 ``LAUNCHES`` counts kernel launches, ``VARIANT_LAUNCHES`` them by variant.
 """
@@ -65,9 +68,12 @@ LAUNCHES = 0
 VARIANT_LAUNCHES = {"mma": 0, "tf32x3": 0, "simt": 0}
 
 MODES = ("loop", "transpose")
-# "tf32x3": 16 tokens x round_up(patch^2 x 3, 32) float32 pixels and the
-# warps' sums in a block's 227 KB; "simt": 2 tokens' pixels in 48 KB.
-_MAX_PATCH = 32
+# A patch up to _ONE_PIECE takes its whole K in one A tile (16 tokens x
+# patch^2 x 3 pixels: 98,304 bytes in bf16 and 196,608 in float32 at 32);
+# above it, pieces of patch rows of at most _PIECE_PIXELS pixels a token
+# (48 KB a 16-token tile in either dtype), two tiles in shared memory.
+_ONE_PIECE = 32
+_PIECE_PIXELS = {"mma": 1536, "tf32x3": 768}
 
 
 def _band(y_plane: torch.Tensor, window: pp.CropWindow, band
@@ -263,9 +269,9 @@ class Plan(NamedTuple):
     width: int = 0        # the operands' columns: the embed dim padded
 
 
-# kTileTokens, kTileCols and kMaxCluster of the source; the widest embed
-# "simt" takes (a thread of its 256 a 4-column group).
-_TILE_TOKENS, _TILE_COLS, _MAX_CLUSTER = 16, 32, 8
+# kTileTokens, kTileCols, kMaxCluster and kThreads of the source; the widest
+# embed "simt" takes (a thread of its 256 a 4-column group).
+_TILE_TOKENS, _TILE_COLS, _MAX_CLUSTER, _THREADS = 16, 32, 8, 256
 _SIMT_MAX_DIM = 1024
 _VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
 _SIMT_TOKENS = 2
@@ -279,6 +285,44 @@ _WIDE_COLS = 64
 # slower than clusters of 6 at the flagship's grid (profile_prep.py).
 _TF32_COLS = (8, 16, 24, 32)
 _TF32_MAX_CLUSTER = 6
+
+
+def piece_rows(patch: int, variant: str) -> int:
+    """The patch rows of one piece of K that ``variant`` walks a ``patch``
+    in: the whole patch up to 32 (and for ``"simt"``), above it as many
+    rows as keep a token's pixels of a piece within ``_PIECE_PIXELS`` (1,536
+    bf16, 768 float32: 48 KB a 16-token tile), at least one.  Embed index k
+    = (p . patch + q) . 3 + c, so a piece of rows is one contiguous K range
+    of the weight."""
+    if patch <= _ONE_PIECE or variant == "simt":
+        return patch
+    return max(1, _PIECE_PIXELS[variant] // (3 * patch))
+
+
+def _skewed(n: int) -> int:
+    """``skewed`` of the source: n rounded up to an odd number of 16-byte
+    units of bf16."""
+    units = -(-n // 8)
+    return (units if units % 2 else units + 1) * 8
+
+
+def smem_bytes(chosen: Plan, patch: int) -> int:
+    """Dynamic shared memory of one CTA of ``chosen`` at ``patch``, as the
+    source's ``mma_smem_bytes``, ``tf32_smem_bytes`` and
+    ``simt_smem_bytes`` count it: ``"mma"`` and ``"tf32x3"`` the A tile of
+    one piece (two where the patch takes more than one), then the weight
+    ring or the warps' sums; ``"simt"`` two tokens' whole pixels and its
+    sums."""
+    if chosen.variant == "simt":
+        k = patch * patch * 3
+        return (2 * k + _THREADS // (chosen.width // 4) * 2 * chosen.width) * 4
+    rows = piece_rows(patch, chosen.variant)
+    slots, k = (2 if rows < patch else 1), rows * patch * 3
+    if chosen.variant == "mma":
+        return (slots * _TILE_TOKENS * _skewed(-(-k // 64) * 64)
+                + 2 * 64 * _skewed(chosen.cols)) * 2
+    return (slots * _TILE_TOKENS * (-(-k // 32) * 32 + 4)
+            + 8 * _TILE_TOKENS * (chosen.cols + 1)) * 4
 
 
 def tiling(dim: int, cols: int, max_cluster: int = _MAX_CLUSTER
@@ -297,7 +341,8 @@ def plan(dim: int, dtype: torch.dtype, variant: Optional[str] = None,
          cols: Optional[int] = None) -> Plan:
     """The variant and tiling for embed width ``dim`` in ``dtype``: a pure
     function of the shape.  Every ``dim`` from 1 runs (``"simt"`` by name
-    up to 1024).
+    up to 1024), at every patch (the launch walks K in pieces of
+    :func:`piece_rows` patch rows).
 
     * bf16 takes ``"mma"`` (``mma.sync`` m16n8k16): CTAs of 16 tokens by 32
       columns, the column tiles of a token tile one cluster that shares the
@@ -358,7 +403,7 @@ def bind(lib: ctypes.CDLL):
     """The C entry of a loaded ``fused_prep_embed`` library, its signature
     declared: it takes :func:`_arguments`' tuple and the stream."""
     fn = lib.fused_prep_embed_forward
-    fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float] * 6
+    fn.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_float] * 6
                    + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     return fn
@@ -442,8 +487,6 @@ def _arguments(y_plane, uv_plane, cx, cy, size, w_embed, pos_bias,
     if not y_plane.is_cuda:
         raise ValueError("the fused preprocess + embed kernel needs CUDA "
                          "tensors")
-    if cfg.patch_size > _MAX_PATCH:
-        raise ValueError(f"patch size {cfg.patch_size} above {_MAX_PATCH}")
     dev, dt, dim = y_plane.device, pos_bias.dtype, cfg.embed_dim
     chosen = chosen or plan(dim, dt)
     if (chosen.variant == "mma") != (dt == torch.bfloat16) \
@@ -473,8 +516,9 @@ def _arguments(y_plane, uv_plane, cx, cy, size, w_embed, pos_bias,
     h, w = y_plane.shape
     out = torch.empty((n_tok, dim), dtype=dt, device=dev)
     args = (_VARIANT_CODES[chosen.variant], chosen.cols, chosen.cluster, h, w,
-            cfg.preprocess_band or 0, cfg.search_size, cfg.patch_size, dim,
-            chosen.width, *cfg.norm_mean, *cfg.norm_std,
+            cfg.preprocess_band or 0, cfg.search_size, cfg.patch_size,
+            piece_rows(cfg.patch_size, chosen.variant), dim, chosen.width,
+            *cfg.norm_mean, *cfg.norm_std,
             y_plane.data_ptr(), uv_plane.data_ptr(), cx.data_ptr(),
             cy.data_ptr(), size.data_ptr(), w_embed.data_ptr(),
             pos_bias.data_ptr(), out.data_ptr())

@@ -22,7 +22,7 @@ N tiles as ints):
   with p in f32 precision).
 * ``"tf32x3"``: float32 (the ``small`` preset, the float32 flagship of the
   dry run and of training, and every other float32 width) with a head dim
-  that is a multiple of 8 up to 128.  The same five
+  that is a multiple of 8.  The same five
   launches a block (``csrc/encoder_tf32.cuh``), the products on the tensor
   cores in split TF32 (``mma.sync``, three TF32 products a product into one
   f32 accumulator: float32's accuracy), the LayerNorm in the prologue with
@@ -36,9 +36,16 @@ N tiles as ints):
   activations.
 * ``"simt"``: float32 by name only (``prepared(..., chosen=Plan("simt"))``),
   the yardstick of the timings, on a shape with an MLP width that is a
-  multiple of 16 and a head dim up to 128 (padded to a multiple of 16): the
-  first design's seven launches a block on the FMA units, an attention that
-  walks blocks of 32 keys twice.
+  multiple of 16 and a head dim up to 128 (padded to a multiple of 16; it
+  keeps that limit): the first design's seven launches a block on the FMA
+  units, an attention that walks blocks of 32 keys twice.
+
+Above a head dim of 128, ``"mma"`` and ``"tf32x3"`` run the attention stage
+in panels of 64 columns (``attention_panels_kernel`` of
+``csrc/encoder_mma.cuh`` and ``encoder_tf32.cuh``): a CTA owns one panel of
+the output and sums its scores over the panels of q and k, so its registers
+and shared memory are one panel's whatever the head dim.  The products do
+not see the head dim.
 
 The LayerNorm products of ``"mma"`` and ``"tf32x3"`` come in two forms,
 ``Plan.ln``, picked from the shape alone by each form's shared memory
@@ -49,9 +56,10 @@ statistics launch before the product, then each K chunk normalised as it
 lands, for any width; seven launches a block).  The two give the same LN
 output bit for bit; ``csrc/vit_encoder.cu``'s header says what bounds each.
 
-A head dim from 1 to 128 that the variant does not take as it is (bf16: not
-32, 64 or 128; ``"tf32x3"``: not a multiple of 8; ``"simt"``: not a
-multiple of 16) is zero-padded to the next one it takes: the qkv weight and
+A head dim that the variant does not take as it is (bf16: up to 128 not 32,
+64 or 128, above 128 not a multiple of 64, a whole panel; ``"tf32x3"``: not a
+multiple of 8; ``"simt"``: not a multiple of 16) is zero-padded to the next
+one it takes: the qkv weight and
 bias get zero columns a head and the proj weight zero rows a head (in the
 operand cache, so once per parameter set), the attention runs at the padded
 head dim with the true one's scale.  ``"mma"`` also pads a D or an MLP width
@@ -65,8 +73,8 @@ statistics over the true D, and copies x in and the result out at D
 (``csrc/vit_encoder.cu``'s header says why every padded column stays 0).
 Zeros add exactly to an f32 sum: a padded head or width computes what the
 unpadded one does (``"tf32x3"`` splits the weights into their planes after
-the pad).  A CUDA call on a shape no variant of its dtype can take even so
-(a head dim above 128) raises; none goes to the plain twin.  An x or a
+the pad).  Every head dim, D and MLP width runs in both dtypes; a launch
+that fails raises, and no call goes to the plain twin.  An x or a
 weight that is not contiguous with a 16-byte aligned base is copied into
 one that is before the launch.  Neither kernel needs more shared memory for
 a longer sequence: both walk the keys through a ring of fixed size.
@@ -126,7 +134,6 @@ _LN_CODES = {"resident": 0, "streamed": 1}
 # float32's "simt" runs by name only.
 _DTYPE_VARIANTS = {torch.float32: ("tf32x3", "simt"), torch.bfloat16: ("mma",)}
 _VARIANTS = {dtype: v[0] for dtype, v in _DTYPE_VARIANTS.items()}
-_MAX_HEAD_DIM = 128
 # The opt-in shared memory of a block on the H100 (plan's default).
 H100_OPTIN = 232448
 # Geometry of the kernels, as csrc/vit_encoder.cu, encoder_mma.cuh and
@@ -137,7 +144,9 @@ H100_OPTIN = 232448
 # N 64 is 1024 + 12 x 64 x (64 + 64) x 2 = 197,632 bytes of the H100's
 # 232,448 and at W = 1024 263,168.  The attention takes 64 query rows and
 # walks 64-key blocks through a ring of 2 (82,944 bytes at head dim 128, for
-# any S).  "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
+# any S); above a head dim of 128 (_TILE_MAX_DH) it runs in panels of 64
+# columns, a ring of two stages of a q, a k and a V panel (50,176 bytes
+# "mma", 104,448 "tf32x3", for any head dim and S); "simt" stops there.  "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
 # chunks through a ring of 4 slots (3 at N 64) a warpgroup of A and the
 # weight's two planes (and, streamed, the chunk's LN scale and bias); a
 # resident LN product holds its 64 rows of W and its scale and bias instead
@@ -147,6 +156,7 @@ H100_OPTIN = 232448
 _ROWS, _CHUNK, _TF32_CHUNK = 64, 64, 32
 _MMA_RING = 3
 _SPLIT_MAX_DH = 64         # "tf32x3": two-warpgroup attention built up to it
+_TILE_MAX_DH, _PANEL = 128, 64
 
 
 class Plan(NamedTuple):
@@ -173,8 +183,8 @@ def _refusal(variant: str, dim: int, heads: int,
     can."""
     if heads < 1 or dim % heads:
         return f"embed dim {dim} is not divisible by {heads} heads"
-    if dim // heads > _MAX_HEAD_DIM:
-        return f"head dim {dim // heads} is above {_MAX_HEAD_DIM}"
+    if variant == "simt" and dim // heads > _TILE_MAX_DH:
+        return f"simt takes head dims up to {_TILE_MAX_DH}, not {dim // heads}"
     if hidden < 1:
         return f"MLP width {hidden} must be at least 1"
     if variant == "simt" and hidden % 16:
@@ -200,6 +210,23 @@ def ln_smem_bytes(variant: str, ln: str, width: int, tile: int,
             + slots * 2 * _TF32_CHUNK) * 4
 
 
+def attention_smem_bytes(variant: str, dh: int, warpgroups: int = 1) -> int:
+    """Dynamic shared memory of one attention CTA of ``variant`` at the
+    head dim it runs (the sources' ``attention_smem_bytes`` and
+    ``attention_panels_smem_bytes``): up to 128 a ring of two 64-key K and
+    V blocks beside the 64-row Q tile (``"tf32x3"``: a ring a warpgroup),
+    above 128 two stages of a q, a k and a V panel of 64 columns, whatever
+    the head dim; ``"simt"``'s is static."""
+    if variant == "simt":
+        return 0
+    if dh > _TILE_MAX_DH:
+        rows, dh = 2 * (_ROWS + 2 * 64), _PANEL
+        return 1024 + rows * dh * 2 if variant == "mma" else rows * (dh + 4) * 4
+    if variant == "mma":
+        return 1024 + (_ROWS + 2 * 2 * 64) * dh * 2
+    return (_ROWS + 4 * warpgroups * 64) * (dh + 4) * 4
+
+
 def _ln_form(variant: str, width: int, tiles: Tuple[int, ...],
              warpgroups: int, optin: int) -> Optional[str]:
     """The LN products' form: ``"resident"`` where both the qkv and mlp1
@@ -211,11 +238,14 @@ def _ln_form(variant: str, width: int, tiles: Tuple[int, ...],
 
 
 def head_pad(variant: str, dh: int) -> int:
-    """The head dim ``variant`` runs a head dim ``dh`` (1 to 128) at when
-    it does not take it as it is, else 0: ``"mma"`` the next of 32, 64 and
-    128, ``"tf32x3"`` the next multiple of 8, ``"simt"`` the next multiple
-    of 16."""
+    """The head dim ``variant`` runs a head dim ``dh`` at when it does not
+    take it as it is, else 0: ``"mma"`` the next of 32, 64 and 128, above
+    128 the next multiple of 64 (a whole panel); ``"tf32x3"`` the next
+    multiple of 8 (a ragged last panel is zero-filled in shared memory);
+    ``"simt"`` (up to 128) the next multiple of 16."""
     if variant == "mma":
+        if dh > _TILE_MAX_DH:
+            return 0 if dh % _PANEL == 0 else -(-dh // _PANEL) * _PANEL
         return 0 if dh in (32, 64, 128) else next(
             d for d in (32, 64, 128) if d > dh)
     step = 8 if variant == "tf32x3" else 16
@@ -264,13 +294,13 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
     with ``heads`` heads and MLP width ``hidden`` on a card of ``sms`` SMs
     and ``optin`` bytes of shared memory a block.
 
-    * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128), ``"tf32x3"``
-      for float32 (head dim a multiple of 8), at any dim and hidden.
-      Another head dim up to 128 gets ``pad``, the one it is zero-padded to
-      (:func:`head_pad`); a dim or hidden that is no multiple of the
-      variant's K chunk (64, 32) gets ``width`` and ``mlp``, the ones they
-      are zero-padded to (:func:`width_pads`).  A head dim above 128 raises
-      ``ValueError``; another dtype raises ``TypeError``.
+    * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128, above 128 a
+      multiple of 64), ``"tf32x3"`` for float32 (head dim a multiple of 8),
+      at any dim, head dim and hidden.  Another head dim gets ``pad``, the
+      one it is zero-padded to (:func:`head_pad`); a dim or hidden that is
+      no multiple of the variant's K chunk (64, 32) gets ``width`` and
+      ``mlp``, the ones they are zero-padded to (:func:`width_pads`).
+      Another dtype raises ``TypeError``.
     * ``"mma"`` and ``"tf32x3"`` N tile of each product (of its padded
       width): 64 once 64-wide tiles give a grid of at least ``sms`` CTAs,
       else 32 (at batch 1 the grid is the latency: more, smaller CTAs), and

@@ -103,8 +103,9 @@ def test_encoder_kernel_matches_twin(dev, dtype, b, s, d, heads):
 
 
 def test_encoder_kernel_rejects_what_it_cannot_take(dev):
-    # A head dim above 128 raises, through the wrapper and an explicit
-    # launch alike; nothing on the card goes to the plain twin.  A head dim
+    # A head dim above 128 runs in panels (136 in float32 as it is, through
+    # the wrapper and an explicit launch alike); simt by name stops at 128
+    # and raises; nothing on the card goes to the plain twin.  A head dim
     # the variant does not take as it is (4 in float32: tf32x3) runs
     # padded (to 8).  A
     # strided x is copied and launched.  A dtype, or weights that do not fit
@@ -118,11 +119,15 @@ def test_encoder_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(TypeError):
         vit_block.encoder(x.half(), blocks, 2)
     before = vit_block.LAUNCHES
-    with pytest.raises(ValueError, match="head dim"):             # dh = 136
-        vit_block.encoder(x136, wide_blocks, 1)
-    with pytest.raises(ValueError, match="head dim"):
-        vit_block._launch(x136, stacked, 1, stacked=True)
-    assert vit_block.LAUNCHES == before
+    _check_close(vit_block.encoder(x136, wide_blocks, 1),         # dh = 136
+                 vit_block.encoder_reference(x136, wide_blocks, 1), torch.float32)
+    _check_close(vit_block._launch(x136, stacked, 1, stacked=True),
+                 vit_block.encoder_reference(x136, wide_blocks, 1), torch.float32)
+    assert vit_block.LAUNCHES == before + 2
+    with pytest.raises(ValueError, match="simt takes head dims up to 128"):
+        vit_block.prepared(x136, stacked, 1, True, chosen=vit_block.Plan("simt"))
+    assert vit_block.LAUNCHES == before + 2
+    before = vit_block.LAUNCHES
     _check_close(vit_block.encoder(x, blocks, 16),                # dh = 4 -> 8
                  vit_block.encoder_reference(x, blocks, 16), torch.float32)
     assert vit_block.LAUNCHES == before + 1
@@ -460,13 +465,20 @@ def test_attention_kernels_reject_what_they_cannot_take(dev):
     q, k, v = _qkv(2, 16, 64, torch.float32, dev)
     with pytest.raises(TypeError):
         attention.flash_attention(q.half(), k.half(), v.half())
+    # Head dim 136 runs in panels (float32 as it is); simt by name stops at
+    # 128 and raises before any launch.
     q136, k136, v136 = _qkv(2, 16, 136, torch.float32, dev)
-    with pytest.raises(ValueError, match="head dim"):
-        attention.multihead_attention(q136, k136, v136, 1, use_kernel=True)
     before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
-    with pytest.raises(ValueError, match="head dim"):   # by default too
-        attention.flash_attention(q136, k136, v136)
-    assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before
+    _check_attention(attention.multihead_attention(q136, k136, v136, 1,
+                                                   use_kernel=True),
+                     attention.attention_reference(q136, k136, v136), torch.float32)
+    _check_attention(attention.flash_attention(q136, k136, v136),
+                     attention.attention_reference(q136, k136, v136), torch.float32)
+    with pytest.raises(ValueError, match="simt takes head dims"):
+        attention.prepared(q136, k136, v136, 1,
+                           chosen=attention.Plan("flash", "simt"))
+    assert attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES == before + 2
+    before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
     # Head dim 12 runs padded to 16.
     q12, k12, v12 = (t[..., :12] for t in (q, k, v))
     _check_attention(attention.multihead_attention(q12, k12, v12, 1),
@@ -662,12 +674,12 @@ def test_block_kernel_casts_masters_and_rejects_what_it_cannot_take(dev):
     wide = _blocks(gen, 136, 1, 256, torch.float32, dev)[0]
     x136 = torch.randn((2, 20, 136), generator=gen).to(dev)
     before = vit_block.BLOCK_LAUNCHES
-    with pytest.raises(ValueError, match="head dim"):    # dh = 136
-        vit_block.block(x136, wide, 1)
-    assert vit_block.BLOCK_LAUNCHES == before
-    with pytest.raises(ValueError, match="head dim"):
-        vit_block._launch(x136, [wide[m][f] for m, f in vit_block._FIELDS], 1,
-                          stacked=False)
+    _check_close(vit_block.block(x136, wide, 1),            # dh = 136: panels
+                 vit_block.block_reference(x136, wide, 1), torch.float32)
+    assert vit_block.BLOCK_LAUNCHES == before + 1
+    with pytest.raises(ValueError, match="simt takes head dims"):
+        vit_block.prepared(x136, [wide[m][f] for m, f in vit_block._FIELDS], 1,
+                           False, chosen=vit_block.Plan("simt"))
     bad = dict(blk, proj={"kernel": blk["proj"]["kernel"][:, :32],
                           "bias": blk["proj"]["bias"]})
     with pytest.raises(ValueError, match="kernel expects"):
@@ -758,8 +770,9 @@ def test_fused_prep_kernel_rejects_what_it_cannot_take(dev):
     ops = list(fpe.kernel_operands(params, y, uv, win, cfg))
     with pytest.raises(TypeError, match="variant mma"):   # bf16's on float32
         fpe.launch(*ops, cfg, fpe.plan(cfg.embed_dim, torch.bfloat16))
+    # Patch 64 runs (in pieces of patch rows), but not on patch 16's weight.
     big = dataclasses.replace(cfg, patch_size=64, search_size=128)
-    with pytest.raises(ValueError, match="patch size 64"):
+    with pytest.raises(ValueError, match="do not fit"):
         fpe.launch(*ops, big)
 
 
@@ -996,3 +1009,84 @@ def test_train_step_on_card_matches_cpu(dev):
         assert launched == (3 * cfg.depth if d.type == "cuda" else 0)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
     assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+# ---------------------------------------------------------------------------
+# Head dims above 128 (the panel kernels) and patches above 32 (kernel 5's K
+# in pieces of patch rows)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [136, 192, 256])
+@pytest.mark.parametrize("s", [100, 320])
+def test_wide_head_dims_match_reference_on_both_routes(dev, dtype, dh, s):
+    # Two heads of dh: the plan's kernel through multihead_attention, then
+    # both routes by name on ready operands where their CTAs fit the card.
+    gen = torch.Generator().manual_seed(dh + s)
+    q, k, v = (torch.randn((2, s, 2 * dh), generator=gen).to(dev, dtype)
+               for _ in range(3))
+    ref = attention.multihead_attention(q, k, v, 2, use_kernel=False)
+    _check_attention(attention.multihead_attention(q, k, v, 2), ref, dtype)
+    chosen = attention._plan_for(dev, s, dh, dtype, 4)
+    optin = attention.card(dev)[0]
+    for route in ("single", "flash"):
+        named = chosen._replace(route=route, stages=0 if route == "single" else 2)
+        pad = named.pad or dh
+        if attention.smem_bytes(route, named.variant, s, pad, 0, 64,
+                                named.stages) > optin:
+            continue
+        out, launch = attention.prepared(q, k, v, 2, chosen=named)
+        launch()
+        torch.cuda.synchronize()
+        out = out.view(2, s, 2, pad)[..., :dh].reshape(2, s, 2 * dh)
+        _check_attention(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads", [(768, 4), (512, 2), (272, 2)])
+def test_wide_head_encoder_and_block_match_twin(dev, dtype, d, heads):
+    # Head dims 192, 256 and 136 (bf16: padded to 192): the encoder (2
+    # blocks) and the block kernel against the twin, one launch each.
+    gen = torch.Generator().manual_seed(d + heads)
+    blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
+    x = torch.randn((1, 80, d), generator=gen).to(dev, dtype)
+    x4 = torch.randn((4, 80, d), generator=gen).to(dev, dtype)
+    before = vit_block.LAUNCHES, vit_block.BLOCK_LAUNCHES
+    got = vit_block.encoder(x, blocks, heads)
+    one = vit_block.block(x4, blocks[0], heads)
+    assert (vit_block.LAUNCHES, vit_block.BLOCK_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    _check_close(got, vit_block.encoder_reference(x, blocks, heads), dtype)
+    _check_close(one, vit_block.block_reference(x4, blocks[0], heads), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("patch,search", [(48, 192), (64, 256)])
+def test_wide_patches_match_plain(dev, dtype, patch, search):
+    # Kernel 5 above patch 32 (K in pieces of patch rows, two A tiles)
+    # against both modes of its plain version, one launch a call.
+    cfg = dataclasses.replace(PRESETS["vittrack-t"], dtype=dtype,
+                              patch_size=patch, search_size=search,
+                              template_size=search // 2)
+    rng = np.random.default_rng(patch)
+    k = patch * patch * 3
+    params = {"backbone": {
+        "patch_embed": {"kernel": torch.as_tensor(
+            (0.02 * rng.standard_normal((k, cfg.embed_dim))).astype(np.float32),
+            device=dev), "bias": torch.zeros(cfg.embed_dim, device=dev)},
+        "pos_embed_x": torch.as_tensor((0.1 * rng.standard_normal(
+            (cfg.num_search_tokens, cfg.embed_dim))).astype(np.float32),
+            device=dev)}}
+    y, uv = _nv12((1080, 1920), patch, dev)
+    win = pp.crop_window(torch.tensor([1500.0, 700.0, 64.0, 64.0], device=dev),
+                         cfg.search_factor)
+    before = fpe.LAUNCHES
+    got = fpe.nv12_search_tokens(params, y, uv, win, cfg)
+    assert fpe.LAUNCHES == before + 1
+    for mode in fpe.MODES:
+        ref = fpe.nv12_search_tokens_reference(params, y, uv, win, cfg, mode)
+        err = (got.float() - ref.float()).abs().max().item()
+        if dtype == "float32":
+            assert err <= 1e-4, (mode, err)
+        else:
+            assert err <= 2.0 ** -7 * ref.float().abs().max().item(), (mode, err)

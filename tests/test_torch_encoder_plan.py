@@ -43,8 +43,8 @@ What a CPU run can say of kernels that run only on the card:
 * The operand cache: reused across calls, rebuilt after an in-place
   update, bypassed under a gradient.
 * ``ops/attention.py::plan`` pads a head dim that is not a multiple of 8
-  (bf16 to 32 / 64 / 128, float32 to the next multiple of 8) and refuses
-  one above 128 (on the card such a call raises); q, k, v whose last
+  (bf16 to 32 / 64 / 128, float32 to the next multiple of 8) and takes
+  one above 128 in panels (float32 136 as it is); q, k, v whose last
   dimension is not contiguous or whose base is not 16-byte aligned are
   copied, unchanged, into operands the kernels read in place.  On the CPU
   all three shapes take the plain version, which equals JAX's
@@ -124,7 +124,7 @@ def test_plan_n_tile_by_batch():
     (BF16, 832, 13, 3328, "mma"),    # D beyond 768: rows resident at N 64
     (BF16, 96, 12, 384, "mma"),      # head dim 8 -> 32, D 96 -> 128
     (F32, 24, 2, 96, "tf32x3"),      # head dim 12 -> 16, D 24 -> 32
-    (BF16, 288, 2, 1152, None),      # head dim 144
+    (BF16, 288, 2, 1152, "mma"),     # head dim 144 -> 192 (panels), D -> 320
     (F32, 64, 2, 200, "tf32x3"),     # MLP width 200 -> 224
     (torch.float16, 192, 3, 768, None),
 ])
@@ -133,21 +133,22 @@ def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
     # by name only).  A head dim it does not take as it is runs zero-padded
     # (the padded dim in the plan, the true one's scale at the launch), and
     # so does a D or MLP width no multiple of the variant's K chunk (mma 64,
-    # tf32x3 32); a shape the dtype's variant cannot take even so (a head
-    # dim above 128) raises before any launch (no call on the card goes to
-    # the plain twin).
+    # tf32x3 32); above a head dim of 128 bf16 pads to a whole 64-column
+    # panel.  Another dtype raises before any launch (no call on the card
+    # goes to the plain twin).
     if variant is None:
         with pytest.raises(TypeError if dtype == torch.float16 else ValueError):
             vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
         return
     got = vit_block.plan(1, 320, dim, heads, hidden, dtype, H100_SMS)
     assert got.variant == variant
-    pad = {(64, 4): 32, (24, 2): 16, (192, 16): 16}.get((dim, heads), 0)
+    pad = {(64, 4): 32, (24, 2): 16, (192, 16): 16,
+           (288, 2): 192}.get((dim, heads), 0)
     if dtype == BF16 and dim == 96:
         pad = {2: 64, 3: 0, 12: 32}[heads]
     assert got.pad == pad == vit_block.head_pad(variant, dim // heads)
     widths = {(BF16, 96): (128, 0), (F32, 96): (0, 416 if hidden == 400 else 0),
-              (F32, 24): (32, 0), (F32, 64): (0, 224)}
+              (F32, 24): (32, 0), (F32, 64): (0, 224), (BF16, 288): (320, 0)}
     width = widths.get((dtype, dim), (0, 0))
     assert (got.width, got.mlp) == width == vit_block.width_pads(
         variant, dim, hidden)
@@ -816,13 +817,16 @@ def test_encode_passes_masters_and_keeps_the_cpu_path():
 @pytest.mark.parametrize("s,dh,dtype", [
     (320, 12, F32), (320, 136, F32), (33, 4, BF16)])
 def test_attention_plan_refuses_odd_head_dims(s, dh, dtype):
-    # Above 128 no kernel takes a head dim: it raises.  Below, one that is
-    # no multiple of 8 is padded: float32 to the next multiple of 8
-    # (tf32x3), bf16 to 32 (mma); the kernel runs at the padded dim with the
-    # true one's scale.
+    # Above 128 the head dim runs in 64-column panels: float32 takes 136 as
+    # it is (a multiple of 8; the ragged last panel is zero-filled in shared
+    # memory), 64-key blocks through a ring of two.  Below, one that is no
+    # multiple of 8 is padded: float32 to the next multiple of 8 (tf32x3),
+    # bf16 to 32 (mma); the kernel runs at the padded dim with the true
+    # one's scale.
     if dh > 128:
-        with pytest.raises(ValueError, match="head dim"):
-            tattn.plan(s, dh, dtype, H100_OPTIN)
+        got = tattn.plan(s, dh, dtype, H100_OPTIN)
+        assert got == tattn.Plan("flash", "tf32x3", kb=64, stages=2)
+        assert tattn.entry_head_dims(dh, got) == (dh, dh)
         return
     got = tattn.plan(s, dh, dtype, H100_OPTIN)
     pad, variant = {F32: (16, "tf32x3"), BF16: (32, "mma")}[dtype]
