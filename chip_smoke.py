@@ -100,13 +100,16 @@ Phases, in order; any failure raises and exits non-zero:
    kernels 1 and 5 counted by variant; ``python -c "import chip_smoke as
    c; c.prep_alone()"`` runs phase 3c and these paths alone; then the
    widths past the resident LN products (``wide_phase``, alone: ``python
-   -c "import chip_smoke as c; c.wide_alone()"``): the streamed form named
-   where the rule keeps the resident one (bf16 D 768, float32 D 512 and
-   192, batch 1 and 16) bit-equal to it; the flagship's and ``small``'s
-   kernel 1 / 2 / 5 outputs bit-equal by sha256 to the build before the
-   streamed form (``FLAGSHIP_SHA256``); a ViT-L-width model (D 1024, 24
+   -c "import chip_smoke as c; c.wide_alone()"``): the wide LN form named
+   where the rule keeps the resident one (bf16 D 768 prenormed, with one
+   and two warpgroups and every N tile the ring builds; float32 D 512 and
+   192 streamed; batch 1 and 16) bit-equal to it; the flagship's and
+   ``small``'s kernel 1 / 2 / 5 outputs bit-equal by sha256 to the build
+   before the streamed form (``FLAGSHIP_SHA256``), and bf16 kernels 1 and
+   2 at ViT-L's and ViT-H's widths to the build before the prenormed form
+   (``WIDE_SHA256``); a ViT-L-width model (D 1024, 24
    blocks, 16 heads, seeded weights) with kernel 1 at (1, 320, 1024) x 24
-   in bf16 (``mma``, streamed, after the final LN against the float64
+   in bf16 (``mma``, prenormed, after the final LN against the float64
    chain) and float32 (``tf32x3``, streamed, beside ``simt`` by name over a
    few launches) and kernel 2 at (16, 320, 1024) in both, each timed beside
    the plain twin, the library and the bound; a ViT-H-width model (D 1280,
@@ -2395,9 +2398,9 @@ WIDE_STEPS = 3            # compiled ViT-L steps a dtype, each from the CPU's st
 WIDE_CPU_STREAMS = 2      # streams of the 16-stream tick held to the CPU
 WIDE_PREP_STEPS = 2       # ViT-H update(fused_prep=True) steps a dtype
 WIDE_SIMT_ITERS = 3       # simt by name at the float32 ViT-L shapes: a few launches
-# The forced-streamed comparisons: (dtype, D, heads) where the rule keeps
-# the LN products resident (bf16 D 768, float32 D 512 and the flagship's
-# 192), at batch 1 and 16.
+# The forced wide-form comparisons (bf16 prenormed, float32 streamed):
+# (dtype, D, heads) where the rule keeps the LN products resident (bf16 D
+# 768, float32 D 512 and the flagship's 192), at batch 1 and 16.
 WIDE_FORCED = ((torch.bfloat16, 768, 12), (torch.float32, 512, 8),
                (torch.float32, 192, 3))
 # flagship_outputs as the build of commit 374a250 (before the streamed LN
@@ -2419,6 +2422,23 @@ FLAGSHIP_SHA256 = {
         "d95ae984c758819062dbe253391242eec0801a471ba8553fa7c841a2f1b85145",
     "kernel5_f32":
         "4fe9d41b4f1257df882d439aa877f1aa83928f405e5abb9c18f26633999bf167"}
+
+
+# wide_outputs as the build of commit ed9e50f (the streamed LN products,
+# before the prenormed form) made them on an NVIDIA H100 80GB HBM3:
+# sha256 of their bits.  The prenormed form keeps the LN rows' and the
+# products' arithmetic, so every output stays bit-equal.
+WIDE_SHA256 = {
+    "kernel1_vit_l_bf16":
+        "c35013d0c0280478a3b49638019327027afa04557bc12510c5fb6a5cf5485e71",
+    "kernel2_vit_l_bf16":
+        "2262b339efc381b36fe56680121ca650eb0027791befed3af50f3f531d2e5339",
+    "kernel1_vit_h_bf16":
+        "fafb0c729f6605f2d3fcfddcceabb54a0611fe2d23d8f3d17f019d8fd6d61bee",
+    "kernel1_model_a_bf16":
+        "475493f6893068516639e3ab6f005a16b63f696060e3c113a643657f4b7fc8b1",
+    "kernel2_model_a_bf16":
+        "cca8a89b43f94ab9cf9b3c97e0e20ae6a77a06f665a592e3e7750260c6b74336"}
 
 
 def digest(t: torch.Tensor) -> str:
@@ -2479,6 +2499,48 @@ def flagship_outputs(dev) -> dict:
     return out
 
 
+def wide_outputs(dev, name: str, cfg, params, seed: int) -> dict:
+    """bf16 kernel 1 on seeded (1, 320, D) tokens through every block of a
+    wide model (``wide_model(dev, spec, seed)``: ViT-L, ViT-H's width,
+    Model A) and, but for ViT-H, kernel 2 on seeded (16, 320, D) ones
+    through its block 0, the tokens drawn from ``seed``: what WIDE_SHA256
+    fixes."""
+    from gstreamer_vit_tracker_tpu_torch.models import vit
+    from gstreamer_vit_tracker_tpu_torch.ops import vit_block
+
+    blocks = [vit.cast_params(p, torch.bfloat16)
+              for p in params["backbone"]["blocks"]]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x1 = (2.0 * torch.randn((1, cfg.num_tokens, cfg.embed_dim),
+                            generator=gen)).to(dev, torch.bfloat16)
+    out = {f"kernel1_{name}_bf16": vit_block.encoder(x1, blocks,
+                                                     cfg.num_heads)}
+    if name != "vit_h":
+        x16 = (2.0 * torch.randn((SERVE_SLOTS, cfg.num_tokens, cfg.embed_dim),
+                                 generator=gen)).to(dev, torch.bfloat16)
+        out[f"kernel2_{name}_bf16"] = vit_block.block(x16, blocks[0],
+                                                      cfg.num_heads)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_wide_sha256(dev, name: str, cfg, params, seed: int) -> dict:
+    """``wide_outputs`` of one model against WIDE_SHA256: the prenormed
+    products (every bf16 width above 768) give the bits of the build
+    before them."""
+    got = {k: digest(t)
+           for k, t in wide_outputs(dev, name, cfg, params, seed).items()}
+    want = {k: WIDE_SHA256[k] for k in got}
+    print(f"{name} bf16 kernel 1 / 2 outputs, sha256 {json.dumps(got)}; "
+          f"bit-equal to the build before the prenormed form: {got == want}",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"{name}: bf16 kernel outputs are no longer "
+                             f"bit-equal to the build before the prenormed "
+                             f"form")
+    return got
+
+
 def wide_model(dev, spec: dict, seed: int):
     """(config, params on the card, params on the CPU) of a wide model:
     ``spec`` on the flagship's ModelConfig, the grouped head, seeded
@@ -2514,7 +2576,9 @@ def seeded_blocks(dev, d: int, depth: int, dtype, seed: int):
 def forced_streamed(dev) -> dict:
     """Kernels 1 and 2 at the WIDE_FORCED shapes, where the rule keeps the
     LN products resident, launched as the rule plans them and again with
-    the streamed form named: bit for bit the same output."""
+    the variant's wide form named (bf16 ``prenormed``, float32
+    ``streamed``; bf16 with one and two warpgroups a CTA): bit for bit the
+    same output."""
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
     res = {}
@@ -2525,21 +2589,27 @@ def forced_streamed(dev) -> dict:
             weights = (vit_block._stack(flat, 2) if stacked
                        else flat[:len(vit_block._FIELDS)])
             rule = vit_block._plan_for(x, heads, 4 * d)
+            wide = vit_block._WIDE_LN[rule.variant]
+            named = [rule._replace(ln=wide)]
+            if wide == "prenormed":            # every build of the ring
+                named += [rule._replace(ln=wide, warpgroups=2, tiles=(t,) * 4)
+                          for t in (64, 128)]
             outs = []
-            for chosen in (rule, rule._replace(ln="streamed")):
+            for chosen in [rule] + named:
                 out, launch = vit_block.prepared(x, weights, heads, stacked,
                                                  chosen)
                 launch()
                 outs.append(out)
             torch.cuda.synchronize()
-            same = torch.equal(*outs)
+            same = all(torch.equal(outs[0], o) for o in outs[1:])
             label = (f"{'encoder' if stacked else 'block'} {tuple(x.shape)} "
                      f"{str(dt)[6:]}")
-            print(f"streamed LN form named at {label} (the rule: {rule.ln}, "
-                  f"tiles {rule.tiles}): bit-equal to the rule's {same}",
-                  flush=True)
+            forms = [(p.warpgroups, p.tiles) for p in named]
+            print(f"{wide} LN form named at {label} (the rule: {rule.ln}, "
+                  f"tiles {rule.tiles}; warpgroups and tiles {forms}): "
+                  f"bit-equal to the rule's {same}", flush=True)
             if rule.ln != "resident" or not same:
-                raise AssertionError(f"{label}: the streamed LN form differs "
+                raise AssertionError(f"{label}: the {wide} LN form differs "
                                      f"from the resident one")
             res[label] = same
     return res
@@ -2662,7 +2732,7 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
     """Kernels 1, 2 and 5 at the wide shapes against their plain versions,
     timed (``timed_kernel``, ``wide_prep``): kernel 1 at ViT-L's (1, 320,
     1024) x 24 on the real tokens of a search crop of the main-path clip
-    (the model's own embed), bf16 (``mma``, streamed) with
+    (the model's own embed), bf16 (``mma``, prenormed) with
     ``final_ln_check``'s yardstick on LN_CROPS crops (over 24 blocks the
     kernel and the twin part by 2.4 % of max|twin| on an NVIDIA H100 80GB
     HBM3 at 700 W, each as close to exact arithmetic as the other:
@@ -2671,9 +2741,10 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
     name over WIDE_SIMT_ITERS launches) at F32_ATOL;
     kernel 2 at (16, 320, 1024) on 16 crops through block 0 in both dtypes;
     kernel 1 at ViT-H's (1, 320, 1280) x 4 in both dtypes against the twin;
-    kernel 5 at D 1280; the streamed form named where the rule keeps the
+    kernel 5 at D 1280; the wide form named where the rule keeps the
     resident one (``forced_streamed``); the flagship's and small's outputs
-    against FLAGSHIP_SHA256."""
+    against FLAGSHIP_SHA256, ViT-L's and ViT-H's bf16 ones against
+    WIDE_SHA256."""
     from gstreamer_vit_tracker_tpu_torch.models import vit
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
@@ -2686,6 +2757,9 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
         raise AssertionError("the flagship's or small's kernel outputs are no "
                              "longer bit-equal to the build before")
     res["flagship_sha256"] = got
+    res["wide_sha256"] = {
+        **check_wide_sha256(dev, "vit_l", lcfg, lparams, 24),
+        **check_wide_sha256(dev, "vit_h", hcfg, hparams, 80)}
 
     heads, hidden = lcfg.num_heads, int(lcfg.embed_dim * lcfg.mlp_ratio)
     crops = model_crops(dev, lcfg, lparams)
@@ -2697,11 +2771,12 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
             chosen = vit_block._plan_for(x, heads, hidden)
             print(f"ViT-L {name} plan at batch {x.shape[0]}: {chosen}",
                   flush=True)
-            if chosen.variant != vit_block._VARIANTS[dt] \
-                    or chosen.ln != "streamed":
-                raise AssertionError(f"ViT-L {name}: expected the streamed "
-                                     f"{vit_block._VARIANTS[dt]}, the plan is "
-                                     f"{chosen}")
+            variant = vit_block._VARIANTS[dt]
+            if chosen.variant != variant \
+                    or chosen.ln != vit_block._WIDE_LN[variant]:
+                raise AssertionError(f"ViT-L {name}: expected the "
+                                     f"{vit_block._WIDE_LN[variant]} "
+                                     f"{variant}, the plan is {chosen}")
             if stacked:
                 key, row = f"kernel1_{name}", timed_kernel(
                     f"encoder ViT-L {tuple(x.shape)} x {lcfg.depth} {name}",
@@ -3265,7 +3340,9 @@ def heads_patch_phase(dev, card: str) -> dict:
 
     t_phase = time.perf_counter()
     acfg, aparams, acparams = wide_model(dev, HEADS_A, seed=256)
-    res = {"attention": panel_attention(dev),
+    res = {"wide_sha256": check_wide_sha256(dev, "model_a", acfg, aparams,
+                                            256),
+           "attention": panel_attention(dev),
            "encoders": panel_encoders(dev, card, acfg, aparams),
            "kernel5": {}}
     for patch, search in HEADS_PATCHES:
@@ -6456,7 +6533,8 @@ def main() -> int:
                 t: wp[f"vit_h_{t}"]["eager"]["kernel1_variants"]
                 for t in ("bfloat16", "float32")},
             "forced_streamed_bit_equal": wk["forced_streamed"],
-            "flagship_sha256": wk["flagship_sha256"]},
+            "flagship_sha256": wk["flagship_sha256"],
+            "wide_sha256": {**wk["wide_sha256"], **heads["wide_sha256"]}},
         "heads_above_128": {
             **{f"model_a_{t}": {**{k: he[f"kernel1_{t}"][k]
                                    for k in TIMED_KEYS + ("plan",)},

@@ -1,44 +1,64 @@
 // Tensor-core tiles of the encoder kernels (csrc/vit_encoder.cu, variant
 // "mma": bf16, head dim 32 / 64 / 128, and above 128 a multiple of 64 in
 // panels) for NVIDIA Hopper, sm_90a, built from the swizzled shared-memory
-// tiles, copies and wgmma primitives of attention_mma.cuh.  Three kernels
-// (attention_panels_kernel, the attention at a head dim above 128, is
-// described where it stands):
+// tiles, copies and wgmma primitives of attention_mma.cuh.  The products
+// come in two forms (the plan's Plan.ln, from the width alone), the
+// attention in one (attention_panels_kernel, the attention at a head dim
+// above 128, is described where it stands):
 //
-// product_kernel<BN, EPI, LN>: C[M, N] = epilogue(LN?(A)[M, K] . W[K, N] + b).
-//   A CTA is one warpgroup and owns 64 rows (wgmma's M) by BN = 32 or 64
-//   columns.  A (the activations, (M, K) row-major: K-major as they lie) and
-//   W (the weight, (K, N) row-major: N-major as it lies, the transpose bit of
-//   the descriptor) arrive by 16-byte cp.async in 64-deep chunks.
-//   * LN resident (qkv, mlp1; K = the residual width W, D rounded up to a
-//     multiple of 64): every chunk of the 64 rows is resident before the
-//     first product; each row's mean, then the mean of (x - mu)^2, are taken
-//     in f32 from the bf16 x over its D true columns (ln_dim; the W - D
-//     padded ones are zeros and enter neither sum), the row is normalised,
-//     scaled and shifted in f32 with no contraction (the twin's separate
+// product_kernel<BN, EPI, LN> (the resident form: every residual width up
+//   to 768, the flagship's D 192 among them):
+//   C[M, N] = epilogue(LN?(A)[M, K] . W[K, N] + b).  A CTA is one warpgroup
+//   and owns 64 rows (wgmma's M) by BN = 32 or 64 columns.  A (the
+//   activations, (M, K) row-major: K-major as they lie) and W (the weight,
+//   (K, N) row-major: N-major as it lies, the transpose bit of the
+//   descriptor) arrive by 16-byte cp.async in 64-deep chunks.
+//   * LN (qkv, mlp1; K = the residual width W, D rounded up to a multiple
+//     of 64): every chunk of the 64 rows is resident before the first
+//     product; each row's mean, then the mean of (x - mu)^2, are taken in
+//     f32 from the bf16 x over its D true columns (ln_dim; the W - D padded
+//     ones are zeros and enter neither sum), the row is normalised, scaled
+//     and shifted in f32 with no contraction (the twin's separate
 //     roundings), rounded to bf16 once, and written back into the A tile.
 //     Its shared memory grows with K: 1024 + K / 64 . 64 . (64 + BN) . 2
 //     bytes, which the H100's 232,448 a block hold up to K = 1152 at BN 32
 //     and K = 896 at BN 64.
-//   * LN streamed (the same products where the resident form does not fit):
-//     a launch of row_stats_kernel before the product takes each row's mean
-//     and rstd with the resident form's arithmetic in its order (row_stats,
-//     which layer_norm_tile calls too), and K walks the ring of kRing chunks
-//     as without LN; each chunk, once it has landed, is normalised in place
-//     with those statistics and the resident form's roundings
-//     (layer_norm_chunk) before the tensor cores read it.  Its shared
-//     memory is the ring's, for any K, and its LN output equals the
-//     resident form's bit for bit.
 //   * no LN (proj, mlp2; K = D or the MLP width): K walks a ring of kRing
 //     chunks, the next chunks' copies in flight while one is multiplied.
-//   Every 16-deep step of a product goes to a fresh accumulator, and the
-//   steps are added in f32 in order: the tensor cores round the sum they
-//   accumulate toward zero, and a chain of such steps moved the tracker's
-//   free-running trajectory off the plain twin's (PERF.md).  The epilogue
-//   works on the accumulator registers at the twin's rounding points: bias
-//   added in f32, rounded to bf16; then either
-//   the tanh GELU in f32 of the rounded value, rounded again, or the residual
-//   x + round(.) in place on x, each element read and written by one thread.
+//
+// ln_rows_kernel and ring_product_kernel<NWG, BN, EPI> (the prenormed form:
+//   every residual width above 768, ViT-L's D 1024 and ViT-H's 1280): the
+//   LN rows are written once into a scratch (M, W) by ln_rows_kernel
+//   (row_stats and layer_norm8 of the resident form, in its order: the same
+//   bits), and all four products of a block read plain bf16 A through
+//   ring_product_kernel: TMA copies on a ring of 6 or 8 stages fed by a
+//   producer warpgroup, consumed by one or two warpgroups of 64 rows that
+//   share each W chunk, persistent CTAs, N tiles of 32, 64 or 128 (two
+//   64-column chains a warpgroup).  What bounds them on the H100 (989
+//   TFLOP/s bf16, 3.35 TB/s): at batch 1 (ViT-L, (1, 320, 1024) x 24) the
+//   weights from device memory, 605.93 MB in 180.87 us, and the operations,
+//   203.34 GFLOP in 205.60 us, about equally; at batch 16 (one block at
+//   (16, 320, 1024)) the operations, 135.56 GFLOP in 137.07 us.  Neither is
+//   what held the streamed products before them back: they paid each
+//   chunk's copy, LayerNorm and wgmma latencies one after another.  This
+//   design keeps the copies in flight (the ring) and the tensor cores fed
+//   while the f32 units add (several commit groups in flight), and what
+//   then binds it is the rate at which chunks reach an SM's shared memory
+//   from L2 (measured with the products cut out, profile_encoder.py cut:
+//   PERF.md), then the f32 adds: so the CTA's tile is as large as
+//   the fresh accumulators' registers allow (128 x 128 at batch 16: 32 KB
+//   a 64-deep chunk for 2.1 MFLOP), the CTAs persist across tiles (no
+//   waves, each epilogue under the next tile's copies), and the LN rows are
+//   not redone by every column CTA.
+//
+// Both forms: every 16-deep step of a product goes to a fresh accumulator,
+//   and the steps are added in f32 in order: the tensor cores round the sum
+//   they accumulate toward zero, and a chain of such steps moved the
+//   tracker's free-running trajectory off the plain twin's (PERF.md).  The
+//   epilogue works on the accumulator registers at the twin's rounding
+//   points: bias added in f32, rounded to bf16; then either the tanh GELU
+//   in f32 of the rounded value, rounded again, or the residual x +
+//   round(.) in place on x, each element read and written by one thread.
 //
 // attention_kernel<DH>: softmax(q k^T dh^-1/2) v of one (batch, head) for 64
 //   query rows, q, k and v read from the qkv product's buffer where they lie
@@ -58,6 +78,8 @@
 
 #include "attention_mma.cuh"
 
+#include <cuda.h>
+
 #include <cstddef>
 
 namespace encoder_mma {
@@ -75,7 +97,8 @@ constexpr float kLnEps = 1e-6f;
 
 enum Epilogue { kEpiRound = 0, kEpiGelu = 1, kEpiResidual = 2 };
 // The LayerNorm of a product's A: none, over the resident rows, or
-// chunk by chunk on statistics taken by row_stats_kernel.
+// ("tf32x3", encoder_tf32.cuh) chunk by chunk on statistics taken by
+// row_stats_kernel.
 enum LnForm { kLnNone = 0, kLnResident = 1, kLnStreamed = 2 };
 
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
@@ -151,9 +174,10 @@ __device__ __forceinline__ float as_float(float v) { return v; }
 // its elements in order, segment by segment; the eight lanes' sums are then
 // added by group8_sum.  A column at or past d adds nothing to either sum (a
 // zero pad's (0 - mean)^2 would: it is masked).  The one order of the
-// resident forms (layer_norm_tile, encoder_tf32.cuh's layer_norm_rows) and
-// of the streamed form's row_stats_kernel, so their statistics are the same
-// bits.  Every lane of the warp calls it (the shuffles).
+// resident forms (layer_norm_tile, encoder_tf32.cuh's layer_norm_rows), of
+// the prenormed form's ln_rows_kernel and of the float32 streamed form's
+// row_stats_kernel, so their statistics are the same bits.  Every lane of
+// the warp calls it (the shuffles).
 template <typename T, typename Chunk>
 __device__ __forceinline__ float2 row_stats(Chunk chunk, int segs, int c, int d) {
   constexpr int kE = 16 / sizeof(T);        // elements a chunk
@@ -181,8 +205,9 @@ __device__ __forceinline__ float2 row_stats(Chunk chunk, int segs, int c, int d)
   return make_float2(mu, rsqrt_rn(__fadd_rn(__fdiv_rn(group8_sum(var), k), kLnEps)));
 }
 
-// The streamed form's statistics: row_stats of each of the M rows of x ((M,
-// W) row-major, W . sizeof(T) a multiple of 128) over its first d columns
+// The float32 streamed form's statistics (encoder_tf32.cuh): row_stats of
+// each of the M rows of x ((M, W) row-major, W . sizeof(T) a multiple of
+// 128) over its first d columns
 // into stats[row] = (mean, rstd).  Eight lanes a row, 16 rows a CTA of 128
 // threads; a lane past M reads row 0 (the shuffles need every lane) and
 // stores nothing.  x is read once, from L2 where the previous launch left
@@ -252,38 +277,17 @@ __device__ __forceinline__ void layer_norm_tile(unsigned char* tile, const bf16*
   }
 }
 
-// One landed chunk of the streamed form (a 64 x 64 panel at `slot`, K
-// columns [k0, k0 + 64) of A) LayerNormed in place: thread i holds chunk
-// column i % 8 of rows i / 8 + 16 j, j < 4, whose statistics are st[j];
-// s and b point at the chunk's 64 columns of the scale and bias.
-__device__ __forceinline__ void layer_norm_chunk(unsigned char* slot, const bf16* __restrict__ s,
-                                                 const bf16* __restrict__ b,
-                                                 const float2 (&st)[4]) {
-  using TA = mma::Tile<64>;
-  const int c = threadIdx.x & 7;
-  const uint4 sv = *reinterpret_cast<const uint4*>(s + c * 8);
-  const uint4 bv = *reinterpret_cast<const uint4*>(b + c * 8);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint4* at = reinterpret_cast<uint4*>(slot + TA::offset((threadIdx.x >> 3) + 16 * j, c));
-    *at = layer_norm8(*at, st[j].x, st[j].y, sv, bv);
-  }
-}
-
 // A: (M, K) row-major; W: (K, N) row-major; C: (M, N), which may alias the
 // residual (EPI == kEpiResidual reads C before writing it, element by element
 // in the same thread).  K is a multiple of 64, N of BN.  LN == kLnResident:
 // K / 64 slots, every chunk resident, the LayerNorm over the first ln_dim
-// columns of A (layer_norm_tile); kLnStreamed: kRing slots, each chunk
-// LayerNormed as it lands (layer_norm_chunk) with the rows' (mean, rstd)
-// from stats (row_stats_kernel over the same ln_dim columns); kLnNone:
-// kRing slots, ln_dim, ln_s, ln_b and stats unread.
+// columns of A (layer_norm_tile); kLnNone: kRing slots, ln_dim, ln_s and
+// ln_b unread.
 template <int BN, int EPI, int LN>
 __global__ void __launch_bounds__(kThreads)
 product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                const bf16* __restrict__ bias, const bf16* __restrict__ ln_s,
-               const bf16* __restrict__ ln_b, const float2* __restrict__ stats, bf16* C, int M,
-               int N, int K, int ln_dim) {
+               const bf16* __restrict__ ln_b, bf16* C, int M, int N, int K, int ln_dim) {
   using TA = mma::Tile<64>;
   using TB = mma::Tile<BN>;
   constexpr int kRegs = TB::kPanelCols / 2;   // accumulators a thread holds a panel
@@ -353,26 +357,13 @@ product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     __syncthreads();
     for (int c = 0; c < chunks; ++c) product(c);
   } else {
-    float2 st[4];                             // kLnStreamed: my rows' (mean, rstd)
-    if constexpr (LN == kLnStreamed) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = m0 + (threadIdx.x >> 3) + 16 * j;
-        st[j] = row < M ? stats[row] : make_float2(0.f, 0.f);
-      }
-    }
     for (int c = 0; c < kRing - 1; ++c) {     // a group a chunk, empty past the end
       if (c < chunks) load(c);
       mma::cp_async_commit();
     }
     for (int c = 0; c < chunks; ++c) {
       mma::cp_async_wait<kRing - 2>();        // chunk c has landed
-      if constexpr (LN == kLnStreamed) {
-        __syncthreads();                      // ... for all
-        layer_norm_chunk(a_ptr + (c % slots) * TA::bytes(kTileRows), ln_s + c * kChunk,
-                         ln_b + c * kChunk, st);
-      }
-      mma::fence_async_proxy();               // generic writes -> the tensor cores' reads
+      mma::fence_async_proxy();
       __syncthreads();                        // ... for all; slot of chunk c - 1 is free
       if (c + kRing - 1 < chunks) load(c + kRing - 1);
       mma::cp_async_commit();
@@ -410,6 +401,378 @@ product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         }
         *out = __floats2bfloat162_rn(v0, v1);
       }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The prenormed form: the LN rows written once, then every product of a
+// wide block fed by TMA through a deep ring.
+// ---------------------------------------------------------------------------
+
+constexpr int kLnRowsThreads = 128;  // four warps a CTA
+
+// Dynamic shared memory of one ln_rows_kernel<RPW> CTA: its 4 . RPW rows
+// of x, then the scale and the bias.
+inline size_t ln_rows_smem_bytes(int rpw, int W) {
+  return (size_t)(kLnRowsThreads / 32 * rpw + 2) * W * sizeof(bf16);
+}
+
+// y = LayerNorm(x) of M rows ((M, W) row-major, W a multiple of 64) over
+// their first d columns, with the columns' scale s and bias b (zero past
+// d), rounded to bf16 once: row_stats in its order, then layer_norm8 on
+// every 16-byte chunk, so y is what the resident form writes into its A
+// tile, bit for bit.  RPW rows a warp, 32 / RPW lanes a row: every copy is
+// issued at once (cp.async: the row's chunks by its lanes, the scale and
+// bias by the CTA's), then read from shared memory; the statistics' f32
+// sums are row_stats's eight-lane order (lane c of each eight takes the
+// row's chunks c, c + 8, ...; at RPW 1 the warp's four eights compute the
+// same sums), and the row's lanes then normalise its chunks between them.
+// RPW 1 (a warp a row) where the rows are few and the grid is the latency
+// (batch 1); RPW 4 where there are rows to fill the card.  Each 16-byte
+// chunk of x is read from device memory once.  A row past M copies and
+// stores nothing (the shuffles need every lane).
+template <int RPW>
+__global__ void __launch_bounds__(kLnRowsThreads)
+ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s, const bf16* __restrict__ b,
+               bf16* __restrict__ y, int M, int W, int d) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  constexpr int kRows = kLnRowsThreads / 32 * RPW, kLanes = 32 / RPW;
+  const int lane = threadIdx.x & 31, r = (threadIdx.x >> 5) * RPW + lane / kLanes;
+  const int row = blockIdx.x * kRows + r, row_chunks = W / 8, l = lane % kLanes;
+  uint4* tile = reinterpret_cast<uint4*>(raw);
+  const uint4* mine = tile + (size_t)r * row_chunks;
+  const uint4* sb = tile + (size_t)kRows * row_chunks;   // scale, then bias
+  if (row < M) {
+    const bf16* xr = x + (size_t)row * W;
+    for (int i = l; i < row_chunks; i += kLanes)
+      mma::cp_async16(mma::smem_addr(mine + i), xr + i * 8);
+  }
+  for (int i = threadIdx.x; i < 2 * row_chunks; i += kLnRowsThreads)
+    mma::cp_async16(mma::smem_addr(sb + i),
+                    i < row_chunks ? s + i * 8 : b + (i - row_chunks) * 8);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  const int c = lane & 7;
+  const float2 st =
+      row_stats<bf16>([&](int p) { return mine[p * 8 + c]; }, W / kChunk, c, d);
+  if (row >= M) return;
+  uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * W);
+  for (int i = l; i < row_chunks; i += kLanes)
+    yr[i] = layer_norm8(mine[i], st.x, st.y, sb[i], sb[row_chunks + i]);
+}
+
+// Hopper's transaction barriers and the tensor memory accelerator (TMA).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// Waits for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// The box of `map` at coordinates (c0, c1) or (c0, c1, c2) (innermost
+// first) into shared memory at dst, its bytes counted on the barrier bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4, %5}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+                  "r"(c2)
+               : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Geometry of ring_product_kernel<NWG, BN>: NWG consumer warpgroups of 64
+// rows each and a producer warpgroup.  A stage holds the CTA's A chunk (NWG
+// . 64 rows x 64, K-major as A lies, 128-byte swizzle) and one W chunk (64 x
+// BN, N-major as W lies: at BN 32 64-byte rows with the 64-byte swizzle,
+// else BN / 64 panels of 64 columns with the 128-byte one), the ring
+// kStages of them (8, or 6 where 96 KB leaves room for two CTAs an SM or
+// where 32 KB stages must fit), then a full and an empty barrier a stage.
+// Registers: the producer gives its warpgroup's up (setmaxnreg) to the
+// consumers, whose fresh accumulators need them.
+template <int NWG, int BN>
+struct Ring {
+  static constexpr int kABytes = NWG * kTileRows * kChunk * 2;
+  static constexpr int kBBytes = kChunk * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = kStageBytes == 16384 || kStageBytes == 32768 ? 6 : 8;
+  static constexpr int kThreads = (NWG + 1) * mma::kThreads;
+  static constexpr int kCtasPerSm = NWG == 1 && BN <= 64 ? 2 : 1;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = kCtasPerSm == 2 ? 216 : 232;
+  static constexpr size_t smem_bytes() {
+    return (size_t)kAlign + (size_t)kStages * kStageBytes + 2 * kStages * 8;
+  }
+};
+
+// One 16-deep step of a ring product into the fresh accumulator d (scale-d
+// 0): the warpgroup's 64 rows of the A chunk at a, panel p (64 columns; at
+// BN 32 the whole chunk) of the W chunk at b, step kk of the chunk's four;
+// its own commit group.
+template <int BN>
+__device__ __forceinline__ void ring_step(float (&d)[BN == 32 ? 16 : 32], uint32_t a, uint32_t b,
+                                          int p, int kk) {
+  using TA = mma::Tile<64>;
+  using TB = mma::Tile<BN == 32 ? 32 : 64>;
+  mma::wgmma_fence();
+  const uint64_t da = TA::descriptor(a + kk * 32, 16);
+  const uint64_t db = TB::descriptor(b + p * kChunk * TB::kRowBytes + kk * 16 * TB::kRowBytes,
+                                     kChunk * TB::kRowBytes);
+  if constexpr (BN == 32) wgmma_ss_t_n32(d, da, db, 0);
+  else wgmma_ss_t_n64(d, da, db, 0);
+  mma::wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void add_into(float (&to)[N], float (&from)[N]) {
+  mma::fence_registers(from);
+#pragma unroll
+  for (int i = 0; i < N; ++i) to[i] += from[i];
+}
+
+// C[M, N] = epilogue(A[M, K] . W[K, N] + bias) of the prenormed form, every
+// product of a wide block (qkv, proj + residual, mlp1 + GELU, mlp2 +
+// residual; A the LN rows of ln_rows_kernel, the attention's output or the
+// MLP's hidden rows, plain bf16), in product_kernel's arithmetic: each
+// 16-deep step into a fresh accumulator, a chunk's four steps added in f32
+// in order into t, the chunks' t added to acc in order; the same epilogue.
+// A is a_map's (M, K) rows; W is layer `layer` of w_map's (depth, K, N).
+// The CTAs are persistent: CTA i takes output tiles i, i + gridDim.x, ...
+// (N / BN of them a row of tiles, columns fastest, so the CTAs at work
+// share A rows), and its ring runs on from one tile into the next, so a
+// tile's epilogue overlaps the next tile's copies and no tile waits for a
+// wave.  A tile is NWG warpgroups that share each W chunk, rows m0 + 64 w
+// of warpgroup w, columns n0 to n0 + BN; a producer warpgroup's one
+// thread keeps TMA copies of the next chunks in flight through the ring of
+// kStages: it waits for a stage's empty barrier (one arrival from every
+// consumer warp once the chunk's last step has completed), then counts the
+// stage's bytes on its full barrier and issues the A box and the W panels.
+// Rows past M arrive as zeros.  A consumer waits only for the full barrier
+// of the chunk it is about to multiply.  Its wgmmas run ahead of their
+// sums, and every group is retired before the loop's back-edge (ptxas
+// serialises wgmma whose accumulators stay in flight across a back-edge
+// or a branch):
+//  * BN 32 / 64, two chunks at a time: a chunk's four steps are issued at
+//    once (step 0 into the chunk's t, steps 1-3 into p1-p3, each its own
+//    commit group), and as each completes it is added and its registers
+//    take a step of the next chunk, so three or four groups are in flight
+//    while the FP32 units add;
+//  * BN 128, a chunk at a time as two chains of 64 columns (one a W
+//    panel), each with its own t, p and acc, their steps interleaved: while
+//    one chain's step is added, the other's is in flight.
+template <int NWG, int BN, int EPI>
+__global__ void __launch_bounds__(Ring<NWG, BN>::kThreads, Ring<NWG, BN>::kCtasPerSm)
+ring_product_kernel(const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ CUtensorMap w_map, int layer,
+                    const bf16* __restrict__ bias, bf16* C, int M, int N, int K) {
+  using R = Ring<NWG, BN>;
+  constexpr int kChains = BN == 128 ? 2 : 1;  // 64-column chains a warpgroup
+  constexpr int kRegs = BN == 32 ? 16 : 32;   // accumulators a thread holds a chain
+  constexpr int kPanel = kChunk * 64 * 2;     // bytes of a 64-column W panel
+  constexpr int S = R::kStages;
+  extern __shared__ __align__(16) unsigned char raw[];
+  const uint32_t ring = mma::smem_addr(aligned_smem(raw));
+  const uint32_t bars = ring + S * R::kStageBytes;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const auto stage_a = [&](int s) { return ring + s * R::kStageBytes; };
+  const auto stage_b = [&](int s) { return ring + s * R::kStageBytes + R::kABytes; };
+  const int chunks = K / kChunk, tiles_n = N / BN;
+  const int tiles = tiles_n * ((M + NWG * kTileRows - 1) / (NWG * kTileRows));
+  const int wg = threadIdx.x / mma::kThreads;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {                            // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R::kProducerRegs));
+    if (threadIdx.x == NWG * mma::kThreads) {
+      int g = 0;                              // chunks issued, every tile's
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * NWG * kTileRows, n0 = t % tiles_n * BN;
+        for (int c = 0; c < chunks; ++c, ++g) {
+          const int s = g % S;
+          if (g >= S) mbar_wait(empty(s), (g / S - 1) & 1);
+          mbar_expect_tx(full(s), R::kStageBytes);
+          tma_load(stage_a(s), &a_map, full(s), c * kChunk, m0);
+#pragma unroll
+          for (int p = 0; p < BN / 64 || p == 0; ++p)
+            tma_load(stage_b(s) + p * kPanel, &w_map, full(s), n0 + 64 * p, c * kChunk,
+                     layer);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R::kConsumerRegs));
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const uint32_t a_rows = wg * kTileRows * kChunk * 2;   // this warpgroup's rows
+    // Chunk c's slot is free as far as this warp goes.
+    const auto release = [&](int c) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(c % S));
+    };
+    const auto a_of = [&](int c) { return stage_a(c % S) + a_rows; };
+    const auto b_of = [&](int c) { return stage_b(c % S); };
+    // Chunk indices below count every tile's chunks (the ring's).
+    for (int t = blockIdx.x, g = 0; t < tiles; t += gridDim.x, g += chunks) {
+      const int m0 = t / tiles_n * NWG * kTileRows, n0 = t % tiles_n * BN;
+      float acc[kChains][kRegs];
+#pragma unroll
+      for (int h = 0; h < kChains; ++h)
+#pragma unroll
+        for (int i = 0; i < kRegs; ++i) acc[h][i] = 0.f;
+
+      if constexpr (kChains == 1) {
+        float t0[kRegs], t1[kRegs], p1[kRegs], p2[kRegs], p3[kRegs];
+        // Chunks c and c + 1 once both have landed, straight-line from the
+        // first wgmma to the last wait: c's steps into t0, p1-p3; as each
+        // completes it is added to t0, and the registers it frees take a
+        // step of c + 1 (t1, p1-p3); then c + 1's sums; then both slots are
+        // released.
+        const auto pair = [&](int c) {
+          mbar_wait(full(c % S), (c / S) & 1);
+          mbar_wait(full((c + 1) % S), ((c + 1) / S) & 1);
+          ring_step<BN>(t0, a_of(c), b_of(c), 0, 0);
+          ring_step<BN>(p1, a_of(c), b_of(c), 0, 1);
+          ring_step<BN>(p2, a_of(c), b_of(c), 0, 2);
+          ring_step<BN>(p3, a_of(c), b_of(c), 0, 3);
+          wgmma_wait_pending<2>();
+          mma::fence_registers(t0);
+          add_into(t0, p1);
+          ring_step<BN>(t1, a_of(c + 1), b_of(c + 1), 0, 0);
+          ring_step<BN>(p1, a_of(c + 1), b_of(c + 1), 0, 1);
+          wgmma_wait_pending<3>();
+          add_into(t0, p2);
+          ring_step<BN>(p2, a_of(c + 1), b_of(c + 1), 0, 2);
+          wgmma_wait_pending<3>();
+          add_into(t0, p3);
+          add_into(acc[0], t0);
+          ring_step<BN>(p3, a_of(c + 1), b_of(c + 1), 0, 3);
+          wgmma_wait_pending<2>();
+          mma::fence_registers(t1);
+          add_into(t1, p1);
+          wgmma_wait_pending<1>();
+          add_into(t1, p2);
+          wgmma_wait_pending<0>();
+          add_into(t1, p3);
+          add_into(acc[0], t1);
+          release(c);
+          release(c + 1);
+        };
+        int c = g;
+        for (; c + 1 < g + chunks; c += 2) pair(c);
+        if (c < g + chunks) {                   // an odd last chunk alone
+          mbar_wait(full(c % S), (c / S) & 1);
+          ring_step<BN>(t0, a_of(c), b_of(c), 0, 0);
+          ring_step<BN>(p1, a_of(c), b_of(c), 0, 1);
+          ring_step<BN>(p2, a_of(c), b_of(c), 0, 2);
+          ring_step<BN>(p3, a_of(c), b_of(c), 0, 3);
+          wgmma_wait_pending<2>();
+          mma::fence_registers(t0);
+          add_into(t0, p1);
+          wgmma_wait_pending<1>();
+          add_into(t0, p2);
+          wgmma_wait_pending<0>();
+          add_into(t0, p3);
+          add_into(acc[0], t0);
+          release(c);
+        }
+      } else {
+        // Two chains (W panels 0 and 1), straight-line a chunk: steps k of
+        // chains 0 and 1 land in ta / tb (k = 0) or pa / pb, and each chain's
+        // step is added while the other chain's is in flight.
+        float ta[kRegs], tb[kRegs], pa[kRegs], pb[kRegs];
+        for (int c = g; c < g + chunks; ++c) {
+          mbar_wait(full(c % S), (c / S) & 1);
+          const uint32_t a = a_of(c), b = b_of(c);
+          ring_step<BN>(ta, a, b, 0, 0);
+          ring_step<BN>(tb, a, b, 1, 0);
+          ring_step<BN>(pa, a, b, 0, 1);
+          ring_step<BN>(pb, a, b, 1, 1);
+          wgmma_wait_pending<1>();
+          mma::fence_registers(ta);
+          mma::fence_registers(tb);
+          add_into(ta, pa);
+          ring_step<BN>(pa, a, b, 0, 2);
+          wgmma_wait_pending<1>();
+          add_into(tb, pb);
+          ring_step<BN>(pb, a, b, 1, 2);
+          wgmma_wait_pending<1>();
+          add_into(ta, pa);
+          ring_step<BN>(pa, a, b, 0, 3);
+          wgmma_wait_pending<1>();
+          add_into(tb, pb);
+          ring_step<BN>(pb, a, b, 1, 3);
+          wgmma_wait_pending<1>();
+          add_into(ta, pa);
+          add_into(acc[0], ta);
+          wgmma_wait_pending<0>();
+          add_into(tb, pb);
+          add_into(acc[1], tb);
+          release(c);
+        }
+      }
+
+      // Epilogue from the accumulators, as product_kernel's: thread (warp,
+      // lane) of warpgroup wg holds rows m0 + 64 wg + 16 warp + lane / 4
+      // (+ 8) and, a chain, column pairs 8j + 2(lane % 4).
+      const int quad = lane >> 2, tq = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wg * kTileRows + warp * 16 + quad + 8 * h;
+        if (row >= M) continue;
+        bf16* c_row = C + (size_t)row * N + n0;
+#pragma unroll
+        for (int ch = 0; ch < kChains; ++ch)
+#pragma unroll
+          for (int j = 0; j < kRegs / 4; ++j) {
+            const int col = ch * 64 + 8 * j + 2 * tq;
+            const float2 bb =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n0 + col));
+            float v0 = round_bf16(acc[ch][4 * j + 2 * h] + bb.x);
+            float v1 = round_bf16(acc[ch][4 * j + 2 * h + 1] + bb.y);
+            if constexpr (EPI == kEpiGelu) {
+              v0 = gelu_tanh(v0);
+              v1 = gelu_tanh(v1);
+            }
+            __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(c_row + col);
+            if constexpr (EPI == kEpiResidual) {
+              const float2 xr = __bfloat1622float2(*out);
+              v0 = xr.x + v0;
+              v1 = xr.y + v1;
+            }
+            *out = __floats2bfloat162_rn(v0, v1);
+          }
+      }
+    }
   }
 }
 

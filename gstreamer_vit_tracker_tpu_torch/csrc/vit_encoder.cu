@@ -32,20 +32,26 @@
 // padded head computes what the unpadded one does.
 //
 // "mma" (bf16, head dim 32 / 64 / 128 or above 128 a multiple of 64, any D):
-// five launches a block, the tiles of encoder_mma.cuh:
-//   1. LN1 + qkv  2. attention  3. proj + residual  4. LN2 + mlp1 + GELU
-//   5. mlp2 + residual; each product's N tile (32 or 64) as the plan says.
-// The LN products come in two forms (Config::ln, the plan's choice from the
-// shape alone).  Resident: the CTA's 64 rows of the residual stream sit in
-// shared memory whole, 1024 + W / 64 . 64 . (64 + N tile) . 2 bytes, which
-// the H100's 232,448 a block bound: W up to 1152 at N tile 32, 896 at 64
-// (the flagship, D 192, and every width up to 768 at the plan's tiles).
-// Streamed, past that: a row_stats_kernel launch before each LN product
-// takes the rows' mean and rstd (the resident form's arithmetic and order,
-// into the scratch `stats`), and the product walks K through its ring of
-// three 64-deep chunks, each LayerNormed in place as it lands: 50 KB at N
-// tile 64 for any W, seven launches a block, and the same LN output bit for
-// bit.  What bounds either is the weights and the operations, as below.
+// the tiles of encoder_mma.cuh, in one of two forms (Config::ln, the plan's
+// choice from the width alone; encoder_mma.cuh's header says what bounds
+// each on the H100 and what the design does about it).
+//   Resident (every residual width up to 768: the flagship, D 192): five
+//   launches a block, 1. LN1 + qkv  2. attention  3. proj + residual
+//   4. LN2 + mlp1 + GELU  5. mlp2 + residual, each product's N tile (32 or
+//   64) as the plan says; the CTA's 64 rows of the residual stream sit in
+//   shared memory whole, 1024 + W / 64 . 64 . (64 + N tile) . 2 bytes, and
+//   are LayerNormed there.
+//   Prenormed (every width above 768: ViT-L's 1024, ViT-H's 1280): seven
+//   launches a block, 1. LN1 rows  2. qkv  3. attention  4. proj + residual
+//   5. LN2 rows  6. mlp1 + GELU  7. mlp2 + residual.  ln_rows_kernel writes
+//   the LayerNorm of the residual stream once into the scratch `normed` (M,
+//   W) (the resident form's arithmetic and order: the same bits), and the
+//   four products read plain bf16 rows through ring_product_kernel (TMA on
+//   a deep ring, one or two warpgroups sharing each W chunk, persistent
+//   CTAs; the maps of ring_maps, made once a call).  At ViT-L's (1, 320,
+//   1024) x 24 the weights, 605.93 MB from device memory (180.87 us at 3.35
+//   TB/s), and the operations, 203.34 GFLOP (205.60 us at 989 TFLOP/s),
+//   bound it about equally; at batch 16 the operations.
 // Its products take K in 64-deep chunks, so a D or an MLP width that is no
 // multiple of 64 runs zero-padded to the next one (the `small` architecture
 // in bf16: D 96 -> W 128).  The plan pads the weights once per parameter
@@ -432,12 +438,13 @@ Weights layer_weights(const Weights& w, int l, int D, int E, int hidden, int dty
 }
 
 // What ops/vit_block.py::plan decided: the variant; for "mma" and "tf32x3"
-// the N tile of the qkv, proj, mlp1 and mlp2 products ("mma" 32 or 64,
-// "tf32x3" 16, 32 or 64); for "tf32x3" the warpgroups a CTA, 1 or 2 (2 at
-// batch 1): the attention's share a query tile's key blocks (head dims up
-// to 64), a product's of N tile 16 or 32 its K; for both the form of the LN
-// products, 0 resident or 1 streamed.  "simt" reads none of them, "mma"
-// not the warpgroups.
+// the N tile of the qkv, proj, mlp1 and mlp2 products ("mma" 32 or 64, and
+// 128 prenormed; "tf32x3" 16, 32 or 64); the warpgroups a CTA, 1 or 2:
+// "tf32x3"'s attention's share a query tile's key blocks (head dims up to
+// 64), its products of N tile 16 or 32 their K (2 at batch 1), "mma"'s
+// prenormed products' share each W chunk (2 at batch 16); the form of the
+// LN products, 0 resident, 1 streamed ("tf32x3") or 2 prenormed ("mma").
+// "simt" reads none of them, "mma" resident not the warpgroups.
 struct Config {
   int variant;
   int bn[4];
@@ -469,56 +476,207 @@ using encoder_mma::kLnNone;
 using encoder_mma::kLnResident;
 using encoder_mma::kLnStreamed;
 
-// The streamed form's statistics of the M rows of A ((M, K), T) over their
+// The LN products' forms (Config::ln): "mma" takes kResident or
+// kPrenormed, "tf32x3" kResident or kStreamed.
+enum LnCode { kResident = 0, kStreamed = 1, kPrenormed = 2 };
+
+// "tf32x3"'s streamed statistics of the M rows of A ((M, K)) over their
 // first ln_dim columns into stats: one launch, 16 rows a CTA.
-template <typename T>
-cudaError_t launch_row_stats(const T* A, float2* stats, int M, int K, int ln_dim,
+cudaError_t launch_row_stats(const float* A, float2* stats, int M, int K, int ln_dim,
                              cudaStream_t st) {
   constexpr int kRowsACta = mma::kThreads / 8;
-  encoder_mma::row_stats_kernel<T>
+  encoder_mma::row_stats_kernel<float>
       <<<(M + kRowsACta - 1) / kRowsACta, mma::kThreads, 0, st>>>(A, stats, M, K, ln_dim);
   return cudaGetLastError();
 }
 
 template <int BN, int EPI, int LN>
 cudaError_t product_bn(const bf16* A, const bf16* W, const bf16* bias, const bf16* ln_s,
-                       const bf16* ln_b, const float2* stats, bf16* C, int M, int N, int K,
-                       int ln_dim, cudaStream_t st) {
+                       const bf16* ln_b, bf16* C, int M, int N, int K, int ln_dim,
+                       cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
   const auto kernel = encoder_mma::product_kernel<BN, EPI, LN>;
   const size_t smem = encoder_mma::product_smem_bytes(
       BN, LN == kLnResident ? K / encoder_mma::kChunk : encoder_mma::kRing);
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   const dim3 grid(N / BN, (M + mma::kTileRows - 1) / mma::kTileRows);
-  kernel<<<grid, mma::kThreads, smem, st>>>(A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim);
+  kernel<<<grid, mma::kThreads, smem, st>>>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim);
   return cudaGetLastError();
 }
 
-// ln_dim: the true columns of A the LayerNorm runs over (LN products; K or
-// fewer, the rest zero padding).  LN kLnStreamed launches row_stats_kernel into
-// stats first.
+// The resident form's products.  ln_dim: the true columns of A the
+// LayerNorm runs over (LN products; K or fewer, the rest zero padding).
 template <int EPI, int LN>
 cudaError_t product(int bn, const bf16* A, const bf16* W, const bf16* bias, const bf16* ln_s,
-                    const bf16* ln_b, float2* stats, bf16* C, int M, int N, int K, int ln_dim,
+                    const bf16* ln_b, bf16* C, int M, int N, int K, int ln_dim,
                     cudaStream_t st) {
   if (N % bn || K % encoder_mma::kChunk || (LN != kLnNone && (ln_dim < 1 || ln_dim > K)))
     return cudaErrorInvalidValue;
-  if (LN == kLnStreamed) RETURN_IF_ERROR(launch_row_stats(A, stats, M, K, ln_dim, st));
-  if (bn == 32)
-    return product_bn<32, EPI, LN>(A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
-  if (bn == 64)
-    return product_bn<64, EPI, LN>(A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
+  if (bn == 32) return product_bn<32, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim, st);
+  if (bn == 64) return product_bn<64, EPI, LN>(A, W, bias, ln_s, ln_b, C, M, N, K, ln_dim, st);
   return cudaErrorInvalidValue;
 }
 
-// An LN product in the form the plan named (Config::ln).
+// The current device's SM count and opt-in shared memory a block, read
+// once a device.
+struct Limits {
+  int sms, optin;
+};
+
+cudaError_t device_limits(Limits* limits) {
+  static Limits read[kMaxDevices] = {};
+  int device = 0;
+  RETURN_IF_ERROR(cudaGetDevice(&device));
+  if (device < kMaxDevices && read[device].sms) {
+    *limits = read[device];
+    return cudaSuccess;
+  }
+  RETURN_IF_ERROR(cudaDeviceGetAttribute(&limits->sms, cudaDevAttrMultiProcessorCount, device));
+  RETURN_IF_ERROR(
+      cudaDeviceGetAttribute(&limits->optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  if (device < kMaxDevices) read[device] = *limits;
+  return cudaSuccess;
+}
+
+template <int RPW>
+cudaError_t ln_rows_rpw(const bf16* x, const bf16* s, const bf16* b, bf16* y, int M, int W,
+                        int d, cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = encoder_mma::ln_rows_kernel<RPW>;
+  const size_t smem = encoder_mma::ln_rows_smem_bytes(RPW, W);
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  constexpr int kRows = encoder_mma::kLnRowsThreads / 32 * RPW;
+  kernel<<<(M + kRows - 1) / kRows, encoder_mma::kLnRowsThreads, smem, st>>>(x, s, b, y, M, W,
+                                                                           d);
+  return cudaGetLastError();
+}
+
+// The prenormed form.  y = the LN rows of the M rows of x ((M, W)) over
+// their first d columns: one launch, four rows a warp where that gives at
+// least two CTAs an SM and their rows fit a block's shared memory, else a
+// warp a row.
+cudaError_t ln_rows(const bf16* x, const bf16* s, const bf16* b, bf16* y, int M, int W, int d,
+                    cudaStream_t st) {
+  if (W % encoder_mma::kChunk || d < 1 || d > W) return cudaErrorInvalidValue;
+  Limits card;
+  RETURN_IF_ERROR(device_limits(&card));
+  if (M / (encoder_mma::kLnRowsThreads / 32 * 4) >= 2 * card.sms
+      && encoder_mma::ln_rows_smem_bytes(4, W) <= (size_t)card.optin)
+    return ln_rows_rpw<4>(x, s, b, y, M, W, d, st);
+  return ln_rows_rpw<1>(x, s, b, y, M, W, d, st);
+}
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (so nothing
+// more is linked); null where libcuda has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major bf16 tensor of `rank` dims (innermost first) as a TMA map
+// with boxes of `box` elements; a box's rows are 128 or 64 bytes, swizzled
+// as mma::Tile's 64- and 32-column panels are.
+cudaError_t tile_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t strides[2] = {0, 0};
+  cuuint64_t stride = dims[0] * sizeof(bf16);
+  for (int i = 0; i + 1 < rank; ++i) {
+    strides[i] = stride;
+    stride *= dims[i + 1];
+  }
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+      ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box[0] * sizeof(bf16) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The TMA maps of a prenormed forward: the rows each product reads (the LN
+// rows, the attention's output, the MLP's hidden rows) in boxes of 64
+// columns by the CTA's rows, and the four weights stacked over depth in
+// boxes of 64 rows by the product's N tile or, above 64, by a 64-column
+// panel of it.
+struct RingMaps {
+  CUtensorMap normed, attn, hid, qkv, proj, mlp1, mlp2;
+};
+
+cudaError_t ring_maps(RingMaps* m, const Config& c, const Weights& w, int M, int W, int E,
+                      int hidden, int depth, const void* normed, const void* attn,
+                      const void* hid) {
+  const auto rows = [&](CUtensorMap* map, const void* p, int k) {
+    const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)M};
+    const cuuint32_t box[2] = {encoder_mma::kChunk, (cuuint32_t)(c.warpgroups * mma::kTileRows)};
+    return tile_map(map, p, 2, dims, box);
+  };
+  const auto weight = [&](CUtensorMap* map, const void* p, int k, int n, int bn) {
+    const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)k, (cuuint64_t)depth};
+    const cuuint32_t box[3] = {(cuuint32_t)(bn < 64 ? bn : 64), encoder_mma::kChunk, 1};
+    return tile_map(map, p, 3, dims, box);
+  };
+  RETURN_IF_ERROR(rows(&m->normed, normed, W));
+  RETURN_IF_ERROR(rows(&m->attn, attn, E));
+  RETURN_IF_ERROR(rows(&m->hid, hid, hidden));
+  RETURN_IF_ERROR(weight(&m->qkv, w.w_qkv, W, 3 * E, c.bn[0]));
+  RETURN_IF_ERROR(weight(&m->proj, w.w_proj, E, W, c.bn[1]));
+  RETURN_IF_ERROR(weight(&m->mlp1, w.w_mlp1, W, hidden, c.bn[2]));
+  return weight(&m->mlp2, w.w_mlp2, hidden, W, c.bn[3]);
+}
+
+template <int NWG, int BN, int EPI>
+cudaError_t ring_product_bn(const CUtensorMap& a, const CUtensorMap& w, int layer,
+                            const bf16* bias, bf16* C, int M, int N, int K, cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  using R = encoder_mma::Ring<NWG, BN>;
+  const auto kernel = encoder_mma::ring_product_kernel<NWG, BN, EPI>;
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, R::smem_bytes()));
+  Limits card;
+  RETURN_IF_ERROR(device_limits(&card));
+  const long long tiles =
+      (long long)(N / BN) * ((M + NWG * mma::kTileRows - 1) / (NWG * mma::kTileRows));
+  const int slots = card.sms * R::kCtasPerSm;
+  const int grid = (int)(tiles < slots ? tiles : slots);
+  kernel<<<grid, R::kThreads, R::smem_bytes(), st>>>(a, w, layer, bias, C, M, N, K);
+  return cudaGetLastError();
+}
+
+// A product of the prenormed form: C = epilogue(A . W[layer] + bias), A and
+// W as the maps a and w give them, CTAs of wgs warpgroups and N tile bn
+// (32 or 64, and with two warpgroups 128).
 template <int EPI>
-cudaError_t ln_product(int ln, int bn, const bf16* A, const bf16* W, const bf16* bias,
-                       const bf16* ln_s, const bf16* ln_b, float2* stats, bf16* C, int M, int N,
-                       int K, int ln_dim, cudaStream_t st) {
-  if (ln == 1)
-    return product<EPI, kLnStreamed>(bn, A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
-  return product<EPI, kLnResident>(bn, A, W, bias, ln_s, ln_b, stats, C, M, N, K, ln_dim, st);
+cudaError_t ring_product(int wgs, int bn, const CUtensorMap& a, const CUtensorMap& w, int layer,
+                         const bf16* bias, bf16* C, int M, int N, int K, cudaStream_t st) {
+  if (N % bn || K % encoder_mma::kChunk) return cudaErrorInvalidValue;
+#define RING_PRODUCT(NWG, BN)   \
+  if (wgs == NWG && bn == BN) \
+    return ring_product_bn<NWG, BN, EPI>(a, w, layer, bias, C, M, N, K, st);
+  RING_PRODUCT(1, 32)
+  RING_PRODUCT(1, 64)
+  RING_PRODUCT(2, 32)
+  RING_PRODUCT(2, 64)
+  RING_PRODUCT(2, 128)
+#undef RING_PRODUCT
+  return cudaErrorInvalidValue;
 }
 
 template <int DH>
@@ -601,7 +759,7 @@ cudaError_t ln_product_tf32(int ln, int bn, int wgs, const float* A, const float
                             const float* bias, const float* ln_s, const float* ln_b,
                             float2* stats, float* C, int M, int N, int K, int ln_dim,
                             cudaStream_t st) {
-  if (ln == 1)
+  if (ln == kStreamed)
     return product_tf32<EPI, kLnStreamed>(bn, wgs, A, W, bias, ln_s, ln_b, stats, C, M, N, K,
                                           ln_dim, st);
   return product_tf32<EPI, kLnResident>(bn, wgs, A, W, bias, ln_s, ln_b, stats, C, M, N, K,
@@ -662,36 +820,47 @@ cudaError_t layer_norm(const T* x, const T* s, const T* b, T* y, int rows, int d
 // variant, and the variant against the dtype; dh is the head dim the kernels
 // run at, D / H or more; W the residual width, D or D zero-padded to the
 // next multiple of 64 ("mma") or 32 ("tf32x3"); hidden the MLP width of the
-// weights (padded); ln the LN products' form.  A resident form whose rows do
-// not fit the card's shared memory fails at its launch (allow_smem).
-cudaError_t check(int variant, int dtype, int B, int S, int D, int W, int H, int dh,
-                  int hidden, int ln) {
-  if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || W < D || (ln != 0 && ln != 1)
+// weights (padded); c the plan: the LN products' form the variant takes
+// ("mma": resident or prenormed, the latter with one or two warpgroups a
+// CTA; "tf32x3": resident or streamed; "simt": none).  A resident form
+// whose rows do not fit the card's shared memory fails at its launch
+// (allow_smem).
+cudaError_t check(const Config& c, int dtype, int B, int S, int D, int W, int H, int dh,
+                  int hidden) {
+  if (B < 1 || S < 1 || H < 1 || D % H || dh < D / H || W < D
       || (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   bool ok = false;
-  if (variant == kMma)
+  if (c.variant == kMma)
     ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128 || (dh > kAttMaxDh && dh % 64 == 0))
-         && W % 64 == 0 && W - D < 64 && hidden % 64 == 0;
-  else if (variant == kTf32x3)
-    ok = dtype == 0 && dh % 8 == 0 && W % 32 == 0 && W - D < 32 && hidden % 32 == 0;
-  else if (variant == kSimt)
-    ok = dtype == 0 && W == D && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0;
+         && W % 64 == 0 && W - D < 64 && hidden % 64 == 0
+         && (c.ln == kResident
+             || (c.ln == kPrenormed && (c.warpgroups == 1 || c.warpgroups == 2)));
+  else if (c.variant == kTf32x3)
+    ok = dtype == 0 && dh % 8 == 0 && W % 32 == 0 && W - D < 32 && hidden % 32 == 0
+         && (c.ln == kResident || c.ln == kStreamed);
+  else if (c.variant == kSimt)
+    ok = dtype == 0 && W == D && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0
+         && c.ln == kResident;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // One pre-LN block in place on x (B * S rows of W, the residual width):
-// five launches (bf16: mma; float32: tf32x3), seven where their LN products
-// stream (a statistics launch before each), or seven (float32: simt).  w
-// points at this block's weights; heads of dh (D / H, or a zero-padded one
-// above it) in an inner width E = H . dh; h (B * S, D) is read by simt
-// alone, stats (B * S) by the streamed LN products.  W = D but for a padded
+// five launches (bf16: mma, resident; float32: tf32x3), seven where their
+// LN products stream (tf32x3: a statistics launch before each) or are
+// prenormed (mma: the LN rows written before each), or seven (float32:
+// simt).  w points at this block's weights, block `layer` of the stacks
+// the maps name (prenormed); heads of dh (D / H, or a zero-padded one above
+// it) in an inner width E = H . dh; h (B * S, D) is read by simt alone;
+// ln_scratch holds the streamed form's statistics ((B * S, 2) float32) or
+// the prenormed form's LN rows ((B * S, W) bf16).  W = D but for a padded
 // "mma" or "tf32x3" width, whose LN products normalise the first D of W
 // columns.
 template <typename T>
 cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, int H, int dh,
                            int hidden, const Config& c, T* hb, T* qkv, T* attn, T* hid,
-                           float2* stats, cudaStream_t st) {
+                           void* ln_scratch, const RingMaps& maps, int layer,
+                           cudaStream_t st) {
   const int M = B * S, E = H * dh;
   const float scale = (float)(1.0 / sqrt((double)(D / H)));   // the true head dim's
   const auto p = [](const void* q) { return static_cast<const T*>(q); };
@@ -701,6 +870,7 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
       // Two warpgroups, where the plan says so, in the attention and in the
       // products of N tile 16 and 32 (N 64 is built with one).
       const auto ks = [&](int bn) { return bn == 64 ? 1 : c.warpgroups; };
+      float2* stats = static_cast<float2*>(ln_scratch);
       RETURN_IF_ERROR(ln_product_tf32<kEpiRound>(c.ln, c.bn[0], ks(c.bn[0]), x, p(w.w_qkv),
                                                  p(w.b_qkv), p(w.ln1_s), p(w.ln1_b), stats,
                                                  qkv, M, 3 * E, W, D, st));
@@ -719,18 +889,32 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
     }
   }
   if constexpr (std::is_same<T, bf16>::value) {
-    RETURN_IF_ERROR(ln_product<kEpiRound>(c.ln, c.bn[0], x, p(w.w_qkv), p(w.b_qkv),
-                                          p(w.ln1_s), p(w.ln1_b), stats, qkv, M, 3 * E, W, D,
-                                          st));
+    if (c.ln == kPrenormed) {
+      bf16* normed = static_cast<bf16*>(ln_scratch);
+      const int g = c.warpgroups;
+      RETURN_IF_ERROR(ln_rows(x, p(w.ln1_s), p(w.ln1_b), normed, M, W, D, st));
+      RETURN_IF_ERROR(ring_product<kEpiRound>(g, c.bn[0], maps.normed, maps.qkv, layer,
+                                              p(w.b_qkv), qkv, M, 3 * E, W, st));
+      RETURN_IF_ERROR(attention_mma_dh(dh, qkv, attn, B, S, H, scale, st));
+      RETURN_IF_ERROR(ring_product<kEpiResidual>(g, c.bn[1], maps.attn, maps.proj, layer,
+                                                 p(w.b_proj), x, M, W, E, st));
+      RETURN_IF_ERROR(ln_rows(x, p(w.ln2_s), p(w.ln2_b), normed, M, W, D, st));
+      RETURN_IF_ERROR(ring_product<kEpiGelu>(g, c.bn[2], maps.normed, maps.mlp1, layer,
+                                             p(w.b_mlp1), hid, M, hidden, W, st));
+      return ring_product<kEpiResidual>(g, c.bn[3], maps.hid, maps.mlp2, layer, p(w.b_mlp2), x,
+                                        M, W, hidden, st);
+    }
+    RETURN_IF_ERROR((product<kEpiRound, kLnResident>(c.bn[0], x, p(w.w_qkv), p(w.b_qkv),
+                                                     p(w.ln1_s), p(w.ln1_b), qkv, M, 3 * E, W,
+                                                     D, st)));
     RETURN_IF_ERROR(attention_mma_dh(dh, qkv, attn, B, S, H, scale, st));
     RETURN_IF_ERROR((product<kEpiResidual, kLnNone>(c.bn[1], attn, p(w.w_proj), p(w.b_proj),
-                                                    nullptr, nullptr, nullptr, x, M, W, E, 0,
-                                                    st)));
-    RETURN_IF_ERROR(ln_product<kEpiGelu>(c.ln, c.bn[2], x, p(w.w_mlp1), p(w.b_mlp1),
-                                         p(w.ln2_s), p(w.ln2_b), stats, hid, M, hidden, W, D,
-                                         st));
+                                                    nullptr, nullptr, x, M, W, E, 0, st)));
+    RETURN_IF_ERROR((product<kEpiGelu, kLnResident>(c.bn[2], x, p(w.w_mlp1), p(w.b_mlp1),
+                                                    p(w.ln2_s), p(w.ln2_b), hid, M, hidden, W,
+                                                    D, st)));
     return product<kEpiResidual, kLnNone>(c.bn[3], hid, p(w.w_mlp2), p(w.b_mlp2), nullptr,
-                                          nullptr, nullptr, x, M, W, hidden, 0, st);
+                                          nullptr, x, M, W, hidden, 0, st);
   } else {
     RETURN_IF_ERROR(layer_norm<T>(x, p(w.ln1_s), p(w.ln1_b), hb, M, D, st));
     RETURN_IF_ERROR((gemm<T, kEpiRound>(hb, p(w.w_qkv), p(w.b_qkv), nullptr, qkv, M, 3 * E, D,
@@ -754,9 +938,13 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
 template <typename T>
 cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, int hidden,
                     int depth, const void* x_in, void* x_out, const Weights& w, void* h_buf,
-                    void* qkv_buf, void* attn_buf, void* hid_buf, void* stats,
+                    void* qkv_buf, void* attn_buf, void* hid_buf, void* ln_scratch,
                     cudaStream_t st) {
   const size_t rows = (size_t)B * S, e = sizeof(T);
+  RingMaps maps;
+  if (std::is_same<T, bf16>::value && c.ln == kPrenormed)
+    RETURN_IF_ERROR(ring_maps(&maps, c, w, (int)rows, W, H * dh, hidden, depth, ln_scratch,
+                              attn_buf, hid_buf));
   T* x = static_cast<T*>(W == D ? x_out : h_buf);
   if (W == D) {
     RETURN_IF_ERROR(cudaMemcpyAsync(x, x_in, rows * D * e, cudaMemcpyDeviceToDevice, st));
@@ -771,8 +959,7 @@ cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, 
                                                        c.variant), B, S,
                                       D, W, H, dh, hidden, c, static_cast<T*>(h_buf),
                                       static_cast<T*>(qkv_buf), static_cast<T*>(attn_buf),
-                                      static_cast<T*>(hid_buf), static_cast<float2*>(stats),
-                                      st));
+                                      static_cast<T*>(hid_buf), ln_scratch, maps, l, st));
   if (W != D)
     RETURN_IF_ERROR(cudaMemcpy2DAsync(x_out, D * e, x, W * e, D * e, rows,
                                       cudaMemcpyDeviceToDevice, st));
@@ -781,23 +968,22 @@ cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, 
 
 cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, int dh,
                 int hidden, int depth, const void* x_in, void* x_out, const Weights& w, void* h,
-                void* qkv, void* attn, void* hid, void* stats, cudaStream_t st) {
-  RETURN_IF_ERROR(check(c.variant, dtype, B, S, D, W, H, dh, hidden, c.ln));
-  if (depth < 1 || (c.variant != kSimt && c.ln == 1 && stats == nullptr))
-    return cudaErrorInvalidValue;
+                void* qkv, void* attn, void* hid, void* ln_scratch, cudaStream_t st) {
+  RETURN_IF_ERROR(check(c, dtype, B, S, D, W, H, dh, hidden));
+  if (depth < 1 || (c.ln != kResident && ln_scratch == nullptr)) return cudaErrorInvalidValue;
   if (dtype == 1)
     return forward<bf16>(c, B, S, D, W, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn,
-                         hid, stats, st);
+                         hid, ln_scratch, st);
   return forward<float>(c, B, S, D, W, H, dh, hidden, depth, x_in, x_out, w, h, qkv, attn,
-                        hid, stats, st);
+                        hid, ln_scratch, st);
 }
 
 }  // namespace
 
 // variant: 0 = "simt" (float32), 1 = "mma" (bfloat16), 2 = "tf32x3"
 // (float32); bn_*, warpgroups, ln: the N tiles, the warpgroups a CTA and the
-// LN products' form (0 resident, 1 streamed) of the plan (see Config
-// above).  dtype: 0 = float32, 1 = bfloat16.  dim: D, the width of x and of
+// LN products' form (0 resident, 1 streamed, 2 prenormed) of the plan (see
+// Config above).  dtype: 0 = float32, 1 = bfloat16.  dim: D, the width of x and of
 // the output; width: the residual width W the weights have, D or D
 // zero-padded to the next multiple of 64 ("mma") or 32 ("tf32x3"; see the
 // header).  head_dim: the head dim the kernels
@@ -811,9 +997,10 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, i
 // planes, (depth, 2, in, out), hi = tf32(w) then lo = tf32(w - hi), rounded
 // to nearest with ties away from zero); scratch h (B*S, D) read by "simt"
 // alone, (B*S, W) the residual stream of a padded call, attn (B*S, E), qkv
-// (B*S, 3E), mlp_hidden (B*S, hidden), stats (B*S, 2) float32 the streamed
-// LN products' rows' (mean, rstd) (null where ln is 0).  x_out must not
-// alias x_in.  Returns a cudaError_t.
+// (B*S, 3E), mlp_hidden (B*S, hidden), ln_scratch: the streamed LN
+// products' rows' (mean, rstd) ((B*S, 2) float32) or the prenormed form's
+// LN rows ((B*S, W) bf16), null where ln is 0.  x_out must not alias x_in.
+// Returns a cudaError_t.
 extern "C" int vit_encoder_forward(
     int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups, int ln,
     int dtype, int batch, int seq, int dim, int width, int heads, int head_dim, int hidden,
@@ -822,12 +1009,12 @@ extern "C" int vit_encoder_forward(
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
-    void* h, void* qkv, void* attn, void* mlp_hidden, void* stats, void* stream) {
+    void* h, void* qkv, void* attn, void* mlp_hidden, void* ln_scratch, void* stream) {
   const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, depth, x_in, x_out,
-                  w, h, qkv, attn, mlp_hidden, stats, static_cast<cudaStream_t>(stream));
+                  w, h, qkv, attn, mlp_hidden, ln_scratch, static_cast<cudaStream_t>(stream));
 }
 
 // One pre-LN block: replaces the TPU kernel
@@ -848,10 +1035,10 @@ extern "C" int vit_block_forward(
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
-    void* h, void* qkv, void* attn, void* mlp_hidden, void* stats, void* stream) {
+    void* h, void* qkv, void* attn, void* mlp_hidden, void* ln_scratch, void* stream) {
   const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, 1, x_in, x_out, w,
-                  h, qkv, attn, mlp_hidden, stats, static_cast<cudaStream_t>(stream));
+                  h, qkv, attn, mlp_hidden, ln_scratch, static_cast<cudaStream_t>(stream));
 }

@@ -14,9 +14,11 @@ N tiles as ints):
 
 * ``"mma"``: bf16 at any D and MLP width (every bf16 preset, the ``small``
   architecture in bf16, D 96, and ViT-L's and ViT-H's widths, D 1024 and
-  1280).  Five launches a block: ``wgmma`` products with the LayerNorm in
-  the prologue of the qkv and mlp1 products and the bias / GELU / residual
-  epilogue on the accumulator registers, and an attention that reads q, k
+  1280).  Five launches a block up to D 768: ``wgmma`` products with the
+  LayerNorm in the prologue of the qkv and mlp1 products and the bias /
+  GELU / residual epilogue on the accumulator registers (seven above it:
+  the LN rows written by launches of their own, ``"prenormed"`` below),
+  and an attention that reads q, k
   and v from the qkv buffer where they lie and walks blocks of 64 keys
   twice (the row maximum, then ``expf`` of the twin's own argument and P.V
   with p in f32 precision).
@@ -47,14 +49,19 @@ the output and sums its scores over the panels of q and k, so its registers
 and shared memory are one panel's whatever the head dim.  The products do
 not see the head dim.
 
-The LayerNorm products of ``"mma"`` and ``"tf32x3"`` come in two forms,
-``Plan.ln``, picked from the shape alone by each form's shared memory
-against the card's opt-in: ``"resident"`` (the CTA's 64 rows of the
-residual stream held whole and normalised in place, where they fit: the
-flagship, ``small`` and every bf16 width up to 768) and ``"streamed"`` (a
-statistics launch before the product, then each K chunk normalised as it
-lands, for any width; seven launches a block).  The two give the same LN
-output bit for bit; ``csrc/vit_encoder.cu``'s header says what bounds each.
+The LayerNorm products of ``"mma"`` and ``"tf32x3"`` come in two forms
+each, ``Plan.ln``, picked from the shape alone: ``"resident"`` (the CTA's
+64 rows of the residual stream held whole and normalised in place: the
+flagship, ``small``, every bf16 width up to 768 and every float32 one
+whose rows fit the card's opt-in shared memory) and, past it, ``"mma"``'s
+``"prenormed"`` (the LN rows written once by their own launch, then every
+product of the block reading plain rows through a TMA ring: bf16 ViT-L
+and ViT-H) or ``"tf32x3"``'s ``"streamed"`` (a statistics launch before
+the product, then each K chunk normalised as it lands).  Seven launches
+a block past the resident form; every form gives the same LN output bit
+for bit, and ``"prenormed"`` the same products (:func:`ln_rows_reference`
+is its LN rows' plain version); ``csrc/encoder_mma.cuh``'s header says
+what bounds each.
 
 A head dim that the variant does not take as it is (bf16: up to 128 not 32,
 64 or 128, above 128 not a multiple of 64, a whole panel; ``"tf32x3"``: not a
@@ -113,8 +120,8 @@ from . import attention, cuda_build, operand_cache
 Params = Dict[str, Any]
 
 __all__ = ["encoder", "encoder_reference", "float64_chain", "block",
-           "block_reference", "plan", "Plan", "prepared", "LAUNCHES",
-           "BLOCK_LAUNCHES", "VARIANT_LAUNCHES"]
+           "block_reference", "ln_rows_reference", "plan", "Plan", "prepared",
+           "LAUNCHES", "BLOCK_LAUNCHES", "VARIANT_LAUNCHES"]
 
 # Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = 0
@@ -129,7 +136,10 @@ _FIELDS = (("ln1", "scale"), ("ln1", "bias"), ("qkv", "kernel"),
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
-_LN_CODES = {"resident": 0, "streamed": 1}
+_LN_CODES = {"resident": 0, "streamed": 1, "prenormed": 2}
+# The LN products' forms a variant takes besides "resident", past the
+# widths where it is chosen.
+_WIDE_LN = {"mma": "prenormed", "tf32x3": "streamed"}
 # A dtype's variants, the first its own and the one the rule gives;
 # float32's "simt" runs by name only.
 _DTYPE_VARIANTS = {torch.float32: ("tf32x3", "simt"), torch.bfloat16: ("mma",)}
@@ -137,11 +147,11 @@ _VARIANTS = {dtype: v[0] for dtype, v in _DTYPE_VARIANTS.items()}
 # The opt-in shared memory of a block on the H100 (plan's default).
 H100_OPTIN = 232448
 # Geometry of the kernels, as csrc/vit_encoder.cu, encoder_mma.cuh and
-# encoder_tf32.cuh have it.  "mma": a product CTA owns 64 rows by an N tile
-# of 32 or 64 columns and K arrives in 64-deep chunks (so D and the MLP
-# width run padded to whole chunks) through a ring of 3; a resident LN
-# product holds all W / 64 chunks of its rows instead, which at W = 768 and
-# N 64 is 1024 + 12 x 64 x (64 + 64) x 2 = 197,632 bytes of the H100's
+# encoder_tf32.cuh have it.  "mma": a resident product CTA owns 64 rows by
+# an N tile of 32 or 64 columns and K arrives in 64-deep chunks (so D and
+# the MLP width run padded to whole chunks) through a ring of 3; its LN
+# products hold all W / 64 chunks of their rows instead, which at W = 768
+# and N 64 is 1024 + 12 x 64 x (64 + 64) x 2 = 197,632 bytes of the H100's
 # 232,448 and at W = 1024 263,168.  The attention takes 64 query rows and
 # walks 64-key blocks through a ring of 2 (82,944 bytes at head dim 128, for
 # any S); above a head dim of 128 (_TILE_MAX_DH) it runs in panels of 64
@@ -155,6 +165,15 @@ H100_OPTIN = 232448
 # "simt": 16 query rows, 32-key blocks.
 _ROWS, _CHUNK, _TF32_CHUNK = 64, 64, 32
 _MMA_RING = 3
+# "mma"'s prenormed products (ring_product_kernel): one or two warpgroups
+# of 64 rows a CTA share each W chunk of an N tile of 32, 64 or 128; a
+# stage holds their A chunk and the W chunk, the ring 6 or 8 of them (6 at
+# 16 KB and 32 KB stages) and a full and an empty barrier a stage.  The
+# resident form is kept up to a residual width of _RESIDENT_MAX_WIDTH (the
+# flagship, ``small``, every bf16 D up to 768).
+_RESIDENT_MAX_WIDTH = 768
+# The prenormed products' builds: N tiles by warpgroups a CTA.
+_RING_TILES = {1: (32, 64), 2: (32, 64, 128)}
 _SPLIT_MAX_DH = 64         # "tf32x3": two-warpgroup attention built up to it
 _TILE_MAX_DH, _PANEL = 128, 64
 
@@ -196,11 +215,14 @@ def ln_smem_bytes(variant: str, ln: str, width: int, tile: int,
                   warpgroups: int = 1) -> int:
     """Dynamic shared memory of one LN product CTA of ``variant`` in form
     ``ln`` at residual width ``width`` and N tile ``tile`` (the sources'
-    ``product_smem_bytes``): ``"resident"`` grows with the width, a
-    ``"streamed"`` ring does not."""
+    ``product_smem_bytes`` and ``Ring::smem_bytes``): ``"resident"`` grows
+    with the width, a ``"streamed"`` or ``"prenormed"`` ring does not."""
     if variant == "mma":
-        chunks = width // _CHUNK if ln == "resident" else _MMA_RING
-        return 1024 + chunks * _CHUNK * (_ROWS + tile) * 2
+        if ln == "prenormed":
+            stage = warpgroups * _ROWS * _CHUNK * 2 + _CHUNK * tile * 2
+            stages = 6 if stage in (16384, 32768) else 8
+            return 1024 + stages * (stage + 16)
+        return 1024 + width // _CHUNK * _CHUNK * (_ROWS + tile) * 2
     nwg = 1 if tile == 64 else warpgroups
     slots = nwg * (3 if tile == 64 else 4)
     w_ring = slots * 2 * _TF32_CHUNK * (tile + 8)
@@ -227,14 +249,28 @@ def attention_smem_bytes(variant: str, dh: int, warpgroups: int = 1) -> int:
     return (_ROWS + 4 * warpgroups * 64) * (dh + 4) * 4
 
 
+def _fits(variant: str, ln: str, width: int, tiles: Tuple[int, ...],
+          warpgroups: int, optin: int) -> bool:
+    """Whether the LN products of form ``ln`` fit ``optin`` bytes at their
+    N tiles (``"prenormed"``: every product, all four run the ring)."""
+    products = tiles if ln == "prenormed" else (tiles[0], tiles[2])
+    return all(ln_smem_bytes(variant, ln, width, t, warpgroups) <= optin
+               for t in products)
+
+
 def _ln_form(variant: str, width: int, tiles: Tuple[int, ...],
              warpgroups: int, optin: int) -> Optional[str]:
     """The LN products' form: ``"resident"`` where both the qkv and mlp1
-    products' rows fit ``optin`` bytes at their N tiles, else
-    ``"streamed"`` where its ring does; None if neither does."""
-    return next((ln for ln in ("resident", "streamed")
-                 if all(ln_smem_bytes(variant, ln, width, t, warpgroups)
-                        <= optin for t in (tiles[0], tiles[2]))), None)
+    products' rows fit ``optin`` bytes at their N tiles (``"mma"``: up to
+    a width of _RESIDENT_MAX_WIDTH), else the variant's wide form
+    (``"mma"`` ``"prenormed"``, ``"tf32x3"`` ``"streamed"``) where its
+    ring does; None if neither does."""
+    if (variant != "mma" or width <= _RESIDENT_MAX_WIDTH) and _fits(
+            variant, "resident", width, tiles, warpgroups, optin):
+        return "resident"
+    wide = _WIDE_LN[variant]
+    return wide if _fits(variant, wide, width, tiles, warpgroups,
+                         optin) else None
 
 
 def head_pad(variant: str, dh: int) -> int:
@@ -272,6 +308,23 @@ def _variant(dtype: torch.dtype, dim: int, heads: int,
     if variant is None or _refusal(variant, dim, heads, hidden) is not None:
         return None
     return variant
+
+
+def _ring_warpgroups(m: int, dim: int, sms: int) -> int:
+    """The prenormed products' warpgroups a CTA for ``m`` rows of
+    residual width ``dim``: 2 (CTAs of 128 rows that share each W chunk)
+    once such CTAs with 64-wide tiles fill ``sms`` SMs in the narrowest
+    product (proj and mlp2, N = dim), else 1."""
+    return 2 if -(-m // (2 * _ROWS)) * -(-dim // 64) >= sms else 1
+
+
+def _fit(tile: int, n: int) -> int:
+    """The largest of ``tile``, its half, ... down to 32 that divides ``n``:
+    ``"mma"``'s products take whole N tiles (every width they see is a
+    multiple of 32)."""
+    while n % tile and tile > 32:
+        tile //= 2
+    return tile
 
 
 def _tiles(rows: int, inner: int, dim: int, hidden: int, sms: int,
@@ -315,8 +368,15 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
       tile 16 or 32 take its 32-deep chunks of K in turn (batch 1, where
       one warpgroup an SM leaves every latency exposed).
     * ``ln``, the LN products' form at those tiles (:func:`_ln_form`):
-      ``"resident"`` where the qkv and mlp1 CTAs' rows fit ``optin``, else
-      ``"streamed"`` (ViT-L's D 1024 at both batches, in both dtypes).
+      ``"resident"`` where the qkv and mlp1 CTAs' rows fit ``optin``
+      (``"mma"``: up to a width of 768), else ``"mma"``'s ``"prenormed"``
+      (every bf16 width above 768: ViT-L's D 1024 at both batches) or
+      ``"tf32x3"``'s ``"streamed"`` (float32 ViT-L).  ``"prenormed"``
+      products take ``warpgroups`` 64-row warpgroups a CTA
+      (:func:`_ring_warpgroups`: 2 at ViT-L's batch 16, 1 at batch 1), and
+      N tiles of 128 with 2, of 64 with 1 (each product's tile halved down
+      to 32 until it divides the product's width, :func:`_fit`, as every
+      ``"mma"`` tile is).
 
     Depends on the shape alone, so a chain of :func:`block` calls equals one
     :func:`encoder` call bit for bit.
@@ -338,6 +398,12 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
                    variant == "tf32x3")
     wgs = (2 if variant == "tf32x3" and dh <= _SPLIT_MAX_DH
            and -(-seq // _ROWS) * batch * heads < sms else 1)
+    if variant == "mma":
+        if (width or dim) > _RESIDENT_MAX_WIDTH:
+            wgs = _ring_warpgroups(batch * seq, width or dim, sms)
+            tiles = (128 if wgs == 2 else 64,) * 4
+        tiles = tuple(_fit(t, n) for t, n in zip(
+            tiles, (3 * heads * dh, width or dim, mlp or hidden, width or dim)))
     ln = _ln_form(variant, width or dim, tiles, wgs, optin)
     if ln is None:
         raise ValueError(f"the encoder kernels cannot take this shape "
@@ -354,6 +420,42 @@ def encoder_reference(x: torch.Tensor, blocks: Sequence[Params],
     for p in blocks:
         x = vit._block(x, p, num_heads)
     return x
+
+
+def ln_rows_reference(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, dim: int) -> torch.Tensor:
+    """Plain version of the prenormed form's LN rows
+    (``csrc/encoder_mma.cuh::ln_rows_kernel``) on bf16 ``x`` (..., W), W a
+    multiple of 64: the LayerNorm over the first ``dim`` columns with
+    ``scale`` and ``bias`` (W,) (zero past ``dim``) in the kernel's order
+    of float32 sums (``row_stats``).  Eight lanes a row: lane c adds, one
+    at a time, the elements before ``dim`` of its 16-byte chunks c, c + 8,
+    ... of the row; the lanes' sums are added as three xor-shuffles (1, 2,
+    4) add them; mean = sum / dim, then the same for (x - mean)^2, rstd = 1
+    / sqrt(var / dim + 1e-6); y = ((x - mean) * rstd) * scale + bias.
+    Every operation rounded to float32 on its own, one rounding to bf16."""
+    xf = x.float()
+    lanes = torch.arange(8, device=x.device)
+    k = torch.tensor(float(dim), dtype=torch.float32, device=x.device)
+
+    def group_sum(t):
+        acc = torch.zeros(t.shape[:-1] + (8,), dtype=torch.float32,
+                          device=x.device)
+        for col0 in range(0, t.shape[-1], 64):
+            for i in range(8):
+                cols = col0 + 8 * lanes + i
+                live = cols < dim
+                if live.any():
+                    acc = torch.where(live, acc + t[..., cols], acc)
+        for shift in (1, 2, 4):
+            acc = acc + acc[..., lanes ^ shift]
+        return acc[..., :1]
+
+    mu = group_sum(xf) / k
+    t = xf - mu
+    rstd = 1.0 / torch.sqrt(group_sum(t * t) / k
+                            + torch.tensor(1e-6, dtype=torch.float32))
+    return (t * rstd * scale.float() + bias.float()).to(x.dtype)
 
 
 def float64_chain(x: torch.Tensor, blocks: Sequence[Params],
@@ -574,12 +676,24 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
         rule = _plan_for(x, heads, hidden)
         chosen = chosen._replace(tiles=rule.tiles, warpgroups=rule.warpgroups,
                                  ln=rule.ln)
-    if chosen.variant != "simt" and chosen.ln == "resident" and _ln_form(
-            chosen.variant, width or d, chosen.tiles, chosen.warpgroups,
-            attention.card(x.device)[0]) != "resident":
-        raise ValueError(f"the resident LN form does not fit the card's "
-                         f"shared memory at width {width or d} and N tiles "
-                         f"{chosen.tiles}")
+    if chosen.variant != "simt":
+        if chosen.ln not in ("resident", _WIDE_LN[chosen.variant]):
+            raise ValueError(f"{chosen.variant} takes the LN forms resident "
+                             f"and {_WIDE_LN[chosen.variant]}, not "
+                             f"{chosen.ln}")
+        if chosen.ln == "prenormed" and not set(chosen.tiles) <= set(
+                _RING_TILES.get(chosen.warpgroups, ())):
+            raise ValueError(f"the prenormed products take N tiles "
+                             f"{_RING_TILES} by warpgroups, not "
+                             f"{chosen.tiles} at {chosen.warpgroups}")
+        if not _fits(chosen.variant, chosen.ln, width or d, chosen.tiles,
+                     chosen.warpgroups, attention.card(x.device)[0]):
+            raise ValueError(f"the {chosen.ln} LN form does not fit the "
+                             f"card's shared memory at width {width or d}, "
+                             f"N tiles {chosen.tiles} and {chosen.warpgroups} "
+                             f"warpgroups")
+    elif chosen.ln != "resident":
+        raise ValueError(f"simt takes no LN form, not {chosen.ln}")
     return chosen._replace(pad=pad, width=width, mlp=mlp)
 
 
@@ -616,24 +730,27 @@ def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
     m = b * s
     out = torch.empty_like(x)
     # One scratch allocation: qkv (m, 3 inner), attn (m, inner), mlp hidden
-    # (m, hidden) and h: for "simt" the LN output (m, d), for a padded width
-    # the residual stream (m, width).  A streamed plan's LN statistics,
-    # (m, 2) float32, beside it.
+    # (m, hidden), h: for "simt" the LN output (m, d), for a padded width
+    # the residual stream (m, width), and a prenormed plan's LN rows (m,
+    # width).  A streamed plan's LN statistics, (m, 2) float32, beside it.
     h_rows = d if chosen.variant == "simt" else (width if width != d else 0)
-    work = torch.empty(m * (4 * inner + hidden + h_rows), dtype=x.dtype,
-                       device=x.device)
-    qkv, attn, hid, h = (work.data_ptr() + i * m * x.element_size()
-                         for i in (0, 3 * inner, 4 * inner, 4 * inner + hidden))
-    streamed = chosen.variant != "simt" and chosen.ln == "streamed"
+    n_rows = width if chosen.ln == "prenormed" else 0
+    work = torch.empty(m * (4 * inner + hidden + h_rows + n_rows),
+                       dtype=x.dtype, device=x.device)
+    qkv, attn, hid, h, normed = (
+        work.data_ptr() + i * m * x.element_size()
+        for i in (0, 3 * inner, 4 * inner, 4 * inner + hidden,
+                  4 * inner + hidden + h_rows))
     stats = (torch.empty((m, 2), dtype=torch.float32, device=x.device)
-             if streamed else None)
+             if chosen.ln == "streamed" else None)
+    ln_scratch = (stats.data_ptr() if stats is not None
+                  else normed if n_rows else None)
     args = (*chosen.config(), _DTYPE_CODES[x.dtype], b, s, d, width,
             num_heads, dh, hidden)
     if stacked:
         args += (weights[0].shape[0],)
     args += (x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in weights],
-             h if h_rows else qkv, qkv, attn, hid,
-             stats.data_ptr() if streamed else None)
+             h if h_rows else qkv, qkv, attn, hid, ln_scratch)
     return chosen, out, (x, weights, work, stats), args
 
 

@@ -3,7 +3,7 @@ flagship trajectories against the CPU's.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
-    python -m gstreamer_vit_tracker_tpu_torch.profile_encoder [tiles] [lottery N] [arith N] [f32]
+    python -m gstreamer_vit_tracker_tpu_torch.profile_encoder [tiles] [lottery N] [arith N] [f32] [wide] [cut]
 
 ``tiles``: one launch on ready operands (``ops/vit_block.py::prepared``) of
 kernel 1 at (1, 320, 192) and of kernel 2 at (1, 320, 192) and
@@ -38,6 +38,20 @@ float32, ``tf32x3`` and ``simt`` by name on the same operands; one launch
 on ready operands repeated under ``torch.profiler``, each device kernel
 named by its place in the block (five launches a block for ``tf32x3``,
 seven for ``simt``), mean device us a launch by stage.
+
+``wide``: the same by stage for bf16 at ViT-L's width (D 1024, 16 heads,
+MLP 4096, seeded weights): kernel 1 at (1, 320, 1024) x 24 and kernel 2
+at (16, 320, 1024), seven launches a block (the two LN launches, qkv,
+attention, proj, mlp1, mlp2), the launch's device us (a replayed CUDA
+graph), and beside each product ``torch.matmul``'s device us on the same
+shapes.
+
+``cut``: ``wide``'s two launches at the plan (device us a launch, a
+replayed CUDA graph) for the shipped build and for builds that leave out
+of the ring products their ``wgmma``, their f32 adds, or both
+(``csrc/encoder_mma.cuh`` rewritten in a copy under ``build/``; the
+outputs are wrong, the times say what the copies, the tensor-core steps
+and the sums each cost).
 
 Prints the card's name and power limit, then one JSON object a section.
 """
@@ -155,11 +169,43 @@ F32_STAGES = {"tf32x3": ("ln1+qkv", "attention", "proj+residual",
                        "mlp1+gelu", "mlp2+residual")}
 
 
+def _by_stage(label: str, launch, stages, depth: int,
+              reps: int = F32_REPS) -> dict:
+    """Mean device us a ``launch()`` by stage: ``reps`` launches under
+    ``torch.profiler``, each device kernel named by its place in the block
+    (``stages``, in launch order, ``depth`` blocks a launch; copies and
+    memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    want = reps * depth * len(stages)
+    for _ in range(3):     # a trace that lost activities is taken again
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (ev for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in ev.name.lower()
+             and "memset" not in ev.name.lower()),
+            key=lambda ev: ev.time_range.start)
+        if len(kernels) == want:
+            break
+    else:
+        raise RuntimeError(f"{label}: {len(kernels)} device kernels in "
+                           f"{reps} launches, not {want}")
+    us = dict.fromkeys(stages, 0.0)
+    for i, ev in enumerate(kernels):
+        us[stages[i % len(stages)]] += ev.time_range.elapsed_us() / reps
+    return {"total_us": sum(us.values()), **us}
+
+
 def f32_stages(dev) -> dict:
     """Device us a launch by stage of the float32 cases (module
     docstring), ``tf32x3`` and ``simt``."""
-    from torch.profiler import ProfilerActivity, profile
-
     from .config import PRESETS
     from .models import vit, weights
 
@@ -185,30 +231,163 @@ def f32_stages(dev) -> dict:
                 _, launch = vit_block.prepared(
                     x, w, cfg.num_heads, stacked,
                     chosen=vit_block.Plan(variant))
-                launch()
-                torch.cuda.synchronize()
-                want = F32_REPS * depth * len(stages)
-                for _ in range(3):     # a trace that lost activities is taken again
-                    with profile(activities=[ProfilerActivity.CUDA],
-                                 acc_events=True) as prof:
-                        for _ in range(F32_REPS):
-                            launch()
-                        torch.cuda.synchronize()
-                    kernels = sorted(
-                        (ev for ev in prof.events()
-                         if ev.device_type == torch.autograd.DeviceType.CUDA
-                         and "memcpy" not in ev.name.lower()),
-                        key=lambda ev: ev.time_range.start)
-                    if len(kernels) == want:
-                        break
-                else:
-                    raise RuntimeError(f"{label} {variant}: {len(kernels)} "
-                                       f"device kernels in {F32_REPS} launches")
-                us = dict.fromkeys(stages, 0.0)
-                for i, ev in enumerate(kernels):
-                    us[stages[i % len(stages)]] += (ev.time_range.elapsed_us()
-                                                    / F32_REPS)
-                out[label][variant] = {"total_us": sum(us.values()), **us}
+                out[label][variant] = _by_stage(f"{label} {variant}", launch,
+                                                stages, depth)
+    return out
+
+
+# ViT-L/16's width, heads, MLP and depth (Dosovitskiy et al. 2021, Table 1).
+WIDE = dict(dim=1024, heads=16, hidden=4096, depth=24)
+WIDE_REPS = 5
+# Besides the plan, the prenormed products timed at these (warpgroups, N
+# tiles) by batch.
+WIDE_NAMED = {1: ((1, (64, 32, 64, 32)), (2, (128,) * 4)),
+              16: ((2, (64,) * 4), (1, (64,) * 4))}
+# The seven launches of a bf16 block at ViT-L's width, in order, by the
+# plan's LN form: the streamed products (a statistics launch, then
+# each chunk normalised as it lands) and the prenormed ones (the LN rows
+# written once, then plain products).
+WIDE_STAGES = {
+    "streamed": ("ln1 stats", "ln1+qkv", "attention", "proj+residual",
+                 "ln2 stats", "ln2+mlp1+gelu", "mlp2+residual"),
+    "prenormed": ("ln1 rows", "qkv", "attention", "proj+residual",
+                  "ln2 rows", "mlp1+gelu", "mlp2+residual")}
+
+
+def _wide_cases(dev) -> list:
+    """(label, x, weights, stacked) of bf16 kernel 1 at ViT-L's (1, 320,
+    1024) x 24 and kernel 2 at (16, 320, 1024) on seeded weights (every
+    block the same)."""
+    d, hidden, depth = WIDE["dim"], WIDE["hidden"], WIDE["depth"]
+    gen = torch.Generator().manual_seed(1024)
+
+    def w(*shape, std, base=0.0):
+        return (base + std * torch.randn(shape, generator=gen)).to(
+            dev, torch.bfloat16)
+
+    block = {"ln1": {"scale": w(d, std=0.1, base=1.0), "bias": w(d, std=0.1)},
+             "ln2": {"scale": w(d, std=0.1, base=1.0), "bias": w(d, std=0.1)},
+             "qkv": {"kernel": w(d, 3 * d, std=d ** -0.5),
+                     "bias": w(3 * d, std=0.1)},
+             "proj": {"kernel": w(d, d, std=d ** -0.5), "bias": w(d, std=0.1)},
+             "mlp1": {"kernel": w(d, hidden, std=d ** -0.5),
+                      "bias": w(hidden, std=0.1)},
+             "mlp2": {"kernel": w(hidden, d, std=hidden ** -0.5),
+                      "bias": w(d, std=0.1)}}
+    one = [block[m][f] for m, f in vit_block._FIELDS]
+    cases = []
+    for batch, stacked in ((1, True), (16, False)):
+        x = w(batch, 320, d, std=1.0)
+        blocks = depth if stacked else 1
+        weights_ = vit_block._stack(one * blocks, blocks) if stacked else one
+        cases.append((f"{'encoder' if stacked else 'block'} {tuple(x.shape)} "
+                      f"x {blocks} bf16", x, weights_, stacked))
+    return cases
+
+
+def wide_stages(dev) -> dict:
+    """Device us a launch by stage of bf16 kernel 1 at ViT-L's (1, 320,
+    1024) x 24 and kernel 2 at (16, 320, 1024), seeded weights, the plan's
+    form and tiles and (prenormed) the WIDE_NAMED alternatives; beside
+    each product ``torch.matmul``'s device us on the same (M, K) x (K, N)
+    (a CUDA graph of GRAPH_LAUNCHES replayed): the library's time for the
+    product alone, without its LN, bias or epilogue."""
+    d, heads, hidden = WIDE["dim"], WIDE["heads"], WIDE["hidden"]
+    gen = torch.Generator().manual_seed(1)
+
+    def w(*shape, std):
+        return (std * torch.randn(shape, generator=gen)).to(dev, torch.bfloat16)
+
+    products = {"qkv": (d, 3 * d), "proj": (d, d), "mlp1": (d, hidden),
+                "mlp2": (hidden, d)}
+    out = {}
+    for label, x, weights_, stacked in _wide_cases(dev):
+        batch, blocks = x.shape[0], weights_[0].shape[0] if stacked else 1
+        chosen = vit_block._plan_for(x, heads, hidden)
+        plans = [chosen] + ([chosen._replace(warpgroups=g, tiles=t)
+                             for g, t in WIDE_NAMED[batch]]
+                            if chosen.ln == "prenormed" else [])
+        row = {"plan": list(chosen)}
+        for i, p in enumerate(plans):
+            _, launch = vit_block.prepared(x, weights_, heads, stacked, p)
+            got = {"launch_us": _graph_us(launch)}
+            got.update(_by_stage(label, launch, WIDE_STAGES[p.ln], blocks,
+                                 WIDE_REPS))
+            if i == 0:
+                row.update(got)
+            else:
+                row[f"warpgroups {p.warpgroups} tiles {p.tiles}"] = got
+        for name, (k, n) in products.items():
+            a, b = w(batch * 320, k, std=1.0), w(k, n, std=k ** -0.5)
+            c = torch.empty((batch * 320, n), dtype=torch.bfloat16,
+                            device=dev)
+            row[f"matmul {name} ({batch * 320}, {k}) x ({k}, {n}) us"] = \
+                _graph_us(lambda a=a, b=b, c=c: torch.matmul(a, b, out=c))
+        out[label] = row
+    return out
+
+
+# What the cut builds take out of csrc/encoder_mma.cuh's ring products: the
+# wgmma of every step, or the f32 adds of the steps' and chunks' sums.
+_CUT = {
+    "wgmma": ("  if constexpr (BN == 32) wgmma_ss_t_n32(d, da, db, 0);\n"
+              "  else wgmma_ss_t_n64(d, da, db, 0);", "  (void)da;\n  (void)db;"),
+    "adds": ("  for (int i = 0; i < N; ++i) to[i] += from[i];",
+             "  for (int i = 0; i < N; ++i) asm volatile(\"\" :: \"f\"(to[i]), \"f\"(from[i]));")}
+
+
+def _rewritten_builds(builds: dict) -> dict:
+    """``vit_encoder`` built from copies of the sources under ``build/``,
+    ``builds`` = {name: ([(encoder_mma.cuh's statement, its replacement),
+    ...], extra nvcc flags)}, every build compiled at once: {name: loaded
+    library}.  Raises if a statement is no longer in the source once."""
+    with open(os.path.join(cuda_build.CSRC, "encoder_mma.cuh")) as f:
+        shipped = f.read()
+    procs = {}
+    for name, (edits, flags) in builds.items():
+        src = shipped
+        for old, new in edits:
+            if shipped.count(old) != 1:
+                raise RuntimeError(f"encoder_mma.cuh no longer has {old!r} once")
+            src = src.replace(old, new)
+        where = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "rewritten",
+                             name)
+        os.makedirs(where, exist_ok=True)
+        for fn in os.listdir(cuda_build.CSRC):
+            if fn.endswith((".cu", ".cuh")):
+                shutil.copy(os.path.join(cuda_build.CSRC, fn), where)
+        with open(os.path.join(where, "encoder_mma.cuh"), "w") as f:
+            f.write(src)
+        out = os.path.join(where, "libvit_encoder.so")
+        cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", out,
+               os.path.join(where, "vit_encoder.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} build:\n{log}")
+        libs[name] = vit_block.bind(ctypes.CDLL(out))
+    return libs
+
+
+def cut_launches(dev) -> dict:
+    """Device us of one launch (a replayed CUDA graph) of ``wide_stages``'s
+    two cases at the plan, with the shipped kernel and with builds whose
+    ring products leave out their wgmma, their f32 adds, or both (wrong
+    outputs: for the time alone): what the products' copies, tensor-core
+    steps and sums each cost."""
+    builds = {"shipped": ([], []), "no wgmma": ([_CUT["wgmma"]], []),
+              "no adds": ([_CUT["adds"]], []),
+              "no wgmma, no adds": ([_CUT["wgmma"], _CUT["adds"]], [])}
+    cases = _wide_cases(dev)
+    out = {}
+    for name, lib in _rewritten_builds(builds).items():
+        with _library(lib):
+            out[name] = {label: _graph_us(vit_block.prepared(
+                x, weights_, WIDE["heads"], stacked)[1])
+                for label, x, weights_, stacked in cases}
     return out
 
 
@@ -273,43 +452,19 @@ _RSQRT = "rsqrt_rn(__fadd_rn("
 def arith_builds() -> dict:
     """The eight LayerNorm-arithmetic builds of ``vit_encoder``, compiled
     at once: {name: loaded library}."""
-    with open(os.path.join(cuda_build.CSRC, "encoder_mma.cuh")) as f:
-        shipped = f.read()
-    for stmt in (_MEAN, _VAR, _RSQRT):
-        if shipped.count(stmt) != 1:
-            raise RuntimeError(f"encoder_mma.cuh no longer has {stmt!r} once")
-    procs = {}
+    builds = {}
     for div in ("div", "mul"):
         for rn in ("rn", "approx"):
-            src = shipped
+            edits = []
             if div == "mul":
-                src = src.replace(_MEAN, "__fmul_rn(group8_sum(sum), 1.0f / k)")
-                src = src.replace(_VAR, "__fmul_rn(group8_sum(var), 1.0f / k)")
+                edits += [(_MEAN, "__fmul_rn(group8_sum(sum), 1.0f / k)"),
+                          (_VAR, "__fmul_rn(group8_sum(var), 1.0f / k)")]
             if rn == "approx":
-                src = src.replace(_RSQRT, "rsqrtf(__fadd_rn(")
+                edits.append((_RSQRT, "rsqrtf(__fadd_rn("))
             for fmad in ("c", "nc"):
-                name = f"{div}-{rn}-{fmad}"
-                where = os.path.join(os.path.dirname(cuda_build.BUILD_DIR),
-                                     "arith", name)
-                os.makedirs(where, exist_ok=True)
-                for fn in ("vit_encoder.cu", "attention_mma.cuh"):
-                    shutil.copy(os.path.join(cuda_build.CSRC, fn), where)
-                with open(os.path.join(where, "encoder_mma.cuh"), "w") as f:
-                    f.write(src)
-                out = os.path.join(where, "libvit_encoder.so")
-                cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS,
-                       *(["-fmad=false"] if fmad == "nc" else []), "-o", out,
-                       os.path.join(where, "vit_encoder.cu")]
-                procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT,
-                                                text=True), out)
-    libs = {}
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the {name} build:\n{log}")
-        libs[name] = vit_block.bind(ctypes.CDLL(out))
-    return libs
+                builds[f"{div}-{rn}-{fmad}"] = (
+                    edits, ["-fmad=false"] if fmad == "nc" else [])
+    return _rewritten_builds(builds)
 
 
 def lottery(dev, n_clips: int, routes: dict) -> dict:
@@ -375,6 +530,10 @@ def main() -> None:
         print(json.dumps({"tiles": tiles(dev)}), flush=True)
     if "f32" in args:
         print(json.dumps({"f32": f32_stages(dev)}), flush=True)
+    if "wide" in args:
+        print(json.dumps({"wide": wide_stages(dev)}), flush=True)
+    if "cut" in args:
+        print(json.dumps({"cut": cut_launches(dev)}), flush=True)
     for section in ("lottery", "arith"):
         if section not in args:
             continue

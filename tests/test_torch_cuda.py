@@ -913,9 +913,11 @@ def test_wide_widths_stream_and_match_twin(dev, dtype, d, heads):
     # Widths past the resident LN products (D 1024), and padded ones (D 776:
     # bf16 to 832, float32 to 800, head dim 97 to 128 / 104; D 1000 float32
     # to 1024, head dim 125 to 128): the encoder and block kernels as the
-    # plan takes them, and with the streamed form named, against the twin;
-    # where the plan keeps the rows resident the streamed form equals it
-    # bit for bit.  Float32 never launches simt.
+    # plan takes them (bf16 prenormed, float32 streamed where the rows do
+    # not fit), and with the variant's wide form named, against the twin;
+    # the resident form, where it fits, equals the wide one bit for bit,
+    # and where it does not, naming it raises.  Float32 never launches
+    # simt.
     gen = torch.Generator().manual_seed(d + heads)
     blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
     flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
@@ -930,17 +932,24 @@ def test_wide_widths_stream_and_match_twin(dev, dtype, d, heads):
     _check_close(one, vit_block.block_reference(x, blocks[0], heads), dtype)
     assert vit_block.VARIANT_LAUNCHES == dict(
         before, **{rule.variant: before[rule.variant] + 2})
-    streamed, launch = vit_block.prepared(
-        x, vit_block._stack(flat, 2), heads, True,
-        chosen=rule._replace(ln="streamed"))
+    stacked = vit_block._stack(flat, 2)
+    wide, launch = vit_block.prepared(
+        x, stacked, heads, True,
+        chosen=rule._replace(ln=vit_block._WIDE_LN[rule.variant]))
     launch()
     torch.cuda.synchronize()
-    _check_close(streamed, ref, dtype)
-    if rule.ln == "resident":
-        assert torch.equal(streamed, got)
+    _check_close(wide, ref, dtype)
+    assert torch.equal(wide, got)
+    if vit_block._fits(rule.variant, "resident", rule.width or d, rule.tiles,
+                       rule.warpgroups, vit_block.attention.card(dev)[0]):
+        resident, launch = vit_block.prepared(
+            x, stacked, heads, True, chosen=rule._replace(ln="resident"))
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(resident, got)
     else:
         with pytest.raises(ValueError, match="resident LN form"):
-            vit_block.prepared(x, vit_block._stack(flat, 2), heads, True,
+            vit_block.prepared(x, stacked, heads, True,
                                chosen=rule._replace(ln="resident"))
 
 

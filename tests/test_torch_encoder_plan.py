@@ -32,14 +32,18 @@ What a CPU run can say of kernels that run only on the card:
   trajectories, emulation against twin, hold 2 px / 0.02 on 6 of 8 clips:
   a free-running trajectory crosses near-ties, so one clip decides nothing
   (PERF.md, Findings).
-* The streamed LayerNorm products (``Plan.ln == "streamed"``, the widths
-  whose rows do not fit the card's shared memory): their statistics,
-  emulated in the kernels' own order of f32 sums as row_stats_kernel reads
-  x chunk by chunk, equal the resident form's (the same order over the
-  resident tile) bit for bit at every width the resident form takes, in
-  both dtypes' lane groupings; the mma emulation with them is held to the
-  twin at D 1024 and at a padded D 992, and a planted fault (the
-  statistics over the padded width) is caught.
+* The LayerNorm products past the resident form (``Plan.ln``: bf16
+  ``"prenormed"`` above a width of 768, the LN rows written once by
+  ln_rows_kernel; float32 ``"streamed"`` where the rows do not fit the
+  card's shared memory): their statistics, emulated in the kernels' own
+  order of f32 sums as ln_rows_kernel and row_stats_kernel read x chunk by
+  chunk, equal the resident form's (the same order over the resident
+  tile) bit for bit at every width the resident form takes, in both
+  dtypes' lane groupings; the port's plain version of the LN rows
+  (``vit_block.ln_rows_reference``) equals that LayerNorm bit for bit at D
+  992, 1024 and 1280; the mma emulation with them is held to the twin at
+  D 1024 and at a padded D 992, and a planted fault (the statistics over
+  the padded width) is caught.
 * The operand cache: reused across calls, rebuilt after an in-place
   update, bypassed under a gradient.
 * ``ops/attention.py::plan`` pads a head dim that is not a multiple of 8
@@ -121,7 +125,7 @@ def test_plan_n_tile_by_batch():
     (BF16, 96, 2, 384, "mma"),       # small in bf16: dh 48 -> 64, D -> 128
     (BF16, 64, 4, 256, "mma"),       # head dim 16: padded to 32
     (BF16, 96, 3, 384, "mma"),       # head dim 32, D 96 -> 128
-    (BF16, 832, 13, 3328, "mma"),    # D beyond 768: rows resident at N 64
+    (BF16, 832, 13, 3328, "mma"),    # D beyond 768: the LN rows prenormed
     (BF16, 96, 12, 384, "mma"),      # head dim 8 -> 32, D 96 -> 128
     (F32, 24, 2, 96, "tf32x3"),      # head dim 12 -> 16, D 24 -> 32
     (BF16, 288, 2, 1152, "mma"),     # head dim 144 -> 192 (panels), D -> 320
@@ -156,9 +160,11 @@ def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
         assert set(got.tiles) <= {32, 64} and got.warpgroups == 1
     else:
         assert set(got.tiles) <= {16, 32, 64} and got.warpgroups in (1, 2)
-    # Every width here keeps the LN products' rows resident
-    # (tests/test_torch_wide_encoder.py holds the widths that stream).
-    assert got.ln == "resident"
+    # Every width here keeps the LN products' rows resident but bf16 D 832,
+    # past 768, whose LN rows are written once (prenormed;
+    # tests/test_torch_wide_encoder.py holds the wide widths).
+    assert got.ln == ("prenormed" if (dtype, dim) == (BF16, 832)
+                      else "resident")
 
 
 @pytest.mark.parametrize("batch", [1, 16])
@@ -177,9 +183,15 @@ def test_plan_pads_bf16_widths_to_whole_chunks(batch, dim, heads, hidden,
     got = vit_block.plan(batch, 320, dim, heads, hidden, BF16, H100_SMS)
     assert (got.variant, got.pad, got.width, got.mlp) == ("mma", pad, width, mlp)
     rows = -(-batch * 320 // 64)
-    assert got.tiles == vit_block._tiles(rows, heads * (pad or dim // heads),
-                                         width or dim, mlp or hidden,
-                                         H100_SMS, False)
+    inner = heads * (pad or dim // heads)
+    # Each the rule's tile, halved until it divides the product's width
+    # (a 64-wide qkv tile cannot take D 160's 480 columns).
+    assert got.tiles == tuple(vit_block._fit(t, n) for t, n in zip(
+        vit_block._tiles(rows, inner, width or dim, mlp or hidden, H100_SMS,
+                         False),
+        (3 * inner, width or dim, mlp or hidden, width or dim)))
+    assert all(n % t == 0 for t, n in zip(
+        got.tiles, (3 * inner, width or dim, mlp or hidden, width or dim)))
     if dim == 192:
         assert got == vit_block.Plan("mma", (32,) * 4 if batch == 1 else (64,) * 4)
 
@@ -206,11 +218,14 @@ def test_unaligned_input_is_copied():
 
 def test_plan_config_is_the_tiles():
     # The variant's code (the C entries' Variant), the N tiles, the
-    # warpgroups, the LN products' form (0 resident, 1 streamed).
+    # warpgroups, the LN products' form (0 resident, 1 streamed, 2
+    # prenormed).
     assert vit_block.Plan("mma", (32, 64, 32, 64)).config() == (1, 32, 64, 32, 64, 1, 0)
     assert vit_block.Plan("tf32x3", (64,) * 4, 0, 2).config() == (2, 64, 64, 64, 64, 2, 0)
-    assert vit_block.Plan("mma", (64,) * 4, ln="streamed").config() == (
-        1, 64, 64, 64, 64, 1, 1)
+    assert vit_block.Plan("tf32x3", (64,) * 4, ln="streamed").config() == (
+        2, 64, 64, 64, 64, 1, 1)
+    assert vit_block.Plan("mma", (128,) * 4, 0, 2, ln="prenormed").config() == (
+        1, 128, 128, 128, 128, 2, 2)
     assert vit_block.Plan("simt").config() == (0, 0, 0, 0, 0, 1, 0)
 
 
@@ -330,9 +345,10 @@ def _stats_resident(xf, dim, elems=8):
 
 
 def _stats_streamed(xf, dim, elems=8, fault=None):
-    """(mean, rstd) of the streamed form's row_stats_kernel: each lane reads
-    its 16-byte chunks of the row of x from device memory, in the order the
-    chunks come, and sums them as the resident tile's lanes do.
+    """(mean, rstd) of ln_rows_kernel (bf16, prenormed) and row_stats_kernel
+    (float32, streamed): each lane reads its 16-byte chunks of the row of x
+    in the order the chunks come, and sums them as the resident tile's
+    lanes do.
     ``fault="width"``: the statistics over the padded width (zero columns
     in the sums, divided by it), as a launch handed ln_dim = W would take
     them."""
@@ -486,6 +502,26 @@ def test_streamed_ln_statistics_equal_the_resident_ones(dim, width, elems):
             - _layer_norm(x, p, dim).float()).abs().max() <= 2.0 ** -6
 
 
+@pytest.mark.parametrize("dim,width", [(992, 1024), (1024, 1024),
+                                       (1280, 1280)])
+def test_ln_rows_plain_version_equals_the_streamed_statistics_ln(dim, width):
+    # The prenormed form's LN rows (ln_rows_kernel's plain version in the
+    # port) are the LayerNorm with the statistics in the kernels' order,
+    # bit for bit: what the resident form writes into its A tile.
+    gen = torch.Generator().manual_seed(dim)
+    x = 3.0 * torch.randn((2, 9, width), generator=gen) + 0.5
+    x[..., dim:] = 0.0                         # the residual stream's pad
+    x = x.to(BF16)
+    p = {"scale": F.pad(1.0 + 0.1 * torch.randn(dim, generator=gen),
+                        (0, width - dim)).to(BF16),
+         "bias": F.pad(0.1 * torch.randn(dim, generator=gen),
+                       (0, width - dim)).to(BF16)}
+    got = vit_block.ln_rows_reference(x, p["scale"], p["bias"], dim)
+    want = _layer_norm(x, p, dim, lambda t, n: _stats_streamed(t, n))
+    assert got.dtype == BF16 and torch.equal(got, want)
+    assert torch.equal(got[..., dim:], torch.zeros_like(got[..., dim:]))
+
+
 def _wide_blocks(d, depth, seed):
     gen = torch.Generator().manual_seed(seed)
 
@@ -502,12 +538,14 @@ def _wide_blocks(d, depth, seed):
             for _ in range(depth)]
 
 
-# The streamed emulation against the twin at ViT-L's width (D 1024, 16
+# The prenormed emulation against the twin at ViT-L's width (D 1024, 16
 # heads) and at D 992 (31 heads of 32, run as D 1024), 20 tokens, depth 2,
 # seeded weights: read max|d| / max|twin| 0.0063 and 0.0070, mean|d|
 # 0.0025 and 0.0027 (bounds: ENC_REL_TOL and WIDE_MEAN_TOL); the planted
 # fault, the statistics over the padded width (ln_dim = W), reads 0.014 and
-# 0.024 at D 992: caught by both.
+# 0.024 at D 992: caught by both.  The LN rows take _stats_streamed's
+# statistics, which ln_rows_kernel's plain version equals bit for bit
+# (test_ln_rows_plain_version_equals_the_streamed_statistics_ln).
 WIDE_MEAN_TOL = 0.005
 
 
@@ -519,9 +557,10 @@ def test_streamed_ln_emulation_against_twin(dim, heads, fault):
     x = (2.0 * torch.randn((1, 20, dim), generator=gen)).to(BF16)
     twin = vit_block.encoder_reference(x, blocks, heads)
     flat = [b[m][f] for b in blocks for m, f in vit_block._FIELDS]
-    # At the tracker's 320 tokens the card streams these widths.
+    # At the tracker's 320 tokens the card writes these widths' LN rows
+    # once (prenormed).
     chosen = vit_block.plan(1, 320, dim, heads, 4 * dim, BF16, H100_SMS)
-    assert chosen.ln == "streamed" and (chosen.width or dim) == 1024
+    assert chosen.ln == "prenormed" and (chosen.width or dim) == 1024
     ops = vit_block._operands(flat, 2, BF16, heads)
     padded = vit_block._blocks_from_flat(
         [ops[f][i] for i in range(2) for f in range(len(vit_block._FIELDS))], 2)
@@ -535,6 +574,19 @@ def test_streamed_ln_emulation_against_twin(dim, heads, fault):
         assert rel <= ENC_REL_TOL and mean <= WIDE_MEAN_TOL, (rel, mean)
     else:
         assert rel > ENC_REL_TOL and mean > WIDE_MEAN_TOL, (rel, mean)
+
+
+def test_profile_rewrites_find_their_statements():
+    # profile_encoder.py's cut and arith builds rewrite statements of
+    # csrc/encoder_mma.cuh in a copy; each must stand there once (the
+    # builds raise on the card otherwise).
+    from gstreamer_vit_tracker_tpu_torch import profile_encoder as pe
+
+    with open(f"{pe.cuda_build.CSRC}/encoder_mma.cuh") as f:
+        src = f.read()
+    for old in [old for old, _ in pe._CUT.values()] + [pe._MEAN, pe._VAR,
+                                                        pe._RSQRT]:
+        assert src.count(old) == 1, old
 
 
 @pytest.mark.parametrize("b,s,d", [(2, 320, 64), (1, 70, 32), (3, 129, 128)])

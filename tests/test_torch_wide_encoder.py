@@ -2,8 +2,10 @@
 products (ViT-L's D 1024 and ViT-H's D 1280, 16 heads) and kernel 5 above
 D 1024, against the JAX package on the CPU.
 
-On the card these widths run the streamed form of the LN products
-(``ops/vit_block.py::plan``, ``Plan.ln``); on the CPU each wrapper is its
+On the card these widths run the prenormed form of the LN products in
+bf16 (the LN rows written once, then every product through a TMA ring)
+and the streamed form in float32 (``ops/vit_block.py::plan``,
+``Plan.ln``); on the CPU each wrapper is its
 plain twin, which these tests hold to JAX at small sizes: template 32,
 search 64, patch 16 (20 tokens), depth 1, seeded weights (numpy, carried
 to the port by ``models/weights.py::params_from_flat``).
@@ -17,10 +19,13 @@ to the port by ``models/weights.py::params_from_flat``).
 * ``core.update`` step by step, each port step from JAX's state before it:
   float32 within 1e-2 px / 1e-4 (``tests/test_torch_tracker.py``), bf16
   within 1 px / 0.01 (``tests/test_torch_small_bf16.py``).
-* ``plan`` at D 776 to 2048 in both dtypes: no raise, ``tf32x3`` (never
-  ``simt``) for every float32 width, the streamed form exactly where the
-  resident one does not fit the H100's shared memory; kernel 5's plan at D
-  1280 and 2048.
+* ``plan`` at D 776 to 4096 in both dtypes, batch 1 and 16: no raise;
+  bf16 ``mma`` prenormed at every width (all past 768), its ring's shared
+  memory within the H100's 232,448 bytes at the tiles and warpgroups it
+  picks; ``tf32x3``
+  (never ``simt``) for every float32 width, the streamed form exactly
+  where the resident one does not fit; kernel 5's plan at D 1280 and
+  2048.
 """
 
 import dataclasses
@@ -172,16 +177,36 @@ def test_update_step_by_step_from_jax_state(wide_model, dtype):
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
-@pytest.mark.parametrize("dim", [776, 1024, 1152, 1280, 1536, 2048])
+@pytest.mark.parametrize("dim", [776, 832, 1024, 1152, 1280, 1536, 2048, 4096])
 def test_plan_takes_every_wide_width(dim, dtype):
-    # No raise at any of these widths; float32 always tf32x3 (simt by name
-    # only); the LN products stream exactly where their resident rows do
-    # not fit the H100's opt-in shared memory at the plan's N tiles.
-    heads = 8 if dim == 776 else 16
+    # No raise at any of these widths.  bf16: mma prenormed at every one
+    # (all past 768), the ring of every product within the H100's opt-in
+    # shared memory at its N tile and the plan's warpgroups (two once
+    # 128-row CTAs fill the card: batch 16).  float32: always tf32x3 (simt
+    # by name only), the LN products streamed exactly where their resident
+    # rows do not fit at the plan's N tiles.
+    heads = 8 if dim == 776 else 13 if dim == 832 else 16
     for batch in (1, 16):
         got = vit_block.plan(batch, 320, dim, heads, 4 * dim, dtype, H100_SMS)
-        assert got.variant == ("mma" if dtype == BF16 else "tf32x3"), got
         width = got.width or dim
+        if dtype == BF16:
+            assert (got.variant, got.ln) == ("mma", "prenormed"), got
+            assert all(vit_block.ln_smem_bytes("mma", "prenormed", width, t,
+                                               got.warpgroups) <= H100_OPTIN
+                       for t in got.tiles), got
+            assert got.warpgroups == vit_block._ring_warpgroups(
+                batch * 320, width, H100_SMS), got
+            if dim == 1024:        # ViT-L: two at batch 16, one at batch 1
+                assert got.warpgroups == (2 if batch == 16 else 1), got
+            # N tiles of 128 with two warpgroups, 64 with one, each halved
+            # until it divides its product's width.
+            inner = heads * (got.pad or dim // heads)
+            cols = (3 * inner, width, got.mlp or 4 * dim, width)
+            assert got.tiles == tuple(
+                vit_block._fit(128 if got.warpgroups == 2 else 64, n)
+                for n in cols), got
+            continue
+        assert got.variant == "tf32x3", got
         resident = [vit_block.ln_smem_bytes(got.variant, "resident", width, t,
                                             got.warpgroups)
                     for t in (got.tiles[0], got.tiles[2])]
@@ -192,10 +217,11 @@ def test_plan_takes_every_wide_width(dim, dtype):
             <= H100_OPTIN
         if dim in (1024, 1280):    # ViT-L's and ViT-H's widths stream
             assert got.ln == "streamed", got
-    # The streamed ring does not grow with the width; the resident rows do.
-    for variant in ("mma", "tf32x3"):
-        assert vit_block.ln_smem_bytes(variant, "streamed", 1024, 64) == \
-            vit_block.ln_smem_bytes(variant, "streamed", 8192, 64)
+    # The rings do not grow with the width; the resident rows do.
+    assert vit_block.ln_smem_bytes("tf32x3", "streamed", 1024, 64) == \
+        vit_block.ln_smem_bytes("tf32x3", "streamed", 8192, 64)
+    assert vit_block.ln_smem_bytes("mma", "prenormed", 1024, 128, 2) == \
+        vit_block.ln_smem_bytes("mma", "prenormed", 8192, 128, 2) == 197728
     assert vit_block.ln_smem_bytes("mma", "resident", 1024, 64) == 263168
     assert vit_block.ln_smem_bytes("mma", "resident", 768, 64) == 197632
 
