@@ -1446,24 +1446,38 @@ def attention_phase(dev, cfg, small):
     attention_case(2, 1200, 32, bf16, dev, "flash", "mma", timed=False)
     attention_case(4, 80, 48, bf16, dev, "single", "mma", timed=False)  # dh 48 -> 64
     single["multihead"] = multihead_case(dev, cfg)
-    # The shared-memory sizes the rule is decided on are the kernels' own.
+    # The shared-memory sizes the rule is decided on are the kernels' own
+    # (the bf16 panel kernels' at G panels of o a CTA, and their ring).
     lib = attention._library()
-    for route, variant, kb, st, wg, s, dh, eb in (
-            ("single", "mma", 64, 0, 1, 320, 64, 2),
-            ("flash", "mma", 128, 2, 2, 1088, 64, 2),
-            ("flash", "mma", 64, 3, 1, 1088, 32, 2),
-            ("single", "simt", 0, 0, 1, 320, 64, 2),
-            ("flash", "simt", 0, 0, 1, 1088, 64, 4),
-            ("single", "tf32x3", 64, 0, 1, 80, 48, 4),
-            ("single", "tf32x3", 64, 0, 1, 128, 64, 4),
-            ("flash", "tf32x3", 64, 2, 1, 320, 64, 4),
-            ("flash", "tf32x3", 64, 2, 1, 1088, 128, 4)):
+    for route, variant, kb, st, wg, g, s, dh, eb in (
+            ("single", "mma", 64, 0, 1, 0, 320, 64, 2),
+            ("flash", "mma", 128, 2, 2, 0, 1088, 64, 2),
+            ("flash", "mma", 64, 3, 1, 0, 1088, 32, 2),
+            ("single", "mma", 64, 0, 1, 4, 100, 256, 2),
+            ("single", "mma", 64, 0, 1, 1, 320, 192, 2),
+            ("flash", "mma", 64, 9, 1, 4, 320, 256, 2),
+            ("flash", "mma", 64, 10, 1, 3, 320, 192, 2),
+            ("flash", "mma", 64, 12, 1, 4, 320, 1024, 2),
+            ("single", "simt", 0, 0, 1, 0, 320, 64, 2),
+            ("flash", "simt", 0, 0, 1, 0, 1088, 64, 4),
+            ("single", "tf32x3", 64, 0, 1, 0, 80, 48, 4),
+            ("single", "tf32x3", 64, 0, 1, 0, 128, 64, 4),
+            ("flash", "tf32x3", 64, 2, 1, 0, 320, 64, 4),
+            ("flash", "tf32x3", 64, 2, 1, 0, 1088, 128, 4),
+            ("flash", "tf32x3", 64, 2, 1, 0, 320, 256, 4)):
         want = lib.attention_smem(route == "single",
                                   attention._VARIANT_CODES[variant], kb, st,
-                                  wg, s, dh, eb)
-        if attention.smem_bytes(route, variant, s, dh, eb, kb, st, wg) != want:
-            raise AssertionError(f"smem_bytes{(route, variant, kb, st, wg, s, dh)}"
+                                  wg, g, s, dh, eb)
+        if attention.smem_bytes(route, variant, s, dh, eb, kb, st, wg,
+                                g) != want:
+            raise AssertionError(f"smem_bytes{(route, variant, kb, st, wg, g, s, dh)}"
                                  f" != the kernel's {want}")
+    optin = attention.card(dev)[0]
+    for panels, g in ((3, 3), (3, 1), (4, 4), (4, 2), (4, 1), (16, 4), (16, 1)):
+        want = lib.attention_ring_stages(panels, g, optin)
+        if attention.panel_stages(panels, g, optin) != want:
+            raise AssertionError(f"panel_stages({panels}, {g}) != the "
+                                 f"kernel's {want}")
     return single, flash
 
 
@@ -3054,8 +3068,19 @@ def panel_attention_case(bh, s, dh, dtype, dev, route=None,
     plain = attention.attention_reference(q, k, v)
     chosen = attention._plan_for(dev, s, dh, dtype, bh)
     if route is not None and route != chosen.route:
-        chosen = chosen._replace(route=route,
-                                 stages=0 if route == "single" else 2)
+        stages = 0 if route == "single" else 2
+        if chosen.variant == "mma":
+            # bf16 by name: flash at the plan's G and panel_stages' ring;
+            # single at the largest G whose CTA holds every key.
+            panels, optin = (chosen.pad or dh) // 64, attention.card(dev)[0]
+            if route == "flash":
+                stages = attention.panel_stages(panels, chosen.group, optin)
+            else:
+                chosen = chosen._replace(group=max(
+                    g for g in range(1, 5) if panels % g == 0
+                    and attention.smem_bytes("single", "mma", s, panels * 64,
+                                             2, 64, 0, 1, g) <= optin))
+        chosen = chosen._replace(route=route, stages=stages)
     before = attention.SINGLE_LAUNCHES + attention.FLASH_LAUNCHES
     if route is None:
         out = attention.flash_attention(q, k, v)
@@ -3077,7 +3102,8 @@ def panel_attention_case(bh, s, dh, dtype, dev, route=None,
             or not err <= tol:
         raise AssertionError(f"{name} disagrees with attention_reference")
     res = {"shape": [bh, s, dh], "route": chosen.route,
-           "variant": chosen.variant, "pad": chosen.pad, "max_abs_err": err}
+           "variant": chosen.variant, "pad": chosen.pad, "plan": list(chosen),
+           "max_abs_err": err}
     if not timed:
         return res
     _, launch = attention.prepared(q, k, v, chosen=chosen)
@@ -3117,9 +3143,9 @@ def panel_attention(dev) -> dict:
     each dh the plan's route at S 320 (Model A's shapes: bf16 its 16-slot
     tick's (64, 320, dh), float32 its training batch's (16, 320, dh); flash
     at every one) timed; at a short S both routes, the plan's and the other
-    by name where its CTA fits the card, single timed: bf16 at S 100 (the
-    plan's single, flash by name), float32 at S 64 (the plan's flash,
-    single by name)."""
+    by name where its CTA fits the card, both timed: bf16 at S 100 (the
+    plan's single, flash by name; at dh 256 the plan's flash at G 2, single
+    by name at G 4), float32 at S 64 (the plan's flash, single by name)."""
     from gstreamer_vit_tracker_tpu_torch.ops import attention
 
     optin = attention.card(dev)[0]
@@ -3135,13 +3161,16 @@ def panel_attention(dev) -> dict:
             plan = attention._plan_for(dev, short, dh, dtype, bh)
             for route in ("single", "flash"):
                 pad = plan.pad or dh
+                stages = 0 if route == "single" else (
+                    attention.panel_stages(pad // 64, plan.group, optin)
+                    if plan.variant == "mma" else 2)
                 if route == plan.route or attention.smem_bytes(
-                        route, plan.variant, short, pad, 0, 64,
-                        0 if route == "single" else 2) <= optin:
+                        route, plan.variant, short, pad, 0, 64, stages, 1,
+                        plan.group) <= optin:
                     cases.append(panel_attention_case(
                         bh, short, dh, dtype, dev,
                         None if route == plan.route else route,
-                        timed=route == "single"))
+                        timed=True))
             res[f"dh{dh}_{name}"] = cases
     return res
 

@@ -75,9 +75,12 @@
 // rows for single, 8 x 4 and 128-key blocks for flash).
 //
 // Above a head dim of 128 both tensor-core variants run the panel kernels
-// (their section below): a CTA owns one 64-column panel of o and sums its
-// scores over the panels of q and k, so its registers and shared memory are
-// one panel's whatever the head dim.
+// (their section below): the head dim in 64-column panels.  "mma" holds q
+// resident and G panels of o a CTA, its K and V coming through a TMA ring
+// (csrc/panel_ring.cuh), so each score is taken dh / (64 G) times in all;
+// "tf32x3" owns one panel of o a CTA and sums its scores over the panels of
+// q and k, so its registers and shared memory are one panel's whatever the
+// head dim.
 //
 // Which (dtype, dh) takes which variant, and which lengths take which kernel,
 // is decided by ops/attention.py::plan before the launch; the entries here
@@ -93,6 +96,7 @@
 
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
+#include "panel_ring.cuh"
 
 namespace {
 
@@ -658,99 +662,155 @@ attention_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict
 
 // ---------------------------------------------------------------------------
 // Head dims above 128, both variants: the head dim in panels of 64 columns.
-// CTA = one warpgroup = (64 query rows, batch, head, one 64-column panel of
-// o); blockIdx.x runs over tiles x batch x heads x panels, the panels fastest
-// (the CTAs that read the same q and k rows run side by side).  A key
-// block's scores are summed over the panels of q and k, one panel pair at a
-// time, into the score accumulator; once the last pair is in, the block
-// takes the online softmax of a head dim of 64 (Softmax::update) and P.V
-// adds the CTA's own V panel.  Every CTA takes every score its panel needs,
-// so a head dim of P panels computes its scores P times over: the price of
-// holding a CTA's registers and shared memory to one panel whatever the
-// head dim (o of 64 rows x dh in f32 is dh / 2 registers a thread, 128 at
-// dh 256, and ModelConfig(num_heads=1) at D 1024 has dh 1024).  Keeping o
-// in shared memory instead grows with dh just the same.
-//   SINGLE: every q panel, every key block's k panels and its V panel of
-//   the CTA resident at once, one wait (the single kernels' design; the plan
-//   takes it while two such CTAs fit an SM); else a ring of two stages, a
-//   stage one q panel, one k panel and, on a key block's last panel, the V
-//   panel, the next step's copies in flight while one is computed.
-// "mma" takes dh a multiple of 64 (ops/attention.py zero-pads to one);
-// "tf32x3" a multiple of 8, a ragged last panel zero-filled in shared memory
-// and its columns past dh not stored.
+//
+// "mma" (bf16, dh a multiple of 64; ops/attention.py zero-pads to one):
+// attention_panels_mma_kernel<G, PC>, a CTA of csrc/panel_ring.cuh's two
+// warpgroups = (64 query rows, batch, head, G panels op0 .. op0 + G - 1 of
+// o); blockIdx.x runs over tiles x batch x heads x P / G groups, the groups
+// fastest (the CTAs that read the same q and k rows run side by side).  q
+// (P = dh / 64 panels) stays resident; each key block's scores are taken
+// once, a wgmma chain over the P panel pairs of q and k (one k panel a ring
+// stage, freed as soon as its products are read), then the online softmax
+// (Softmax<64 G>::update) adds P.V of the CTA's G v panels to its G panels
+// of o in registers.  So the scores of a row are computed P / G times in
+// all, once a CTA, where the design before this one (a CTA a panel of o)
+// computed them P times and copied q from L2 at every step; G = 4 at dh 256
+// (four 64-column panels: 128 accumulator registers a thread of o) turns
+// 16.8 GFLOP at (64, 320, 256) into 6.7.  G (a divisor of P up to 4) is the
+// plan's, and so is the ring's depth: the flash kernel's from
+// panel::ring_stages (two CTAs an SM where they fit), the single kernel's
+// every load of the walk (every key resident, nothing waits for a stage).
+// The arithmetic is the tile kernels' (Softmax: scores, update, store).
+// "tf32x3" (float32, dh a multiple of 8): a CTA = one warpgroup = one
+// 64-column panel of o, its scores summed over the panels of q and k
+// (attention_tf32.cuh::panel_cta), a ragged last panel zero-filled in
+// shared memory and its columns past dh not stored.
 // ---------------------------------------------------------------------------
 
-constexpr int kPanelKeys = 64;   // keys a block of the panel kernels
+constexpr int kPanelKeys = panel::kKeys;   // keys a block of the panel kernels
 
-template <bool SINGLE>
-__global__ void __launch_bounds__(mma::kThreads)
-attention_panels_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ out, Strides st,
-                            int S, int heads, int tiles, int panels, float c) {
-  using T = mma::Tile<64>;
+// PC: the panels of the head dim as a constant (3 and 4: dh 136-192 and
+// 256), or 0 (any, `panels` at run time).  With a constant, a block's
+// scores are one chain of 4 PC wgmma started once its k panels have landed,
+// and block j + 1's chain is started before block j's softmax and P.V, so
+// the tensor cores take it while the warpgroup computes exponentials (the
+// ring then holds block j's v panels and block j + 1's k panels at once: at
+// least G + PC stages); at run time, a panel's four products at a time.
+// Built for (G, PC) = (3, 3) and (2, 4).  At G = 4 (dh 256) the run-time
+// form measured fastest, its softmax hidden under the other CTA of the SM:
+// the overlap spilled (a second score buffer beside o's 128 registers does
+// not fit 216), ran slower one CTA an SM with 255 registers, and so did a
+// block's P.V sent with the next chain (the ring of two CTAs an SM holds
+// too few stages ahead for a block's v panels and the next k panels).
+template <int G, int PC>
+__global__ void __launch_bounds__(panel::kThreads, panel::kCtasPerSm)
+attention_panels_mma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+                            Strides st, int S, int heads, int tiles, int panels_arg, int stages,
+                            float c) {
   constexpr int KB = kPanelKeys;
-  constexpr uint32_t kQBytes = T::bytes(mma::kTileRows), kKBytes = T::bytes(KB);
+  using P64 = mma::Tile<64>;
   extern __shared__ __align__(16) unsigned char raw[];
   unsigned char* base = aligned_smem(raw);
-  const uint32_t smem0 = mma::smem_addr(base);
-  const int blocks = (S + KB - 1) / KB, steps = blocks * panels;
-  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
+  const int panels = PC > 0 ? PC : panels_arg;
+  const panel::Ring ring = panel::Ring::setup(base, panels, stages);
+  const int groups = panels / G;
+  const int op0 = blockIdx.x % groups * G, rest = blockIdx.x / groups;
   const int bh = rest / tiles, q0 = (rest - bh * tiles) * mma::kTileRows;
   const int b = bh / heads, h = bh - b * heads;
-  q += b * st.q[0] + h * st.q[1];
-  k += b * st.k[0] + h * st.k[1];
-  v += b * st.v[0] + h * st.v[1];
-  // The q, k and V tiles of step t = j . panels + p (key block j, panel p).
-  const auto tiles_of = [&](int t, uint32_t& qa, uint32_t& ka, uint32_t& va) {
-    const int j = t / panels, p = t - j * panels;
-    if constexpr (SINGLE) {
-      qa = smem0 + p * kQBytes;
-      ka = smem0 + panels * kQBytes + t * kKBytes;
-      va = smem0 + panels * kQBytes + (steps + j) * kKBytes;
-    } else {
-      qa = smem0 + (t & 1) * (kQBytes + 2 * kKBytes);
-      ka = qa + kQBytes;
-      va = ka + kKBytes;
+  const int blocks = (S + KB - 1) / KB, per_block = panels + G;
+
+  if (threadIdx.x >= mma::kThreads) {          // the producer warpgroup
+    panel::producer_registers();
+    if (threadIdx.x == mma::kThreads) {
+      ring.load_q(panels, [&](uint32_t dst, uint32_t bar, int p) {
+        panel::tma_load(dst, &q_map, bar, p * 64, q0, h, b);
+      });
+      // Key block j: its k panels 0 .. P - 1, then v panels op0 .. op0 + G - 1.
+      for (int g = 0; g < blocks * per_block; ++g) {
+        const int j = g / per_block, i = g - j * per_block;
+        ring.load(g, [&](uint32_t dst, uint32_t bar) {
+          if (i < panels) panel::tma_load(dst, &k_map, bar, i * 64, j * KB, h, b);
+          else panel::tma_load(dst, &v_map, bar, (op0 + i - panels) * 64, j * KB, h, b);
+        });
+      }
     }
-  };
-  const auto fill = [&](int t) {
-    const int j = t / panels, p = t - j * panels;
-    uint32_t qa, ka, va;
-    tiles_of(t, qa, ka, va);
-    if (!SINGLE || j == 0)
-      T::template fill<mma::kTileRows, mma::kThreads>(qa, q + p * 64, st.q[2], q0, S);
-    T::template fill<KB, mma::kThreads>(ka, k + p * 64, st.k[2], j * KB, S);
-    if (p == panels - 1) T::template fill<KB, mma::kThreads>(va, v + op * 64, st.v[2], j * KB, S);
-  };
-  if constexpr (SINGLE) {
-    for (int t = 0; t < steps; ++t) fill(t);
-    mma::cp_async_commit();
-    mma::cp_async_wait<0>();
-    mma::fence_async_proxy();
-    __syncthreads();
-  } else {
-    fill(0);
-    mma::cp_async_commit();
+    return;
   }
 
-  mma::Softmax<64, KB> sm;
+  panel::consumer_registers();
+  ring.wait_q();
+  mma::Softmax<64 * G, KB> sm;
   sm.init();
-  float s[KB / 2];
-  for (int t = 0; t < steps; ++t) {
-    if constexpr (!SINGLE) {
-      mma::cp_async_wait<0>();                 // step t has landed
-      mma::fence_async_proxy();
-      __syncthreads();                         // ... for all; the other stage is free
-      if (t + 1 < steps) fill(t + 1);
-      mma::cp_async_commit();
+  if constexpr (PC == 0) {
+    float s[KB / 2];
+    for (int j = 0, g = 0; j < blocks; ++j, g += per_block) {
+      for (int p = 0; p < panels; ++p) {
+        mma::Softmax<64, KB>::scores(s, ring.q_panel(p), ring.take(g + p), p != 0);
+        ring.give(g + p);
+      }
+      uint32_t va[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) va[i] = ring.take(g + panels + i);
+      sm.update(s, va, j * KB, S, c);
+#pragma unroll
+      for (int i = 0; i < G; ++i) ring.give(g + panels + i);
     }
-    const int j = t / panels, p = t - j * panels;
-    uint32_t qa, ka, va;
-    tiles_of(t, qa, ka, va);
-    sm.scores(s, qa, ka, p != 0);
-    if (p == panels - 1) sm.update(s, va, j * KB, S, c);
+  } else {
+    // Block j's scores into acc: its PC k panels (the loads from g on), once
+    // all have landed, as one chain, committed and not waited for.
+    const auto start_chain = [&](float (&acc)[KB / 2], int g) {
+      uint32_t ka[PC];
+#pragma unroll
+      for (int p = 0; p < PC; ++p) ka[p] = ring.take(g + p);
+      mma::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4 * PC; ++ks)
+        mma::wgmma_ss_n64(acc, P64::descriptor(ring.q_panel(ks / 4) + ks % 4 * 32, 16),
+                          P64::descriptor(ka[ks / 4] + ks % 4 * 32, 16), ks != 0);
+      mma::wgmma_commit();
+    };
+    const auto give_k = [&](int g) {
+#pragma unroll
+      for (int p = 0; p < PC; ++p) ring.give(g + p);
+    };
+    // Block j (scores in cur, loads from g on): block j + 1's chain into nxt
+    // unless j is the last, then the softmax and P.V of block j.
+    const auto block = [&](float (&cur)[KB / 2], float (&nxt)[KB / 2], int j, int g, bool last) {
+      uint32_t va[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) va[i] = ring.take(g + PC + i);
+      if (last) {
+        sm.update(cur, va, j * KB, S, c);
+      } else {
+        start_chain(nxt, g + per_block);
+        sm.template update<false>(cur, va, j * KB, S, c);   // waits for nxt too
+        mma::fence_registers(nxt);
+        give_k(g + per_block);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) ring.give(g + PC + i);
+    };
+    float sa[KB / 2], sb[KB / 2];
+    start_chain(sa, 0);
+    mma::wgmma_wait();
+    mma::fence_registers(sa);
+    give_k(0);
+    int j = 0;
+    for (; j + 2 < blocks; j += 2) {
+      block(sa, sb, j, j * per_block, false);
+      block(sb, sa, j + 1, (j + 1) * per_block, false);
+    }
+    if (j + 2 == blocks) {
+      block(sa, sb, j, j * per_block, false);
+      block(sb, sa, j + 1, (j + 1) * per_block, true);
+    } else {
+      block(sa, sb, j, j * per_block, true);
+    }
   }
-  sm.store(base, out + b * st.o[0] + h * st.o[1] + op * 64, st.o[2], q0, S);
+  // o / l through the q panels (no product reads them any more).
+  sm.store(base, out + b * st.o[0] + h * st.o[1] + op0 * 64, st.o[2], q0, S);
 }
 
 template <bool SINGLE>
@@ -923,14 +983,12 @@ cudaError_t launch_tf32_dh(bool single, const Args& a) {
   }
 }
 
-// Dynamic shared memory of one panel CTA at head dim dh ("mma": a multiple
-// of 64) and length S: SINGLE every q panel, every key block's k panels and
-// one V panel of each; else two stages of a q, a k and a V panel.
-size_t mma_panels_smem_bytes(bool single, int S, int dh) {
-  const size_t panels = dh / 64, keys = round_up(S, kPanelKeys);
-  const size_t rows = single ? mma::kTileRows * panels + keys * panels + keys
-                             : 2 * (mma::kTileRows + 2 * kPanelKeys);
-  return (size_t)kAlign + rows * 64 * sizeof(bf16);
+// Dynamic shared memory of one "mma" panel CTA at head dim dh (a multiple
+// of 64) and length S with G = group panels of o: its q panels and a ring
+// of `stages` panels, or (single) of every load of the walk.
+size_t mma_panels_smem_bytes(bool single, int S, int dh, int group, int stages) {
+  const int panels = dh / 64, blocks = (S + kPanelKeys - 1) / kPanelKeys;
+  return panel::smem_bytes(panels, single ? blocks * (panels + group) : stages);
 }
 
 size_t tf32_panels_smem_bytes(bool single, int S, int dh) {
@@ -941,49 +999,93 @@ size_t tf32_panels_smem_bytes(bool single, int S, int dh) {
   return tf32x3::tile_bytes(rows, tf32x3::kPanel);
 }
 
-// One panel kernel: tiles x batch x heads x panels CTAs of one warpgroup.
-template <typename E, typename K>
-cudaError_t launch_panel_kernel(K kernel, int (&allowed)[kMaxDevices], const Args& a,
-                                size_t smem, int last) {
+// "tf32x3"'s panel kernel: tiles x batch x heads x panels CTAs of one
+// warpgroup.
+template <bool SINGLE>
+cudaError_t launch_panels_tf32(const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = attention_panels_tf32_kernel<SINGLE>;
+  const size_t smem = tf32_panels_smem_bytes(SINGLE, a.S, a.dh);
   const int tiles = (a.S + mma::kTileRows - 1) / mma::kTileRows;
   const long long grid = (long long)tiles * a.batch * a.heads * ((a.dh + 63) / 64);
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   kernel<<<(int)grid, mma::kThreads, smem, a.stream>>>(
-      static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
-      static_cast<E*>(a.out), a.st, a.S, a.heads, tiles, last,
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.st, a.S, a.heads, tiles,
+      a.dh, 1.4426950408889634f / sqrtf((float)a.scale_dh));
+  return cudaGetLastError();
+}
+
+// One operand of a "mma" panel launch, (batch, heads, S, dh) at its element
+// strides st (batch, head, row), as a TMA map of one 64-key x 64-column
+// panel a box.
+cudaError_t panel_map(CUtensorMap* map, const void* base, const long long (&st)[3],
+                      const Args& a) {
+  const cuuint64_t dims[4] = {(cuuint64_t)a.dh, (cuuint64_t)a.S, (cuuint64_t)a.heads,
+                              (cuuint64_t)a.batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * sizeof(bf16),
+                                 (cuuint64_t)st[1] * sizeof(bf16),
+                                 (cuuint64_t)st[0] * sizeof(bf16)};
+  const cuuint32_t box[4] = {64, (cuuint32_t)kPanelKeys, 1, 1};
+  return panel::encode_map(map, base, 4, dims, strides, box);
+}
+
+// "mma" above a head dim of 128: tiles x batch x heads x P / G CTAs of
+// attention_panels_mma_kernel<G, PC>, a ring of `stages` panels (flash) or
+// of every load (single).
+template <int G, int PC>
+cudaError_t launch_panels_mma(bool single, int stages, const Args& a) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = attention_panels_mma_kernel<G, PC>;
+  const int panels = a.dh / 64, blocks = (a.S + kPanelKeys - 1) / kPanelKeys;
+  const int ring = single ? blocks * (panels + G) : stages;
+  if (ring < (PC > 0 ? PC + G : G + 1)) return cudaErrorInvalidValue;
+  const size_t smem = panel::smem_bytes(panels, ring);
+  const int tiles = (a.S + mma::kTileRows - 1) / mma::kTileRows;
+  const long long grid = (long long)tiles * a.batch * a.heads * (panels / G);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map;
+  RETURN_IF_ERROR(panel_map(&q_map, a.q, a.st.q, a));
+  RETURN_IF_ERROR(panel_map(&k_map, a.k, a.st.k, a));
+  RETURN_IF_ERROR(panel_map(&v_map, a.v, a.st.v, a));
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  kernel<<<(int)grid, panel::kThreads, smem, a.stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(a.out), a.st, a.S, a.heads, tiles, panels, ring,
       1.4426950408889634f / sqrtf((float)a.scale_dh));
   return cudaGetLastError();
 }
 
-template <bool SINGLE>
-cudaError_t launch_panels_mma(const Args& a) {
-  static int allowed[kMaxDevices] = {};
-  return launch_panel_kernel<bf16>(attention_panels_mma_kernel<SINGLE>, allowed, a,
-                                   mma_panels_smem_bytes(SINGLE, a.S, a.dh), a.dh / 64);
-}
-
-template <bool SINGLE>
-cudaError_t launch_panels_tf32(const Args& a) {
-  static int allowed[kMaxDevices] = {};
-  return launch_panel_kernel<float>(attention_panels_tf32_kernel<SINGLE>, allowed, a,
-                                    tf32_panels_smem_bytes(SINGLE, a.S, a.dh), a.dh);
-}
-
-// A head dim above kMaxTileDh: 64-key blocks, one warpgroup, the single
-// kernel (stages 0) or a ring of two (stages 2).
+// A head dim above kMaxTileDh: 64-key blocks.  "mma": G = group panels of o
+// a CTA (a divisor of dh / 64 up to 4), the single kernel (stages 0) or a
+// ring of at least G + 1 stages (G + dh / 64 at dh 192 and 256, whose
+// kernels hold a block's v panels and the next block's k panels at once); "tf32x3": one warpgroup, group 0, the
+// single kernel (stages 0) or a ring of two (stages 2).
 cudaError_t launch_panels(bool single, int variant, int kb, int stages, int warpgroups,
-                          const Args& a) {
-  if (kb != kPanelKeys || warpgroups != 1 || stages != (single ? 0 : 2))
+                          int group, const Args& a) {
+  if (kb != kPanelKeys || warpgroups != 1) return cudaErrorInvalidValue;
+  if (variant == 2) {
+    if (group != 0 || stages != (single ? 0 : 2)) return cudaErrorInvalidValue;
+    return single ? launch_panels_tf32<true>(a) : launch_panels_tf32<false>(a);
+  }
+  const int panels = a.dh / 64;
+  if (group < 1 || group > 4 || panels % group || (single ? stages != 0 : stages <= group))
     return cudaErrorInvalidValue;
-  if (variant == 1) return single ? launch_panels_mma<true>(a) : launch_panels_mma<false>(a);
-  return single ? launch_panels_tf32<true>(a) : launch_panels_tf32<false>(a);
+  if (panels == 3 && group == 3) return launch_panels_mma<3, 3>(single, stages, a);
+  if (panels == 4 && group == 2) return launch_panels_mma<2, 4>(single, stages, a);
+  switch (group) {
+    case 1: return launch_panels_mma<1, 0>(single, stages, a);
+    case 2: return launch_panels_mma<2, 0>(single, stages, a);
+    case 3: return launch_panels_mma<3, 0>(single, stages, a);
+    default: return launch_panels_mma<4, 0>(single, stages, a);
+  }
 }
 
-cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups, int dtype,
-                   const Args& a) {
+cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups, int group,
+                   int dtype, const Args& a) {
   if (a.batch < 1 || a.heads < 1 || a.S < 1 || a.dh < 8 || a.dh % 8 || a.scale_dh < 1
-      || a.scale_dh > a.dh || (long long)a.S * a.batch * a.heads > 0x7fffffffLL)
+      || a.scale_dh > a.dh || (long long)a.S * a.batch * a.heads > 0x7fffffffLL
+      || (group != 0 && (variant != 1 || a.dh <= kMaxTileDh)))
     return cudaErrorInvalidValue;
   if (variant == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
@@ -991,13 +1093,13 @@ cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups,
     if (a.dh == 64) return launch_mma_dh<64>(single, kb, stages, warpgroups, a);
     if (a.dh == 128) return launch_mma_dh<128>(single, kb, stages, warpgroups, a);
     if (a.dh > kMaxTileDh && a.dh % 64 == 0)
-      return launch_panels(single, variant, kb, stages, warpgroups, a);
+      return launch_panels(single, variant, kb, stages, warpgroups, group, a);
     return cudaErrorInvalidValue;
   }
   if (variant == 2) {
     if (dtype != 0 || kb != tf32x3::kKeys || stages != (single ? 0 : 2) || warpgroups != 1)
       return cudaErrorInvalidValue;
-    if (a.dh > kMaxTileDh) return launch_panels(single, variant, kb, stages, warpgroups, a);
+    if (a.dh > kMaxTileDh) return launch_panels(single, variant, kb, stages, warpgroups, 0, a);
     return launch_tf32_dh(single, a);
   }
   if (variant != 0 || a.dh > kMaxTileDh) return cudaErrorInvalidValue;
@@ -1030,7 +1132,9 @@ Args make_args(int batch, int heads, int seq, int dh, int scale_dh, const void* 
 // variant: 0 = "simt" (dh up to 128), 1 = "mma" (bf16, dh 32 / 64 / 128 or
 // a multiple of 64 above 128, in panels; kb = keys a block, 64 or 128 (64 in
 // panels); (stages, warpgroups) = (2, 1), (2, 2) or (3, 1) of the flash
-// kernel's ring ((2, 1) in panels), (0, 1) for the single kernel), 2 =
+// kernel's ring, (0, 1) for the single kernel; in panels (R, 1) for a flash
+// ring of R > group panel stages, (0, 1) for the single kernel, and group =
+// the panels of o a CTA, a divisor of dh / 64 from 1 to 4 (0 elsewhere)), 2 =
 // "tf32x3" (float32; kb 64, (stages, warpgroups) = (2, 1) for flash, (0, 1)
 // for single; above 128 in panels).  dtype: 0 = float32, 1 = bfloat16.  q,
 // k, v, out: (batch, heads, seq, dh) on the current device through `strides`
@@ -1041,31 +1145,34 @@ Args make_args(int batch, int heads, int seq, int dh, int scale_dh, const void* 
 // of operands zero-padded to dh.  Return a cudaError_t.
 
 extern "C" int attention_single_forward(int variant, int kb, int stages, int warpgroups,
-                                        int dtype, int batch, int heads, int seq, int dh,
-                                        int scale_dh, const void* q, const void* k,
+                                        int group, int dtype, int batch, int heads, int seq,
+                                        int dh, int scale_dh, const void* q, const void* k,
                                         const void* v, void* out, const long long* strides,
                                         void* stream) {
-  return (int)launch(true, variant, kb, stages, warpgroups, dtype,
+  return (int)launch(true, variant, kb, stages, warpgroups, group, dtype,
                      make_args(batch, heads, seq, dh, scale_dh, q, k, v, out, strides, stream));
 }
 
 extern "C" int attention_flash_forward(int variant, int kb, int stages, int warpgroups,
-                                       int dtype, int batch, int heads, int seq, int dh,
-                                       int scale_dh, const void* q, const void* k,
+                                       int group, int dtype, int batch, int heads, int seq,
+                                       int dh, int scale_dh, const void* q, const void* k,
                                        const void* v, void* out, const long long* strides,
                                        void* stream) {
-  return (int)launch(false, variant, kb, stages, warpgroups, dtype,
+  return (int)launch(false, variant, kb, stages, warpgroups, group, dtype,
                      make_args(batch, heads, seq, dh, scale_dh, q, k, v, out, strides, stream));
 }
 
 // Dynamic shared memory (bytes) of one CTA, as ops/attention.py::smem_bytes
 // computes it: single = 1 for the whole-sequence kernel at this length, 0 for
-// the blocked one.
+// the blocked one; group as above.  ring_stages: the flash ring of the "mma"
+// panel kernel (panels = dh / 64, G = group) on a card of `optin` bytes a
+// block, as ops/attention.py::panel_stages computes it.
 extern "C" long long attention_smem(int single, int variant, int kb, int stages, int warpgroups,
-                                    int seq, int head_dim, int elem_bytes) {
+                                    int group, int seq, int head_dim, int elem_bytes) {
   if ((variant == 1 || variant == 2) && head_dim > kMaxTileDh)
-    return (long long)(variant == 1 ? mma_panels_smem_bytes(single, seq, head_dim)
-                                    : tf32_panels_smem_bytes(single, seq, head_dim));
+    return (long long)(variant == 1
+                           ? mma_panels_smem_bytes(single, seq, head_dim, group, stages)
+                           : tf32_panels_smem_bytes(single, seq, head_dim));
   if (variant == 1 || variant == 2) {
     const int keys = single ? round_up(seq, kb) : stages * warpgroups * kb;
     return (long long)(variant == 1 ? mma_smem_bytes(keys, head_dim)
@@ -1073,4 +1180,8 @@ extern "C" long long attention_smem(int single, int variant, int kb, int stages,
   }
   return single ? (long long)smem_bytes(kSingleW * kSingleR, seq, head_dim, elem_bytes)
                 : (long long)smem_bytes(kFlashW * kFlashR, kKb, head_dim, elem_bytes);
+}
+
+extern "C" int attention_ring_stages(int panels, int group, long long optin) {
+  return panel::ring_stages(panels, group, (size_t)optin);
 }

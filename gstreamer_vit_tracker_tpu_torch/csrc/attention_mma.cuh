@@ -169,10 +169,11 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Geometry of the tiles of head dim DH (32, 64 or 128).
+// Geometry of the tiles of head dim DH (32, 64 or 128; 192 and 256 are the
+// 3 and 4 panels of o that a panel CTA holds, csrc/panel_ring.cuh).
 template <int DH>
 struct Tile {
-  static_assert(DH == 32 || DH == 64 || DH == 128, "head dims the tiles take");
+  static_assert(DH == 32 || (DH % 64 == 0 && DH <= 256), "head dims the tiles take");
   static constexpr int kPanelCols = DH < 64 ? DH : 64;
   static constexpr int kPanels = DH / kPanelCols;
   static constexpr int kRowBytes = kPanelCols * 2;            // 64 or 128
@@ -267,8 +268,8 @@ struct Softmax {
 
   // s = (acc ? s : 0) + Q.K^T over the DH columns of q_tile and k_tile, in
   // one chain of wgmma (a head dim in panels adds its panels' scores so).
-  __device__ __forceinline__ void scores(float (&s)[kScoreRegs], uint32_t q_tile,
-                                         uint32_t k_tile, int acc) {
+  __device__ static __forceinline__ void scores(float (&s)[kScoreRegs], uint32_t q_tile,
+                                                uint32_t k_tile, int acc) {
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < DH / 16; ++ks) {
@@ -287,8 +288,21 @@ struct Softmax {
   // o += P.V with the V block at v_tile.
   __device__ __forceinline__ void update(float (&s)[kScoreRegs], uint32_t v_tile, int k0, int S,
                                          float c) {
+    uint32_t v[T::kPanels];
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p) v[p] = v_tile + p * KB * T::kRowBytes;
+    update(s, v, k0, S, c);
+  }
+
+  // The same with the V block's panels wherever they lie: panel p (KB rows
+  // of o's panel p's columns) at v[p].  RAGGED = false: the caller knows
+  // the block holds KB real keys (no mask, and no branch while a product
+  // the caller started is in flight).
+  template <bool RAGGED = true>
+  __device__ __forceinline__ void update(float (&s)[kScoreRegs], const uint32_t (&v)[T::kPanels],
+                                         int k0, int S, float c) {
     const int t = threadIdx.x & 3;
-    if (k0 + KB > S) {                         // the ragged last block
+    if (RAGGED && k0 + KB > S) {               // the ragged last block
 #pragma unroll
       for (int i = 0; i < kScoreRegs; ++i)
         if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
@@ -326,8 +340,8 @@ struct Softmax {
     for (int ks = 0; ks < KB / 16; ++ks) {
 #pragma unroll
       for (int p = 0; p < T::kPanels; ++p) {
-        const uint64_t b = T::descriptor(
-            v_tile + p * KB * T::kRowBytes + ks * 16 * T::kRowBytes, KB * T::kRowBytes);
+        const uint64_t b =
+            T::descriptor(v[p] + ks * 16 * T::kRowBytes, KB * T::kRowBytes);
         const uint32_t a0 = pa[4 * ks], a1 = pa[4 * ks + 1], a2 = pa[4 * ks + 2],
                        a3 = pa[4 * ks + 3];
         if constexpr (T::kPanelCols == 64) wgmma_rs_n64(o[p], a0, a1, a2, a3, b);

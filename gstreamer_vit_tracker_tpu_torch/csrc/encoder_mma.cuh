@@ -77,6 +77,7 @@
 #pragma once
 
 #include "attention_mma.cuh"
+#include "panel_ring.cuh"
 
 #include <cuda.h>
 
@@ -462,46 +463,25 @@ ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s, const bf1
     yr[i] = layer_norm8(mine[i], st.x, st.y, sb[i], sb[row_chunks + i]);
 }
 
-// Hopper's transaction barriers and the tensor memory accelerator (TMA).
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-// The box of `map` at coordinates (c0, c1) or (c0, c1, c2) (innermost
-// first) into shared memory at dst, its bytes counted on the barrier bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%3, %4}], [%2];\n"
-               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-               : "memory");
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%3, %4, %5}], [%2];\n"
-               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-                  "r"(c2)
-               : "memory");
-}
+// Hopper's transaction barriers and the tensor memory accelerator (TMA):
+// csrc/panel_ring.cuh's.
+using panel::mbar_arrive;
+using panel::mbar_expect_tx;
+using panel::mbar_init;
+using panel::mbar_wait;
+using panel::tma_load;
+
 template <int N>
 __device__ __forceinline__ void wgmma_wait_pending() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// wgmma_wait_pending<n> for a count the caller's unrolled code makes constant.
+__device__ __forceinline__ void wait_pending(int n) {
+  if (n <= 0) wgmma_wait_pending<0>();
+  else if (n == 1) wgmma_wait_pending<1>();
+  else if (n == 2) wgmma_wait_pending<2>();
+  else wgmma_wait_pending<3>();
 }
 
 // Geometry of ring_product_kernel<NWG, BN>: NWG consumer warpgroups of 64
@@ -990,146 +970,221 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, in
   store_rows<T, DH>(q_ptr, o, l, out + (long long)b * S * D + h * DH, D, q0, S);
 }
 
-// Dynamic shared memory of one panel attention CTA: kAttStages stages of a
-// q, a k and a V panel (64 columns each), from a 1024-byte boundary, for any
-// head dim and length.
-inline size_t attention_panels_smem_bytes() {
-  return (size_t)kAlign + (size_t)kAttStages * (kTileRows + 2 * kKeyBlock) * 64 * sizeof(bf16);
-}
-
 // Head dims above 128 (a multiple of 64: the plan zero-pads each head's qkv
 // columns to one): attention_kernel's arithmetic with the head dim in panels
-// of 64 columns.  CTA = (64 query rows, batch, head, one 64-column panel of
-// o); blockIdx.x runs over tiles x B x H x panels, the panels fastest.  Both
-// passes walk the key blocks as attention_kernel's do; a block's scores are
-// its dh / 16 16-deep steps, each into a fresh accumulator, kGroup at a
-// time, added in f32 in attention_kernel's order, a panel pair of q and k at
-// a time: s, m, p and l are what attention_kernel's would be at this dh.
-// Pass 2 adds P.V of the CTA's own V panel.  Each CTA takes every score of
-// its rows, so the scores are computed dh / 64 times over, and its registers
-// and shared memory are one panel's whatever dh (csrc/attention.cu's panel
-// kernels say why).  Step t of the 2 . blocks . panels steps is (pass, key
-// block j, panel p) in ring slot t % kAttStages: q and k panel p, and in
-// pass 2 on the block's last panel the V panel.  (A template, KB =
-// kKeyBlock, so that only a source that launches it compiles it.)
-template <int KB>
-__global__ void __launch_bounds__(kThreads)
-attention_panels_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int heads,
-                        int tiles, int dh, float scale) {
-  using T = mma::Tile<64>;
-  constexpr int kScoreRegs = KB / 2, kOutRegs = 32, kGroup = 2;
-  constexpr uint32_t kQBytes = T::bytes(kTileRows), kKBytes = T::bytes(KB);
-  constexpr uint32_t kStage = kQBytes + 2 * kKBytes;
+// of 64 columns, in csrc/panel_ring.cuh's CTA of two warpgroups = (64 query
+// rows, batch, head, G panels op0 .. op0 + G - 1 of o); blockIdx.x runs over
+// tiles x B x H x P / G groups, the groups fastest.  The producer's TMA
+// copies come from one map of the qkv buffer ((B, S, 3E) rows, E = H . dh):
+// the CTA's q (P = dh / 64 panels) once, resident for both passes; then pass
+// 1's walk, every key block's k panels; then pass 2's, every key block's k
+// panels and the CTA's G v panels, each through the ring.  A block's scores
+// are taken once a CTA in each pass: its dh / 16 16-deep steps, a panel pair
+// of q and k at a time, each step into a fresh accumulator, kGroup at a
+// time, added in f32 in attention_kernel's order (so s, m, p and l are what
+// attention_kernel's would be at this dh); pass 2 adds P.V of each of the
+// CTA's v panels, p = hi + mid + lo, into a fresh accumulator added to that
+// panel of o in f32, a panel at a time.  The design before this one (a CTA
+// a panel of o) took every score 2 P times in its two passes and copied q
+// from L2 at every step; this one takes them 2 P / G times.  G is the
+// plan's: the fresh accumulators cap it at 3 (o, the scores and two steps
+// in flight must fit 216 registers a thread), and at batch 1, where the
+// grid is smaller than the card, it is 1 (ops/vit_block.py::panel_group).
+//
+// PC: the panels of the head dim as a constant (4: dh 256, built for G 1
+// and 2), or 0 (any, `panels` at run time).  With a constant, a block's 4 PC steps are
+// started once its k panels have all landed, each into a fresh accumulator
+// with up to kFresh of them in flight while the earlier ones are added (in
+// the same order), and pass 2 takes the next v panel's P.V while this one's
+// is added; at run time, a panel's four steps two at a time.
+template <int G, int PC>
+__global__ void __launch_bounds__(panel::kThreads, panel::kCtasPerSm)
+attention_panels_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ out,
+                        int S, int heads, int tiles, int dh, int stages, float scale) {
+  using T = mma::Tile<64 * G>;                // the CTA's panels of o
+  using P64 = mma::Tile<64>;
+  constexpr int KB = kKeyBlock, kScoreRegs = KB / 2, kOutRegs = 32, kGroup = 2;
+  // Fresh score accumulators in flight, and P.V buffers: what fits 216
+  // registers a thread beside o (32 G) and the scores.
+  constexpr int kFresh = G == 1 ? 4 : 2, kPvBufs = G <= 2 ? 2 : 1;
   extern __shared__ __align__(16) unsigned char raw[];
   unsigned char* base = aligned_smem(raw);
-  const uint32_t smem0 = mma::smem_addr(base);
-  const int panels = dh / 64;
-  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
+  const int panels = PC > 0 ? PC : dh / 64;
+  const panel::Ring ring = panel::Ring::setup(base, panels, stages);
+  const int groups = panels / G;
+  const int op0 = blockIdx.x % groups * G, rest = blockIdx.x / groups;
   const int bh = rest / tiles, q0 = (rest - bh * tiles) * kTileRows;
   const int b = bh / heads, h = bh - b * heads;
   const int D = heads * dh;
-  const long long ld = 3LL * D;
-  const bf16* q = qkv + (long long)b * S * ld + h * dh;
-  const bf16* k = q + D;
-  const bf16* v = q + 2 * D;
-  const int blocks = (S + KB - 1) / KB, per_pass = blocks * panels, steps = 2 * per_pass;
-  const auto fill = [&](int t) {
-    const uint32_t stage = smem0 + (t % kAttStages) * kStage;
-    const int r = t < per_pass ? t : t - per_pass, j = r / panels, p = r - j * panels;
-    T::template fill<kTileRows, kThreads>(stage, q + p * 64, ld, q0, S);
-    T::template fill<KB, kThreads>(stage + kQBytes, k + p * 64, ld, j * KB, S);
-    if (t >= per_pass && p == panels - 1)
-      T::template fill<KB, kThreads>(stage + kQBytes + kKBytes, v + op * 64, ld, j * KB, S);
-  };
-#pragma unroll
-  for (int t = 0; t < kAttStages - 1; ++t) {  // a group a step, empty past the end
-    if (t < steps) fill(t);
-    mma::cp_async_commit();
+  const int blocks = (S + KB - 1) / KB, pass1 = blocks * panels, per_block = panels + G;
+
+  if (threadIdx.x >= kThreads) {              // the producer warpgroup
+    panel::producer_registers();
+    if (threadIdx.x == kThreads) {
+      const int qc = h * dh, kc = D + h * dh, vc = 2 * D + h * dh + op0 * 64;
+      ring.load_q(panels, [&](uint32_t dst, uint32_t bar, int p) {
+        tma_load(dst, &qkv_map, bar, qc + p * 64, q0, b);
+      });
+      for (int g = 0; g < pass1 + blocks * per_block; ++g) {
+        int j, i;                              // key block j, its load i
+        if (g < pass1) {
+          j = g / panels;
+          i = g - j * panels;
+        } else {
+          j = (g - pass1) / per_block;
+          i = g - pass1 - j * per_block;
+        }
+        const int col = i < panels ? kc + i * 64 : vc + (i - panels) * 64;
+        ring.load(g, [&](uint32_t dst, uint32_t bar) { tma_load(dst, &qkv_map, bar, col, j * KB, b); });
+      }
+    }
+    return;
   }
 
+  panel::consumer_registers();
+  ring.wait_q();
   const int tq = threadIdx.x & 3;
-  float o[1][kOutRegs];                       // the CTA's one panel of o
+  float o[G][kOutRegs];                       // the CTA's panels of o
 #pragma unroll
-  for (int i = 0; i < kOutRegs; ++i) o[0][i] = 0.f;
+  for (int p = 0; p < G; ++p)
+#pragma unroll
+    for (int i = 0; i < kOutRegs; ++i) o[p][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float s[kScoreRegs];
 
-  for (int t = 0; t < steps; ++t) {
-    mma::cp_async_wait<kAttStages - 2>();    // step t has landed
-    mma::fence_async_proxy();
-    __syncthreads();                          // ... for all; slot of step t - 1 is free
-    if (t + kAttStages - 1 < steps) fill(t + kAttStages - 1);
-    mma::cp_async_commit();
-    const uint32_t stage = smem0 + (t % kAttStages) * kStage;
-    const bool pass1 = t < per_pass;
-    const int r = pass1 ? t : t - per_pass, j = r / panels, p = r - j * panels;
-
-    // This panel's four 16-deep steps of q.k, kGroup at a time, each into a
-    // fresh accumulator, added to s in f32 in order.
+  for (int pass = 0, g = 0; pass < 2; ++pass) {
+    for (int j = 0; j < blocks; ++j) {
+      // The block's scores: its 16-deep steps of q.k, each into a fresh
+      // accumulator, added to s in f32 in order; each k panel's stage freed
+      // once its steps are read.
+      if constexpr (PC == 0) {
+        for (int p = 0; p < panels; ++p, ++g) {
+          const uint32_t qa = ring.q_panel(p), ka = ring.take(g);
 #pragma unroll
-    for (int g0 = 0; g0 < 64 / 16; g0 += kGroup) {
-      float part[kGroup][kScoreRegs];
-      mma::wgmma_fence();
+          for (int g0 = 0; g0 < 64 / 16; g0 += kGroup) {
+            float part[kGroup][kScoreRegs];
+            mma::wgmma_fence();
 #pragma unroll
-      for (int jj = 0; jj < kGroup; ++jj) {
-        const int kk = g0 + jj;
-        mma::wgmma_ss_n64(part[jj], T::descriptor(stage + kk * 32, 16),
-                          T::descriptor(stage + kQBytes + kk * 32, 16), 0);
+            for (int jj = 0; jj < kGroup; ++jj) {
+              const int kk = g0 + jj;
+              mma::wgmma_ss_n64(part[jj], P64::descriptor(qa + kk * 32, 16),
+                                P64::descriptor(ka + kk * 32, 16), 0);
+            }
+            mma::wgmma_commit();
+            mma::wgmma_wait();
+#pragma unroll
+            for (int jj = 0; jj < kGroup; ++jj) {
+              mma::fence_registers(part[jj]);
+#pragma unroll
+              for (int i = 0; i < kScoreRegs; ++i)
+                s[i] = p == 0 && g0 + jj == 0 ? part[0][i] : s[i] + part[jj][i];
+            }
+          }
+          ring.give(g);
+        }
+      } else {
+        uint32_t ka[PC];
+#pragma unroll
+        for (int p = 0; p < PC; ++p) ka[p] = ring.take(g + p);
+        // Step n (panel n / 4, 16-deep slice n % 4) into acc, its own group.
+        const auto step = [&](float (&acc)[kScoreRegs], int n) {
+          mma::wgmma_fence();
+          mma::wgmma_ss_n64(acc, P64::descriptor(ring.q_panel(n / 4) + n % 4 * 32, 16),
+                            P64::descriptor(ka[n / 4] + n % 4 * 32, 16), 0);
+          mma::wgmma_commit();
+        };
+        constexpr int kSteps = 4 * PC;
+        float part[kFresh][kScoreRegs];
+        step(s, 0);
+#pragma unroll
+        for (int n = 1; n <= kFresh; ++n) step(part[n - 1], n);
+#pragma unroll
+        for (int n = 1; n < kSteps; ++n) {
+          // Steps 0 .. n complete of the min(kFresh + n, kSteps) started.
+          const int started = kFresh + n < kSteps ? kFresh + n : kSteps;
+          wait_pending(started - n - 1);
+          if (n == 1) mma::fence_registers(s);
+          float (&got)[kScoreRegs] = part[(n - 1) % kFresh];
+          mma::fence_registers(got);
+#pragma unroll
+          for (int i = 0; i < kScoreRegs; ++i) s[i] += got[i];
+          if (n + kFresh < kSteps) step(got, n + kFresh);
+        }
+#pragma unroll
+        for (int p = 0; p < PC; ++p) ring.give(g + p);
+        g += PC;
       }
-      mma::wgmma_commit();
-      mma::wgmma_wait();
+      const int k0 = j * KB;
 #pragma unroll
-      for (int jj = 0; jj < kGroup; ++jj) {
-        mma::fence_registers(part[jj]);
+      for (int i = 0; i < kScoreRegs; ++i)
+        s[i] = k0 + 8 * (i / 4) + 2 * tq + (i & 1) < S ? s[i] * scale : -INFINITY;
+
+      if (pass == 0) {                        // pass 1: the row maximum
 #pragma unroll
-        for (int i = 0; i < kScoreRegs; ++i)
-          s[i] = p == 0 && g0 + jj == 0 ? part[0][i] : s[i] + part[jj][i];
+        for (int i = 0; i < kScoreRegs; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+        if (j == blocks - 1) {
+          m[0] = mma::quad_max(m[0]);
+          m[1] = mma::quad_max(m[1]);
+        }
+        continue;
+      }
+
+      // Pass 2: p = expf(s - m), its row sum, and P.V with p = hi + mid +
+      // lo, each v panel's P.V in a fresh accumulator added to its panel of
+      // o in f32.
+      uint32_t hi[kScoreRegs / 2], mid[kScoreRegs / 2], lo[kScoreRegs / 2];
+      p_terms(s, m, l, hi, mid, lo);
+      // v panel op's P.V into pv, its own group.
+      const auto pv_of = [&](float (&pv)[kOutRegs], uint32_t va) {
+#pragma unroll
+        for (int i = 0; i < kOutRegs; ++i) pv[i] = 0.f;
+        mma::fence_registers(pv);
+        mma::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KB / 16; ++ks) {
+          const int jj = 4 * ks;
+          const uint64_t db = P64::descriptor(va + ks * 16 * 128, KB * 128);
+          mma::wgmma_rs_n64(pv, hi[jj], hi[jj + 1], hi[jj + 2], hi[jj + 3], db);
+          mma::wgmma_rs_n64(pv, mid[jj], mid[jj + 1], mid[jj + 2], mid[jj + 3], db);
+          mma::wgmma_rs_n64(pv, lo[jj], lo[jj + 1], lo[jj + 2], lo[jj + 3], db);
+        }
+        mma::wgmma_commit();
+      };
+      if constexpr (PC == 0 || kPvBufs == 1) {
+#pragma unroll
+        for (int op = 0; op < G; ++op, ++g) {
+          float pv[kOutRegs];
+          pv_of(pv, ring.take(g));
+          mma::wgmma_wait();
+          mma::fence_registers(pv);
+#pragma unroll
+          for (int i = 0; i < kOutRegs; ++i) o[op][i] += pv[i];
+          ring.give(g);
+        }
+      } else {
+        uint32_t va[G];
+#pragma unroll
+        for (int op = 0; op < G; ++op) va[op] = ring.take(g + op);
+        float pv[kPvBufs][kOutRegs];
+        pv_of(pv[0], va[0]);
+#pragma unroll
+        for (int op = 0; op < G; ++op) {
+          if (op + 1 < G) pv_of(pv[(op + 1) % kPvBufs], va[op + 1]);
+          wait_pending(op + 1 < G ? 1 : 0);
+          mma::fence_registers(pv[op % kPvBufs]);
+#pragma unroll
+          for (int i = 0; i < kOutRegs; ++i) o[op][i] += pv[op % kPvBufs][i];
+        }
+#pragma unroll
+        for (int op = 0; op < G; ++op) ring.give(g + op);
+        g += G;
       }
     }
-    if (p != panels - 1) continue;            // the block's scores are not whole yet
-    const int k0 = j * KB;
-#pragma unroll
-    for (int i = 0; i < kScoreRegs; ++i)
-      s[i] = k0 + 8 * (i / 4) + 2 * tq + (i & 1) < S ? s[i] * scale : -INFINITY;
-
-    if (pass1) {                              // pass 1: the row maximum
-#pragma unroll
-      for (int i = 0; i < kScoreRegs; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
-      if (j == blocks - 1) {
-        m[0] = mma::quad_max(m[0]);
-        m[1] = mma::quad_max(m[1]);
-      }
-      continue;
-    }
-
-    // Pass 2: p = expf(s - m), its row sum, and P.V with p = hi + mid + lo,
-    // the block's P.V in a fresh accumulator added to o in f32.
-    uint32_t hi[kScoreRegs / 2], mid[kScoreRegs / 2], lo[kScoreRegs / 2];
-    p_terms(s, m, l, hi, mid, lo);
-    float pv[kOutRegs];
-#pragma unroll
-    for (int i = 0; i < kOutRegs; ++i) pv[i] = 0.f;
-    mma::fence_registers(pv);
-    mma::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KB / 16; ++ks) {
-      const int jj = 4 * ks;
-      const uint64_t db = T::descriptor(stage + kQBytes + kKBytes + ks * 16 * T::kRowBytes,
-                                        KB * T::kRowBytes);
-      mma::wgmma_rs_n64(pv, hi[jj], hi[jj + 1], hi[jj + 2], hi[jj + 3], db);
-      mma::wgmma_rs_n64(pv, mid[jj], mid[jj + 1], mid[jj + 2], mid[jj + 3], db);
-      mma::wgmma_rs_n64(pv, lo[jj], lo[jj + 1], lo[jj + 2], lo[jj + 3], db);
-    }
-    mma::wgmma_commit();
-    mma::wgmma_wait();
-    mma::fence_registers(pv);
-#pragma unroll
-    for (int i = 0; i < kOutRegs; ++i) o[0][i] += pv[i];
   }
 
-  // o / l rounded to bf16 once, through the warp's own 16 rows of slot 0's
-  // q panel (no product reads it any more, no copy is in flight).
-  store_rows<T, 64>(base, o, l, out + (long long)b * S * D + h * dh + op * 64, D, q0, S);
+  // o / l rounded to bf16 once, through the warp's own 16 rows of the q
+  // panels (no product reads them any more, no copy is in flight).
+  store_rows<T, 64 * G>(base, o, l, out + (long long)b * S * D + h * dh + op0 * 64, D, q0, S);
 }
 
 }  // namespace encoder_mma

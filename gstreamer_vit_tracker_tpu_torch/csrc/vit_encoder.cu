@@ -112,9 +112,10 @@
 //
 // Above a head dim of 128, "mma" and "tf32x3" run the attention stage in
 // panels of 64 columns (attention_panels_kernel of encoder_mma.cuh and
-// encoder_tf32.cuh): a CTA owns one panel of o and sums its scores over the
-// panels of q and k, so its registers and shared memory are one panel's
-// whatever the head dim; the products do not see the head dim.
+// encoder_tf32.cuh): "mma" holds q resident and G panels of o a CTA, K and V
+// coming through a TMA ring (csrc/panel_ring.cuh); "tf32x3" owns one panel
+// of o a CTA and sums its scores over the panels of q and k; the products
+// do not see the head dim.
 //
 // Every launch goes to the caller's stream; the entry point returns the first
 // CUDA error (cudaGetLastError after each launch), 0 on success.
@@ -450,6 +451,7 @@ struct Config {
   int bn[4];
   int warpgroups;
   int ln;
+  int group;   // "mma" above a head dim of 128: panels of o an attention CTA
 };
 
 constexpr int kMaxDevices = 64;
@@ -566,50 +568,18 @@ cudaError_t ln_rows(const bf16* x, const bf16* s, const bf16* b, bf16* y, int M,
   return ln_rows_rpw<1>(x, s, b, y, M, W, d, st);
 }
 
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (so nothing
-// more is linked); null where libcuda has none.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major bf16 tensor of `rank` dims (innermost first) as a TMA map
 // with boxes of `box` elements; a box's rows are 128 or 64 bytes, swizzled
 // as mma::Tile's 64- and 32-column panels are.
 cudaError_t tile_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                      const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t strides[2] = {0, 0};
   cuuint64_t stride = dims[0] * sizeof(bf16);
   for (int i = 0; i + 1 < rank; ++i) {
     strides[i] = stride;
     stride *= dims[i + 1];
   }
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
-      ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box[0] * sizeof(bf16) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return panel::encode_map(map, base, rank, dims, strides, box);
 }
 
 // The TMA maps of a prenormed forward: the rows each product reads (the LN
@@ -619,6 +589,7 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int rank, const cuuint6
 // panel of it.
 struct RingMaps {
   CUtensorMap normed, attn, hid, qkv, proj, mlp1, mlp2;
+  CUtensorMap heads;   // the qkv buffer's rows for the "mma" panel attention
 };
 
 cudaError_t ring_maps(RingMaps* m, const Config& c, const Weights& w, int M, int W, int E,
@@ -691,8 +662,8 @@ cudaError_t attention_mma(const bf16* qkv, bf16* out, int B, int S, int H, float
   return cudaGetLastError();
 }
 
-// A head dim above kAttMaxDh (both tensor-core variants): the panel
-// kernel, tiles x B x H x panels CTAs of one warpgroup.
+// "tf32x3" above kAttMaxDh: the panel kernel, tiles x B x H x panels CTAs
+// of one warpgroup.
 template <typename T, typename K>
 cudaError_t attention_panels(K kernel, size_t smem, const T* qkv, T* out, int B, int S, int H,
                              int dh, float scale, cudaStream_t st) {
@@ -705,17 +676,51 @@ cudaError_t attention_panels(K kernel, size_t smem, const T* qkv, T* out, int B,
   return cudaGetLastError();
 }
 
-cudaError_t attention_mma_dh(int dh, const bf16* qkv, bf16* out, int B, int S, int H,
-                             float scale, cudaStream_t st) {
+// The map of the qkv buffer ((B, S, 3E) bf16 rows) that the "mma" panel
+// attention's TMA copies read, in boxes of one 64-key x 64-column panel.
+cudaError_t heads_map(CUtensorMap* map, const void* qkv, int B, int S, int E) {
+  const cuuint64_t dims[3] = {(cuuint64_t)3 * E, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint32_t box[3] = {64, (cuuint32_t)encoder_mma::kKeyBlock, 1};
+  return tile_map(map, qkv, 3, dims, box);
+}
+
+// "mma" above kAttMaxDh: tiles x B x H x P / G CTAs of
+// attention_panels_kernel<G, PC>, the ring panel::ring_stages gives.
+template <int G, int PC>
+cudaError_t attention_panels_mma(const CUtensorMap& map, bf16* out, int B, int S, int H, int dh,
+                                 float scale, cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = encoder_mma::attention_panels_kernel<G, PC>;
+  const int panels = dh / 64;
+  Limits card;
+  RETURN_IF_ERROR(device_limits(&card));
+  const int tiles = (S + mma::kTileRows - 1) / mma::kTileRows;
+  const long long grid = (long long)tiles * B * H * (panels / G);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int stages = panel::ring_stages(panels, G, (size_t)card.optin);
+  if (stages < (PC > G ? PC : G + 1)) return cudaErrorInvalidValue;
+  const size_t smem = panel::smem_bytes(panels, stages);
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  kernel<<<(int)grid, panel::kThreads, smem, st>>>(map, out, S, H, tiles, dh, stages, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t attention_mma_dh(int dh, int group, const CUtensorMap& map, const bf16* qkv,
+                             bf16* out, int B, int S, int H, float scale, cudaStream_t st) {
   switch (dh) {
     case 32: return attention_mma<32>(qkv, out, B, S, H, scale, st);
     case 64: return attention_mma<64>(qkv, out, B, S, H, scale, st);
     case 128: return attention_mma<128>(qkv, out, B, S, H, scale, st);
+    case 256:
+      return group == 2 ? attention_panels_mma<2, 4>(map, out, B, S, H, dh, scale, st)
+                        : attention_panels_mma<1, 4>(map, out, B, S, H, dh, scale, st);
     default:
-      if (dh <= kAttMaxDh || dh % 64) return cudaErrorInvalidValue;
-      return attention_panels(encoder_mma::attention_panels_kernel<encoder_mma::kKeyBlock>,
-                              encoder_mma::attention_panels_smem_bytes(), qkv, out, B, S, H, dh,
-                              scale, st);
+      switch (group) {
+        case 1: return attention_panels_mma<1, 0>(map, out, B, S, H, dh, scale, st);
+        case 2: return attention_panels_mma<2, 0>(map, out, B, S, H, dh, scale, st);
+        case 3: return attention_panels_mma<3, 0>(map, out, B, S, H, dh, scale, st);
+        default: return cudaErrorInvalidValue;
+      }
   }
 }
 
@@ -831,8 +836,12 @@ cudaError_t check(const Config& c, int dtype, int B, int S, int D, int W, int H,
       || (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   bool ok = false;
+  if (c.group != 0 && (c.variant != kMma || dh <= kAttMaxDh)) return cudaErrorInvalidValue;
   if (c.variant == kMma)
-    ok = dtype == 1 && (dh == 32 || dh == 64 || dh == 128 || (dh > kAttMaxDh && dh % 64 == 0))
+    ok = dtype == 1
+         && (dh == 32 || dh == 64 || dh == 128
+             || (dh > kAttMaxDh && dh % 64 == 0 && c.group >= 1 && c.group <= 3
+                 && dh / 64 % c.group == 0))
          && W % 64 == 0 && W - D < 64 && hidden % 64 == 0
          && (c.ln == kResident
              || (c.ln == kPrenormed && (c.warpgroups == 1 || c.warpgroups == 2)));
@@ -895,7 +904,7 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
       RETURN_IF_ERROR(ln_rows(x, p(w.ln1_s), p(w.ln1_b), normed, M, W, D, st));
       RETURN_IF_ERROR(ring_product<kEpiRound>(g, c.bn[0], maps.normed, maps.qkv, layer,
                                               p(w.b_qkv), qkv, M, 3 * E, W, st));
-      RETURN_IF_ERROR(attention_mma_dh(dh, qkv, attn, B, S, H, scale, st));
+      RETURN_IF_ERROR(attention_mma_dh(dh, c.group, maps.heads, qkv, attn, B, S, H, scale, st));
       RETURN_IF_ERROR(ring_product<kEpiResidual>(g, c.bn[1], maps.attn, maps.proj, layer,
                                                  p(w.b_proj), x, M, W, E, st));
       RETURN_IF_ERROR(ln_rows(x, p(w.ln2_s), p(w.ln2_b), normed, M, W, D, st));
@@ -907,7 +916,7 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
     RETURN_IF_ERROR((product<kEpiRound, kLnResident>(c.bn[0], x, p(w.w_qkv), p(w.b_qkv),
                                                      p(w.ln1_s), p(w.ln1_b), qkv, M, 3 * E, W,
                                                      D, st)));
-    RETURN_IF_ERROR(attention_mma_dh(dh, qkv, attn, B, S, H, scale, st));
+    RETURN_IF_ERROR(attention_mma_dh(dh, c.group, maps.heads, qkv, attn, B, S, H, scale, st));
     RETURN_IF_ERROR((product<kEpiResidual, kLnNone>(c.bn[1], attn, p(w.w_proj), p(w.b_proj),
                                                     nullptr, nullptr, x, M, W, E, 0, st)));
     RETURN_IF_ERROR((product<kEpiGelu, kLnResident>(c.bn[2], x, p(w.w_mlp1), p(w.b_mlp1),
@@ -945,6 +954,8 @@ cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, 
   if (std::is_same<T, bf16>::value && c.ln == kPrenormed)
     RETURN_IF_ERROR(ring_maps(&maps, c, w, (int)rows, W, H * dh, hidden, depth, ln_scratch,
                               attn_buf, hid_buf));
+  if (std::is_same<T, bf16>::value && dh > kAttMaxDh)
+    RETURN_IF_ERROR(heads_map(&maps.heads, qkv_buf, B, S, H * dh));
   T* x = static_cast<T*>(W == D ? x_out : h_buf);
   if (W == D) {
     RETURN_IF_ERROR(cudaMemcpyAsync(x, x_in, rows * D * e, cudaMemcpyDeviceToDevice, st));
@@ -981,9 +992,10 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, i
 }  // namespace
 
 // variant: 0 = "simt" (float32), 1 = "mma" (bfloat16), 2 = "tf32x3"
-// (float32); bn_*, warpgroups, ln: the N tiles, the warpgroups a CTA and the
-// LN products' form (0 resident, 1 streamed, 2 prenormed) of the plan (see
-// Config above).  dtype: 0 = float32, 1 = bfloat16.  dim: D, the width of x and of
+// (float32); bn_*, warpgroups, ln, group: the N tiles, the warpgroups a CTA,
+// the LN products' form (0 resident, 1 streamed, 2 prenormed) and, "mma"
+// above a head dim of 128, the panels of o an attention CTA (1 to 3, a
+// divisor of head_dim / 64; 0 elsewhere) of the plan (see Config above).  dtype: 0 = float32, 1 = bfloat16.  dim: D, the width of x and of
 // the output; width: the residual width W the weights have, D or D
 // zero-padded to the next multiple of 64 ("mma") or 32 ("tf32x3"; see the
 // header).  head_dim: the head dim the kernels
@@ -1003,14 +1015,14 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, i
 // Returns a cudaError_t.
 extern "C" int vit_encoder_forward(
     int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups, int ln,
-    int dtype, int batch, int seq, int dim, int width, int heads, int head_dim, int hidden,
-    int depth,
+    int group, int dtype, int batch, int seq, int dim, int width, int heads, int head_dim,
+    int hidden, int depth,
     const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
     void* h, void* qkv, void* attn, void* mlp_hidden, void* ln_scratch, void* stream) {
-  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln};
+  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln, group};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, depth, x_in, x_out,
@@ -1030,13 +1042,13 @@ extern "C" int vit_encoder_forward(
 // 5.9 us at 989 TFLOP/s).  Returns a cudaError_t.
 extern "C" int vit_block_forward(
     int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups, int ln,
-    int dtype, int batch, int seq, int dim, int width, int heads, int head_dim, int hidden,
-    const void* x_in, void* x_out,
+    int group, int dtype, int batch, int seq, int dim, int width, int heads, int head_dim,
+    int hidden, const void* x_in, void* x_out,
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* b_qkv,
     const void* w_proj, const void* b_proj, const void* ln2_s, const void* ln2_b,
     const void* w_mlp1, const void* b_mlp1, const void* w_mlp2, const void* b_mlp2,
     void* h, void* qkv, void* attn, void* mlp_hidden, void* ln_scratch, void* stream) {
-  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln};
+  const Config c{variant, {bn_qkv, bn_proj, bn_mlp1, bn_mlp2}, warpgroups, ln, group};
   const Weights w{ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj,
                   ln2_s, ln2_b, w_mlp1, b_mlp1, w_mlp2, b_mlp2};
   return (int)run(c, dtype, batch, seq, dim, width, heads, head_dim, hidden, 1, x_in, x_out, w,

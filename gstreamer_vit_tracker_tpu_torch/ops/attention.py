@@ -38,10 +38,15 @@ dim) before the launch:
   timings; no rule gives it.
 
 Above a head dim of 128 both tensor-core variants run in panels of 64
-columns (``csrc/attention.cu``'s panel kernels): a CTA owns one 64-column
-panel of the output and sums its scores over the panels of q and k, so its
-registers and shared memory are one panel's whatever the head dim (the
-scores are computed once for each panel).
+columns (``csrc/attention.cu``'s panel kernels).  ``"mma"``: a CTA keeps
+its 64 rows of q resident in shared memory and ``Plan.group`` = G panels of
+the output in registers, K and V come through a TMA ring of panels
+(``csrc/panel_ring.cuh``), and each key block's scores are computed once a
+CTA, dh / (64 G) times in all (:func:`panel_group`, :func:`panel_stages`).
+``"tf32x3"``: a CTA owns one 64-column panel of the output and sums its
+scores over the panels of q and k, so its registers and shared memory are
+one panel's whatever the head dim (the scores are computed once for each
+panel).
 
 A head dim that the dtype's variant does not take as it is (bf16: up to
 128 not 32, 64 or 128, above 128 not a multiple of 64; float32: not a
@@ -101,6 +106,18 @@ _TF32_ROWS, _TF32_KEYS, _TF32_ROW_PAD = 64, 64, 4
 _SIMT_ROWS = {"single": 64, "flash": 32}
 _SIMT_KEY_BLOCK = 128
 _TILE_MAX_DH, _PANEL = 128, 64
+# "mma" above _TILE_MAX_DH (csrc/panel_ring.cuh): a CTA holds G of the
+# head dim's 64-column panels of o, G a divisor of the panels up to
+# _MAX_GROUP (128 accumulator registers a thread at 4); its q panels and a
+# ring of panel stages of 64 rows x 128 bytes each, a full and an empty
+# barrier a stage and one for q; two CTAs an SM within _TWO_CTA_BYTES each.
+_MAX_GROUP, _PANEL_BYTES, _TWO_CTA_BYTES = 4, 64 * _PANEL * 2, 115712
+# Two panel CTAs an SM against one: the rate :func:`panel_group` counts.
+_TWO_CTA_RATE = 1.6
+# (panels, group) the kernel is built for with the panels as a constant (dh
+# 192 at G 3, dh 256 at G 2): a block's v panels and the next block's k
+# panels held at once.
+_CONST_PANELS = ((3, 3), (4, 2))
 
 
 class Plan(NamedTuple):
@@ -111,6 +128,7 @@ class Plan(NamedTuple):
     stages: int = 0       # stages of the ring ("mma", "tf32x3" flash)
     warpgroups: int = 1   # warpgroups that split a stage's keys ("mma" flash)
     pad: int = 0          # head dim q, k, v are zero-padded to (0: none)
+    group: int = 0        # "mma" above 128: panels of o a CTA (0: none)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,20 +150,91 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def panel_smem_bytes(panels: int, stages: int) -> int:
+    """Dynamic shared memory of an ``"mma"`` panel CTA with ``panels`` q
+    panels and a ring of ``stages`` (``csrc/panel_ring.cuh``'s
+    ``smem_bytes``)."""
+    return _MMA_ALIGN + (panels + stages) * _PANEL_BYTES + 8 * (1 + 2 * stages)
+
+
+def panel_stages(panels: int, group: int, optin: int) -> int:
+    """The ``"mma"`` flash panel kernel's ring at ``panels`` q panels and
+    ``group`` panels of o a CTA (``csrc/panel_ring.cuh``'s
+    ``ring_stages``): two key blocks' loads, ``2 (panels + group)``, as far
+    as two CTAs an SM fit; where q leaves no room for ``group + 1`` stages
+    within two CTAs', one CTA an SM up to ``optin``; 0 if even that does
+    not fit."""
+    fixed, per = panel_smem_bytes(panels, 0), _PANEL_BYTES + 16
+    budget = (_TWO_CTA_BYTES if fixed + (group + 1) * per <= _TWO_CTA_BYTES
+              else optin)
+    if fixed + (group + 1) * per > budget:
+        return 0
+    return min((budget - fixed) // per, 2 * (panels + group))
+
+
+def panel_group(panels: int, tiles: int, sms: int, work: int,
+                fits_two, most: int = _MAX_GROUP) -> int:
+    """G, the panels of o a panel CTA holds, for ``panels`` 64-column
+    panels of the head dim and ``tiles`` 64-row tiles (x batch x heads), by
+    a count of the panel products on the busiest SM: a CTA takes ``work``
+    k panels a key block per panel of q (once a pass) plus G v panels; the
+    grid of ``tiles x panels / G`` CTAs puts ``ceil(grid / sms)`` of them on
+    it, and two CTAs that share an SM (where ``fits_two(G)``) take
+    _TWO_CTA_RATE times one's rate, hiding each other's latencies.  The
+    cheapest divisor of ``panels`` up to ``most``, the larger on a tie.
+    Fitted on the card (``profile_attention.py``, ``profile_encoder.py
+    wide``; PERF.md §5-§6): kernels 3 / 4 at (64, 320, 256) G 4, at (64,
+    100, 256) G 2 (256 CTAs two an SM beat 128 alone at G 4), at (3, 1040,
+    256) G 2 (one CTA an SM beats two at G 1); the encoder G 2 at Model A's
+    batch 16, 1 at its batch 1."""
+    best = None
+    for g in range(min(most, panels), 0, -1):
+        if panels % g:
+            continue
+        n = -(-tiles * (panels // g) // sms)
+        cost = n * (work * panels + g) / (
+            _TWO_CTA_RATE if n >= 2 and fits_two(g) else 1)
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    return best[1]
+
+
+def _panel_plan(s: int, panels: int, group: int, tiles: int, optin: int,
+                sms: int) -> Plan:
+    """The ``"mma"`` panel plan at G = ``group``: ``"single"`` (a ring of
+    every load: nothing waits for a stage, and each stage's copy is waited
+    for alone, so a lone CTA an SM loses nothing) while its CTA fits two an
+    SM, or one where the grid is no larger than the card; else
+    ``"flash"`` with the ring of :func:`panel_stages`."""
+    single = panel_smem_bytes(panels, -(-s // _TF32_KEYS) * (panels + group))
+    if single <= _TWO_CTA_BYTES or (
+            single <= optin and tiles * (panels // group) <= sms):
+        return Plan("single", "mma", kb=_TF32_KEYS, group=group)
+    return Plan("flash", "mma", kb=_TF32_KEYS,
+                stages=panel_stages(panels, group, optin), group=group)
+
+
 def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
-               kb: int = 0, stages: int = 0, warpgroups: int = 1) -> int:
+               kb: int = 0, stages: int = 0, warpgroups: int = 1,
+               group: int = 0) -> int:
     """Dynamic shared memory of one CTA, as ``csrc/attention.cu`` lays it
     out (``attention_smem`` there returns the same number).  Above a head
-    dim of 128 (the panel kernels): ``"single"`` every q panel, every key
-    block's k panels and one V panel of each; ``"flash"`` two stages of a q,
-    a k and a V panel, whatever the head dim."""
-    if variant in ("mma", "tf32x3") and dh > _TILE_MAX_DH:
+    dim of 128 (the panel kernels): ``"mma"`` the q panels and a ring of
+    ``stages`` panel stages, ``"single"`` one of every load of the walk
+    (each key block's dh / 64 k panels and ``group`` v panels);
+    ``"tf32x3"`` ``"single"`` every q panel, every key block's k panels and
+    one V panel of each, ``"flash"`` two stages of a q, a k and a V panel,
+    whatever the head dim."""
+    if variant == "mma" and dh > _TILE_MAX_DH:
+        panels = dh // _PANEL
+        if route == "single":
+            stages = -(-s // _TF32_KEYS) * (panels + group)
+        return panel_smem_bytes(panels, stages)
+    if variant == "tf32x3" and dh > _TILE_MAX_DH:
         panels = -(-dh // _PANEL)
         keys = -(-s // _TF32_KEYS) * _TF32_KEYS
         rows = (_MMA_ROWS * panels + keys * panels + keys if route == "single"
                 else 2 * (_MMA_ROWS + 2 * _TF32_KEYS))
-        if variant == "mma":
-            return _MMA_ALIGN + rows * _PANEL * 2
         return rows * (_PANEL + _TF32_ROW_PAD) * 4
     if variant in ("mma", "tf32x3"):
         keys = (-(-s // kb) * kb if route == "single"
@@ -207,12 +296,23 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     ring: while the 64-row tiles are fewer than the SMs, two warpgroups a
     CTA split the keys of 128-key blocks; a grid that fills the card takes
     64-key blocks, one warpgroup and more CTAs an SM.  Above a head dim of
-    128 (the panel kernels) both variants take ``"single"`` by the same
-    rule, else ``"flash"`` with a ring of two stages; 64-key blocks and one
-    warpgroup either way."""
+    128 (the panel kernels), 64-key blocks: ``"tf32x3"`` takes
+    ``"single"`` by the same rule, else ``"flash"`` with a ring of two
+    stages, one warpgroup either way; ``"mma"`` takes ``group`` =
+    :func:`panel_group` and the route of :func:`_panel_plan`."""
     pad = padded_head_dim(dh, dtype)
     if pad:
         return plan(s, pad, dtype, optin_bytes, bh, sms)._replace(pad=pad)
+    if dtype == torch.bfloat16 and dh > _TILE_MAX_DH:
+        panels, tiles = dh // _PANEL, -(-s // _MMA_ROWS) * bh
+
+        def plan_at(g):
+            return _panel_plan(s, panels, g, tiles, optin_bytes, sms)
+
+        return plan_at(panel_group(
+            panels, tiles, sms, 1, lambda g: smem_bytes(
+                plan_at(g).route, "mma", s, dh, 2, _TF32_KEYS,
+                plan_at(g).stages, 1, g) <= _TWO_CTA_BYTES))
     if dtype == torch.float32:
         if smem_bytes("single", "tf32x3", s, dh, 4,
                       kb=_TF32_KEYS) <= optin_bytes // 2:
@@ -220,7 +320,7 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
         return Plan("flash", "tf32x3", kb=_TF32_KEYS, stages=2)
     if smem_bytes("single", "mma", s, dh, 2, kb=64) <= optin_bytes // 2:
         return Plan("single", "mma", kb=64)
-    if dh > _TILE_MAX_DH or -(-s // _MMA_ROWS) * bh > sms:
+    if -(-s // _MMA_ROWS) * bh > sms:
         return Plan("flash", "mma", kb=64, stages=2, warpgroups=1)
     return Plan("flash", "mma", kb=128 if dh <= 64 else 64, stages=2,
                 warpgroups=2)
@@ -235,11 +335,14 @@ def _library():
     if not _FORWARD:
         for route, fn in (("single", lib.attention_single_forward),
                           ("flash", lib.attention_flash_forward)):
-            fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 6
+            fn.argtypes = [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6
             fn.restype = ctypes.c_int
             _FORWARD[route] = fn
-        lib.attention_smem.argtypes = [ctypes.c_int] * 8
+        lib.attention_smem.argtypes = [ctypes.c_int] * 9
         lib.attention_smem.restype = ctypes.c_longlong
+        lib.attention_ring_stages.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_longlong]
+        lib.attention_ring_stages.restype = ctypes.c_int
     return lib
 
 
@@ -343,6 +446,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + f"; expected {tuple(shape)} {dtype} on {q.device}")
 
 
+def _refusal(chosen: Plan, s: int, dh: int, optin: int) -> Optional[str]:
+    """Why the kernels cannot launch ``chosen`` at length ``s`` and the
+    head dim ``dh`` they run at on a card of ``optin`` bytes a block, or
+    None: ``group`` belongs to ``"mma"`` above a head dim of 128 alone and
+    there is a divisor of its panels up to 4, a flash ring holds more than
+    ``group`` stages, and the CTA fits the card."""
+    if chosen.variant != "mma" or dh <= _TILE_MAX_DH:
+        return None if chosen.group == 0 else "group is for mma above 128"
+    panels = dh // _PANEL
+    if not 1 <= chosen.group <= _MAX_GROUP or panels % chosen.group:
+        return f"group must divide {panels} panels and be 1 to {_MAX_GROUP}"
+    least = (panels + chosen.group if (panels, chosen.group) in _CONST_PANELS
+             else chosen.group + 1)
+    if chosen.route == "flash" and chosen.stages < least:
+        return f"a flash ring needs {least} stages or more"
+    need = smem_bytes(chosen.route, "mma", s, dh, 2, chosen.kb, chosen.stages,
+                      chosen.warpgroups, chosen.group)
+    if need > optin:
+        return f"its CTA needs {need} bytes of shared memory, the card {optin}"
+    return None
+
+
 def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
               chosen: Optional[Plan]):
     """Checks, the plan, q, k and v as the kernel reads them (read in
@@ -360,6 +485,9 @@ def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                              f"not {dm // heads}")
         chosen = chosen._replace(pad=variant_pad(chosen.variant, dm // heads))
     dh, scale_dh = entry_head_dims(dm // heads, chosen)
+    why = _refusal(chosen, s, dh, card(q.device)[0])
+    if why is not None:
+        raise ValueError(f"attention {chosen}: {why}")
     if chosen.pad:
         q, k, v = (_padded(t, heads, chosen.pad) for t in (q, k, v))
         dm = heads * dh
@@ -379,7 +507,8 @@ def _operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
             qb, dh, qr, kb, dh, kr, vb, dh, vr, s * dm, dh, dm)
     return chosen, out, (q, k, v), (
         _VARIANT_CODES[chosen.variant], chosen.kb, chosen.stages,
-        chosen.warpgroups, _DTYPE_CODES[q.dtype], b, heads, s, dh, scale_dh,
+        chosen.warpgroups, chosen.group, _DTYPE_CODES[q.dtype], b, heads, s,
+        dh, scale_dh,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides)
 
 

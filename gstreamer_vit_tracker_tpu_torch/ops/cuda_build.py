@@ -70,16 +70,19 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    seconds = {}
-    for name, (proc, tmp, out) in procs.items():
+    seconds, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():   # every nvcc waited for
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         with open(f"{out}.log", "w") as f:
             f.write(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                               f"(rc {proc.returncode}):\n{log}")
-        os.replace(tmp, out)   # atomic: a reader never sees half a library
+            failed.append(f"nvcc failed for csrc/{name}.cu "
+                          f"(rc {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)   # atomic: a reader never sees half a library
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

@@ -44,10 +44,15 @@ N tiles as ints):
 
 Above a head dim of 128, ``"mma"`` and ``"tf32x3"`` run the attention stage
 in panels of 64 columns (``attention_panels_kernel`` of
-``csrc/encoder_mma.cuh`` and ``encoder_tf32.cuh``): a CTA owns one panel of
-the output and sums its scores over the panels of q and k, so its registers
-and shared memory are one panel's whatever the head dim.  The products do
-not see the head dim.
+``csrc/encoder_mma.cuh`` and ``encoder_tf32.cuh``).  ``"mma"``: a CTA keeps
+its 64 rows of q resident and ``Plan.group`` = G panels of the output in
+registers, K and V come through a TMA ring (``csrc/panel_ring.cuh``), and
+each key block's scores are computed once a CTA in each pass (G up to 3:
+the fresh accumulators of the twin's arithmetic fill the registers; 1 at
+batch 1, where the grid is smaller than the card: :func:`plan`).
+``"tf32x3"``: a CTA owns one panel of the output and sums its scores over
+the panels of q and k, so its registers and shared memory are one panel's
+whatever the head dim.  The products do not see the head dim.
 
 The LayerNorm products of ``"mma"`` and ``"tf32x3"`` come in two forms
 each, ``Plan.ln``, picked from the shape alone: ``"resident"`` (the CTA's
@@ -155,8 +160,10 @@ H100_OPTIN = 232448
 # 232,448 and at W = 1024 263,168.  The attention takes 64 query rows and
 # walks 64-key blocks through a ring of 2 (82,944 bytes at head dim 128, for
 # any S); above a head dim of 128 (_TILE_MAX_DH) it runs in panels of 64
-# columns, a ring of two stages of a q, a k and a V panel (50,176 bytes
-# "mma", 104,448 "tf32x3", for any head dim and S); "simt" stops there.  "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
+# columns: "mma" its q panels and a ring of panel stages (107,672 bytes at
+# head dim 256, for any S: attention.panel_stages), "tf32x3" a ring of two
+# stages of a q, a k and a V panel (104,448 bytes for any head dim and S);
+# "simt" stops there.  "mma" holds up to _MAX_GROUP panels of o a CTA.  "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
 # chunks through a ring of 4 slots (3 at N 64) a warpgroup of A and the
 # weight's two planes (and, streamed, the chunk's LN scale and bias); a
 # resident LN product holds its 64 rows of W and its scale and bias instead
@@ -176,6 +183,7 @@ _RESIDENT_MAX_WIDTH = 768
 _RING_TILES = {1: (32, 64), 2: (32, 64, 128)}
 _SPLIT_MAX_DH = 64         # "tf32x3": two-warpgroup attention built up to it
 _TILE_MAX_DH, _PANEL = 128, 64
+_MAX_GROUP = 3
 
 
 class Plan(NamedTuple):
@@ -187,6 +195,8 @@ class Plan(NamedTuple):
     width: int = 0                             # padded D (0: none)
     mlp: int = 0                               # padded MLP width (0: none)
     ln: str = "resident"                       # the LN products' form
+    group: int = 0                             # "mma" above 128: panels of
+                                               # o an attention CTA
 
     def config(self) -> Tuple[int, ...]:
         """The 7 ints the C entries take first (``Config`` in the source):
@@ -232,15 +242,23 @@ def ln_smem_bytes(variant: str, ln: str, width: int, tile: int,
             + slots * 2 * _TF32_CHUNK) * 4
 
 
-def attention_smem_bytes(variant: str, dh: int, warpgroups: int = 1) -> int:
+def attention_smem_bytes(variant: str, dh: int, warpgroups: int = 1,
+                         group: int = 0, optin: int = H100_OPTIN) -> int:
     """Dynamic shared memory of one attention CTA of ``variant`` at the
-    head dim it runs (the sources' ``attention_smem_bytes`` and
-    ``attention_panels_smem_bytes``): up to 128 a ring of two 64-key K and
-    V blocks beside the 64-row Q tile (``"tf32x3"``: a ring a warpgroup),
-    above 128 two stages of a q, a k and a V panel of 64 columns, whatever
-    the head dim; ``"simt"``'s is static."""
+    head dim it runs (the sources' ``attention_smem_bytes``,
+    ``panel::smem_bytes`` and ``attention_panels_smem_bytes``): up to 128 a
+    ring of two 64-key K and V blocks beside the 64-row Q tile
+    (``"tf32x3"``: a ring a warpgroup); above 128 ``"mma"``'s q panels and
+    the ring ``attention.panel_stages`` gives for ``group`` panels of o on a
+    card of ``optin`` bytes a block, ``"tf32x3"``'s two stages of a q, a k
+    and a V panel of 64 columns, whatever the head dim; ``"simt"``'s is
+    static."""
     if variant == "simt":
         return 0
+    if variant == "mma" and dh > _TILE_MAX_DH:
+        panels = dh // _PANEL
+        return attention.panel_smem_bytes(
+            panels, attention.panel_stages(panels, group, optin))
     if dh > _TILE_MAX_DH:
         rows, dh = 2 * (_ROWS + 2 * 64), _PANEL
         return 1024 + rows * dh * 2 if variant == "mma" else rows * (dh + 4) * 4
@@ -409,7 +427,25 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
         raise ValueError(f"the encoder kernels cannot take this shape "
                          f"({variant}, {dtype}): no LN product form fits "
                          f"{optin} bytes of shared memory")
-    return Plan(variant, tiles, pad, wgs, width, mlp, ln)
+    return Plan(variant, tiles, pad, wgs, width, mlp, ln,
+                panel_group(variant, batch, seq, heads, dh, sms))
+
+
+def panel_group(variant: str, batch: int, seq: int, heads: int, dh: int,
+                sms: int) -> int:
+    """``Plan.group``: the panels of o a CTA of ``"mma"``'s attention holds
+    at a head dim ``dh`` above 128 (0 elsewhere): ``attention.panel_group``
+    with each k panel taken twice (the two passes), up to _MAX_GROUP (Model
+    A, dh 256: 2 at batch 16, 536.22 us against 591.17 at G 1; 1 at batch
+    1, 1929.77 against 2002.66 at G 2, where the grid is smaller than the
+    card and a CTA's P.V grows with G; ``profile_encoder.py wide``)."""
+    if variant != "mma" or dh <= _TILE_MAX_DH:
+        return 0
+    panels = dh // _PANEL
+    return attention.panel_group(
+        panels, -(-seq // _ROWS) * batch * heads, sms, 2,
+        lambda g: attention_smem_bytes("mma", dh, 1, g)
+        <= attention._TWO_CTA_BYTES, _MAX_GROUP)
 
 
 def encoder_reference(x: torch.Tensor, blocks: Sequence[Params],
@@ -501,9 +537,9 @@ _LIB: List[ctypes.CDLL] = []
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' signatures on a loaded ``vit_encoder``
     library."""
-    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 16
+    lib.vit_encoder_forward.argtypes = ([ctypes.c_int] * 17
                                         + [ctypes.c_void_p] * 20)
-    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 15
+    lib.vit_block_forward.argtypes = ([ctypes.c_int] * 16
                                       + [ctypes.c_void_p] * 20)
     for fn in (lib.vit_encoder_forward, lib.vit_block_forward):
         fn.restype = ctypes.c_int
@@ -661,7 +697,8 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
     the variant must be one of the dtype's and take the shape; the pads are
     the variant's own; ``"mma"`` or ``"tf32x3"`` named without tiles gets
     the rule's tiles, warpgroups and LN form, and a named ``"resident"``
-    form must fit the card at the named tiles."""
+    form must fit the card at the named tiles; ``"mma"`` above a head dim
+    of 128 named without ``group`` gets the rule's."""
     b, s, d = x.shape
     if chosen.variant not in _DTYPE_VARIANTS[x.dtype]:
         raise ValueError(f"the encoder kernels run {x.dtype} as one of "
@@ -694,7 +731,29 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
                              f"warpgroups")
     elif chosen.ln != "resident":
         raise ValueError(f"simt takes no LN form, not {chosen.ln}")
+    dh = pad or d // heads
+    if chosen.variant == "mma" and dh > _TILE_MAX_DH and not chosen.group:
+        chosen = chosen._replace(group=_plan_for(x, heads, hidden).group)
+    why = group_refusal(chosen.variant, dh, chosen.group)
+    if why is not None:
+        raise ValueError(f"the encoder kernels cannot take {chosen}: {why}")
     return chosen._replace(pad=pad, width=width, mlp=mlp)
+
+
+def group_refusal(variant: str, dh: int, group: int) -> Optional[str]:
+    """Why the attention stage cannot run ``group`` panels of o a CTA at
+    the head dim ``dh`` it runs, or None: ``"mma"`` above a head dim of 128
+    takes a divisor of dh / 64 from 1 to _MAX_GROUP, every other shape 0
+    (``csrc/vit_encoder.cu::check`` refuses the rest before a launch)."""
+    if variant == "mma" and dh > _TILE_MAX_DH:
+        if 1 <= group <= _MAX_GROUP and (dh // _PANEL) % group == 0:
+            return None
+        return (f"the panel attention takes a divisor of {dh // _PANEL} "
+                f"panels from 1 to {_MAX_GROUP}, not group {group}")
+    if group:
+        return (f"group is mma's above a head dim of {_TILE_MAX_DH}, not "
+                f"{variant}'s at {dh}")
+    return None
 
 
 def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
@@ -745,8 +804,8 @@ def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
              if chosen.ln == "streamed" else None)
     ln_scratch = (stats.data_ptr() if stats is not None
                   else normed if n_rows else None)
-    args = (*chosen.config(), _DTYPE_CODES[x.dtype], b, s, d, width,
-            num_heads, dh, hidden)
+    args = (*chosen.config(), chosen.group, _DTYPE_CODES[x.dtype], b, s, d,
+            width, num_heads, dh, hidden)
     if stacked:
         args += (weights[0].shape[0],)
     args += (x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in weights],

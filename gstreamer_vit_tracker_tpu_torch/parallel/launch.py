@@ -6,9 +6,11 @@ What ``torchrun --nproc-per-node n`` does for a script, for a function:
 temporary directory, so concurrent callers never share a port), runs
 ``fn(rank, n, *args)`` on one intra-op thread, and sends back what ``fn``
 returns.  A rank that raises fails the call with its traceback, a rank
-whose process ends without a result fails it within a second; a call that
-outlives ``timeout`` (a collective that hangs) raises, and the ranks still
-running are killed.  ``fn`` and its arguments cross by pickle, so
+whose process ends without a result fails it within a second of the other
+ranks' reports (each rank still running gets FAILURE_GRACE seconds to send
+the failure the death caused, and the call raises the death first); a call
+that outlives ``timeout`` (a collective that hangs) raises, and the ranks
+still running are killed.  ``fn`` and its arguments cross by pickle, so
 ``fn`` is a module-level function.
 """
 
@@ -25,7 +27,8 @@ from typing import Any, Callable, List
 __all__ = ["run_ranks"]
 
 # Seconds a rank's failure waits for another rank to be seen dead (the
-# likelier cause) before the call raises it.
+# likelier cause), and a rank seen dead waits for the failures it caused,
+# before the call raises.
 FAILURE_GRACE = 2.0
 
 
@@ -55,19 +58,24 @@ def _rank_main(fn, rank, n, device, init_method, args, out) -> None:
 def _collect(procs, results, failed, out, fn, grace: float) -> None:
     """Read what the ranks sent, then raise if a rank's process ended
     without sending anything (it died before ``fn`` could return or raise,
-    e.g. in its start-up), else if a rank failed.  A message still in flight
-    is waited for, and each live rank gets up to ``grace`` seconds to be seen
-    ending: a rank that fails because a peer died (a connection closed in
-    its set-up) reports at about the moment the peer's process ends, and the
-    death, the cause, is what the call raises, with the failures after
-    it."""
+    e.g. in its start-up), else if a rank failed.  Reading stops once every
+    rank has reported or its process has ended (a rank's message is in the
+    pipe before its process ends) or ``grace`` seconds have passed: a rank
+    that fails because a peer died (a connection closed) reports at about
+    the moment the peer's process ends, before or after the parent sees
+    it, and the death, the cause, is what the call raises, with the
+    failures after it."""
     deadline = time.monotonic() + grace
+
+    def settled() -> bool:
+        return all(r in results or r in failed or p.exitcode is not None
+                   for r, p in enumerate(procs))
+
     while True:
         try:
             rank, ok, value = out.get(timeout=0.1)
         except queue.Empty:
-            if time.monotonic() >= deadline or all(
-                    p.exitcode is not None for p in procs):
+            if settled() or time.monotonic() >= deadline:
                 break
             continue
         (results if ok else failed)[rank] = value
@@ -110,7 +118,8 @@ def run_ranks(fn: Callable[..., Any], n: int, *args: Any, device="cuda",
                 except queue.Empty:
                     if any(p.exitcode is not None and r not in results
                            for r, p in enumerate(procs)):
-                        _collect(procs, results, failed, out, fn, 0.0)
+                        _collect(procs, results, failed, out, fn,
+                                 FAILURE_GRACE)
                     continue
                 if ok:
                     results[rank] = value

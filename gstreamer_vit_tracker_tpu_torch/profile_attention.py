@@ -13,7 +13,12 @@ through ``ops/attention.py::prepared`` (one launch on ready operands): the
 warpgroups or 3 stages and 1, the ``tf32x3`` variant of both kernels
 (float32 cases), and the ``simt`` variant of both kernels.  A bf16 head
 dim the ``mma`` tiles do not take (48: the ``small`` architecture in bf16)
-runs them zero-padded to the next of 32 / 64 / 128, as the plan has it.  It
+runs them zero-padded to the next of 32 / 64 / 128, as the plan has it.
+Above a head dim of 128 (Model A's 256 at its 16-slot tick's (64, 320)
+and at S 100, and 192) the panel kernels instead: bf16 both routes at
+every G (``Plan.group``, the panels of o a CTA: each divisor of dh / 64 up
+to 4) with the flash ring of ``attention.panel_stages``, float32 both
+``tf32x3`` routes.  It
 checks each against ``attention_reference`` and prints the device time of a
 launch in microseconds (20 launches captured into a CUDA graph and replayed,
 so the host's enqueue time is not read as the kernel's) beside
@@ -38,7 +43,8 @@ CASES = ((48, 320, 64, torch.bfloat16), (3, 320, 64, torch.bfloat16),
          (4, 777, 128, torch.bfloat16), (48, 320, 32, torch.bfloat16),
          (48, 320, 64, torch.float32), (3, 1088, 64, torch.float32),
          (32, 80, 48, torch.float32), (32, 80, 48, torch.bfloat16),
-         (2, 1088, 48, torch.bfloat16))
+         (2, 1088, 48, torch.bfloat16), (64, 320, 256, torch.bfloat16),
+         (64, 100, 256, torch.bfloat16), (64, 320, 192, torch.bfloat16))
 P = attention.Plan
 CONFIGS = ([P("single", "mma", 64), P("single", "mma", 128)]
            + [P("flash", "mma", kb, stages, wg) for kb in (64, 128)
@@ -46,6 +52,19 @@ CONFIGS = ([P("single", "mma", 64), P("single", "mma", 128)]
            + [P("single", "tf32x3", 64), P("flash", "tf32x3", 64, 2)]
            + [P("single", "simt"), P("flash", "simt")])
 GRAPH_LAUNCHES = 20
+
+
+def _configs(dh: int, optin: int) -> list:
+    """CONFIGS, or above a head dim of 128 the panel kernels' (module
+    docstring)."""
+    if dh <= attention._TILE_MAX_DH:
+        return CONFIGS
+    panels = -(-dh // 64)
+    return ([c for g in (4, 3, 2, 1) if panels % g == 0
+             for c in (P("single", "mma", 64, group=g),
+                       P("flash", "mma", 64,
+                         attention.panel_stages(panels, g, optin), group=g))]
+            + [P("single", "tf32x3", 64), P("flash", "tf32x3", 64, 2)])
 
 
 def _ms(fn, iters: int = 200) -> float:
@@ -91,21 +110,23 @@ def main() -> None:
         ref = attention.attention_reference(q, k, v).float()
         taken = attention._plan_for(dev, s, dh, dtype, bh)
         cells = []
-        for p in CONFIGS:
+        for p in _configs(dh, optin):
             takes = {"mma": dtype == torch.bfloat16,
                      "tf32x3": dtype == torch.float32}.get(p.variant, True)
             runs_at = attention.variant_pad(p.variant, dh) or dh
-            if not takes or attention.smem_bytes(
-                    p.route, p.variant, s, runs_at, q.element_size(), p.kb,
-                    p.stages, p.warpgroups) > optin:
+            if not takes or attention._refusal(p, s, runs_at, optin) \
+                    or attention.smem_bytes(
+                        p.route, p.variant, s, runs_at, q.element_size(),
+                        p.kb, p.stages, p.warpgroups, p.group) > optin:
                 continue
             out, launch = attention.prepared(q, k, v, chosen=p)
             launch()
             torch.cuda.synchronize()
             err = (out.float()[..., :dh] - ref).abs().max().item()
             mark = "*" if p == taken._replace(pad=0) else ""
+            group = f" G {p.group}" if p.group else ""
             cells.append(f"{mark}{p.route} {p.variant} {p.kb}/{p.stages}/"
-                         f"{p.warpgroups}: {_graph_us(launch):.1f} us, "
+                         f"{p.warpgroups}{group}: {_graph_us(launch):.1f} us, "
                          f"max|d| {err:.1e}")
 
         def library():

@@ -40,11 +40,13 @@ named by its place in the block (five launches a block for ``tf32x3``,
 seven for ``simt``), mean device us a launch by stage.
 
 ``wide``: the same by stage for bf16 at ViT-L's width (D 1024, 16 heads,
-MLP 4096, seeded weights): kernel 1 at (1, 320, 1024) x 24 and kernel 2
-at (16, 320, 1024), seven launches a block (the two LN launches, qkv,
-attention, proj, mlp1, mlp2), the launch's device us (a replayed CUDA
-graph), and beside each product ``torch.matmul``'s device us on the same
-shapes.
+MLP 4096, seeded weights) and for Model A (the same weights in 4 heads of
+256: chip_smoke.py's HEADS_A, whose attention stage is the panel kernel):
+kernel 1 at (1, 320, 1024) x 24 and kernel 2 at (16, 320, 1024), seven
+launches a block (the two LN launches, qkv, attention, proj, mlp1, mlp2),
+the launch's device us (a replayed CUDA graph), Model A also at the panels
+of o a CTA the plan did not take (``Plan.group`` 1 and 2), and beside each
+product ``torch.matmul``'s device us on the same shapes.
 
 ``cut``: ``wide``'s two launches at the plan (device us a launch, a
 replayed CUDA graph) for the shipped build and for builds that leave out
@@ -236,8 +238,11 @@ def f32_stages(dev) -> dict:
     return out
 
 
-# ViT-L/16's width, heads, MLP and depth (Dosovitskiy et al. 2021, Table 1).
+# ViT-L/16's width, heads, MLP and depth (Dosovitskiy et al. 2021, Table 1),
+# and the heads of Model A (chip_smoke.py's HEADS_A: ViT-L's width in 4 heads
+# of 256).
 WIDE = dict(dim=1024, heads=16, hidden=4096, depth=24)
+WIDE_HEADS = {"ViT-L": 16, "Model A": 4}
 WIDE_REPS = 5
 # Besides the plan, the prenormed products timed at these (warpgroups, N
 # tiles) by batch.
@@ -288,11 +293,13 @@ def _wide_cases(dev) -> list:
 def wide_stages(dev) -> dict:
     """Device us a launch by stage of bf16 kernel 1 at ViT-L's (1, 320,
     1024) x 24 and kernel 2 at (16, 320, 1024), seeded weights, the plan's
-    form and tiles and (prenormed) the WIDE_NAMED alternatives; beside
-    each product ``torch.matmul``'s device us on the same (M, K) x (K, N)
-    (a CUDA graph of GRAPH_LAUNCHES replayed): the library's time for the
-    product alone, without its LN, bias or epilogue."""
-    d, heads, hidden = WIDE["dim"], WIDE["heads"], WIDE["hidden"]
+    form and tiles and (prenormed) the WIDE_NAMED alternatives, then the
+    same launches in Model A's heads, at the plan and at the other panel
+    groups; beside each product ``torch.matmul``'s device us on the same
+    (M, K) x (K, N) (a CUDA graph of GRAPH_LAUNCHES replayed): the
+    library's time for the product alone, without its LN, bias or
+    epilogue."""
+    d, hidden = WIDE["dim"], WIDE["hidden"]
     gen = torch.Generator().manual_seed(1)
 
     def w(*shape, std):
@@ -301,12 +308,19 @@ def wide_stages(dev) -> dict:
     products = {"qkv": (d, 3 * d), "proj": (d, d), "mlp1": (d, hidden),
                 "mlp2": (hidden, d)}
     out = {}
-    for label, x, weights_, stacked in _wide_cases(dev):
+    for (label, x, weights_, stacked), (model, heads) in (
+            (case, model) for model in WIDE_HEADS.items()
+            for case in _wide_cases(dev)):
         batch, blocks = x.shape[0], weights_[0].shape[0] if stacked else 1
         chosen = vit_block._plan_for(x, heads, hidden)
-        plans = [chosen] + ([chosen._replace(warpgroups=g, tiles=t)
-                             for g, t in WIDE_NAMED[batch]]
-                            if chosen.ln == "prenormed" else [])
+        if chosen.group:      # the panel attention: the other groups
+            plans = [chosen] + [chosen._replace(group=g) for g in (1, 2)
+                                if g != chosen.group]
+        else:
+            plans = [chosen] + ([chosen._replace(warpgroups=g, tiles=t)
+                                 for g, t in WIDE_NAMED[batch]]
+                                if chosen.ln == "prenormed" else [])
+        label = f"{model} {label}"
         row = {"plan": list(chosen)}
         for i, p in enumerate(plans):
             _, launch = vit_block.prepared(x, weights_, heads, stacked, p)
@@ -315,6 +329,8 @@ def wide_stages(dev) -> dict:
                                  WIDE_REPS))
             if i == 0:
                 row.update(got)
+            elif chosen.group:
+                row[f"group {p.group}"] = got
             else:
                 row[f"warpgroups {p.warpgroups} tiles {p.tiles}"] = got
         for name, (k, n) in products.items():

@@ -1038,11 +1038,15 @@ def test_wide_head_dims_match_reference_on_both_routes(dev, dtype, dh, s):
     _check_attention(attention.multihead_attention(q, k, v, 2), ref, dtype)
     chosen = attention._plan_for(dev, s, dh, dtype, 4)
     optin = attention.card(dev)[0]
+    pad = chosen.pad or dh
     for route in ("single", "flash"):
-        named = chosen._replace(route=route, stages=0 if route == "single" else 2)
-        pad = named.pad or dh
+        # bf16's flash ring holds panels (panel_stages), float32's two stages.
+        stages = 0 if route == "single" else (
+            attention.panel_stages(pad // 64, chosen.group, optin)
+            if chosen.variant == "mma" else 2)
+        named = chosen._replace(route=route, stages=stages)
         if attention.smem_bytes(route, named.variant, s, pad, 0, 64,
-                                named.stages) > optin:
+                                named.stages, 1, named.group) > optin:
             continue
         out, launch = attention.prepared(q, k, v, 2, chosen=named)
         launch()

@@ -317,16 +317,137 @@ def test_plans_take_every_wide_head_dim(dh, dtype):
         assert (got.pad or dh) == pad == tattn.entry_head_dims(dh, got)[0]
         assert tattn.entry_head_dims(dh, got)[1] == dh
         assert (got.kb, got.warpgroups) == (64, 1), got
-        assert tattn.smem_bytes(got.route, got.variant, s, pad,
+        need = tattn.smem_bytes(got.route, got.variant, s, pad,
                                 2 if dtype == BF16 else 4, got.kb, got.stages,
-                                got.warpgroups) <= H100_OPTIN // (
-                                    2 if got.route == "single" else 1)
-    # The flash ring of the panels does not grow with the head dim.
-    assert tattn.smem_bytes("flash", "mma", 320, 1024, 2, 64, 2) == \
-        tattn.smem_bytes("flash", "mma", 4096, 192, 2, 64, 2) == 50176
+                                got.warpgroups, got.group)
+        if dtype == F32:
+            assert got.group == 0, got
+            assert need <= H100_OPTIN // (2 if got.route == "single" else 1)
+        else:
+            # The panel kernel (csrc/panel_ring.cuh): G panels of o a CTA, q
+            # resident, a ring of panel stages; single while its CTA fits
+            # two an SM or the grid is no larger than the card.
+            assert got.group >= 1 and (pad // 64) % got.group == 0, got
+            assert need <= H100_OPTIN, got
+            assert tattn._refusal(got, s, pad, H100_OPTIN) is None
+    # float32's flash ring of the panels does not grow with the head dim;
+    # bf16's q panels do, beside a ring of at most two key blocks' loads.
     assert tattn.smem_bytes("flash", "tf32x3", 320, 1024, 4, 64, 2) == 104448
-    assert vit_block.attention_smem_bytes("mma", 1024) == 50176
     assert vit_block.attention_smem_bytes("tf32x3", 1024) == 104448
+    assert tattn.smem_bytes("flash", "mma", 4096, 1024, 2, 64, 12, 1, 4) \
+        == vit_block.attention_smem_bytes("mma", 1024, 1, 2) \
+        == 1024 + (16 + 12) * 8192 + 8 * (1 + 2 * 12) == 230600
+
+
+# The bf16 panel attention's plans at Model A's head dim (256, 4 heads),
+# dh 192 and 136 (4 heads, 136 padded to 192) and ModelConfig(num_heads=1)'s
+# 1024, at batch 1 and 16 on an H100 (132 SMs, 232,448 bytes a block; G the
+# cheapest count of panel products on the slowest SM, attention.panel_group):
+# kernels 3/4 at S 320 and 100 on (batch x heads, S, dh) as the per-block
+# route hands them over, and kernel 1/2's attention stage at S 320.  Each
+# row: (route, G, ring stages, grid, shared-memory bytes).  The bytes are
+# 1024 + (P + R) x 8192 + 8 (1 + 2 R), P = dh / 64 q panels and R ring
+# stages (single: every load of the walk, blocks x (P + G)).
+PANEL_PLANS = {
+    (136, 1): {320: ("single", 1, 0, 60, 189768),
+               100: ("single", 1, 0, 24, 91272),
+               "encoder": (1, 8, 60, 91272)},
+    (136, 16): {320: ("flash", 3, 10, 320, 107688),
+                100: ("single", 3, 0, 128, 124104),
+                "encoder": (3, 10, 320, 107688)},
+    (192, 1): {320: ("single", 1, 0, 60, 189768),
+               100: ("single", 1, 0, 24, 91272),
+               "encoder": (1, 8, 60, 91272)},
+    (192, 16): {320: ("flash", 3, 10, 320, 107688),
+                100: ("single", 3, 0, 128, 124104),
+                "encoder": (3, 10, 320, 107688)},
+    (256, 1): {320: ("flash", 1, 9, 80, 107672),
+               100: ("single", 1, 0, 32, 115880),
+               "encoder": (1, 9, 80, 107672)},
+    (256, 16): {320: ("flash", 4, 9, 320, 107672),
+                100: ("flash", 2, 9, 256, 107672),
+                "encoder": (2, 9, 640, 107672)},
+    (1024, 1): {320: ("flash", 1, 12, 80, 230600),
+                100: ("flash", 1, 12, 32, 230600),
+                "encoder": (1, 12, 80, 230600)},
+    (1024, 16): {320: ("flash", 4, 12, 320, 230600),
+                 100: ("flash", 4, 12, 128, 230600),
+                 "encoder": (2, 12, 640, 230600)},
+}
+
+
+def _panel_bytes(panels, stages):
+    return 1024 + (panels + stages) * 8192 + 8 * (1 + 2 * stages)
+
+
+@pytest.mark.parametrize("dh,batch", sorted(PANEL_PLANS))
+def test_panel_plans_give_group_grid_and_bytes(dh, batch):
+    heads = 1 if dh == 1024 else 4
+    run = -(-dh // 64) * 64
+    panels = run // 64
+    for s in (320, 100):
+        route, group, stages, grid, nbytes = PANEL_PLANS[dh, batch][s]
+        got = tattn.plan(s, dh, BF16, H100_OPTIN, batch * heads, H100_SMS)
+        assert (got.route, got.group, got.stages) == (route, group, stages)
+        assert (got.pad or dh) == run
+        assert -(-s // 64) * batch * heads * (panels // got.group) == grid
+        ring = -(-s // 64) * (panels + group) if route == "single" else stages
+        assert tattn.smem_bytes(route, "mma", s, run, 2, 64, stages, 1,
+                                group) == _panel_bytes(panels, ring) == nbytes
+        assert nbytes <= H100_OPTIN
+        # Two CTAs an SM where the flash ring fits them.
+        if route == "flash" and panels <= 4:
+            assert 2 * (nbytes + 1024) <= 233472
+    group, stages, grid, nbytes = PANEL_PLANS[dh, batch]["encoder"]
+    d = heads * dh
+    got = vit_block.plan(batch, 320, d, heads, 4 * d, BF16, H100_SMS)
+    assert got.group == group and vit_block.group_refusal(
+        "mma", run, got.group) is None
+    assert tattn.panel_stages(panels, group, H100_OPTIN) == stages
+    assert 5 * batch * heads * (panels // group) == grid
+    assert vit_block.attention_smem_bytes("mma", run, 1, group) \
+        == _panel_bytes(panels, stages) == nbytes <= H100_OPTIN
+
+
+def _source_constant(name):
+    import re
+    from gstreamer_vit_tracker_tpu_torch.ops import cuda_build
+
+    with open(f"{cuda_build.CSRC}/panel_ring.cuh") as f:
+        return int(re.search(rf"{name} = (\d+);", f.read()).group(1))
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kTwoCtaBytes", tattn._TWO_CTA_BYTES), ("kAlign", tattn._MMA_ALIGN),
+    ("kKeys", tattn._TF32_KEYS), ("kCols", tattn._PANEL)])
+def test_panel_plan_constants_are_the_sources(name, value):
+    # What the plans mirror (the C entries attention_smem and
+    # attention_ring_stages, checked against them on the card by
+    # chip_smoke.py) rests on these constants of csrc/panel_ring.cuh.
+    assert _source_constant(name) == value
+
+
+@pytest.mark.parametrize("plan_,s,dh", [
+    (tattn.Plan("flash", "mma", 64, 9, 1, 0, 3), 320, 256),    # 3 of 4 panels
+    (tattn.Plan("flash", "mma", 64, 9, 1, 0, 5), 320, 320),    # G above 4
+    (tattn.Plan("flash", "mma", 64, 4, 1, 0, 4), 320, 256),    # ring <= G
+    (tattn.Plan("flash", "mma", 64, 5, 1, 0, 2), 320, 256),    # < P + G built
+    (tattn.Plan("flash", "mma", 64, 0, 1, 0, 0), 320, 256),    # no group
+    (tattn.Plan("single", "mma", 64, 0, 1, 0, 1), 1040, 256),  # too large
+    (tattn.Plan("flash", "mma", 64, 16, 1, 0, 4), 320, 1024),  # too large
+    (tattn.Plan("flash", "mma", 64, 2, 1, 0, 1), 320, 128),    # group <= 128
+    (tattn.Plan("flash", "tf32x3", 64, 2, 1, 0, 1), 320, 256),  # tf32x3
+])
+def test_panel_plans_the_design_does_not_take_raise(plan_, s, dh):
+    assert tattn._refusal(plan_, s, dh, H100_OPTIN) is not None
+
+
+@pytest.mark.parametrize("variant,dh,group", [
+    ("mma", 256, 4), ("mma", 256, 3), ("mma", 192, 2), ("mma", 256, 0),
+    ("mma", 128, 1), ("tf32x3", 256, 1)])
+def test_encoder_panel_groups_the_design_does_not_take_raise(variant, dh,
+                                                             group):
+    assert vit_block.group_refusal(variant, dh, group) is not None
 
 
 def test_head_dims_pad_to_whole_panels_in_bf16():
