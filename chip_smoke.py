@@ -124,8 +124,11 @@ Phases, in order; any failure raises and exits non-zero:
    then head dims above 128 and patches above 32 (``heads_patch_phase``,
    alone: ``python -c "import chip_smoke as c; c.heads_patch_alone()"``):
    kernels 3 and 4 at head dims 136, 192 and 256 in both dtypes (the
-   panel kernels; the plan's route and the other by name, timed beside
-   ``scaled_dot_product_attention`` and the bound), kernels 1 and 2 at
+   panel kernels; the plan's route and the other by name, float32 also at
+   every other G, timed beside ``scaled_dot_product_attention`` and the
+   bound), Model A's kernel 1 and 2 outputs in both dtypes bit-equal by
+   sha256 to the recorded builds' (``WIDE_SHA256``; float32: the build
+   before the float32 panel attention's redesign), kernels 1 and 2 at
    head dim 192 (D 768, 4 heads) and on Model A (ViT-L's width and depth
    in 4 heads of 256, seeded: kernel 1 at (1, 320, 1024) x 24, bf16 after
    the final LN against the float64 chain, kernel 2 at (16, 320, 1024),
@@ -1447,7 +1450,7 @@ def attention_phase(dev, cfg, small):
     attention_case(4, 80, 48, bf16, dev, "single", "mma", timed=False)  # dh 48 -> 64
     single["multihead"] = multihead_case(dev, cfg)
     # The shared-memory sizes the rule is decided on are the kernels' own
-    # (the bf16 panel kernels' at G panels of o a CTA, and their ring).
+    # (the panel kernels' at G panels of o a CTA, and their rings).
     lib = attention._library()
     for route, variant, kb, st, wg, g, s, dh, eb in (
             ("single", "mma", 64, 0, 1, 0, 320, 64, 2),
@@ -1464,7 +1467,10 @@ def attention_phase(dev, cfg, small):
             ("single", "tf32x3", 64, 0, 1, 0, 128, 64, 4),
             ("flash", "tf32x3", 64, 2, 1, 0, 320, 64, 4),
             ("flash", "tf32x3", 64, 2, 1, 0, 1088, 128, 4),
-            ("flash", "tf32x3", 64, 2, 1, 0, 320, 256, 4)):
+            ("flash", "tf32x3", 64, 5, 1, 4, 320, 256, 4),
+            ("flash", "tf32x3", 64, 5, 1, 3, 320, 136, 4),
+            ("single", "tf32x3", 64, 0, 1, 1, 64, 256, 4),
+            ("flash", "tf32x3", 64, 7, 1, 4, 320, 1024, 4)):
         want = lib.attention_smem(route == "single",
                                   attention._VARIANT_CODES[variant], kb, st,
                                   wg, g, s, dh, eb)
@@ -1477,6 +1483,11 @@ def attention_phase(dev, cfg, small):
         want = lib.attention_ring_stages(panels, g, optin)
         if attention.panel_stages(panels, g, optin) != want:
             raise AssertionError(f"panel_stages({panels}, {g}) != the "
+                                 f"kernel's {want}")
+    for panels, g in ((3, 3), (3, 1), (4, 4), (4, 1), (8, 2), (16, 4)):
+        want = lib.attention_tf32_ring_stages(panels, g, optin)
+        if attention.tf32_panel_stages(panels, g, optin) != want:
+            raise AssertionError(f"tf32_panel_stages({panels}, {g}) != the "
                                  f"kernel's {want}")
     return single, flash
 
@@ -2452,7 +2463,14 @@ WIDE_SHA256 = {
     "kernel1_model_a_bf16":
         "475493f6893068516639e3ab6f005a16b63f696060e3c113a643657f4b7fc8b1",
     "kernel2_model_a_bf16":
-        "cca8a89b43f94ab9cf9b3c97e0e20ae6a77a06f665a592e3e7750260c6b74336"}
+        "cca8a89b43f94ab9cf9b3c97e0e20ae6a77a06f665a592e3e7750260c6b74336",
+    # Model A's float32 ones as the build of commit 3d013a1 (the float32
+    # panel attention before its redesign, a CTA a panel of o) made them:
+    # the redesign keeps each thread's sums in their order.
+    "kernel1_model_a_f32":
+        "fa34d40a4f25faf70489b2b720d9e483beb5a33061243688025dcf73cbd93a36",
+    "kernel2_model_a_f32":
+        "77c81cc4b5203bb3f3353d2257194d2aecf44384d4a873f87395c70d2f1d9d37"}
 
 
 def digest(t: torch.Tensor) -> str:
@@ -2513,45 +2531,47 @@ def flagship_outputs(dev) -> dict:
     return out
 
 
-def wide_outputs(dev, name: str, cfg, params, seed: int) -> dict:
-    """bf16 kernel 1 on seeded (1, 320, D) tokens through every block of a
-    wide model (``wide_model(dev, spec, seed)``: ViT-L, ViT-H's width,
-    Model A) and, but for ViT-H, kernel 2 on seeded (16, 320, D) ones
+def wide_outputs(dev, name: str, cfg, params, seed: int,
+                 dtype=torch.bfloat16) -> dict:
+    """Kernel 1 in ``dtype`` on seeded (1, 320, D) tokens through every
+    block of a wide model (``wide_model(dev, spec, seed)``: ViT-L, ViT-H's
+    width, Model A) and, but for ViT-H, kernel 2 on seeded (16, 320, D) ones
     through its block 0, the tokens drawn from ``seed``: what WIDE_SHA256
     fixes."""
     from gstreamer_vit_tracker_tpu_torch.models import vit
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
-    blocks = [vit.cast_params(p, torch.bfloat16)
-              for p in params["backbone"]["blocks"]]
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    blocks = [vit.cast_params(p, dtype) for p in params["backbone"]["blocks"]]
     gen = torch.Generator(device="cpu").manual_seed(seed)
     x1 = (2.0 * torch.randn((1, cfg.num_tokens, cfg.embed_dim),
-                            generator=gen)).to(dev, torch.bfloat16)
-    out = {f"kernel1_{name}_bf16": vit_block.encoder(x1, blocks,
-                                                     cfg.num_heads)}
+                            generator=gen)).to(dev, dtype)
+    out = {f"kernel1_{name}_{tag}": vit_block.encoder(x1, blocks,
+                                                      cfg.num_heads)}
     if name != "vit_h":
         x16 = (2.0 * torch.randn((SERVE_SLOTS, cfg.num_tokens, cfg.embed_dim),
-                                 generator=gen)).to(dev, torch.bfloat16)
-        out[f"kernel2_{name}_bf16"] = vit_block.block(x16, blocks[0],
-                                                      cfg.num_heads)
+                                 generator=gen)).to(dev, dtype)
+        out[f"kernel2_{name}_{tag}"] = vit_block.block(x16, blocks[0],
+                                                       cfg.num_heads)
     torch.cuda.synchronize()
     return out
 
 
-def check_wide_sha256(dev, name: str, cfg, params, seed: int) -> dict:
-    """``wide_outputs`` of one model against WIDE_SHA256: the prenormed
-    products (every bf16 width above 768) give the bits of the build
-    before them."""
-    got = {k: digest(t)
-           for k, t in wide_outputs(dev, name, cfg, params, seed).items()}
+def check_wide_sha256(dev, name: str, cfg, params, seed: int,
+                      dtype=torch.bfloat16) -> dict:
+    """``wide_outputs`` of one model in ``dtype`` against WIDE_SHA256: the
+    prenormed products (every bf16 width above 768) give the bits of the
+    build before them, and so does the float32 panel attention's redesign
+    (Model A in float32)."""
+    got = {k: digest(t) for k, t in wide_outputs(dev, name, cfg, params,
+                                                 seed, dtype).items()}
     want = {k: WIDE_SHA256[k] for k in got}
-    print(f"{name} bf16 kernel 1 / 2 outputs, sha256 {json.dumps(got)}; "
-          f"bit-equal to the build before the prenormed form: {got == want}",
-          flush=True)
+    tag = str(dtype)[6:]
+    print(f"{name} {tag} kernel 1 / 2 outputs, sha256 {json.dumps(got)}; "
+          f"bit-equal to the recorded build's: {got == want}", flush=True)
     if got != want:
-        raise AssertionError(f"{name}: bf16 kernel outputs are no longer "
-                             f"bit-equal to the build before the prenormed "
-                             f"form")
+        raise AssertionError(f"{name}: {tag} kernel outputs are no longer "
+                             f"bit-equal to the recorded build's")
     return got
 
 
@@ -3051,11 +3071,12 @@ HEADS_PATCHES = ((48, 192), (64, 256))
 
 
 def panel_attention_case(bh, s, dh, dtype, dev, route=None,
-                         timed=False) -> dict:
+                         timed=False, group=None) -> dict:
     """Kernels 3 and 4 at a head dim above 128 on seeded (bh, s, dh)
     tensors against ``attention_reference``: ``flash_attention`` (the
     plan's route, one launch) or, with ``route``, that route by name on
-    ready operands (``prepared``).  ``timed``: device us a launch in a
+    ready operands (``prepared``), float32 at G = ``group`` panels of o a
+    CTA (default the plan's).  ``timed``: device us a launch in a
     replayed CUDA graph beside ``scaled_dot_product_attention``'s, the
     plain version's ms and the bound (bf16 at bf16's rate, float32 as split
     TF32's three products at TF32's; every input read and the output
@@ -3067,9 +3088,15 @@ def panel_attention_case(bh, s, dh, dtype, dev, route=None,
                for _ in range(3))
     plain = attention.attention_reference(q, k, v)
     chosen = attention._plan_for(dev, s, dh, dtype, bh)
-    if route is not None and route != chosen.route:
-        stages = 0 if route == "single" else 2
-        if chosen.variant == "mma":
+    if route is not None and (route != chosen.route or group is not None):
+        stages = 0
+        if chosen.variant == "tf32x3":
+            # float32 by name: G panels of o, tf32_panel_stages' ring.
+            chosen = chosen._replace(group=group or chosen.group)
+            if route == "flash":
+                stages = attention.tf32_panel_stages(
+                    -(-dh // 64), chosen.group, attention.card(dev)[0])
+        elif chosen.variant == "mma":
             # bf16 by name: flash at the plan's G and panel_stages' ring;
             # single at the largest G whose CTA holds every key.
             panels, optin = (chosen.pad or dh) // 64, attention.card(dev)[0]
@@ -3096,7 +3123,7 @@ def panel_attention_case(bh, s, dh, dtype, dev, route=None,
            else ATT_BF16_REL * plain.float().abs().max().item())
     name = (f"attention_{chosen.route} ({bh}, {s}, {dh}) {str(dtype)[6:]} "
             f"{chosen.variant}{' by name' if route else ''}, pad "
-            f"{chosen.pad or 'none'}")
+            f"{chosen.pad or 'none'}, G {chosen.group}")
     print(f"{name}: max|d| {err:.3e} (tolerance {tol:.3e})", flush=True)
     if out.dtype != dtype or not torch.isfinite(out.float()).all() \
             or not err <= tol:
@@ -3142,10 +3169,11 @@ def panel_attention(dev) -> dict:
     """Kernels 3 and 4 at head dims 136, 192 and 256 in both dtypes: at
     each dh the plan's route at S 320 (Model A's shapes: bf16 its 16-slot
     tick's (64, 320, dh), float32 its training batch's (16, 320, dh); flash
-    at every one) timed; at a short S both routes, the plan's and the other
-    by name where its CTA fits the card, both timed: bf16 at S 100 (the
-    plan's single, flash by name; at dh 256 the plan's flash at G 2, single
-    by name at G 4), float32 at S 64 (the plan's flash, single by name)."""
+    at every one) timed, float32 also at every other G by name; at a short
+    S both routes, the plan's and the other by name where its CTA fits the
+    card, both timed: bf16 at S 100 (the plan's single, flash by name; at dh
+    256 the plan's flash at G 2, single by name at G 4), float32 at S 64
+    (the plan's single at G 1, flash by name)."""
     from gstreamer_vit_tracker_tpu_torch.ops import attention
 
     optin = attention.card(dev)[0]
@@ -3157,13 +3185,21 @@ def panel_attention(dev) -> dict:
         for dh in HEADS_ATT_DH:
             cases = [panel_attention_case(bh, 320, dh, dtype, dev,
                                           timed=True)]
+            if dtype == torch.float32:
+                taken = attention._plan_for(dev, 320, dh, dtype, bh).group
+                cases += [panel_attention_case(bh, 320, dh, dtype, dev,
+                                               "flash", True, g)
+                          for g in (1, 2, 3, 4)
+                          if -(-dh // 64) % g == 0 and g != taken]
             short = 100 if dtype == torch.bfloat16 else 64
             plan = attention._plan_for(dev, short, dh, dtype, bh)
             for route in ("single", "flash"):
                 pad = plan.pad or dh
                 stages = 0 if route == "single" else (
                     attention.panel_stages(pad // 64, plan.group, optin)
-                    if plan.variant == "mma" else 2)
+                    if plan.variant == "mma" else
+                    attention.tf32_panel_stages(-(-pad // 64), plan.group,
+                                                optin))
                 if route == plan.route or attention.smem_bytes(
                         route, plan.variant, short, pad, 0, 64, stages, 1,
                         plan.group) <= optin:
@@ -3371,6 +3407,8 @@ def heads_patch_phase(dev, card: str) -> dict:
     acfg, aparams, acparams = wide_model(dev, HEADS_A, seed=256)
     res = {"wide_sha256": check_wide_sha256(dev, "model_a", acfg, aparams,
                                             256),
+           "wide_sha256_f32": check_wide_sha256(dev, "model_a", acfg,
+                                                aparams, 256, torch.float32),
            "attention": panel_attention(dev),
            "encoders": panel_encoders(dev, card, acfg, aparams),
            "kernel5": {}}

@@ -75,12 +75,11 @@
 // rows for single, 8 x 4 and 128-key blocks for flash).
 //
 // Above a head dim of 128 both tensor-core variants run the panel kernels
-// (their section below): the head dim in 64-column panels.  "mma" holds q
-// resident and G panels of o a CTA, its K and V coming through a TMA ring
-// (csrc/panel_ring.cuh), so each score is taken dh / (64 G) times in all;
-// "tf32x3" owns one panel of o a CTA and sums its scores over the panels of
-// q and k, so its registers and shared memory are one panel's whatever the
-// head dim.
+// (their section below): the head dim in 64-column panels, q resident and G
+// panels of o a CTA, K and V coming through a ring of panel stages, so each
+// score is taken dh / (64 G) times in all: "mma" by TMA
+// (csrc/panel_ring.cuh), "tf32x3" split into its TF32 parts once a CTA by
+// producer warpgroups (csrc/panel_tf32.cuh).
 //
 // Which (dtype, dh) takes which variant, and which lengths take which kernel,
 // is decided by ops/attention.py::plan before the launch; the entries here
@@ -97,6 +96,7 @@
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
 #include "panel_ring.cuh"
+#include "panel_tf32.cuh"
 
 namespace {
 
@@ -681,10 +681,18 @@ attention_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict
 // panel::ring_stages (two CTAs an SM where they fit), the single kernel's
 // every load of the walk (every key resident, nothing waits for a stage).
 // The arithmetic is the tile kernels' (Softmax: scores, update, store).
-// "tf32x3" (float32, dh a multiple of 8): a CTA = one warpgroup = one
-// 64-column panel of o, its scores summed over the panels of q and k
-// (attention_tf32.cuh::panel_cta), a ragged last panel zero-filled in
-// shared memory and its columns past dh not stored.
+// "tf32x3" (float32, dh a multiple of 8): attention_panels_tf32_kernel<G>,
+// the same geometry (64 query rows, G panels of o, q resident, each block's
+// scores once a CTA) on csrc/panel_tf32.cuh: both products on wgmma in
+// split TF32, one or two producer warpgroups storing each k and v panel
+// already split into TF32 hi and lo planes in the swizzled K-major layout
+// wgmma reads (v transposed), through a ring with a full and an empty
+// barrier a stage; one CTA an SM, the ring what q leaves of the card's
+// shared memory; a ragged last panel zero-filled and its columns past dh
+// not stored.  Each thread's sums are those of the design before it (a
+// CTA a panel of o on mma.sync, its scores taken P times, q copied and K
+// and V split again by every warp at every step) in their order, and the
+// outputs are its bits.
 // ---------------------------------------------------------------------------
 
 constexpr int kPanelKeys = panel::kKeys;   // keys a block of the panel kernels
@@ -813,20 +821,23 @@ attention_panels_mma_kernel(const __grid_constant__ CUtensorMap q_map,
   sm.store(base, out + b * st.o[0] + h * st.o[1] + op0 * 64, st.o[2], q0, S);
 }
 
-template <bool SINGLE>
-__global__ void __launch_bounds__(tf32x3::kThreads)
+// "tf32x3" above 128: csrc/panel_tf32.cuh's CTA, G panels of o; blockIdx.x
+// runs over tiles x batch x heads x P / G groups, the groups fastest.
+template <int G>
+__global__ void __launch_bounds__(tf32_panels::threads(G, false), 1)
 attention_panels_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, float* __restrict__ out, Strides st,
-                             int S, int heads, int tiles, int dh, float c) {
-  extern __shared__ __align__(16) float tile_mem[];
-  const int panels = (dh + tf32x3::kPanel - 1) / tf32x3::kPanel;
-  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
-  const int bh = rest / tiles, q0 = (rest - bh * tiles) * tf32x3::kRows;
+                             int S, int heads, int tiles, int dh, int stages, float c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = (dh + tf32_panels::kCols - 1) / tf32_panels::kCols / G;
+  const int op0 = blockIdx.x % groups * G, rest = blockIdx.x / groups;
+  const int bh = rest / tiles, q0 = (rest - bh * tiles) * tf32_panels::kRows;
   const int b = bh / heads, h = bh - b * heads;
-  tf32x3::panel_cta<tf32x3::Softmax<tf32x3::kPanel>, SINGLE>(
-      tile_mem, q + b * st.q[0] + h * st.q[1], st.q[2], k + b * st.k[0] + h * st.k[1],
-      st.k[2], v + b * st.v[0] + h * st.v[1], st.v[2], out + b * st.o[0] + h * st.o[1],
-      st.o[2], S, q0, dh, op, c);
+  tf32_panels::walk<G, false>(smem, q + b * st.q[0] + h * st.q[1], st.q[2],
+                              k + b * st.k[0] + h * st.k[1], st.k[2],
+                              v + b * st.v[0] + h * st.v[1], st.v[2],
+                              out + b * st.o[0] + h * st.o[1], st.o[2], S, q0, dh, op0, stages,
+                              c);
 }
 
 // ---------------------------------------------------------------------------
@@ -991,29 +1002,36 @@ size_t mma_panels_smem_bytes(bool single, int S, int dh, int group, int stages) 
   return panel::smem_bytes(panels, single ? blocks * (panels + group) : stages);
 }
 
-size_t tf32_panels_smem_bytes(bool single, int S, int dh) {
-  const size_t panels = (dh + tf32x3::kPanel - 1) / tf32x3::kPanel;
-  const size_t keys = round_up(S, tf32x3::kKeys);
-  const size_t rows = single ? tf32x3::kRows * panels + keys * panels + keys
-                             : 2 * (tf32x3::kRows + 2 * tf32x3::kKeys);
-  return tf32x3::tile_bytes(rows, tf32x3::kPanel);
+// Dynamic shared memory of one "tf32x3" panel CTA at head dim dh and length
+// S with G = group panels of o: its resident q panels and a ring of
+// `stages` panels, or (single) of every load of the walk.
+size_t tf32_panels_smem_bytes(bool single, int S, int dh, int group, int stages) {
+  const int panels = (dh + tf32_panels::kCols - 1) / tf32_panels::kCols;
+  const int blocks = (S + tf32_panels::kKeys - 1) / tf32_panels::kKeys;
+  return tf32_panels::smem_bytes(
+      panels, single ? blocks * tf32_panels::block_loads(panels, group) : stages);
 }
 
-// "tf32x3"'s panel kernel: tiles x batch x heads x panels CTAs of one
-// warpgroup.
-template <bool SINGLE>
-cudaError_t launch_panels_tf32(const Args& a) {
+// "tf32x3" above a head dim of 128: tiles x batch x heads x P / G CTAs of
+// attention_panels_tf32_kernel<G>, a ring of `stages` panels (flash, at
+// least two) or of every load (single).
+template <int G>
+cudaError_t launch_panels_tf32(bool single, int stages, const Args& a) {
   static int allowed[kMaxDevices] = {};
-  const auto kernel = attention_panels_tf32_kernel<SINGLE>;
-  const size_t smem = tf32_panels_smem_bytes(SINGLE, a.S, a.dh);
-  const int tiles = (a.S + mma::kTileRows - 1) / mma::kTileRows;
-  const long long grid = (long long)tiles * a.batch * a.heads * ((a.dh + 63) / 64);
+  const auto kernel = attention_panels_tf32_kernel<G>;
+  const int panels = (a.dh + tf32_panels::kCols - 1) / tf32_panels::kCols;
+  const int blocks = (a.S + tf32_panels::kKeys - 1) / tf32_panels::kKeys;
+  const int ring = single ? blocks * tf32_panels::block_loads(panels, G) : stages;
+  if (ring < 2) return cudaErrorInvalidValue;
+  const size_t smem = tf32_panels::smem_bytes(panels, ring);
+  const int tiles = (a.S + tf32_panels::kRows - 1) / tf32_panels::kRows;
+  const long long grid = (long long)tiles * a.batch * a.heads * (panels / G);
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
-  kernel<<<(int)grid, mma::kThreads, smem, a.stream>>>(
+  kernel<<<(int)grid, tf32_panels::threads(G, false), smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.st, a.S, a.heads, tiles,
-      a.dh, 1.4426950408889634f / sqrtf((float)a.scale_dh));
+      a.dh, ring, 1.4426950408889634f / sqrtf((float)a.scale_dh));
   return cudaGetLastError();
 }
 
@@ -1056,17 +1074,26 @@ cudaError_t launch_panels_mma(bool single, int stages, const Args& a) {
   return cudaGetLastError();
 }
 
-// A head dim above kMaxTileDh: 64-key blocks.  "mma": G = group panels of o
-// a CTA (a divisor of dh / 64 up to 4), the single kernel (stages 0) or a
-// ring of at least G + 1 stages (G + dh / 64 at dh 192 and 256, whose
-// kernels hold a block's v panels and the next block's k panels at once); "tf32x3": one warpgroup, group 0, the
-// single kernel (stages 0) or a ring of two (stages 2).
+// A head dim above kMaxTileDh: 64-key blocks, one warpgroup.  "mma": G =
+// group panels of o a CTA (a divisor of dh / 64 up to 4), the single kernel
+// (stages 0) or a ring of at least G + 1 stages (G + dh / 64 at dh 192 and
+// 256, whose kernels hold a block's v panels and the next block's k panels
+// at once); "tf32x3": G a divisor of ceil(dh / 64) up to 4, the single
+// kernel (stages 0) or a ring of at least two stages.
 cudaError_t launch_panels(bool single, int variant, int kb, int stages, int warpgroups,
                           int group, const Args& a) {
   if (kb != kPanelKeys || warpgroups != 1) return cudaErrorInvalidValue;
   if (variant == 2) {
-    if (group != 0 || stages != (single ? 0 : 2)) return cudaErrorInvalidValue;
-    return single ? launch_panels_tf32<true>(a) : launch_panels_tf32<false>(a);
+    const int panels = (a.dh + tf32_panels::kCols - 1) / tf32_panels::kCols;
+    if (group < 1 || group > tf32_panels::kMaxGroup || panels % group
+        || (single ? stages != 0 : stages < 2))
+      return cudaErrorInvalidValue;
+    switch (group) {
+      case 1: return launch_panels_tf32<1>(single, stages, a);
+      case 2: return launch_panels_tf32<2>(single, stages, a);
+      case 3: return launch_panels_tf32<3>(single, stages, a);
+      default: return launch_panels_tf32<4>(single, stages, a);
+    }
   }
   const int panels = a.dh / 64;
   if (group < 1 || group > 4 || panels % group || (single ? stages != 0 : stages <= group))
@@ -1085,7 +1112,7 @@ cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups,
                    int dtype, const Args& a) {
   if (a.batch < 1 || a.heads < 1 || a.S < 1 || a.dh < 8 || a.dh % 8 || a.scale_dh < 1
       || a.scale_dh > a.dh || (long long)a.S * a.batch * a.heads > 0x7fffffffLL
-      || (group != 0 && (variant != 1 || a.dh <= kMaxTileDh)))
+      || (group != 0 && (variant == 0 || a.dh <= kMaxTileDh)))
     return cudaErrorInvalidValue;
   if (variant == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
@@ -1097,9 +1124,9 @@ cudaError_t launch(bool single, int variant, int kb, int stages, int warpgroups,
     return cudaErrorInvalidValue;
   }
   if (variant == 2) {
-    if (dtype != 0 || kb != tf32x3::kKeys || stages != (single ? 0 : 2) || warpgroups != 1)
-      return cudaErrorInvalidValue;
-    if (a.dh > kMaxTileDh) return launch_panels(single, variant, kb, stages, warpgroups, 0, a);
+    if (dtype != 0 || kb != tf32x3::kKeys || warpgroups != 1) return cudaErrorInvalidValue;
+    if (a.dh > kMaxTileDh) return launch_panels(single, variant, kb, stages, warpgroups, group, a);
+    if (stages != (single ? 0 : 2)) return cudaErrorInvalidValue;
     return launch_tf32_dh(single, a);
   }
   if (variant != 0 || a.dh > kMaxTileDh) return cudaErrorInvalidValue;
@@ -1136,7 +1163,9 @@ Args make_args(int batch, int heads, int seq, int dh, int scale_dh, const void* 
 // ring of R > group panel stages, (0, 1) for the single kernel, and group =
 // the panels of o a CTA, a divisor of dh / 64 from 1 to 4 (0 elsewhere)), 2 =
 // "tf32x3" (float32; kb 64, (stages, warpgroups) = (2, 1) for flash, (0, 1)
-// for single; above 128 in panels).  dtype: 0 = float32, 1 = bfloat16.  q,
+// for single; above 128 in panels: (R, 1) for a flash ring of R >= 2 stages,
+// (0, 1) for the single kernel, group = the panels of o a CTA, a divisor of
+// ceil(dh / 64) from 1 to 4).  dtype: 0 = float32, 1 = bfloat16.  q,
 // k, v, out: (batch, heads, seq, dh) on the current device through `strides`
 // = element strides (batch, head, row) of q, k, v, out, twelve values in
 // host memory; dh contiguous and a multiple of 8, every base and stride a
@@ -1172,7 +1201,7 @@ extern "C" long long attention_smem(int single, int variant, int kb, int stages,
   if ((variant == 1 || variant == 2) && head_dim > kMaxTileDh)
     return (long long)(variant == 1
                            ? mma_panels_smem_bytes(single, seq, head_dim, group, stages)
-                           : tf32_panels_smem_bytes(single, seq, head_dim));
+                           : tf32_panels_smem_bytes(single, seq, head_dim, group, stages));
   if (variant == 1 || variant == 2) {
     const int keys = single ? round_up(seq, kb) : stages * warpgroups * kb;
     return (long long)(variant == 1 ? mma_smem_bytes(keys, head_dim)
@@ -1184,4 +1213,11 @@ extern "C" long long attention_smem(int single, int variant, int kb, int stages,
 
 extern "C" int attention_ring_stages(int panels, int group, long long optin) {
   return panel::ring_stages(panels, group, (size_t)optin);
+}
+
+// The flash ring of the "tf32x3" panel kernel (panels = ceil(dh / 64), G =
+// group) on a card of `optin` bytes a block, as
+// ops/attention.py::tf32_panel_stages computes it.
+extern "C" int attention_tf32_ring_stages(int panels, int group, long long optin) {
+  return tf32_panels::ring_stages(panels, group, (size_t)optin);
 }

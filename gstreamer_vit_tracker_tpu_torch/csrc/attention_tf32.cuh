@@ -45,12 +45,14 @@
 // free of bank conflicts.  Copies are 16-byte cp.async; rows past S are
 // zero-filled.
 //
-// Why mma.sync and not wgmma: wgmma with TF32 takes both shared-memory
+// Why mma.sync and not wgmma here: wgmma with TF32 takes both shared-memory
 // operands K-major only (no transpose bit for 32-bit types), which V is not
-// for P.V ((keys, dh) with dh contiguous is N-major there), so V would have
-// to be transposed while it is staged, and the split operands would have to
-// be staged as hi and lo tiles in the descriptor's swizzled layout.  That is
-// left for later; mma.sync reads V as it lies.
+// for P.V ((keys, dh) with dh contiguous is N-major there), so V has to be
+// transposed while it is staged, and the split operands staged as hi and
+// lo planes in the descriptor's swizzled layout.  The panel kernels above a
+// head dim of 128 do that (csrc/panel_tf32.cuh: producer warpgroups split
+// and lay out each k and v panel once a CTA); these tiles read V as it
+// lies and keep mma.sync.
 
 #pragma once
 
@@ -158,25 +160,8 @@ __device__ __forceinline__ void fill(uint32_t tile, const float* g, long long ro
   }
 }
 
-// A head dim above 128 runs in panels of kPanel columns (the kernels'
-// register and shared-memory footprint is one panel's, whatever the head
-// dim): fill<kPanel> of panel columns [0, cols) of the matrix at g, the
-// columns from cols on (cols a multiple of 4; below kPanel only in a ragged
-// last panel) zeros.  `tid` is this thread's index in the 128 that copy.
+// A head dim above 128 runs in panels of kPanel columns (csrc/panel_tf32.cuh).
 constexpr int kPanel = 64;
-
-__device__ __forceinline__ void fill_panel(int tid, uint32_t tile, const float* g,
-                                           long long row_stride, int row0, int rows, int limit,
-                                           int cols) {
-  constexpr int kChunks = kPanel / 4, kPass = kThreads / kChunks, kLd = row_floats(kPanel);
-  const int row = tid / kChunks, col = tid % kChunks;
-  const float* src = g + (long long)(row0 + row) * row_stride + 4 * col;
-  uint32_t dst = tile + (uint32_t)(row * kLd + 4 * col) * 4u;
-  for (int r = row; r < rows; r += kPass, src += kPass * row_stride, dst += kPass * kLd * 4) {
-    const bool valid = row0 + r < limit && 4 * col < cols;
-    mma::cp_async16(dst, valid ? src : g, valid);
-  }
-}
 
 // The columns of panel p of a head dim dh (a multiple of 8) that are real.
 __host__ __device__ inline int panel_cols(int dh, int p) {
@@ -341,10 +326,9 @@ struct Softmax {
   }
 
   // o / l (one division, one rounding) into rows row0 + g, row0 + g + 8 of
-  // `out` (row_stride floats apart) as float pairs; rows >= S are dropped,
-  // and the columns from `cols` on (a multiple of 8: a ragged last panel).
-  __device__ __forceinline__ void store(float* out, long long row_stride, int row0, int S,
-                                        int cols = DH) const {
+  // `out` (row_stride floats apart) as float pairs; rows >= S are dropped.
+  __device__ __forceinline__ void store(float* out, long long row_stride, int row0,
+                                        int S) const {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const float sum[2] = {mma::quad_sum(l[0]), mma::quad_sum(l[1])};
 #pragma unroll
@@ -354,92 +338,10 @@ struct Softmax {
       float* p = out + (long long)r * row_stride + 2 * t;
 #pragma unroll
       for (int j = 0; j < kChunks; ++j)
-        if (8 * j < cols)
-          *reinterpret_cast<float2*>(p + 8 * j) =
-              make_float2(o[j][2 * h] / sum[h], o[j][2 * h + 1] / sum[h]);
+        *reinterpret_cast<float2*>(p + 8 * j) =
+            make_float2(o[j][2 * h] / sum[h], o[j][2 * h + 1] / sum[h]);
     }
   }
 };
-
-// The panel kernels' CTA (a head dim above 128: csrc/attention.cu's panel
-// kernels say why), for csrc/attention.cu (SM = Softmax<kPanel>) and the
-// encoder (encoder_tf32.cuh's Softmax, a block's P.V into a fresh
-// accumulator): 64 query rows from q0 of one (batch, head) and the 64
-// columns of o panel `op`.  q, k, v and out point at row 0 of the (batch,
-// head), rows qrs, krs, vrs and ors floats apart; dh a multiple of 8, the
-// ragged last panel zero-filled.  Step t = j . panels + p (key block j,
-// panel p) sums the scores of panel p of q and k into the block's; on the
-// block's last panel SM::update takes the softmax and the V panel's P.V.
-// SINGLE: every q panel, every key block's k panels and the V panel of
-// each resident at once, one wait; else a ring of two stages of a q, a k
-// and a V panel.
-template <typename SM, bool SINGLE>
-__device__ __forceinline__ void panel_cta(float* tile_mem, const float* q, long long qrs,
-                                          const float* k, long long krs, const float* v,
-                                          long long vrs, float* out, long long ors, int S,
-                                          int q0, int dh, int op, float c) {
-  constexpr int kLd = row_floats(kPanel), kTile = kKeys * kLd;
-  const int panels = (dh + kPanel - 1) / kPanel;
-  const int blocks = (S + kKeys - 1) / kKeys, steps = blocks * panels;
-  const auto tiles_of = [&](int t, float*& qt, float*& kt, float*& vt) {
-    const int j = t / panels, p = t - j * panels;
-    if constexpr (SINGLE) {
-      qt = tile_mem + p * kTile;
-      kt = tile_mem + (panels + t) * kTile;
-      vt = tile_mem + (panels + steps + j) * kTile;
-    } else {
-      qt = tile_mem + (t & 1) * 3 * kTile;
-      kt = qt + kTile;
-      vt = kt + kTile;
-    }
-  };
-  const auto fill = [&](int t) {
-    const int j = t / panels, p = t - j * panels;
-    float *qt, *kt, *vt;
-    tiles_of(t, qt, kt, vt);
-    const int cols = panel_cols(dh, p);
-    if (!SINGLE || j == 0)
-      fill_panel(threadIdx.x, mma::smem_addr(qt), q + p * kPanel, qrs, q0, kRows, S, cols);
-    fill_panel(threadIdx.x, mma::smem_addr(kt), k + p * kPanel, krs, j * kKeys, kKeys, S, cols);
-    if (p == panels - 1)
-      fill_panel(threadIdx.x, mma::smem_addr(vt), v + op * kPanel, vrs, j * kKeys, kKeys, S,
-                 panel_cols(dh, op));
-  };
-  if constexpr (SINGLE) {
-    for (int t = 0; t < steps; ++t) fill(t);
-  } else {
-    fill(0);
-  }
-  mma::cp_async_commit();
-
-  const int row0 = q0 + 16 * (threadIdx.x >> 5);
-  const bool has_rows = row0 < S;              // uniform over the warp
-  SM sm;
-  sm.init();
-  float s[kKeys / 8][4];
-  for (int t = 0; t < steps; ++t) {
-    if (!SINGLE || t == 0) {
-      mma::cp_async_wait<0>();                 // step t (SINGLE: every step) has landed
-      __syncthreads();                         // ... for all; the other stage is free
-    }
-    if constexpr (!SINGLE) {
-      if (t + 1 < steps) fill(t + 1);
-      mma::cp_async_commit();
-    }
-    if (!has_rows) continue;
-    const int j = t / panels, p = t - j * panels;
-    float *qt, *kt, *vt;
-    tiles_of(t, qt, kt, vt);
-    if (p == 0) {
-#pragma unroll
-      for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-    }
-    sm.template add_scores<false>(s, qt + (row0 - q0) * kLd, kt);
-    if (p == panels - 1) sm.update(s, vt, j * kKeys, S, c);
-  }
-  if (has_rows) sm.store(out + op * kPanel, ors, row0, S, panel_cols(dh, op));
-}
 
 }  // namespace tf32x3

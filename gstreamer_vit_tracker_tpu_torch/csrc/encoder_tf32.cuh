@@ -86,6 +86,7 @@
 
 #include "attention_tf32.cuh"
 #include "encoder_mma.cuh"
+#include "panel_tf32.cuh"
 
 namespace encoder_tf32 {
 
@@ -566,36 +567,30 @@ attention_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S, 
 }
 
 
-// Dynamic shared memory of one panel attention CTA: two stages of a q, a k
-// and a V panel (64 rows of 64 + 4 floats each), for any head dim.
-inline size_t attention_panels_smem_bytes() {
-  return tf::tile_bytes(2 * (tf::kRows + 2 * tf::kKeys), tf::kPanel);
-}
-
 // Head dims above 128 (a multiple of 8): attention_kernel's arithmetic at
 // one warpgroup (64-key blocks, the online softmax, a block's P.V into a
-// fresh accumulator) with the head dim in panels of 64 columns
-// (attention_tf32.cuh's panel_cta, the ring of two stages).  CTA = (64
-// query rows, batch, head, one 64-column panel of o); blockIdx.x runs over
-// tiles x B x H x panels, the panels fastest; q, k and v read from the qkv
-// buffer where they lie.  (A template, KEYS = tf::kKeys, so that only a
-// source that launches it compiles it.)
-template <int KEYS>
-__global__ void __launch_bounds__(tf::kThreads)
+// fresh accumulator) with the head dim in panels of 64 columns, on
+// csrc/panel_tf32.cuh's CTA (q resident, G = group panels of o, each key
+// block's scores once a CTA, K and V split once a CTA by producer
+// warpgroups through a ring of `stages`).  CTA = (64 query rows, batch,
+// head, panels op0 .. op0 + G - 1 of o); blockIdx.x runs over tiles x B x H
+// x P / G, the groups fastest; q, k and v read from the qkv buffer where
+// they lie.
+template <int G>
+__global__ void __launch_bounds__(tf32_panels::threads(G, true), 1)
 attention_panels_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S, int heads,
-                        int tiles, int dh, float c) {
-  static_assert(KEYS == tf::kKeys, "the key block of the tiles");
-  extern __shared__ __align__(16) float tile_mem[];
-  const int panels = (dh + tf::kPanel - 1) / tf::kPanel;
-  const int op = blockIdx.x % panels, rest = blockIdx.x / panels;
-  const int bh = rest / tiles, q0 = (rest - bh * tiles) * tf::kRows;
+                        int tiles, int dh, int stages, float c) {
+  extern __shared__ __align__(16) float smem[];
+  const int groups = (dh + tf32_panels::kCols - 1) / tf32_panels::kCols / G;
+  const int op0 = blockIdx.x % groups * G, rest = blockIdx.x / groups;
+  const int bh = rest / tiles, q0 = (rest - bh * tiles) * tf32_panels::kRows;
   const int b = bh / heads, h = bh - b * heads;
   const int E = heads * dh;
   const long long ld = 3LL * E;
   const float* q = qkv + (long long)b * S * ld + h * dh;
-  tf::panel_cta<Softmax<tf::kPanel>, false>(tile_mem, q, ld, q + E, ld, q + 2 * E, ld,
-                                            out + (long long)b * S * E + h * dh, E, S, q0, dh,
-                                            op, c);
+  tf32_panels::walk<G, true>(reinterpret_cast<unsigned char*>(smem), q, ld, q + E, ld,
+                             q + 2 * E, ld, out + (long long)b * S * E + h * dh, E, S, q0, dh,
+                             op0, stages, c);
 }
 
 }  // namespace encoder_tf32

@@ -112,10 +112,10 @@
 //
 // Above a head dim of 128, "mma" and "tf32x3" run the attention stage in
 // panels of 64 columns (attention_panels_kernel of encoder_mma.cuh and
-// encoder_tf32.cuh): "mma" holds q resident and G panels of o a CTA, K and V
-// coming through a TMA ring (csrc/panel_ring.cuh); "tf32x3" owns one panel
-// of o a CTA and sums its scores over the panels of q and k; the products
-// do not see the head dim.
+// encoder_tf32.cuh): q resident and G panels of o a CTA, K and V coming
+// through a ring of panel stages, "mma" by TMA (csrc/panel_ring.cuh),
+// "tf32x3" split into TF32 parts once a CTA by producer warpgroups
+// (csrc/panel_tf32.cuh); the products do not see the head dim.
 //
 // Every launch goes to the caller's stream; the entry point returns the first
 // CUDA error (cudaGetLastError after each launch), 0 on success.
@@ -451,7 +451,7 @@ struct Config {
   int bn[4];
   int warpgroups;
   int ln;
-  int group;   // "mma" above a head dim of 128: panels of o an attention CTA
+  int group;   // above a head dim of 128: panels of o an attention CTA
 };
 
 constexpr int kMaxDevices = 64;
@@ -662,17 +662,26 @@ cudaError_t attention_mma(const bf16* qkv, bf16* out, int B, int S, int H, float
   return cudaGetLastError();
 }
 
-// "tf32x3" above kAttMaxDh: the panel kernel, tiles x B x H x panels CTAs
-// of one warpgroup.
-template <typename T, typename K>
-cudaError_t attention_panels(K kernel, size_t smem, const T* qkv, T* out, int B, int S, int H,
-                             int dh, float scale, cudaStream_t st) {
+// "tf32x3" above kAttMaxDh: tiles x B x H x P / G CTAs of
+// attention_panels_kernel<G> (P = ceil(dh / 64)), the ring
+// tf32_panels::ring_stages gives.
+template <int G>
+cudaError_t attention_panels_tf32(const float* qkv, float* out, int B, int S, int H, int dh,
+                                  float c, cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
-  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
-  const int tiles = (S + mma::kTileRows - 1) / mma::kTileRows;
-  const long long grid = (long long)tiles * B * H * ((dh + 63) / 64);
+  const auto kernel = encoder_tf32::attention_panels_kernel<G>;
+  const int panels = (dh + tf32_panels::kCols - 1) / tf32_panels::kCols;
+  Limits card;
+  RETURN_IF_ERROR(device_limits(&card));
+  const int tiles = (S + tf32_panels::kRows - 1) / tf32_panels::kRows;
+  const long long grid = (long long)tiles * B * H * (panels / G);
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(int)grid, mma::kThreads, smem, st>>>(qkv, out, S, H, tiles, dh, scale);
+  const int stages = tf32_panels::ring_stages(panels, G, (size_t)card.optin);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = tf32_panels::smem_bytes(panels, stages);
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
+  kernel<<<(int)grid, tf32_panels::threads(G, true), smem, st>>>(qkv, out, S, H, tiles, dh,
+                                                                   stages, c);
   return cudaGetLastError();
 }
 
@@ -786,17 +795,22 @@ cudaError_t attention_tf32(const float* qkv, float* out, int B, int S, int H, fl
 // Every head dim that is a multiple of 8 up to 128 is built with one
 // warpgroup, and up to encoder_tf32::kSplitMaxDh with two (the padded rule
 // of ops/vit_block.py::head_pad: another head dim runs at the next one);
-// above 128, the panel kernel with one.
+// above 128, the panel kernel at G = group panels of o a CTA (a divisor of
+// ceil(dh / 64) up to 4).
 template <int DH = 8>
-cudaError_t attention_tf32_dh(int dh, int wgs, const float* qkv, float* out, int B, int S,
-                              int H, float c, cudaStream_t st) {
+cudaError_t attention_tf32_dh(int dh, int wgs, int group, const float* qkv, float* out, int B,
+                              int S, int H, float c, cudaStream_t st) {
   if constexpr (DH > kAttMaxDh) {
     if (dh <= kAttMaxDh || wgs != 1) return cudaErrorInvalidValue;
-    return attention_panels(encoder_tf32::attention_panels_kernel<tf32x3::kKeys>,
-                            encoder_tf32::attention_panels_smem_bytes(), qkv, out, B, S, H, dh,
-                            c, st);
+    switch (group) {
+      case 1: return attention_panels_tf32<1>(qkv, out, B, S, H, dh, c, st);
+      case 2: return attention_panels_tf32<2>(qkv, out, B, S, H, dh, c, st);
+      case 3: return attention_panels_tf32<3>(qkv, out, B, S, H, dh, c, st);
+      case 4: return attention_panels_tf32<4>(qkv, out, B, S, H, dh, c, st);
+      default: return cudaErrorInvalidValue;
+    }
   } else {
-    if (dh != DH) return attention_tf32_dh<DH + 8>(dh, wgs, qkv, out, B, S, H, c, st);
+    if (dh != DH) return attention_tf32_dh<DH + 8>(dh, wgs, group, qkv, out, B, S, H, c, st);
     if (wgs == 1) return attention_tf32<DH, 1>(qkv, out, B, S, H, c, st);
     if constexpr (DH <= encoder_tf32::kSplitMaxDh) {
       if (wgs == 2) return attention_tf32<DH, 2>(qkv, out, B, S, H, c, st);
@@ -836,7 +850,7 @@ cudaError_t check(const Config& c, int dtype, int B, int S, int D, int W, int H,
       || (long long)B * S > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   bool ok = false;
-  if (c.group != 0 && (c.variant != kMma || dh <= kAttMaxDh)) return cudaErrorInvalidValue;
+  if ((c.group != 0) != (c.variant != kSimt && dh > kAttMaxDh)) return cudaErrorInvalidValue;
   if (c.variant == kMma)
     ok = dtype == 1
          && (dh == 32 || dh == 64 || dh == 128
@@ -847,7 +861,10 @@ cudaError_t check(const Config& c, int dtype, int B, int S, int D, int W, int H,
              || (c.ln == kPrenormed && (c.warpgroups == 1 || c.warpgroups == 2)));
   else if (c.variant == kTf32x3)
     ok = dtype == 0 && dh % 8 == 0 && W % 32 == 0 && W - D < 32 && hidden % 32 == 0
-         && (c.ln == kResident || c.ln == kStreamed);
+         && (c.ln == kResident || c.ln == kStreamed)
+         && (dh <= kAttMaxDh
+             || (c.group >= 1 && c.group <= tf32_panels::kMaxGroup
+                 && (dh + tf32_panels::kCols - 1) / tf32_panels::kCols % c.group == 0));
   else if (c.variant == kSimt)
     ok = dtype == 0 && W == D && dh % 16 == 0 && dh <= kAttMaxDh && hidden % 16 == 0
          && c.ln == kResident;
@@ -883,8 +900,8 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
       RETURN_IF_ERROR(ln_product_tf32<kEpiRound>(c.ln, c.bn[0], ks(c.bn[0]), x, p(w.w_qkv),
                                                  p(w.b_qkv), p(w.ln1_s), p(w.ln1_b), stats,
                                                  qkv, M, 3 * E, W, D, st));
-      RETURN_IF_ERROR(attention_tf32_dh(dh, c.warpgroups, qkv, attn, B, S, H, log2e_scale,
-                                        st));
+      RETURN_IF_ERROR(attention_tf32_dh(dh, c.warpgroups, c.group, qkv, attn, B, S, H,
+                                        log2e_scale, st));
       RETURN_IF_ERROR((product_tf32<kEpiResidual, kLnNone>(c.bn[1], ks(c.bn[1]), attn,
                                                            p(w.w_proj), p(w.b_proj), nullptr,
                                                            nullptr, nullptr, x, M, W, E, 0,
@@ -993,10 +1010,11 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, i
 
 // variant: 0 = "simt" (float32), 1 = "mma" (bfloat16), 2 = "tf32x3"
 // (float32); bn_*, warpgroups, ln, group: the N tiles, the warpgroups a CTA,
-// the LN products' form (0 resident, 1 streamed, 2 prenormed) and, "mma"
-// above a head dim of 128, the panels of o an attention CTA (1 to 3, a
-// divisor of head_dim / 64; 0 elsewhere) of the plan (see Config above).  dtype: 0 = float32, 1 = bfloat16.  dim: D, the width of x and of
-// the output; width: the residual width W the weights have, D or D
+// the LN products' form (0 resident, 1 streamed, 2 prenormed) and, above a
+// head dim of 128, the panels of o an attention CTA ("mma" 1 to 3, a
+// divisor of head_dim / 64; "tf32x3" 1 to 4, a divisor of ceil(head_dim /
+// 64); 0 elsewhere) of the plan (see Config above).  dtype: 0 = float32,
+// 1 = bfloat16.  dim: D, the width of x and of the output; width: the residual width W the weights have, D or D
 // zero-padded to the next multiple of 64 ("mma") or 32 ("tf32x3"; see the
 // header).  head_dim: the head dim the kernels
 // run at, dim / heads or the zero-padded one of the weights (E = heads .

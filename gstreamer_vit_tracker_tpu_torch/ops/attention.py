@@ -38,15 +38,16 @@ dim) before the launch:
   timings; no rule gives it.
 
 Above a head dim of 128 both tensor-core variants run in panels of 64
-columns (``csrc/attention.cu``'s panel kernels).  ``"mma"``: a CTA keeps
-its 64 rows of q resident in shared memory and ``Plan.group`` = G panels of
-the output in registers, K and V come through a TMA ring of panels
-(``csrc/panel_ring.cuh``), and each key block's scores are computed once a
-CTA, dh / (64 G) times in all (:func:`panel_group`, :func:`panel_stages`).
-``"tf32x3"``: a CTA owns one 64-column panel of the output and sums its
-scores over the panels of q and k, so its registers and shared memory are
-one panel's whatever the head dim (the scores are computed once for each
-panel).
+columns (``csrc/attention.cu``'s panel kernels): a CTA keeps its 64 rows of
+q resident in shared memory and ``Plan.group`` = G panels of the output in
+registers, K and V come through a ring of panel stages, and each key
+block's scores are computed once a CTA, dh / (64 G) times in all
+(:func:`panel_group`).  ``"mma"``: a TMA ring (``csrc/panel_ring.cuh``,
+:func:`panel_stages`).  ``"tf32x3"``: both products on ``wgmma`` in split
+TF32, producer warpgroups splitting each k and v panel into its TF32 parts
+once a CTA as they store it (``csrc/panel_tf32.cuh``,
+:func:`tf32_panel_stages`), one CTA an SM; above a head dim of 512 q comes
+through the ring too.
 
 A head dim that the dtype's variant does not take as it is (bf16: up to
 128 not 32, 64 or 128, above 128 not a multiple of 64; float32: not a
@@ -118,6 +119,13 @@ _TWO_CTA_RATE = 1.6
 # 192 at G 3, dh 256 at G 2): a block's v panels and the next block's k
 # panels held at once.
 _CONST_PANELS = ((3, 3), (4, 2))
+# "tf32x3" above _TILE_MAX_DH (csrc/panel_tf32.cuh): G panels of o a CTA up
+# to _TF32_MAX_GROUP; q resident (16 KB a panel) up to _TF32_MAX_RESIDENT
+# panels, else through the ring before each k panel; a ring of stages of
+# one k or v panel's TF32 hi and lo parts (32 KB), a full and an empty
+# barrier a stage and one for q, from a 1024-byte boundary; one CTA an SM.
+_TF32_MAX_GROUP, _TF32_MAX_RESIDENT = 4, 8
+_TF32_STAGE_BYTES, _TF32_QPANEL_BYTES = 64 * _PANEL * 8, 64 * _PANEL * 4
 
 
 class Plan(NamedTuple):
@@ -128,7 +136,7 @@ class Plan(NamedTuple):
     stages: int = 0       # stages of the ring ("mma", "tf32x3" flash)
     warpgroups: int = 1   # warpgroups that split a stage's keys ("mma" flash)
     pad: int = 0          # head dim q, k, v are zero-padded to (0: none)
-    group: int = 0        # "mma" above 128: panels of o a CTA (0: none)
+    group: int = 0        # above 128: panels of o a CTA (0: none)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,6 +180,35 @@ def panel_stages(panels: int, group: int, optin: int) -> int:
     return min((budget - fixed) // per, 2 * (panels + group))
 
 
+def tf32_panel_loads(panels: int, group: int) -> int:
+    """The ``"tf32x3"`` panel ring's loads of one key block
+    (``csrc/panel_tf32.cuh``'s ``block_loads``): its k panels, each after
+    its q panel where q is not resident, then the G v panels."""
+    return (panels if panels <= _TF32_MAX_RESIDENT else 2 * panels) + group
+
+
+def tf32_panel_smem_bytes(panels: int, stages: int) -> int:
+    """Dynamic shared memory of a ``"tf32x3"`` panel CTA with ``panels``
+    panels of the head dim and a ring of ``stages``
+    (``csrc/panel_tf32.cuh``'s ``smem_bytes``): slack to a 1024-byte
+    boundary, the resident q panels, the stages, the barriers."""
+    resident = panels * _TF32_QPANEL_BYTES if panels <= _TF32_MAX_RESIDENT \
+        else 0
+    return (_MMA_ALIGN + resident + stages * _TF32_STAGE_BYTES
+            + 8 * (1 + 2 * stages))
+
+
+def tf32_panel_stages(panels: int, group: int, optin: int) -> int:
+    """The ``"tf32x3"`` flash panel kernel's ring
+    (``csrc/panel_tf32.cuh``'s ``ring_stages``): as many stages as
+    ``optin`` bytes hold beside q, up to two key blocks' loads; 0 if fewer
+    than two fit."""
+    fixed, per = tf32_panel_smem_bytes(panels, 0), _TF32_STAGE_BYTES + 16
+    if fixed + 2 * per > optin:
+        return 0
+    return min((optin - fixed) // per, 2 * tf32_panel_loads(panels, group))
+
+
 def panel_group(panels: int, tiles: int, sms: int, work: int,
                 fits_two, most: int = _MAX_GROUP) -> int:
     """G, the panels of o a panel CTA holds, for ``panels`` 64-column
@@ -186,7 +223,9 @@ def panel_group(panels: int, tiles: int, sms: int, work: int,
     wide``; PERF.md §5-§6): kernels 3 / 4 at (64, 320, 256) G 4, at (64,
     100, 256) G 2 (256 CTAs two an SM beat 128 alone at G 4), at (3, 1040,
     256) G 2 (one CTA an SM beats two at G 1); the encoder G 2 at Model A's
-    batch 16, 1 at its batch 1."""
+    batch 16, 1 at its batch 1.  ``"tf32x3"`` (one CTA an SM, ``fits_two``
+    never): G 4 at (16, 320, 256), 3 at (16, 320, 192), 1 at its encoder's
+    batch 1."""
     best = None
     for g in range(min(most, panels), 0, -1):
         if panels % g:
@@ -219,12 +258,11 @@ def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
                group: int = 0) -> int:
     """Dynamic shared memory of one CTA, as ``csrc/attention.cu`` lays it
     out (``attention_smem`` there returns the same number).  Above a head
-    dim of 128 (the panel kernels): ``"mma"`` the q panels and a ring of
-    ``stages`` panel stages, ``"single"`` one of every load of the walk
-    (each key block's dh / 64 k panels and ``group`` v panels);
-    ``"tf32x3"`` ``"single"`` every q panel, every key block's k panels and
-    one V panel of each, ``"flash"`` two stages of a q, a k and a V panel,
-    whatever the head dim."""
+    dim of 128 (the panel kernels): the q panels and a ring of ``stages``
+    panel stages, ``"single"`` one of every load of the walk (each key
+    block's k panels and ``group`` v panels): ``"mma"``'s
+    :func:`panel_smem_bytes`, ``"tf32x3"``'s
+    :func:`tf32_panel_smem_bytes`."""
     if variant == "mma" and dh > _TILE_MAX_DH:
         panels = dh // _PANEL
         if route == "single":
@@ -232,10 +270,9 @@ def smem_bytes(route: str, variant: str, s: int, dh: int, elem_bytes: int,
         return panel_smem_bytes(panels, stages)
     if variant == "tf32x3" and dh > _TILE_MAX_DH:
         panels = -(-dh // _PANEL)
-        keys = -(-s // _TF32_KEYS) * _TF32_KEYS
-        rows = (_MMA_ROWS * panels + keys * panels + keys if route == "single"
-                else 2 * (_MMA_ROWS + 2 * _TF32_KEYS))
-        return rows * (_PANEL + _TF32_ROW_PAD) * 4
+        if route == "single":
+            stages = -(-s // _TF32_KEYS) * tf32_panel_loads(panels, group)
+        return tf32_panel_smem_bytes(panels, stages)
     if variant in ("mma", "tf32x3"):
         keys = (-(-s // kb) * kb if route == "single"
                 else stages * warpgroups * kb)
@@ -296,10 +333,11 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
     ring: while the 64-row tiles are fewer than the SMs, two warpgroups a
     CTA split the keys of 128-key blocks; a grid that fills the card takes
     64-key blocks, one warpgroup and more CTAs an SM.  Above a head dim of
-    128 (the panel kernels), 64-key blocks: ``"tf32x3"`` takes
-    ``"single"`` by the same rule, else ``"flash"`` with a ring of two
-    stages, one warpgroup either way; ``"mma"`` takes ``group`` =
-    :func:`panel_group` and the route of :func:`_panel_plan`."""
+    128 (the panel kernels), 64-key blocks, ``group`` = :func:`panel_group`:
+    ``"mma"`` the route of :func:`_panel_plan`; ``"tf32x3"`` (one CTA an
+    SM) ``"single"`` while a ring of every load of the walk fits
+    ``optin_bytes``, else ``"flash"`` with the ring of
+    :func:`tf32_panel_stages`."""
     pad = padded_head_dim(dh, dtype)
     if pad:
         return plan(s, pad, dtype, optin_bytes, bh, sms)._replace(pad=pad)
@@ -313,6 +351,15 @@ def plan(s: int, dh: int, dtype: torch.dtype, optin_bytes: int,
             panels, tiles, sms, 1, lambda g: smem_bytes(
                 plan_at(g).route, "mma", s, dh, 2, _TF32_KEYS,
                 plan_at(g).stages, 1, g) <= _TWO_CTA_BYTES))
+    if dtype == torch.float32 and dh > _TILE_MAX_DH:
+        panels, tiles = -(-dh // _PANEL), -(-s // _TF32_ROWS) * bh
+        g = panel_group(panels, tiles, sms, 1, lambda g: False,
+                        _TF32_MAX_GROUP)
+        if smem_bytes("single", "tf32x3", s, dh, 4, _TF32_KEYS, 0, 1,
+                      g) <= optin_bytes:
+            return Plan("single", "tf32x3", kb=_TF32_KEYS, group=g)
+        return Plan("flash", "tf32x3", kb=_TF32_KEYS,
+                    stages=tf32_panel_stages(panels, g, optin_bytes), group=g)
     if dtype == torch.float32:
         if smem_bytes("single", "tf32x3", s, dh, 4,
                       kb=_TF32_KEYS) <= optin_bytes // 2:
@@ -343,6 +390,9 @@ def _library():
         lib.attention_ring_stages.argtypes = [ctypes.c_int] * 2 + [
             ctypes.c_longlong]
         lib.attention_ring_stages.restype = ctypes.c_int
+        lib.attention_tf32_ring_stages.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_longlong]
+        lib.attention_tf32_ring_stages.restype = ctypes.c_int
     return lib
 
 
@@ -449,20 +499,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _refusal(chosen: Plan, s: int, dh: int, optin: int) -> Optional[str]:
     """Why the kernels cannot launch ``chosen`` at length ``s`` and the
     head dim ``dh`` they run at on a card of ``optin`` bytes a block, or
-    None: ``group`` belongs to ``"mma"`` above a head dim of 128 alone and
-    there is a divisor of its panels up to 4, a flash ring holds more than
-    ``group`` stages, and the CTA fits the card."""
-    if chosen.variant != "mma" or dh <= _TILE_MAX_DH:
-        return None if chosen.group == 0 else "group is for mma above 128"
-    panels = dh // _PANEL
-    if not 1 <= chosen.group <= _MAX_GROUP or panels % chosen.group:
-        return f"group must divide {panels} panels and be 1 to {_MAX_GROUP}"
-    least = (panels + chosen.group if (panels, chosen.group) in _CONST_PANELS
-             else chosen.group + 1)
+    None: ``group`` belongs to the tensor-core variants above a head dim of
+    128 alone and there is a divisor of its panels up to 4, a flash ring
+    holds more than ``group`` stages (``"tf32x3"``: two), and the CTA fits
+    the card."""
+    if chosen.variant == "simt" or dh <= _TILE_MAX_DH:
+        return None if chosen.group == 0 else "group is for panels above 128"
+    tf32 = chosen.variant == "tf32x3"
+    panels, most = ((-(-dh // _PANEL), _TF32_MAX_GROUP) if tf32
+                    else (dh // _PANEL, _MAX_GROUP))
+    if not 1 <= chosen.group <= most or panels % chosen.group:
+        return f"group must divide {panels} panels and be 1 to {most}"
+    least = (2 if tf32 else panels + chosen.group
+             if (panels, chosen.group) in _CONST_PANELS else chosen.group + 1)
     if chosen.route == "flash" and chosen.stages < least:
         return f"a flash ring needs {least} stages or more"
-    need = smem_bytes(chosen.route, "mma", s, dh, 2, chosen.kb, chosen.stages,
-                      chosen.warpgroups, chosen.group)
+    need = smem_bytes(chosen.route, chosen.variant, s, dh, 4 if tf32 else 2,
+                      chosen.kb, chosen.stages, chosen.warpgroups,
+                      chosen.group)
     if need > optin:
         return f"its CTA needs {need} bytes of shared memory, the card {optin}"
     return None

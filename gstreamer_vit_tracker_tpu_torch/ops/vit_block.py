@@ -50,9 +50,11 @@ registers, K and V come through a TMA ring (``csrc/panel_ring.cuh``), and
 each key block's scores are computed once a CTA in each pass (G up to 3:
 the fresh accumulators of the twin's arithmetic fill the registers; 1 at
 batch 1, where the grid is smaller than the card: :func:`plan`).
-``"tf32x3"``: a CTA owns one panel of the output and sums its scores over
-the panels of q and k, so its registers and shared memory are one panel's
-whatever the head dim.  The products do not see the head dim.
+``"tf32x3"`` (``csrc/panel_tf32.cuh``): the same geometry, one pass, both
+products on ``wgmma``, producer warpgroups splitting each k and v panel
+into its TF32 parts once a CTA, one CTA an SM (G up to 4, the fresh
+accumulator of a block's P.V beside o; 1 at batch 1).  The products do not
+see the head dim.
 
 The LayerNorm products of ``"mma"`` and ``"tf32x3"`` come in two forms
 each, ``Plan.ln``, picked from the shape alone: ``"resident"`` (the CTA's
@@ -160,10 +162,11 @@ H100_OPTIN = 232448
 # 232,448 and at W = 1024 263,168.  The attention takes 64 query rows and
 # walks 64-key blocks through a ring of 2 (82,944 bytes at head dim 128, for
 # any S); above a head dim of 128 (_TILE_MAX_DH) it runs in panels of 64
-# columns: "mma" its q panels and a ring of panel stages (107,672 bytes at
-# head dim 256, for any S: attention.panel_stages), "tf32x3" a ring of two
-# stages of a q, a k and a V panel (104,448 bytes for any head dim and S);
-# "simt" stops there.  "mma" holds up to _MAX_GROUP panels of o a CTA.  "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
+# columns: its q panels and a ring of panel stages, "mma" 107,672 bytes at
+# head dim 256 for any S (attention.panel_stages), "tf32x3" 230,488
+# (attention.tf32_panel_stages); "simt" stops there.  "mma" holds up to
+# _MAX_GROUP panels of o a CTA, "tf32x3" _TF32_MAX_GROUP.
+# "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
 # chunks through a ring of 4 slots (3 at N 64) a warpgroup of A and the
 # weight's two planes (and, streamed, the chunk's LN scale and bias); a
 # resident LN product holds its 64 rows of W and its scale and bias instead
@@ -184,6 +187,7 @@ _RING_TILES = {1: (32, 64), 2: (32, 64, 128)}
 _SPLIT_MAX_DH = 64         # "tf32x3": two-warpgroup attention built up to it
 _TILE_MAX_DH, _PANEL = 128, 64
 _MAX_GROUP = 3
+_TF32_MAX_GROUP = attention._TF32_MAX_GROUP
 
 
 class Plan(NamedTuple):
@@ -195,8 +199,8 @@ class Plan(NamedTuple):
     width: int = 0                             # padded D (0: none)
     mlp: int = 0                               # padded MLP width (0: none)
     ln: str = "resident"                       # the LN products' form
-    group: int = 0                             # "mma" above 128: panels of
-                                               # o an attention CTA
+    group: int = 0                             # above 128: panels of o an
+                                               # attention CTA
 
     def config(self) -> Tuple[int, ...]:
         """The 7 ints the C entries take first (``Config`` in the source):
@@ -246,12 +250,12 @@ def attention_smem_bytes(variant: str, dh: int, warpgroups: int = 1,
                          group: int = 0, optin: int = H100_OPTIN) -> int:
     """Dynamic shared memory of one attention CTA of ``variant`` at the
     head dim it runs (the sources' ``attention_smem_bytes``,
-    ``panel::smem_bytes`` and ``attention_panels_smem_bytes``): up to 128 a
+    ``panel::smem_bytes`` and ``tf32_panels::smem_bytes``): up to 128 a
     ring of two 64-key K and V blocks beside the 64-row Q tile
-    (``"tf32x3"``: a ring a warpgroup); above 128 ``"mma"``'s q panels and
-    the ring ``attention.panel_stages`` gives for ``group`` panels of o on a
-    card of ``optin`` bytes a block, ``"tf32x3"``'s two stages of a q, a k
-    and a V panel of 64 columns, whatever the head dim; ``"simt"``'s is
+    (``"tf32x3"``: a ring a warpgroup); above 128 the q panels and the ring
+    ``attention.panel_stages`` (``"mma"``) or
+    ``attention.tf32_panel_stages`` (``"tf32x3"``) gives for ``group``
+    panels of o on a card of ``optin`` bytes a block; ``"simt"``'s is
     static."""
     if variant == "simt":
         return 0
@@ -260,8 +264,9 @@ def attention_smem_bytes(variant: str, dh: int, warpgroups: int = 1,
         return attention.panel_smem_bytes(
             panels, attention.panel_stages(panels, group, optin))
     if dh > _TILE_MAX_DH:
-        rows, dh = 2 * (_ROWS + 2 * 64), _PANEL
-        return 1024 + rows * dh * 2 if variant == "mma" else rows * (dh + 4) * 4
+        panels = -(-dh // _PANEL)
+        return attention.tf32_panel_smem_bytes(
+            panels, attention.tf32_panel_stages(panels, group, optin))
     if variant == "mma":
         return 1024 + (_ROWS + 2 * 2 * 64) * dh * 2
     return (_ROWS + 4 * warpgroups * 64) * (dh + 4) * 4
@@ -433,14 +438,20 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
 
 def panel_group(variant: str, batch: int, seq: int, heads: int, dh: int,
                 sms: int) -> int:
-    """``Plan.group``: the panels of o a CTA of ``"mma"``'s attention holds
-    at a head dim ``dh`` above 128 (0 elsewhere): ``attention.panel_group``
-    with each k panel taken twice (the two passes), up to _MAX_GROUP (Model
-    A, dh 256: 2 at batch 16, 536.22 us against 591.17 at G 1; 1 at batch
-    1, 1929.77 against 2002.66 at G 2, where the grid is smaller than the
-    card and a CTA's P.V grows with G; ``profile_encoder.py wide``)."""
-    if variant != "mma" or dh <= _TILE_MAX_DH:
+    """``Plan.group``: the panels of o a CTA of the attention holds at a
+    head dim ``dh`` above 128 (0 elsewhere): ``attention.panel_group``,
+    ``"mma"`` with each k panel taken twice (the two passes), up to
+    _MAX_GROUP (Model A, dh 256: 2 at batch 16, 536.22 us against 591.17 at
+    G 1; 1 at batch 1, 1929.77 against 2002.66 at G 2, where the grid is
+    smaller than the card and a CTA's P.V grows with G; ``profile_encoder.py
+    wide``), ``"tf32x3"`` with one pass and one CTA an SM, up to
+    _TF32_MAX_GROUP."""
+    if variant == "simt" or dh <= _TILE_MAX_DH:
         return 0
+    if variant == "tf32x3":
+        return attention.panel_group(
+            -(-dh // _PANEL), -(-seq // _ROWS) * batch * heads, sms, 1,
+            lambda g: False, _TF32_MAX_GROUP)
     panels = dh // _PANEL
     return attention.panel_group(
         panels, -(-seq // _ROWS) * batch * heads, sms, 2,
@@ -697,8 +708,8 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
     the variant must be one of the dtype's and take the shape; the pads are
     the variant's own; ``"mma"`` or ``"tf32x3"`` named without tiles gets
     the rule's tiles, warpgroups and LN form, and a named ``"resident"``
-    form must fit the card at the named tiles; ``"mma"`` above a head dim
-    of 128 named without ``group`` gets the rule's."""
+    form must fit the card at the named tiles; ``"mma"`` or ``"tf32x3"``
+    above a head dim of 128 named without ``group`` gets the rule's."""
     b, s, d = x.shape
     if chosen.variant not in _DTYPE_VARIANTS[x.dtype]:
         raise ValueError(f"the encoder kernels run {x.dtype} as one of "
@@ -732,7 +743,7 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
     elif chosen.ln != "resident":
         raise ValueError(f"simt takes no LN form, not {chosen.ln}")
     dh = pad or d // heads
-    if chosen.variant == "mma" and dh > _TILE_MAX_DH and not chosen.group:
+    if chosen.variant != "simt" and dh > _TILE_MAX_DH and not chosen.group:
         chosen = chosen._replace(group=_plan_for(x, heads, hidden).group)
     why = group_refusal(chosen.variant, dh, chosen.group)
     if why is not None:
@@ -742,17 +753,20 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
 
 def group_refusal(variant: str, dh: int, group: int) -> Optional[str]:
     """Why the attention stage cannot run ``group`` panels of o a CTA at
-    the head dim ``dh`` it runs, or None: ``"mma"`` above a head dim of 128
-    takes a divisor of dh / 64 from 1 to _MAX_GROUP, every other shape 0
+    the head dim ``dh`` it runs, or None: above a head dim of 128 ``"mma"``
+    takes a divisor of dh / 64 from 1 to _MAX_GROUP, ``"tf32x3"`` one of
+    ceil(dh / 64) from 1 to _TF32_MAX_GROUP, every other shape 0
     (``csrc/vit_encoder.cu::check`` refuses the rest before a launch)."""
-    if variant == "mma" and dh > _TILE_MAX_DH:
-        if 1 <= group <= _MAX_GROUP and (dh // _PANEL) % group == 0:
+    if variant != "simt" and dh > _TILE_MAX_DH:
+        panels, most = ((-(-dh // _PANEL), _TF32_MAX_GROUP)
+                        if variant == "tf32x3" else (dh // _PANEL, _MAX_GROUP))
+        if 1 <= group <= most and panels % group == 0:
             return None
-        return (f"the panel attention takes a divisor of {dh // _PANEL} "
-                f"panels from 1 to {_MAX_GROUP}, not group {group}")
+        return (f"the panel attention takes a divisor of {panels} panels "
+                f"from 1 to {most}, not group {group}")
     if group:
-        return (f"group is mma's above a head dim of {_TILE_MAX_DH}, not "
-                f"{variant}'s at {dh}")
+        return (f"group is the panel attention's above a head dim of "
+                f"{_TILE_MAX_DH}, not {variant}'s at {dh}")
     return None
 
 

@@ -39,14 +39,15 @@ on ready operands repeated under ``torch.profiler``, each device kernel
 named by its place in the block (five launches a block for ``tf32x3``,
 seven for ``simt``), mean device us a launch by stage.
 
-``wide``: the same by stage for bf16 at ViT-L's width (D 1024, 16 heads,
-MLP 4096, seeded weights) and for Model A (the same weights in 4 heads of
-256: chip_smoke.py's HEADS_A, whose attention stage is the panel kernel):
-kernel 1 at (1, 320, 1024) x 24 and kernel 2 at (16, 320, 1024), seven
-launches a block (the two LN launches, qkv, attention, proj, mlp1, mlp2),
-the launch's device us (a replayed CUDA graph), Model A also at the panels
-of o a CTA the plan did not take (``Plan.group`` 1 and 2), and beside each
-product ``torch.matmul``'s device us on the same shapes.
+``wide``: the same by stage for bf16 and then float32 at ViT-L's width (D
+1024, 16 heads, MLP 4096, seeded weights) and for Model A (the same
+weights in 4 heads of 256: chip_smoke.py's HEADS_A, whose attention stage
+is the panel kernel): kernel 1 at (1, 320, 1024) x 24 and kernel 2 at (16,
+320, 1024), seven launches a block (the two LN launches, qkv, attention,
+proj, mlp1, mlp2), the launch's device us (a replayed CUDA graph), Model A
+also at the panels of o a CTA the plan did not take (``Plan.group`` 1 and
+2, float32 also 4), and beside each product ``torch.matmul``'s device us on
+the same shapes (float32 without TF32).
 
 ``cut``: ``wide``'s two launches at the plan (device us a launch, a
 replayed CUDA graph) for the shipped build and for builds that leave out
@@ -176,7 +177,8 @@ def _by_stage(label: str, launch, stages, depth: int,
     """Mean device us a ``launch()`` by stage: ``reps`` launches under
     ``torch.profiler``, each device kernel named by its place in the block
     (``stages``, in launch order, ``depth`` blocks a launch; copies and
-    memsets left out)."""
+    memsets left out).  One launch more runs first under the profiler and
+    is not counted: a trace can lose its first kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     launch()
@@ -185,7 +187,7 @@ def _by_stage(label: str, launch, stages, depth: int,
     for _ in range(3):     # a trace that lost activities is taken again
         with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
-            for _ in range(reps):
+            for _ in range(reps + 1):
                 launch()
             torch.cuda.synchronize()
         kernels = sorted(
@@ -194,11 +196,21 @@ def _by_stage(label: str, launch, stages, depth: int,
              and "memcpy" not in ev.name.lower()
              and "memset" not in ev.name.lower()),
             key=lambda ev: ev.time_range.start)
-        if len(kernels) == want:
+        if want < len(kernels) <= want + depth * len(stages):
+            kernels = kernels[len(kernels) - want:]
             break
     else:
+        # Where the kernels stop following the block's order: the first
+        # place a stage's kernel name differs from the first block's.
+        names = [ev.name[:48] for ev in kernels]
+        first = next((i for i in range(len(stages), len(names))
+                      if names[i] != names[i % len(stages)]), None)
+        near = names[max(0, (first or 0) - 3):(first or 0) + 3]
         raise RuntimeError(f"{label}: {len(kernels)} device kernels in "
-                           f"{reps} launches, not {want}")
+                           f"{reps + 1} launches, not {want} and up to one "
+                           f"launch's more; the first block "
+                           f"{names[:len(stages)]}, out of order from kernel "
+                           f"{first}: {near}")
     us = dict.fromkeys(stages, 0.0)
     for i, ev in enumerate(kernels):
         us[stages[i % len(stages)]] += ev.time_range.elapsed_us() / reps
@@ -259,16 +271,16 @@ WIDE_STAGES = {
                   "ln2 rows", "mlp1+gelu", "mlp2+residual")}
 
 
-def _wide_cases(dev) -> list:
-    """(label, x, weights, stacked) of bf16 kernel 1 at ViT-L's (1, 320,
-    1024) x 24 and kernel 2 at (16, 320, 1024) on seeded weights (every
-    block the same)."""
+def _wide_cases(dev, dtype=torch.bfloat16) -> list:
+    """(label, x, weights, stacked) of kernel 1 at ViT-L's (1, 320, 1024) x
+    24 and kernel 2 at (16, 320, 1024) on seeded weights (every block the
+    same) in ``dtype``."""
     d, hidden, depth = WIDE["dim"], WIDE["hidden"], WIDE["depth"]
     gen = torch.Generator().manual_seed(1024)
+    name = str(dtype)[6:]
 
     def w(*shape, std, base=0.0):
-        return (base + std * torch.randn(shape, generator=gen)).to(
-            dev, torch.bfloat16)
+        return (base + std * torch.randn(shape, generator=gen)).to(dev, dtype)
 
     block = {"ln1": {"scale": w(d, std=0.1, base=1.0), "bias": w(d, std=0.1)},
              "ln2": {"scale": w(d, std=0.1, base=1.0), "bias": w(d, std=0.1)},
@@ -286,35 +298,36 @@ def _wide_cases(dev) -> list:
         blocks = depth if stacked else 1
         weights_ = vit_block._stack(one * blocks, blocks) if stacked else one
         cases.append((f"{'encoder' if stacked else 'block'} {tuple(x.shape)} "
-                      f"x {blocks} bf16", x, weights_, stacked))
+                      f"x {blocks} {name}", x, weights_, stacked))
     return cases
 
 
-def wide_stages(dev) -> dict:
-    """Device us a launch by stage of bf16 kernel 1 at ViT-L's (1, 320,
-    1024) x 24 and kernel 2 at (16, 320, 1024), seeded weights, the plan's
-    form and tiles and (prenormed) the WIDE_NAMED alternatives, then the
-    same launches in Model A's heads, at the plan and at the other panel
-    groups; beside each product ``torch.matmul``'s device us on the same
-    (M, K) x (K, N) (a CUDA graph of GRAPH_LAUNCHES replayed): the
+def wide_stages(dev, dtype=torch.bfloat16) -> dict:
+    """Device us a launch by stage of kernel 1 at ViT-L's (1, 320, 1024) x
+    24 and kernel 2 at (16, 320, 1024) in ``dtype``, seeded weights, the
+    plan's form and tiles and (prenormed) the WIDE_NAMED alternatives, then
+    the same launches in Model A's heads, at the plan and at the other
+    panel groups; beside each product ``torch.matmul``'s device us on the
+    same (M, K) x (K, N) (a CUDA graph of GRAPH_LAUNCHES replayed): the
     library's time for the product alone, without its LN, bias or
     epilogue."""
     d, hidden = WIDE["dim"], WIDE["hidden"]
     gen = torch.Generator().manual_seed(1)
 
     def w(*shape, std):
-        return (std * torch.randn(shape, generator=gen)).to(dev, torch.bfloat16)
+        return (std * torch.randn(shape, generator=gen)).to(dev, dtype)
 
     products = {"qkv": (d, 3 * d), "proj": (d, d), "mlp1": (d, hidden),
                 "mlp2": (hidden, d)}
     out = {}
     for (label, x, weights_, stacked), (model, heads) in (
             (case, model) for model in WIDE_HEADS.items()
-            for case in _wide_cases(dev)):
+            for case in _wide_cases(dev, dtype)):
         batch, blocks = x.shape[0], weights_[0].shape[0] if stacked else 1
         chosen = vit_block._plan_for(x, heads, hidden)
         if chosen.group:      # the panel attention: the other groups
-            plans = [chosen] + [chosen._replace(group=g) for g in (1, 2)
+            groups = (1, 2) if dtype == torch.bfloat16 else (1, 2, 4)
+            plans = [chosen] + [chosen._replace(group=g) for g in groups
                                 if g != chosen.group]
         else:
             plans = [chosen] + ([chosen._replace(warpgroups=g, tiles=t)
@@ -335,8 +348,7 @@ def wide_stages(dev) -> dict:
                 row[f"warpgroups {p.warpgroups} tiles {p.tiles}"] = got
         for name, (k, n) in products.items():
             a, b = w(batch * 320, k, std=1.0), w(k, n, std=k ** -0.5)
-            c = torch.empty((batch * 320, n), dtype=torch.bfloat16,
-                            device=dev)
+            c = torch.empty((batch * 320, n), dtype=dtype, device=dev)
             row[f"matmul {name} ({batch * 320}, {k}) x ({k}, {n}) us"] = \
                 _graph_us(lambda a=a, b=b, c=c: torch.matmul(a, b, out=c))
         out[label] = row
@@ -548,6 +560,8 @@ def main() -> None:
         print(json.dumps({"f32": f32_stages(dev)}), flush=True)
     if "wide" in args:
         print(json.dumps({"wide": wide_stages(dev)}), flush=True)
+        print(json.dumps({"wide_float32": wide_stages(dev, torch.float32)}),
+              flush=True)
     if "cut" in args:
         print(json.dumps({"cut": cut_launches(dev)}), flush=True)
     for section in ("lottery", "arith"):

@@ -1055,6 +1055,74 @@ def test_wide_head_dims_match_reference_on_both_routes(dev, dtype, dh, s):
         _check_attention(out, ref, dtype)
 
 
+@pytest.mark.parametrize("dh", [136, 192, 256, 512, 576])
+@pytest.mark.parametrize("s", [64, 100, 320])
+def test_f32_panels_match_reference_at_every_group(dev, dh, s):
+    # The float32 panel kernel (csrc/panel_tf32.cuh) at every G that divides
+    # its panels, both routes by name where the CTA fits the card (single:
+    # a ring of every load; flash: tf32_panel_stages'), q resident up to dh
+    # 512 and through the ring above it (576: nine panels), against
+    # attention_reference taken in float64, at 1e-5 up to dh 512 and 1e-5 x
+    # (dh / 256)^1/2 above (split TF32 drops about 2^-22 of each product,
+    # and a score sums dh of them: 1.35e-5 at dh 576 and 1.62e-5 at 1024 on
+    # an H100, the bits of the design before it); every G gives the same
+    # bits (each thread's sums in one order).
+    gen = torch.Generator().manual_seed(7 * dh + s)
+    q, k, v = (torch.randn((3, s, dh), generator=gen).to(dev)
+               for _ in range(3))
+    ref = attention.attention_reference(q.double(), k.double(),
+                                        v.double()).float()
+    optin, panels = attention.card(dev)[0], -(-dh // 64)
+    outs = []
+    for g in range(1, 5):
+        if panels % g:
+            continue
+        for route in ("single", "flash"):
+            stages = 0 if route == "single" else attention.tf32_panel_stages(
+                panels, g, optin)
+            named = attention.Plan(route, "tf32x3", 64, stages, 1, 0, g)
+            if attention._refusal(named, s, dh, optin) is not None:
+                continue
+            out, launch = attention.prepared(q, k, v, chosen=named)
+            launch()
+            torch.cuda.synchronize()
+            assert torch.isfinite(out).all()
+            err = (out - ref).abs().max().item()
+            assert err <= 1e-5 * (1.0 if dh <= 512 else (dh / 256) ** 0.5), (
+                err, named)
+            outs.append(out)
+    assert outs and all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_f32_panel_encoder_matches_twin_at_every_group(dev, batch):
+    # The encoder's float32 panel stage (4 heads of 256) at G 1, 2 and 4
+    # through kernel 1 (2 blocks, batch 1) or kernel 2 (batch 4) against the
+    # twin; every G gives the same bits.
+    gen = torch.Generator().manual_seed(256 + batch)
+    blocks = _blocks(gen, 1024, 2, 4096, torch.float32, dev)
+    x = torch.randn((batch, 80, 1024), generator=gen).to(dev)
+    if batch == 1:
+        ref = vit_block.encoder_reference(x, blocks, 4)
+        flat = [b[m][f] for b in blocks for m, f in vit_block._FIELDS]
+        weights_, stacked = vit_block._stack(flat, 2), True
+    else:
+        ref = vit_block.block_reference(x, blocks[0], 4)
+        weights_ = [blocks[0][m][f] for m, f in vit_block._FIELDS]
+        stacked = False
+    rule = vit_block._plan_for(x, 4, 4096)
+    assert rule.variant == "tf32x3" and rule.group >= 1
+    outs = []
+    for g in (1, 2, 4):
+        out, launch = vit_block.prepared(x, weights_, 4, stacked,
+                                         chosen=rule._replace(group=g))
+        launch()
+        torch.cuda.synchronize()
+        _check_close(out, ref, torch.float32)
+        outs.append(out)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,heads", [(768, 4), (512, 2), (272, 2)])
 def test_wide_head_encoder_and_block_match_twin(dev, dtype, d, heads):

@@ -871,13 +871,15 @@ def test_encode_passes_masters_and_keeps_the_cpu_path():
 def test_attention_plan_refuses_odd_head_dims(s, dh, dtype):
     # Above 128 the head dim runs in 64-column panels: float32 takes 136 as
     # it is (a multiple of 8; the ragged last panel is zero-filled in shared
-    # memory), 64-key blocks through a ring of two.  Below, one that is no
+    # memory), 64-key blocks through the ring of panel stages that fills
+    # the card beside its three resident q panels, one panel of o a CTA
+    # (one head: 5 CTAs).  Below, one that is no
     # multiple of 8 is padded: float32 to the next multiple of 8 (tf32x3),
     # bf16 to 32 (mma); the kernel runs at the padded dim with the true
     # one's scale.
     if dh > 128:
         got = tattn.plan(s, dh, dtype, H100_OPTIN)
-        assert got == tattn.Plan("flash", "tf32x3", kb=64, stages=2)
+        assert got == tattn.Plan("flash", "tf32x3", kb=64, stages=5, group=1)
         assert tattn.entry_head_dims(dh, got) == (dh, dh)
         return
     got = tattn.plan(s, dh, dtype, H100_OPTIN)

@@ -321,8 +321,11 @@ def test_plans_take_every_wide_head_dim(dh, dtype):
                                 2 if dtype == BF16 else 4, got.kb, got.stages,
                                 got.warpgroups, got.group)
         if dtype == F32:
-            assert got.group == 0, got
-            assert need <= H100_OPTIN // (2 if got.route == "single" else 1)
+            # The float32 panel kernel (csrc/panel_tf32.cuh): G panels of o a
+            # CTA, q resident up to dh 512, one CTA an SM.
+            assert got.group >= 1 and -(-dh // 64) % got.group == 0, got
+            assert need <= H100_OPTIN, got
+            assert tattn._refusal(got, s, pad, H100_OPTIN) is None
         else:
             # The panel kernel (csrc/panel_ring.cuh): G panels of o a CTA, q
             # resident, a ring of panel stages; single while its CTA fits
@@ -330,10 +333,12 @@ def test_plans_take_every_wide_head_dim(dh, dtype):
             assert got.group >= 1 and (pad // 64) % got.group == 0, got
             assert need <= H100_OPTIN, got
             assert tattn._refusal(got, s, pad, H100_OPTIN) is None
-    # float32's flash ring of the panels does not grow with the head dim;
-    # bf16's q panels do, beside a ring of at most two key blocks' loads.
-    assert tattn.smem_bytes("flash", "tf32x3", 320, 1024, 4, 64, 2) == 104448
-    assert vit_block.attention_smem_bytes("tf32x3", 1024) == 104448
+    # float32 streams q through the ring above dh 512 (16 panels: seven
+    # stages of 32 KB fill the card); bf16's q panels stay, beside a ring of
+    # at most two key blocks' loads.
+    assert tattn.smem_bytes("flash", "tf32x3", 320, 1024, 4, 64, 7, 1, 4) \
+        == vit_block.attention_smem_bytes("tf32x3", 1024, 1, 4) \
+        == 1024 + 7 * 32768 + 8 * (1 + 2 * 7) == 230520
     assert tattn.smem_bytes("flash", "mma", 4096, 1024, 2, 64, 12, 1, 4) \
         == vit_block.attention_smem_bytes("mma", 1024, 1, 2) \
         == 1024 + (16 + 12) * 8192 + 8 * (1 + 2 * 12) == 230600
@@ -409,11 +414,83 @@ def test_panel_plans_give_group_grid_and_bytes(dh, batch):
         == _panel_bytes(panels, stages) == nbytes <= H100_OPTIN
 
 
-def _source_constant(name):
+# The float32 panel attention's plans (csrc/panel_tf32.cuh, one CTA an SM,
+# G by the same count with one pass) at dh 136, 192 and 256 (4 heads), at
+# batch 1 and 16, on (batch x heads, S, dh) at S 320 and 64, and kernel
+# 1/2's attention stage at S 320.  Each row: (route, G, ring stages, grid,
+# shared-memory bytes).  The bytes are 1024 + P x 16384 + R x 32768 + 8 (1
+# + 2 R): slack to a 1024-byte boundary, P = ceil(dh / 64) resident q panels
+# and R ring stages (single: every load of the walk, blocks x (P + G)).
+TF32_PANEL_PLANS = {
+    (136, 1): {320: ("flash", 1, 5, 60, 214104),
+               64: ("single", 1, 0, 12, 181320),
+               "encoder": (1, 5, 60, 214104)},
+    (136, 16): {320: ("flash", 3, 5, 320, 214104),
+                64: ("flash", 3, 5, 64, 214104),
+                "encoder": (3, 5, 320, 214104)},
+    (192, 1): {320: ("flash", 1, 5, 60, 214104),
+               64: ("single", 1, 0, 12, 181320),
+               "encoder": (1, 5, 60, 214104)},
+    (192, 16): {320: ("flash", 3, 5, 320, 214104),
+                64: ("flash", 3, 5, 64, 214104),
+                "encoder": (3, 5, 320, 214104)},
+    (256, 1): {320: ("flash", 1, 5, 80, 230488),
+               64: ("single", 1, 0, 16, 230488),
+               "encoder": (1, 5, 80, 230488)},
+    (256, 16): {320: ("flash", 4, 5, 320, 230488),
+                64: ("flash", 2, 5, 128, 230488),
+                "encoder": (4, 5, 320, 230488)},
+}
+
+
+def _tf32_panel_bytes(panels, stages):
+    return 1024 + panels * 16384 + stages * 32768 + 8 * (1 + 2 * stages)
+
+
+@pytest.mark.parametrize("dh,batch", sorted(TF32_PANEL_PLANS))
+def test_tf32_panel_plans_give_group_grid_and_bytes(dh, batch):
+    heads, panels = 4, -(-dh // 64)
+    for s in (320, 64):
+        route, group, stages, grid, nbytes = TF32_PANEL_PLANS[dh, batch][s]
+        got = tattn.plan(s, dh, F32, H100_OPTIN, batch * heads, H100_SMS)
+        assert (got.route, got.variant, got.group, got.stages, got.pad) == (
+            route, "tf32x3", group, stages, 0)
+        assert -(-s // 64) * batch * heads * (panels // got.group) == grid
+        ring = -(-s // 64) * (panels + group) if route == "single" else stages
+        assert tattn.smem_bytes(route, "tf32x3", s, dh, 4, 64, stages, 1,
+                                group) == _tf32_panel_bytes(panels, ring) \
+            == nbytes
+        assert tattn._refusal(got, s, dh, H100_OPTIN) is None
+        # One CTA an SM: two never fit beside q.
+        assert 2 * (nbytes + 1024) > 233472 and nbytes <= H100_OPTIN
+    group, stages, grid, nbytes = TF32_PANEL_PLANS[dh, batch]["encoder"]
+    d = heads * dh
+    got = vit_block.plan(batch, 320, d, heads, 4 * d, F32, H100_SMS)
+    assert got.group == group and vit_block.group_refusal(
+        "tf32x3", dh, got.group) is None
+    assert tattn.tf32_panel_stages(panels, group, H100_OPTIN) == stages
+    assert 5 * batch * heads * (panels // group) == grid
+    assert vit_block.attention_smem_bytes("tf32x3", dh, 1, group) \
+        == _tf32_panel_bytes(panels, stages) == nbytes
+
+
+@pytest.mark.parametrize("panels,group,stages", [
+    (3, 1, 5), (3, 3, 5), (4, 4, 5), (8, 2, 3), (9, 1, 7), (16, 4, 7)])
+def test_tf32_panel_rings_fill_the_card(panels, group, stages):
+    # As many 32 KB stages as the card holds beside q (resident up to 8
+    # panels, through the ring above), up to two key blocks' loads.
+    got = tattn.tf32_panel_stages(panels, group, H100_OPTIN)
+    assert got == stages
+    assert tattn.tf32_panel_smem_bytes(panels, got) <= H100_OPTIN \
+        < tattn.tf32_panel_smem_bytes(panels, got + 1) \
+        or got == 2 * tattn.tf32_panel_loads(panels, group)
+
+
+def _source_constant(name, source="panel_ring.cuh"):
     import re
     from gstreamer_vit_tracker_tpu_torch.ops import cuda_build
 
-    with open(f"{cuda_build.CSRC}/panel_ring.cuh") as f:
+    with open(f"{cuda_build.CSRC}/{source}") as f:
         return int(re.search(rf"{name} = (\d+);", f.read()).group(1))
 
 
@@ -427,6 +504,32 @@ def test_panel_plan_constants_are_the_sources(name, value):
     assert _source_constant(name) == value
 
 
+@pytest.mark.parametrize("name,value", [
+    ("kStageBytes", tattn._TF32_STAGE_BYTES),
+    ("kQPanelBytes", tattn._TF32_QPANEL_BYTES),
+    ("kMaxGroup", tattn._TF32_MAX_GROUP),
+    ("kMaxResidentPanels", tattn._TF32_MAX_RESIDENT),
+    ("kKeys", tattn._TF32_KEYS), ("kCols", tattn._PANEL),
+    ("kRows", tattn._TF32_ROWS)])
+def test_tf32_panel_plan_constants_are_the_sources(name, value):
+    # The float32 panel plans (attention_smem, attention_tf32_ring_stages
+    # on the card) rest on these constants of csrc/panel_tf32.cuh.
+    assert _source_constant(name, "panel_tf32.cuh") == value
+
+
+def test_tf32_panel_profile_cuts_find_their_statements():
+    # profile_attention.py's cut builds rewrite statements of
+    # csrc/panel_tf32.cuh in a copy; each must stand there once (the builds
+    # raise on the card otherwise).
+    from gstreamer_vit_tracker_tpu_torch import profile_attention as pa
+
+    with open(f"{pa.cuda_build.CSRC}/panel_tf32.cuh") as f:
+        src = f.read()
+    for edits in pa._CUT.values():
+        for old, _ in edits:
+            assert src.count(old) == 1, old
+
+
 @pytest.mark.parametrize("plan_,s,dh", [
     (tattn.Plan("flash", "mma", 64, 9, 1, 0, 3), 320, 256),    # 3 of 4 panels
     (tattn.Plan("flash", "mma", 64, 9, 1, 0, 5), 320, 320),    # G above 4
@@ -436,7 +539,13 @@ def test_panel_plan_constants_are_the_sources(name, value):
     (tattn.Plan("single", "mma", 64, 0, 1, 0, 1), 1040, 256),  # too large
     (tattn.Plan("flash", "mma", 64, 16, 1, 0, 4), 320, 1024),  # too large
     (tattn.Plan("flash", "mma", 64, 2, 1, 0, 1), 320, 128),    # group <= 128
-    (tattn.Plan("flash", "tf32x3", 64, 2, 1, 0, 1), 320, 256),  # tf32x3
+    (tattn.Plan("flash", "tf32x3", 64, 5, 1, 0, 3), 320, 256),  # 3 of 4 panels
+    (tattn.Plan("flash", "tf32x3", 64, 5, 1, 0, 5), 320, 320),  # G above 4
+    (tattn.Plan("flash", "tf32x3", 64, 1, 1, 0, 4), 320, 256),  # one stage
+    (tattn.Plan("flash", "tf32x3", 64, 5, 1, 0, 0), 320, 256),  # no group
+    (tattn.Plan("single", "tf32x3", 64, 0, 1, 0, 2), 320, 256),  # too large
+    (tattn.Plan("flash", "tf32x3", 64, 6, 1, 0, 4), 320, 256),  # too large
+    (tattn.Plan("flash", "tf32x3", 64, 2, 1, 0, 1), 320, 128),  # group <= 128
 ])
 def test_panel_plans_the_design_does_not_take_raise(plan_, s, dh):
     assert tattn._refusal(plan_, s, dh, H100_OPTIN) is not None
@@ -444,7 +553,8 @@ def test_panel_plans_the_design_does_not_take_raise(plan_, s, dh):
 
 @pytest.mark.parametrize("variant,dh,group", [
     ("mma", 256, 4), ("mma", 256, 3), ("mma", 192, 2), ("mma", 256, 0),
-    ("mma", 128, 1), ("tf32x3", 256, 1)])
+    ("mma", 128, 1), ("tf32x3", 256, 3), ("tf32x3", 320, 5),
+    ("tf32x3", 256, 0), ("tf32x3", 128, 1)])
 def test_encoder_panel_groups_the_design_does_not_take_raise(variant, dh,
                                                              group):
     assert vit_block.group_refusal(variant, dh, group) is not None
