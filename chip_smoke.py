@@ -103,16 +103,18 @@ Phases, in order; any failure raises and exits non-zero:
    -c "import chip_smoke as c; c.wide_alone()"``): the wide LN form named
    where the rule keeps the resident one (bf16 D 768 prenormed, with one
    and two warpgroups and every N tile the ring builds; float32 D 512 and
-   192 streamed; batch 1 and 16) bit-equal to it; the flagship's and
-   ``small``'s kernel 1 / 2 / 5 outputs bit-equal by sha256 to the build
-   before the streamed form (``FLAGSHIP_SHA256``), and bf16 kernels 1 and
-   2 at ViT-L's and ViT-H's widths to the build before the prenormed form
-   (``WIDE_SHA256``); a ViT-L-width model (D 1024, 24
-   blocks, 16 heads, seeded weights) with kernel 1 at (1, 320, 1024) x 24
-   in bf16 (``mma``, prenormed, after the final LN against the float64
-   chain) and float32 (``tf32x3``, streamed, beside ``simt`` by name over a
-   few launches) and kernel 2 at (16, 320, 1024) in both, each timed beside
-   the plain twin, the library and the bound; a ViT-H-width model (D 1280,
+   192 prenormed at the rule's tiles and, at batch 16, every N tile of the
+   float32 ring, and streamed; batch 1 and 16) bit-equal to it; the
+   flagship's and ``small``'s kernel 1 / 2 / 5 outputs bit-equal by sha256
+   to the build before the streamed form (``FLAGSHIP_SHA256``), and
+   kernels 1 and 2 at ViT-L's and ViT-H's widths to the build before the
+   prenormed form of their dtype (``WIDE_SHA256``); a ViT-L-width model
+   (D 1024, 24 blocks, 16 heads, seeded weights) with kernel 1 at (1, 320,
+   1024) x 24 in bf16 (``mma``, prenormed, after the final LN against the
+   float64 chain) and float32 (``tf32x3``, prenormed, beside the streamed
+   form by name, bit-equal, and ``simt`` by name over a few launches) and
+   kernel 2 at (16, 320, 1024) in both, each timed beside the plain twin,
+   the library and the bound; a ViT-H-width model (D 1280,
    16 heads of 80, depth 4) with kernel 1 against its twin and kernel 5 at
    D 1280 in both dtypes timed; then their paths, the counts set to 0
    before each part: ViT-L ``init`` and 3 compiled ``update_packed_jit``
@@ -534,6 +536,10 @@ TIMED_KEYS = ("variant", "max_abs_err", "ms", "ms_again", "launch_ms",
 TIMED_F32_KEYS = TIMED_KEYS + ("simt_max_abs_err", "simt_launch_ms",
                                "simt_device_us", "bound_fma_ms",
                                "bound_split_tf32_ms")
+# ... and of a float32 case at a width past the resident form: the streamed
+# LN products by name beside the prenormed ring, the same output bit for
+# bit.
+STREAMED_KEYS = ("streamed_bit_equal", "streamed_device_us")
 
 
 def only(variant: str, n: int) -> dict:
@@ -609,7 +615,10 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper,
     of ``tf32x3``, whose operations these are), and the bytes.
     ``simt_iters``: the launches ``simt`` is timed over (a few where it
     takes a tenth of a second a launch; 0: none, where ``simt`` does not
-    take the shape, a head dim above 128); ``held``: ``check_kernel``'s."""
+    take the shape, a head dim above 128); ``held``: ``check_kernel``'s.
+    Where the float32 plan is the prenormed ring (a width past 544), the
+    streamed LN products by name too, the design it replaced: the same
+    output bit for bit, and its device time a launch."""
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
     f32 = x.dtype == torch.float32
@@ -632,6 +641,20 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper,
     torch.cuda.synchronize()
     if not torch.equal(out_m, got):
         raise AssertionError(f"{what}: prepared() and the wrapper differ")
+    rule = vit_block._plan_for(x, heads, hidden)
+    streamed = f32 and rule.ln == "prenormed"
+    if streamed:
+        out_t, launch_streamed = vit_block.prepared(
+            x, weights, heads, stacked,
+            chosen=vit_block._plan_for(x, heads, hidden, "streamed"))
+        launch_streamed()
+        torch.cuda.synchronize()
+        res["streamed_bit_equal"] = torch.equal(out_t, got)
+        print(f"{what} streamed by name: bit-equal to {rule.ln} "
+              f"{res['streamed_bit_equal']}", flush=True)
+        if not res["streamed_bit_equal"]:
+            raise AssertionError(f"{what}: the prenormed ring and the "
+                                 f"streamed form differ")
     simt = f32 and variant != "simt" and simt_iters > 0
     if simt:
         out_s, launch_simt = vit_block.prepared(
@@ -659,6 +682,9 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper,
     if simt:
         res["simt_device_us"] = graph_us(launch_simt,
                                          min(GRAPH_LAUNCHES, simt_iters))
+    if streamed:
+        res["streamed_device_us"] = graph_us(
+            launch_streamed, 5 if stacked else GRAPH_LAUNCHES)
     res["device_us_again"] = graph_us(launch)
     res["library_device_us"] = graph_us(library)
     flops, nbytes = encoder_cost(x, blocks, heads)
@@ -680,6 +706,8 @@ def timed_kernel(what, x, blocks, heads, stacked, wrapper,
     res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     simt_note = (f", simt {res['simt_launch_ms']:.4f}" if simt else "")
     simt_dev = (f", simt {res['simt_device_us']:.2f}" if simt else "")
+    if streamed:
+        simt_dev += f", streamed by name {res['streamed_device_us']:.2f}"
     lib_name = ("matmul + scaled_dot_product_attention, TF32 off" if f32
                 else "matmul + scaled_dot_product_attention")
     print(f"{what} ms (CUDA events, mean of {TIMING_ITERS}): through the "
@@ -2423,7 +2451,8 @@ WIDE_STEPS = 3            # compiled ViT-L steps a dtype, each from the CPU's st
 WIDE_CPU_STREAMS = 2      # streams of the 16-stream tick held to the CPU
 WIDE_PREP_STEPS = 2       # ViT-H update(fused_prep=True) steps a dtype
 WIDE_SIMT_ITERS = 3       # simt by name at the float32 ViT-L shapes: a few launches
-# The forced wide-form comparisons (bf16 prenormed, float32 streamed):
+# The forced wide-form comparisons (bf16 prenormed, float32 prenormed and
+# streamed):
 # (dtype, D, heads) where the rule keeps the LN products resident (bf16 D
 # 768, float32 D 512 and the flagship's 192), at batch 1 and 16.
 WIDE_FORCED = ((torch.bfloat16, 768, 12), (torch.float32, 512, 8),
@@ -2470,7 +2499,16 @@ WIDE_SHA256 = {
     "kernel1_model_a_f32":
         "fa34d40a4f25faf70489b2b720d9e483beb5a33061243688025dcf73cbd93a36",
     "kernel2_model_a_f32":
-        "77c81cc4b5203bb3f3353d2257194d2aecf44384d4a873f87395c70d2f1d9d37"}
+        "77c81cc4b5203bb3f3353d2257194d2aecf44384d4a873f87395c70d2f1d9d37",
+    # ViT-L's and ViT-H's float32 ones as the build of commit bc24b87 (the
+    # streamed float32 LN products, before the prenormed ring) made them:
+    # the ring keeps each output's sums in their order.
+    "kernel1_vit_l_f32":
+        "3acd657f7c7cf643c21efb78747bfdf86a4d7d5e62f488ae833c013545936bb4",
+    "kernel2_vit_l_f32":
+        "2aa87b3ce5476f213b6d303dbcc0fdf651955b7c155c32033c02667def56d6c9",
+    "kernel1_vit_h_f32":
+        "253febf40f0ff833291e0965d4507afe089edb21f4cb4e52961fe52088e13e28"}
 
 
 def digest(t: torch.Tensor) -> str:
@@ -2560,9 +2598,9 @@ def wide_outputs(dev, name: str, cfg, params, seed: int,
 def check_wide_sha256(dev, name: str, cfg, params, seed: int,
                       dtype=torch.bfloat16) -> dict:
     """``wide_outputs`` of one model in ``dtype`` against WIDE_SHA256: the
-    prenormed products (every bf16 width above 768) give the bits of the
-    build before them, and so does the float32 panel attention's redesign
-    (Model A in float32)."""
+    prenormed products (every bf16 width above 768, every float32 one above
+    544) give the bits of the build before them, and so does the float32
+    panel attention's redesign (Model A in float32)."""
     got = {k: digest(t) for k, t in wide_outputs(dev, name, cfg, params,
                                                  seed, dtype).items()}
     want = {k: WIDE_SHA256[k] for k in got}
@@ -2610,9 +2648,10 @@ def seeded_blocks(dev, d: int, depth: int, dtype, seed: int):
 def forced_streamed(dev) -> dict:
     """Kernels 1 and 2 at the WIDE_FORCED shapes, where the rule keeps the
     LN products resident, launched as the rule plans them and again with
-    the variant's wide form named (bf16 ``prenormed``, float32
-    ``streamed``; bf16 with one and two warpgroups a CTA): bit for bit the
-    same output."""
+    the wide forms named (bf16 ``prenormed`` with one and two warpgroups a
+    CTA; float32 ``prenormed`` at the tiles its rule gives, and at batch
+    16 also at every other N tile, and ``streamed``): bit for bit the same
+    output."""
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
 
     res = {}
@@ -2623,11 +2662,18 @@ def forced_streamed(dev) -> dict:
             weights = (vit_block._stack(flat, 2) if stacked
                        else flat[:len(vit_block._FIELDS)])
             rule = vit_block._plan_for(x, heads, 4 * d)
-            wide = vit_block._WIDE_LN[rule.variant]
-            named = [rule._replace(ln=wide)]
-            if wide == "prenormed":            # every build of the ring
-                named += [rule._replace(ln=wide, warpgroups=2, tiles=(t,) * 4)
-                          for t in (64, 128)]
+            if rule.variant == "mma":          # every build of the ring
+                named = [rule._replace(ln="prenormed")] + [
+                    rule._replace(ln="prenormed", warpgroups=2, tiles=(t,) * 4)
+                    for t in (64, 128)]
+            else:                              # every build without a K split
+                ring = vit_block._plan_for(x, heads, 4 * d, "prenormed")
+                named = [ring, vit_block._plan_for(x, heads, 4 * d,
+                                                   "streamed")]
+                if ring.warpgroups == 1:       # D 192's N 576 in 128s: ragged
+                    named += [ring._replace(tiles=(t,) * 4)
+                              for t in (16, 32, 64, 128)
+                              if (t,) * 4 != ring.tiles]
             outs = []
             for chosen in [rule] + named:
                 out, launch = vit_block.prepared(x, weights, heads, stacked,
@@ -2638,13 +2684,13 @@ def forced_streamed(dev) -> dict:
             same = all(torch.equal(outs[0], o) for o in outs[1:])
             label = (f"{'encoder' if stacked else 'block'} {tuple(x.shape)} "
                      f"{str(dt)[6:]}")
-            forms = [(p.warpgroups, p.tiles) for p in named]
-            print(f"{wide} LN form named at {label} (the rule: {rule.ln}, "
-                  f"tiles {rule.tiles}; warpgroups and tiles {forms}): "
-                  f"bit-equal to the rule's {same}", flush=True)
+            forms = [(p.ln, p.warpgroups, p.tiles) for p in named]
+            print(f"wide LN forms named at {label} (the rule: {rule.ln}, "
+                  f"tiles {rule.tiles}; forms, warpgroups and tiles "
+                  f"{forms}): bit-equal to the rule's {same}", flush=True)
             if rule.ln != "resident" or not same:
-                raise AssertionError(f"{label}: the {wide} LN form differs "
-                                     f"from the resident one")
+                raise AssertionError(f"{label}: a wide LN form differs from "
+                                     f"the resident one")
             res[label] = same
     return res
 
@@ -2771,13 +2817,14 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
     kernel and the twin part by 2.4 % of max|twin| on an NVIDIA H100 80GB
     HBM3 at 700 W, each as close to exact arithmetic as the other:
     ENC_REL_TOL, read at the flagship's 12 blocks, is printed and not
-    asserted), float32 (``tf32x3``, streamed, ``simt`` by
+    asserted), float32 (``tf32x3``, prenormed, the streamed form and
+    ``simt`` by
     name over WIDE_SIMT_ITERS launches) at F32_ATOL;
     kernel 2 at (16, 320, 1024) on 16 crops through block 0 in both dtypes;
     kernel 1 at ViT-H's (1, 320, 1280) x 4 in both dtypes against the twin;
     kernel 5 at D 1280; the wide form named where the rule keeps the
     resident one (``forced_streamed``); the flagship's and small's outputs
-    against FLAGSHIP_SHA256, ViT-L's and ViT-H's bf16 ones against
+    against FLAGSHIP_SHA256, ViT-L's and ViT-H's in both dtypes against
     WIDE_SHA256."""
     from gstreamer_vit_tracker_tpu_torch.models import vit
     from gstreamer_vit_tracker_tpu_torch.ops import vit_block
@@ -2793,7 +2840,9 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
     res["flagship_sha256"] = got
     res["wide_sha256"] = {
         **check_wide_sha256(dev, "vit_l", lcfg, lparams, 24),
-        **check_wide_sha256(dev, "vit_h", hcfg, hparams, 80)}
+        **check_wide_sha256(dev, "vit_h", hcfg, hparams, 80),
+        **check_wide_sha256(dev, "vit_l", lcfg, lparams, 24, torch.float32),
+        **check_wide_sha256(dev, "vit_h", hcfg, hparams, 80, torch.float32)}
 
     heads, hidden = lcfg.num_heads, int(lcfg.embed_dim * lcfg.mlp_ratio)
     crops = model_crops(dev, lcfg, lparams)
@@ -2806,11 +2855,10 @@ def wide_kernels(dev, card, lcfg, lparams, hcfg, hparams) -> dict:
             print(f"ViT-L {name} plan at batch {x.shape[0]}: {chosen}",
                   flush=True)
             variant = vit_block._VARIANTS[dt]
-            if chosen.variant != variant \
-                    or chosen.ln != vit_block._WIDE_LN[variant]:
+            if chosen.variant != variant or chosen.ln != "prenormed":
                 raise AssertionError(f"ViT-L {name}: expected the "
-                                     f"{vit_block._WIDE_LN[variant]} "
-                                     f"{variant}, the plan is {chosen}")
+                                     f"prenormed {variant}, the plan is "
+                                     f"{chosen}")
             if stacked:
                 key, row = f"kernel1_{name}", timed_kernel(
                     f"encoder ViT-L {tuple(x.shape)} x {lcfg.depth} {name}",
@@ -6592,7 +6640,8 @@ def main() -> int:
                               for k in TIMED_KEYS + ("plan", "final_ln")},
                            "step": wp["step_bfloat16"]},
             "vit_l_f32": {**{k: wk["kernel1_float32"][k]
-                             for k in TIMED_F32_KEYS + ("plan",)},
+                             for k in TIMED_F32_KEYS + STREAMED_KEYS
+                             + ("plan",)},
                           "step": wp["step_float32"]},
             "vit_h": {t: wk[f"kernel1_vit_h_{t}"]
                       for t in ("bfloat16", "float32")},
@@ -6607,6 +6656,9 @@ def main() -> int:
                                    for k in TIMED_KEYS + ("plan",)},
                                 "step": hp[f"step_{t}"]}
                for t in ("bfloat16", "float32")},
+            "model_a_float32_streamed": {
+                k: he["kernel1_float32"][k]
+                for k in STREAMED_KEYS + ("bound_split_tf32_ms",)},
             "final_ln": he["kernel1_bfloat16"]["final_ln"],
             "dh192_max_abs_err": {t: he[f"dh192_{t}"]["encoder"]
                                   for t in ("bfloat16", "float32")},
@@ -6730,12 +6782,16 @@ def main() -> int:
         "wide": {"bf16": {k: wk["kernel2_bfloat16"][k]
                           for k in TIMED_KEYS + ("plan",)},
                  "f32": {k: wk["kernel2_float32"][k]
-                         for k in TIMED_F32_KEYS + ("plan",)},
+                         for k in TIMED_F32_KEYS + STREAMED_KEYS
+                         + ("plan",)},
                  "path": wp["block_path"]},
         "heads_above_128": {
             **{f"model_a_{t}": {k: he[f"kernel2_{t}"][k]
                                 for k in TIMED_KEYS + ("plan",)}
                for t in ("bfloat16", "float32")},
+            "model_a_float32_streamed": {
+                k: he["kernel2_float32"][k]
+                for k in STREAMED_KEYS + ("bound_split_tf32_ms",)},
             "dh192_max_abs_err": {t: he[f"dh192_{t}"]["block"]
                                   for t in ("bfloat16", "float32")},
             "path": hp["block_path"]},

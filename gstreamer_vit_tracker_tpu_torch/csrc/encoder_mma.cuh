@@ -242,6 +242,34 @@ __device__ __forceinline__ uint4 layer_norm8(uint4 v, float mu, float rstd, uint
   return y;
 }
 
+// x LayerNormed with its row's (mu, rstd) and its column's scale s and bias
+// b: (x - mu) . rstd . s + b, every operation rounded on its own (the float32
+// form of layer_norm8's arithmetic).
+__device__ __forceinline__ float layer_norm1(float x, float mu, float rstd, float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rstd), s), b);
+}
+
+// Four floats of x (a 16-byte chunk) LayerNormed as layer_norm8 normalises
+// eight bf16: layer_norm1 on each.
+__device__ __forceinline__ uint4 layer_norm4(uint4 v, float mu, float rstd, uint4 sv, uint4 bv) {
+  const float *e = reinterpret_cast<const float*>(&v), *se = reinterpret_cast<const float*>(&sv),
+              *be = reinterpret_cast<const float*>(&bv);
+  uint4 y;
+  float* ye = reinterpret_cast<float*>(&y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ye[i] = layer_norm1(e[i], mu, rstd, se[i], be[i]);
+  return y;
+}
+
+__device__ __forceinline__ uint4 layer_norm_chunk(bf16, uint4 v, float mu, float rstd, uint4 sv,
+                                                  uint4 bv) {
+  return layer_norm8(v, mu, rstd, sv, bv);
+}
+__device__ __forceinline__ uint4 layer_norm_chunk(float, uint4 v, float mu, float rstd, uint4 sv,
+                                                  uint4 bv) {
+  return layer_norm4(v, mu, rstd, sv, bv);
+}
+
 // ---------------------------------------------------------------------------
 // The products.
 // ---------------------------------------------------------------------------
@@ -412,55 +440,59 @@ product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 
 constexpr int kLnRowsThreads = 128;  // four warps a CTA
 
-// Dynamic shared memory of one ln_rows_kernel<RPW> CTA: its 4 . RPW rows
-// of x, then the scale and the bias.
-inline size_t ln_rows_smem_bytes(int rpw, int W) {
-  return (size_t)(kLnRowsThreads / 32 * rpw + 2) * W * sizeof(bf16);
+// Dynamic shared memory of one ln_rows_kernel<T, RPW> CTA: its 4 . RPW
+// rows of x, then the scale and the bias; `elem` bytes an element.
+inline size_t ln_rows_smem_bytes(int rpw, int W, size_t elem = sizeof(bf16)) {
+  return (size_t)(kLnRowsThreads / 32 * rpw + 2) * W * elem;
 }
 
-// y = LayerNorm(x) of M rows ((M, W) row-major, W a multiple of 64) over
-// their first d columns, with the columns' scale s and bias b (zero past
-// d), rounded to bf16 once: row_stats in its order, then layer_norm8 on
-// every 16-byte chunk, so y is what the resident form writes into its A
-// tile, bit for bit.  RPW rows a warp, 32 / RPW lanes a row: every copy is
-// issued at once (cp.async: the row's chunks by its lanes, the scale and
-// bias by the CTA's), then read from shared memory; the statistics' f32
-// sums are row_stats's eight-lane order (lane c of each eight takes the
-// row's chunks c, c + 8, ...; at RPW 1 the warp's four eights compute the
-// same sums), and the row's lanes then normalise its chunks between them.
-// RPW 1 (a warp a row) where the rows are few and the grid is the latency
-// (batch 1); RPW 4 where there are rows to fill the card.  Each 16-byte
-// chunk of x is read from device memory once.  A row past M copies and
-// stores nothing (the shuffles need every lane).
-template <int RPW>
+// y = LayerNorm(x) of M rows ((M, W) row-major, W . sizeof(T) a multiple of
+// 128: W a multiple of 64 in bf16, of 32 in float32) over their first d
+// columns, with the columns' scale s and bias b (zero past d): row_stats in
+// its order, then every 16-byte chunk normalised (bf16: layer_norm8,
+// rounded to bf16 once; float32: layer_norm1 on each element), so y is what
+// the resident form writes into its A tile (bf16) or what the float32
+// streamed form's load_a_ln computes for each element as it lands
+// (encoder_tf32.cuh), bit for bit.  RPW rows a warp, 32 / RPW lanes a row:
+// every copy is issued at once (cp.async: the row's chunks by its lanes, the
+// scale and bias by the CTA's), then read from shared memory; the
+// statistics' f32 sums are row_stats's eight-lane order (lane c of each
+// eight takes the row's chunks c, c + 8, ...; at RPW 1 the warp's four
+// eights compute the same sums), and the row's lanes then normalise its
+// chunks between them.  RPW 1 (a warp a row) where the rows are few and the
+// grid is the latency (batch 1); RPW 4 where there are rows to fill the
+// card.  Each 16-byte chunk of x is read from device memory once.  A row
+// past M copies and stores nothing (the shuffles need every lane).
+template <typename T, int RPW>
 __global__ void __launch_bounds__(kLnRowsThreads)
-ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s, const bf16* __restrict__ b,
-               bf16* __restrict__ y, int M, int W, int d) {
+ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ s, const T* __restrict__ b,
+               T* __restrict__ y, int M, int W, int d) {
   extern __shared__ __align__(16) unsigned char raw[];
   constexpr int kRows = kLnRowsThreads / 32 * RPW, kLanes = 32 / RPW;
+  constexpr int kE = 16 / sizeof(T);          // elements a chunk
   const int lane = threadIdx.x & 31, r = (threadIdx.x >> 5) * RPW + lane / kLanes;
-  const int row = blockIdx.x * kRows + r, row_chunks = W / 8, l = lane % kLanes;
+  const int row = blockIdx.x * kRows + r, row_chunks = W / kE, l = lane % kLanes;
   uint4* tile = reinterpret_cast<uint4*>(raw);
   const uint4* mine = tile + (size_t)r * row_chunks;
   const uint4* sb = tile + (size_t)kRows * row_chunks;   // scale, then bias
   if (row < M) {
-    const bf16* xr = x + (size_t)row * W;
+    const T* xr = x + (size_t)row * W;
     for (int i = l; i < row_chunks; i += kLanes)
-      mma::cp_async16(mma::smem_addr(mine + i), xr + i * 8);
+      mma::cp_async16(mma::smem_addr(mine + i), xr + i * kE);
   }
   for (int i = threadIdx.x; i < 2 * row_chunks; i += kLnRowsThreads)
     mma::cp_async16(mma::smem_addr(sb + i),
-                    i < row_chunks ? s + i * 8 : b + (i - row_chunks) * 8);
+                    i < row_chunks ? s + i * kE : b + (i - row_chunks) * kE);
   mma::cp_async_commit();
   mma::cp_async_wait<0>();
   __syncthreads();
   const int c = lane & 7;
   const float2 st =
-      row_stats<bf16>([&](int p) { return mine[p * 8 + c]; }, W / kChunk, c, d);
+      row_stats<T>([&](int p) { return mine[p * 8 + c]; }, row_chunks / 8, c, d);
   if (row >= M) return;
   uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * W);
   for (int i = l; i < row_chunks; i += kLanes)
-    yr[i] = layer_norm8(mine[i], st.x, st.y, sb[i], sb[row_chunks + i]);
+    yr[i] = layer_norm_chunk(T(), mine[i], st.x, st.y, sb[i], sb[row_chunks + i]);
 }
 
 // Hopper's transaction barriers and the tensor memory accelerator (TMA):

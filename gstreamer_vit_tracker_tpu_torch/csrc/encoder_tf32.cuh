@@ -41,8 +41,10 @@
 //     shared memory grows with K, 64 . (K + 4) . 4 bytes of rows alone: the
 //     H100's 232,448 a block hold it up to K = 544 at N 32 and two
 //     warpgroups.
-//   * LN streamed (the same products where the resident form does not fit):
-//     a launch of row_stats_kernel<float> before the product takes each
+//   * LN streamed (the same products past the resident form, by name only
+//     since ring_tf32.cuh's prenormed ring replaced it there, the yardstick
+//     of its timings and its bits): a launch of row_stats_kernel<float>
+//     before the product takes each
 //     row's mean and rstd with the resident form's arithmetic in its order;
 //     the A chunk walks the ring as without LN, with the chunk's 32 columns
 //     of the scale and bias beside it, and each A element is LayerNormed as
@@ -140,11 +142,7 @@ __device__ __forceinline__ tf::FragA load_a(const float* p, int ld) {
   return a;
 }
 
-// x LayerNormed with its row's (mu, rstd) and its column's scale s and bias
-// b: (x - mu) . rstd . s + b, every operation rounded on its own.
-__device__ __forceinline__ float layer_norm1(float x, float mu, float rstd, float s, float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rstd), s), b);
-}
+using encoder_mma::layer_norm1;
 
 // load_a of the streamed form: each element LayerNormed (layer_norm1) before
 // the split, rows g and g + 8 with st[0] and st[1], columns t and t + 4

@@ -207,19 +207,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (innermost first, the innermost contiguous)
-// whose outer dims lie `strides` bytes apart, as a TMA map with boxes of
-// `box` elements, rows 128 bytes (128-byte swizzle) or 64 (64-byte).
+// A bf16 (or `type`: float32) tensor of `rank` dims (innermost first, the
+// innermost contiguous) whose outer dims lie `strides` bytes apart, as a TMA
+// map with boxes of `box` elements, rows 128 bytes (128-byte swizzle) or 64
+// (64-byte).
 inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
                               const cuuint64_t* dims, const cuuint64_t* strides,
-                              const cuuint32_t* box) {
+                              const cuuint32_t* box,
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const cuuint32_t elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
-      ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box[0] * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -73,9 +73,16 @@
 // MLP width, each zero-padded to a multiple of 32 as "mma" pads to 64: the
 // residual stream carried at the padded width W, the LN statistics over the
 // true D, the hi / lo planes split after the pad): the same five launches
-// a block (seven where the LN products stream: resident while 64 rows of W
-// fit, W up to 544 at N tile 32 and two warpgroups; streamed past it, a
-// ring slot holding the chunk's LN scale and bias beside A), the
+// a block while 64 rows of W fit (resident, W up to 544 at every N tile and
+// warpgroups), seven past it.  Past it the form is prenormed, as "mma"'s:
+// ln_rows_kernel<float> writes the LN rows once (the scratch `normed`, (M,
+// W) float32), and the four products run ring_tf32.cuh's
+// ring_product_kernel (split-TF32 wgmma, A split in registers, the weight's
+// planes stored transposed, a TMA ring, persistent CTAs; its header says
+// what bounds it), every output the bits of the streamed form it replaced
+// (a row_stats_kernel launch, then each K chunk LayerNormed as it lands in a
+// ring slot beside its scale and bias: run by name only, the yardstick of
+// the timings).  Resident and streamed, the
 // tiles of encoder_tf32.cuh: products on the tensor cores in split TF32
 // (mma.sync m16n8k8, each operand as hi + lo TF32 parts, lo.hi + hi.lo +
 // hi.hi into one f32 accumulator: float32's accuracy, not TF32's), the
@@ -89,11 +96,9 @@
 // flagship (1, 320, 192) x 12 in float32: the 4.341 GFLOP as three TF32
 // products are 26.3 us at 495 TFLOP/s (64.8 us as f32 FMA); the f32
 // weights, x in and out, 21.8 MB, 6.5 us at 3.35 TB/s (the two planes
-// double the weights' share: 13 us): bound by operations.  mma.sync and not
-// wgmma: wgmma in TF32 takes both operands K-major from shared memory,
-// which the (K, N) weights and V are not as they lie (attention_tf32.cuh's
-// header); caching the weights transposed would allow it for the products,
-// and is left for later.
+// double the weights' share: 13 us): bound by operations.  The resident
+// and streamed products run mma.sync on (K, N) planes; wgmma in TF32 takes
+// both operands K-major, which the prenormed ring's transposed planes are.
 //
 // "simt" (float32, head dims that are multiples of 16 up to 128; this
 // file's first design, run by name only, the yardstick of "tf32x3"): seven
@@ -133,6 +138,7 @@
 
 #include "encoder_mma.cuh"
 #include "encoder_tf32.cuh"
+#include "ring_tf32.cuh"
 
 namespace {
 
@@ -442,9 +448,10 @@ Weights layer_weights(const Weights& w, int l, int D, int E, int hidden, int dty
 // the N tile of the qkv, proj, mlp1 and mlp2 products ("mma" 32 or 64, and
 // 128 prenormed; "tf32x3" 16, 32 or 64); the warpgroups a CTA, 1 or 2:
 // "tf32x3"'s attention's share a query tile's key blocks (head dims up to
-// 64), its products of N tile 16 or 32 their K (2 at batch 1), "mma"'s
-// prenormed products' share each W chunk (2 at batch 16); the form of the
-// LN products, 0 resident, 1 streamed ("tf32x3") or 2 prenormed ("mma").
+// 64), its products of N tile 16 or 32 their K (2 at batch 1; the prenormed
+// ring's tile 128 is CTAs of 128 x 128), "mma"'s prenormed products' share
+// each W chunk (2 at batch 16); the form of the LN products, 0 resident, 1
+// streamed ("tf32x3", by name) or 2 prenormed.
 // "simt" reads none of them, "mma" resident not the warpgroups.
 struct Config {
   int variant;
@@ -540,12 +547,12 @@ cudaError_t device_limits(Limits* limits) {
   return cudaSuccess;
 }
 
-template <int RPW>
-cudaError_t ln_rows_rpw(const bf16* x, const bf16* s, const bf16* b, bf16* y, int M, int W,
-                        int d, cudaStream_t st) {
+template <typename T, int RPW>
+cudaError_t ln_rows_rpw(const T* x, const T* s, const T* b, T* y, int M, int W, int d,
+                        cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
-  const auto kernel = encoder_mma::ln_rows_kernel<RPW>;
-  const size_t smem = encoder_mma::ln_rows_smem_bytes(RPW, W);
+  const auto kernel = encoder_mma::ln_rows_kernel<T, RPW>;
+  const size_t smem = encoder_mma::ln_rows_smem_bytes(RPW, W, sizeof(T));
   RETURN_IF_ERROR(allow_smem(kernel, allowed, smem));
   constexpr int kRows = encoder_mma::kLnRowsThreads / 32 * RPW;
   kernel<<<(M + kRows - 1) / kRows, encoder_mma::kLnRowsThreads, smem, st>>>(x, s, b, y, M, W,
@@ -553,57 +560,77 @@ cudaError_t ln_rows_rpw(const bf16* x, const bf16* s, const bf16* b, bf16* y, in
   return cudaGetLastError();
 }
 
-// The prenormed form.  y = the LN rows of the M rows of x ((M, W)) over
-// their first d columns: one launch, four rows a warp where that gives at
-// least two CTAs an SM and their rows fit a block's shared memory, else a
-// warp a row.
-cudaError_t ln_rows(const bf16* x, const bf16* s, const bf16* b, bf16* y, int M, int W, int d,
+// The prenormed form (bf16 and float32).  y = the LN rows of the M rows of
+// x ((M, W), W . sizeof(T) a multiple of 128) over their first d columns:
+// one launch, four rows a warp where that gives at least two CTAs an SM and
+// their rows fit a block's shared memory, else a warp a row.
+template <typename T>
+cudaError_t ln_rows(const T* x, const T* s, const T* b, T* y, int M, int W, int d,
                     cudaStream_t st) {
-  if (W % encoder_mma::kChunk || d < 1 || d > W) return cudaErrorInvalidValue;
+  if (W * sizeof(T) % 128 || d < 1 || d > W) return cudaErrorInvalidValue;
   Limits card;
   RETURN_IF_ERROR(device_limits(&card));
   if (M / (encoder_mma::kLnRowsThreads / 32 * 4) >= 2 * card.sms
-      && encoder_mma::ln_rows_smem_bytes(4, W) <= (size_t)card.optin)
-    return ln_rows_rpw<4>(x, s, b, y, M, W, d, st);
-  return ln_rows_rpw<1>(x, s, b, y, M, W, d, st);
+      && encoder_mma::ln_rows_smem_bytes(4, W, sizeof(T)) <= (size_t)card.optin)
+    return ln_rows_rpw<T, 4>(x, s, b, y, M, W, d, st);
+  return ln_rows_rpw<T, 1>(x, s, b, y, M, W, d, st);
 }
 
-// A row-major bf16 tensor of `rank` dims (innermost first) as a TMA map
-// with boxes of `box` elements; a box's rows are 128 or 64 bytes, swizzled
-// as mma::Tile's 64- and 32-column panels are.
+// A row-major bf16 (or float32: T) tensor of `rank` dims (innermost first)
+// as a TMA map with boxes of `box` elements; a box's rows are 128 or 64
+// bytes, swizzled as mma::Tile's 64- and 32-column panels are (float32: rows
+// of 32, the 128-byte swizzle).
+template <typename T = bf16>
 cudaError_t tile_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                      const cuuint32_t* box) {
-  cuuint64_t strides[2] = {0, 0};
-  cuuint64_t stride = dims[0] * sizeof(bf16);
+  cuuint64_t strides[3] = {0, 0, 0};
+  cuuint64_t stride = dims[0] * sizeof(T);
   for (int i = 0; i + 1 < rank; ++i) {
     strides[i] = stride;
     stride *= dims[i + 1];
   }
-  return panel::encode_map(map, base, rank, dims, strides, box);
+  return panel::encode_map(map, base, rank, dims, strides, box,
+                           std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // The TMA maps of a prenormed forward: the rows each product reads (the LN
-// rows, the attention's output, the MLP's hidden rows) in boxes of 64
-// columns by the CTA's rows, and the four weights stacked over depth in
-// boxes of 64 rows by the product's N tile or, above 64, by a 64-column
-// panel of it.
+// rows, the attention's output, the MLP's hidden rows) in boxes of one
+// K chunk (bf16 64 columns, float32 32) by the CTA's rows, and the four
+// weights stacked over depth: bf16 in boxes of 64 rows by the product's N
+// tile or, above 64, by a 64-column panel of it; float32 ("tf32x3", the two
+// planes of each kernel stored transposed, (depth, 2, N, K)) in boxes of 32
+// columns of K by the N tile by both planes.
 struct RingMaps {
   CUtensorMap normed, attn, hid, qkv, proj, mlp1, mlp2;
   CUtensorMap heads;   // the qkv buffer's rows for the "mma" panel attention
 };
 
+// Rows a CTA of the float32 ring takes (tf32_ring::Ring::kTileRows): 128 at
+// N tile 128, else 64 (the plan gives every product tile 128 or none).
+int tf32_ring_rows(const Config& c) { return c.bn[0] == 128 ? 128 : 64; }
+
+template <typename T>
 cudaError_t ring_maps(RingMaps* m, const Config& c, const Weights& w, int M, int W, int E,
                       int hidden, int depth, const void* normed, const void* attn,
                       const void* hid) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   const auto rows = [&](CUtensorMap* map, const void* p, int k) {
     const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)M};
-    const cuuint32_t box[2] = {encoder_mma::kChunk, (cuuint32_t)(c.warpgroups * mma::kTileRows)};
-    return tile_map(map, p, 2, dims, box);
+    const cuuint32_t box[2] = {
+        (cuuint32_t)(kF32 ? tf32_ring::kChunk : encoder_mma::kChunk),
+        (cuuint32_t)(kF32 ? tf32_ring_rows(c) : c.warpgroups * mma::kTileRows)};
+    return tile_map<T>(map, p, 2, dims, box);
   };
   const auto weight = [&](CUtensorMap* map, const void* p, int k, int n, int bn) {
+    if (kF32) {
+      const cuuint64_t dims[4] = {(cuuint64_t)k, (cuuint64_t)n, 2, (cuuint64_t)depth};
+      const cuuint32_t box[4] = {tf32_ring::kChunk, (cuuint32_t)bn, 2, 1};
+      return tile_map<T>(map, p, 4, dims, box);
+    }
     const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)k, (cuuint64_t)depth};
     const cuuint32_t box[3] = {(cuuint32_t)(bn < 64 ? bn : 64), encoder_mma::kChunk, 1};
-    return tile_map(map, p, 3, dims, box);
+    return tile_map<T>(map, p, 3, dims, box);
   };
   RETURN_IF_ERROR(rows(&m->normed, normed, W));
   RETURN_IF_ERROR(rows(&m->attn, attn, E));
@@ -690,7 +717,7 @@ cudaError_t attention_panels_tf32(const float* qkv, float* out, int B, int S, in
 cudaError_t heads_map(CUtensorMap* map, const void* qkv, int B, int S, int E) {
   const cuuint64_t dims[3] = {(cuuint64_t)3 * E, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint32_t box[3] = {64, (cuuint32_t)encoder_mma::kKeyBlock, 1};
-  return tile_map(map, qkv, 3, dims, box);
+  return tile_map<bf16>(map, qkv, 3, dims, box);
 }
 
 // "mma" above kAttMaxDh: tiles x B x H x P / G CTAs of
@@ -780,6 +807,45 @@ cudaError_t ln_product_tf32(int ln, int bn, int wgs, const float* A, const float
                                         ln_dim, st);
 }
 
+template <int NC, int BN, bool KSPLIT>
+cudaError_t ring_tf32_bn(const CUtensorMap& a, const CUtensorMap& w, int layer, const float* bias,
+                         float* C, int M, int N, int K, int epi, cudaStream_t st) {
+  static int allowed[kMaxDevices] = {};
+  using R = tf32_ring::Ring<NC, BN, KSPLIT>;
+  const auto kernel = tf32_ring::ring_product_kernel<NC, BN, KSPLIT>;
+  RETURN_IF_ERROR(allow_smem(kernel, allowed, R::smem_bytes()));
+  Limits card;
+  RETURN_IF_ERROR(device_limits(&card));
+  const long long tiles =
+      (long long)((N + BN - 1) / BN) * ((M + R::kTileRows - 1) / R::kTileRows);
+  const int slots = card.sms * R::kCtasPerSm;
+  const int grid = (int)(tiles < slots ? tiles : slots);
+  kernel<<<grid, R::kThreads, R::smem_bytes(), st>>>(a, w, layer, bias, C, M, N, K, epi);
+  return cudaGetLastError();
+}
+
+// A float32 product of the prenormed form ("tf32x3"): C = epilogue(A .
+// W[layer] + bias), A and W as the maps a and w give them, at N tile bn
+// with the plan's warpgroups wgs: tile 128 is CTAs of 128 rows by 128
+// columns; 16 and 32 with two warpgroups deal K to two consumers of the
+// same 64 rows (the streamed form's split, the same sums); else CTAs of 64
+// rows.
+cudaError_t ring_tf32(int epi, int bn, int wgs, const CUtensorMap& a, const CUtensorMap& w,
+                      int layer, const float* bias, float* C, int M, int N, int K,
+                      cudaStream_t st) {
+  if (N % 8 || K % 8) return cudaErrorInvalidValue;
+#define RING_TF32(NC, BN, KSPLIT) \
+  ring_tf32_bn<NC, BN, KSPLIT>(a, w, layer, bias, C, M, N, K, epi, st)
+  if (bn == 128) return RING_TF32(2, 128, false);
+  if (wgs == 2 && bn == 16) return RING_TF32(2, 16, true);
+  if (wgs == 2 && bn == 32) return RING_TF32(2, 32, true);
+  if (bn == 16) return RING_TF32(1, 16, false);
+  if (bn == 32) return RING_TF32(1, 32, false);
+  if (bn == 64) return RING_TF32(1, 64, false);
+#undef RING_TF32
+  return cudaErrorInvalidValue;
+}
+
 template <int DH, int NWG>
 cudaError_t attention_tf32(const float* qkv, float* out, int B, int S, int H, float c,
                            cudaStream_t st) {
@@ -835,6 +901,17 @@ cudaError_t layer_norm(const T* x, const T* s, const T* b, T* y, int rows, int d
   return cudaGetLastError();
 }
 
+// The float32 ring's N tiles: each 16, 32, 64 or 128, and 128 for every
+// product or none (a CTA's rows, which the A maps' boxes share).
+bool tf32_ring_tiles(const Config& c) {
+  int wide = 0;
+  for (int bn : c.bn) {
+    if (bn != 16 && bn != 32 && bn != 64 && bn != 128) return false;
+    wide += bn == 128;
+  }
+  return wide == 0 || wide == 4;
+}
+
 // Everything a call checks before its first launch: the shape against the
 // variant, and the variant against the dtype; dh is the head dim the kernels
 // run at, D / H or more; W the residual width, D or D zero-padded to the
@@ -861,7 +938,8 @@ cudaError_t check(const Config& c, int dtype, int B, int S, int D, int W, int H,
              || (c.ln == kPrenormed && (c.warpgroups == 1 || c.warpgroups == 2)));
   else if (c.variant == kTf32x3)
     ok = dtype == 0 && dh % 8 == 0 && W % 32 == 0 && W - D < 32 && hidden % 32 == 0
-         && (c.ln == kResident || c.ln == kStreamed)
+         && (c.ln == kResident || c.ln == kStreamed
+             || (c.ln == kPrenormed && tf32_ring_tiles(c)))
          && (dh <= kAttMaxDh
              || (c.group >= 1 && c.group <= tf32_panels::kMaxGroup
                  && (dh + tf32_panels::kCols - 1) / tf32_panels::kCols % c.group == 0));
@@ -873,13 +951,13 @@ cudaError_t check(const Config& c, int dtype, int B, int S, int D, int W, int H,
 
 // One pre-LN block in place on x (B * S rows of W, the residual width):
 // five launches (bf16: mma, resident; float32: tf32x3), seven where their
-// LN products stream (tf32x3: a statistics launch before each) or are
-// prenormed (mma: the LN rows written before each), or seven (float32:
-// simt).  w points at this block's weights, block `layer` of the stacks
+// LN products stream (tf32x3 by name: a statistics launch before each) or
+// are prenormed (mma and tf32x3: the LN rows written before each), or seven
+// (float32: simt).  w points at this block's weights, block `layer` of the stacks
 // the maps name (prenormed); heads of dh (D / H, or a zero-padded one above
 // it) in an inner width E = H . dh; h (B * S, D) is read by simt alone;
 // ln_scratch holds the streamed form's statistics ((B * S, 2) float32) or
-// the prenormed form's LN rows ((B * S, W) bf16).  W = D but for a padded
+// the prenormed form's LN rows ((B * S, W) in T).  W = D but for a padded
 // "mma" or "tf32x3" width, whose LN products normalise the first D of W
 // columns.
 template <typename T>
@@ -891,6 +969,22 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
   const float scale = (float)(1.0 / sqrt((double)(D / H)));   // the true head dim's
   const auto p = [](const void* q) { return static_cast<const T*>(q); };
   if constexpr (std::is_same<T, float>::value) {
+    if (c.variant == kTf32x3 && c.ln == kPrenormed) {
+      const float log2e_scale = (float)(1.4426950408889634 / sqrt((double)(D / H)));
+      float* normed = static_cast<float*>(ln_scratch);
+      const int g = c.warpgroups;
+      RETURN_IF_ERROR(ln_rows<float>(x, p(w.ln1_s), p(w.ln1_b), normed, M, W, D, st));
+      RETURN_IF_ERROR(ring_tf32(kEpiRound, c.bn[0], g, maps.normed, maps.qkv, layer,
+                                p(w.b_qkv), qkv, M, 3 * E, W, st));
+      RETURN_IF_ERROR(attention_tf32_dh(dh, g, c.group, qkv, attn, B, S, H, log2e_scale, st));
+      RETURN_IF_ERROR(ring_tf32(kEpiResidual, c.bn[1], g, maps.attn, maps.proj, layer,
+                                p(w.b_proj), x, M, W, E, st));
+      RETURN_IF_ERROR(ln_rows<float>(x, p(w.ln2_s), p(w.ln2_b), normed, M, W, D, st));
+      RETURN_IF_ERROR(ring_tf32(kEpiGelu, c.bn[2], g, maps.normed, maps.mlp1, layer,
+                                p(w.b_mlp1), hid, M, hidden, W, st));
+      return ring_tf32(kEpiResidual, c.bn[3], g, maps.hid, maps.mlp2, layer, p(w.b_mlp2), x, M,
+                       W, hidden, st);
+    }
     if (c.variant == kTf32x3) {
       const float log2e_scale = (float)(1.4426950408889634 / sqrt((double)(D / H)));
       // Two warpgroups, where the plan says so, in the attention and in the
@@ -918,13 +1012,13 @@ cudaError_t block_launches(T* x, const Weights& w, int B, int S, int D, int W, i
     if (c.ln == kPrenormed) {
       bf16* normed = static_cast<bf16*>(ln_scratch);
       const int g = c.warpgroups;
-      RETURN_IF_ERROR(ln_rows(x, p(w.ln1_s), p(w.ln1_b), normed, M, W, D, st));
+      RETURN_IF_ERROR(ln_rows<bf16>(x, p(w.ln1_s), p(w.ln1_b), normed, M, W, D, st));
       RETURN_IF_ERROR(ring_product<kEpiRound>(g, c.bn[0], maps.normed, maps.qkv, layer,
                                               p(w.b_qkv), qkv, M, 3 * E, W, st));
       RETURN_IF_ERROR(attention_mma_dh(dh, c.group, maps.heads, qkv, attn, B, S, H, scale, st));
       RETURN_IF_ERROR(ring_product<kEpiResidual>(g, c.bn[1], maps.attn, maps.proj, layer,
                                                  p(w.b_proj), x, M, W, E, st));
-      RETURN_IF_ERROR(ln_rows(x, p(w.ln2_s), p(w.ln2_b), normed, M, W, D, st));
+      RETURN_IF_ERROR(ln_rows<bf16>(x, p(w.ln2_s), p(w.ln2_b), normed, M, W, D, st));
       RETURN_IF_ERROR(ring_product<kEpiGelu>(g, c.bn[2], maps.normed, maps.mlp1, layer,
                                              p(w.b_mlp1), hid, M, hidden, W, st));
       return ring_product<kEpiResidual>(g, c.bn[3], maps.hid, maps.mlp2, layer, p(w.b_mlp2), x,
@@ -968,9 +1062,9 @@ cudaError_t forward(const Config& c, int B, int S, int D, int W, int H, int dh, 
                     cudaStream_t st) {
   const size_t rows = (size_t)B * S, e = sizeof(T);
   RingMaps maps;
-  if (std::is_same<T, bf16>::value && c.ln == kPrenormed)
-    RETURN_IF_ERROR(ring_maps(&maps, c, w, (int)rows, W, H * dh, hidden, depth, ln_scratch,
-                              attn_buf, hid_buf));
+  if (c.ln == kPrenormed)
+    RETURN_IF_ERROR(ring_maps<T>(&maps, c, w, (int)rows, W, H * dh, hidden, depth, ln_scratch,
+                                 attn_buf, hid_buf));
   if (std::is_same<T, bf16>::value && dh > kAttMaxDh)
     RETURN_IF_ERROR(heads_map(&maps.heads, qkv_buf, B, S, H * dh));
   T* x = static_cast<T*>(W == D ? x_out : h_buf);
@@ -1025,11 +1119,12 @@ cudaError_t run(const Config& c, int dtype, int B, int S, int D, int W, int H, i
 // (W), the qkv kernel (W, 3E) and bias (3E), the proj kernel (E, W), mlp1
 // (W, hidden), mlp2 (hidden, W) ("tf32x3": each of the four kernels as two
 // planes, (depth, 2, in, out), hi = tf32(w) then lo = tf32(w - hi), rounded
-// to nearest with ties away from zero); scratch h (B*S, D) read by "simt"
+// to nearest with ties away from zero; prenormed, each plane transposed,
+// (depth, 2, out, in)); scratch h (B*S, D) read by "simt"
 // alone, (B*S, W) the residual stream of a padded call, attn (B*S, E), qkv
 // (B*S, 3E), mlp_hidden (B*S, hidden), ln_scratch: the streamed LN
 // products' rows' (mean, rstd) ((B*S, 2) float32) or the prenormed form's
-// LN rows ((B*S, W) bf16), null where ln is 0.  x_out must not alias x_in.
+// LN rows ((B*S, W) in x's type), null where ln is 0.  x_out must not alias x_in.
 // Returns a cudaError_t.
 extern "C" int vit_encoder_forward(
     int variant, int bn_qkv, int bn_proj, int bn_mlp1, int bn_mlp2, int warpgroups, int ln,

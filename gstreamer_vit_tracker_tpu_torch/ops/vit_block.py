@@ -57,17 +57,20 @@ accumulator of a block's P.V beside o; 1 at batch 1).  The products do not
 see the head dim.
 
 The LayerNorm products of ``"mma"`` and ``"tf32x3"`` come in two forms
-each, ``Plan.ln``, picked from the shape alone: ``"resident"`` (the CTA's
-64 rows of the residual stream held whole and normalised in place: the
-flagship, ``small``, every bf16 width up to 768 and every float32 one
-whose rows fit the card's opt-in shared memory) and, past it, ``"mma"``'s
-``"prenormed"`` (the LN rows written once by their own launch, then every
-product of the block reading plain rows through a TMA ring: bf16 ViT-L
-and ViT-H) or ``"tf32x3"``'s ``"streamed"`` (a statistics launch before
-the product, then each K chunk normalised as it lands).  Seven launches
-a block past the resident form; every form gives the same LN output bit
-for bit, and ``"prenormed"`` the same products (:func:`ln_rows_reference`
-is its LN rows' plain version); ``csrc/encoder_mma.cuh``'s header says
+each, ``Plan.ln``, picked from the residual width alone: ``"resident"``
+(the CTA's 64 rows of the residual stream held whole and normalised in
+place: the flagship, ``small``, every bf16 width up to 768 and every
+float32 one up to 544) and, past it, ``"prenormed"`` (the LN rows written
+once by their own launch, then every product of the block reading plain
+rows through a TMA ring: ViT-L, ViT-H and Model A in both dtypes; float32
+on split-TF32 ``wgmma``, ``csrc/ring_tf32.cuh``, whose weight planes the
+operand cache lays out transposed).  ``"tf32x3"``'s ``"streamed"`` (a
+statistics launch before the product, then each K chunk normalised as it
+lands), the design the float32 ring replaced, runs by name only
+(``plan(..., ln="streamed")``).  Seven launches a block past the resident
+form; every form gives the same LN output bit for bit, and the same
+products (:func:`ln_rows_reference` is the prenormed LN rows' plain
+version); ``csrc/encoder_mma.cuh``'s and ``ring_tf32.cuh``'s headers say
 what bounds each.
 
 A head dim that the variant does not take as it is (bf16: up to 128 not 32,
@@ -144,9 +147,11 @@ _FIELDS = (("ln1", "scale"), ("ln1", "bias"), ("qkv", "kernel"),
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "mma": 1, "tf32x3": 2}
 _LN_CODES = {"resident": 0, "streamed": 1, "prenormed": 2}
-# The LN products' forms a variant takes besides "resident", past the
-# widths where it is chosen.
-_WIDE_LN = {"mma": "prenormed", "tf32x3": "streamed"}
+# Every LN form a caller may name: past the widths where "resident" is kept
+# both variants take "prenormed"; "tf32x3"'s "streamed", the design
+# "prenormed" replaced, runs by name only, the yardstick of its timings.
+_NAMED_LN = {"mma": ("resident", "prenormed"),
+             "tf32x3": ("resident", "prenormed", "streamed")}
 # A dtype's variants, the first its own and the one the rule gives;
 # float32's "simt" runs by name only.
 _DTYPE_VARIANTS = {torch.float32: ("tf32x3", "simt"), torch.bfloat16: ("mma",)}
@@ -168,7 +173,8 @@ H100_OPTIN = 232448
 # _MAX_GROUP panels of o a CTA, "tf32x3" _TF32_MAX_GROUP.
 # "tf32x3": the same 64 rows, N tiles of 16, 32 or 64, K in 32-deep
 # chunks through a ring of 4 slots (3 at N 64) a warpgroup of A and the
-# weight's two planes (and, streamed, the chunk's LN scale and bias); a
+# weight's two planes (and, streamed, the chunk's LN scale and bias;
+# prenormed, csrc/ring_tf32.cuh's TMA ring, :func:`ln_smem_bytes`); a
 # resident LN product holds its 64 rows of W and its scale and bias instead
 # of the A ring, which at W = 512, N 32 and two warpgroups is
 # 64 x 516 x 4 + 2 x 512 x 4 + 8 x 2 x 32 x 40 x 4 = 218,112 bytes.
@@ -180,10 +186,20 @@ _MMA_RING = 3
 # stage holds their A chunk and the W chunk, the ring 6 or 8 of them (6 at
 # 16 KB and 32 KB stages) and a full and an empty barrier a stage.  The
 # resident form is kept up to a residual width of _RESIDENT_MAX_WIDTH (the
-# flagship, ``small``, every bf16 D up to 768).
+# flagship, ``small``, every bf16 D up to 768), "tf32x3"'s up to
+# _TF32_RESIDENT_MAX_WIDTH, the widest whose rows fit the H100 at every
+# N tile and warpgroups (at N 32 and two warpgroups 226,560 bytes).
 _RESIDENT_MAX_WIDTH = 768
+_TF32_RESIDENT_MAX_WIDTH = 544
 # The prenormed products' builds: N tiles by warpgroups a CTA.
 _RING_TILES = {1: (32, 64), 2: (32, 64, 128)}
+# "tf32x3"'s prenormed products (csrc/ring_tf32.cuh, _tf32_ring): N tiles
+# 16, 32 and 64 (CTAs of 64 rows; at the plan's two warpgroups 16 and 32
+# deal K to two consumers) and 128 (CTAs of 128 x 128: every product or
+# none, where 128-row CTAs fill the card).
+_TF32_RING_TILES = (16, 32, 64, 128)
+_TF32_WIDE_TILE = 128
+_TF32_RING_MAX_STAGES = 16
 _SPLIT_MAX_DH = 64         # "tf32x3": two-warpgroup attention built up to it
 _TILE_MAX_DH, _PANEL = 128, 64
 _MAX_GROUP = 3
@@ -237,6 +253,15 @@ def ln_smem_bytes(variant: str, ln: str, width: int, tile: int,
             stages = 6 if stage in (16384, 32768) else 8
             return 1024 + stages * (stage + 16)
         return 1024 + width // _CHUNK * _CHUNK * (_ROWS + tile) * 2
+    if ln == "prenormed":
+        consumers, cols, ksplit = _tf32_ring(tile, warpgroups)
+        stage = (1 if ksplit else consumers) * _ROWS * 128 + 2 * cols * 128
+        scratch = _ROWS * cols * 4 if ksplit else 0
+        budget = (attention._TWO_CTA_BYTES if consumers == 1 or ksplit
+                  else H100_OPTIN)
+        stages = min(_TF32_RING_MAX_STAGES,
+                     (budget - 1024 - scratch) // (stage + 16))
+        return 1024 + stages * (stage + 16) + scratch
     nwg = 1 if tile == 64 else warpgroups
     slots = nwg * (3 if tile == 64 else 4)
     w_ring = slots * 2 * _TF32_CHUNK * (tile + 8)
@@ -272,6 +297,19 @@ def attention_smem_bytes(variant: str, dh: int, warpgroups: int = 1,
     return (_ROWS + 4 * warpgroups * 64) * (dh + 4) * 4
 
 
+def _tf32_ring(tile: int, warpgroups: int) -> Tuple[int, int, bool]:
+    """(consumer warpgroups, columns, K split) of a ``"tf32x3"`` prenormed
+    product's CTA (``csrc/vit_encoder.cu::ring_tf32``): N tile 128 is two
+    consumers of 64 rows by 128 columns; 16 and 32 at two warpgroups deal
+    K to two consumers of the same 64 rows, the streamed form's split of
+    such a product (the same sums); else one consumer of 64 rows."""
+    if tile == _TF32_WIDE_TILE:
+        return 2, tile, False
+    if warpgroups == 2 and tile < 64:
+        return 2, tile, True
+    return 1, tile, False
+
+
 def _fits(variant: str, ln: str, width: int, tiles: Tuple[int, ...],
           warpgroups: int, optin: int) -> bool:
     """Whether the LN products of form ``ln`` fit ``optin`` bytes at their
@@ -281,19 +319,22 @@ def _fits(variant: str, ln: str, width: int, tiles: Tuple[int, ...],
                for t in products)
 
 
+def _resident_max(variant: str) -> int:
+    return (_RESIDENT_MAX_WIDTH if variant == "mma"
+            else _TF32_RESIDENT_MAX_WIDTH)
+
+
 def _ln_form(variant: str, width: int, tiles: Tuple[int, ...],
              warpgroups: int, optin: int) -> Optional[str]:
-    """The LN products' form: ``"resident"`` where both the qkv and mlp1
-    products' rows fit ``optin`` bytes at their N tiles (``"mma"``: up to
-    a width of _RESIDENT_MAX_WIDTH), else the variant's wide form
-    (``"mma"`` ``"prenormed"``, ``"tf32x3"`` ``"streamed"``) where its
-    ring does; None if neither does."""
-    if (variant != "mma" or width <= _RESIDENT_MAX_WIDTH) and _fits(
+    """The LN products' form: ``"resident"`` up to a width of
+    :func:`_resident_max` where both the qkv and mlp1 products' rows fit
+    ``optin`` bytes at their N tiles, else ``"prenormed"`` where its ring
+    does; None if neither does."""
+    if width <= _resident_max(variant) and _fits(
             variant, "resident", width, tiles, warpgroups, optin):
         return "resident"
-    wide = _WIDE_LN[variant]
-    return wide if _fits(variant, wide, width, tiles, warpgroups,
-                         optin) else None
+    return "prenormed" if _fits(variant, "prenormed", width, tiles,
+                                warpgroups, optin) else None
 
 
 def head_pad(variant: str, dh: int) -> int:
@@ -365,10 +406,13 @@ def _tiles(rows: int, inner: int, dim: int, hidden: int, sms: int,
 
 
 def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
-         dtype: torch.dtype, sms: int, optin: int = H100_OPTIN) -> Plan:
+         dtype: torch.dtype, sms: int, optin: int = H100_OPTIN,
+         ln: Optional[str] = None) -> Plan:
     """The variant and the product tiles for a ``(batch, seq, dim)`` input
     with ``heads`` heads and MLP width ``hidden`` on a card of ``sms`` SMs
-    and ``optin`` bytes of shared memory a block.
+    and ``optin`` bytes of shared memory a block; ``ln`` names the LN
+    products' form (``"tf32x3"``'s ``"streamed"`` among them) in place of
+    the rule's, at the tiles the rule gives that form.
 
     * The variant: ``"mma"`` for bf16 (head dim 32, 64 or 128, above 128 a
       multiple of 64), ``"tf32x3"`` for float32 (head dim a multiple of 8),
@@ -391,15 +435,18 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
       tile 16 or 32 take its 32-deep chunks of K in turn (batch 1, where
       one warpgroup an SM leaves every latency exposed).
     * ``ln``, the LN products' form at those tiles (:func:`_ln_form`):
-      ``"resident"`` where the qkv and mlp1 CTAs' rows fit ``optin``
-      (``"mma"``: up to a width of 768), else ``"mma"``'s ``"prenormed"``
-      (every bf16 width above 768: ViT-L's D 1024 at both batches) or
-      ``"tf32x3"``'s ``"streamed"`` (float32 ViT-L).  ``"prenormed"``
-      products take ``warpgroups`` 64-row warpgroups a CTA
-      (:func:`_ring_warpgroups`: 2 at ViT-L's batch 16, 1 at batch 1), and
-      N tiles of 128 with 2, of 64 with 1 (each product's tile halved down
-      to 32 until it divides the product's width, :func:`_fit`, as every
-      ``"mma"`` tile is).
+      ``"resident"`` where the qkv and mlp1 CTAs' rows fit ``optin`` up to
+      a width of 768 (``"mma"``) or 544 (``"tf32x3"``), else
+      ``"prenormed"`` (every bf16 width above 768 and every float32 one
+      above 544: ViT-L's D 1024 and ViT-H's 1280 at both batches).
+      ``"mma"``'s ``"prenormed"`` products take ``warpgroups`` 64-row
+      warpgroups a CTA (:func:`_ring_warpgroups`: 2 at ViT-L's batch 16, 1
+      at batch 1), and N tiles of 128 with 2, of 64 with 1 (each product's
+      tile halved down to 32 until it divides the product's width,
+      :func:`_fit`, as every ``"mma"`` tile is).  ``"tf32x3"``'s keep the
+      warpgroups and tiles above (:func:`_tf32_ring`), but for N tile 128
+      on every product (CTAs of 128 x 128) where 128-row CTAs fill the card
+      (:func:`_ring_warpgroups` 2: batch 16).
 
     Depends on the shape alone, so a chain of :func:`block` calls equals one
     :func:`encoder` call bit for bit.
@@ -421,18 +468,27 @@ def plan(batch: int, seq: int, dim: int, heads: int, hidden: int,
                    variant == "tf32x3")
     wgs = (2 if variant == "tf32x3" and dh <= _SPLIT_MAX_DH
            and -(-seq // _ROWS) * batch * heads < sms else 1)
+    if ln is not None and ln not in _NAMED_LN[variant]:
+        raise ValueError(f"{variant} takes the LN forms "
+                         f"{_NAMED_LN[variant]}, not {ln}")
+    wide = (ln == "prenormed" if ln is not None
+            else (width or dim) > _resident_max(variant))
     if variant == "mma":
         if (width or dim) > _RESIDENT_MAX_WIDTH:
             wgs = _ring_warpgroups(batch * seq, width or dim, sms)
             tiles = (128 if wgs == 2 else 64,) * 4
         tiles = tuple(_fit(t, n) for t, n in zip(
             tiles, (3 * heads * dh, width or dim, mlp or hidden, width or dim)))
-    ln = _ln_form(variant, width or dim, tiles, wgs, optin)
-    if ln is None:
+    elif wide and _ring_warpgroups(batch * seq, width or dim, sms) == 2:
+        tiles = (_TF32_WIDE_TILE,) * 4
+    form = ln or _ln_form(variant, width or dim, tiles, wgs, optin)
+    if form is None or not _fits(variant, form, width or dim, tiles, wgs,
+                                 optin):
         raise ValueError(f"the encoder kernels cannot take this shape "
-                         f"({variant}, {dtype}): no LN product form fits "
-                         f"{optin} bytes of shared memory")
-    return Plan(variant, tiles, pad, wgs, width, mlp, ln,
+                         f"({variant}, {dtype}): no LN product form"
+                         f"{'' if ln is None else ' ' + ln} fits {optin} "
+                         f"bytes of shared memory")
+    return Plan(variant, tiles, pad, wgs, width, mlp, form,
                 panel_group(variant, batch, seq, heads, dh, sms))
 
 
@@ -473,24 +529,27 @@ def ln_rows_reference(x: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, dim: int) -> torch.Tensor:
     """Plain version of the prenormed form's LN rows
     (``csrc/encoder_mma.cuh::ln_rows_kernel``) on bf16 ``x`` (..., W), W a
-    multiple of 64: the LayerNorm over the first ``dim`` columns with
-    ``scale`` and ``bias`` (W,) (zero past ``dim``) in the kernel's order
-    of float32 sums (``row_stats``).  Eight lanes a row: lane c adds, one
-    at a time, the elements before ``dim`` of its 16-byte chunks c, c + 8,
-    ... of the row; the lanes' sums are added as three xor-shuffles (1, 2,
+    multiple of 64, or float32 ``x``, W a multiple of 32: the LayerNorm
+    over the first ``dim`` columns with ``scale`` and ``bias`` (W,) (zero
+    past ``dim``) in the kernel's order of float32 sums (``row_stats``).
+    Eight lanes a row: lane c adds, one at a time, the elements before
+    ``dim`` of its 16-byte chunks c, c + 8, ... of the row (8 bf16 or 4
+    floats a chunk); the lanes' sums are added as three xor-shuffles (1, 2,
     4) add them; mean = sum / dim, then the same for (x - mean)^2, rstd = 1
     / sqrt(var / dim + 1e-6); y = ((x - mean) * rstd) * scale + bias.
-    Every operation rounded to float32 on its own, one rounding to bf16."""
+    Every operation rounded to float32 on its own, one rounding to bf16
+    (none in float32: the streamed form's LN output bit for bit)."""
     xf = x.float()
     lanes = torch.arange(8, device=x.device)
     k = torch.tensor(float(dim), dtype=torch.float32, device=x.device)
+    elems = 16 // x.element_size()
 
     def group_sum(t):
         acc = torch.zeros(t.shape[:-1] + (8,), dtype=torch.float32,
                           device=x.device)
-        for col0 in range(0, t.shape[-1], 64):
-            for i in range(8):
-                cols = col0 + 8 * lanes + i
+        for col0 in range(0, t.shape[-1], 8 * elems):
+            for i in range(elems):
+                cols = col0 + elems * lanes + i
                 live = cols < dim
                 if live.any():
                     acc = torch.where(live, acc + t[..., cols], acc)
@@ -590,19 +649,24 @@ def _check_x(x: torch.Tensor, num_heads: int) -> None:
 
 
 def _check(x: torch.Tensor, weights: List[torch.Tensor], inner: int,
-           stacked: bool, split: bool = False, width: int = 0):
+           stacked: bool, split: bool = False, width: int = 0,
+           transposed: bool = False):
     """Raise on weights that do not fit x, the inner width ``inner``
     (heads x the head dim the kernels run at) and the residual width
     ``width`` (x's D, or the one it is zero-padded to).  ``weights`` in
     ``_FIELDS`` order: stacked over depth for the encoder, one block's own
     for the block kernel; ``split``: the four kernels as two planes each
-    (:func:`split_planes`)."""
+    (:func:`split_planes`), ``transposed`` each plane (out, in)."""
     d = width or x.shape[2]
     lead = (weights[0].shape[0],) if stacked else ()
-    hidden = weights[8].shape[-1]
+    hidden = weights[9].shape[-1]
     k = (2,) if split else ()
-    want = [(d,), (d,), k + (d, 3 * inner), (3 * inner,), k + (inner, d),
-            (d,), (d,), (d,), k + (d, hidden), (hidden,), k + (hidden, d),
+
+    def kernel(n_in, n_out):
+        return k + ((n_out, n_in) if transposed else (n_in, n_out))
+
+    want = [(d,), (d,), kernel(d, 3 * inner), (3 * inner,), kernel(inner, d),
+            (d,), (d,), (d,), kernel(d, hidden), (hidden,), kernel(hidden, d),
             (d,)]
     for (mod, field), t, shape in zip(_FIELDS, weights, want):
         shape = lead + shape
@@ -614,19 +678,21 @@ def _check(x: torch.Tensor, weights: List[torch.Tensor], inner: int,
                              f"kernel expects {x.dtype} on {x.device}")
 
 
-_PLANS: Dict[Tuple, Plan] = {}   # (device, B, S, D, H, hidden, dtype) -> Plan
+_PLANS: Dict[Tuple, Plan] = {}   # (device, B, S, D, H, hidden, dtype, ln) -> Plan
 
 
-def _plan_for(x: torch.Tensor, heads: int, hidden: int) -> Plan:
-    """:func:`plan` for this CUDA tensor, decided once per argument tuple
-    (the card's SM count read once per device)."""
+def _plan_for(x: torch.Tensor, heads: int, hidden: int,
+              ln: Optional[str] = None) -> Plan:
+    """:func:`plan` for this CUDA tensor (with ``ln``: that LN form by
+    name), decided once per argument tuple (the card's SM count read once
+    per device)."""
     b, s, d = x.shape
-    key = (x.device.index, b, s, d, heads, hidden, x.dtype)
+    key = (x.device.index, b, s, d, heads, hidden, x.dtype, ln)
     chosen = _PLANS.get(key)
     if chosen is None:
         optin, sms = attention.card(x.device)
         chosen = _PLANS[key] = plan(b, s, d, heads, hidden, x.dtype, sms,
-                                    optin)
+                                    optin, ln)
     return chosen
 
 
@@ -647,18 +713,43 @@ def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 _KERNELS = (2, 4, 8, 10)
 
 
-def split_planes(weights: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def split_planes(weights: Sequence[torch.Tensor],
+                 transposed: bool = False) -> List[torch.Tensor]:
     """Weights in ``_FIELDS`` order (any leading dims) with each of the
     four kernels (..., in, out) as its two planes (..., 2, in, out), hi
-    then lo (:func:`split_tf32`): what ``"tf32x3"`` reads."""
+    then lo (:func:`split_tf32`): what ``"tf32x3"`` reads; ``transposed``:
+    each plane (out, in), K-major, what its prenormed products' ``wgmma``
+    reads (``csrc/ring_tf32.cuh``)."""
     w = list(weights)
     for i in _KERNELS:
-        w[i] = torch.stack(split_tf32(w[i]), dim=-3)
+        planes = torch.stack(split_tf32(w[i]), dim=-3)
+        w[i] = planes.transpose(-1, -2).contiguous() if transposed else planes
     return w
 
 
 def _is_split(weights: Sequence[torch.Tensor], stacked: bool) -> bool:
     return weights[2].dim() == (4 if stacked else 3)
+
+
+def _transposes(chosen: Plan) -> bool:
+    """Whether ``chosen`` reads its split weights transposed (``"tf32x3"``
+    prenormed)."""
+    return chosen.variant == "tf32x3" and chosen.ln == "prenormed"
+
+
+def _split_layout(weights: Sequence[torch.Tensor], transposed: bool,
+                  width: int) -> List[torch.Tensor]:
+    """Split weights (any leading dims) in the layout ``transposed`` asks
+    for: the planes of the four kernels transposed where they lie the other
+    way (the qkv kernel's planes end in the residual width ``width`` exactly
+    when they are transposed: its out, 3 x the inner width, is never
+    ``width``)."""
+    if (weights[2].shape[-1] == width) == transposed:
+        return list(weights)
+    w = list(weights)
+    for i in _KERNELS:
+        w[i] = w[i].transpose(-1, -2).contiguous()
+    return w
 
 
 def _pad_heads(weights: Sequence[torch.Tensor], heads: int,
@@ -725,15 +816,12 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
         chosen = chosen._replace(tiles=rule.tiles, warpgroups=rule.warpgroups,
                                  ln=rule.ln)
     if chosen.variant != "simt":
-        if chosen.ln not in ("resident", _WIDE_LN[chosen.variant]):
-            raise ValueError(f"{chosen.variant} takes the LN forms resident "
-                             f"and {_WIDE_LN[chosen.variant]}, not "
-                             f"{chosen.ln}")
-        if chosen.ln == "prenormed" and not set(chosen.tiles) <= set(
-                _RING_TILES.get(chosen.warpgroups, ())):
-            raise ValueError(f"the prenormed products take N tiles "
-                             f"{_RING_TILES} by warpgroups, not "
-                             f"{chosen.tiles} at {chosen.warpgroups}")
+        if chosen.ln not in _NAMED_LN[chosen.variant]:
+            raise ValueError(f"{chosen.variant} takes the LN forms "
+                             f"{_NAMED_LN[chosen.variant]}, not {chosen.ln}")
+        why = _tile_refusal(chosen)
+        if why is not None:
+            raise ValueError(why)
         if not _fits(chosen.variant, chosen.ln, width or d, chosen.tiles,
                      chosen.warpgroups, attention.card(x.device)[0]):
             raise ValueError(f"the {chosen.ln} LN form does not fit the "
@@ -749,6 +837,32 @@ def _named(chosen: Plan, x: torch.Tensor, heads: int, hidden: int) -> Plan:
     if why is not None:
         raise ValueError(f"the encoder kernels cannot take {chosen}: {why}")
     return chosen._replace(pad=pad, width=width, mlp=mlp)
+
+
+def _tile_refusal(chosen: Plan) -> Optional[str]:
+    """Why the products of a named ``"mma"`` or ``"tf32x3"`` plan cannot
+    run at its N tiles and warpgroups, or None: ``"mma"``'s prenormed ring
+    takes _RING_TILES by warpgroups; ``"tf32x3"``'s _TF32_RING_TILES, 128
+    on every product or none; its resident and streamed products 16, 32
+    and 64."""
+    tiles = set(chosen.tiles)
+    if chosen.variant == "mma":
+        if chosen.ln == "prenormed" and not tiles <= set(
+                _RING_TILES.get(chosen.warpgroups, ())):
+            return (f"the prenormed products take N tiles {_RING_TILES} by "
+                    f"warpgroups, not {chosen.tiles} at {chosen.warpgroups}")
+        return None
+    if chosen.ln == "prenormed":
+        if not tiles <= set(_TF32_RING_TILES) or (
+                _TF32_WIDE_TILE in tiles and len(tiles) > 1):
+            return (f"the float32 prenormed products take N tiles "
+                    f"{_TF32_RING_TILES}, {_TF32_WIDE_TILE} on every product "
+                    f"or none, not {chosen.tiles}")
+        return None
+    if not tiles <= {16, 32, 64}:
+        return (f"the float32 {chosen.ln} products take N tiles 16, 32 and "
+                f"64, not {chosen.tiles}")
+    return None
 
 
 def group_refusal(variant: str, dh: int, group: int) -> Optional[str]:
@@ -781,24 +895,26 @@ def _prepare(x: torch.Tensor, weights: List[torch.Tensor], num_heads: int,
     another variant, raise: a launch was asked for."""
     _check_x(x, num_heads)
     b, s, d = x.shape
-    hidden = weights[8].shape[-1]
+    hidden = weights[9].shape[-1]
     chosen = (_plan_for(x, num_heads, hidden) if chosen is None
               else _named(chosen, x, num_heads, hidden))
     dh = chosen.pad or d // num_heads
     inner = num_heads * dh
     width = chosen.width or d
-    split = _is_split(weights, stacked)
+    split, transposed = _is_split(weights, stacked), _transposes(chosen)
     if split and chosen.variant != "tf32x3":
         raise ValueError(f"split weights are tf32x3's, not {chosen.variant}'s")
-    if not split:
+    if split:
+        weights = _split_layout(weights, transposed, width)
+    else:
         if chosen.pad and weights[2].shape[-1] == 3 * d:
             weights = _pad_heads(weights, num_heads, chosen.pad)
         if chosen.width or chosen.mlp:
             weights = _pad_width(weights, width, chosen.mlp or hidden)
         if chosen.variant == "tf32x3":
-            weights, split = split_planes(weights), True
-    hidden = weights[8].shape[-1]
-    _check(x, weights, inner, stacked, split, width)
+            weights, split = split_planes(weights, transposed), True
+    hidden = weights[9].shape[-1]
+    _check(x, weights, inner, stacked, split, width, transposed)
     x, weights = _laid_out(x), [_laid_out(t) for t in weights]
     m = b * s
     out = torch.empty_like(x)
@@ -889,31 +1005,38 @@ _OPERANDS = operand_cache.OperandCache()
 
 def _operands(flat: Sequence[torch.Tensor], depth: int,
               dtype: torch.dtype, num_heads: int = 1,
-              variant: Optional[str] = None) -> List[torch.Tensor]:
+              variant: Optional[str] = None,
+              stacked: bool = True) -> List[torch.Tensor]:
     """``flat`` cast to ``dtype`` and stacked over depth, the heads of
     ``num_heads`` zero-padded where ``variant`` (by default the one
     :func:`plan` gives this dtype and width) pads them (:func:`head_pad`),
     D and the MLP width where it pads those (:func:`width_pads`), and for
     ``"tf32x3"`` the four kernels split into their two planes
-    (:func:`split_planes`).  Reused while every leaf is the same tensor at
-    the same ``_version`` (which any in-place update, such as an optimiser
-    step, moves on); made anew otherwise
-    (:class:`~.operand_cache.OperandCache`)."""
+    (:func:`split_planes`), transposed past a residual width of
+    _TF32_RESIDENT_MAX_WIDTH, where the rule gives the prenormed form
+    whose products read them so.  ``stacked=False``: one block's own
+    (depth 1, the leading dim dropped: :func:`block`'s).  Reused while
+    every leaf is the same tensor at the same ``_version`` (which any
+    in-place update, such as an optimiser step, moves on); made anew
+    otherwise (:class:`~.operand_cache.OperandCache`)."""
     d, hidden = flat[0].shape[0], flat[8].shape[-1]
     if variant is None and d % num_heads == 0:
         variant = _variant(dtype, d, num_heads, hidden)
 
     def make():
-        stacked = _stack([t.to(dtype) for t in flat], depth)
+        made = _stack([t.to(dtype) for t in flat], depth)
         pad = head_pad(variant, d // num_heads) if variant else 0
         if pad:
-            stacked = _pad_heads(stacked, num_heads, pad)
+            made = _pad_heads(made, num_heads, pad)
         width, mlp = width_pads(variant, d, hidden) if variant else (0, 0)
         if width or mlp:
-            stacked = _pad_width(stacked, width or d, mlp or hidden)
-        return split_planes(stacked) if variant == "tf32x3" else stacked
+            made = _pad_width(made, width or d, mlp or hidden)
+        if variant == "tf32x3":
+            made = split_planes(
+                made, (width or d) > _TF32_RESIDENT_MAX_WIDTH)
+        return made if stacked else [t[0] for t in made]
 
-    return _OPERANDS.get((dtype, num_heads, variant), flat, make)
+    return _OPERANDS.get((dtype, num_heads, variant, stacked), flat, make)
 
 
 def _launch_operands(x: torch.Tensor, flat: Sequence[torch.Tensor],
@@ -1028,20 +1151,36 @@ class _Block(torch.autograd.Function):
                 *[next(grads) if t.requires_grad else None for t in flat])
 
 
+def _block_operands(x: torch.Tensor, flat: Sequence[torch.Tensor],
+                    num_heads: int) -> Optional[List[torch.Tensor]]:
+    """The block kernel's weights for a call that needs no gradient: one
+    block's ``flat`` leaves cast to ``x.dtype``, padded and (``"tf32x3"``)
+    split as :func:`_operands` makes them, once per parameter set.  None
+    when a gradient is needed."""
+    if _wants_grad(x, flat):
+        return None
+    return _operands(flat, 1, x.dtype, num_heads, stacked=False)
+
+
 def block(x: torch.Tensor, p: Params, num_heads: int) -> torch.Tensor:
     """One fused ViT block on (B, S, D) tokens: the CUDA kernel for a CUDA
     tensor, as :func:`plan` decides (a shape it refuses, or a launch that
     fails, raises), the plain twin for a CPU tensor.  ``p`` is one block's
     param dict; its leaves are cast to ``x.dtype`` at use, so float32
-    masters get their gradients through the cast.  The autograd Function is
-    taken only when a gradient is needed."""
+    masters get their gradients through the cast.  On the card with no
+    gradient needed, the cast, padded and split weights are made once per
+    parameter set (:func:`_block_operands`); the autograd Function is taken
+    only when a gradient is needed."""
     if x.is_cuda and x.dtype not in _DTYPE_CODES:
         raise TypeError(f"block kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.is_cuda:
+        ready = _block_operands(x, [p[mod][field] for mod, field in _FIELDS],
+                                num_heads)
+        if ready is not None:
+            return _launch(x, ready, num_heads, stacked=False)
     p = {mod: {field: t.to(x.dtype) for field, t in leaves.items()}
          for mod, leaves in p.items()}
     flat = [p[mod][field] for mod, field in _FIELDS]
     if not x.is_cuda:
         return block_reference(x, p, num_heads)
-    if _wants_grad(x, flat):
-        return _Block.apply(x, num_heads, *flat)
-    return _launch(x, flat, num_heads, stacked=False)
+    return _Block.apply(x, num_heads, *flat)

@@ -46,15 +46,20 @@ is the panel kernel): kernel 1 at (1, 320, 1024) x 24 and kernel 2 at (16,
 320, 1024), seven launches a block (the two LN launches, qkv, attention,
 proj, mlp1, mlp2), the launch's device us (a replayed CUDA graph), Model A
 also at the panels of o a CTA the plan did not take (``Plan.group`` 1 and
-2, float32 also 4), and beside each product ``torch.matmul``'s device us on
-the same shapes (float32 without TF32).
+2, float32 also 4), the prenormed products at other N tiles
+(``WIDE_NAMED``, float32 ``WIDE_NAMED_F32``), float32 also the streamed
+form by name (the design the prenormed ring replaced), and beside each
+product ``torch.matmul``'s device us on the same shapes (float32 without
+TF32).
 
 ``cut``: ``wide``'s two launches at the plan (device us a launch, a
 replayed CUDA graph) for the shipped build and for builds that leave out
 of the ring products their ``wgmma``, their f32 adds, or both
 (``csrc/encoder_mma.cuh`` rewritten in a copy under ``build/``; the
 outputs are wrong, the times say what the copies, the tensor-core steps
-and the sums each cost).
+and the sums each cost); then the same in float32 for builds of
+``csrc/ring_tf32.cuh`` without the products (``wgmma``), the f32 adds,
+both, the split of A into its TF32 parts, or all three.
 
 Prints the card's name and power limit, then one JSON object a section.
 """
@@ -257,9 +262,13 @@ WIDE = dict(dim=1024, heads=16, hidden=4096, depth=24)
 WIDE_HEADS = {"ViT-L": 16, "Model A": 4}
 WIDE_REPS = 5
 # Besides the plan, the prenormed products timed at these (warpgroups, N
-# tiles) by batch.
+# tiles) by batch; float32 at these N tiles (the plan's warpgroups: at
+# batch 1 (128,) * 4 and (64,) * 4 deal no product's K to two consumers,
+# (32,) * 4 every one's).
 WIDE_NAMED = {1: ((1, (64, 32, 64, 32)), (2, (128,) * 4)),
               16: ((2, (64,) * 4), (1, (64,) * 4))}
+WIDE_NAMED_F32 = {1: ((128,) * 4, (64,) * 4, (32,) * 4),
+                  16: ((64,) * 4, (32,) * 4)}
 # The seven launches of a bf16 block at ViT-L's width, in order, by the
 # plan's LN form: the streamed products (a statistics launch, then
 # each chunk normalised as it lands) and the prenormed ones (the LN rows
@@ -329,10 +338,17 @@ def wide_stages(dev, dtype=torch.bfloat16) -> dict:
             groups = (1, 2) if dtype == torch.bfloat16 else (1, 2, 4)
             plans = [chosen] + [chosen._replace(group=g) for g in groups
                                 if g != chosen.group]
-        else:
+        elif dtype == torch.bfloat16:
             plans = [chosen] + ([chosen._replace(warpgroups=g, tiles=t)
                                  for g, t in WIDE_NAMED[batch]]
                                 if chosen.ln == "prenormed" else [])
+        else:
+            plans = [chosen] + [chosen._replace(tiles=t)
+                                for t in WIDE_NAMED_F32[batch]
+                                if t != chosen.tiles]
+        if dtype == torch.float32:     # the design the ring replaced, by name
+            plans.append(vit_block._plan_for(x, heads, hidden, "streamed")
+                         ._replace(group=chosen.group))
         label = f"{model} {label}"
         row = {"plan": list(chosen)}
         for i, p in enumerate(plans):
@@ -342,7 +358,9 @@ def wide_stages(dev, dtype=torch.bfloat16) -> dict:
                                  WIDE_REPS))
             if i == 0:
                 row.update(got)
-            elif chosen.group:
+            elif p.ln != chosen.ln:
+                row[p.ln] = got
+            elif p.group != chosen.group:
                 row[f"group {p.group}"] = got
             else:
                 row[f"warpgroups {p.warpgroups} tiles {p.tiles}"] = got
@@ -364,19 +382,47 @@ _CUT = {
              "  for (int i = 0; i < N; ++i) asm volatile(\"\" :: \"f\"(to[i]), \"f\"(from[i]));")}
 
 
-def _rewritten_builds(builds: dict) -> dict:
+# What the float32 cut builds take out of csrc/ring_tf32.cuh's products:
+# the three wgmma of every step (the fragments kept live, a fresh
+# accumulator's first step zeroing it), the f32 adds of the chunks' sums,
+# or the split of each A element into its TF32 parts; and what the design
+# not taken would add: A read as two planes (its chunk copied twice, both
+# counted on the stage's barrier) in place of the split.
+_CUT_TF32 = {
+    "products": ("  wgmma_tf32<N>(d, lo, descriptor(b), scale_d);\n"
+                 "  wgmma_tf32<N>(d, hi, descriptor(b + plane), 1);\n"
+                 "  wgmma_tf32<N>(d, hi, descriptor(b), 1);",
+                 "  asm volatile(\"\" :: \"r\"(lo[0]), \"r\"(lo[1]), \"r\"(lo[2]), "
+                 "\"r\"(lo[3]), \"r\"(hi[0]), \"r\"(hi[1]), \"r\"(hi[2]), "
+                 "\"r\"(hi[3]), \"r\"(b + plane));\n"
+                 "  if (!scale_d)\n"
+                 "    for (int i = 0; i < N / 2; ++i) d[i] = 0.f;"),
+    "adds": ("        for (int i = 0; i < kRegs; ++i) "
+             "acc[ch][i] += part[0][i] + part[1][i];",
+             "        for (int i = 0; i < kRegs; ++i) "
+             "asm volatile(\"\" :: \"f\"(part[0][i]), \"f\"(part[1][i]));"),
+    "split": ("  tf::split(x, hi, lo);", "  hi = lo = __float_as_uint(x);"),
+    "a_bytes": ("panel::mbar_expect_tx(full(s), R::kStageBytes);",
+                "panel::mbar_expect_tx(full(s), R::kStageBytes + R::kABytes);"),
+    "a_twice": ("panel::tma_load(stage, &a_map, full(s), c * kChunk, m0);",
+                "panel::tma_load(stage, &a_map, full(s), c * kChunk, m0);\n"
+                "          panel::tma_load(stage, &a_map, full(s), c * kChunk, "
+                "m0);")}
+
+
+def _rewritten_builds(builds: dict, source: str = "encoder_mma.cuh") -> dict:
     """``vit_encoder`` built from copies of the sources under ``build/``,
-    ``builds`` = {name: ([(encoder_mma.cuh's statement, its replacement),
-    ...], extra nvcc flags)}, every build compiled at once: {name: loaded
+    ``builds`` = {name: ([(``source``'s statement, its replacement), ...],
+    extra nvcc flags)}, every build compiled at once: {name: loaded
     library}.  Raises if a statement is no longer in the source once."""
-    with open(os.path.join(cuda_build.CSRC, "encoder_mma.cuh")) as f:
+    with open(os.path.join(cuda_build.CSRC, source)) as f:
         shipped = f.read()
     procs = {}
     for name, (edits, flags) in builds.items():
         src = shipped
         for old, new in edits:
             if shipped.count(old) != 1:
-                raise RuntimeError(f"encoder_mma.cuh no longer has {old!r} once")
+                raise RuntimeError(f"{source} no longer has {old!r} once")
             src = src.replace(old, new)
         where = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "rewritten",
                              name)
@@ -384,7 +430,7 @@ def _rewritten_builds(builds: dict) -> dict:
         for fn in os.listdir(cuda_build.CSRC):
             if fn.endswith((".cu", ".cuh")):
                 shutil.copy(os.path.join(cuda_build.CSRC, fn), where)
-        with open(os.path.join(where, "encoder_mma.cuh"), "w") as f:
+        with open(os.path.join(where, source), "w") as f:
             f.write(src)
         out = os.path.join(where, "libvit_encoder.so")
         cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", out,
@@ -405,17 +451,33 @@ def cut_launches(dev) -> dict:
     two cases at the plan, with the shipped kernel and with builds whose
     ring products leave out their wgmma, their f32 adds, or both (wrong
     outputs: for the time alone): what the products' copies, tensor-core
-    steps and sums each cost."""
+    steps and sums each cost; then the float32 cases with builds of the
+    float32 ring (``_CUT_TF32``) without its products, its adds, both, the
+    split of A, or all three (the copies alone)."""
     builds = {"shipped": ([], []), "no wgmma": ([_CUT["wgmma"]], []),
               "no adds": ([_CUT["adds"]], []),
               "no wgmma, no adds": ([_CUT["wgmma"], _CUT["adds"]], [])}
-    cases = _wide_cases(dev)
+    cut = _CUT_TF32
+    builds_f32 = {
+        "shipped": ([], []), "no products": ([cut["products"]], []),
+        "no adds": ([cut["adds"]], []),
+        "no products, no adds": ([cut["products"], cut["adds"]], []),
+        "no split": ([cut["split"]], []),
+        "no products, adds or split": (
+            [cut["products"], cut["adds"], cut["split"]], []),
+        "A read as two planes": (
+            [cut["split"], cut["a_bytes"], cut["a_twice"]], [])}
     out = {}
-    for name, lib in _rewritten_builds(builds).items():
-        with _library(lib):
-            out[name] = {label: _graph_us(vit_block.prepared(
-                x, weights_, WIDE["heads"], stacked)[1])
-                for label, x, weights_, stacked in cases}
+    for dtype, built in ((torch.bfloat16, _rewritten_builds(builds)),
+                         (torch.float32, _rewritten_builds(
+                             builds_f32, "ring_tf32.cuh"))):
+        cases = _wide_cases(dev, dtype)
+        for name, lib in built.items():
+            with _library(lib):
+                out[f"{str(dtype)[6:]} {name}"] = {
+                    label: _graph_us(vit_block.prepared(
+                        x, weights_, WIDE["heads"], stacked)[1])
+                    for label, x, weights_, stacked in cases}
     return out
 
 

@@ -913,11 +913,11 @@ def test_wide_widths_stream_and_match_twin(dev, dtype, d, heads):
     # Widths past the resident LN products (D 1024), and padded ones (D 776:
     # bf16 to 832, float32 to 800, head dim 97 to 128 / 104; D 1000 float32
     # to 1024, head dim 125 to 128): the encoder and block kernels as the
-    # plan takes them (bf16 prenormed, float32 streamed where the rows do
-    # not fit), and with the variant's wide form named, against the twin;
-    # the resident form, where it fits, equals the wide one bit for bit,
-    # and where it does not, naming it raises.  Float32 never launches
-    # simt.
+    # plan takes them (prenormed in both dtypes), and with the variant's
+    # wide form named, against the twin; float32's streamed form named
+    # equals it bit for bit; the resident form, where it fits, equals the
+    # wide one bit for bit, and where it does not, naming it raises.
+    # Float32 never launches simt.
     gen = torch.Generator().manual_seed(d + heads)
     blocks = _blocks(gen, d, 2, 4 * d, dtype, dev)
     flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
@@ -935,11 +935,18 @@ def test_wide_widths_stream_and_match_twin(dev, dtype, d, heads):
     stacked = vit_block._stack(flat, 2)
     wide, launch = vit_block.prepared(
         x, stacked, heads, True,
-        chosen=rule._replace(ln=vit_block._WIDE_LN[rule.variant]))
+        chosen=rule._replace(ln="prenormed"))
     launch()
     torch.cuda.synchronize()
     _check_close(wide, ref, dtype)
     assert torch.equal(wide, got)
+    if dtype == torch.float32:
+        streamed, launch = vit_block.prepared(
+            x, stacked, heads, True,
+            chosen=vit_block._plan_for(x, heads, 4 * d, "streamed"))
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(streamed, got)
     if vit_block._fits(rule.variant, "resident", rule.width or d, rule.tiles,
                        rule.warpgroups, vit_block.attention.card(dev)[0]):
         resident, launch = vit_block.prepared(

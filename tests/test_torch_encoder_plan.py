@@ -120,7 +120,7 @@ def test_plan_n_tile_by_batch():
     (F32, 32, 2, 128, "tf32x3"),     # the dry run's serving model: dh 16
     (F32, 192, 8, 768, "tf32x3"),    # head dim 24: tf32x3 takes it as it is
     (F32, 192, 16, 768, "tf32x3"),   # head dim 12: padded to 16
-    (F32, 640, 5, 2560, "tf32x3"),   # D beyond 512: rows resident at N 64
+    (F32, 640, 5, 2560, "tf32x3"),   # D beyond 544: the LN rows prenormed
     (F32, 96, 2, 400, "tf32x3"),     # MLP width no multiple of 32: padded
     (BF16, 96, 2, 384, "mma"),       # small in bf16: dh 48 -> 64, D -> 128
     (BF16, 64, 4, 256, "mma"),       # head dim 16: padded to 32
@@ -161,9 +161,9 @@ def test_plan_variant_by_dtype_and_head_dim(dtype, dim, heads, hidden, variant):
     else:
         assert set(got.tiles) <= {16, 32, 64} and got.warpgroups in (1, 2)
     # Every width here keeps the LN products' rows resident but bf16 D 832,
-    # past 768, whose LN rows are written once (prenormed;
-    # tests/test_torch_wide_encoder.py holds the wide widths).
-    assert got.ln == ("prenormed" if (dtype, dim) == (BF16, 832)
+    # past 768, and float32 D 640, past 544, whose LN rows are written once
+    # (prenormed; tests/test_torch_wide_encoder.py holds the wide widths).
+    assert got.ln == ("prenormed" if (dtype, dim) in ((BF16, 832), (F32, 640))
                       else "resident")
 
 

@@ -167,14 +167,15 @@ def _chain(acc, a, w_hi, w_lo, three=True):
     return acc
 
 
-def _products(a, w_hi, w_lo, three=True, chunk=32, wgs=1):
+def _products(a, w_hi, w_lo, three=True, chunk=32, wgs=1, parity=True):
     """a @ w as the product kernel takes it: ``chunk`` columns of a (rows
     of w) at a time, the chunk's even 8-deep steps in one fresh accumulator
     and its odd ones in another (``_mma3``), the two added and then added
     to the sum in float32; with ``wgs`` warpgroups, warpgroup w sums chunks
     w, w + wgs, ... and the sums are added at the end; ``chunk=None`` one
     accumulator over all of K (a planted fault: a chain of truncated sums
-    as long as K)."""
+    as long as K); ``parity=False`` the even and odd steps in one fresh
+    accumulator a chunk (a planted fault)."""
     out = torch.zeros(a.shape[:-1] + (w_hi.shape[-1],))
     if chunk is None:
         return _chain(out, a, w_hi, w_lo, three)
@@ -182,9 +183,9 @@ def _products(a, w_hi, w_lo, three=True, chunk=32, wgs=1):
     for n, c0 in enumerate(range(0, a.shape[-1], chunk)):
         parts = [torch.zeros_like(out), torch.zeros_like(out)]
         for step, c in enumerate(range(c0, min(c0 + chunk, a.shape[-1]), 8)):
-            parts[step % 2] = _chain(parts[step % 2], a[..., c:c + 8],
-                                     w_hi[..., c:c + 8, :],
-                                     w_lo[..., c:c + 8, :], three)
+            e = step % 2 if parity else 0
+            parts[e] = _chain(parts[e], a[..., c:c + 8], w_hi[..., c:c + 8, :],
+                              w_lo[..., c:c + 8, :], three)
         sums[n % wgs] = sums[n % wgs] + (parts[0] + parts[1])
     total = sums[0]
     for more in sums[1:]:
@@ -388,3 +389,275 @@ def test_padded_heads_emulated_equal_the_unpadded():
         scale_dh=d // heads)
     want = emulate_encoder(x, blocks, heads)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# The widths past the resident form: the prenormed ring (csrc/ring_tf32.cuh)
+# against the streamed form it replaced (encoder_tf32.cuh's product_kernel
+# with kLnStreamed), emulated
+# ---------------------------------------------------------------------------
+
+def _ln_streamed(x, scale, bias, dim):
+    """The streamed form's LN output: row_stats_kernel<float>'s (mean, rstd)
+    (eight lanes a row; lane c adds, one at a time, the floats before
+    ``dim`` of its 16-byte chunks c, c + 8, ... of the row; the lanes' sums
+    added as group8_sum's three xor-shuffles add them; the sum over dim,
+    1 / sqrt(var + eps)), then load_a_ln's (x - mean) . rstd . scale + bias
+    on each element, every operation rounded on its own."""
+    k = torch.tensor(float(dim), dtype=F32)
+
+    def lanes(t):
+        acc = [torch.zeros(t.shape[:-1], dtype=F32) for _ in range(8)]
+        for col in range(dim):
+            acc[col // 4 % 8] = acc[col // 4 % 8] + t[..., col]
+        s = torch.stack(acc, -1)
+        for o in (1, 2, 4):
+            s = s + s[..., torch.arange(8) ^ o]
+        return s[..., :1]
+
+    mu = lanes(x) / k
+    t = x - mu
+    rstd = 1.0 / torch.sqrt(lanes(t * t) / k + torch.tensor(1e-6, dtype=F32))
+    return (t * rstd) * scale + bias
+
+
+def emulate_wide(x, flat, depth, heads, dim, form, chosen, three=True,
+                 parity=True):
+    """The float32 encoder kernel in LN form ``form`` at a width past the
+    resident form, block by block: x (B, S, W) zero-padded past ``dim``,
+    ``flat`` the blocks' leaves.  ``"prenormed"``: the LN rows written
+    once (``vit_block.ln_rows_reference``, the plain version of
+    ln_rows_kernel<float>), the weights' planes as the operand cache makes
+    them (transposed, K-major), each product's K split where
+    ``vit_block._tf32_ring`` deals it to two consumers; ``"streamed"``:
+    the LN of ``_ln_streamed`` on every element as it lands, the planes
+    (K, N) of ``split_planes`` after the cache's pad, K split where
+    product_tf32 gives a product two warpgroups (N tile 16 or 32 at the
+    plan's two).  ``chosen``: the plan whose tiles and warpgroups the
+    products run at (the tracker's 320 tokens); the attention at its
+    warpgroups."""
+    b, s, w = x.shape
+    d = flat[0].shape[0]
+    ops = vit_block._operands(flat, depth, F32, heads)
+    if form == "streamed":
+        stacked = vit_block._pad_width(vit_block._stack(flat, depth), w,
+                                       ops[9].shape[-1])
+        planes = vit_block.split_planes(stacked)
+    else:
+        planes = [t.transpose(-1, -2) if i in vit_block._KERNELS else t
+                  for i, t in enumerate(ops)]
+    dh = ops[3].shape[-1] // (3 * heads)
+
+    def split_k(tile):
+        if form == "prenormed":
+            return 2 if vit_block._tf32_ring(tile, chosen.warpgroups)[2] else 1
+        return 1 if tile == 64 else chosen.warpgroups
+
+    wgs = [split_k(t) for t in chosen.tiles]
+
+    def linear(a, i, n):
+        return _products(a, planes[i][n, 0], planes[i][n, 1], three, 32,
+                         wgs[vit_block._KERNELS.index(i)], parity) \
+            + planes[i + 1][n]
+
+    def ln(t, n, j):
+        if form == "prenormed":
+            return vit_block.ln_rows_reference(t, planes[j][n],
+                                               planes[j + 1][n], dim)
+        return _ln_streamed(t, planes[j][n], planes[j + 1][n], dim)
+
+    def heads_of(t):
+        return t.reshape(b, s, heads, dh).transpose(1, 2).reshape(
+            b * heads, s, dh)
+
+    for n in range(depth):
+        q, k, v = torch.chunk(linear(ln(x, n, 0), 2, n), 3, -1)
+        a = _attention(heads_of(q), heads_of(k), heads_of(v), three,
+                       d // heads, chosen.warpgroups)
+        a = a.reshape(b, heads, s, dh).transpose(1, 2).reshape(b, s, heads * dh)
+        x = x + linear(a, 4, n)
+        g = F.gelu(linear(ln(x, n, 6), 8, n), approximate="tanh")
+        x = x + linear(g, 10, n)
+    return x
+
+
+def _wide_case(dim, heads, depth=1, tokens=8):
+    """Seeded float32 blocks of width ``dim`` (MLP 4 dim) and tokens from
+    numpy, the torch leaves and JAX's arrays of the same numbers."""
+    rng = np.random.default_rng(dim)
+
+    def w(*shape, std=0.1, base=0.0):
+        return (base + std * rng.standard_normal(shape)).astype(np.float32)
+
+    h = 4 * dim
+    blocks = [{"ln1": {"scale": w(dim, base=1.0), "bias": w(dim)},
+               "ln2": {"scale": w(dim, base=1.0), "bias": w(dim)},
+               "qkv": {"kernel": w(dim, 3 * dim, std=dim ** -0.5),
+                       "bias": w(3 * dim)},
+               "proj": {"kernel": w(dim, dim, std=dim ** -0.5), "bias": w(dim)},
+               "mlp1": {"kernel": w(dim, h, std=dim ** -0.5), "bias": w(h)},
+               "mlp2": {"kernel": w(h, dim, std=h ** -0.5), "bias": w(dim)}}
+              for _ in range(depth)]
+    x = w(1, tokens, dim, std=1.0)
+    tblocks = [{m: {f: torch.from_numpy(a) for f, a in leaves.items()}
+                for m, leaves in p.items()} for p in blocks]
+    jblocks = [{m: {f: jnp.asarray(a) for f, a in leaves.items()}
+                for m, leaves in p.items()} for p in blocks]
+    return tblocks, torch.from_numpy(x), jblocks, jnp.asarray(x)
+
+
+# The prenormed emulation against the port's twin and JAX's
+# encoder_reference at D 1024 (16 heads of 64) and at D 992 (31 heads of
+# 32, run at a residual width of 1024), one block, 8 tokens, at the plan of
+# the tracker's 320 tokens at batch 1 (N tiles (64, 32, 64, 32), two
+# warpgroups: proj's and mlp2's K dealt to two consumers).
+WIDE_DIMS = [(1024, 16), (992, 31)]
+
+
+@pytest.fixture(scope="module")
+def wide_emulations():
+    """Per width: (blocks, x, the twin, JAX's reference, the plan, the
+    streamed and prenormed emulations)."""
+    out = {}
+    for dim, heads in WIDE_DIMS:
+        blocks, x, jblocks, jx = _wide_case(dim, heads)
+        chosen = vit_block.plan(1, 320, dim, heads, 4 * dim, F32, H100_SMS)
+        flat = [p[m][f] for p in blocks for m, f in vit_block._FIELDS]
+        xp = F.pad(x, (0, (chosen.width or dim) - dim))
+        emu = {form: emulate_wide(xp, flat, 1, heads, dim, form, chosen)
+               for form in ("streamed", "prenormed")}
+        out[dim] = (flat, xp, heads, chosen,
+                    vit_block.encoder_reference(x, blocks, heads),
+                    np.asarray(jvb.encoder_reference(jx, jblocks, heads)), emu)
+    return out
+
+
+@pytest.mark.parametrize("dim,heads", WIDE_DIMS)
+def test_prenormed_emulation_equals_the_streamed_one(wide_emulations, dim,
+                                                     heads):
+    # The LN rows written once and the ring's K split give the streamed
+    # form's outputs bit for bit (what the card's digests of ViT-L, ViT-H
+    # and Model A hold), and both are the twin's and JAX's to the float32
+    # bounds.
+    flat, xp, heads, chosen, twin, jref, emu = wide_emulations[dim]
+    # Two warpgroups at D 1024 (80 attention CTAs on 132 SMs); 155 at D 992.
+    assert (chosen.ln, chosen.tiles, chosen.warpgroups) == (
+        "prenormed", (64, 32, 64, 32), {1024: 2, 992: 1}[dim])
+    assert torch.equal(emu["prenormed"], emu["streamed"])
+    assert not emu["prenormed"][..., dim:].any()
+    got = emu["prenormed"][..., :dim]
+    for ref in (twin.numpy(), jref):
+        d = float(np.abs(got.numpy() - ref).max())
+        assert d <= F32_ATOL and d / np.abs(ref).max() <= EMU_REL_TOL, d
+
+
+@pytest.mark.parametrize("fault", ["single", "merged"])
+def test_prenormed_planted_faults_are_caught(wide_emulations, fault):
+    # A single TF32 product (hi.hi alone) or the chunk's even and odd steps
+    # in one fresh accumulator: no longer the streamed form's bits (the
+    # card's digests), and the single product is also past the bound.
+    flat, xp, heads, chosen, twin, jref, emu = wide_emulations[1024]
+    got = emulate_wide(xp, flat, 1, heads, 1024, "prenormed", chosen,
+                       three=fault != "single", parity=fault != "merged")
+    assert not torch.equal(got, emu["streamed"])
+    d = float((got - twin).abs().max())
+    if fault == "single":
+        assert d > F32_ATOL, d
+
+
+def test_ln_rows_plain_version_equals_the_streamed_ln_in_float32():
+    # ln_rows_kernel<float>'s plain version is the streamed form's LN (its
+    # statistics, then layer_norm1 on each element) bit for bit, at D 1024
+    # and at D 992 in a residual width of 1024 (zero past D).
+    for dim, width in ((1024, 1024), (992, 1024), (1280, 1280)):
+        gen = torch.Generator().manual_seed(dim)
+        x = 3.0 * torch.randn((2, 5, width), generator=gen) + 0.5
+        x[..., dim:] = 0.0
+        s = F.pad(1.0 + 0.1 * torch.randn(dim, generator=gen), (0, width - dim))
+        b = F.pad(0.1 * torch.randn(dim, generator=gen), (0, width - dim))
+        got = vit_block.ln_rows_reference(x, s, b, dim)
+        assert got.dtype == F32
+        assert torch.equal(got, _ln_streamed(x, s, b, dim))
+        assert not got[..., dim:].any()
+
+
+def test_transposed_planes_of_the_operand_cache():
+    # Past a residual width of 544 the cache lays each kernel's planes out
+    # transposed ((depth, 2, out, in)), bit for bit split_tf32 of the
+    # padded kernel; up to it as before.
+    gen = torch.Generator().manual_seed(7)
+    d, heads, hidden, depth = 576, 9, 96, 2
+    shapes = [(d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,), (d,), (d,),
+              (d, hidden), (hidden,), (hidden, d), (d,)]
+    flat = [torch.randn(s, generator=gen) for _ in range(depth) for s in shapes]
+    ops = vit_block._operands(flat, depth, F32, heads)
+    stacked = vit_block._stack(flat, depth)
+    for i in vit_block._KERNELS:
+        hi, lo = vit_block.split_tf32(stacked[i])
+        assert ops[i].shape == (depth, 2) + stacked[i].shape[:0:-1]
+        assert torch.equal(ops[i][:, 0], hi.transpose(-1, -2))
+        assert torch.equal(ops[i][:, 1], lo.transpose(-1, -2))
+        assert ops[i].is_contiguous()
+    # The split layout follows the form a named plan reads.
+    assert vit_block._split_layout(ops, False, d)[2].shape == (depth, 2, d, 3 * d)
+    assert vit_block._split_layout(ops, True, d)[2] is ops[2]
+
+
+def test_block_wrapper_builds_its_operands_once():
+    # Kernel 2's wrapper on the card takes one block's weights from the
+    # operand cache: a second call with the same leaves builds nothing; an
+    # in-place update builds them anew; a gradient bypasses the cache.
+    gen = torch.Generator().manual_seed(8)
+    d, hidden, heads = 576, 128, 9
+    shapes = [(d,), (d,), (d, 3 * d), (3 * d,), (d, d), (d,), (d,), (d,),
+              (d, hidden), (hidden,), (hidden, d), (d,)]
+    flat = [torch.randn(s, generator=gen) for s in shapes]
+    x = torch.zeros((2, 5, d))
+    built = []
+    real = vit_block.split_planes
+
+    def counted(*args, **kwargs):
+        built.append(1)
+        return real(*args, **kwargs)
+
+    vit_block.split_planes = counted
+    try:
+        a = vit_block._block_operands(x, flat, heads)
+        assert vit_block._block_operands(x, flat, heads) is a
+        assert len(built) == 1
+        assert [tuple(t.shape) for t in a][2] == (2, 3 * d, d)
+        with torch.no_grad():
+            flat[4].add_(1.0)
+        assert vit_block._block_operands(x, flat, heads) is not a
+        assert len(built) == 2
+        grad = [t.clone().requires_grad_(True) for t in flat]
+        assert vit_block._block_operands(x, grad, heads) is None
+    finally:
+        vit_block.split_planes = real
+
+
+def test_profile_float32_cut_rewrites_find_their_statements():
+    # profile_encoder.py's float32 cut builds rewrite statements of
+    # csrc/ring_tf32.cuh in a copy; each must stand there once (the builds
+    # raise on the card otherwise).
+    from gstreamer_vit_tracker_tpu_torch import profile_encoder as pe
+
+    with open(f"{pe.cuda_build.CSRC}/ring_tf32.cuh") as f:
+        src = f.read()
+    for old, new in pe._CUT_TF32.values():
+        assert src.count(old) == 1 and old != new, old
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kTwoCtaBytes", vit_block.attention._TWO_CTA_BYTES),
+    ("kOneCtaBytes", vit_block.H100_OPTIN),
+    ("kMaxStages", vit_block._TF32_RING_MAX_STAGES),
+    ("kChunk", vit_block._TF32_CHUNK), ("kRows", vit_block._ROWS)])
+def test_ring_geometry_constants_are_the_sources(name, value):
+    # ln_smem_bytes's mirror of the float32 ring's shared memory (the plan's
+    # fit and the forms a caller may name) rests on these constants of
+    # csrc/ring_tf32.cuh.
+    import re
+
+    with open(f"{vit_block.cuda_build.CSRC}/ring_tf32.cuh") as f:
+        assert int(re.search(rf"{name} = (\d+);", f.read()).group(1)) == value

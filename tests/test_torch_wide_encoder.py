@@ -3,8 +3,9 @@ products (ViT-L's D 1024 and ViT-H's D 1280, 16 heads) and kernel 5 above
 D 1024, against the JAX package on the CPU.
 
 On the card these widths run the prenormed form of the LN products in
-bf16 (the LN rows written once, then every product through a TMA ring)
-and the streamed form in float32 (``ops/vit_block.py::plan``,
+both dtypes (the LN rows written once, then every product through a TMA
+ring; float32's on split-TF32 ``wgmma``, ``csrc/ring_tf32.cuh``), the
+float32 streamed form by name only (``ops/vit_block.py::plan``,
 ``Plan.ln``); on the CPU each wrapper is its
 plain twin, which these tests hold to JAX at small sizes: template 32,
 search 64, patch 16 (20 tokens), depth 1, seeded weights (numpy, carried
@@ -23,9 +24,11 @@ to the port by ``models/weights.py::params_from_flat``).
   bf16 ``mma`` prenormed at every width (all past 768), its ring's shared
   memory within the H100's 232,448 bytes at the tiles and warpgroups it
   picks; ``tf32x3``
-  (never ``simt``) for every float32 width, the streamed form exactly
-  where the resident one does not fit; kernel 5's plan at D 1280 and
-  2048.
+  (never ``simt``) for every float32 width, prenormed at every one (all
+  past 544), N tiles 128 where 128-row CTAs fill the card; the float32
+  forms by width (resident up to 544, at any batch) and by name
+  (``"streamed"``, and a named form that does not fit raises); kernel 5's
+  plan at D 1280 and 2048.
 """
 
 import dataclasses
@@ -183,8 +186,10 @@ def test_plan_takes_every_wide_width(dim, dtype):
     # (all past 768), the ring of every product within the H100's opt-in
     # shared memory at its N tile and the plan's warpgroups (two once
     # 128-row CTAs fill the card: batch 16).  float32: always tf32x3 (simt
-    # by name only), the LN products streamed exactly where their resident
-    # rows do not fit at the plan's N tiles.
+    # by name only), the LN rows prenormed at every one (all past 544, where
+    # the resident rows do not fit at every N tile), the ring of every
+    # product within the opt-in shared memory, N tiles of 128 where 128-row
+    # CTAs fill the card, else the streamed form's (16, 32 or 64).
     heads = 8 if dim == 776 else 13 if dim == 832 else 16
     for batch in (1, 16):
         got = vit_block.plan(batch, 320, dim, heads, 4 * dim, dtype, H100_SMS)
@@ -206,17 +211,16 @@ def test_plan_takes_every_wide_width(dim, dtype):
                 vit_block._fit(128 if got.warpgroups == 2 else 64, n)
                 for n in cols), got
             continue
-        assert got.variant == "tf32x3", got
-        resident = [vit_block.ln_smem_bytes(got.variant, "resident", width, t,
-                                            got.warpgroups)
-                    for t in (got.tiles[0], got.tiles[2])]
-        assert got.ln == ("resident" if max(resident) <= H100_OPTIN
-                          else "streamed"), (got, resident)
-        assert vit_block.ln_smem_bytes(got.variant, "streamed", width,
-                                       max(got.tiles), got.warpgroups) \
-            <= H100_OPTIN
-        if dim in (1024, 1280):    # ViT-L's and ViT-H's widths stream
-            assert got.ln == "streamed", got
+        assert (got.variant, got.ln) == ("tf32x3", "prenormed"), got
+        assert all(vit_block.ln_smem_bytes(got.variant, "prenormed", width, t,
+                                           got.warpgroups) <= H100_OPTIN
+                   for t in got.tiles), got
+        wide = vit_block._ring_warpgroups(batch * 320, width, H100_SMS) == 2
+        assert got.tiles == ((128,) * 4 if wide else vit_block._tiles(
+            5 * batch, heads * (got.pad or dim // heads), width,
+            got.mlp or 4 * dim, H100_SMS, True)), got
+        if dim in (1024, 1280):    # ViT-L's and ViT-H's widths
+            assert wide == (batch == 16), got
     # The rings do not grow with the width; the resident rows do.
     assert vit_block.ln_smem_bytes("tf32x3", "streamed", 1024, 64) == \
         vit_block.ln_smem_bytes("tf32x3", "streamed", 8192, 64)
@@ -224,6 +228,48 @@ def test_plan_takes_every_wide_width(dim, dtype):
         vit_block.ln_smem_bytes("mma", "prenormed", 8192, 128, 2) == 197728
     assert vit_block.ln_smem_bytes("mma", "resident", 1024, 64) == 263168
     assert vit_block.ln_smem_bytes("mma", "resident", 768, 64) == 197632
+
+
+def test_float32_forms_by_width_and_by_name():
+    # float32: the LN products' form from the residual width alone,
+    # resident up to 544 (D 96, 192, 512 and 544 at batch 1 and 16) and
+    # prenormed past it (576, ViT-L's 1024, ViT-H's 1280, Model A's 4 heads
+    # of 256); the streamed form only by name, at the tiles the streamed
+    # rule gives (never 128); a named form that does not fit raises.
+    for batch in (1, 16):
+        for dim, heads in ((96, 2), (192, 3), (512, 8), (544, 8), (576, 9),
+                           (1024, 16), (1024, 4), (1280, 16)):
+            got = vit_block.plan(batch, 320, dim, heads, 4 * dim, F32, H100_SMS)
+            assert got.ln == ("resident" if dim <= 544 else "prenormed"), got
+            named = vit_block.plan(batch, 320, dim, heads, 4 * dim, F32,
+                                   H100_SMS, ln="streamed")
+            assert named.ln == "streamed" and set(named.tiles) <= {16, 32, 64}
+            assert named._replace(ln=got.ln, tiles=got.tiles) == got or \
+                got.tiles == (128,) * 4, (got, named)
+            ring = vit_block.plan(batch, 320, dim, heads, 4 * dim, F32,
+                                  H100_SMS, ln="prenormed")
+            assert ring.ln == "prenormed"
+            if dim > 544:
+                assert ring == got
+    # ViT-L at batch 1: proj and mlp2 (N tile 32) deal K to two consumers,
+    # as the streamed form's two warpgroups did; qkv and mlp1 do not.
+    got = vit_block.plan(1, 320, 1024, 16, 4096, F32, H100_SMS)
+    assert [vit_block._tf32_ring(t, got.warpgroups) for t in got.tiles] == [
+        (1, 64, False), (2, 32, True), (1, 64, False), (2, 32, True)]
+    assert vit_block._tf32_ring(128, 1) == (2, 128, False)
+    with pytest.raises(ValueError, match="resident fits"):
+        vit_block.plan(1, 320, 1024, 16, 4096, F32, H100_SMS, ln="resident")
+    with pytest.raises(ValueError, match="prenormed fits"):
+        vit_block.plan(16, 320, 1024, 16, 4096, F32, H100_SMS, 65536,
+                       ln="prenormed")
+    with pytest.raises(ValueError, match="takes the LN forms"):
+        vit_block.plan(1, 320, 1024, 16, 4096, BF16, H100_SMS, ln="streamed")
+    rule = vit_block.plan(16, 320, 1024, 16, 4096, F32, H100_SMS)
+    assert vit_block._tile_refusal(rule) is None
+    for bad in (rule._replace(tiles=(128, 64, 128, 128)),
+                rule._replace(ln="streamed"),
+                rule._replace(tiles=(96,) * 4)):
+        assert vit_block._tile_refusal(bad) is not None, bad
 
 
 @pytest.mark.parametrize("dim", [1280, 2048])

@@ -301,10 +301,15 @@ def test_plans_take_every_wide_head_dim(dh, dtype):
         width = got.width or d
         # One warpgroup a CTA (tf32x3 splits head dims up to 64 alone), but
         # in the bf16 prenormed products: two once 128-row CTAs fill the
-        # card.
-        assert got.warpgroups == (
-            vit_block._ring_warpgroups(batch * 320, width, H100_SMS)
-            if got.ln == "prenormed" else 1), got
+        # card, where the float32 prenormed products take N tile 128 (CTAs
+        # of 128 x 128 rows and columns) instead.
+        wide = vit_block._ring_warpgroups(batch * 320, width, H100_SMS)
+        if got.ln == "prenormed" and dtype == BF16:
+            assert got.warpgroups == wide, got
+        else:
+            assert got.warpgroups == 1, got
+            if got.ln == "prenormed":
+                assert (got.tiles == (128,) * 4) == (wide == 2), got
         products = got.tiles if got.ln == "prenormed" else (got.tiles[0],
                                                             got.tiles[2])
         assert max(vit_block.ln_smem_bytes(got.variant, got.ln, width, t,
